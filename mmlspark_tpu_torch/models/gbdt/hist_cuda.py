@@ -1,15 +1,24 @@
-"""Per-level GBDT histogram: the wrapper of the CUDA kernel
-``csrc/level_hist.cu`` and its plain PyTorch version.
+"""Per-level GBDT histogram: the wrappers of the CUDA kernels
+``csrc/level_hist.cu`` (float32 stats) and ``csrc/level_hist_quant.cu``
+(int16/int8 quantized stats), and their plain PyTorch versions.
 
 ``level_histogram`` is the port of ``trainer._level_histogram`` (and of
 the TPU kernel ``hist_pallas._hist_kernel`` behind it): (N, F) uint8 bin
 ids plus per-row grad, hess, live and node-local id -> a (width, F, B, 3)
 float32 histogram of (grad*live, hess*live, live) sums.
 
-On a CUDA tensor it launches the kernel (a build or launch failure
-raises); on a CPU tensor it runs ``level_histogram_reference``. There is
-no other route. The kernel's design and bound are in the note at the top
-of ``csrc/level_hist.cu``.
+``level_histogram_quant`` is the port of
+``trainer._level_histogram_quant`` (``hist_pallas.
+pallas_level_histogram_quant`` on the TPU): int16/int8 grad and hess
+summed exactly in integers over the rows with ``live > 0``, then
+dequantized once, ``float32(int64_sum * float64(scale_inv))`` — the
+native merge of the JAX package's C++ data plane. Integer sums commute,
+so the result is the same bits whatever order rows are added in.
+
+On a CUDA tensor each wrapper launches its kernel (a build or launch
+failure raises); on a CPU tensor it runs its plain version. There is no
+other route. The kernels' designs and bounds are in the notes at the
+top of their sources.
 """
 
 from __future__ import annotations
@@ -18,17 +27,19 @@ import torch
 
 from mmlspark_tpu_torch.native import bindings
 
-# Launches of the level-histogram kernel in this process: the one
-# module-level counter the port keeps, so a run can show that its main
-# path went through the kernel.
+# Launches of each histogram kernel in this process, so a run can show
+# that its main path went through the kernels.
 hist_kernel_launches = 0
+hist_quant_kernel_launches = 0
 
 MAX_BINS = 256            # bin ids are uint8
 TILE_ROWS = 4096          # rows per CTA: amortizes the per-CTA flush
 SMEM_BYTES = 232_448      # dynamic shared memory a CTA may use on sm_90
+QUANT_DTYPES = (torch.int16, torch.int8)
 
 
-def _check_inputs(binned, grad, hess, live, local, width, f, b):
+def _check_inputs(binned, grad, hess, live, local, width, f, b,
+                  stat_dtypes=(torch.float32,)):
     if binned.dtype != torch.uint8 or binned.dim() != 2:
         raise ValueError(f"binned must be a 2-d uint8 tensor, got "
                          f"{binned.dtype} with shape {tuple(binned.shape)}")
@@ -40,10 +51,15 @@ def _check_inputs(binned, grad, hess, live, local, width, f, b):
                          f"got {b}")
     if width < 1:
         raise ValueError(f"width must be >= 1, got {width}")
+    if grad.dtype not in stat_dtypes or hess.dtype != grad.dtype:
+        raise ValueError(f"grad and hess must share one dtype of "
+                         f"{stat_dtypes}, got {grad.dtype} and {hess.dtype}")
     for name, t in (("grad", grad), ("hess", hess), ("live", live)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (n,):
-            raise ValueError(f"{name} must be float32 of shape ({n},), got "
-                             f"{t.dtype} {tuple(t.shape)}")
+        if tuple(t.shape) != (n,):
+            raise ValueError(f"{name} must have shape ({n},), got "
+                             f"{tuple(t.shape)}")
+    if live.dtype != torch.float32:
+        raise ValueError(f"live must be float32, got {live.dtype}")
     if local.dtype not in (torch.int32, torch.int64) \
             or tuple(local.shape) != (n,):
         raise ValueError(f"local must be int32/int64 of shape ({n},), got "
@@ -68,14 +84,19 @@ def level_histogram(binned, grad, hess, live, local, width: int, f: int,
     return _launch(binned, grad, hess, live, local, width, f, b)
 
 
+def flat_index(binned, local, f: int, b: int) -> torch.Tensor:
+    """(N*F,) int64 histogram cell of every (row, feature):
+    ``(local*F + f)*B + bin``."""
+    feats = torch.arange(f, dtype=torch.int64, device=binned.device)
+    return ((local.long()[:, None] * f + feats[None, :]) * b
+            + binned.long()).reshape(-1)
+
+
 def level_histogram_reference(binned, grad, hess, live, local, width: int,
                               f: int, b: int) -> torch.Tensor:
-    """Plain version: one ``index_add_`` over the flat index
-    ``(local*F + f)*B + bin``."""
+    """Plain version: one ``index_add_`` over ``flat_index``."""
     n = binned.shape[0]
-    feats = torch.arange(f, dtype=torch.int64, device=binned.device)
-    idx = ((local.long()[:, None] * f + feats[None, :]) * b
-           + binned.long()).reshape(-1)
+    idx = flat_index(binned, local, f, b)
     data = torch.stack([grad * live, hess * live, live], dim=-1)   # (n, 3)
     src = data[:, None, :].expand(n, f, 3).reshape(-1, 3)
     out = torch.zeros((width * f * b, 3), dtype=torch.float32,
@@ -83,15 +104,20 @@ def level_histogram_reference(binned, grad, hess, live, local, width: int,
     return out.index_add_(0, idx, src).reshape(width, f, b, 3)
 
 
-def tile_plan(local: torch.Tensor, width: int, tile_rows: int = TILE_ROWS):
+def tile_plan(local: torch.Tensor, width: int, keep: torch.Tensor,
+              tile_rows: int = TILE_ROWS):
     """Rows sorted by node and cut into tiles, all on the device:
     ``(order, offsets, tile_end, num_tiles)``. ``order`` lists row ids by
     node (stable), node w owns ``order[offsets[w]:offsets[w+1]]``, and
-    tiles ``[tile_end[w-1], tile_end[w])``. ``num_tiles`` is a static
-    upper bound (every node adds at most one partial tile), so no host
-    sync is needed; tiles past ``tile_end[-1]`` are empty."""
+    tiles ``[tile_end[w-1], tile_end[w])``. Rows where ``keep`` is false
+    sort to a key past the last node, so they fall in no tile and no
+    kernel reads them; the stable order of the kept rows is unchanged.
+    ``num_tiles`` is a static upper bound (every node adds at most one
+    partial tile), so no host sync is needed; tiles past
+    ``tile_end[-1]`` are empty."""
     n = local.shape[0]
-    sorted_local, order = torch.sort(local, stable=True)
+    key = torch.where(keep, local, width)
+    sorted_local, order = torch.sort(key, stable=True)
     nodes = torch.arange(width + 1, dtype=local.dtype, device=local.device)
     offsets = torch.searchsorted(sorted_local, nodes)
     counts = offsets[1:] - offsets[:-1]
@@ -101,7 +127,8 @@ def tile_plan(local: torch.Tensor, width: int, tile_rows: int = TILE_ROWS):
 
 def feature_slices(f: int, b: int, smem_bytes: int = SMEM_BYTES):
     """(features per CTA, number of slices): the fewest slices whose
-    (slice, B, 3) float32 tile fits in one CTA's shared memory."""
+    (slice, B, 3) tile of 4-byte cells (float32 or int32) fits in one
+    CTA's shared memory."""
     per_feature = b * 3 * 4
     most = max(1, smem_bytes // per_feature)
     num_slices = -(-f // most)
@@ -116,7 +143,7 @@ def _launch(binned, grad, hess, live, local, width, f, b):
     n = binned.shape[0]
     if n == 0:
         return out
-    order, offsets, tile_end, num_tiles = tile_plan(local, width)
+    order, offsets, tile_end, num_tiles = tile_plan(local, width, live != 0)
     f_slice, num_slices = feature_slices(f, b)
     stream = torch.cuda.current_stream(binned.device).cuda_stream
     code = lib.mmls_level_hist(
@@ -126,4 +153,82 @@ def _launch(binned, grad, hess, live, local, width, f, b):
         num_tiles, f_slice, num_slices, binned.device.index, stream)
     bindings.check(lib, code, "level_hist kernel launch")
     hist_kernel_launches += 1
+    return out
+
+
+# --- quantized stats ---------------------------------------------------------
+
+def check_tile_fits(tile_rows: int, dtype: torch.dtype) -> None:
+    """A CTA's int32 cell grows by at most the largest magnitude of
+    ``dtype`` per row of its tile; raise unless a whole tile stays below
+    2^31 (q16: 4096 * 32768 = 2^27). This plays the part of the native
+    kernel's periodic flush into int64."""
+    qmax = -torch.iinfo(dtype).min
+    if tile_rows * qmax >= 2 ** 31:
+        raise ValueError(f"tile_rows={tile_rows} x |{dtype}| max {qmax} "
+                         "could overflow a CTA's int32 histogram cell")
+
+
+def level_histogram_quant(binned, grad_q, hess_q, live, local, width: int,
+                          f: int, b: int, gscale_inv,
+                          hscale_inv) -> torch.Tensor:
+    """(width, F, B, 3) float32 sums of (grad_q, hess_q, 1) over the rows
+    with ``live > 0``, by (local, feature, bin), dequantized once by the
+    inverse scales (0-d float32 tensors on the device of ``binned``, or
+    floats). ``grad_q`` / ``hess_q`` are int16 or int8."""
+    _check_inputs(binned, grad_q, hess_q, live, local, width, f, b,
+                  stat_dtypes=QUANT_DTYPES)
+    gsi, hsi = (torch.as_tensor(s, dtype=torch.float32, device=binned.device)
+                for s in (gscale_inv, hscale_inv))
+    if gsi.dim() or hsi.dim():
+        raise ValueError("gscale_inv and hscale_inv must be scalars")
+    if binned.device.type == "cpu":
+        return level_histogram_quant_reference(
+            binned, grad_q, hess_q, live, local, width, f, b, gsi, hsi)
+    return _launch_quant(binned, grad_q, hess_q, live, local, width, f, b,
+                         gsi, hsi)
+
+
+def level_histogram_quant_reference(binned, grad_q, hess_q, live, local,
+                                    width: int, f: int, b: int, gscale_inv,
+                                    hscale_inv) -> torch.Tensor:
+    """Plain version: one int64 ``index_add_`` over ``flat_index``, then
+    ``float32(int64_sum * float64(scale_inv))``, one rounding (scale 1
+    for the count channel)."""
+    n = binned.shape[0]
+    gate = (live > 0).long()
+    data = torch.stack([grad_q.long() * gate, hess_q.long() * gate, gate],
+                       dim=-1)                                   # (n, 3)
+    src = data[:, None, :].expand(n, f, 3).reshape(-1, 3)
+    acc = torch.zeros((width * f * b, 3), dtype=torch.int64,
+                      device=binned.device).index_add_(
+        0, flat_index(binned, local, f, b), src)
+    one = torch.ones((), dtype=torch.float64, device=binned.device)
+    scales = torch.stack([one * gscale_inv, one * hscale_inv, one])
+    return (acc.double() * scales).float().reshape(width, f, b, 3)
+
+
+def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
+                  hsi):
+    global hist_quant_kernel_launches
+    check_tile_fits(TILE_ROWS, grad_q.dtype)
+    lib = bindings.load("level_hist_quant")
+    if binned.shape[0] == 0:
+        return torch.zeros((width, f, b, 3), dtype=torch.float32,
+                           device=binned.device)
+    out = torch.empty((width, f, b, 3), dtype=torch.float32,
+                      device=binned.device)
+    acc = torch.zeros((width, f, b, 3), dtype=torch.int64,
+                      device=binned.device)
+    order, offsets, tile_end, num_tiles = tile_plan(local, width, live > 0)
+    f_slice, num_slices = feature_slices(f, b)
+    stream = torch.cuda.current_stream(binned.device).cuda_stream
+    code = lib.mmls_level_hist_quant(
+        binned.data_ptr(), grad_q.data_ptr(), hess_q.data_ptr(),
+        order.data_ptr(), offsets.data_ptr(), tile_end.data_ptr(),
+        acc.data_ptr(), out.data_ptr(), gsi.data_ptr(), hsi.data_ptr(),
+        grad_q.element_size() * 8, f, b, width, TILE_ROWS, num_tiles,
+        f_slice, num_slices, binned.device.index, stream)
+    bindings.check(lib, code, "level_hist_quant kernel launch")
+    hist_quant_kernel_launches += 1
     return out

@@ -5,10 +5,21 @@ What this slice runs (and the JAX trainer it mirrors, file
 ``mmlspark_tpu/models/gbdt/trainer.py``):
 
   - ``TrainConfig`` with ``effective_depth``;
-  - per level, the histogram (``hist_cuda.level_histogram``: the CUDA
-    kernel on the card, its plain version on the CPU), numeric split
+  - per level, the histogram (``hist_cuda.level_histogram``, or
+    ``level_histogram_quant`` on the quantized plane: the CUDA kernels
+    on the card, their plain versions on the CPU), numeric split
     finding (``_find_numeric_splits``) and row routing — the
     ``simple_numeric`` branch of ``make_build_tree``;
+  - the quantized-gradient plane (``MMLSPARK_TORCH_HIST_QUANT=q16|q8``,
+    ``resolve_hist_quant``): per-round power-of-two scales, int16/int8
+    grad/hess, integer histograms, and root stats from the level-0
+    histogram totals. Integer sums make the fit reproducible run to run
+    on the card, where the float32 kernel's atomics are not;
+  - histogram subtraction (``MMLSPARK_TORCH_HIST_SUB=1``,
+    ``resolve_subtract``): below the root only each split's smaller
+    child is histogrammed, by masking its sibling's rows out of
+    ``live`` (the kernels skip masked rows), and the sibling is
+    ``parent - smaller`` (``_derive_sibling_hist``);
   - the gbdt boosting step: objective grad/hess, one tree, shrinkage,
     raw-score update through ``_predict_tree``, the training metric;
   - ``train``: serial, in-core, no validation sets, and
@@ -16,9 +27,7 @@ What this slice runs (and the JAX trainer it mirrors, file
 
 Trees grow level-wise over ``effective_depth`` levels in the full-tree
 layout (node i's children are 2i+1 / 2i+2), with the ``num_leaves``
-budget applied by within-level gain rank, as in the JAX package. No
-histogram subtraction: every level histograms all rows, as the JAX
-trainer does on the TPU.
+budget applied by within-level gain rank, as in the JAX package.
 
 The boosting loop never reads a device value on the host: trees and
 metrics stay on the device and come back in one transfer at the end.
@@ -35,11 +44,15 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.core import env
 from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.models.gbdt import metrics as metrics_mod
 from mmlspark_tpu_torch.models.gbdt import objectives as obj_mod
 from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays
-from mmlspark_tpu_torch.models.gbdt.hist_cuda import level_histogram
+from mmlspark_tpu_torch.models.gbdt.hist_cuda import (
+    level_histogram,
+    level_histogram_quant,
+)
 from mmlspark_tpu_torch.ops.ingest import binned_ingest_dtype
 
 
@@ -163,6 +176,41 @@ class TrainResult:
     booster: BoosterArrays
     evals: List[Dict[str, float]] = field(default_factory=list)
     best_iteration: int = -1
+    # what ran: {"hist_quant": "off"|"q16"|"q8", "subtract": bool}
+    hist_stats: Dict[str, object] = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# Histogram policies (port knobs, read once per fit)
+# ---------------------------------------------------------------------------
+
+HIST_QUANT_ENV = "MMLSPARK_TORCH_HIST_QUANT"
+HIST_SUB_ENV = "MMLSPARK_TORCH_HIST_SUB"
+_VALID_QUANT = ("off", "q16", "q8")
+
+
+def resolve_hist_quant() -> str:
+    """Gradient/hessian quantization policy (``MMLSPARK_TORCH_HIST_QUANT``,
+    default off): per-round grad/hess rounded to int16 (q16) or int8
+    (q8) under a shared power-of-two scale, summed exactly in integers
+    and dequantized once. A mistyped value warns once and runs
+    unquantized, as the JAX package's ``resolve_hist_quant`` does."""
+    raw = (env.env_str(HIST_QUANT_ENV, "") or "").strip().lower()
+    if not raw:
+        return "off"
+    if raw not in _VALID_QUANT:
+        env.warn_once(HIST_QUANT_ENV, f"{HIST_QUANT_ENV}={raw!r} is not one "
+                                      "of off|q16|q8; histograms run "
+                                      "unquantized")
+        return "off"
+    return raw
+
+
+def resolve_subtract() -> bool:
+    """Histogram subtraction (``MMLSPARK_TORCH_HIST_SUB=1``/``0``, default
+    off, as the JAX package's default is off on its TPU path). A
+    malformed value warns once and leaves it off."""
+    return env.env_flag(HIST_SUB_ENV, False)
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +226,56 @@ def _leaf_objective_impl(g, h, lam1, lam2):
     return value, score
 
 
+_INV_LN2 = float(np.float32(1.0) / np.float32(math.log(2.0)))
+
+
+def _pow2_scale(amax, qmax: float):
+    """Power-of-two quantization scale pair (scale, scale_inv), 0-d
+    float32 tensors, mapping |x| <= amax into [-qmax, qmax]. The
+    exponent is the JAX package's (``trainer._pow2_scale``):
+    ``floor(log(qmax/amax) * (1/ln 2))`` in float32, clipped to
+    [-126, 126] — the product form is how XLA evaluates ``jnp.log2``.
+    The scales are built from their exponent bits, so they are exact
+    powers of two on every device and ``int * scale_inv`` is exact."""
+    amax = torch.clamp_min(amax.float(), 1e-30)
+    ratio = torch.full_like(amax, qmax) / amax
+    e = torch.clamp(torch.floor(torch.log(ratio) * _INV_LN2), -126.0, 126.0)
+    e = e.to(torch.int32)
+    return (((e + 127) << 23).view(torch.float32),
+            ((127 - e) << 23).view(torch.float32))
+
+
+def _derive_sibling_hist(hist_small, prev_hist, prev_split, prev_ss):
+    """Histogram-subtraction sibling derivation for one level
+    (``trainer._derive_sibling_hist``). ``hist_small`` (width, F, B, 3)
+    holds real histograms only on each split's smaller child; the larger
+    sibling is parent - smaller, and slots under non-split parents are
+    zeroed. Float cancellation can leave tiny negative counts or
+    hessians on the derived side: both are clamped at 0."""
+    width = hist_small.shape[0]
+    kids = torch.arange(width, device=hist_small.device)
+    par_idx = kids // 2
+    is_small = (kids % 2) == prev_ss[par_idx]
+    sib = hist_small[kids ^ 1]
+    parent_h = prev_hist[par_idx]
+    hist = torch.where(
+        is_small[:, None, None, None], hist_small,
+        torch.where(prev_split[par_idx][:, None, None, None],
+                    parent_h - sib, 0.0))
+    hist[..., 1:].clamp_(min=0.0)
+    return hist
+
+
+def _smooth(value, w, parent):
+    """Path smoothing, ``value * w + parent * (1 - w)``, rounded as the
+    fused multiply-add ``fma(parent, 1 - w, value * w)`` that XLA makes
+    of the JAX package's expression. The float64 product is exact and
+    the float64 sum rounds far below a float32 ulp, so the one float32
+    rounding is the fused op's (barring a sum exactly on a midpoint)."""
+    return (parent.double() * (1.0 - w).double()
+            + (value * w).double()).float()
+
+
 def _find_numeric_splits(hist, remaining, parent_value, *, b, lam1, lam2,
                          min_child, min_hess, min_gain, path_smooth,
                          max_delta_step):
@@ -186,7 +284,8 @@ def _find_numeric_splits(hist, remaining, parent_value, *, b, lam1, lam2,
     leaf-budget ranking and child values.
 
     Returns (do_split, best_feat, best_bin, lval, rval, left_stats,
-    right_stats, remaining)."""
+    right_stats, remaining, smaller_side); ``smaller_side`` is 0 where
+    the left child holds no more rows than the right, else 1."""
     width = hist.shape[0]
     dev = hist.device
     cum = torch.cumsum(hist, dim=2)              # left stats per bin
@@ -234,21 +333,25 @@ def _find_numeric_splits(hist, remaining, parent_value, *, b, lam1, lam2,
         # shrink child outputs toward the parent's by n/(n+ps)
         wl = left_stats[:, 2] / (left_stats[:, 2] + path_smooth)
         wr = right_stats[:, 2] / (right_stats[:, 2] + path_smooth)
-        lval = lval * wl + parent_value * (1.0 - wl)
-        rval = rval * wr + parent_value * (1.0 - wr)
+        lval = _smooth(lval, wl, parent_value)
+        rval = _smooth(rval, wr, parent_value)
     if max_delta_step > 0:
         lval = torch.clamp(lval, -max_delta_step, max_delta_step)
         rval = torch.clamp(rval, -max_delta_step, max_delta_step)
+    smaller_side = torch.where(left_stats[:, 2] <= right_stats[:, 2], 0, 1)
     return (do_split, best_feat, best_bin, lval, rval, left_stats,
-            right_stats, remaining)
+            right_stats, remaining, smaller_side)
 
 
 def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
-               total_bins: int):
+               total_bins: int, hist_quant: str = "off",
+               subtract: bool = False):
     """One depthwise tree over the (N, F) uint8 ``binned`` matrix with
-    (N,) float32 ``grad`` / ``hess``. Returns the full-layout
-    (split_feature int32, threshold_bin int32, node_value float32,
-    node_count float32) device tensors, each (2^(D+1)-1,)."""
+    (N,) float32 ``grad`` / ``hess``. ``hist_quant`` (off|q16|q8) picks
+    the histogram plane and ``subtract`` the sibling trick (see the
+    module note). Returns the full-layout (split_feature int32,
+    threshold_bin int32, node_value float32, node_count float32) device
+    tensors, each (2^(D+1)-1,)."""
     dev = binned.device
     n, f = binned.shape
     b = total_bins
@@ -270,13 +373,33 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
     node_count = torch.zeros(num_slots, dtype=torch.float32, device=dev)
 
     valid = torch.ones(n, dtype=torch.float32, device=dev)
-    rv, _ = _leaf_objective_impl(torch.sum(grad), torch.sum(hess), lam1, lam2)
-    if cfg.max_delta_step > 0:
-        rv = torch.clamp(rv, -cfg.max_delta_step, cfg.max_delta_step)
-    node_value[0] = rv
-    node_count[0] = torch.sum(valid)
+    if hist_quant != "off":
+        # per-round shared pow2 scales; rows outside `valid` quantize to 0
+        qdt = torch.int8 if hist_quant == "q8" else torch.int16
+        qmax = 120.0 if hist_quant == "q8" else 32000.0
+        gscale, gscale_inv = _pow2_scale(torch.max(torch.abs(grad) * valid),
+                                         qmax)
+        hscale, hscale_inv = _pow2_scale(torch.max(torch.abs(hess) * valid),
+                                         qmax)
+        # torch.round rounds half to even, as jnp.rint
+        grad_q = torch.round(grad * valid * gscale).to(qdt)
+        hess_q = torch.round(hess * valid * hscale).to(qdt)
+    else:
+        rv, _ = _leaf_objective_impl(torch.sum(grad), torch.sum(hess), lam1,
+                                     lam2)
+        if cfg.max_delta_step > 0:
+            rv = torch.clamp(rv, -cfg.max_delta_step, cfg.max_delta_step)
+        node_value[0] = rv
+        node_count[0] = torch.sum(valid)
     # filled on the device: a host->device copy would sync every tree
     remaining = torch.full((), num_leaves - 1, dtype=torch.int64, device=dev)
+    prev_hist = prev_split = prev_ss = None
+
+    def hist_of(live, local, width):
+        if hist_quant != "off":
+            return level_histogram_quant(binned, grad_q, hess_q, live, local,
+                                         width, f, b, gscale_inv, hscale_inv)
+        return level_histogram(binned, grad, hess, live, local, width, f, b)
 
     for d in range(depth):
         level_start = 2 ** d - 1
@@ -284,10 +407,33 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
         kids = 2 * level_start + 1      # first slot of the next level
         local = torch.clamp(node - level_start, 0, width - 1)
         live = (~done).to(torch.float32)
-        hist = level_histogram(binned, grad, hess, live, local, width, f, b)
+        if subtract and d > 0:
+            # the smaller child of each split only, by masking its
+            # sibling's rows out of live: masked rows fall in no tile of
+            # the kernels. live stays binary, so the cover stat that
+            # picked the smaller side counts its rows.
+            sel = (live > 0) & ((local % 2) == prev_ss[local // 2])
+            hist = _derive_sibling_hist(
+                hist_of(live * sel.to(live.dtype), local, width), prev_hist,
+                prev_split, prev_ss)
+        else:
+            hist = hist_of(live, local, width)
+        if hist_quant != "off" and d == 0:
+            # quantized-plane root stats from the level-0 histogram (any
+            # one feature's bins partition the live rows), recorded before
+            # split finding so path smoothing sees the root value
+            tot0 = torch.sum(hist[0, 0], dim=0)
+            rv0, _ = _leaf_objective_impl(tot0[0], tot0[1], lam1, lam2)
+            if cfg.max_delta_step > 0:
+                rv0 = torch.clamp(rv0, -cfg.max_delta_step,
+                                  cfg.max_delta_step)
+            node_value[0] = rv0
+            node_count[0] = tot0[2]
         (do_split, best_feat, best_bin, lval, rval, left_stats, right_stats,
-         remaining) = _find_numeric_splits(
+         remaining, small_side) = _find_numeric_splits(
             hist, remaining, node_value[level_start:kids], **split_kw)
+        if subtract:
+            prev_hist, prev_split, prev_ss = hist, do_split, small_side
         split_feature[level_start:kids] = torch.where(
             do_split, best_feat, -1).to(torch.int32)
         threshold_bin[level_start:kids] = torch.where(
@@ -343,9 +489,14 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     raw-value thresholds.
 
     ``device=None`` runs on the CUDA card (and raises without one);
-    ``device="cpu"`` runs the plain PyTorch path."""
+    ``device="cpu"`` runs the plain PyTorch path. The histogram plane
+    and subtraction follow ``MMLSPARK_TORCH_HIST_QUANT`` /
+    ``MMLSPARK_TORCH_HIST_SUB``, read once here; ``hist_stats`` records
+    what ran."""
     dev = resolve_device(device)
     check_supported(cfg)
+    hist_quant = resolve_hist_quant()
+    subtract = resolve_subtract()
     total_bins = cfg.max_bin
     depth = cfg.effective_depth
     num_slots = 2 ** (depth + 1) - 1
@@ -379,7 +530,8 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     trees, metric_vals = [], []
     for _ in range(cfg.num_iterations):
         g, h = objective_fn(raw, labels_d, weights_d, **obj_kwargs)
-        sf, tb, nv, cnt = build_tree(binned_d, g, h, nl, cfg, total_bins)
+        sf, tb, nv, cnt = build_tree(binned_d, g, h, nl, cfg, total_bins,
+                                     hist_quant, subtract)
         nv = nv * lr
         raw = raw + _predict_tree(sf, tb, nv, binned_d, depth)
         trees.append((sf, tb, nv, cnt))
@@ -400,7 +552,9 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
              for j in range(len(met_h))]
     booster = _assemble_booster(sf_h, tb_h, nv_h, cnt_h, cfg, num_f,
                                 total_bins, depth, bin_upper, base_score)
-    return TrainResult(booster=booster, evals=evals, best_iteration=-1)
+    return TrainResult(booster=booster, evals=evals, best_iteration=-1,
+                       hist_stats={"hist_quant": hist_quant,
+                                   "subtract": subtract})
 
 
 def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,

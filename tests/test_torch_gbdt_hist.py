@@ -108,7 +108,8 @@ def _replay_kernel(binned, grad, hess, live, local, width, f, b, tile_rows):
     over the wrapper's tile plan, surplus tiles exiting."""
     order, offsets, tile_end, num_tiles = (
         x.numpy() if isinstance(x, torch.Tensor) else x
-        for x in H.tile_plan(torch.from_numpy(local), width, tile_rows))
+        for x in H.tile_plan(torch.from_numpy(local), width,
+                             torch.from_numpy(live != 0), tile_rows))
     f_slice, num_slices = H.feature_slices(f, b, smem_bytes=b * 3 * 4 * 2)
     out = np.zeros((width, f, b, 3), np.float32)
     seen = np.zeros(len(local), np.int64)
@@ -140,20 +141,24 @@ def _replay_kernel(binned, grad, hess, live, local, width, f, b, tile_rows):
     (100, 1, 2, 1, 1000),     # one tile holds the whole level
 ])
 def test_tile_plan_and_cta_walk(n, f, b, width, tile_rows):
-    """The kernel's tiling visits every row exactly once within its own
-    node, the static grid bound covers every tile, and the replayed walk
-    reproduces the plain version bitwise on integer stats."""
+    """The kernel's tiling visits every live row exactly once within its
+    own node and no masked (live == 0) row at all, the static grid bound
+    covers every tile, and the replayed walk reproduces the plain version
+    bitwise on integer stats."""
     binned, grad, hess, live, local = _case(n, f, b, width, seed=3,
                                             integer_stats=True)
     if width > 1:
         local[local == 1] = 0          # leave node 1 empty
+    assert (live == 0).any()
     got, seen = _replay_kernel(binned, grad, hess, live, local, width, f, b,
                                tile_rows)
-    np.testing.assert_array_equal(seen, np.ones(n, np.int64))
-    _, offsets, tile_end, num_tiles = H.tile_plan(torch.from_numpy(local),
-                                                  width, tile_rows)
+    np.testing.assert_array_equal(seen, (live != 0).astype(np.int64))
+    _, offsets, tile_end, num_tiles = H.tile_plan(
+        torch.from_numpy(local), width, torch.from_numpy(live != 0),
+        tile_rows)
     assert int(tile_end[-1]) <= num_tiles
-    counts = np.bincount(local, minlength=width)
+    assert int(offsets[-1]) == int((live != 0).sum())
+    counts = np.bincount(local[live != 0], minlength=width)
     np.testing.assert_array_equal(np.diff(offsets.numpy()), counts)
     want = _port((binned, grad, hess, live, local), width, f, b)
     np.testing.assert_array_equal(got, want)

@@ -43,7 +43,7 @@ def test_no_jax_or_jax_package_import(path):
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
     assert {"trainer.py", "hist_cuda.py", "bindings.py", "booster.py",
-            "binning.py", "chip_smoke.py"} <= names
+            "binning.py", "env.py", "chip_smoke.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -87,12 +87,19 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
 
 
 def test_cpu_tensors_take_the_plain_version():
-    """On the CPU the wrapper never launches (or builds) the kernel."""
-    before = hist_cuda.hist_kernel_launches
+    """On the CPU the wrappers never launch (or build) their kernels."""
+    before = (hist_cuda.hist_kernel_launches,
+              hist_cuda.hist_quant_kernel_launches)
     n, f, b = 64, 2, 8
-    out = hist_cuda.level_histogram(
-        torch.zeros((n, f), dtype=torch.uint8), torch.ones(n),
-        torch.ones(n), torch.ones(n), torch.zeros(n, dtype=torch.int64),
-        1, f, b)
-    assert hist_cuda.hist_kernel_launches == before
+    binned = torch.zeros((n, f), dtype=torch.uint8)
+    local = torch.zeros(n, dtype=torch.int64)
+    out = hist_cuda.level_histogram(binned, torch.ones(n), torch.ones(n),
+                                    torch.ones(n), local, 1, f, b)
+    ones_q = torch.ones(n, dtype=torch.int16)
+    out_q = hist_cuda.level_histogram_quant(binned, ones_q, ones_q,
+                                            torch.ones(n), local, 1, f, b,
+                                            0.5, 0.25)
+    assert (hist_cuda.hist_kernel_launches,
+            hist_cuda.hist_quant_kernel_launches) == before
     assert out[0, :, 0, 2].tolist() == [float(n)] * f
+    assert out_q[0, :, 0].tolist() == [[n * 0.5, n * 0.25, float(n)]] * f
