@@ -34,7 +34,24 @@ sm_90a), then:
      the q16 fit with ``MMLSPARK_TORCH_HIST_SUB=1``, and the kernels'
      device time per tree with subtraction off and on (torch.profiler);
   8. card vs CPU, quantized: the 100k-row 5-tree fit under q16 on
-     ``cuda`` and on ``cpu``.
+     ``cuda`` and on ``cpu``;
+  9. flash kernel vs plain: ``csrc/flash_attn.cu`` against
+     ``flash_attention_reference`` (TF32 off) at the repo's attention
+     A/B shape (b=4, n=2048, h=8, d=64; ``tools/tpu_day.sh``), causal and
+     not, in float32 and bfloat16, at d=16 and d=128, with cross lengths
+     (n=512, nk=2048) and scores far outside exp's range — within
+     rtol 2e-4 / atol 2e-5 in float32 and that plus one bf16 step in
+     bfloat16, two launches bitwise equal — with CUDA-event timings of
+     the kernel, the plain version and ``scaled_dot_product_attention``,
+     and the bound;
+ 10. attention path: ``fused_attention`` (causal) at the A/B shape in
+     float32 and bfloat16 and at b=1, n=16384, h=8, d=64, one kernel
+     launch per call, against ``blockwise_attention``, with the times of
+     both (the flash-vs-blockwise A/B), and the refusal of inputs that
+     require grad;
+ 11. attention, distributed: a one-rank NCCL group runs
+     ``ring_attention`` and ``ulysses_attention`` (which launches the
+     kernel through ``fused_attention``) against ``blockwise_attention``.
 
 Each phase prints one JSON line. Any failure exits non-zero and prints
 no result. Without a CUDA card it exits 2 at once. The last lines are
@@ -68,6 +85,14 @@ MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 F32_EPS = 2.0 ** -24
 QUANTS = {"q16": ("int16", 32000), "q8": ("int8", 120)}
+# attention: the repo's flash-vs-blockwise A/B (tools/tpu_day.sh:112-142)
+# and its long-context length (ROUND4_NOTES.md:121: n=16384 "needs real
+# chips"); dense tensor-core peaks: bfloat16 (the bf16 function's
+# operation bound) and TF32 (a note beside the float32 bound)
+FLASH_AB = (4, 2048, 8, 64)
+FLASH_LONG = (1, 16384, 8, 64)
+BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 
 
 def emit(obj):
@@ -132,6 +157,14 @@ def count_syncs(torch, fn):
 def device_ms_by_kernel(torch, fn):
     """(wall ms, {kernel name: device ms}) of ``fn()`` under
     torch.profiler, names without template arguments."""
+    wall_ms, by_name, _ = profile_ms(torch, fn)
+    return wall_ms, by_name
+
+
+def profile_ms(torch, fn):
+    """(wall ms, {kernel name: device ms}, {host op: self ms}) of
+    ``fn()`` under torch.profiler, kernel names without template
+    arguments."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -148,7 +181,13 @@ def device_ms_by_kernel(torch, fn):
             name = re.sub(r"[<(].*$", "", base).strip()
             by_name[name] = by_name.get(name, 0.0) \
                 + e.time_range.elapsed_us() / 1e3
-    return wall_ms, by_name
+    host = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
+            if e.self_cpu_time_total > 0}
+    return wall_ms, by_name, host
+
+
+def top(by_name, k):
+    return dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:k])
 
 
 def boosters_equal(a, b):
@@ -574,6 +613,230 @@ def phase_card_vs_cpu_quant(ctx):
     return out
 
 
+def flash_bound(b, n, nk, h, d, causal, dtype):
+    """The least time for the flash function: q, k, v read once and the
+    output written once, over the memory rate; 4*d operations per
+    unmasked (query, key) pair, over the peak rate for the input type:
+    float32 outside the tensor cores (the function is specified in full
+    float32, as the TPU kernel computes it), bfloat16 on the tensor
+    cores. The TF32 tensor-core time is a note only."""
+    if causal:   # top-left aligned: query i sees min(i + 1, nk) keys
+        m = min(n, nk)
+        pairs = m * (m + 1) // 2 + (n - m) * nk
+    else:
+        pairs = n * nk
+    ops = 4 * b * h * d * pairs
+    nbytes = (2 * n + 2 * nk) * b * h * d * dtype.itemsize
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    rate = BF16_OPS_PER_S if str(dtype) == "torch.bfloat16" \
+        else F32_OPS_PER_S
+    ops_ms = ops / rate * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "tf32_ops_ms": ops / TF32_OPS_PER_S * 1e3}
+
+
+def within_bf16_step(torch, a, b, atol, rtol=0.0):
+    """True when two bfloat16 results agree as two float32 results within
+    ``atol + rtol*|b|``, each then rounded once to bfloat16: at most that
+    plus one bf16 step (2^-8 of the larger magnitude's power of two)."""
+    a, b = a.float(), b.float()
+    _, exp = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    step = torch.ldexp(torch.ones_like(a), exp - 8)
+    return bool(((a - b).abs() <= step + atol + rtol * b.abs()).all())
+
+
+def attention_inputs(torch, shape, dtype, seed, nk=None, scale=1.0):
+    b, n, h, d = shape
+    nk = n if nk is None else nk
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk(length, s):
+        return (torch.randn((b, length, h, d), generator=gen, device="cuda")
+                * s).to(dtype)
+    return mk(n, scale), mk(nk, scale), mk(nk, 1.0)
+
+
+def phase_kernel_flash(ctx):
+    """Flash kernel vs its plain version: every case within the stated
+    tolerance, two launches bitwise equal, times beside the bound."""
+    import torch
+    import torch.nn.functional as TF
+
+    from mmlspark_tpu_torch.parallel import flash as FL
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 matmuls are on: the plain version must "
+                             "run in full float32")
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, n, h, d = FLASH_AB
+    cases = [  # name, shape, nk, dtype, causal, score scale
+        ("ab_f32_causal", FLASH_AB, None, f32, True, 1.0),
+        ("ab_f32", FLASH_AB, None, f32, False, 1.0),
+        ("ab_bf16_causal", FLASH_AB, None, bf16, True, 1.0),
+        ("ab_bf16", FLASH_AB, None, bf16, False, 1.0),
+        ("d16_causal", (b, n, h, 16), None, f32, True, 1.0),
+        ("d128_causal", (b, n, h, 128), None, f32, True, 1.0),
+        ("cross_512x2048", (b, 512, h, d), 2048, f32, False, 1.0),
+        ("cross_512x2048_causal", (b, 512, h, d), 2048, f32, True, 1.0),
+        ("large_scores_x30", FLASH_AB, None, f32, False, 30.0),
+    ]
+    rows = {}
+    for seed, (name, shape, nk, dtype, causal, scale) in enumerate(cases):
+        q, k, v = attention_inputs(torch, shape, dtype, 10 + seed, nk, scale)
+        k1 = FL.flash_attention(q, k, v, causal=causal)
+        k2 = FL.flash_attention(q, k, v, causal=causal)
+        p = FL.flash_attention_reference(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = (k1.float() - p.float()).abs()
+        if dtype == f32:
+            within = bool((err <= 2e-5 + 2e-4 * p.abs()).all())
+            tol = "rtol 2e-4, atol 2e-5"
+        else:
+            within = within_bf16_step(torch, k1, p, 2e-5, 2e-4)
+            tol = "rtol 2e-4, atol 2e-5, plus one bf16 step"
+        repeat = bool(torch.equal(k1, k2))
+        finite = bool(torch.isfinite(k1).all())
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        row = {"case": name, "shape": list(shape),
+               "nk": k.shape[1], "dtype": str(dtype).split(".")[-1],
+               "causal": causal, "within": within, "tol": tol,
+               "repeat_bitwise": repeat, "finite": finite,
+               "max_abs_err": float(err.max().item()),
+               "kernel_ms": time_ms(torch, lambda: FL.flash_attention(
+                   q, k, v, causal=causal)),
+               "plain_ms": time_ms(torch, lambda: FL.flash_attention_reference(
+                   q, k, v, causal=causal), reps=5, warmup=1),
+               "library_ms": time_ms(
+                   torch, lambda: TF.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=causal)),
+               **flash_bound(shape[0], shape[1], k.shape[1], shape[2],
+                             shape[3], causal, q.dtype)}
+        del qt, kt, vt
+        emit({"phase": "kernel_flash_vs_plain", **row})
+        rows[name] = row
+        if not (within and repeat and finite):
+            raise AssertionError(f"flash_attn disagrees with its plain "
+                                 f"version in case {name}: {row}")
+    ctx["flash_rows"] = rows
+    return {"cases": list(rows), "all_agree": True, "card": ctx["smi"]}
+
+
+def phase_attention_path(ctx):
+    """``fused_attention`` through the kernel at the A/B shape (float32
+    and bfloat16) and at n=16384, counted, against the blockwise loop."""
+    import torch
+
+    from mmlspark_tpu_torch.parallel import attention as AT
+    from mmlspark_tpu_torch.parallel import flash as FL
+    runs = [("ab_f32", FLASH_AB, torch.float32, 20),
+            ("ab_bf16", FLASH_AB, torch.bfloat16, 20),
+            ("long_f32", FLASH_LONG, torch.float32, 3)]
+    out = {"card": ctx["smi"]}
+    launches = {"f32": 0, "bf16": 0}
+    for seed, (name, shape, dtype, reps) in enumerate(runs):
+        q, k, v = attention_inputs(torch, shape, dtype, 30 + seed)
+        FL.flash_kernel_launches = 0
+        fused = AT.fused_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        count = FL.flash_kernel_launches
+        launches[name.split("_")[-1]] += count
+        ref = AT.blockwise_attention(q.float(), k.float(), v.float(),
+                                     causal=True)
+        if dtype == torch.float32:
+            agree = bool(torch.allclose(fused, ref, rtol=0, atol=1e-4))
+        else:
+            agree = within_bf16_step(torch, fused, ref.to(dtype), 1e-4)
+        b, n, h, d = shape
+        fused_ms = time_ms(torch, lambda: AT.fused_attention(
+            q, k, v, causal=True), reps=reps)
+        blockwise_ms = time_ms(torch, lambda: AT.blockwise_attention(
+            q, k, v, causal=True), reps=reps, warmup=1)
+        useful = 2 * b * h * n * n * d        # the A/B script's causal count
+        row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+               "launches": count, "agrees_with_blockwise": agree,
+               "max_abs_diff": float((fused.float() - ref).abs().max()),
+               "fused_ms": fused_ms, "blockwise_ms": blockwise_ms,
+               "fused_causal_tflops": useful / fused_ms / 1e9,
+               "blockwise_causal_tflops": useful / blockwise_ms / 1e9}
+        out[name] = row
+        if count != 1 or not agree:
+            raise AssertionError(f"fused_attention {name}: {row}")
+    q, k, v = attention_inputs(torch, FLASH_AB, torch.float32, 40)
+    try:
+        AT.fused_attention(q.requires_grad_(), k, v, causal=True)
+        raise AssertionError("the kernel path took an input requiring grad")
+    except RuntimeError as e:
+        out["requires_grad_refused"] = str(e)
+    ctx["launches"]["flash_attn"] = launches
+    return out
+
+
+def phase_attention_dist(ctx):
+    """Ring and Ulysses on a one-rank NCCL group; Ulysses launches the
+    kernel through ``fused_attention``. Each call is also profiled
+    (device time by kernel, host self time by op, the device's idle
+    share) and timed without the shard-length check, to split its cost
+    over the single-device call. Several ranks are held by the gloo
+    tests on the CPU."""
+    import shutil
+    import tempfile
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.parallel import attention as AT
+    from mmlspark_tpu_torch.parallel import flash as FL
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            world_size=1, rank=0,
+                            timeout=timedelta(seconds=120))
+    try:
+        q, k, v = attention_inputs(torch, FLASH_AB, torch.float32, 50)
+        ref = AT.blockwise_attention(q, k, v, causal=True)
+        out = {"backend": dist.get_backend(), "world_size": 1,
+               "card": ctx["smi"]}
+        for name, fn in (("ring", AT.ring_attention),
+                         ("ulysses", AT.ulysses_attention)):
+            FL.flash_kernel_launches = 0
+            got = fn(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            count = FL.flash_kernel_launches
+            agree = bool(torch.allclose(got, ref, rtol=0, atol=1e-4))
+
+            def call():
+                return fn(q, k, v, causal=True)
+            row = {"launches": count, "agrees_with_blockwise": agree,
+                   "max_abs_diff": float((got - ref).abs().max()),
+                   "ms": time_ms(torch, call, reps=5, warmup=1)}
+            length_check = AT._sequence_length
+            AT._sequence_length = lambda chunk, group, size, dev: \
+                chunk * size
+            try:
+                row["ms_without_shard_check"] = time_ms(torch, call, reps=5,
+                                                        warmup=1)
+            finally:
+                AT._sequence_length = length_check
+            wall, device, host = profile_ms(torch, call)
+            busy = sum(device.values())
+            row.update(profiled_wall_ms=wall, device_busy_ms=busy,
+                       device_idle_share=1 - busy / wall,
+                       device_ms_by_kernel=top(device, 8),
+                       host_self_ms_by_op=top(host, 10))
+            out[name] = row
+            if not agree:
+                raise AssertionError(f"{name}_attention disagrees: {out}")
+        if out["backend"] != "nccl" or out["ulysses"]["launches"] != 1:
+            raise AssertionError(f"Ulysses did not launch the kernel once "
+                                 f"over NCCL: {out}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
 def kernel_table(ctx):
     def entry(name, source, replaces, launches, rows):
         # times summed over the six level widths of one depth-6 tree
@@ -600,6 +863,21 @@ def kernel_table(ctx):
             "mmlspark_tpu/models/gbdt/hist_pallas.py:204",
             ctx["launches"]["level_hist_quant"][quant],
             ctx["quant_rows"][quant]))
+    for dtype in ("f32", "bf16"):
+        row = ctx["flash_rows"][f"ab_{dtype}_causal"]
+        kernels.append({
+            "name": f"flash_attn[{dtype}]", "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/flash_attn.cu",
+            "replaces": "mmlspark_tpu/parallel/flash.py:24",
+            "launches": ctx["launches"]["flash_attn"][dtype],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in ctx["flash_rows"].values()
+                               if r["dtype"] == row["dtype"]),
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "per": "one call at b=4, n=2048, h=8, d=64, causal",
+        })
     return {"kernels": kernels}
 
 
@@ -620,7 +898,10 @@ def main() -> int:
                      ("card_vs_cpu", phase_card_vs_cpu),
                      ("kernel_quant", phase_kernel_quant),
                      ("main_path_quant", phase_main_quant),
-                     ("card_vs_cpu_quant", phase_card_vs_cpu_quant)):
+                     ("card_vs_cpu_quant", phase_card_vs_cpu_quant),
+                     ("kernel_flash", phase_kernel_flash),
+                     ("attention_path", phase_attention_path),
+                     ("attention_dist", phase_attention_dist)):
         t0 = time.perf_counter()
         try:
             out = fn(ctx)

@@ -8,7 +8,10 @@ package so each counterpart is easy to find:
   - ``ops.binning``               BinMapper (numeric quantile binning)
   - ``models.gbdt.trainer``       TrainConfig / train (depthwise GBDT)
   - ``models.gbdt.booster``       BoosterArrays scoring
-  - ``models.gbdt.hist_cuda``     the level-histogram kernel's wrapper
+  - ``models.gbdt.hist_cuda``     the level-histogram kernels' wrappers
+  - ``parallel.attention``        dense / blockwise / fused attention, ring
+                                  and Ulysses over ``torch.distributed``
+  - ``parallel.flash``            the flash-attention kernel's wrapper
   - ``csrc/``                     hand-written CUDA kernels (sm_90a)
   - ``native.bindings``           builds ``csrc/*.cu`` with nvcc, loads them
 

@@ -49,6 +49,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mmls_level_hist_quant": ([_VP] * 10 + [_I] * 9 + [_VP], _I),
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "flash_attn": {
+        # q, k, v, out, dtype, b, h, n, nk, d, (b, n, h) strides of q, k,
+        # v and out, scale, causal, device, stream
+        "mmls_flash_attn": ([_VP] * 4 + [_I] * 6 + [ctypes.c_longlong] * 12
+                            + [ctypes.c_float, _I, _I, _VP], _I),
+        "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 

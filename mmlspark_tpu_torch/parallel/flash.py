@@ -1,0 +1,142 @@
+"""Fused softmax attention: the wrapper of the CUDA kernel
+``csrc/flash_attn.cu`` and its plain PyTorch version.
+
+Port of ``mmlspark_tpu.parallel.flash`` (the TPU kernel ``_flash_kernel``):
+q (batch, seq, heads, head_dim), k and v (batch, kv_seq, heads, head_dim)
+-> ``softmax(q kᵀ / √d, masked) v`` of q's shape and type. Both versions
+run the TPU kernel's recurrence in float32: q scaled before the product,
+an online softmax over KV blocks, masked scores of -1e30, and
+``acc / max(l, 1e-30)`` at the end. Causal masking is top-left aligned
+(query i sees key j when i >= j, both from 0).
+
+On a CUDA tensor ``flash_attention`` launches the kernel (a build or
+launch failure raises); on a CPU tensor it runs the plain version. There
+is no other route and no opt-in: the kernel is held against the plain
+version on the card by ``chip_smoke.py``. The kernel has no gradient, as
+the TPU kernel has none; it raises on inputs that require one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
+from mmlspark_tpu_torch.native import bindings
+
+# Launches of the kernel in this process, so a run can show that its
+# path went through the kernel.
+flash_kernel_launches = 0
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 128        # the kernel's largest head_dim bucket
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # -> the kernel's dtype code
+
+
+def flash_available(device: DeviceLike = None) -> bool:
+    """True when ``device`` (``None``: the card) is a CUDA device that is
+    present, where ``flash_attention`` launches the kernel."""
+    dev = torch.device("cuda" if device is None else device)
+    return dev.type == "cuda" and torch.cuda.is_available()
+
+
+def _check_inputs(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be (batch, seq, heads, head_dim)")
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[2:] != (h, d) or v.shape != k.shape:
+        raise ValueError(f"k and v must be ({b}, kv_seq, {h}, {d}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention reads float32 or bfloat16 q, k "
+                         f"and v of one type, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} is outside the kernel's limit "
+                         f"1..{MAX_HEAD_DIM}")
+
+
+def flash_attention(q, k, v, block_q: int = 128, block_k: int = 128,
+                    causal: bool = False,
+                    device: DeviceLike = None) -> torch.Tensor:
+    """Fused attention: q/k/v (batch, seq, heads, head_dim) -> q's shape
+    and type. Sequence lengths must divide the blocks (after
+    ``block = min(block, length)``), as on the TPU. Numpy arrays or
+    tensors; ``device=None`` is the card."""
+    dev = resolve_device(device)
+    q, k, v = (torch.as_tensor(x, device=dev) for x in (q, k, v))
+    _check_inputs(q, k, v)
+    n, nk = q.shape[1], k.shape[1]
+    block_q = min(block_q, n)
+    block_k = min(block_k, nk)
+    if n % block_q or nk % block_k:
+        raise ValueError(f"seq lengths ({n}, {nk}) must be divisible by "
+                         f"blocks ({block_q}, {block_k})")
+    if dev.type == "cpu":
+        return flash_attention_reference(q, k, v, block_k=block_k,
+                                         causal=causal)
+    return _launch(q, k, v, causal)
+
+
+def flash_attention_reference(q, k, v, block_k: int = 128,
+                              causal: bool = False) -> torch.Tensor:
+    """Plain version: ``_flash_kernel``'s recurrence over ``block_k`` KV
+    blocks in float32, all query rows at once (rows are independent)."""
+    b, n, h, d = q.shape
+    nk = k.shape[1]
+    block_k = min(block_k, nk)
+    scale = 1.0 / (d ** 0.5)
+    qs = q.float().transpose(1, 2) * scale                    # (b, h, n, d)
+    kt, vt = k.float().transpose(1, 2), v.float().transpose(1, 2)
+    acc = torch.zeros((b, h, n, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, n), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, n), dtype=torch.float32, device=q.device)
+    q_pos = torch.arange(n, device=q.device)[:, None]
+    for start in range(0, nk, block_k):
+        kb = kt[:, :, start:start + block_k]
+        vb = vt[:, :, start:start + block_k]
+        s = qs @ kb.transpose(-1, -2)                         # (b, h, n, bk)
+        if causal:
+            k_pos = start + torch.arange(kb.shape[2], device=q.device)
+            s = torch.where(q_pos >= k_pos[None, :], s, NEG_INF)
+        new_m = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - new_m[..., None])
+        corr = torch.exp(m - new_m)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + p @ vb
+        m = new_m
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def check_kernel_inputs(q, k, v) -> None:
+    """What the kernel path refuses beyond ``flash_attention``'s checks:
+    inputs that require a gradient (the kernel has none). Grids past the
+    launch limits are refused by the launch itself."""
+    if any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the flash kernel has no gradient; pass inputs "
+                           "that do not require grad (torch.no_grad() or "
+                           ".detach()), or use blockwise_attention")
+
+
+def _launch(q, k, v, causal: bool) -> torch.Tensor:
+    global flash_kernel_launches
+    check_kernel_inputs(q, k, v)
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    b, n, h, d = q.shape
+    nk = k.shape[1]
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = bindings.load("flash_attn")
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.mmls_flash_attn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        DTYPES[q.dtype], b, h, n, nk, d, *strides,
+        ctypes.c_float(1.0 / (d ** 0.5)), int(causal), q.device.index,
+        stream)
+    bindings.check(lib, code, "flash_attn kernel launch")
+    flash_kernel_launches += 1
+    return out

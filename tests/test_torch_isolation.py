@@ -15,6 +15,8 @@ from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.models.gbdt import hist_cuda
 from mmlspark_tpu_torch.models.gbdt.trainer import TrainConfig, train
 from mmlspark_tpu_torch.ops.binning import BinMapper
+from mmlspark_tpu_torch.parallel import flash
+from mmlspark_tpu_torch.parallel.attention import fused_attention
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mmlspark_tpu_torch").rglob("*.py")) \
@@ -43,12 +45,14 @@ def test_no_jax_or_jax_package_import(path):
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
     assert {"trainer.py", "hist_cuda.py", "bindings.py", "booster.py",
-            "binning.py", "env.py", "chip_smoke.py"} <= names
+            "binning.py", "env.py", "chip_smoke.py", "flash.py",
+            "attention.py", "mesh.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, mmlspark_tpu_torch\n"
             "import mmlspark_tpu_torch.models.gbdt.convert\n"
+            "import mmlspark_tpu_torch.parallel.attention\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mmlspark_tpu')]\n"
             "print(bad)\n")
@@ -84,12 +88,19 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         booster.predict(x)
     assert booster.predict(x, device="cpu").shape == (200,)
+    q = rng.normal(size=(1, 128, 2, 8)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flash.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fused_attention(q, q, q, causal=True)
+    assert fused_attention(q, q, q, device="cpu").shape == q.shape
 
 
 def test_cpu_tensors_take_the_plain_version():
     """On the CPU the wrappers never launch (or build) their kernels."""
     before = (hist_cuda.hist_kernel_launches,
-              hist_cuda.hist_quant_kernel_launches)
+              hist_cuda.hist_quant_kernel_launches,
+              flash.flash_kernel_launches)
     n, f, b = 64, 2, 8
     binned = torch.zeros((n, f), dtype=torch.uint8)
     local = torch.zeros(n, dtype=torch.int64)
@@ -99,7 +110,11 @@ def test_cpu_tensors_take_the_plain_version():
     out_q = hist_cuda.level_histogram_quant(binned, ones_q, ones_q,
                                             torch.ones(n), local, 1, f, b,
                                             0.5, 0.25)
+    q = torch.ones((1, 128, 1, 8))
+    attn = flash.flash_attention(q, q, q, device="cpu")
     assert (hist_cuda.hist_kernel_launches,
-            hist_cuda.hist_quant_kernel_launches) == before
+            hist_cuda.hist_quant_kernel_launches,
+            flash.flash_kernel_launches) == before
+    assert torch.equal(attn, q)
     assert out[0, :, 0, 2].tolist() == [float(n)] * f
     assert out_q[0, :, 0].tolist() == [[n * 0.5, n * 0.25, float(n)]] * f
