@@ -35,21 +35,30 @@ sm_90a), then:
      device time per tree with subtraction off and on (torch.profiler);
   8. card vs CPU, quantized: the 100k-row 5-tree fit under q16 on
      ``cuda`` and on ``cpu``;
-  9. flash kernel vs plain: ``csrc/flash_attn.cu`` against
-     ``flash_attention_reference`` (TF32 off) at the repo's attention
-     A/B shape (b=4, n=2048, h=8, d=64; ``tools/tpu_day.sh``), causal and
-     not, in float32 and bfloat16, at d=16 and d=128, with cross lengths
-     (n=512, nk=2048) and scores far outside exp's range — within
-     rtol 2e-4 / atol 2e-5 in float32 and that plus one bf16 step in
-     bfloat16, two launches bitwise equal — with CUDA-event timings of
-     the kernel, the plain version and ``scaled_dot_product_attention``,
-     and the bound;
- 10. attention path: ``fused_attention`` (causal) at the A/B shape in
-     float32 and bfloat16 and at b=1, n=16384, h=8, d=64, one kernel
-     launch per call, against ``blockwise_attention``, with the times of
-     both (the flash-vs-blockwise A/B), and the refusal of inputs that
-     require grad;
- 11. attention, distributed: a one-rank NCCL group runs
+  9. flash kernels vs plain: ``csrc/flash_attn.cu`` and, for bfloat16
+     calls that meet TMA's rules, ``csrc/flash_attn_sm90.cu`` (wgmma, TMA,
+     a producer warp) against ``flash_attention_reference`` (TF32 off) at
+     the repo's attention A/B shape (b=4, n=2048, h=8, d=64;
+     ``tools/tpu_day.sh``), causal and not, in float32 and bfloat16, at
+     d=16 and d=128, with cross and ragged lengths, scores far outside
+     exp's range, a packed-qkv view, a (b, h, n, d) view and a misaligned
+     view (which routes to ``flash_attn.cu``) — within rtol 2e-4 / atol
+     2e-5 in float32 and that plus one bf16 step in bfloat16, two launches
+     bitwise equal, the kernel each case launched (counter deltas) — with
+     CUDA-event timings of the kernel, the plain version and
+     ``scaled_dot_product_attention``, the bound, and at the A/B shape the
+     host's microseconds per call (200 calls, no synchronise);
+ 10. SDPA backends: ``scaled_dot_product_attention`` at the A/B shape
+     (causal) in float32 and bfloat16 under each backend alone — which
+     accept the call, their times, their max abs error against the plain
+     version, and which one the default call matches bit for bit;
+ 11. attention path: ``fused_attention`` (causal) at the A/B shape in
+     float32 and bfloat16 (and bfloat16 at d=32, which routes to
+     ``flash_attn.cu``) and at b=1, n=16384, h=8, d=64 in both types, one
+     kernel launch per call (of the kernel its route names), against
+     ``blockwise_attention``, with the times of both (the flash-vs-
+     blockwise A/B), and the refusal of inputs that require grad;
+ 12. attention, distributed: a one-rank NCCL group runs
      ``ring_attention`` and ``ulysses_attention`` (which launches the
      kernel through ``fused_attention``) against ``blockwise_attention``.
 
@@ -186,6 +195,28 @@ def profile_ms(torch, fn):
     return wall_ms, by_name, host
 
 
+def device_ms(torch, fn, reps=REPS, warmup=3):
+    """Device time of one call of ``fn`` in ms: the CUDA kernels' time
+    in a profiled run of ``reps`` calls, over ``reps``. Unlike an event
+    pair around each call, it does not grow when the host's work per call
+    outlasts the device's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):    # a profiled window now and then records no kernel
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                       if str(e.device_type).endswith("CUDA"))
+        if total_us > 0:
+            return total_us / reps / 1e3
+    raise AssertionError("the profiler saw no device time in three windows")
+
+
 def top(by_name, k):
     return dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:k])
 
@@ -204,7 +235,8 @@ def phase_device(ctx):
     reports = bindings.build()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "entry function" in ln]
              for name, log in reports.items()}
     ctx["kind"] = torch.cuda.get_device_name(0)
     ctx["smi"] = nvidia_smi_line()
@@ -637,30 +669,83 @@ def flash_bound(b, n, nk, h, d, causal, dtype):
             "ops_ms": ops_ms, "tf32_ops_ms": ops / TF32_OPS_PER_S * 1e3}
 
 
-def within_bf16_step(torch, a, b, atol, rtol=0.0):
-    """True when two bfloat16 results agree as two float32 results within
-    ``atol + rtol*|b|``, each then rounded once to bfloat16: at most that
-    plus one bf16 step (2^-8 of the larger magnitude's power of two)."""
+def bf16_step_misses(torch, a, b, atol, rtol=0.0):
+    """How many elements of two bfloat16 results do not agree as two
+    float32 results within ``atol + rtol*|b|``, each then rounded once to
+    bfloat16: that plus one bf16 step (2^-8 of the larger magnitude's power
+    of two)."""
     a, b = a.float(), b.float()
     _, exp = torch.frexp(torch.maximum(a.abs(), b.abs()))
     step = torch.ldexp(torch.ones_like(a), exp - 8)
-    return bool(((a - b).abs() <= step + atol + rtol * b.abs()).all())
+    return int(((a - b).abs() > step + atol + rtol * b.abs()).sum())
 
 
-def attention_inputs(torch, shape, dtype, seed, nk=None, scale=1.0):
+def within_bf16_step(torch, a, b, atol, rtol=0.0):
+    return bf16_step_misses(torch, a, b, atol, rtol) == 0
+
+
+def exact_attention(torch, q, k, v, causal):
+    """The function in float64 from the same (rounded) inputs, dense: the
+    value both float32 computations approximate."""
+    q, k, v = (x.double().transpose(1, 2) for x in (q, k, v))
+    s = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
+    if causal:
+        n, nk = s.shape[-2:]
+        keep = torch.arange(nk, device=s.device)[None, :] \
+            <= torch.arange(n, device=s.device)[:, None]
+        s = s.masked_fill(~keep, float("-inf"))
+    return (torch.softmax(s, dim=-1) @ v).transpose(1, 2)
+
+
+def attention_inputs(torch, shape, dtype, seed, nk=None, scale=1.0,
+                     layout="contiguous"):
+    """Seeded normal q, k, v (q and k times ``scale``) in one of the
+    layouts a caller may pass: ``contiguous`` (b, n, h, d) tensors;
+    ``packed`` views into one (b, n, 3, h, d) tensor; ``bhnd`` (b, h, n,
+    d) tensors seen as (b, n, h, d); ``misaligned`` tensors whose base is
+    one element past an allocation (2 bytes for bf16: off TMA's 16)."""
     b, n, h, d = shape
     nk = n if nk is None else nk
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def mk(length, s):
-        return (torch.randn((b, length, h, d), generator=gen, device="cuda")
-                * s).to(dtype)
+        x = torch.randn((b, length, h, d), generator=gen, device="cuda") * s
+        if layout == "bhnd":
+            return x.transpose(1, 2).contiguous().to(dtype).transpose(1, 2)
+        if layout == "misaligned":
+            flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+            view = flat[1:].view(x.shape)
+            view.copy_(x)
+            return view
+        return x.to(dtype)
+    if layout == "packed":
+        if nk != n:
+            raise ValueError("a packed qkv tensor has one length")
+        qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda")
+        qkv[:, :, :2] *= scale
+        qkv = qkv.to(dtype)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     return mk(n, scale), mk(nk, scale), mk(nk, 1.0)
 
 
+def host_us_per_call(torch, fn, calls=200):
+    """Host microseconds per call over ``calls`` calls with no synchronise
+    between them: what the wrapper costs the host, which sets the pace of
+    back-to-back calls when it exceeds the kernel's time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
 def phase_kernel_flash(ctx):
-    """Flash kernel vs its plain version: every case within the stated
-    tolerance, two launches bitwise equal, times beside the bound."""
+    """Both flash kernels vs their plain version: every case within the
+    stated tolerance, two launches bitwise equal and of the kernel the
+    case expects, times beside the bound."""
     import torch
     import torch.nn.functional as TF
 
@@ -671,97 +756,252 @@ def phase_kernel_flash(ctx):
                              "run in full float32")
     f32, bf16 = torch.float32, torch.bfloat16
     b, n, h, d = FLASH_AB
-    cases = [  # name, shape, nk, dtype, causal, score scale
-        ("ab_f32_causal", FLASH_AB, None, f32, True, 1.0),
-        ("ab_f32", FLASH_AB, None, f32, False, 1.0),
-        ("ab_bf16_causal", FLASH_AB, None, bf16, True, 1.0),
-        ("ab_bf16", FLASH_AB, None, bf16, False, 1.0),
-        ("d16_causal", (b, n, h, 16), None, f32, True, 1.0),
-        ("d128_causal", (b, n, h, 128), None, f32, True, 1.0),
-        ("cross_512x2048", (b, 512, h, d), 2048, f32, False, 1.0),
-        ("cross_512x2048_causal", (b, 512, h, d), 2048, f32, True, 1.0),
-        ("large_scores_x30", FLASH_AB, None, f32, False, 30.0),
+    sm90, simt = "flash_attn_sm90", "flash_attn"
+    cases = [  # name, shape, nk, dtype, causal, score scale, layout, kernel
+        ("ab_f32_causal", FLASH_AB, None, f32, True, 1.0, "contiguous", simt),
+        ("ab_f32", FLASH_AB, None, f32, False, 1.0, "contiguous", simt),
+        ("ab_bf16_causal", FLASH_AB, None, bf16, True, 1.0, "contiguous",
+         sm90),
+        ("ab_bf16", FLASH_AB, None, bf16, False, 1.0, "contiguous", sm90),
+        ("ab_bf16_causal_misaligned", FLASH_AB, None, bf16, True, 1.0,
+         "misaligned", simt),
+        ("d16_causal", (b, n, h, 16), None, f32, True, 1.0, "contiguous",
+         simt),
+        ("d16_bf16_causal", (b, n, h, 16), None, bf16, True, 1.0,
+         "contiguous", simt),
+        ("d128_causal", (b, n, h, 128), None, f32, True, 1.0, "contiguous",
+         simt),
+        ("d128_bf16_causal", (b, n, h, 128), None, bf16, True, 1.0,
+         "contiguous", sm90),
+        ("cross_512x2048", (b, 512, h, d), 2048, f32, False, 1.0,
+         "contiguous", simt),
+        ("cross_512x2048_causal", (b, 512, h, d), 2048, f32, True, 1.0,
+         "contiguous", simt),
+        ("cross_512x2048_bf16", (b, 512, h, d), 2048, bf16, False, 1.0,
+         "contiguous", sm90),
+        ("cross_512x2048_bf16_causal", (b, 512, h, d), 2048, bf16, True,
+         1.0, "contiguous", sm90),
+        ("ragged_1000x1500_bf16_causal", (b, 1000, h, d), 1500, bf16, True,
+         1.0, "contiguous", sm90),
+        ("ragged_1500x1000_bf16_d128", (b, 1500, h, 128), 1000, bf16, False,
+         1.0, "contiguous", sm90),
+        ("large_scores_x30", FLASH_AB, None, f32, False, 30.0, "contiguous",
+         simt),
+        ("packed_qkv_bf16_causal", FLASH_AB, None, bf16, True, 1.0, "packed",
+         sm90),
+        ("bhnd_view_bf16_causal", FLASH_AB, None, bf16, True, 1.0, "bhnd",
+         sm90),
+        ("large_scores_x30_bf16", FLASH_AB, None, bf16, False, 30.0,
+         "contiguous", sm90),
     ]
     rows = {}
-    for seed, (name, shape, nk, dtype, causal, scale) in enumerate(cases):
-        q, k, v = attention_inputs(torch, shape, dtype, 10 + seed, nk, scale)
-        k1 = FL.flash_attention(q, k, v, causal=causal)
-        k2 = FL.flash_attention(q, k, v, causal=causal)
+    for seed, (name, shape, nk, dtype, causal, scale, layout,
+               kernel) in enumerate(cases):
+        q, k, v = attention_inputs(torch, shape, dtype, 10 + seed, nk, scale,
+                                   layout)
+        # ragged lengths: one block each, so flash_attention's block check
+        # passes (the kernels tile by themselves)
+        blocks = {} if shape[1] % 128 == 0 and k.shape[1] % 128 == 0 \
+            else {"block_q": shape[1], "block_k": k.shape[1]}
+
+        def call():
+            return FL.flash_attention(q, k, v, causal=causal, **blocks)
+        total0, sm90_0 = FL.flash_kernel_launches, FL.flash_sm90_launches
+        k1, k2 = call(), call()
+        torch.cuda.synchronize()
+        sm90_n = FL.flash_sm90_launches - sm90_0
+        launched = {sm90: sm90_n,
+                    simt: FL.flash_kernel_launches - total0 - sm90_n}
         p = FL.flash_attention_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = (k1.float() - p.float()).abs()
+        extra = {}
         if dtype == f32:
             within = bool((err <= 2e-5 + 2e-4 * p.abs()).all())
             tol = "rtol 2e-4, atol 2e-5"
-        else:
+        elif scale == 1.0:
             within = within_bf16_step(torch, k1, p, 2e-5, 2e-4)
             tol = "rtol 2e-4, atol 2e-5, plus one bf16 step"
+        else:
+            # scores x30 (|s| ~ 1e3): the plain version and the kernel sum
+            # q.k in other orders, and near ties then move an output by
+            # more than the gate, for the plain version as well: both are
+            # held to the float64 value, and the kernel may miss the gate
+            # against it at no more outputs than the plain version does
+            exact = exact_attention(torch, q, k, v, causal)
+            misses = bf16_step_misses(torch, k1, exact, 2e-5, 2e-4)
+            plain_misses = bf16_step_misses(torch, p, exact, 2e-5, 2e-4)
+            within = misses <= plain_misses
+            tol = ("rtol 2e-4, atol 2e-5, plus one bf16 step, against the "
+                   "float64 value: misses at no more outputs than the "
+                   "plain version")
+            extra = {
+                "gate_misses_vs_float64": misses,
+                "plain_gate_misses_vs_float64": plain_misses,
+                "gate_misses_vs_plain": bf16_step_misses(
+                    torch, k1, p, 2e-5, 2e-4),
+                "outputs": k1.numel(),
+                "max_abs_err_vs_float64": float(
+                    (k1.double() - exact).abs().max()),
+                "plain_max_abs_err_vs_float64": float(
+                    (p.double() - exact).abs().max())}
+            del exact
         repeat = bool(torch.equal(k1, k2))
         finite = bool(torch.isfinite(k1).all())
+        routed = launched == {kernel: 2, (simt if kernel == sm90 else sm90): 0}
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa():
+            return TF.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal)
         row = {"case": name, "shape": list(shape),
                "nk": k.shape[1], "dtype": str(dtype).split(".")[-1],
-               "causal": causal, "within": within, "tol": tol,
-               "repeat_bitwise": repeat, "finite": finite,
+               "causal": causal, "layout": layout, "kernel": kernel,
+               "launched": launched, "routed": routed, "within": within,
+               "tol": tol, **extra, "repeat_bitwise": repeat,
+               "finite": finite,
                "max_abs_err": float(err.max().item()),
-               "kernel_ms": time_ms(torch, lambda: FL.flash_attention(
-                   q, k, v, causal=causal)),
+               "kernel_ms": device_ms(torch, call),
+               "call_ms": time_ms(torch, call),
                "plain_ms": time_ms(torch, lambda: FL.flash_attention_reference(
                    q, k, v, causal=causal), reps=5, warmup=1),
-               "library_ms": time_ms(
-                   torch, lambda: TF.scaled_dot_product_attention(
-                       qt, kt, vt, is_causal=causal)),
+               "library_ms": device_ms(torch, sdpa),
+               "library_call_ms": time_ms(torch, sdpa),
                **flash_bound(shape[0], shape[1], k.shape[1], shape[2],
                              shape[3], causal, q.dtype)}
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        if name.startswith("ab_"):
+            row["host_us_per_call"] = host_us_per_call(torch, call)
         del qt, kt, vt
         emit({"phase": "kernel_flash_vs_plain", **row})
         rows[name] = row
-        if not (within and repeat and finite):
-            raise AssertionError(f"flash_attn disagrees with its plain "
-                                 f"version in case {name}: {row}")
+        if not (within and repeat and finite and routed):
+            raise AssertionError(f"flash case {name} failed: {row}")
     ctx["flash_rows"] = rows
     return {"cases": list(rows), "all_agree": True, "card": ctx["smi"]}
 
 
+def phase_sdpa_backends(ctx):
+    """The yardstick: ``scaled_dot_product_attention`` at the A/B shape
+    (causal) in float32 and bfloat16 under each backend alone. Which
+    backends take the call, their device and call times and their max abs
+    error against the plain version (float32 in full: TF32 would show as
+    an error of about 1e-3), and which backend the default call matches
+    bit for bit."""
+    import torch
+    import torch.nn.functional as TF
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from mmlspark_tpu_torch.parallel import flash as FL
+    out = {"card": ctx["smi"]}
+    for seed, dtype in enumerate((torch.float32, torch.bfloat16)):
+        q, k, v = attention_inputs(torch, FLASH_AB, dtype, 60 + seed)
+        ref = FL.flash_attention_reference(q, k, v, causal=True).float()
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa():
+            return TF.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True)
+        default = sdpa()
+        rows = {"default": {
+            "ms": device_ms(torch, sdpa), "call_ms": time_ms(torch, sdpa),
+            "max_abs_err": float(
+                (default.transpose(1, 2).float() - ref).abs().max())}}
+        for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                     "CUDNN_ATTENTION", "MATH"):
+            backend = getattr(SDPBackend, name, None)
+            if backend is None:
+                rows[name] = {"accepted": False,
+                              "reason": "not in this PyTorch"}
+                continue
+
+            def forced(backend=backend):
+                with sdpa_kernel([backend]):
+                    return sdpa()
+            try:
+                got = forced()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                rows[name] = {"accepted": False, "reason": str(e)[:300]}
+                continue
+            rows[name] = {
+                "accepted": True, "ms": device_ms(torch, forced),
+                "call_ms": time_ms(torch, forced),
+                "max_abs_err": float(
+                    (got.transpose(1, 2).float() - ref).abs().max()),
+                "equals_default": bool(torch.equal(got, default))}
+        rows["default_is"] = [n for n, r in rows.items()
+                              if isinstance(r, dict)
+                              and r.get("equals_default")]
+        out[str(dtype).split(".")[-1]] = rows
+    return out
+
+
 def phase_attention_path(ctx):
-    """``fused_attention`` through the kernel at the A/B shape (float32
-    and bfloat16) and at n=16384, counted, against the blockwise loop."""
+    """``fused_attention`` through the kernels at the A/B shape (float32
+    and bfloat16, and bfloat16 at d=32, which routes to ``flash_attn.cu``)
+    and at n=16384, counted by kernel, against the blockwise loop."""
     import torch
 
     from mmlspark_tpu_torch.parallel import attention as AT
     from mmlspark_tpu_torch.parallel import flash as FL
-    runs = [("ab_f32", FLASH_AB, torch.float32, 20),
-            ("ab_bf16", FLASH_AB, torch.bfloat16, 20),
-            ("long_f32", FLASH_LONG, torch.float32, 3)]
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, n, h, _ = FLASH_AB
+    runs = [  # name, shape, dtype, reps, kernel (the launch-count key)
+        ("ab_f32", FLASH_AB, f32, 20, "flash_attn[f32]"),
+        ("ab_bf16", FLASH_AB, bf16, 20, "flash_attn_sm90[bf16]"),
+        ("ab_bf16_d32", (b, n, h, 32), bf16, 20, "flash_attn[bf16]"),
+        ("long_f32", FLASH_LONG, f32, 3, "flash_attn[f32]"),
+        ("long_bf16", FLASH_LONG, bf16, 3, "flash_attn_sm90[bf16]")]
     out = {"card": ctx["smi"]}
-    launches = {"f32": 0, "bf16": 0}
-    for seed, (name, shape, dtype, reps) in enumerate(runs):
+    launches = {"flash_attn[f32]": 0, "flash_attn[bf16]": 0,
+                "flash_attn_sm90[bf16]": 0}
+    for seed, (name, shape, dtype, reps, kernel) in enumerate(runs):
         q, k, v = attention_inputs(torch, shape, dtype, 30 + seed)
-        FL.flash_kernel_launches = 0
+        FL.flash_kernel_launches = FL.flash_sm90_launches = 0
         fused = AT.fused_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
-        count = FL.flash_kernel_launches
-        launches[name.split("_")[-1]] += count
+        sm90 = FL.flash_sm90_launches
+        counts = {"flash_attn": FL.flash_kernel_launches - sm90,
+                  "flash_attn_sm90": sm90}
+        short = "f32" if dtype == f32 else "bf16"
+        for key, count in counts.items():
+            if count:
+                launches[f"{key}[{short}]"] += count
         ref = AT.blockwise_attention(q.float(), k.float(), v.float(),
                                      causal=True)
-        if dtype == torch.float32:
+        if dtype == f32:
             agree = bool(torch.allclose(fused, ref, rtol=0, atol=1e-4))
         else:
             agree = within_bf16_step(torch, fused, ref.to(dtype), 1e-4)
-        b, n, h, d = shape
+        bs, ns, hs, ds = shape
         fused_ms = time_ms(torch, lambda: AT.fused_attention(
             q, k, v, causal=True), reps=reps)
         blockwise_ms = time_ms(torch, lambda: AT.blockwise_attention(
             q, k, v, causal=True), reps=reps, warmup=1)
-        useful = 2 * b * h * n * n * d        # the A/B script's causal count
+        useful = 2 * bs * hs * ns * ns * ds   # the A/B script's causal count
         row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-               "launches": count, "agrees_with_blockwise": agree,
+               "kernel": kernel, "launches": counts,
+               "agrees_with_blockwise": agree,
                "max_abs_diff": float((fused.float() - ref).abs().max()),
                "fused_ms": fused_ms, "blockwise_ms": blockwise_ms,
                "fused_causal_tflops": useful / fused_ms / 1e9,
                "blockwise_causal_tflops": useful / blockwise_ms / 1e9}
+        if name == "ab_bf16":
+            # ten back-to-back calls under the profiler: the device's
+            # share of the wall, by kernel, and the host's time by op
+            def ten():
+                for _ in range(10):
+                    AT.fused_attention(q, k, v, causal=True)
+            wall, device, host = profile_ms(torch, ten)
+            busy = sum(device.values())
+            row.update(profiled_wall_ms_10_calls=wall, device_busy_ms=busy,
+                       device_idle_share=1 - busy / wall,
+                       device_ms_by_kernel=top(device, 4),
+                       host_self_ms_by_op=top(host, 8))
         out[name] = row
-        if count != 1 or not agree:
+        expected = kernel.split("[")[0]
+        if counts[expected] != 1 or sum(counts.values()) != 1 or not agree:
             raise AssertionError(f"fused_attention {name}: {row}")
     q, k, v = attention_inputs(torch, FLASH_AB, torch.float32, 40)
     try:
@@ -863,20 +1103,27 @@ def kernel_table(ctx):
             "mmlspark_tpu/models/gbdt/hist_pallas.py:204",
             ctx["launches"]["level_hist_quant"][quant],
             ctx["quant_rows"][quant]))
-    for dtype in ("f32", "bf16"):
-        row = ctx["flash_rows"][f"ab_{dtype}_causal"]
+    flash = ctx["flash_rows"]
+    for name, case, source in (
+            ("flash_attn[f32]", "ab_f32_causal", "flash_attn.cu"),
+            ("flash_attn[bf16]", "ab_bf16_causal_misaligned",
+             "flash_attn.cu"),
+            ("flash_attn_sm90[bf16]", "ab_bf16_causal",
+             "flash_attn_sm90.cu")):
+        row = flash[case]
         kernels.append({
-            "name": f"flash_attn[{dtype}]", "route": "cuda",
-            "source": "mmlspark_tpu_torch/csrc/flash_attn.cu",
+            "name": name, "route": "cuda",
+            "source": f"mmlspark_tpu_torch/csrc/{source}",
             "replaces": "mmlspark_tpu/parallel/flash.py:24",
-            "launches": ctx["launches"]["flash_attn"][dtype],
-            "max_abs_err": max(r["max_abs_err"]
-                               for r in ctx["flash_rows"].values()
-                               if r["dtype"] == row["dtype"]),
+            "launches": ctx["launches"]["flash_attn"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in flash.values()
+                               if r["dtype"] == row["dtype"]
+                               and r["kernel"] == row["kernel"]),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "per": "one call at b=4, n=2048, h=8, d=64, causal",
+            "per": f"one call at b=4, n=2048, h=8, d=64, causal ({case}); "
+                   f"launches from phase attention_path",
         })
     return {"kernels": kernels}
 
@@ -900,6 +1147,7 @@ def main() -> int:
                      ("main_path_quant", phase_main_quant),
                      ("card_vs_cpu_quant", phase_card_vs_cpu_quant),
                      ("kernel_flash", phase_kernel_flash),
+                     ("sdpa_backends", phase_sdpa_backends),
                      ("attention_path", phase_attention_path),
                      ("attention_dist", phase_attention_dist)):
         t0 = time.perf_counter()

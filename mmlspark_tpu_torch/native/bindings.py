@@ -4,9 +4,10 @@ Counterpart of the JAX package's ctypes module for its C++ data plane.
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``build/`` beside this
 package's sources (listed in ``.gitignore``), named by a hash of the
-source and the flags so an edited kernel is rebuilt. Libraries load
-through ``ctypes``; the wrappers pass pointers (``data_ptr()``) and the
-stream (``torch.cuda.current_stream().cuda_stream``) as ``c_void_p``.
+source, the ``csrc`` headers it includes and the flags, so an edited
+kernel or header is rebuilt. Libraries load through ``ctypes``; the
+wrappers pass pointers (``data_ptr()``) and the stream
+(``torch.cuda.current_stream().cuda_stream``) as ``c_void_p``.
 
 Nothing here runs at import: the CPU tests import this module on
 machines that have no ``nvcc``.
@@ -18,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -31,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # C signatures of every kernel library: name -> {function: (argtypes, restype)}
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -52,11 +54,21 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_attn": {
         # q, k, v, out, dtype, b, h, n, nk, d, (b, n, h) strides of q, k,
         # v and out, scale, causal, device, stream
-        "mmls_flash_attn": ([_VP] * 4 + [_I] * 6 + [ctypes.c_longlong] * 12
+        "mmls_flash_attn": ([_VP] * 4 + [_I] * 6 + [_LL] * 12
                             + [ctypes.c_float, _I, _I, _VP], _I),
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "flash_attn_sm90": {
+        # q, k, v, out, TMA geometry (12 int64 per q, k, v), b, h, n, nk,
+        # d, (b, n, h) strides of out, scale, causal, device, stream
+        "mmls_flash_attn_sm90": ([_VP] * 4 + [ctypes.POINTER(_LL)]
+                                 + [_I] * 5 + [_LL] * 3
+                                 + [ctypes.c_float, _I, _I, _VP], _I),
+        "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
+
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def nvcc_path() -> str:
@@ -68,11 +80,24 @@ def nvcc_path() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def sources(name: str) -> List[Path]:
+    """``csrc/{name}.cu`` and every ``csrc`` header it includes with
+    quotes, directly or through another header."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep not in found:
+                found.append(dep)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:

@@ -1,5 +1,6 @@
-"""Fused softmax attention: the wrapper of the CUDA kernel
-``csrc/flash_attn.cu`` and its plain PyTorch version.
+"""Fused softmax attention: the wrappers of the CUDA kernels
+``csrc/flash_attn_sm90.cu`` and ``csrc/flash_attn.cu``, and their plain
+PyTorch version.
 
 Port of ``mmlspark_tpu.parallel.flash`` (the TPU kernel ``_flash_kernel``):
 q (batch, seq, heads, head_dim), k and v (batch, kv_seq, heads, head_dim)
@@ -9,29 +10,43 @@ an online softmax over KV blocks, masked scores of -1e30, and
 ``acc / max(l, 1e-30)`` at the end. Causal masking is top-left aligned
 (query i sees key j when i >= j, both from 0).
 
-On a CUDA tensor ``flash_attention`` launches the kernel (a build or
-launch failure raises); on a CPU tensor it runs the plain version. There
-is no other route and no opt-in: the kernel is held against the plain
-version on the card by ``chip_smoke.py``. The kernel has no gradient, as
-the TPU kernel has none; it raises on inputs that require one.
+On a CUDA tensor ``flash_attention`` launches a kernel (a build, encode
+or launch failure raises); on a CPU tensor it runs the plain version.
+:func:`flash_route` picks the kernel from the inputs' type, head dim,
+base addresses and strides alone: bfloat16 calls that meet TMA's rules go
+to ``flash_attn_sm90.cu`` (wgmma, TMA, a producer warp), every other call
+to ``flash_attn.cu`` (CUDA cores, float32). There is no other route, no
+fallback and no opt-in: both kernels are held against the plain version on
+the card by ``chip_smoke.py``. The kernels have no gradient, as the TPU
+kernel has none; the wrapper raises on inputs that require one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.native import bindings
 
-# Launches of the kernel in this process, so a run can show that its
-# path went through the kernel.
+# Launches in this process, so a run can show that its path went through
+# the kernels: of either kernel, and of csrc/flash_attn_sm90.cu alone.
 flash_kernel_launches = 0
+flash_sm90_launches = 0
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128        # the kernel's largest head_dim bucket
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # -> the kernel's dtype code
+MAX_HEAD_DIM = 128        # the kernels' largest head_dim
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # -> flash_attn.cu's code
+
+# flash_attn_sm90.cu: its head dims; the rows of its q and key tiles,
+# which are the TMA boxes' rows; the bf16 columns of a box (128 bytes: the
+# swizzle span); and TMA's limit on a stride in bytes
+SM90_HEAD_DIMS = (64, 128)
+SM90_TILE_ROWS = 128
+TMA_BOX_COLS = 64
+TMA_MAX_STRIDE_BYTES = 1 << 40
 
 
 def flash_available(device: DeviceLike = None) -> bool:
@@ -120,23 +135,99 @@ def check_kernel_inputs(q, k, v) -> None:
                            ".detach()), or use blockwise_attention")
 
 
+def flash_route(dtype, head_dim: int, data_ptrs, strides) -> str:
+    """The kernel a CUDA call launches, from the inputs' type, head dim,
+    base addresses and (b, n, h, d) element strides alone:
+    ``"flash_attn_sm90"`` for bfloat16 with head_dim 64 or 128, every base
+    16-byte aligned and every (b, n, h) stride a positive multiple of 8
+    elements under 2^40 bytes with d contiguous (TMA's rules);
+    ``"flash_attn"`` for every other call."""
+    if dtype != torch.bfloat16 or head_dim not in SM90_HEAD_DIMS:
+        return "flash_attn"
+    if any(p % 16 for p in data_ptrs):
+        return "flash_attn"
+    for st in strides:
+        if st[3] != 1 or any(s <= 0 or s % 8 or 2 * s >= TMA_MAX_STRIDE_BYTES
+                             for s in st[:3]):
+            return "flash_attn"
+    return "flash_attn_sm90"
+
+
+def tma_geometry(shape, strides, itemsize: int, rows: int) -> dict:
+    """The 4-D tensor map through which ``flash_attn_sm90.cu`` reads a
+    (b, n, h, d) tensor in place: dims (d, h, n, b), innermost first; the
+    byte strides of h, n and b; the box (64 columns, 1 head, ``rows``
+    rows, 1 batch); and the swizzle span in bytes (the box's row)."""
+    b, n, h, d = shape
+    cols = min(d, TMA_BOX_COLS)
+    return {"dims": (d, h, n, b),
+            "strides": tuple(strides[i] * itemsize for i in (2, 1, 0)),
+            "box": (cols, 1, rows, 1),
+            "swizzle": cols * itemsize}
+
+
+@functools.lru_cache(maxsize=1024)
+def _sm90_geometry(dtype, q_shape, q_stride, k_shape, k_stride, v_stride):
+    """:func:`flash_route`'s rules other than the base addresses' and, when
+    they hold, the 36 integers the C side reads (per tensor q, k, v:
+    :func:`tma_geometry`'s dims, strides, box and swizzle) as a C array,
+    else None. Cached by shapes and strides, so a call that repeats a
+    layout pays for neither."""
+    strides = (q_stride, k_stride, v_stride)
+    if flash_route(dtype, q_shape[3], (0, 0, 0),
+                   strides) != "flash_attn_sm90":
+        return None
+    vals = []
+    for shape, st in zip((q_shape, k_shape, k_shape), strides):
+        g = tma_geometry(tuple(shape), st, dtype.itemsize, SM90_TILE_ROWS)
+        vals += [*g["dims"], *g["strides"], *g["box"], g["swizzle"]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
-    global flash_kernel_launches
     check_kernel_inputs(q, k, v)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     b, n, h, d = q.shape
-    nk = k.shape[1]
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    # flash_route, with the address-free part cached by layout
+    geom = _sm90_geometry(q.dtype, q.shape, q.stride(), k.shape, k.stride(),
+                          v.stride())
+    if geom is not None and not (q.data_ptr() | k.data_ptr()
+                                 | v.data_ptr()) % 16:
+        _launch_sm90(q, k, v, out, causal, geom)
+    else:
+        _launch_simt(q, k, v, out, causal)
+    return out
+
+
+def _launch_simt(q, k, v, out, causal: bool) -> None:
+    """``csrc/flash_attn.cu``: float32 arithmetic on the CUDA cores."""
+    global flash_kernel_launches
+    b, n, h, d = q.shape
     lib = bindings.load("flash_attn")
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.mmls_flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        DTYPES[q.dtype], b, h, n, nk, d, *strides,
+        DTYPES[q.dtype], b, h, n, k.shape[1], d, *strides,
         ctypes.c_float(1.0 / (d ** 0.5)), int(causal), q.device.index,
-        stream)
+        torch.cuda.current_stream(q.device).cuda_stream)
     bindings.check(lib, code, "flash_attn kernel launch")
     flash_kernel_launches += 1
-    return out
+
+
+def _launch_sm90(q, k, v, out, causal: bool, geom) -> None:
+    """``csrc/flash_attn_sm90.cu``: bfloat16 on the tensor cores; the C
+    side encodes the tensor maps from ``geom`` (:func:`_sm90_geometry`)."""
+    global flash_kernel_launches, flash_sm90_launches
+    b, n, h, d = q.shape
+    lib = bindings.load("flash_attn_sm90")
+    code = lib.mmls_flash_attn_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        geom, b, h, n, k.shape[1], d,
+        *out.stride()[:3], ctypes.c_float(1.0 / (d ** 0.5)), int(causal),
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    bindings.check(lib, code, "flash_attn_sm90 kernel launch")
+    flash_kernel_launches += 1
+    flash_sm90_launches += 1
