@@ -8,16 +8,17 @@ sm_90a), then:
 
   1. device: the card's name and power limit, torch/CUDA versions,
      kernel build time and the ptxas report;
-  2. kernel vs plain: the level-histogram kernel against its plain
-     PyTorch version at the HIGGS bench shape (N=2,000,000, F=28,
-     B=255) for every level width of a depth-6 tree — bitwise on
-     integer-valued stats, within a stated float bound otherwise — with
-     CUDA-event timings of the kernel, the plain version and one
-     ``index_add_`` call, and the bound from bytes and operations;
+  2. kernel vs plain: the level-histogram kernel (float32 stats summed
+     in fixed point) against its plain PyTorch version at the HIGGS
+     bench shape (N=2,000,000, F=28, B=255) for every level width of a
+     depth-6 tree — bitwise on integer-valued and on float stats, and
+     bitwise between two launches — with CUDA-event timings of the
+     kernel, the plain version and one float32 ``index_add_`` call, and
+     the bound from bytes and operations;
   3. main path: ``BinMapper.fit`` / ``transform``, ``train`` (binary,
      num_leaves=63, max_depth=6, 20 trees) and ``predict_binned`` on the
      2M rows, with the kernel's launch count over the fit, the training
-     logloss per tree, and fit / scoring rates;
+     logloss per tree, two fits bitwise equal, and fit / scoring rates;
   4. profile: a 5-tree bench-shape fit under torch.profiler — device
      time by kernel and the device's idle share;
   5. card vs CPU: the same fit at 100k rows and 5 trees on ``cuda`` and
@@ -35,27 +36,29 @@ sm_90a), then:
      device time per tree with subtraction off and on (torch.profiler);
   8. card vs CPU, quantized: the 100k-row 5-tree fit under q16 on
      ``cuda`` and on ``cpu``;
-  9. flash kernels vs plain: ``csrc/flash_attn.cu`` and, for bfloat16
-     calls that meet TMA's rules, ``csrc/flash_attn_sm90.cu`` (wgmma, TMA,
-     a producer warp) against ``flash_attention_reference`` (TF32 off) at
-     the repo's attention A/B shape (b=4, n=2048, h=8, d=64;
-     ``tools/tpu_day.sh``), causal and not, in float32 and bfloat16, at
-     d=16 and d=128, with cross and ragged lengths, scores far outside
-     exp's range, a packed-qkv view, a (b, h, n, d) view and a misaligned
-     view (which routes to ``flash_attn.cu``) — within rtol 2e-4 / atol
-     2e-5 in float32 and that plus one bf16 step in bfloat16, two launches
-     bitwise equal, the kernel each case launched (counter deltas) — with
-     CUDA-event timings of the kernel, the plain version and
-     ``scaled_dot_product_attention``, the bound, and at the A/B shape the
-     host's microseconds per call (200 calls, no synchronise);
+  9. flash kernels vs plain: ``csrc/flash_attn.cu`` (float32) and
+     ``csrc/flash_attn_sm90.cu`` (every bfloat16 call: wgmma, TMA, a
+     producer warp; in place, or on copies staged for TMA) against
+     ``flash_attention_reference`` (TF32 off) at the repo's attention A/B
+     shape (b=4, n=2048, h=8, d=64; ``tools/tpu_day.sh``), causal and
+     not, in float32 and bfloat16, at d=16, 32, 33, 36, 96 and 128, with
+     cross and ragged lengths, scores far outside exp's range, a
+     packed-qkv view, a (b, h, n, d) view and a misaligned view (staged)
+     — within rtol 2e-4 / atol 2e-5 in float32 and that plus one bf16 step
+     in bfloat16, two launches bitwise equal, the route each case took
+     (counter deltas) — with device times of the call, of its staging
+     copies and of ``scaled_dot_product_attention``, CUDA-event timings
+     of the plain version, the bound, and at the A/B shape the host's
+     microseconds per call (200 calls, no synchronise);
  10. SDPA backends: ``scaled_dot_product_attention`` at the A/B shape
      (causal) in float32 and bfloat16 under each backend alone — which
      accept the call, their times, their max abs error against the plain
      version, and which one the default call matches bit for bit;
  11. attention path: ``fused_attention`` (causal) at the A/B shape in
-     float32 and bfloat16 (and bfloat16 at d=32, which routes to
-     ``flash_attn.cu``) and at b=1, n=16384, h=8, d=64 in both types, one
-     kernel launch per call (of the kernel its route names), against
+     float32 and bfloat16 (and bfloat16 at d=32 and through a misaligned
+     view, both on ``flash_attn_sm90.cu``, the second staged) and at b=1,
+     n=16384, h=8, d=64 in both types, one kernel launch per call (of the
+     route it expects; ``flash_attn.cu`` never for bfloat16), against
      ``blockwise_attention``, with the times of both (the flash-vs-
      blockwise A/B), and the refusal of inputs that require grad;
  12. attention, distributed: a one-rank NCCL group runs
@@ -170,6 +173,13 @@ def device_ms_by_kernel(torch, fn):
     return wall_ms, by_name
 
 
+def kernel_name(name):
+    """A profiled kernel's name without namespace noise or template
+    arguments."""
+    base = name.replace("(anonymous namespace)::", "")
+    return re.sub(r"[<(].*$", "", base).strip()
+
+
 def profile_ms(torch, fn):
     """(wall ms, {kernel name: device ms}, {host op: self ms}) of
     ``fn()`` under torch.profiler, kernel names without template
@@ -186,8 +196,7 @@ def profile_ms(torch, fn):
     by_name = {}
     for e in prof.events():
         if str(e.device_type).endswith("CUDA"):
-            base = e.name.replace("(anonymous namespace)::", "")
-            name = re.sub(r"[<(].*$", "", base).strip()
+            name = kernel_name(e.name)
             by_name[name] = by_name.get(name, 0.0) \
                 + e.time_range.elapsed_us() / 1e3
     host = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
@@ -195,26 +204,52 @@ def profile_ms(torch, fn):
     return wall_ms, by_name, host
 
 
-def device_ms(torch, fn, reps=REPS, warmup=3):
-    """Device time of one call of ``fn`` in ms: the CUDA kernels' time
-    in a profiled run of ``reps`` calls, over ``reps``. Unlike an event
-    pair around each call, it does not grow when the host's work per call
-    outlasts the device's."""
-    from torch.profiler import ProfilerActivity, profile
-
+def device_ms(torch, fn, reps=REPS, warmup=3, batches=3):
+    """Device time of one call of ``fn`` in ms, back to back: a spin
+    kernel (``torch.cuda._sleep``) holds the stream while the host
+    enqueues ``reps`` calls, so the CUDA events around them time the
+    device's work alone, with no host time between calls (the device's
+    own gaps between kernels count). If the host took longer to enqueue
+    than the spin lasted, the batch is run again with a longer spin.
+    The median of ``batches`` batches. Unlike an event pair around each
+    call, it does not grow when the host's work per call outlasts the
+    device's; unlike summing a profiler's kernel records, it cannot
+    miss a kernel."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):    # a profiled window now and then records no kernel
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                       if str(e.device_type).endswith("CUDA"))
-        if total_us > 0:
-            return total_us / reps / 1e3
-    raise AssertionError("the profiler saw no device time in three windows")
+    spin, times = 1 << 24, []
+    while len(times) < batches:
+        held, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        held.record()
+        torch.cuda._sleep(spin)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms >= held.elapsed_time(start):
+            spin *= 4
+            if spin > 1 << 30:
+                raise AssertionError("the host never enqueued a batch within "
+                                     "the spin")
+            continue
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+# the kernels of the histogram wrappers: the histograms, the float32
+# plane's amax and exponent kernels, and the dequantization
+HIST_KERNELS = ("level_hist", "amax_kernel", "exponents_kernel",
+                "dequantize")
+
+
+def hist_device_ms(by_name):
+    return sum(v for k, v in by_name.items()
+               if any(h in k for h in HIST_KERNELS))
 
 
 def top(by_name, k):
@@ -247,7 +282,9 @@ def phase_device(ctx):
 
 
 def phase_kernel(ctx):
-    """Level-histogram kernel vs its plain version at the bench shape."""
+    """Level-histogram kernel vs its plain version at the bench shape:
+    the fixed-point sums are the same bits in any order, so bitwise on
+    every stat, and between two launches."""
     import torch
 
     from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
@@ -269,9 +306,11 @@ def phase_kernel(ctx):
         k_int = H.level_histogram(binned, gi, hi, live, local, *args)
         p_int = H.level_histogram_reference(binned, gi, hi, live, local, *args)
         k = H.level_histogram(binned, gf, hf, live, local, *args)
+        k2 = H.level_histogram(binned, gf, hf, live, local, *args)
         p = H.level_histogram_reference(binned, gf, hf, live, local, *args)
-        # float tolerance: a float32 sum of k terms in any order is within
-        # about (k-1)*u*sum|x| of the exact sum (u = 2^-24), so two orders
+        # the float bound of any float32 order, kept beside the bitwise
+        # gates: a float32 sum of k terms in any order is within about
+        # (k-1)*u*sum|x| of the exact sum (u = 2^-24), so two orders
         # differ by under 2(k-1)*u*sum|x|; 4*k*u*sum|x| per cell also
         # covers the rounding of sum|x| itself
         absum = H.level_histogram_reference(binned, gf.abs(), hf.abs(), live,
@@ -280,8 +319,11 @@ def phase_kernel(ctx):
         err = (k - p).abs()
         torch.cuda.synchronize()
         bitwise = bool(torch.equal(k_int, p_int))
+        bitwise_float = bool(torch.equal(k, p))
+        repeat = bool(torch.equal(k, k2))
         within = bool((err[..., :2] <= bound[..., :2]).all())
         counts_exact = bool(torch.equal(k[..., 2], p[..., 2]))
+        del k2
 
         idx = H.flat_index(binned, local, F, B)
         src = torch.stack([gf * live, hf * live, live], -1)[:, None, :] \
@@ -300,6 +342,7 @@ def phase_kernel(ctx):
         bytes_ms = (in_bytes + out_bytes) / MEM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
         row = {"width": width, "bitwise_int": bitwise,
+               "bitwise_float": bitwise_float, "repeat_bitwise": repeat,
                "float_within_bound": within, "counts_exact": counts_exact,
                "max_abs_err": float(err.max().item()),
                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
@@ -309,11 +352,12 @@ def phase_kernel(ctx):
                "bytes": in_bytes + out_bytes, "ops": ops}
         emit({"phase": "kernel_vs_plain", **row})
         rows.append(row)
-        if not (bitwise and within and counts_exact):
+        if not (bitwise and bitwise_float and repeat and within
+                and counts_exact):
             raise AssertionError(f"level_hist disagrees with its plain "
                                  f"version at width {width}: {row}")
     ctx["hist_rows"] = rows
-    return {"widths": list(WIDTHS), "all_agree": True}
+    return {"widths": list(WIDTHS), "all_bitwise": True}
 
 
 def make_data(n, seed=0):
@@ -365,6 +409,9 @@ def phase_main(ctx):
     quant_launches = H.hist_quant_kernel_launches
     ctx["launches"] = {"level_hist": launches}
     ctx["main_inputs"] = (binned, y, bin_upper, cfg)
+    # the fixed-point histogram makes the float32 fit reproducible
+    reproducible = boosters_equal(
+        result.booster, train(binned, y, cfg, bin_upper=bin_upper).booster)
 
     booster = result.booster
     lls = [e["train_binary_logloss"] for e in result.evals]
@@ -383,7 +430,7 @@ def phase_main(ctx):
     out = {"bin_s": bin_s, "fit_s": fit_s, "score_s": score_s,
            "trees": booster.num_trees, "launches": launches,
            "expected_launches": expected,
-           "syncs_per_fit": syncs[3],
+           "syncs_per_fit": syncs[3], "two_fits_bitwise": reproducible,
            "logloss_first": lls[0], "logloss_last": lls[-1],
            "fit_mrow_trees_per_s": N * booster.num_trees / fit_s / 1e6,
            "score_mrow_trees_per_s": N * booster.num_trees / score_s / 1e6,
@@ -395,6 +442,8 @@ def phase_main(ctx):
     if not all(b <= a + 1e-7 for a, b in zip(lls, lls[1:])) \
             or not lls[-1] < lls[0]:
         raise AssertionError(f"training logloss does not fall: {lls}")
+    if not reproducible:
+        raise AssertionError("two float32 fits gave different boosters")
     if tuple(scores.shape) != (N,) or not bool(torch.isfinite(scores).all()):
         raise AssertionError("scores are not finite of shape (N,)")
     if not torch.equal(scores[:100_000].cpu(), cpu_scores):
@@ -417,7 +466,7 @@ def phase_profile(ctx):
         torch, lambda: train(binned_d, y, cfg, bin_upper=bin_upper))
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    hist_ms = sum(v for k, v in by_name.items() if "level_hist" in k)
+    hist_ms = hist_device_ms(by_name)
     return {"trees": 5, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms if busy_ms else "not measured",
             "device_idle_share": 1 - busy_ms / wall_ms if busy_ms
@@ -442,10 +491,17 @@ def phase_card_vs_cpu(ctx):
                    and np.array_equal(a.threshold_bin[:, 0],
                                       b.threshold_bin[:, 0]))
     ll = {dev: r.evals[-1]["train_binary_logloss"] for dev, r in res.items()}
-    # the card sums histograms with atomics and reductions in another
-    # order than the CPU: float32 rounding only, far below 1e-4 relative
+    # the histograms are the same bits on both devices (fixed point); the
+    # objective and split finding reduce in another order on the card:
+    # float32 rounding only, far below 1e-4 relative
     rel = abs(ll["cuda"] - ll["cpu"]) / abs(ll["cpu"])
-    out = {"roots_equal": roots_equal, "logloss_cuda": ll["cuda"],
+    names = ("split_feature", "threshold_bin", "node_value", "count")
+    trees_equal = int(sum(all(np.array_equal(getattr(a, k)[t],
+                                             getattr(b, k)[t])
+                              for k in names)
+                          for t in range(a.num_trees)))
+    out = {"roots_equal": roots_equal, "trees_equal_in_every_array":
+           trees_equal, "trees": a.num_trees, "logloss_cuda": ll["cuda"],
            "logloss_cpu": ll["cpu"], "rel_diff": rel, "tol": 1e-4}
     if not roots_equal or rel > 1e-4:
         raise AssertionError(f"card and CPU fits disagree: {out}")
@@ -603,8 +659,7 @@ def phase_main_quant(ctx):
                 wall_ms, by_name = device_ms_by_kernel(torch, lambda: train(
                     binned_d, y, dataclasses.replace(cfg, num_iterations=5),
                     bin_upper=bin_upper))
-            hist_ms = sum(v for k, v in by_name.items()
-                          if "level_hist" in k or "dequantize" in k)
+            hist_ms = hist_device_ms(by_name)
             row[f"hist_ms_per_tree_sub{sub}"] = hist_ms / 5
             row[f"profiled_wall_ms_per_tree_sub{sub}"] = wall_ms / 5
         out[f"sub_{quant}"] = row
@@ -756,19 +811,19 @@ def phase_kernel_flash(ctx):
                              "run in full float32")
     f32, bf16 = torch.float32, torch.bfloat16
     b, n, h, d = FLASH_AB
-    sm90, simt = "flash_attn_sm90", "flash_attn"
-    cases = [  # name, shape, nk, dtype, causal, score scale, layout, kernel
+    sm90, staged, simt = FL.SM90, FL.SM90_STAGED, FL.SIMT
+    cases = [  # name, shape, nk, dtype, causal, score scale, layout, route
         ("ab_f32_causal", FLASH_AB, None, f32, True, 1.0, "contiguous", simt),
         ("ab_f32", FLASH_AB, None, f32, False, 1.0, "contiguous", simt),
         ("ab_bf16_causal", FLASH_AB, None, bf16, True, 1.0, "contiguous",
          sm90),
         ("ab_bf16", FLASH_AB, None, bf16, False, 1.0, "contiguous", sm90),
         ("ab_bf16_causal_misaligned", FLASH_AB, None, bf16, True, 1.0,
-         "misaligned", simt),
+         "misaligned", staged),
         ("d16_causal", (b, n, h, 16), None, f32, True, 1.0, "contiguous",
          simt),
         ("d16_bf16_causal", (b, n, h, 16), None, bf16, True, 1.0,
-         "contiguous", simt),
+         "contiguous", sm90),
         ("d128_causal", (b, n, h, 128), None, f32, True, 1.0, "contiguous",
          simt),
         ("d128_bf16_causal", (b, n, h, 128), None, bf16, True, 1.0,
@@ -793,6 +848,15 @@ def phase_kernel_flash(ctx):
          sm90),
         ("large_scores_x30_bf16", FLASH_AB, None, bf16, False, 30.0,
          "contiguous", sm90),
+        # appended, so the cases above keep their seeds
+        ("d32_bf16_causal", (b, n, h, 32), None, bf16, True, 1.0,
+         "contiguous", sm90),
+        ("d36_bf16_causal", (b, n, h, 36), None, bf16, True, 1.0,
+         "contiguous", staged),
+        ("d33_bf16_causal", (b, n, h, 33), None, bf16, True, 1.0,
+         "contiguous", staged),
+        ("d96_bf16_causal", (b, n, h, 96), None, bf16, True, 1.0,
+         "contiguous", sm90),
     ]
     rows = {}
     for seed, (name, shape, nk, dtype, causal, scale, layout,
@@ -806,11 +870,14 @@ def phase_kernel_flash(ctx):
 
         def call():
             return FL.flash_attention(q, k, v, causal=causal, **blocks)
-        total0, sm90_0 = FL.flash_kernel_launches, FL.flash_sm90_launches
+        total0, sm90_0, staged0 = (FL.flash_kernel_launches,
+                                   FL.flash_sm90_launches,
+                                   FL.flash_staged_calls)
         k1, k2 = call(), call()
         torch.cuda.synchronize()
         sm90_n = FL.flash_sm90_launches - sm90_0
-        launched = {sm90: sm90_n,
+        staged_n = FL.flash_staged_calls - staged0
+        launched = {sm90: sm90_n - staged_n, staged: staged_n,
                     simt: FL.flash_kernel_launches - total0 - sm90_n}
         p = FL.flash_attention_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -848,7 +915,7 @@ def phase_kernel_flash(ctx):
             del exact
         repeat = bool(torch.equal(k1, k2))
         finite = bool(torch.isfinite(k1).all())
-        routed = launched == {kernel: 2, (simt if kernel == sm90 else sm90): 0}
+        routed = launched == {r: 2 if r == kernel else 0 for r in launched}
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
         def sdpa():
@@ -861,7 +928,6 @@ def phase_kernel_flash(ctx):
                "tol": tol, **extra, "repeat_bitwise": repeat,
                "finite": finite,
                "max_abs_err": float(err.max().item()),
-               "kernel_ms": device_ms(torch, call),
                "call_ms": time_ms(torch, call),
                "plain_ms": time_ms(torch, lambda: FL.flash_attention_reference(
                    q, k, v, causal=causal), reps=5, warmup=1),
@@ -869,7 +935,15 @@ def phase_kernel_flash(ctx):
                "library_call_ms": time_ms(torch, sdpa),
                **flash_bound(shape[0], shape[1], k.shape[1], shape[2],
                              shape[3], causal, q.dtype)}
+        # device time of the call, and for a staged route that of its
+        # staging copies alone
+        row["kernel_ms"] = device_ms(torch, call)
+        if kernel == staged:
+            row["staging_ms"] = device_ms(torch, lambda: [
+                FL.stage_for_tma(t) for t in (q, k, v)])
+            row["flash_kernel_ms"] = row["kernel_ms"] - row["staging_ms"]
         row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        row["vs_library"] = row["kernel_ms"] / row["library_ms"]
         if name.startswith("ab_"):
             row["host_us_per_call"] = host_us_per_call(torch, call)
         del qt, kt, vt
@@ -939,35 +1013,51 @@ def phase_sdpa_backends(ctx):
 
 def phase_attention_path(ctx):
     """``fused_attention`` through the kernels at the A/B shape (float32
-    and bfloat16, and bfloat16 at d=32, which routes to ``flash_attn.cu``)
-    and at n=16384, counted by kernel, against the blockwise loop."""
+    and bfloat16, and bfloat16 at d=32 and through a misaligned view, the
+    second on copies staged for TMA) and at n=16384, counted by route,
+    against the blockwise loop. No bfloat16 call may launch
+    ``flash_attn.cu``."""
     import torch
 
     from mmlspark_tpu_torch.parallel import attention as AT
     from mmlspark_tpu_torch.parallel import flash as FL
     f32, bf16 = torch.float32, torch.bfloat16
     b, n, h, _ = FLASH_AB
-    runs = [  # name, shape, dtype, reps, kernel (the launch-count key)
-        ("ab_f32", FLASH_AB, f32, 20, "flash_attn[f32]"),
-        ("ab_bf16", FLASH_AB, bf16, 20, "flash_attn_sm90[bf16]"),
-        ("ab_bf16_d32", (b, n, h, 32), bf16, 20, "flash_attn[bf16]"),
-        ("long_f32", FLASH_LONG, f32, 3, "flash_attn[f32]"),
-        ("long_bf16", FLASH_LONG, bf16, 3, "flash_attn_sm90[bf16]")]
+    # name, shape, dtype, layout, reps, route, kernel-table key
+    runs = [
+        ("ab_f32", FLASH_AB, f32, "contiguous", 20, FL.SIMT,
+         "flash_attn[f32]"),
+        ("ab_bf16", FLASH_AB, bf16, "contiguous", 20, FL.SM90,
+         "flash_attn_sm90[bf16]"),
+        ("ab_bf16_d32", (b, n, h, 32), bf16, "contiguous", 20, FL.SM90,
+         "flash_attn_sm90[bf16]"),
+        ("long_f32", FLASH_LONG, f32, "contiguous", 3, FL.SIMT,
+         "flash_attn[f32]"),
+        ("long_bf16", FLASH_LONG, bf16, "contiguous", 3, FL.SM90,
+         "flash_attn_sm90[bf16]"),
+        # appended, so the runs above keep their seeds
+        ("ab_bf16_misaligned", FLASH_AB, bf16, "misaligned", 20,
+         FL.SM90_STAGED, "flash_attn_sm90[bf16,staged]")]
     out = {"card": ctx["smi"]}
-    launches = {"flash_attn[f32]": 0, "flash_attn[bf16]": 0,
-                "flash_attn_sm90[bf16]": 0}
-    for seed, (name, shape, dtype, reps, kernel) in enumerate(runs):
-        q, k, v = attention_inputs(torch, shape, dtype, 30 + seed)
+    launches = {"flash_attn[f32]": 0, "flash_attn_sm90[bf16]": 0,
+                "flash_attn_sm90[bf16,staged]": 0, "flash_attn[bf16]": 0}
+    for seed, (name, shape, dtype, layout, reps, route,
+               kernel) in enumerate(runs):
+        q, k, v = attention_inputs(torch, shape, dtype, 30 + seed,
+                                   layout=layout)
         FL.flash_kernel_launches = FL.flash_sm90_launches = 0
+        FL.flash_staged_calls = 0
         fused = AT.fused_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
-        sm90 = FL.flash_sm90_launches
-        counts = {"flash_attn": FL.flash_kernel_launches - sm90,
-                  "flash_attn_sm90": sm90}
-        short = "f32" if dtype == f32 else "bf16"
-        for key, count in counts.items():
-            if count:
-                launches[f"{key}[{short}]"] += count
+        sm90, staged = FL.flash_sm90_launches, FL.flash_staged_calls
+        counts = {FL.SIMT: FL.flash_kernel_launches - sm90,
+                  FL.SM90: sm90 - staged, FL.SM90_STAGED: staged}
+        if dtype == f32:
+            launches["flash_attn[f32]"] += counts[FL.SIMT]
+        else:
+            launches["flash_attn[bf16]"] += counts[FL.SIMT]
+            launches["flash_attn_sm90[bf16]"] += counts[FL.SM90]
+            launches["flash_attn_sm90[bf16,staged]"] += counts[FL.SM90_STAGED]
         ref = AT.blockwise_attention(q.float(), k.float(), v.float(),
                                      causal=True)
         if dtype == f32:
@@ -981,7 +1071,8 @@ def phase_attention_path(ctx):
             q, k, v, causal=True), reps=reps, warmup=1)
         useful = 2 * bs * hs * ns * ns * ds   # the A/B script's causal count
         row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-               "kernel": kernel, "launches": counts,
+               "layout": layout, "route": route, "kernel": kernel,
+               "launches": counts,
                "agrees_with_blockwise": agree,
                "max_abs_diff": float((fused.float() - ref).abs().max()),
                "fused_ms": fused_ms, "blockwise_ms": blockwise_ms,
@@ -1000,9 +1091,11 @@ def phase_attention_path(ctx):
                        device_ms_by_kernel=top(device, 4),
                        host_self_ms_by_op=top(host, 8))
         out[name] = row
-        expected = kernel.split("[")[0]
-        if counts[expected] != 1 or sum(counts.values()) != 1 or not agree:
+        if counts[route] != 1 or sum(counts.values()) != 1 or not agree:
             raise AssertionError(f"fused_attention {name}: {row}")
+    if launches["flash_attn[bf16]"]:
+        raise AssertionError(f"a bfloat16 call launched flash_attn.cu: "
+                             f"{launches}")
     q, k, v = attention_inputs(torch, FLASH_AB, torch.float32, 40)
     try:
         AT.fused_attention(q.requires_grad_(), k, v, causal=True)
@@ -1104,13 +1197,17 @@ def kernel_table(ctx):
             ctx["launches"]["level_hist_quant"][quant],
             ctx["quant_rows"][quant]))
     flash = ctx["flash_rows"]
+    # flash_attn.cu's bfloat16 build is reached by no route: every
+    # bfloat16 call runs flash_attn_sm90.cu, in place or staged
     for name, case, source in (
             ("flash_attn[f32]", "ab_f32_causal", "flash_attn.cu"),
-            ("flash_attn[bf16]", "ab_bf16_causal_misaligned",
-             "flash_attn.cu"),
             ("flash_attn_sm90[bf16]", "ab_bf16_causal",
+             "flash_attn_sm90.cu"),
+            ("flash_attn_sm90[bf16,staged]", "ab_bf16_causal_misaligned",
              "flash_attn_sm90.cu")):
         row = flash[case]
+        extra = ({"staging_ms": row["staging_ms"]} if "staging_ms" in row
+                 else {})
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"mmlspark_tpu_torch/csrc/{source}",
@@ -1121,7 +1218,7 @@ def kernel_table(ctx):
                                and r["kernel"] == row["kernel"]),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
+            "library_ms": row["library_ms"], **extra,
             "per": f"one call at b=4, n=2048, h=8, d=64, causal ({case}); "
                    f"launches from phase attention_path",
         })

@@ -2,10 +2,12 @@
 // tensor cores, TMA into an mbarrier ring, a producer warp.
 //
 // Replaces the TPU kernel mmlspark_tpu/parallel/flash.py:_flash_kernel for
-// bfloat16 q, k, v with head_dim 64 or 128 whose base addresses are 16-byte
-// aligned and whose (b, n, h) strides are multiples of 8 elements (TMA's
-// rules); parallel/flash.py:flash_route sends every other call to
-// flash_attn.cu. It computes what that kernel returns: out = softmax(scale *
+// every bfloat16 call (head_dim d <= 128); float32 calls run on
+// flash_attn.cu. It reads q, k and v in place where TMA can: base addresses
+// 16-byte aligned, (b, n, h) strides positive multiples of 8 elements, d a
+// multiple of 8. parallel/flash.py stages every other bfloat16 layout into
+// fresh contiguous tensors, d zero-padded to a multiple of 8, and launches
+// this kernel on them. It computes what that kernel returns: out = softmax(scale *
 // q k^T, masked) v for q of shape (b, n, h, d) and k, v of shape (b, nk, h,
 // d), scale = 1/sqrt(d), with an online softmax in float32 over key tiles, so
 // the (n, nk) scores never exist in device memory. Masked scores are -1e30
@@ -26,16 +28,22 @@
 // the kernel's tolerance on outputs near zero; the split keeps P to within
 // 2^-16 (tests/test_torch_flash_sm90.py replays the arithmetic on the CPU).
 //
+// Head dims. d <= 64 runs on the D = 64 instantiation, 64 < d <= 128 on
+// D = 128. The tensor maps' innermost dim is the tensor's own (d, or the
+// staged copy's padded width), and TMA fills the box columns past it with
+// zeros: zero columns of q and K add exact zeros to q k^T, zero columns of
+// V give output columns that are not stored. Only columns < d are written.
+//
 // Design. One CTA of three warpgroups per (batch*head, 128-row q tile),
 // heaviest causal tiles launched first. Warpgroups 0 and 1 each own 64 q
 // rows (wgmma's M) and walk the same key tiles. Warpgroup 2 is the producer:
 // it gives up registers (setmaxnreg) and one thread issues TMA loads: the q
 // tile once, then K and V tiles of 128 keys into a ring of shared-memory
-// stages (3 at d=64, 2 at d=128), with a full and an empty mbarrier for
+// stages (3 at D=64, 2 at D=128), with a full and an empty mbarrier for
 // each K and each V stage, so a stage's K is refilled while its V is still
 // read. The tensor maps read (b, n, h, d) in place by strides: 4-D maps
 // (d, h, n, b), innermost first, box (64 columns, 1, 128 rows, 1), 128-byte
-// swizzle, so d=128 takes two column boxes per tile; the wgmma descriptors
+// swizzle, so D=128 takes two column boxes per tile; the wgmma descriptors
 // match that swizzle (K-major q and K; MN-major V, transposed in the
 // instruction). Rows past n or nk are filled with zeros by TMA; keys past nk
 // are masked. Each row of the m64 accumulator lives in a quad of 4 threads,
@@ -376,24 +384,38 @@ struct Consumer {
     fence_operands<NO>(o);
   }
 
-  // acc / max(l, 1e-30), rounded once to bf16; rows past n are not stored
+  // Columns col, col + 1 of one output row: one 4-byte store where the
+  // pair is aligned (`pairs`), else one bf16 each, never column d or past.
+  static __device__ __forceinline__ void put(__nv_bfloat16* p, float a,
+                                             float b, int col, int d,
+                                             bool pairs) {
+    if (pairs) {
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+    } else {
+      p[0] = __float2bfloat16_rn(a);
+      if (col + 1 < d) p[1] = __float2bfloat16_rn(b);
+    }
+  }
+
+  // acc / max(l, 1e-30), rounded once to bf16; rows past n and columns past
+  // d are not stored
   __device__ __forceinline__ void store(__nv_bfloat16* __restrict__ ob,
-                                        long long o_sn, int n) const {
+                                        long long o_sn, int n, int d,
+                                        bool pairs) const {
     const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
 #pragma unroll
     for (int x = 0; x < C::kBoxes; ++x) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int col = 64 * x + 8 * i + 2 * t4;
+        if (col >= d) continue;
         const float* r = o + 32 * x + 4 * i;
         if (row < n)
-          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row * o_sn +
-                                             col) =
-              __floats2bfloat162_rn(r[0] / den0, r[1] / den0);
+          put(ob + (long long)row * o_sn + col, r[0] / den0, r[1] / den0,
+              col, d, pairs);
         if (row + 8 < n)
-          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)(row + 8) * o_sn +
-                                             col) =
-              __floats2bfloat162_rn(r[2] / den1, r[3] / den1);
+          put(ob + (long long)(row + 8) * o_sn + col, r[2] / den1,
+              r[3] / den1, col, d, pairs);
       }
     }
   }
@@ -405,7 +427,7 @@ flash_attn_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                        __grid_constant__ const CUtensorMap tk,
                        __grid_constant__ const CUtensorMap tv,
                        __nv_bfloat16* __restrict__ out, int h, int n, int nk,
-                       long long o_sb, long long o_sn, long long o_sh,
+                       int d, long long o_sb, long long o_sn, long long o_sh,
                        float scale_log2, int causal) {
   using C = Cfg<D>;
   constexpr int S = C::kStages;
@@ -474,7 +496,9 @@ flash_attn_sm90_kernel(__grid_constant__ const CUtensorMap tq,
     c.causal = causal;
     c.scale_log2 = scale_log2;
     c.run();
-    c.store(out + bi * o_sb + hi * o_sh, o_sn, n);
+    // bf16 pairs go out as one 4-byte word where every one is aligned
+    const bool pairs = ((d | o_sb | o_sn | o_sh) & 1) == 0;
+    c.store(out + bi * o_sb + hi * o_sh, o_sn, n, d, pairs);
   }
 }
 
@@ -507,13 +531,15 @@ EncodeTiled encoder() {
 
 // geom: dims (d, h, n, b), byte strides of h, n and b, box (4), swizzle
 // bytes, as parallel/flash.py:tma_geometry computes them. The kernel's
-// shared-memory layout fixes the box (`rows` rows) and the swizzle:
+// shared-memory layout fixes the box (`rows` rows of 64 columns) and the
+// swizzle, and the innermost dim must hold the head dim d and fit in the
+// instantiation's D columns (box columns past it are zero-filled):
 // anything else is refused here.
 int encode(CUtensorMap* map, const void* base, const long long* geom, int d,
-           int rows) {
+           int D, int rows) {
   const long long* box = geom + 7;
-  if (geom[0] != d || box[0] != kBoxCols || box[1] != 1 || box[2] != rows ||
-      box[3] != 1 || geom[11] != kRowBytes)
+  if (geom[0] < d || geom[0] > D || box[0] != kBoxCols || box[1] != 1 ||
+      box[2] != rows || box[3] != 1 || geom[11] != kRowBytes)
     return (int)cudaErrorInvalidValue;
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return kNoEncoder;
@@ -535,14 +561,14 @@ int encode(CUtensorMap* map, const void* base, const long long* geom, int d,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out,
-           const long long* geom, int b, int h, int n, int nk, long long o_sb,
-           long long o_sn, long long o_sh, float scale, int causal,
-           cudaStream_t stream) {
+           const long long* geom, int b, int h, int n, int nk, int d,
+           long long o_sb, long long o_sn, long long o_sh, float scale,
+           int causal, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap mq, mk, mv;
-  int code = encode(&mq, q, geom, D, C::kBlockQ);
-  if (code == 0) code = encode(&mk, k, geom + 12, D, kBlockK);
-  if (code == 0) code = encode(&mv, v, geom + 24, D, kBlockK);
+  int code = encode(&mq, q, geom, d, D, C::kBlockQ);
+  if (code == 0) code = encode(&mk, k, geom + 12, d, D, kBlockK);
+  if (code == 0) code = encode(&mv, v, geom + 24, d, D, kBlockK);
   if (code != 0) return code;
   const int smem = C::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -552,7 +578,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((unsigned)(b * h),
                   (unsigned)((n + C::kBlockQ - 1) / C::kBlockQ));
   flash_attn_sm90_kernel<D><<<grid, C::kThreads, smem, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)out, h, n, nk, o_sb, o_sn, o_sh,
+      mq, mk, mv, (__nv_bfloat16*)out, h, n, nk, d, o_sb, o_sn, o_sh,
       (float)((double)scale * kLog2e), causal);
   return (int)cudaGetLastError();
 }
@@ -563,26 +589,24 @@ extern "C" {
 
 // Launches the kernel on `stream` (a cudaStream_t) of device `device`.
 // q, k, v, out are bfloat16; geom holds 12 int64 per tensor for q, k and v
-// (see encode; q's box has 192 rows at d=64 and 128 at d=128, K's and V's
-// 128). out's strides are in elements and must be even (bf16 pairs are
-// stored as one 4-byte word). d must be 64 or 128, n and nk positive, b * h
-// below 2^31. Returns 0 on success, a CUDA error code, or 100000 + the
-// CUresult of a refused tensor map.
+// (see encode; every box has 128 rows). out's strides are in elements; d
+// is the head dim, 1..128 (scale is the caller's, 1/sqrt(d)); n and nk
+// positive, b * h below 2^31. Returns 0 on success, a CUDA error code, or
+// 100000 + the CUresult of a refused tensor map.
 int mmls_flash_attn_sm90(const void* q, const void* k, const void* v,
                          void* out, const long long* geom, int b, int h,
                          int n, int nk, int d, long long o_sb, long long o_sn,
                          long long o_sh, float scale, int causal, int device,
                          void* stream) {
-  if ((d != 64 && d != 128) || n < 1 || nk < 1 ||
-      (long long)b * h >= (1LL << 31) || (o_sb | o_sn | o_sh) & 1)
+  if (d < 1 || d > 128 || n < 1 || nk < 1 || (long long)b * h >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64)
-    return launch<64>(q, k, v, out, geom, b, h, n, nk, o_sb, o_sn, o_sh,
+  if (d <= 64)
+    return launch<64>(q, k, v, out, geom, b, h, n, nk, d, o_sb, o_sn, o_sh,
                       scale, causal, s);
-  return launch<128>(q, k, v, out, geom, b, h, n, nk, o_sb, o_sn, o_sh,
+  return launch<128>(q, k, v, out, geom, b, h, n, nk, d, o_sb, o_sn, o_sh,
                      scale, causal, s);
 }
 

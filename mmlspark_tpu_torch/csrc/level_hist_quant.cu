@@ -23,12 +23,13 @@
 // the end the CTA adds its non-zero cells into a zeroed int64 buffer with
 // 64-bit atomics; sign-extended two's-complement adds give the exact signed
 // sum. Integer adds commute, so the result is the same bits whatever order
-// the CTAs run in: the fit on this kernel is reproducible run to run, unlike
-// the float32 kernel's. A second, elementwise kernel dequantizes the int64
+// the CTAs run in: the fit on this kernel is reproducible run to run. A
+// second, elementwise kernel dequantizes the int64
 // sums into the float32 output (int64 -> double is exact below 2^53, the
 // product by a power of two is exact, and the cast to float is the one
 // rounding). In the JAX package too the dequantization lies outside the
-// Pallas body (hist_pallas.py:218-219).
+// Pallas body (hist_pallas.py:218-219). The tile lookup, the flush and the
+// dequantization are level_hist_common.cuh's, shared with level_hist.cu.
 //
 // What bounds it. Per level the function must read the N x F bin bytes, the
 // two (N,) int16/int8 vectors, the (N,) float32 live mask and the (N,) int64
@@ -41,10 +42,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "level_hist_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kDequantThreads = 256;
 
 template <typename Q>
 __global__ void __launch_bounds__(kThreads)
@@ -58,20 +60,9 @@ level_hist_quant_kernel(const uint8_t* __restrict__ binned,     // (n, f)
                         int f, int b, int width, int tile_rows, int f_slice) {
   extern __shared__ int shq[];  // (f_slice, b, 3)
 
-  // node owning this tile: the first node whose tile prefix sum exceeds it
-  const int64_t t = blockIdx.x;
-  int lo = 0, hi = width;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (tile_end[mid] > t) hi = mid; else lo = mid + 1;
-  }
-  const int node = lo;
-  if (node >= width) return;  // surplus tile of the static grid bound
-
-  const int64_t first_tile = node > 0 ? tile_end[node - 1] : 0;
-  const int64_t start = offsets[node] + (t - first_tile) * tile_rows;
-  const int64_t stop = offsets[node + 1];
-  const int rows = (int)(stop - start < tile_rows ? stop - start : tile_rows);
+  const level_hist::Tile tile =
+      level_hist::find_tile(offsets, tile_end, width, tile_rows);
+  if (tile.node >= width) return;  // surplus tile of the static grid bound
   const int f0 = blockIdx.y * f_slice;
   const int fs = f - f0 < f_slice ? f - f0 : f_slice;
   const int cells = fs * b * 3;
@@ -80,9 +71,9 @@ level_hist_quant_kernel(const uint8_t* __restrict__ binned,     // (n, f)
   __syncthreads();
 
   // every row of a tile is live: the tile plan left the others out
-  const int work = rows * fs;
+  const int work = tile.rows * fs;
   for (int i = threadIdx.x; i < work; i += blockDim.x) {
-    const int64_t r = order[start + i / fs];
+    const int64_t r = order[tile.start + i / fs];
     const int fl = i % fs;
     const int bin = binned[r * f + f0 + fl];
     if (bin >= b) continue;  // out-of-range ids are the caller's bug; never write past the tile
@@ -94,27 +85,19 @@ level_hist_quant_kernel(const uint8_t* __restrict__ binned,     // (n, f)
   __syncthreads();
 
   // the slice's cells are contiguous in the (width, f, b, 3) buffer
-  unsigned long long* dst = acc + ((int64_t)node * f + f0) * b * 3;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int v = shq[i];
-    if (v != 0) atomicAdd(dst + i, (unsigned long long)(long long)v);
-  }
+  level_hist::flush_cells(shq, acc + ((int64_t)tile.node * f + f0) * b * 3,
+                          cells);
 }
 
-// out[c] = float(double(acc[c]) * scale of channel c % 3), one rounding
-__global__ void __launch_bounds__(kDequantThreads)
-dequantize_kernel(const long long* __restrict__ acc, float* __restrict__ out,
-                  const float* __restrict__ gscale_inv,
-                  const float* __restrict__ hscale_inv, int64_t n) {
-  const double gs = (double)*gscale_inv;
-  const double hs = (double)*hscale_inv;
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int c = (int)(i % 3);
-    const double s = c == 0 ? gs : (c == 1 ? hs : 1.0);
-    out[i] = __double2float_rn(__dmul_rn(__ll2double_rn(acc[i]), s));
+// The scales of grad and hess (float32 inverse scales on the device); the
+// count channel's is 1.
+struct InverseScales {
+  const float* g;
+  const float* h;
+  __device__ double operator()(int c) const {
+    return c == 0 ? (double)*g : (c == 1 ? (double)*h : 1.0);
   }
-}
+};
 
 template <typename Q>
 int launch(const void* binned, const void* grad, const void* hess,
@@ -135,13 +118,10 @@ int launch(const void* binned, const void* grad, const void* hess,
       tile_rows, f_slice);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int64_t n = (int64_t)width * f * b * 3;
-  const int64_t want = (n + kDequantThreads - 1) / kDequantThreads;
-  const int blocks = (int)(want < 65535 ? want : 65535);
-  dequantize_kernel<<<blocks, kDequantThreads, 0, stream>>>(
-      (const long long*)acc, (float*)out, (const float*)gscale_inv,
-      (const float*)hscale_inv, n);
-  return (int)cudaGetLastError();
+  return (int)level_hist::dequantize(
+      (const long long*)acc, (float*)out,
+      InverseScales{(const float*)gscale_inv, (const float*)hscale_inv},
+      (int64_t)width * f * b * 3, stream);
 }
 
 }  // namespace

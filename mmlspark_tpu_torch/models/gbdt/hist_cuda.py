@@ -5,7 +5,12 @@
 ``level_histogram`` is the port of ``trainer._level_histogram`` (and of
 the TPU kernel ``hist_pallas._hist_kernel`` behind it): (N, F) uint8 bin
 ids plus per-row grad, hess, live and node-local id -> a (width, F, B, 3)
-float32 histogram of (grad*live, hess*live, live) sums.
+float32 histogram of (grad*live, hess*live, live) sums. The sums are
+taken in fixed point (``fixed_point_exponents``): each term is scaled by
+a per-channel power of two, rounded to an int64 and summed exactly, and
+each sum is rounded to float32 once. The result is the same bits in any
+row order and on any device, so the float32 fit is reproducible run to
+run on the card, as the reference's is.
 
 ``level_histogram_quant`` is the port of
 ``trainer._level_histogram_quant`` (``hist_pallas.
@@ -92,16 +97,53 @@ def flat_index(binned, local, f: int, b: int) -> torch.Tensor:
             + binned.long()).reshape(-1)
 
 
+def _bit_length(v: torch.Tensor) -> torch.Tensor:
+    """Bits of each non-negative int64 (0 for 0), by halving shifts."""
+    length = torch.zeros_like(v)
+    for s in (32, 16, 8, 4, 2, 1):
+        big = (v >> s) > 0
+        v = torch.where(big, v >> s, v)
+        length += big * s
+    return length + (v > 0)
+
+
+def fixed_point_exponents(amax: torch.Tensor, n: int) -> torch.Tensor:
+    """Per channel, the largest integer ``e`` with ``n * amax * 2^e <=
+    2^62`` (0 where ``amax`` is 0), as int64, computed exactly: with
+    ``amax = m * 2^(ea - 24)`` (``m`` frexp's mantissa times 2^24, an
+    integer) and ``L`` the bit length of ``n * m``, ``e = 86 - ea - L``,
+    plus 1 where ``n * m`` is a power of two. ``n`` terms of magnitude at
+    most ``amax * 2^e``, each rounded to an integer, then sum to under
+    2^62 + n/2 < 2^63. ``csrc/level_hist.cu`` computes the same on the
+    card."""
+    man, ea = torch.frexp(amax.float())
+    nm = n * (man * 2.0 ** 24).long()
+    e = 86 - ea.long() - _bit_length(nm) + ((nm & (nm - 1)) == 0).long()
+    return torch.where(amax > 0, e, torch.zeros_like(e))
+
+
+def pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e as float64, exactly, built from its bits (|e| <= 1022)."""
+    return ((e.long() + 1023) << 52).view(torch.float64)
+
+
 def level_histogram_reference(binned, grad, hess, live, local, width: int,
                               f: int, b: int) -> torch.Tensor:
-    """Plain version: one ``index_add_`` over ``flat_index``."""
+    """Plain version: the fixed-point sums with one int64 ``index_add_``
+    over ``flat_index``. Per channel c of ``(grad*live, hess*live,
+    live)``: ``e_c = fixed_point_exponents(max|x_c|, N)``, terms
+    ``round_half_even(float64(x) * 2^e_c)`` as int64 (the product is
+    exact), exact sums, and ``float32(float64(sum) * 2^-e_c)``."""
     n = binned.shape[0]
-    idx = flat_index(binned, local, f, b)
     data = torch.stack([grad * live, hess * live, live], dim=-1)   # (n, 3)
-    src = data[:, None, :].expand(n, f, 3).reshape(-1, 3)
-    out = torch.zeros((width * f * b, 3), dtype=torch.float32,
-                      device=binned.device)
-    return out.index_add_(0, idx, src).reshape(width, f, b, 3)
+    e = fixed_point_exponents(data.abs().amax(dim=0) if n else
+                              torch.zeros(3, device=binned.device), n)
+    terms = torch.round(data.double() * pow2(e)).long()
+    src = terms[:, None, :].expand(n, f, 3).reshape(-1, 3)
+    acc = torch.zeros((width * f * b, 3), dtype=torch.int64,
+                      device=binned.device).index_add_(
+        0, flat_index(binned, local, f, b), src)
+    return (acc.double() * pow2(-e)).float().reshape(width, f, b, 3)
 
 
 def tile_plan(local: torch.Tensor, width: int, keep: torch.Tensor,
@@ -125,11 +167,13 @@ def tile_plan(local: torch.Tensor, width: int, keep: torch.Tensor,
     return order, offsets, tile_end, n // tile_rows + width
 
 
-def feature_slices(f: int, b: int, smem_bytes: int = SMEM_BYTES):
+def feature_slices(f: int, b: int, smem_bytes: int = SMEM_BYTES,
+                   cell_bytes: int = 4):
     """(features per CTA, number of slices): the fewest slices whose
-    (slice, B, 3) tile of 4-byte cells (float32 or int32) fits in one
-    CTA's shared memory."""
-    per_feature = b * 3 * 4
+    (slice, B, 3) tile of ``cell_bytes`` cells (int64 for the float32
+    stats in fixed point, int32 for the quantized stats) fits in one CTA's
+    shared memory."""
+    per_feature = b * 3 * cell_bytes
     most = max(1, smem_bytes // per_feature)
     num_slices = -(-f // most)
     return -(-f // num_slices), num_slices
@@ -138,19 +182,24 @@ def feature_slices(f: int, b: int, smem_bytes: int = SMEM_BYTES):
 def _launch(binned, grad, hess, live, local, width, f, b):
     global hist_kernel_launches
     lib = bindings.load("level_hist")
-    out = torch.zeros((width, f, b, 3), dtype=torch.float32,
-                      device=binned.device)
     n = binned.shape[0]
     if n == 0:
-        return out
+        return torch.zeros((width, f, b, 3), dtype=torch.float32,
+                           device=binned.device)
+    out = torch.empty((width, f, b, 3), dtype=torch.float32,
+                      device=binned.device)
+    # the int64 sums, then 6 int64 of scratch: the amax bits and e_c
+    acc = torch.zeros(width * f * b * 3 + 6, dtype=torch.int64,
+                      device=binned.device)
     order, offsets, tile_end, num_tiles = tile_plan(local, width, live != 0)
-    f_slice, num_slices = feature_slices(f, b)
+    f_slice, num_slices = feature_slices(f, b, cell_bytes=8)
     stream = torch.cuda.current_stream(binned.device).cuda_stream
     code = lib.mmls_level_hist(
         binned.data_ptr(), grad.data_ptr(), hess.data_ptr(),
         live.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-        tile_end.data_ptr(), out.data_ptr(), f, b, width, TILE_ROWS,
-        num_tiles, f_slice, num_slices, binned.device.index, stream)
+        tile_end.data_ptr(), acc.data_ptr(), out.data_ptr(), n, f, b, width,
+        TILE_ROWS, num_tiles, f_slice, num_slices, binned.device.index,
+        stream)
     bindings.check(lib, code, "level_hist kernel launch")
     hist_kernel_launches += 1
     return out

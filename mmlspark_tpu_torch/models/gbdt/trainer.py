@@ -14,7 +14,7 @@ What this slice runs (and the JAX trainer it mirrors, file
     ``resolve_hist_quant``): per-round power-of-two scales, int16/int8
     grad/hess, integer histograms, and root stats from the level-0
     histogram totals. Integer sums make the fit reproducible run to run
-    on the card, where the float32 kernel's atomics are not;
+    on the card, as the float32 plane's fixed-point sums do;
   - histogram subtraction (``MMLSPARK_TORCH_HIST_SUB=1``,
     ``resolve_subtract``): below the root only each split's smaller
     child is histogrammed, by masking its sibling's rows out of

@@ -38,10 +38,10 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of every kernel library: name -> {function: (argtypes, restype)}
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "level_hist": {
-        # binned, grad, hess, live, order, offsets, tile_end, out,
-        # f, b, width, tile_rows, num_tiles, f_slice, num_slices,
+        # binned, grad, hess, live, order, offsets, tile_end, acc, out,
+        # n, f, b, width, tile_rows, num_tiles, f_slice, num_slices,
         # device, stream
-        "mmls_level_hist": ([_VP] * 8 + [_I] * 8 + [_VP], _I),
+        "mmls_level_hist": ([_VP] * 9 + [_LL] + [_I] * 8 + [_VP], _I),
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "level_hist_quant": {

@@ -12,13 +12,15 @@ an online softmax over KV blocks, masked scores of -1e30, and
 
 On a CUDA tensor ``flash_attention`` launches a kernel (a build, encode
 or launch failure raises); on a CPU tensor it runs the plain version.
-:func:`flash_route` picks the kernel from the inputs' type, head dim,
-base addresses and strides alone: bfloat16 calls that meet TMA's rules go
-to ``flash_attn_sm90.cu`` (wgmma, TMA, a producer warp), every other call
-to ``flash_attn.cu`` (CUDA cores, float32). There is no other route, no
-fallback and no opt-in: both kernels are held against the plain version on
-the card by ``chip_smoke.py``. The kernels have no gradient, as the TPU
-kernel has none; the wrapper raises on inputs that require one.
+:func:`flash_route` picks the route from the inputs' type, head dim,
+base addresses and strides alone: every bfloat16 call runs on
+``flash_attn_sm90.cu`` (wgmma, TMA, a producer warp), in place where TMA
+can read the inputs, else on a staged copy (:func:`stage_for_tma`, counted
+in ``flash_staged_calls``); float32 calls run on ``flash_attn.cu`` (CUDA
+cores, float32). There is no other route, no fallback and no opt-in: both
+kernels are held against the plain version on the card by
+``chip_smoke.py``. The kernels have no gradient, as the TPU kernel has
+none; the wrapper raises on inputs that require one.
 """
 
 from __future__ import annotations
@@ -32,20 +34,26 @@ from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.native import bindings
 
 # Launches in this process, so a run can show that its path went through
-# the kernels: of either kernel, and of csrc/flash_attn_sm90.cu alone.
+# the kernels: of either kernel, and of csrc/flash_attn_sm90.cu alone; and
+# the calls of flash_attn_sm90.cu on staged copies.
 flash_kernel_launches = 0
 flash_sm90_launches = 0
+flash_staged_calls = 0
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128        # the kernels' largest head_dim
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # -> flash_attn.cu's code
 
-# flash_attn_sm90.cu: its head dims; the rows of its q and key tiles,
-# which are the TMA boxes' rows; the bf16 columns of a box (128 bytes: the
-# swizzle span); and TMA's limit on a stride in bytes
-SM90_HEAD_DIMS = (64, 128)
+# the routes of flash_route
+SIMT, SM90, SM90_STAGED = ("flash_attn", "flash_attn_sm90",
+                           "flash_attn_sm90+staged")
+# flash_attn_sm90.cu: the rows of its q and key tiles, which are the TMA
+# boxes' rows; the bf16 columns of a box (128 bytes: the swizzle span); the
+# elements whose multiple TMA needs of a stride (16 bytes); and TMA's limit
+# on a stride in bytes
 SM90_TILE_ROWS = 128
 TMA_BOX_COLS = 64
+TMA_ALIGN_ELEMS = 8
 TMA_MAX_STRIDE_BYTES = 1 << 40
 
 
@@ -136,34 +144,50 @@ def check_kernel_inputs(q, k, v) -> None:
 
 
 def flash_route(dtype, head_dim: int, data_ptrs, strides) -> str:
-    """The kernel a CUDA call launches, from the inputs' type, head dim,
-    base addresses and (b, n, h, d) element strides alone:
-    ``"flash_attn_sm90"`` for bfloat16 with head_dim 64 or 128, every base
-    16-byte aligned and every (b, n, h) stride a positive multiple of 8
-    elements under 2^40 bytes with d contiguous (TMA's rules);
-    ``"flash_attn"`` for every other call."""
-    if dtype != torch.bfloat16 or head_dim not in SM90_HEAD_DIMS:
-        return "flash_attn"
-    if any(p % 16 for p in data_ptrs):
-        return "flash_attn"
+    """How a CUDA call runs, from the inputs' type, head dim, base
+    addresses and (b, n, h, d) element strides alone: ``"flash_attn"``
+    (``flash_attn.cu``) for float32; for bfloat16 ``"flash_attn_sm90"``
+    where TMA reads the inputs in place — head_dim a multiple of 8, every
+    base 16-byte aligned, every (b, n, h) stride a positive multiple of 8
+    elements under 2^40 bytes, d contiguous — and
+    ``"flash_attn_sm90+staged"`` (the same kernel on copies made by
+    :func:`stage_for_tma`) otherwise."""
+    if dtype != torch.bfloat16:
+        return SIMT
+    if head_dim % TMA_ALIGN_ELEMS or any(p % 16 for p in data_ptrs):
+        return SM90_STAGED
     for st in strides:
-        if st[3] != 1 or any(s <= 0 or s % 8 or 2 * s >= TMA_MAX_STRIDE_BYTES
+        if st[3] != 1 or any(s <= 0 or s % TMA_ALIGN_ELEMS
+                             or 2 * s >= TMA_MAX_STRIDE_BYTES
                              for s in st[:3]):
-            return "flash_attn"
-    return "flash_attn_sm90"
+            return SM90_STAGED
+    return SM90
+
+
+def stage_for_tma(t: torch.Tensor) -> torch.Tensor:
+    """A fresh contiguous (b, n, h, d8) copy of ``t``, d8 = d rounded up to
+    a multiple of 8 and the columns past d zero: a layout that TMA reads in
+    place (a new allocation is aligned far beyond 16 bytes)."""
+    b, n, h, d = t.shape
+    d8 = -(-d // TMA_ALIGN_ELEMS) * TMA_ALIGN_ELEMS
+    if d8 == d:
+        return t.clone(memory_format=torch.contiguous_format)
+    staged = torch.zeros((b, n, h, d8), dtype=t.dtype, device=t.device)
+    staged[..., :d].copy_(t)
+    return staged
 
 
 def tma_geometry(shape, strides, itemsize: int, rows: int) -> dict:
     """The 4-D tensor map through which ``flash_attn_sm90.cu`` reads a
     (b, n, h, d) tensor in place: dims (d, h, n, b), innermost first; the
     byte strides of h, n and b; the box (64 columns, 1 head, ``rows``
-    rows, 1 batch); and the swizzle span in bytes (the box's row)."""
+    rows, 1 batch), whose columns past d TMA fills with zeros; and the
+    swizzle span in bytes (the box's row)."""
     b, n, h, d = shape
-    cols = min(d, TMA_BOX_COLS)
     return {"dims": (d, h, n, b),
             "strides": tuple(strides[i] * itemsize for i in (2, 1, 0)),
-            "box": (cols, 1, rows, 1),
-            "swizzle": cols * itemsize}
+            "box": (TMA_BOX_COLS, 1, rows, 1),
+            "swizzle": TMA_BOX_COLS * itemsize}
 
 
 @functools.lru_cache(maxsize=1024)
@@ -174,8 +198,7 @@ def _sm90_geometry(dtype, q_shape, q_stride, k_shape, k_stride, v_stride):
     else None. Cached by shapes and strides, so a call that repeats a
     layout pays for neither."""
     strides = (q_stride, k_stride, v_stride)
-    if flash_route(dtype, q_shape[3], (0, 0, 0),
-                   strides) != "flash_attn_sm90":
+    if flash_route(dtype, q_shape[3], (0, 0, 0), strides) != SM90:
         return None
     vals = []
     for shape, st in zip((q_shape, k_shape, k_shape), strides):
@@ -185,25 +208,35 @@ def _sm90_geometry(dtype, q_shape, q_stride, k_shape, k_stride, v_stride):
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
+    global flash_staged_calls
     check_kernel_inputs(q, k, v)
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if q.dtype != torch.bfloat16:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
+        _launch_simt(q, k, v, out, causal)
+        return out
     # flash_route, with the address-free part cached by layout
     geom = _sm90_geometry(q.dtype, q.shape, q.stride(), k.shape, k.stride(),
                           v.stride())
-    if geom is not None and not (q.data_ptr() | k.data_ptr()
-                                 | v.data_ptr()) % 16:
-        _launch_sm90(q, k, v, out, causal, geom)
-    else:
-        _launch_simt(q, k, v, out, causal)
+    staged = geom is None or bool((q.data_ptr() | k.data_ptr()
+                                   | v.data_ptr()) % 16)
+    if staged:
+        q, k, v = (stage_for_tma(t) for t in (q, k, v))
+        geom = _sm90_geometry(q.dtype, q.shape, q.stride(), k.shape,
+                              k.stride(), v.stride())
+    _launch_sm90(q, k, v, out, causal, geom, d)
+    if staged:
+        flash_staged_calls += 1
     return out
 
 
 def _launch_simt(q, k, v, out, causal: bool) -> None:
-    """``csrc/flash_attn.cu``: float32 arithmetic on the CUDA cores."""
+    """``csrc/flash_attn.cu``: float32 arithmetic on the CUDA cores (its
+    bfloat16 build is reached by no route)."""
     global flash_kernel_launches
     b, n, h, d = q.shape
     lib = bindings.load("flash_attn")
@@ -217,11 +250,12 @@ def _launch_simt(q, k, v, out, causal: bool) -> None:
     flash_kernel_launches += 1
 
 
-def _launch_sm90(q, k, v, out, causal: bool, geom) -> None:
+def _launch_sm90(q, k, v, out, causal: bool, geom, d: int) -> None:
     """``csrc/flash_attn_sm90.cu``: bfloat16 on the tensor cores; the C
-    side encodes the tensor maps from ``geom`` (:func:`_sm90_geometry`)."""
+    side encodes the tensor maps from ``geom`` (:func:`_sm90_geometry`).
+    ``d`` is the head dim (q's last dim is d8 on a staged copy)."""
     global flash_kernel_launches, flash_sm90_launches
-    b, n, h, d = q.shape
+    b, n, h, _ = q.shape
     lib = bindings.load("flash_attn_sm90")
     code = lib.mmls_flash_attn_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

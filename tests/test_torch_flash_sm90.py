@@ -78,17 +78,20 @@ def _sm90_replay(q, k, v, causal, mask_all=False, skip=True):
     scale*log2(e) in float32, -1e30 on masked scores of the tiles that
     hold the diagonal or pass nk (``mask_all``: every tile), a base-2
     online softmax with l summed from the float32 P, O += P_hi V + P_lo V,
-    and (``skip``) the tiles wholly above the CTA's last row skipped."""
+    and (``skip``) the tiles wholly above the CTA's last row skipped.
+    Columns run to the instantiation's D (64 for d <= 64, else 128), those
+    past d zero (TMA's fill), and only the first d are stored."""
     bq, bk, wg = 128, 128, 64
     b, n, h, d = q.shape
     nk = k.shape[1]
+    D = 64 if d <= 64 else 128
     c = float(np.float32(np.float64(np.float32(1 / np.sqrt(d))) * LOG2E))
     out = torch.zeros((b, n, h, d), dtype=BF16)
 
     def padded(x, start, rows):
-        tile = torch.zeros(rows, d)
+        tile = torch.zeros(rows, D)
         part = x[start:start + rows].float()
-        tile[:part.shape[0]] = part
+        tile[:part.shape[0], :d] = part
         return tile
 
     for bi, hi in itertools.product(range(b), range(h)):
@@ -101,7 +104,7 @@ def _sm90_replay(q, k, v, causal, mask_all=False, skip=True):
                 q_pos = w0 + torch.arange(wg)
                 m = torch.full((wg,), -1e30)
                 l = torch.zeros(wg)
-                o = torch.zeros(wg, d)
+                o = torch.zeros(wg, D)
                 for t in range(tiles):
                     k0 = t * bk
                     ks = padded(k[bi, :, hi], k0, bk)
@@ -124,7 +127,7 @@ def _sm90_replay(q, k, v, causal, mask_all=False, skip=True):
                     m = new_m
                 res = o / torch.clamp(l, min=1e-30)[:, None]
                 rows = min(wg, n - w0)
-                out[bi, w0:w0 + rows, hi] = res[:rows].to(BF16)
+                out[bi, w0:w0 + rows, hi] = res[:rows, :d].to(BF16)
     return out
 
 
@@ -162,6 +165,22 @@ def test_replay_within_the_gate_of_plain_and_pallas(n, nk, d, scale, causal):
         # gate at no more outputs than the plain version does.
         exact = _exact(q, k, v, causal)
         assert _gate_misses(got, exact) <= _gate_misses(plain, exact)
+
+
+@pytest.mark.parametrize("d", [16, 32, 36, 96, 8, 1, 127])
+@pytest.mark.parametrize("causal", [False, True])
+def test_replay_at_any_head_dim_within_the_gate(d, causal):
+    """Head dims other than 64 and 128 run on the D=64 or D=128
+    instantiation with the columns past d zero (TMA's fill; for 36, 1 and
+    127, staging's zero padding to a multiple of 8 comes first, which adds
+    nothing more): within the bf16 gate of the plain version and of the
+    Pallas kernel."""
+    q, k, v = _qkv(n=200, nk=300, d=d, seed=40 + d)
+    got = _sm90_replay(q, k, v, causal)
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    assert _within_bf16_step(got, F.flash_attention_reference(
+        q, k, v, causal=causal))
+    assert _within_bf16_step(got, _pallas(q, k, v, causal))
 
 
 @pytest.mark.parametrize("n,nk,d", [(200, 300, 64), (300, 130, 128),
@@ -208,11 +227,16 @@ def _bf16(*shape):
 @pytest.mark.parametrize("dtype,d,route", [
     (BF16, 64, "flash_attn_sm90"),
     (BF16, 128, "flash_attn_sm90"),
-    (BF16, 16, "flash_attn"),
-    (BF16, 32, "flash_attn"),
-    (BF16, 96, "flash_attn"),
+    (BF16, 16, "flash_attn_sm90"),
+    (BF16, 32, "flash_attn_sm90"),
+    (BF16, 96, "flash_attn_sm90"),
+    (BF16, 8, "flash_attn_sm90"),
+    (BF16, 36, "flash_attn_sm90+staged"),
+    (BF16, 1, "flash_attn_sm90+staged"),
+    (BF16, 127, "flash_attn_sm90+staged"),
     (torch.float32, 64, "flash_attn"),
     (torch.float32, 128, "flash_attn"),
+    (torch.float32, 36, "flash_attn"),
 ])
 def test_route_by_type_and_head_dim(dtype, d, route):
     q = torch.zeros((2, 256, 4, d), dtype=dtype)
@@ -227,8 +251,8 @@ def test_route_takes_a_packed_qkv_view(part):
     assert _route(t, qkv[:, :, 1], qkv[:, :, 2]) == "flash_attn_sm90"
 
 
-@pytest.mark.parametrize("offset,route", [(1, "flash_attn"),
-                                          (4, "flash_attn"),
+@pytest.mark.parametrize("offset,route", [(1, "flash_attn_sm90+staged"),
+                                          (4, "flash_attn_sm90+staged"),
                                           (8, "flash_attn_sm90")])
 def test_route_by_base_alignment(offset, route):
     flat = _bf16(2 * 256 * 4 * 64 + 8)
@@ -236,18 +260,30 @@ def test_route_by_base_alignment(offset, route):
     k = _bf16(2, 256, 4, 64)
     assert _route(q, k, k) == route
     assert _route(k, k, q) == route
+    # float32 keeps flash_attn.cu, aligned or not
+    flat32 = torch.zeros(2 * 256 * 4 * 64 + 8)
+    q32 = flat32[offset:offset + 2 * 256 * 4 * 64].view(2, 256, 4, 64)
+    k32 = torch.zeros((2, 256, 4, 64))
+    assert _route(q32, k32, k32) == _route(k32, k32, q32) == "flash_attn"
 
 
 def test_route_by_strides():
     wide = _bf16(2, 256, 4, 68)[..., :64]          # h stride 68
     k = _bf16(2, 256, 4, 64)
-    assert _route(wide, k, k) == "flash_attn"
+    assert _route(wide, k, k) == "flash_attn_sm90+staged"
     bhnd = _bf16(2, 4, 256, 64).transpose(1, 2)     # (b, h, n, d) in place
     assert _route(bhnd, k, k) == "flash_attn_sm90"
     shared = _bf16(1, 256, 4, 64).expand(2, -1, -1, -1)   # batch stride 0
-    assert _route(k, shared, shared) == "flash_attn"
+    assert _route(k, shared, shared) == "flash_attn_sm90+staged"
     assert _route(k, k, k[..., ::2].contiguous()[..., :64]) == \
         "flash_attn_sm90"
+    assert _route(k, k, _bf16(2, 256, 4, 128)[..., ::2]) == \
+        "flash_attn_sm90+staged"                   # d not contiguous
+    # float32 keeps flash_attn.cu whatever its strides
+    for t in (wide, bhnd, shared):
+        t32 = t.float() if t is not shared else \
+            torch.zeros((1, 256, 4, 64)).expand(2, -1, -1, -1)
+        assert _route(t32, k.float(), k.float()) == "flash_attn"
 
 
 def test_launch_dispatches_by_the_route(monkeypatch):
@@ -262,10 +298,48 @@ def test_launch_dispatches_by_the_route(monkeypatch):
     F._launch(*(torch.zeros((1, 128, 2, 64)),) * 3, causal=False)
     flat = _bf16(128 * 2 * 64 + 1)[1:].view(1, 128, 2, 64)
     F._launch(flat, flat, flat, causal=False)
-    # a view whose last dim is not contiguous is copied first
+    # a view whose last dim is not contiguous is staged first
     F._launch(*(_bf16(1, 128, 2, 128)[..., ::2],) * 3, causal=True)
-    assert taken == ["sm90", "simt", "simt", "sm90"]
+    assert taken == ["sm90", "simt", "sm90", "sm90"]
     assert (F.flash_kernel_launches, F.flash_sm90_launches) == before
+
+
+@pytest.mark.parametrize("d", [64, 36, 1, 127])
+def test_staging_copies_bitwise_and_zero_pads(d):
+    """stage_for_tma: a fresh contiguous (b, n, h, d8) tensor, 16-byte
+    aligned, holding the input's bits in its first d columns and zeros in
+    the rest, from a misaligned strided view."""
+    src = torch.from_numpy(np.random.default_rng(d).normal(
+        size=(2, 40, 3, 2 * d + 1)).astype(np.float32)).to(BF16)
+    view = src[..., 1:2 * d + 1:2]                    # misaligned, strided
+    assert view.data_ptr() % 16 and view.stride(-1) == 2
+    staged = F.stage_for_tma(view)
+    d8 = -(-d // 8) * 8
+    assert staged.shape == (2, 40, 3, d8) and staged.is_contiguous()
+    assert staged.data_ptr() % 16 == 0 and staged.dtype == BF16
+    assert torch.equal(staged[..., :d].view(torch.int16),
+                       view.contiguous().view(torch.int16))
+    assert not staged[..., d:].view(torch.int16).any()
+    assert _route(staged, staged, staged) == "flash_attn_sm90"
+
+
+def test_staged_calls_are_counted(monkeypatch):
+    """A misaligned bf16 call, or one of d = 36, stages its inputs and
+    launches flash_attn_sm90 on them with the true d, and bumps
+    ``flash_staged_calls``; an aligned call does neither."""
+    seen = []
+    monkeypatch.setattr(F, "_launch_sm90", lambda q, k, v, out, causal,
+                        geom, d: seen.append((q.shape[-1], d, geom[0],
+                                              q.data_ptr() % 16)))
+    before = F.flash_staged_calls
+    flat = _bf16(128 * 2 * 64 + 1)[1:].view(1, 128, 2, 64)
+    F._launch(flat, flat, flat, causal=True)
+    assert F.flash_staged_calls == before + 1
+    F._launch(*(_bf16(1, 128, 2, 36),) * 3, causal=False)
+    assert F.flash_staged_calls == before + 2
+    F._launch(*(_bf16(1, 128, 2, 32),) * 3, causal=False)
+    assert F.flash_staged_calls == before + 2
+    assert seen == [(64, 64, 64, 0), (40, 36, 40, 0), (32, 32, 32, 0)]
 
 
 def test_cpu_bf16_calls_take_the_plain_version():
@@ -280,7 +354,7 @@ def test_cpu_bf16_calls_take_the_plain_version():
 
 # --- the TMA geometry passed to the C side ----------------------------------
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 16, 32, 40, 96])
 def test_tma_geometry_of_a_contiguous_tensor(d):
     b, n, h = 2, 300, 4
     t = _bf16(b, n, h, d)
@@ -303,7 +377,7 @@ def test_tma_geometry_of_strided_views():
     assert g["box"] == (64, 1, 128, 1) and g["swizzle"] == 128
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 32, 96])
 def test_the_launch_geometry_packs_q_k_v_in_order(d):
     """The C array the launcher passes: per tensor dims, byte strides, box
     (128 rows: the CTA's q rows, 64 per consumer warpgroup, or a key

@@ -20,7 +20,7 @@ from mmlspark_tpu_torch.parallel.attention import fused_attention
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mmlspark_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_hist_ab.py"]
 
 
 def _imported_modules(path):
