@@ -13,8 +13,10 @@ sm_90a), then:
      bench shape (N=2,000,000, F=28, B=255) for every level width of a
      depth-6 tree — bitwise on integer-valued and on float stats, and
      bitwise between two launches — with CUDA-event timings of the
-     kernel, the plain version and one float32 ``index_add_`` call, and
-     the bound from bytes and operations;
+     kernel (an event pair per call, and ``device_ms``), the plain
+     version and one float32 ``index_add_`` call, one call's device time
+     by kernel (partition, histogram, dequantization), and the bound from
+     bytes and operations;
   3. main path: ``BinMapper.fit`` / ``transform``, ``train`` (binary,
      num_leaves=63, max_depth=6, 20 trees) and ``predict_binned`` on the
      2M rows, with the kernel's launch count over the fit, the training
@@ -41,15 +43,16 @@ sm_90a), then:
      producer warp; in place, or on copies staged for TMA) against
      ``flash_attention_reference`` (TF32 off) at the repo's attention A/B
      shape (b=4, n=2048, h=8, d=64; ``tools/tpu_day.sh``), causal and
-     not, in float32 and bfloat16, at d=16, 32, 33, 36, 96 and 128, with
-     cross and ragged lengths, scores far outside exp's range, a
-     packed-qkv view, a (b, h, n, d) view and a misaligned view (staged)
-     — within rtol 2e-4 / atol 2e-5 in float32 and that plus one bf16 step
-     in bfloat16, two launches bitwise equal, the route each case took
-     (counter deltas) — with device times of the call, of its staging
-     copies and of ``scaled_dot_product_attention``, CUDA-event timings
-     of the plain version, the bound, and at the A/B shape the host's
-     microseconds per call (200 calls, no synchronise);
+     not, in float32 and bfloat16, at d=16, 32, 33, 36, 96 and 128 (bf16;
+     float32 at 16, 33, 64, 96 and 128), with cross and ragged lengths,
+     scores far outside exp's range, a packed-qkv view, a (b, h, n, d)
+     view and a misaligned view (staged) — within rtol 2e-4 / atol 2e-5
+     in float32 and that plus one bf16 step in bfloat16, two launches
+     bitwise equal, the route each case took (counter deltas) — with
+     device times of the call, of its staging copies and of
+     ``scaled_dot_product_attention``, CUDA-event timings of the plain
+     version, the bound, and at the A/B shape the host's microseconds per
+     call (200 calls, no synchronise);
  10. SDPA backends: ``scaled_dot_product_attention`` at the A/B shape
      (causal) in float32 and bfloat16 under each backend alone — which
      accept the call, their times, their max abs error against the plain
@@ -242,9 +245,9 @@ def device_ms(torch, fn, reps=REPS, warmup=3, batches=3):
 
 
 # the kernels of the histogram wrappers: the histograms, the float32
-# plane's amax and exponent kernels, and the dequantization
-HIST_KERNELS = ("level_hist", "amax_kernel", "exponents_kernel",
-                "dequantize")
+# plane's partition (plan_count, plan_scan, plan_scatter), and the
+# dequantization
+HIST_KERNELS = ("level_hist", "plan_", "dequantize")
 
 
 def hist_device_ms(by_name):
@@ -330,6 +333,12 @@ def phase_kernel(ctx):
             .expand(N, F, 3).reshape(-1, 3)
         kernel_ms = time_ms(torch, lambda: H.level_histogram(
             binned, gf, hf, live, local, *args))
+        kernel_device_ms = device_ms(torch, lambda: H.level_histogram(
+            binned, gf, hf, live, local, *args))
+        # one call's device time by kernel: the partition (count, scan,
+        # scatter), the histogram, the dequantization, torch's fills
+        _, split = device_ms_by_kernel(torch, lambda: H.level_histogram(
+            binned, gf, hf, live, local, *args))
         plain_ms = time_ms(torch, lambda: H.level_histogram_reference(
             binned, gf, hf, live, local, *args))
         library_ms = time_ms(torch, lambda: torch.zeros(
@@ -345,11 +354,13 @@ def phase_kernel(ctx):
                "bitwise_float": bitwise_float, "repeat_bitwise": repeat,
                "float_within_bound": within, "counts_exact": counts_exact,
                "max_abs_err": float(err.max().item()),
-               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
+               "plain_ms": plain_ms,
                "library_ms": library_ms,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "bytes": in_bytes + out_bytes, "ops": ops}
+               "bytes": in_bytes + out_bytes, "ops": ops,
+               "device_ms_by_kernel": split}
         emit({"phase": "kernel_vs_plain", **row})
         rows.append(row)
         if not (bitwise and bitwise_float and repeat and within
@@ -547,6 +558,8 @@ def phase_kernel_quant(ctx):
             src = torch.stack([gq.long() * gate, hq.long() * gate, gate],
                               -1)[:, None, :].expand(N, F, 3).reshape(-1, 3)
             kernel_ms = time_ms(torch, lambda: H.level_histogram_quant(*args))
+            kernel_device_ms = device_ms(
+                torch, lambda: H.level_histogram_quant(*args))
             plain_ms = time_ms(torch, lambda: H.level_histogram_quant_reference(
                 *args))
             library_ms = time_ms(torch, lambda: torch.zeros(
@@ -561,7 +574,8 @@ def phase_kernel_quant(ctx):
             ops_ms = ops / F32_OPS_PER_S * 1e3
             row = {"quant": quant, "width": width, "bitwise": bitwise,
                    "repeat_bitwise": repeat, "max_abs_err": err,
-                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                   "kernel_ms": kernel_ms,
+                   "kernel_device_ms": kernel_device_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms,
                    "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": "bytes" if bytes_ms >= ops_ms
@@ -857,6 +871,12 @@ def phase_kernel_flash(ctx):
          "contiguous", staged),
         ("d96_bf16_causal", (b, n, h, 96), None, bf16, True, 1.0,
          "contiguous", sm90),
+        ("ragged_1000x1500_causal", (b, 1000, h, d), 1500, f32, True, 1.0,
+         "contiguous", simt),
+        ("d33_causal", (b, n, h, 33), None, f32, True, 1.0, "contiguous",
+         simt),
+        ("d96_causal", (b, n, h, 96), None, f32, True, 1.0, "contiguous",
+         simt),
     ]
     rows = {}
     for seed, (name, shape, nk, dtype, causal, scale, layout,
@@ -1178,12 +1198,16 @@ def kernel_table(ctx):
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["kernel_ms"] for r in rows),
+            "device_ms": sum(r["kernel_device_ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in rows) else "operations",
             "library_ms": sum(r["library_ms"] for r in rows),
-            "per": "sum over widths " + ",".join(map(str, WIDTHS)),
+            "per": "sum over widths " + ",".join(map(str, WIDTHS))
+                   + "; ms: an event pair per call (host included where it"
+                   " outlasts the device), device_ms: calls queued behind"
+                   " a spin kernel",
         }
 
     kernels = [entry("level_hist", "mmlspark_tpu_torch/csrc/level_hist.cu",
@@ -1197,8 +1221,8 @@ def kernel_table(ctx):
             ctx["launches"]["level_hist_quant"][quant],
             ctx["quant_rows"][quant]))
     flash = ctx["flash_rows"]
-    # flash_attn.cu's bfloat16 build is reached by no route: every
-    # bfloat16 call runs flash_attn_sm90.cu, in place or staged
+    # flash_attn.cu takes float32 only: every bfloat16 call runs
+    # flash_attn_sm90.cu, in place or staged
     for name, case, source in (
             ("flash_attn[f32]", "ab_f32_causal", "flash_attn.cu"),
             ("flash_attn_sm90[bf16]", "ab_bf16_causal",

@@ -32,39 +32,53 @@
 // MXU. Neither holds here: CTAs run in parallel and in no order, and a
 // one-hot product would spend B times the operations for nothing.
 //
-// Design. Four launches on the stream:
-//   1. amax: a grid-stride pass over the rows, per-warp maxima of
-//      |grad*live|, |hess*live|, |live| merged by integer atomicMax on the
-//      float bits (non-negative floats order as their bits); then one
-//      thread turns each into e_c, left on the device for the next two;
-//   2. the histogram: the wrapper (models/gbdt/hist_cuda.py) sorts rows by
-//      node (stable), rows with live == 0 past the last node, and cuts every
-//      node's rows into tiles of `tile_rows`; CTA (tile, feature slice) owns
-//      one tile of one node (level_hist_common.cuh). Each CTA keeps a
-//      private int64[F_slice][B][3] histogram in dynamic shared memory
-//      (171,360 B at F = 28, B = 255: one CTA per SM), walks its rows with
-//      consecutive threads on consecutive features of one row (one
-//      coalesced read of the row's bin bytes), and adds its terms with
-//      64-bit shared atomics. The scaled live channel alone is about 2^41
-//      per row at n = 2M, so int32 cells would overflow. At the end it adds
-//      its non-zero cells into a zeroed int64 buffer with 64-bit global
-//      atomics. The grid is a static upper bound on the tile count (n /
-//      tile_rows + width), so the host never reads a device value; surplus
-//      CTAs find no node and exit at once;
-//   3. the elementwise dequantization (level_hist_common.cuh).
-// No launch waits on the host: the fit's host syncs stay flat in the tree
-// count.
+// Design. Five launches on the stream, none waiting on the host (the fit's
+// host syncs stay flat in the tree count):
+//   1-3. a stable counting partition of the rows by node, in place of a
+//      sort (the key: the node id, or width for a row with live == 0).
+//      plan_count: each warp counts its segment of 512 rows per key (the
+//      lanes of one key add once, by __match_any_sync; each lane loads 8
+//      rows at once), and writes each row's (grad*live, hess*live, live, 0)
+//      as one float4 (so the histogram gathers one 16-byte value per row,
+//      not three scattered floats) and the channels' amax. plan_scan (one
+//      CTA): the exclusive prefix sum of the per-CTA counts in key-major
+//      order, the nodes' offsets, and e_c, the largest e with
+//      n * amax_c * 2^e <= 2^62, by integer exponent arithmetic.
+//      plan_scatter: each warp walks its segment again and writes every
+//      kept row's id to its place, so node w's rows are order[offsets[w] :
+//      offsets[w + 1]] in row order: the order of a stable sort by node
+//      (the quantized plane's torch.sort gives the same, hist_cuda.
+//      node_order).
+//   4. the histogram. The grid is persistent: one CTA of 1,024 threads per
+//      SM, the CTAs split over the feature slices (at most 32 features
+//      each) in proportion to their features. Each CTA of a slice takes an
+//      equal run of the sorted kept rows and walks it node by node in
+//      chunks of kChunk = 256 rows, double-buffered: while it adds one
+//      chunk, cp.async gathers the next chunk's stats and bin bytes (32-bit
+//      copies where rows are whole words) into shared memory, and the rows
+//      of the chunk after that are prefetched into L2. A chunk's three
+//      int64 terms per row are scaled and rounded once per row, not once
+//      per feature. Then one warp adds a row, a lane per feature, into the
+//      CTA's int64 cells in shared memory: each cell is two 32-bit words
+//      added by two native 32-bit atomics with a carry (add64), and the
+//      words of (bin, feature) sit at bin * 32 + feature, so the 32 lanes
+//      of a warp always hit 32 different banks (195,840 B at B = 255). The
+//      CTA flushes its cells into the zeroed int64 sums with 64-bit global
+//      atomics, clearing them as it goes, only where its run leaves a node:
+//      about (SMs + width) flushes per slice and level, where a CTA per
+//      4,096-row tile made n / 4,096 + width;
+//   5. the elementwise dequantization (level_hist_common.cuh).
 //
 // What bounds it. Per level the function must read the N x F bin bytes,
 // the three (N,) float32 vectors and the (N,) node ids (int64 on the
 // training path), and write the float32 histogram: at N = 2M, F = 28 about
 // 96 MB, some 29 us at the H100 SXM's 3.35 TB/s. The arithmetic (3 scaled
 // adds per live row and feature) is far below the card's rate, so the bound
-// is bytes. Rows are read in node order, so below the root a warp's rows
-// sit at scattered addresses; each row's F bytes stay contiguous. Shared
-// atomics and the flush of F_slice*B*3 cells per CTA are the overheads over
-// the bound; tile_rows is chosen so the flush is amortized over thousands
-// of rows.
+// is bytes. Over it: the partition reads the node ids and live twice;
+// below the root a node's rows sit at scattered addresses, so a row costs
+// a 32-byte sector of stats and one or two of bin bytes; and six 32-bit
+// shared atomics per (row, feature), one wavefront each, set the
+// histogram's pace.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -73,9 +87,17 @@
 
 namespace {
 
-constexpr int kThreads = 1024;       // one CTA per SM: its int64 cells fill shared memory
-constexpr int kAmaxThreads = 256;
-constexpr int kAmaxBlocks = 264;
+constexpr int kThreads = 1024;       // one CTA per SM: its cells fill shared memory
+constexpr int kLanes = 32;           // a warp per row, a lane per feature
+constexpr int kChunk = 256;          // rows staged at once (hist_cuda.CHUNK_ROWS)
+constexpr int kSegRows = 512;        // rows per warp segment of the partition
+constexpr int kBatch = 8;            // rows per lane loaded at once (a warp: 256)
+constexpr int kPlanWarps = 8;        // warps per CTA of the partition (at most)
+constexpr int kPlanSmem = 48 * 1024; // the partition's per-warp key counters
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -84,23 +106,81 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// amax_bits[c] = the float bits of max |x_c| over the rows (amax_bits zeroed)
-__global__ void __launch_bounds__(kAmaxThreads)
-amax_kernel(const float* __restrict__ grad, const float* __restrict__ hess,
-            const float* __restrict__ live,
-            unsigned long long* __restrict__ amax_bits, int64_t n) {
+__device__ __forceinline__ unsigned lanes_below() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// Row r's sort key: its node, or width for a row with live == 0 (and for
+// an id outside [0, width), the caller's bug: such a row is left out).
+template <typename L>
+__device__ __forceinline__ int row_key(const L* __restrict__ local, float lv,
+                                       int64_t r, int width) {
+  const long long w = local[r];
+  return lv != 0.f && w >= 0 && w < width ? (int)w : width;
+}
+
+// 1. The partition's counts, the stats and the channels' amax. Warp
+// segment s (kSegRows rows) counts its rows per key (the lanes of one key
+// add once, by __match_any_sync) into wcounts[key * ns + s], and each CTA
+// its warps' sums into btot[key * nb + cta]. Each row's (grad*live,
+// hess*live, live, 0) goes to stats[r]; every warp merges its maxima of
+// their magnitudes into amax_bits by integer atomicMax on the float bits
+// (non-negative floats order as their bits; amax_bits zeroed).
+template <typename L>
+__global__ void __launch_bounds__(kPlanWarps * 32)
+plan_count_kernel(const L* __restrict__ local, const float* __restrict__ grad,
+                  const float* __restrict__ hess,
+                  const float* __restrict__ live, float4* __restrict__ stats,
+                  int* __restrict__ wcounts, int* __restrict__ btot,
+                  unsigned long long* __restrict__ amax_bits, int64_t n,
+                  int width, int ns, int nb) {
+  extern __shared__ int plan_smem[];
+  const int keys = width + 1, warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* mine = plan_smem + warp * keys;
+  for (int k = lane; k < keys; k += 32) mine[k] = 0;
+  __syncwarp();
+  const int64_t seg = (int64_t)blockIdx.x * warps + warp;
+  const int64_t r1 = min64(n, (seg + 1) * kSegRows);
   float g = 0.f, h = 0.f, l = 0.f;
-  for (int64_t r = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; r < n;
-       r += (int64_t)gridDim.x * blockDim.x) {
-    const float lv = live[r];
-    g = fmaxf(g, fabsf(__fmul_rn(grad[r], lv)));
-    h = fmaxf(h, fabsf(__fmul_rn(hess[r], lv)));
-    l = fmaxf(l, fabsf(lv));
+  for (int64_t base = seg * kSegRows; base < r1; base += 32 * kBatch) {
+    int key[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int64_t r = base + 32 * i + lane;
+      key[i] = -1;
+      if (r < r1) {
+        const float lv = live[r];
+        const float4 x = make_float4(__fmul_rn(grad[r], lv),
+                                     __fmul_rn(hess[r], lv), lv, 0.f);
+        stats[r] = x;
+        g = fmaxf(g, fabsf(x.x));
+        h = fmaxf(h, fabsf(x.y));
+        l = fmaxf(l, fabsf(lv));
+        key[i] = row_key(local, lv, r, width);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const unsigned peers = __match_any_sync(0xffffffffu, key[i]);
+      if (key[i] >= 0 && lane == __ffs(peers) - 1) mine[key[i]] += __popc(peers);
+      __syncwarp();
+    }
+  }
+  if (seg < ns)
+    for (int k = lane; k < keys; k += 32) wcounts[(int64_t)k * ns + seg] = mine[k];
+  __syncthreads();
+  for (int k = threadIdx.x; k < keys; k += blockDim.x) {
+    int sum = 0;
+    for (int w = 0; w < warps; ++w) sum += plan_smem[w * keys + k];
+    btot[(int64_t)k * nb + blockIdx.x] = sum;
   }
   g = warp_max(g);
   h = warp_max(h);
   l = warp_max(l);
-  if (threadIdx.x % 32 == 0) {
+  if (lane == 0) {
     atomicMax(amax_bits, (unsigned long long)__float_as_uint(g));
     atomicMax(amax_bits + 1, (unsigned long long)__float_as_uint(h));
     atomicMax(amax_bits + 2, (unsigned long long)__float_as_uint(l));
@@ -120,11 +200,96 @@ __device__ int fixed_point_exponent(float a, long long n) {
   return 86 - ea - len + ((nm & (nm - 1)) == 0 ? 1 : 0);
 }
 
-__global__ void exponents_kernel(const unsigned long long* __restrict__ amax_bits,
-                                 long long* __restrict__ exps, int64_t n) {
-  if (threadIdx.x < 3)
-    exps[threadIdx.x] = fixed_point_exponent(
-        __uint_as_float((unsigned)amax_bits[threadIdx.x]), n);
+// 2. One CTA: the exclusive prefix sum of btot in key-major order (key,
+// then CTA), in place and 1,024 entries at a time, so btot[key * nb + c]
+// is where CTA c's first row of that key goes; offsets[w] = btot[w * nb]
+// (offsets[width]: the kept rows); and e_c from the amax.
+__global__ void __launch_bounds__(1024)
+plan_scan_kernel(int* __restrict__ btot, int64_t* __restrict__ offsets,
+                 const unsigned long long* __restrict__ amax_bits,
+                 long long* __restrict__ exps, int64_t n, int width, int nb) {
+  __shared__ long long warp_sums[32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t total = (int64_t)(width + 1) * nb;
+  long long carry = 0;
+  for (int64_t t0 = 0; t0 < total; t0 += 1024) {
+    const int64_t e = t0 + tid;
+    const long long v = e < total ? btot[e] : 0;
+    long long incl = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long u = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += u;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      long long w = warp_sums[lane];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const long long u = __shfl_up_sync(0xffffffffu, w, off);
+        if (lane >= off) w += u;
+      }
+      warp_sums[lane] = w;                           // inclusive over warps
+    }
+    __syncthreads();
+    if (e < total)
+      btot[e] = (int)(carry + incl - v + (warp > 0 ? warp_sums[warp - 1] : 0));
+    carry += warp_sums[31];
+    __syncthreads();                                 // warp_sums is rewritten
+  }
+  for (int k = tid; k <= width; k += 1024) offsets[k] = btot[(int64_t)k * nb];
+  if (tid < 3)
+    exps[tid] = fixed_point_exponent(__uint_as_float((unsigned)amax_bits[tid]), n);
+}
+
+// 3. The stable scatter: warp segment s starts each key at its CTA's place
+// (btot) plus the counts of the CTA's earlier warps, walks its rows in
+// order again, and the lanes of one key take consecutive places in lane
+// order: order[place] = row for every kept row. Node w's rows then lie at
+// order[offsets[w] : offsets[w + 1]] in row order, as a stable sort by
+// node puts them; rows with live == 0 get no place.
+template <typename L>
+__global__ void __launch_bounds__(kPlanWarps * 32)
+plan_scatter_kernel(const L* __restrict__ local, const float* __restrict__ live,
+                    const int* __restrict__ wcounts,
+                    const int* __restrict__ btot, int64_t* __restrict__ order,
+                    int64_t n, int width, int ns, int nb) {
+  extern __shared__ int plan_smem[];
+  const int keys = width + 1, warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* next = plan_smem + warp * keys;               // the segment's next place per key
+  const int64_t seg = (int64_t)blockIdx.x * warps + warp;
+  if (seg >= ns) return;
+  for (int k = lane; k < keys; k += 32) {
+    int place = btot[(int64_t)k * nb + blockIdx.x];
+    for (int64_t q = seg - warp; q < seg; ++q) place += wcounts[(int64_t)k * ns + q];
+    next[k] = place;
+  }
+  __syncwarp();
+  const int64_t r1 = min64(n, (seg + 1) * kSegRows);
+  for (int64_t base = seg * kSegRows; base < r1; base += 32 * kBatch) {
+    int key[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int64_t r = base + 32 * i + lane;
+      key[i] = -1;
+      if (r < r1) {
+        const int k = row_key(local, live[r], r, width);
+        if (k < width) key[i] = k;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const unsigned peers = __match_any_sync(0xffffffffu, key[i]);
+      if (key[i] >= 0) {
+        order[next[key[i]] + __popc(peers & lanes_below())] = base + 32 * i + lane;
+      }
+      __syncwarp();
+      if (key[i] >= 0 && lane == __ffs(peers) - 1) next[key[i]] += __popc(peers);
+      __syncwarp();
+    }
+  }
 }
 
 // 2^k as a double, built from its bits (|k| <= 1022 here: e_c lies in
@@ -133,53 +298,187 @@ __device__ __forceinline__ double pow2(long long k) {
   return __longlong_as_double((k + 1023) << 52);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ long long term(float x, double up) {
+  return __double2ll_rn(__dmul_rn((double)x, up));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// A 64-bit add into a cell held as two 32-bit words in separate planes,
+// with two native 32-bit shared atomics: the low word returns its old value
+// to give the carry, which goes into the high word with the term's high
+// half. The words end as the exact 64-bit sum (two's complement, mod
+// 2^64), in any order of the adds. (A 64-bit shared atomicAdd is a CAS
+// loop on sm_90, ATOMS.CAST.SPIN.64, at about half the rate.)
+__device__ __forceinline__ void add64(unsigned* lo, unsigned* hi, long long t) {
+  const unsigned tl = (unsigned)t;
+  const unsigned old = atomicAdd(lo, tl);
+  const unsigned th = (unsigned)(t >> 32) + (old + tl < old ? 1u : 0u);
+  if (th) atomicAdd(hi, th);
+}
+
+// A run of at most kChunk sorted rows [c0, c0 + rows) of one node w.
+struct Chunk {
+  int64_t c0;
+  int rows;     // 0: the CTA's run is done
+  int w;
+};
+
+// The chunk after `c`: the rest of node c.w's rows in the run, else the
+// first rows of the next node that has some.
+__device__ __forceinline__ Chunk next_chunk(Chunk c, int64_t p_end,
+                                            const int64_t* __restrict__ offsets) {
+  Chunk n{c.c0 + c.rows, 0, c.w};
+  if (c.rows == 0 || n.c0 >= p_end) return n;
+  while (offsets[n.w + 1] <= n.c0) ++n.w;
+  n.rows = (int)min64(kChunk, min64(p_end, offsets[n.w + 1]) - n.c0);
+  return n;
+}
+
+// 4. The histogram.
+__global__ void __launch_bounds__(kThreads, 1)
 level_hist_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-major
-                  const float* __restrict__ grad,         // (n,)
-                  const float* __restrict__ hess,         // (n,)
-                  const float* __restrict__ live,         // (n,)
-                  const int64_t* __restrict__ order,      // (n,) rows by node
+                  const float4* __restrict__ stats,       // (n,) from plan_count
+                  const int64_t* __restrict__ order,      // kept rows by node
                   const int64_t* __restrict__ offsets,    // (width + 1,)
-                  const int64_t* __restrict__ tile_end,   // (width,) tiles, prefix sum
                   const long long* __restrict__ exps,     // (3,) e_c
                   unsigned long long* __restrict__ acc,   // (width, f, b, 3)
-                  int f, int b, int width, int tile_rows, int f_slice) {
-  extern __shared__ unsigned long long sh[];  // (f_slice, b, 3)
+                  int f, int b, int width, int f_slice, int num_slices,
+                  int word_bins) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // cell (feature fl, bin, channel c) of the slice: low word at
+  // cells[2c * plane + bin * 32 + fl], high word one plane further; a
+  // warp's lanes (its features) always hit 32 different banks
+  const int plane = b * kLanes;
+  const int ws = (f_slice + 3) & ~3;                 // staged bytes per row
+  unsigned* cells = reinterpret_cast<unsigned*>(smem);
+  float4* sstats = reinterpret_cast<float4*>(cells + 6 * plane);   // [2][kChunk]
+  long long* sterm = reinterpret_cast<long long*>(sstats + 2 * kChunk);  // [kChunk][4]
+  uint8_t* sbin = reinterpret_cast<uint8_t*>(sterm + 4 * kChunk);  // [2][kChunk][ws]
+  int64_t* srow = reinterpret_cast<int64_t*>(sbin + 2 * kChunk * ws);  // [2][kChunk]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  const level_hist::Tile tile =
-      level_hist::find_tile(offsets, tile_end, width, tile_rows);
-  if (tile.node >= width) return;  // surplus tile of the static grid bound
-  const int f0 = blockIdx.y * f_slice;
+  // this CTA's feature slice: slice s owns CTAs [T*s*f_slice/f, ...), a
+  // share of the grid in proportion to its features
+  const long long grid = gridDim.x;
+  int s = 0;
+  while (s + 1 < num_slices && grid * (s + 1) * f_slice / f <= blockIdx.x) ++s;
+  const long long g0 = grid * s * f_slice / f;
+  const long long g1 = s + 1 < num_slices ? grid * (s + 1) * f_slice / f : grid;
+  const int f0 = s * f_slice;
   const int fs = f - f0 < f_slice ? f - f0 : f_slice;
-  const int cells = fs * b * 3;
+
+  // its equal run [p, p_end) of the kept rows, sorted by node
+  const int64_t kept = offsets[width];
+  const int64_t p = kept * (blockIdx.x - g0) / (g1 - g0);
+  const int64_t p_end = kept * (blockIdx.x - g0 + 1) / (g1 - g0);
   const double up0 = pow2(exps[0]), up1 = pow2(exps[1]), up2 = pow2(exps[2]);
 
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) sh[i] = 0ull;
-  __syncthreads();
-
-  // every row of a tile has live != 0: the tile plan left the others out
-  const int work = tile.rows * fs;
-  for (int i = threadIdx.x; i < work; i += blockDim.x) {
-    const int64_t r = order[tile.start + i / fs];
-    const int fl = i % fs;
-    const int bin = binned[r * f + f0 + fl];
-    if (bin >= b) continue;  // out-of-range ids are the caller's bug; never write past the tile
-    const float lv = live[r];
-    const long long tg =
-        __double2ll_rn(__dmul_rn((double)__fmul_rn(grad[r], lv), up0));
-    const long long th =
-        __double2ll_rn(__dmul_rn((double)__fmul_rn(hess[r], lv), up1));
-    const long long tl = __double2ll_rn(__dmul_rn((double)lv, up2));
-    unsigned long long* cell = sh + (fl * b + bin) * 3;
-    atomicAdd(cell, (unsigned long long)tg);
-    atomicAdd(cell + 1, (unsigned long long)th);
-    atomicAdd(cell + 2, (unsigned long long)tl);
+  for (int i = tid; i < 6 * plane; i += kThreads) cells[i] = 0u;
+  // the node of row p: the last w with offsets[w] <= p
+  int w0 = 0;
+  for (int hi = width; hi - w0 > 1;) {
+    const int mid = (w0 + hi) >> 1;
+    if (offsets[mid] <= p) w0 = mid; else hi = mid;
   }
-  __syncthreads();
+  Chunk cur{p, 0, w0};
+  if (p < p_end)
+    cur.rows = (int)min64(kChunk, min64(p_end, offsets[w0 + 1]) - p);
+  Chunk nxt = next_chunk(cur, p_end, offsets);
 
-  // the slice's cells are contiguous in the (width, f, b, 3) buffer
-  level_hist::flush_cells((const long long*)sh,
-                          acc + ((int64_t)tile.node * f + f0) * b * 3, cells);
+  // a chunk's (grad*live, hess*live, live) and the slice's bin bytes into
+  // shared memory by cp.async: the rows' ids are in srow[buf]; a row's bin
+  // words go to consecutive threads, so a warp's copies touch few sectors
+  auto stage = [&](int buf, int rows) {
+    const int64_t* rid = srow + buf * kChunk;
+    if (tid < rows) cp_async16(sstats + buf * kChunk + tid, stats + rid[tid]);
+    uint8_t* dst = sbin + buf * kChunk * ws;
+    if (word_bins) {
+      const int wpr = fs >> 2;
+      for (int i = tid; i < rows * wpr; i += kThreads) {
+        const int j = i / wpr, k = (i - j * wpr) * 4;
+        cp_async4(dst + j * ws + k, binned + rid[j] * f + f0 + k);
+      }
+    } else {
+      for (int i = tid; i < rows * fs; i += kThreads) {
+        const int j = i / fs, k = i - j * fs;
+        dst[j * ws + k] = binned[rid[j] * f + f0 + k];
+      }
+    }
+  };
+  if (tid < cur.rows) srow[tid] = order[cur.c0 + tid];
+  if (tid < nxt.rows) srow[kChunk + tid] = order[nxt.c0 + tid];
+  __syncthreads();                                   // cells are zero, ids staged
+  stage(0, cur.rows);
+  cp_async_commit();
+
+  for (int buf = 0; cur.rows > 0; buf ^= 1) {
+    const Chunk after = next_chunk(nxt, p_end, offsets);
+    stage(buf ^ 1, nxt.rows);                        // in flight during this chunk
+    cp_async_commit();
+    const int64_t r_after = tid < after.rows ? order[after.c0 + tid] : 0;
+    cp_async_wait1();                                // this chunk has landed
+    __syncthreads();
+    if (tid < cur.rows) {                            // the rows' terms, once
+      const float4 x = sstats[buf * kChunk + tid];
+      sterm[tid * 4] = term(x.x, up0);
+      sterm[tid * 4 + 1] = term(x.y, up1);
+      sterm[tid * 4 + 2] = term(x.z, up2);
+    }
+    __syncthreads();
+    if (lane < fs) {
+      const uint8_t* bins = sbin + buf * kChunk * ws + lane;
+      for (int j = warp; j < cur.rows; j += kThreads / kLanes) {
+        const int bin = bins[j * ws];
+        if (bin < b) {  // out-of-range ids are the caller's bug; never write past the slice
+          const longlong2 gh = reinterpret_cast<const longlong2*>(sterm)[j * 2];
+          const long long tl = sterm[j * 4 + 2];
+          unsigned* cell = cells + bin * kLanes + lane;
+          add64(cell, cell + plane, gh.x);
+          add64(cell + 2 * plane, cell + 3 * plane, gh.y);
+          add64(cell + 4 * plane, cell + 5 * plane, tl);
+        }
+      }
+    }
+    if (nxt.rows == 0 || nxt.w != cur.w) {
+      // the run leaves node cur.w: add its cells into the int64 sums, where
+      // the slice's (fs, b, 3) cells are contiguous, and clear them
+      __syncthreads();
+      unsigned long long* dst = acc + ((int64_t)cur.w * f + f0) * b * 3;
+      for (int i = tid; i < 3 * fs * b; i += kThreads) {
+        const int c = i % 3, fl = i / 3 / b, bin = i / 3 - fl * b;
+        unsigned* lo = cells + 2 * c * plane + bin * kLanes + fl;
+        const unsigned long long v =
+            (unsigned long long)lo[plane] << 32 | lo[0];
+        if (v != 0) {
+          atomicAdd(dst + i, v);
+          lo[0] = lo[plane] = 0u;
+        }
+      }
+    }
+    if (tid < after.rows) srow[buf * kChunk + tid] = r_after;  // this chunk's ids are spent
+    __syncthreads();
+    cur = nxt;
+    nxt = after;
+  }
 }
 
 // The dequantization's scales: 2^-e_c.
@@ -188,20 +487,51 @@ struct InversePow2 {
   __device__ double operator()(int c) const { return pow2(-exps[c]); }
 };
 
+template <typename L>
+cudaError_t plan(const L* local, const float* grad, const float* hess,
+                 const float* live, float4* stats, int* wcounts, int* btot,
+                 int64_t* offsets, int64_t* order,
+                 unsigned long long* amax_bits, long long* exps, int64_t n,
+                 int width, cudaStream_t s) {
+  const int keys = width + 1;
+  int warps = kPlanSmem / (keys * (int)sizeof(int));
+  warps = warps < kPlanWarps ? warps : kPlanWarps;
+  if (warps < 1) return cudaErrorInvalidValue;
+  const int ns = (int)((n + kSegRows - 1) / kSegRows);
+  const int nb = (ns + warps - 1) / warps;
+  const int smem = warps * keys * (int)sizeof(int);
+  plan_count_kernel<L><<<nb, warps * 32, smem, s>>>(
+      local, grad, hess, live, stats, wcounts, btot, amax_bits, n, width, ns,
+      nb);
+  plan_scan_kernel<<<1, 1024, 0, s>>>(btot, offsets, amax_bits, exps, n,
+                                      width, nb);
+  plan_scatter_kernel<L><<<nb, warps * 32, smem, s>>>(
+      local, live, wcounts, btot, order, n, width, ns, nb);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the three kernels on `stream` (a cudaStream_t) of device
-// `device`. `acc` holds width * f * b * 3 int64 sums and then 6 int64 of
-// scratch (the channels' amax bits, then e_c), all zero on entry; `out` is
-// the (width, f, b, 3) float32 histogram. Returns the first CUDA error: 0
-// on success.
+// Launches the partition (three kernels), the histogram and the
+// dequantization on `stream` (a cudaStream_t) of device `device`. `local`
+// holds int32 (local_bytes 4) or int64 (8) node ids. Scratch, written
+// here: `stats` (n, 4) float32; `counts` (width + 1) * (ns + nb) int32
+// for ns = ceil(n / 512) warp segments and nb = ceil(ns / 8) CTAs (the
+// per-warp counts, then the per-CTA places); `offsets` width + 1 int64;
+// `order` n int64. `acc` holds width * f * b * 3 int64 sums and then 6
+// int64 (the channels' amax bits, then e_c), all zero on entry; `out` is
+// the (width, f, b, 3) float32 histogram; `smem` a histogram CTA's dynamic
+// shared memory (hist_cuda.f32_smem_bytes). width must be below 12288 (the
+// partition's per-warp key counters). Returns the first CUDA error: 0 on
+// success.
 int mmls_level_hist(const void* binned, const void* grad, const void* hess,
-                    const void* live, const void* order, const void* offsets,
-                    const void* tile_end, void* acc, void* out, long long n,
-                    int f, int b, int width, int tile_rows, int num_tiles,
-                    int f_slice, int num_slices, int device, void* stream) {
+                    const void* live, const void* local, int local_bytes,
+                    void* stats, void* counts, void* offsets, void* order,
+                    void* acc, void* out, long long n, int f, int b,
+                    int width, int f_slice, int num_slices, int smem,
+                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -209,23 +539,41 @@ int mmls_level_hist(const void* binned, const void* grad, const void* hess,
   unsigned long long* sums = (unsigned long long*)acc;
   unsigned long long* amax_bits = sums + cells;
   long long* exps = (long long*)(sums + cells + 3);
+  const int64_t ns = (n + kSegRows - 1) / kSegRows;
+  int* wcounts = (int*)counts;
+  int* btot = wcounts + (int64_t)(width + 1) * ns;
 
-  amax_kernel<<<kAmaxBlocks, kAmaxThreads, 0, s>>>(
-      (const float*)grad, (const float*)hess, (const float*)live, amax_bits,
-      n);
-  exponents_kernel<<<1, 32, 0, s>>>(amax_bits, exps, n);
-  err = cudaGetLastError();
+  if (local_bytes == 8)
+    err = plan((const int64_t*)local, (const float*)grad, (const float*)hess,
+               (const float*)live, (float4*)stats, wcounts, btot,
+               (int64_t*)offsets, (int64_t*)order, amax_bits, exps, n, width,
+               s);
+  else if (local_bytes == 4)
+    err = plan((const int32_t*)local, (const float*)grad, (const float*)hess,
+               (const float*)live, (float4*)stats, wcounts, btot,
+               (int64_t*)offsets, (int64_t*)order, amax_bits, exps, n, width,
+               s);
+  else
+    err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
 
-  const int smem = f_slice * b * 3 * (int)sizeof(unsigned long long);
   err = cudaFuncSetAttribute(level_hist_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)num_tiles, (unsigned)num_slices);
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, level_hist_kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = sms * per_sm > num_slices ? sms * per_sm : num_slices;
+  const int word_bins = f % 4 == 0 && f_slice % 4 == 0 &&
+                        (uintptr_t)binned % 4 == 0;
   level_hist_kernel<<<grid, kThreads, smem, s>>>(
-      (const uint8_t*)binned, (const float*)grad, (const float*)hess,
-      (const float*)live, (const int64_t*)order, (const int64_t*)offsets,
-      (const int64_t*)tile_end, exps, sums, f, b, width, tile_rows, f_slice);
+      (const uint8_t*)binned, (const float4*)stats, (const int64_t*)order,
+      (const int64_t*)offsets, exps, sums, f, b, width, f_slice, num_slices,
+      word_bins);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)level_hist::dequantize((const long long*)sums, (float*)out,

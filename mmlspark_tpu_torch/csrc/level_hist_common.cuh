@@ -1,12 +1,14 @@
 // What the two level-histogram kernels (level_hist.cu, float32 stats in
-// fixed point; level_hist_quant.cu, int16/int8 stats) share: the CTA's tile
-// of the wrapper's tile plan, the flush of a CTA's shared integer cells into
-// the int64 sums, and the elementwise dequantization of those sums.
+// fixed point; level_hist_quant.cu, int16/int8 stats) share: the flush of a
+// CTA's shared integer cells into the int64 sums (the quantized kernel's)
+// and the elementwise dequantization of those sums; and the quantized
+// kernel's tile lookup.
 //
 // Tile plan (models/gbdt/hist_cuda.py:tile_plan): rows sorted by node
 // (stable), node w owning order[offsets[w]:offsets[w+1]] cut into tiles of
 // `tile_rows`, tile_end the prefix sum of each node's tile count. CTA
-// (tile, feature slice) owns one tile of one node.
+// (tile, feature slice) of level_hist_quant.cu owns one tile of one node;
+// level_hist.cu walks runs of the same sorted rows instead.
 #pragma once
 
 #include <cstdint>

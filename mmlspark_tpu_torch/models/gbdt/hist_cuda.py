@@ -38,7 +38,11 @@ hist_kernel_launches = 0
 hist_quant_kernel_launches = 0
 
 MAX_BINS = 256            # bin ids are uint8
-TILE_ROWS = 4096          # rows per CTA: amortizes the per-CTA flush
+TILE_ROWS = 4096          # rows per CTA of the quantized kernel
+CHUNK_ROWS = 256          # rows level_hist.cu stages in shared memory at once
+WARP_LANES = 32           # level_hist.cu: a lane per feature of a row
+PLAN_SEG_ROWS = 512       # level_hist.cu: rows per warp of its partition
+MAX_F32_WIDTH = 12287     # level_hist.cu: its partition's key counters
 SMEM_BYTES = 232_448      # dynamic shared memory a CTA may use on sm_90
 QUANT_DTYPES = (torch.int16, torch.int8)
 
@@ -146,60 +150,109 @@ def level_histogram_reference(binned, grad, hess, live, local, width: int,
     return (acc.double() * pow2(-e)).float().reshape(width, f, b, 3)
 
 
+def node_key_dtype(width: int) -> torch.dtype:
+    """The narrowest sort key that holds ``0..width``: one byte up to 255
+    nodes, so the radix sort makes one pass."""
+    return torch.uint8 if width < 256 else \
+        torch.int16 if width < 2 ** 15 else torch.int32
+
+
+def node_order(local: torch.Tensor, width: int, keep: torch.Tensor):
+    """Rows sorted by node, on the device: ``(order, offsets)``. ``order``
+    lists row ids by node (stable) and node w owns
+    ``order[offsets[w]:offsets[w+1]]``. Rows where ``keep`` is false sort
+    to a key past the last node, so they lie past ``offsets[width]`` and
+    no kernel reads them; the stable order of the kept rows is unchanged.
+    The key is :func:`node_key_dtype`'s, not int64: a stable sort orders
+    equal keys alike whatever their width, so ``order`` and ``offsets``
+    are those of an int64 key, in one radix pass instead of eight. The
+    quantized kernel's plan; ``level_hist.cu`` partitions the rows into
+    the same order on the device itself."""
+    dtype = node_key_dtype(width)
+    key = torch.where(keep, local.to(dtype), width)
+    sorted_key, order = torch.sort(key, stable=True)
+    nodes = torch.arange(width + 1, dtype=dtype, device=local.device)
+    return order, torch.searchsorted(sorted_key, nodes)
+
+
 def tile_plan(local: torch.Tensor, width: int, keep: torch.Tensor,
               tile_rows: int = TILE_ROWS):
-    """Rows sorted by node and cut into tiles, all on the device:
-    ``(order, offsets, tile_end, num_tiles)``. ``order`` lists row ids by
-    node (stable), node w owns ``order[offsets[w]:offsets[w+1]]``, and
-    tiles ``[tile_end[w-1], tile_end[w])``. Rows where ``keep`` is false
-    sort to a key past the last node, so they fall in no tile and no
-    kernel reads them; the stable order of the kept rows is unchanged.
-    ``num_tiles`` is a static upper bound (every node adds at most one
-    partial tile), so no host sync is needed; tiles past
-    ``tile_end[-1]`` are empty."""
+    """:func:`node_order` cut into tiles, all on the device: ``(order,
+    offsets, tile_end, num_tiles)``; node w's rows are tiles
+    ``[tile_end[w-1], tile_end[w])``. ``num_tiles`` is a static upper
+    bound (every node adds at most one partial tile), so no host sync is
+    needed; tiles past ``tile_end[-1]`` are empty."""
     n = local.shape[0]
-    key = torch.where(keep, local, width)
-    sorted_local, order = torch.sort(key, stable=True)
-    nodes = torch.arange(width + 1, dtype=local.dtype, device=local.device)
-    offsets = torch.searchsorted(sorted_local, nodes)
+    order, offsets = node_order(local, width, keep)
     counts = offsets[1:] - offsets[:-1]
     tile_end = torch.cumsum((counts + tile_rows - 1) // tile_rows, dim=0)
     return order, offsets, tile_end, n // tile_rows + width
 
 
-def feature_slices(f: int, b: int, smem_bytes: int = SMEM_BYTES,
-                   cell_bytes: int = 4):
-    """(features per CTA, number of slices): the fewest slices whose
-    (slice, B, 3) tile of ``cell_bytes`` cells (int64 for the float32
-    stats in fixed point, int32 for the quantized stats) fits in one CTA's
-    shared memory."""
-    per_feature = b * 3 * cell_bytes
-    most = max(1, smem_bytes // per_feature)
+def feature_slices(f: int, b: int):
+    """(features per CTA, number of slices) of ``csrc/level_hist_quant.cu``:
+    the fewest slices whose (slice, B, 3) tile of int32 cells fits in one
+    CTA's shared memory."""
+    most = max(1, SMEM_BYTES // (b * 3 * 4))
     num_slices = -(-f // most)
     return -(-f // num_slices), num_slices
 
 
+def f32_feature_slices(f: int, b: int):
+    """(features per CTA, number of slices) of ``csrc/level_hist.cu``,
+    which adds a row's features with one warp, a lane per feature: the
+    fewest slices of at most 32 features whose cells (over 32 lanes) and
+    staged chunks fit one CTA's shared memory (:func:`f32_smem_bytes`; 28
+    features at B = 256), as even as possible, and multiples of 4 where F
+    is (a row's bin bytes are then whole words)."""
+    most = WARP_LANES
+    while most > 4 and f32_smem_bytes(most, b) > SMEM_BYTES:
+        most -= 4
+    num_slices = -(-f // most)
+    f_slice = -(-f // num_slices)
+    if f % 4 == 0:
+        f_slice = -(-f_slice // 4) * 4
+    return f_slice, -(-f // f_slice)
+
+
+def f32_smem_bytes(f_slice: int, b: int) -> int:
+    """Dynamic shared memory of one ``level_hist.cu`` CTA: int64 cells
+    as two 32-bit planes per channel over (B, 32 lanes); two stages of
+    ``CHUNK_ROWS`` rows' stats (16 bytes), bin bytes (padded to a word)
+    and row ids (8 bytes); the chunk's int64 terms (32 bytes a row)."""
+    return (6 * b * WARP_LANES * 4
+            + CHUNK_ROWS * (2 * 16 + 32 + 2 * (-(-f_slice // 4) * 4) + 2 * 8))
+
+
 def _launch(binned, grad, hess, live, local, width, f, b):
     global hist_kernel_launches
-    lib = bindings.load("level_hist")
     n = binned.shape[0]
+    if width > MAX_F32_WIDTH or n >= 2 ** 31:
+        raise ValueError(f"level_hist.cu takes width <= {MAX_F32_WIDTH} and "
+                         f"n < 2^31, got width {width}, n {n}")
+    lib = bindings.load("level_hist")
+    dev = binned.device
     if n == 0:
-        return torch.zeros((width, f, b, 3), dtype=torch.float32,
-                           device=binned.device)
-    out = torch.empty((width, f, b, 3), dtype=torch.float32,
-                      device=binned.device)
+        return torch.zeros((width, f, b, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((width, f, b, 3), dtype=torch.float32, device=dev)
     # the int64 sums, then 6 int64 of scratch: the amax bits and e_c
-    acc = torch.zeros(width * f * b * 3 + 6, dtype=torch.int64,
-                      device=binned.device)
-    order, offsets, tile_end, num_tiles = tile_plan(local, width, live != 0)
-    f_slice, num_slices = feature_slices(f, b, cell_bytes=8)
-    stream = torch.cuda.current_stream(binned.device).cuda_stream
+    acc = torch.zeros(width * f * b * 3 + 6, dtype=torch.int64, device=dev)
+    # per row (grad*live, hess*live, live, 0); the partition's counts
+    # (per warp segment, then per CTA: at most one CTA per segment), the
+    # nodes' offsets and the kept rows in node order
+    stats = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    counts = torch.empty(2 * (width + 1) * -(-n // PLAN_SEG_ROWS),
+                         dtype=torch.int32, device=dev)
+    offsets = torch.empty(width + 1, dtype=torch.int64, device=dev)
+    order = torch.empty(n, dtype=torch.int64, device=dev)
+    f_slice, num_slices = f32_feature_slices(f, b)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.mmls_level_hist(
-        binned.data_ptr(), grad.data_ptr(), hess.data_ptr(),
-        live.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-        tile_end.data_ptr(), acc.data_ptr(), out.data_ptr(), n, f, b, width,
-        TILE_ROWS, num_tiles, f_slice, num_slices, binned.device.index,
-        stream)
+        binned.data_ptr(), grad.data_ptr(), hess.data_ptr(), live.data_ptr(),
+        local.data_ptr(), local.element_size(), stats.data_ptr(),
+        counts.data_ptr(), offsets.data_ptr(), order.data_ptr(),
+        acc.data_ptr(), out.data_ptr(), n, f, b, width, f_slice, num_slices,
+        f32_smem_bytes(f_slice, b), dev.index, stream)
     bindings.check(lib, code, "level_hist kernel launch")
     hist_kernel_launches += 1
     return out

@@ -38,10 +38,11 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of every kernel library: name -> {function: (argtypes, restype)}
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "level_hist": {
-        # binned, grad, hess, live, order, offsets, tile_end, acc, out,
-        # n, f, b, width, tile_rows, num_tiles, f_slice, num_slices,
-        # device, stream
-        "mmls_level_hist": ([_VP] * 9 + [_LL] + [_I] * 8 + [_VP], _I),
+        # binned, grad, hess, live, local, local bytes, stats, counts,
+        # offsets, order, acc, out, n, f, b, width, f_slice, num_slices,
+        # smem bytes, device, stream
+        "mmls_level_hist": ([_VP] * 5 + [_I] + [_VP] * 6 + [_LL]
+                            + [_I] * 7 + [_VP], _I),
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "level_hist_quant": {

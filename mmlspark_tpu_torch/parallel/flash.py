@@ -17,10 +17,11 @@ base addresses and strides alone: every bfloat16 call runs on
 ``flash_attn_sm90.cu`` (wgmma, TMA, a producer warp), in place where TMA
 can read the inputs, else on a staged copy (:func:`stage_for_tma`, counted
 in ``flash_staged_calls``); float32 calls run on ``flash_attn.cu`` (CUDA
-cores, float32). There is no other route, no fallback and no opt-in: both
-kernels are held against the plain version on the card by
-``chip_smoke.py``. The kernels have no gradient, as the TPU kernel has
-none; the wrapper raises on inputs that require one.
+cores in full float32: register micro-tiles, ``cp.async`` K/V staging).
+There is no other route, no fallback and no opt-in: both kernels are held
+against the plain version on the card by ``chip_smoke.py``. The kernels
+have no gradient, as the TPU kernel has none; the wrapper raises on
+inputs that require one.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ flash_staged_calls = 0
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128        # the kernels' largest head_dim
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # -> flash_attn.cu's code
+DTYPES = (torch.float32, torch.bfloat16)
 
 # the routes of flash_route
 SIMT, SM90, SM90_STAGED = ("flash_attn", "flash_attn_sm90",
@@ -235,15 +236,16 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
 
 
 def _launch_simt(q, k, v, out, causal: bool) -> None:
-    """``csrc/flash_attn.cu``: float32 arithmetic on the CUDA cores (its
-    bfloat16 build is reached by no route)."""
+    """``csrc/flash_attn.cu``: float32 on the CUDA cores, register-tiled,
+    K/V tiles staged by ``cp.async`` (dtype code 0: float32, the one type
+    it takes)."""
     global flash_kernel_launches
     b, n, h, d = q.shape
     lib = bindings.load("flash_attn")
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     code = lib.mmls_flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        DTYPES[q.dtype], b, h, n, k.shape[1], d, *strides,
+        0, b, h, n, k.shape[1], d, *strides,
         ctypes.c_float(1.0 / (d ** 0.5)), int(causal), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     bindings.check(lib, code, "flash_attn kernel launch")

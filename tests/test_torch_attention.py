@@ -232,10 +232,12 @@ def test_entry_points_take_tensors_and_keep_their_type():
 
 def _kernel_replay(q, k, v, causal, skip=True):
     """``csrc/flash_attn.cu``'s walk in torch: one CTA per (batch*head,
-    64-row q tile), 64-key tiles, d padded with zeros to its bucket, keys
-    past nk masked, and (``skip``) the CTA's last tile and the per-warp
-    skip of tiles above the diagonal."""
-    bq, bk, rows = 64, 64, 8
+    128-row q tile), 64-key tiles, d padded with zeros to its bucket, keys
+    past nk masked, the mask applied only on the tiles that cross the
+    causal diagonal or hold keys past nk (``skip``; every tile otherwise),
+    and (``skip``) the CTA's last tile the last its rows can see. Where the
+    mask is not applied, it is checked to mask nothing."""
+    bq, bk = 128, 64
     b, n, h, d = q.shape
     nk = k.shape[1]
     dd = 32 if d <= 32 else 64 if d <= 64 else 128
@@ -260,36 +262,38 @@ def _kernel_replay(q, k, v, causal, skip=True):
                     kt, vt = k[bi, k0:k0 + bk, hi], v[bi, k0:k0 + bk, hi]
                     ks[:kt.shape[0], :d], vs[:vt.shape[0], :d] = kt, vt
                     k_pos = k0 + torch.arange(bk)
-                    for r0 in range(0, bq, rows):
-                        if causal and skip and k0 > q0 + r0 + rows - 1:
-                            continue
-                        w = slice(r0, r0 + rows)
-                        s = qs[w] @ ks.T
-                        masked = (k_pos[None, :] >= nk) | (
-                            causal & (q_pos[w, None] < k_pos[None, :]))
+                    s = qs @ ks.T
+                    masked = (k_pos[None, :] >= nk) | (
+                        causal & (q_pos[:, None] < k_pos[None, :]))
+                    if (not skip or (causal and k0 + bk - 1 > q0)
+                            or k0 + bk > nk):
                         s = torch.where(masked, -1e30, s)
-                        new_m = torch.maximum(m[w], s.amax(dim=1))
-                        p = torch.exp(s - new_m[:, None])
-                        corr = torch.exp(m[w] - new_m)
-                        l[w] = l[w] * corr + p.sum(dim=1)
-                        m[w] = new_m
-                        acc[w] = acc[w] * corr[:, None] + p @ vs
+                    else:
+                        assert not masked.any()
+                    new_m = torch.maximum(m, s.amax(dim=1))
+                    p = torch.exp(s - new_m[:, None])
+                    corr = torch.exp(m - new_m)
+                    l = l * corr + p.sum(dim=1)
+                    m = new_m
+                    acc = acc * corr[:, None] + p @ vs
                 res = acc / torch.clamp(l, min=1e-30)[:, None]
                 out[bi, q0:q0 + bq, hi] = res[:qt.shape[0], :d]
     return out
 
 
 @pytest.mark.parametrize("n,nk,d", [(80, 100, 40), (200, 80, 16),
-                                    (64, 192, 128), (128, 128, 64)])
+                                    (64, 192, 128), (128, 128, 64),
+                                    (129, 127, 64), (127, 129, 33),
+                                    (300, 65, 96), (1, 64, 1)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_kernel_walk_replayed(n, nk, d, causal):
-    """Ragged q and kv tiles, head dims off the buckets, n != nk both ways:
+    """Ragged q and kv tiles (one row past a 128-row q tile, one key short
+    of two 64-key tiles), head dims off the buckets, n != nk both ways:
     the kernel's walk gives the plain version's result, and skipping the
-    tiles above the diagonal changes no bit."""
+    tiles above the diagonal and the mask off it changes no bit."""
     q, k, v = (torch.from_numpy(x) for x in
                _qkv(b=1, n=n, nk=nk, h=2, d=d, seed=12))
     got = _kernel_replay(q, k, v, causal)
     want = F.flash_attention_reference(q, k, v, block_k=nk, causal=causal)
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-5)
-    if causal:
-        assert torch.equal(got, _kernel_replay(q, k, v, causal, skip=False))
+    assert torch.equal(got, _kernel_replay(q, k, v, causal, skip=False))

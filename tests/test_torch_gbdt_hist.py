@@ -11,9 +11,10 @@ in any row order, and lie within ``4*k*u*sum|x|`` (``u = 2^-24``, ``k``
 terms) of the JAX sums, the bound of any float32 order.
 
 The CUDA kernel itself runs only on the card; ``chip_smoke.py`` holds it
-against the same plain version there. Here the tile plan and the CTA
-walk of ``csrc/level_hist.cu`` are replayed in numpy to pin the
-kernel's indexing.
+against the same plain version there. Here the counting partition and
+the CTA walk of ``csrc/level_hist.cu``, and the tile walk of
+``csrc/level_hist_quant.cu`` over ``tile_plan``, are replayed in numpy to
+pin the kernels' indexing.
 """
 
 from fractions import Fraction
@@ -108,72 +109,253 @@ def test_skewed_node_distribution(ref):
         assert not np.any(got[w])
 
 
-def _replay_kernel(binned, grad, hess, live, local, width, f, b, tile_rows):
+KERNEL_WARPS = 32         # level_hist.cu: kThreads / 32
+
+
+def _chunk_pairs(rows, fs, warps=KERNEL_WARPS):
+    """The (row, feature) pairs of one staged chunk as level_hist.cu adds
+    them: warp w takes rows w, w + warps, ..., lane l < fs feature l."""
+    for warp in range(warps):
+        for j in range(warp, rows, warps):
+            for lane in range(32):
+                if lane < fs:
+                    yield j, lane
+
+
+def _replay_partition(local, live, width, seg_rows=H.PLAN_SEG_ROWS):
+    """numpy replay of level_hist.cu's partition: every warp segment of
+    ``seg_rows`` rows counts its rows per key (the node, or width where
+    live == 0); an exclusive prefix sum of the counts in key-major order
+    gives each (key, segment) its first place; then each segment walks its
+    rows in order, 32 at a time, the lanes of one key taking consecutive
+    places in lane order. Returns the kept rows in their places, and the
+    nodes' offsets (offsets[width]: the kept rows)."""
+    n = len(local)
+    key = np.where(live != 0, local, width)
+    ns = -(-n // seg_rows)
+    counts = np.zeros((width + 1, ns), np.int64)
+    for s in range(ns):
+        np.add.at(counts[:, s], key[s * seg_rows:(s + 1) * seg_rows], 1)
+    flat = counts.ravel()
+    start = (np.cumsum(flat) - flat).reshape(width + 1, ns)
+    offsets = start[:, 0].copy()
+    order = np.full(n, -1, np.int64)
+    for s in range(ns):
+        nxt = start[:, s].copy()
+        end = min(n, (s + 1) * seg_rows)
+        for base in range(s * seg_rows, end, 32):
+            lanes = list(range(base, min(end, base + 32)))
+            for lane, r in enumerate(lanes):
+                if key[r] != width:
+                    below = sum(key[q] == key[r] for q in lanes[:lane])
+                    order[nxt[key[r]] + below] = r
+            for k, c in zip(*np.unique(key[lanes], return_counts=True)):
+                nxt[k] += c
+    return order[:offsets[width]], offsets
+
+
+def _replay_kernel(binned, grad, hess, live, local, width, f, b, chunk,
+                   grid, f_slice):
     """numpy replay of level_hist.cu: the channels' exponents from their
-    amax, then one CTA per (tile, feature slice) over the wrapper's tile
-    plan, surplus tiles exiting, each adding its fixed-point terms into
-    private int64 cells and flushing them into the int64 sums, then the
-    dequantization ``float32(float64(sum) * 2^-e)``."""
-    order, offsets, tile_end, num_tiles = (
-        x.numpy() if isinstance(x, torch.Tensor) else x
-        for x in H.tile_plan(torch.from_numpy(local), width,
-                             torch.from_numpy(live != 0), tile_rows))
-    f_slice, num_slices = H.feature_slices(f, b, smem_bytes=b * 3 * 8 * 2,
-                                           cell_bytes=8)
+    amax; the rows sorted by node (the partition, ``_replay_partition``,
+    in 64-row segments); a persistent grid of
+    ``grid`` CTAs shared among the feature slices in proportion to their
+    features, each CTA walking an equal run of the sorted kept rows node
+    by node in chunks of ``chunk`` rows (every (row, feature) pair of a
+    chunk in the kernel's warp and lane order), adding the rows' fixed-point
+    terms into private int64 cells and flushing them into the int64 sums
+    where the run leaves a node; then the dequantization ``float32(
+    float64(sum) * 2^-e)``. Returns the histogram, each row's visits per
+    slice, and the number of flushes."""
+    order, offsets = _replay_partition(local, live, width, seg_rows=64)
+    num_slices = -(-f // f_slice)
     x = np.stack([grad * live, hess * live, live], axis=-1)    # float32
     e = H.fixed_point_exponents(torch.from_numpy(np.abs(x).max(axis=0)),
                                 len(local)).numpy()
     terms = np.rint(np.ldexp(x.astype(np.float64), e)).astype(np.int64)
     acc = np.zeros((width, f, b, 3), np.int64)
-    seen = np.zeros(len(local), np.int64)
-    for t in range(num_tiles):
-        node = int(np.searchsorted(tile_end, t, side="right"))
-        if node >= width:
-            continue
-        first = tile_end[node - 1] if node > 0 else 0
-        start = offsets[node] + (t - first) * tile_rows
-        rows = order[start:min(start + tile_rows, offsets[node + 1])]
-        for s in range(num_slices):
-            f0 = s * f_slice
-            fs = min(f_slice, f - f0)
-            if s == 0:
-                seen[rows] += 1
-            cells = np.zeros((fs, b, 3), np.int64)     # shared memory
-            for r in rows:
-                for fl in range(fs):
-                    cells[fl, binned[r, f0 + fl]] += terms[r]
-            acc[node, f0:f0 + fs] += cells             # the flush
-    return np.ldexp(acc.astype(np.float64), -e).astype(np.float32), seen
+    seen = np.zeros((num_slices, len(local)), np.int64)
+    kept, flushes = int(offsets[width]), 0
+    for cta in range(grid):
+        s = 0
+        while s + 1 < num_slices and grid * (s + 1) * f_slice // f <= cta:
+            s += 1
+        g0 = grid * s * f_slice // f
+        g1 = grid * (s + 1) * f_slice // f if s + 1 < num_slices else grid
+        f0 = s * f_slice
+        fs = min(f_slice, f - f0)
+        p = kept * (cta - g0) // (g1 - g0)
+        p_end = kept * (cta - g0 + 1) // (g1 - g0)
+        w = int(np.searchsorted(offsets[:width], p, side="right")) - 1
+        cells = np.zeros((fs, b, 3), np.int64)            # shared memory
+        while p < p_end:
+            seg_end = min(p_end, int(offsets[w + 1]))
+            if seg_end > p:
+                for c0 in range(p, seg_end, chunk):
+                    rows = order[c0:min(c0 + chunk, seg_end)]
+                    seen[s, rows] += 1
+                    for j, fl in _chunk_pairs(len(rows), fs):
+                        r = rows[j]
+                        cells[fl, binned[r, f0 + fl]] += terms[r]
+                acc[w, f0:f0 + fs] += cells                # the flush
+                cells[:] = 0
+                flushes += 1
+                p = seg_end
+            w += 1
+    out = np.ldexp(acc.astype(np.float64), -e).astype(np.float32)
+    return out, seen, flushes
 
 
-@pytest.mark.parametrize("n,f,b,width,tile_rows", [
-    (300, 5, 16, 4, 32),      # several tiles per node, 3 feature slices
-    (257, 3, 8, 8, 16),       # partial tiles everywhere
-    (64, 4, 4, 16, 8),        # many empty nodes
-    (100, 1, 2, 1, 1000),     # one tile holds the whole level
+@pytest.mark.parametrize("rows,fs", [(256, 32), (256, 28), (7, 28),
+                                     (256, 5), (33, 12), (1, 1)])
+def test_chunk_pairs_cover_each_row_and_feature_once(rows, fs):
+    pairs = list(_chunk_pairs(rows, fs))
+    assert sorted(pairs) == [(j, fl) for j in range(rows) for fl in range(fs)]
+
+
+@pytest.mark.parametrize("n,f,b,width,chunk,grid,f_slice", [
+    (300, 5, 16, 4, 32, 6, 4),    # several chunks per node, 2 slices
+    (257, 3, 8, 8, 16, 5, 1),     # partial chunks everywhere, 3 slices
+    (64, 4, 4, 16, 8, 3, 4),      # many empty nodes, one slice
+    (100, 1, 2, 1, 1000, 1, 1),   # one CTA, one chunk holds the level
+    (50, 7, 8, 4, 4, 64, 4),      # more CTAs than kept rows
 ])
-def test_tile_plan_and_cta_walk(n, f, b, width, tile_rows):
-    """The kernel's tiling visits every live row exactly once within its
-    own node and no masked (live == 0) row at all, the static grid bound
-    covers every tile, and the replayed walk reproduces the plain version
-    bitwise on integer stats."""
+def test_tile_plan_and_cta_walk(n, f, b, width, chunk, grid, f_slice):
+    """The kernel's walk visits every live row exactly once per feature
+    slice and no masked (live == 0) row at all, flushes at most once per
+    CTA and node it reaches, and the replayed walk reproduces the plain
+    version bitwise on integer stats. The quantized kernel's tiles over
+    ``tile_plan`` visit every kept row once, within their node and the
+    static grid bound."""
     binned, grad, hess, live, local = _case(n, f, b, width, seed=3,
                                             integer_stats=True)
     if width > 1:
         local[local == 1] = 0          # leave node 1 empty
     assert (live == 0).any()
-    got, seen = _replay_kernel(binned, grad, hess, live, local, width, f, b,
-                               tile_rows)
-    np.testing.assert_array_equal(seen, (live != 0).astype(np.int64))
-    _, offsets, tile_end, num_tiles = H.tile_plan(
-        torch.from_numpy(local), width, torch.from_numpy(live != 0),
-        tile_rows)
+    got, seen, flushes = _replay_kernel(binned, grad, hess, live, local,
+                                        width, f, b, chunk, grid, f_slice)
+    for per_slice in seen:
+        np.testing.assert_array_equal(per_slice, (live != 0).astype(np.int64))
+    assert flushes <= grid + width * -(-f // f_slice)
+    order, offsets, tile_end, num_tiles = (x.numpy() if isinstance(
+        x, torch.Tensor) else x for x in H.tile_plan(
+            torch.from_numpy(local), width, torch.from_numpy(live != 0),
+            chunk))
     assert int(tile_end[-1]) <= num_tiles
     assert int(offsets[-1]) == int((live != 0).sum())
     counts = np.bincount(local[live != 0], minlength=width)
-    np.testing.assert_array_equal(np.diff(offsets.numpy()), counts)
+    np.testing.assert_array_equal(np.diff(offsets), counts)
+    # level_hist_quant.cu's walk: CTA t finds its node by tile_end and
+    # takes `chunk` rows of it; surplus CTAs of the static bound exit
+    tiles_seen = np.zeros(len(local), np.int64)
+    for t in range(num_tiles):
+        node = int(np.searchsorted(tile_end, t, side="right"))
+        if node < width:
+            first = tile_end[node - 1] if node > 0 else 0
+            start = offsets[node] + (t - first) * chunk
+            rows = order[start:min(start + chunk, offsets[node + 1])]
+            assert (local[rows] == node).all()
+            tiles_seen[rows] += 1
+    np.testing.assert_array_equal(tiles_seen, (live != 0).astype(np.int64))
     want = _port((binned, grad, hess, live, local), width, f, b)
     np.testing.assert_array_equal(got, want)
+
+
+def _add64(lo, hi, t):
+    """level_hist.cu's add64 on numpy uint32 words: the low word's add
+    returns the old value, whose carry joins the term's high half."""
+    tl = np.uint32(int(t) & 0xFFFFFFFF)
+    old = lo[0]
+    lo[0] = old + tl
+    th = np.uint32((int(t) >> 32) & 0xFFFFFFFF) + np.uint32(lo[0] < old)
+    hi[0] = hi[0] + th
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_split_word_adds_give_the_int64_sum(seed):
+    """Terms of either sign up to 2^62 / n, added in any order as two
+    32-bit words with a carry, leave the words of the exact int64 sum."""
+    rng = np.random.default_rng(seed)
+    n = 3000
+    limit = 2 ** 62 // n
+    terms = [int(x) for x in rng.integers(-limit, limit, n)]
+    terms[:3] = [limit, -limit, 0]
+    for order in (range(n), rng.permutation(n)):
+        lo, hi = np.zeros(1, np.uint32), np.zeros(1, np.uint32)
+        with np.errstate(over="ignore"):
+            for i in order:
+                _add64(lo, hi, terms[i])
+        got = (int(hi[0]) << 32 | int(lo[0]))
+        got -= (got >> 63) << 64                       # two's complement
+        assert got == sum(terms)
+
+
+def _int64_sort_plan(local, width, keep):
+    """The tile plan's order and offsets from an int64 key, as before the
+    key narrowed: the reference for ``node_order``."""
+    key = torch.where(keep, local.long(), width)
+    sorted_key, order = torch.sort(key, stable=True)
+    return order, torch.searchsorted(
+        sorted_key, torch.arange(width + 1, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 4, 7, 8, 16, 31, 32])
+@pytest.mark.parametrize("plane", ["f32", "quant"])
+def test_narrow_key_plan_equals_int64_sort(width, plane):
+    """``node_order``'s one-byte key gives the int64 stable sort's order
+    and offsets, and ``tile_plan`` the same tiles, bit for bit: dead rows
+    (live == 0, or live <= 0 on the quantized plane's mask), empty nodes
+    and every width of a depth-6 tree."""
+    rng = np.random.default_rng(width)
+    n, tile_rows = 3000, 64
+    local = torch.from_numpy(rng.integers(0, width, n)).to(torch.int32)
+    if width > 2:
+        local[local == width - 2] = 0                  # an empty node
+    live = torch.from_numpy(rng.choice(
+        np.array([0.0, -1.0, 0.5, 1.0], np.float32), n))
+    keep = live != 0 if plane == "f32" else live > 0
+    want_order, want_offsets = _int64_sort_plan(local, width, keep)
+    order, offsets = H.node_order(local, width, keep)
+    assert H.node_key_dtype(width) == torch.uint8
+    assert torch.equal(order, want_order)
+    assert torch.equal(offsets, want_offsets)
+    got = H.tile_plan(local, width, keep, tile_rows)
+    counts = want_offsets[1:] - want_offsets[:-1]
+    assert torch.equal(got[0], want_order) and torch.equal(got[1], want_offsets)
+    assert torch.equal(got[2], torch.cumsum(-(-counts // tile_rows), 0))
+    assert got[3] == n // tile_rows + width
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 8, 16, 32, 100])
+@pytest.mark.parametrize("seg_rows", [32, 64, 2048])
+def test_counting_partition_equals_int64_sort(width, seg_rows):
+    """level_hist.cu's counting partition (replayed) puts the kept rows
+    in the int64 stable sort's order, with its offsets, bit for bit: dead
+    rows, empty nodes, ragged last segments."""
+    rng = np.random.default_rng(width + seg_rows)
+    n = 1000
+    local = rng.integers(0, width, n).astype(np.int32)
+    if width > 2:
+        local[local == width - 2] = 0                  # an empty node
+    live = rng.choice(np.array([0.0, 0.5, 1.0], np.float32), n)
+    order, offsets = _replay_partition(local, live, width, seg_rows)
+    want_order, want_offsets = _int64_sort_plan(
+        torch.from_numpy(local), width, torch.from_numpy(live != 0))
+    kept = int(want_offsets[width])
+    np.testing.assert_array_equal(order, want_order.numpy()[:kept])
+    np.testing.assert_array_equal(offsets, want_offsets.numpy())
+
+
+@pytest.mark.parametrize("width", [255, 256, 40000])
+def test_node_key_widens_past_one_byte(width):
+    local = torch.arange(1000, dtype=torch.int64) % width
+    keep = torch.arange(1000) % 3 != 0
+    order, offsets = H.node_order(local, width, keep)
+    want_order, want_offsets = _int64_sort_plan(local, width, keep)
+    assert H.node_key_dtype(width).itemsize == (1 if width < 256 else
+                                                 2 if width < 2 ** 15 else 4)
+    assert torch.equal(order, want_order)
+    assert torch.equal(offsets, want_offsets)
 
 
 @pytest.mark.parametrize("f,b", [(1, 2), (28, 255), (75, 256), (76, 256),
@@ -333,26 +515,39 @@ def test_float_sums_within_any_f32_order_bound(ref, n, f, b, width):
     np.testing.assert_array_equal(got[..., 2], want[..., 2])
 
 
-@pytest.mark.parametrize("n,f,b,width,tile_rows", [
-    (300, 5, 16, 4, 32),
-    (257, 3, 8, 8, 16),
+@pytest.mark.parametrize("n,f,b,width,chunk,grid,f_slice", [
+    (300, 5, 16, 4, 32, 6, 4),
+    (257, 3, 8, 8, 16, 5, 1),
 ])
-def test_cta_walk_int64_cells_on_float_stats(n, f, b, width, tile_rows):
+def test_cta_walk_int64_cells_on_float_stats(n, f, b, width, chunk, grid,
+                                             f_slice):
     """The replayed walk over int64 cells gives the plain version's bits
     on float stats too: the order of the CTAs and of the rows cannot
     matter."""
     binned, grad, hess, live, local = _case(n, f, b, width, seed=5)
-    got, _ = _replay_kernel(binned, grad, hess, live, local, width, f, b,
-                            tile_rows)
+    got, _, _ = _replay_kernel(binned, grad, hess, live, local, width, f, b,
+                               chunk, grid, f_slice)
     np.testing.assert_array_equal(
         got, _port((binned, grad, hess, live, local), width, f, b))
 
 
 @pytest.mark.parametrize("f,b", [(1, 2), (28, 255), (37, 255), (38, 255),
-                                 (300, 64)])
+                                 (300, 64), (7, 256), (1000, 2), (32, 256),
+                                 (32, 255)])
 def test_feature_slices_fit_int64_cells(f, b):
-    f_slice, num_slices = H.feature_slices(f, b, cell_bytes=8)
-    assert f_slice * b * 3 * 8 <= H.SMEM_BYTES
+    """``level_hist.cu``'s slices: the fewest of at most 32 features (a
+    lane each) whose int64 cells over 32 lanes plus the staged chunks fit
+    one CTA's shared memory, as even as possible, multiples of 4 when F
+    is, covering F."""
+    f_slice, num_slices = H.f32_feature_slices(f, b)
+    smem = H.f32_smem_bytes(f_slice, b)
+    assert 6 * b * 32 * 4 < smem <= H.SMEM_BYTES
+    assert f_slice <= 32
     assert f_slice * num_slices >= f > f_slice * (num_slices - 1)
-    if (f, b) == (28, 255):      # the bench shape: one slice, 171,360 B
+    if num_slices > 1:                      # the fewest slices that fit
+        wider = -(-f // (num_slices - 1))
+        assert wider > 32 or H.f32_smem_bytes(wider, b) > H.SMEM_BYTES
+    if f % 4 == 0:
+        assert f_slice % 4 == 0
+    if (f, b) == (28, 255):      # the bench shape: one slice
         assert (f_slice, num_slices) == (28, 1)

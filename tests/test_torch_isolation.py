@@ -20,7 +20,8 @@ from mmlspark_tpu_torch.parallel.attention import fused_attention
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mmlspark_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_hist_ab.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_hist_ab.py",
+       ROOT / "tools" / "torch_flash_ab.py"]
 
 
 def _imported_modules(path):
@@ -46,7 +47,8 @@ def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
     assert {"trainer.py", "hist_cuda.py", "bindings.py", "booster.py",
             "binning.py", "env.py", "chip_smoke.py", "flash.py",
-            "attention.py", "mesh.py"} <= names
+            "attention.py", "mesh.py", "torch_hist_ab.py",
+            "torch_flash_ab.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():

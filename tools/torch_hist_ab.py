@@ -12,12 +12,17 @@ process times ``hist_cuda.level_histogram`` on float32 stats at the
 HIGGS bench shape (N=2,000,000, F=28, B=255, 90% live rows, the inputs of
 ``chip_smoke.py``'s phase ``kernel``) for every level width of a depth-6
 tree: the median CUDA-event time of 20 calls per width, and their sum,
-the time per tree. It prints one JSON line per measurement with the
-card's name and power limit; a last line holds the medians per root.
+the time per tree; and it counts each atomic opcode in the SASS of the
+root's built ``level_hist`` library (``cuobjdump -sass``), which shows
+whether a 64-bit shared add is native or a CAS loop
+(``ATOMS.CAST.SPIN.64``). It prints one JSON line per measurement with
+the card's name and power limit; a last line holds the medians per
+root.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -32,6 +37,7 @@ def measure(root):
     import torch
 
     from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.native import bindings
     if not H.__file__.startswith(os.path.abspath(root)):
         raise RuntimeError(f"imported {H.__file__}, not from {root}")
     dev = torch.device("cuda")
@@ -60,9 +66,18 @@ def measure(root):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
+    cuobjdump = os.path.join(os.path.dirname(bindings.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(bindings.library_path("level_hist"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    atomics = {}
+    for op in re.findall(r"\b((?:ATOMS|ATOM|RED)\.[A-Z0-9.]+)", sass):
+        atomics[op] = atomics.get(op, 0) + 1
     print(json.dumps({"root": root, "card": smi,
                       "ms_per_width": per_width,
-                      "ms_per_tree": sum(per_width.values())}), flush=True)
+                      "ms_per_tree": sum(per_width.values()),
+                      "sass_atomics": atomics}), flush=True)
 
 
 def main(argv):
