@@ -29,7 +29,13 @@ sm_90a), then:
      level-histogram kernel against its plain version at the bench
      shape for every level width — bitwise, and bitwise between two
      launches — with CUDA-event timings of the kernel, the plain
-     version and one int64 ``index_add_`` call, and the byte bound;
+     version and one int64 ``index_add_`` call, one call's device time
+     by kernel (partition, histogram, dequantization), and the byte
+     bound; the int32 window (q16, 40,000,000 rows of +32000 in bin 0,
+     so a CTA's run in one node passes what an int32 cell holds:
+     bitwise against the plain version and between two launches); and
+     the atomic opcodes in the built kernel's SASS (native ``ATOMS.ADD``,
+     no CAS loop);
   7. quantized main path: the 20-tree bench fit under
      ``MMLSPARK_TORCH_HIST_QUANT=q16`` (then q8), with the kernels'
      launch counts over each fit, the training logloss per tree, host
@@ -259,10 +265,17 @@ def top(by_name, k):
     return dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:k])
 
 
+BOOSTER_ARRAYS = ("split_feature", "threshold_bin", "threshold_value",
+                  "node_value", "count", "tree_weights")
+
+
 def boosters_equal(a, b):
-    return all(np.array_equal(getattr(a, k), getattr(b, k))
-               for k in ("split_feature", "threshold_bin", "threshold_value",
-                         "node_value", "count", "tree_weights"))
+    return not arrays_differing(a, b)
+
+
+def arrays_differing(a, b):
+    return [k for k in BOOSTER_ARRAYS
+            if not np.array_equal(getattr(a, k), getattr(b, k))]
 
 
 def phase_device(ctx):
@@ -560,6 +573,10 @@ def phase_kernel_quant(ctx):
             kernel_ms = time_ms(torch, lambda: H.level_histogram_quant(*args))
             kernel_device_ms = device_ms(
                 torch, lambda: H.level_histogram_quant(*args))
+            # one call's device time by kernel: the partition (count, scan,
+            # scatter), the histogram, the dequantization, torch's fills
+            _, split = device_ms_by_kernel(
+                torch, lambda: H.level_histogram_quant(*args))
             plain_ms = time_ms(torch, lambda: H.level_histogram_quant_reference(
                 *args))
             library_ms = time_ms(torch, lambda: torch.zeros(
@@ -580,7 +597,8 @@ def phase_kernel_quant(ctx):
                    "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": "bytes" if bytes_ms >= ops_ms
                    else "operations",
-                   "bytes": in_bytes + out_bytes, "ops": ops}
+                   "bytes": in_bytes + out_bytes, "ops": ops,
+                   "device_ms_by_kernel": split}
             emit({"phase": "kernel_quant_vs_plain", **row})
             rows[quant].append(row)
             if not (bitwise and repeat):
@@ -588,7 +606,60 @@ def phase_kernel_quant(ctx):
                                      f"at width {width}: {row}")
     ctx["quant_rows"] = rows
     return {"quants": list(QUANTS), "widths": list(WIDTHS),
-            "all_bitwise": True}
+            "all_bitwise": True, "window": quant_window_case(torch, H),
+            "sass_atomics": quant_sass_atomics()}
+
+
+def quant_window_case(torch, H):
+    """q16 at 40,000,000 rows, F=4, every row +32000 in bin 0: a CTA's run
+    in one node passes the W = 65,535 rows an int32 cell holds at
+    2^15 per row, so the kernel must flush mid-node; a missed flush wraps.
+    Bitwise against the plain version and between two launches, widths 1
+    and 2."""
+    n, f = 40_000_000, 4
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    binned = torch.zeros((n, f), dtype=torch.uint8, device=dev)
+    stat = torch.full((n,), 32000, dtype=torch.int16, device=dev)
+    live = torch.ones(n, device=dev)
+    gsi = torch.full((), 2.0 ** -12, device=dev)
+    out = {"rows": n, "features": f, "window_rows": H.quant_window(16)}
+    for width in (1, 2):
+        local = torch.randint(0, width, (n,), generator=gen, device=dev)
+        args = (binned, stat, stat, live, local, width, f, B, gsi, gsi)
+        k1 = H.level_histogram_quant(*args)
+        k2 = H.level_histogram_quant(*args)
+        p = H.level_histogram_quant_reference(*args)
+        torch.cuda.synchronize()
+        row = {"bitwise": bool(torch.equal(k1, p)),
+               "repeat_bitwise": bool(torch.equal(k1, k2)),
+               "grad_sum_bin0": float(k1[0, 0, 0, 0].item()),
+               "plain_grad_sum_bin0": float(p[0, 0, 0, 0].item())}
+        out[f"width_{width}"] = row
+        del p, k1, k2, local
+        if not (row["bitwise"] and row["repeat_bitwise"]):
+            raise AssertionError(f"level_hist_quant wraps past the int32 "
+                                 f"window at width {width}: {row}")
+    return out
+
+
+def quant_sass_atomics():
+    """The atomic opcodes in the SASS of the built ``level_hist_quant``
+    library (``cuobjdump -sass``): its int32 cells must take native shared
+    adds (``ATOMS.ADD``), never a CAS loop (``ATOMS.CAST.SPIN``)."""
+    from mmlspark_tpu_torch.native import bindings
+    cuobjdump = os.path.join(os.path.dirname(bindings.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(bindings.library_path("level_hist_quant"))],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    atomics = {}
+    for op in re.findall(r"\b((?:ATOMS|ATOM|RED)\.[A-Z0-9.]+)", sass):
+        atomics[op] = atomics.get(op, 0) + 1
+    if "ATOMS.ADD" not in atomics or any("CAS" in op for op in atomics):
+        raise AssertionError(f"level_hist_quant's shared adds are not "
+                             f"native: {atomics}")
+    return atomics
 
 
 def phase_main_quant(ctx):
@@ -665,8 +736,12 @@ def phase_main_quant(ctx):
                "logloss_last": lls[-1],
                "fit_mrow_trees_per_s": N * TREES / fit_s / 1e6}
         if quant == "q16":
-            row["trees_equal_to_sub_off"] = boosters_equal(
+            # the derived sibling is parent - smaller in float32, so node
+            # values may move in the last bits where bin sums round
+            row["arrays_differing_from_sub_off"] = arrays_differing(
                 res.booster, sub_off["q16"])
+            row["trees_equal_to_sub_off"] = \
+                not row["arrays_differing_from_sub_off"]
         binned_d = torch.as_tensor(binned.astype(np.uint8), device="cuda")
         for sub in ("0", "1"):
             with knobs(quant, sub):

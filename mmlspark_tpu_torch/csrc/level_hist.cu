@@ -34,21 +34,12 @@
 //
 // Design. Five launches on the stream, none waiting on the host (the fit's
 // host syncs stay flat in the tree count):
-//   1-3. a stable counting partition of the rows by node, in place of a
-//      sort (the key: the node id, or width for a row with live == 0).
-//      plan_count: each warp counts its segment of 512 rows per key (the
-//      lanes of one key add once, by __match_any_sync; each lane loads 8
-//      rows at once), and writes each row's (grad*live, hess*live, live, 0)
-//      as one float4 (so the histogram gathers one 16-byte value per row,
-//      not three scattered floats) and the channels' amax. plan_scan (one
-//      CTA): the exclusive prefix sum of the per-CTA counts in key-major
-//      order, the nodes' offsets, and e_c, the largest e with
-//      n * amax_c * 2^e <= 2^62, by integer exponent arithmetic.
-//      plan_scatter: each warp walks its segment again and writes every
-//      kept row's id to its place, so node w's rows are order[offsets[w] :
-//      offsets[w + 1]] in row order: the order of a stable sort by node
-//      (the quantized plane's torch.sort gives the same, hist_cuda.
-//      node_order).
+//   1-3. the stable counting partition of the rows by node that both
+//      planes share (level_hist_common.cuh), in place of a sort; this
+//      plane keeps the rows with live != 0 (F32Rows). Its count pass also
+//      writes each row's (grad*live, hess*live, live, 0) as one float4 and
+//      the channels' amax, and its scan's tail computes e_c, the largest e
+//      with n * amax_c * 2^e <= 2^62, by integer exponent arithmetic;
 //   4. the histogram. The grid is persistent: one CTA of 1,024 threads per
 //      SM, the CTAs split over the feature slices (at most 32 features
 //      each) in proportion to their features. Each CTA of a slice takes an
@@ -87,104 +78,17 @@
 
 namespace {
 
+using namespace level_hist;
+
 constexpr int kThreads = 1024;       // one CTA per SM: its cells fill shared memory
 constexpr int kLanes = 32;           // a warp per row, a lane per feature
 constexpr int kChunk = 256;          // rows staged at once (hist_cuda.CHUNK_ROWS)
-constexpr int kSegRows = 512;        // rows per warp segment of the partition
-constexpr int kBatch = 8;            // rows per lane loaded at once (a warp: 256)
-constexpr int kPlanWarps = 8;        // warps per CTA of the partition (at most)
-constexpr int kPlanSmem = 48 * 1024; // the partition's per-warp key counters
-
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
-  return a < b ? a : b;
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, s));
   return v;
-}
-
-__device__ __forceinline__ unsigned lanes_below() {
-  unsigned m;
-  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
-  return m;
-}
-
-// Row r's sort key: its node, or width for a row with live == 0 (and for
-// an id outside [0, width), the caller's bug: such a row is left out).
-template <typename L>
-__device__ __forceinline__ int row_key(const L* __restrict__ local, float lv,
-                                       int64_t r, int width) {
-  const long long w = local[r];
-  return lv != 0.f && w >= 0 && w < width ? (int)w : width;
-}
-
-// 1. The partition's counts, the stats and the channels' amax. Warp
-// segment s (kSegRows rows) counts its rows per key (the lanes of one key
-// add once, by __match_any_sync) into wcounts[key * ns + s], and each CTA
-// its warps' sums into btot[key * nb + cta]. Each row's (grad*live,
-// hess*live, live, 0) goes to stats[r]; every warp merges its maxima of
-// their magnitudes into amax_bits by integer atomicMax on the float bits
-// (non-negative floats order as their bits; amax_bits zeroed).
-template <typename L>
-__global__ void __launch_bounds__(kPlanWarps * 32)
-plan_count_kernel(const L* __restrict__ local, const float* __restrict__ grad,
-                  const float* __restrict__ hess,
-                  const float* __restrict__ live, float4* __restrict__ stats,
-                  int* __restrict__ wcounts, int* __restrict__ btot,
-                  unsigned long long* __restrict__ amax_bits, int64_t n,
-                  int width, int ns, int nb) {
-  extern __shared__ int plan_smem[];
-  const int keys = width + 1, warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* mine = plan_smem + warp * keys;
-  for (int k = lane; k < keys; k += 32) mine[k] = 0;
-  __syncwarp();
-  const int64_t seg = (int64_t)blockIdx.x * warps + warp;
-  const int64_t r1 = min64(n, (seg + 1) * kSegRows);
-  float g = 0.f, h = 0.f, l = 0.f;
-  for (int64_t base = seg * kSegRows; base < r1; base += 32 * kBatch) {
-    int key[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int64_t r = base + 32 * i + lane;
-      key[i] = -1;
-      if (r < r1) {
-        const float lv = live[r];
-        const float4 x = make_float4(__fmul_rn(grad[r], lv),
-                                     __fmul_rn(hess[r], lv), lv, 0.f);
-        stats[r] = x;
-        g = fmaxf(g, fabsf(x.x));
-        h = fmaxf(h, fabsf(x.y));
-        l = fmaxf(l, fabsf(lv));
-        key[i] = row_key(local, lv, r, width);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const unsigned peers = __match_any_sync(0xffffffffu, key[i]);
-      if (key[i] >= 0 && lane == __ffs(peers) - 1) mine[key[i]] += __popc(peers);
-      __syncwarp();
-    }
-  }
-  if (seg < ns)
-    for (int k = lane; k < keys; k += 32) wcounts[(int64_t)k * ns + seg] = mine[k];
-  __syncthreads();
-  for (int k = threadIdx.x; k < keys; k += blockDim.x) {
-    int sum = 0;
-    for (int w = 0; w < warps; ++w) sum += plan_smem[w * keys + k];
-    btot[(int64_t)k * nb + blockIdx.x] = sum;
-  }
-  g = warp_max(g);
-  h = warp_max(h);
-  l = warp_max(l);
-  if (lane == 0) {
-    atomicMax(amax_bits, (unsigned long long)__float_as_uint(g));
-    atomicMax(amax_bits + 1, (unsigned long long)__float_as_uint(h));
-    atomicMax(amax_bits + 2, (unsigned long long)__float_as_uint(l));
-  }
 }
 
 // The largest e with n * a * 2^e <= 2^62, exactly: a = m * 2^(ea - 24) with
@@ -200,97 +104,45 @@ __device__ int fixed_point_exponent(float a, long long n) {
   return 86 - ea - len + ((nm & (nm - 1)) == 0 ? 1 : 0);
 }
 
-// 2. One CTA: the exclusive prefix sum of btot in key-major order (key,
-// then CTA), in place and 1,024 entries at a time, so btot[key * nb + c]
-// is where CTA c's first row of that key goes; offsets[w] = btot[w * nb]
-// (offsets[width]: the kept rows); and e_c from the amax.
-__global__ void __launch_bounds__(1024)
-plan_scan_kernel(int* __restrict__ btot, int64_t* __restrict__ offsets,
-                 const unsigned long long* __restrict__ amax_bits,
-                 long long* __restrict__ exps, int64_t n, int width, int nb) {
-  __shared__ long long warp_sums[32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t total = (int64_t)(width + 1) * nb;
-  long long carry = 0;
-  for (int64_t t0 = 0; t0 < total; t0 += 1024) {
-    const int64_t e = t0 + tid;
-    const long long v = e < total ? btot[e] : 0;
-    long long incl = v;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const long long u = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += u;
-    }
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      long long w = warp_sums[lane];
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const long long u = __shfl_up_sync(0xffffffffu, w, off);
-        if (lane >= off) w += u;
-      }
-      warp_sums[lane] = w;                           // inclusive over warps
-    }
-    __syncthreads();
-    if (e < total)
-      btot[e] = (int)(carry + incl - v + (warp > 0 ? warp_sums[warp - 1] : 0));
-    carry += warp_sums[31];
-    __syncthreads();                                 // warp_sums is rewritten
-  }
-  for (int k = tid; k <= width; k += 1024) offsets[k] = btot[(int64_t)k * nb];
-  if (tid < 3)
-    exps[tid] = fixed_point_exponent(__uint_as_float((unsigned)amax_bits[tid]), n);
-}
+// The float32 plane's rows for the partition (level_hist_common.cuh): it
+// keeps live != 0; the count pass writes each row's (grad*live, hess*live,
+// live, 0) to stats[r] as one float4 (so the histogram gathers one 16-byte
+// value per row, not three scattered floats), and every warp merges its
+// maxima of their magnitudes into amax_bits by integer atomicMax on the
+// float bits (non-negative floats order as their bits; amax_bits zeroed);
+// the scan's tail turns them into e_c.
+struct F32Rows {
+  const float* __restrict__ grad;
+  const float* __restrict__ hess;
+  float4* __restrict__ stats;
+  unsigned long long* __restrict__ amax_bits;   // (3,)
+  long long* __restrict__ exps;                 // (3,) e_c
 
-// 3. The stable scatter: warp segment s starts each key at its CTA's place
-// (btot) plus the counts of the CTA's earlier warps, walks its rows in
-// order again, and the lanes of one key take consecutive places in lane
-// order: order[place] = row for every kept row. Node w's rows then lie at
-// order[offsets[w] : offsets[w + 1]] in row order, as a stable sort by
-// node puts them; rows with live == 0 get no place.
-template <typename L>
-__global__ void __launch_bounds__(kPlanWarps * 32)
-plan_scatter_kernel(const L* __restrict__ local, const float* __restrict__ live,
-                    const int* __restrict__ wcounts,
-                    const int* __restrict__ btot, int64_t* __restrict__ order,
-                    int64_t n, int width, int ns, int nb) {
-  extern __shared__ int plan_smem[];
-  const int keys = width + 1, warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* next = plan_smem + warp * keys;               // the segment's next place per key
-  const int64_t seg = (int64_t)blockIdx.x * warps + warp;
-  if (seg >= ns) return;
-  for (int k = lane; k < keys; k += 32) {
-    int place = btot[(int64_t)k * nb + blockIdx.x];
-    for (int64_t q = seg - warp; q < seg; ++q) place += wcounts[(int64_t)k * ns + q];
-    next[k] = place;
+  struct Max {
+    float g = 0.f, h = 0.f, l = 0.f;
+  };
+  __device__ static bool keep(float lv) { return lv != 0.f; }
+  __device__ void put(int64_t r, float lv, Max& m) const {
+    const float4 x = make_float4(__fmul_rn(grad[r], lv),
+                                 __fmul_rn(hess[r], lv), lv, 0.f);
+    stats[r] = x;
+    m.g = fmaxf(m.g, fabsf(x.x));
+    m.h = fmaxf(m.h, fabsf(x.y));
+    m.l = fmaxf(m.l, fabsf(lv));
   }
-  __syncwarp();
-  const int64_t r1 = min64(n, (seg + 1) * kSegRows);
-  for (int64_t base = seg * kSegRows; base < r1; base += 32 * kBatch) {
-    int key[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int64_t r = base + 32 * i + lane;
-      key[i] = -1;
-      if (r < r1) {
-        const int k = row_key(local, live[r], r, width);
-        if (k < width) key[i] = k;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const unsigned peers = __match_any_sync(0xffffffffu, key[i]);
-      if (key[i] >= 0) {
-        order[next[key[i]] + __popc(peers & lanes_below())] = base + 32 * i + lane;
-      }
-      __syncwarp();
-      if (key[i] >= 0 && lane == __ffs(peers) - 1) next[key[i]] += __popc(peers);
-      __syncwarp();
+  __device__ void merge(Max& m) const {
+    const float g = warp_max(m.g), h = warp_max(m.h), l = warp_max(m.l);
+    if ((threadIdx.x & 31) == 0) {
+      atomicMax(amax_bits, (unsigned long long)__float_as_uint(g));
+      atomicMax(amax_bits + 1, (unsigned long long)__float_as_uint(h));
+      atomicMax(amax_bits + 2, (unsigned long long)__float_as_uint(l));
     }
   }
-}
+  __device__ void finish_scan(int tid, int64_t n) const {
+    if (tid < 3)
+      exps[tid] = fixed_point_exponent(__uint_as_float((unsigned)amax_bits[tid]), n);
+  }
+};
 
 // 2^k as a double, built from its bits (|k| <= 1022 here: e_c lies in
 // [-106, 234] for any finite float data).
@@ -300,26 +152,6 @@ __device__ __forceinline__ double pow2(long long k) {
 
 __device__ __forceinline__ long long term(float x, double up) {
   return __double2ll_rn(__dmul_rn((double)x, up));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 // A 64-bit add into a cell held as two 32-bit words in separate planes,
@@ -435,7 +267,7 @@ level_hist_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-major
     stage(buf ^ 1, nxt.rows);                        // in flight during this chunk
     cp_async_commit();
     const int64_t r_after = tid < after.rows ? order[after.c0 + tid] : 0;
-    cp_async_wait1();                                // this chunk has landed
+    cp_async_wait<1>();                              // this chunk has landed
     __syncthreads();
     if (tid < cur.rows) {                            // the rows' terms, once
       const float4 x = sstats[buf * kChunk + tid];
@@ -487,29 +319,6 @@ struct InversePow2 {
   __device__ double operator()(int c) const { return pow2(-exps[c]); }
 };
 
-template <typename L>
-cudaError_t plan(const L* local, const float* grad, const float* hess,
-                 const float* live, float4* stats, int* wcounts, int* btot,
-                 int64_t* offsets, int64_t* order,
-                 unsigned long long* amax_bits, long long* exps, int64_t n,
-                 int width, cudaStream_t s) {
-  const int keys = width + 1;
-  int warps = kPlanSmem / (keys * (int)sizeof(int));
-  warps = warps < kPlanWarps ? warps : kPlanWarps;
-  if (warps < 1) return cudaErrorInvalidValue;
-  const int ns = (int)((n + kSegRows - 1) / kSegRows);
-  const int nb = (ns + warps - 1) / warps;
-  const int smem = warps * keys * (int)sizeof(int);
-  plan_count_kernel<L><<<nb, warps * 32, smem, s>>>(
-      local, grad, hess, live, stats, wcounts, btot, amax_bits, n, width, ns,
-      nb);
-  plan_scan_kernel<<<1, 1024, 0, s>>>(btot, offsets, amax_bits, exps, n,
-                                      width, nb);
-  plan_scatter_kernel<L><<<nb, warps * 32, smem, s>>>(
-      local, live, wcounts, btot, order, n, width, ns, nb);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -539,20 +348,17 @@ int mmls_level_hist(const void* binned, const void* grad, const void* hess,
   unsigned long long* sums = (unsigned long long*)acc;
   unsigned long long* amax_bits = sums + cells;
   long long* exps = (long long*)(sums + cells + 3);
-  const int64_t ns = (n + kSegRows - 1) / kSegRows;
   int* wcounts = (int*)counts;
-  int* btot = wcounts + (int64_t)(width + 1) * ns;
+  int* btot = wcounts + plan_wcounts(n, width);
+  const F32Rows rows{(const float*)grad, (const float*)hess, (float4*)stats,
+                     amax_bits, exps};
 
   if (local_bytes == 8)
-    err = plan((const int64_t*)local, (const float*)grad, (const float*)hess,
-               (const float*)live, (float4*)stats, wcounts, btot,
-               (int64_t*)offsets, (int64_t*)order, amax_bits, exps, n, width,
-               s);
+    err = plan((const int64_t*)local, (const float*)live, rows, wcounts, btot,
+               (int64_t*)offsets, (int64_t*)order, n, width, s);
   else if (local_bytes == 4)
-    err = plan((const int32_t*)local, (const float*)grad, (const float*)hess,
-               (const float*)live, (float4*)stats, wcounts, btot,
-               (int64_t*)offsets, (int64_t*)order, amax_bits, exps, n, width,
-               s);
+    err = plan((const int32_t*)local, (const float*)live, rows, wcounts, btot,
+               (int64_t*)offsets, (int64_t*)order, n, width, s);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

@@ -38,12 +38,13 @@ hist_kernel_launches = 0
 hist_quant_kernel_launches = 0
 
 MAX_BINS = 256            # bin ids are uint8
-TILE_ROWS = 4096          # rows per CTA of the quantized kernel
-CHUNK_ROWS = 256          # rows level_hist.cu stages in shared memory at once
-WARP_LANES = 32           # level_hist.cu: a lane per feature of a row
-PLAN_SEG_ROWS = 512       # level_hist.cu: rows per warp of its partition
-MAX_F32_WIDTH = 12287     # level_hist.cu: its partition's key counters
+CHUNK_ROWS = 256          # level_hist.cu: rows a CTA stages at once
+WARP_LANES = 32           # a lane per feature of a row
+PLAN_SEG_ROWS = 512       # rows per warp of the partition
+MAX_WIDTH = 12287         # the partition's per-warp key counters (48 KB)
 SMEM_BYTES = 232_448      # dynamic shared memory a CTA may use on sm_90
+QUANT_CHUNK_ROWS = 1024   # level_hist_quant.cu: rows a CTA stages at once
+QUANT_STAGES = 2          # level_hist_quant.cu: chunks in its staging ring
 QUANT_DTYPES = (torch.int16, torch.int8)
 
 
@@ -150,69 +151,27 @@ def level_histogram_reference(binned, grad, hess, live, local, width: int,
     return (acc.double() * pow2(-e)).float().reshape(width, f, b, 3)
 
 
-def node_key_dtype(width: int) -> torch.dtype:
-    """The narrowest sort key that holds ``0..width``: one byte up to 255
-    nodes, so the radix sort makes one pass."""
-    return torch.uint8 if width < 256 else \
-        torch.int16 if width < 2 ** 15 else torch.int32
-
-
-def node_order(local: torch.Tensor, width: int, keep: torch.Tensor):
-    """Rows sorted by node, on the device: ``(order, offsets)``. ``order``
-    lists row ids by node (stable) and node w owns
-    ``order[offsets[w]:offsets[w+1]]``. Rows where ``keep`` is false sort
-    to a key past the last node, so they lie past ``offsets[width]`` and
-    no kernel reads them; the stable order of the kept rows is unchanged.
-    The key is :func:`node_key_dtype`'s, not int64: a stable sort orders
-    equal keys alike whatever their width, so ``order`` and ``offsets``
-    are those of an int64 key, in one radix pass instead of eight. The
-    quantized kernel's plan; ``level_hist.cu`` partitions the rows into
-    the same order on the device itself."""
-    dtype = node_key_dtype(width)
-    key = torch.where(keep, local.to(dtype), width)
-    sorted_key, order = torch.sort(key, stable=True)
-    nodes = torch.arange(width + 1, dtype=dtype, device=local.device)
-    return order, torch.searchsorted(sorted_key, nodes)
-
-
-def tile_plan(local: torch.Tensor, width: int, keep: torch.Tensor,
-              tile_rows: int = TILE_ROWS):
-    """:func:`node_order` cut into tiles, all on the device: ``(order,
-    offsets, tile_end, num_tiles)``; node w's rows are tiles
-    ``[tile_end[w-1], tile_end[w])``. ``num_tiles`` is a static upper
-    bound (every node adds at most one partial tile), so no host sync is
-    needed; tiles past ``tile_end[-1]`` are empty."""
-    n = local.shape[0]
-    order, offsets = node_order(local, width, keep)
-    counts = offsets[1:] - offsets[:-1]
-    tile_end = torch.cumsum((counts + tile_rows - 1) // tile_rows, dim=0)
-    return order, offsets, tile_end, n // tile_rows + width
-
-
-def feature_slices(f: int, b: int):
-    """(features per CTA, number of slices) of ``csrc/level_hist_quant.cu``:
-    the fewest slices whose (slice, B, 3) tile of int32 cells fits in one
-    CTA's shared memory."""
-    most = max(1, SMEM_BYTES // (b * 3 * 4))
-    num_slices = -(-f // most)
-    return -(-f // num_slices), num_slices
-
-
-def f32_feature_slices(f: int, b: int):
-    """(features per CTA, number of slices) of ``csrc/level_hist.cu``,
-    which adds a row's features with one warp, a lane per feature: the
-    fewest slices of at most 32 features whose cells (over 32 lanes) and
-    staged chunks fit one CTA's shared memory (:func:`f32_smem_bytes`; 28
-    features at B = 256), as even as possible, and multiples of 4 where F
-    is (a row's bin bytes are then whole words)."""
+def _lane_slices(f: int, fits):
+    """(features per CTA, number of slices) for a kernel that adds a
+    row's features with one warp, a lane per feature: the fewest slices of
+    at most 32 features for which ``fits(f_slice)`` holds, as even as
+    possible, and multiples of 4 where F is (a row's bin bytes are then
+    whole words)."""
     most = WARP_LANES
-    while most > 4 and f32_smem_bytes(most, b) > SMEM_BYTES:
+    while most > 4 and not fits(most):
         most -= 4
     num_slices = -(-f // most)
     f_slice = -(-f // num_slices)
     if f % 4 == 0:
         f_slice = -(-f_slice // 4) * 4
     return f_slice, -(-f // f_slice)
+
+
+def f32_feature_slices(f: int, b: int):
+    """(features per CTA, number of slices) of ``csrc/level_hist.cu``:
+    its cells (over 32 lanes) and staged chunks fit one CTA's shared
+    memory (:func:`f32_smem_bytes`; 28 features at B = 256)."""
+    return _lane_slices(f, lambda fs: f32_smem_bytes(fs, b) <= SMEM_BYTES)
 
 
 def f32_smem_bytes(f_slice: int, b: int) -> int:
@@ -224,12 +183,29 @@ def f32_smem_bytes(f_slice: int, b: int) -> int:
             + CHUNK_ROWS * (2 * 16 + 32 + 2 * (-(-f_slice // 4) * 4) + 2 * 8))
 
 
+def _check_card_limits(width, n):
+    """Both kernels partition the rows on the card with per-warp key
+    counters (at most ``MAX_WIDTH`` + 1 keys) and int32 row places."""
+    if width > MAX_WIDTH or n >= 2 ** 31:
+        raise ValueError(f"the level-histogram kernels take width <= "
+                         f"{MAX_WIDTH} and n < 2^31, got width {width}, "
+                         f"n {n}")
+
+
+def _partition_scratch(n, width, dev):
+    """The partition's scratch (``csrc/level_hist_common.cuh``): its
+    counts (per warp segment, then per CTA: at most one CTA per segment),
+    the nodes' offsets and the kept rows in node order."""
+    return (torch.empty(2 * (width + 1) * -(-n // PLAN_SEG_ROWS),
+                        dtype=torch.int32, device=dev),
+            torch.empty(width + 1, dtype=torch.int64, device=dev),
+            torch.empty(n, dtype=torch.int64, device=dev))
+
+
 def _launch(binned, grad, hess, live, local, width, f, b):
     global hist_kernel_launches
     n = binned.shape[0]
-    if width > MAX_F32_WIDTH or n >= 2 ** 31:
-        raise ValueError(f"level_hist.cu takes width <= {MAX_F32_WIDTH} and "
-                         f"n < 2^31, got width {width}, n {n}")
+    _check_card_limits(width, n)
     lib = bindings.load("level_hist")
     dev = binned.device
     if n == 0:
@@ -237,14 +213,9 @@ def _launch(binned, grad, hess, live, local, width, f, b):
     out = torch.empty((width, f, b, 3), dtype=torch.float32, device=dev)
     # the int64 sums, then 6 int64 of scratch: the amax bits and e_c
     acc = torch.zeros(width * f * b * 3 + 6, dtype=torch.int64, device=dev)
-    # per row (grad*live, hess*live, live, 0); the partition's counts
-    # (per warp segment, then per CTA: at most one CTA per segment), the
-    # nodes' offsets and the kept rows in node order
+    # per row (grad*live, hess*live, live, 0)
     stats = torch.empty((n, 4), dtype=torch.float32, device=dev)
-    counts = torch.empty(2 * (width + 1) * -(-n // PLAN_SEG_ROWS),
-                         dtype=torch.int32, device=dev)
-    offsets = torch.empty(width + 1, dtype=torch.int64, device=dev)
-    order = torch.empty(n, dtype=torch.int64, device=dev)
+    counts, offsets, order = _partition_scratch(n, width, dev)
     f_slice, num_slices = f32_feature_slices(f, b)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.mmls_level_hist(
@@ -260,15 +231,28 @@ def _launch(binned, grad, hess, live, local, width, f, b):
 
 # --- quantized stats ---------------------------------------------------------
 
-def check_tile_fits(tile_rows: int, dtype: torch.dtype) -> None:
-    """A CTA's int32 cell grows by at most the largest magnitude of
-    ``dtype`` per row of its tile; raise unless a whole tile stays below
-    2^31 (q16: 4096 * 32768 = 2^27). This plays the part of the native
-    kernel's periodic flush into int64."""
-    qmax = -torch.iinfo(dtype).min
-    if tile_rows * qmax >= 2 ** 31:
-        raise ValueError(f"tile_rows={tile_rows} x |{dtype}| max {qmax} "
-                         "could overflow a CTA's int32 histogram cell")
+def quant_window(bits: int) -> int:
+    """The rows W of one node that a ``level_hist_quant.cu`` CTA's int32
+    cells take between flushes: each row adds at most 2^(bits-1) to a
+    cell, and W * 2^(bits-1) <= 2^31 - 1 (q16: 65,535; q8: 16,777,215).
+    The CTA flushes once one more chunk could pass it."""
+    return (2 ** 31 - 1) // 2 ** (bits - 1)
+
+
+def quant_feature_slices(f: int, b: int):
+    """(features per CTA, number of slices) of ``csrc/level_hist_quant.cu``
+    (:func:`quant_smem_bytes`): at B <= 256 every slice of 32 features
+    fits."""
+    return _lane_slices(f, lambda fs: quant_smem_bytes(fs, b) <= SMEM_BYTES)
+
+
+def quant_smem_bytes(f_slice: int, b: int) -> int:
+    """Dynamic shared memory of one ``level_hist_quant.cu`` CTA: int32
+    cells in three channel planes over (B, 32 lanes); ``QUANT_STAGES``
+    chunks of ``QUANT_CHUNK_ROWS`` rows' packed stat words (4 bytes), row
+    ids (4 bytes) and bin bytes (padded to a word)."""
+    return (3 * b * WARP_LANES * 4
+            + QUANT_STAGES * QUANT_CHUNK_ROWS * (4 + 4 + -(-f_slice // 4) * 4))
 
 
 def level_histogram_quant(binned, grad_q, hess_q, live, local, width: int,
@@ -313,24 +297,27 @@ def level_histogram_quant_reference(binned, grad_q, hess_q, live, local,
 def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
                   hsi):
     global hist_quant_kernel_launches
-    check_tile_fits(TILE_ROWS, grad_q.dtype)
+    n = binned.shape[0]
+    _check_card_limits(width, n)
     lib = bindings.load("level_hist_quant")
-    if binned.shape[0] == 0:
-        return torch.zeros((width, f, b, 3), dtype=torch.float32,
-                           device=binned.device)
-    out = torch.empty((width, f, b, 3), dtype=torch.float32,
-                      device=binned.device)
-    acc = torch.zeros((width, f, b, 3), dtype=torch.int64,
-                      device=binned.device)
-    order, offsets, tile_end, num_tiles = tile_plan(local, width, live > 0)
-    f_slice, num_slices = feature_slices(f, b)
-    stream = torch.cuda.current_stream(binned.device).cuda_stream
+    dev = binned.device
+    if n == 0:
+        return torch.zeros((width, f, b, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((width, f, b, 3), dtype=torch.float32, device=dev)
+    acc = torch.zeros((width, f, b, 3), dtype=torch.int64, device=dev)
+    # per row the packed (grad_q, hess_q) word
+    stats = torch.empty(n, dtype=torch.int32, device=dev)
+    counts, offsets, order = _partition_scratch(n, width, dev)
+    f_slice, num_slices = quant_feature_slices(f, b)
+    bits = grad_q.element_size() * 8
+    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.mmls_level_hist_quant(
         binned.data_ptr(), grad_q.data_ptr(), hess_q.data_ptr(),
-        order.data_ptr(), offsets.data_ptr(), tile_end.data_ptr(),
-        acc.data_ptr(), out.data_ptr(), gsi.data_ptr(), hsi.data_ptr(),
-        grad_q.element_size() * 8, f, b, width, TILE_ROWS, num_tiles,
-        f_slice, num_slices, binned.device.index, stream)
+        live.data_ptr(), local.data_ptr(), local.element_size(),
+        stats.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+        order.data_ptr(), acc.data_ptr(), out.data_ptr(), gsi.data_ptr(),
+        hsi.data_ptr(), bits, n, f, b, width, f_slice, num_slices,
+        quant_smem_bytes(f_slice, b), quant_window(bits), dev.index, stream)
     bindings.check(lib, code, "level_hist_quant kernel launch")
     hist_quant_kernel_launches += 1
     return out

@@ -46,10 +46,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "level_hist_quant": {
-        # binned, grad_q, hess_q, order, offsets, tile_end, acc, out,
-        # gscale_inv, hscale_inv, qbits, f, b, width, tile_rows,
-        # num_tiles, f_slice, num_slices, device, stream
-        "mmls_level_hist_quant": ([_VP] * 10 + [_I] * 9 + [_VP], _I),
+        # binned, grad_q, hess_q, live, local, local bytes, stats, counts,
+        # offsets, order, acc, out, gscale_inv, hscale_inv, qbits, n, f, b,
+        # width, f_slice, num_slices, smem bytes, window, device, stream
+        "mmls_level_hist_quant": ([_VP] * 5 + [_I] + [_VP] * 8 + [_I, _LL]
+                                  + [_I] * 8 + [_VP], _I),
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attn": {

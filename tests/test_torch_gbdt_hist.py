@@ -10,11 +10,14 @@ point (``H.fixed_point_exponents``), so its float sums are the same bits
 in any row order, and lie within ``4*k*u*sum|x|`` (``u = 2^-24``, ``k``
 terms) of the JAX sums, the bound of any float32 order.
 
-The CUDA kernel itself runs only on the card; ``chip_smoke.py`` holds it
-against the same plain version there. Here the counting partition and
-the CTA walk of ``csrc/level_hist.cu``, and the tile walk of
-``csrc/level_hist_quant.cu`` over ``tile_plan``, are replayed in numpy to
-pin the kernels' indexing.
+The CUDA kernels themselves run only on the card; ``chip_smoke.py``
+holds them against the same plain versions there. Here the counting
+partition both kernels share (``csrc/level_hist_common.cuh``, with each
+plane's keep mask) and the CTA walks of ``csrc/level_hist.cu`` and
+``csrc/level_hist_quant.cu`` (int32 cells, packed stat words, the int32
+window) are replayed in numpy to pin the kernels' indexing; the
+quantized replay is held bit for bit to the plain version and to the JAX
+``trainer._level_histogram_quant``.
 """
 
 from fractions import Fraction
@@ -24,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from mmlspark_tpu.models.gbdt import trainer as jax_trainer
 from mmlspark_tpu.models.gbdt.hist_pallas import pallas_level_histogram
 from mmlspark_tpu.models.gbdt.trainer import _level_histogram
 from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
@@ -122,16 +126,23 @@ def _chunk_pairs(rows, fs, warps=KERNEL_WARPS):
                     yield j, lane
 
 
-def _replay_partition(local, live, width, seg_rows=H.PLAN_SEG_ROWS):
-    """numpy replay of level_hist.cu's partition: every warp segment of
-    ``seg_rows`` rows counts its rows per key (the node, or width where
-    live == 0); an exclusive prefix sum of the counts in key-major order
-    gives each (key, segment) its first place; then each segment walks its
-    rows in order, 32 at a time, the lanes of one key taking consecutive
-    places in lane order. Returns the kept rows in their places, and the
-    nodes' offsets (offsets[width]: the kept rows)."""
+# the rows each plane sums: the float32 plane keeps live != 0, the
+# quantized plane live > 0 (the gate of its plain version)
+KEEP = {"f32": lambda live: live != 0, "quant": lambda live: live > 0}
+
+
+def _replay_partition(local, live, width, seg_rows=H.PLAN_SEG_ROWS,
+                      plane="f32"):
+    """numpy replay of the counting partition both kernels share: every
+    warp segment of ``seg_rows`` rows counts its rows per key (the node,
+    or width for a row the plane does not keep); an exclusive prefix sum
+    of the counts in key-major order gives each (key, segment) its first
+    place; then each segment walks its rows in order, 32 at a time, the
+    lanes of one key taking consecutive places in lane order. Returns the
+    kept rows in their places, and the nodes' offsets (offsets[width]:
+    the kept rows)."""
     n = len(local)
-    key = np.where(live != 0, local, width)
+    key = np.where(KEEP[plane](live), local, width)
     ns = -(-n // seg_rows)
     counts = np.zeros((width + 1, ns), np.int64)
     for s in range(ns):
@@ -152,6 +163,20 @@ def _replay_partition(local, live, width, seg_rows=H.PLAN_SEG_ROWS):
             for k, c in zip(*np.unique(key[lanes], return_counts=True)):
                 nxt[k] += c
     return order[:offsets[width]], offsets
+
+
+def _cta_slice(cta, grid, f, f_slice):
+    """The feature slice of CTA ``cta`` and its share of the grid, as
+    both kernels split a persistent grid in proportion to the slices'
+    features: (slice, first CTA, CTA past the last, first feature,
+    features)."""
+    num_slices = -(-f // f_slice)
+    s = 0
+    while s + 1 < num_slices and grid * (s + 1) * f_slice // f <= cta:
+        s += 1
+    g0 = grid * s * f_slice // f
+    g1 = grid * (s + 1) * f_slice // f if s + 1 < num_slices else grid
+    return s, g0, g1, s * f_slice, min(f_slice, f - s * f_slice)
 
 
 def _replay_kernel(binned, grad, hess, live, local, width, f, b, chunk,
@@ -177,13 +202,7 @@ def _replay_kernel(binned, grad, hess, live, local, width, f, b, chunk,
     seen = np.zeros((num_slices, len(local)), np.int64)
     kept, flushes = int(offsets[width]), 0
     for cta in range(grid):
-        s = 0
-        while s + 1 < num_slices and grid * (s + 1) * f_slice // f <= cta:
-            s += 1
-        g0 = grid * s * f_slice // f
-        g1 = grid * (s + 1) * f_slice // f if s + 1 < num_slices else grid
-        f0 = s * f_slice
-        fs = min(f_slice, f - f0)
+        s, g0, g1, f0, fs = _cta_slice(cta, grid, f, f_slice)
         p = kept * (cta - g0) // (g1 - g0)
         p_end = kept * (cta - g0 + 1) // (g1 - g0)
         w = int(np.searchsorted(offsets[:width], p, side="right")) - 1
@@ -206,6 +225,78 @@ def _replay_kernel(binned, grad, hess, live, local, width, f, b, chunk,
     return out, seen, flushes
 
 
+def _pack(gq, hq):
+    """The quantized partition's packed word per row: grad_q in the low
+    half, hess_q in the high half, each as int16 (int8 widened)."""
+    lo = gq.astype(np.int16).view(np.uint16).astype(np.uint32)
+    hi = hq.astype(np.int16).view(np.uint16).astype(np.uint32)
+    return lo | hi << np.uint32(16)
+
+
+def _unpack(words):
+    """The packed word's halves sign-extended to int32, as the kernel's
+    ``low_half`` / ``high_half`` do."""
+    return ((words << np.uint32(16)).view(np.int32) >> 16,
+            words.view(np.int32) >> 16)
+
+
+def _replay_quant_kernel(binned, gq, hq, live, local, width, f, b, gsi,
+                         hsi, chunk, grid, f_slice, window):
+    """numpy replay of level_hist_quant.cu: the rows with live > 0 sorted
+    by node (``_replay_partition`` in 64-row segments) and their packed
+    words; a persistent grid of ``grid`` CTAs shared among the feature
+    slices, each CTA staging an equal run of the sorted kept rows in
+    chunks of ``chunk`` positions, adding each chunk node by node into
+    int32 cells (wrapping as the card's do) in three channel planes over
+    (bin, lane), and flushing them, sign-extended, into the int64 sums
+    where the run leaves a node or once one more chunk could pass
+    ``window`` rows; then ``float32(sum * float64(scale_inv))``. Returns
+    the histogram, each row's visits per slice, the number of flushes and
+    the largest magnitude a cell held between flushes."""
+    order, offsets = _replay_partition(local, live, width, seg_rows=64,
+                                       plane="quant")
+    gw, hw = _unpack(_pack(gq, hq))
+    num_slices = -(-f // f_slice)
+    acc = np.zeros((width, f, b, 3), np.int64)
+    seen = np.zeros((num_slices, len(local)), np.int64)
+    kept, flushes, most = int(offsets[width]), 0, 0
+    for cta in range(grid):
+        s, g0, g1, f0, fs = _cta_slice(cta, grid, f, f_slice)
+        p = kept * (cta - g0) // (g1 - g0)
+        p_end = kept * (cta - g0 + 1) // (g1 - g0)
+        w = int(np.searchsorted(offsets[:width], p, side="right")) - 1
+        cells = np.zeros((3, b, 32), np.int32)             # shared memory
+        exact = np.zeros((3, b, 32), np.int64)             # the same, unwrapped
+        since = 0
+        for c0 in range(p, p_end, chunk):
+            c1 = min(c0 + chunk, p_end)
+            pos = c0
+            while pos < c1:                                # node by node
+                while offsets[w + 1] <= pos:
+                    w += 1
+                node_end = int(offsets[w + 1])
+                seg_end = min(c1, node_end)
+                rows = order[pos:seg_end]
+                seen[s, rows] += 1
+                ones = np.ones(len(rows), np.int32)
+                for lane in range(fs):
+                    bins = binned[rows, f0 + lane]
+                    for c, v in enumerate((gw[rows], hw[rows], ones)):
+                        np.add.at(cells[c, :, lane], bins, v)
+                        np.add.at(exact[c, :, lane], bins, v)
+                since += seg_end - pos
+                pos = seg_end
+                if pos == node_end or pos == p_end or since > window - chunk:
+                    most = max(most, int(np.abs(exact).max()))
+                    acc[w, f0:f0 + fs] += cells[:, :, :fs].transpose(2, 1, 0)
+                    cells[:] = 0
+                    exact[:] = 0
+                    flushes += 1
+                    since = 0
+    scales = np.array([np.float32(gsi), np.float32(hsi), 1.0], np.float64)
+    return (acc * scales).astype(np.float32), seen, flushes, most
+
+
 @pytest.mark.parametrize("rows,fs", [(256, 32), (256, 28), (7, 28),
                                      (256, 5), (33, 12), (1, 1)])
 def test_chunk_pairs_cover_each_row_and_feature_once(rows, fs):
@@ -221,12 +312,11 @@ def test_chunk_pairs_cover_each_row_and_feature_once(rows, fs):
     (50, 7, 8, 4, 4, 64, 4),      # more CTAs than kept rows
 ])
 def test_tile_plan_and_cta_walk(n, f, b, width, chunk, grid, f_slice):
-    """The kernel's walk visits every live row exactly once per feature
-    slice and no masked (live == 0) row at all, flushes at most once per
-    CTA and node it reaches, and the replayed walk reproduces the plain
-    version bitwise on integer stats. The quantized kernel's tiles over
-    ``tile_plan`` visit every kept row once, within their node and the
-    static grid bound."""
+    """Each kernel's walk visits every row it keeps exactly once per
+    feature slice and no other row at all, flushes at most once per CTA
+    and node it reaches, and the replayed walk reproduces its plain
+    version bitwise on integer stats: the float32 kernel's over int64
+    cells, the quantized kernel's over int32 cells and packed words."""
     binned, grad, hess, live, local = _case(n, f, b, width, seed=3,
                                             integer_stats=True)
     if width > 1:
@@ -237,28 +327,18 @@ def test_tile_plan_and_cta_walk(n, f, b, width, chunk, grid, f_slice):
     for per_slice in seen:
         np.testing.assert_array_equal(per_slice, (live != 0).astype(np.int64))
     assert flushes <= grid + width * -(-f // f_slice)
-    order, offsets, tile_end, num_tiles = (x.numpy() if isinstance(
-        x, torch.Tensor) else x for x in H.tile_plan(
-            torch.from_numpy(local), width, torch.from_numpy(live != 0),
-            chunk))
-    assert int(tile_end[-1]) <= num_tiles
-    assert int(offsets[-1]) == int((live != 0).sum())
-    counts = np.bincount(local[live != 0], minlength=width)
-    np.testing.assert_array_equal(np.diff(offsets), counts)
-    # level_hist_quant.cu's walk: CTA t finds its node by tile_end and
-    # takes `chunk` rows of it; surplus CTAs of the static bound exit
-    tiles_seen = np.zeros(len(local), np.int64)
-    for t in range(num_tiles):
-        node = int(np.searchsorted(tile_end, t, side="right"))
-        if node < width:
-            first = tile_end[node - 1] if node > 0 else 0
-            start = offsets[node] + (t - first) * chunk
-            rows = order[start:min(start + chunk, offsets[node + 1])]
-            assert (local[rows] == node).all()
-            tiles_seen[rows] += 1
-    np.testing.assert_array_equal(tiles_seen, (live != 0).astype(np.int64))
     want = _port((binned, grad, hess, live, local), width, f, b)
     np.testing.assert_array_equal(got, want)
+    gq, hq = grad.astype(np.int16), hess.astype(np.int16)
+    got, seen, flushes, _ = _replay_quant_kernel(
+        binned, gq, hq, live, local, width, f, b, 2.0 ** -3, 2.0 ** -5,
+        chunk, grid, f_slice, H.quant_window(16))
+    for per_slice in seen:
+        np.testing.assert_array_equal(per_slice, (live > 0).astype(np.int64))
+    assert flushes <= grid + width * -(-f // f_slice)
+    np.testing.assert_array_equal(got, H.level_histogram_quant(
+        *(torch.from_numpy(x) for x in (binned, gq, hq, live, local)),
+        width, f, b, 2.0 ** -3, 2.0 ** -5).numpy())
 
 
 def _add64(lo, hi, t):
@@ -291,8 +371,8 @@ def test_split_word_adds_give_the_int64_sum(seed):
 
 
 def _int64_sort_plan(local, width, keep):
-    """The tile plan's order and offsets from an int64 key, as before the
-    key narrowed: the reference for ``node_order``."""
+    """Rows sorted by an int64 node key, kept rows first (stable): the
+    order and offsets the partition must give."""
     key = torch.where(keep, local.long(), width)
     sorted_key, order = torch.sort(key, stable=True)
     return order, torch.searchsorted(
@@ -301,29 +381,26 @@ def _int64_sort_plan(local, width, keep):
 
 @pytest.mark.parametrize("width", [1, 2, 3, 4, 7, 8, 16, 31, 32])
 @pytest.mark.parametrize("plane", ["f32", "quant"])
-def test_narrow_key_plan_equals_int64_sort(width, plane):
-    """``node_order``'s one-byte key gives the int64 stable sort's order
-    and offsets, and ``tile_plan`` the same tiles, bit for bit: dead rows
-    (live == 0, or live <= 0 on the quantized plane's mask), empty nodes
-    and every width of a depth-6 tree."""
+def test_partition_keep_mask_equals_int64_sort(width, plane):
+    """The shared partition (replayed) under each plane's keep mask (live
+    != 0, or live > 0 on the quantized plane: live = -1 is dropped there
+    and kept on the float32 plane) puts the kept rows in the int64 stable
+    sort's order, with its offsets, bit for bit: dead rows, empty nodes,
+    every width of a depth-6 tree."""
     rng = np.random.default_rng(width)
-    n, tile_rows = 3000, 64
-    local = torch.from_numpy(rng.integers(0, width, n)).to(torch.int32)
+    n = 3000
+    local = rng.integers(0, width, n).astype(np.int32)
     if width > 2:
         local[local == width - 2] = 0                  # an empty node
-    live = torch.from_numpy(rng.choice(
-        np.array([0.0, -1.0, 0.5, 1.0], np.float32), n))
-    keep = live != 0 if plane == "f32" else live > 0
-    want_order, want_offsets = _int64_sort_plan(local, width, keep)
-    order, offsets = H.node_order(local, width, keep)
-    assert H.node_key_dtype(width) == torch.uint8
-    assert torch.equal(order, want_order)
-    assert torch.equal(offsets, want_offsets)
-    got = H.tile_plan(local, width, keep, tile_rows)
-    counts = want_offsets[1:] - want_offsets[:-1]
-    assert torch.equal(got[0], want_order) and torch.equal(got[1], want_offsets)
-    assert torch.equal(got[2], torch.cumsum(-(-counts // tile_rows), 0))
-    assert got[3] == n // tile_rows + width
+    live = rng.choice(np.array([0.0, -1.0, 0.5, 1.0], np.float32), n)
+    keep = KEEP[plane](live)
+    order, offsets = _replay_partition(local, live, width, 64, plane)
+    want_order, want_offsets = _int64_sort_plan(
+        torch.from_numpy(local), width, torch.from_numpy(keep))
+    kept = int(want_offsets[width])
+    assert kept == int(keep.sum()) < n
+    np.testing.assert_array_equal(order, want_order.numpy()[:kept])
+    np.testing.assert_array_equal(offsets, want_offsets.numpy())
 
 
 @pytest.mark.parametrize("width", [1, 2, 3, 8, 16, 32, 100])
@@ -346,26 +423,6 @@ def test_counting_partition_equals_int64_sort(width, seg_rows):
     np.testing.assert_array_equal(offsets, want_offsets.numpy())
 
 
-@pytest.mark.parametrize("width", [255, 256, 40000])
-def test_node_key_widens_past_one_byte(width):
-    local = torch.arange(1000, dtype=torch.int64) % width
-    keep = torch.arange(1000) % 3 != 0
-    order, offsets = H.node_order(local, width, keep)
-    want_order, want_offsets = _int64_sort_plan(local, width, keep)
-    assert H.node_key_dtype(width).itemsize == (1 if width < 256 else
-                                                 2 if width < 2 ** 15 else 4)
-    assert torch.equal(order, want_order)
-    assert torch.equal(offsets, want_offsets)
-
-
-@pytest.mark.parametrize("f,b", [(1, 2), (28, 255), (75, 256), (76, 256),
-                                 (300, 64), (1000, 255)])
-def test_feature_slices_fit_shared_memory(f, b):
-    f_slice, num_slices = H.feature_slices(f, b)
-    assert f_slice * b * 3 * 4 <= H.SMEM_BYTES
-    assert f_slice * num_slices >= f > f_slice * (num_slices - 1)
-
-
 def test_rejects_inputs_the_kernel_does_not_take():
     binned, grad, hess, live, local = (torch.from_numpy(x) for x in
                                        _case(50, 3, 16, 2))
@@ -383,6 +440,24 @@ def test_rejects_inputs_the_kernel_does_not_take():
     for args in bad:
         with pytest.raises(ValueError):
             H.level_histogram(*args)
+
+
+@pytest.mark.parametrize("plane", ["f32", "quant"])
+@pytest.mark.parametrize("width,n", [(H.MAX_WIDTH + 1, 50), (2, 2 ** 31)])
+def test_both_planes_refuse_what_the_partition_cannot_hold(plane, width, n):
+    """On the card both kernels partition the rows with per-warp key
+    counters and int32 places: wider levels, or 2^31 rows, raise the same
+    error before anything is built or launched."""
+    binned, grad, hess, live, local = (torch.from_numpy(x) for x in
+                                       _case(50, 3, 16, 2))
+    if n > 50:                         # a view: no 2^31-row allocation
+        binned = binned[:1].expand(n, 3)
+    launch = H._launch if plane == "f32" else H._launch_quant
+    stats = (grad, hess) if plane == "f32" else \
+        (grad.to(torch.int16), hess.to(torch.int16), 1.0, 1.0)
+    with pytest.raises(ValueError, match="the level-histogram kernels take "
+                                         f"width <= {H.MAX_WIDTH}"):
+        launch(binned, *stats[:2], live, local, width, 3, 16, *stats[2:])
 
 
 # --- the fixed-point sums -----------------------------------------------------
@@ -547,6 +622,133 @@ def test_feature_slices_fit_int64_cells(f, b):
     if num_slices > 1:                      # the fewest slices that fit
         wider = -(-f // (num_slices - 1))
         assert wider > 32 or H.f32_smem_bytes(wider, b) > H.SMEM_BYTES
+    if f % 4 == 0:
+        assert f_slice % 4 == 0
+    if (f, b) == (28, 255):      # the bench shape: one slice
+        assert (f_slice, num_slices) == (28, 1)
+
+
+# --- the quantized kernel's walk ---------------------------------------------
+
+QBITS = {"q16": 16, "q8": 8}
+
+
+def _extreme_quant_case(n, f, b, width, quant, seed):
+    """int16/int8 stats over the whole range, the extremes -2^(bits-1)
+    and 2^(bits-1) - 1 included; live in {0, -1, 0.5, 1} (the quantized
+    plane sums live > 0 with weight 1)."""
+    rng = np.random.default_rng(seed)
+    dtype = np.int16 if quant == "q16" else np.int8
+    lo, hi = np.iinfo(dtype).min, np.iinfo(dtype).max
+    binned = rng.integers(0, b, size=(n, f)).astype(np.uint8)
+    gq = rng.integers(lo, hi + 1, size=n).astype(dtype)
+    hq = rng.integers(lo, hi + 1, size=n).astype(dtype)
+    gq[:4], hq[:4] = [lo, hi, lo, hi], [hi, lo, lo, hi]
+    live = rng.choice(np.array([0.0, -1.0, 0.5, 1.0], np.float32), n)
+    live[:4] = 1.0
+    local = rng.integers(0, width, size=n).astype(np.int32)
+    if width > 2:
+        local[local == 1] = 0                          # an empty node
+    return binned, gq, hq, live, local
+
+
+@pytest.mark.parametrize("quant", ["q16", "q8"])
+@pytest.mark.parametrize("n,f,b,width,chunk,grid,f_slice", [
+    (3000, 28, 255, 1, 256, 3, 28),   # the bench's slice at the root
+    (2000, 7, 32, 4, 64, 5, 4),       # two slices, runs across nodes
+    (999, 3, 64, 32, 16, 7, 1),       # three slices, many small nodes
+    (64, 5, 8, 16, 8, 40, 5),         # more CTAs than kept rows
+])
+def test_quant_cta_walk_is_bitwise(quant, n, f, b, width, chunk, grid,
+                                   f_slice):
+    """The replayed quantized walk (int32 cells, packed words, sign
+    extension, slices, runs, flushes) equals the plain version and the
+    JAX ``_level_histogram_quant`` bit for bit, with stats at +-qmax."""
+    binned, gq, hq, live, local = _extreme_quant_case(n, f, b, width, quant,
+                                                      seed=n + width)
+    gsi, hsi = 2.0 ** -13, 2.0 ** -9
+    got, seen, _, most = _replay_quant_kernel(
+        binned, gq, hq, live, local, width, f, b, gsi, hsi, chunk, grid,
+        f_slice, H.quant_window(QBITS[quant]))
+    for per_slice in seen:
+        np.testing.assert_array_equal(per_slice, (live > 0).astype(np.int64))
+    assert most < 2 ** 31
+    plain = H.level_histogram_quant(
+        *(torch.from_numpy(x) for x in (binned, gq, hq, live, local)),
+        width, f, b, gsi, hsi).numpy()
+    xla = np.asarray(jax_trainer._level_histogram_quant(
+        *(jnp.asarray(x) for x in (binned, gq, hq, live, local)), width, f,
+        b, jnp.float32(gsi), jnp.float32(hsi), formulation="per_feature"))
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(got, xla)
+
+
+@pytest.mark.parametrize("quant", ["q16", "q8"])
+def test_quant_window_holds_int32_cells(quant):
+    """W rows of the largest magnitude fit an int32 cell, W + 1 need not:
+    W * 2^(bits-1) < 2^31 <= (W + 1) * 2^(bits-1)."""
+    bits = QBITS[quant]
+    w = H.quant_window(bits)
+    assert w == {"q16": 65_535, "q8": 16_777_215}[quant]
+    assert w * 2 ** (bits - 1) < 2 ** 31 <= (w + 1) * 2 ** (bits - 1)
+    assert w >= H.QUANT_CHUNK_ROWS
+
+
+@pytest.mark.parametrize("quant", ["q16", "q8"])
+def test_quant_window_flushes_mid_node(quant):
+    """With a window of a few chunks a CTA flushes inside a node's run,
+    several times per node, and the sums keep the plain version's bits;
+    no cell ever held more than window rows' worth."""
+    n, f, b, width, chunk, grid = 2500, 3, 16, 2, 16, 2
+    binned, gq, hq, live, local = _extreme_quant_case(n, f, b, width, quant,
+                                                      seed=7)
+    window = 3 * chunk
+    got, _, flushes, most = _replay_quant_kernel(
+        binned, gq, hq, live, local, width, f, b, 1.0, 1.0, chunk, grid, f,
+        window)
+    kept = int((live > 0).sum())
+    assert flushes >= kept // window > grid + width
+    assert most <= window * 2 ** (QBITS[quant] - 1)
+    np.testing.assert_array_equal(got, H.level_histogram_quant(
+        *(torch.from_numpy(x) for x in (binned, gq, hq, live, local)),
+        width, f, b, 1.0, 1.0).numpy())
+
+
+def test_quant_window_stops_int32_wrap():
+    """70,000 rows of one node at +32767 in one CTA: the q16 window
+    flushes the int32 cells before they wrap, and the replay gives the
+    plain version's bits; without the window the cells wrap and the sums
+    are wrong."""
+    n, b = 70_000, 2
+    binned = np.zeros((n, 1), np.uint8)
+    top = np.full(n, 32767, np.int16)
+    live = np.ones(n, np.float32)
+    local = np.zeros(n, np.int32)
+    want = H.level_histogram_quant(
+        *(torch.from_numpy(x) for x in (binned, top, top, live, local)),
+        1, 1, b, 1.0, 1.0).numpy()
+    assert want[0, 0, 0, 0] == np.float32(32767 * n) and n > H.quant_window(16)
+    for window, exact in ((H.quant_window(16), True), (2 ** 62, False)):
+        got, _, flushes, most = _replay_quant_kernel(
+            binned, top, top, live, local, 1, 1, b, 1.0, 1.0,
+            H.QUANT_CHUNK_ROWS, 1, 1, window)
+        assert np.array_equal(got, want) is exact
+        assert (most < 2 ** 31) is exact
+        assert flushes == (2 if exact else 1)
+
+
+@pytest.mark.parametrize("f,b", [(1, 2), (28, 255), (33, 255), (75, 256),
+                                 (300, 64)])
+def test_quant_feature_slices_fit_shared_memory(f, b):
+    """``level_hist_quant.cu``'s slices: at most 32 features (a lane
+    each), the fewest slices, as even as possible, multiples of 4 where F
+    is, covering F; the CTA's int32 cells and staging ring fit its shared
+    memory."""
+    f_slice, num_slices = H.quant_feature_slices(f, b)
+    smem = H.quant_smem_bytes(f_slice, b)
+    assert 3 * b * 32 * 4 < smem <= H.SMEM_BYTES
+    assert f_slice <= 32 and num_slices == -(-f // 32)
+    assert f_slice * num_slices >= f > f_slice * (num_slices - 1)
     if f % 4 == 0:
         assert f_slice % 4 == 0
     if (f, b) == (28, 255):      # the bench shape: one slice

@@ -41,6 +41,7 @@ from mmlspark_tpu_torch.core import env
 from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
 from mmlspark_tpu_torch.models.gbdt import trainer
 from mmlspark_tpu_torch.ops.binning import BinMapper
+from tests.test_torch_gbdt_hist import _replay_quant_kernel
 
 ARRAYS = ("split_feature", "threshold_bin", "threshold_value", "node_value",
           "count", "tree_weights")
@@ -202,7 +203,9 @@ def test_quant_histogram_past_the_xla_chunk_matches_int64(quant):
 
 def test_quant_histogram_gates_on_live_above_zero():
     """Rows count where live > 0 and weigh 1 whatever live's value, as
-    in the XLA mirror (``trainer.py``: ``gate = live > 0``)."""
+    in the XLA mirror (``trainer.py``: ``gate = live > 0``): the plain
+    version, and the replayed card kernel, whose partition keeps live > 0
+    (``tests/test_torch_gbdt_hist.py``)."""
     n, f, b, width = 600, 3, 8, 2
     binned, gq, hq, _, local, gsi, hsi = _quant_case(n, f, b, width, "q16")
     live = np.random.default_rng(5).choice(
@@ -212,6 +215,11 @@ def test_quant_histogram_gates_on_live_above_zero():
         *(jnp.asarray(x) for x in (binned, gq, hq, live, local)), width, f,
         b, jnp.float32(gsi), jnp.float32(hsi), formulation="per_feature"))
     np.testing.assert_array_equal(_port_quant(case, width, f, b), xla)
+    walked, seen, _, _ = _replay_quant_kernel(
+        binned, gq, hq, live, local, width, f, b, gsi, hsi, 32, 3, f,
+        H.quant_window(16))
+    np.testing.assert_array_equal(seen[0], (live > 0).astype(np.int64))
+    np.testing.assert_array_equal(walked, xla)
 
 
 def test_empty_quant_histogram_is_zero():
@@ -237,15 +245,6 @@ def test_quant_wrapper_rejects_inputs_the_kernel_does_not_take():
     for args in bad:
         with pytest.raises(ValueError):
             H.level_histogram_quant(*args)
-
-
-@pytest.mark.parametrize("dtype,most", [(torch.int16, 2 ** 16),
-                                        (torch.int8, 2 ** 24)])
-def test_tile_rows_times_qmax_stays_below_int32(dtype, most):
-    H.check_tile_fits(H.TILE_ROWS, dtype)
-    H.check_tile_fits(most - 1, dtype)
-    with pytest.raises(ValueError, match="overflow"):
-        H.check_tile_fits(most, dtype)
 
 
 # --- subtraction ---------------------------------------------------------------

@@ -21,7 +21,8 @@ from mmlspark_tpu_torch.parallel.attention import fused_attention
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mmlspark_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_hist_ab.py",
-       ROOT / "tools" / "torch_flash_ab.py"]
+       ROOT / "tools" / "torch_flash_ab.py",
+       ROOT / "tools" / "torch_hist_quant_configs.py"]
 
 
 def _imported_modules(path):
@@ -48,7 +49,7 @@ def test_port_files_were_found():
     assert {"trainer.py", "hist_cuda.py", "bindings.py", "booster.py",
             "binning.py", "env.py", "chip_smoke.py", "flash.py",
             "attention.py", "mesh.py", "torch_hist_ab.py",
-            "torch_flash_ab.py"} <= names
+            "torch_flash_ab.py", "torch_hist_quant_configs.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
