@@ -39,7 +39,9 @@ sm_90a), then:
   7. quantized main path: the 20-tree bench fit under
      ``MMLSPARK_TORCH_HIST_QUANT=q16`` (then q8), with the kernels'
      launch counts over each fit, the training logloss per tree, host
-     syncs, two fits bitwise equal, and the fit rate; then the f32 and
+     syncs, two fits bitwise equal, and the fit rate (first, the
+     quantization exponent ``_pow2_scale`` on the card against the CPU,
+     bit for bit, and its host syncs); then the f32 and
      the q16 fit with ``MMLSPARK_TORCH_HIST_SUB=1``, and the kernels'
      device time per tree with subtraction off and on (torch.profiler);
   8. card vs CPU, quantized: the 100k-row 5-tree fit under q16 on
@@ -72,7 +74,22 @@ sm_90a), then:
      blockwise A/B), and the refusal of inputs that require grad;
  12. attention, distributed: a one-rank NCCL group runs
      ``ring_attention`` and ``ulysses_attention`` (which launches the
-     kernel through ``fused_attention``) against ``blockwise_attention``.
+     kernel through ``fused_attention``) against ``blockwise_attention``;
+ 13. estimator path (run after phase 8): ``LightGBMClassifier`` fit and
+     transform over a ``DataFrame`` of the 2M bench rows (20 trees,
+     num_leaves 63, max_depth 6) — the fit's wall and its split into
+     extraction, binning and ``train``, the launches of each histogram
+     kernel over the fit, the booster bit for bit equal to a direct
+     ``train`` on the same mapper; the transform's wall, its columns
+     bitwise equal to ``booster.predict`` and the numpy tail, to the
+     ``binnedScoring`` transform wherever each feature's float32 bin is its
+     bin (elsewhere raw scoring rounds the edge to float32, as in the JAX
+     package; the rows are counted), and to a saved and loaded model's; an
+     early-stopping fit (10% of the rows validate, 60 iterations,
+     learning rate 1.0): the trees kept, the stop rule replayed over the
+     evals, the host syncs against the same fit without early stopping;
+     two q16 fits (120 quantized launches, bitwise equal); and a card
+     vs CPU estimator fit on 100,000 rows.
 
 Each phase prints one JSON line. Any failure exits non-zero and prints
 no result. Without a CUDA card it exits 2 at once. The last lines are
@@ -433,6 +450,7 @@ def phase_main(ctx):
     quant_launches = H.hist_quant_kernel_launches
     ctx["launches"] = {"level_hist": launches}
     ctx["main_inputs"] = (binned, y, bin_upper, cfg)
+    ctx["main_fit_rate"] = N * TREES / fit_s / 1e6
     # the fixed-point histogram makes the float32 fit reproducible
     reproducible = boosters_equal(
         result.booster, train(binned, y, cfg, bin_upper=bin_upper).booster)
@@ -696,6 +714,33 @@ def phase_main_quant(ctx):
         return res, fit_s, (H.hist_kernel_launches,
                             H.hist_quant_kernel_launches), lls
 
+    # the quantization exponent: the same bits on the card as on the CPU
+    # over powers of two (and qmax times them), 3 ulps either side, and
+    # no host sync in a call once the threshold table is on the card
+    from mmlspark_tpu_torch.models.gbdt.trainer import _pow2_scale
+    base = np.float32(np.ldexp(1.0, np.arange(-120, 120)))
+    with np.errstate(over="ignore"):
+        grid = np.concatenate([base, base * 32000, base * 120])
+    grid = grid[np.isfinite(grid) & (grid > 0)]
+    steps = [grid]
+    for direction in (np.inf, 0):
+        g = grid
+        for _ in range(3):
+            g = np.nextafter(g, np.float32(direction))
+            steps.append(g)
+    grid = torch.from_numpy(np.unique(np.concatenate(steps)))
+    same = True
+    for qmax in (32000.0, 120.0):
+        card = [t.cpu() for t in _pow2_scale(grid.cuda(), qmax)]
+        host = _pow2_scale(grid, qmax)
+        same &= all(torch.equal(a, b) for a, b in zip(card, host))
+    one = grid[:1].cuda()
+    syncs = count_syncs(torch, lambda: _pow2_scale(one, 32000.0))
+    out["pow2_scale"] = {"grid_values": int(grid.numel()),
+                         "card_equals_cpu": same, "syncs_per_call": syncs}
+    if not same or syncs:
+        raise AssertionError(f"_pow2_scale on the card: {out['pow2_scale']}")
+
     ctx["launches"]["level_hist_quant"] = {}
     sub_off = {}
     for quant in QUANTS:
@@ -780,12 +825,220 @@ def phase_card_vs_cpu_quant(ctx):
     out = {"roots_equal": roots_equal, "trees_equal_in_every_array":
            trees_equal, "trees": a.num_trees, "logloss_cuda": ll["cuda"],
            "logloss_cpu": ll["cpu"], "rel_diff": rel, "tol": 1e-4,
-           "note": "histograms are exact integers on both devices; the "
-                   "objective, the scales' log and split finding may differ "
-                   "by an ulp between devices, so full equality is not "
-                   "required"}
+           "note": "histograms are exact integers on both devices and "
+                   "the scales the same bits; the objective and split "
+                   "finding may differ by an ulp between devices, so full "
+                   "equality is not required"}
     if not roots_equal or rel > 1e-4:
         raise AssertionError(f"card and CPU q16 fits disagree: {out}")
+    return out
+
+
+def replay_stop_rule(values, esr, higher_better):
+    """The early-stopping rule over one metric's per-iteration values,
+    written out here apart from the port's: (best iteration, iterations
+    run), the second None while the rule has not fired."""
+    best, best_j, since = None, -1, 0
+    for j, v in enumerate(values):
+        if best is None or (v > best if higher_better else v < best):
+            best, best_j, since = v, j, 0
+        else:
+            since += 1
+            if since >= esr:
+                return best_j, j + 1
+    return best_j, None
+
+
+def phase_estimator(ctx):
+    """The estimator layer at the bench shape: ``LightGBMClassifier``
+    fit and transform over a ``DataFrame`` of the 2M HIGGS-shaped rows,
+    held to a direct ``train`` on the same mapper, its transforms to
+    ``booster.predict`` and the numpy tail; early stopping, q16 and card
+    vs CPU."""
+    import tempfile
+
+    import torch
+
+    from mmlspark_tpu_torch import (BinMapper, DataFrame, LightGBMClassifier,
+                                    TrainConfig, train)
+    from mmlspark_tpu_torch.core.pipeline import PipelineStage
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+
+    x, y = make_data(N)
+    df = DataFrame({"features": x, "label": y})
+    params = dict(numIterations=TREES, numLeaves=63, maxDepth=6,
+                  minDataInLeaf=20, maxBin=255)
+    est = LightGBMClassifier(**params)
+    est.fit(DataFrame({"features": x[:10_000], "label": y[:10_000]}))
+    out = {"card": ctx["smi"]}
+
+    torch.cuda.synchronize()
+    H.hist_kernel_launches = H.hist_quant_kernel_launches = 0
+    t0 = time.perf_counter()
+    model = est.fit(df)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = (H.hist_kernel_launches, H.hist_quant_kernel_launches)
+    phases = model.get_all_instrumentation()
+    train_s = sum(phases.get(k, 0.0) for k in
+                  ("dataPreparation", "training", "validation"))
+    out.update({
+        "fit_s": fit_s, "extract_s": phases.get("extract"),
+        "binning_s": phases.get("binning"), "train_s": train_s,
+        "other_s": fit_s - phases.get("extract", 0.0)
+        - phases.get("binning", 0.0) - train_s,
+        "fit_mrow_trees_per_s": N * TREES / fit_s / 1e6,
+        "train_mrow_trees_per_s": N * TREES / train_s / 1e6,
+        "main_path_train_mrow_trees_per_s": ctx["main_fit_rate"],
+        "launches": launches[0], "quant_launches": launches[1]})
+    ctx["launches"]["estimator_path"] = launches[0]
+    expected = TREES * 6
+    if launches != (expected, 0):
+        raise AssertionError(f"the estimator fit launched level_hist and "
+                             f"level_hist_quant {launches} times, expected "
+                             f"({expected}, 0)")
+
+    # the same mapper and a direct train: the same booster bit for bit
+    x64 = x.astype(np.float64)
+    sample = x64 if N <= 200_000 else x64[np.random.default_rng(0).choice(
+        N, 200_000, replace=False)]
+    mapper = BinMapper.fit(sample, max_bin=255)
+    if any(not np.array_equal(a, b) for a, b in
+           zip(mapper.upper_edges, model.bin_mapper.upper_edges)):
+        raise AssertionError("the estimator's BinMapper is not the one "
+                             "fitted on its row sample")
+    cfg = TrainConfig(objective="binary", num_iterations=TREES,
+                      num_leaves=63, max_depth=6, min_data_in_leaf=20)
+    direct = train(mapper.transform(x64), y, cfg,
+                   bin_upper=mapper.bin_upper_values(255)).booster
+    del x64, sample
+    differing = arrays_differing(model.booster, direct)
+    out["arrays_differing_from_direct_train"] = differing
+    if differing:
+        raise AssertionError(f"the estimator's booster differs from a "
+                             f"direct train in {differing}")
+
+    # transform: raw scores on the card, then the numpy tail
+    frame = DataFrame({"features": x})
+    model.transform(DataFrame({"features": x[:1000]}))     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scored = model.transform(frame)
+    out["transform_s"] = time.perf_counter() - t0
+    out["transform_mrow_trees_per_s"] = N * TREES / out["transform_s"] / 1e6
+    raw = model.booster.predict(x).cpu().numpy()
+    prob = 1.0 / (1.0 + np.exp(-raw))
+    probs = np.stack([1 - prob, prob], axis=1)
+    pred = model.classes_[np.argmax(probs, axis=1)].astype(np.float64)
+    tail_bitwise = (np.array_equal(scored["probability"], probs)
+                    and np.array_equal(scored["prediction"], pred))
+    # binnedScoring routes as training did (float64 x <= edge, by bin
+    # ids); raw scoring compares float32(x) with float32(edge), as the
+    # JAX package's predict does, which is the same where each of a
+    # row's float32 bins (searchsorted on the float32 edges) is its bin:
+    # bitwise on those rows, and binned bitwise to predict_binned + tail
+    binned_scored = model.copy(binnedScoring=True).transform(frame)
+    bins = model.bin_mapper.transform(x)
+    bins32 = np.stack([np.searchsorted(e.astype(np.float32), x[:, f],
+                                       side="left") + 1
+                       for f, e in enumerate(model.bin_mapper.upper_edges)],
+                      axis=1)
+    ambiguous = (bins32 != bins).any(axis=1)
+    braw = model.booster.predict_binned(bins.astype(np.uint8)).cpu().numpy()
+    bprob = 1.0 / (1.0 + np.exp(-braw))
+    differ = np.zeros(N, bool)
+    for c in ("rawPrediction", "probability", "prediction"):
+        ne = binned_scored[c] != scored[c]
+        differ |= ne.any(axis=1) if ne.ndim == 2 else ne
+    binned_bitwise = (not (differ & ~ambiguous).any()
+                      and np.array_equal(binned_scored["probability"][:, 1],
+                                         bprob))
+    out["binned_vs_raw"] = {
+        "rows_with_a_float32_bin_change": int(ambiguous.sum()),
+        "rows_scored_differently": int(differ.sum())}
+    del bins, bins32
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(os.path.join(tmp, "model"))
+        loaded = PipelineStage.load(os.path.join(tmp, "model"))
+    reloaded = loaded.transform(frame)
+    load_bitwise = all(np.array_equal(reloaded[c], scored[c])
+                       for c in scored.columns)
+    out.update({"transform_is_predict_and_tail": tail_bitwise,
+                "binned_transform_bitwise_where_bins_agree": binned_bitwise,
+                "saved_and_loaded_transform_bitwise": load_bitwise,
+                "loaded_model_device": str(loaded._device)})
+    if not (tail_bitwise and binned_bitwise and load_bitwise):
+        raise AssertionError(f"transforms differ: {out}")
+    del scored, binned_scored, reloaded
+
+    # early stopping: 10% of the rows validate, learning rate 1.0
+    valid = np.random.default_rng(2).random(N) < 0.1
+    es_params = dict(params, numIterations=60, learningRate=1.0,
+                     validationIndicatorCol="valid")
+    vdf = df.with_column("valid", valid)
+    flat = count_syncs(torch, lambda: LightGBMClassifier(
+        **dict(es_params, numIterations=3)).fit(vdf))
+    es = LightGBMClassifier(**es_params, earlyStoppingRound=5)
+    es_model = None
+
+    def fit_es():
+        nonlocal es_model
+        es_model = es.fit(vdf)
+
+    es_syncs = count_syncs(torch, fit_es)
+    evals = es_model.evals_result
+    vals = [e["valid0_binary_logloss"] for e in evals]
+    replay_best, replay_stop = replay_stop_rule(vals, 5, False)
+    best = es_model.best_iteration
+    turned = replay_stop is not None
+    # trees are cut after the best iteration whether or not the rule fired
+    kept_ok = es_model.booster.num_trees == best + 1
+    out["early_stopping"] = {
+        "best_iteration": best, "replayed_best_iteration": replay_best,
+        "iterations_run": len(evals), "trees_kept": es_model.booster.num_trees,
+        "metric_turned": turned,
+        "note": None if turned else "the validation logloss never turned "
+                                    "at this shape; the replay still holds",
+        "syncs": es_syncs, "syncs_without_early_stopping": flat,
+        "sync_limit": flat + -(-60 // 8),  # one sync per block of 8
+        "valid_logloss_first": vals[0], "valid_logloss_best": vals[best]}
+    limit = flat + -(-60 // 8)
+    if (replay_best != best or not kept_ok or es_syncs > limit
+            or len(evals) != (replay_stop if turned else 60)):
+        raise AssertionError(f"early stopping: {out['early_stopping']}")
+    del es_model, vdf
+
+    # q16: the quantized kernel on every level, two fits bitwise equal
+    with knobs("q16", "0"):
+        H.hist_kernel_launches = H.hist_quant_kernel_launches = 0
+        q1 = est.fit(df)
+        q_launches = (H.hist_kernel_launches, H.hist_quant_kernel_launches)
+        q2 = est.fit(df)
+    q_bitwise = boosters_equal(q1.booster, q2.booster)
+    out["q16"] = {"launches": q_launches[1], "f32_launches": q_launches[0],
+                  "two_fits_bitwise": q_bitwise}
+    ctx["launches"]["estimator_path_q16"] = q_launches[1]
+    if q_launches != (0, expected) or not q_bitwise:
+        raise AssertionError(f"q16 estimator fits: {out['q16']}")
+
+    # card vs CPU on a 100,000-row slice, 5 trees
+    small = DataFrame({"features": x[:100_000], "label": y[:100_000]})
+    small_params = dict(params, numIterations=5)
+    res = {dev: LightGBMClassifier(**small_params).set_device(dev).fit(small)
+           for dev in ("cuda", "cpu")}
+    a, b = res["cuda"].booster, res["cpu"].booster
+    roots_equal = (np.array_equal(a.split_feature[:, 0], b.split_feature[:, 0])
+                   and np.array_equal(a.threshold_bin[:, 0],
+                                      b.threshold_bin[:, 0]))
+    ll = {dev: m.evals_result[-1]["train_binary_logloss"]
+          for dev, m in res.items()}
+    rel = abs(ll["cuda"] - ll["cpu"]) / abs(ll["cpu"])
+    out["card_vs_cpu"] = {"roots_equal": roots_equal, "logloss_cuda":
+                          ll["cuda"], "logloss_cpu": ll["cpu"],
+                          "rel_diff": rel, "tol": 1e-4}
+    if not roots_equal or rel > 1e-4:
+        raise AssertionError(f"card and CPU estimator fits disagree: "
+                             f"{out['card_vs_cpu']}")
     return out
 
 
@@ -1295,6 +1548,11 @@ def kernel_table(ctx):
             "mmlspark_tpu/models/gbdt/hist_pallas.py:204",
             ctx["launches"]["level_hist_quant"][quant],
             ctx["quant_rows"][quant]))
+    # launches over the estimator path's 20-tree fits (phase
+    # estimator_path; its q16 fit for the quantized kernel)
+    kernels[0]["launches_estimator_path"] = ctx["launches"]["estimator_path"]
+    kernels[1]["launches_estimator_path"] = \
+        ctx["launches"]["estimator_path_q16"]
     flash = ctx["flash_rows"]
     # flash_attn.cu takes float32 only: every bfloat16 call runs
     # flash_attn_sm90.cu, in place or staged
@@ -1342,6 +1600,7 @@ def main() -> int:
                      ("kernel_quant", phase_kernel_quant),
                      ("main_path_quant", phase_main_quant),
                      ("card_vs_cpu_quant", phase_card_vs_cpu_quant),
+                     ("estimator_path", phase_estimator),
                      ("kernel_flash", phase_kernel_flash),
                      ("sdpa_backends", phase_sdpa_backends),
                      ("attention_path", phase_attention_path),

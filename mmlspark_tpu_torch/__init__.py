@@ -5,9 +5,12 @@ A second package beside the JAX one, grown slice by slice. It imports
 (host code it needs is kept as its own copy). Layout mirrors the JAX
 package so each counterpart is easy to find:
 
+  - ``core``                      DataFrame, Params, Pipeline, save / load
   - ``ops.binning``               BinMapper (numeric quantile binning)
   - ``models.gbdt.trainer``       TrainConfig / train (depthwise GBDT)
   - ``models.gbdt.booster``       BoosterArrays scoring
+  - ``models.gbdt.estimators``    LightGBMClassifier / LightGBMRegressor
+                                  (fit / transform over ``DataFrame``)
   - ``models.gbdt.hist_cuda``     the level-histogram kernels' wrappers
   - ``parallel.attention``        dense / blockwise / fused attention, ring
                                   and Ulysses over ``torch.distributed``
@@ -16,12 +19,24 @@ package so each counterpart is easy to find:
   - ``native.bindings``           builds ``csrc/*.cu`` with nvcc, loads them
 
 Public entry points run on the CUDA card unless the caller passes
-``device="cpu"``; without a card they raise rather than fall back.
+``device="cpu"`` (stages: ``set_device("cpu")``); without a card they
+raise rather than fall back.
 """
 
 __version__ = "0.1.0"
 
+from mmlspark_tpu_torch.core.dataframe import DataFrame  # noqa: F401
+from mmlspark_tpu_torch.core.pipeline import (  # noqa: F401
+    Pipeline,
+    PipelineModel,
+)
 from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays  # noqa: F401
+from mmlspark_tpu_torch.models.gbdt.estimators import (  # noqa: F401
+    LightGBMClassificationModel,
+    LightGBMClassifier,
+    LightGBMRegressionModel,
+    LightGBMRegressor,
+)
 from mmlspark_tpu_torch.models.gbdt.trainer import (  # noqa: F401
     TrainConfig,
     train,

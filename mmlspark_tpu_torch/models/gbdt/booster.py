@@ -10,12 +10,18 @@ This slice scores numeric boosters trained without ``decision_type``
 bits (NaN routes left, as the missing bin 0 does in training).
 Categorical / zero-as-missing routing, leaf indices and contributions
 are later work (ROADMAP A5).
+
+Also carries the host-side model methods of the JAX package's booster:
+feature importances, LightGBM's native model-string format (written and
+read exactly as the JAX package does, so strings cross between the
+packages), iteration slices, warm-start concatenation and the state
+dict a saved model persists.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -52,10 +58,14 @@ class BoosterArrays:
     def num_trees(self) -> int:
         return self.split_feature.shape[0]
 
-    def _require_numeric(self):
+    @property
+    def num_nodes(self) -> int:
+        return self.split_feature.shape[1]
+
+    def _require_numeric(self, what: str = "scoring"):
         if self.decision_type is not None or self.cat_bitset is not None:
             raise NotImplementedError(
-                "scoring boosters with decision_type bits (categorical or "
+                f"{what} boosters with decision_type bits (categorical or "
                 "zero-as-missing splits) is not in the port yet (ROADMAP A5)")
 
     def _score(self, x: torch.Tensor, tv, go_left) -> torch.Tensor:
@@ -110,3 +120,349 @@ class BoosterArrays:
                              device=dev)
         return self._score(xd, tv,
                            lambda fx, thr: torch.isnan(fx) | (fx <= thr))
+
+    # -- importances --------------------------------------------------------
+    def feature_importances(self, importance_type: str = "split") -> np.ndarray:
+        """'split' = #splits per feature; 'gain' approximated by squared
+        value-delta weighted by node count (getFeatureImportances analog,
+        LightGBMModelMethods.scala:13)."""
+        out = np.zeros(self.num_features, dtype=np.float64)
+        sf = self.split_feature
+        internal = sf >= 0
+        if importance_type == "split":
+            np.add.at(out, sf[internal], 1.0)
+            return out
+        for t in range(self.num_trees):
+            for m in np.nonzero(internal[t])[0]:
+                left, right = 2 * m + 1, 2 * m + 2
+                if right >= self.num_nodes:
+                    continue
+                # variance-reduction proxy for split gain
+                gain = (self.count[t, left] * self.node_value[t, left] ** 2
+                        + self.count[t, right] * self.node_value[t, right] ** 2
+                        - self.count[t, m] * self.node_value[t, m] ** 2)
+                out[sf[t, m]] += max(gain, 0.0)
+        return out
+
+    # -- LightGBM model-string interop --------------------------------------
+    def save_model_string(self) -> str:
+        """Serialize to LightGBM native text format (compacting the full
+        binary layout into LightGBM's explicit child-pointer arrays), line
+        for line as the JAX package writes it."""
+        self._require_numeric("writing model strings of")
+        lines = [
+            "tree",
+            "version=v4",
+            f"num_class={self.num_class}",
+            f"num_tree_per_iteration={self.num_class}",
+            "label_index=0",
+            f"max_feature_idx={self.num_features - 1}",
+            f"objective={self.objective}",
+            "feature_names=" + " ".join(
+                self.feature_names or
+                [f"Column_{i}" for i in range(self.num_features)]),
+            "feature_infos=" + " ".join("none" for _ in range(self.num_features)),
+            "",
+        ]
+        for t in range(self.num_trees):
+            lines.extend(self._tree_to_text(t))
+            lines.append("")
+        lines.append("end of trees")
+        lines.append("")
+        # non-standard but harmless trailer keys for lossless reload
+        lines.append(f"init_score={self.init_score!r}")
+        lines.append(f"max_depth_layout={self.max_depth}")
+        lines.append("tree_weights=" + " ".join(repr(float(w)) for w in self.tree_weights))
+        return "\n".join(lines)
+
+    def _tree_to_text(self, t: int) -> List[str]:
+        sf, tv, nv, cnt = (self.split_feature[t], self.threshold_value[t],
+                           self.node_value[t], self.count[t])
+        # map full-layout slots to LightGBM internal/leaf numbering (BFS)
+        internal_ids: Dict[int, int] = {}
+        leaf_ids: Dict[int, int] = {}
+        order: List[int] = []
+        stack = [0]
+        while stack:
+            m = stack.pop(0)
+            if sf[m] >= 0:
+                internal_ids[m] = len(internal_ids)
+                order.append(m)
+                stack.extend([2 * m + 1, 2 * m + 2])
+            else:
+                leaf_ids[m] = len(leaf_ids)
+        n_int = len(internal_ids)
+
+        def child_code(m: int) -> int:
+            return internal_ids[m] if sf[m] >= 0 else ~leaf_ids[m]
+
+        split_feature, threshold, left, right = [], [], [], []
+        internal_value, internal_count = [], []
+        for m in order:
+            split_feature.append(int(sf[m]))
+            threshold.append(float(tv[m]))
+            left.append(child_code(2 * m + 1))
+            right.append(child_code(2 * m + 2))
+            internal_value.append(float(nv[m]))
+            internal_count.append(int(cnt[m]))
+        leaves = sorted(leaf_ids, key=lambda m: leaf_ids[m])
+        leaf_value = [float(nv[m] * self.tree_weights[t]) for m in leaves]
+        leaf_count = [int(cnt[m]) for m in leaves]
+        return [
+            f"Tree={t}",
+            f"num_leaves={max(len(leaves), 1)}",
+            "num_cat=0",
+            "split_feature=" + " ".join(map(str, split_feature)),
+            "split_gain=" + " ".join("0" for _ in range(n_int)),
+            "threshold=" + " ".join(repr(v) for v in threshold),
+            # default-left with NaN missing: training routes the missing
+            # bin left
+            "decision_type=" + " ".join(str(_NAN_LEFT) for _ in range(n_int)),
+            "left_child=" + " ".join(map(str, left)),
+            "right_child=" + " ".join(map(str, right)),
+            "leaf_value=" + " ".join(repr(v) for v in leaf_value),
+            "leaf_weight=" + " ".join("0" for _ in range(len(leaves))),
+            "leaf_count=" + " ".join(map(str, leaf_count)),
+            "internal_value=" + " ".join(repr(v) for v in internal_value),
+            "internal_weight=" + " ".join("0" for _ in range(n_int)),
+            "internal_count=" + " ".join(map(str, internal_count)),
+            "is_linear=0",
+            "shrinkage=1",
+        ]
+
+    @staticmethod
+    def load_model_string(text: str) -> "BoosterArrays":
+        """Parse LightGBM native text into the full layout, as the JAX
+        package does. Numeric trees only: a split whose decision bits are
+        not default-left with NaN missing (``decision_type=10``, the
+        routing ``predict`` implements), and any categorical split, raise
+        ``NotImplementedError`` (ROADMAP A5)."""
+        header: Dict[str, str] = {}
+        tree_blocks: List[Dict[str, str]] = []
+        current: Optional[Dict[str, str]] = None
+        for line in text.splitlines():
+            line = line.strip()
+            if not line or line == "tree":
+                continue
+            if line == "end of trees":
+                current = None  # trailer keys belong to the header
+                continue
+            if line.startswith("Tree="):
+                current = {}
+                tree_blocks.append(current)
+                continue
+            if "=" in line:
+                k, v = line.split("=", 1)
+                (current if current is not None else header)[k] = v
+        num_features = int(header["max_feature_idx"]) + 1
+        num_class = int(header.get("num_class", "1"))
+
+        # depth needed for the full layout
+        def tree_depth(blk: Dict[str, str]) -> int:
+            if "left_child" not in blk or not blk["left_child"].strip():
+                return 1
+            left = list(map(int, blk["left_child"].split()))
+            right = list(map(int, blk["right_child"].split()))
+
+            def rec(code: int) -> int:
+                if code < 0:
+                    return 0
+                return 1 + max(rec(left[code]), rec(right[code]))
+
+            return max(rec(0), 1)
+
+        depth = max((tree_depth(b) for b in tree_blocks), default=1)
+        if "max_depth_layout" in header:
+            depth = max(depth, int(header["max_depth_layout"]))
+        m_slots = 2 ** (depth + 1) - 1
+        n_trees = len(tree_blocks)
+        sf = np.full((n_trees, m_slots), -1, dtype=np.int32)
+        # model strings carry raw-value thresholds only: stamp the bin
+        # thresholds invalid so predict_binned refuses
+        tb = np.full((n_trees, m_slots), -1, dtype=np.int32)
+        tv = np.full((n_trees, m_slots), np.inf, dtype=np.float64)
+        nv = np.zeros((n_trees, m_slots), dtype=np.float32)
+        cnt = np.zeros((n_trees, m_slots), dtype=np.float32)
+        weights = np.ones(n_trees, dtype=np.float32)
+        if "tree_weights" in header:
+            weights = np.asarray(list(map(float, header["tree_weights"].split())),
+                                 dtype=np.float32)
+        for t, blk in enumerate(tree_blocks):
+            n_leaves = int(blk.get("num_leaves", "1"))
+            leaf_value = list(map(float, blk["leaf_value"].split()))
+            leaf_count = list(map(float, blk.get(
+                "leaf_count", " ".join("0" * 1 for _ in range(n_leaves))).split())) \
+                if blk.get("leaf_count") else [0.0] * n_leaves
+            if n_leaves == 1 or "split_feature" not in blk or not blk["split_feature"].strip():
+                nv[t, 0] = leaf_value[0] / max(weights[t], 1e-30)
+                cnt[t, 0] = leaf_count[0] if leaf_count else 0
+                continue
+            split_feature = list(map(int, blk["split_feature"].split()))
+            threshold = list(map(float, blk["threshold"].split()))
+            left = list(map(int, blk["left_child"].split()))
+            right = list(map(int, blk["right_child"].split()))
+            internal_value = list(map(float, blk["internal_value"].split()))
+            internal_count = list(map(float, blk["internal_count"].split()))
+            decision = (list(map(int, blk["decision_type"].split()))
+                        if blk.get("decision_type") else [2] * len(split_feature))
+            if int(blk.get("num_cat", "0")) > 0 or any(
+                    d != _NAN_LEFT for d in decision):
+                raise NotImplementedError(
+                    f"tree {t} of this model string has categorical splits "
+                    f"or decision_type bits other than {_NAN_LEFT} "
+                    "(default-left, NaN missing); routing them is not in the "
+                    "port yet (ROADMAP A5)")
+
+            def place(code: int, slot: int, t=t, split_feature=split_feature,
+                      threshold=threshold, left=left, right=right,
+                      internal_value=internal_value,
+                      internal_count=internal_count,
+                      leaf_value=leaf_value, leaf_count=leaf_count):
+                if code < 0:
+                    leaf = ~code
+                    nv[t, slot] = leaf_value[leaf] / max(weights[t], 1e-30)
+                    cnt[t, slot] = leaf_count[leaf] if leaf < len(leaf_count) else 0
+                    return
+                sf[t, slot] = split_feature[code]
+                tv[t, slot] = threshold[code]
+                nv[t, slot] = internal_value[code]
+                cnt[t, slot] = internal_count[code]
+                place(left[code], 2 * slot + 1)
+                place(right[code], 2 * slot + 2)
+
+            place(0, 0)
+        return BoosterArrays(
+            split_feature=sf, threshold_bin=tb, threshold_value=tv,
+            node_value=nv, count=cnt, tree_weights=weights,
+            max_depth=depth, num_features=num_features, num_class=num_class,
+            objective=header.get("objective", "regression"),
+            init_score=float(header.get("init_score", "0.0")),
+            feature_names=header.get("feature_names", "").split() or None,
+        )
+
+    def slice_iterations(self, start_iteration: int = 0,
+                         num_iteration: int = -1) -> "BoosterArrays":
+        """Sub-ensemble over boosting iterations [start, start+num)
+        (LightGBM predict's start_iteration/num_iteration; trees are
+        interleaved per class, so iteration i owns trees
+        [i*K, (i+1)*K)). ``init_score`` stays included — it is a
+        separate additive constant here, not part of any iteration.
+        ``num_iteration <= 0`` means to the end (LightGBM predict semantics)."""
+        k = max(self.num_class, 1)
+        total = self.num_trees // k
+        if not 0 <= start_iteration <= total:
+            raise ValueError(
+                f"start_iteration {start_iteration} outside [0, {total}]")
+        stop = (total if num_iteration <= 0
+                else min(total, start_iteration + num_iteration))
+        sl = slice(start_iteration * k, stop * k)
+        return BoosterArrays(
+            split_feature=self.split_feature[sl],
+            threshold_bin=self.threshold_bin[sl],
+            threshold_value=self.threshold_value[sl],
+            node_value=self.node_value[sl],
+            count=self.count[sl],
+            tree_weights=self.tree_weights[sl],
+            max_depth=self.max_depth,
+            num_features=self.num_features,
+            num_class=self.num_class,
+            objective=self.objective,
+            init_score=self.init_score,
+            feature_names=self.feature_names,
+            decision_type=(None if self.decision_type is None
+                           else self.decision_type[sl]),
+            cat_bitset=(None if self.cat_bitset is None
+                        else self.cat_bitset[sl]),
+        )
+
+    @staticmethod
+    def concat(a: "BoosterArrays", b: "BoosterArrays") -> "BoosterArrays":
+        """Concatenate ensembles (warm-start continuation): pad both to
+        the deeper full-tree layout, keep ``a``'s base/init metadata."""
+        a._require_numeric("concatenating")
+        b._require_numeric("concatenating")
+        if a.num_class != b.num_class:
+            raise ValueError("cannot concat boosters with different num_class")
+        if a.num_features != b.num_features:
+            raise ValueError("cannot concat boosters with different feature counts")
+        depth = max(a.max_depth, b.max_depth)
+        slots = 2 ** (depth + 1) - 1
+
+        def pad(x: np.ndarray, fill) -> np.ndarray:
+            if x.shape[1] == slots:
+                return x
+            out = np.full((x.shape[0], slots), fill, dtype=x.dtype)
+            out[:, :x.shape[1]] = x
+            return out
+
+        return BoosterArrays(
+            split_feature=np.concatenate([pad(a.split_feature, -1),
+                                          pad(b.split_feature, -1)]),
+            threshold_bin=np.concatenate([pad(a.threshold_bin, 0),
+                                          pad(b.threshold_bin, 0)]),
+            threshold_value=np.concatenate([pad(a.threshold_value, np.inf),
+                                            pad(b.threshold_value, np.inf)]),
+            node_value=np.concatenate([pad(a.node_value, 0.0),
+                                       pad(b.node_value, 0.0)]),
+            count=np.concatenate([pad(a.count, 0.0), pad(b.count, 0.0)]),
+            tree_weights=np.concatenate([a.tree_weights, b.tree_weights]),
+            max_depth=depth,
+            num_features=a.num_features,
+            num_class=a.num_class,
+            objective=b.objective,
+            init_score=a.init_score,
+            feature_names=a.feature_names or b.feature_names,
+        )
+
+    # -- generic state dict (for Model persistence) -------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        """The JAX package's ``state_dict`` layout."""
+        return {
+            "split_feature": self.split_feature,
+            "threshold_bin": self.threshold_bin,
+            "threshold_value": self.threshold_value,
+            "node_value": self.node_value,
+            "node_count": self.count,
+            "tree_weights": self.tree_weights,
+            "booster_meta": {
+                "max_depth": self.max_depth,
+                "num_features": self.num_features,
+                "num_class": self.num_class,
+                "objective": self.objective,
+                "init_score": self.init_score,
+                "feature_names": self.feature_names,
+            },
+            **({"decision_type": self.decision_type,
+                "cat_bitset": self.cat_bitset}
+               if self.decision_type is not None else {}),
+        }
+
+    @staticmethod
+    def from_state_dict(state: Dict[str, Any]) -> "BoosterArrays":
+        """The inverse of ``state_dict``: also reads the state of a JAX
+        ``BoosterArrays`` (arrays as numpy), cast to this layout's
+        dtypes."""
+        meta = state["booster_meta"]
+        return BoosterArrays(
+            split_feature=np.asarray(state["split_feature"], np.int32),
+            threshold_bin=np.asarray(state["threshold_bin"], np.int32),
+            threshold_value=np.asarray(state["threshold_value"], np.float64),
+            node_value=np.asarray(state["node_value"], np.float32),
+            count=np.asarray(state["node_count"], np.float32),
+            tree_weights=np.asarray(state["tree_weights"], np.float32),
+            max_depth=int(meta["max_depth"]),
+            num_features=int(meta["num_features"]),
+            num_class=int(meta["num_class"]),
+            objective=meta["objective"],
+            init_score=float(meta["init_score"]),
+            feature_names=meta.get("feature_names"),
+            decision_type=(None if state.get("decision_type") is None
+                           else np.asarray(state["decision_type"], np.int8)),
+            cat_bitset=(None if state.get("cat_bitset") is None
+                        else np.asarray(state["cat_bitset"], np.uint32)),
+        )
+
+
+# LightGBM decision_type of a numeric split that sends NaN left and
+# compares everything else (default-left bit 2 | missing type NaN 8)
+_NAN_LEFT = 10

@@ -1,14 +1,14 @@
-"""Weight carry-over from the JAX package: a booster fitted there,
-passed as the arrays of its ``BoosterArrays.state_dict()``, becomes the
-port's ``BoosterArrays``. Only numpy arrays and plain values cross;
-nothing of JAX is imported."""
+"""Weight carry-over from the JAX package: a booster fitted there (the
+arrays of its ``BoosterArrays.state_dict()``) becomes the port's
+``BoosterArrays``, and a fitted estimator model (its ``_get_state()``
+and its param map) becomes the port's model. Only numpy arrays and
+plain values cross; nothing of JAX is imported."""
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
-import numpy as np
-
+from mmlspark_tpu_torch.models.gbdt import estimators
 from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays
 
 
@@ -17,23 +17,18 @@ def booster_from_jax_state(state: Dict[str, Any]) -> BoosterArrays:
     as numpy). The returned booster keeps host arrays; its ``predict`` /
     ``predict_binned`` take the device to score on (the card unless
     ``device="cpu"``)."""
-    meta = state["booster_meta"]
-    return BoosterArrays(
-        split_feature=np.asarray(state["split_feature"], dtype=np.int32),
-        threshold_bin=np.asarray(state["threshold_bin"], dtype=np.int32),
-        threshold_value=np.asarray(state["threshold_value"],
-                                   dtype=np.float64),
-        node_value=np.asarray(state["node_value"], dtype=np.float32),
-        count=np.asarray(state["node_count"], dtype=np.float32),
-        tree_weights=np.asarray(state["tree_weights"], dtype=np.float32),
-        max_depth=int(meta["max_depth"]),
-        num_features=int(meta["num_features"]),
-        num_class=int(meta["num_class"]),
-        objective=meta["objective"],
-        init_score=float(meta["init_score"]),
-        feature_names=meta.get("feature_names"),
-        decision_type=(None if state.get("decision_type") is None
-                       else np.asarray(state["decision_type"], np.int8)),
-        cat_bitset=(None if state.get("cat_bitset") is None
-                    else np.asarray(state["cat_bitset"], np.uint32)),
-    )
+    return BoosterArrays.from_state_dict(state)
+
+
+def model_from_jax(class_name: str, state: Dict[str, Any],
+                   params: Dict[str, Any]):
+    """A fitted JAX estimator model as the port's model of the same class
+    (``"LightGBMClassificationModel"`` or ``"LightGBMRegressionModel"``):
+    ``state`` is its ``_get_state()`` with arrays as numpy (booster,
+    training ``BinMapper``, best iteration, classes), ``params`` its
+    simple param map (``simple_param_values()``). The model runs on the
+    card unless ``set_device("cpu")`` is called."""
+    cls = getattr(estimators, class_name)
+    model = cls(**{k: v for k, v in params.items() if cls.has_param(k)})
+    model._set_state(state)
+    return model

@@ -1,0 +1,847 @@
+"""LightGBM-parity estimators on PyTorch — the port of the JAX package's
+``models/gbdt/estimators.py`` for binary classification and L2
+regression.
+
+    LightGBMClassifier(numIterations=..., ...).fit(DataFrame(
+        {"features": X, "label": y})).transform(frame)
+
+``fit`` bins on the host (``BinMapper`` on a row sample), moves the
+binned rows to the card once and trains there (``trainer.train``: the
+level-histogram kernels, validation sets, early stopping, warm starts);
+``transform`` scores on the card (``BoosterArrays.predict``, or
+``predict_binned`` under ``binnedScoring``) and derives the reply
+columns with the JAX package's numpy tail. Stages run on the card
+unless ``set_device("cpu")`` is called; a fitted model inherits the
+setting, a loaded one takes the card. Without a card the default
+raises: nothing falls back to the CPU.
+
+The param surface is the JAX package's (the same names, defaults and
+validation); settings outside this slice raise ``NotImplementedError``
+naming the ROADMAP item that adds them: custom objectives and
+checkpoints (A6c), the binned serving plane (A6b), leaf indices and
+SHAP columns (A5), objectives other than binary and L2 (A3),
+multiclass, ranking, categorical splits, zero-as-missing, sampling and
+boosting types (A7), meshes and the voting / feature-parallel learners
+(A8).
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from mmlspark_tpu_torch.core.dataframe import DataFrame
+from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
+from mmlspark_tpu_torch.core.param import (
+    HasFeaturesCol,
+    HasLabelCol,
+    HasPredictionCol,
+    HasWeightCol,
+    Param,
+    ge,
+    gt,
+    in_range,
+    one_of,
+    to_bool,
+    to_float,
+    to_int,
+    to_list,
+    to_str,
+)
+from mmlspark_tpu_torch.core.pipeline import Estimator, Model
+from mmlspark_tpu_torch.core.timer import InstrumentationMeasures
+from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays
+from mmlspark_tpu_torch.models.gbdt.trainer import (TrainConfig,
+                                                    check_supported, train,
+                                                    warm_start_scores)
+from mmlspark_tpu_torch.ops.binning import BinMapper
+from mmlspark_tpu_torch.ops.ingest import binned_ingest_dtype
+
+_A6C = "A6c (estimators: custom objectives and checkpoints)"
+_A8 = "A8 (multi-device GBDT)"
+# rows scored per call of the booster in transform (rows are
+# independent); bounds the device copy of the features
+_SCORE_BATCH_ROWS = 1 << 21
+
+
+def _later(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not in the port yet "
+                               f"(ROADMAP {item})")
+
+
+def _apply_pass_through(cfg: TrainConfig, args: Optional[str]) -> TrainConfig:
+    """Apply LightGBM-style ``key=value`` overrides onto the config
+    (the reference's passThroughArgs escape hatch, LightGBMParams
+    OtherParams group). Keys are TrainConfig field names, which match
+    LightGBM's snake_case option names; unknown keys raise rather than
+    silently vanish."""
+    if not args:
+        return cfg
+    import dataclasses
+    fields = {f.name: f for f in dataclasses.fields(TrainConfig)}
+    updates: Dict[str, Any] = {}
+    for tok in args.split():
+        if "=" not in tok:
+            raise ValueError(f"passThroughArgs entry {tok!r} is not "
+                             "key=value")
+        key, val = tok.split("=", 1)
+        if key not in fields:
+            raise ValueError(
+                f"passThroughArgs: {key!r} is not a training option "
+                "this engine knows (see PARAMS.md for the parity table)")
+        updates[key] = _parse_arg_value(val)
+    return replace(cfg, **updates)
+
+
+def _parse_arg_value(val: str) -> Any:
+    """LightGBM-style literal: bool / int / float / comma list / str.
+    Value-driven (not keyed off the field's current value, which may be
+    None or a differently-typed default)."""
+    def scalar(v):
+        low = v.strip().lower()
+        if low in ("true", "+"):
+            return True
+        if low in ("false", "-"):
+            return False
+        for cast in (int, float):
+            try:
+                return cast(v)
+            except ValueError:
+                pass
+        return v
+    if "," in val:
+        return tuple(scalar(v) for v in val.split(",") if v != "")
+    return scalar(val)
+
+
+class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCol):
+    """Shared param block (params/LightGBMParams.scala:1 surface)."""
+
+    numIterations = Param("numIterations", "number of boosting iterations",
+                          to_int, ge(1), default=100)
+    learningRate = Param("learningRate", "shrinkage rate", to_float, gt(0),
+                         default=0.1)
+    numLeaves = Param("numLeaves", "max leaves per tree", to_int, ge(2),
+                      default=31)
+    maxDepth = Param("maxDepth", "max tree depth (<=0 means from numLeaves)",
+                     to_int, default=-1)
+    maxBin = Param("maxBin", "max feature bins", to_int, ge(4), default=255)
+    lambdaL1 = Param("lambdaL1", "L1 regularization", to_float, ge(0), default=0.0)
+    lambdaL2 = Param("lambdaL2", "L2 regularization", to_float, ge(0), default=0.0)
+    minDataInLeaf = Param("minDataInLeaf", "min rows per leaf", to_int, ge(0),
+                          default=20)
+    minSumHessianInLeaf = Param("minSumHessianInLeaf", "min hessian per leaf",
+                                to_float, ge(0), default=1e-3)
+    minGainToSplit = Param("minGainToSplit", "min split gain", to_float, ge(0),
+                           default=0.0)
+    featureFraction = Param("featureFraction", "feature subsample per tree",
+                            to_float, in_range(0, 1, lo_inclusive=False), default=1.0)
+    baggingFraction = Param("baggingFraction", "row subsample", to_float,
+                            in_range(0, 1, lo_inclusive=False), default=1.0)
+    baggingFreq = Param("baggingFreq", "re-bag every k iterations", to_int,
+                        ge(0), default=0)
+    baggingSeed = Param("baggingSeed", "bagging seed", to_int, default=3)
+    featureFractionSeed = Param("featureFractionSeed",
+                                "feature-subsampling seed", to_int,
+                                default=2)
+    extraSeed = Param("extraSeed", "extra_trees threshold seed", to_int,
+                      default=6)
+    posBaggingFraction = Param("posBaggingFraction", "bagging rate for "
+                               "positive binary rows", to_float,
+                               in_range(0, 1, lo_inclusive=False), default=1.0)
+    negBaggingFraction = Param("negBaggingFraction", "bagging rate for "
+                               "negative binary rows", to_float,
+                               in_range(0, 1, lo_inclusive=False), default=1.0)
+    pathSmooth = Param("pathSmooth", "smooth child outputs toward the "
+                       "parent by n/(n+pathSmooth)", to_float, ge(0),
+                       default=0.0)
+    maxDeltaStep = Param("maxDeltaStep", "clamp |leaf output| (0 = off)",
+                         to_float, ge(0), default=0.0)
+    extraTrees = Param("extraTrees", "evaluate one random threshold per "
+                       "node/feature (extremely randomized trees)",
+                       to_bool, default=False)
+    boostingType = Param("boostingType", "gbdt | rf | dart | goss", to_str,
+                         one_of("gbdt", "rf", "dart", "goss"), default="gbdt")
+    topRate = Param("topRate", "GOSS large-gradient keep rate", to_float,
+                    in_range(0, 1), default=0.2)
+    otherRate = Param("otherRate", "GOSS small-gradient sample rate", to_float,
+                      in_range(0, 1), default=0.1)
+    dropRate = Param("dropRate", "DART tree drop rate", to_float, in_range(0, 1),
+                     default=0.1)
+    skipDrop = Param("skipDrop", "DART skip-drop prob", to_float, in_range(0, 1),
+                     default=0.5)
+    earlyStoppingRound = Param("earlyStoppingRound",
+                               "stop after n rounds w/o improvement (0=off)",
+                               to_int, ge(0), default=0)
+    validationIndicatorCol = Param("validationIndicatorCol",
+                                   "bool column marking validation rows", to_str)
+    categoricalSlotIndexes = Param("categoricalSlotIndexes",
+                                   "indices of categorical features",
+                                   to_list(to_int))
+    categoricalSlotNames = Param("categoricalSlotNames",
+                                 "slot names of categorical features "
+                                 "(resolved via the features column's "
+                                 "slot metadata)", to_list(to_str))
+    catSmooth = Param("catSmooth", "categorical smoothing added to the "
+                      "per-bin hessian in the sort ratio", to_float, ge(0),
+                      default=10.0)
+    catL2 = Param("catL2", "extra L2 for categorical splits", to_float,
+                  ge(0), default=10.0)
+    maxCatThreshold = Param("maxCatThreshold", "max categories on the "
+                            "scanned side of a categorical split", to_int,
+                            gt(0), default=32)
+    maxCatToOnehot = Param("maxCatToOnehot", "use one-vs-rest splits when "
+                           "a node has at most this many used categories",
+                           to_int, gt(0), default=4)
+    monotoneConstraints = Param(
+        "monotoneConstraints", "per-feature -1/0/+1 monotone direction "
+        "(LightGBM monotone_constraints, basic method)", to_list(to_int))
+    checkpointDir = Param(
+        "checkpointDir", "directory for mid-training model-string "
+        "checkpoints; a restarted fit resumes from the latest one "
+        "(elastic restart, SURVEY.md §5 checkpoint/resume)", to_str)
+    checkpointInterval = Param(
+        "checkpointInterval", "save a checkpoint every n iterations "
+        "(0 = off; requires checkpointDir)", to_int, ge(0), default=0)
+    minDataInBin = Param("minDataInBin", "min sampled rows per feature bin",
+                         to_int, gt(0), default=3)
+    maxDrop = Param("maxDrop", "DART: max trees dropped per iteration "
+                    "(<=0 = unlimited)", to_int, default=50)
+    uniformDrop = Param("uniformDrop", "DART: drop trees uniformly instead "
+                        "of weight-proportionally", to_bool, default=False)
+    dropSeed = Param("dropSeed", "DART: seed of the drop-selection RNG "
+                     "stream (default derived from seed)", to_int)
+    featureFractionByNode = Param(
+        "featureFractionByNode", "re-sample the feature subset at every "
+        "tree node (LightGBM feature_fraction_bynode)", to_float,
+        in_range(0, 1, lo_inclusive=False), default=1.0)
+    improvementTolerance = Param(
+        "improvementTolerance", "early stopping: margin an eval score "
+        "must clear to count as improved (TrainUtils.scala:143-169)",
+        to_float, default=0.0)
+    minDataPerGroup = Param(
+        "minDataPerGroup", "min rows per category for the sorted "
+        "categorical scan (LightGBM min_data_per_group)", to_int, gt(0),
+        default=100)
+    initScoreCol = Param(
+        "initScoreCol", "column of per-row initial scores to boost from "
+        "(LightGBM init_score; scores are a training offset and are NOT "
+        "added back at predict, matching LightGBM)", to_str)
+    boostFromAverage = Param(
+        "boostFromAverage", "start boosting from the objective's average "
+        "score instead of 0", to_bool, default=True)
+    deterministic = Param(
+        "deterministic", "deterministic training (always true on this "
+        "engine: the histograms sum in fixed point or integers)", to_bool,
+        default=True)
+    monotoneConstraintsMethod = Param(
+        "monotoneConstraintsMethod", "constraint enforcement method; this "
+        "engine implements LightGBM's 'basic'",
+        to_str, one_of("basic"), default="basic")
+    zeroAsMissing = Param(
+        "zeroAsMissing", "treat 0.0 feature values as missing (LightGBM "
+        "zero_as_missing; stamps zero-missing decision bits so scoring "
+        "routes zeros like NaN)", to_bool, default=False)
+    maxBinByFeature = Param(
+        "maxBinByFeature", "per-feature max bin counts overriding maxBin",
+        to_list(to_int))
+    binSampleCount = Param(
+        "binSampleCount", "rows sampled to compute bin boundaries",
+        to_int, gt(0), default=200_000)
+    fobj = Param(
+        "fobj", "custom objective callable (preds, labels, weights) -> "
+        "(grad, hess) (FObjTrait.scala:1 analog)", is_complex=True)
+    isProvideTrainingMetric = Param(
+        "isProvideTrainingMetric", "training metrics are always recorded "
+        "here (train_<metric> series in evals_result); declared for "
+        "parity", to_bool, default=False)
+    passThroughArgs = Param(
+        "passThroughArgs", "space-separated LightGBM-style key=value "
+        "overrides applied onto the training config after the typed "
+        "params (snake_case LightGBM names)", to_str)
+    objective = Param("objective", "training objective", to_str)
+    metric = Param("metric", "eval metric (default per objective)", to_str)
+    modelString = Param("modelString", "warm-start model string", to_str)
+    parallelism = Param("parallelism", "data_parallel | voting_parallel | "
+                        "feature_parallel | serial", to_str,
+                        one_of("data_parallel", "voting_parallel",
+                               "feature_parallel", "serial"),
+                        default="data_parallel")
+    topK = Param("topK", "voting_parallel local vote size "
+                 "(LightGBMConstants.scala:22-24)", to_int, gt(0),
+                 default=20)
+    useBarrierExecutionMode = Param("useBarrierExecutionMode",
+                                    "gang scheduling (one device here; "
+                                    "accepted for parity)",
+                                    to_bool, default=False)
+    numBatches = Param("numBatches", "split training into n sequential "
+                       "batches, warm-starting each (LightGBMBase.scala:45-60)",
+                       to_int, ge(0), default=0)
+    seed = Param("seed", "random seed", to_int, default=0)
+    verbosity = Param("verbosity", "verbosity", to_int, default=-1)
+    leafPredictionCol = Param("leafPredictionCol",
+                              "output col for per-tree leaf indices", to_str)
+    featuresShapCol = Param("featuresShapCol",
+                            "output col for per-feature contributions", to_str)
+    predictDisableShapeCheck = Param("predictDisableShapeCheck",
+                                     "skip feature-count check at predict",
+                                     to_bool, default=False)
+
+    def _train_config(self, objective: str,
+                      categorical_features: List[int] = (),
+                      **extra: Any) -> TrainConfig:
+        """The JAX package's param -> ``TrainConfig`` mapping. The port
+        trains on one device, so ``data_parallel`` (the default) is the
+        serial learner, as it is in the JAX package without a mesh;
+        ``voting_parallel`` and ``feature_parallel`` raise (ROADMAP A8)."""
+        parallelism = self.get("parallelism")
+        if parallelism not in ("data_parallel", "serial"):
+            raise _later(f"parallelism={parallelism!r}", _A8)
+        return TrainConfig(
+            objective=objective,
+            num_iterations=self.get("numIterations"),
+            learning_rate=self.get("learningRate"),
+            num_leaves=self.get("numLeaves"),
+            max_depth=(self.get("maxDepth") if self.get("maxDepth") > 0
+                       else 16),
+            max_bin=self.get("maxBin"),
+            lambda_l1=self.get("lambdaL1"),
+            lambda_l2=self.get("lambdaL2"),
+            min_data_in_leaf=self.get("minDataInLeaf"),
+            min_sum_hessian_in_leaf=self.get("minSumHessianInLeaf"),
+            min_gain_to_split=self.get("minGainToSplit"),
+            feature_fraction=self.get("featureFraction"),
+            bagging_fraction=self.get("baggingFraction"),
+            bagging_freq=self.get("baggingFreq"),
+            boosting_type=self.get("boostingType"),
+            top_rate=self.get("topRate"),
+            other_rate=self.get("otherRate"),
+            drop_rate=self.get("dropRate"),
+            skip_drop=self.get("skipDrop"),
+            early_stopping_round=self.get("earlyStoppingRound"),
+            metric=self.get("metric"),
+            categorical_features=tuple(categorical_features),
+            cat_smooth=self.get("catSmooth"),
+            cat_l2=self.get("catL2"),
+            max_cat_threshold=self.get("maxCatThreshold"),
+            max_cat_to_onehot=self.get("maxCatToOnehot"),
+            monotone_constraints=tuple(self.get("monotoneConstraints")
+                                       or ()),
+            pos_bagging_fraction=self.get("posBaggingFraction"),
+            neg_bagging_fraction=self.get("negBaggingFraction"),
+            path_smooth=self.get("pathSmooth"),
+            max_delta_step=self.get("maxDeltaStep"),
+            extra_trees=self.get("extraTrees"),
+            tree_learner="serial",
+            top_k=self.get("topK"),
+            seed=self.get("seed"),
+            max_drop=self.get("maxDrop"),
+            uniform_drop=self.get("uniformDrop"),
+            drop_seed=(self.get("dropSeed")
+                       if self.is_set("dropSeed") else None),
+            feature_fraction_by_node=self.get("featureFractionByNode"),
+            improvement_tolerance=self.get("improvementTolerance"),
+            min_data_per_group=self.get("minDataPerGroup"),
+            min_data_in_bin=self.get("minDataInBin"),
+            bagging_seed=self.get("baggingSeed"),
+            feature_fraction_seed=self.get("featureFractionSeed"),
+            extra_seed=self.get("extraSeed"),
+            boost_from_average=self.get("boostFromAverage"),
+            deterministic=self.get("deterministic"),
+            zero_as_missing=self.get("zeroAsMissing"),
+            **extra,
+        )
+
+    # -- device -------------------------------------------------------------
+    _device: DeviceLike = None
+
+    def set_device(self, device: DeviceLike):
+        """Where ``fit`` / ``transform`` run: ``None`` (the default) is
+        the CUDA card, ``"cpu"`` the plain PyTorch path. Not a param, so
+        it stays out of the saved param map; ``copy`` keeps it and a
+        fitted model inherits it."""
+        self._device = device
+        return self
+
+    def set_mesh(self, mesh):
+        raise _later("set_mesh (rows sharded over a device mesh)", _A8)
+
+    def _check_reply_params(self):
+        for name, what in (("leafPredictionCol", "per-tree leaf indices"),
+                           ("featuresShapCol", "SHAP contributions")):
+            if self.is_set(name):
+                raise _later(f"{name} ({what})", "A5 (scoring, the rest)")
+
+
+class _LightGBMBase(Estimator, _LightGBMParams):
+    """Shared fit orchestration (LightGBMBase.train analog,
+    lightgbm/.../LightGBMBase.scala:36-65)."""
+
+    def fit_incremental(self, df: DataFrame, base_model=None,
+                        num_new_trees: Optional[int] = None,
+                        checkpoint_dir: Optional[str] = None,
+                        checkpoint_interval: Optional[int] = None):
+        """Warm-start refit: continue ``base_model`` with new trees fit
+        on ``df`` (the reference's modelString warm start,
+        LightGBMBase.scala:45-60, as a method). ``num_new_trees``
+        overrides ``numIterations`` for the added trees. The estimator
+        itself is not mutated — overrides ride a :meth:`copy`.
+        Checkpointed refits raise (ROADMAP A6c)."""
+        if checkpoint_dir is not None or checkpoint_interval is not None:
+            raise _later("fit_incremental's checkpoint arguments", _A6C)
+        overrides: Dict[str, Any] = {}
+        if base_model is not None:
+            if base_model.booster is None:
+                raise ValueError("fit_incremental: base_model has no "
+                                 "fitted booster")
+            overrides["modelString"] = base_model.get_model_string()
+        if num_new_trees is not None:
+            overrides["numIterations"] = num_new_trees
+        return self.copy(**overrides).fit(df)
+
+    def _extract(self, df: DataFrame):
+        x = np.asarray(df.col(self.get("featuresCol")), dtype=np.float64)
+        if x.ndim != 2:
+            raise ValueError(f"featuresCol {self.get('featuresCol')!r} must "
+                             f"be a vector column")
+        y = np.asarray(df.col(self.get("labelCol")), dtype=np.float64)
+        w = None
+        if self.is_set("weightCol"):
+            w = np.asarray(df.col(self.get("weightCol")), dtype=np.float64)
+        return x, y, w
+
+    def _split_validation(self, df: DataFrame):
+        if self.is_set("validationIndicatorCol"):
+            mask = np.asarray(df.col(self.get("validationIndicatorCol")), dtype=bool)
+            return df.filter(~mask), df.filter(mask)
+        return df, None
+
+    def _categorical_indexes(self, df: DataFrame) -> List[int]:
+        """Resolve categorical feature slots: explicit indexes, then
+        names via slot metadata, then the features column's
+        Categoricals metadata (getCategoricalIndexes analog). Any slot
+        found makes the fit raise (ROADMAP A7)."""
+        out = set(self.get("categoricalSlotIndexes") or [])
+        meta = df.metadata(self.get("featuresCol"))
+        if self.is_set("categoricalSlotNames"):
+            slots = meta.get("slots")
+            if slots is None:
+                raise ValueError(
+                    "categoricalSlotNames needs slot metadata on the "
+                    "features column (assemble with VectorAssembler)")
+            by_name = {n: i for i, n in enumerate(slots)}
+            for name in self.get("categoricalSlotNames"):
+                if name not in by_name:
+                    raise ValueError(f"no feature slot named {name!r}; "
+                                     f"have {slots}")
+                out.add(by_name[name])
+        out.update(meta.get("categorical_slots") or [])
+        return sorted(out)
+
+    def _check_slice(self):
+        if self.is_set("fobj"):
+            raise _later("fobj (a custom objective)", _A6C)
+        if self.is_set("checkpointDir") or self.get("checkpointInterval"):
+            raise _later("checkpointDir / checkpointInterval (mid-training "
+                         "checkpoints)", _A6C)
+        self._check_reply_params()
+
+    def _fit_booster(self, df: DataFrame, objective: str,
+                     extra_cfg: Optional[Dict[str, Any]] = None):
+        """Bin, then train on the stage's device: returns (TrainResult,
+        BinMapper, InstrumentationMeasures with the phases extract,
+        binning, and train's dataPreparation / training / validation)."""
+        device = resolve_device(self._device)
+        self._check_slice()
+        measures = InstrumentationMeasures()
+        cat = self._categorical_indexes(df)
+        cfg = self._train_config(objective, categorical_features=cat,
+                                 **(extra_cfg or {}))
+        # pass-through overrides land BEFORE binning, so binning-coupled
+        # keys (max_bin, min_data_in_bin) take effect everywhere
+        cfg = _apply_pass_through(cfg, self.get("passThroughArgs")
+                                  if self.is_set("passThroughArgs") else None)
+        check_supported(cfg)      # before any work on the rows
+        with measures.phase("extract"):
+            train_df, valid_df = self._split_validation(df)
+            x, y, w = self._extract(train_df)
+        with measures.phase("binning"):
+            mapper = BinMapper.fit(
+                _sample_rows(x, self.get("seed"),
+                             max_sample=self.get("binSampleCount")),
+                max_bin=cfg.max_bin,
+                min_data_in_bin=cfg.min_data_in_bin,
+                max_bin_by_feature=(self.get("maxBinByFeature")
+                                    if self.is_set("maxBinByFeature")
+                                    else None))
+            binned = mapper.transform(x)
+        valid_sets = vx_raw = None
+        if valid_df is not None and valid_df.num_rows:
+            with measures.phase("extract"):
+                vx_raw, vy, vw = self._extract(valid_df)
+            with measures.phase("binning"):
+                valid_sets = [(mapper.transform(vx_raw), vy, vw)]
+        init_model = None
+        if self.is_set("modelString"):
+            init_model = BoosterArrays.load_model_string(self.get("modelString"))
+
+        init0 = vinit0 = None
+        if self.is_set("initScoreCol"):
+            # per-row training offset (LightGBM init_score via
+            # HasInitScoreCol, LightGBMBase.scala:153); must align with
+            # the post-validation-split training rows
+            init0 = np.asarray(train_df.col(self.get("initScoreCol")),
+                               dtype=np.float64)
+            if valid_sets is not None:
+                vinit0 = np.asarray(valid_df.col(self.get("initScoreCol")),
+                                    dtype=np.float64)
+
+        def init_scores(model, xs, offset):
+            return warm_start_scores(model, xs, offset, device=device)
+
+        def valid_init_raws(model):
+            if vx_raw is None or (model is None and vinit0 is None):
+                return None
+            return [init_scores(model, vx_raw, vinit0)]
+
+        bin_upper = mapper.bin_upper_values(cfg.max_bin)
+        num_batches = self.get("numBatches")
+        if num_batches and num_batches > 1:
+            # sequential warm-started batches (LightGBMBase.scala:45-60)
+            parts = np.array_split(np.arange(len(binned)), num_batches)
+            result = None
+            for part in parts:
+                result = train(
+                    binned[part], y[part], cfg,
+                    weights=None if w is None else w[part],
+                    bin_upper=bin_upper, valid_sets=valid_sets,
+                    init_model=init_model,
+                    init_raw=init_scores(
+                        init_model, x[part],
+                        None if init0 is None else init0[part]),
+                    valid_init_raws=valid_init_raws(init_model),
+                    measures=measures, device=device)
+                init_model = result.booster
+        else:
+            result = train(
+                binned, y, cfg, weights=w, bin_upper=bin_upper,
+                valid_sets=valid_sets, init_model=init_model,
+                init_raw=init_scores(init_model, x, init0),
+                valid_init_raws=valid_init_raws(init_model),
+                measures=measures, device=device)
+        return result, mapper, measures
+
+    def _finish_model(self, model_cls, result, mapper, measures):
+        model = model_cls(**{k: v for k, v in self._paramMap.items()
+                             if model_cls.has_param(k)})
+        model.booster = result.booster
+        model.bin_mapper = mapper
+        model._device = self._device
+        model.train_measures = measures
+        model.evals_result = result.evals
+        model.best_iteration = result.best_iteration
+        return model
+
+
+class _LightGBMModelBase(Model, _LightGBMParams):
+    """Shared transform/scoring (LightGBMModelMethods analog)."""
+
+    startIteration = Param(
+        "startIteration", "score with trees from this boosting "
+        "iteration on (LightGBM predict start_iteration)", to_int,
+        ge(0), default=0)
+    numIteration = Param(
+        "numIteration", "score with at most this many iterations from "
+        "startIteration (<0 = all; LightGBM predict num_iteration)",
+        to_int, default=-1)
+
+    binnedScoring = Param(
+        "binnedScoring", "route transform through the binned-compare "
+        "scorer (bin with the training BinMapper, then compare uint8 bin "
+        "ids instead of float thresholds). Binned scoring routes by the "
+        "float64 bin edge, raw scoring by its float32 rounding (ROADMAP "
+        "C8), so the two can differ on rows holding such a value", to_bool,
+        default=False)
+
+    booster: Optional[BoosterArrays] = None
+    bin_mapper: Optional[BinMapper] = None   # training BinMapper, persisted
+    train_measures: Optional[InstrumentationMeasures] = None
+    evals_result: Optional[List[Dict[str, float]]] = None
+    best_iteration: int = -1
+    _sliced_cache = None
+
+    @property
+    def scoring_booster(self) -> BoosterArrays:
+        """The booster restricted to [startIteration,
+        startIteration+numIteration) — the full ensemble when the
+        params are at their defaults."""
+        s = self.get("startIteration")
+        m = self.get("numIteration")
+        if s == 0 and m <= 0:
+            # LightGBM predict semantics: num_iteration <= 0 means all
+            return self.booster
+        key = (s, m)
+        if (self._sliced_cache is None or self._sliced_cache[0] != key
+                or self._sliced_cache[1] is not self.booster):
+            self._sliced_cache = (
+                key, self.booster, self.booster.slice_iterations(s, m))
+        return self._sliced_cache[2]
+
+    def _raw_scores(self, x: np.ndarray) -> np.ndarray:
+        """Margin scores (float32) on the model's device, in row batches:
+        the binned-compare path when ``binnedScoring`` is on and the
+        model carries its training BinMapper (bin ids route as raw
+        thresholds do, NaN included, except on values at a float32-rounded
+        edge: ROADMAP C8), else the float-threshold traversal."""
+        device = resolve_device(self._device)
+        b = self.scoring_booster
+        binned = (self.get("binnedScoring") and self.bin_mapper is not None
+                  and not (b.threshold_bin[b.split_feature >= 0] < 0).any())
+        out = []
+        for s in range(0, max(len(x), 1), _SCORE_BATCH_ROWS):
+            xs = x[s:s + _SCORE_BATCH_ROWS]
+            if binned:
+                scores = b.predict_binned(
+                    self.bin_mapper.transform(xs).astype(binned_ingest_dtype(
+                        self.bin_mapper.max_num_bins)), device=device)
+            else:
+                scores = b.predict(xs, device=device)
+            out.append(scores.cpu().numpy())
+        return np.concatenate(out)
+
+    def _init_empty(self):
+        self.booster = None
+
+    def _get_state(self) -> Dict[str, Any]:
+        state = self.booster.state_dict()
+        state["best_iteration"] = self.best_iteration
+        if self.bin_mapper is not None:
+            state["bin_mapper"] = self.bin_mapper.to_dict()
+        return state
+
+    def _set_state(self, state: Dict[str, Any]) -> None:
+        self.booster = BoosterArrays.from_state_dict(state)
+        self.best_iteration = state.get("best_iteration", -1)
+        bm = state.get("bin_mapper")
+        self.bin_mapper = None if bm is None else BinMapper.from_dict(bm)
+
+    # -- reference model methods -------------------------------------------
+    def get_feature_importances(self, importance_type: str = "split") -> np.ndarray:
+        return self.booster.feature_importances(importance_type)
+
+    def get_all_instrumentation(self) -> Dict[str, float]:
+        """Per-phase training wall-clock seconds (getAllBatchMeasures
+        analog, LightGBMPerformance.scala:11-66)."""
+        if self.train_measures is None:
+            return {}
+        return self.train_measures.as_dict()
+
+    def save_native_model(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.booster.save_model_string())
+
+    def get_model_string(self) -> str:
+        return self.booster.save_model_string()
+
+    @classmethod
+    def load_native_model_from_file(cls, path: str, **params: Any):
+        with open(path) as f:
+            return cls.load_native_model_from_string(f.read(), **params)
+
+    @classmethod
+    def load_native_model_from_string(cls, text: str, **params: Any):
+        model = cls(**params)
+        model.booster = BoosterArrays.load_model_string(text)
+        return model
+
+    def serving_binned_plan(self):
+        raise _later("the binned serving plane (serving_binned_plan)",
+                     "A6b (estimators: binned serving)")
+
+    def _features(self, df: DataFrame) -> np.ndarray:
+        x = np.asarray(df.col(self.get("featuresCol")), dtype=np.float64)
+        if (not self.get("predictDisableShapeCheck")
+                and x.shape[1] != self.booster.num_features):
+            raise ValueError(
+                f"feature count mismatch: model has {self.booster.num_features},"
+                f" data has {x.shape[1]}")
+        return x
+
+    def _reply_columns_from_raw(self, raw: np.ndarray) -> Dict[str, Any]:
+        """Ordered output columns derived from margin scores."""
+        raise NotImplementedError
+
+    def _transform(self, df: DataFrame) -> DataFrame:
+        self._check_reply_params()
+        x = self._features(df)
+        out = df
+        for name, vals in self._reply_columns_from_raw(
+                self._raw_scores(x)).items():
+            out = out.with_column(name, vals)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Classifier
+# ---------------------------------------------------------------------------
+
+class LightGBMClassifier(_LightGBMBase):
+    """Binary GBDT classifier (LightGBMClassifier.scala:32 parity);
+    multiclass raises (ROADMAP A7)."""
+
+    rawPredictionCol = Param("rawPredictionCol", "raw margin column", to_str,
+                             default="rawPrediction")
+    probabilityCol = Param("probabilityCol", "probability column", to_str,
+                           default="probability")
+    thresholds = Param("thresholds", "per-class prediction thresholds",
+                       to_list(to_float))
+    isUnbalance = Param("isUnbalance", "auto-weight unbalanced binary labels",
+                        to_bool, default=False)
+    maxNumClasses = Param("maxNumClasses", "cap on discovered label "
+                          "cardinality", to_int, gt(0), default=100)
+    scalePosWeight = Param(
+        "scalePosWeight", "weight of positive-class rows in the binary "
+        "objective (LightGBM scale_pos_weight; the reference reaches it "
+        "via passThroughArgs)", to_float, gt(0), default=1.0)
+
+    def _fit(self, df: DataFrame) -> "LightGBMClassificationModel":
+        y_raw = np.asarray(df.col(self.get("labelCol")), dtype=np.float64)
+        classes = np.unique(y_raw[~np.isnan(y_raw)])
+        num_class = len(classes)
+        if num_class > self.get("maxNumClasses"):
+            raise ValueError(
+                f"{num_class} distinct labels exceeds maxNumClasses="
+                f"{self.get('maxNumClasses')} (guards runaway label "
+                "cardinality, LightGBMClassifier.scala maxNumClasses)")
+        objective = self.get("objective") or (
+            "binary" if num_class <= 2 else "multiclass")
+        if objective == "binary" and num_class > 2:
+            raise ValueError(f"binary objective with {num_class} classes")
+        if num_class > 2:
+            raise _later(f"multiclass classification ({num_class} classes)",
+                         "A7 (GBDT breadth: multiclass)")
+        # re-encode labels to 0..K-1 (objectives one-hot by index)
+        encoded = np.searchsorted(classes, y_raw).astype(np.float64)
+        df = df.with_column(self.get("labelCol"), encoded)
+        spw = self.get("scalePosWeight")
+        if ((self.get("isUnbalance") or spw != 1.0)
+                and objective == "binary"):
+            if self.get("isUnbalance") and spw != 1.0:
+                raise ValueError(
+                    "isUnbalance and scalePosWeight are mutually "
+                    "exclusive (LightGBM: set only one)")
+            # scale positive-class rows by neg/pos (LightGBM
+            # is_unbalance) or by the explicit scale_pos_weight —
+            # weighting grad+hess equals row weighting
+            if self.get("isUnbalance"):
+                pos = max(float((encoded == 1).sum()), 1.0)
+                neg = float((encoded == 0).sum())
+                spw = neg / pos
+            w = np.where(encoded == 1, spw, 1.0)
+            if self.is_set("weightCol"):
+                w = w * np.asarray(df.col(self.get("weightCol")), np.float64)
+                df = df.with_column(self.get("weightCol"), w)
+            else:
+                df = df.with_column("_unbalance_weight", w)
+                self = self.copy(weightCol="_unbalance_weight")
+        result, mapper, measures = self._fit_booster(df, objective)
+        model = self._finish_model(LightGBMClassificationModel, result,
+                                   mapper, measures)
+        model.num_classes = num_class
+        model.classes_ = classes
+        return model
+
+
+class LightGBMClassificationModel(_LightGBMModelBase):
+    rawPredictionCol = Param("rawPredictionCol", "raw margin column", to_str,
+                             default="rawPrediction")
+    probabilityCol = Param("probabilityCol", "probability column", to_str,
+                           default="probability")
+    thresholds = Param("thresholds", "per-class prediction thresholds",
+                       to_list(to_float))
+    num_classes: int = 2
+    classes_: Optional[np.ndarray] = None  # original label values, sorted
+
+    def _get_state(self):
+        state = super()._get_state()
+        state["num_classes"] = self.num_classes
+        if self.classes_ is not None:
+            state["classes_"] = self.classes_
+        return state
+
+    def _set_state(self, state):
+        super()._set_state(state)
+        self.num_classes = state.get("num_classes", 2)
+        c = state.get("classes_")
+        self.classes_ = None if c is None else np.asarray(c)
+
+    def _reply_columns_from_raw(self, raw: np.ndarray) -> Dict[str, Any]:
+        if raw.ndim == 1:  # binary: margins for [neg, pos]
+            raw2 = np.stack([-raw, raw], axis=1)
+            prob = 1.0 / (1.0 + np.exp(-raw))
+            probs = np.stack([1 - prob, prob], axis=1)
+        else:
+            raw2 = raw
+            probs = np.exp(raw - raw.max(axis=1, keepdims=True))
+            probs = probs / probs.sum(axis=1, keepdims=True)
+        if self.is_set("thresholds"):
+            t = np.asarray(self.get("thresholds"), dtype=np.float64)
+            pred_idx = np.argmax(probs / t[None, :], axis=1)
+        else:
+            pred_idx = np.argmax(probs, axis=1)
+        if self.classes_ is not None:  # decode back to original label values
+            pred = self.classes_[pred_idx].astype(np.float64)
+        else:
+            pred = pred_idx.astype(np.float64)
+        return {self.get("rawPredictionCol"): raw2,
+                self.get("probabilityCol"): probs,
+                self.get("predictionCol"): pred}
+
+
+# ---------------------------------------------------------------------------
+# Regressor
+# ---------------------------------------------------------------------------
+
+class LightGBMRegressor(_LightGBMBase):
+    """GBDT regressor (LightGBMRegressor.scala:1 parity): L2 here, the
+    other objectives raise (ROADMAP A3)."""
+
+    alpha = Param("alpha", "huber/quantile alpha", to_float, gt(0), default=0.9)
+    tweedieVariancePower = Param("tweedieVariancePower",
+                                 "tweedie variance power in (1,2)", to_float,
+                                 in_range(1, 2), default=1.5)
+
+    def _fit(self, df: DataFrame) -> "LightGBMRegressionModel":
+        objective = self.get("objective") or "regression"
+        extra = {"alpha": self.get("alpha"),
+                 "tweedie_variance_power": self.get("tweedieVariancePower")}
+        result, mapper, measures = self._fit_booster(df, objective,
+                                                     extra_cfg=extra)
+        return self._finish_model(LightGBMRegressionModel, result, mapper,
+                                  measures)
+
+
+class LightGBMRegressionModel(_LightGBMModelBase):
+    def _reply_columns_from_raw(self, raw: np.ndarray) -> Dict[str, Any]:
+        if self.booster.objective in ("poisson", "gamma", "tweedie"):
+            raw = np.exp(raw)
+        return {self.get("predictionCol"): raw.astype(np.float64)}
+
+
+class LightGBMRanker:
+    """Lambdarank ranking comes with GBDT breadth (ROADMAP A7)."""
+
+    def __init__(self, *args: Any, **kwargs: Any):
+        raise _later("LightGBMRanker (lambdarank)",
+                     "A7 (GBDT breadth: lambdarank)")
+
+
+def _sample_rows(x: np.ndarray, seed: int, max_sample: int = 200_000) -> np.ndarray:
+    """Bin-boundary sample (the analog of LightGBMBase.getSampledRows,
+    LightGBMBase.scala:724-749 — sample count bounded, deterministic)."""
+    if len(x) <= max_sample:
+        return x
+    rng = np.random.default_rng(seed)
+    return x[rng.choice(len(x), size=max_sample, replace=False)]

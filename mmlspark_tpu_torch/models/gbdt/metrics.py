@@ -1,8 +1,10 @@
-"""Training-time evaluation metrics (raw scores -> scalar tensor).
+"""Evaluation metrics for training-time eval and early stopping — the
+port of the JAX package's ``models/gbdt/metrics.py``.
 
-Port of the metrics this slice's objectives default to; the rest of the
-JAX package's ``metrics.py`` (auc, multiclass, ndcg, ...) comes with the
-estimator slice (ROADMAP A6).
+Each metric maps raw scores (and labels, optional row weights) to a 0-d
+tensor on the scores' device; ``higher_better`` drives the early-stop
+direction, as LightGBM's per-metric flag does. ``ndcg`` comes with
+lambdarank (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -24,20 +26,111 @@ def binary_logloss(raw, labels, weights=None):
     return torch.sum(ll * w) / torch.sum(w)
 
 
+def binary_error(raw, labels, weights=None):
+    pred = (raw > 0).to(raw.dtype)
+    w = _w(weights, raw)
+    return torch.sum((pred != labels) * w) / torch.sum(w)
+
+
+def auc(raw, labels, weights=None):
+    """Weighted ROC-AUC via the rank statistic with true midranks for
+    tied scores (ties share the average of their rank range, so the
+    value is permutation-invariant; constant scores give exactly 0.5)."""
+    w = _w(weights, raw)
+    order = torch.argsort(raw, stable=True)
+    s, sw, sy = raw[order], w[order], labels[order]
+    cum = torch.cumsum(sw, 0)
+    left = torch.searchsorted(s, s, side="left")
+    right = torch.searchsorted(s, s, side="right")
+    below = torch.where(left > 0, cum[torch.clamp_min(left - 1, 0)], 0.0)
+    upto = cum[right - 1]
+    midrank = (below + upto) / 2.0
+    pos = torch.sum(sw * sy)
+    neg = torch.sum(sw) - pos
+    pos_rank = torch.sum(midrank * sw * sy)
+    u = pos_rank - pos * pos / 2.0
+    return torch.where((pos > 0) & (neg > 0), u / (pos * neg),
+                       torch.full_like(u, 0.5))
+
+
+def multi_logloss(raw, labels, weights=None):
+    logp = torch.log_softmax(raw, dim=-1)
+    ll = -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
+    w = _w(weights, ll)
+    return torch.sum(ll * w) / torch.sum(w)
+
+
+def multi_error(raw, labels, weights=None):
+    pred = torch.argmax(raw, dim=-1)
+    w = _w(weights, pred.to(raw.dtype))
+    return torch.sum((pred != labels.to(pred.dtype)) * w) / torch.sum(w)
+
+
 def l2(raw, labels, weights=None):
     w = _w(weights, raw)
     return torch.sum((raw - labels) ** 2 * w) / torch.sum(w)
 
 
+def rmse(raw, labels, weights=None):
+    return torch.sqrt(l2(raw, labels, weights))
+
+
+def l1(raw, labels, weights=None):
+    w = _w(weights, raw)
+    return torch.sum(torch.abs(raw - labels) * w) / torch.sum(w)
+
+
+def mape_metric(raw, labels, weights=None):
+    w = _w(weights, raw)
+    e = torch.abs(raw - labels) / torch.clamp_min(torch.abs(labels), 1.0)
+    return torch.sum(e * w) / torch.sum(w)
+
+
+def poisson_deviance(raw, labels, weights=None):
+    # raw is log(mean)
+    w = _w(weights, raw)
+    d = torch.exp(raw) - labels * raw
+    return torch.sum(d * w) / torch.sum(w)
+
+
+def quantile_loss(raw, labels, weights=None, alpha: float = 0.5):
+    w = _w(weights, raw)
+    d = labels - raw
+    loss = torch.maximum(alpha * d, (alpha - 1) * d)
+    return torch.sum(loss * w) / torch.sum(w)
+
+
 # name -> (fn, higher_better)
 METRICS: Dict[str, Tuple[Callable, bool]] = {
     "binary_logloss": (binary_logloss, False),
+    "binary_error": (binary_error, False),
+    "auc": (auc, True),
+    "multi_logloss": (multi_logloss, False),
+    "multi_error": (multi_error, False),
     "l2": (l2, False),
     "mse": (l2, False),
+    "rmse": (rmse, False),
+    "l1": (l1, False),
+    "mae": (l1, False),
+    "mape": (mape_metric, False),
+    "poisson": (poisson_deviance, False),
+    "quantile": (quantile_loss, False),
 }
 
 
 def default_metric(objective: str) -> str:
     if objective == "binary":
         return "binary_logloss"
+    if objective in ("multiclass", "softmax", "multiclassova"):
+        return "multi_logloss"
+    if objective == "lambdarank":
+        return "ndcg"
+    if objective in ("regression_l1", "l1", "mae"):
+        return "l1"
+    if objective == "quantile":
+        return "quantile"
+    if objective == "poisson":
+        return "poisson"
+    if objective == "mape":
+        return "mape"
     return "l2"

@@ -3,7 +3,7 @@
 Port of the JAX package's ``objectives.py`` for the objectives this
 slice trains (binary and L2). Each is a plain function on tensors:
 (preds, labels, weights, **cfg) -> (grad, hess), ``preds`` being raw
-(pre-link) scores. The other objectives are later work (ROADMAP A7).
+(pre-link) scores. The other objectives are later work (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -43,13 +43,21 @@ OBJECTIVES: Dict[str, ObjectiveFn] = {
 }
 
 
+# objectives of GBDT breadth (ROADMAP A7); the rest are A3's
+_BREADTH = ("multiclass", "softmax", "multiclassova", "lambdarank")
+
+
 def get_objective(name: str) -> ObjectiveFn:
+    if name in _BREADTH:
+        raise NotImplementedError(
+            f"objective {name!r} is not in the port yet (ROADMAP A7, GBDT "
+            "breadth: multiclass and lambdarank)")
     try:
         return OBJECTIVES[name]
     except KeyError:
         raise NotImplementedError(
-            f"objective {name!r} is not in the port yet (ROADMAP A7, GBDT "
-            f"breadth); have {sorted(OBJECTIVES)}") from None
+            f"objective {name!r} is not in the port yet (ROADMAP A3, the "
+            f"other objectives); have {sorted(OBJECTIVES)}") from None
 
 
 def init_score(objective: str, labels, weights=None) -> float:
@@ -65,4 +73,4 @@ def init_score(objective: str, labels, weights=None) -> float:
         return mean
     raise NotImplementedError(
         f"init_score for objective {objective!r} is not in the port yet "
-        "(ROADMAP A7, GBDT breadth)")
+        "(ROADMAP A3, the other objectives)")

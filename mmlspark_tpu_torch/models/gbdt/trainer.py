@@ -21,16 +21,23 @@ What this slice runs (and the JAX trainer it mirrors, file
     ``live`` (the kernels skip masked rows), and the sibling is
     ``parent - smaller`` (``_derive_sibling_hist``);
   - the gbdt boosting step: objective grad/hess, one tree, shrinkage,
-    raw-score update through ``_predict_tree``, the training metric;
-  - ``train``: serial, in-core, no validation sets, and
-    ``_assemble_booster``.
+    raw-score updates through ``_predict_tree`` (training rows and each
+    validation set), the metrics (``_resolve_metrics``);
+  - ``train``: serial, in-core, with validation sets, early stopping
+    (``_train_scan``'s stop rule, metrics synced in blocks), warm starts
+    (``init_model`` / ``init_raw``, ``warm_start_scores``), and
+    ``_assemble_booster`` (the trees cut after the best iteration, the
+    warm-start ``concat``).
 
 Trees grow level-wise over ``effective_depth`` levels in the full-tree
 layout (node i's children are 2i+1 / 2i+2), with the ``num_leaves``
 budget applied by within-level gain rank, as in the JAX package.
 
-The boosting loop never reads a device value on the host: trees and
-metrics stay on the device and come back in one transfer at the end.
+The boosting loop reads no device value on the host, except where early
+stopping needs the metrics: then it syncs them in blocks of
+``max(early_stopping_round, 8)`` iterations, as the JAX package does.
+Trees and metrics stay on the device and come back in one transfer at
+the end.
 Every ``TrainConfig`` setting outside this slice raises
 ``NotImplementedError`` naming the ROADMAP item that will add it.
 """
@@ -39,13 +46,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field, fields
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mmlspark_tpu_torch.core import env
 from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
+from mmlspark_tpu_torch.core.timer import InstrumentationMeasures
 from mmlspark_tpu_torch.models.gbdt import metrics as metrics_mod
 from mmlspark_tpu_torch.models.gbdt import objectives as obj_mod
 from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays
@@ -144,7 +152,6 @@ _LATER = {
     "extra_trees": "A7 (GBDT breadth: extra_trees)",
     "zero_as_missing": "A7 (GBDT breadth: zero_as_missing)",
     "tree_learner": "A8 (multi-device GBDT)",
-    "early_stopping_round": "A6 (estimators: validation sets, early stopping)",
 }
 _DEFAULTS = {fl.name: fl.default for fl in fields(TrainConfig)}
 
@@ -155,9 +162,9 @@ def check_supported(cfg: TrainConfig) -> None:
         value = getattr(cfg, name)
         default = _DEFAULTS[name]
         if name == "monotone_constraints":
-            off = not any(value or ())
+            off = not np.any(value)
         elif name == "categorical_features":
-            off = not tuple(value or ())
+            off = value is None or np.size(value) == 0
         else:
             off = value == default
         if not off:
@@ -165,10 +172,22 @@ def check_supported(cfg: TrainConfig) -> None:
                 f"TrainConfig.{name}={value!r} is not in the port yet "
                 f"(ROADMAP {later})")
     obj_mod.get_objective(cfg.objective)  # raises for other objectives
-    if cfg.metric is not None and cfg.metric not in metrics_mod.METRICS:
+    _resolve_metrics(cfg)                 # raises for other metrics
+
+
+def _resolve_metrics(cfg: TrainConfig):
+    """(metric_name, [(label, fn)], higher_better, metric_kwargs), as the
+    JAX package's ``_resolve_metrics``; ``ndcg`` raises (ROADMAP A7)."""
+    metric_name = cfg.metric or metrics_mod.default_metric(cfg.objective)
+    if metric_name not in metrics_mod.METRICS:
         raise NotImplementedError(
-            f"metric {cfg.metric!r} is not in the port yet (ROADMAP A6); "
-            f"have {sorted(metrics_mod.METRICS)}")
+            f"metric {metric_name!r} is not in the port yet (ROADMAP A7, "
+            f"GBDT breadth: lambdarank); have {sorted(metrics_mod.METRICS)}")
+    metric_fn, higher_better = metrics_mod.METRICS[metric_name]
+    # quantile's pinball alpha is the training alpha
+    metric_kwargs = {"alpha": cfg.alpha} if metric_name == "quantile" else {}
+    return metric_name, [(metric_name, metric_fn)], higher_better, \
+        metric_kwargs
 
 
 @dataclass
@@ -226,21 +245,62 @@ def _leaf_objective_impl(g, h, lam1, lam2):
     return value, score
 
 
-_INV_LN2 = float(np.float32(1.0) / np.float32(math.log(2.0)))
+# XLA's exponent decision in the JAX package's ``_pow2_scale``: t_k, the
+# smallest float32 r at which its float32 ``floor(log2(r))`` reaches k,
+# for k = -126 .. 126, as the int32 bits of 2^k plus these ulp offsets.
+# Derived from JAX by ``tools/pow2_thresholds.py`` (which also checks
+# that the decision is monotone in r); a test derives them again.
+_POW2_THRESHOLD_ULPS = (
+    0, -11, -35, -59, -83, -107, -3, -27, -51, -75, -99, -123, -19, -43,
+    -67, -91, -115, -11, -35, -59, -83, -107, -3, -27, -51, -75, -99,
+    -123, -19, -43, -67, -91, -115, -10, -66, -26, -50, -74, -34, -58,
+    -82, -42, -66, -26, -50, -74, -34, -58, -82, -42, -66, -26, -50,
+    -74, -34, -58, -82, -42, -66, -26, -50, -74, -34, -58, -17, -41, -1,
+    -25, -49, -9, -33, -57, -17, -41, -1, -25, -49, -9, -33, -57, -33,
+    -25, -17, -41, -33, -25, -17, -41, -33, -25, -17, -41, -33, -25,
+    -17, -8, 0, -24, -16, -8, 0, -24, -16, -16, -8, -16, -8, -16, -8,
+    -16, -8, 0, -8, 0, -8, -4, -4, -4, -4, -4, -4, -2, -2, -2, -1, 0, 0,
+    0, 0, -1, -1, -1, -3, -3, -3, -3, -3, -3, -7, 1, -7, 1, -7, -15, -7,
+    -15, -7, -15, -7, -15, -15, -7, 1, 5, -15, -7, 1, 5, -14, -6, -30,
+    -22, -14, -6, -30, -22, -14, -6, -30, -22, -14, -6, -30, -6, -30, 5,
+    -14, -38, 1, -22, 9, -6, -30, 5, -14, -38, 1, -22, 9, -5, -29, -53,
+    -13, -37, -61, -21, -45, -5, -29, -53, -13, -37, -61, -21, -45, -5,
+    -29, -53, -13, -37, -61, -21, -45, -5, -29, -53, -13, -37, -61, 6,
+    -13, -36, -60, -84, 10, -4, -28, -52, -76, 14, 2, -20, -44, -68, 18,
+    6, -12, -36, -60, -84, 10, -4, -28, -52, -76, 14, 2, -20, -44, -68,
+    18, 6, -11)
+POW2_THRESHOLD_BITS = tuple(((k + 127) << 23) + ulps for k, ulps in zip(
+    range(-126, 127), _POW2_THRESHOLD_ULPS))
+_POW2_TABLES: Dict[torch.device, torch.Tensor] = {}
+
+
+def _pow2_thresholds(device: torch.device) -> torch.Tensor:
+    """The threshold bits as an int32 tensor on ``device``, copied there
+    once per process (later fits make no host-to-device copy)."""
+    table = _POW2_TABLES.get(device)
+    if table is None:
+        table = torch.tensor(POW2_THRESHOLD_BITS, dtype=torch.int32,
+                             device=device)
+        _POW2_TABLES[device] = table
+    return table
 
 
 def _pow2_scale(amax, qmax: float):
-    """Power-of-two quantization scale pair (scale, scale_inv), 0-d
-    float32 tensors, mapping |x| <= amax into [-qmax, qmax]. The
-    exponent is the JAX package's (``trainer._pow2_scale``):
-    ``floor(log(qmax/amax) * (1/ln 2))`` in float32, clipped to
-    [-126, 126] — the product form is how XLA evaluates ``jnp.log2``.
+    """Power-of-two quantization scale pair (scale, scale_inv), float32
+    tensors of ``amax``'s shape, mapping |x| <= amax into [-qmax, qmax].
+    The exponent is the JAX package's (``trainer._pow2_scale``): XLA's
+    float32 ``floor(log2(qmax / amax))``, clipped to [-126, 126]. No
+    logarithm is taken here: ``r = qmax / amax`` is one IEEE division,
+    and the exponent counts the thresholds ``t_k <= r`` by integer
+    compares of bit patterns (positive floats order as their bits), so
+    the decision is the same bits in every process and on every device.
     The scales are built from their exponent bits, so they are exact
-    powers of two on every device and ``int * scale_inv`` is exact."""
+    powers of two and ``int * scale_inv`` is exact."""
     amax = torch.clamp_min(amax.float(), 1e-30)
     ratio = torch.full_like(amax, qmax) / amax
-    e = torch.clamp(torch.floor(torch.log(ratio) * _INV_LN2), -126.0, 126.0)
-    e = e.to(torch.int32)
+    table = _pow2_thresholds(ratio.device)
+    reached = ratio.view(torch.int32).unsqueeze(-1) >= table
+    e = torch.clamp(reached.sum(-1, dtype=torch.int32) - 127, -126, 126)
     return (((e + 127) << 23).view(torch.float32),
             ((127 - e) << 23).view(torch.float32))
 
@@ -478,15 +538,89 @@ def _predict_tree(sf, tb, nv, binned, depth: int):
 # Boosting loop
 # ---------------------------------------------------------------------------
 
+def warm_start_scores(init_model: Optional[BoosterArrays], x: np.ndarray,
+                      offset: Optional[np.ndarray] = None,
+                      device: DeviceLike = None) -> Optional[np.ndarray]:
+    """Raw-space warm-start margins for continuing a fit on fresh data
+    (the JAX package's ``warm_start_scores``): ``init_model.predict`` on
+    the RAW features, scored on ``device``, so the warm start stays valid
+    when the new rows are binned differently; plus the optional per-row
+    ``offset``. ``None`` when both are None."""
+    s = None if init_model is None else \
+        init_model.predict(x, device=device).cpu().numpy()
+    if offset is not None:
+        s = offset if s is None else s + offset
+    return s
+
+
+def _binned_to_device(binned, total_bins: int, dev: torch.device):
+    """(N, F) bin ids -> uint8 on ``dev`` (one copy at the narrowest
+    dtype); ids outside [0, max_bin) raise."""
+    if binned.shape[0] and (int(binned.min()) < 0
+                            or int(binned.max()) >= total_bins):
+        raise ValueError(f"bin ids must lie in [0, max_bin={total_bins})")
+    if isinstance(binned, np.ndarray):
+        binned = binned.astype(np.uint8, copy=False)
+    return torch.as_tensor(binned, device=dev).to(torch.uint8).contiguous()
+
+
+def _f32(a, dev, n=None):
+    a = np.asarray(a, dtype=np.float32)
+    return torch.as_tensor(a if n is None else a.reshape(n), device=dev)
+
+
+def stop_iteration(values, esr: int, tol: float, higher_better: bool):
+    """The early-stopping rule of the JAX package's ``_train_scan``
+    (TrainUtils.scala:143-169) over one metric's per-iteration values:
+    ``(best_iteration, stop_after)``, ``stop_after`` None while the rule
+    has not fired. An improvement must clear ``tol`` (higher-better) or
+    stay within it (lower-better)."""
+    best_val = -np.inf if higher_better else np.inf
+    best_iter, rounds_no_improve = -1, 0
+    for j, cur in enumerate(values):
+        improved = (cur - best_val > tol if higher_better
+                    else cur - best_val < tol)
+        if improved:
+            best_val, best_iter, rounds_no_improve = cur, j, 0
+        else:
+            rounds_no_improve += 1
+            if rounds_no_improve >= esr:
+                return best_iter, j + 1
+    return best_iter, None
+
+
 def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
           weights: Optional[np.ndarray] = None,
           bin_upper: Optional[np.ndarray] = None,
+          valid_sets: Optional[List[Tuple[Any, Any, Any]]] = None,
+          init_model: Optional[BoosterArrays] = None,
+          init_raw: Optional[np.ndarray] = None,
+          valid_init_raws: Optional[List[np.ndarray]] = None,
+          measures: Optional[InstrumentationMeasures] = None,
           device: DeviceLike = None) -> TrainResult:
     """Boosting loop. ``binned``: (N, F) bin ids (``BinMapper.transform``
     output, or a uint8 tensor already on the device); ``weights``:
     optional (N,) row weights; ``bin_upper``: (F, B) raw-value bin upper
     edges (``BinMapper.bin_upper_values``), which become the booster's
     raw-value thresholds.
+
+    ``valid_sets``: (binned, labels, weights) per validation set. Each
+    set's raw scores update on the device every tree and its metric is
+    recorded as ``valid<i>_<metric>``, after ``train_<metric>``. With
+    ``cfg.early_stopping_round > 0`` the first set's metric drives
+    ``stop_iteration``: the metrics are synced in blocks of
+    ``max(early_stopping_round, 8)`` iterations, the loop stops at the
+    first block where the rule fires, ``best_iteration`` is returned and
+    the trees after it are cut.
+
+    ``init_model`` + ``init_raw``: warm start — the new trees continue
+    ``init_model`` (whose ``init_score`` is kept) from its raw scores on
+    the training rows (``warm_start_scores``); ``init_raw`` alone is a
+    per-row offset that the model does not keep. ``valid_init_raws``:
+    the same per validation set. ``measures``: an
+    ``InstrumentationMeasures`` timing the phases dataPreparation,
+    training (host dispatch) and validation (metric syncs and the final
+    transfer, which waits for the device).
 
     ``device=None`` runs on the CUDA card (and raises without one);
     ``device="cpu"`` runs the plain PyTorch path. The histogram plane
@@ -495,77 +629,147 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     what ran."""
     dev = resolve_device(device)
     check_supported(cfg)
+    measures = measures if measures is not None else InstrumentationMeasures()
     hist_quant = resolve_hist_quant()
     subtract = resolve_subtract()
     total_bins = cfg.max_bin
     depth = cfg.effective_depth
-    num_slots = 2 ** (depth + 1) - 1
     if binned_ingest_dtype(total_bins) != np.uint8:
         raise NotImplementedError(
             f"max_bin={total_bins} needs wider bin ids than uint8; the "
             "level-histogram kernel takes <= 256 bins (ROADMAP A7)")
     n, num_f = binned.shape
-    if n and (int(binned.min()) < 0 or int(binned.max()) >= total_bins):
-        raise ValueError(f"bin ids must lie in [0, max_bin={total_bins})")
 
-    base_score = (obj_mod.init_score(cfg.objective, labels, weights)
-                  if cfg.boost_from_average else 0.0)
-    # the binned matrix goes to the device once, at the narrowest dtype
-    if isinstance(binned, np.ndarray):
-        binned = binned.astype(np.uint8, copy=False)
-    binned_d = torch.as_tensor(binned, device=dev).to(torch.uint8).contiguous()
-    labels_d = torch.as_tensor(np.asarray(labels, dtype=np.float32),
-                               device=dev)
-    weights_d = None if weights is None else torch.as_tensor(
-        np.asarray(weights, dtype=np.float32), device=dev)
+    with measures.phase("dataPreparation"):
+        # the binned matrix goes to the device once, at the narrowest dtype
+        binned_d = _binned_to_device(binned, total_bins, dev)
+        if init_model is not None:
+            # continued training: keep the old model's base score and fit
+            # on top of its raw scores
+            base_score = init_model.init_score
+            if init_raw is None:
+                raise ValueError("warm start needs init_raw (the init "
+                                 "model's raw scores on the training rows)")
+        elif init_raw is not None:
+            # a per-row offset (LightGBM init_score), not kept in the model
+            base_score = 0.0
+        else:
+            base_score = (obj_mod.init_score(cfg.objective, labels, weights)
+                          if cfg.boost_from_average else 0.0)
+        labels_d = _f32(labels, dev)
+        weights_d = None if weights is None else _f32(weights, dev)
+        raw = (_f32(init_raw, dev, n) if init_raw is not None else
+               torch.full((n,), base_score, dtype=torch.float32, device=dev))
+        valids = []
+        for vi, (vb, vy, vw) in enumerate(valid_sets or []):
+            vn = vb.shape[0]
+            valids.append({
+                "binned": _binned_to_device(vb, total_bins, dev),
+                "labels": _f32(vy, dev),
+                "weights": None if vw is None else _f32(vw, dev),
+                "raw": (_f32(valid_init_raws[vi], dev, vn)
+                        if valid_init_raws is not None else
+                        torch.full((vn,), base_score, dtype=torch.float32,
+                                   device=dev))})
 
     objective_fn = obj_mod.get_objective(cfg.objective)
     obj_kwargs = {"sigmoid": cfg.sigmoid} if cfg.objective == "binary" else {}
-    metric_name = cfg.metric or metrics_mod.default_metric(cfg.objective)
-    metric_fn, _ = metrics_mod.METRICS[metric_name]
+    metric_name, metric_list, higher_better, metric_kwargs = \
+        _resolve_metrics(cfg)
+    # the metric row's layout: train_<m>, valid0_<m>, ... per metric
+    labels_order = []
+    for m_label, _ in metric_list:
+        labels_order.append(f"train_{m_label}")
+        labels_order += [f"valid{vi}_{m_label}" for vi in range(len(valids))]
     nl = cfg.num_leaves if cfg.num_leaves > 0 else 2 ** depth
     lr = torch.tensor(cfg.learning_rate, dtype=torch.float32, device=dev)
 
-    raw = torch.full((n,), base_score, dtype=torch.float32, device=dev)
-    trees, metric_vals = [], []
-    for _ in range(cfg.num_iterations):
-        g, h = objective_fn(raw, labels_d, weights_d, **obj_kwargs)
-        sf, tb, nv, cnt = build_tree(binned_d, g, h, nl, cfg, total_bins,
-                                     hist_quant, subtract)
-        nv = nv * lr
-        raw = raw + _predict_tree(sf, tb, nv, binned_d, depth)
-        trees.append((sf, tb, nv, cnt))
-        metric_vals.append(metric_fn(raw, labels_d, weights_d))
+    esr = cfg.early_stopping_round
+    has_es = esr > 0 and bool(valids)
+    total = cfg.num_iterations
+    block = max(esr, 8) if has_es else total
+    vidx = labels_order.index(f"valid0_{metric_name}") if has_es else -1
+    trees, metric_rows, met_host = [], [], []
+    best_iter, stop_after = -1, None
 
-    # one transfer of every tree and metric, after the last step
-    if trees:
-        sf_h, tb_h, nv_h, cnt_h = (torch.stack(list(a)).cpu().numpy()
-                                   for a in zip(*trees))
-        met_h = torch.stack(metric_vals).cpu().numpy()
-    else:
-        sf_h = np.full((0, num_slots), -1, np.int32)
-        tb_h = np.zeros((0, num_slots), np.int32)
-        nv_h = np.zeros((0, num_slots), np.float32)
-        cnt_h = np.zeros((0, num_slots), np.float32)
-        met_h = np.zeros(0, np.float32)
-    evals = [{"iteration": j, f"train_{metric_name}": float(met_h[j])}
-             for j in range(len(met_h))]
+    def sync_metrics_through(upto):
+        """Metric rows [len(met_host), upto) to the host in one copy."""
+        if upto > len(met_host):
+            met_host.extend(torch.stack(metric_rows[len(met_host):upto])
+                            .cpu().numpy())
+
+    it = 0
+    while it < total:
+        with measures.phase("training"):
+            g, h = objective_fn(raw, labels_d, weights_d, **obj_kwargs)
+            sf, tb, nv, cnt = build_tree(binned_d, g, h, nl, cfg, total_bins,
+                                         hist_quant, subtract)
+            nv = nv * lr
+            raw = raw + _predict_tree(sf, tb, nv, binned_d, depth)
+            for vs in valids:
+                vs["raw"] = vs["raw"] + _predict_tree(sf, tb, nv,
+                                                      vs["binned"], depth)
+            row = []
+            for _, fn in metric_list:
+                row.append(fn(raw, labels_d, weights_d, **metric_kwargs))
+                row += [fn(vs["raw"], vs["labels"], vs["weights"],
+                           **metric_kwargs) for vs in valids]
+            trees.append((sf, tb, nv, cnt))
+            metric_rows.append(torch.stack(row).float())
+            it += 1
+        if has_es and (it % block == 0 or it == total):
+            # trees do not depend on the metrics, so syncing a block and
+            # replaying the rule stops where a per-iteration check would
+            with measures.phase("validation"):
+                sync_metrics_through(it)
+            best_iter, stop_after = stop_iteration(
+                [float(r[vidx]) for r in met_host], esr,
+                cfg.improvement_tolerance, higher_better)
+            if stop_after is not None:
+                break
+    kept = len(trees) if stop_after is None else stop_after
+
+    num_slots = 2 ** (depth + 1) - 1
+    with measures.phase("validation"):
+        # one transfer of every kept tree and metric
+        sync_metrics_through(kept)
+        if kept:
+            sf_h, tb_h, nv_h, cnt_h = (torch.stack(list(a)).cpu().numpy()
+                                       for a in zip(*trees[:kept]))
+        else:
+            sf_h = np.full((0, num_slots), -1, np.int32)
+            tb_h = np.zeros((0, num_slots), np.int32)
+            nv_h = np.zeros((0, num_slots), np.float32)
+            cnt_h = np.zeros((0, num_slots), np.float32)
+    evals = [{"iteration": j,
+              **{name: float(met_host[j][mi])
+                 for mi, name in enumerate(labels_order)}}
+             for j in range(kept)]
     booster = _assemble_booster(sf_h, tb_h, nv_h, cnt_h, cfg, num_f,
-                                total_bins, depth, bin_upper, base_score)
-    return TrainResult(booster=booster, evals=evals, best_iteration=-1,
+                                total_bins, depth, bin_upper, base_score,
+                                best_iter, init_model)
+    return TrainResult(booster=booster, evals=evals, best_iteration=best_iter,
                        hist_stats={"hist_quant": hist_quant,
                                    "subtract": subtract})
 
 
 def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,
-                      total_bins, depth, bin_upper, base_score):
+                      total_bins, depth, bin_upper, base_score, best_iter=-1,
+                      init_model=None):
     """Pack the (T, M) host arrays into a numeric ``BoosterArrays`` with
-    raw-value thresholds from ``bin_upper``."""
+    raw-value thresholds from ``bin_upper``; with early stopping, only
+    the trees through ``best_iter``; after a warm start, ``init_model``'s
+    trees first (``BoosterArrays.concat``)."""
+    if (cfg.early_stopping_round > 0 and best_iter >= 0
+            and best_iter + 1 < sf_all.shape[0]):
+        keep = best_iter + 1
+        sf_all, tb_all = sf_all[:keep], tb_all[:keep]
+        nv_all, cnt_all = nv_all[:keep], cnt_all[:keep]
     if bin_upper is None:
         bin_upper = np.full((num_f, total_bins), np.inf)
     thr_val = np.where(sf_all >= 0,
                        bin_upper[np.maximum(sf_all, 0), tb_all], np.inf)
-    return BoosterArrays(
+    booster = BoosterArrays(
         split_feature=sf_all,
         threshold_bin=tb_all,
         threshold_value=thr_val,
@@ -578,3 +782,6 @@ def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,
         objective=cfg.objective,
         init_score=base_score,
     )
+    if init_model is not None:
+        booster = BoosterArrays.concat(init_model, booster)
+    return booster

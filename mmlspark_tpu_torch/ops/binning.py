@@ -146,3 +146,26 @@ class BinMapper:
             out[f, 1:len(e) + 1] = e
             out[f, 0] = np.nan  # missing bin has no upper value
         return out
+
+    # -- serialization ------------------------------------------------------
+    def to_dict(self) -> dict:
+        """The JAX package's ``BinMapper.to_dict`` layout (every feature
+        numeric), so a saved model's mapper loads in either package."""
+        return {
+            "max_bin": self.max_bin,
+            "is_categorical": [False] * self.num_features,
+            "upper_edges": [e.tolist() for e in self.upper_edges],
+            "categories": [None] * self.num_features,
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "BinMapper":
+        if any(d.get("is_categorical") or ()):
+            raise NotImplementedError(
+                "categorical binning is not in the port yet (ROADMAP A7, "
+                "GBDT breadth); this mapper has categorical features")
+        return BinMapper(
+            upper_edges=[np.asarray(e, dtype=np.float64)
+                         for e in d["upper_edges"]],
+            max_bin=d["max_bin"],
+        )

@@ -238,9 +238,9 @@ def test_bin_ids_outside_max_bin_raise(bad):
     {"bagging_fraction": 0.8, "bagging_freq": 1}, {"num_class": 3},
     {"categorical_features": (1,)}, {"monotone_constraints": (1, 0)},
     {"extra_trees": True}, {"zero_as_missing": True},
-    {"tree_learner": "voting"}, {"early_stopping_round": 5},
+    {"tree_learner": "voting"}, {"boosting_type": "dart"},
     {"feature_fraction_by_node": 0.5}, {"objective": "multiclass"},
-    {"metric": "auc"}, {"max_bin": 1000},
+    {"metric": "ndcg"}, {"max_bin": 1000},
 ])
 def test_settings_outside_the_slice_raise(setting):
     x, y_bin, _ = _data(n=200)
