@@ -89,7 +89,27 @@ sm_90a), then:
      learning rate 1.0): the trees kept, the stop rule replayed over the
      evals, the host syncs against the same fit without early stopping;
      two q16 fits (120 quantized launches, bitwise equal); and a card
-     vs CPU estimator fit on 100,000 rows.
+     vs CPU estimator fit on 100,000 rows;
+ 14. serving path (after phase 13): the serving bench's flagship model
+     (``tools/bench_serving.py``: 100,000 HIGGS-shaped rows,
+     ``LightGBMClassifier(numIterations=100, numLeaves=63, maxBin=255)``)
+     fitted on the card (600 ``level_hist`` launches, no quantized one),
+     saved and loaded (example 01's flow); the binned scorer at every
+     rung of the ladder 1..64, bitwise equal between the card, the CPU
+     and ``predict_binned`` (and card vs CPU under bf16 autocast), with
+     its device time (behind a spin kernel), event-pair and host time
+     per batch and its launches per batch; request-thread binning µs per
+     row; ``ServingServer`` (batch 64, 2 ms, queue 256, 5 s timeout)
+     under 64 keep-alive clients in a closed loop for 5 s, with
+     ``MMLSPARK_TORCH_SERVE_BINNED=on`` and ``off``: QPS, p50/p99,
+     503/504, mean batch size and the plane's counters; 256 rows with
+     ``__id__`` through each arm and through ``serve_continuous``,
+     replies bitwise equal to ``transform`` (off) or to the
+     ``binnedScoring`` transform and to ``transform`` wherever each
+     float32 bin is its bin (on, continuous); 500 sequential
+     keep-alive requests to the continuous server (p50/p99); and the
+     model's string imported and served through ``derive_binning``,
+     replies bitwise equal to its own plan's.
 
 Each phase prints one JSON line. Any failure exits non-zero and prints
 no result. Without a CUDA card it exits 2 at once. The last lines are
@@ -104,6 +124,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import warnings
@@ -1042,6 +1063,449 @@ def phase_estimator(ctx):
     return out
 
 
+# the serving bench's flagship model (tools/bench_serving.py:57-70) and
+# its sustained run (:161-270): 64 keep-alive clients, a 256-row pool
+SERVE_ROWS, SERVE_TREES, SERVE_CLIENTS, SERVE_SECONDS = 100_000, 100, 64, 5.0
+SERVE_POOL, SERVE_SEQUENTIAL = 256, 500
+SERVER_ARGS = dict(max_batch_size=64, max_latency_ms=2.0, max_queue=256,
+                   request_timeout_s=5.0)
+
+
+def serving_data(n, seed=0):
+    """tools/bench_serving.py's rows and label rule (float64)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, F))
+    y = (x[:, 0] - x[:, 1] + 0.5 * x[:, 2] * x[:, 3]
+         + rng.normal(size=n) * 0.5 > 0).astype(np.float64)
+    return x, y
+
+
+def kernel_counts(torch, fn):
+    """(kernels, copies, device busy ms) of one ``fn()`` under
+    torch.profiler: kernel records and memcpy records apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    busy = 0.0
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            if e.name.startswith("Memcpy") or e.name.startswith("Memset"):
+                copies += 1
+            else:
+                kernels += 1
+            busy += e.time_range.elapsed_us() / 1e3
+    return kernels, copies, busy
+
+
+def post_rows(server, bodies, threads=16):
+    """(status, reply) of each pre-encoded body, over ``threads``
+    keep-alive connections."""
+    import http.client
+
+    out = [None] * len(bodies)
+
+    def worker(k):
+        conn = http.client.HTTPConnection(server.host, server.port,
+                                          timeout=30)
+        try:
+            for i in range(k, len(bodies), threads):
+                conn.request("POST", server.api_path, body=bodies[i],
+                             headers={"Content-Type": "application/json"})
+                r = conn.getresponse()
+                body = r.read()
+                out[i] = (r.status, json.loads(body) if r.status == 200
+                          else body.decode(errors="replace"))
+        finally:
+            conn.close()
+
+    ts = [threading.Thread(target=worker, args=(k,)) for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    return out
+
+
+def sustained(server, bodies, clients, duration_s):
+    """tools/bench_serving.py's closed loop: ``clients`` keep-alive
+    connections send single-row requests back to back for
+    ``duration_s``; a 503 is honoured for 2 ms, then retried."""
+    import http.client
+    import socket
+
+    barrier = threading.Barrier(clients + 1)
+    stop_at = [0.0]
+    results = [None] * clients
+
+    def client(idx):
+        lat, ok, r503, t504, other, errs = [], 0, 0, 0, 0, 0
+        conn, i = None, idx
+        barrier.wait()
+        while time.perf_counter() < stop_at[0]:
+            if conn is None:
+                conn = http.client.HTTPConnection(server.host, server.port,
+                                                  timeout=10)
+                try:
+                    conn.connect()
+                    conn.sock.setsockopt(socket.IPPROTO_TCP,
+                                         socket.TCP_NODELAY, 1)
+                except OSError:
+                    conn, errs = None, errs + 1
+                    time.sleep(0.01)
+                    continue
+            t0 = time.perf_counter()
+            try:
+                conn.request("POST", server.api_path,
+                             body=bodies[i % len(bodies)],
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                resp.read()
+                status = resp.status
+            except Exception:
+                conn.close()
+                conn, errs = None, errs + 1
+                continue
+            i += clients
+            if status == 200:
+                ok += 1
+                lat.append((time.perf_counter() - t0) * 1e3)
+            elif status == 503:
+                r503 += 1
+                time.sleep(0.002)
+            elif status == 504:
+                t504 += 1
+            else:
+                other += 1
+            if resp.getheader("Connection", "").lower() == "close":
+                conn.close()
+                conn = None
+        if conn is not None:
+            conn.close()
+        results[idx] = (lat, ok, r503, t504, other, errs)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t_start = time.perf_counter()
+    stop_at[0] = t_start + duration_s
+    for t in threads:
+        t.join(timeout=duration_s + 30)
+    wall = time.perf_counter() - t_start
+    done = [r for r in results if r]
+    lat = sorted(v for r in done for v in r[0])
+    ok = sum(r[1] for r in done)
+    return {"clients": clients, "seconds": wall, "qps": ok / wall,
+            "p50_ms": lat[len(lat) // 2] if lat else None,
+            "p99_ms": lat[max(0, -(-99 * len(lat) // 100) - 1)]
+            if lat else None,
+            "ok": ok, "rejected_503": sum(r[2] for r in done),
+            "timeout_504": sum(r[3] for r in done),
+            "other_status": sum(r[4] for r in done),
+            "client_errors": sum(r[5] for r in done),
+            "clients_finished": len(done)}
+
+
+def replies_against(replies, want, rows_ok=None):
+    """Rows whose reply differs, column by column, from the frame
+    ``want`` (JSON carries a float64 repr exactly, so == is bitwise);
+    only rows where ``rows_ok`` holds, when given."""
+    bad = []
+    for i, (status, reply) in enumerate(replies):
+        if rows_ok is not None and not rows_ok[i]:
+            continue
+        if status != 200 or reply.get("id") != i:
+            bad.append(i)
+            continue
+        for c in want.columns:
+            if c == "features":
+                continue
+            v = want[c][i]
+            v = v.tolist() if isinstance(v, np.ndarray) else float(v)
+            if reply.get(c) != v:
+                bad.append(i)
+                break
+    return bad
+
+
+def phase_serving(ctx):
+    """The binned serving plane on the card: the serving bench's
+    flagship model fitted, saved and loaded (example 01's flow), the
+    binned scorer at every rung (card vs CPU vs ``predict_binned``,
+    bitwise; device and host time, launches), request-thread binning,
+    the batched server under 64 closed-loop clients with the binned
+    plane on and off, the continuous server, and an imported model
+    string served through ``derive_binning``."""
+    import tempfile
+
+    import torch
+
+    from mmlspark_tpu_torch import DataFrame, LightGBMClassifier
+    from mmlspark_tpu_torch.core.env import (INFER_AUTOCAST, SERVE_BINNED,
+                                             env_override)
+    from mmlspark_tpu_torch.core.pipeline import PipelineStage
+    from mmlspark_tpu_torch.io.serving import (ServingServer, _BinnedPlane,
+                                               serve_continuous)
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt.estimators import \
+        LightGBMClassificationModel
+    from mmlspark_tpu_torch.parallel.inference import bucket_ladder
+
+    out = {"card": ctx["smi"]}
+    failures = []
+    x, y = serving_data(SERVE_ROWS)
+    est = LightGBMClassifier(numIterations=SERVE_TREES, numLeaves=63,
+                             maxBin=255)
+    torch.cuda.synchronize()
+    H.hist_kernel_launches = H.hist_quant_kernel_launches = 0
+    t0 = time.perf_counter()
+    model = est.fit(DataFrame({"features": x, "label": y}))
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    launches = (H.hist_kernel_launches, H.hist_quant_kernel_launches)
+    out["fit_launches"] = {"level_hist": launches[0],
+                           "level_hist_quant": launches[1]}
+    ctx["launches"]["serving_path"] = launches[0]
+    depth = model.booster.max_depth
+    out["trees"], out["max_depth"] = model.booster.num_trees, depth
+    if launches != (SERVE_TREES * 6, 0) or depth != 6:
+        failures.append(f"the fit launched level_hist / level_hist_quant "
+                        f"{launches} times at depth {depth}, expected "
+                        f"({SERVE_TREES * 6}, 0) at depth 6")
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(os.path.join(tmp, "gbdt-model"))
+        loaded = PipelineStage.load(os.path.join(tmp, "gbdt-model"))
+    out["loaded_device"] = str(loaded.resolved_device())
+
+    # the scorer at every rung: card, CPU and predict_binned bitwise
+    ladder = bucket_ladder(SERVER_ARGS["max_batch_size"])
+    pool = x[:SERVE_POOL]
+    plan = loaded.serving_binned_plan()
+    bins = plan.bin_rows(pool)
+    cpu_scorer = loaded.booster.predict_binned_scorer("off", "cpu")
+    with env_override(INFER_AUTOCAST, "bf16"):
+        plan16 = loaded.serving_binned_plan()
+    cpu16 = loaded.booster.predict_binned_scorer("bf16", "cpu")
+    rungs = {}
+    for b in ladder:
+        xb = bins[:b]
+        card = plan.score(xb).cpu().numpy()
+        same = (np.array_equal(card, cpu_scorer(xb).numpy())
+                and np.array_equal(
+                    card, loaded.booster.predict_binned(xb).cpu().numpy()))
+        same16 = np.array_equal(plan16.score(xb).cpu().numpy(),
+                                cpu16(xb).numpy())
+        reps = 50
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            plan.score(xb).cpu()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        kernels, copies, busy = kernel_counts(
+            torch, lambda: plan.score(xb).cpu())
+        # device time from bins already on the card: a pageable copy
+        # from the host waits for the stream (and so for device_ms's
+        # spin kernel); host_ms counts the copies. The batches behind
+        # the spin stay under the card's queue of pending launches
+        # (about 1,024), past which the host would wait for the spin.
+        xd = torch.as_tensor(xb).cuda()
+        rungs[b] = {"bitwise_card_cpu_predict_binned": same,
+                    "bf16_bitwise_card_cpu": same16,
+                    "device_ms": device_ms(torch, lambda: plan.score(xd),
+                                           reps=max(1, 768 // kernels)),
+                    "event_ms": time_ms(torch, lambda: plan.score(xb)),
+                    "host_ms": host_ms, "kernel_busy_ms": busy,
+                    "launches": kernels, "copies": copies}
+        if not (same and same16):
+            failures.append(f"the scorer at rung {b} differs between the "
+                            f"card, the CPU and predict_binned")
+    out["rungs"] = rungs
+    out["bf16_max_abs_vs_f32"] = float(np.max(np.abs(
+        plan16.score(bins).cpu().numpy().astype(np.float64)
+        - plan.score(bins).cpu().numpy())))
+
+    # the off arm's scoring: transform of one full batch (the per-tree
+    # walk on the card, then the numpy tail)
+    batch_frame = DataFrame({"features": pool[:SERVER_ARGS["max_batch_size"]]})
+    loaded.transform(batch_frame)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        loaded.transform(batch_frame)
+    out["transform_ms_per_full_batch"] = (time.perf_counter() - t0) * 1e3 / 5
+    out["transform_launches_per_full_batch"] = kernel_counts(
+        torch, lambda: loaded.transform(batch_frame))[0]
+
+    # request-thread binning (numpy), microseconds per row
+    plane = _BinnedPlane(plan, ladder)
+    payloads = [{"features": row.tolist()} for row in pool]
+    t0 = time.perf_counter()
+    for _ in range(4):
+        for p in payloads:
+            plane.bin_row(p)
+    out["bin_row_us"] = (time.perf_counter() - t0) * 1e6 / (4 * len(pool))
+
+    # what the replies must equal
+    frame = DataFrame({"features": pool})
+    raw_t = loaded.transform(frame)
+    binned_t = loaded.copy(binnedScoring=True).transform(frame)
+    bins32 = np.stack([np.searchsorted(e.astype(np.float32), pool[:, f],
+                                       side="left") + 1
+                       for f, e in enumerate(loaded.bin_mapper.upper_edges)],
+                      axis=1)
+    exact = ~(bins32 != loaded.bin_mapper.transform(pool)).any(axis=1)
+    out["rows_with_a_float32_bin_change"] = int((~exact).sum())
+    id_bodies = [json.dumps({"features": row.tolist(), "__id__": i}).encode()
+                 for i, row in enumerate(pool)]
+    load_bodies = [json.dumps({"features": row.tolist()}).encode()
+                   for row in pool]
+
+    def check_arm(name, replies, binned):
+        want = binned_t if binned else raw_t
+        bad = replies_against(replies, want)
+        raw_bad = replies_against(replies, raw_t, exact) if binned else bad
+        codes = sorted({s for s, _ in replies})
+        res = {"status_codes": codes, "rows_differing": len(bad),
+               "rows_differing_from_raw_where_bins_agree": len(raw_bad)}
+        if binned:
+            res["rows_differing_from_raw"] = len(
+                replies_against(replies, raw_t))
+        if bad or raw_bad or codes != [200]:
+            failures.append(f"{name}: replies {res}")
+        return res
+
+    servers = []
+    try:
+        for mode in ("on", "off"):
+            arm = {}
+            with env_override(SERVE_BINNED, mode):
+                parity = ServingServer(loaded, **SERVER_ARGS).start()
+                servers.append(parity)
+                loadsrv = ServingServer(loaded, reply_col="prediction",
+                                        max_connections=SERVE_CLIENTS + 8,
+                                        **SERVER_ARGS).start()
+                servers.append(loadsrv)
+            arm["replies"] = check_arm(f"arm {mode}",
+                                       post_rows(parity, id_bodies),
+                                       mode == "on")
+            seen0 = (loadsrv._models["default"].plane.shapes_seen
+                     if mode == "on" else None)
+            arm["sustained"] = sustained(loadsrv, load_bodies,
+                                         SERVE_CLIENTS, SERVE_SECONDS)
+            for tag, srv in (("parity", parity), ("load", loadsrv)):
+                served = srv._models["default"]
+                st = dict(served.stats)
+                batches = st["binned_batches"] + st["generic_batches"]
+                arm[f"{tag}_server"] = {
+                    "binned_active": served.plane is not None,
+                    "shapes_seen": (served.plane.shapes_seen
+                                    if served.plane else None),
+                    "mean_batch": st["served"] / max(batches, 1),
+                    **{k: st[k] for k in (
+                        "served", "errors", "timeouts", "rejected",
+                        "binned_batches", "generic_batches",
+                        "binned_fallbacks", "shed_deadline")},
+                    # where a batch's time went, on the scoring thread
+                    "queue_wait_ms_per_request":
+                        st["queue_wait_s"] * 1e3 / max(st["served"], 1),
+                    "score_ms_per_batch": st["score_s"] * 1e3
+                    / max(batches, 1),
+                    "reply_ms_per_batch": st["reply_s"] * 1e3
+                    / max(batches, 1)}
+                srv.stop()
+                s = arm[f"{tag}_server"]
+                ok = (s["errors"] == 0 and s["timeouts"] == 0
+                      and s["shed_deadline"] == 0)
+                if mode == "on":
+                    ok = ok and (s["binned_active"]
+                                 and s["binned_fallbacks"] == 0
+                                 and s["generic_batches"] == 0
+                                 and s["shapes_seen"] == len(ladder))
+                else:
+                    ok = ok and s["binned_batches"] == 0
+                if not ok:
+                    failures.append(f"arm {mode}, {tag} server: {s}")
+            sus = arm["sustained"]
+            if (sus["timeout_504"] or sus["other_status"]
+                    or sus["client_errors"] or not sus["ok"]
+                    or (mode == "on" and seen0 != len(ladder))):
+                failures.append(f"arm {mode} sustained run: {sus}")
+            out[f"batched_{mode}"] = arm
+
+        # the continuous server, held as the on arm, then 500 sequential
+        # keep-alive single-row requests
+        cont = serve_continuous(loaded)
+        servers.append(cont)
+        cres = {"replies": check_arm("continuous",
+                                     post_rows(cont, id_bodies), True)}
+        import http.client
+        conn = http.client.HTTPConnection(cont.host, cont.port, timeout=30)
+        lat = []
+        try:
+            for i in range(SERVE_SEQUENTIAL):
+                t0 = time.perf_counter()
+                conn.request("POST", cont.api_path,
+                             body=load_bodies[i % len(load_bodies)],
+                             headers={"Content-Type": "application/json"})
+                r = conn.getresponse()
+                r.read()
+                if r.status == 200:
+                    lat.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            conn.close()
+        lat.sort()
+        served = cont._models["default"]
+        cres.update({
+            "sequential": len(lat), "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[max(0, -(-99 * len(lat) // 100) - 1)],
+            "binned_active": served.plane is not None,
+            "shapes_seen": served.plane.shapes_seen if served.plane else None,
+            **{k: served.stats[k] for k in (
+                "served", "errors", "binned_batches", "generic_batches",
+                "binned_fallbacks")}})
+        cont.stop()
+        if (len(lat) != SERVE_SEQUENTIAL or not cres["binned_active"]
+                or cres["errors"] or cres["generic_batches"]
+                or cres["binned_fallbacks"]):
+            failures.append(f"continuous server: {cres}")
+        out["continuous"] = cres
+
+        # an imported model string plans through derive_binning
+        imported = LightGBMClassificationModel.load_native_model_from_string(
+            loaded.get_model_string())
+        iplan = imported.serving_binned_plan()
+        iraw = iplan.score(iplan.bin_rows(pool)).cpu().numpy()
+        iwant = DataFrame(iplan.finish(iraw))
+        with env_override(SERVE_BINNED, "on"):
+            isrv = ServingServer(imported, **SERVER_ARGS).start()
+        servers.append(isrv)
+        ireplies = post_rows(isrv, id_bodies)
+        ist = dict(isrv._models["default"].stats)
+        isrv.stop()
+        ibad = replies_against(ireplies, iwant)
+        out["imported"] = {
+            "derived": imported.bin_mapper is None,
+            "rows_differing_from_its_plan": len(ibad),
+            "rows_differing_from_loaded_binned": len(replies_against(
+                ireplies, binned_t)),
+            **{k: ist[k] for k in ("served", "errors", "binned_batches",
+                                   "generic_batches", "binned_fallbacks")}}
+        if (ibad or ist["generic_batches"] or ist["errors"]
+                or ist["binned_fallbacks"] or imported.bin_mapper is not None):
+            failures.append(f"imported model: {out['imported']}")
+    finally:
+        for srv in servers:
+            srv.stop()
+    if failures:
+        raise AssertionError(json.dumps({"failures": failures, **out},
+                                        default=str))
+    return out
+
+
 def flash_bound(b, n, nk, h, d, causal, dtype):
     """The least time for the flash function: q, k, v read once and the
     output written once, over the memory rate; 4*d operations per
@@ -1553,6 +2017,8 @@ def kernel_table(ctx):
     kernels[0]["launches_estimator_path"] = ctx["launches"]["estimator_path"]
     kernels[1]["launches_estimator_path"] = \
         ctx["launches"]["estimator_path_q16"]
+    # launches over the served model's 100-tree fit (phase serving_path)
+    kernels[0]["launches_serving_path"] = ctx["launches"]["serving_path"]
     flash = ctx["flash_rows"]
     # flash_attn.cu takes float32 only: every bfloat16 call runs
     # flash_attn_sm90.cu, in place or staged
@@ -1601,6 +2067,7 @@ def main() -> int:
                      ("main_path_quant", phase_main_quant),
                      ("card_vs_cpu_quant", phase_card_vs_cpu_quant),
                      ("estimator_path", phase_estimator),
+                     ("serving_path", phase_serving),
                      ("kernel_flash", phase_kernel_flash),
                      ("sdpa_backends", phase_sdpa_backends),
                      ("attention_path", phase_attention_path),

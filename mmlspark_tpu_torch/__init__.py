@@ -12,6 +12,8 @@ package so each counterpart is easy to find:
   - ``models.gbdt.estimators``    LightGBMClassifier / LightGBMRegressor
                                   (fit / transform over ``DataFrame``)
   - ``models.gbdt.hist_cuda``     the level-histogram kernels' wrappers
+  - ``io.serving``                ServingServer / ContinuousServingServer
+                                  (HTTP serving, the binned data plane)
   - ``parallel.attention``        dense / blockwise / fused attention, ring
                                   and Ulysses over ``torch.distributed``
   - ``parallel.flash``            the flash-attention kernel's wrapper
@@ -29,6 +31,12 @@ from mmlspark_tpu_torch.core.dataframe import DataFrame  # noqa: F401
 from mmlspark_tpu_torch.core.pipeline import (  # noqa: F401
     Pipeline,
     PipelineModel,
+)
+from mmlspark_tpu_torch.io.serving import (  # noqa: F401
+    ContinuousServingServer,
+    ServingServer,
+    serve_continuous,
+    serve_pipeline,
 )
 from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays  # noqa: F401
 from mmlspark_tpu_torch.models.gbdt.estimators import (  # noqa: F401

@@ -1,12 +1,29 @@
 """Environment-variable readers for the port's knobs.
 
 The port's own copy of the readers it needs from the JAX package's
-``core/env.py`` (``env_str``, ``env_flag`` and the warn-once contract).
-Port knobs are named ``MMLSPARK_TORCH_*`` and read only here and by the
-module that owns each one:
+``core/env.py`` (``env_str``, ``env_flag``, ``env_int``, ``env_float``,
+``env_override`` and the warn-once contract). Port knobs are named
+``MMLSPARK_TORCH_*`` and read only here and by the module that owns each
+one; the defaults are the JAX package's:
 
   - ``MMLSPARK_TORCH_HIST_QUANT``  off|q16|q8 (``trainer.resolve_hist_quant``)
   - ``MMLSPARK_TORCH_HIST_SUB``    0|1 (``trainer.resolve_subtract``)
+  - ``MMLSPARK_TORCH_SERVE_BINNED``  auto|off|on: the serving binned data
+    plane (``io/serving.py``); auto activates it where the served model
+    supports it, on warns once (reason in ``/healthz``) where it cannot,
+    off keeps the generic ``transform`` path
+  - ``MMLSPARK_TORCH_SERVE_BUCKETS``  comma-separated batch-size ladder
+    of the binned plane (empty: powers of two up to ``max_batch_size``)
+  - ``MMLSPARK_TORCH_SERVE_MODEL_QUEUE``  per-model pending-queue cap in a
+    multi-model server (0: ``max_queue`` applies to each model)
+  - ``MMLSPARK_TORCH_SERVE_WARM_MODELS``  served models that keep their
+    binned plane resident (LRU; default 4)
+  - ``MMLSPARK_TORCH_SERVE_TENANT_RATE``  per-tenant token-bucket refill
+    in requests/s (0: admission buckets off)
+  - ``MMLSPARK_TORCH_SERVE_TENANT_BURST``  per-tenant bucket capacity
+    (default 8)
+  - ``MMLSPARK_TORCH_INFER_AUTOCAST``  off|bf16: the binned scorer's leaf
+    table in bfloat16 (``parallel.shard_rules.resolve_infer_autocast``)
 
 Parsing contract, as in the JAX package: a malformed value must not
 abort or silently mislabel a run, so it warns once per variable and the
@@ -17,10 +34,19 @@ from __future__ import annotations
 
 import os
 import warnings
-from typing import Optional, Set
+from contextlib import contextmanager
+from typing import Iterator, Optional, Set
 
 _TRUTHY = frozenset(("1", "true", "yes", "on"))
 _FALSEY = frozenset(("0", "false", "off", "no"))
+
+SERVE_BINNED = "MMLSPARK_TORCH_SERVE_BINNED"
+SERVE_BUCKETS = "MMLSPARK_TORCH_SERVE_BUCKETS"
+SERVE_MODEL_QUEUE = "MMLSPARK_TORCH_SERVE_MODEL_QUEUE"
+SERVE_WARM_MODELS = "MMLSPARK_TORCH_SERVE_WARM_MODELS"
+SERVE_TENANT_RATE = "MMLSPARK_TORCH_SERVE_TENANT_RATE"
+SERVE_TENANT_BURST = "MMLSPARK_TORCH_SERVE_TENANT_BURST"
+INFER_AUTOCAST = "MMLSPARK_TORCH_INFER_AUTOCAST"
 
 _WARNED: Set[str] = set()
 
@@ -61,3 +87,58 @@ def env_flag(name: str, default: bool = False) -> bool:
     warn_once(name, f"{name}={v!r} is not a recognized boolean "
                     f"(1/true/yes/on or 0/false/off/no); using {default}")
     return default
+
+
+def env_int(name: str, default: int, minimum: Optional[int] = None) -> int:
+    """Integer knob; a non-integer or below-``minimum`` value warns once
+    and returns ``default``."""
+    v = os.environ.get(name)
+    if v is None or not v.strip():
+        return default
+    try:
+        value = int(v.strip())
+    except ValueError:
+        warn_once(name, f"{name}={v!r} is not an integer; using {default}")
+        return default
+    if minimum is not None and value < minimum:
+        warn_once(name, f"{name}={value} is below the minimum {minimum}; "
+                        f"using {default}")
+        return default
+    return value
+
+
+def env_float(name: str, default: float,
+              minimum: Optional[float] = None) -> float:
+    """Float knob; a non-numeric or below-``minimum`` value warns once
+    and returns ``default``."""
+    v = os.environ.get(name)
+    if v is None or not v.strip():
+        return default
+    try:
+        value = float(v.strip())
+    except ValueError:
+        warn_once(name, f"{name}={v!r} is not a number; using {default}")
+        return default
+    if minimum is not None and value < minimum:
+        warn_once(name, f"{name}={value} is below the minimum {minimum}; "
+                        f"using {default}")
+        return default
+    return value
+
+
+@contextmanager
+def env_override(name: str, value: Optional[str]) -> Iterator[None]:
+    """Set (or, with ``None``, unset) a variable for the block and
+    restore its previous state on exit."""
+    prev = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev

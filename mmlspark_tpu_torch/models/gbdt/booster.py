@@ -3,13 +3,21 @@
 Port of the JAX package's ``BoosterArrays`` for numeric boosters. Every
 tree is stored in a fixed full-binary layout (node i's children are
 2i+1 / 2i+2); scoring walks all rows ``max_depth`` gather steps per
-tree and adds the trees one by one in order, so the per-tree
-accumulation order is the JAX ``scan``'s.
+tree and adds the trees one by one in order, each add rounded as the
+fused multiply-add XLA makes of it, so the accumulation is the JAX
+``scan``'s.
 
 This slice scores numeric boosters trained without ``decision_type``
 bits (NaN routes left, as the missing bin 0 does in training).
 Categorical / zero-as-missing routing, leaf indices and contributions
 are later work (ROADMAP A5).
+
+Serving scores through ``predict_binned_scorer``: a binned scorer that
+holds the tables on its device once (cached per booster, autocast and
+device; ``clear_jit_cache`` drops it), routes every tree of a batch at
+once per depth level, and still adds the trees one by one in order.
+``derive_binning`` recovers a binning from an imported model string's
+own thresholds so such a model can be served binned too.
 
 Also carries the host-side model methods of the JAX package's booster:
 feature importances, LightGBM's native model-string format (written and
@@ -20,6 +28,7 @@ dict a saved model persists.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
@@ -27,6 +36,8 @@ import numpy as np
 import torch
 
 from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
+from mmlspark_tpu_torch.ops.ingest import binned_ingest_dtype
+from mmlspark_tpu_torch.parallel.shard_rules import placement_cast
 
 
 @dataclass
@@ -62,6 +73,89 @@ class BoosterArrays:
     def num_nodes(self) -> int:
         return self.split_feature.shape[1]
 
+    @property
+    def has_categorical(self) -> bool:
+        return (self.decision_type is not None and self.cat_bitset is not None
+                and bool((self.decision_type & 1).any()))
+
+    @property
+    def supports_binned(self) -> bool:
+        """Binned-scoring eligibility, as the JAX package decides it:
+        numerical-only routing and valid bin thresholds. Memoised: the
+        arrays are immutable after construction (derive modified
+        boosters with ``dataclasses.replace``)."""
+        cached = self.__dict__.get("_supports_binned")
+        if cached is None:
+            cached = (not self.has_categorical
+                      and not bool((self.threshold_bin[
+                          self.split_feature >= 0] < 0).any()))
+            self.__dict__["_supports_binned"] = cached
+        return cached
+
+    @property
+    def zero_premap_mode(self) -> str:
+        """How exact-0.0 inputs must be handled before binned scoring:
+        ``"none"`` (no zero-as-missing nodes, or no ``decision_type``),
+        ``"all_left"`` (every zero-as-missing node routes missing left:
+        map 0.0 -> NaN before binning, as a zero-as-missing fit did) or
+        ``"unsupported"`` (mixed per-node zero semantics a per-feature
+        bin id cannot express). Memoised like ``supports_binned``."""
+        cached = self.__dict__.get("_zero_premap_mode")
+        if cached is None:
+            if self.decision_type is None:
+                cached = "none"
+            else:
+                internal = self.split_feature >= 0
+                dt = self.decision_type[internal]
+                num_dt = dt[(dt & 1) == 0]   # numerical internal nodes
+                mt1 = ((num_dt >> 2) & 3) == 1
+                if not bool(mt1.any()):
+                    cached = "none"
+                elif bool((mt1 & ((num_dt & 2) != 0)).all()):
+                    cached = "all_left"
+                else:
+                    cached = "unsupported"
+            self.__dict__["_zero_premap_mode"] = cached
+        return cached
+
+    def clear_jit_cache(self) -> None:
+        """Drop the cached binned scorers (the serving warm/cold LRU's
+        eviction hook): their device tables are released and a scorer is
+        built again on its next use. The memoised verdicts
+        (``supports_binned`` / ``zero_premap_mode``) stay."""
+        self.__dict__.pop("_scorers", None)
+
+    def predict_binned_scorer(self, autocast: str = "off",
+                              device: DeviceLike = None) -> "BinnedScorer":
+        """The serving scorer, the counterpart of the JAX package's
+        ``predict_binned_jit(autocast)``: BINNED features (N, F) ->
+        raw scores, (N,) or (N, K), on ``device`` (the card unless
+        ``"cpu"``). Built once per (autocast, device) and cached on the
+        booster. ``autocast="bf16"`` keeps the leaf table in bfloat16
+        (``placement_cast``); each leaf value is promoted to float32
+        against the float32 tree weight, so accumulation stays float32
+        and only the stored leaf values are rounded."""
+        if autocast not in ("off", "bf16"):
+            raise ValueError(f"predict_binned_scorer: autocast={autocast!r} "
+                             "not in ('off', 'bf16')")
+        if not self.supports_binned:
+            if self.has_categorical:
+                raise NotImplementedError(
+                    "binned scoring routes by threshold_bin; categorical "
+                    "splits route by raw-value bitset — use predict")
+            raise ValueError(
+                "this booster has no binned thresholds (imported from a "
+                "LightGBM model string, which carries raw-value "
+                "thresholds only) — use predict on raw features, or "
+                "derive_binning() to recover a binning from the model's "
+                "own splits and score binned")
+        dev = resolve_device(device)
+        cache = self.__dict__.setdefault("_scorers", {})
+        key = (autocast, str(dev))
+        if key not in cache:
+            cache[key] = BinnedScorer(self, autocast, dev)
+        return cache[key]
+
     def _require_numeric(self, what: str = "scoring"):
         if self.decision_type is not None or self.cat_bitset is not None:
             raise NotImplementedError(
@@ -77,7 +171,7 @@ class BoosterArrays:
         tw = torch.as_tensor(self.tree_weights, dtype=torch.float32,
                              device=dev)
         n, k = x.shape[0], self.num_class
-        acc = torch.full((n, k), self.init_score, dtype=torch.float32,
+        acc = torch.full((k, n), self.init_score, dtype=torch.float32,
                          device=dev)
         for t in range(self.num_trees):
             node = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -88,8 +182,8 @@ class BoosterArrays:
                 child = torch.where(go_left(fx, tv[t][node]), 2 * node + 1,
                                     2 * node + 2)
                 node = torch.where(is_leaf, node, child)
-            acc[:, t % k] += nv[t][node] * tw[t]
-        return acc[:, 0] if k == 1 else acc
+            _add_tree(acc[t % k], nv[t][node].double() * tw[t].double())
+        return acc[0] if k == 1 else acc.t()
 
     def predict_binned(self, binned, device: DeviceLike = None) -> torch.Tensor:
         """BINNED features (N, F) small-int bin ids (the
@@ -97,7 +191,7 @@ class BoosterArrays:
         uint8) -> raw scores, (N,) or (N, K): routes by
         ``bin <= threshold_bin``."""
         self._require_numeric()
-        if (self.threshold_bin[self.split_feature >= 0] < 0).any():
+        if not self.supports_binned:
             raise ValueError(
                 "this booster has no binned thresholds (imported from a "
                 "model string); score raw features with predict")
@@ -120,6 +214,87 @@ class BoosterArrays:
                              device=dev)
         return self._score(xd, tv,
                            lambda fx, thr: torch.isnan(fx) | (fx <= thr))
+
+    def derive_binning(self) -> "tuple[DerivedBinning, BoosterArrays]":
+        """Recover a binning from the model's own split thresholds so an
+        IMPORTED model string (raw-value thresholds only, threshold_bin
+        stamped -1) can be scored binned, as the JAX package does.
+
+        The per-feature sorted unique thresholds T define bins
+        ``bin(x) = 1 + #{T_i < x}`` (bin 0 is the always-left missing
+        sentinel, as in trained models); a node splitting at T[j] gets
+        ``threshold_bin = 1 + j``, so ``bin(x) <= 1 + j  <=>  x <= T[j]``
+        in float64. Returns ``(binning, booster)``, the booster a copy
+        with ``threshold_bin`` filled. NaN (and, at zero-as-missing
+        nodes, exact 0.0) land where every node on the feature agrees
+        they go; ``DerivedBinning.transform`` raises where the model
+        mixes directions for a feature whose column holds such values.
+        Categorical models are refused."""
+        if self.has_categorical:
+            raise NotImplementedError(
+                "binned scoring routes by threshold_bin; categorical "
+                "splits route by raw-value bitset — use predict")
+        thresholds: List[np.ndarray] = []
+        nodes_per_feature: List[List[tuple]] = [
+            [] for _ in range(self.num_features)]
+        internal = self.split_feature >= 0
+        for t, m in zip(*np.nonzero(internal)):
+            d = int(self.decision_type[t, m]) \
+                if self.decision_type is not None else None
+            nodes_per_feature[int(self.split_feature[t, m])].append(
+                (float(self.threshold_value[t, m]), d))
+        nan_bin = np.zeros(self.num_features, dtype=np.int64)
+        zero_bin = np.full(self.num_features, -1, dtype=np.int64)
+        for f in range(self.num_features):
+            tf = np.unique(np.asarray(
+                [thr for thr, _ in nodes_per_feature[f]], dtype=np.float64))
+            thresholds.append(tf)
+            k = len(tf)
+            # where a NaN in this column has to land: only missing type
+            # 2 treats NaN as missing; types 0 and 3 compare it as 0.0,
+            # type 1 treats NaN (and 0.0) as missing
+            pol = set()
+            for _, d in nodes_per_feature[f]:
+                if d is None:
+                    pol.add("left")     # trained no-cat: NaN routes left
+                else:
+                    mt = (d >> 2) & 3
+                    dl = (d & 2) != 0
+                    pol.add("zero" if mt in (0, 3)
+                            else ("left" if dl else "right"))
+            if not pol or pol == {"left"}:
+                nan_bin[f] = 0
+            elif pol == {"right"}:
+                nan_bin[f] = k + 1
+            elif pol == {"zero"}:
+                nan_bin[f] = 1 + int(np.searchsorted(tf, 0.0, side="left"))
+            else:
+                nan_bin[f] = -1     # mixed: refused if NaN appears
+            # zero-as-missing (missing type 1): exact 0.0 routes by the
+            # node's default direction
+            zpol = set()
+            for _, d in nodes_per_feature[f]:
+                if d is not None and ((d >> 2) & 3) == 1:
+                    zpol.add("left" if (d & 2) != 0 else "right")
+                else:
+                    zpol.add("compare")
+            if zpol and zpol != {"compare"}:
+                if zpol == {"left"}:
+                    zero_bin[f] = 0
+                elif zpol == {"right"}:
+                    zero_bin[f] = k + 1
+                else:
+                    zero_bin[f] = -2    # mixed: refused if 0.0 appears
+        max_bin_id = max((len(t) + 1 for t in thresholds), default=1)
+        binning = DerivedBinning(thresholds=thresholds, nan_bin=nan_bin,
+                                 zero_bin=zero_bin, num_bins=max_bin_id + 1)
+        tb = np.array(self.threshold_bin, copy=True)
+        for t, m in zip(*np.nonzero(internal)):
+            f = int(self.split_feature[t, m])
+            tb[t, m] = 1 + int(np.searchsorted(
+                thresholds[f], float(self.threshold_value[t, m]),
+                side="left"))
+        return binning, dataclasses.replace(self, threshold_bin=tb)
 
     # -- importances --------------------------------------------------------
     def feature_importances(self, importance_type: str = "split") -> np.ndarray:
@@ -466,3 +641,124 @@ class BoosterArrays:
 # LightGBM decision_type of a numeric split that sends NaN left and
 # compares everything else (default-left bit 2 | missing type NaN 8)
 _NAN_LEFT = 10
+
+
+def _add_tree(acc: torch.Tensor, contribution: torch.Tensor) -> None:
+    """``acc += leaf * weight`` for one tree, in place on a float32 row
+    of the accumulator, rounded once: XLA contracts the JAX ``scan``'s
+    ``acc.at[:, cls].add(nv * tw)`` into one fused multiply-add on the
+    CPU (ROADMAP C9). ``contribution`` is the float64 product of two
+    float32 values, so it is exact; the float64 sum then rounds far
+    below a float32 ulp, so the one float32 rounding is the fused op's
+    (barring a sum exactly on a midpoint), as ``trainer._smooth`` does
+    for C5. One elementwise launch: the add runs in float64 and writes
+    float32."""
+    torch.add(acc, contribution, out=acc)
+
+
+class BinnedScorer:
+    """A booster's binned scorer on one device: ``split_feature``,
+    ``threshold_bin``, ``node_value`` and ``tree_weights`` are copied
+    there once, flattened to (T * M,). A call routes every tree of the
+    batch at once, depth level by depth level, on a (rows, trees) node
+    tensor indexed at ``t * M + node`` — integer work, so the leaves are
+    the per-tree walk's — then adds the trees' contributions one by one
+    in tree order from ``init_score`` (``_add_tree``): the JAX ``scan``'s
+    left fold (a ``sum`` or ``cumsum`` over the tree axis would add in
+    another order)."""
+
+    def __init__(self, booster: BoosterArrays, autocast: str,
+                 device: torch.device):
+        t, m = booster.split_feature.shape
+        self.device = device
+        self.autocast = autocast
+        self.num_trees, self.max_depth = t, booster.max_depth
+        self.num_class, self.init_score = booster.num_class, booster.init_score
+        self._sf = torch.as_tensor(booster.split_feature.reshape(-1),
+                                   device=device).long()
+        self._tb = torch.as_tensor(booster.threshold_bin.reshape(-1),
+                                   device=device).long()
+        nv = torch.as_tensor(booster.node_value.reshape(-1),
+                             dtype=torch.float32, device=device)
+        self._nv = placement_cast(
+            nv, torch.bfloat16 if autocast == "bf16" else None)
+        self._tw64 = torch.as_tensor(booster.tree_weights,
+                                     dtype=torch.float32,
+                                     device=device).double()
+        self._offsets = (torch.arange(t, device=device) * m)[None, :]
+
+    def __call__(self, binned) -> torch.Tensor:
+        """``binned``: (N, F) bin ids (numpy or a tensor) -> raw scores
+        on this scorer's device, (N,) or (N, K)."""
+        bd = torch.as_tensor(binned).to(self.device)
+        n, k = bd.shape[0], self.num_class
+        node = torch.zeros((n, self.num_trees), dtype=torch.int64,
+                           device=self.device)
+        for _ in range(self.max_depth):
+            flat = node + self._offsets
+            feat = self._sf[flat]
+            fb = torch.gather(bd, 1, feat.clamp_min(0))
+            left = 2 * node + 1
+            child = torch.where(fb.long() <= self._tb[flat], left, left + 1)
+            node = torch.where(feat < 0, node, child)
+        # (T, N): tree t's leaf values (bf16 promoted to float32 first)
+        # times its weight, exact in float64
+        val = (self._nv[node + self._offsets].float().double()
+               * self._tw64).t()
+        acc = torch.full((k, n), self.init_score, dtype=torch.float32,
+                         device=self.device)
+        for t in range(self.num_trees):
+            _add_tree(acc[t % k], val[t])
+        return acc[0] if k == 1 else acc.t()
+
+
+@dataclass
+class DerivedBinning:
+    """Per-feature threshold tables recovered from an imported model's
+    splits (``BoosterArrays.derive_binning``). ``transform`` bins raw
+    features for the binned scorer: ``bin(x) = 1 + #{T_i < x}`` in
+    float64, with NaN / zero-as-missing values mapped per the model's
+    (uniform) per-feature policy and refused where it mixes
+    directions."""
+
+    thresholds: List[np.ndarray]    # per feature, sorted unique float64
+    nan_bin: np.ndarray             # (F,) where NaN lands; -1 = refuse
+    zero_bin: np.ndarray            # (F,) where exact 0.0 lands;
+                                    # -1 = compares normally, -2 = refuse
+    num_bins: int                   # max bin id + 1 (dtype sizing)
+
+    @property
+    def dtype(self):
+        return binned_ingest_dtype(self.num_bins)
+
+    def transform(self, x: np.ndarray) -> np.ndarray:
+        x = np.asarray(x)
+        n, f = x.shape
+        if f != len(self.thresholds):
+            raise ValueError(f"expected {len(self.thresholds)} features, "
+                             f"got {f}")
+        out = np.empty((n, f), dtype=self.dtype)
+        for j, tf in enumerate(self.thresholds):
+            col = np.asarray(x[:, j], dtype=np.float64)
+            bins = 1 + np.searchsorted(tf, col, side="left")
+            nan_mask = np.isnan(col)
+            if nan_mask.any():
+                if self.nan_bin[j] < 0:
+                    raise ValueError(
+                        f"feature {j}: this model mixes NaN default "
+                        "directions across nodes, which a per-feature "
+                        "bin id cannot express — use predict for rows "
+                        "with NaN in this column")
+                bins[nan_mask] = self.nan_bin[j]
+            if self.zero_bin[j] != -1:
+                zmask = col == 0.0
+                if zmask.any():
+                    if self.zero_bin[j] == -2:
+                        raise ValueError(
+                            f"feature {j}: this model mixes "
+                            "zero-as-missing directions across nodes — "
+                            "use predict for rows with 0.0 in this "
+                            "column")
+                    bins[zmask] = self.zero_bin[j]
+            out[:, j] = bins
+        return out

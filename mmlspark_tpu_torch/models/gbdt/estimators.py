@@ -10,25 +10,25 @@ binned rows to the card once and trains there (``trainer.train``: the
 level-histogram kernels, validation sets, early stopping, warm starts);
 ``transform`` scores on the card (``BoosterArrays.predict``, or
 ``predict_binned`` under ``binnedScoring``) and derives the reply
-columns with the JAX package's numpy tail. Stages run on the card
-unless ``set_device("cpu")`` is called; a fitted model inherits the
-setting, a loaded one takes the card. Without a card the default
-raises: nothing falls back to the CPU.
+columns with the JAX package's numpy tail; ``serving_binned_plan``
+gives the serving plane (``io/serving.py``) the same replies from
+pre-binned rows. Stages run on the card unless ``set_device("cpu")`` is
+called; a fitted model inherits the setting, a loaded one takes the
+card. Without a card the default raises: nothing falls back to the CPU.
 
 The param surface is the JAX package's (the same names, defaults and
 validation); settings outside this slice raise ``NotImplementedError``
 naming the ROADMAP item that adds them: custom objectives and
-checkpoints (A6c), the binned serving plane (A6b), leaf indices and
-SHAP columns (A5), objectives other than binary and L2 (A3),
-multiclass, ranking, categorical splits, zero-as-missing, sampling and
-boosting types (A7), meshes and the voting / feature-parallel learners
-(A8).
+checkpoints (A6c), leaf indices and SHAP columns (A5), objectives
+other than binary and L2 (A3), multiclass, ranking, categorical splits,
+zero-as-missing, sampling and boosting types (A7), meshes and the
+voting / feature-parallel learners (A8).
 """
 
 from __future__ import annotations
 
-from dataclasses import replace
-from typing import Any, Dict, List, Optional
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -58,6 +58,7 @@ from mmlspark_tpu_torch.models.gbdt.trainer import (TrainConfig,
                                                     warm_start_scores)
 from mmlspark_tpu_torch.ops.binning import BinMapper
 from mmlspark_tpu_torch.ops.ingest import binned_ingest_dtype
+from mmlspark_tpu_torch.parallel.shard_rules import resolve_infer_autocast
 
 _A6C = "A6c (estimators: custom objectives and checkpoints)"
 _A8 = "A8 (multi-device GBDT)"
@@ -365,6 +366,11 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCo
         self._device = device
         return self
 
+    def resolved_device(self):
+        """The ``torch.device`` this stage runs on; raises
+        ``DeviceUnavailable`` where that is the card and there is none."""
+        return resolve_device(self._device)
+
     def set_mesh(self, mesh):
         raise _later("set_mesh (rows sharded over a device mesh)", _A8)
 
@@ -545,6 +551,31 @@ class _LightGBMBase(Estimator, _LightGBMParams):
         return model
 
 
+class BinnedServingUnsupported(RuntimeError):
+    """The model cannot take the binned serving data plane; the message
+    is the downgrade reason the server records in ``/healthz``."""
+
+
+@dataclass
+class ServingBinnedPlan:
+    """Everything the serving data plane needs to score pre-binned rows
+    as ``transform`` does (``_LightGBMModelBase.serving_binned_plan``).
+    ``bin_rows`` runs on request threads (numpy only, thread-safe);
+    ``score`` is the binned scorer (one thread, padded bucket shapes; it
+    returns a tensor on the model's device); ``finish`` turns float32
+    margins into the ordered reply columns ``transform`` would have
+    appended."""
+
+    bin_rows: Callable[[np.ndarray], np.ndarray]
+    score: Callable[[np.ndarray], Any]
+    finish: Callable[[np.ndarray], Dict[str, np.ndarray]]
+    ingest_dtype: Any
+    num_features: int
+    features_col: str
+    # the MMLSPARK_TORCH_INFER_AUTOCAST policy the scorer was built under
+    autocast: str = "off"
+
+
 class _LightGBMModelBase(Model, _LightGBMParams):
     """Shared transform/scoring (LightGBMModelMethods analog)."""
 
@@ -598,7 +629,7 @@ class _LightGBMModelBase(Model, _LightGBMParams):
         device = resolve_device(self._device)
         b = self.scoring_booster
         binned = (self.get("binnedScoring") and self.bin_mapper is not None
-                  and not (b.threshold_bin[b.split_feature >= 0] < 0).any())
+                  and b.supports_binned)
         out = []
         for s in range(0, max(len(x), 1), _SCORE_BATCH_ROWS):
             xs = x[s:s + _SCORE_BATCH_ROWS]
@@ -656,9 +687,80 @@ class _LightGBMModelBase(Model, _LightGBMParams):
         model.booster = BoosterArrays.load_model_string(text)
         return model
 
-    def serving_binned_plan(self):
-        raise _later("the binned serving plane (serving_binned_plan)",
-                     "A6b (estimators: binned serving)")
+    def serving_binned_plan(self) -> ServingBinnedPlan:
+        """The serving data plane for this model, or
+        :class:`BinnedServingUnsupported` with the reason.
+
+        Trained models (``bin_mapper`` persisted) bin through the
+        training BinMapper with the booster's ``zero_premap_mode``
+        applied; imported model strings (raw thresholds only) recover a
+        binning from their own splits (``derive_binning``). Rows move at
+        the narrowest ingest dtype and route as the JAX plan's do. The
+        scorer runs on the model's device (the card unless
+        ``set_device("cpu")``); a missing card raises
+        ``DeviceUnavailable``, which is not a reason to downgrade.
+        ``MMLSPARK_TORCH_INFER_AUTOCAST=bf16`` keeps the leaf table in
+        bfloat16 (``BoosterArrays.predict_binned_scorer``)."""
+        if self.booster is None:
+            raise BinnedServingUnsupported("model has no fitted booster")
+        if self.is_set("leafPredictionCol") or self.is_set("featuresShapCol"):
+            raise BinnedServingUnsupported(
+                "leafPredictionCol/featuresShapCol require raw features")
+        device = self.resolved_device()
+        b = self.scoring_booster
+        autocast = resolve_infer_autocast()
+        features_col = self.get("featuresCol")
+        expected_f = self.booster.num_features
+        check_shape = not self.get("predictDisableShapeCheck")
+
+        def _check(x: np.ndarray) -> np.ndarray:
+            x = np.asarray(x, dtype=np.float64)
+            if check_shape and x.shape[1] != expected_f:
+                raise ValueError(
+                    f"feature count mismatch: model has {expected_f},"
+                    f" data has {x.shape[1]}")
+            return x
+
+        if self.bin_mapper is not None:
+            if not b.supports_binned:
+                raise BinnedServingUnsupported(
+                    "booster does not support binned routing "
+                    "(categorical splits or missing bin thresholds)")
+            zmode = b.zero_premap_mode
+            if zmode == "unsupported":
+                raise BinnedServingUnsupported(
+                    "mixed per-node zero-as-missing semantics cannot be "
+                    "expressed as per-feature bin ids")
+            mapper = self.bin_mapper
+            dtype = binned_ingest_dtype(mapper.max_num_bins)
+
+            def bin_rows(x: np.ndarray) -> np.ndarray:
+                x = _check(x)
+                if zmode == "all_left":
+                    # a zero-as-missing fit mapped 0.0 -> NaN before
+                    # binning; scoring bins through the same premap
+                    x = np.where(x == 0.0, np.nan, x)
+                return mapper.transform(x).astype(dtype)
+
+            score = b.predict_binned_scorer(autocast, device)
+        else:
+            try:
+                binning, derived = b.derive_binning()
+            except Exception as e:
+                raise BinnedServingUnsupported(
+                    f"derive_binning failed: {e}") from e
+            dtype = binning.dtype
+
+            def bin_rows(x: np.ndarray) -> np.ndarray:
+                return binning.transform(_check(x))
+
+            score = derived.predict_binned_scorer(autocast, device)
+
+        return ServingBinnedPlan(
+            bin_rows=bin_rows, score=score,
+            finish=self._reply_columns_from_raw,
+            ingest_dtype=dtype, num_features=expected_f,
+            features_col=features_col, autocast=autocast)
 
     def _features(self, df: DataFrame) -> np.ndarray:
         x = np.asarray(df.col(self.get("featuresCol")), dtype=np.float64)

@@ -596,8 +596,9 @@ def test_multiclass_ranker_mesh_and_serving_raise():
         estimators.LightGBMClassifier().set_mesh(object())
     model = estimators.LightGBMRegressor(numIterations=1).set_device(
         "cpu").fit(DataFrame({"features": x, "label": y_int}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-        model.serving_binned_plan()
+    with pytest.raises(estimators.BinnedServingUnsupported,
+                       match="leafPredictionCol"):
+        model.copy(leafPredictionCol="l").serving_binned_plan()
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         model.copy(leafPredictionCol="l").transform(
             DataFrame({"features": x}))
