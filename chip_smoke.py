@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``mmlspark_tpu_torch/csrc`` (nvcc,
-sm_90a), then:
+sm_90a) and its host library from ``mmlspark_tpu_torch/native/
+data_plane.cpp`` (the host C++ compiler; binning), then:
 
   1. device: the card's name and power limit, torch/CUDA versions,
-     kernel build time and the ptxas report;
+     kernel and host-library build times and the ptxas report;
   2. kernel vs plain: the level-histogram kernel (float32 stats summed
      in fixed point) against its plain PyTorch version at the HIGGS
      bench shape (N=2,000,000, F=28, B=255) for every level width of a
@@ -19,8 +20,9 @@ sm_90a), then:
      bytes and operations;
   3. main path: ``BinMapper.fit`` / ``transform``, ``train`` (binary,
      num_leaves=63, max_depth=6, 20 trees) and ``predict_binned`` on the
-     2M rows, with the kernel's launch count over the fit, the training
-     logloss per tree, two fits bitwise equal, and fit / scoring rates;
+     2M rows, with the histogram kernel's launch count over the fit and
+     ``tree_score``'s over the scoring, the training logloss per tree,
+     two fits bitwise equal, and fit / scoring rates;
   4. profile: a 5-tree bench-shape fit under torch.profiler — device
      time by kernel and the device's idle share;
   5. card vs CPU: the same fit at 100k rows and 5 trees on ``cuda`` and
@@ -80,7 +82,9 @@ sm_90a), then:
      num_leaves 63, max_depth 6) — the fit's wall and its split into
      extraction, binning and ``train``, the launches of each histogram
      kernel over the fit, the booster bit for bit equal to a direct
-     ``train`` on the same mapper; the transform's wall, its columns
+     ``train`` on the same mapper; the C++ binning bit for bit its numpy
+     version on the 2M rows, each timed alone; the transform's wall and
+     its ``tree_score`` launches, its columns
      bitwise equal to ``booster.predict`` and the numpy tail, to the
      ``binnedScoring`` transform wherever each feature's float32 bin is its
      bin (elsewhere raw scoring rounds the edge to float32, as in the JAX
@@ -98,18 +102,30 @@ sm_90a), then:
      rung of the ladder 1..64, bitwise equal between the card, the CPU
      and ``predict_binned`` (and card vs CPU under bf16 autocast), with
      its device time (behind a spin kernel), event-pair and host time
-     per batch and its launches per batch; request-thread binning µs per
-     row; ``ServingServer`` (batch 64, 2 ms, queue 256, 5 s timeout)
+     per batch and its launches per batch (one ``tree_score`` kernel and
+     the two copies); request-thread binning µs per row (C++);
+     ``ServingServer`` (batch 64, 2 ms, queue 256, 5 s timeout)
      under 64 keep-alive clients in a closed loop for 5 s, with
      ``MMLSPARK_TORCH_SERVE_BINNED=on`` and ``off``: QPS, p50/p99,
-     503/504, mean batch size and the plane's counters; 256 rows with
+     503/504, mean batch size, the plane's counters, ``tree_score``
+     launches and a loaded batch's scoring time against the scorer's
+     alone; the same load again from 64 clients in a child process
+     (the server then has the interpreter lock to itself); 256 rows with
      ``__id__`` through each arm and through ``serve_continuous``,
      replies bitwise equal to ``transform`` (off) or to the
      ``binnedScoring`` transform and to ``transform`` wherever each
      float32 bin is its bin (on, continuous); 500 sequential
      keep-alive requests to the continuous server (p50/p99); and the
      model's string imported and served through ``derive_binning``,
-     replies bitwise equal to its own plan's.
+     replies bitwise equal to its own plan's;
+ 15. tree scorer vs plain (after phase 14): ``csrc/tree_score.cu``
+     against ``score_cuda.tree_score_reference``, bit for bit and between
+     two launches: the served model at every rung 1..64 (autocast off
+     and bf16; uint8, uint16 and int32 bin ids), the main path's booster
+     at its 2M binned rows and at 2M raw rows with NaN (``predict``), and
+     a random three-class booster; at rung 64 and at 2M rows the device
+     time, the event-pair time, the launches of one call (profiler), the
+     bound and the plain version's time.
 
 Each phase prints one JSON line. Any failure exits non-zero and prints
 no result. Without a CUDA card it exits 2 at once. The last lines are
@@ -323,6 +339,10 @@ def phase_device(ctx):
     t0 = time.perf_counter()
     reports = bindings.build()
     build_s = time.perf_counter() - t0
+    # the host library (C++ binning), built by the host compiler
+    t0 = time.perf_counter()
+    host_lib = bindings.build_host("data_plane")
+    host_build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln
                     or "entry function" in ln]
@@ -332,7 +352,9 @@ def phase_device(ctx):
     return {"nvidia_smi": ctx["smi"], "torch": torch.__version__,
             "cuda": torch.version.cuda, "kind": ctx["kind"],
             "count": torch.cuda.device_count(),
-            "kernel_build_s": build_s, "ptxas": ptxas}
+            "kernel_build_s": build_s, "ptxas": ptxas,
+            "host_library": os.path.basename(host_lib),
+            "host_build_s": host_build_s}
 
 
 def phase_kernel(ctx):
@@ -437,6 +459,7 @@ def phase_main(ctx):
 
     from mmlspark_tpu_torch import BinMapper, TrainConfig, train
     from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
 
     x, y = make_data(N)
     t0 = time.perf_counter()
@@ -463,6 +486,7 @@ def phase_main(ctx):
     torch.cuda.synchronize()
 
     H.hist_kernel_launches = H.hist_quant_kernel_launches = 0
+    S.tree_score_launches = 0
     t0 = time.perf_counter()
     result = train(binned, y, cfg, bin_upper=bin_upper)
     torch.cuda.synchronize()
@@ -485,6 +509,10 @@ def phase_main(ctx):
     scores = booster.predict_binned(binned_d)
     torch.cuda.synchronize()
     score_s = time.perf_counter() - t0
+    # the warm-up and the 2M-row call: one tree_score launch each
+    score_launches = S.tree_score_launches
+    ctx["launches"]["tree_score"] = score_launches
+    ctx["main_booster"] = booster
     # the same booster on a small slice scored on the CPU: same per-tree
     # float32 ops in the same order, so bitwise equal
     small = binned[:100_000].astype(np.uint8)
@@ -492,6 +520,7 @@ def phase_main(ctx):
     expected = TREES * cfg.effective_depth
     out = {"bin_s": bin_s, "fit_s": fit_s, "score_s": score_s,
            "trees": booster.num_trees, "launches": launches,
+           "tree_score_launches": score_launches,
            "expected_launches": expected,
            "syncs_per_fit": syncs[3], "two_fits_bitwise": reproducible,
            "logloss_first": lls[0], "logloss_last": lls[-1],
@@ -502,6 +531,9 @@ def phase_main(ctx):
         raise AssertionError(f"level_hist launched {launches} times in the "
                              f"fit, expected {expected}; level_hist_quant "
                              f"{quant_launches}, expected 0")
+    if score_launches != 2:
+        raise AssertionError(f"two predict_binned calls launched tree_score "
+                             f"{score_launches} times, expected 2")
     if not all(b <= a + 1e-7 for a, b in zip(lls, lls[1:])) \
             or not lls[-1] < lls[0]:
         raise AssertionError(f"training logloss does not fall: {lls}")
@@ -884,6 +916,7 @@ def phase_estimator(ctx):
                                     TrainConfig, train)
     from mmlspark_tpu_torch.core.pipeline import PipelineStage
     from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
 
     x, y = make_data(N)
     df = DataFrame({"features": x, "label": y})
@@ -913,6 +946,24 @@ def phase_estimator(ctx):
         "main_path_train_mrow_trees_per_s": ctx["main_fit_rate"],
         "launches": launches[0], "quant_launches": launches[1]})
     ctx["launches"]["estimator_path"] = launches[0]
+    # the fit's binning runs the port's C++ (native/data_plane.cpp): bit
+    # for bit its numpy version on the 2M rows, each timed alone
+    t0 = time.perf_counter()
+    ids = model.bin_mapper.transform(x, np.uint8)
+    cpp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = np.concatenate([
+        model.bin_mapper._transform_python(np.asarray(x[s:s + 65536],
+                                                      np.float64))
+        for s in range(0, N, 65536)])
+    numpy_s = time.perf_counter() - t0
+    out["binning"] = {"cpp_s": cpp_s, "numpy_s": numpy_s,
+                      "cpp_bitwise_numpy": bool(np.array_equal(ids, plain)),
+                      "host_cpus": len(os.sched_getaffinity(0))}
+    del ids, plain
+    if not out["binning"]["cpp_bitwise_numpy"]:
+        raise AssertionError("the C++ binning differs from its numpy "
+                             "version on the 2M rows")
     expected = TREES * 6
     if launches != (expected, 0):
         raise AssertionError(f"the estimator fit launched level_hist and "
@@ -943,9 +994,13 @@ def phase_estimator(ctx):
     frame = DataFrame({"features": x})
     model.transform(DataFrame({"features": x[:1000]}))     # warm-up
     torch.cuda.synchronize()
+    S.tree_score_launches = 0
     t0 = time.perf_counter()
     scored = model.transform(frame)
     out["transform_s"] = time.perf_counter() - t0
+    out["transform_tree_score_launches"] = S.tree_score_launches
+    if not S.tree_score_launches:
+        raise AssertionError("the transform launched no tree_score kernel")
     out["transform_mrow_trees_per_s"] = N * TREES / out["transform_s"] / 1e6
     raw = model.booster.predict(x).cpu().numpy()
     prob = 1.0 / (1.0 + np.exp(-raw))
@@ -1080,26 +1135,53 @@ def serving_data(n, seed=0):
     return x, y
 
 
-def kernel_counts(torch, fn):
+# what one call of the scorer shows the profiler: the tree_score kernel,
+# the copy in and the copy out
+SCORE_CALL = (1, 2)
+
+
+def profile_counts(torch, fn):
     """(kernels, copies, device busy ms) of one ``fn()`` under
-    torch.profiler: kernel records and memcpy records apart."""
+    torch.profiler: kernel records and memcpy records apart. On the card
+    a profile was found to lose its first few device records (a profile
+    led by spin kernels kept all but three of them, and the call after
+    them whole), which made a count of one call vary between runs and
+    read no kernel at all; so 64 spin kernels go first and are not
+    counted."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     kernels = copies = 0
     busy = 0.0
     for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
+        if str(e.device_type).endswith("CUDA") \
+                and "spin_kernel" not in e.name:
             if e.name.startswith("Memcpy") or e.name.startswith("Memset"):
                 copies += 1
             else:
                 kernels += 1
             busy += e.time_range.elapsed_us() / 1e3
     return kernels, copies, busy
+
+
+def kernel_counts(torch, fn, want=SCORE_CALL):
+    """``profile_counts`` of one ``fn()``, profiled again (3 profiles at
+    most) while it reads fewer kernels or copies than ``want``: a lost
+    record only ever lowers a count (one profile of a staged batch still
+    read none), so a reading at or above ``want`` is returned at once
+    and the caller's gate holds it to ``want``."""
+    for _ in range(3):
+        got = profile_counts(torch, fn)
+        if got[0] >= want[0] and got[1] >= want[1]:
+            break
+    return got
 
 
 def post_rows(server, bodies, threads=16):
@@ -1212,6 +1294,21 @@ def sustained(server, bodies, clients, duration_s):
             "clients_finished": len(done)}
 
 
+def sustained_in_child(server, bodies, clients, duration_s):
+    """``sustained`` with the clients in a spawned child process, so
+    they share no interpreter lock with the server."""
+    import concurrent.futures
+    import multiprocessing
+    import types
+
+    target = types.SimpleNamespace(host=server.host, port=server.port,
+                                   api_path=server.api_path)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return pool.submit(sustained, target, bodies, clients,
+                           duration_s).result(timeout=duration_s + 120)
+
+
 def replies_against(replies, want, rows_ok=None):
     """Rows whose reply differs, column by column, from the frame
     ``want`` (JSON carries a float64 repr exactly, so == is bitwise);
@@ -1253,9 +1350,11 @@ def phase_serving(ctx):
     from mmlspark_tpu_torch.io.serving import (ServingServer, _BinnedPlane,
                                                serve_continuous)
     from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
     from mmlspark_tpu_torch.models.gbdt.estimators import \
         LightGBMClassificationModel
-    from mmlspark_tpu_torch.parallel.inference import bucket_ladder
+    from mmlspark_tpu_torch.parallel.inference import (bucket_for,
+                                                       bucket_ladder)
 
     out = {"card": ctx["smi"]}
     failures = []
@@ -1292,6 +1391,7 @@ def phase_serving(ctx):
     with env_override(INFER_AUTOCAST, "bf16"):
         plan16 = loaded.serving_binned_plan()
     cpu16 = loaded.booster.predict_binned_scorer("bf16", "cpu")
+    plane = _BinnedPlane(plan, ladder)
     rungs = {}
     for b in ladder:
         xb = bins[:b]
@@ -1317,14 +1417,40 @@ def phase_serving(ctx):
         rungs[b] = {"bitwise_card_cpu_predict_binned": same,
                     "bf16_bitwise_card_cpu": same16,
                     "device_ms": device_ms(torch, lambda: plan.score(xd),
-                                           reps=max(1, 768 // kernels)),
+                                           reps=768 // max(kernels, 1)),
                     "event_ms": time_ms(torch, lambda: plan.score(xb)),
                     "host_ms": host_ms, "kernel_busy_ms": busy,
                     "launches": kernels, "copies": copies}
-        if not (same and same16):
+        # what the server runs: the rung's staged batch, one library call
+        # (copy in, kernel, copy out, wait), then the reply columns
+        batch = plane._batch(b)
+        batch.x[:] = xb
+        staged = rungs[b]["staged"] = {
+            "bitwise": bool(np.array_equal(plane._score(batch, b), card))}
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            plane._score(batch, b)
+        staged["host_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+        staged["launches"], staged["copies"], _ = kernel_counts(
+            torch, lambda: plane._score(batch, b))
+        rows = list(xb)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            plane.score_rows(rows)
+        staged["score_rows_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+        if not (same and same16 and staged["bitwise"]):
             failures.append(f"the scorer at rung {b} differs between the "
-                            f"card, the CPU and predict_binned")
+                            f"card, the CPU, predict_binned and the staged "
+                            f"batch")
+        if ((kernels, copies) != SCORE_CALL
+                or (staged["launches"], staged["copies"]) != SCORE_CALL):
+            failures.append(f"the scorer at rung {b} launched {kernels} "
+                            f"kernels and {copies} copies per call and "
+                            f"{staged['launches']} and {staged['copies']} "
+                            f"per staged batch, expected {SCORE_CALL} "
+                            f"(tree_score, the copy in and out)")
     out["rungs"] = rungs
+    ctx["served"] = (loaded.booster, bins)
     out["bf16_max_abs_vs_f32"] = float(np.max(np.abs(
         plan16.score(bins).cpu().numpy().astype(np.float64)
         - plan.score(bins).cpu().numpy())))
@@ -1339,9 +1465,12 @@ def phase_serving(ctx):
     out["transform_ms_per_full_batch"] = (time.perf_counter() - t0) * 1e3 / 5
     out["transform_launches_per_full_batch"] = kernel_counts(
         torch, lambda: loaded.transform(batch_frame))[0]
+    if out["transform_launches_per_full_batch"] != 1:
+        failures.append(f"transform of a full batch launched "
+                        f"{out['transform_launches_per_full_batch']} "
+                        f"kernels, expected 1 (tree_score)")
 
-    # request-thread binning (numpy), microseconds per row
-    plane = _BinnedPlane(plan, ladder)
+    # request-thread binning (the port's C++), microseconds per row
     payloads = [{"features": row.tolist()} for row in pool]
     t0 = time.perf_counter()
     for _ in range(4):
@@ -1394,11 +1523,34 @@ def phase_serving(ctx):
                                        mode == "on")
             seen0 = (loadsrv._models["default"].plane.shapes_seen
                      if mode == "on" else None)
+            # the method: the 64 clients are threads of this process
+            S.tree_score_launches = 0
             arm["sustained"] = sustained(loadsrv, load_bodies,
                                          SERVE_CLIENTS, SERVE_SECONDS)
-            for tag, srv in (("parity", parity), ("load", loadsrv)):
+            arm["sustained"]["tree_score_launches"] = S.tree_score_launches
+            ctx["launches"][f"serving_path_{mode}"] = S.tree_score_launches
+            load_stats = dict(loadsrv._models["default"].stats)
+            # beside it, the same load from a child process: the server
+            # then has the interpreter lock to itself
+            S.tree_score_launches = 0
+            arm["sustained_child_clients"] = sustained_in_child(
+                loadsrv, load_bodies, SERVE_CLIENTS, SERVE_SECONDS)
+            child = arm["sustained_child_clients"]
+            child["tree_score_launches"] = S.tree_score_launches
+            after = loadsrv._models["default"].stats
+            child_batches = (after["binned_batches"]
+                             + after["generic_batches"]
+                             - load_stats["binned_batches"]
+                             - load_stats["generic_batches"])
+            child["mean_batch"] = (after["served"] - load_stats["served"]) \
+                / max(child_batches, 1)
+            child["score_ms_per_batch"] = (after["score_s"]
+                                           - load_stats["score_s"]) * 1e3 \
+                / max(child_batches, 1)
+            for tag, srv, st in (
+                    ("parity", parity, dict(parity._models["default"].stats)),
+                    ("load", loadsrv, load_stats)):
                 served = srv._models["default"]
-                st = dict(served.stats)
                 batches = st["binned_batches"] + st["generic_batches"]
                 arm[f"{tag}_server"] = {
                     "binned_active": served.plane is not None,
@@ -1417,23 +1569,32 @@ def phase_serving(ctx):
                     "reply_ms_per_batch": st["reply_s"] * 1e3
                     / max(batches, 1)}
                 srv.stop()
-                s = arm[f"{tag}_server"]
-                ok = (s["errors"] == 0 and s["timeouts"] == 0
-                      and s["shed_deadline"] == 0)
+                s_ = arm[f"{tag}_server"]
+                ok = (s_["errors"] == 0 and s_["timeouts"] == 0
+                      and s_["shed_deadline"] == 0)
                 if mode == "on":
-                    ok = ok and (s["binned_active"]
-                                 and s["binned_fallbacks"] == 0
-                                 and s["generic_batches"] == 0
-                                 and s["shapes_seen"] == len(ladder))
+                    ok = ok and (s_["binned_active"]
+                                 and s_["binned_fallbacks"] == 0
+                                 and s_["generic_batches"] == 0
+                                 and s_["shapes_seen"] == len(ladder))
                 else:
-                    ok = ok and s["binned_batches"] == 0
+                    ok = ok and s_["binned_batches"] == 0
                 if not ok:
-                    failures.append(f"arm {mode}, {tag} server: {s}")
-            sus = arm["sustained"]
-            if (sus["timeout_504"] or sus["other_status"]
-                    or sus["client_errors"] or not sus["ok"]
-                    or (mode == "on" and seen0 != len(ladder))):
-                failures.append(f"arm {mode} sustained run: {sus}")
+                    failures.append(f"arm {mode}, {tag} server: {s_}")
+            # a loaded batch's scoring against the same work alone: the
+            # plane's score_rows at the mean batch's rung (on), one
+            # transform of a full batch (off)
+            alone = (rungs[bucket_for(round(arm["load_server"]["mean_batch"]),
+                                      ladder)]["staged"]["score_rows_ms"]
+                     if mode == "on" else out["transform_ms_per_full_batch"])
+            arm["score_ms_per_loaded_batch_over_alone"] = \
+                arm["load_server"]["score_ms_per_batch"] / alone
+            for sus in (arm["sustained"], child):
+                if (sus["timeout_504"] or sus["other_status"]
+                        or sus["client_errors"] or not sus["ok"]
+                        or not sus["tree_score_launches"]
+                        or (mode == "on" and seen0 != len(ladder))):
+                    failures.append(f"arm {mode} sustained run: {sus}")
             out[f"batched_{mode}"] = arm
 
         # the continuous server, held as the on arm, then 500 sequential
@@ -1500,6 +1661,184 @@ def phase_serving(ctx):
     finally:
         for srv in servers:
             srv.stop()
+    if failures:
+        raise AssertionError(json.dumps({"failures": failures, **out},
+                                        default=str))
+    return out
+
+
+def random_booster(seed, trees, depth, k, max_bin):
+    """A random full-layout ensemble (the root splits, a node below an
+    internal node with probability 0.8), tree weights 0.3..1.7: the
+    class fold of ``k`` classes, deep and shallow leaves."""
+    from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays
+
+    rng = np.random.default_rng(seed)
+    m = 2 ** (depth + 1) - 1
+    sf = np.full((trees, m), -1, np.int32)
+    tb = np.zeros((trees, m), np.int32)
+    tv = np.full((trees, m), np.inf)
+    for t in range(trees):
+        for node in range(2 ** depth - 1):
+            if node == 0 or (sf[t, (node - 1) // 2] >= 0
+                             and rng.random() < 0.8):
+                sf[t, node] = rng.integers(F)
+                tb[t, node] = rng.integers(max_bin)
+                tv[t, node] = np.round(rng.normal(), 2)
+    return BoosterArrays(
+        split_feature=sf, threshold_bin=tb, threshold_value=tv,
+        node_value=rng.normal(size=(trees, m)).astype(np.float32),
+        count=np.zeros((trees, m), np.float32),
+        tree_weights=rng.uniform(0.3, 1.7, trees).astype(np.float32),
+        max_depth=depth, num_features=F, num_class=k, init_score=0.123456789)
+
+
+def score_bound(torch, S, x, tables):
+    """(bound ms, "bytes" or "operations", bytes, operations) of one
+    tree_score call: the input, the tables and the output each moved
+    once over the memory rate, against the walks' compares (each row's
+    depth in each tree, from the plain routing) plus a multiply and an
+    add per (row, tree) over the float32 rate."""
+    n, t = x.shape[0], tables.num_trees
+    nbytes = (x.numel() * x.element_size()
+              + sum(v.numel() * v.element_size() for v in (
+                  tables.split_feature, tables.threshold, tables.leaf,
+                  tables.tree_weight))
+              + n * tables.num_class * 4)
+    steps = 0
+    for s in range(0, n, 1 << 18):
+        node = S.leaf_nodes(x[s:s + (1 << 18)], tables)
+        steps += int(torch.floor(torch.log2(node.double() + 1)).sum().item())
+    ops = steps + 2 * n * t
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
+
+
+def phase_kernel_score(ctx):
+    """tree_score against its plain version on the card, bit for bit:
+    the served model at every rung 1..64 (autocast off and bf16; uint8,
+    uint16 and int32 bin ids; the launch and the staged batch the server
+    scores), the main path's booster at its 2M binned
+    rows and at the 2M raw rows with NaN (``predict``), and a random
+    three-class booster (uint16 / int32 ids, raw rows); two launches
+    bitwise equal. At rung 64 and at 2M rows: device time (calls behind a
+    spin kernel), event-pair time, launches per call from the profiler,
+    the bound and the plain version's time."""
+    import torch
+
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+    from mmlspark_tpu_torch.parallel.inference import bucket_ladder
+
+    served, pool_bins = ctx["served"]
+    main = ctx["main_booster"]
+    binned = ctx["main_inputs"][0]
+    dtypes = {"uint8": torch.uint8, "uint16": torch.uint16,
+              "int32": torch.int32}
+    failures, checked = [], 0
+
+    def check(label, tables, xd):
+        nonlocal checked
+        got = S.tree_score(xd, tables)
+        again = S.tree_score(xd, tables)
+        want = S.tree_score_reference(xd, tables)
+        checked += 1
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            failures.append(label)
+
+    def timed(label, scorer, xd, host_x):
+        """The times of one call at ``xd``, and the profiler's launches
+        of one ``scorer(host_x).cpu()`` (the copies in and out)."""
+        t = scorer.tables
+        kernels, copies, busy = kernel_counts(
+            torch, lambda: scorer(host_x).cpu())
+        bound, by, nbytes, ops = score_bound(torch, S, xd, t)
+        row = {"case": label, "rows": xd.shape[0], "trees": t.num_trees,
+               "dtype": str(xd.dtype).replace("torch.", ""),
+               "kernel_ms": time_ms(torch, lambda: S.tree_score(xd, t)),
+               "kernel_device_ms": device_ms(
+                   torch, lambda: S.tree_score(xd, t)),
+               "plain_ms": time_ms(
+                   torch, lambda: S.tree_score_reference(xd, t),
+                   reps=5, warmup=1),
+               "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+               "ops": ops, "launches_per_call": kernels,
+               "copies_per_call": copies, "kernel_busy_ms": busy,
+               "max_abs_err": float((S.tree_score(xd, t).double()
+                                     - S.tree_score_reference(xd, t)
+                                     .double()).abs().max().item())}
+        emit({"phase": "kernel_score_timing", **row})
+        if (kernels, copies) != SCORE_CALL:
+            failures.append(f"{label}: {kernels} kernels and {copies} "
+                            f"copies per call, expected {SCORE_CALL}")
+        return row
+
+    # the served model at every rung, both arms, every bin dtype, and the
+    # staged batch the server scores (copy in, kernel, copy out, one call)
+    for autocast in ("off", "bf16"):
+        scorer = served.predict_binned_scorer(autocast, "cuda")
+        for b in bucket_ladder(SERVER_ARGS["max_batch_size"]):
+            for name, dt in dtypes.items():
+                xd = torch.as_tensor(pool_bins[:b]).to(dt).cuda()
+                check(f"served {autocast} rung {b} {name}", scorer.tables,
+                      xd)
+                batch = scorer.staged_batch(b, F, np.dtype(name))
+                batch.x[:] = pool_bins[:b]
+                scorer.score_staged(batch)
+                checked += 1
+                if not np.array_equal(batch.out[:, 0], S.tree_score_reference(
+                        xd, scorer.tables).cpu().numpy()):
+                    failures.append(f"served {autocast} rung {b} {name} "
+                                    f"staged")
+    scorer = served.predict_binned_scorer("off", "cuda")
+    rung64 = timed("served, rung 64, uint8", scorer,
+                   torch.as_tensor(pool_bins[:64]).cuda(), pool_bins[:64])
+    rung_ms = {}
+    for b in bucket_ladder(SERVER_ARGS["max_batch_size"]):
+        xd = torch.as_tensor(pool_bins[:b]).cuda()
+        rung_ms[b] = device_ms(torch, lambda: S.tree_score(xd, scorer.tables))
+
+    # the main path's booster at its 2M rows: bin ids and raw rows
+    for autocast in ("off", "bf16"):
+        tables = main.predict_binned_scorer(autocast, "cuda").tables
+        for name, dt in dtypes.items():
+            check(f"main {autocast} 2M {name}", tables,
+                  torch.as_tensor(binned).to(dt).cuda())
+    main_bins = torch.as_tensor(binned.astype(np.uint8)).cuda()
+    full = timed("main path, 2M rows, uint8",
+                 main.predict_binned_scorer("off", "cuda"), main_bins,
+                 binned[:64].astype(np.uint8))
+    x, _ = make_data(N)
+    x[np.random.default_rng(5).random(x.shape) < 0.01] = np.nan
+    raw = main._scorer(True, "off", "cuda")
+    xd = torch.as_tensor(x).cuda()
+    check("main raw 2M with NaN", raw.tables, xd)
+    full_raw = timed("main path, 2M raw rows with NaN (predict)", raw, xd,
+                     x[:64])
+    del xd, main_bins
+
+    # a random three-class booster: the class fold
+    rng = np.random.default_rng(6)
+    for name, max_bin in (("uint16", 1000), ("int32", 70_000)):
+        synth = random_booster(7, 100, 6, 3, max_bin)
+        for autocast in ("off", "bf16"):
+            tables = synth.predict_binned_scorer(autocast, "cuda").tables
+            for n in (1, 64, 100_003):
+                bins = rng.integers(0, max_bin + 1, size=(n, F))
+                check(f"K=3 {autocast} {n} {name}", tables,
+                      torch.as_tensor(bins).to(dtypes[name]).cuda())
+        rows = np.round(rng.normal(size=(100_003, F)), 2)
+        rows[rng.random(rows.shape) < 0.05] = np.nan
+        check(f"K=3 raw 100003 ({name} booster)",
+              synth._scorer(True, "off", "cuda").tables,
+              torch.as_tensor(rows.astype(np.float32)).cuda())
+
+    torch.cuda.synchronize()
+    ctx["score_rows"] = {"rung64": rung64, "2M": full, "2M_raw": full_raw}
+    out = {"cases_bitwise": checked - len(failures), "cases": checked,
+           "rung_device_ms": rung_ms, "rung64": rung64, "main_2M": full,
+           "main_2M_raw": full_raw, "card": ctx["smi"]}
     if failures:
         raise AssertionError(json.dumps({"failures": failures, **out},
                                         default=str))
@@ -2019,6 +2358,33 @@ def kernel_table(ctx):
         ctx["launches"]["estimator_path_q16"]
     # launches over the served model's 100-tree fit (phase serving_path)
     kernels[0]["launches_serving_path"] = ctx["launches"]["serving_path"]
+    # tree_score replaces an XLA scan, not a Pallas kernel: the row of
+    # the main path's 2M-row call, beside the served model's rung 64
+    score = ctx["score_rows"]
+    kernels.append({
+        "name": "tree_score", "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/tree_score.cu",
+        "replaces": "mmlspark_tpu/models/gbdt/booster.py:222",
+        "replaces_also": "mmlspark_tpu/models/gbdt/booster.py:263",
+        "launches": ctx["launches"]["tree_score"],
+        "launches_serving_path": {arm: ctx["launches"][f"serving_path_{arm}"]
+                                  for arm in ("on", "off")},
+        "max_abs_err": max(r["max_abs_err"] for r in score.values()),
+        "ms": score["2M"]["kernel_ms"],
+        "device_ms": score["2M"]["kernel_device_ms"],
+        "plain_ms": score["2M"]["plain_ms"],
+        "bound_ms": score["2M"]["bound_ms"],
+        "bound_by": score["2M"]["bound_by"],
+        "library_ms": None,
+        "rung64": {k: score["rung64"][k] for k in (
+            "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms",
+            "bound_by", "launches_per_call", "copies_per_call")},
+        "per": "one call on the main path's 20-tree booster at its 2M "
+               "uint8 rows (rung64: the served 100-tree model at 64 rows); "
+               "launches from phase main_path (predict_binned) and the "
+               "serving_path sustained runs; no single PyTorch call "
+               "computes this function",
+    })
     flash = ctx["flash_rows"]
     # flash_attn.cu takes float32 only: every bfloat16 call runs
     # flash_attn_sm90.cu, in place or staged
@@ -2068,6 +2434,7 @@ def main() -> int:
                      ("card_vs_cpu_quant", phase_card_vs_cpu_quant),
                      ("estimator_path", phase_estimator),
                      ("serving_path", phase_serving),
+                     ("kernel_score", phase_kernel_score),
                      ("kernel_flash", phase_kernel_flash),
                      ("sdpa_backends", phase_sdpa_backends),
                      ("attention_path", phase_attention_path),

@@ -204,18 +204,21 @@ def _bucket_ladder(max_batch_size: int) -> List[int]:
 class _BinnedPlane:
     """Shape-stable binned scoring for one served model.
 
-    ``bin_row`` runs on request threads (numpy only); ``score_rows``
-    runs on the one scoring thread: it pads the batch up to its rung
-    (pad rows are all bin 0, the always-valid missing sentinel), scores
-    it on the plan's device, slices the pad rows off and copies the
-    margins to the host (the batch's one sync). Rows are independent,
-    so the sliced result is bitwise that of the exact shape.
-    ``shapes_seen`` counts the distinct shapes scored."""
+    ``bin_row`` runs on request threads (the C++ binning, which gives
+    the interpreter lock up while it runs); ``score_rows`` runs on the
+    one scoring thread: it writes the batch into its rung's staged
+    buffers (one set per rung, kept while the plane lives; pad rows are
+    all bin 0, the always-valid missing sentinel) and scores them with
+    one call (on the card: the copy in, the ``tree_score`` kernel, the
+    copy out and the wait for the stream), then takes the real rows'
+    margins. Rows are independent, so the result is bitwise that of the
+    exact shape. ``shapes_seen`` counts the distinct shapes scored."""
 
     def __init__(self, plan, ladder: List[int]):
         self.plan = plan
         self.ladder = list(ladder)
         self._seen: set = set()
+        self._batches: Dict[int, Any] = {}
 
     @property
     def shapes_seen(self) -> int:
@@ -228,26 +231,33 @@ class _BinnedPlane:
         row = np.asarray(feats, dtype=np.float64).reshape(1, -1)
         return self.plan.bin_rows(row)[0]
 
-    def _mark_shape(self, xb: np.ndarray) -> None:
-        self._seen.add((xb.shape, str(xb.dtype)))
+    def _batch(self, rows: int):
+        """The staged buffers of the rung of ``rows`` rows."""
+        batch = self._batches.get(rows)
+        if batch is None:
+            batch = self._batches[rows] = self.plan.score.staged_batch(
+                rows, self.plan.num_features, self.plan.ingest_dtype)
+        return batch
+
+    def _score(self, batch, n: int) -> np.ndarray:
+        batch.x[n:] = 0
+        self._seen.add((batch.x.shape, str(batch.x.dtype)))
+        self.plan.score.score_staged(batch)
+        out = batch.out[:n]
+        return (out[:, 0] if out.shape[1] == 1 else out).copy()
 
     def score_rows(self, rows: List[np.ndarray]) -> Dict[str, np.ndarray]:
         n = len(rows)
-        xb = np.zeros((bucket_for(n, self.ladder), self.plan.num_features),
-                      dtype=self.plan.ingest_dtype)
-        xb[:n] = np.stack(rows)
-        self._mark_shape(xb)
-        raw = self.plan.score(xb)[:n].cpu().numpy()
-        return self.plan.finish(raw)
+        batch = self._batch(bucket_for(n, self.ladder))
+        batch.x[:n] = rows
+        return self.plan.finish(self._score(batch, n))
 
     def warmup(self) -> None:
         """Score every rung once before the first request (bin 0 is
-        always a valid input, so no payload is needed)."""
+        always a valid input, so no payload is needed); this also makes
+        every rung's buffers."""
         for b in self.ladder:
-            xb = np.zeros((b, self.plan.num_features),
-                          dtype=self.plan.ingest_dtype)
-            self._mark_shape(xb)
-            self.plan.score(xb).cpu()
+            self._score(self._batch(b), 0)
 
 
 class _ServedModel:

@@ -2,20 +2,21 @@
 
 Port of the JAX package's ``BoosterArrays`` for numeric boosters. Every
 tree is stored in a fixed full-binary layout (node i's children are
-2i+1 / 2i+2); scoring walks all rows ``max_depth`` gather steps per
-tree and adds the trees one by one in order, each add rounded as the
-fused multiply-add XLA makes of it, so the accumulation is the JAX
-``scan``'s.
+2i+1 / 2i+2); scoring walks every row down every tree and adds the trees
+one by one in order, each add rounded as the fused multiply-add XLA
+makes of it, so the accumulation is the JAX ``scan``'s.
 
 This slice scores numeric boosters trained without ``decision_type``
 bits (NaN routes left, as the missing bin 0 does in training).
 Categorical / zero-as-missing routing, leaf indices and contributions
 are later work (ROADMAP A5).
 
-Serving scores through ``predict_binned_scorer``: a binned scorer that
-holds the tables on its device once (cached per booster, autocast and
-device; ``clear_jit_cache`` drops it), routes every tree of a batch at
-once per depth level, and still adds the trees one by one in order.
+``predict``, ``predict_binned`` and the serving scorer
+``predict_binned_scorer`` all score through a ``TreeScorer``: the
+booster's tables on one device once (cached per booster, kind, autocast
+and device; ``clear_jit_cache`` drops them), and per call one
+``score_cuda.tree_score`` — the kernel ``csrc/tree_score.cu`` on the
+card, one launch per batch, its plain version on the CPU.
 ``derive_binning`` recovers a binning from an imported model string's
 own thresholds so such a model can be served binned too.
 
@@ -36,6 +37,9 @@ import numpy as np
 import torch
 
 from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
+from mmlspark_tpu_torch.models.gbdt.score_cuda import (BIN_CODES, StagedBatch,
+                                                       TreeTables, tree_score,
+                                                       tree_score_staged)
 from mmlspark_tpu_torch.ops.ingest import binned_ingest_dtype
 from mmlspark_tpu_torch.parallel.shard_rules import placement_cast
 
@@ -119,14 +123,23 @@ class BoosterArrays:
         return cached
 
     def clear_jit_cache(self) -> None:
-        """Drop the cached binned scorers (the serving warm/cold LRU's
-        eviction hook): their device tables are released and a scorer is
-        built again on its next use. The memoised verdicts
+        """Drop the cached scorers (the serving warm/cold LRU's eviction
+        hook): their device tables are released and a scorer is built
+        again on its next use. The memoised verdicts
         (``supports_binned`` / ``zero_premap_mode``) stay."""
         self.__dict__.pop("_scorers", None)
 
+    def _scorer(self, raw: bool, autocast: str,
+                device: DeviceLike) -> "TreeScorer":
+        dev = resolve_device(device)
+        cache = self.__dict__.setdefault("_scorers", {})
+        key = (raw, autocast, str(dev))
+        if key not in cache:
+            cache[key] = TreeScorer(self, dev, raw=raw, autocast=autocast)
+        return cache[key]
+
     def predict_binned_scorer(self, autocast: str = "off",
-                              device: DeviceLike = None) -> "BinnedScorer":
+                              device: DeviceLike = None) -> "TreeScorer":
         """The serving scorer, the counterpart of the JAX package's
         ``predict_binned_jit(autocast)``: BINNED features (N, F) ->
         raw scores, (N,) or (N, K), on ``device`` (the card unless
@@ -149,41 +162,13 @@ class BoosterArrays:
                 "thresholds only) — use predict on raw features, or "
                 "derive_binning() to recover a binning from the model's "
                 "own splits and score binned")
-        dev = resolve_device(device)
-        cache = self.__dict__.setdefault("_scorers", {})
-        key = (autocast, str(dev))
-        if key not in cache:
-            cache[key] = BinnedScorer(self, autocast, dev)
-        return cache[key]
+        return self._scorer(False, autocast, device)
 
     def _require_numeric(self, what: str = "scoring"):
         if self.decision_type is not None or self.cat_bitset is not None:
             raise NotImplementedError(
                 f"{what} boosters with decision_type bits (categorical or "
                 "zero-as-missing splits) is not in the port yet (ROADMAP A5)")
-
-    def _score(self, x: torch.Tensor, tv, go_left) -> torch.Tensor:
-        """Sum over trees of ``node_value * tree_weight`` at each row's
-        leaf, starting from ``init_score``; ``go_left(fx, thr)`` routes."""
-        dev = x.device
-        sf = torch.as_tensor(self.split_feature, device=dev).long()
-        nv = torch.as_tensor(self.node_value, dtype=torch.float32, device=dev)
-        tw = torch.as_tensor(self.tree_weights, dtype=torch.float32,
-                             device=dev)
-        n, k = x.shape[0], self.num_class
-        acc = torch.full((k, n), self.init_score, dtype=torch.float32,
-                         device=dev)
-        for t in range(self.num_trees):
-            node = torch.zeros(n, dtype=torch.int64, device=dev)
-            for _ in range(self.max_depth):
-                feat = sf[t][node]
-                is_leaf = feat < 0
-                fx = torch.gather(x, 1, torch.clamp_min(feat, 0)[:, None])[:, 0]
-                child = torch.where(go_left(fx, tv[t][node]), 2 * node + 1,
-                                    2 * node + 2)
-                node = torch.where(is_leaf, node, child)
-            _add_tree(acc[t % k], nv[t][node].double() * tw[t].double())
-        return acc[0] if k == 1 else acc.t()
 
     def predict_binned(self, binned, device: DeviceLike = None) -> torch.Tensor:
         """BINNED features (N, F) small-int bin ids (the
@@ -195,10 +180,7 @@ class BoosterArrays:
             raise ValueError(
                 "this booster has no binned thresholds (imported from a "
                 "model string); score raw features with predict")
-        dev = resolve_device(device)
-        bd = torch.as_tensor(binned, device=dev)
-        tb = torch.as_tensor(self.threshold_bin, device=dev).long()
-        return self._score(bd, tb, lambda fb, thr: fb.long() <= thr)
+        return self._scorer(False, "off", device)(binned)
 
     def predict(self, x, device: DeviceLike = None) -> torch.Tensor:
         """Raw features (N, F) -> raw scores, (N,) or (N, K). NaN routes
@@ -206,14 +188,7 @@ class BoosterArrays:
         bin <= threshold. Features and thresholds compare in float32, as
         the JAX package's ``predict_fn`` does."""
         self._require_numeric()
-        dev = resolve_device(device)
-        xd = torch.as_tensor(np.asarray(x, dtype=np.float32)
-                             if isinstance(x, np.ndarray) else x,
-                             device=dev).float()
-        tv = torch.as_tensor(np.asarray(self.threshold_value, np.float32),
-                             device=dev)
-        return self._score(xd, tv,
-                           lambda fx, thr: torch.isnan(fx) | (fx <= thr))
+        return self._scorer(True, "off", device)(x)
 
     def derive_binning(self) -> "tuple[DerivedBinning, BoosterArrays]":
         """Recover a binning from the model's own split thresholds so an
@@ -643,73 +618,62 @@ class BoosterArrays:
 _NAN_LEFT = 10
 
 
-def _add_tree(acc: torch.Tensor, contribution: torch.Tensor) -> None:
-    """``acc += leaf * weight`` for one tree, in place on a float32 row
-    of the accumulator, rounded once: XLA contracts the JAX ``scan``'s
-    ``acc.at[:, cls].add(nv * tw)`` into one fused multiply-add on the
-    CPU (ROADMAP C9). ``contribution`` is the float64 product of two
-    float32 values, so it is exact; the float64 sum then rounds far
-    below a float32 ulp, so the one float32 rounding is the fused op's
-    (barring a sum exactly on a midpoint), as ``trainer._smooth`` does
-    for C5. One elementwise launch: the add runs in float64 and writes
-    float32."""
-    torch.add(acc, contribution, out=acc)
+class TreeScorer:
+    """A booster's scorer on one device, the counterpart of a jitted JAX
+    scorer: the tables copied there once (``score_cuda.TreeTables``:
+    split features and bin thresholds as int32, or raw thresholds as
+    their float32 rounding for ``raw``; the leaf table in float32, or
+    bfloat16 under ``autocast="bf16"`` through ``placement_cast``), and
+    per call one ``score_cuda.tree_score``."""
 
-
-class BinnedScorer:
-    """A booster's binned scorer on one device: ``split_feature``,
-    ``threshold_bin``, ``node_value`` and ``tree_weights`` are copied
-    there once, flattened to (T * M,). A call routes every tree of the
-    batch at once, depth level by depth level, on a (rows, trees) node
-    tensor indexed at ``t * M + node`` — integer work, so the leaves are
-    the per-tree walk's — then adds the trees' contributions one by one
-    in tree order from ``init_score`` (``_add_tree``): the JAX ``scan``'s
-    left fold (a ``sum`` or ``cumsum`` over the tree axis would add in
-    another order)."""
-
-    def __init__(self, booster: BoosterArrays, autocast: str,
-                 device: torch.device):
-        t, m = booster.split_feature.shape
+    def __init__(self, booster: BoosterArrays, device: torch.device,
+                 raw: bool = False, autocast: str = "off"):
+        sf = booster.split_feature
+        if sf.size and int(sf.max()) >= booster.num_features:
+            raise ValueError(f"a split feature ({int(sf.max())}) is not "
+                             f"below num_features ({booster.num_features})")
+        thr = (np.asarray(booster.threshold_value, np.float32) if raw
+               else np.asarray(booster.threshold_bin, np.int32))
+        leaf = torch.as_tensor(booster.node_value.reshape(-1),
+                               dtype=torch.float32, device=device)
         self.device = device
         self.autocast = autocast
-        self.num_trees, self.max_depth = t, booster.max_depth
-        self.num_class, self.init_score = booster.num_class, booster.init_score
-        self._sf = torch.as_tensor(booster.split_feature.reshape(-1),
-                                   device=device).long()
-        self._tb = torch.as_tensor(booster.threshold_bin.reshape(-1),
-                                   device=device).long()
-        nv = torch.as_tensor(booster.node_value.reshape(-1),
-                             dtype=torch.float32, device=device)
-        self._nv = placement_cast(
-            nv, torch.bfloat16 if autocast == "bf16" else None)
-        self._tw64 = torch.as_tensor(booster.tree_weights,
-                                     dtype=torch.float32,
-                                     device=device).double()
-        self._offsets = (torch.arange(t, device=device) * m)[None, :]
+        self.tables = TreeTables(
+            split_feature=torch.as_tensor(
+                sf.reshape(-1).astype(np.int32), device=device),
+            threshold=torch.as_tensor(thr.reshape(-1), device=device),
+            leaf=placement_cast(
+                leaf, torch.bfloat16 if autocast == "bf16" else None),
+            tree_weight=torch.as_tensor(booster.tree_weights,
+                                        dtype=torch.float32, device=device),
+            num_nodes=sf.shape[1], max_depth=booster.max_depth,
+            num_class=booster.num_class, num_features=booster.num_features,
+            init_score=booster.init_score)
 
-    def __call__(self, binned) -> torch.Tensor:
-        """``binned``: (N, F) bin ids (numpy or a tensor) -> raw scores
-        on this scorer's device, (N,) or (N, K)."""
-        bd = torch.as_tensor(binned).to(self.device)
-        n, k = bd.shape[0], self.num_class
-        node = torch.zeros((n, self.num_trees), dtype=torch.int64,
-                           device=self.device)
-        for _ in range(self.max_depth):
-            flat = node + self._offsets
-            feat = self._sf[flat]
-            fb = torch.gather(bd, 1, feat.clamp_min(0))
-            left = 2 * node + 1
-            child = torch.where(fb.long() <= self._tb[flat], left, left + 1)
-            node = torch.where(feat < 0, node, child)
-        # (T, N): tree t's leaf values (bf16 promoted to float32 first)
-        # times its weight, exact in float64
-        val = (self._nv[node + self._offsets].float().double()
-               * self._tw64).t()
-        acc = torch.full((k, n), self.init_score, dtype=torch.float32,
-                         device=self.device)
-        for t in range(self.num_trees):
-            _add_tree(acc[t % k], val[t])
-        return acc[0] if k == 1 else acc.t()
+    def __call__(self, x) -> torch.Tensor:
+        """(N, F) bin ids, or raw features for a raw scorer (numpy or a
+        tensor) -> raw scores on this scorer's device, (N,) or (N, K).
+        Raw features are scored as float32; bin ids other than uint8,
+        uint16 and int32 as int32. Both casts happen where ``x`` lies,
+        before the one copy to the device."""
+        xt = torch.as_tensor(x)
+        if self.tables.raw:
+            want = torch.float32
+        else:
+            want = xt.dtype if xt.dtype in BIN_CODES else torch.int32
+        xt = xt.to(want).to(self.device).contiguous()
+        return tree_score(xt, self.tables)
+
+    def staged_batch(self, rows: int, features: int, dtype) -> StagedBatch:
+        """The buffers of one padded batch shape of bin ids of the numpy
+        ``dtype`` (``score_cuda.StagedBatch``), for ``score_staged``."""
+        return StagedBatch(self.tables, rows, features,
+                           torch.from_numpy(np.empty(0, dtype)).dtype)
+
+    def score_staged(self, batch: StagedBatch) -> None:
+        """Score ``batch.x`` into ``batch.out``: on the card one call for
+        the copy in, the kernel and the copy out."""
+        tree_score_staged(batch, self.tables)
 
 
 @dataclass

@@ -52,7 +52,7 @@ from mmlspark_tpu_torch.core.param import (
 )
 from mmlspark_tpu_torch.core.pipeline import Estimator, Model
 from mmlspark_tpu_torch.core.timer import InstrumentationMeasures
-from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays
+from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays, TreeScorer
 from mmlspark_tpu_torch.models.gbdt.trainer import (TrainConfig,
                                                     check_supported, train,
                                                     warm_start_scores)
@@ -482,13 +482,15 @@ class _LightGBMBase(Estimator, _LightGBMParams):
                 max_bin_by_feature=(self.get("maxBinByFeature")
                                     if self.is_set("maxBinByFeature")
                                     else None))
-            binned = mapper.transform(x)
+            # the narrowest bin ids, written so by the C++ binning
+            ids = binned_ingest_dtype(mapper.max_num_bins)
+            binned = mapper.transform(x, ids)
         valid_sets = vx_raw = None
         if valid_df is not None and valid_df.num_rows:
             with measures.phase("extract"):
                 vx_raw, vy, vw = self._extract(valid_df)
             with measures.phase("binning"):
-                valid_sets = [(mapper.transform(vx_raw), vy, vw)]
+                valid_sets = [(mapper.transform(vx_raw, ids), vy, vw)]
         init_model = None
         if self.is_set("modelString"):
             init_model = BoosterArrays.load_model_string(self.get("modelString"))
@@ -560,14 +562,15 @@ class BinnedServingUnsupported(RuntimeError):
 class ServingBinnedPlan:
     """Everything the serving data plane needs to score pre-binned rows
     as ``transform`` does (``_LightGBMModelBase.serving_binned_plan``).
-    ``bin_rows`` runs on request threads (numpy only, thread-safe);
-    ``score`` is the binned scorer (one thread, padded bucket shapes; it
-    returns a tensor on the model's device); ``finish`` turns float32
+    ``bin_rows`` runs on request threads (the C++ binning, thread-safe);
+    ``score`` is the binned scorer (``booster.TreeScorer``: one thread,
+    padded bucket shapes; it returns a tensor on the model's device, or
+    scores a staged batch in place); ``finish`` turns float32
     margins into the ordered reply columns ``transform`` would have
     appended."""
 
     bin_rows: Callable[[np.ndarray], np.ndarray]
-    score: Callable[[np.ndarray], Any]
+    score: TreeScorer
     finish: Callable[[np.ndarray], Dict[str, np.ndarray]]
     ingest_dtype: Any
     num_features: int
@@ -635,7 +638,7 @@ class _LightGBMModelBase(Model, _LightGBMParams):
             xs = x[s:s + _SCORE_BATCH_ROWS]
             if binned:
                 scores = b.predict_binned(
-                    self.bin_mapper.transform(xs).astype(binned_ingest_dtype(
+                    self.bin_mapper.transform(xs, binned_ingest_dtype(
                         self.bin_mapper.max_num_bins)), device=device)
             else:
                 scores = b.predict(xs, device=device)
@@ -740,7 +743,7 @@ class _LightGBMModelBase(Model, _LightGBMParams):
                     # a zero-as-missing fit mapped 0.0 -> NaN before
                     # binning; scoring bins through the same premap
                     x = np.where(x == 0.0, np.nan, x)
-                return mapper.transform(x).astype(dtype)
+                return mapper.transform(x, dtype)
 
             score = b.predict_binned_scorer(autocast, device)
         else:

@@ -9,6 +9,12 @@ to the card. Conventions (unchanged from the JAX package):
   - boundaries are upper edges: value v lands in the smallest bin with
     v <= edge; the last bin catches +inf.
 
+``transform`` bins in the port's own C++ (``native/data_plane.cpp``, a
+copy of the JAX package's ``mmls_bin_matrix``, built at first use by
+``native/bindings.py``), as the JAX package's ``transform`` does by
+default; ``_transform_python`` is its plain numpy version, which the
+tests hold it to bit for bit.
+
 This slice covers numeric features only; categorical binning and the
 streaming sketch fit (``fit_streaming``) are later work.
 """
@@ -19,6 +25,8 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+from mmlspark_tpu_torch.native import bindings
 
 # Row-block size for BinMapper.transform: bounds the float64 staging copy
 # to block_rows x F instead of N x F.
@@ -116,17 +124,40 @@ class BinMapper:
                                         min_data_in_bin))
         return BinMapper(edges, max_bin)
 
-    def transform(self, x: np.ndarray) -> np.ndarray:
-        """Map raw features (N, F) to bin ids (N, F) int32; NaN -> bin 0.
-        Rows are binned in bounded blocks so a non-float64 input never
-        materializes a full float64 copy."""
+    def transform(self, x: np.ndarray, dtype=np.int32) -> np.ndarray:
+        """Map raw features (N, F) to bin ids (N, F); NaN -> bin 0. The
+        ids are written as ``dtype`` (int32, or uint8 / uint16 where the
+        mapper's bins fit, as ``binned_ingest_dtype`` picks), in the
+        port's C++ (``native/data_plane.cpp``). float32 and float64 rows
+        are read as they are; other inputs are converted to float64 one
+        block of ``_TRANSFORM_BLOCK_ROWS`` rows at a time, so no full
+        float64 copy is made."""
         x = np.asarray(x)
-        out = np.zeros(x.shape, dtype=np.int32)
+        if x.ndim != 2 or x.shape[1] != self.num_features:
+            raise ValueError(f"expected (N, {self.num_features}) features, "
+                             f"got shape {x.shape}")
+        out = np.empty(x.shape, dtype=dtype)
+        edges = self._padded_edges()
         for s in range(0, x.shape[0], _TRANSFORM_BLOCK_ROWS):
-            block = np.asarray(x[s:s + _TRANSFORM_BLOCK_ROWS],
-                               dtype=np.float64)
-            out[s:s + _TRANSFORM_BLOCK_ROWS] = self._transform_python(block)
+            block = x[s:s + _TRANSFORM_BLOCK_ROWS]
+            if block.dtype not in (np.float32, np.float64) \
+                    or not block.flags.c_contiguous:
+                block = np.ascontiguousarray(block, dtype=np.float64)
+            bindings.bin_matrix(block, edges, out[s:s + _TRANSFORM_BLOCK_ROWS])
         return out
+
+    def _padded_edges(self) -> np.ndarray:
+        """The (F, max edges + 1) float64 edges, each row padded with
+        +inf, built once per mapper (the edges do not change after
+        ``fit`` / ``from_dict``)."""
+        padded = self.__dict__.get("_padded")
+        if padded is None:
+            width = max((len(e) for e in self.upper_edges), default=0) + 1
+            padded = np.full((self.num_features, width), np.inf)
+            for f, e in enumerate(self.upper_edges):
+                padded[f, :len(e)] = e
+            self.__dict__["_padded"] = padded
+        return padded
 
     def _transform_python(self, x: np.ndarray) -> np.ndarray:
         out = np.zeros(x.shape, dtype=np.int32)
