@@ -121,11 +121,16 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
  15. tree scorer vs plain (after phase 14): ``csrc/tree_score.cu``
      against ``score_cuda.tree_score_reference``, bit for bit and between
      two launches: the served model at every rung 1..64 (autocast off
-     and bf16; uint8, uint16 and int32 bin ids), the main path's booster
-     at its 2M binned rows and at 2M raw rows with NaN (``predict``), and
-     a random three-class booster; at rung 64 and at 2M rows the device
-     time, the event-pair time, the launches of one call (profiler), the
-     bound and the plain version's time.
+     and bf16; uint8, uint16 and int32 bin ids; the staged batch too) and
+     on both sides of the plan crossover, the main path's booster at its
+     2M binned rows, at one row, at 2M + 7 rows and at 2M raw rows with
+     NaN (``predict``), random boosters of three classes (the cluster
+     plan), ten classes, 1,000 trees (tree chunks), depth 16 (the global
+     route) and none, each plan forced on the other's inputs; each
+     case's plan on a line of its own; at rung 64 and at 2M rows the
+     device time, the event-pair time, the launches of one call
+     (profiler), the bound and the plain version's time; and both plans'
+     device time at 1..16,384 rows (the crossover).
 
 Each phase prints one JSON line. Any failure exits non-zero and prints
 no result. Without a CUDA card it exits 2 at once. The last lines are
@@ -487,6 +492,7 @@ def phase_main(ctx):
 
     H.hist_kernel_launches = H.hist_quant_kernel_launches = 0
     S.tree_score_launches = 0
+    S.tree_score_plan_launches.update(rows=0, cluster=0)
     t0 = time.perf_counter()
     result = train(binned, y, cfg, bin_upper=bin_upper)
     torch.cuda.synchronize()
@@ -521,6 +527,7 @@ def phase_main(ctx):
     out = {"bin_s": bin_s, "fit_s": fit_s, "score_s": score_s,
            "trees": booster.num_trees, "launches": launches,
            "tree_score_launches": score_launches,
+           "tree_score_plan_launches": dict(S.tree_score_plan_launches),
            "expected_launches": expected,
            "syncs_per_fit": syncs[3], "two_fits_bitwise": reproducible,
            "logloss_first": lls[0], "logloss_last": lls[-1],
@@ -531,9 +538,11 @@ def phase_main(ctx):
         raise AssertionError(f"level_hist launched {launches} times in the "
                              f"fit, expected {expected}; level_hist_quant "
                              f"{quant_launches}, expected 0")
-    if score_launches != 2:
+    if score_launches != 2 or S.tree_score_plan_launches["rows"] != 2:
         raise AssertionError(f"two predict_binned calls launched tree_score "
-                             f"{score_launches} times, expected 2")
+                             f"{score_launches} times "
+                             f"({S.tree_score_plan_launches}), expected 2 "
+                             f"under the rows plan")
     if not all(b <= a + 1e-7 for a, b in zip(lls, lls[1:])) \
             or not lls[-1] < lls[0]:
         raise AssertionError(f"training logloss does not fall: {lls}")
@@ -1525,9 +1534,12 @@ def phase_serving(ctx):
                      if mode == "on" else None)
             # the method: the 64 clients are threads of this process
             S.tree_score_launches = 0
+            S.tree_score_plan_launches.update(rows=0, cluster=0)
             arm["sustained"] = sustained(loadsrv, load_bodies,
                                          SERVE_CLIENTS, SERVE_SECONDS)
             arm["sustained"]["tree_score_launches"] = S.tree_score_launches
+            arm["sustained"]["tree_score_plan_launches"] = dict(
+                S.tree_score_plan_launches)
             ctx["launches"][f"serving_path_{mode}"] = S.tree_score_launches
             load_stats = dict(loadsrv._models["default"].stats)
             # beside it, the same load from a child process: the server
@@ -1589,6 +1601,9 @@ def phase_serving(ctx):
                      if mode == "on" else out["transform_ms_per_full_batch"])
             arm["score_ms_per_loaded_batch_over_alone"] = \
                 arm["load_server"]["score_ms_per_batch"] / alone
+            if not arm["sustained"]["tree_score_plan_launches"]["cluster"]:
+                failures.append(f"arm {mode}: no served batch took the "
+                                f"cluster plan")
             for sus in (arm["sustained"], child):
                 if (sus["timeout_504"] or sus["other_status"]
                         or sus["client_errors"] or not sus["ok"]
@@ -1670,7 +1685,9 @@ def phase_serving(ctx):
 def random_booster(seed, trees, depth, k, max_bin):
     """A random full-layout ensemble (the root splits, a node below an
     internal node with probability 0.8), tree weights 0.3..1.7: the
-    class fold of ``k`` classes, deep and shallow leaves."""
+    class fold of ``k`` classes, deep and shallow leaves. Bin thresholds
+    lie below ``max_bin`` and below 65535, the largest a packed bin node
+    takes as a real threshold (``score_cuda.pack_nodes``)."""
     from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays
 
     rng = np.random.default_rng(seed)
@@ -1683,7 +1700,7 @@ def random_booster(seed, trees, depth, k, max_bin):
             if node == 0 or (sf[t, (node - 1) // 2] >= 0
                              and rng.random() < 0.8):
                 sf[t, node] = rng.integers(F)
-                tb[t, node] = rng.integers(max_bin)
+                tb[t, node] = rng.integers(min(max_bin, 65535))
                 tv[t, node] = np.round(rng.normal(), 2)
     return BoosterArrays(
         split_feature=sf, threshold_bin=tb, threshold_value=tv,
@@ -1695,21 +1712,34 @@ def random_booster(seed, trees, depth, k, max_bin):
 
 def score_bound(torch, S, x, tables):
     """(bound ms, "bytes" or "operations", bytes, operations) of one
-    tree_score call: the input, the tables and the output each moved
-    once over the memory rate, against the walks' compares (each row's
-    depth in each tree, from the plain routing) plus a multiply and an
-    add per (row, tree) over the float32 rate."""
+    tree_score call: the input, the tables the kernel reads (packed nodes
+    and the products leaf * weight) and the output each moved once over
+    the memory rate, against the walks' compares (each row's depth in
+    each tree, from the plain routing of the original tables: the steps
+    the scan takes before its node stays) plus an add per (row, tree)
+    over the float32 rate."""
     n, t = x.shape[0], tables.num_trees
     nbytes = (x.numel() * x.element_size()
-              + sum(v.numel() * v.element_size() for v in (
-                  tables.split_feature, tables.threshold, tables.leaf,
-                  tables.tree_weight))
+              + sum(v.numel() * v.element_size()
+                    for v in (tables.nodes, tables.products))
               + n * tables.num_class * 4)
+    # each walk's steps before its leaf: the last-level slot's depth less
+    # the always-left steps of a leaf pushed down its left spine
+    thr = S.unpack_nodes(tables)[1]
+    always_left = torch.inf if tables.raw else S.ALWAYS_LEFT_BIN
+    offsets = (torch.arange(t, device=x.device) * tables.num_nodes)[None, :]
     steps = 0
     for s in range(0, n, 1 << 18):
         node = S.leaf_nodes(x[s:s + (1 << 18)], tables)
-        steps += int(torch.floor(torch.log2(node.double() + 1)).sum().item())
-    ops = steps + 2 * n * t
+        depth = torch.floor(torch.log2(node.double() + 1)).long()
+        for _ in range(tables.max_depth):
+            parent = (node - 1) // 2
+            pushed = (node % 2 == 1) & (thr[parent.clamp_min(0) + offsets]
+                                        == always_left)
+            depth -= pushed.long()
+            node = torch.where(pushed, parent, node)
+        steps += int(depth.sum().item())
+    ops = steps + n * t
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
     return (max(bytes_ms, ops_ms),
@@ -1720,12 +1750,19 @@ def phase_kernel_score(ctx):
     """tree_score against its plain version on the card, bit for bit:
     the served model at every rung 1..64 (autocast off and bf16; uint8,
     uint16 and int32 bin ids; the launch and the staged batch the server
-    scores), the main path's booster at its 2M binned
-    rows and at the 2M raw rows with NaN (``predict``), and a random
-    three-class booster (uint16 / int32 ids, raw rows); two launches
-    bitwise equal. At rung 64 and at 2M rows: device time (calls behind a
-    spin kernel), event-pair time, launches per call from the profiler,
-    the bound and the plain version's time."""
+    scores), on the two sides of the plan crossover (4,200 and 4,201
+    rows) and on rows of 29 bytes (staged element by element, also from
+    a base off a word), the main path's booster at its 2M binned rows, at one
+    row, at 2M + 7 rows and at the 2M raw rows with NaN (``predict``),
+    random boosters: three classes (uint16 / int32 ids, raw rows; the
+    cluster plan at 1 and 64 rows), ten classes (passes of four classes),
+    1,000 trees (tree chunks), depth 16 (the global route) and no trees;
+    both plans forced on the same inputs; two launches bitwise equal and
+    each case's plan printed. At rung 64 and at 2M rows: device time
+    (calls behind a spin kernel), event-pair time, launches per call from
+    the profiler, the bound and the plain version's time. Then the plan
+    crossover: both plans' device time at 1..16,384 rows for the served
+    model, its first 40 trees and the main booster."""
     import torch
 
     from mmlspark_tpu_torch.models.gbdt import score_cuda as S
@@ -1738,13 +1775,21 @@ def phase_kernel_score(ctx):
               "int32": torch.int32}
     failures, checked = [], 0
 
-    def check(label, tables, xd):
+    def check(label, tables, xd, plan=None):
         nonlocal checked
-        got = S.tree_score(xd, tables)
-        again = S.tree_score(xd, tables)
+        if plan is None:
+            plan = S._plan_for(xd.shape[0], xd.shape[1], xd.dtype, tables,
+                               xd.device)
+            got, again = S.tree_score(xd, tables), S.tree_score(xd, tables)
+        else:
+            got, again = S._launch(xd, tables, plan), S._launch(xd, tables,
+                                                                plan)
         want = S.tree_score_reference(xd, tables)
         checked += 1
-        if not (torch.equal(got, want) and torch.equal(got, again)):
+        ok = bool(torch.equal(got, want) and torch.equal(got, again))
+        emit({"phase": "kernel_score_case", "case": label, "bitwise": ok,
+              "plan": dataclasses.astuple(plan)})
+        if not ok:
             failures.append(label)
 
     def timed(label, scorer, xd, host_x):
@@ -1756,6 +1801,8 @@ def phase_kernel_score(ctx):
         bound, by, nbytes, ops = score_bound(torch, S, xd, t)
         row = {"case": label, "rows": xd.shape[0], "trees": t.num_trees,
                "dtype": str(xd.dtype).replace("torch.", ""),
+               "plan": dataclasses.astuple(S._plan_for(
+                   xd.shape[0], xd.shape[1], xd.dtype, t, xd.device)),
                "kernel_ms": time_ms(torch, lambda: S.tree_score(xd, t)),
                "kernel_device_ms": device_ms(
                    torch, lambda: S.tree_score(xd, t)),
@@ -1798,6 +1845,22 @@ def phase_kernel_score(ctx):
     for b in bucket_ladder(SERVER_ARGS["max_batch_size"]):
         xd = torch.as_tensor(pool_bins[:b]).cuda()
         rung_ms[b] = device_ms(torch, lambda: S.tree_score(xd, scorer.tables))
+    # both sides of the crossover, and each plan forced on the other's side
+    for n in (S.cluster_rows(100), S.cluster_rows(100) + 1):
+        xd = torch.as_tensor(binned[:n].astype(np.uint8)).cuda()
+        check(f"served {n} rows", scorer.tables, xd)
+    xd = torch.as_tensor(pool_bins[:64]).cuda()
+    check("served rung 64, rows plan", scorer.tables, xd,
+          S.rows_plan(64, 100, scorer.tables.num_nodes, 1, torch.uint8, F))
+    # rows of 29 bytes: staged element by element (no whole words), also
+    # from a base off a word
+    wide = torch.cat([torch.as_tensor(binned[:100_001].astype(np.uint8)),
+                      torch.zeros((100_001, 1), dtype=torch.uint8)], 1)
+    wide = wide.cuda()
+    for n in (64, 100_000):
+        check(f"served {n} rows of 29 bytes", scorer.tables, wide[:n])
+        check(f"served {n} rows of 29 bytes off a word", scorer.tables,
+              wide.view(-1)[1:1 + n * (F + 1)].view(n, F + 1))
 
     # the main path's booster at its 2M rows: bin ids and raw rows
     for autocast in ("off", "bf16"):
@@ -1805,7 +1868,14 @@ def phase_kernel_score(ctx):
         for name, dt in dtypes.items():
             check(f"main {autocast} 2M {name}", tables,
                   torch.as_tensor(binned).to(dt).cuda())
+    main_tables = main.predict_binned_scorer("off", "cuda").tables
     main_bins = torch.as_tensor(binned.astype(np.uint8)).cuda()
+    check("main 1 row", main_tables, main_bins[:1])
+    check("main 2M + 7 rows", main_tables,
+          torch.cat([main_bins, main_bins[:7]]))
+    check("main 1000 rows, cluster plan", main_tables, main_bins[:1000],
+          S.cluster_plan(1000, main.num_trees, main_tables.num_nodes, 1,
+                         torch.uint8, F))
     full = timed("main path, 2M rows, uint8",
                  main.predict_binned_scorer("off", "cuda"), main_bins,
                  binned[:64].astype(np.uint8))
@@ -1818,27 +1888,67 @@ def phase_kernel_score(ctx):
                      x[:64])
     del xd, main_bins
 
-    # a random three-class booster: the class fold
+    # random boosters: the class fold of three and of ten classes (passes
+    # of four), 1,000 trees (tree chunks), depth 16 (the global route)
     rng = np.random.default_rng(6)
-    for name, max_bin in (("uint16", 1000), ("int32", 70_000)):
-        synth = random_booster(7, 100, 6, 3, max_bin)
-        for autocast in ("off", "bf16"):
-            tables = synth.predict_binned_scorer(autocast, "cuda").tables
-            for n in (1, 64, 100_003):
-                bins = rng.integers(0, max_bin + 1, size=(n, F))
-                check(f"K=3 {autocast} {n} {name}", tables,
-                      torch.as_tensor(bins).to(dtypes[name]).cuda())
+    cases = (("K=3", 7, 100, 6, 3, {"uint16": 1000, "int32": 70_000},
+              (1, 64, 100_003)),
+             ("K=10", 8, 40, 5, 10, {"uint8": 255}, (64, 100_003)),
+             ("1000 trees", 9, 1000, 6, 1, {"uint8": 255}, (64, 100_003)),
+             ("depth 16", 10, 6, 16, 1, {"uint16": 1000}, (64, 100_003)))
+    for label, seed, trees, depth, k, bins_of, sizes in cases:
+        for name, max_bin in bins_of.items():
+            synth = random_booster(seed, trees, depth, k, max_bin)
+            for autocast in ("off", "bf16"):
+                tables = synth.predict_binned_scorer(autocast, "cuda").tables
+                for n in sizes:
+                    bins = rng.integers(0, max_bin + 1, size=(n, F))
+                    check(f"{label} {autocast} {n} {name}", tables,
+                          torch.as_tensor(bins).to(dtypes[name]).cuda())
         rows = np.round(rng.normal(size=(100_003, F)), 2)
         rows[rng.random(rows.shape) < 0.05] = np.nan
-        check(f"K=3 raw 100003 ({name} booster)",
-              synth._scorer(True, "off", "cuda").tables,
-              torch.as_tensor(rows.astype(np.float32)).cuda())
+        for n in sizes:
+            check(f"{label} raw {n}", synth._scorer(True, "off",
+                                                     "cuda").tables,
+                  torch.as_tensor(rows[:n].astype(np.float32)).cuda())
+    one = random_booster(11, 1, 3, 1, 255)
+    none = dataclasses.replace(one, **{k: getattr(one, k)[:0]
+                                       for k in BOOSTER_ARRAYS})
+    for n in (5, 100_000):
+        check(f"no trees {n}",
+              none.predict_binned_scorer("off", "cuda").tables,
+              torch.as_tensor(binned[:n].astype(np.uint8)).cuda())
+
+    # the crossover: both plans at each batch size
+    crossover = []
+    for label, booster in (
+            ("served, 100 trees", served),
+            ("served, first 40 trees", served.slice_iterations(0, 40)),
+            ("main, 20 trees", main)):
+        tables = booster.predict_binned_scorer("off", "cuda").tables
+        for n in (1, 64, 1024, 4096, 8192, 16384):
+            xs = torch.as_tensor(binned[:n].astype(np.uint8)).cuda()
+            row = {"booster": label, "rows": n,
+                   "chosen": S._plan_for(n, F, torch.uint8, tables,
+                                         xs.device).regime}
+            for regime, plan in (
+                    ("rows", S.rows_plan(n, tables.num_trees,
+                                         tables.num_nodes, 1, torch.uint8,
+                                         F)),
+                    ("cluster", S.cluster_plan(n, tables.num_trees,
+                                               tables.num_nodes, 1,
+                                               torch.uint8, F))):
+                row[f"{regime}_ms"] = device_ms(
+                    torch, lambda: S._launch(xs, tables, plan))
+            crossover.append(row)
+            emit({"phase": "kernel_score_crossover", **row})
 
     torch.cuda.synchronize()
     ctx["score_rows"] = {"rung64": rung64, "2M": full, "2M_raw": full_raw}
     out = {"cases_bitwise": checked - len(failures), "cases": checked,
            "rung_device_ms": rung_ms, "rung64": rung64, "main_2M": full,
-           "main_2M_raw": full_raw, "card": ctx["smi"]}
+           "main_2M_raw": full_raw, "crossover": crossover,
+           "card": ctx["smi"]}
     if failures:
         raise AssertionError(json.dumps({"failures": failures, **out},
                                         default=str))
@@ -2364,8 +2474,8 @@ def kernel_table(ctx):
     kernels.append({
         "name": "tree_score", "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/tree_score.cu",
-        "replaces": "mmlspark_tpu/models/gbdt/booster.py:222",
-        "replaces_also": "mmlspark_tpu/models/gbdt/booster.py:263",
+        "replaces": "mmlspark_tpu/models/gbdt/booster.py:269",
+        "replaces_also": "mmlspark_tpu/models/gbdt/booster.py:223",
         "launches": ctx["launches"]["tree_score"],
         "launches_serving_path": {arm: ctx["launches"][f"serving_path_{arm}"]
                                   for arm in ("on", "off")},
@@ -2378,7 +2488,11 @@ def kernel_table(ctx):
         "library_ms": None,
         "rung64": {k: score["rung64"][k] for k in (
             "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms",
-            "bound_by", "launches_per_call", "copies_per_call")},
+            "bound_by", "launches_per_call", "copies_per_call", "plan")},
+        "plan": score["2M"]["plan"],
+        "raw_2M": {k: score["2M_raw"][k] for k in (
+            "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms",
+            "bound_by", "plan")},
         "per": "one call on the main path's 20-tree booster at its 2M "
                "uint8 rows (rung64: the served 100-tree model at 64 rows); "
                "launches from phase main_path (predict_binned) and the "

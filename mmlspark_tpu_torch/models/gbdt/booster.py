@@ -38,7 +38,8 @@ import torch
 
 from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.models.gbdt.score_cuda import (BIN_CODES, StagedBatch,
-                                                       TreeTables, tree_score,
+                                                       make_tables, pack_nodes,
+                                                       tree_score,
                                                        tree_score_staged)
 from mmlspark_tpu_torch.ops.ingest import binned_ingest_dtype
 from mmlspark_tpu_torch.parallel.shard_rules import placement_cast
@@ -620,11 +621,14 @@ _NAN_LEFT = 10
 
 class TreeScorer:
     """A booster's scorer on one device, the counterpart of a jitted JAX
-    scorer: the tables copied there once (``score_cuda.TreeTables``:
-    split features and bin thresholds as int32, or raw thresholds as
-    their float32 rounding for ``raw``; the leaf table in float32, or
-    bfloat16 under ``autocast="bf16"`` through ``placement_cast``), and
-    per call one ``score_cuda.tree_score``."""
+    scorer: the tables packed and copied there once
+    (``score_cuda.pack_nodes`` / ``make_tables``: a 32-bit word per node
+    for bin ids, or the feature and the float32 rounding of the raw
+    threshold for ``raw``, every leaf pushed to the last level; the leaf
+    table in float32, or bfloat16 under ``autocast="bf16"`` through
+    ``placement_cast``; each slot's float64 leaf * weight), and per call
+    one ``score_cuda.tree_score``. Packing refuses a booster whose bin
+    nodes do not fit a word."""
 
     def __init__(self, booster: BoosterArrays, device: torch.device,
                  raw: bool = False, autocast: str = "off"):
@@ -632,18 +636,16 @@ class TreeScorer:
         if sf.size and int(sf.max()) >= booster.num_features:
             raise ValueError(f"a split feature ({int(sf.max())}) is not "
                              f"below num_features ({booster.num_features})")
-        thr = (np.asarray(booster.threshold_value, np.float32) if raw
-               else np.asarray(booster.threshold_bin, np.int32))
-        leaf = torch.as_tensor(booster.node_value.reshape(-1),
-                               dtype=torch.float32, device=device)
+        nodes, leaf = pack_nodes(
+            sf, booster.threshold_value if raw else booster.threshold_bin,
+            booster.node_value, booster.max_depth, raw)
         self.device = device
         self.autocast = autocast
-        self.tables = TreeTables(
-            split_feature=torch.as_tensor(
-                sf.reshape(-1).astype(np.int32), device=device),
-            threshold=torch.as_tensor(thr.reshape(-1), device=device),
+        self.tables = make_tables(
+            nodes=torch.as_tensor(nodes, device=device),
             leaf=placement_cast(
-                leaf, torch.bfloat16 if autocast == "bf16" else None),
+                torch.as_tensor(leaf, device=device),
+                torch.bfloat16 if autocast == "bf16" else None),
             tree_weight=torch.as_tensor(booster.tree_weights,
                                         dtype=torch.float32, device=device),
             num_nodes=sf.shape[1], max_depth=booster.max_depth,

@@ -1,5 +1,5 @@
 """Tree-ensemble scoring: the wrapper of the CUDA kernel
-``csrc/tree_score.cu`` and its plain PyTorch version.
+``csrc/tree_score.cu``, its launch plan and its plain PyTorch version.
 
 ``tree_score(x, tables)`` is the port of the JAX package's jitted
 scorers, ``BoosterArrays.predict_binned_fn`` (bin ids against
@@ -12,6 +12,14 @@ or (N, K) float32 raw scores, every tree walked from its root, tree t's
 the adds a fixed sequence, so the kernel and the plain version return the
 same bits.
 
+The tables are packed once per scorer (``pack_nodes``, ``make_tables``):
+a 32-bit word per node for bin ids, 8 bytes per node for raw rows, every
+leaf above the last level pushed down its left spine so that each walk
+takes ``max_depth`` steps, and each slot's float64 product leaf * weight.
+``score_plan`` picks the kernel's launch plan from the shapes: ``"rows"``
+(persistent CTAs, a thread per row) for large batches, ``"cluster"`` (a
+thread-block cluster that splits the trees) for small ones.
+
 On a CUDA tensor ``tree_score`` launches the kernel, one launch per call
 (a build or launch failure raises); on a CPU tensor it runs the plain
 version, ``tree_score_reference``. There is no other route. The kernel's
@@ -21,31 +29,64 @@ design and bound are in the note at the top of its source.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
+from typing import Optional
 
+import numpy as np
 import torch
 
 from mmlspark_tpu_torch.native import bindings
 
 # Launches of the kernel in this process, so a run can show that its main
-# path went through it.
+# path went through it; and the same launches by plan.
 tree_score_launches = 0
+tree_score_plan_launches = {"rows": 0, "cluster": 0}
 
 BIN_CODES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
 RAW_CODE = 5                 # raw float32 features
-LEAF_CODES = {torch.float32: 0, torch.bfloat16: 1}
+LEAF_DTYPES = (torch.float32, torch.bfloat16)  # the plain version's leaves
 PLAIN_ROWS = 1 << 16         # rows the plain version routes at once
+
+# What a packed bin node holds: the split feature as int16 and
+# threshold_bin as uint16, 65535 being the always-left threshold.
+MAX_BIN_FEATURE = 32767
+MAX_BIN_THRESHOLD = 65534
+ALWAYS_LEFT_BIN = 65535
+
+# The launch plans' limits on Hopper (H100): shared memory of a CTA (the
+# opt-in maximum) and of an SM, of which the card keeps 1 KB per CTA;
+# threads of a CTA; CTAs of a portable cluster.
+SMEM_BLOCK = 232_448
+SMEM_SM = 233_472
+SMEM_RESERVED = 1024
+ROW_THREADS = 256            # rows plan: rows of a tile, a thread per row
+SM_THREADS = 1024            # the rows kernel's threads per SM (at most 64
+                             # registers a thread: __launch_bounds__(1024,
+                             # 1)), and the rows of its largest tile
+CLUSTER_MAX = 8
+CLUSTER_BLOCK_ROWS = 64      # rows of a cluster's block
+# The cluster plan takes batches of at most CLUSTER_ROWS_PER_TREE * (T -
+# CLUSTER_TREES) rows, the crossovers measured on the card (PERF.md
+# section 6, phase kernel_score of chip_smoke.py): at 20 and 40 trees the
+# rows plan is as fast or faster at every batch size; at 100 trees the
+# cluster plan is faster up to 4,096 rows and slower from 8,192.
+CLUSTER_TREES = 40
+CLUSTER_ROWS_PER_TREE = 70
+SMS = 132                    # SMs of an H100 SXM, when no card is asked
 
 
 @dataclass(frozen=True)
 class TreeTables:
-    """A booster's tables on one device, flattened to (T * M,) in the
-    full binary layout (node i's children 2i+1 / 2i+2)."""
+    """A booster's packed tables on one device, tree after tree in the
+    full binary layout (node i's children 2i+1 / 2i+2), ``M`` slots per
+    tree, every leaf on the last level (``pack_nodes``)."""
 
-    split_feature: torch.Tensor   # (T * M,) int32, < 0 at a leaf
-    threshold: torch.Tensor       # (T * M,) int32 bins or float32 values
+    nodes: torch.Tensor           # bin ids: (T * M,) int32 words; raw
+                                  # rows: (T * M, 2) int32 (pack_nodes)
     leaf: torch.Tensor            # (T * M,) float32 or bfloat16
     tree_weight: torch.Tensor     # (T,) float32
+    products: torch.Tensor        # (T * M,) float64 leaf * weight
     num_nodes: int                # M = 2^(max_depth+1) - 1
     max_depth: int
     num_class: int
@@ -55,28 +96,247 @@ class TreeTables:
     @property
     def raw(self) -> bool:
         """Raw float32 features (``predict``) rather than bin ids."""
-        return self.threshold.dtype == torch.float32
+        return self.nodes.dim() == 2
 
     @property
     def num_trees(self) -> int:
         return self.tree_weight.shape[0]
 
 
+def pack_nodes(split_feature: np.ndarray, threshold: np.ndarray,
+               node_value: np.ndarray, max_depth: int, raw: bool):
+    """The kernel's node table and leaf values from (T, M) split features
+    (< 0 at a leaf), thresholds and node values. A leaf above level
+    ``max_depth`` is pushed down its left spine: its slot and the spine's
+    slots above the last level become always-left nodes (feature 0,
+    threshold 65535 for bin ids, +inf for raw rows, where NaN goes left
+    too) and the spine's slot on the last level takes its value, so a
+    walk of ``max_depth`` steps ends on the leaf's value wherever the
+    leaf was. Bin ids (``raw`` False, int thresholds) pack into one int32
+    word per node, the feature as int16 in the low half and
+    ``threshold_bin`` as uint16 in the high half; raw rows (float
+    thresholds, rounded to float32) into a (T * M, 2) int32 array of the
+    feature and the float32 threshold's bits. Returns (nodes, float32
+    leaf values (T * M,)). Raises ``ValueError`` where a bin node does not
+    fit its word: a split feature above 32767 or a threshold outside
+    0..65534 (binned scoring refuses negative thresholds before,
+    ``BoosterArrays.supports_binned``)."""
+    sf = np.array(split_feature, np.int64)
+    nv = np.array(node_value, np.float32)
+    thr = np.array(threshold, np.float32 if raw else np.int64)
+    internal = sf >= 0
+    if not raw and internal.any():
+        if int(sf[internal].max()) > MAX_BIN_FEATURE:
+            raise ValueError(f"a split feature ({int(sf[internal].max())}) "
+                             f"is above {MAX_BIN_FEATURE}: a packed bin node "
+                             f"holds the feature as int16")
+        lo, hi = int(thr[internal].min()), int(thr[internal].max())
+        if lo < 0 or hi > MAX_BIN_THRESHOLD:
+            raise ValueError(f"bin thresholds {lo}..{hi} leave "
+                             f"0..{MAX_BIN_THRESHOLD}: a packed bin node "
+                             f"holds the threshold as uint16, "
+                             f"{ALWAYS_LEFT_BIN} always left")
+    sf[~internal] = -1
+    for level in range(max_depth):
+        first = 2 ** level - 1
+        t, j = np.nonzero(sf[:, first:2 * first + 1] < 0)
+        node = first + j
+        sf[t, node] = 0
+        thr[t, node] = np.inf if raw else ALWAYS_LEFT_BIN
+        sf[t, 2 * node + 1] = -1
+        nv[t, 2 * node + 1] = nv[t, node]
+    sf, thr, nv = sf.reshape(-1), thr.reshape(-1), nv.reshape(-1)
+    if raw:
+        nodes = np.empty((sf.size, 2), np.int32)
+        nodes[:, 0] = sf
+        nodes[:, 1] = thr.view(np.int32)
+        return nodes, nv
+    word = (np.where(sf >= 0, thr, 0) << 16) | (sf & 0xFFFF)
+    return word.astype(np.uint32).view(np.int32), nv
+
+
+def make_tables(nodes: torch.Tensor, leaf: torch.Tensor,
+                tree_weight: torch.Tensor, num_nodes: int, max_depth: int,
+                num_class: int, num_features: int,
+                init_score: float) -> TreeTables:
+    """``TreeTables`` of packed nodes, leaf values and tree weights on one
+    device, with each slot's product leaf * weight (a bfloat16 leaf
+    promoted to float32 first; exact in float64)."""
+    products = leaf.float().double() * tree_weight.double() \
+        .repeat_interleave(num_nodes)
+    return TreeTables(nodes=nodes, leaf=leaf, tree_weight=tree_weight,
+                      products=products, num_nodes=num_nodes,
+                      max_depth=max_depth, num_class=num_class,
+                      num_features=num_features, init_score=init_score)
+
+
+@dataclass(frozen=True)
+class ScorePlan:
+    """How the kernel covers one call: ``regime`` ``"rows"`` (persistent
+    CTAs of ``rows`` threads, a thread per row, ``ctas`` CTAs looping over
+    tiles of ``rows`` rows, the trees in chunks of ``chunk``) or
+    ``"cluster"`` (``ctas / cluster`` clusters of ``cluster`` CTAs, each
+    cluster a block of ``rows`` rows, rank r walking its ``<= chunk``
+    trees); ``smem`` dynamic shared-memory bytes per CTA; ``tables``
+    ``"shared"`` (tables and rows staged in shared memory) or
+    ``"global"`` (read where they lie)."""
+
+    regime: str
+    rows: int
+    ctas: int
+    cluster: int
+    chunk: int
+    smem: int
+    tables: str
+
+    @property
+    def args(self) -> tuple:
+        """The plan as the C entry points take it."""
+        return (0 if self.regime == "rows" else 1, self.rows, self.ctas,
+                self.cluster, self.chunk, self.smem,
+                int(self.tables == "shared"))
+
+
+def _align(v: int, a: int) -> int:
+    return (v + a - 1) // a * a
+
+
+def _row_words(features: int, in_bytes: int) -> int:
+    """32-bit words of a staged row, the last one partly used."""
+    return (features * in_bytes + 3) // 4
+
+
+def _smem_bytes(chunk: int, m: int, raw: bool, features: int, words: int,
+                cluster: bool, rows: int = CLUSTER_BLOCK_ROWS) -> int:
+    """The kernel's shared-memory layout (``Layout`` in the source): the
+    nodes (8 bytes each for raw rows, else 4) and the float64 products of
+    ``chunk`` trees, the cluster's float64 products of its walks, a 32-bit
+    value per feature of each of the ``rows`` rows of a tile (a cluster's
+    block), and for the rows plan's bin ids the next rows' ``words`` raw
+    words."""
+    cells = chunk * m
+    end = _align(cells * (8 if raw else 4), 8) + cells * 8
+    if cluster:
+        end += chunk * rows * 8
+    values = _align(end, 16) + features * rows * 4
+    return values if cluster or raw else values + rows * 4 * words
+
+
+def _shape(in_dtype: torch.dtype):
+    """(bytes of an input element, raw rows?)."""
+    return torch.empty((), dtype=in_dtype).element_size(), \
+        in_dtype == torch.float32
+
+
+def rows_plan(n: int, trees: int, nodes: int, k: int, in_dtype: torch.dtype,
+              features: int, sms: int = SMS) -> ScorePlan:
+    """The rows plan. Where the batch fills every SM with tiles of 1,024
+    rows and one CTA of them holds every tree, one such CTA per SM (one
+    copy of the tables per SM). Else tiles of 256 rows: every tree in one
+    chunk if the chunk and the tiles leave room for two CTAs per SM; else
+    chunks of as many trees as do; else as fit one CTA per SM; else (a
+    tree or a tile larger than a CTA's shared memory) the global route,
+    one pass reading the tables and rows where they lie."""
+    in_bytes, raw = _shape(in_dtype)
+    words = _row_words(features, in_bytes)
+
+    def smem(chunk, rows=ROW_THREADS):
+        return _smem_bytes(chunk, nodes, raw, features, words, False, rows)
+
+    if n >= sms * SM_THREADS and smem(max(trees, 1), SM_THREADS) \
+            <= SMEM_BLOCK:
+        return ScorePlan("rows", SM_THREADS, sms, 1, max(trees, 1),
+                         smem(max(trees, 1), SM_THREADS), "shared")
+
+    def most(budget):     # the most trees whose chunk fits ``budget``
+        lo, hi = 0, max(trees, 1)
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if smem(mid) <= budget else (lo, mid - 1)
+        return lo
+
+    chunk = 0
+    for budget in (SMEM_SM // 2 - SMEM_RESERVED, SMEM_BLOCK):
+        chunk = most(budget)
+        if chunk:
+            break
+    tiles = max(1, -(-n // ROW_THREADS))
+    per_sm = SM_THREADS // ROW_THREADS
+    if not chunk:
+        return ScorePlan("rows", ROW_THREADS, min(tiles, sms * per_sm), 1,
+                         max(trees, 1), 0, "global")
+    size = smem(chunk)
+    per_sm = max(1, min(per_sm, SMEM_SM // (size + SMEM_RESERVED)))
+    return ScorePlan("rows", ROW_THREADS, min(tiles, sms * per_sm), 1,
+                     chunk, size, "shared")
+
+
+def cluster_plan(n: int, trees: int, nodes: int, k: int,
+                 in_dtype: torch.dtype,
+                 features: int) -> Optional[ScorePlan]:
+    """The cluster plan: ``min(8, T)`` CTAs per cluster, rank r the trees
+    ``[r*T/C, (r+1)*T/C)``, a cluster per block of 64 rows; None where a
+    rank's tables, products and rows do not fit a CTA's shared
+    memory."""
+    in_bytes, raw = _shape(in_dtype)
+    ranks = max(1, min(CLUSTER_MAX, trees))
+    chunk = -(-trees // ranks)
+    size = _smem_bytes(chunk, nodes, raw, features,
+                       _row_words(features, in_bytes), True)
+    if size > SMEM_BLOCK:
+        return None
+    blocks = max(1, -(-n // CLUSTER_BLOCK_ROWS))
+    return ScorePlan("cluster", CLUSTER_BLOCK_ROWS, ranks * blocks, ranks,
+                     chunk, size, "shared")
+
+
+def cluster_rows(trees: int) -> int:
+    """The largest batch the cluster plan takes through ``trees`` trees
+    (none below ``CLUSTER_TREES``)."""
+    return max(0, CLUSTER_ROWS_PER_TREE * (trees - CLUSTER_TREES))
+
+
+@functools.lru_cache(maxsize=1024)
+def score_plan(n: int, trees: int, nodes: int, k: int, in_dtype: torch.dtype,
+               features: int, sms: int = SMS) -> ScorePlan:
+    """The kernel's plan for ``n`` rows of ``features`` ``in_dtype``
+    values (float32: raw rows) through ``trees`` trees of ``nodes`` slots
+    and ``k`` classes on a card of ``sms`` SMs: the cluster plan where it
+    fits and the batch is at most ``cluster_rows(trees)`` rows; else the
+    rows plan."""
+    if n <= cluster_rows(trees):
+        plan = cluster_plan(n, trees, nodes, k, in_dtype, features)
+        if plan is not None:
+            return plan
+    return rows_plan(n, trees, nodes, k, in_dtype, features, sms)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_for(n: int, features: int, dtype: torch.dtype, tables: TreeTables,
+              device: torch.device) -> ScorePlan:
+    sms = _sm_count(device.index) if device.type == "cuda" else SMS
+    return score_plan(n, tables.num_trees, tables.num_nodes,
+                      tables.num_class, dtype, features, sms)
+
+
 def _check(x: torch.Tensor, tables: TreeTables) -> None:
     t, m = tables.num_trees, tables.num_nodes
-    if tables.threshold.dtype not in (torch.int32, torch.float32) \
-            or tables.leaf.dtype not in LEAF_CODES:
-        raise ValueError(f"tables: thresholds {tables.threshold.dtype}, "
-                         f"leaves {tables.leaf.dtype}")
-    for name, v, dtype, size in (
-            ("split_feature", tables.split_feature, torch.int32, t * m),
-            ("threshold", tables.threshold, tables.threshold.dtype, t * m),
-            ("leaf", tables.leaf, tables.leaf.dtype, t * m),
-            ("tree_weight", tables.tree_weight, torch.float32, t)):
-        if v.dtype != dtype or tuple(v.shape) != (size,) \
+    node_shape = (t * m, 2) if tables.raw else (t * m,)
+    if tables.leaf.dtype not in LEAF_DTYPES:
+        raise ValueError(f"tables: leaves {tables.leaf.dtype}")
+    for name, v, dtype, shape in (
+            ("nodes", tables.nodes, torch.int32, node_shape),
+            ("leaf", tables.leaf, tables.leaf.dtype, (t * m,)),
+            ("tree_weight", tables.tree_weight, torch.float32, (t,)),
+            ("products", tables.products, torch.float64, (t * m,))):
+        if v.dtype != dtype or tuple(v.shape) != shape \
                 or v.device != x.device or not v.is_contiguous():
             raise ValueError(f"tables.{name} must be a contiguous {dtype} "
-                             f"({size},) on {x.device}, got {v.dtype} "
+                             f"{shape} on {x.device}, got {v.dtype} "
                              f"{tuple(v.shape)} on {v.device}")
     if m < 2 ** (tables.max_depth + 1) - 1:
         raise ValueError(f"{m} nodes per tree do not hold depth "
@@ -93,8 +353,8 @@ def _check(x: torch.Tensor, tables: TreeTables) -> None:
 
 
 def tree_score(x: torch.Tensor, tables: TreeTables) -> torch.Tensor:
-    """(N, F) bin ids (uint8 / uint16 / int32, for int32 thresholds) or
-    raw float32 features (for float32 thresholds), contiguous, on the
+    """(N, F) bin ids (uint8 / uint16 / int32, for packed bin nodes) or
+    raw float32 features (for packed raw nodes), contiguous, on the
     tables' device -> (N,) or (N, K) float32 raw scores."""
     _check(x, tables)
     if x.device.type == "cpu":
@@ -115,26 +375,41 @@ def _add_tree(acc: torch.Tensor, contribution: torch.Tensor) -> None:
     torch.add(acc, contribution, out=acc)
 
 
+def unpack_nodes(tables: TreeTables):
+    """(feature, threshold) per node of the packed tables: int64 features
+    (< 0 on the last level, 0 at an always-left node) and thresholds,
+    int64 bin thresholds or float32 raw ones."""
+    if tables.raw:
+        return tables.nodes[:, 0].long(), \
+            tables.nodes.view(torch.float32)[:, 1]
+    word = tables.nodes.long() & 0xFFFFFFFF
+    return ((word & 0xFFFF) ^ 0x8000) - 0x8000, word >> 16
+
+
+def _depth(x: torch.Tensor, tables: TreeTables) -> int:
+    """Steps of every walk: ``max_depth``, or none for rows of no
+    features (whose trees are single leaves, on their root's slot)."""
+    return tables.max_depth if x.shape[1] else 0
+
+
 def leaf_nodes(x: torch.Tensor, tables: TreeTables) -> torch.Tensor:
-    """(rows, T) int64 leaf slot of every row in every tree: all trees
-    routed at once, depth level by depth level, on a (rows, trees) node
-    tensor indexed at ``t * M + node``; a leaf's node stays."""
+    """(rows, T) int64 last-level slot of every row in every tree: all
+    trees routed at once, level by level, on a (rows, trees) node tensor
+    indexed at ``t * M + node``. Bin ids compare clamped to 65535, as the
+    kernel compares them (left of the always-left threshold only)."""
     offsets = (torch.arange(tables.num_trees, device=x.device)
                * tables.num_nodes)[None, :]
-    sf = tables.split_feature.long()
-    thr = tables.threshold if tables.raw else tables.threshold.long()
+    sf, thr = unpack_nodes(tables)
     # gather takes no uint16, and bin ids compare as integers
-    xs = x if tables.raw else x.long()
+    xs = x if tables.raw else x.long().clamp_max(ALWAYS_LEFT_BIN)
     node = torch.zeros((x.shape[0], tables.num_trees), dtype=torch.int64,
                        device=x.device)
-    for _ in range(tables.max_depth):
+    for _ in range(_depth(x, tables)):
         flat = node + offsets
-        feat = sf[flat]
-        fx = torch.gather(xs, 1, feat.clamp_min(0))
+        fx = torch.gather(xs, 1, sf[flat].clamp_min(0))
         left = (torch.isnan(fx) | (fx <= thr[flat])) if tables.raw \
             else fx <= thr[flat]
-        child = 2 * node + 1
-        node = torch.where(feat < 0, node, torch.where(left, child, child + 1))
+        node = 2 * node + torch.where(left, 1, 2)
     return node
 
 
@@ -167,14 +442,15 @@ class StagedBatch:
     """The buffers of one padded batch shape of a served model: ``x``, a
     numpy view of the (rows, F) bin ids to score, and ``out``, one of
     their (rows, K) float32 scores, both in host memory (pinned when the
-    tables lie on the card), and their twins on the tables' device.
-    ``tree_score_staged`` scores them in one call."""
+    tables lie on the card), and their twins on the tables' device; and
+    the kernel's plan for that shape. ``tree_score_staged`` scores them
+    in one call."""
 
     def __init__(self, tables: TreeTables, rows: int, features: int,
                  dtype: torch.dtype):
         if tables.raw or dtype not in BIN_CODES:
             raise ValueError(f"a staged batch holds bin ids of "
-                             f"{tuple(BIN_CODES)} for int32 thresholds, got "
+                             f"{tuple(BIN_CODES)} for packed bin nodes, got "
                              f"{dtype} (raw tables: {tables.raw})")
         if features < tables.num_features:
             raise ValueError(f"{features} features, the trees split on "
@@ -189,6 +465,7 @@ class StagedBatch:
         self.dev_out = torch.empty_like(self.host_out, device=dev)
         self.x = self.host_in.numpy()
         self.out = self.host_out.numpy()
+        self.plan = _plan_for(rows, features, dtype, tables, dev)
         # the library's arguments that never change, read once: a torch
         # call on the serving thread can give up the interpreter lock
         self.args = (self.host_in.data_ptr(), self.dev_in.data_ptr(),
@@ -211,33 +488,37 @@ def tree_score_staged(batch: StagedBatch, tables: TreeTables) -> None:
     dev = batch.dev_in.device
     n, f = batch.x.shape
     code = lib.mmls_tree_score_staged(
-        *batch.args,
-        tables.split_feature.data_ptr(), tables.threshold.data_ptr(),
-        tables.leaf.data_ptr(), LEAF_CODES[tables.leaf.dtype],
-        tables.tree_weight.data_ptr(), batch.dev_out.data_ptr(),
-        batch.host_out.data_ptr(), ctypes.c_float(tables.init_score), n, f,
-        tables.num_trees, tables.num_nodes, tables.max_depth,
-        tables.num_class, dev.index,
+        *batch.args, tables.nodes.data_ptr(), tables.products.data_ptr(),
+        batch.dev_out.data_ptr(), batch.host_out.data_ptr(),
+        ctypes.c_float(tables.init_score), n, f, tables.num_trees,
+        tables.num_nodes, tables.max_depth if f else 0, tables.num_class,
+        *batch.plan.args, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     bindings.check(lib, code, "tree_score staged batch")
     tree_score_launches += 1
+    tree_score_plan_launches[batch.plan.regime] += 1
 
 
-def _launch(x: torch.Tensor, tables: TreeTables) -> torch.Tensor:
+def _launch(x: torch.Tensor, tables: TreeTables,
+            plan: Optional[ScorePlan] = None) -> torch.Tensor:
+    """One launch of the kernel on ``x`` under ``plan`` (default
+    ``score_plan``'s for the shapes)."""
     global tree_score_launches
     lib = bindings.load("tree_score")
     n, k = x.shape[0], tables.num_class
     out = torch.empty((n, k), dtype=torch.float32, device=x.device)
     if n:
         dev = x.device
+        if plan is None:
+            plan = _plan_for(n, x.shape[1], x.dtype, tables, dev)
         code = lib.mmls_tree_score(
             x.data_ptr(), RAW_CODE if tables.raw else BIN_CODES[x.dtype],
-            tables.split_feature.data_ptr(), tables.threshold.data_ptr(),
-            tables.leaf.data_ptr(), LEAF_CODES[tables.leaf.dtype],
-            tables.tree_weight.data_ptr(), out.data_ptr(),
-            ctypes.c_float(tables.init_score), n, x.shape[1],
-            tables.num_trees, tables.num_nodes, tables.max_depth, k,
-            dev.index, torch.cuda.current_stream(dev).cuda_stream)
+            tables.nodes.data_ptr(), tables.products.data_ptr(),
+            out.data_ptr(), ctypes.c_float(tables.init_score), n,
+            x.shape[1], tables.num_trees, tables.num_nodes,
+            _depth(x, tables), k, *plan.args, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
         bindings.check(lib, code, "tree_score kernel launch")
         tree_score_launches += 1
+        tree_score_plan_launches[plan.regime] += 1
     return out[:, 0] if k == 1 else out

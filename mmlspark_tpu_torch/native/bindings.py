@@ -73,17 +73,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "tree_score": {
-        # x, x code, split_feature, thresholds, leaf values, leaf code,
-        # tree weights, out, init_score, n, f, trees, nodes, depth,
-        # classes, device, stream
-        "mmls_tree_score": ([_VP, _I] + [_VP] * 3 + [_I] + [_VP] * 2
-                            + [ctypes.c_float, _LL] + [_I] * 6 + [_VP], _I),
-        # host x, x, x code, x bytes, split_feature, thresholds, leaf
-        # values, leaf code, tree weights, out, host out, init_score, n,
-        # f, trees, nodes, depth, classes, device, stream
-        "mmls_tree_score_staged": ([_VP, _VP, _I, _LL] + [_VP] * 3 + [_I]
-                                   + [_VP] * 3 + [ctypes.c_float, _LL]
-                                   + [_I] * 6 + [_VP], _I),
+        # x, x code, packed nodes, products, out, init_score, n, f, trees,
+        # nodes per tree, depth, classes, the plan (regime, rows, CTAs,
+        # cluster, chunk, smem bytes, shared), device, stream
+        "mmls_tree_score": ([_VP, _I] + [_VP] * 3 + [ctypes.c_float, _LL]
+                            + [_I] * 13 + [_VP], _I),
+        # host x, x, x code, x bytes, packed nodes, products, out, host
+        # out, init_score, n, f, trees, nodes per tree, depth, classes, the
+        # plan, device, stream
+        "mmls_tree_score_staged": ([_VP, _VP, _I, _LL] + [_VP] * 4
+                                   + [ctypes.c_float, _LL] + [_I] * 13
+                                   + [_VP], _I),
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attn_sm90": {

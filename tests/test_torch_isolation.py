@@ -23,7 +23,8 @@ PORT_FILES = sorted((ROOT / "mmlspark_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_hist_ab.py",
        ROOT / "tools" / "torch_flash_ab.py",
        ROOT / "tools" / "torch_hist_quant_configs.py",
-       ROOT / "tools" / "torch_serving_ab.py"]
+       ROOT / "tools" / "torch_serving_ab.py",
+       ROOT / "tools" / "torch_score_ab.py"]
 
 
 def _imported_modules(path):
@@ -51,7 +52,8 @@ def test_port_files_were_found():
             "binning.py", "env.py", "chip_smoke.py", "flash.py",
             "attention.py", "mesh.py", "torch_hist_ab.py",
             "torch_flash_ab.py", "torch_hist_quant_configs.py",
-            "torch_serving_ab.py", "score_cuda.py"} <= names
+            "torch_serving_ab.py", "torch_score_ab.py",
+            "score_cuda.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
