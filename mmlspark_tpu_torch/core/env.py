@@ -24,6 +24,12 @@ one; the defaults are the JAX package's:
     (default 8)
   - ``MMLSPARK_TORCH_INFER_AUTOCAST``  off|bf16: the binned scorer's leaf
     table in bfloat16 (``parallel.shard_rules.resolve_infer_autocast``)
+  - ``MMLSPARK_TORCH_SPILL_VERIFY``  auto|off|on: checksum verification
+    of persisted payloads (``ops.ingest.resolve_spill_verify``); auto and
+    on verify every checkpoint's crc32 at resume, off trusts the disk
+  - ``MMLSPARK_TORCH_FAULTS``  fault-injection specs armed at import
+    (``core.faults.arm_from_env``; ``point:action[:nth[:param]]``, comma
+    separated)
 
 Parsing contract, as in the JAX package: a malformed value must not
 abort or silently mislabel a run, so it warns once per variable and the
@@ -47,6 +53,8 @@ SERVE_WARM_MODELS = "MMLSPARK_TORCH_SERVE_WARM_MODELS"
 SERVE_TENANT_RATE = "MMLSPARK_TORCH_SERVE_TENANT_RATE"
 SERVE_TENANT_BURST = "MMLSPARK_TORCH_SERVE_TENANT_BURST"
 INFER_AUTOCAST = "MMLSPARK_TORCH_INFER_AUTOCAST"
+SPILL_VERIFY = "MMLSPARK_TORCH_SPILL_VERIFY"
+FAULTS = "MMLSPARK_TORCH_FAULTS"
 
 _WARNED: Set[str] = set()
 

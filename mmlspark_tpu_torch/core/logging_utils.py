@@ -1,12 +1,15 @@
 """Structured telemetry on every fit/transform — the port's copy of what
 the pipeline stages use from the JAX package's ``core/logging_utils.py``
-(``new_uid``, ``log_stage_method``, the sink and the secret scrubber).
+(``new_uid``, ``log_stage_method``, ``warn_once``, the sink and the
+secret scrubber).
 
 Each stage's fit/transform is wrapped in a JSON record carrying uid,
 class, method, wall-clock seconds and error info, with credential-looking
 substrings scrubbed; records go to a process-local sink the host
 application can drain or redirect. Knob warnings go through
-``core.env.warn_once``.
+``core.env.warn_once``; degradations (a skipped checkpoint, a corrupt
+one passed over) through :func:`warn_once` here, which logs and records
+a ``degradation`` event in the sink.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import json
 import logging
 import re
+import threading
 import time
 import traceback
 import uuid
@@ -59,6 +63,29 @@ class TelemetrySink:
 
 
 SINK = TelemetrySink()
+
+_WARNED_ONCE: set = set()
+_WARNED_LOCK = threading.Lock()
+
+
+def warn_once(key: str, message: str, *args: Any) -> bool:
+    """Log a degradation warning exactly once per process (keyed), and
+    record it as a telemetry event so the sink shows it even when the
+    log stream is discarded. Returns True when this call emitted."""
+    with _WARNED_LOCK:
+        if key in _WARNED_ONCE:
+            return False
+        _WARNED_ONCE.add(key)
+    logger.warning(message, *args)
+    SINK.emit({"event": "degradation", "key": key,
+               "message": scrub(message % args if args else message)})
+    return True
+
+
+def reset_warn_once() -> None:
+    """Test hook: forget emitted once-per-process warnings."""
+    with _WARNED_LOCK:
+        _WARNED_ONCE.clear()
 
 
 def new_uid(prefix: str) -> str:

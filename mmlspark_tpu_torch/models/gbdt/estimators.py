@@ -1,6 +1,7 @@
 """LightGBM-parity estimators on PyTorch — the port of the JAX package's
-``models/gbdt/estimators.py`` for binary classification and L2
-regression.
+``models/gbdt/estimators.py`` for binary classification and the
+regression objectives (L2, L1, huber, fair, poisson, quantile, mape,
+gamma, tweedie).
 
     LightGBMClassifier(numIterations=..., ...).fit(DataFrame(
         {"features": X, "label": y})).transform(frame)
@@ -16,13 +17,22 @@ pre-binned rows. Stages run on the card unless ``set_device("cpu")`` is
 called; a fitted model inherits the setting, a loaded one takes the
 card. Without a card the default raises: nothing falls back to the CPU.
 
+A custom objective (``fobj``) is called with the fit's device tensors
+(see ``trainer.train``); a numpy one converts them with
+``preds.cpu().numpy()``, a sync with the card every iteration.
+``checkpointDir`` + ``checkpointInterval`` train in warm-started
+segments and write ``checkpoint_<n>.txt`` (the model string) with a
+``.crc32`` sidecar after each; a restarted fit resumes from the newest
+checkpoint whose digest verifies, and refuses a directory written for
+another config or dataset (``checkpoint_meta.json``'s fingerprint, the
+JAX package's digest, so a directory crosses between the packages).
+
 The param surface is the JAX package's (the same names, defaults and
 validation); settings outside this slice raise ``NotImplementedError``
-naming the ROADMAP item that adds them: custom objectives and
-checkpoints (A6c), leaf indices and SHAP columns (A5), objectives
-other than binary and L2 (A3), multiclass, ranking, categorical splits,
-zero-as-missing, sampling and boosting types (A7), meshes and the
-voting / feature-parallel learners (A8).
+naming the ROADMAP item that adds them: leaf indices and SHAP columns
+(A5), multiclass, ranking, categorical splits, zero-as-missing,
+sampling and boosting types (A7), meshes and the voting /
+feature-parallel learners (A8).
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import numpy as np
 
 from mmlspark_tpu_torch.core.dataframe import DataFrame
 from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
+from mmlspark_tpu_torch.core.logging_utils import warn_once
 from mmlspark_tpu_torch.core.param import (
     HasFeaturesCol,
     HasLabelCol,
@@ -57,14 +68,24 @@ from mmlspark_tpu_torch.models.gbdt.trainer import (TrainConfig,
                                                     check_supported, train,
                                                     warm_start_scores)
 from mmlspark_tpu_torch.ops.binning import BinMapper
-from mmlspark_tpu_torch.ops.ingest import binned_ingest_dtype
+from mmlspark_tpu_torch.ops.ingest import (binned_ingest_dtype,
+                                           resolve_spill_verify)
 from mmlspark_tpu_torch.parallel.shard_rules import resolve_infer_autocast
 
-_A6C = "A6c (estimators: custom objectives and checkpoints)"
 _A8 = "A8 (multi-device GBDT)"
+# the JAX estimator's tree_learner for each parallelism; the port trains
+# data_parallel on one device with the serial learner, as the JAX
+# package does without a mesh, and the checkpoint fingerprint takes the
+# JAX name so a checkpoint directory crosses between the packages
+_JAX_TREE_LEARNER = {"data_parallel": "data", "serial": "serial"}
 # rows scored per call of the booster in transform (rows are
 # independent); bounds the device copy of the features
 _SCORE_BATCH_ROWS = 1 << 21
+
+
+def _cust(stage) -> Optional[Any]:
+    """The stage's custom objective callable, if set (fobj param)."""
+    return stage.get("fobj") if stage.is_set("fobj") else None
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -253,7 +274,11 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCo
         to_int, gt(0), default=200_000)
     fobj = Param(
         "fobj", "custom objective callable (preds, labels, weights) -> "
-        "(grad, hess) (FObjTrait.scala:1 analog)", is_complex=True)
+        "(grad, hess) (FObjTrait.scala:1 analog); called with the fit's "
+        "device tensors (float32 preds and labels, weights or None), it "
+        "may return tensors or array-likes; a numpy objective uses "
+        "preds.cpu().numpy(), which syncs with the card every iteration",
+        is_complex=True)
     isProvideTrainingMetric = Param(
         "isProvideTrainingMetric", "training metrics are always recorded "
         "here (train_<metric> series in evals_result); declared for "
@@ -391,12 +416,14 @@ class _LightGBMBase(Estimator, _LightGBMParams):
                         checkpoint_interval: Optional[int] = None):
         """Warm-start refit: continue ``base_model`` with new trees fit
         on ``df`` (the reference's modelString warm start,
-        LightGBMBase.scala:45-60, as a method). ``num_new_trees``
-        overrides ``numIterations`` for the added trees. The estimator
-        itself is not mutated — overrides ride a :meth:`copy`.
-        Checkpointed refits raise (ROADMAP A6c)."""
-        if checkpoint_dir is not None or checkpoint_interval is not None:
-            raise _later("fit_incremental's checkpoint arguments", _A6C)
+        LightGBMBase.scala:45-60, as a method). ``base_model=None`` fits
+        from scratch, still honoring the checkpoint args.
+        ``num_new_trees`` overrides ``numIterations`` for the added
+        trees. ``checkpoint_dir`` + ``checkpoint_interval`` (default 1)
+        thread through the estimator's checkpointed fit: a refit killed
+        mid-flight and re-run resumes from the latest
+        ``checkpoint_N.txt`` segment bitwise. The estimator itself is not
+        mutated — overrides ride a :meth:`copy`."""
         overrides: Dict[str, Any] = {}
         if base_model is not None:
             if base_model.booster is None:
@@ -405,6 +432,10 @@ class _LightGBMBase(Estimator, _LightGBMParams):
             overrides["modelString"] = base_model.get_model_string()
         if num_new_trees is not None:
             overrides["numIterations"] = num_new_trees
+        if checkpoint_dir is not None:
+            overrides["checkpointDir"] = checkpoint_dir
+            overrides["checkpointInterval"] = (checkpoint_interval
+                                               or 1)
         return self.copy(**overrides).fit(df)
 
     def _extract(self, df: DataFrame):
@@ -446,21 +477,13 @@ class _LightGBMBase(Estimator, _LightGBMParams):
         out.update(meta.get("categorical_slots") or [])
         return sorted(out)
 
-    def _check_slice(self):
-        if self.is_set("fobj"):
-            raise _later("fobj (a custom objective)", _A6C)
-        if self.is_set("checkpointDir") or self.get("checkpointInterval"):
-            raise _later("checkpointDir / checkpointInterval (mid-training "
-                         "checkpoints)", _A6C)
-        self._check_reply_params()
-
     def _fit_booster(self, df: DataFrame, objective: str,
                      extra_cfg: Optional[Dict[str, Any]] = None):
         """Bin, then train on the stage's device: returns (TrainResult,
         BinMapper, InstrumentationMeasures with the phases extract,
         binning, and train's dataPreparation / training / validation)."""
         device = resolve_device(self._device)
-        self._check_slice()
+        self._check_reply_params()
         measures = InstrumentationMeasures()
         cat = self._categorical_indexes(df)
         cfg = self._train_config(objective, categorical_features=cat,
@@ -515,7 +538,14 @@ class _LightGBMBase(Estimator, _LightGBMParams):
             return [init_scores(model, vx_raw, vinit0)]
 
         bin_upper = mapper.bin_upper_values(cfg.max_bin)
+        fobj = _cust(self)
         num_batches = self.get("numBatches")
+        ckpt_every = self.get("checkpointInterval")
+        if ckpt_every and num_batches and num_batches > 1:
+            raise ValueError(
+                "checkpointInterval does not compose with numBatches "
+                "(sequential data batches already warm-start); use one "
+                "or the other")
         if num_batches and num_batches > 1:
             # sequential warm-started batches (LightGBMBase.scala:45-60)
             parts = np.array_split(np.arange(len(binned)), num_batches)
@@ -530,16 +560,211 @@ class _LightGBMBase(Estimator, _LightGBMParams):
                         init_model, x[part],
                         None if init0 is None else init0[part]),
                     valid_init_raws=valid_init_raws(init_model),
-                    measures=measures, device=device)
+                    measures=measures, device=device,
+                    custom_objective=fobj)
                 init_model = result.booster
+        elif ckpt_every:
+            result = self._fit_checkpointed(
+                cfg, binned, y, w, bin_upper, init0, init_model,
+                lambda model, done, seg_cfg: train(
+                    binned, y, seg_cfg, weights=w, bin_upper=bin_upper,
+                    valid_sets=valid_sets, init_model=model,
+                    init_raw=init_scores(model, x, init0),
+                    valid_init_raws=valid_init_raws(model),
+                    measures=measures, device=device,
+                    custom_objective=fobj, iteration_offset=done))
         else:
             result = train(
                 binned, y, cfg, weights=w, bin_upper=bin_upper,
                 valid_sets=valid_sets, init_model=init_model,
                 init_raw=init_scores(init_model, x, init0),
                 valid_init_raws=valid_init_raws(init_model),
-                measures=measures, device=device)
+                measures=measures, device=device, custom_objective=fobj)
         return result, mapper, measures
+
+    def _fit_checkpointed(self, cfg, binned, y, w, bin_upper, init0,
+                          init_model, train_segment):
+        """Mid-training checkpoints and elastic restart (the JAX
+        estimator's checkpointed fit): train in warm-started segments of
+        ``checkpointInterval`` trees, ``train_segment(model, done,
+        seg_cfg)``, persisting the model string after each; a restarted
+        fit resumes from the newest verified checkpoint. A segment's warm
+        start scores the raw rows (``warm_start_scores``), so a
+        checkpointed fit can differ from a monolithic one on rows whose
+        value is a float32-rounded bin edge (ROADMAP C3); a killed and
+        resumed fit equals the uninterrupted one with the same interval
+        bitwise."""
+        import json
+        import os
+        import zlib
+
+        from mmlspark_tpu_torch.core.serialize import atomic_write
+
+        if not self.is_set("checkpointDir"):
+            raise ValueError("checkpointInterval requires checkpointDir")
+        if self.get("earlyStoppingRound"):
+            raise ValueError(
+                "checkpointing does not compose with early stopping: "
+                "the no-improve counter cannot span warm-started "
+                "segments — drop earlyStoppingRound or "
+                "checkpointInterval")
+        # boostingType='dart' never gets here: check_supported raised
+        # NotImplementedError (ROADMAP A7) before any work on the rows
+        ckpt_every = self.get("checkpointInterval")
+        ckpt_dir = self.get("checkpointDir")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        done = 0
+        latest = self._latest_checkpoint(ckpt_dir)
+        total = cfg.num_iterations
+        # A checkpoint is only resumable into the run that produced it:
+        # stamp a config/data digest and refuse a mismatched warm start.
+        fprint = self._checkpoint_fingerprint(
+            replace(cfg, tree_learner=_JAX_TREE_LEARNER[
+                self.get("parallelism")]),
+            binned, y, w, bin_upper, init0, init_model)
+        meta_path = os.path.join(ckpt_dir, "checkpoint_meta.json")
+        if latest is not None and os.path.exists(meta_path):
+            with open(meta_path) as fh:
+                stored = json.load(fh).get("fingerprint")
+            if stored != fprint:
+                raise ValueError(
+                    f"checkpoints in {ckpt_dir} were produced by a "
+                    "different config or dataset (fingerprint "
+                    f"{stored!r} != {fprint!r}); clear the "
+                    "directory to train fresh")
+        else:
+            # fresh dir, or a pre-fingerprint checkpoint dir: absence is
+            # not evidence of mismatch — backfill
+            try:
+                atomic_write(meta_path, json.dumps({"fingerprint": fprint}))
+            except OSError as e:
+                # a broken store never kills the fit
+                warn_once(
+                    "gbdt.checkpoint_skip",
+                    "checkpoint fingerprint write failed (%s: %s); "
+                    "continuing WITHOUT checkpoints this run",
+                    type(e).__name__, e)
+        if latest is not None:
+            done, path = latest
+            if done > total:
+                raise ValueError(
+                    f"checkpoint at iteration {done} in {ckpt_dir} "
+                    f"exceeds numIterations={total}; clear the "
+                    f"directory or raise numIterations")
+            with open(path) as fh:
+                init_model = BoosterArrays.load_model_string(fh.read())
+        result = None
+        while done < total or result is None:
+            seg = min(ckpt_every, total - done)
+            result = train_segment(init_model,
+                                   done, replace(cfg, num_iterations=seg))
+            init_model = result.booster
+            done += seg
+            try:
+                model_str = result.booster.save_model_string()
+                atomic_write(
+                    os.path.join(ckpt_dir, f"checkpoint_{done}.txt"),
+                    model_str)
+                # digest sidecar AFTER the payload: a crash in between
+                # leaves a checkpoint without a digest, which resume
+                # accepts unverified rather than discarding progress
+                atomic_write(
+                    os.path.join(ckpt_dir, f"checkpoint_{done}.txt.crc32"),
+                    f"{zlib.crc32(model_str.encode()) & 0xFFFFFFFF:08x}")
+            except OSError as e:
+                # a failing store (full disk, flaky mount) must not kill
+                # a healthy fit: restart depth just shrinks
+                warn_once(
+                    "gbdt.checkpoint_skip",
+                    "checkpoint write at iteration %s failed "
+                    "(%s: %s); continuing WITHOUT this checkpoint "
+                    "— a crash now restarts from the previous one",
+                    done, type(e).__name__, e)
+        return result
+
+    @staticmethod
+    def _checkpoint_fingerprint(cfg, binned, y, w, bin_upper, init0=None,
+                                init_model=None):
+        """Digest of everything a warm start must agree on — the JAX
+        estimator's, byte for byte, so either package resumes the other's
+        checkpoint directory.
+
+        ``num_iterations`` is deliberately excluded: resuming with a
+        raised iteration budget is the supported elastic-restart path
+        (guarded separately by the done>total check). ``init_model``
+        (the modelString warm-start base, fit_incremental) IS included.
+        The bin ids are hashed as int32, the width of the JAX package's
+        ``BinMapper.transform``, whatever width they were binned to.
+        """
+        import hashlib
+        from dataclasses import asdict
+
+        cfg_items = {k: v for k, v in sorted(asdict(cfg).items())
+                     if k != "num_iterations"}
+        h = hashlib.sha256(repr(cfg_items).encode())
+        if init_model is not None:
+            h.update(init_model.save_model_string().encode())
+        h.update(repr(binned.shape).encode())
+        # cheap data digest: corner slices + moments, not a full pass
+        h.update(np.ascontiguousarray(binned[:64], np.int32).tobytes())
+        h.update(np.ascontiguousarray(binned[-64:], np.int32).tobytes())
+        # binned codes are scale-invariant (quantile bins move with the
+        # data); the bin boundaries anchor the digest to the raw values
+        h.update(np.ascontiguousarray(bin_upper, np.float64).tobytes())
+        h.update(np.asarray(
+            [float(np.sum(y)), float(len(y)),
+             0.0 if w is None else float(np.sum(w)),
+             0.0 if init0 is None else float(np.sum(init0))]).tobytes())
+        return h.hexdigest()[:16]
+
+    @staticmethod
+    def _latest_checkpoint(ckpt_dir):
+        """Newest segment checkpoint whose crc32 sidecar verifies, as
+        ``(iterations, path)``, or None.
+
+        A checkpoint failing its digest (silent bit-rot) is skipped
+        with an attributed warn-once and the scan falls back one
+        generation. Sidecar-less checkpoints (a crash between payload
+        and sidecar) are accepted unverified;
+        ``MMLSPARK_TORCH_SPILL_VERIFY=off`` skips the check entirely."""
+        import os
+        import re
+        import zlib
+
+        cands = []
+        if os.path.isdir(ckpt_dir):
+            for name in os.listdir(ckpt_dir):
+                m = re.fullmatch(r"checkpoint_(\d+)\.txt", name)
+                if m:
+                    cands.append((int(m.group(1)),
+                                  os.path.join(ckpt_dir, name)))
+        verify = resolve_spill_verify() != "off"
+        for done, path in sorted(cands, reverse=True):
+            if not verify:
+                return (done, path)
+            try:
+                with open(path + ".crc32") as fh:
+                    stored = fh.read().strip()
+            except OSError:
+                return (done, path)
+            try:
+                with open(path, "rb") as fh:
+                    actual = f"{zlib.crc32(fh.read()) & 0xFFFFFFFF:08x}"
+            except OSError as e:
+                warn_once(f"gbdt.checkpoint_bitrot.{path}",
+                          "checkpoint %s unreadable (%s: %s); resuming "
+                          "from the previous one", path,
+                          type(e).__name__, e)
+                continue
+            if actual != stored:
+                warn_once(f"gbdt.checkpoint_bitrot.{path}",
+                          "checkpoint %s fails its crc32 digest "
+                          "(sidecar %s, on disk %s) — silent bit-rot; "
+                          "resuming from the previous checkpoint", path,
+                          stored, actual)
+                continue
+            return (done, path)
+        return None
 
     def _finish_model(self, model_cls, result, mapper, measures):
         model = model_cls(**{k: v for k, v in self._paramMap.items()
@@ -910,8 +1135,10 @@ class LightGBMClassificationModel(_LightGBMModelBase):
 # ---------------------------------------------------------------------------
 
 class LightGBMRegressor(_LightGBMBase):
-    """GBDT regressor (LightGBMRegressor.scala:1 parity): L2 here, the
-    other objectives raise (ROADMAP A3)."""
+    """GBDT regressor (LightGBMRegressor.scala:1 parity): the objectives
+    regression (L2, the default), regression_l1, huber, fair, poisson,
+    quantile, mape, gamma and tweedie and their aliases; ``alpha`` is
+    huber's and quantile's, ``tweedieVariancePower`` tweedie's."""
 
     alpha = Param("alpha", "huber/quantile alpha", to_float, gt(0), default=0.9)
     tweedieVariancePower = Param("tweedieVariancePower",

@@ -22,14 +22,18 @@ so the result is the same bits whatever order rows are added in.
 
 On a CUDA tensor each wrapper launches its kernel (a build or launch
 failure raises); on a CPU tensor it runs its plain version. There is no
-other route. The kernels' designs and bounds are in the notes at the
-top of their sources.
+other route. Either way the histogram passes the ``gbdt.level_hist``
+fault point (``core/faults.py``), where the reference's native
+histogram entries have it; disarmed, that is one flag check. The
+kernels' designs and bounds are in the notes at the top of their
+sources.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mmlspark_tpu_torch.core.faults import fault_point
 from mmlspark_tpu_torch.native import bindings
 
 # Launches of each histogram kernel in this process, so a run can show
@@ -89,9 +93,11 @@ def level_histogram(binned, grad, hess, live, local, width: int, f: int,
     (local, feature, bin). ``local`` must lie in [0, width)."""
     _check_inputs(binned, grad, hess, live, local, width, f, b)
     if binned.device.type == "cpu":
-        return level_histogram_reference(binned, grad, hess, live, local,
-                                         width, f, b)
-    return _launch(binned, grad, hess, live, local, width, f, b)
+        out = level_histogram_reference(binned, grad, hess, live, local,
+                                        width, f, b)
+    else:
+        out = _launch(binned, grad, hess, live, local, width, f, b)
+    return fault_point("gbdt.level_hist", out)
 
 
 def flat_index(binned, local, f: int, b: int) -> torch.Tensor:
@@ -269,10 +275,12 @@ def level_histogram_quant(binned, grad_q, hess_q, live, local, width: int,
     if gsi.dim() or hsi.dim():
         raise ValueError("gscale_inv and hscale_inv must be scalars")
     if binned.device.type == "cpu":
-        return level_histogram_quant_reference(
+        out = level_histogram_quant_reference(
             binned, grad_q, hess_q, live, local, width, f, b, gsi, hsi)
-    return _launch_quant(binned, grad_q, hess_q, live, local, width, f, b,
-                         gsi, hsi)
+    else:
+        out = _launch_quant(binned, grad_q, hess_q, live, local, width, f, b,
+                            gsi, hsi)
+    return fault_point("gbdt.level_hist", out)
 
 
 def level_histogram_quant_reference(binned, grad_q, hess_q, live, local,

@@ -25,9 +25,16 @@ What this slice runs (and the JAX trainer it mirrors, file
     validation set), the metrics (``_resolve_metrics``);
   - ``train``: serial, in-core, with validation sets, early stopping
     (``_train_scan``'s stop rule, metrics synced in blocks), warm starts
-    (``init_model`` / ``init_raw``, ``warm_start_scores``), and
-    ``_assemble_booster`` (the trees cut after the best iteration, the
-    warm-start ``concat``).
+    (``init_model`` / ``init_raw``, ``warm_start_scores``), custom
+    objectives (``custom_objective``), resumed segments
+    (``iteration_offset``), the ``gbdt.train_step`` fault point once per
+    iteration, and ``_assemble_booster`` (the trees cut after the best
+    iteration, the warm-start ``concat``).
+
+The reference has two loops: ``_train_scan`` (one fused step per
+iteration) and the eager ``_train_loop`` that custom objectives and
+DART take. The port's one loop is already eager, so a custom objective
+runs in it as the named objectives do.
 
 Trees grow level-wise over ``effective_depth`` levels in the full-tree
 layout (node i's children are 2i+1 / 2i+2), with the ``num_leaves``
@@ -46,13 +53,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field, fields
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mmlspark_tpu_torch.core import env
 from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
+from mmlspark_tpu_torch.core.faults import fault_point
 from mmlspark_tpu_torch.core.timer import InstrumentationMeasures
 from mmlspark_tpu_torch.models.gbdt import metrics as metrics_mod
 from mmlspark_tpu_torch.models.gbdt import objectives as obj_mod
@@ -188,6 +196,45 @@ def _resolve_metrics(cfg: TrainConfig):
     metric_kwargs = {"alpha": cfg.alpha} if metric_name == "quantile" else {}
     return metric_name, [(metric_name, metric_fn)], higher_better, \
         metric_kwargs
+
+
+def _objective_kwargs(cfg: TrainConfig) -> Dict[str, Any]:
+    """The named objective's settings from the config (the JAX
+    package's ``_objective_kwargs``, for the objectives the port has)."""
+    name = cfg.objective
+    if name == "binary":
+        return {"sigmoid": cfg.sigmoid}
+    if name in ("huber", "quantile"):
+        return {"alpha": cfg.alpha}
+    if name == "fair":
+        return {"fair_c": cfg.fair_c}
+    if name == "tweedie":
+        return {"tweedie_variance_power": cfg.tweedie_variance_power}
+    if name == "poisson":
+        return {"max_delta_step": cfg.poisson_max_delta_step}
+    return {}
+
+
+def _custom_grad_hess(fn, raw, labels, weights, n: int):
+    """Call a custom objective with the fit's device tensors (float32
+    ``raw`` and ``labels``, ``weights`` or None) and bring its (grad,
+    hess) back to that device as float32 (N,) tensors; tensors and
+    array-likes are both taken, other shapes raise."""
+    out = fn(raw, labels, weights)
+    if not isinstance(out, (tuple, list)) or len(out) != 2:
+        raise ValueError("a custom objective must return (grad, hess); "
+                         f"got {type(out).__name__}")
+    res = []
+    for what, v in zip(("grad", "hess"), out):
+        v = (v.to(device=raw.device, dtype=torch.float32)
+             if isinstance(v, torch.Tensor) else
+             torch.as_tensor(np.asarray(v, dtype=np.float32),
+                             device=raw.device))
+        if tuple(v.shape) != (n,):
+            raise ValueError(f"custom objective {what} has shape "
+                             f"{tuple(v.shape)}; expected ({n},)")
+        res.append(v)
+    return res[0], res[1]
 
 
 @dataclass
@@ -597,7 +644,9 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
           init_raw: Optional[np.ndarray] = None,
           valid_init_raws: Optional[List[np.ndarray]] = None,
           measures: Optional[InstrumentationMeasures] = None,
-          device: DeviceLike = None) -> TrainResult:
+          device: DeviceLike = None,
+          custom_objective: Optional[Callable] = None,
+          iteration_offset: int = 0) -> TrainResult:
     """Boosting loop. ``binned``: (N, F) bin ids (``BinMapper.transform``
     output, or a uint8 tensor already on the device); ``weights``:
     optional (N,) row weights; ``bin_upper``: (F, B) raw-value bin upper
@@ -621,6 +670,25 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     ``InstrumentationMeasures`` timing the phases dataPreparation,
     training (host dispatch) and validation (metric syncs and the final
     transfer, which waits for the device).
+
+    ``custom_objective``: ``fn(preds, labels, weights) -> (grad, hess)``
+    in place of the named objective, which still picks the metric and
+    the base score. It is called once per iteration with the fit's
+    device tensors: float32 ``preds`` (raw scores) and ``labels``, and
+    the float32 ``weights`` or None; it gets none of the named
+    objective's settings. It may return tensors or array-likes, which go
+    to the device as float32 (N,) vectors; other shapes raise
+    ``ValueError``. A numpy objective converts its inputs with
+    ``preds.cpu().numpy()`` (``np.asarray`` raises on a CUDA tensor),
+    which syncs with the card every iteration.
+
+    ``iteration_offset``: the number of iterations trained before this
+    call, for a resumed segment (the reference keys its sampling streams
+    with it; this slice samples nothing, so it changes no result).
+
+    ``fault_point("gbdt.train_step")`` is hit once per iteration, before
+    its work, as in the reference: arming it with ``nth=k`` stops the
+    fit at its k-th iteration.
 
     ``device=None`` runs on the CUDA card (and raises without one);
     ``device="cpu"`` runs the plain PyTorch path. The histogram plane
@@ -673,7 +741,7 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
                                    device=dev))})
 
     objective_fn = obj_mod.get_objective(cfg.objective)
-    obj_kwargs = {"sigmoid": cfg.sigmoid} if cfg.objective == "binary" else {}
+    obj_kwargs = _objective_kwargs(cfg)
     metric_name, metric_list, higher_better, metric_kwargs = \
         _resolve_metrics(cfg)
     # the metric row's layout: train_<m>, valid0_<m>, ... per metric
@@ -700,8 +768,17 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
 
     it = 0
     while it < total:
+        # once per iteration, before its work: an armed raise here is
+        # the deterministic stand-in for a fit killed mid-training
+        fault_point("gbdt.train_step")
         with measures.phase("training"):
-            g, h = objective_fn(raw, labels_d, weights_d, **obj_kwargs)
+            if custom_objective is not None:
+                # (preds, labels, weights) only: the named objective's
+                # settings do not reach it
+                g, h = _custom_grad_hess(custom_objective, raw, labels_d,
+                                         weights_d, n)
+            else:
+                g, h = objective_fn(raw, labels_d, weights_d, **obj_kwargs)
             sf, tb, nv, cnt = build_tree(binned_d, g, h, nl, cfg, total_bins,
                                          hist_quant, subtract)
             nv = nv * lr

@@ -21,8 +21,12 @@ out-of-core off), the path the port mirrors. Tolerances, by case:
     JAX-fitted model carried across (model string, converter, saved
     directory) transforms bit for bit as it does in JAX;
   - the sklearn-anchored checks of ``tests/gbdt/test_golden_parity.py``
-    (breast-cancer AUC, diabetes L2) hold for the port.
+    (breast-cancer AUC, diabetes L2) hold for the port;
+  - a custom objective (``fobj``) or a checkpointed fit on q16 (the data
+    of ``test_torch_gbdt_quant``): the booster bit for bit.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -550,11 +554,6 @@ def test_diabetes_l2_matches_sklearn_hgb():
 # --- what the slice does not take ----------------------------------------------
 
 @pytest.mark.parametrize("kind,params,item", [
-    ("LightGBMRegressor", {"fobj": lambda p, y, w: (p - y, p * 0 + 1)},
-     "A6c"),
-    ("LightGBMRegressor", {"checkpointDir": "ck", "checkpointInterval": 2},
-     "A6c"),
-    ("LightGBMRegressor", {"checkpointInterval": 2}, "A6c"),
     ("LightGBMClassifier", {"leafPredictionCol": "leaves"}, "A5"),
     ("LightGBMClassifier", {"featuresShapCol": "shap"}, "A5"),
     ("LightGBMClassifier", {"categoricalSlotIndexes": [1]}, "A7"),
@@ -572,9 +571,7 @@ def test_diabetes_l2_matches_sklearn_hgb():
     ("LightGBMClassifier", {"objective": "multiclass"}, "A7"),
     ("LightGBMClassifier", {"parallelism": "voting_parallel"}, "A8"),
     ("LightGBMClassifier", {"parallelism": "feature_parallel"}, "A8"),
-    ("LightGBMRegressor", {"objective": "quantile"}, "A3"),
-    ("LightGBMRegressor", {"objective": "poisson"}, "A3"),
-    ("LightGBMRegressor", {"objective": "huber"}, "A3"),
+    ("LightGBMRegressor", {"objective": "lambdarank"}, "A7"),
     ("LightGBMRegressor", {"passThroughArgs": "bagging_fraction=0.5 "
                                               "bagging_freq=1"}, "A7"),
 ])
@@ -602,10 +599,106 @@ def test_multiclass_ranker_mesh_and_serving_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         model.copy(leafPredictionCol="l").transform(
             DataFrame({"features": x}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6c"):
-        estimators.LightGBMRegressor().set_device("cpu").fit_incremental(
-            DataFrame({"features": x, "label": y_int}), model,
-            checkpoint_dir="ck")
+
+
+# --- custom objectives, checkpoints and the other objectives -------------------
+
+def _l2_fobj(preds, labels, weights):
+    return preds - labels, torch.ones_like(preds)
+
+
+def test_regressor_fobj_equals_the_named_objective():
+    x, _, y_int = _data(n=400)
+    df = DataFrame({"features": x, "label": y_int})
+    params = dict(numIterations=4, maxBin=MAX_BIN, numLeaves=8)
+    named = estimators.LightGBMRegressor(**params).set_device("cpu").fit(df)
+    custom = estimators.LightGBMRegressor(fobj=_l2_fobj, **params) \
+        .set_device("cpu").fit(df)
+    _assert_boosters_equal(custom.booster, named.booster)
+    assert custom.evals_result == named.evals_result
+
+
+def test_regressor_fobj_matches_the_jax_fobj(monkeypatch):
+    """The same numpy fobj (``np.asarray`` on its inputs) through both
+    estimators, on q16 with the quantization tests' data (bin sums exact
+    in float32): the booster bit for bit."""
+    _quant(monkeypatch, "q16")
+    x, y, _ = _fit_data(n=800)
+
+    def fobj(p, yy, w):
+        p = np.asarray(p, dtype=np.float32)
+        return p - np.asarray(yy, dtype=np.float32), np.ones_like(p)
+    port, ref = _fit_both("LightGBMRegressor", {"features": x, "label": y},
+                          fobj=fobj, numIterations=5, maxBin=MAX_BIN,
+                          numLeaves=15, maxDepth=4)
+    _assert_boosters_equal(port.booster, ref.booster)
+    _assert_evals_match(port.evals_result, ref.evals_result)
+
+
+def test_checkpoint_interval_without_dir_is_a_value_error():
+    x, y_bin, _ = _data(n=300)
+    with pytest.raises(ValueError, match="requires checkpointDir"):
+        estimators.LightGBMRegressor(checkpointInterval=2).set_device(
+            "cpu").fit(DataFrame({"features": x, "label": y_bin}))
+
+
+def test_checkpointed_regressor_matches_jax(monkeypatch, tmp_path):
+    _quant(monkeypatch, "q16")
+    x, y, _ = _fit_data(n=800)
+    port_df, jax_df = _frames({"features": x, "label": y})
+    params = dict(numIterations=6, maxBin=MAX_BIN, numLeaves=15, maxDepth=4,
+                  checkpointInterval=4)
+    port = estimators.LightGBMRegressor(
+        checkpointDir=str(tmp_path / "port"), **params).set_device(
+            "cpu").fit(port_df)
+    ref = jax_est.LightGBMRegressor(checkpointDir=str(tmp_path / "jax"),
+                                    **params).fit(jax_df)
+    _assert_boosters_equal(port.booster, ref.booster)
+    for d in ("port", "jax"):
+        names = sorted(p.name for p in (tmp_path / d).iterdir())
+        assert names == ["checkpoint_4.txt", "checkpoint_4.txt.crc32",
+                         "checkpoint_6.txt", "checkpoint_6.txt.crc32",
+                         "checkpoint_meta.json"]
+        assert (tmp_path / d / "checkpoint_6.txt").read_text() == \
+            port.get_model_string()
+
+
+@pytest.mark.parametrize("objective", ["quantile", "poisson", "huber"])
+def test_regressor_takes_the_other_objectives(objective):
+    rng = np.random.default_rng(2)
+    x, _, y_int = _data(n=400)
+    y = y_int + rng.random(400)
+    model = estimators.LightGBMRegressor(
+        objective=objective, numIterations=3, maxBin=MAX_BIN,
+        numLeaves=8).set_device("cpu").fit(
+            DataFrame({"features": x, "label": y}))
+    assert model.booster.objective == objective
+    pred = model.transform(DataFrame({"features": x}))["prediction"]
+    raw = model.booster.predict(x, device="cpu").numpy()
+    want = np.exp(raw) if objective == "poisson" else raw
+    np.testing.assert_array_equal(pred, want.astype(np.float64))
+    loaded = estimators.LightGBMRegressionModel \
+        .load_native_model_from_string(model.get_model_string())
+    assert loaded.booster.objective == objective
+
+
+def test_fit_incremental_takes_checkpoint_arguments(tmp_path):
+    x, _, y_int = _data(n=400)
+    df = DataFrame({"features": x, "label": y_int})
+    est = estimators.LightGBMRegressor(numIterations=3, maxBin=MAX_BIN,
+                                       numLeaves=8).set_device("cpu")
+    base = est.fit(df)
+    ckdir = str(tmp_path / "ck")
+    got = est.fit_incremental(df, base, num_new_trees=4,
+                              checkpoint_dir=ckdir, checkpoint_interval=2)
+    want = est.copy(modelString=base.get_model_string(), numIterations=4,
+                    checkpointDir=str(tmp_path / "b"),
+                    checkpointInterval=2).fit(df)
+    assert got.booster.num_trees == 7
+    assert got.get_model_string() == want.get_model_string()
+    assert sorted(n for n in os.listdir(ckdir)
+                  if n.endswith(".txt")) == ["checkpoint_2.txt",
+                                             "checkpoint_4.txt"]
 
 
 def test_the_card_unless_asked_for_the_cpu():

@@ -249,3 +249,108 @@ def test_settings_outside_the_slice_raise(setting):
                                  **setting})
     with pytest.raises(NotImplementedError):
         trainer.train(binned, y_bin, cfg, device="cpu")
+
+
+# --- custom objectives (fobj) ---------------------------------------------------
+
+def _q8(monkeypatch):
+    """The q8 plane on both sides: these labels keep every quantization
+    exponent where XLA's ``exp2`` is a power of two (ROADMAP C, closed
+    list) and q8 bin sums exact in float32, so fits are bit for bit."""
+    monkeypatch.setenv("MMLSPARK_TPU_HIST_QUANT", "q8")
+    monkeypatch.setenv(trainer.HIST_QUANT_ENV, "q8")
+
+
+def _torch_huber(alpha):
+    def fobj(preds, labels, weights):
+        assert isinstance(preds, torch.Tensor) and preds.dtype == torch.float32
+        assert labels.dtype == torch.float32 and weights is None
+        return objectives.huber(preds, labels, weights, alpha=alpha)
+    return fobj
+
+
+def _numpy_l2(preds, labels, weights):
+    """A custom objective written for the JAX package: numpy on whatever
+    arrays it is given, float64 out."""
+    p = np.asarray(preds, dtype=np.float64)
+    return p - np.asarray(labels), np.ones_like(p)
+
+
+@pytest.mark.parametrize("objective", ["regression", "huber"])
+def test_custom_objective_matches_jax(monkeypatch, objective):
+    """A torch fobj in the port and a numpy fobj in the JAX package (its
+    eager ``_train_loop``) make the same booster and evals; the named
+    objective only picks the metric and the base score, and none of its
+    settings reach the fobj."""
+    _q8(monkeypatch)
+    x, _, y = _data(n=600)
+    cfg_kw = _cfg(objective=objective, num_iterations=6, alpha=0.4)
+
+    def jax_fobj(p, yy, w):
+        g, h = jax_objectives.huber(p, yy, w, alpha=0.9)
+        return np.asarray(g), np.asarray(h)
+    mapper = BinMapper.fit(x, max_bin=MAX_BIN)
+    binned = mapper.transform(x)
+    bin_upper = mapper.bin_upper_values(MAX_BIN)
+    jr = jax_trainer.train(binned, y, jax_trainer.TrainConfig(**cfg_kw),
+                           bin_upper=bin_upper, custom_objective=jax_fobj)
+    pr = trainer.train(binned, y, trainer.TrainConfig(**cfg_kw),
+                       bin_upper=bin_upper, device="cpu",
+                       custom_objective=_torch_huber(0.9))
+    for name in ARRAYS:
+        np.testing.assert_array_equal(getattr(pr.booster, name),
+                                      getattr(jr.booster, name),
+                                      err_msg=name)
+    assert pr.booster.init_score == jr.booster.init_score
+    assert [list(e) for e in pr.evals] == [list(e) for e in jr.evals]
+    for pe, je in zip(pr.evals, jr.evals):
+        for k in je:
+            np.testing.assert_allclose(pe[k], je[k], rtol=1e-6)
+
+
+def test_numpy_custom_objective_runs_unchanged_on_the_cpu(monkeypatch):
+    """A JAX-package fobj (``np.asarray`` on its inputs, float64 out)
+    runs in the port on CPU tensors, its output cast to float32 on the
+    fit's device: the fit equals the named L2 fit and a torch fobj's."""
+    x, _, y = _data(n=600)
+    binned = BinMapper.fit(x, max_bin=MAX_BIN).transform(x)
+    cfg = trainer.TrainConfig(**_cfg(objective="regression",
+                                     num_iterations=4))
+    named = trainer.train(binned, y, cfg, device="cpu").booster
+    for fobj in (_numpy_l2, lambda p, yy, w: objectives.l2(p, yy, w)):
+        got = trainer.train(binned, y, cfg, device="cpu",
+                            custom_objective=fobj).booster
+        for name in ARRAYS:
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(named, name))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda p, y, w: (p[:-1] - y[:-1], torch.ones_like(p[:-1])),
+     r"grad has shape \(599,\)"),
+    (lambda p, y, w: (p - y, np.ones((600, 1))), r"hess has shape"),
+    (lambda p, y, w: p - y, r"must return \(grad, hess\)"),
+])
+def test_custom_objective_output_is_checked(bad, match):
+    x, _, y = _data(n=600)
+    binned = BinMapper.fit(x, max_bin=MAX_BIN).transform(x)
+    cfg = trainer.TrainConfig(**_cfg(num_iterations=2))
+    with pytest.raises(ValueError, match=match):
+        trainer.train(binned, y, cfg, device="cpu", custom_objective=bad)
+
+
+def test_custom_objective_gets_the_weights_as_float32():
+    x, _, y = _data(n=300)
+    w = np.random.default_rng(3).uniform(0.5, 2.0, size=300)
+    binned = BinMapper.fit(x, max_bin=MAX_BIN).transform(x)
+    seen = []
+
+    def fobj(p, yy, ww):
+        seen.append((p.dtype, yy.dtype, ww.dtype, p.device.type))
+        return objectives.l2(p, yy, ww)
+    cfg = trainer.TrainConfig(**_cfg(num_iterations=3))
+    got = trainer.train(binned, y, cfg, weights=w, device="cpu",
+                        custom_objective=fobj).booster
+    want = trainer.train(binned, y, cfg, weights=w, device="cpu").booster
+    assert seen == [(torch.float32,) * 3 + ("cpu",)] * 3
+    np.testing.assert_array_equal(got.node_value, want.node_value)

@@ -24,7 +24,8 @@ PORT_FILES = sorted((ROOT / "mmlspark_tpu_torch").rglob("*.py")) \
        ROOT / "tools" / "torch_flash_ab.py",
        ROOT / "tools" / "torch_hist_quant_configs.py",
        ROOT / "tools" / "torch_serving_ab.py",
-       ROOT / "tools" / "torch_score_ab.py"]
+       ROOT / "tools" / "torch_score_ab.py",
+       ROOT / "tools" / "torch_train_ab.py"]
 
 
 def _imported_modules(path):
@@ -53,11 +54,16 @@ def test_port_files_were_found():
             "attention.py", "mesh.py", "torch_hist_ab.py",
             "torch_flash_ab.py", "torch_hist_quant_configs.py",
             "torch_serving_ab.py", "torch_score_ab.py",
-            "score_cuda.py"} <= names
+            "score_cuda.py", "faults.py", "serialize.py", "ingest.py",
+            "objectives.py", "estimators.py", "logging_utils.py",
+            "torch_train_ab.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, mmlspark_tpu_torch\n"
+            "import mmlspark_tpu_torch.core.faults\n"
+            "import mmlspark_tpu_torch.core.serialize\n"
+            "import mmlspark_tpu_torch.ops.ingest\n"
             "import mmlspark_tpu_torch.models.gbdt.convert\n"
             "import mmlspark_tpu_torch.parallel.attention\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -1,0 +1,62 @@
+#!/usr/bin/env python3
+"""The bench-shape fit of two checkouts of the port on one card: phases
+``main_path`` and ``profile`` of each checkout's ``chip_smoke.py``, each
+run in its own process, in the order A, B, B, A.
+
+    python3 tools/torch_train_ab.py ROOT_A ROOT_B
+
+Each run builds its checkout's kernels, fits the 2M-row, 20-tree binary
+bench model as phase ``main_path`` does (its gates hold: 120
+``level_hist`` launches, two fits bitwise equal) and profiles a 5-tree
+fit as phase ``profile`` does. Prints one JSON line per run — the fit's
+wall and rate, host syncs per fit, and the profiled fit's wall and the
+device's idle share — then the card's name and power limit. Needs a
+CUDA card; run it from either root.
+"""
+
+import json
+import subprocess
+import sys
+
+RUN = r"""
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke as C
+ctx = {"smi": C.nvidia_smi_line(), "launches": {}}
+main = C.phase_main(ctx)
+prof = C.phase_profile(ctx)
+row = {k: main[k] for k in ("fit_s", "fit_mrow_trees_per_s",
+                            "syncs_per_fit", "launches")}
+row.update({"profile_wall_ms": prof["wall_ms"],
+            "device_idle_share": prof["device_idle_share"]})
+print("RESULT " + json.dumps(row), flush=True)
+"""
+
+
+def run(root):
+    proc = subprocess.run([sys.executable, "-c", RUN], cwd=root,
+                          capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        if line.startswith("RESULT "):
+            return json.loads(line[len("RESULT "):])
+    raise RuntimeError(f"training run in {root} failed (exit "
+                       f"{proc.returncode}):\n{proc.stderr[-4000:]}")
+
+
+def main():
+    if len(sys.argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    a, b = sys.argv[1:]
+    for label, root in (("A", a), ("B", b), ("B", b), ("A", a)):
+        print(json.dumps({"run": label, "root": root, **run(root)}),
+              flush=True)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(out.stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
