@@ -161,7 +161,30 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      ROADMAP C3 counted (bitwise required where there are none); a
      3-tree fit with ``gbdt.level_hist`` armed to zero each histogram on
      the card (no split, no host sync beyond a clean fit's); and an
-     unarmed fault point's cost per call and per fit.
+     unarmed fault point's cost per call and per fit;
+ 19. refresh path (after phase 15; ``bench.py --refresh-latency``'s
+     width): a ``LightGBMRegressor`` (100,000 × 28 float32 rows, 30
+     trees, 63 leaves, ``maxBin=63``, ``minDataInLeaf=20``) served by a
+     ``ServingServer`` (batch 64, 2 ms) and a ``RefreshController``: one
+     warm generation, then a timed one — the wall from data arrival to
+     the new model serving, ``refit_s``, ``swap_s``, ``downtime_s``,
+     ``level_hist`` launches per refit and ``tree_score`` launches per
+     probe; replies after the swap bitwise the new generation's; an armed
+     ``registry.swap`` corrupt rolled back with the replies unchanged; a
+     restarted controller on the newest generation; a refit killed at
+     the middle of its second 10-tree segment and retried, bitwise the
+     unkilled one;
+ 20. fleet path (``bench.py --refresh-under-load``'s width): a 2-worker
+     ``ServingFleet`` of a 50,000-row 20-tree regressor with a
+     ``FleetSupervisor`` (2..2); 8 closed-loop clients for 6 s idle,
+     then during a co-located low-priority refit, then during
+     ``swap_model_fleet``: p50/p99 by stage, the refit's yields, each
+     worker's flip downtime, 503/504 replies; no client error and every
+     reply bitwise the generation its worker served then; a
+     ``serving.worker_kill`` death restarted by the supervisor (two
+     workers serve); a hedging ``FleetClient`` ejects a worker with
+     ``gray_delay_ms`` set, replies bitwise; ``drain`` with 16 accepted
+     requests returns True, each replied bitwise.
 
 Each phase prints one JSON line. Any failure exits non-zero and prints
 no result. Without a CUDA card it exits 2 at once. The last lines are
@@ -2368,6 +2391,504 @@ def phase_kernel_score(ctx):
     return out
 
 
+# the streaming refresh and train-while-serve benches of the JAX package
+# (bench.py:437-517 --refresh-latency, :519-700 --refresh-under-load):
+# windows of 28 float32 features, a LightGBMRegressor of 63 leaves on 63
+# bins, served with batches of 64 rows or 2 ms
+REFRESH_ROWS, REFRESH_TREES = 100_000, 30
+FLEET_ROWS, FLEET_TREES, FLEET_CLIENTS, FLEET_SECONDS = 50_000, 20, 8, 6.0
+REFRESH_PARAMS = dict(numLeaves=63, maxBin=63, minDataInLeaf=20, seed=0)
+REFRESH_SERVER = dict(max_batch_size=64, max_latency_ms=2.0)
+REFRESH_POOL = 256
+
+
+def refresh_window(rng, n, shift):
+    """bench.py's refresh window: rows shifted by ``shift``, labels a
+    fixed function of them."""
+    x = (rng.normal(size=(n, F)) + shift).astype(np.float32)
+    y = x[:, 0] - 0.5 * x[:, 1] + 0.25 * x[:, 2] * x[:, 3]
+    return x, y
+
+
+def cuda_sync(torch, device):
+    if device is None:
+        torch.cuda.synchronize()
+
+
+def served_values(model, served, rows):
+    """What a server's entry replies for ``rows``: the ``binnedScoring``
+    transform while it has a binned plane, else ``transform``."""
+    from mmlspark_tpu_torch import DataFrame
+
+    m = model.copy(binnedScoring=True) if served.plane is not None else model
+    return np.asarray(m.transform(DataFrame({"features": rows}))
+                      .col("prediction"), dtype=np.float64)
+
+
+def replies_equal(replies, want):
+    """Rows (of ``post_rows`` replies to ``__id__`` bodies) whose reply is
+    not 200 or differs from ``want`` (float64 reprs: == is bitwise)."""
+    return [i for i, (status, reply) in enumerate(replies)
+            if status != 200 or reply.get("id") != i
+            or reply.get("prediction") != float(want[i])]
+
+
+def phase_refresh(ctx):
+    """The streaming refresh loop on the card at ``bench.py
+    --refresh-latency``'s width: a served ``LightGBMRegressor`` (100,000
+    rows, 30 trees), one warm generation, then a timed one (data arrival
+    to the refreshed model serving, its refit and swap), the kernels'
+    launches per refit and per probe; the replies after the swap bitwise
+    the new generation's; an armed ``registry.swap`` corrupt rolled back
+    with the old replies unchanged; a restarted controller on the newest
+    generation; a refit killed mid-segment and retried equal to an
+    unkilled one."""
+    import tempfile
+
+    import torch
+
+    from mmlspark_tpu_torch import DataFrame, LightGBMRegressor
+    from mmlspark_tpu_torch.core import faults
+    from mmlspark_tpu_torch.core.pipeline import Transformer
+    from mmlspark_tpu_torch.io import (RefreshController, ServingServer,
+                                       SwapFailed)
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+
+    device = ctx.get("device")
+    rng = np.random.default_rng(0)
+    est = LightGBMRegressor(numIterations=REFRESH_TREES,
+                            **REFRESH_PARAMS).set_device(device)
+    x0, y0 = refresh_window(rng, REFRESH_ROWS, 0.0)
+    model = est.fit(DataFrame({"features": x0, "label": y0}))
+    pool = x0[:REFRESH_POOL].astype(np.float64)
+    bodies = [json.dumps({"features": row.tolist(), "__id__": i}).encode()
+              for i, row in enumerate(pool)]
+    out = {"card": ctx["smi"], "rows": REFRESH_ROWS,
+           "new_trees": REFRESH_TREES}
+    failures = []
+
+    class Broken(Transformer):
+        def _transform(self, df):
+            raise RuntimeError("corrupted swap payload")
+
+    def corrupt(served):
+        served.plane = None
+        served.binned_supported = False
+        served.model = Broken()
+        return served
+
+    with tempfile.TemporaryDirectory() as td:
+        gens = os.path.join(td, "gens")
+        server = ServingServer(model, **REFRESH_SERVER).start()
+        try:
+            entry = server._models["default"]
+            out["generation0_binned"] = entry.plane is not None
+            ctrl = RefreshController(est, model, gens, server=server,
+                                     refresh_interval_s=10_000,
+                                     min_refit_rows=REFRESH_ROWS)
+            ctrl.observe(*refresh_window(rng, REFRESH_ROWS, 0.5))
+            warm = ctrl.refresh()
+            if warm.swap_error:
+                failures.append(f"warm swap: {warm.swap_error}")
+            x1, y1 = refresh_window(rng, REFRESH_ROWS, 1.0)
+            H.hist_kernel_launches = 0
+            S.tree_score_launches = 0
+            cuda_sync(torch, device)
+            t0 = time.perf_counter()
+            ctrl.observe(x1, y1)
+            result = ctrl.refresh()
+            wall = time.perf_counter() - t0
+            refit_hist, refresh_score = (H.hist_kernel_launches,
+                                         S.tree_score_launches)
+            if result.swap_error:
+                failures.append(f"timed swap: {result.swap_error}")
+            entry = server._models["default"]
+            S.tree_score_launches = 0
+            server._probe(entry, {"features": x1[-1].tolist()})
+            probe_score = S.tree_score_launches
+            new_want = served_values(result.model, entry, pool)
+            bad_new = replies_equal(post_rows(server, bodies), new_want)
+            # an armed registry.swap corrupt: rolled back, replies kept
+            before = post_rows(server, bodies)
+            rolled = False
+            with faults.injected("registry.swap", "corrupt",
+                                 corrupt=corrupt):
+                try:
+                    server.swap_model("default", model, probe_payload={
+                        "features": x0[0].tolist()})
+                except SwapFailed:
+                    rolled = True
+            after = post_rows(server, bodies)
+            health = server._health()
+            # a restarted controller resumes the newest generation
+            again = RefreshController(est, model, gens,
+                                      refresh_interval_s=10_000)
+            resumed = (again.generation == result.generation
+                       and again.model.get_model_string()
+                       == result.model.get_model_string())
+        finally:
+            server.stop()
+
+        # a refit killed at the middle of its second segment, retried
+        seg = REFRESH_TREES // 3
+
+        def refit(name, kill):
+            c = RefreshController(est, model, os.path.join(td, name),
+                                  refresh_interval_s=10_000,
+                                  min_refit_rows=REFRESH_ROWS,
+                                  segment_interval=seg)
+            c.observe(x1, y1)
+            killed = False
+            if kill:
+                try:
+                    with faults.injected("gbdt.train_step", "raise",
+                                         nth=seg + seg // 2):
+                        c.refresh(swap=False)
+                except faults.FaultInjected:
+                    killed = True
+            return c.refresh(swap=False).model, killed
+
+        clean, _ = refit("clean", False)
+        retried, killed = refit("killed", True)
+    out.update({
+        "wall_s": wall, "refit_s": result.refit_s,
+        "swap_s": result.swap["swap_s"] if result.swap else None,
+        "downtime_s": result.swap["downtime_s"] if result.swap else None,
+        "warm_wall_s": warm.total_s, "generation": result.generation,
+        "generation_binned": entry.plane is not None,
+        "level_hist_launches_per_refit": refit_hist,
+        "tree_score_launches_per_refresh": refresh_score,
+        "tree_score_launches_per_probe": probe_score,
+        "replies_differing_after_swap": len(bad_new),
+        "corrupt_swap_rolled_back": rolled,
+        "replies_unchanged_after_rollback": before == after,
+        "health_after_rollback": {k: health[k] for k in (
+            "status", "swaps", "swap_rollbacks")},
+        "restart_resumes_newest": resumed,
+        "killed_mid_segment": killed,
+        "killed_refit_bitwise": (retried.get_model_string()
+                                 == clean.get_model_string())})
+    ctx["launches"]["refresh_path"] = refit_hist
+    ctx["launches"]["refresh_path_tree_score"] = refresh_score + probe_score
+    if (failures or bad_new or not rolled or before != after
+            or health["status"] != "ok" or health["swap_rollbacks"] != 1
+            or not resumed or not killed
+            or not out["killed_refit_bitwise"] or refit_hist == 0
+            or refresh_score == 0 or probe_score != 1):
+        raise AssertionError(f"refresh: {failures} {out}")
+    return out
+
+
+def offered_load(servers, bodies, clients, until):
+    """``bench.py --refresh-under-load``'s closed loop: ``clients``
+    threads post single rows round-robin over the workers (a connection
+    per request) until ``until()``. Returns one (row, worker, t_sent,
+    t_replied, status, prediction) per request and the client errors."""
+    import urllib.error
+    import urllib.request
+
+    records, errors = [], []
+    stop = threading.Event()
+    lock = threading.Lock()
+
+    def client(k):
+        url = servers[k % len(servers)].url
+        i = k
+        while not stop.is_set():
+            row = i % len(bodies)
+            i += clients
+            t0 = time.perf_counter()
+            try:
+                req = urllib.request.Request(
+                    url, data=bodies[row],
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=10) as r:
+                    status, pred = r.status, json.loads(r.read())[
+                        "prediction"]
+            except urllib.error.HTTPError as e:
+                status, pred = e.code, None
+            except Exception as e:
+                with lock:
+                    errors.append(repr(e))
+                continue
+            with lock:
+                records.append((row, k % len(servers), t0,
+                                time.perf_counter(), status, pred))
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    while not until():
+        time.sleep(0.01)
+    stop.set()
+    for t in threads:
+        t.join(timeout=15)
+    return records, errors
+
+
+def post_status(url, body, reply=False):
+    """One POST: its status (a connection error's name where it had
+    none), with the decoded reply when ``reply``."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        req = urllib.request.Request(
+            url, data=body, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=10) as r:
+            status, got = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, got = e.code, None
+    except Exception as e:
+        status, got = type(e).__name__, None
+    return (status, got) if reply else status
+
+
+def latency_pctls(records):
+    lat = np.asarray([(r[3] - r[2]) * 1e3 for r in records
+                      if r[4] == 200], dtype=np.float64)
+    if not len(lat):
+        return None, None
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+
+def phase_fleet(ctx):
+    """Train while serving on the card at ``bench.py
+    --refresh-under-load``'s width: a 2-worker ``ServingFleet`` of a
+    50,000-row, 20-tree regressor under ``FleetSupervisor`` (2..2), 8
+    closed-loop clients idle for 6 s, then during a co-located
+    low-priority refit, then during ``swap_model_fleet``; p50/p99 by
+    stage, the refit's yields, each worker's flip downtime, the 503/504
+    deltas. Gates: no client error; every reply bitwise the generation
+    its worker served then; a ``serving.worker_kill`` death restarted by
+    the supervisor with two workers serving; ``drain`` with requests in
+    flight returns True and drops none; a ``FleetClient`` ejects a
+    worker with ``gray_delay_ms`` set and its replies stay bitwise."""
+    import tempfile
+
+    from mmlspark_tpu_torch import DataFrame, LightGBMRegressor
+    from mmlspark_tpu_torch.core import faults
+    from mmlspark_tpu_torch.io import (FleetClient, FleetSupervisor,
+                                       RefreshController, ServingFleet)
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+
+    device = ctx.get("device")
+    rng = np.random.default_rng(0)
+    est = LightGBMRegressor(numIterations=FLEET_TREES,
+                            **REFRESH_PARAMS).set_device(device)
+    x0, y0 = refresh_window(rng, FLEET_ROWS, 0.0)
+    model = est.fit(DataFrame({"features": x0, "label": y0}))
+    pool = x0[:REFRESH_POOL].astype(np.float64)
+    bodies = [json.dumps({"features": row.tolist()}).encode() for row in pool]
+    id_bodies = [json.dumps({"features": row.tolist(), "__id__": i}).encode()
+                 for i, row in enumerate(pool)]
+    out = {"card": ctx["smi"], "rows": FLEET_ROWS, "new_trees": FLEET_TREES,
+           "clients": FLEET_CLIENTS}
+    failures = []
+
+    def mismatches(records, want_of):
+        """Replies that equal no generation allowed at their time."""
+        bad = 0
+        for row, _, t0, t1, status, pred in records:
+            if status == 200 and pred not in want_of(t0, t1, row):
+                bad += 1
+        return bad
+
+    fleet = ServingFleet(model, num_servers=2, **REFRESH_SERVER).start()
+    sup = FleetSupervisor(fleet, min_workers=2, max_workers=2,
+                          heartbeat_s=0.2, dead_after_misses=2)
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            servers = list(fleet.servers)
+            old_want = served_values(model, servers[0]._models["default"],
+                                     pool)
+            ctrl = RefreshController(est, model, td, server=servers[0],
+                                     priority="low",
+                                     refresh_interval_s=10_000,
+                                     min_refit_rows=FLEET_ROWS)
+            S.tree_score_launches = 0
+            # stage 1: idle, at the offered load
+            t_end = time.perf_counter() + FLEET_SECONDS
+            idle, idle_err = offered_load(servers, bodies, FLEET_CLIENTS,
+                                          lambda: time.perf_counter()
+                                          >= t_end)
+            # stage 2: the same load while the refit runs beside it
+            window1 = refresh_window(rng, FLEET_ROWS, 0.5)
+            ctrl.observe(*window1)
+            done, box = threading.Event(), {}
+
+            def refit():
+                try:
+                    box["result"] = ctrl.refresh(swap=False)
+                except Exception as e:
+                    box["error"] = repr(e)
+                finally:
+                    done.set()
+
+            H.hist_kernel_launches = 0
+            threading.Thread(target=refit, daemon=True).start()
+            during, refit_err = offered_load(servers, bodies, FLEET_CLIENTS,
+                                             done.is_set)
+            refit_hist = H.hist_kernel_launches
+            if "error" in box:
+                raise AssertionError(f"refit failed: {box['error']}")
+            new_model = box["result"].model
+            old_bad = mismatches(idle + during,
+                                 lambda t0, t1, row: (old_want[row],))
+            # the kill drill: a worker dies mid-batch, the supervisor
+            # restarts it, and both workers serve generation 0
+            faults.arm("serving.worker_kill", "raise", count=1)
+            killed_reply = post_status(servers[1].url, bodies[0])
+            faults.disarm("serving.worker_kill")
+            for _ in range(sup.dead_after_misses):
+                sup.tick()
+            servers = list(fleet.servers)
+            restart = {"killed_reply": killed_reply,
+                       "deaths": sup.stats()["deaths"],
+                       "workers": len(servers),
+                       "rows_differing": sum(len(replies_equal(
+                           post_rows(s, id_bodies), old_want))
+                           for s in servers)}
+            # stage 3: the fleet-wide swap under the same load
+            sdone, sbox = threading.Event(), {}
+            t_swap = [None, None]
+
+            def swap():
+                t_swap[0] = time.perf_counter()
+                try:
+                    sbox["result"] = sup.swap_model_fleet(
+                        "default", new_model,
+                        probe_payload={"features": pool[0].tolist()})
+                except Exception as e:
+                    sbox["error"] = repr(e)
+                finally:
+                    t_swap[1] = time.perf_counter()
+                    sdone.set()
+
+            threading.Thread(target=swap, daemon=True).start()
+            swapping, swap_err = offered_load(servers, bodies,
+                                              FLEET_CLIENTS, sdone.is_set)
+            if "error" in sbox:
+                raise AssertionError(f"fleet swap failed: {sbox['error']}")
+            new_want = served_values(new_model,
+                                     servers[0]._models["default"], pool)
+
+            def allowed(t0, t1, row):
+                if t1 < t_swap[0]:
+                    return (old_want[row],)
+                if t0 > t_swap[1]:
+                    return (new_want[row],)
+                return (old_want[row], new_want[row])
+
+            swap_bad = mismatches(swapping, allowed)
+            after_bad = sum(len(replies_equal(post_rows(s, id_bodies),
+                                              new_want)) for s in servers)
+            score_launches = S.tree_score_launches
+            # gray: one worker slow but alive; a hedging client ejects it
+            servers[0].gray_delay_ms = 150.0
+            client = FleetClient(fleet.registry_url, timeout=5.0,
+                                 hedging=True, deadline_ms=5000.0,
+                                 hedge_delay_ms=30.0)
+            gray_bad = 0
+            for i in range(24):
+                if client.score({"features": pool[i].tolist()})[
+                        "prediction"] != float(new_want[i]):
+                    gray_bad += 1
+            servers[0].gray_delay_ms = 0.0
+            gray = {"slow_ejections": client.stats["slow_ejections"],
+                    "hedges_fired": client.stats["hedges_fired"],
+                    "rows_differing": gray_bad}
+            # drain with 16 accepted requests queued or in flight behind
+            # slow batches: every one is replied, bitwise
+            victim = servers[1]
+            victim.gray_delay_ms = 50.0
+            admitted0 = victim._health()["admitted"]
+            drain_replies = [None] * 16
+
+            def one(i):
+                drain_replies[i] = post_status(victim.url, id_bodies[i],
+                                               reply=True)
+
+            ts = [threading.Thread(target=one, args=(i,), daemon=True)
+                  for i in range(16)]
+            for t in ts:
+                t.start()
+            deadline = time.perf_counter() + 10.0
+            while (victim._health()["admitted"] - admitted0 < 16
+                   and time.perf_counter() < deadline):
+                time.sleep(0.001)
+            fleet.remove_worker(victim)
+            drained = victim.drain(timeout_s=10.0)
+            for t in ts:
+                t.join(timeout=15)
+            victim.stop()
+            drain = {"drained": drained,
+                     "accepted": victim._health()["admitted"] - admitted0,
+                     "rows_differing": len(replies_equal(
+                         drain_replies, new_want[:16]))}
+            ctrl.close()
+            # the same refit with no load beside it, for the ratio
+            alone = RefreshController(est, model, os.path.join(td, "alone"),
+                                      refresh_interval_s=10_000,
+                                      min_refit_rows=FLEET_ROWS)
+            alone.observe(*window1)
+            alone_result = alone.refresh(swap=False)
+            alone_bitwise = (alone_result.model.get_model_string()
+                             == new_model.get_model_string())
+    finally:
+        sup.stop()
+        fleet.stop()
+    p50_idle, p99_idle = latency_pctls(idle)
+    p50_refit, p99_refit = latency_pctls(during)
+    p50_swap, p99_swap = latency_pctls(swapping)
+    records = idle + during + swapping
+    errors = idle_err + refit_err + swap_err
+    non200 = sum(1 for r in records if r[4] != 200)
+    statuses = [r[4] for r in records]
+    swap_result = sbox["result"]
+    out.update({
+        "idle": {"requests": len(idle), "p50_ms": p50_idle,
+                 "p99_ms": p99_idle},
+        "refit": {"requests": len(during), "p50_ms": p50_refit,
+                  "p99_ms": p99_refit,
+                  "refit_s": box["result"].refit_s,
+                  "refit_alone_s": alone_result.refit_s,
+                  "refit_alone_bitwise": alone_bitwise,
+                  "refit_yields": ctrl.stats["refit_yields"],
+                  "refit_yield_s": ctrl.stats["refit_yield_s"]},
+        "swap": {"requests": len(swapping), "p50_ms": p50_swap,
+                 "p99_ms": p99_swap, "fleet_swap_s": swap_result["swap_s"],
+                 "per_worker_downtime_ms": {
+                     wk: t["downtime_s"] * 1e3
+                     for wk, t in swap_result["per_worker"].items()}},
+        "p99_refit_over_idle": (p99_refit / p99_idle
+                                if p99_idle and p99_refit else None),
+        "client_errors": len(errors), "client_error_kinds":
+            sorted(set(e.split("(")[0] for e in errors)),
+        "non_200": non200,
+        "replies_503": statuses.count(503),
+        "replies_504": statuses.count(504),
+        "replies_not_their_generation": old_bad + swap_bad,
+        "rows_differing_after_swap": after_bad,
+        "level_hist_launches_refit": refit_hist,
+        "tree_score_launches_served": score_launches,
+        "restart": restart, "gray": gray, "drain": drain})
+    ctx["launches"]["fleet_path"] = refit_hist
+    ctx["launches"]["fleet_path_tree_score"] = score_launches
+    if (errors or non200 or old_bad or swap_bad or after_bad
+            or refit_hist == 0 or score_launches == 0
+            or restart["deaths"] != 1 or restart["workers"] != 2
+            or restart["rows_differing"] or gray["slow_ejections"] < 1
+            or gray_bad or not drained or drain["accepted"] != 16
+            or not alone_bitwise
+            or drain["rows_differing"]):
+        raise AssertionError(f"fleet: {failures} {out}")
+    return out
+
+
 def flash_bound(b, n, nk, h, d, causal, dtype):
     """The least time for the flash function: q, k, v read once and the
     output written once, over the memory rate; 4*d operations per
@@ -2886,6 +3407,10 @@ def kernel_table(ctx):
     for path in ("objectives_path", "custom_objective_path",
                  "checkpoint_path"):
         kernels[0][f"launches_{path}"] = ctx["launches"][path]
+    # launches over the timed refit of refresh_path (30 trees) and the
+    # co-located refit of fleet_path (20 trees)
+    for path in ("refresh_path", "fleet_path"):
+        kernels[0][f"launches_{path}"] = ctx["launches"][path]
     # tree_score replaces an XLA scan, not a Pallas kernel: the row of
     # the main path's 2M-row call, beside the served model's rung 64
     score = ctx["score_rows"]
@@ -2899,6 +3424,10 @@ def kernel_table(ctx):
                                   for arm in ("on", "off")},
         "launches_objectives_path":
             ctx["launches"]["objectives_path_tree_score"],
+        # the timed refresh (warm starts) and one probe; fleet_path's
+        # served batches over its three load stages
+        "launches_refresh_path": ctx["launches"]["refresh_path_tree_score"],
+        "launches_fleet_path": ctx["launches"]["fleet_path_tree_score"],
         "max_abs_err": max(r["max_abs_err"] for r in score.values()),
         "ms": score["2M"]["kernel_ms"],
         "device_ms": score["2M"]["kernel_device_ms"],
@@ -2972,6 +3501,8 @@ def main() -> int:
                      ("checkpoint_path", phase_checkpoint),
                      ("serving_path", phase_serving),
                      ("kernel_score", phase_kernel_score),
+                     ("refresh_path", phase_refresh),
+                     ("fleet_path", phase_fleet),
                      ("kernel_flash", phase_kernel_flash),
                      ("sdpa_backends", phase_sdpa_backends),
                      ("attention_path", phase_attention_path),

@@ -13,7 +13,14 @@ package so each counterpart is easy to find:
                                   (fit / transform over ``DataFrame``)
   - ``models.gbdt.hist_cuda``     the level-histogram kernels' wrappers
   - ``io.serving``                ServingServer / ContinuousServingServer
-                                  (HTTP serving, the binned data plane)
+                                  (HTTP serving, the binned data plane,
+                                  hot swaps, drain / kill), ServingFleet,
+                                  FleetClient
+  - ``io.fleet``                  FleetSupervisor (heartbeats, restarts,
+                                  autoscaling, fleet-wide swaps)
+  - ``io.refresh``                StreamBuffer / RefreshController (the
+                                  streaming refresh loop: drift, refit on
+                                  the card, hot swap)
   - ``parallel.attention``        dense / blockwise / fused attention, ring
                                   and Ulysses over ``torch.distributed``
   - ``parallel.flash``            the flash-attention kernel's wrapper

@@ -30,6 +30,36 @@ one; the defaults are the JAX package's:
   - ``MMLSPARK_TORCH_FAULTS``  fault-injection specs armed at import
     (``core.faults.arm_from_env``; ``point:action[:nth[:param]]``, comma
     separated)
+  - ``MMLSPARK_TORCH_PREFETCH_DEPTH``  items ``parallel.prefetch.
+    BatchPrefetcher`` stages ahead on its thread (default 2; 0 feeds
+    synchronously)
+  - ``MMLSPARK_TORCH_STREAM_BUFFER``  rows the refresh loop's
+    ``StreamBuffer`` holds before its producer blocks (default 65536)
+  - ``MMLSPARK_TORCH_REFRESH_INTERVAL_S``  seconds between time-armed
+    refits (default 300; 0 turns the interval trigger off)
+  - ``MMLSPARK_TORCH_REFRESH_PRIORITY``  low|high: a low-priority refit
+    beside a server yields at train-step boundaries while the server's
+    queue is past high water (default low)
+  - ``MMLSPARK_TORCH_REFRESH_YIELD_S``  the most a refit yields at one
+    step boundary (default 2.0)
+  - ``MMLSPARK_TORCH_DRIFT_THRESHOLD``  the drift detector's arm level
+    for the largest per-feature statistic (default 0.2)
+  - ``MMLSPARK_TORCH_FLEET_MIN`` / ``_FLEET_MAX``  the supervisor's
+    worker envelope (defaults 1 and 4)
+  - ``MMLSPARK_TORCH_FLEET_SCALE_P99_MS``  worker p99 above which the
+    supervisor scales up; below a quarter of it, down (default 250)
+  - ``MMLSPARK_TORCH_FLEET_COOLDOWN_S``  seconds between two scaling
+    actions (default 10)
+  - ``MMLSPARK_TORCH_FLEET_HEARTBEAT_S``  seconds between the
+    supervisor's ``/healthz`` sweeps (default 1.0)
+  - ``MMLSPARK_TORCH_REQUEST_DEADLINE_MS``  ``FleetClient``'s request
+    budget, sent as ``X-Deadline-Ms`` (default 0: none)
+  - ``MMLSPARK_TORCH_HEDGE_DELAY_MS``  floor of ``FleetClient``'s
+    adaptive hedge delay (default 30)
+  - ``MMLSPARK_TORCH_HEDGE_BUDGET_PCT``  hedges as a share of requests,
+    in percent (default 5)
+  - ``MMLSPARK_TORCH_RETRY_BUDGET_PCT``  failover retries as a share of
+    requests, in percent (default 10)
 
 Parsing contract, as in the JAX package: a malformed value must not
 abort or silently mislabel a run, so it warns once per variable and the
@@ -55,6 +85,21 @@ SERVE_TENANT_BURST = "MMLSPARK_TORCH_SERVE_TENANT_BURST"
 INFER_AUTOCAST = "MMLSPARK_TORCH_INFER_AUTOCAST"
 SPILL_VERIFY = "MMLSPARK_TORCH_SPILL_VERIFY"
 FAULTS = "MMLSPARK_TORCH_FAULTS"
+PREFETCH_DEPTH = "MMLSPARK_TORCH_PREFETCH_DEPTH"
+STREAM_BUFFER = "MMLSPARK_TORCH_STREAM_BUFFER"
+REFRESH_INTERVAL_S = "MMLSPARK_TORCH_REFRESH_INTERVAL_S"
+REFRESH_PRIORITY = "MMLSPARK_TORCH_REFRESH_PRIORITY"
+REFRESH_YIELD_S = "MMLSPARK_TORCH_REFRESH_YIELD_S"
+DRIFT_THRESHOLD = "MMLSPARK_TORCH_DRIFT_THRESHOLD"
+FLEET_MIN = "MMLSPARK_TORCH_FLEET_MIN"
+FLEET_MAX = "MMLSPARK_TORCH_FLEET_MAX"
+FLEET_SCALE_P99_MS = "MMLSPARK_TORCH_FLEET_SCALE_P99_MS"
+FLEET_COOLDOWN_S = "MMLSPARK_TORCH_FLEET_COOLDOWN_S"
+FLEET_HEARTBEAT_S = "MMLSPARK_TORCH_FLEET_HEARTBEAT_S"
+REQUEST_DEADLINE_MS = "MMLSPARK_TORCH_REQUEST_DEADLINE_MS"
+HEDGE_DELAY_MS = "MMLSPARK_TORCH_HEDGE_DELAY_MS"
+HEDGE_BUDGET_PCT = "MMLSPARK_TORCH_HEDGE_BUDGET_PCT"
+RETRY_BUDGET_PCT = "MMLSPARK_TORCH_RETRY_BUDGET_PCT"
 
 _WARNED: Set[str] = set()
 

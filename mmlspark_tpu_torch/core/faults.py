@@ -12,8 +12,12 @@ Points are registered (``KNOWN_POINTS``, the reference's whole list) and
 a test pins that every ``fault_point("...")`` call site in the port
 names a registered one. The port places the training-path points
 (``gbdt.train_step``, ``gbdt.level_hist``, ``checkpoint.write``,
-``io.disk_full``); the serving and fleet points come with the serving
-fleet (ROADMAP A6d).
+``io.disk_full``) and those of serving, the fleet and the refresh loop
+(``serving.score``, ``serving.worker_kill``, ``serving.observe_log``,
+``registry.swap``, ``registry.swap_fanout``, ``fleet.spawn``,
+``fleet.heartbeat``, ``net.half_open``, ``net.slow_reply``,
+``net.latency``, ``stream.ingest``, ``refresh.fit``); the rest belong
+to modules not yet ported.
 
 Env interface::
 

@@ -1,31 +1,27 @@
-"""Model serving over HTTP — the port's copy of the serving part of the
-JAX package's ``io`` package (Spark Serving's head-node and continuous
-modes, SURVEY.md §3.5). The serving fleet, the streaming refresh loop
-and the model lifecycle around them are ROADMAP A6d: their names raise
-``NotImplementedError`` here."""
+"""Model serving over HTTP and the model lifecycle — the port's copy of
+the serving part of the JAX package's ``io`` package (Spark Serving's
+head-node, distributed and continuous modes, SURVEY.md §3.5): servers
+with hot swaps, drain and kill, the serving fleet with its supervisor
+and client, and the streaming refresh loop."""
 
-from mmlspark_tpu_torch.io.serving import (  # noqa: F401
+from mmlspark_tpu_torch.io.fleet import FleetSupervisor
+from mmlspark_tpu_torch.io.refresh import (
+    RefreshController,
+    RefreshResult,
+    StreamBuffer,
+)
+from mmlspark_tpu_torch.io.serving import (
     ContinuousServingServer,
     FleetClient,
     ServingFleet,
     ServingServer,
+    SwapFailed,
     serve_continuous,
     serve_distributed,
     serve_pipeline,
 )
 
-# names of the JAX package's io/fleet.py and io/refresh.py
-_A6D_NAMES = ("FleetSupervisor", "RefreshController", "RefreshResult",
-              "StreamBuffer", "SwapFailed")
-
-__all__ = ["ServingServer", "ContinuousServingServer", "ServingFleet",
-           "FleetClient", "serve_pipeline", "serve_continuous",
-           "serve_distributed"]
-
-
-def __getattr__(name):
-    if name in _A6D_NAMES:
-        raise NotImplementedError(
-            f"{name} is not in the port yet (ROADMAP A6d (serving fleet "
-            "and lifecycle))")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["ServingServer", "ServingFleet", "ContinuousServingServer",
+           "FleetClient", "FleetSupervisor", "SwapFailed",
+           "RefreshController", "RefreshResult", "StreamBuffer",
+           "serve_pipeline", "serve_distributed", "serve_continuous"]

@@ -592,10 +592,19 @@ class BoosterArrays:
     def from_state_dict(state: Dict[str, Any]) -> "BoosterArrays":
         """The inverse of ``state_dict``: also reads the state of a JAX
         ``BoosterArrays`` (arrays as numpy), cast to this layout's
-        dtypes."""
+        dtypes. A JAX booster warm-started from a model string keeps
+        ``decision_type`` on every node; where each split is numeric
+        and default-left with NaN missing (``decision_type=10``, how
+        this layout routes a booster without bits) the bits are dropped,
+        as ``load_model_string`` drops them."""
         meta = state["booster_meta"]
+        split_feature = np.asarray(state["split_feature"], np.int32)
+        dt, bitset = state.get("decision_type"), state.get("cat_bitset")
+        if (dt is not None and (bitset is None or not np.any(bitset))
+                and np.all(np.asarray(dt)[split_feature >= 0] == _NAN_LEFT)):
+            dt = bitset = None
         return BoosterArrays(
-            split_feature=np.asarray(state["split_feature"], np.int32),
+            split_feature=split_feature,
             threshold_bin=np.asarray(state["threshold_bin"], np.int32),
             threshold_value=np.asarray(state["threshold_value"], np.float64),
             node_value=np.asarray(state["node_value"], np.float32),
@@ -607,10 +616,9 @@ class BoosterArrays:
             objective=meta["objective"],
             init_score=float(meta["init_score"]),
             feature_names=meta.get("feature_names"),
-            decision_type=(None if state.get("decision_type") is None
-                           else np.asarray(state["decision_type"], np.int8)),
-            cat_bitset=(None if state.get("cat_bitset") is None
-                        else np.asarray(state["cat_bitset"], np.uint32)),
+            decision_type=(None if dt is None else np.asarray(dt, np.int8)),
+            cat_bitset=(None if bitset is None
+                        else np.asarray(bitset, np.uint32)),
         )
 
 

@@ -70,6 +70,7 @@ from mmlspark_tpu_torch.models.gbdt.hist_cuda import (
     level_histogram_quant,
 )
 from mmlspark_tpu_torch.ops.ingest import binned_ingest_dtype
+from mmlspark_tpu_torch.parallel import resilience
 
 
 @dataclass(frozen=True)
@@ -688,7 +689,9 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
 
     ``fault_point("gbdt.train_step")`` is hit once per iteration, before
     its work, as in the reference: arming it with ``nth=k`` stops the
-    fit at its k-th iteration.
+    fit at its k-th iteration. ``parallel.resilience.step_start`` /
+    ``step_end`` bracket each iteration as in the reference (the
+    refresh loop's refit throttle runs at ``step_start``).
 
     ``device=None`` runs on the CUDA card (and raises without one);
     ``device="cpu"`` runs the plain PyTorch path. The histogram plane
@@ -768,8 +771,10 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
 
     it = 0
     while it < total:
-        # once per iteration, before its work: an armed raise here is
-        # the deterministic stand-in for a fit killed mid-training
+        # the step boundary (a refit's throttle yields here), then once
+        # per iteration, before its work: an armed raise is the
+        # deterministic stand-in for a fit killed mid-training
+        resilience.step_start(it + iteration_offset)
         fault_point("gbdt.train_step")
         with measures.phase("training"):
             if custom_objective is not None:
@@ -804,6 +809,7 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
                 cfg.improvement_tolerance, higher_better)
             if stop_after is not None:
                 break
+        resilience.step_end()
     kept = len(trees) if stop_after is None else stop_after
 
     num_slots = 2 ** (depth + 1) - 1

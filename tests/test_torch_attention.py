@@ -24,6 +24,11 @@ from mmlspark_tpu.parallel.flash import flash_attention as jax_flash
 from mmlspark_tpu_torch.parallel import attention as A
 from mmlspark_tpu_torch.parallel import flash as F
 
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

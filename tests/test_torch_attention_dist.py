@@ -21,6 +21,12 @@ import sys
 
 import numpy as np
 import pytest
+import torch
+
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 WORLDS = (2, 4)

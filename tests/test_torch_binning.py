@@ -10,6 +10,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu.ops.binning import BinMapper as JaxBinMapper
 from mmlspark_tpu.ops.ingest import binned_ingest_dtype as jax_ingest_dtype
@@ -17,6 +18,11 @@ from mmlspark_tpu_torch.native import bindings
 from mmlspark_tpu_torch.ops import binning as port_binning
 from mmlspark_tpu_torch.ops.binning import BinMapper
 from mmlspark_tpu_torch.ops.ingest import binned_ingest_dtype
+
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
 
 
 def _data(n=4000, seed=0):

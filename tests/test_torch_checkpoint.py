@@ -33,6 +33,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu.core import faults as jax_faults
 from mmlspark_tpu.core import serialize as jax_serialize
@@ -44,6 +45,11 @@ from mmlspark_tpu_torch.core.faults import FaultInjected
 from mmlspark_tpu_torch.core.logging_utils import SINK, reset_warn_once
 from mmlspark_tpu_torch.models.gbdt import estimators, trainer
 from mmlspark_tpu_torch.ops.ingest import resolve_spill_verify
+
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(numIterations=12, numLeaves=8, maxBin=32)

@@ -7,6 +7,7 @@ JAX package loads into the port's class of the same name)."""
 
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu.core import dataframe as jax_df
 from mmlspark_tpu.core import param as jax_param
@@ -15,6 +16,11 @@ from mmlspark_tpu_torch.core import dataframe, param, pipeline
 from mmlspark_tpu_torch.core.logging_utils import SINK, scrub
 from mmlspark_tpu_torch.core.timer import InstrumentationMeasures
 from mmlspark_tpu_torch.models.gbdt import estimators
+
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
 
 
 def _outcome(fn, *args, **kw):

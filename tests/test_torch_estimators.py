@@ -45,6 +45,11 @@ from mmlspark_tpu_torch.models.gbdt.convert import (booster_from_jax_state,
 from mmlspark_tpu_torch.ops.binning import BinMapper
 from tests.test_torch_gbdt_quant import _fit_data
 
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
+
 ARRAYS = ("split_feature", "threshold_bin", "threshold_value", "node_value",
           "count", "tree_weights")
 MAX_BIN = 63
@@ -507,6 +512,17 @@ def _auc(scores, labels):
     return (ranks[pos].sum() - n1 * (n1 + 1) / 2) / (n1 * n0)
 
 
+def _one_openmp_thread():
+    """sklearn's histogram GBDT on one OpenMP thread: its OpenMP runtime
+    (not torch's, which the module pins) starts a thread per core, and
+    under pytest-xdist beside busy workers each of its barriers waits
+    for descheduled threads (a 200-tree fit took minutes instead of a
+    fraction of a second). Its model does not depend on the count."""
+    from threadpoolctl import threadpool_limits
+
+    return threadpool_limits(limits=1, user_api="openmp")
+
+
 def test_breast_cancer_auc_matches_sklearn_hgb():
     from sklearn.datasets import load_breast_cancer
     from sklearn.ensemble import HistGradientBoostingClassifier
@@ -521,9 +537,10 @@ def test_breast_cancer_auc_matches_sklearn_hgb():
         .set_device("cpu").fit(DataFrame({"features": xtr, "label": ytr}))
     probs = model.transform(DataFrame({"features": xte, "label": yte}))
     ours = _auc(probs["probability"][:, 1], yte)
-    ref = HistGradientBoostingClassifier(
-        max_iter=100, learning_rate=0.1, max_leaf_nodes=31,
-        early_stopping=False, random_state=0).fit(xtr, ytr)
+    with _one_openmp_thread():
+        ref = HistGradientBoostingClassifier(
+            max_iter=100, learning_rate=0.1, max_leaf_nodes=31,
+            early_stopping=False, random_state=0).fit(xtr, ytr)
     theirs = _auc(ref.predict_proba(xte)[:, 1], yte)
     assert ours > 0.95
     assert ours >= theirs - 0.02, (ours, theirs)
@@ -544,9 +561,10 @@ def test_diabetes_l2_matches_sklearn_hgb():
     pred = model.transform(
         DataFrame({"features": xte, "label": yte}))["prediction"]
     ours = float(np.mean((pred - yte) ** 2))
-    ref = HistGradientBoostingRegressor(
-        max_iter=200, learning_rate=0.05, max_leaf_nodes=15,
-        early_stopping=False, random_state=0).fit(xtr, ytr)
+    with _one_openmp_thread():
+        ref = HistGradientBoostingRegressor(
+            max_iter=200, learning_rate=0.05, max_leaf_nodes=15,
+            early_stopping=False, random_state=0).fit(xtr, ytr)
     theirs = float(np.mean((ref.predict(xte) - yte) ** 2))
     assert ours <= theirs * 1.25, (ours, theirs)
 

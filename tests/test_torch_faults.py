@@ -21,8 +21,19 @@ from mmlspark_tpu_torch.models.gbdt import hist_cuda, trainer
 from mmlspark_tpu_torch.models.gbdt.estimators import LightGBMRegressor
 from mmlspark_tpu_torch.ops.binning import BinMapper
 
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
+
 TRAINING_POINTS = {"gbdt.train_step", "gbdt.level_hist", "checkpoint.write",
                    "io.disk_full"}
+# placed with the serving fleet, the model lifecycle and the refresh loop
+LIFECYCLE_POINTS = {"serving.score", "serving.worker_kill",
+                    "serving.observe_log", "registry.swap",
+                    "registry.swap_fanout", "fleet.spawn", "fleet.heartbeat",
+                    "net.half_open", "net.slow_reply", "net.latency",
+                    "stream.ingest", "refresh.fit"}
 
 
 @pytest.fixture(autouse=True)
@@ -47,15 +58,22 @@ def _sites():
 
 def test_every_fault_point_site_is_registered():
     """Every ``fault_point("...")`` call site of the port names a
-    registered point, and the training-path points are threaded where
-    the reference has them."""
+    registered point, and the training-path, serving, fleet and refresh
+    points are threaded where the reference has them."""
     sites = _sites()
     assert not set(sites) - set(faults.KNOWN_POINTS), sites
-    assert set(sites) == TRAINING_POINTS
+    assert set(sites) == TRAINING_POINTS | LIFECYCLE_POINTS
     assert sites["gbdt.train_step"] == {"trainer.py"}
     assert sites["gbdt.level_hist"] == {"hist_cuda.py"}
     assert sites["checkpoint.write"] == sites["io.disk_full"] == \
         {"serialize.py"}
+    for name in ("serving.score", "serving.worker_kill", "serving.observe_log",
+                 "registry.swap", "fleet.spawn", "net.half_open",
+                 "net.slow_reply", "net.latency"):
+        assert sites[name] == {"serving.py"}, name
+    for name in ("registry.swap_fanout", "fleet.heartbeat"):
+        assert sites[name] == {"fleet.py"}, name
+    assert sites["stream.ingest"] == sites["refresh.fit"] == {"refresh.py"}
 
 
 def test_registry_is_the_reference_registry():

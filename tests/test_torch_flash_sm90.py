@@ -23,6 +23,11 @@ from mmlspark_tpu.parallel.flash import flash_attention as jax_flash
 from mmlspark_tpu_torch.native import bindings
 from mmlspark_tpu_torch.parallel import flash as F
 
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 LOG2E = 1.4426950408889634
 BF16 = torch.bfloat16

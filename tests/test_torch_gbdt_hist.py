@@ -32,6 +32,11 @@ from mmlspark_tpu.models.gbdt.hist_pallas import pallas_level_histogram
 from mmlspark_tpu.models.gbdt.trainer import _level_histogram
 from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
 
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
+
 SHAPES = [
     (2000, 7, 32, 4),     # generic
     (999, 3, 255, 8),     # n not divisible by a block, full bin range

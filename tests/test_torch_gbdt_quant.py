@@ -43,6 +43,11 @@ from mmlspark_tpu_torch.models.gbdt import trainer
 from mmlspark_tpu_torch.ops.binning import BinMapper
 from tests.test_torch_gbdt_hist import _replay_quant_kernel
 
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
+
 ARRAYS = ("split_feature", "threshold_bin", "threshold_value", "node_value",
           "count", "tree_weights")
 MAX_BIN = 63

@@ -30,6 +30,11 @@ from mmlspark_tpu_torch.models.gbdt import metrics, objectives, trainer
 from mmlspark_tpu_torch.models.gbdt.convert import booster_from_jax_state
 from mmlspark_tpu_torch.ops.binning import BinMapper
 
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
+
 ARRAYS = ("split_feature", "threshold_bin", "threshold_value", "node_value",
           "count", "tree_weights")
 MAX_BIN = 63

@@ -18,6 +18,11 @@ from mmlspark_tpu_torch.ops.binning import BinMapper
 from mmlspark_tpu_torch.parallel import flash
 from mmlspark_tpu_torch.parallel.attention import fused_attention
 
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mmlspark_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_hist_ab.py",
@@ -56,7 +61,8 @@ def test_port_files_were_found():
             "torch_serving_ab.py", "torch_score_ab.py",
             "score_cuda.py", "faults.py", "serialize.py", "ingest.py",
             "objectives.py", "estimators.py", "logging_utils.py",
-            "torch_train_ab.py"} <= names
+            "torch_train_ab.py", "retries.py", "drift.py", "prefetch.py",
+            "resilience.py", "fleet.py", "refresh.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -66,6 +72,13 @@ def test_importing_the_port_loads_no_jax():
             "import mmlspark_tpu_torch.ops.ingest\n"
             "import mmlspark_tpu_torch.models.gbdt.convert\n"
             "import mmlspark_tpu_torch.parallel.attention\n"
+            "import mmlspark_tpu_torch.io\n"
+            "import mmlspark_tpu_torch.io.fleet\n"
+            "import mmlspark_tpu_torch.io.refresh\n"
+            "import mmlspark_tpu_torch.core.retries\n"
+            "import mmlspark_tpu_torch.exploratory.drift\n"
+            "import mmlspark_tpu_torch.parallel.prefetch\n"
+            "import mmlspark_tpu_torch.parallel.resilience\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mmlspark_tpu')]\n"
             "print(bad)\n")

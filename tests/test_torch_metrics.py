@@ -18,6 +18,11 @@ import torch
 from mmlspark_tpu.models.gbdt import metrics as jax_metrics
 from mmlspark_tpu_torch.models.gbdt import metrics, trainer
 
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
+
 NAMES = sorted(metrics.METRICS)
 
 

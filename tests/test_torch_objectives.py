@@ -41,6 +41,11 @@ from mmlspark_tpu.models.gbdt import trainer as jax_trainer
 from mmlspark_tpu_torch import DataFrame
 from mmlspark_tpu_torch.models.gbdt import estimators, objectives, trainer
 
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
+
 ARRAYS = ("split_feature", "threshold_bin", "threshold_value", "node_value",
           "count", "tree_weights")
 MAX_BIN = 31

@@ -26,6 +26,11 @@ from mmlspark_tpu_torch.models.gbdt import trainer
 from tests.test_torch_gbdt_quant import QMAX, _amax_grid
 from tools import pow2_thresholds
 
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 

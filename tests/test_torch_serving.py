@@ -52,6 +52,11 @@ from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays
 from mmlspark_tpu_torch.models.gbdt.convert import model_from_jax
 from mmlspark_tpu_torch.parallel.inference import bucket_ladder
 
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.serving_smoke
 
 N, F = 3000, 28  # HIGGS-shaped feature count, small N
@@ -852,24 +857,38 @@ def test_example_01_flow_on_the_port(higgs, tmp_path, fit_in):
 # --- out of the slice, and the card -------------------------------------------
 
 def test_fleet_and_lifecycle_raise_naming_a6d():
-    server = ServingServer(_SlowDouble(0.0))
+    """ROADMAP A6d is in the port: none of the lifecycle and fleet calls
+    that raised ``NotImplementedError`` naming it does so now (their
+    contracts are held against the JAX package in
+    ``test_torch_lifecycle``, ``test_torch_fleet`` and
+    ``test_torch_refresh``)."""
+    server = ServingServer(_DoubleModel(), max_latency_ms=1.0).start()
+    fleet = None
     try:
-        for call in (lambda: server.swap_model("default", _DoubleModel()),
-                     lambda: server.prepare_swap("default", _DoubleModel()),
-                     lambda: server.commit_swap(None),
-                     lambda: server.abort_swap(None),
-                     lambda: server.drain(),
-                     lambda: server.kill(),
-                     lambda: server.observe_log(lambda *a: None),
-                     lambda: ServingFleet(_DoubleModel()),
-                     lambda: FleetClient("http://127.0.0.1:1/"),
-                     lambda: serve_distributed(_DoubleModel()),
-                     lambda: port_io.FleetSupervisor,
-                     lambda: port_io.RefreshController):
-            with pytest.raises(NotImplementedError, match=r"ROADMAP A6d\b"):
-                call()
+        probe = {"value": 1.0}
+        assert server.swap_model("default", _DoubleModel(),
+                                 probe_payload=probe)["model"] == "default"
+        server.abort_swap(server.prepare_swap("default", _DoubleModel(),
+                                              probe_payload=probe))
+        server.commit_swap(server.prepare_swap("default", _DoubleModel(),
+                                               probe_payload=probe))
+        server.observe_log(lambda *a: None)
+        assert _post(server.url, {"value": 3.0})["out"] == 6.0
+        assert server.drain(timeout_s=5.0)
+        server.kill()
+        fleet = serve_distributed(_DoubleModel(), num_servers=1,
+                                  max_latency_ms=1.0)
+        assert isinstance(fleet, ServingFleet)
+        client = FleetClient(fleet.registry_url, timeout=5.0)
+        assert client.score({"value": 2.0})["out"] == 4.0
+        for name in ("FleetSupervisor", "RefreshController",
+                     "RefreshResult", "StreamBuffer", "SwapFailed"):
+            assert name in port_io.__all__
+            getattr(port_io, name)
     finally:
         server.stop()
+        if fleet is not None:
+            fleet.stop()
 
 
 @pytest.mark.parametrize("mode", ["auto", "off"])

@@ -31,6 +31,11 @@ from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays
 from mmlspark_tpu_torch.native import bindings
 from mmlspark_tpu_torch.parallel.inference import bucket_ladder
 
+# one intra-op thread per process: pytest-xdist runs several test
+# files at once on shared cores, and the port's plain CPU path is
+# many small ops that an oversubscribed thread pool slows down
+torch.set_num_threads(1)
+
 F = 28
 RUNGS = bucket_ladder(64)
 BIN_DTYPES = {np.uint8: 255, np.uint16: 1000, np.int32: 70_000}
