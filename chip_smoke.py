@@ -20,11 +20,17 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      bytes and operations;
   3. main path: ``BinMapper.fit`` / ``transform``, ``train`` (binary,
      num_leaves=63, max_depth=6, 20 trees) and ``predict_binned`` on the
-     2M rows, with the histogram kernel's launch count over the fit and
-     ``tree_score``'s over the scoring, the training logloss per tree,
-     two fits bitwise equal, and fit / scoring rates;
-  4. profile: a 5-tree bench-shape fit under torch.profiler — device
-     time by kernel and the device's idle share;
+     2M rows, with the histogram kernel's launch count over the fit
+     (each iteration one replay of the captured boosting step,
+     ``models/gbdt/step.py``) and ``tree_score``'s over the scoring, the
+     training logloss per tree, two fits bitwise equal, the captured fit
+     bitwise the same step run uncaptured (``train(capture=False)``),
+     the capture's seconds, launches per replay and graph pool bytes,
+     and fit / scoring rates;
+  4. profile: a 5-tree bench-shape fit under torch.profiler, replayed
+     (the captured step) and uncaptured — device time by kernel (the
+     profiler records each kernel of a replayed graph) and the device's
+     idle share;
   5. card vs CPU: the same fit at 100k rows and 5 trees on ``cuda`` and
      on ``cpu`` through the port;
   6. quantized kernel vs plain: the int16 (q16) and int8 (q8)
@@ -48,6 +54,16 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      device time per tree with subtraction off and on (torch.profiler);
   8. card vs CPU, quantized: the 100k-row 5-tree fit under q16 on
      ``cuda`` and on ``cpu``;
+  8a. sampling path: bagging (0.5, every iteration), pos/neg bagging
+     (0.5 / 0.3), ``feature_fraction`` 0.5, GOSS and rf (bagging 0.5)
+     on the bench fit, float32 and q8: two fits bitwise equal, 120
+     histogram launches each through the replays, the booster's logloss
+     falling (rf: from the base score), each fit's wall; both histogram
+     kernels bitwise against their plain versions on a bagged ``live``
+     and on GOSS-amplified grads at every level width; the rf booster's
+     ``tree_score`` (weights 1/20) bitwise its plain version; each
+     sampled fit card vs CPU at 100k rows and 5 trees (roots equal,
+     logloss within 1e-4 relative);
   9. flash kernels vs plain: ``csrc/flash_attn.cu`` (float32) and
      ``csrc/flash_attn_sm90.cu`` (every bfloat16 call: wgmma, TMA, a
      producer warp; in place, or on copies staged for TMA) against
@@ -559,6 +575,17 @@ def phase_main(ctx):
     # the fixed-point histogram makes the float32 fit reproducible
     reproducible = boosters_equal(
         result.booster, train(binned, y, cfg, bin_upper=bin_upper).booster)
+    # each iteration one replay of the captured step, bitwise the same
+    # step run uncaptured (train's own capture=False)
+    H.hist_kernel_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uncaptured = train(binned, y, cfg, bin_upper=bin_upper, capture=False)
+    torch.cuda.synchronize()
+    uncaptured_s = time.perf_counter() - t0
+    uncaptured_launches = H.hist_kernel_launches
+    captured_bitwise = boosters_equal(result.booster, uncaptured.booster)
+    capture = step_capture_stats(torch, cfg)
 
     booster = result.booster
     lls = [e["train_binary_logloss"] for e in result.evals]
@@ -584,6 +611,10 @@ def phase_main(ctx):
            "tree_score_plan_launches": dict(S.tree_score_plan_launches),
            "expected_launches": expected,
            "syncs_per_fit": syncs[3], "two_fits_bitwise": reproducible,
+           "step": result.step_stats, "capture": capture,
+           "uncaptured_fit_s": uncaptured_s,
+           "uncaptured_launches": uncaptured_launches,
+           "captured_bitwise_uncaptured": captured_bitwise,
            "logloss_first": lls[0], "logloss_last": lls[-1],
            "fit_mrow_trees_per_s": N * booster.num_trees / fit_s / 1e6,
            "score_mrow_trees_per_s": N * booster.num_trees / score_s / 1e6,
@@ -602,11 +633,41 @@ def phase_main(ctx):
         raise AssertionError(f"training logloss does not fall: {lls}")
     if not reproducible:
         raise AssertionError("two float32 fits gave different boosters")
+    if not (result.step_stats["captured"] and captured_bitwise
+            and uncaptured_launches == expected
+            and not uncaptured.step_stats["captured"]):
+        raise AssertionError(f"the captured fit ({result.step_stats}) is not "
+                             f"the uncaptured one: bitwise "
+                             f"{captured_bitwise}, launches "
+                             f"{uncaptured_launches}")
     if tuple(scores.shape) != (N,) or not bool(torch.isfinite(scores).all()):
         raise AssertionError("scores are not finite of shape (N,)")
     if not torch.equal(scores[:100_000].cpu(), cpu_scores):
         raise AssertionError("card and CPU scoring of one booster differ")
     return out
+
+
+def step_capture_stats(torch, cfg):
+    """The cached captured step of ``cfg``'s fits: the seconds its
+    capture took, the histogram launches one replay holds, and its graph
+    pool's bytes (the caching allocator's segments of that pool)."""
+    from mmlspark_tpu_torch.models.gbdt import step as S
+
+    steps = [st for st in S.cached_steps()
+             if st.key is not None and st.key[4] == S._loop_only(cfg)]
+    if not steps:
+        return {"cached": False}
+    st = steps[-1]
+    pool = tuple(st.graph.pool())
+    segments = torch.cuda.memory_snapshot()
+    if segments and "segment_pool_id" in segments[0]:
+        pool_bytes = sum(seg["total_size"] for seg in segments
+                         if tuple(seg["segment_pool_id"]) == pool)
+    else:
+        pool_bytes = "not measured"
+    return {"cached": True, "capture_s": st.capture_s,
+            "launches_per_replay": st.tally, "graph_pool_bytes": pool_bytes,
+            "cached_steps": len(S.cached_steps())}
 
 
 def phase_profile(ctx):
@@ -620,19 +681,32 @@ def phase_profile(ctx):
     binned, y, bin_upper, cfg = ctx["main_inputs"]
     cfg = dataclasses.replace(cfg, num_iterations=5)
     binned_d = torch.as_tensor(binned.astype(np.uint8), device="cuda")
-    wall_ms, by_name = device_ms_by_kernel(
-        torch, lambda: train(binned_d, y, cfg, bin_upper=bin_upper))
-    busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    hist_ms = hist_device_ms(by_name)
-    return {"trees": 5, "wall_ms": wall_ms,
+    out = {"trees": 5}
+    # the fit as it runs (each iteration a replay of the cached captured
+    # step: CUPTI records every kernel of a replayed graph, so the device
+    # time by kernel is read as for eager launches), then the same step
+    # uncaptured
+    for arm, capture in (("captured", True), ("uncaptured", False)):
+        wall_ms, by_name = device_ms_by_kernel(
+            torch, lambda: train(binned_d, y, cfg, bin_upper=bin_upper,
+                                 capture=capture))
+        busy_ms = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        hist_ms = hist_device_ms(by_name)
+        out[arm] = {
+            "wall_ms": wall_ms,
             "device_busy_ms": busy_ms if busy_ms else "not measured",
             "device_idle_share": 1 - busy_ms / wall_ms if busy_ms
             else "not measured",
+            "level_hist_ms": hist_ms,
             "level_hist_share_of_busy": hist_ms / busy_ms if busy_ms
             else "not measured",
             "kernel_names": len(by_name),
             "top_ms": dict(top)}
+    if not out["captured"]["level_hist_ms"]:
+        raise AssertionError("the profile of the replayed fit holds no "
+                             f"histogram kernel: {out['captured']}")
+    return out
 
 
 def phase_card_vs_cpu(ctx):
@@ -913,6 +987,211 @@ def phase_main_quant(ctx):
             row[f"hist_ms_per_tree_sub{sub}"] = hist_ms / 5
             row[f"profiled_wall_ms_per_tree_sub{sub}"] = wall_ms / 5
         out[f"sub_{quant}"] = row
+    return out
+
+
+# phase sampling_path: the sampled fits at the bench shape, each a
+# config of the bench's binary fit
+SAMPLED = {
+    "bagging": dict(bagging_fraction=0.5, bagging_freq=1),
+    "pos_neg": dict(pos_bagging_fraction=0.5, neg_bagging_fraction=0.3,
+                    bagging_freq=1),
+    "feature_fraction": dict(feature_fraction=0.5),
+    "goss": dict(boosting_type="goss"),
+    "rf": dict(boosting_type="rf", bagging_fraction=0.5, bagging_freq=1),
+}
+
+
+def logloss(raw, y):
+    p = np.clip(1 / (1 + np.exp(-raw.astype(np.float64))), 1e-15, 1 - 1e-15)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log1p(-p)))
+
+
+def booster_logloss(booster, binned_d, y, trees=None):
+    """Logloss of the booster's scores on the card (``tree_score``);
+    ``trees``: only the first ones (0: the base score alone), each
+    weighted as one tree of ``trees`` where the booster averages its
+    trees (rf)."""
+    if trees == 0:
+        return logloss(np.full(len(y), booster.init_score), y)
+    if trees is not None:
+        averaged = booster.tree_weights[0] != 1.0
+        booster = booster.slice_iterations(0, trees)
+        if averaged:
+            booster = dataclasses.replace(
+                booster, tree_weights=np.full(trees, 1 / trees, np.float32))
+    return logloss(booster.predict_binned(binned_d).cpu().numpy(), y)
+
+
+def phase_sampling(ctx):
+    """Bagging, pos/neg bagging, feature_fraction, GOSS and rf at the
+    bench shape (2M x 28, 20 trees), on the float32 and the q8 plane:
+    two fits bitwise equal, 120 histogram launches each through the
+    replays of the captured step, the loss of the booster falling from
+    its first tree to all 20, and the fit's wall; each histogram kernel
+    against its plain version on a bagged ``live`` (every level width)
+    and on GOSS-amplified grads (q8 under the fit's shared scales); the
+    rf booster's ``tree_score`` (weights 1/20) against its plain
+    version; and each sampled fit on the card against the CPU at
+    ``card_vs_cpu``'s size."""
+    import torch
+
+    from mmlspark_tpu_torch import BinMapper, train
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import objectives, sampling
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+    from mmlspark_tpu_torch.models.gbdt.trainer import _pow2_scale
+
+    binned, y, bin_upper, cfg = ctx["main_inputs"]
+    binned_d = torch.as_tensor(binned.astype(np.uint8), device="cuda")
+    expected = TREES * cfg.effective_depth
+    out, failures = {"card": ctx["smi"]}, []
+    launches = {"level_hist": 0, "level_hist_quant": 0}
+    boosters = {}
+    for quant in ("off", "q8"):
+        for name, kw in SAMPLED.items():
+            c = dataclasses.replace(cfg, **kw)
+            fits = []
+            for _ in range(2):
+                with knobs(quant, "0"):
+                    H.hist_kernel_launches = H.hist_quant_kernel_launches = 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = train(binned, y, c, bin_upper=bin_upper)
+                    torch.cuda.synchronize()
+                    fits.append((res, time.perf_counter() - t0,
+                                 H.hist_kernel_launches,
+                                 H.hist_quant_kernel_launches))
+            (a, fit_s, f32_n, q_n), (b, again_s, _, _) = fits
+            launched = q_n if quant == "q8" else f32_n
+            launches["level_hist_quant" if quant == "q8"
+                     else "level_hist"] += launched
+            # the loss falls: from the first tree to all 20 (rf, whose
+            # trees each fit the base score: from the base score alone)
+            first = booster_logloss(a.booster, binned_d, y,
+                                    trees=0 if name == "rf" else 1)
+            last = booster_logloss(a.booster, binned_d, y)
+            row = {"fit_s": fit_s, "second_fit_s": again_s,
+                   "launches": launched,
+                   "other_plane_launches": f32_n if quant == "q8" else q_n,
+                   "step": a.step_stats,
+                   "two_fits_bitwise": boosters_equal(a.booster, b.booster),
+                   "logloss_first": first, "logloss_all": last,
+                   "tree_weights": sorted(set(a.booster.tree_weights
+                                              .tolist()))}
+            out[f"{name}[{quant}]"] = row
+            boosters[(name, quant)] = a.booster
+            if not (row["two_fits_bitwise"] and launched == expected
+                    and row["other_plane_launches"] == 0
+                    and a.step_stats["captured"] and last < first):
+                failures.append(f"{name}[{quant}]: {row}")
+    ctx["launches"]["sampling_path"] = launches
+
+    # the kernels on the sampled path's inputs: a bag as live, and GOSS
+    # grads (amplified rows, the rest zero) quantized as build_tree does
+    n = binned_d.shape[0]
+    bag_cfg = dataclasses.replace(cfg, **SAMPLED["bagging"])
+    bag = sampling.bag_mask(sampling.draw(sampling.bag_keys(bag_cfg, 0), n,
+                                          "cuda"),
+                            torch.zeros(n, device="cuda"), bag_cfg)
+    labels = torch.as_tensor(y, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    # grads at spread scores, so |g| has a real top-rate quantile
+    g, h = objectives.binary(torch.randn(n, generator=gen, device="cuda"),
+                             labels)
+    goss_cfg = dataclasses.replace(cfg, boosting_type="goss")
+    mult = sampling.goss_mult(g, sampling.draw(
+        sampling.goss_keys(goss_cfg, 0), n, "cuda"), None, goss_cfg)
+    keep = (mult > 0).float()
+    gg, hh = g * mult, h * mult
+    gs, gsi = _pow2_scale(torch.max(torch.abs(gg)), 120.0)
+    hs, hsi = _pow2_scale(torch.max(torch.abs(hh)), 120.0)
+    gq = torch.round(gg * gs).to(torch.int8)
+    hq = torch.round(hh * hs).to(torch.int8)
+    kernels = {}
+    for width in WIDTHS:
+        local = torch.randint(0, width, (n,), generator=gen, device="cuda")
+        args = (width, F, B)
+        cases = {
+            "level_hist[bagged live]": (
+                lambda: H.level_histogram(binned_d, gg, hh, bag, local,
+                                          *args),
+                lambda: H.level_histogram_reference(binned_d, gg, hh, bag,
+                                                    local, *args)),
+            "level_hist[goss grads]": (
+                lambda: H.level_histogram(binned_d, gg, hh, keep, local,
+                                          *args),
+                lambda: H.level_histogram_reference(binned_d, gg, hh, keep,
+                                                    local, *args)),
+            "level_hist_quant[q8, goss grads]": (
+                lambda: H.level_histogram_quant(binned_d, gq, hq, keep,
+                                                local, *args, gsi, hsi),
+                lambda: H.level_histogram_quant_reference(
+                    binned_d, gq, hq, keep, local, *args, gsi, hsi)),
+            "level_hist_quant[q8, bagged live]": (
+                lambda: H.level_histogram_quant(binned_d, gq, hq, bag,
+                                                local, *args, gsi, hsi),
+                lambda: H.level_histogram_quant_reference(
+                    binned_d, gq, hq, bag, local, *args, gsi, hsi)),
+        }
+        for label, (kernel, plain) in cases.items():
+            got, again, want = kernel(), kernel(), plain()
+            ok = bool(torch.equal(got, want) and torch.equal(got, again))
+            err = float((got - want).abs().max().item())
+            row = kernels.setdefault(label, {"bitwise": True,
+                                             "max_abs_err": 0.0})
+            row["bitwise"] &= ok
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if not ok:
+                failures.append(f"{label} at width {width}: err {err}")
+    kernels["bag_kept_share"] = float(bag.mean().item())
+    kernels["goss_kept_share"] = float(keep.mean().item())
+    if not 0.2 <= kernels["goss_kept_share"] < 0.5:
+        failures.append(f"GOSS kept {kernels['goss_kept_share']} of the "
+                        f"rows; expected about 0.2 + 0.8 * 0.125")
+    out["kernels_vs_plain"] = kernels
+
+    # rf's transform: tree_score with weights 1/20 against its plain version
+    rf = boosters[("rf", "off")]
+    tables = rf._scorer(False, "off", "cuda").tables
+    S.tree_score_launches = 0
+    got = S.tree_score(binned_d, tables)
+    rf_launches = S.tree_score_launches
+    want = S.tree_score_reference(binned_d, tables)
+    rf_ok = bool(torch.equal(got, want))
+    out["rf_tree_score"] = {"bitwise": rf_ok, "launches": rf_launches,
+                            "max_abs_err": float((got - want).abs().max()
+                                                 .item()),
+                            "tree_weights": sorted(set(
+                                rf.tree_weights.tolist()))}
+    ctx["rf_score_err"] = out["rf_tree_score"]["max_abs_err"]
+    if not rf_ok or rf_launches != 1:
+        failures.append(f"rf tree_score: {out['rf_tree_score']}")
+
+    # card vs CPU at card_vs_cpu's size: the histograms are the same bits
+    # on both devices and so are the draws; the objective and split
+    # finding reduce in other orders, so roots equal and the loss within
+    # 1e-4 relative, as card_vs_cpu holds the unsampled fit
+    x, yc = make_data(100_000, seed=1)
+    bc = BinMapper.fit(x, max_bin=255).transform(x)
+    bcd = torch.as_tensor(bc.astype(np.uint8), device="cuda")
+    vs = {}
+    for name, kw in SAMPLED.items():
+        c = dataclasses.replace(cfg, num_iterations=5, **kw)
+        res = {dev: train(bc, yc, c, device=dev) for dev in ("cuda", "cpu")}
+        a, b = res["cuda"].booster, res["cpu"].booster
+        roots = (np.array_equal(a.split_feature[:, 0], b.split_feature[:, 0])
+                 and np.array_equal(a.threshold_bin[:, 0],
+                                    b.threshold_bin[:, 0]))
+        lla = booster_logloss(a, bcd, yc)
+        llb = booster_logloss(b, bcd, yc)
+        vs[name] = {"roots_equal": roots, "logloss_cuda": lla,
+                    "logloss_cpu": llb, "rel_diff": abs(lla - llb) / llb}
+        if not roots or vs[name]["rel_diff"] > 1e-4:
+            failures.append(f"card vs CPU {name}: {vs[name]}")
+    out["card_vs_cpu"] = vs
+    if failures:
+        raise AssertionError(f"sampling_path: {failures}")
     return out
 
 
@@ -3411,6 +3690,12 @@ def kernel_table(ctx):
     # co-located refit of fleet_path (20 trees)
     for path in ("refresh_path", "fleet_path"):
         kernels[0][f"launches_{path}"] = ctx["launches"][path]
+    # launches over sampling_path's first fit of each sampled config (5
+    # configs of 20 trees per plane; replays of the captured step)
+    kernels[0]["launches_sampling_path"] = \
+        ctx["launches"]["sampling_path"]["level_hist"]
+    kernels[2]["launches_sampling_path"] = \
+        ctx["launches"]["sampling_path"]["level_hist_quant"]
     # tree_score replaces an XLA scan, not a Pallas kernel: the row of
     # the main path's 2M-row call, beside the served model's rung 64
     score = ctx["score_rows"]
@@ -3495,6 +3780,7 @@ def main() -> int:
                      ("kernel_quant", phase_kernel_quant),
                      ("main_path_quant", phase_main_quant),
                      ("card_vs_cpu_quant", phase_card_vs_cpu_quant),
+                     ("sampling_path", phase_sampling),
                      ("estimator_path", phase_estimator),
                      ("objectives_path", phase_objectives),
                      ("custom_objective_path", phase_custom_objective),

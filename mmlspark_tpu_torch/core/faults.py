@@ -259,6 +259,15 @@ def reset() -> None:
         _enabled = False
 
 
+def is_armed(name: str) -> bool:
+    """Whether a fault is armed on ``name`` (one flag check when nothing
+    is armed anywhere)."""
+    if not _enabled:
+        return False
+    with _lock:
+        return name in _armed
+
+
 def hits(name: str) -> int:
     """Process-wide hit count of a point while any fault was armed
     (counting is part of the slow path: 0 when nothing was ever armed)."""

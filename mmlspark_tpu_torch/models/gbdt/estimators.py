@@ -27,12 +27,19 @@ checkpoint whose digest verifies, and refuses a directory written for
 another config or dataset (``checkpoint_meta.json``'s fingerprint, the
 JAX package's digest, so a directory crosses between the packages).
 
+Row and feature sampling train as the reference's fused step draws
+them (``baggingFraction`` / ``baggingFreq``, ``posBaggingFraction`` /
+``negBaggingFraction``, ``featureFraction``, ``boostingType="goss"``
+and ``"rf"``; ``trainer.train``), keyed by the global iteration, so a
+checkpointed or incremental fit resumed at iteration k draws what the
+uninterrupted one drew.
+
 The param surface is the JAX package's (the same names, defaults and
-validation); settings outside this slice raise ``NotImplementedError``
+validation); settings outside the port raise ``NotImplementedError``
 naming the ROADMAP item that adds them: leaf indices and SHAP columns
-(A5), multiclass, ranking, categorical splits, zero-as-missing,
-sampling and boosting types (A7), meshes and the voting /
-feature-parallel learners (A8).
+(A5), multiclass, ranking, categorical splits, zero-as-missing, dart,
+``featureFractionByNode`` and ``extraTrees`` (A7), meshes and the
+voting / feature-parallel learners (A8).
 """
 
 from __future__ import annotations

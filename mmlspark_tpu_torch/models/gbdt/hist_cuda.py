@@ -31,15 +31,53 @@ sources.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+from typing import Dict
+
 import torch
 
 from mmlspark_tpu_torch.core.faults import fault_point
 from mmlspark_tpu_torch.native import bindings
 
 # Launches of each histogram kernel in this process, so a run can show
-# that its main path went through the kernels.
+# that its main path went through the kernels. A launch recorded into a
+# CUDA graph is not one: it counts into the capture's tally
+# (``captured_launches``), and every replay of the graph adds the tally
+# here (``count_replay``).
 hist_kernel_launches = 0
 hist_quant_kernel_launches = 0
+_capture = threading.local()
+
+
+def _count_launch(counter: str) -> None:
+    """One launch of the kernel ``counter`` counts: into this thread's
+    capture tally while its stream is capturing, else into the module
+    counter."""
+    tally = getattr(_capture, "tally", None)
+    if tally is not None and torch.cuda.is_current_stream_capturing():
+        tally[counter] = tally.get(counter, 0) + 1
+    else:
+        globals()[counter] += 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Collect the launches this thread records into a graph inside the
+    block: yields the tally, {counter name: launches per replay}."""
+    prev = getattr(_capture, "tally", None)
+    _capture.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capture.tally = prev
+
+
+def count_replay(tally: Dict[str, int]) -> None:
+    """A replay of a graph whose capture tallied ``tally`` ran: its
+    launches count."""
+    for counter, launches in tally.items():
+        globals()[counter] += launches
 
 MAX_BINS = 256            # bin ids are uint8
 CHUNK_ROWS = 256          # level_hist.cu: rows a CTA stages at once
@@ -209,7 +247,6 @@ def _partition_scratch(n, width, dev):
 
 
 def _launch(binned, grad, hess, live, local, width, f, b):
-    global hist_kernel_launches
     n = binned.shape[0]
     _check_card_limits(width, n)
     lib = bindings.load("level_hist")
@@ -231,7 +268,7 @@ def _launch(binned, grad, hess, live, local, width, f, b):
         acc.data_ptr(), out.data_ptr(), n, f, b, width, f_slice, num_slices,
         f32_smem_bytes(f_slice, b), dev.index, stream)
     bindings.check(lib, code, "level_hist kernel launch")
-    hist_kernel_launches += 1
+    _count_launch("hist_kernel_launches")
     return out
 
 
@@ -304,7 +341,6 @@ def level_histogram_quant_reference(binned, grad_q, hess_q, live, local,
 
 def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
                   hsi):
-    global hist_quant_kernel_launches
     n = binned.shape[0]
     _check_card_limits(width, n)
     lib = bindings.load("level_hist_quant")
@@ -327,5 +363,5 @@ def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
         hsi.data_ptr(), bits, n, f, b, width, f_slice, num_slices,
         quant_smem_bytes(f_slice, b), quant_window(bits), dev.index, stream)
     bindings.check(lib, code, "level_hist_quant kernel launch")
-    hist_quant_kernel_launches += 1
+    _count_launch("hist_quant_kernel_launches")
     return out

@@ -1,0 +1,328 @@
+"""The boosting step: one iteration of gbdt, goss or rf as one function
+on static buffers, replayed on the card as one captured CUDA graph.
+
+It is the port of the JAX package's fused step (``_make_step_fn``,
+``mmlspark_tpu/models/gbdt/trainer.py:2081``), in the same order:
+
+  1. the sampling masks (``sampling``): the bag, the tree's features;
+  2. grad/hess from the objective (rf's from the base score alone);
+  3. GOSS's multipliers, folded into grad/hess and the row mask;
+  4. ``trainer.build_tree`` under the row and feature masks;
+  5. shrinkage (``node_value * learning_rate``; rf keeps its values);
+  6. the training and validation raw scores, updated in place;
+  7. the metric row.
+
+The step writes its tree and metric row into one packed float32 row
+(:func:`unpack`): ``split_feature`` and ``threshold_bin`` as the bits of
+their int32 values, then ``node_value``, ``count`` and the metrics.
+
+On the CPU, and for a custom objective, the step runs directly, once per
+iteration (:class:`Step`). On the card a named objective's step is
+captured once as a ``torch.cuda.CUDAGraph`` and replayed each iteration:
+the host writes the iteration into a device scalar, replays, and copies
+the packed row out. The first iteration of a new capture runs uncaptured
+as the warm-up: it builds the kernels and runs their first-use set-up
+(``cudaFuncSetAttribute``, occupancy queries, the quantization
+threshold table) before capture, and advances the fit once, as a
+replay would. Captures are cached by what the graph bakes in (the
+shapes, the loop-relevant config, the histogram plane, subtraction, the
+draw function and the device) like the reference's ``_get_step_fn``;
+each fit copies its data into the cached buffers. Capture is
+thread-local, so serving threads of the same process keep launching.
+A capture or replay that fails raises; nothing falls back to the
+uncaptured step. A cached step holds its buffers and graph, never a
+model, so a swap or a booster's ``clear_jit_cache`` frees what a model
+holds whatever the cache keeps; :func:`clear_step_cache` frees every
+cached graph and its memory pool.
+
+A graph replays kernels, not Python: a fault armed at a point inside
+the step (``gbdt.level_hist``) would fire once at capture and then be
+baked into every replay, so such fits run the step uncaptured. The
+launch counters of ``hist_cuda`` count the kernels of every replay
+(``hist_cuda.captured_launches`` / ``count_replay``).
+"""
+
+from __future__ import annotations
+
+import gc
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import replace
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from mmlspark_tpu_torch.core import faults
+from mmlspark_tpu_torch.models.gbdt import hist_cuda
+from mmlspark_tpu_torch.models.gbdt import objectives as obj_mod
+from mmlspark_tpu_torch.models.gbdt import sampling
+
+# fault points hit inside the step (see the module note)
+IN_STEP_POINTS = ("gbdt.level_hist",)
+STEP_CACHE_LIMIT = 4     # captured steps kept (LRU)
+
+_cache: "OrderedDict[tuple, Step]" = OrderedDict()
+_cache_lock = threading.Lock()
+
+
+def num_slots(cfg) -> int:
+    return 2 ** (cfg.effective_depth + 1) - 1
+
+
+def unpack(rows: np.ndarray, slots: int):
+    """(split_feature int32, threshold_bin int32, node_value float32,
+    count float32, metrics float32) from (T, 4*slots + m) packed rows."""
+    rows = np.ascontiguousarray(rows, dtype=np.float32)
+    return (rows[:, :slots].copy().view(np.int32),
+            rows[:, slots:2 * slots].copy().view(np.int32),
+            rows[:, 2 * slots:3 * slots], rows[:, 3 * slots:4 * slots],
+            rows[:, 4 * slots:])
+
+
+def _loop_only(cfg):
+    """The config with the fields the step never reads zeroed, so fits
+    that differ only there share a capture (the reference's
+    ``_loop_only_normalized``; the learning rate rides in a buffer)."""
+    return replace(cfg, num_iterations=0, early_stopping_round=0,
+                   learning_rate=0.0, improvement_tolerance=0.0)
+
+
+class Step:
+    """One fit's boosting step over its buffers: the binned rows,
+    labels, weights and raw scores, each validation set's, and three
+    device scalars (the iteration, the learning rate, the base score).
+
+    ``grad_fn(score_in) -> (grad, hess)`` is the objective (the named
+    one by default). :meth:`run` runs one iteration: uncaptured, or the
+    replay of its graph once :meth:`capture` made one."""
+
+    def __init__(self, cfg, binned, labels, weights, raw, valids,
+                 hist_quant: str, subtract: bool,
+                 grad_fn: Optional[Callable] = None):
+        from mmlspark_tpu_torch.models.gbdt import trainer as T
+
+        self.cfg = cfg
+        self.dev = binned.device
+        self.binned, self.labels, self.weights, self.raw = (
+            binned, labels, weights, raw)
+        # [{"binned", "labels", "weights", "raw"}] per validation set
+        self.valids = valids
+        self.hist_quant, self.subtract = hist_quant, subtract
+        self.n, self.num_f = binned.shape
+        self.it = torch.zeros((), dtype=torch.int64, device=self.dev)
+        self.lr = torch.zeros((), dtype=torch.float32, device=self.dev)
+        self.base = torch.zeros((), dtype=torch.float32, device=self.dev)
+        # the named objective, or a custom one's ``grad_fn``; neither
+        # refers back to the step, so a dropped step (and its graph) is
+        # freed at once, never by a garbage-collector pass that could
+        # fall inside another step's capture
+        self.objective_fn = obj_mod.get_objective(cfg.objective)
+        self.obj_kwargs = T._objective_kwargs(cfg)
+        self.grad_fn = grad_fn
+        _, self.metric_list, _, self.metric_kwargs = T._resolve_metrics(cfg)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[torch.Tensor] = None
+        self.tally: Dict[str, int] = {}
+        self.capture_s: Optional[float] = None
+        self.key: Optional[tuple] = None
+        self.captured = False           # a cached, captured step
+        self.lock = threading.Lock()
+
+    # -- one iteration -----------------------------------------------------
+    def body(self) -> torch.Tensor:
+        """One boosting iteration at ``self.it`` on the buffers: returns
+        the packed row. Makes no host sync."""
+        from mmlspark_tpu_torch.models.gbdt import trainer as T
+
+        cfg, n, dev = self.cfg, self.n, self.dev
+        is_rf = cfg.boosting_type == "rf"
+        mask = None
+        if sampling.bag_active(cfg):
+            mask = sampling.bag_mask(
+                sampling.draw(sampling.bag_keys(cfg, self.it), n, dev),
+                self.labels, cfg)
+        feat_mask = None
+        if cfg.feature_fraction < 1.0:
+            feat_mask = sampling.feature_mask(
+                sampling.draw(sampling.feature_keys(cfg, self.it),
+                              self.num_f, dev), self.num_f,
+                sampling.feature_keep(self.num_f, cfg.feature_fraction))
+        score_in = self.base.expand(n).clone() if is_rf else self.raw
+        g, h = (self.grad_fn(score_in) if self.grad_fn is not None else
+                self.objective_fn(score_in, self.labels, self.weights,
+                                  **self.obj_kwargs))
+        if cfg.boosting_type == "goss":
+            mult = sampling.goss_mult(
+                g, sampling.draw(sampling.goss_keys(cfg, self.it), n, dev),
+                None, cfg)
+            keep = (mult > 0).to(torch.float32)
+            mask = keep if mask is None else mask * keep
+            g, h = g * mult, h * mult
+        depth = cfg.effective_depth
+        nl = cfg.num_leaves if cfg.num_leaves > 0 else 2 ** depth
+        sf, tb, nv, cnt = T.build_tree(
+            self.binned, g, h, nl, cfg, cfg.max_bin, self.hist_quant,
+            self.subtract, valid=mask, feat_mask=feat_mask)
+        if not is_rf:
+            nv = nv * self.lr
+        self.raw.add_(T._predict_tree(sf, tb, nv, self.binned, depth))
+        for vs in self.valids:
+            vs["raw"].add_(T._predict_tree(sf, tb, nv, vs["binned"], depth))
+        row = []
+        for _, fn in self.metric_list:
+            row.append(fn(self.raw, self.labels, self.weights,
+                          **self.metric_kwargs))
+            row += [fn(vs["raw"], vs["labels"], vs["weights"],
+                       **self.metric_kwargs) for vs in self.valids]
+        return torch.cat([sf.view(torch.float32), tb.view(torch.float32),
+                          nv, cnt, torch.stack(row).float()])
+
+    def run(self, it: int) -> torch.Tensor:
+        """Iteration ``it`` (global, ``iteration_offset`` included): the
+        packed row, a tensor of its own."""
+        self.it.fill_(it)
+        if self.graph is None:
+            return self.body()
+        self.graph.replay()
+        hist_cuda.count_replay(self.tally)
+        return self.out.clone()
+
+    def capture(self) -> None:
+        """Capture :meth:`body` as one CUDA graph on a side stream,
+        thread-local, counting the histogram launches it holds. Nothing
+        runs: the buffers are as they were."""
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        # no garbage-collector pass inside the capture: one that freed a
+        # graph would destroy it mid-capture, which invalidates this one
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with hist_cuda.captured_launches() as tally:
+                with torch.cuda.graph(graph,
+                                      stream=torch.cuda.Stream(self.dev),
+                                      capture_error_mode="thread_local"):
+                    out = self.body()
+        finally:
+            if gc_on:
+                gc.enable()
+        self.capture_s = time.perf_counter() - t0
+        self.graph, self.out, self.tally = graph, out, dict(tally)
+
+    # -- the buffers of a cached step ---------------------------------------
+    @classmethod
+    def owning(cls, cfg, binned, labels, weights, raw, valids, hist_quant,
+               subtract) -> "Step":
+        """A step over buffers of its own, shaped as the given tensors,
+        for capture and reuse by later fits (:meth:`load`)."""
+        own = [{k: (None if v is None else torch.empty_like(v))
+                for k, v in vs.items()} for vs in valids]
+        return cls(cfg, torch.empty_like(binned), torch.empty_like(labels),
+                   None if weights is None else torch.empty_like(weights),
+                   torch.empty_like(raw), own, hist_quant, subtract)
+
+    def load(self, binned, labels, weights, raw, valids) -> None:
+        """Copy one fit's tensors into the buffers."""
+        pairs = [(self.binned, binned), (self.labels, labels),
+                 (self.weights, weights), (self.raw, raw)]
+        for mine, theirs in zip(self.valids, valids):
+            pairs += [(mine[k], theirs[k]) for k in mine]
+        for dst, src in pairs:
+            if dst is not None:
+                dst.copy_(src)
+
+
+def _cache_key(cfg, binned, weights, valids, hist_quant, subtract):
+    return (binned.device, tuple(binned.shape), weights is None,
+            tuple((vs["binned"].shape[0], vs["weights"] is None)
+                  for vs in valids),
+            _loop_only(cfg), hist_quant, subtract, sampling.draw)
+
+
+def open_step(cfg, binned, labels, weights, raw, valids, *, lr: float,
+              base: float, hist_quant: str, subtract: bool,
+              custom_objective: Optional[Callable] = None,
+              capture: bool = True) -> Step:
+    """The step of one fit over the given device tensors (``raw`` and
+    each validation set's ``"raw"`` are its starting scores).
+
+    On the card, a named objective with ``capture`` on gets a captured
+    step: the cached one for this shape and config (its buffers loaded
+    with these tensors), or a new one, captured after its first
+    iteration. Otherwise the step runs directly on the given tensors.
+    Call :func:`close_step` when the fit is done."""
+    from mmlspark_tpu_torch.models.gbdt import trainer as T
+
+    captured = (capture and binned.device.type == "cuda"
+                and custom_objective is None
+                and not any(faults.is_armed(p) for p in IN_STEP_POINTS))
+    if not captured:
+        grad_fn = None
+        if custom_objective is not None:
+            n = binned.shape[0]
+            grad_fn = (lambda score: T._custom_grad_hess(
+                custom_objective, score, labels, weights, n))
+        # the raw scores are updated in place: copies, never the
+        # caller's arrays (a tensor from numpy shares its memory)
+        st = Step(cfg, binned, labels, weights, raw.clone(),
+                  [{**vs, "raw": vs["raw"].clone()} for vs in valids],
+                  hist_quant, subtract, grad_fn)
+    else:
+        key = _cache_key(cfg, binned, weights, valids, hist_quant, subtract)
+        with _cache_lock:
+            st = _cache.get(key)
+            if st is not None and st.lock.acquire(blocking=False):
+                _cache.move_to_end(key)
+            else:
+                st = None   # none, or in use by a fit on another thread
+        if st is None:
+            st = Step.owning(cfg, binned, labels, weights, raw, valids,
+                             hist_quant, subtract)
+            st.key = key
+            st.lock.acquire()
+        st.captured = True
+    try:
+        if captured:
+            st.load(binned, labels, weights, raw, valids)
+        st.lr.fill_(lr)
+        st.base.fill_(base)
+    except BaseException:
+        close_step(st)
+        raise
+    return st
+
+
+def run_step(st: Step, it: int) -> torch.Tensor:
+    """Iteration ``it`` of the fit: on a captured step whose graph is not
+    made yet, the uncaptured warm-up, then the capture (cached)."""
+    out = st.run(it)
+    if st.captured and st.graph is None:
+        st.capture()
+        with _cache_lock:
+            if st.key not in _cache:
+                _cache[st.key] = st
+                while len(_cache) > STEP_CACHE_LIMIT:
+                    _cache.popitem(last=False)
+    return out
+
+
+def close_step(st: Step) -> None:
+    """The fit is done with ``st``: a cached step is free for the next."""
+    if st.captured and st.lock.locked():
+        st.lock.release()
+
+
+def clear_step_cache() -> None:
+    """Drop every cached captured step, and with its graph the graph's
+    memory pool (returned to the card by ``torch.cuda.empty_cache``)."""
+    with _cache_lock:
+        _cache.clear()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def cached_steps() -> List[Step]:
+    with _cache_lock:
+        return list(_cache.values())

@@ -20,21 +20,27 @@ What this slice runs (and the JAX trainer it mirrors, file
     child is histogrammed, by masking its sibling's rows out of
     ``live`` (the kernels skip masked rows), and the sibling is
     ``parent - smaller`` (``_derive_sibling_hist``);
-  - the gbdt boosting step: objective grad/hess, one tree, shrinkage,
-    raw-score updates through ``_predict_tree`` (training rows and each
-    validation set), the metrics (``_resolve_metrics``);
+  - the boosting step of gbdt, goss and rf (``step.py``): the sampling
+    masks (``sampling.py``: bagging, pos/neg bagging,
+    ``feature_fraction``, GOSS, rf's bag), objective grad/hess, one tree
+    under the masks, shrinkage, raw-score updates through
+    ``_predict_tree`` (training rows and each validation set), the
+    metrics (``_resolve_metrics``); on the card one captured CUDA graph
+    replayed per iteration;
   - ``train``: serial, in-core, with validation sets, early stopping
     (``_train_scan``'s stop rule, metrics synced in blocks), warm starts
     (``init_model`` / ``init_raw``, ``warm_start_scores``), custom
     objectives (``custom_objective``), resumed segments
     (``iteration_offset``), the ``gbdt.train_step`` fault point once per
-    iteration, and ``_assemble_booster`` (the trees cut after the best
-    iteration, the warm-start ``concat``).
+    iteration, and ``_assemble_booster`` (rf's tree weights, the trees
+    cut after the best iteration, the warm-start ``concat``).
 
 The reference has two loops: ``_train_scan`` (one fused step per
 iteration) and the eager ``_train_loop`` that custom objectives and
-DART take. The port's one loop is already eager, so a custom objective
-runs in it as the named objectives do.
+DART take. The port has one loop over one step: a named objective's
+step is captured on the card, a custom objective's runs uncaptured (its
+``fobj`` may sync with the host) with the same masks. DART raises
+(ROADMAP A7).
 
 Trees grow level-wise over ``effective_depth`` levels in the full-tree
 layout (node i's children are 2i+1 / 2i+2), with the ``num_leaves``
@@ -145,16 +151,13 @@ class TrainConfig:
         return need
 
 
-# Settings this slice does not implement: field -> the ROADMAP item that
-# adds it. A non-default value raises instead of being ignored.
+# Settings the port does not implement yet: field -> the ROADMAP item
+# that adds it. A non-default value raises instead of being ignored
+# (boosting_type: dart only; gbdt, goss and rf run).
 _LATER = {
-    "boosting_type": "A7 (GBDT breadth: dart, goss, rf)",
-    "feature_fraction": "A7 (GBDT breadth: feature sampling)",
-    "feature_fraction_by_node": "A7 (GBDT breadth: feature sampling)",
-    "bagging_fraction": "A7 (GBDT breadth: bagging)",
-    "bagging_freq": "A7 (GBDT breadth: bagging)",
-    "pos_bagging_fraction": "A7 (GBDT breadth: bagging)",
-    "neg_bagging_fraction": "A7 (GBDT breadth: bagging)",
+    "boosting_type": "A7 (GBDT breadth: dart)",
+    "feature_fraction_by_node":
+        "A7 (GBDT breadth: feature_fraction_by_node)",
     "num_class": "A7 (GBDT breadth: multiclass)",
     "categorical_features": "A7 (GBDT breadth: categorical splits)",
     "monotone_constraints": "A7 (GBDT breadth: monotone constraints)",
@@ -174,12 +177,20 @@ def check_supported(cfg: TrainConfig) -> None:
             off = not np.any(value)
         elif name == "categorical_features":
             off = value is None or np.size(value) == 0
+        elif name == "boosting_type":
+            off = value in ("gbdt", "goss", "rf")
         else:
             off = value == default
         if not off:
             raise NotImplementedError(
                 f"TrainConfig.{name}={value!r} is not in the port yet "
                 f"(ROADMAP {later})")
+    if (cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0) \
+            and cfg.objective != "binary":
+        raise ValueError(
+            "pos/neg_bagging_fraction applies to the binary objective "
+            "only (LightGBM semantics); got objective="
+            f"{cfg.objective!r}")
     obj_mod.get_objective(cfg.objective)  # raises for other objectives
     _resolve_metrics(cfg)                 # raises for other metrics
 
@@ -245,6 +256,9 @@ class TrainResult:
     best_iteration: int = -1
     # what ran: {"hist_quant": "off"|"q16"|"q8", "subtract": bool}
     hist_stats: Dict[str, object] = field(default_factory=dict)
+    # the step: {"captured": bool (replayed as a CUDA graph), "capture_s":
+    # the seconds this fit spent capturing, None where it made none}
+    step_stats: Dict[str, object] = field(default_factory=dict)
 
 
 # ---------------------------------------------------------------------------
@@ -384,12 +398,14 @@ def _smooth(value, w, parent):
             + (value * w).double()).float()
 
 
-def _find_numeric_splits(hist, remaining, parent_value, *, b, lam1, lam2,
-                         min_child, min_hess, min_gain, path_smooth,
-                         max_delta_step):
+def _find_numeric_splits(hist, feat_mask, remaining, parent_value, *, b,
+                         lam1, lam2, min_child, min_hess, min_gain,
+                         path_smooth, max_delta_step):
     """Numeric split finding for one level from the (width, F, B, 3)
-    histogram: ordered cumulative scan, first-max best split per node,
-    leaf-budget ranking and child values.
+    histogram: ordered cumulative scan, first-max best split per node
+    over the features with ``feat_mask > 0`` (all where None; the others
+    get gain -inf, as the reference's ``node_fmask``), leaf-budget
+    ranking and child values.
 
     Returns (do_split, best_feat, best_bin, lval, rval, left_stats,
     right_stats, remaining, smaller_side); ``smaller_side`` is 0 where
@@ -408,6 +424,8 @@ def _find_numeric_splits(hist, remaining, parent_value, *, b, lam1, lam2,
     ok = ((cl >= min_child) & (cr >= min_child)
           & (hl >= min_hess) & (hr >= min_hess)
           & (gain > min_gain))
+    if feat_mask is not None:
+        ok &= (feat_mask > 0)[None, :, None]
     # last bin can't split (right side empty by construction)
     ok &= torch.arange(b, device=dev)[None, None, :] < b - 1
     gain = torch.where(ok, gain, -torch.inf)
@@ -453,13 +471,16 @@ def _find_numeric_splits(hist, remaining, parent_value, *, b, lam1, lam2,
 
 def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
                total_bins: int, hist_quant: str = "off",
-               subtract: bool = False):
+               subtract: bool = False, valid=None, feat_mask=None):
     """One depthwise tree over the (N, F) uint8 ``binned`` matrix with
     (N,) float32 ``grad`` / ``hess``. ``hist_quant`` (off|q16|q8) picks
     the histogram plane and ``subtract`` the sibling trick (see the
-    module note). Returns the full-layout (split_feature int32,
-    threshold_bin int32, node_value float32, node_count float32) device
-    tensors, each (2^(D+1)-1,)."""
+    module note). ``valid``: an (N,) float32 0/1 row mask (bagging and
+    GOSS; every row where None), ``feat_mask``: an (F,) float32 0/1 mask
+    of the features the tree may split on (all where None), as the
+    reference builder's (``make_build_tree``). Returns the full-layout
+    (split_feature int32, threshold_bin int32, node_value float32,
+    node_count float32) device tensors, each (2^(D+1)-1,)."""
     dev = binned.device
     n, f = binned.shape
     b = total_bins
@@ -480,25 +501,27 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
     node_value = torch.zeros(num_slots, dtype=torch.float32, device=dev)
     node_count = torch.zeros(num_slots, dtype=torch.float32, device=dev)
 
-    valid = torch.ones(n, dtype=torch.float32, device=dev)
+    # every row valid: grad * 1 and hess * 1 are the same bits
+    grad_v, hess_v = ((grad, hess) if valid is None else
+                      (grad * valid, hess * valid))
     if hist_quant != "off":
         # per-round shared pow2 scales; rows outside `valid` quantize to 0
         qdt = torch.int8 if hist_quant == "q8" else torch.int16
         qmax = 120.0 if hist_quant == "q8" else 32000.0
-        gscale, gscale_inv = _pow2_scale(torch.max(torch.abs(grad) * valid),
-                                         qmax)
-        hscale, hscale_inv = _pow2_scale(torch.max(torch.abs(hess) * valid),
-                                         qmax)
+        gscale, gscale_inv = _pow2_scale(torch.max(torch.abs(grad_v)), qmax)
+        hscale, hscale_inv = _pow2_scale(torch.max(torch.abs(hess_v)), qmax)
         # torch.round rounds half to even, as jnp.rint
-        grad_q = torch.round(grad * valid * gscale).to(qdt)
-        hess_q = torch.round(hess * valid * hscale).to(qdt)
+        grad_q = torch.round(grad_v * gscale).to(qdt)
+        hess_q = torch.round(hess_v * hscale).to(qdt)
     else:
-        rv, _ = _leaf_objective_impl(torch.sum(grad), torch.sum(hess), lam1,
-                                     lam2)
+        rv, _ = _leaf_objective_impl(torch.sum(grad_v), torch.sum(hess_v),
+                                     lam1, lam2)
         if cfg.max_delta_step > 0:
             rv = torch.clamp(rv, -cfg.max_delta_step, cfg.max_delta_step)
         node_value[0] = rv
-        node_count[0] = torch.sum(valid)
+        node_count[0] = torch.sum(
+            torch.ones(n, dtype=torch.float32, device=dev) if valid is None
+            else valid)
     # filled on the device: a host->device copy would sync every tree
     remaining = torch.full((), num_leaves - 1, dtype=torch.int64, device=dev)
     prev_hist = prev_split = prev_ss = None
@@ -515,6 +538,8 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
         kids = 2 * level_start + 1      # first slot of the next level
         local = torch.clamp(node - level_start, 0, width - 1)
         live = (~done).to(torch.float32)
+        if valid is not None:
+            live = live * valid
         if subtract and d > 0:
             # the smaller child of each split only, by masking its
             # sibling's rows out of live: masked rows fall in no tile of
@@ -539,7 +564,8 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
             node_count[0] = tot0[2]
         (do_split, best_feat, best_bin, lval, rval, left_stats, right_stats,
          remaining, small_side) = _find_numeric_splits(
-            hist, remaining, node_value[level_start:kids], **split_kw)
+            hist, feat_mask, remaining, node_value[level_start:kids],
+            **split_kw)
         if subtract:
             prev_hist, prev_split, prev_ss = hist, do_split, small_side
         split_feature[level_start:kids] = torch.where(
@@ -647,7 +673,7 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
           measures: Optional[InstrumentationMeasures] = None,
           device: DeviceLike = None,
           custom_objective: Optional[Callable] = None,
-          iteration_offset: int = 0) -> TrainResult:
+          iteration_offset: int = 0, capture: bool = True) -> TrainResult:
     """Boosting loop. ``binned``: (N, F) bin ids (``BinMapper.transform``
     output, or a uint8 tensor already on the device); ``weights``:
     optional (N,) row weights; ``bin_upper``: (F, B) raw-value bin upper
@@ -684,8 +710,21 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     which syncs with the card every iteration.
 
     ``iteration_offset``: the number of iterations trained before this
-    call, for a resumed segment (the reference keys its sampling streams
-    with it; this slice samples nothing, so it changes no result).
+    call, for a resumed segment: the sampling streams (``sampling``) are
+    keyed by the global iteration, so a resumed bagged fit draws what
+    the uninterrupted one drew.
+
+    Each iteration is one call of the boosting step (``step.Step``):
+    sampling masks, grad/hess, GOSS, the tree, shrinkage (none for rf),
+    the raw-score updates and the metric row. ``boosting_type`` gbdt,
+    goss and rf run; rf fits every tree on the base score and weighs
+    each ``1 / num_trees``. On the card a named objective's step is one
+    captured CUDA graph, replayed every iteration (cached across fits of
+    the same shape and config; ``step.clear_step_cache`` frees them);
+    ``capture=False`` runs the same step uncaptured, as the CPU and a
+    custom objective always do. ``step_stats`` records ``captured`` and
+    the capture's seconds (``capture_s``, None where this fit made
+    none).
 
     ``fault_point("gbdt.train_step")`` is hit once per iteration, before
     its work, as in the reference: arming it with ``nth=k`` stops the
@@ -698,6 +737,8 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     and subtraction follow ``MMLSPARK_TORCH_HIST_QUANT`` /
     ``MMLSPARK_TORCH_HIST_SUB``, read once here; ``hist_stats`` records
     what ran."""
+    from mmlspark_tpu_torch.models.gbdt import step as step_mod
+
     dev = resolve_device(device)
     check_supported(cfg)
     measures = measures if measures is not None else InstrumentationMeasures()
@@ -743,89 +784,68 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
                         torch.full((vn,), base_score, dtype=torch.float32,
                                    device=dev))})
 
-    objective_fn = obj_mod.get_objective(cfg.objective)
-    obj_kwargs = _objective_kwargs(cfg)
-    metric_name, metric_list, higher_better, metric_kwargs = \
-        _resolve_metrics(cfg)
+    metric_name, metric_list, higher_better, _ = _resolve_metrics(cfg)
     # the metric row's layout: train_<m>, valid0_<m>, ... per metric
     labels_order = []
     for m_label, _ in metric_list:
         labels_order.append(f"train_{m_label}")
         labels_order += [f"valid{vi}_{m_label}" for vi in range(len(valids))]
-    nl = cfg.num_leaves if cfg.num_leaves > 0 else 2 ** depth
-    lr = torch.tensor(cfg.learning_rate, dtype=torch.float32, device=dev)
 
     esr = cfg.early_stopping_round
     has_es = esr > 0 and bool(valids)
     total = cfg.num_iterations
     block = max(esr, 8) if has_es else total
+    slots = step_mod.num_slots(cfg)
     vidx = labels_order.index(f"valid0_{metric_name}") if has_es else -1
-    trees, metric_rows, met_host = [], [], []
+    rows, met_host = [], []
     best_iter, stop_after = -1, None
 
     def sync_metrics_through(upto):
-        """Metric rows [len(met_host), upto) to the host in one copy."""
+        """Metric values [len(met_host), upto) to the host in one copy."""
         if upto > len(met_host):
-            met_host.extend(torch.stack(metric_rows[len(met_host):upto])
-                            .cpu().numpy())
+            met_host.extend(torch.stack(rows[len(met_host):upto])
+                            [:, 4 * slots:].cpu().numpy())
 
-    it = 0
-    while it < total:
-        # the step boundary (a refit's throttle yields here), then once
-        # per iteration, before its work: an armed raise is the
-        # deterministic stand-in for a fit killed mid-training
-        resilience.step_start(it + iteration_offset)
-        fault_point("gbdt.train_step")
-        with measures.phase("training"):
-            if custom_objective is not None:
-                # (preds, labels, weights) only: the named objective's
-                # settings do not reach it
-                g, h = _custom_grad_hess(custom_objective, raw, labels_d,
-                                         weights_d, n)
-            else:
-                g, h = objective_fn(raw, labels_d, weights_d, **obj_kwargs)
-            sf, tb, nv, cnt = build_tree(binned_d, g, h, nl, cfg, total_bins,
-                                         hist_quant, subtract)
-            nv = nv * lr
-            raw = raw + _predict_tree(sf, tb, nv, binned_d, depth)
-            for vs in valids:
-                vs["raw"] = vs["raw"] + _predict_tree(sf, tb, nv,
-                                                      vs["binned"], depth)
-            row = []
-            for _, fn in metric_list:
-                row.append(fn(raw, labels_d, weights_d, **metric_kwargs))
-                row += [fn(vs["raw"], vs["labels"], vs["weights"],
-                           **metric_kwargs) for vs in valids]
-            trees.append((sf, tb, nv, cnt))
-            metric_rows.append(torch.stack(row).float())
-            it += 1
-        if has_es and (it % block == 0 or it == total):
-            # trees do not depend on the metrics, so syncing a block and
-            # replaying the rule stops where a per-iteration check would
-            with measures.phase("validation"):
-                sync_metrics_through(it)
-            best_iter, stop_after = stop_iteration(
-                [float(r[vidx]) for r in met_host], esr,
-                cfg.improvement_tolerance, higher_better)
-            if stop_after is not None:
-                break
-        resilience.step_end()
-    kept = len(trees) if stop_after is None else stop_after
+    st = step_mod.open_step(
+        cfg, binned_d, labels_d, weights_d, raw, valids,
+        lr=cfg.learning_rate, base=base_score, hist_quant=hist_quant,
+        subtract=subtract, custom_objective=custom_objective,
+        capture=capture)
+    cached_graph = st.graph is not None
+    try:
+        it = 0
+        while it < total:
+            # the step boundary (a refit's throttle yields here), then
+            # once per iteration, before its work: an armed raise is the
+            # deterministic stand-in for a fit killed mid-training
+            resilience.step_start(it + iteration_offset)
+            fault_point("gbdt.train_step")
+            with measures.phase("training"):
+                rows.append(step_mod.run_step(st, it + iteration_offset))
+                it += 1
+            if has_es and (it % block == 0 or it == total):
+                # trees do not depend on the metrics, so syncing a block
+                # and replaying the rule stops where a per-iteration
+                # check would
+                with measures.phase("validation"):
+                    sync_metrics_through(it)
+                best_iter, stop_after = stop_iteration(
+                    [float(r[vidx]) for r in met_host], esr,
+                    cfg.improvement_tolerance, higher_better)
+                if stop_after is not None:
+                    break
+            resilience.step_end()
+    finally:
+        step_mod.close_step(st)
+    kept = len(rows) if stop_after is None else stop_after
 
-    num_slots = 2 ** (depth + 1) - 1
     with measures.phase("validation"):
         # one transfer of every kept tree and metric
-        sync_metrics_through(kept)
-        if kept:
-            sf_h, tb_h, nv_h, cnt_h = (torch.stack(list(a)).cpu().numpy()
-                                       for a in zip(*trees[:kept]))
-        else:
-            sf_h = np.full((0, num_slots), -1, np.int32)
-            tb_h = np.zeros((0, num_slots), np.int32)
-            nv_h = np.zeros((0, num_slots), np.float32)
-            cnt_h = np.zeros((0, num_slots), np.float32)
+        packed = (torch.stack(rows[:kept]).cpu().numpy() if kept else
+                  np.zeros((0, 4 * slots + len(labels_order)), np.float32))
+    sf_h, tb_h, nv_h, cnt_h, met = step_mod.unpack(packed, slots)
     evals = [{"iteration": j,
-              **{name: float(met_host[j][mi])
+              **{name: float(met[j, mi])
                  for mi, name in enumerate(labels_order)}}
              for j in range(kept)]
     booster = _assemble_booster(sf_h, tb_h, nv_h, cnt_h, cfg, num_f,
@@ -833,21 +853,30 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
                                 best_iter, init_model)
     return TrainResult(booster=booster, evals=evals, best_iteration=best_iter,
                        hist_stats={"hist_quant": hist_quant,
-                                   "subtract": subtract})
+                                   "subtract": subtract},
+                       step_stats={"captured": st.graph is not None,
+                                   "capture_s": None if cached_graph
+                                   else st.capture_s})
 
 
 def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,
                       total_bins, depth, bin_upper, base_score, best_iter=-1,
                       init_model=None):
     """Pack the (T, M) host arrays into a numeric ``BoosterArrays`` with
-    raw-value thresholds from ``bin_upper``; with early stopping, only
-    the trees through ``best_iter``; after a warm start, ``init_model``'s
+    raw-value thresholds from ``bin_upper``; rf's trees weighted
+    ``1 / T`` (they average), others 1; with early stopping, only the
+    trees through ``best_iter``; after a warm start, ``init_model``'s
     trees first (``BoosterArrays.concat``)."""
+    num_trees = sf_all.shape[0]
+    weights = np.ones(num_trees, dtype=np.float32)
+    if cfg.boosting_type == "rf" and num_trees:
+        weights = weights / float(num_trees)   # num_trees / k, k = 1
     if (cfg.early_stopping_round > 0 and best_iter >= 0
             and best_iter + 1 < sf_all.shape[0]):
         keep = best_iter + 1
         sf_all, tb_all = sf_all[:keep], tb_all[:keep]
         nv_all, cnt_all = nv_all[:keep], cnt_all[:keep]
+        weights = weights[:keep]
     if bin_upper is None:
         bin_upper = np.full((num_f, total_bins), np.inf)
     thr_val = np.where(sf_all >= 0,
@@ -858,7 +887,7 @@ def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,
         threshold_value=thr_val,
         node_value=nv_all,
         count=cnt_all,
-        tree_weights=np.ones(sf_all.shape[0], dtype=np.float32),
+        tree_weights=weights,
         max_depth=depth,
         num_features=num_f,
         num_class=1,

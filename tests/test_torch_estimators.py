@@ -576,13 +576,18 @@ def test_diabetes_l2_matches_sklearn_hgb():
     ("LightGBMClassifier", {"featuresShapCol": "shap"}, "A5"),
     ("LightGBMClassifier", {"categoricalSlotIndexes": [1]}, "A7"),
     ("LightGBMClassifier", {"zeroAsMissing": True}, "A7"),
-    ("LightGBMClassifier", {"boostingType": "goss"}, "A7"),
-    ("LightGBMClassifier", {"boostingType": "dart"}, "A7"),
-    ("LightGBMClassifier", {"featureFraction": 0.5}, "A7"),
-    ("LightGBMClassifier", {"featureFractionByNode": 0.5}, "A7"),
-    ("LightGBMClassifier", {"baggingFraction": 0.5, "baggingFreq": 1},
+    # goss, rf, bagging and feature_fraction fit (tests/test_torch_step.py);
+    # beside a setting still outside the port they raise for that one
+    ("LightGBMClassifier", {"boostingType": "goss", "extraTrees": True},
      "A7"),
-    ("LightGBMClassifier", {"posBaggingFraction": 0.5}, "A7"),
+    ("LightGBMClassifier", {"boostingType": "dart"}, "A7"),
+    ("LightGBMClassifier", {"featureFraction": 0.5,
+                            "featureFractionByNode": 0.5}, "A7"),
+    ("LightGBMClassifier", {"featureFractionByNode": 0.5}, "A7"),
+    ("LightGBMClassifier", {"baggingFraction": 0.5, "baggingFreq": 1,
+                            "boostingType": "dart"}, "A7"),
+    ("LightGBMClassifier", {"posBaggingFraction": 0.5,
+                            "boostingType": "dart"}, "A7"),
     ("LightGBMClassifier", {"extraTrees": True}, "A7"),
     ("LightGBMClassifier", {"monotoneConstraints": [1, 0, 0, 0, 0, 0]},
      "A7"),
@@ -591,7 +596,8 @@ def test_diabetes_l2_matches_sklearn_hgb():
     ("LightGBMClassifier", {"parallelism": "feature_parallel"}, "A8"),
     ("LightGBMRegressor", {"objective": "lambdarank"}, "A7"),
     ("LightGBMRegressor", {"passThroughArgs": "bagging_fraction=0.5 "
-                                              "bagging_freq=1"}, "A7"),
+                                              "bagging_freq=1 "
+                                              "boosting_type=dart"}, "A7"),
 ])
 def test_settings_outside_the_slice_raise(kind, params, item):
     x, y_bin, _ = _data(n=300)

@@ -10,8 +10,9 @@ bench model as phase ``main_path`` does (its gates hold: 120
 ``level_hist`` launches, two fits bitwise equal) and profiles a 5-tree
 fit as phase ``profile`` does. Prints one JSON line per run — the fit's
 wall and rate, host syncs per fit, and the profiled fit's wall and the
-device's idle share — then the card's name and power limit. Needs a
-CUDA card; run it from either root.
+device's idle share (of the fit as it runs: the replayed captured step
+where the checkout has one) — then the card's name and power limit.
+Needs a CUDA card; run it from either root.
 """
 
 import json
@@ -27,8 +28,13 @@ main = C.phase_main(ctx)
 prof = C.phase_profile(ctx)
 row = {k: main[k] for k in ("fit_s", "fit_mrow_trees_per_s",
                             "syncs_per_fit", "launches")}
-row.update({"profile_wall_ms": prof["wall_ms"],
-            "device_idle_share": prof["device_idle_share"]})
+# the profile as the fit runs: replayed (``captured``) where the
+# checkout captures its boosting step, else the eager fit's
+fit_prof = prof.get("captured", prof)
+row.update({"profile_wall_ms": fit_prof["wall_ms"],
+            "device_busy_ms": fit_prof["device_busy_ms"],
+            "device_idle_share": fit_prof["device_idle_share"],
+            "step": main.get("step"), "capture": main.get("capture")})
 print("RESULT " + json.dumps(row), flush=True)
 """
 
