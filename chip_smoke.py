@@ -134,7 +134,29 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      keep-alive requests to the continuous server (p50/p99); and the
      model's string imported and served through ``derive_binning``,
      replies bitwise equal to its own plan's;
- 15. tree scorer vs plain (after phase 14): ``csrc/tree_score.cu``
+ 14a. categorical path (after phase 14): ``LightGBMClassifier`` with
+     ``categoricalSlotIndexes=[0, 1, 2, 3]`` on the 2M bench-width rows
+     whose columns 0-3 are integer categories of 4, 30, 200 and 1,000
+     values (``categorical_data``; 20 trees, 63 leaves, depth 6,
+     ``maxBin=255``), and with ``zeroAsMissing`` on the bench rows with
+     30% exact zeros: each fit's wall and split, 120 histogram launches,
+     the logloss falling, two fits bitwise equal; the categorical
+     booster bitwise a direct ``train`` on the estimator's config and
+     bins, captured and uncaptured; card vs CPU at 100,000 rows (roots
+     equal, a categorical root's left set too, logloss within 1e-4
+     relative); a 2M-row ``transform`` with ``leafPredictionCol`` (its
+     ``tree_score`` launches by route: two of the decision route), the
+     leaf slots bitwise the plain version's and scoring back to the raw
+     score bit for bit; a 100,000-row ``transform`` with
+     ``featuresShapCol`` (rows summing to the raw score within 1e-3,
+     card vs CPU within rtol 1e-4 / atol 1e-5) and the times of
+     ``leaf_index``, ``contrib`` and ``contrib_saabas``; both models
+     served (``ServingServer``, binned plane ``auto``): the categorical
+     one refused by the binned plane and served through ``transform``,
+     the zero-as-missing one binned through the zero premap, replies
+     bitwise ``transform`` (the binned one's where each float32 bin is
+     its bin);
+ 15. tree scorer vs plain (after phase 14a): ``csrc/tree_score.cu``
      against ``score_cuda.tree_score_reference``, bit for bit and between
      two launches: the served model at every rung 1..64 (autocast off
      and bf16; uint8, uint16 and int32 bin ids; the staged batch too) and
@@ -142,7 +164,12 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      2M binned rows, at one row, at 2M + 7 rows and at 2M raw rows with
      NaN (``predict``), random boosters of three classes (the cluster
      plan), ten classes, 1,000 trees (tree chunks), depth 16 (the global
-     route) and none, each plan forced on the other's inputs; each
+     route) and none, each plan forced on the other's inputs; the
+     decision route (scores and leaf slots) on the categorical model's
+     2M rows and at 1..16,384 rows in each plan, and on random boosters
+     of every decision byte with category bitsets (K=1 also at 2M rows,
+     K=3, depth 16) over rows with NaN, 0.0, -0.0, negative, fractional
+     and unseen categories, each plan forced; each
      case's plan on a line of its own; at rung 64 and at 2M rows the
      device time, the event-pair time, the launches of one call
      (profiler), the bound and the plain version's time; and both plans'
@@ -2397,6 +2424,329 @@ def phase_serving(ctx):
     return out
 
 
+# the categorical cell: the bench's width (2M x 28, max_bin 255, binary,
+# 63 leaves, depth 6, 20 trees) with columns 0-3 integer categories of
+# these cardinalities (4 takes one-vs-rest splits; 1,000 is above
+# max_bin - 2, so its rarest categories overflow to bin 0)
+CAT_CARDS = (4, 30, 200, 1000)
+CAT_SLOTS = [0, 1, 2, 3]
+SHAP_ROWS = 100_000
+ZERO_SHARE = 0.3
+
+
+def categorical_data(n, seed=0):
+    """The bench's rows (``make_data``) with columns 0-3 replaced by
+    integer categories of ``CAT_CARDS`` values, and labels from each
+    category's effect beside the numeric signal."""
+    x, _ = make_data(n, seed)
+    rng = np.random.default_rng(seed + 1000)
+    logit = 0.8 * x[:, 4] - 0.6 * x[:, 5] + 0.4 * x[:, 6] * x[:, 7]
+    for c, card in enumerate(CAT_CARDS):
+        cats = rng.integers(0, card, n)
+        effect = rng.normal(scale=1.5 if card <= 30 else 0.7, size=card)
+        logit = logit + effect[cats]
+        x[:, c] = cats
+    y = (logit + rng.normal(size=n) * 0.5 > 0).astype(np.float64)
+    return x, y
+
+
+def zero_data(n, seed=0):
+    """The bench's rows and labels with ``ZERO_SHARE`` of the values set
+    to exactly 0.0 (after the labels are drawn)."""
+    x, y = make_data(n, seed)
+    x[np.random.default_rng(seed + 2000).random(x.shape) < ZERO_SHARE] = 0.0
+    return x, y
+
+
+CAT_ARRAYS = BOOSTER_ARRAYS + ("decision_type", "cat_bitset")
+
+
+def cat_arrays_differing(a, b):
+    """``arrays_differing`` over the decision bits and bitsets too; NaN
+    thresholds (categorical nodes, missing-bin splits) compare equal."""
+    out = []
+    for k in CAT_ARRAYS:
+        u, v = getattr(a, k), getattr(b, k)
+        if (u is None) != (v is None) or (u is not None and not np.array_equal(
+                u, v, equal_nan=u.dtype.kind == "f")):
+            out.append(k)
+    return out
+
+
+def left_set(booster, t, m):
+    """The category values a categorical node sends left."""
+    words = booster.cat_bitset[t, m].astype(np.uint64)
+    return [int(w * 32 + i) for w in range(len(words)) for i in range(32)
+            if (int(words[w]) >> i) & 1]
+
+
+def leaves_score_back(booster, leaves, raw):
+    """Whether leaf slots (N, T) give the float32 raw scores: each tree's
+    leaf value times its weight folded in tree order from init_score,
+    each add rounded once (ROADMAP C9), bit for bit."""
+    nv, w = booster.node_value, booster.tree_weights
+    acc = np.full(leaves.shape[0], np.float32(booster.init_score),
+                  np.float32)
+    for t in range(booster.num_trees):
+        acc = (acc.astype(np.float64) + nv[t, leaves[:, t]].astype(np.float64)
+               * np.float64(w[t])).astype(np.float32)
+    return bool(np.array_equal(acc, raw))
+
+
+def phase_categorical(ctx):
+    """Categorical features and zero-as-missing on the card, from fit to
+    explanation: ``LightGBMClassifier`` with ``categoricalSlotIndexes``
+    on the 2M bench-width rows whose columns 0-3 are categories
+    (``categorical_data``), and with ``zeroAsMissing`` on the bench rows
+    with 30% exact zeros; each fit's histogram launches (120), its loss
+    falling, two fits bitwise equal, the categorical booster equal to a
+    direct ``train`` captured and uncaptured; card vs CPU at 100,000
+    rows (roots equal, a categorical root's left set too, final logloss
+    within 1e-4 relative); a 2M-row ``transform`` with
+    ``leafPredictionCol`` (the decision route of ``tree_score.cu``,
+    launches by route, the leaf slots bitwise its plain version and
+    scoring back to the raw score) and a 100,000-row one with
+    ``featuresShapCol`` (rows summing to the raw score within 1e-3, card
+    vs CPU); both models served (the categorical one through
+    ``transform``, the binned plane refusing it; the zero-as-missing one
+    binned through the zero premap), replies bitwise ``transform``."""
+    import torch
+
+    from mmlspark_tpu_torch import DataFrame, LightGBMClassifier, train
+    from mmlspark_tpu_torch.io.serving import ServingServer
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+
+    out = {"card": ctx["smi"]}
+    failures = []
+    params = dict(numIterations=TREES, numLeaves=63, maxDepth=6,
+                  minDataInLeaf=20, maxBin=255)
+    expected = TREES * 6
+
+    def fit(est, frame):
+        torch.cuda.synchronize()
+        H.hist_kernel_launches = H.hist_quant_kernel_launches = 0
+        t0 = time.perf_counter()
+        model = est.fit(frame)
+        torch.cuda.synchronize()
+        return model, time.perf_counter() - t0, (
+            H.hist_kernel_launches, H.hist_quant_kernel_launches)
+
+    def fit_stats(name, est, x, y):
+        """Two fits of ``est`` on the rows (after a 10,000-row warm-up):
+        the first model and its record; failures noted."""
+        est.fit(DataFrame({"features": x[:10_000], "label": y[:10_000]}))
+        frame = DataFrame({"features": x, "label": y})
+        model, fit_s, launches = fit(est, frame)
+        again, _, _ = fit(est, frame)
+        lls = [e["train_binary_logloss"] for e in model.evals_result]
+        phases = model.get_all_instrumentation()
+        rec = {"fit_s": fit_s, "extract_s": phases.get("extract"),
+               "binning_s": phases.get("binning"),
+               "train_s": sum(phases.get(k, 0.0) for k in (
+                   "dataPreparation", "training", "validation")),
+               "launches": launches[0], "quant_launches": launches[1],
+               "logloss_first": lls[0], "logloss_last": lls[-1],
+               "two_fits_bitwise": not cat_arrays_differing(model.booster,
+                                                            again.booster)}
+        if launches != (expected, 0):
+            failures.append(f"{name}: launches {launches}")
+        if not all(b <= a + 1e-7 for a, b in zip(lls, lls[1:])) \
+                or not lls[-1] < lls[0]:
+            failures.append(f"{name}: the logloss does not fall: {lls}")
+        if not rec["two_fits_bitwise"]:
+            failures.append(f"{name}: two fits differ")
+        return model, rec
+
+    # -- the categorical fit ---------------------------------------------
+    x, y = categorical_data(N)
+    est = LightGBMClassifier(categoricalSlotIndexes=CAT_SLOTS, **params)
+    model, rec = fit_stats("categorical", est, x, y)
+    b = model.booster
+    rec["categorical_nodes"] = int(((b.decision_type & 1) == 1).sum())
+    rec["categorical_roots"] = int(((b.decision_type[:, 0] & 1) == 1).sum())
+    rec["bitset_words"] = int(b.cat_bitset.shape[2])
+    rec["categories_binned"] = [len(c) for c in
+                                model.bin_mapper.categories[:4]]
+    if not rec["categorical_nodes"]:
+        failures.append("the categorical fit made no categorical split")
+    # the same trees from a direct train on the estimator's config and
+    # bins, captured (one replay per iteration) and uncaptured
+    cfg = est._train_config("binary", categorical_features=CAT_SLOTS)
+    binned = model.bin_mapper.transform(x.astype(np.float64), np.uint8)
+    bin_upper = model.bin_mapper.bin_upper_values(255)
+    direct = train(binned, y, cfg, bin_upper=bin_upper)
+    uncaptured = train(binned, y, cfg, bin_upper=bin_upper, capture=False)
+    rec["direct_captured"] = direct.step_stats["captured"]
+    rec["arrays_differing_from_direct_train"] = cat_arrays_differing(
+        b, direct.booster)
+    rec["captured_bitwise_uncaptured"] = not cat_arrays_differing(
+        direct.booster, uncaptured.booster)
+    if (rec["arrays_differing_from_direct_train"]
+            or not rec["captured_bitwise_uncaptured"]
+            or not rec["direct_captured"]
+            or uncaptured.step_stats["captured"]):
+        failures.append(f"categorical: direct / uncaptured train: {rec}")
+    del binned
+    out["categorical_fit"] = rec
+
+    # card vs CPU on a 100,000-row slice, 5 trees
+    small = DataFrame({"features": x[:100_000], "label": y[:100_000]})
+    res = {dev: LightGBMClassifier(categoricalSlotIndexes=CAT_SLOTS,
+                                   **dict(params, numIterations=5))
+           .set_device(dev).fit(small) for dev in ("cuda", "cpu")}
+    a, c = res["cuda"].booster, res["cpu"].booster
+    roots_equal = (np.array_equal(a.split_feature[:, 0], c.split_feature[:, 0])
+                   and np.array_equal(a.threshold_bin[:, 0],
+                                      c.threshold_bin[:, 0])
+                   and np.array_equal(a.decision_type[:, 0],
+                                      c.decision_type[:, 0]))
+    cat_roots = [t for t in range(a.num_trees)
+                 if a.decision_type[t, 0] & 1]
+    roots_equal = roots_equal and all(
+        left_set(a, t, 0) == left_set(c, t, 0) for t in cat_roots)
+    ll = {dev: m.evals_result[-1]["train_binary_logloss"]
+          for dev, m in res.items()}
+    rel = abs(ll["cuda"] - ll["cpu"]) / abs(ll["cpu"])
+    out["card_vs_cpu"] = {"roots_equal": roots_equal,
+                          "categorical_roots": len(cat_roots),
+                          "logloss_cuda": ll["cuda"],
+                          "logloss_cpu": ll["cpu"], "rel_diff": rel,
+                          "tol": 1e-4}
+    if not roots_equal or rel > 1e-4:
+        failures.append(f"card vs CPU: {out['card_vs_cpu']}")
+
+    # -- the zero-as-missing fit ------------------------------------------
+    xz, yz = zero_data(N, seed=3)
+    zest = LightGBMClassifier(zeroAsMissing=True, **params)
+    zmodel, zrec = fit_stats("zero_as_missing", zest, xz, yz)
+    zb = zmodel.booster
+    zrec["zero_premap_mode"] = zb.zero_premap_mode
+    if zb.zero_premap_mode != "all_left" or not np.array_equal(
+            zb.decision_type, np.where(zb.split_feature >= 0, 6, 0)):
+        failures.append(f"zero_as_missing: bits {zrec}")
+    out["zero_as_missing_fit"] = zrec
+
+    # -- transform: 2M rows with leaf slots, 100,000 with SHAP ---------------
+    frame = DataFrame({"features": x})
+    lmodel = model.copy(leafPredictionCol="leaves")
+    lmodel.transform(DataFrame({"features": x[:1000]}))     # warm-up
+    torch.cuda.synchronize()
+    S.tree_score_launches = 0
+    S.tree_score_plan_launches.update(rows=0, cluster=0)
+    S.tree_score_route_launches.update(bin=0, raw=0, decision=0)
+    t0 = time.perf_counter()
+    scored = lmodel.transform(frame)
+    transform_s = time.perf_counter() - t0
+    routes = dict(S.tree_score_route_launches)
+    ctx["launches"]["categorical_path_tree_score"] = routes["decision"]
+    leaves = scored["leaves"].astype(np.int64)
+    raw = scored["rawPrediction"][:, 1].astype(np.float32)
+    tables = b._scorer(True, "off", "cuda", decision=True).tables
+    plain = S.tree_score_reference(torch.as_tensor(x).cuda(), tables,
+                                   leaves=True)[1].cpu().numpy()
+    out["transform"] = {
+        "rows": N, "transform_s": transform_s,
+        "tree_score_launches_by_route": routes,
+        "tree_score_plan_launches": dict(S.tree_score_plan_launches),
+        "leaves_shape": list(leaves.shape),
+        "leaves_bitwise_plain": bool(np.array_equal(leaves, plain)),
+        "leaves_score_back_to_raw": leaves_score_back(b, leaves, raw),
+        "leaf_index_ms": time_ms(torch, lambda: b.leaf_index(x, "cuda"),
+                                 reps=5, warmup=1)}
+    del plain
+    if (routes != {"bin": 0, "raw": 0, "decision": 2}
+            or not out["transform"]["leaves_bitwise_plain"]
+            or not out["transform"]["leaves_score_back_to_raw"]
+            or leaves.shape != (N, TREES) or not np.isfinite(raw).all()):
+        failures.append(f"transform: {out['transform']}")
+    del scored, leaves
+
+    smodel = model.copy(featuresShapCol="shap")
+    sframe = DataFrame({"features": x[:SHAP_ROWS]})
+    smodel.transform(DataFrame({"features": x[:1000]}))     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shap_scored = smodel.transform(sframe)
+    shap_s = time.perf_counter() - t0
+    shap = shap_scored["shap"]
+    sraw = shap_scored["rawPrediction"][:, 1]
+    xs = torch.as_tensor(x[:SHAP_ROWS]).cuda()
+    card = b.contrib(x[:2000], "cuda").cpu().numpy()
+    cpu = b.contrib(x[:2000], "cpu").numpy()
+    saabas = b.contrib_saabas(x[:SHAP_ROWS], "cuda").cpu().numpy()
+    out["shap"] = {
+        "rows": SHAP_ROWS, "transform_s": shap_s,
+        "shape": list(shap.shape),
+        "sum_max_abs_err": float(np.abs(shap.sum(axis=1) - sraw).max()),
+        "sum_tol": 1e-3,
+        "card_vs_cpu_max_abs_err": float(np.abs(card - cpu).max()),
+        "card_vs_cpu_tol": "rtol 1e-4, atol 1e-5",
+        "saabas_sum_max_abs_err": float(np.abs(saabas.sum(axis=1)
+                                               - sraw).max()),
+        "contrib_ms": time_ms(torch, lambda: b.contrib(xs, "cuda"), reps=3,
+                              warmup=1),
+        "contrib_saabas_ms": time_ms(
+            torch, lambda: b.contrib_saabas(xs, "cuda"), reps=3, warmup=1)}
+    if (shap.shape != (SHAP_ROWS, F + 1) or out["shap"]["sum_max_abs_err"]
+            > 1e-3 or out["shap"]["saabas_sum_max_abs_err"] > 1e-3
+            or not np.allclose(card, cpu, rtol=1e-4, atol=1e-5)):
+        failures.append(f"shap: {out['shap']}")
+    del shap_scored, xs
+
+    # -- serving: the categorical model through transform, the zero-as-
+    # missing one binned through the premap; replies bitwise transform
+    def served(m, rows):
+        bodies = [json.dumps({"features": row.tolist(), "__id__": i}).encode()
+                  for i, row in enumerate(rows)]
+        server = ServingServer(m, **SERVER_ARGS).start()
+        try:
+            replies = post_rows(server, bodies)
+            health = server._health()
+        finally:
+            server.stop()
+        return replies, health["binned"]
+
+    pool = x[:256]
+    replies, binned_health = served(model, pool)
+    want = model.transform(DataFrame({"features": pool}))
+    bad = replies_against(replies, want)
+    out["serving_categorical"] = {"binned": binned_health,
+                                  "rows_differing_from_transform": len(bad)}
+    if bad or binned_health["active"]:
+        failures.append(f"serving categorical: {out['serving_categorical']}")
+    zpool = xz[:256]
+    replies, binned_health = served(zmodel, zpool)
+    zframe = DataFrame({"features": zpool})
+    zwant = zmodel.copy(binnedScoring=True).transform(zframe)
+    zraw = zmodel.transform(zframe)
+    premapped = np.where(zpool == 0.0, np.nan, zpool).astype(np.float64)
+    bins = zmodel.bin_mapper.transform(premapped)
+    bins32 = np.stack([np.where(np.isnan(premapped[:, f]), 0,
+                                np.searchsorted(e.astype(np.float32),
+                                                premapped[:, f].astype(
+                                                    np.float32),
+                                                side="left") + 1)
+                       for f, e in enumerate(zmodel.bin_mapper.upper_edges)],
+                      axis=1)
+    exact = ~(bins32 != bins).any(axis=1)
+    zbad = replies_against(replies, zwant)
+    zraw_bad = replies_against(replies, zraw, exact)
+    out["serving_zero_as_missing"] = {
+        "binned": binned_health, "rows_differing_from_binned_transform":
+        len(zbad), "rows_with_a_float32_bin_change": int((~exact).sum()),
+        "rows_differing_from_transform_where_bins_agree": len(zraw_bad)}
+    if zbad or zraw_bad or not binned_health["active"]:
+        failures.append(f"serving zero_as_missing: "
+                        f"{out['serving_zero_as_missing']}")
+
+    ctx["categorical"] = (b, x)
+    if failures:
+        raise AssertionError(json.dumps({"failures": failures, **out},
+                                        default=str))
+    return out
+
+
 def random_booster(seed, trees, depth, k, max_bin):
     """A random full-layout ensemble (the root splits, a node below an
     internal node with probability 0.8), tree weights 0.3..1.7: the
@@ -2425,22 +2775,59 @@ def random_booster(seed, trees, depth, k, max_bin):
         max_depth=depth, num_features=F, num_class=k, init_score=0.123456789)
 
 
-def score_bound(torch, S, x, tables):
+def random_decision_booster(seed, trees, depth, k, words):
+    """``random_booster`` with LightGBM decision bits at every split (each
+    numeric byte and categorical ones, chosen at random) and random
+    category bitsets of ``words`` words; categorical nodes carry a NaN
+    threshold, as loaded model strings do."""
+    booster = random_booster(seed, trees, depth, k, 255)
+    rng = np.random.default_rng(seed + 500)
+    internal = booster.split_feature >= 0
+    dt = np.where(internal, rng.choice([0, 1, 2, 3, 4, 6, 8, 9, 10, 11, 12,
+                                        14], internal.shape), 0)
+    tv = np.where((dt & 1) == 1, np.nan, booster.threshold_value)
+    return dataclasses.replace(
+        booster, decision_type=dt.astype(np.int8), threshold_value=tv,
+        cat_bitset=rng.integers(0, 2 ** 32, internal.shape + (words,),
+                                dtype=np.uint64).astype(np.uint32))
+
+
+def decision_rows(rng, n, words):
+    """Raw float32 rows for decision boosters: values on the thresholds'
+    grid, categories (negative ones, and ones past the bitsets: unseen),
+    fractional categories, NaN, 0.0 and -0.0."""
+    x = np.round(rng.normal(size=(n, F)), 2).astype(np.float32)
+    kind = rng.random((n, F), dtype=np.float32)
+    cats = rng.integers(-3, words * 32 + 8, (n, F)).astype(np.float32)
+    x = np.where(kind < 0.35, cats, x)
+    x = np.where((kind >= 0.35) & (kind < 0.45), cats + np.float32(0.5), x)
+    x[(kind >= 0.90) & (kind < 0.93)] = 0.0
+    x[(kind >= 0.93) & (kind < 0.95)] = -0.0
+    x[kind >= 0.95] = np.nan
+    return x
+
+
+def score_bound(torch, S, x, tables, leaves=False):
     """(bound ms, "bytes" or "operations", bytes, operations) of one
     tree_score call: the input, the tables the kernel reads (packed nodes
-    and the products leaf * weight) and the output each moved once over
-    the memory rate, against the walks' compares (each row's depth in
-    each tree, from the plain routing of the original tables: the steps
-    the scan takes before its node stays) plus an add per (row, tree)
-    over the float32 rate."""
+    and the products leaf * weight; the decision route's bitsets, and its
+    leaf map where it writes leaf slots) and the output (the leaf slots
+    too) each moved once over the memory rate, against the walks'
+    compares (each row's depth in each tree, from the plain routing of
+    the original tables: the steps the scan takes before its node stays)
+    plus an add per (row, tree) over the float32 rate."""
     n, t = x.shape[0], tables.num_trees
+    read = [tables.nodes, tables.products]
+    if tables.decision:
+        read.append(tables.bits)
+        if leaves:
+            read.append(tables.leaf_slot)
     nbytes = (x.numel() * x.element_size()
-              + sum(v.numel() * v.element_size()
-                    for v in (tables.nodes, tables.products))
-              + n * tables.num_class * 4)
+              + sum(v.numel() * v.element_size() for v in read)
+              + n * tables.num_class * 4 + (n * t * 4 if leaves else 0))
     # each walk's steps before its leaf: the last-level slot's depth less
     # the always-left steps of a leaf pushed down its left spine
-    thr = S.unpack_nodes(tables)[1]
+    thr = S.unpack_nodes(tables)[-2 if tables.decision else 1]
     always_left = torch.inf if tables.raw else S.ALWAYS_LEFT_BIN
     offsets = (torch.arange(t, device=x.device) * tables.num_nodes)[None, :]
     steps = 0
@@ -2507,34 +2894,76 @@ def phase_kernel_score(ctx):
         if not ok:
             failures.append(label)
 
-    def timed(label, scorer, xd, host_x):
-        """The times of one call at ``xd``, and the profiler's launches
-        of one ``scorer(host_x).cpu()`` (the copies in and out)."""
+    def timed(label, scorer, xd, host_x, leaves=False):
+        """The times of one call at ``xd`` (with the leaf slots where
+        ``leaves``), and the profiler's launches of one
+        ``scorer(host_x)`` brought to the host (the copies in and out)."""
         t = scorer.tables
+        want = (1, 3) if leaves else SCORE_CALL
         kernels, copies, busy = kernel_counts(
-            torch, lambda: scorer(host_x).cpu())
-        bound, by, nbytes, ops = score_bound(torch, S, xd, t)
+            torch, (lambda: [v.cpu() for v in scorer(host_x, leaves=True)])
+            if leaves else (lambda: scorer(host_x).cpu()), want)
+        bound, by, nbytes, ops = score_bound(torch, S, xd, t, leaves)
+        scores = ((lambda: S.tree_score(xd, t, True)[0]) if leaves
+                  else (lambda: S.tree_score(xd, t)))
         row = {"case": label, "rows": xd.shape[0], "trees": t.num_trees,
                "dtype": str(xd.dtype).replace("torch.", ""),
                "plan": dataclasses.astuple(S._plan_for(
                    xd.shape[0], xd.shape[1], xd.dtype, t, xd.device)),
-               "kernel_ms": time_ms(torch, lambda: S.tree_score(xd, t)),
+               "route": t.route, "leaves": leaves,
+               "kernel_ms": time_ms(torch,
+                                    lambda: S.tree_score(xd, t, leaves)),
                "kernel_device_ms": device_ms(
-                   torch, lambda: S.tree_score(xd, t)),
+                   torch, lambda: S.tree_score(xd, t, leaves)),
                "plain_ms": time_ms(
-                   torch, lambda: S.tree_score_reference(xd, t),
+                   torch, lambda: S.tree_score_reference(xd, t, leaves),
                    reps=5, warmup=1),
                "bound_ms": bound, "bound_by": by, "bytes": nbytes,
                "ops": ops, "launches_per_call": kernels,
                "copies_per_call": copies, "kernel_busy_ms": busy,
-               "max_abs_err": float((S.tree_score(xd, t).double()
+               "max_abs_err": float((scores().double()
                                      - S.tree_score_reference(xd, t)
                                      .double()).abs().max().item())}
         emit({"phase": "kernel_score_timing", **row})
-        if (kernels, copies) != SCORE_CALL:
+        if (kernels, copies) != want:
             failures.append(f"{label}: {kernels} kernels and {copies} "
-                            f"copies per call, expected {SCORE_CALL}")
+                            f"copies per call, expected {want}")
         return row
+
+    def check_decision(label, tables, xd, plan=None):
+        """The decision route: scores and leaf slots bitwise the plain
+        version's, the scores-only launch the same, two launches equal."""
+        nonlocal checked
+        if plan is None:
+            plan = S._plan_for(xd.shape[0], xd.shape[1], xd.dtype, tables,
+                               xd.device)
+            got, again = (S.tree_score(xd, tables, True) for _ in range(2))
+            alone = S.tree_score(xd, tables)
+        else:
+            got, again = (S._launch(xd, tables, plan, leaves=True)
+                          for _ in range(2))
+            alone = S._launch(xd, tables, plan)
+        want = S.tree_score_reference(xd, tables, leaves=True)
+        checked += 1
+        ok = bool(all(torch.equal(u, v) for u, v in zip(got, want))
+                  and all(torch.equal(u, v) for u, v in zip(got, again))
+                  and torch.equal(alone, want[0]))
+        emit({"phase": "kernel_score_case", "case": label, "bitwise": ok,
+              "route": "decision", "plan": dataclasses.astuple(plan)})
+        if not ok:
+            failures.append(label)
+
+    def decision_plans(label, tables, xd):
+        """``check_decision`` under the chosen plan, the rows plan and
+        the cluster plan where it fits."""
+        n, k = xd.shape[0], tables.num_class
+        check_decision(label, tables, xd)
+        shape = (n, tables.num_trees, tables.num_nodes, k, torch.float32, F)
+        check_decision(f"{label}, rows plan", tables, xd,
+                       S.rows_plan(*shape))
+        cluster = S.cluster_plan(*shape)
+        if cluster is not None:
+            check_decision(f"{label}, cluster plan", tables, xd, cluster)
 
     # the served model at every rung, both arms, every bin dtype, and the
     # staged batch the server scores (copy in, kernel, copy out, one call)
@@ -2634,6 +3063,39 @@ def phase_kernel_score(ctx):
               none.predict_binned_scorer("off", "cuda").tables,
               torch.as_tensor(binned[:n].astype(np.uint8)).cuda())
 
+    # the decision route: the categorical model at its 2M rows (scores,
+    # and scores with leaf slots), and random boosters of every decision
+    # byte with categorical nodes, on rows with NaN, 0.0, negative,
+    # fractional and unseen categories, in every plan at 1..16,384 rows
+    # and at 2M rows
+    cat_booster, cat_x = ctx["categorical"]
+    cat_scorer = cat_booster._scorer(True, "off", "cuda", decision=True)
+    cat_xd = torch.as_tensor(cat_x).cuda()
+    check_decision("categorical model 2M", cat_scorer.tables, cat_xd)
+    check_decision("categorical model 2M + 7", cat_scorer.tables,
+                   torch.cat([cat_xd, cat_xd[:7]]))
+    for n in (1, 64, 1024, 4096, 16384):
+        decision_plans(f"categorical model {n}", cat_scorer.tables,
+                       cat_xd[:n])
+    cat_2m = timed("categorical model, 2M raw rows (decision route)",
+                   cat_scorer, cat_xd, cat_x[:64])
+    cat_2m_leaves = timed("categorical model, 2M raw rows, leaf slots",
+                          cat_scorer, cat_xd, cat_x[:64], leaves=True)
+    del cat_xd
+    for label, seed, trees, depth, k, words, big in (
+            ("decision", 12, 100, 6, 1, 2, True),
+            ("decision K=3", 13, 60, 5, 3, 1, False),
+            ("decision depth 16", 14, 4, 16, 1, 3, False)):
+        synth = random_decision_booster(seed, trees, depth, k, words)
+        tables = synth._scorer(True, "off", "cuda", decision=True).tables
+        rows = torch.as_tensor(decision_rows(
+            rng, N if big else 16384, words)).cuda()
+        for n in (1, 64, 1024, 4096, 16384):
+            decision_plans(f"{label} {n}", tables, rows[:n])
+        if big:
+            check_decision(f"{label} 2M", tables, rows)
+        del rows
+
     # the crossover: both plans at each batch size
     crossover = []
     for label, booster in (
@@ -2659,10 +3121,13 @@ def phase_kernel_score(ctx):
             emit({"phase": "kernel_score_crossover", **row})
 
     torch.cuda.synchronize()
-    ctx["score_rows"] = {"rung64": rung64, "2M": full, "2M_raw": full_raw}
+    ctx["score_rows"] = {"rung64": rung64, "2M": full, "2M_raw": full_raw,
+                         "decision_2M": cat_2m,
+                         "decision_2M_leaves": cat_2m_leaves}
     out = {"cases_bitwise": checked - len(failures), "cases": checked,
            "rung_device_ms": rung_ms, "rung64": rung64, "main_2M": full,
-           "main_2M_raw": full_raw, "crossover": crossover,
+           "main_2M_raw": full_raw, "decision_2M": cat_2m,
+           "decision_2M_leaves": cat_2m_leaves, "crossover": crossover,
            "card": ctx["smi"]}
     if failures:
         raise AssertionError(json.dumps({"failures": failures, **out},
@@ -3727,6 +4192,18 @@ def kernel_table(ctx):
         "raw_2M": {k: score["2M_raw"][k] for k in (
             "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms",
             "bound_by", "plan")},
+        # the decision route (csrc/tree_score.cu, x code 6) on the
+        # categorical model's 2M raw rows, alone and with leaf slots; it
+        # also replaces _go_left_fn (booster.py:162) and leaf_index_fn
+        # (:452); launches over phase categorical_path's 2M transform
+        "replaces_decision_route": "mmlspark_tpu/models/gbdt/booster.py:162",
+        "replaces_leaf_index": "mmlspark_tpu/models/gbdt/booster.py:452",
+        "launches_categorical_path":
+            ctx["launches"]["categorical_path_tree_score"],
+        **{key: {k: score[key][k] for k in (
+            "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms",
+            "bound_by", "plan", "launches_per_call", "copies_per_call")}
+           for key in ("decision_2M", "decision_2M_leaves")},
         "per": "one call on the main path's 20-tree booster at its 2M "
                "uint8 rows (rung64: the served 100-tree model at 64 rows); "
                "launches from phase main_path (predict_binned) and the "
@@ -3786,6 +4263,7 @@ def main() -> int:
                      ("custom_objective_path", phase_custom_objective),
                      ("checkpoint_path", phase_checkpoint),
                      ("serving_path", phase_serving),
+                     ("categorical_path", phase_categorical),
                      ("kernel_score", phase_kernel_score),
                      ("refresh_path", phase_refresh),
                      ("fleet_path", phase_fleet),

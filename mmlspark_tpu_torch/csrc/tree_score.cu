@@ -79,6 +79,34 @@
 // instructions, whose dispatch and latency set its time above the byte
 // bound; at serving sizes the launch, the staging and the cluster's two
 // barriers do (the T-long fold per (row, class) is a small part).
+//
+// The decision route (x code 6; mmls_tree_score_decision). It also
+// replaces the routing of the JAX package's _go_left_fn (booster.py:162,
+// XLA) and its leaf_index_fn (:452): raw float32 features against nodes
+// that carry LightGBM's decision bits. It is its own template instance
+// (In = DFloat), so the bin and raw routes above keep their code. A node
+// is 8 bytes, like a raw node: [decision byte:8 at bit 16][feature:16] and
+// either the float32 threshold (numeric) or the word offset of the node's
+// category bitset (categorical, bit 0). A row goes left at a numeric node
+// as _go_left_fn says: missing type (bits 2-3) 0 compares NaN as 0.0, 1
+// sends 0.0 and NaN the default way (bit 1), 2 sends NaN the default way;
+// everything else compares value <= threshold. At a categorical node the
+// value is truncated toward zero and goes left where its bit is set in
+// the node's bitset; NaN, negative and out-of-range values go right. The
+// bitsets, (categorical nodes) x (words) uint32, are read where they lie,
+// through the read-only cache. Pushed-down leaves sit behind nodes of
+// decision byte 0 and threshold +inf, which every value passes (NaN
+// compares as 0.0). With a `leaves` output the walk also writes, for each
+// (row, tree), the slot where the reference's scan stops: `leaf_map`
+// takes the last-level slot of the walk to the leaf that was pushed down
+// to it (score_cuda.pack_decision_nodes). The slots are written tree-major,
+// (trees, n): the threads of a warp walk neighbouring rows of one tree in
+// both plans, so a warp's slots fill whole lines (row-major, a thread per
+// row wrote one 4-byte word per 80-byte row). Scores and leaf slots come
+// from one launch. The route's bound is bytes too: the input, tables,
+// bitsets, output and (trees, n) int32 leaf slots once; its step is the
+// raw route's plus the byte decode, a branch and, at a categorical node,
+// a dependent load of a bitset word.
 
 #include <cooperative_groups.h>
 
@@ -96,6 +124,28 @@ constexpr int kThreads = 256;    // cluster plan: threads of a CTA
 constexpr int kBlockRows = 64;   // cluster plan: rows of a cluster's block
 constexpr int kMaxCluster = 8;   // portable cluster size
 
+// The category bitsets of the decision route, read where they lie, and
+// the number of categories they hold (32 per word); unused by the other
+// routes.
+struct Bits {
+  const uint32_t* words;
+  float limit;
+};
+
+// A raw float32 feature scored by decision bits: a type of its own, so the
+// decision route is a template instance of its own.
+struct DFloat {
+  float v;
+  DFloat() = default;
+  __device__ explicit DFloat(uint32_t w) {
+    union {
+      uint32_t u;
+      float f;
+    } bits{w};
+    v = bits.f;
+  }
+};
+
 // Nodes, staged row values and the left-routing rule per input type. A
 // bin node is the word [threshold:16][feature:16] and a bin id is staged
 // as min(max(id, 0), 65535) << 16, so a row goes left where its staged
@@ -103,10 +153,13 @@ constexpr int kMaxCluster = 8;   // portable cluster size
 // breaks no tie); the clamp keeps every int32 id right of a real threshold
 // (at most 65534) and left of the always-left one. A raw node is {feature,
 // float32 threshold bits}; a row goes left where its value is NaN or at
-// most the threshold (a NaN threshold sends only NaN left).
+// most the threshold (a NaN threshold sends only NaN left). A decision
+// node (DFloat rows) routes by its decision byte, as the note at the top
+// says.
 template <typename In>
 struct Node {  // bin ids: uint8, uint16, int32
   using Word = uint32_t;
+  static constexpr bool kDecision = false;
   static __device__ __forceinline__ uint32_t feature(uint32_t w) {
     return __byte_perm(w, 0, 0x4410);  // the low half, zero-extended
   }
@@ -115,7 +168,8 @@ struct Node {  // bin ids: uint8, uint16, int32
     if (sizeof(In) == 4) x = min(max(x, 0), 65535);
     return static_cast<uint32_t>(x) << 16;
   }
-  static __device__ __forceinline__ bool left(uint32_t s, uint32_t w) {
+  static __device__ __forceinline__ bool left(uint32_t s, uint32_t w,
+                                              const Bits&) {
     return s <= w;
   }
 };
@@ -123,15 +177,45 @@ struct Node {  // bin ids: uint8, uint16, int32
 template <>
 struct Node<float> {  // raw features
   using Word = int2;
+  static constexpr bool kDecision = false;
   static __device__ __forceinline__ uint32_t feature(int2 w) {
     return static_cast<uint32_t>(w.x);
   }
   static __device__ __forceinline__ uint32_t stage(float v) {
     return __float_as_uint(v);
   }
-  static __device__ __forceinline__ bool left(uint32_t s, int2 w) {
+  static __device__ __forceinline__ bool left(uint32_t s, int2 w,
+                                              const Bits&) {
     const float v = __uint_as_float(s);
     return isnan(v) || v <= __int_as_float(w.y);
+  }
+};
+
+template <>
+struct Node<DFloat> {  // raw features under decision bits
+  using Word = int2;
+  static constexpr bool kDecision = true;
+  static __device__ __forceinline__ uint32_t feature(int2 w) {
+    return static_cast<uint32_t>(w.x) & 0xFFFFu;
+  }
+  static __device__ __forceinline__ uint32_t stage(DFloat v) {
+    return __float_as_uint(v.v);
+  }
+  static __device__ __forceinline__ bool left(uint32_t s, int2 w,
+                                              const Bits& b) {
+    const float v = __uint_as_float(s);
+    const uint32_t d = static_cast<uint32_t>(w.x) >> 16;
+    if (d & 1u) {  // categorical: the bit of trunc(v) in the node's set
+      const float t = truncf(v);
+      if (!(t >= 0.f && t < b.limit)) return false;  // NaN fails both
+      const uint32_t c = static_cast<uint32_t>(t);
+      return (__ldg(b.words + w.y + (c >> 5)) >> (c & 31u)) & 1u;
+    }
+    const bool nan = isnan(v);
+    const float x = nan ? 0.f : v;
+    const uint32_t mt = (d >> 2) & 3u;
+    const bool missing = mt == 2u ? nan : (mt == 1u && x == 0.f);
+    return missing ? (d & 2u) != 0u : x <= __int_as_float(w.y);
   }
 };
 
@@ -171,6 +255,7 @@ template <typename In>
 __device__ __forceinline__ void walk4(const uint32_t (&root)[kWalks],
                                       const uint32_t (&row)[kWalks],
                                       uint32_t stride, int depth,
+                                      const Bits& bits,
                                       uint32_t (&node)[kWalks]) {
   using N = Node<In>;
   constexpr uint32_t kSize = sizeof(typename N::Word);
@@ -188,7 +273,7 @@ __device__ __forceinline__ void walk4(const uint32_t (&root)[kWalks],
 #pragma unroll
     for (int i = 0; i < kWalks; ++i) {
       const uint32_t s = lds(row[i] + N::feature(w[i]) * stride);
-      node[i] = 2 * node[i] + (N::left(s, w[i]) ? kl[i] : kr[i]);
+      node[i] = 2 * node[i] + (N::left(s, w[i], bits) ? kl[i] : kr[i]);
     }
   }
 }
@@ -199,6 +284,7 @@ template <typename In>
 __device__ __forceinline__ void walk4_global(const typename Node<In>::Word* tab,
                                              const long long (&toff)[kWalks],
                                              const In* row, int depth,
+                                             const Bits& bits,
                                              int (&node)[kWalks]) {
   using N = Node<In>;
 #pragma unroll
@@ -208,7 +294,7 @@ __device__ __forceinline__ void walk4_global(const typename Node<In>::Word* tab,
     for (int i = 0; i < kWalks; ++i) {
       const typename N::Word w = tab[toff[i] + node[i]];
       const uint32_t s = N::stage(row[N::feature(w)]);
-      node[i] = 2 * node[i] + (N::left(s, w) ? 1 : 2);
+      node[i] = 2 * node[i] + (N::left(s, w, bits) ? 1 : 2);
     }
   }
 }
@@ -224,7 +310,24 @@ struct Args {
   int rows;             // rows of a tile (rows plan) or of a cluster's block
   int chunk;            // trees staged at once (rows) or of a rank (cluster)
   int words;            // 32-bit words of a row, the last one partly used
+  // the decision route only
+  const uint32_t* bits;  // category bitsets, `bit_words` words each
+  int bit_words;
+  const int* leaf_map;   // (trees * m) last-level slot -> leaf slot
+  int* leaves;           // (trees, n) leaf slots, or null
 };
+
+__device__ __forceinline__ Bits bits_of(const Args& a) {
+  return Bits{a.bits, static_cast<float>(a.bit_words) * 32.f};
+}
+
+// The decision route's leaf output: row r's leaf slot in tree t, from the
+// last-level slot its walk ended on, at [t * n + r].
+__device__ __forceinline__ void write_leaf(const Args& a, long long r, int t,
+                                           int slot) {
+  a.leaves[t * a.n + r] =
+      __ldg(a.leaf_map + static_cast<size_t>(t) * a.m + slot);
+}
 
 __host__ __device__ inline size_t align_up(size_t v, size_t a) {
   return (v + a - 1) / a * a;
@@ -405,8 +508,8 @@ __device__ __forceinline__ void next_tree(int k, int c0, int gs, int& tree,
 template <typename In, bool kShared>
 __device__ __forceinline__ void score_row(const Args& a, uint32_t nodes,
                                           uint32_t prods, uint32_t row,
-                                          const In* grow, float* o, int t_lo,
-                                          int t_hi) {
+                                          const In* grow, float* o,
+                                          long long r, int t_lo, int t_hi) {
   using Word = typename Node<In>::Word;
   constexpr int kSize = sizeof(Word);
   uint32_t rows[kWalks];
@@ -442,10 +545,16 @@ __device__ __forceinline__ void score_row(const Args& a, uint32_t nodes,
 #pragma unroll
         for (int i = 0; i < kWalks; ++i)
           root[i] = nodes + (ts[i] - t_lo) * a.m * kSize;
-        walk4<In>(root, rows, a.rows * 4, a.depth, node);
+        walk4<In>(root, rows, a.rows * 4, a.depth, bits_of(a), node);
 #pragma unroll
         for (int i = 0; i < kWalks; ++i)
           p[i] = lds_f64(prods + (node[i] - nodes) * (8 / kSize));
+        if (Node<In>::kDecision && a.leaves != nullptr) {
+#pragma unroll
+          for (int i = 0; i < kWalks; ++i)
+            if (i < count)
+              write_leaf(a, r, ts[i], (node[i] - root[i]) / kSize);
+        }
       } else {
         long long toff[kWalks];
         int node[kWalks];
@@ -453,9 +562,14 @@ __device__ __forceinline__ void score_row(const Args& a, uint32_t nodes,
         for (int i = 0; i < kWalks; ++i)
           toff[i] = static_cast<long long>(ts[i]) * a.m;
         walk4_global<In>(static_cast<const Word*>(a.nodes), toff, grow,
-                         a.depth, node);
+                         a.depth, bits_of(a), node);
 #pragma unroll
         for (int i = 0; i < kWalks; ++i) p[i] = a.prod[toff[i] + node[i]];
+        if (Node<In>::kDecision && a.leaves != nullptr) {
+#pragma unroll
+          for (int i = 0; i < kWalks; ++i)
+            if (i < count) write_leaf(a, r, ts[i], node[i]);
+        }
       }
 #pragma unroll
       for (int i = 0; i < kWalks; ++i) {
@@ -524,9 +638,10 @@ __global__ void __launch_bounds__(1024, 1)
         float* o = a.out + r * a.k;
         if (kShared) {
           score_row<In, true>(a, base, base + lay.prod, values + tid * 4,
-                              nullptr, o, t_lo, t_hi);
+                              nullptr, o, r, t_lo, t_hi);
         } else {
-          score_row<In, false>(a, 0, 0, 0, row_of<In>(a, r), o, t_lo, t_hi);
+          score_row<In, false>(a, 0, 0, 0, row_of<In>(a, r), o, r, t_lo,
+                               t_hi);
         }
       }
       if (kShared && more) {
@@ -599,12 +714,15 @@ __global__ void __launch_bounds__(kThreads)
       root[i] = base + tl[i] * a.m * kSize;
       row[i] = values + rl[i] * 4;
     }
-    walk4<In>(root, row, kBlockRows * 4, a.depth, node);
+    walk4<In>(root, row, kBlockRows * 4, a.depth, bits_of(a), node);
 #pragma unroll
     for (int i = 0; i < kWalks; ++i) {
-      if (w0 + i * static_cast<int>(blockDim.x) < walks)
+      if (w0 + i * static_cast<int>(blockDim.x) < walks) {
         s_prod[tl[i] * nb + rl[i]] =
             lds_f64(base + lay.prod + (node[i] - base) * (8 / kSize));
+        if (Node<In>::kDecision && a.leaves != nullptr)
+          write_leaf(a, row0 + rl[i], lo + tl[i], (node[i] - root[i]) / kSize);
+      }
     }
   }
   cluster.sync();
@@ -729,6 +847,8 @@ cudaError_t launch_x(int x_code, const Args& a, const Plan& p, int device,
       return launch_rows<int32_t>(a, p, device, s);
     case 5:
       return launch_rows<float>(a, p, device, s);
+    case 6:
+      return launch_rows<DFloat>(a, p, device, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -751,6 +871,10 @@ Args make_args(const void* x, const void* nodes, const void* prod, void* out,
   a.rows = p.rows;
   a.chunk = p.chunk;
   a.words = 0;
+  a.bits = nullptr;
+  a.bit_words = 0;
+  a.leaf_map = nullptr;
+  a.leaves = nullptr;
   return a;
 }
 
@@ -779,6 +903,32 @@ int mmls_tree_score(const void* x, int x_code, const void* nodes,
                        make_args(x, nodes, prod, out, init_score, n, f, trees,
                                  m, depth, k, p),
                        p, device, (cudaStream_t)stream);
+}
+
+// The decision route: raw float32 rows (x code 6) against 8-byte decision
+// nodes, the categorical nodes' bitsets `bits` (`bit_words` uint32 words
+// each, at the word offset the node holds), and with a non-null `leaves`
+// the int32 leaf slot of every row in every tree, tree-major (trees, n),
+// through `leaf_map` ((trees * m) int32). Otherwise as mmls_tree_score.
+int mmls_tree_score_decision(const void* x, const void* nodes,
+                             const void* prod, void* out, float init_score,
+                             long long n, int f, int trees, int m, int depth,
+                             int k, const void* bits, int bit_words,
+                             const void* leaf_map, void* leaves, int regime,
+                             int rows, int ctas, int cluster, int chunk,
+                             int smem, int shared, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (bits == nullptr || bit_words < 1 || leaf_map == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Plan p{regime, rows, ctas, cluster, chunk, smem, shared};
+  Args a = make_args(x, nodes, prod, out, init_score, n, f, trees, m, depth,
+                     k, p);
+  a.bits = static_cast<const uint32_t*>(bits);
+  a.bit_words = bit_words;
+  a.leaf_map = static_cast<const int*>(leaf_map);
+  a.leaves = static_cast<int*>(leaves);
+  return (int)launch_x(6, a, p, device, (cudaStream_t)stream);
 }
 
 // One served batch in one call: copies the (n, f) rows from the pinned

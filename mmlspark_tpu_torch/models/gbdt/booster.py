@@ -1,24 +1,27 @@
 """Tree-ensemble representation and batch scoring on PyTorch.
 
-Port of the JAX package's ``BoosterArrays`` for numeric boosters. Every
-tree is stored in a fixed full-binary layout (node i's children are
-2i+1 / 2i+2); scoring walks every row down every tree and adds the trees
-one by one in order, each add rounded as the fused multiply-add XLA
-makes of it, so the accumulation is the JAX ``scan``'s.
+Port of the JAX package's ``BoosterArrays``. Every tree is stored in a
+fixed full-binary layout (node i's children are 2i+1 / 2i+2); scoring
+walks every row down every tree and adds the trees one by one in order,
+each add rounded as the fused multiply-add XLA makes of it, so the
+accumulation is the JAX ``scan``'s.
 
-This slice scores numeric boosters trained without ``decision_type``
-bits (NaN routes left, as the missing bin 0 does in training).
-Categorical / zero-as-missing routing, leaf indices and contributions
-are later work (ROADMAP A5).
+Routing is the JAX package's ``_go_left_fn``: a booster without
+``decision_type`` sends NaN left (as the missing bin 0 goes in training)
+and compares the rest with the threshold; one with it follows LightGBM's
+decision bits per node (default-left, missing type, and at categorical
+nodes the category bitset ``cat_bitset``; ``score_cuda.decision_left``).
 
-``predict``, ``predict_binned`` and the serving scorer
+``predict``, ``predict_binned``, ``leaf_index`` and the serving scorer
 ``predict_binned_scorer`` all score through a ``TreeScorer``: the
 booster's tables on one device once (cached per booster, kind, autocast
 and device; ``clear_jit_cache`` drops them), and per call one
 ``score_cuda.tree_score`` — the kernel ``csrc/tree_score.cu`` on the
-card, one launch per batch, its plain version on the CPU.
-``derive_binning`` recovers a binning from an imported model string's
-own thresholds so such a model can be served binned too.
+card, one launch per batch, its plain version on the CPU. Leaf indices
+are a second output of the same walk. ``contrib`` (exact path-dependent
+TreeSHAP) and ``contrib_saabas`` are plain torch ops on whatever device
+they run. ``derive_binning`` recovers a binning from an imported model
+string's own thresholds so such a model can be served binned too.
 
 Also carries the host-side model methods of the JAX package's booster:
 feature importances, LightGBM's native model-string format (written and
@@ -30,6 +33,7 @@ dict a saved model persists.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
@@ -38,8 +42,10 @@ import torch
 
 from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.models.gbdt.score_cuda import (BIN_CODES, StagedBatch,
-                                                       make_tables, pack_nodes,
-                                                       tree_score,
+                                                       decision_left,
+                                                       make_tables,
+                                                       pack_decision_nodes,
+                                                       pack_nodes, tree_score,
                                                        tree_score_staged)
 from mmlspark_tpu_torch.ops.ingest import binned_ingest_dtype
 from mmlspark_tpu_torch.parallel.shard_rules import placement_cast
@@ -130,13 +136,14 @@ class BoosterArrays:
         (``supports_binned`` / ``zero_premap_mode``) stay."""
         self.__dict__.pop("_scorers", None)
 
-    def _scorer(self, raw: bool, autocast: str,
-                device: DeviceLike) -> "TreeScorer":
+    def _scorer(self, raw: bool, autocast: str, device: DeviceLike,
+                decision: bool = False) -> "TreeScorer":
         dev = resolve_device(device)
         cache = self.__dict__.setdefault("_scorers", {})
-        key = (raw, autocast, str(dev))
+        key = (raw, autocast, str(dev), decision)
         if key not in cache:
-            cache[key] = TreeScorer(self, dev, raw=raw, autocast=autocast)
+            cache[key] = TreeScorer(self, dev, raw=raw, autocast=autocast,
+                                    decision=decision)
         return cache[key]
 
     def predict_binned_scorer(self, autocast: str = "off",
@@ -165,31 +172,221 @@ class BoosterArrays:
                 "own splits and score binned")
         return self._scorer(False, autocast, device)
 
-    def _require_numeric(self, what: str = "scoring"):
-        if self.decision_type is not None or self.cat_bitset is not None:
-            raise NotImplementedError(
-                f"{what} boosters with decision_type bits (categorical or "
-                "zero-as-missing splits) is not in the port yet (ROADMAP A5)")
-
     def predict_binned(self, binned, device: DeviceLike = None) -> torch.Tensor:
         """BINNED features (N, F) small-int bin ids (the
         ``BinMapper.transform`` output the model was trained on, best as
         uint8) -> raw scores, (N,) or (N, K): routes by
-        ``bin <= threshold_bin``."""
-        self._require_numeric()
+        ``bin <= threshold_bin`` (the missing bin 0 goes left), as the
+        JAX package's ``predict_binned_fn`` does whatever the decision
+        bits. Categorical boosters are refused."""
         if not self.supports_binned:
+            if self.has_categorical:
+                raise NotImplementedError(
+                    "binned scoring routes by threshold_bin; categorical "
+                    "splits route by raw-value bitset — use predict")
             raise ValueError(
                 "this booster has no binned thresholds (imported from a "
                 "model string); score raw features with predict")
         return self._scorer(False, "off", device)(binned)
 
     def predict(self, x, device: DeviceLike = None) -> torch.Tensor:
-        """Raw features (N, F) -> raw scores, (N,) or (N, K). NaN routes
-        left, matching training where the missing bin (0) satisfies
-        bin <= threshold. Features and thresholds compare in float32, as
-        the JAX package's ``predict_fn`` does."""
-        self._require_numeric()
-        return self._scorer(True, "off", device)(x)
+        """Raw features (N, F) -> raw scores, (N,) or (N, K), routed as
+        the JAX package's ``predict_fn`` routes them (``_go_left_fn``):
+        without ``decision_type`` NaN goes left, matching training where
+        the missing bin (0) satisfies bin <= threshold; with it, by the
+        decision bits (``score_cuda.decision_left``). Features and
+        thresholds compare in float32."""
+        return self._scorer(True, "off", device,
+                            decision=self.decision_type is not None)(x)
+
+    def leaf_index(self, x, device: DeviceLike = None) -> torch.Tensor:
+        """Raw features (N, F) -> (N, T) int32: the slot of the leaf each
+        row reaches in each tree, the JAX package's ``leaf_index_fn``
+        (LightGBM's predLeaf in the full layout). One walk of the decision
+        route gives the leaf slots and the scores together (a booster
+        without ``decision_type`` routes as default-left with NaN missing,
+        bits 10, which is how it routes anyway)."""
+        return self._scorer(True, "off", device, decision=True)(
+            x, leaves=True)[1]
+
+    # -- contributions ------------------------------------------------------
+    def _router(self, dev: torch.device):
+        """``(tree, nodes, fx) -> bool``: where values ``fx`` go left at
+        the slots ``nodes`` of tree ``tree`` (broadcast against ``fx``),
+        the JAX package's ``_go_left_fn`` on ``dev``."""
+        tv = torch.as_tensor(self.threshold_value, dtype=torch.float32,
+                             device=dev)
+        if self.decision_type is None:
+            return lambda t, node, fx: torch.isnan(fx) | (fx <= tv[t][node])
+        dt = torch.as_tensor(self.decision_type.astype(np.int64), device=dev)
+        if not self.has_categorical:
+            return lambda t, node, fx: decision_left(fx, dt[t][node],
+                                                     tv[t][node])
+        bits = torch.as_tensor(self.cat_bitset.astype(np.int64), device=dev)
+        words = bits.shape[2]
+
+        def go_left(t, node, fx):
+            held = bits[t][node].expand(*fx.shape, words)
+            return decision_left(
+                fx, dt[t][node], tv[t][node],
+                lambda w: torch.gather(held, -1, w[..., None])[..., 0],
+                words * 32)
+        return go_left
+
+    def _rows(self, x, dev: torch.device) -> torch.Tensor:
+        return torch.as_tensor(x).to(torch.float32).to(dev)
+
+    def _ancestor_tables(self):
+        """Per-slot root-to-slot path tables of the full layout, the JAX
+        package's: (anc_node, anc_child, anc_valid, is_left), each
+        (M, D). Slot s's entry j is the split at ``anc_node[s, j]`` whose
+        on-path child is ``anc_child[s, j]``; unused entries padded."""
+        m, d = self.num_nodes, self.max_depth
+        anc_node = np.zeros((m, d), np.int64)
+        anc_child = np.zeros((m, d), np.int64)
+        anc_valid = np.zeros((m, d), bool)
+        for slot in range(m):
+            chain = []
+            cur = slot
+            while cur > 0:
+                par = (cur - 1) // 2
+                chain.append((par, cur))
+                cur = par
+            for j, (par, ch) in enumerate(reversed(chain)):
+                anc_node[slot, j], anc_child[slot, j] = par, ch
+                anc_valid[slot, j] = True
+        return anc_node, anc_child, anc_valid, anc_child == 2 * anc_node + 1
+
+    def contrib(self, x, device: DeviceLike = None) -> torch.Tensor:
+        """Exact path-dependent TreeSHAP contributions, the JAX package's
+        ``contrib_fn``: raw features (N, F) -> (N, F + 1) float32, the
+        last column the expected value; per-class blocks (N, K * (F + 1))
+        for K > 1 (tree t adds to class t % K). For every reachable leaf
+        the root-to-leaf path adds ``v * (o_i - z_i) * PSI_i`` to each
+        path feature i (o the row's routing indicator, z the cover
+        ratio, PSI_i the permutation-weighted leave-one-out path
+        polynomial, built by positive multiply-adds as the reference
+        builds it); duplicate path features merge into their first
+        occurrence. Plain torch ops on ``device`` (the card unless
+        ``"cpu"``), in blocks of rows whose (rows, M) working tensors
+        stay small."""
+        dev = resolve_device(device)
+        xt = self._rows(x, dev)
+        n, num_f, depth, m = (xt.shape[0], self.num_features, self.max_depth,
+                              self.num_nodes)
+        k = max(self.num_class, 1)
+        route = self._router(dev)
+        anc_node, anc_child, anc_valid, is_left = (
+            torch.as_tensor(a, device=dev) for a in self._ancestor_tables())
+        wgt = [math.factorial(lv) * math.factorial(depth - 1 - lv)
+               / math.factorial(depth) for lv in range(depth)]
+        wgt = np.asarray(wgt, np.float32).tolist()
+        sf_all = torch.as_tensor(self.split_feature.astype(np.int64),
+                                 device=dev)
+        ct_all = torch.as_tensor(self.count, dtype=torch.float32, device=dev)
+        nv_all = torch.as_tensor(self.node_value, dtype=torch.float32,
+                                 device=dev)
+        tw = torch.as_tensor(self.tree_weights, dtype=torch.float32,
+                             device=dev)
+        all_nodes = torch.arange(m, device=dev)
+        acc = torch.zeros((n, k, num_f + 1), dtype=torch.float32, device=dev)
+        acc[:, :, num_f] += torch.tensor(self.init_score, dtype=torch.float32)
+        block = max(1, CONTRIB_CELLS // max(m, 1))
+        for t in range(self.num_trees):
+            sf_t, ct_t = sf_all[t], ct_all[t]
+            v_t = nv_all[t] * tw[t]
+            u = [torch.where(anc_valid[:, j], sf_t[anc_node[:, j]], -1)
+                 for j in range(depth)]
+            z = [torch.where(anc_valid[:, j], ct_t[anc_child[:, j]]
+                             / torch.clamp_min(ct_t[anc_node[:, j]], 1.0),
+                             1.0) for j in range(depth)]
+            reach = torch.ones(m, dtype=torch.bool, device=dev)
+            for j in range(depth):
+                reach &= torch.where(anc_valid[:, j],
+                                     sf_t[anc_node[:, j]] >= 0, True)
+            leaf_mask = (reach & (sf_t < 0)).to(torch.float32)
+            vmask = v_t * leaf_mask
+            for s in range(0, n, block):
+                xs = xt[s:s + block]
+                gl = route(t, all_nodes, xs[:, sf_t.clamp_min(0)])
+                o = [torch.where(anc_valid[None, :, j],
+                                 torch.where(is_left[None, :, j],
+                                             gl[:, anc_node[:, j]],
+                                             ~gl[:, anc_node[:, j]]),
+                                 True).to(torch.float32)
+                     for j in range(depth)]
+                zs = list(z)
+                _merge_duplicates(u, zs, o, m, dev)
+                if s == 0:
+                    zprod = leaf_mask
+                    for j in range(depth):
+                        zprod = zprod * zs[j]
+                    base = torch.sum(v_t * zprod)
+                phi = torch.zeros((xs.shape[0], num_f), dtype=torch.float32,
+                                  device=dev)
+                for i in range(depth):
+                    coeffs = [torch.ones_like(o[0])]
+                    for j in range(depth):
+                        if j == i:
+                            continue
+                        coeffs = [
+                            (coeffs[lv] * zs[j] if lv < len(coeffs) else 0)
+                            + (coeffs[lv - 1] * o[j] if lv else 0)
+                            for lv in range(len(coeffs) + 1)]
+                    psi = coeffs[0] * wgt[0]
+                    for lv in range(1, depth):
+                        # rounded once, as XLA's fused multiply-add
+                        psi = (psi.double() + coeffs[lv].double() * wgt[lv]
+                               ).float()
+                    amount = vmask * (o[i] - zs[i]) * psi
+                    amount = amount * (u[i] >= 0)
+                    phi.index_add_(1, u[i].clamp_min(0), amount)
+                cls = t % k
+                acc[s:s + block, cls, :num_f] += phi
+                acc[s:s + block, cls, num_f] += base
+        return acc[:, 0] if k == 1 else acc.reshape(n, k * (num_f + 1))
+
+    def contrib_saabas(self, x, device: DeviceLike = None) -> torch.Tensor:
+        """Saabas path attributions, the JAX package's
+        ``contrib_saabas_fn``: each split on a row's path credits
+        ``value(child) - value(node)`` (times the tree weight) to its
+        feature; the last column of each block is the expected value.
+        (N, F + 1), or (N, K * (F + 1)) for K > 1. Plain torch ops on
+        ``device``."""
+        dev = resolve_device(device)
+        xt = self._rows(x, dev)
+        n, num_f, depth = xt.shape[0], self.num_features, self.max_depth
+        k = max(self.num_class, 1)
+        route = self._router(dev)
+        sf_all = torch.as_tensor(self.split_feature.astype(np.int64),
+                                 device=dev)
+        nv_all = torch.as_tensor(self.node_value, dtype=torch.float32,
+                                 device=dev)
+        tw = torch.as_tensor(self.tree_weights, dtype=torch.float32,
+                             device=dev)
+        rows = torch.arange(n, device=dev)
+        acc = torch.zeros((n, k, num_f + 1), dtype=torch.float32, device=dev)
+        acc[:, :, num_f] += torch.tensor(self.init_score, dtype=torch.float32)
+        for t in range(self.num_trees):
+            sf_t, nv_t = sf_all[t], nv_all[t]
+            node = torch.zeros(n, dtype=torch.int64, device=dev)
+            c = torch.zeros((n, num_f), dtype=torch.float32, device=dev)
+            for _ in range(depth):
+                feat = sf_t[node]
+                is_leaf = feat < 0
+                fx = torch.gather(xt, 1, feat.clamp_min(0)[:, None])[:, 0]
+                child = torch.where(route(t, node, fx), 2 * node + 1,
+                                    2 * node + 2)
+                child = torch.where(is_leaf, node, child)
+                delta = (nv_t[child] - nv_t[node]) * tw[t]
+                c.index_put_((rows, feat.clamp_min(0)),
+                             torch.where(is_leaf, 0.0, delta),
+                             accumulate=True)
+                node = child
+            cls = t % k
+            acc[:, cls, :num_f] += c
+            acc[:, cls, num_f] += nv_t[0] * tw[t]
+        return acc[:, 0] if k == 1 else acc.reshape(n, k * (num_f + 1))
 
     def derive_binning(self) -> "tuple[DerivedBinning, BoosterArrays]":
         """Recover a binning from the model's own split thresholds so an
@@ -299,8 +496,9 @@ class BoosterArrays:
     def save_model_string(self) -> str:
         """Serialize to LightGBM native text format (compacting the full
         binary layout into LightGBM's explicit child-pointer arrays), line
-        for line as the JAX package writes it."""
-        self._require_numeric("writing model strings of")
+        for line as the JAX package writes it: every split's decision
+        bits, and categorical splits as ``cat_boundaries`` /
+        ``cat_threshold`` words."""
         lines = [
             "tree",
             "version=v4",
@@ -329,6 +527,9 @@ class BoosterArrays:
     def _tree_to_text(self, t: int) -> List[str]:
         sf, tv, nv, cnt = (self.split_feature[t], self.threshold_value[t],
                            self.node_value[t], self.count[t])
+        dt_known = self.decision_type is not None
+        dt = (self.decision_type[t] if dt_known
+              else np.zeros_like(sf, dtype=np.int8))
         # map full-layout slots to LightGBM internal/leaf numbering (BFS)
         internal_ids: Dict[int, int] = {}
         leaf_ids: Dict[int, int] = {}
@@ -348,10 +549,23 @@ class BoosterArrays:
             return internal_ids[m] if sf[m] >= 0 else ~leaf_ids[m]
 
         split_feature, threshold, left, right = [], [], [], []
-        internal_value, internal_count = [], []
+        internal_value, internal_count, decision = [], [], []
+        cat_boundaries: List[int] = [0]
+        cat_words: List[int] = []
         for m in order:
             split_feature.append(int(sf[m]))
-            threshold.append(float(tv[m]))
+            if dt[m] & 1:
+                # categorical: the threshold indexes cat_boundaries /
+                # cat_threshold (LightGBM's layout)
+                threshold.append(float(len(cat_boundaries) - 1))
+                cat_words.extend(int(w) for w in self.cat_bitset[t, m])
+                cat_boundaries.append(len(cat_words))
+                decision.append(1)
+            else:
+                threshold.append(float(tv[m]))
+                # a booster without bits routes as default-left with NaN
+                # missing: 10
+                decision.append(int(dt[m]) if dt_known else _NAN_LEFT)
             left.append(child_code(2 * m + 1))
             right.append(child_code(2 * m + 2))
             internal_value.append(float(nv[m]))
@@ -359,16 +573,15 @@ class BoosterArrays:
         leaves = sorted(leaf_ids, key=lambda m: leaf_ids[m])
         leaf_value = [float(nv[m] * self.tree_weights[t]) for m in leaves]
         leaf_count = [int(cnt[m]) for m in leaves]
-        return [
+        num_cat = len(cat_boundaries) - 1
+        out = [
             f"Tree={t}",
             f"num_leaves={max(len(leaves), 1)}",
-            "num_cat=0",
+            f"num_cat={num_cat}",
             "split_feature=" + " ".join(map(str, split_feature)),
             "split_gain=" + " ".join("0" for _ in range(n_int)),
             "threshold=" + " ".join(repr(v) for v in threshold),
-            # default-left with NaN missing: training routes the missing
-            # bin left
-            "decision_type=" + " ".join(str(_NAN_LEFT) for _ in range(n_int)),
+            "decision_type=" + " ".join(map(str, decision)),
             "left_child=" + " ".join(map(str, left)),
             "right_child=" + " ".join(map(str, right)),
             "leaf_value=" + " ".join(repr(v) for v in leaf_value),
@@ -380,14 +593,22 @@ class BoosterArrays:
             "is_linear=0",
             "shrinkage=1",
         ]
+        if num_cat:
+            at = out.index("is_linear=0")
+            out[at:at] = [
+                "cat_boundaries=" + " ".join(map(str, cat_boundaries)),
+                "cat_threshold=" + " ".join(map(str, cat_words))]
+        return out
 
     @staticmethod
     def load_model_string(text: str) -> "BoosterArrays":
         """Parse LightGBM native text into the full layout, as the JAX
-        package does. Numeric trees only: a split whose decision bits are
-        not default-left with NaN missing (``decision_type=10``, the
-        routing ``predict`` implements), and any categorical split, raise
-        ``NotImplementedError`` (ROADMAP A5)."""
+        package does: every split's ``decision_type`` (2 where the string
+        has none, as LightGBM writes), categorical splits' ``cat_threshold``
+        words into ``cat_bitset`` (T, M, W), W the widest set. A string
+        whose every split is numeric and default-left with NaN missing
+        (10) loads without bits, as ``from_state_dict`` does: a booster
+        without bits routes exactly so."""
         header: Dict[str, str] = {}
         tree_blocks: List[Dict[str, str]] = []
         current: Optional[Dict[str, str]] = None
@@ -438,6 +659,16 @@ class BoosterArrays:
         if "tree_weights" in header:
             weights = np.asarray(list(map(float, header["tree_weights"].split())),
                                  dtype=np.float32)
+        # the bitsets' width: the widest categorical split of any tree
+        max_words = 0
+        for blk in tree_blocks:
+            if int(blk.get("num_cat", "0")) > 0:
+                bounds = list(map(int, blk["cat_boundaries"].split()))
+                max_words = max(max_words, max(
+                    bounds[i + 1] - bounds[i] for i in range(len(bounds) - 1)))
+        dt = np.zeros((n_trees, m_slots), np.int8)
+        bitset = (np.zeros((n_trees, m_slots, max_words), np.uint32)
+                  if max_words else None)
         for t, blk in enumerate(tree_blocks):
             n_leaves = int(blk.get("num_leaves", "1"))
             leaf_value = list(map(float, blk["leaf_value"].split()))
@@ -456,32 +687,41 @@ class BoosterArrays:
             internal_count = list(map(float, blk["internal_count"].split()))
             decision = (list(map(int, blk["decision_type"].split()))
                         if blk.get("decision_type") else [2] * len(split_feature))
-            if int(blk.get("num_cat", "0")) > 0 or any(
-                    d != _NAN_LEFT for d in decision):
-                raise NotImplementedError(
-                    f"tree {t} of this model string has categorical splits "
-                    f"or decision_type bits other than {_NAN_LEFT} "
-                    "(default-left, NaN missing); routing them is not in the "
-                    "port yet (ROADMAP A5)")
+            cat_bounds = (list(map(int, blk["cat_boundaries"].split()))
+                          if int(blk.get("num_cat", "0")) > 0 else [])
+            cat_words = (list(map(int, blk["cat_threshold"].split()))
+                         if cat_bounds else [])
 
             def place(code: int, slot: int, t=t, split_feature=split_feature,
                       threshold=threshold, left=left, right=right,
                       internal_value=internal_value,
                       internal_count=internal_count,
-                      leaf_value=leaf_value, leaf_count=leaf_count):
+                      leaf_value=leaf_value, leaf_count=leaf_count,
+                      decision=decision, cat_bounds=cat_bounds,
+                      cat_words=cat_words):
                 if code < 0:
                     leaf = ~code
                     nv[t, slot] = leaf_value[leaf] / max(weights[t], 1e-30)
                     cnt[t, slot] = leaf_count[leaf] if leaf < len(leaf_count) else 0
                     return
                 sf[t, slot] = split_feature[code]
-                tv[t, slot] = threshold[code]
+                dt[t, slot] = np.int8(decision[code])
+                if decision[code] & 1:
+                    lo, hi = (cat_bounds[int(threshold[code])],
+                              cat_bounds[int(threshold[code]) + 1])
+                    tv[t, slot] = np.nan
+                    bitset[t, slot, :hi - lo] = np.asarray(
+                        cat_words[lo:hi], dtype=np.int64).astype(np.uint32)
+                else:
+                    tv[t, slot] = threshold[code]
                 nv[t, slot] = internal_value[code]
                 cnt[t, slot] = internal_count[code]
                 place(left[code], 2 * slot + 1)
                 place(right[code], 2 * slot + 2)
 
             place(0, 0)
+        if bitset is None and np.all(dt[sf >= 0] == _NAN_LEFT):
+            dt = None
         return BoosterArrays(
             split_feature=sf, threshold_bin=tb, threshold_value=tv,
             node_value=nv, count=cnt, tree_weights=weights,
@@ -489,6 +729,7 @@ class BoosterArrays:
             objective=header.get("objective", "regression"),
             init_score=float(header.get("init_score", "0.0")),
             feature_names=header.get("feature_names", "").split() or None,
+            decision_type=dt, cat_bitset=bitset,
         )
 
     def slice_iterations(self, start_iteration: int = 0,
@@ -529,9 +770,10 @@ class BoosterArrays:
     @staticmethod
     def concat(a: "BoosterArrays", b: "BoosterArrays") -> "BoosterArrays":
         """Concatenate ensembles (warm-start continuation): pad both to
-        the deeper full-tree layout, keep ``a``'s base/init metadata."""
-        a._require_numeric("concatenating")
-        b._require_numeric("concatenating")
+        the deeper full-tree layout, keep ``a``'s base/init metadata. Where
+        one side carries decision bits the other's splits take 10
+        (default-left, NaN missing: how a booster without bits routes),
+        and the bitsets widen to the wider side's."""
         if a.num_class != b.num_class:
             raise ValueError("cannot concat boosters with different num_class")
         if a.num_features != b.num_features:
@@ -545,6 +787,22 @@ class BoosterArrays:
             out = np.full((x.shape[0], slots), fill, dtype=x.dtype)
             out[:, :x.shape[1]] = x
             return out
+
+        dt = bitset = None
+        if a.decision_type is not None or b.decision_type is not None:
+            def bits_of(x):
+                return (x.decision_type if x.decision_type is not None else
+                        np.where(x.split_feature >= 0, _NAN_LEFT, 0)
+                        .astype(np.int8))
+
+            dt = np.concatenate([pad(bits_of(a), 0), pad(bits_of(b), 0)])
+            w_a = a.cat_bitset.shape[2] if a.cat_bitset is not None else 1
+            w_b = b.cat_bitset.shape[2] if b.cat_bitset is not None else 1
+            bitset = np.zeros((dt.shape[0], slots, max(w_a, w_b)), np.uint32)
+            if a.cat_bitset is not None:
+                bitset[:a.num_trees, :a.num_nodes, :w_a] = a.cat_bitset
+            if b.cat_bitset is not None:
+                bitset[a.num_trees:, :b.num_nodes, :w_b] = b.cat_bitset
 
         return BoosterArrays(
             split_feature=np.concatenate([pad(a.split_feature, -1),
@@ -563,6 +821,7 @@ class BoosterArrays:
             objective=b.objective,
             init_score=a.init_score,
             feature_names=a.feature_names or b.feature_names,
+            decision_type=dt, cat_bitset=bitset,
         )
 
     # -- generic state dict (for Model persistence) -------------------------
@@ -625,6 +884,29 @@ class BoosterArrays:
 # LightGBM decision_type of a numeric split that sends NaN left and
 # compares everything else (default-left bit 2 | missing type NaN 8)
 _NAN_LEFT = 10
+# (rows x slots) cells of a block of rows in ``contrib``'s working tensors
+CONTRIB_CELLS = 1 << 24
+
+
+def _merge_duplicates(u, z, o, m: int, dev) -> None:
+    """In place on a tree's path entries (``contrib``): a feature met
+    again down a path merges into its first occurrence (z and o
+    multiplied), the later entry becomes neutral (z = o = 1), as the JAX
+    package's ``contrib_fn`` merges them."""
+    depth = len(u)
+    merged = [torch.zeros(m, dtype=torch.bool, device=dev)
+              for _ in range(depth)]
+    for j in range(1, depth):
+        taken = torch.zeros(m, dtype=torch.bool, device=dev)
+        for k in range(j):
+            hit = ((u[k] == u[j]) & (u[j] >= 0) & ~merged[k] & ~merged[j]
+                   & ~taken)
+            z[k] = torch.where(hit, z[k] * z[j], z[k])
+            o[k] = torch.where(hit, o[k] * o[j], o[k])
+            taken = taken | hit
+        z[j] = torch.where(taken, 1.0, z[j])
+        o[j] = torch.where(taken, 1.0, o[j])
+        merged[j] = merged[j] | taken
 
 
 class TreeScorer:
@@ -636,17 +918,34 @@ class TreeScorer:
     table in float32, or bfloat16 under ``autocast="bf16"`` through
     ``placement_cast``; each slot's float64 leaf * weight), and per call
     one ``score_cuda.tree_score``. Packing refuses a booster whose bin
-    nodes do not fit a word."""
+    nodes do not fit a word. ``decision``: raw rows routed by the
+    booster's decision bits and category bitsets
+    (``score_cuda.pack_decision_nodes``; 10 at every split of a booster
+    without bits), whose walk also gives leaf slots."""
 
     def __init__(self, booster: BoosterArrays, device: torch.device,
-                 raw: bool = False, autocast: str = "off"):
+                 raw: bool = False, autocast: str = "off",
+                 decision: bool = False):
         sf = booster.split_feature
         if sf.size and int(sf.max()) >= booster.num_features:
             raise ValueError(f"a split feature ({int(sf.max())}) is not "
                              f"below num_features ({booster.num_features})")
-        nodes, leaf = pack_nodes(
-            sf, booster.threshold_value if raw else booster.threshold_bin,
-            booster.node_value, booster.max_depth, raw)
+        extra = {}
+        if decision:
+            dt = booster.decision_type
+            if dt is None:
+                dt = np.where(sf >= 0, _NAN_LEFT, 0)
+            nodes, leaf, bits, words, slots = pack_decision_nodes(
+                sf, booster.threshold_value, booster.node_value,
+                booster.max_depth, dt,
+                booster.cat_bitset if booster.has_categorical else None)
+            extra = dict(bits=torch.as_tensor(bits, device=device),
+                         bit_words=words,
+                         leaf_slot=torch.as_tensor(slots, device=device))
+        else:
+            nodes, leaf = pack_nodes(
+                sf, booster.threshold_value if raw else booster.threshold_bin,
+                booster.node_value, booster.max_depth, raw)
         self.device = device
         self.autocast = autocast
         self.tables = make_tables(
@@ -658,21 +957,22 @@ class TreeScorer:
                                         dtype=torch.float32, device=device),
             num_nodes=sf.shape[1], max_depth=booster.max_depth,
             num_class=booster.num_class, num_features=booster.num_features,
-            init_score=booster.init_score)
+            init_score=booster.init_score, **extra)
 
-    def __call__(self, x) -> torch.Tensor:
+    def __call__(self, x, leaves: bool = False):
         """(N, F) bin ids, or raw features for a raw scorer (numpy or a
-        tensor) -> raw scores on this scorer's device, (N,) or (N, K).
-        Raw features are scored as float32; bin ids other than uint8,
-        uint16 and int32 as int32. Both casts happen where ``x`` lies,
-        before the one copy to the device."""
+        tensor) -> raw scores on this scorer's device, (N,) or (N, K);
+        with ``leaves`` (a decision scorer) also the (N, T) int32 leaf
+        slots. Raw features are scored as float32; bin ids other than
+        uint8, uint16 and int32 as int32. Both casts happen where ``x``
+        lies, before the one copy to the device."""
         xt = torch.as_tensor(x)
         if self.tables.raw:
             want = torch.float32
         else:
             want = xt.dtype if xt.dtype in BIN_CODES else torch.int32
         xt = xt.to(want).to(self.device).contiguous()
-        return tree_score(xt, self.tables)
+        return tree_score(xt, self.tables, leaves)
 
     def staged_batch(self, rows: int, features: int, dtype) -> StagedBatch:
         """The buffers of one padded batch shape of bin ids of the numpy

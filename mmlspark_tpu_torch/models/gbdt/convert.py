@@ -1,8 +1,10 @@
 """Weight carry-over from the JAX package: a booster fitted there (the
 arrays of its ``BoosterArrays.state_dict()``) becomes the port's
 ``BoosterArrays``, and a fitted estimator model (its ``_get_state()``
-and its param map) becomes the port's model. Only numpy arrays and
-plain values cross; nothing of JAX is imported."""
+and its param map) becomes the port's model. Decision bits and category
+bitsets cross with the booster, and a categorical ``BinMapper`` with
+the model. Only numpy arrays and plain values cross; nothing of JAX is
+imported."""
 
 from __future__ import annotations
 

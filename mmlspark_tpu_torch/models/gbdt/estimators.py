@@ -11,11 +11,23 @@ binned rows to the card once and trains there (``trainer.train``: the
 level-histogram kernels, validation sets, early stopping, warm starts);
 ``transform`` scores on the card (``BoosterArrays.predict``, or
 ``predict_binned`` under ``binnedScoring``) and derives the reply
-columns with the JAX package's numpy tail; ``serving_binned_plan``
-gives the serving plane (``io/serving.py``) the same replies from
-pre-binned rows. Stages run on the card unless ``set_device("cpu")`` is
-called; a fitted model inherits the setting, a loaded one takes the
-card. Without a card the default raises: nothing falls back to the CPU.
+columns with the JAX package's numpy tail, then, where asked, the leaf
+slots (``leafPredictionCol``, ``BoosterArrays.leaf_index``) and the
+TreeSHAP contributions (``featuresShapCol``, ``contrib``), both as
+float64; ``serving_binned_plan`` gives the serving plane
+(``io/serving.py``) the same replies from pre-binned rows, and refuses
+those two columns and categorical boosters with the JAX package's
+reasons (such a model is served through ``transform``).
+
+Categorical slots (``categoricalSlotIndexes``, ``categoricalSlotNames``
+or the features column's metadata) bin by category and split on
+category sets (``catSmooth``, ``catL2``, ``maxCatThreshold``,
+``maxCatToOnehot``, ``minDataPerGroup``); ``zeroAsMissing`` maps 0.0 to
+NaN before binning, at fit and wherever ``transform`` bins, and the
+trees route exact zeros by their decision bits.
+
+Stages run on the card unless ``set_device("cpu")`` is called; a fitted
+model inherits the setting, a loaded one takes the card. Without a card the default raises: nothing falls back to the CPU.
 
 A custom objective (``fobj``) is called with the fit's device tensors
 (see ``trainer.train``); a numpy one converts them with
@@ -36,10 +48,9 @@ uninterrupted one drew.
 
 The param surface is the JAX package's (the same names, defaults and
 validation); settings outside the port raise ``NotImplementedError``
-naming the ROADMAP item that adds them: leaf indices and SHAP columns
-(A5), multiclass, ranking, categorical splits, zero-as-missing, dart,
-``featureFractionByNode`` and ``extraTrees`` (A7), meshes and the
-voting / feature-parallel learners (A8).
+naming the ROADMAP item that adds them: multiclass, ranking, dart,
+``featureFractionByNode``, ``extraTrees`` and monotone constraints (A7),
+meshes and the voting / feature-parallel learners (A8).
 """
 
 from __future__ import annotations
@@ -406,12 +417,6 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCo
     def set_mesh(self, mesh):
         raise _later("set_mesh (rows sharded over a device mesh)", _A8)
 
-    def _check_reply_params(self):
-        for name, what in (("leafPredictionCol", "per-tree leaf indices"),
-                           ("featuresShapCol", "SHAP contributions")):
-            if self.is_set(name):
-                raise _later(f"{name} ({what})", "A5 (scoring, the rest)")
-
 
 class _LightGBMBase(Estimator, _LightGBMParams):
     """Shared fit orchestration (LightGBMBase.train analog,
@@ -465,8 +470,7 @@ class _LightGBMBase(Estimator, _LightGBMParams):
     def _categorical_indexes(self, df: DataFrame) -> List[int]:
         """Resolve categorical feature slots: explicit indexes, then
         names via slot metadata, then the features column's
-        Categoricals metadata (getCategoricalIndexes analog). Any slot
-        found makes the fit raise (ROADMAP A7)."""
+        Categoricals metadata (getCategoricalIndexes analog)."""
         out = set(self.get("categoricalSlotIndexes") or [])
         meta = df.metadata(self.get("featuresCol"))
         if self.is_set("categoricalSlotNames"):
@@ -490,7 +494,6 @@ class _LightGBMBase(Estimator, _LightGBMParams):
         BinMapper, InstrumentationMeasures with the phases extract,
         binning, and train's dataPreparation / training / validation)."""
         device = resolve_device(self._device)
-        self._check_reply_params()
         measures = InstrumentationMeasures()
         cat = self._categorical_indexes(df)
         cfg = self._train_config(objective, categorical_features=cat,
@@ -503,11 +506,16 @@ class _LightGBMBase(Estimator, _LightGBMParams):
         with measures.phase("extract"):
             train_df, valid_df = self._split_validation(df)
             x, y, w = self._extract(train_df)
+            if cfg.zero_as_missing:
+                # LightGBM zero_as_missing: zeros enter the missing bin;
+                # the trees' decision bits (6) route them at scoring
+                x = np.where(x == 0.0, np.nan, x)
         with measures.phase("binning"):
             mapper = BinMapper.fit(
                 _sample_rows(x, self.get("seed"),
                              max_sample=self.get("binSampleCount")),
                 max_bin=cfg.max_bin,
+                categorical_features=cat,
                 min_data_in_bin=cfg.min_data_in_bin,
                 max_bin_by_feature=(self.get("maxBinByFeature")
                                     if self.is_set("maxBinByFeature")
@@ -519,6 +527,8 @@ class _LightGBMBase(Estimator, _LightGBMParams):
         if valid_df is not None and valid_df.num_rows:
             with measures.phase("extract"):
                 vx_raw, vy, vw = self._extract(valid_df)
+                if cfg.zero_as_missing:
+                    vx_raw = np.where(vx_raw == 0.0, np.nan, vx_raw)
             with measures.phase("binning"):
                 valid_sets = [(mapper.transform(vx_raw, ids), vy, vw)]
         init_model = None
@@ -863,12 +873,17 @@ class _LightGBMModelBase(Model, _LightGBMParams):
         edge: ROADMAP C8), else the float-threshold traversal."""
         device = resolve_device(self._device)
         b = self.scoring_booster
+        zmode = b.zero_premap_mode
         binned = (self.get("binnedScoring") and self.bin_mapper is not None
-                  and b.supports_binned)
+                  and b.supports_binned and zmode != "unsupported")
         out = []
         for s in range(0, max(len(x), 1), _SCORE_BATCH_ROWS):
             xs = x[s:s + _SCORE_BATCH_ROWS]
             if binned:
+                if zmode == "all_left":
+                    # a zero-as-missing fit binned 0.0 as NaN: so does
+                    # scoring
+                    xs = np.where(xs == 0.0, np.nan, xs)
                 scores = b.predict_binned(
                     self.bin_mapper.transform(xs, binned_ingest_dtype(
                         self.bin_mapper.max_num_bins)), device=device)
@@ -1010,14 +1025,34 @@ class _LightGBMModelBase(Model, _LightGBMParams):
         """Ordered output columns derived from margin scores."""
         raise NotImplementedError
 
+    def _batched(self, fn, x: np.ndarray) -> np.ndarray:
+        """``fn(rows, device)`` over row batches of ``x`` on the model's
+        device, as float64."""
+        device = resolve_device(self._device)
+        return np.concatenate([
+            fn(x[s:s + _SCORE_BATCH_ROWS], device=device).cpu().numpy()
+            for s in range(0, max(len(x), 1), _SCORE_BATCH_ROWS)]
+        ).astype(np.float64)
+
+    def _maybe_extra_cols(self, df: DataFrame, x: np.ndarray) -> DataFrame:
+        """The leaf-slot and TreeSHAP columns where asked (the JAX
+        package's ``_maybe_extra_cols``), both float64."""
+        b = self.scoring_booster
+        if self.is_set("leafPredictionCol"):
+            df = df.with_column(self.get("leafPredictionCol"),
+                                self._batched(b.leaf_index, x))
+        if self.is_set("featuresShapCol"):
+            df = df.with_column(self.get("featuresShapCol"),
+                                self._batched(b.contrib, x))
+        return df
+
     def _transform(self, df: DataFrame) -> DataFrame:
-        self._check_reply_params()
         x = self._features(df)
         out = df
         for name, vals in self._reply_columns_from_raw(
                 self._raw_scores(x)).items():
             out = out.with_column(name, vals)
-        return out
+        return self._maybe_extra_cols(out, x)
 
 
 # ---------------------------------------------------------------------------

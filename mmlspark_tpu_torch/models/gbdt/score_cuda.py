@@ -20,6 +20,13 @@ takes ``max_depth`` steps, and each slot's float64 product leaf * weight.
 (persistent CTAs, a thread per row) for large batches, ``"cluster"`` (a
 thread-block cluster that splits the trees) for small ones.
 
+The decision route scores raw float32 rows against nodes that carry
+LightGBM's decision bits (``pack_decision_nodes``): the routing of the
+JAX package's ``BoosterArrays._go_left_fn`` (default-left and missing-type
+bits, category bitsets; ``decision_left`` is its plain form), and on
+request the leaf slot of every row in every tree, the JAX package's
+``leaf_index_fn``, from the same walk in the same launch.
+
 On a CUDA tensor ``tree_score`` launches the kernel, one launch per call
 (a build or launch failure raises); on a CPU tensor it runs the plain
 version, ``tree_score_reference``. There is no other route. The kernel's
@@ -42,9 +49,12 @@ from mmlspark_tpu_torch.native import bindings
 # path went through it; and the same launches by plan.
 tree_score_launches = 0
 tree_score_plan_launches = {"rows": 0, "cluster": 0}
+# ... and by route: bin ids, raw rows, raw rows under decision bits
+tree_score_route_launches = {"bin": 0, "raw": 0, "decision": 0}
 
 BIN_CODES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
 RAW_CODE = 5                 # raw float32 features
+DECISION_CODE = 6            # raw float32 features under decision bits
 LEAF_DTYPES = (torch.float32, torch.bfloat16)  # the plain version's leaves
 PLAIN_ROWS = 1 << 16         # rows the plain version routes at once
 
@@ -53,6 +63,8 @@ PLAIN_ROWS = 1 << 16         # rows the plain version routes at once
 MAX_BIN_FEATURE = 32767
 MAX_BIN_THRESHOLD = 65534
 ALWAYS_LEFT_BIN = 65535
+# A packed decision node holds the feature in 16 bits.
+MAX_DECISION_FEATURE = 65535
 
 # The launch plans' limits on Hopper (H100): shared memory of a CTA (the
 # opt-in maximum) and of an SM, of which the card keeps 1 KB per CTA;
@@ -92,11 +104,26 @@ class TreeTables:
     num_class: int
     num_features: int             # every split feature is below it
     init_score: float
+    # the decision route (pack_decision_nodes): the categorical nodes'
+    # bitsets ((C * bit_words,) int32 holding uint32 words) and each
+    # slot's leaf slot ((T * M,) int32)
+    bits: Optional[torch.Tensor] = None
+    bit_words: int = 0
+    leaf_slot: Optional[torch.Tensor] = None
 
     @property
     def raw(self) -> bool:
         """Raw float32 features (``predict``) rather than bin ids."""
         return self.nodes.dim() == 2
+
+    @property
+    def decision(self) -> bool:
+        """Raw rows routed by decision bits (``pack_decision_nodes``)."""
+        return self.leaf_slot is not None
+
+    @property
+    def route(self) -> str:
+        return "decision" if self.decision else "raw" if self.raw else "bin"
 
     @property
     def num_trees(self) -> int:
@@ -136,15 +163,8 @@ def pack_nodes(split_feature: np.ndarray, threshold: np.ndarray,
                              f"0..{MAX_BIN_THRESHOLD}: a packed bin node "
                              f"holds the threshold as uint16, "
                              f"{ALWAYS_LEFT_BIN} always left")
-    sf[~internal] = -1
-    for level in range(max_depth):
-        first = 2 ** level - 1
-        t, j = np.nonzero(sf[:, first:2 * first + 1] < 0)
-        node = first + j
-        sf[t, node] = 0
-        thr[t, node] = np.inf if raw else ALWAYS_LEFT_BIN
-        sf[t, 2 * node + 1] = -1
-        nv[t, 2 * node + 1] = nv[t, node]
+    pushed, _ = _push_leaves_down(sf, nv, max_depth)
+    thr[pushed] = np.inf if raw else ALWAYS_LEFT_BIN
     sf, thr, nv = sf.reshape(-1), thr.reshape(-1), nv.reshape(-1)
     if raw:
         nodes = np.empty((sf.size, 2), np.int32)
@@ -155,19 +175,88 @@ def pack_nodes(split_feature: np.ndarray, threshold: np.ndarray,
     return word.astype(np.uint32).view(np.int32), nv
 
 
+def _push_leaves_down(sf: np.ndarray, nv: np.ndarray, max_depth: int):
+    """In place on (T, M) int64 split features and float32 node values:
+    every leaf above level ``max_depth`` goes down its left spine (its
+    slot and the spine's slots above the last level become nodes of
+    feature 0, the spine's last slot takes its value). Returns the (T, M)
+    bool mask of the slots that became such nodes (the caller gives them
+    an always-left threshold) and the (T, M) int64 leaf slot each slot
+    stands for: itself, or on a spine the leaf pushed down it."""
+    origin = np.broadcast_to(np.arange(sf.shape[1]), sf.shape).copy()
+    pushed = np.zeros(sf.shape, bool)
+    sf[sf < 0] = -1
+    for level in range(max_depth):
+        first = 2 ** level - 1
+        t, j = np.nonzero(sf[:, first:2 * first + 1] < 0)
+        node = first + j
+        sf[t, node] = 0
+        pushed[t, node] = True
+        sf[t, 2 * node + 1] = -1
+        nv[t, 2 * node + 1] = nv[t, node]
+        origin[t, 2 * node + 1] = origin[t, node]
+    return pushed, origin
+
+
+def pack_decision_nodes(split_feature: np.ndarray,
+                        threshold_value: np.ndarray, node_value: np.ndarray,
+                        max_depth: int, decision_type: np.ndarray,
+                        cat_bitset: Optional[np.ndarray]):
+    """The decision route's tables from (T, M) split features, raw
+    thresholds, node values and LightGBM ``decision_type`` bits, and the
+    (T, M, W) uint32 category bitsets (None where no node is
+    categorical). Leaves are pushed down as ``pack_nodes`` does, behind
+    nodes of decision byte 0 and threshold +inf, which every value
+    passes. A node is two int32 words: the feature in the low 16 bits and
+    the decision byte above them, then the float32 threshold's bits or,
+    at a categorical node (bit 0), the word offset of its bitset in
+    ``bits``. Returns (nodes (T * M, 2) int32, float32 leaf values
+    (T * M,), bits (C * W,) int32 holding the C categorical nodes'
+    bitsets (one zero word where there are none), W, leaf slots (T * M,)
+    int32: the leaf slot each last-level slot stands for). Raises
+    ``ValueError`` for a split feature above 65535."""
+    sf = np.array(split_feature, np.int64)
+    nv = np.array(node_value, np.float32)
+    thr = np.array(threshold_value, np.float32)
+    dt = np.array(decision_type, np.int64) & 0xFF
+    internal = sf >= 0
+    if internal.any() and int(sf[internal].max()) > MAX_DECISION_FEATURE:
+        raise ValueError(f"a split feature ({int(sf[internal].max())}) is "
+                         f"above {MAX_DECISION_FEATURE}: a packed decision "
+                         f"node holds the feature in 16 bits")
+    cat = internal & ((dt & 1) == 1)
+    words = 1
+    bits = np.zeros(1, np.uint32)
+    offset = np.zeros(sf.shape, np.int64)
+    if cat.any():
+        words = int(cat_bitset.shape[2])
+        bits = np.asarray(cat_bitset, np.uint32)[cat].reshape(-1)
+        offset[cat] = np.arange(int(cat.sum())) * words
+    pushed, origin = _push_leaves_down(sf, nv, max_depth)
+    dt[pushed | (sf < 0)] = 0
+    thr[pushed] = np.inf
+    nodes = np.empty(sf.shape + (2,), np.int32)
+    nodes[..., 0] = np.where(sf >= 0, sf | (dt << 16), -1)
+    nodes[..., 1] = np.where(cat, offset, thr.view(np.int32))
+    return (nodes.reshape(-1, 2), nv.reshape(-1), bits.view(np.int32), words,
+            origin.reshape(-1).astype(np.int32))
+
+
 def make_tables(nodes: torch.Tensor, leaf: torch.Tensor,
                 tree_weight: torch.Tensor, num_nodes: int, max_depth: int,
                 num_class: int, num_features: int,
-                init_score: float) -> TreeTables:
+                init_score: float, **decision) -> TreeTables:
     """``TreeTables`` of packed nodes, leaf values and tree weights on one
     device, with each slot's product leaf * weight (a bfloat16 leaf
-    promoted to float32 first; exact in float64)."""
+    promoted to float32 first; exact in float64). ``decision``: the
+    decision route's ``bits``, ``bit_words`` and ``leaf_slot``."""
     products = leaf.float().double() * tree_weight.double() \
         .repeat_interleave(num_nodes)
     return TreeTables(nodes=nodes, leaf=leaf, tree_weight=tree_weight,
                       products=products, num_nodes=num_nodes,
                       max_depth=max_depth, num_class=num_class,
-                      num_features=num_features, init_score=init_score)
+                      num_features=num_features, init_score=init_score,
+                      **decision)
 
 
 @dataclass(frozen=True)
@@ -332,12 +421,20 @@ def _check(x: torch.Tensor, tables: TreeTables) -> None:
             ("nodes", tables.nodes, torch.int32, node_shape),
             ("leaf", tables.leaf, tables.leaf.dtype, (t * m,)),
             ("tree_weight", tables.tree_weight, torch.float32, (t,)),
-            ("products", tables.products, torch.float64, (t * m,))):
+            ("products", tables.products, torch.float64, (t * m,))) + ((
+            ("bits", tables.bits, torch.int32,
+             (tables.bits.numel(),) if tables.bits is not None else ()),
+            ("leaf_slot", tables.leaf_slot, torch.int32, (t * m,)))
+            if tables.decision else ()):
         if v.dtype != dtype or tuple(v.shape) != shape \
                 or v.device != x.device or not v.is_contiguous():
             raise ValueError(f"tables.{name} must be a contiguous {dtype} "
                              f"{shape} on {x.device}, got {v.dtype} "
                              f"{tuple(v.shape)} on {v.device}")
+    if tables.decision and (tables.bit_words < 1 or tables.bits.numel()
+                            % tables.bit_words or not tables.bits.numel()):
+        raise ValueError(f"tables.bits: {tables.bits.numel()} words, not "
+                         f"whole bitsets of {tables.bit_words}")
     if m < 2 ** (tables.max_depth + 1) - 1:
         raise ValueError(f"{m} nodes per tree do not hold depth "
                          f"{tables.max_depth}")
@@ -352,14 +449,20 @@ def _check(x: torch.Tensor, tables: TreeTables) -> None:
         raise ValueError("x must be contiguous")
 
 
-def tree_score(x: torch.Tensor, tables: TreeTables) -> torch.Tensor:
+def tree_score(x: torch.Tensor, tables: TreeTables, leaves: bool = False):
     """(N, F) bin ids (uint8 / uint16 / int32, for packed bin nodes) or
-    raw float32 features (for packed raw nodes), contiguous, on the
-    tables' device -> (N,) or (N, K) float32 raw scores."""
+    raw float32 features (for packed raw or decision nodes), contiguous,
+    on the tables' device -> (N,) or (N, K) float32 raw scores; with
+    ``leaves`` (decision tables only) also the (N, T) int32 leaf slot of
+    every row in every tree, from the same walk (on the card the
+    transpose of the kernel's tree-major (T, N) output, a view)."""
     _check(x, tables)
+    if leaves and not tables.decision:
+        raise ValueError("leaf slots come from decision tables "
+                         "(pack_decision_nodes)")
     if x.device.type == "cpu":
-        return tree_score_reference(x, tables)
-    return _launch(x, tables)
+        return tree_score_reference(x, tables, leaves)
+    return _launch(x, tables, leaves=leaves)
 
 
 def _add_tree(acc: torch.Tensor, contribution: torch.Tensor) -> None:
@@ -378,7 +481,15 @@ def _add_tree(acc: torch.Tensor, contribution: torch.Tensor) -> None:
 def unpack_nodes(tables: TreeTables):
     """(feature, threshold) per node of the packed tables: int64 features
     (< 0 on the last level, 0 at an always-left node) and thresholds,
-    int64 bin thresholds or float32 raw ones."""
+    int64 bin thresholds or float32 raw ones (for decision tables the
+    feature, the decision byte, the float32 threshold and its bits as
+    int64, the bitset offset at a categorical node)."""
+    if tables.decision:
+        word = tables.nodes[:, 0].long()
+        feat = torch.where(word < 0, word, word & 0xFFFF)
+        return (feat, (word >> 16) & 0xFF,
+                tables.nodes.view(torch.float32)[:, 1],
+                tables.nodes[:, 1].long())
     if tables.raw:
         return tables.nodes[:, 0].long(), \
             tables.nodes.view(torch.float32)[:, 1]
@@ -392,6 +503,33 @@ def _depth(x: torch.Tensor, tables: TreeTables) -> int:
     return tables.max_depth if x.shape[1] else 0
 
 
+def decision_left(fx: torch.Tensor, dt: torch.Tensor, thr: torch.Tensor,
+                  category_word=None, limit: int = 0) -> torch.Tensor:
+    """Where float32 values ``fx`` go left at nodes of LightGBM decision
+    bits ``dt`` (int64) and float32 thresholds ``thr``, all of one shape:
+    the JAX package's ``_go_left_fn``. Bit 1 is default-left; bits 2-3
+    the missing type: 0 compares NaN as 0.0, 1 treats 0.0 and NaN as
+    missing, 2 treats NaN as missing; a missing value goes the default
+    way, any other compares ``value <= threshold``. At a categorical node
+    (bit 0) the value is truncated toward zero and goes left where its bit
+    is set: ``category_word(w)`` gives word ``w`` (int64) of each node's
+    bitset (uint32 values, int64), ``limit`` the categories the bitsets
+    hold; NaN, negative and out-of-range values go right. None where no
+    node is categorical."""
+    nan = torch.isnan(fx)
+    x0 = torch.where(nan, torch.zeros_like(fx), fx)
+    mt = (dt >> 2) & 3
+    missing = torch.where(mt == 2, nan, (mt == 1) & (x0 == 0.0))
+    left = torch.where(missing, (dt & 2) != 0, x0 <= thr)
+    if category_word is None:
+        return left
+    t = torch.trunc(fx)
+    valid = (t >= 0) & (t < limit)      # NaN fails both
+    c = torch.where(valid, t, torch.zeros_like(t)).long()
+    member = ((category_word(c >> 5) >> (c & 31)) & 1) == 1
+    return torch.where((dt & 1) == 1, valid & member, left)
+
+
 def leaf_nodes(x: torch.Tensor, tables: TreeTables) -> torch.Tensor:
     """(rows, T) int64 last-level slot of every row in every tree: all
     trees routed at once, level by level, on a (rows, trees) node tensor
@@ -399,6 +537,8 @@ def leaf_nodes(x: torch.Tensor, tables: TreeTables) -> torch.Tensor:
     kernel compares them (left of the always-left threshold only)."""
     offsets = (torch.arange(tables.num_trees, device=x.device)
                * tables.num_nodes)[None, :]
+    if tables.decision:
+        return _decision_leaf_nodes(x, tables, offsets)
     sf, thr = unpack_nodes(tables)
     # gather takes no uint16, and bin ids compare as integers
     xs = x if tables.raw else x.long().clamp_max(ALWAYS_LEFT_BIN)
@@ -413,20 +553,46 @@ def leaf_nodes(x: torch.Tensor, tables: TreeTables) -> torch.Tensor:
     return node
 
 
-def tree_score_reference(x: torch.Tensor, tables: TreeTables) -> torch.Tensor:
+def _decision_leaf_nodes(x: torch.Tensor, tables: TreeTables,
+                         offsets: torch.Tensor) -> torch.Tensor:
+    """``leaf_nodes`` of decision tables (``decision_left`` per step)."""
+    sf, dt, thr, word = unpack_nodes(tables)
+    bits = tables.bits.long() & 0xFFFFFFFF
+    node = torch.zeros((x.shape[0], tables.num_trees), dtype=torch.int64,
+                       device=x.device)
+    for _ in range(_depth(x, tables)):
+        flat = node + offsets
+        fx = torch.gather(x, 1, sf[flat].clamp_min(0))
+        d = dt[flat]
+        # the bitset offset where the node is categorical (else a
+        # threshold's bits)
+        at = torch.where((d & 1) == 1, word[flat], 0)
+        left = decision_left(fx, d, thr[flat], lambda w: bits[at + w],
+                             tables.bit_words * 32)
+        node = 2 * node + torch.where(left, 1, 2)
+    return node
+
+
+def tree_score_reference(x: torch.Tensor, tables: TreeTables,
+                         leaves: bool = False):
     """The plain version: a block of rows' leaves in every tree
     (``leaf_nodes``), then the trees' contributions added one by one in
     tree order (``_add_tree``): the JAX ``scan``'s left fold (a ``sum``
     or ``cumsum`` over the tree axis would add in another order). Rows
-    are independent, so blocks of ``PLAIN_ROWS`` change no bit."""
+    are independent, so blocks of ``PLAIN_ROWS`` change no bit. With
+    ``leaves`` (decision tables) also the (N, T) int32 leaf slots."""
     n, k = x.shape[0], tables.num_class
     dev = x.device
     offsets = (torch.arange(tables.num_trees, device=dev)
                * tables.num_nodes)[None, :]
     tw64 = tables.tree_weight.double()
     out = torch.empty((n, k), dtype=torch.float32, device=dev)
+    slots = (torch.empty((n, tables.num_trees), dtype=torch.int32, device=dev)
+             if leaves else None)
     for s in range(0, n, PLAIN_ROWS):
         node = leaf_nodes(x[s:s + PLAIN_ROWS], tables)
+        if leaves:
+            slots[s:s + PLAIN_ROWS] = tables.leaf_slot[node + offsets]
         # (T, rows): each leaf (bf16 promoted to float32 first) times its
         # tree's weight, exact in float64
         val = (tables.leaf[node + offsets].float().double() * tw64).t()
@@ -435,7 +601,8 @@ def tree_score_reference(x: torch.Tensor, tables: TreeTables) -> torch.Tensor:
         for t in range(tables.num_trees):
             _add_tree(acc[t % k], val[t])
         out[s:s + PLAIN_ROWS] = acc.t()
-    return out[:, 0] if k == 1 else out
+    scores = out[:, 0] if k == 1 else out
+    return (scores, slots) if leaves else scores
 
 
 class StagedBatch:
@@ -497,28 +664,47 @@ def tree_score_staged(batch: StagedBatch, tables: TreeTables) -> None:
     bindings.check(lib, code, "tree_score staged batch")
     tree_score_launches += 1
     tree_score_plan_launches[batch.plan.regime] += 1
+    tree_score_route_launches["bin"] += 1
 
 
 def _launch(x: torch.Tensor, tables: TreeTables,
-            plan: Optional[ScorePlan] = None) -> torch.Tensor:
+            plan: Optional[ScorePlan] = None, leaves: bool = False):
     """One launch of the kernel on ``x`` under ``plan`` (default
-    ``score_plan``'s for the shapes)."""
+    ``score_plan``'s for the shapes); with ``leaves`` (decision tables)
+    the leaf slots too."""
     global tree_score_launches
     lib = bindings.load("tree_score")
     n, k = x.shape[0], tables.num_class
     out = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    # the kernel writes the slots tree-major; the caller gets the (N, T)
+    # transpose, a view
+    slots = (torch.empty((tables.num_trees, n), dtype=torch.int32,
+                         device=x.device) if leaves else None)
     if n:
         dev = x.device
         if plan is None:
             plan = _plan_for(n, x.shape[1], x.dtype, tables, dev)
-        code = lib.mmls_tree_score(
-            x.data_ptr(), RAW_CODE if tables.raw else BIN_CODES[x.dtype],
-            tables.nodes.data_ptr(), tables.products.data_ptr(),
-            out.data_ptr(), ctypes.c_float(tables.init_score), n,
-            x.shape[1], tables.num_trees, tables.num_nodes,
-            _depth(x, tables), k, *plan.args, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if tables.decision:
+            code = lib.mmls_tree_score_decision(
+                x.data_ptr(), tables.nodes.data_ptr(),
+                tables.products.data_ptr(), out.data_ptr(),
+                ctypes.c_float(tables.init_score), n, x.shape[1],
+                tables.num_trees, tables.num_nodes, _depth(x, tables), k,
+                tables.bits.data_ptr(), tables.bit_words,
+                tables.leaf_slot.data_ptr(),
+                slots.data_ptr() if leaves else None, *plan.args,
+                dev.index, stream)
+        else:
+            code = lib.mmls_tree_score(
+                x.data_ptr(), RAW_CODE if tables.raw else BIN_CODES[x.dtype],
+                tables.nodes.data_ptr(), tables.products.data_ptr(),
+                out.data_ptr(), ctypes.c_float(tables.init_score), n,
+                x.shape[1], tables.num_trees, tables.num_nodes,
+                _depth(x, tables), k, *plan.args, dev.index, stream)
         bindings.check(lib, code, "tree_score kernel launch")
         tree_score_launches += 1
         tree_score_plan_launches[plan.regime] += 1
-    return out[:, 0] if k == 1 else out
+        tree_score_route_launches[tables.route] += 1
+    scores = out[:, 0] if k == 1 else out
+    return (scores, slots.t()) if leaves else scores

@@ -14,7 +14,10 @@ It is the port of the JAX package's fused step (``_make_step_fn``,
 
 The step writes its tree and metric row into one packed float32 row
 (:func:`unpack`): ``split_feature`` and ``threshold_bin`` as the bits of
-their int32 values, then ``node_value``, ``count`` and the metrics.
+their int32 values, then ``node_value``, ``count``, for a fit with
+categorical features each split's decision bits and its (slots, B)
+left-bin mask (:func:`unpack_masks`; the reference keeps them only for
+such fits too), and the metrics.
 
 On the CPU, and for a custom objective, the step runs directly, once per
 iteration (:class:`Step`). On the card a named objective's step is
@@ -71,14 +74,36 @@ def num_slots(cfg) -> int:
     return 2 ** (cfg.effective_depth + 1) - 1
 
 
-def unpack(rows: np.ndarray, slots: int):
+def mask_bins(cfg) -> int:
+    """Bins of the per-split left masks a packed row carries: B for a fit
+    with categorical features, else none."""
+    return cfg.max_bin if cfg.has_categorical else 0
+
+
+def tree_cols(slots: int, bins: int = 0) -> int:
+    """Columns of a packed row before its metrics."""
+    return 4 * slots + (slots * (1 + bins) if bins else 0)
+
+
+def unpack(rows: np.ndarray, slots: int, bins: int = 0):
     """(split_feature int32, threshold_bin int32, node_value float32,
-    count float32, metrics float32) from (T, 4*slots + m) packed rows."""
+    count float32, metrics float32) from (T, tree_cols + m) packed
+    rows."""
     rows = np.ascontiguousarray(rows, dtype=np.float32)
     return (rows[:, :slots].copy().view(np.int32),
             rows[:, slots:2 * slots].copy().view(np.int32),
             rows[:, 2 * slots:3 * slots], rows[:, 3 * slots:4 * slots],
-            rows[:, 4 * slots:])
+            rows[:, tree_cols(slots, bins):])
+
+
+def unpack_masks(rows: np.ndarray, slots: int, bins: int):
+    """(decision_type int8 (T, slots), bin_go_left bool (T, slots, bins))
+    of the packed rows of a fit with categorical features."""
+    rows = np.asarray(rows, dtype=np.float32)
+    at = 4 * slots
+    return (rows[:, at:at + slots].astype(np.int8),
+            rows[:, at + slots:at + slots * (1 + bins)]
+            .reshape(len(rows), slots, bins) > 0)
 
 
 def _loop_only(cfg):
@@ -162,22 +187,27 @@ class Step:
             g, h = g * mult, h * mult
         depth = cfg.effective_depth
         nl = cfg.num_leaves if cfg.num_leaves > 0 else 2 ** depth
-        sf, tb, nv, cnt = T.build_tree(
+        tree = T.build_tree(
             self.binned, g, h, nl, cfg, cfg.max_bin, self.hist_quant,
             self.subtract, valid=mask, feat_mask=feat_mask)
+        sf, tb, nv, cnt = tree[:4]
+        bgl = tree[5] if cfg.has_categorical else None
         if not is_rf:
             nv = nv * self.lr
-        self.raw.add_(T._predict_tree(sf, tb, nv, self.binned, depth))
+        self.raw.add_(T._predict_tree(sf, tb, nv, self.binned, depth, bgl))
         for vs in self.valids:
-            vs["raw"].add_(T._predict_tree(sf, tb, nv, vs["binned"], depth))
+            vs["raw"].add_(T._predict_tree(sf, tb, nv, vs["binned"], depth,
+                                           bgl))
         row = []
         for _, fn in self.metric_list:
             row.append(fn(self.raw, self.labels, self.weights,
                           **self.metric_kwargs))
             row += [fn(vs["raw"], vs["labels"], vs["weights"],
                        **self.metric_kwargs) for vs in self.valids]
+        masks = [] if bgl is None else [tree[4].float(),
+                                        bgl.float().reshape(-1)]
         return torch.cat([sf.view(torch.float32), tb.view(torch.float32),
-                          nv, cnt, torch.stack(row).float()])
+                          nv, cnt, *masks, torch.stack(row).float()])
 
     def run(self, it: int) -> torch.Tensor:
         """Iteration ``it`` (global, ``iteration_offset`` included): the

@@ -10,6 +10,17 @@ What this slice runs (and the JAX trainer it mirrors, file
     on the card, their plain versions on the CPU), numeric split
     finding (``_find_numeric_splits``) and row routing — the
     ``simple_numeric`` branch of ``make_build_tree``;
+  - categorical features (``categorical_features``): the categorical
+    branch of ``make_build_tree`` (``_find_categorical_splits``: the
+    bins sorted by grad / (hess + cat_smooth), a prefix scan under
+    ``lambda_l2 + cat_l2`` and ``max_cat_threshold``, one-vs-rest where a
+    node uses at most ``max_cat_to_onehot`` categories), each split's
+    left bins as a (slots, B) mask that routes the rows, and the
+    decision bits (1 categorical, 10 numeric, 6 under
+    ``zero_as_missing``); ``_assemble_booster`` turns the masks into
+    bitsets over the raw category values. ``zero_as_missing`` itself is
+    the estimator's premap (0.0 -> NaN before binning) and the stamp 6
+    on every split;
   - the quantized-gradient plane (``MMLSPARK_TORCH_HIST_QUANT=q16|q8``,
     ``resolve_hist_quant``): per-round power-of-two scales, int16/int8
     grad/hess, integer histograms, and root stats from the level-0
@@ -142,6 +153,21 @@ class TrainConfig:
     min_data_per_group: int = 100
     min_data_in_bin: int = 3
 
+    def __post_init__(self):
+        # the config keys the captured-step cache: every field hashable
+        cat = self.categorical_features
+        if isinstance(cat, (int, np.integer)):
+            cat = (cat,)
+        if cat is not None and not isinstance(cat, tuple):
+            object.__setattr__(self, "categorical_features",
+                               tuple(int(i) for i in cat))
+        elif isinstance(cat, tuple):
+            object.__setattr__(self, "categorical_features", cat)
+
+    @property
+    def has_categorical(self) -> bool:
+        return bool(self.categorical_features)
+
     @property
     def effective_depth(self) -> int:
         # enough depth for num_leaves leaves, capped by max_depth if set
@@ -159,10 +185,8 @@ _LATER = {
     "feature_fraction_by_node":
         "A7 (GBDT breadth: feature_fraction_by_node)",
     "num_class": "A7 (GBDT breadth: multiclass)",
-    "categorical_features": "A7 (GBDT breadth: categorical splits)",
     "monotone_constraints": "A7 (GBDT breadth: monotone constraints)",
     "extra_trees": "A7 (GBDT breadth: extra_trees)",
-    "zero_as_missing": "A7 (GBDT breadth: zero_as_missing)",
     "tree_learner": "A8 (multi-device GBDT)",
 }
 _DEFAULTS = {fl.name: fl.default for fl in fields(TrainConfig)}
@@ -175,8 +199,6 @@ def check_supported(cfg: TrainConfig) -> None:
         default = _DEFAULTS[name]
         if name == "monotone_constraints":
             off = not np.any(value)
-        elif name == "categorical_features":
-            off = value is None or np.size(value) == 0
         elif name == "boosting_type":
             off = value in ("gbdt", "goss", "rf")
         else:
@@ -298,10 +320,15 @@ def resolve_subtract() -> bool:
 # Tree building (device side)
 # ---------------------------------------------------------------------------
 
-def _leaf_objective_impl(g, h, lam1, lam2):
-    """L1-regularized leaf value and its score contribution."""
+def _leaf_objective_impl(g, h, lam1, lam2, extra_l2=None):
+    """L1-regularized leaf value and its score contribution;
+    ``extra_l2`` (categorical splits' ``cat_l2``) adds to ``lam2`` in
+    the reference's order, ``h + lam2 + extra_l2 + 1e-30``."""
     g_adj = torch.sign(g) * torch.clamp_min(torch.abs(g) - lam1, 0.0)
-    denom = h + lam2 + 1e-30
+    denom = h + lam2
+    if extra_l2 is not None:
+        denom = denom + extra_l2
+    denom = denom + 1e-30
     value = -g_adj / denom
     score = g_adj * g_adj / denom
     return value, score
@@ -410,7 +437,25 @@ def _find_numeric_splits(hist, feat_mask, remaining, parent_value, *, b,
     Returns (do_split, best_feat, best_bin, lval, rval, left_stats,
     right_stats, remaining, smaller_side); ``smaller_side`` is 0 where
     the left child holds no more rows than the right, else 1."""
-    width = hist.shape[0]
+    gain, _ = _numeric_gains(hist, feat_mask, b=b, lam1=lam1, lam2=lam2,
+                             min_child=min_child, min_hess=min_hess,
+                             min_gain=min_gain)
+    do_split, best_feat, best_bin, remaining = _best_splits(gain, remaining,
+                                                           b)
+    left_mask = torch.arange(b, device=hist.device)[None, :] \
+        <= best_bin[:, None]
+    lval, rval, left_stats, right_stats, smaller_side = _children(
+        hist, best_feat, left_mask, parent_value, lam1=lam1, lam2=lam2,
+        path_smooth=path_smooth, max_delta_step=max_delta_step)
+    return (do_split, best_feat, best_bin, lval, rval, left_stats,
+            right_stats, remaining, smaller_side)
+
+
+def _numeric_gains(hist, feat_mask, *, b, lam1, lam2, min_child, min_hess,
+                   min_gain):
+    """(width, F, B) gain of every ordered split ``bin <= t`` (-inf where
+    a guard fails, the feature is masked, or t is the last bin), and the
+    (width, F, 1, 3) totals."""
     dev = hist.device
     cum = torch.cumsum(hist, dim=2)              # left stats per bin
     tot = cum[:, :, -1:, :]
@@ -428,8 +473,15 @@ def _find_numeric_splits(hist, feat_mask, remaining, parent_value, *, b,
         ok &= (feat_mask > 0)[None, :, None]
     # last bin can't split (right side empty by construction)
     ok &= torch.arange(b, device=dev)[None, None, :] < b - 1
-    gain = torch.where(ok, gain, -torch.inf)
+    return torch.where(ok, gain, -torch.inf), tot
 
+
+def _best_splits(gain, remaining, b: int):
+    """The first-max split per node of the (width, F, B) gains and the
+    leaf budget (within-level gain ranking): (do_split, best_feat,
+    best_bin, remaining)."""
+    width = gain.shape[0]
+    dev = gain.device
     flat_gain = gain.reshape(width, -1)
     # torch.argmax returns the first maximum (all -inf rows give 0)
     best_fb = torch.argmax(flat_gain, dim=1)
@@ -444,17 +496,23 @@ def _find_numeric_splits(hist, feat_mask, remaining, parent_value, *, b,
     rank = torch.empty_like(order).scatter_(
         0, order, torch.arange(width, device=dev))
     do_split = can_split & (rank < remaining)
-    remaining = remaining - do_split.sum()
+    return do_split, best_feat, best_bin, remaining - do_split.sum()
 
-    left_mask = torch.arange(b, device=dev)[None, :] <= best_bin[:, None]
-    hist_best = hist[torch.arange(width, device=dev), best_feat]  # (width, B, 3)
+
+def _children(hist, best_feat, left_mask, parent_value, *, lam1, lam2,
+              path_smooth, max_delta_step, extra_l2=None):
+    """Child values and stats of each node's chosen split, whose left
+    bins are ``left_mask`` (width, B): (lval, rval, left_stats,
+    right_stats, smaller_side)."""
+    width = hist.shape[0]
+    hist_best = hist[torch.arange(width, device=hist.device), best_feat]
     left_stats = torch.sum(hist_best * left_mask[..., None], dim=1)
     tot_best = torch.sum(hist_best, dim=1)
     right_stats = tot_best - left_stats
     lval, _ = _leaf_objective_impl(left_stats[:, 0], left_stats[:, 1],
-                                   lam1, lam2)
+                                   lam1, lam2, extra_l2)
     rval, _ = _leaf_objective_impl(right_stats[:, 0], right_stats[:, 1],
-                                   lam1, lam2)
+                                   lam1, lam2, extra_l2)
     if path_smooth > 0:
         # shrink child outputs toward the parent's by n/(n+ps)
         wl = left_stats[:, 2] / (left_stats[:, 2] + path_smooth)
@@ -465,8 +523,95 @@ def _find_numeric_splits(hist, feat_mask, remaining, parent_value, *, b,
         lval = torch.clamp(lval, -max_delta_step, max_delta_step)
         rval = torch.clamp(rval, -max_delta_step, max_delta_step)
     smaller_side = torch.where(left_stats[:, 2] <= right_stats[:, 2], 0, 1)
-    return (do_split, best_feat, best_bin, lval, rval, left_stats,
-            right_stats, remaining, smaller_side)
+    return lval, rval, left_stats, right_stats, smaller_side
+
+
+def _find_categorical_splits(hist, feat_mask, remaining, parent_value,
+                             is_cat, cfg, *, b, lam1, lam2, min_child,
+                             min_hess, min_gain, path_smooth,
+                             max_delta_step):
+    """Split finding for one level of a fit with categorical features
+    (``is_cat``, (F,) bool): the categorical branch of the reference's
+    ``make_build_tree``. Numeric features gain as in
+    ``_find_numeric_splits``; a categorical feature's used bins (rows
+    present, never the missing bin 0) are sorted by grad / (hess +
+    cat_smooth) (stable: ties and the unused bins, at +inf, keep bin
+    order), those of at least ``min_data_per_group`` rows scanned as
+    prefixes under ``lambda_l2 + cat_l2`` with at most
+    ``max_cat_threshold`` categories on the smaller side; a node using at
+    most ``max_cat_to_onehot`` categories takes one-vs-rest splits.
+
+    Returns (do_split, best_feat, best_bin, left_mask, chosen_cat, lval,
+    rval, left_stats, right_stats, remaining, smaller_side):
+    ``left_mask`` (width, B) the bins each chosen split sends left,
+    ``best_bin`` a categorical split's prefix length - 1 (sorted scan) or
+    its category's bin (one-vs-rest)."""
+    dev = hist.device
+    gain, tot = _numeric_gains(hist, feat_mask, b=b, lam1=lam1, lam2=lam2,
+                               min_child=min_child, min_hess=min_hess,
+                               min_gain=min_gain)
+    gt, ht, ct = tot[..., 0], tot[..., 1], tot[..., 2]
+    fmask = (torch.ones_like(is_cat) if feat_mask is None
+             else feat_mask > 0)[None, :, None]
+    g_b, h_b, c_b = hist[..., 0], hist[..., 1], hist[..., 2]
+    bins = torch.arange(b, device=dev)
+    used = (c_b > 0) & (bins > 0)[None, None, :]
+    used_sorted = used & (c_b >= float(max(cfg.min_data_per_group, 1)))
+    ratio = torch.where(used_sorted, g_b / (h_b + cfg.cat_smooth), torch.inf)
+    # jnp.argsort is stable
+    sort_idx = torch.argsort(ratio, dim=2, stable=True)
+    scum = torch.cumsum(torch.gather(
+        hist, 2, sort_idx[..., None].expand(-1, -1, -1, 3)), dim=2)
+    num_used = used.sum(dim=2)
+    num_sorted = used_sorted.sum(dim=2)
+    gl_c, hl_c, cl_c = scum[..., 0], scum[..., 1], scum[..., 2]
+    gr_c, hr_c, cr_c = gt - gl_c, ht - hl_c, ct - cl_c
+    _, cscore_l = _leaf_objective_impl(gl_c, hl_c, lam1, lam2, cfg.cat_l2)
+    _, cscore_r = _leaf_objective_impl(gr_c, hr_c, lam1, lam2, cfg.cat_l2)
+    _, cscore_p = _leaf_objective_impl(gt, ht, lam1, lam2, cfg.cat_l2)
+    cgain = 0.5 * (cscore_l + cscore_r - cscore_p)
+    pos1 = (bins + 1)[None, None, :]               # the left set's size
+    side = torch.minimum(pos1, num_sorted[..., None] - pos1)
+    cok = ((pos1 < num_sorted[..., None])
+           & (side <= cfg.max_cat_threshold)
+           & (cl_c >= min_child) & (cr_c >= min_child)
+           & (hl_c >= min_hess) & (hr_c >= min_hess)
+           & (cgain > min_gain))
+    cgain = torch.where(cok, cgain, -torch.inf)
+    # one-vs-rest, indexed by the category's bin
+    _, oscore_l = _leaf_objective_impl(g_b, h_b, lam1, lam2, cfg.cat_l2)
+    _, oscore_r = _leaf_objective_impl(gt - g_b, ht - h_b, lam1, lam2,
+                                       cfg.cat_l2)
+    ogain = 0.5 * (oscore_l + oscore_r - cscore_p)
+    ook = (used & (c_b >= min_child) & (ct - c_b >= min_child)
+           & (h_b >= min_hess) & (ht - h_b >= min_hess)
+           & (ogain > min_gain) & (num_used[..., None] > 1))
+    ogain = torch.where(ook, ogain, -torch.inf)
+    onehot = num_used <= cfg.max_cat_to_onehot
+    cat_gain = torch.where(fmask, torch.where(onehot[..., None], ogain,
+                                              cgain), -torch.inf)
+    gain = torch.where(is_cat[None, :, None], cat_gain, gain)
+    do_split, best_feat, best_bin, remaining = _best_splits(gain, remaining,
+                                                           b)
+
+    sel = torch.arange(gain.shape[0], device=dev)
+    mask_num = bins[None, :] <= best_bin[:, None]
+    chosen_cat = is_cat[best_feat] & do_split
+    # each bin's place in its node's sorted order (a permutation's
+    # inverse, so stability does not matter)
+    bin_rank = torch.argsort(sort_idx[sel, best_feat], dim=1, stable=True)
+    mask_prefix = (bin_rank <= best_bin[:, None]) & used_sorted[sel, best_feat]
+    mask_cat = torch.where(
+        (num_used[sel, best_feat] <= cfg.max_cat_to_onehot)[:, None],
+        bins[None, :] == best_bin[:, None], mask_prefix)
+    left_mask = torch.where(chosen_cat[:, None], mask_cat, mask_num)
+    lx2 = torch.where(chosen_cat, cfg.cat_l2, 0.0).to(torch.float32)
+    lval, rval, left_stats, right_stats, smaller_side = _children(
+        hist, best_feat, left_mask, parent_value, lam1=lam1, lam2=lam2,
+        path_smooth=path_smooth, max_delta_step=max_delta_step,
+        extra_l2=lx2)
+    return (do_split, best_feat, best_bin, left_mask, chosen_cat, lval, rval,
+            left_stats, right_stats, remaining, smaller_side)
 
 
 def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
@@ -480,7 +625,11 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
     of the features the tree may split on (all where None), as the
     reference builder's (``make_build_tree``). Returns the full-layout
     (split_feature int32, threshold_bin int32, node_value float32,
-    node_count float32) device tensors, each (2^(D+1)-1,)."""
+    node_count float32) device tensors, each (2^(D+1)-1,); for a fit with
+    categorical features also (decision_type int8 (slots,), bin_go_left
+    bool (slots, B): the bins each split sends left, by which its rows
+    are routed; ``_find_categorical_splits``), as the reference's
+    ``make_build_tree`` returns them."""
     dev = binned.device
     n, f = binned.shape
     b = total_bins
@@ -500,6 +649,17 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
     threshold_bin = torch.zeros(num_slots, dtype=torch.int32, device=dev)
     node_value = torch.zeros(num_slots, dtype=torch.float32, device=dev)
     node_count = torch.zeros(num_slots, dtype=torch.float32, device=dev)
+    has_cat = cfg.has_categorical
+    if has_cat:
+        # filled slot by slot with a scalar fill: no host-to-device copy
+        # inside a capture
+        is_cat = torch.zeros(f, dtype=torch.bool, device=dev)
+        for slot in cfg.categorical_features:
+            is_cat[slot:slot + 1].fill_(True)
+        decision_type = torch.zeros(num_slots, dtype=torch.int8, device=dev)
+        bin_go_left = torch.zeros((num_slots, b), dtype=torch.bool,
+                                  device=dev)
+        num_bits = 6 if cfg.zero_as_missing else 10
 
     # every row valid: grad * 1 and hess * 1 are the same bits
     grad_v, hess_v = ((grad, hess) if valid is None else
@@ -562,10 +722,22 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
                                   cfg.max_delta_step)
             node_value[0] = rv0
             node_count[0] = tot0[2]
-        (do_split, best_feat, best_bin, lval, rval, left_stats, right_stats,
-         remaining, small_side) = _find_numeric_splits(
-            hist, feat_mask, remaining, node_value[level_start:kids],
-            **split_kw)
+        if has_cat:
+            (do_split, best_feat, best_bin, left_mask, chosen_cat, lval, rval,
+             left_stats, right_stats, remaining, small_side) = \
+                _find_categorical_splits(
+                    hist, feat_mask, remaining, node_value[level_start:kids],
+                    is_cat, cfg, **split_kw)
+            decision_type[level_start:kids] = torch.where(
+                chosen_cat, 1, torch.where(do_split, num_bits, 0)).to(
+                    torch.int8)
+            bin_go_left[level_start:kids] = left_mask & do_split[:, None]
+        else:
+            (do_split, best_feat, best_bin, lval, rval, left_stats,
+             right_stats, remaining, small_side) = _find_numeric_splits(
+                hist, feat_mask, remaining, node_value[level_start:kids],
+                **split_kw)
+            left_mask = None
         if subtract:
             prev_hist, prev_split, prev_ss = hist, do_split, small_side
         split_feature[level_start:kids] = torch.where(
@@ -584,17 +756,22 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
         nfeat = best_feat[local]
         nbin = torch.gather(binned, 1, nfeat[:, None])[:, 0]
         nsplit = do_split[local]
-        go_left = nbin.to(torch.int64) <= best_bin[local]
+        go_left = (left_mask[local, nbin.long()] if left_mask is not None
+                   else nbin.to(torch.int64) <= best_bin[local])
         child = torch.where(go_left, 2 * node + 1, 2 * node + 2)
         newly_done = ~nsplit & ~done
         node = torch.where(done | ~nsplit, node, child)
         done = done | newly_done
+    if has_cat:
+        return (split_feature, threshold_bin, node_value, node_count,
+                decision_type, bin_go_left)
     return split_feature, threshold_bin, node_value, node_count
 
 
-def _predict_tree(sf, tb, nv, binned, depth: int):
+def _predict_tree(sf, tb, nv, binned, depth: int, bin_go_left=None):
     """(N,) leaf values of one full-layout tree on the (N, F) binned
-    matrix: ``depth`` gather steps, bins <= threshold go left."""
+    matrix: ``depth`` gather steps, bins <= threshold go left, or with
+    ``bin_go_left`` (slots, B) the bins each split's mask sends left."""
     n = binned.shape[0]
     sf, tb = sf.long(), tb.long()
     nodev = torch.zeros(n, dtype=torch.int64, device=binned.device)
@@ -602,8 +779,9 @@ def _predict_tree(sf, tb, nv, binned, depth: int):
         feat = sf[nodev]
         is_leaf = feat < 0
         fb = torch.gather(binned, 1, torch.clamp_min(feat, 0)[:, None])[:, 0]
-        child = torch.where(fb.long() <= tb[nodev], 2 * nodev + 1,
-                            2 * nodev + 2)
+        left = (bin_go_left[nodev, fb.long()] if bin_go_left is not None
+                else fb.long() <= tb[nodev])
+        child = torch.where(left, 2 * nodev + 1, 2 * nodev + 2)
         nodev = torch.where(is_leaf, nodev, child)
     return nv[nodev]
 
@@ -796,6 +974,8 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     total = cfg.num_iterations
     block = max(esr, 8) if has_es else total
     slots = step_mod.num_slots(cfg)
+    bins = step_mod.mask_bins(cfg)
+    cols = step_mod.tree_cols(slots, bins)
     vidx = labels_order.index(f"valid0_{metric_name}") if has_es else -1
     rows, met_host = [], []
     best_iter, stop_after = -1, None
@@ -804,7 +984,7 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
         """Metric values [len(met_host), upto) to the host in one copy."""
         if upto > len(met_host):
             met_host.extend(torch.stack(rows[len(met_host):upto])
-                            [:, 4 * slots:].cpu().numpy())
+                            [:, cols:].cpu().numpy())
 
     st = step_mod.open_step(
         cfg, binned_d, labels_d, weights_d, raw, valids,
@@ -842,15 +1022,16 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     with measures.phase("validation"):
         # one transfer of every kept tree and metric
         packed = (torch.stack(rows[:kept]).cpu().numpy() if kept else
-                  np.zeros((0, 4 * slots + len(labels_order)), np.float32))
-    sf_h, tb_h, nv_h, cnt_h, met = step_mod.unpack(packed, slots)
+                  np.zeros((0, cols + len(labels_order)), np.float32))
+    sf_h, tb_h, nv_h, cnt_h, met = step_mod.unpack(packed, slots, bins)
+    masks = step_mod.unpack_masks(packed, slots, bins) if bins else None
     evals = [{"iteration": j,
               **{name: float(met[j, mi])
                  for mi, name in enumerate(labels_order)}}
              for j in range(kept)]
     booster = _assemble_booster(sf_h, tb_h, nv_h, cnt_h, cfg, num_f,
                                 total_bins, depth, bin_upper, base_score,
-                                best_iter, init_model)
+                                best_iter, init_model, masks)
     return TrainResult(booster=booster, evals=evals, best_iteration=best_iter,
                        hist_stats={"hist_quant": hist_quant,
                                    "subtract": subtract},
@@ -861,12 +1042,19 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
 
 def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,
                       total_bins, depth, bin_upper, base_score, best_iter=-1,
-                      init_model=None):
-    """Pack the (T, M) host arrays into a numeric ``BoosterArrays`` with
+                      init_model=None, masks=None):
+    """Pack the (T, M) host arrays into a ``BoosterArrays`` with
     raw-value thresholds from ``bin_upper``; rf's trees weighted
     ``1 / T`` (they average), others 1; with early stopping, only the
     trees through ``best_iter``; after a warm start, ``init_model``'s
-    trees first (``BoosterArrays.concat``)."""
+    trees first (``BoosterArrays.concat``). ``masks``: a categorical
+    fit's (decision_type, bin_go_left) per tree; each categorical
+    split's left bins become a bitset over the raw category values
+    (``bin_upper`` holds each categorical bin's category id), LightGBM's
+    ``cat_threshold`` layout, as the reference's ``_assemble_booster``
+    builds it, refusing negative, fractional or huge category values.
+    A zero-as-missing fit without categorical features stamps 6
+    (default-left, zero and NaN missing) on every split."""
     num_trees = sf_all.shape[0]
     weights = np.ones(num_trees, dtype=np.float32)
     if cfg.boosting_type == "rf" and num_trees:
@@ -877,10 +1065,39 @@ def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,
         sf_all, tb_all = sf_all[:keep], tb_all[:keep]
         nv_all, cnt_all = nv_all[:keep], cnt_all[:keep]
         weights = weights[:keep]
+        if masks is not None:
+            masks = (masks[0][:keep], masks[1][:keep])
     if bin_upper is None:
         bin_upper = np.full((num_f, total_bins), np.inf)
     thr_val = np.where(sf_all >= 0,
                        bin_upper[np.maximum(sf_all, 0), tb_all], np.inf)
+    dt_all = cat_bitset = None
+    if masks is not None and num_trees:
+        dt_all, bgl_all = masks
+        thr_val = np.where(dt_all == 1, np.nan, thr_val)
+        node_vals = []   # (t, m, the left set's category values)
+        for t, m in np.argwhere(dt_all == 1):
+            vals = bin_upper[sf_all[t, m], 1:][bgl_all[t, m, 1:]]
+            vals = vals[np.isfinite(vals)]
+            if vals.size and ((vals < 0).any()
+                              or (vals != np.floor(vals)).any()):
+                raise ValueError(
+                    "categorical feature values must be non-negative "
+                    "integers (index them first, e.g. ValueIndexer)")
+            node_vals.append((t, m, vals.astype(np.int64)))
+        max_val = max((int(v.max()) for _, _, v in node_vals if v.size),
+                      default=0)
+        if max_val >= 1 << 20:
+            raise ValueError(
+                f"categorical value {max_val} too large for bitset "
+                f"representation; re-index categories to a dense range")
+        cat_bitset = np.zeros(sf_all.shape + (max_val // 32 + 1,),
+                              np.uint32)
+        for t, m, vals in node_vals:
+            np.bitwise_or.at(cat_bitset[t, m], vals // 32,
+                             np.uint32(1) << (vals % 32).astype(np.uint32))
+    elif cfg.zero_as_missing:
+        dt_all = np.where(sf_all >= 0, 6, 0).astype(np.int8)
     booster = BoosterArrays(
         split_feature=sf_all,
         threshold_bin=tb_all,
@@ -893,6 +1110,8 @@ def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,
         num_class=1,
         objective=cfg.objective,
         init_score=base_score,
+        decision_type=dt_all,
+        cat_bitset=cat_bitset,
     )
     if init_model is not None:
         booster = BoosterArrays.concat(init_model, booster)

@@ -81,6 +81,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # host x, x, x code, x bytes, packed nodes, products, out, host
         # out, init_score, n, f, trees, nodes per tree, depth, classes, the
         # plan, device, stream
+        # x, packed decision nodes, products, out, init_score, n, f,
+        # trees, nodes per tree, depth, classes, bitsets, words per
+        # bitset, leaf map, leaf slots (or null), the plan, device, stream
+        "mmls_tree_score_decision": ([_VP] * 4 + [ctypes.c_float, _LL]
+                                     + [_I] * 5 + [_VP, _I, _VP, _VP]
+                                     + [_I] * 8 + [_VP], _I),
         "mmls_tree_score_staged": ([_VP, _VP, _I, _LL] + [_VP] * 4
                                    + [ctypes.c_float, _LL] + [_I] * 13
                                    + [_VP], _I),

@@ -1,5 +1,4 @@
-"""Quantile feature binning — the port's copy of ``BinMapper`` for
-numeric features.
+"""Quantile feature binning — the port's copy of ``BinMapper``.
 
 Bin boundaries are computed once on the host from a row sample, as the
 JAX package does; the binned (row, feature) -> uint8 matrix is what goes
@@ -7,16 +6,20 @@ to the card. Conventions (unchanged from the JAX package):
 
   - bin 0 is reserved for missing values (NaN);
   - boundaries are upper edges: value v lands in the smallest bin with
-    v <= edge; the last bin catches +inf.
+    v <= edge; the last bin catches +inf;
+  - categorical features bin by integer category id: the sample's
+    categories by count, at most ``max_bin - 2`` of them, category i of
+    the sorted kept ids in bin i + 1; a value that is not a kept
+    category (rare, unseen, fractional) lands in bin 0 with NaN.
 
-``transform`` bins in the port's own C++ (``native/data_plane.cpp``, a
-copy of the JAX package's ``mmls_bin_matrix``, built at first use by
-``native/bindings.py``), as the JAX package's ``transform`` does by
-default; ``_transform_python`` is its plain numpy version, which the
-tests hold it to bit for bit.
+``transform`` bins numeric columns in the port's own C++
+(``native/data_plane.cpp``, a copy of the JAX package's
+``mmls_bin_matrix``, built at first use by ``native/bindings.py``), as
+the JAX package's ``transform`` does by default, and categorical columns
+by the JAX package's numpy lookup; ``_transform_python`` is the plain
+numpy version of both, which the tests hold it to bit for bit.
 
-This slice covers numeric features only; categorical binning and the
-streaming sketch fit (``fit_streaming``) are later work.
+The streaming sketch fit (``fit_streaming``) is later work (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -76,17 +79,29 @@ def _numeric_edges(uniq: np.ndarray, counts: np.ndarray, usable_bins: int,
 
 @dataclass
 class BinMapper:
-    """Per-dataset numeric binning state."""
+    """Per-dataset binning state."""
 
     # upper_edges[f] has shape (num_bins_f - 2,); +inf edge implicit
     upper_edges: List[np.ndarray]
     max_bin: int
+    # (F,) bool, and per feature the sorted kept category ids (None for
+    # a numeric feature); None: every feature numeric
+    is_categorical: Optional[np.ndarray] = None
+    categories: Optional[List[Optional[np.ndarray]]] = None
+
+    def __post_init__(self):
+        if self.is_categorical is None:
+            self.is_categorical = np.zeros(len(self.upper_edges), bool)
+        if self.categories is None:
+            self.categories = [None] * len(self.upper_edges)
 
     @property
     def num_features(self) -> int:
         return len(self.upper_edges)
 
     def num_bins(self, f: int) -> int:
+        if self.is_categorical[f]:
+            return len(self.categories[f]) + 1
         return len(self.upper_edges[f]) + 2  # + catch-all last bin + missing bin
 
     @property
@@ -103,17 +118,29 @@ class BinMapper:
         over distinct values, merging bins that would hold fewer than
         ``min_data_in_bin`` sampled rows. ``max_bin_by_feature`` caps
         individual features below ``max_bin`` (entries <= 0 mean no
-        override)."""
-        if len(list(categorical_features)) > 0:
-            raise NotImplementedError(
-                "categorical binning is not in the port yet (ROADMAP A7, "
-                "GBDT breadth); bin numeric features only")
+        override). ``categorical_features``: the slots binned by category
+        id, the ``max_bin - 2`` most frequent of the sample's (ties broken
+        as the JAX package's ``np.argsort(-counts)`` breaks them)."""
         sample = np.asarray(sample, dtype=np.float64)
         _, num_f = sample.shape
+        cat = np.zeros(num_f, dtype=bool)
+        cat[list(categorical_features)] = True
         edges: List[np.ndarray] = []
+        cats: List[Optional[np.ndarray]] = []
         for f in range(num_f):
             col = sample[:, f]
             col = col[~np.isnan(col)]
+            if cat[f]:
+                edges.append(np.empty(0))
+                vals, counts = np.unique(col.astype(np.int64),
+                                         return_counts=True)
+                # rare categories overflow to the missing bin
+                cap = _feat_max_bin(f, max_bin, max_bin_by_feature) - 2
+                if len(vals) > cap:
+                    vals = np.sort(vals[np.argsort(-counts)[:cap]])
+                cats.append(vals)
+                continue
+            cats.append(None)
             if len(col) == 0:
                 edges.append(np.empty(0))
                 continue
@@ -122,16 +149,17 @@ class BinMapper:
             usable_bins = _feat_max_bin(f, max_bin, max_bin_by_feature) - 2
             edges.append(_numeric_edges(uniq, counts, usable_bins,
                                         min_data_in_bin))
-        return BinMapper(edges, max_bin)
+        return BinMapper(edges, max_bin, cat, cats)
 
     def transform(self, x: np.ndarray, dtype=np.int32) -> np.ndarray:
         """Map raw features (N, F) to bin ids (N, F); NaN -> bin 0. The
         ids are written as ``dtype`` (int32, or uint8 / uint16 where the
         mapper's bins fit, as ``binned_ingest_dtype`` picks), in the
-        port's C++ (``native/data_plane.cpp``). float32 and float64 rows
-        are read as they are; other inputs are converted to float64 one
-        block of ``_TRANSFORM_BLOCK_ROWS`` rows at a time, so no full
-        float64 copy is made."""
+        port's C++ (``native/data_plane.cpp``); categorical columns are
+        then looked up among their categories (``_category_bins``).
+        float32 and float64 rows are read as they are; other inputs are
+        converted to float64 one block of ``_TRANSFORM_BLOCK_ROWS`` rows
+        at a time, so no full float64 copy is made."""
         x = np.asarray(x)
         if x.ndim != 2 or x.shape[1] != self.num_features:
             raise ValueError(f"expected (N, {self.num_features}) features, "
@@ -144,7 +172,21 @@ class BinMapper:
                     or not block.flags.c_contiguous:
                 block = np.ascontiguousarray(block, dtype=np.float64)
             bindings.bin_matrix(block, edges, out[s:s + _TRANSFORM_BLOCK_ROWS])
+            for f in np.flatnonzero(self.is_categorical):
+                out[s:s + _TRANSFORM_BLOCK_ROWS, f] = self._category_bins(
+                    f, np.asarray(block[:, f], dtype=np.float64))
         return out
+
+    def _category_bins(self, f: int, col: np.ndarray) -> np.ndarray:
+        """Bin ids of categorical feature ``f``'s float64 values: the kept
+        category i in bin i + 1, anything else (NaN, a rare, unseen or
+        fractional value) in bin 0 (the JAX package's lookup)."""
+        cats = self.categories[f]
+        if not len(cats):
+            return np.zeros(len(col), np.int64)
+        idx = np.clip(np.searchsorted(cats, col), 0, len(cats) - 1)
+        b = np.where(cats[idx] == col, idx + 1, 0)
+        return np.where(np.isnan(col), 0, b)
 
     def _padded_edges(self) -> np.ndarray:
         """The (F, max edges + 1) float64 edges, each row padded with
@@ -163,6 +205,9 @@ class BinMapper:
         out = np.zeros(x.shape, dtype=np.int32)
         for f in range(self.num_features):
             col = x[:, f]
+            if self.is_categorical[f]:
+                out[:, f] = self._category_bins(f, col)
+                continue
             b = np.searchsorted(self.upper_edges[f], col, side="left") + 1
             out[:, f] = np.where(np.isnan(col), 0, b)
         return out
@@ -173,30 +218,36 @@ class BinMapper:
         the BinMapper."""
         out = np.full((self.num_features, total_bins), np.inf, dtype=np.float64)
         for f in range(self.num_features):
-            e = self.upper_edges[f]
-            out[f, 1:len(e) + 1] = e
+            if self.is_categorical[f]:
+                # a categorical bin's value is its category id
+                cats = self.categories[f]
+                out[f, 1:len(cats) + 1] = cats
+            else:
+                e = self.upper_edges[f]
+                out[f, 1:len(e) + 1] = e
             out[f, 0] = np.nan  # missing bin has no upper value
         return out
 
     # -- serialization ------------------------------------------------------
     def to_dict(self) -> dict:
-        """The JAX package's ``BinMapper.to_dict`` layout (every feature
-        numeric), so a saved model's mapper loads in either package."""
+        """The JAX package's ``BinMapper.to_dict`` layout, so a saved
+        model's mapper loads in either package."""
         return {
             "max_bin": self.max_bin,
-            "is_categorical": [False] * self.num_features,
+            "is_categorical": self.is_categorical.tolist(),
             "upper_edges": [e.tolist() for e in self.upper_edges],
-            "categories": [None] * self.num_features,
+            "categories": [None if c is None else c.tolist()
+                           for c in self.categories],
         }
 
     @staticmethod
     def from_dict(d: dict) -> "BinMapper":
-        if any(d.get("is_categorical") or ()):
-            raise NotImplementedError(
-                "categorical binning is not in the port yet (ROADMAP A7, "
-                "GBDT breadth); this mapper has categorical features")
+        edges = [np.asarray(e, dtype=np.float64) for e in d["upper_edges"]]
         return BinMapper(
-            upper_edges=[np.asarray(e, dtype=np.float64)
-                         for e in d["upper_edges"]],
+            upper_edges=edges,
             max_bin=d["max_bin"],
+            is_categorical=np.asarray(d.get("is_categorical")
+                                      or [False] * len(edges), dtype=bool),
+            categories=[None if c is None else np.asarray(c, dtype=np.int64)
+                        for c in (d.get("categories") or [None] * len(edges))],
         )

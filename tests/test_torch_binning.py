@@ -90,11 +90,6 @@ def test_float32_input_bins_like_jax():
                  JaxBinMapper.fit(x, max_bin=255), x)
 
 
-def test_categorical_features_are_a_later_slice():
-    with pytest.raises(NotImplementedError, match="categorical"):
-        BinMapper.fit(_data(n=100), categorical_features=[2])
-
-
 @pytest.mark.parametrize("total_bins", [2, 255, 256, 257, 65536, 65537])
 def test_binned_ingest_dtype_matches_jax(total_bins):
     assert binned_ingest_dtype(total_bins) == jax_ingest_dtype(total_bins)

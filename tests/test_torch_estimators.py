@@ -450,17 +450,6 @@ def test_native_model_files_round_trip(tmp_path):
     np.testing.assert_array_equal(got["rawPrediction"], want["rawPrediction"])
 
 
-@pytest.mark.parametrize("text_edit,match", [
-    (("decision_type=10", "decision_type=2"), "A5"),
-    (("num_cat=0", "num_cat=1"), "A5"),
-])
-def test_model_strings_outside_the_slice_raise(text_edit, match):
-    _, ref = _jax_model(seed=10, trees=1)
-    text = ref.get_model_string().replace(*text_edit, 1)
-    with pytest.raises(NotImplementedError, match=match):
-        BoosterArrays.load_model_string(text)
-
-
 @pytest.mark.parametrize("binned", [False, True])
 @pytest.mark.parametrize("kind,est", [
     ("LightGBMClassificationModel", "LightGBMClassifier"),
@@ -572,10 +561,6 @@ def test_diabetes_l2_matches_sklearn_hgb():
 # --- what the slice does not take ----------------------------------------------
 
 @pytest.mark.parametrize("kind,params,item", [
-    ("LightGBMClassifier", {"leafPredictionCol": "leaves"}, "A5"),
-    ("LightGBMClassifier", {"featuresShapCol": "shap"}, "A5"),
-    ("LightGBMClassifier", {"categoricalSlotIndexes": [1]}, "A7"),
-    ("LightGBMClassifier", {"zeroAsMissing": True}, "A7"),
     # goss, rf, bagging and feature_fraction fit (tests/test_torch_step.py);
     # beside a setting still outside the port they raise for that one
     ("LightGBMClassifier", {"boostingType": "goss", "extraTrees": True},
@@ -620,9 +605,11 @@ def test_multiclass_ranker_mesh_and_serving_raise():
     with pytest.raises(estimators.BinnedServingUnsupported,
                        match="leafPredictionCol"):
         model.copy(leafPredictionCol="l").serving_binned_plan()
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        model.copy(leafPredictionCol="l").transform(
-            DataFrame({"features": x}))
+    # such a model is served through transform, which takes the column
+    leaves = model.copy(leafPredictionCol="l").transform(
+        DataFrame({"features": x}))["l"]
+    np.testing.assert_array_equal(
+        leaves, model.booster.leaf_index(x, device="cpu").numpy())
 
 
 # --- custom objectives, checkpoints and the other objectives -------------------

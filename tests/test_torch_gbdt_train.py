@@ -165,20 +165,6 @@ def test_jax_fitted_booster_scores_bitwise_in_the_port():
                                       getattr(res.booster, name))
 
 
-def test_booster_with_decision_bits_is_a_later_slice():
-    x, y_bin, _ = _data(n=500)
-    mapper = BinMapper.fit(x, max_bin=MAX_BIN)
-    res = trainer.train(mapper.transform(x), y_bin,
-                        trainer.TrainConfig(**_cfg(objective="binary",
-                                                   num_iterations=1)),
-                        device="cpu")
-    stamped = dataclasses.replace(
-        res.booster, decision_type=np.zeros_like(res.booster.split_feature,
-                                                 dtype=np.int8))
-    with pytest.raises(NotImplementedError):
-        stamped.predict(x, device="cpu")
-
-
 @pytest.mark.parametrize("name", ["binary", "regression", "l2", "mse"])
 def test_objectives_match_jax(name):
     rng = np.random.default_rng(4)
@@ -244,9 +230,8 @@ def test_bin_ids_outside_max_bin_raise(bad):
     {"boosting_type": "goss", "extra_trees": True},
     {"feature_fraction": 0.5, "feature_fraction_by_node": 0.5},
     {"bagging_fraction": 0.8, "bagging_freq": 1, "boosting_type": "dart"},
-    {"num_class": 3},
-    {"categorical_features": (1,)}, {"monotone_constraints": (1, 0)},
-    {"extra_trees": True}, {"zero_as_missing": True},
+    {"num_class": 3}, {"monotone_constraints": (1, 0)},
+    {"extra_trees": True},
     {"tree_learner": "voting"}, {"boosting_type": "dart"},
     {"feature_fraction_by_node": 0.5}, {"objective": "multiclass"},
     {"metric": "ndcg"}, {"max_bin": 1000},

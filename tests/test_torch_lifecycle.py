@@ -107,6 +107,16 @@ def _health(server):
     return _get(f"http://{server.host}:{server.port}/healthz")
 
 
+def _wait_log(server, key, count, timeout=10.0):
+    """Wait until the server's request-log counter ``key`` (``log_rows``
+    or ``log_tap_errors``) reaches ``count``: the scoring thread sets a
+    reply's event before it calls the taps, so a reply can arrive before
+    its tap has run."""
+    deadline = time.monotonic() + timeout
+    while _health(server)[key] < count and time.monotonic() < deadline:
+        time.sleep(0.005)
+
+
 def _pred(model, x_row, frame=DataFrame):
     return float(model.transform(frame({"features": x_row[None, :]}))
                  .col("prediction")[0])
@@ -313,12 +323,14 @@ def test_observe_log_taps_and_absorbs_a_dying_tap():
         server.observe_log(lambda *a: other.append(a), model_name="other")
         for i in range(3):
             assert _post(server.url, {"x": float(i), "id": i})["id"] == i
+        _wait_log(server, "log_rows", 3)
         assert [s[1] for s in seen] == [[0.0], [1.0], [2.0]]
         assert [s[2] for s in seen] == [[0.0], [2.0], [4.0]]
         assert seen[0][0] == "default" and not other
         assert _health(server)["log_rows"] == 3
         faults.arm("serving.observe_log", "raise", count=1)
         assert _post(server.url, {"x": 5.0})["scaled"] == 10.0
+        _wait_log(server, "log_tap_errors", 1)
         health = _health(server)
         assert health["log_tap_errors"] == 1 and health["log_rows"] == 3
 

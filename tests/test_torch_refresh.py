@@ -115,6 +115,17 @@ def _get(url, timeout=10):
         return json.loads(r.read())
 
 
+def _wait_log(server, key, count, timeout=10.0):
+    """Wait until the server's request-log counter ``key`` (``log_rows``
+    or ``log_tap_errors``) reaches ``count``: the scoring thread sets a
+    reply's event before it calls the taps, so a reply can arrive before
+    its tap has run."""
+    deadline = time.monotonic() + timeout
+    while (server._health()[key] < count
+           and time.monotonic() < deadline):
+        time.sleep(0.005)
+
+
 def _pred(model, x_row):
     return float(model.transform(DataFrame({"features": x_row[None, :]}))
                  .col("prediction")[0])
@@ -331,6 +342,7 @@ def test_serving_tap_feeds_refresh_buffer(base, tmp_path):
             np.asarray(payload["features"], dtype=np.float64).tobytes()))
         for i in range(5):
             _post(server.url, {"features": x[i].tolist()})
+        _wait_log(server, "log_rows", 5)
         # row 4 has no label: the labeler abstains
         assert ctrl.buffer.rows == 4 and ctrl.stats["tap_rows"] == 4
         bx, by = ctrl.buffer.drain()
@@ -340,6 +352,7 @@ def test_serving_tap_feeds_refresh_buffer(base, tmp_path):
         faults.arm("serving.observe_log", "raise", count=1)
         reply = _post(server.url, {"features": x[0].tolist()})
         assert reply["prediction"] == _pred(port, x[0])
+        _wait_log(server, "log_tap_errors", 1)
         assert server._health()["log_tap_errors"] == 1
         # the default label is the served prediction
         ctrl2 = RefreshController(_estimator(), port, str(tmp_path / "b"))
@@ -347,6 +360,8 @@ def test_serving_tap_feeds_refresh_buffer(base, tmp_path):
             ctrl2.tap_serving()
         ctrl2.tap_serving(server=server)
         _post(server.url, {"features": x[1].tolist()})
+        # both taps took the row: 5 before, the faulted one none
+        _wait_log(server, "log_rows", 7)
         assert ctrl2.buffer.drain()[1].tolist() == [_pred(port, x[1])]
 
 
@@ -560,6 +575,7 @@ def test_online_platform_flow_on_the_port(tmp_path):
             np.asarray(payload["features"], dtype=np.float64).tobytes()))
         for i in range(tapped):
             _post(w0.url, {"features": X2[i].tolist()})
+        _wait_log(w0, "log_rows", tapped)
         trigger, report = ctrl.poll()
         assert trigger == "drift" and report.drifted
         control = RefreshController(_estimator(**est), model,

@@ -266,6 +266,7 @@ def test_a_cpu_tensor_runs_the_plain_version():
 
 
 @pytest.mark.parametrize("fn,count", [("mmls_tree_score", 21),
+                                      ("mmls_tree_score_decision", 24),
                                       ("mmls_tree_score_staged", 24)])
 def test_the_c_signature_matches_the_declared_argtypes(fn, count):
     src = (bindings.CSRC / "tree_score.cu").read_text()
@@ -541,8 +542,12 @@ def _replay(x, tables, plan):
     pass or a rank walks (``max_depth`` steps each, bin ids clamped to
     65535), the order the products are folded in (the rows plan's
     accumulators rotated as the classes come round), and which rows
-    each CTA writes (once per pass and class; none past N)."""
-    feat, thr = (v.numpy() for v in score_cuda.unpack_nodes(tables))
+    each CTA writes (once per pass and class; none past N). Decision
+    tables route by the kernel's decision rule, and every walk writes its
+    leaf slot: each (row, tree) once. Returns the scores, and for
+    decision tables the leaf slots."""
+    unpacked = [v.numpy() for v in score_cuda.unpack_nodes(tables)]
+    feat, thr = unpacked[0], unpacked[-2 if tables.decision else 1]
     prod = tables.products.numpy()
     xs = x.numpy()
     n, trees, m, k = x.shape[0], tables.num_trees, tables.num_nodes, \
@@ -551,15 +556,27 @@ def _replay(x, tables, plan):
     init = np.float32(tables.init_score)
     out = np.zeros((n, k), np.float32)
     writes = np.zeros((n, k), np.int64)
+    slots = np.zeros((n, trees), np.int64)
+    leaf_writes = np.zeros((n, trees), np.int64)
+    if tables.decision:
+        words = tables.nodes.numpy()
+        bits = tables.bits.numpy().view(np.uint32)
 
-    def product(t, row):
+    def product(t, row, r):
         node = 0
         for _ in range(depth):
             f, th = feat[t * m + node], thr[t * m + node]
             v = row[f]
-            left = (np.isnan(v) or v <= th) if tables.raw \
-                else min(int(v), 65535) <= th
+            if tables.decision:
+                left = _decision_rule(v, *words[t * m + node], bits,
+                                      tables.bit_words)
+            else:
+                left = (np.isnan(v) or v <= th) if tables.raw \
+                    else min(int(v), 65535) <= th
             node = 2 * node + (1 if left else 2)
+        if tables.decision:
+            slots[r, t] = tables.leaf_slot[t * m + node]
+            leaf_writes[r, t] += 1
         return prod[t * m + node]
 
     def fold(acc, p):
@@ -591,7 +608,8 @@ def _replay(x, tables, plan):
                                             _next_tree(k, c0, gs, tree, cls)
                                 for t in group:
                                     assert t % k == c0 + (phase + folded) % gs
-                                    acc[0] = fold(acc[0], product(t, xs[r]))
+                                    acc[0] = fold(acc[0],
+                                                  product(t, xs[r], r))
                                     acc = _rotate(acc, gs)
                                     folded += 1
                             nxt = (phase + folded) % gs
@@ -608,7 +626,7 @@ def _replay(x, tables, plan):
                 prods = np.empty((hi - lo) * nb)
                 for w in range(nb * (hi - lo)):
                     tl, rl = divmod(w, nb)
-                    prods[w] = product(lo + tl, xs[row0 + rl])
+                    prods[w] = product(lo + tl, xs[row0 + rl], row0 + rl)
                 ranks.append((lo, hi, prods))
             for p in range(nb * k):     # rank 0: a thread per (row, class)
                 c, r = divmod(p, nb)
@@ -621,7 +639,30 @@ def _replay(x, tables, plan):
                 out[row0 + r, c] = acc
                 writes[row0 + r, c] += 1
         assert (writes == 1).all()
-    return out[:, 0] if k == 1 else out
+    scores = out[:, 0] if k == 1 else out
+    if not tables.decision:
+        return scores
+    assert (leaf_writes == 1).all()
+    return scores, slots
+
+
+def _decision_rule(v, word0, word1, bits, bit_words):
+    """``Node<DFloat>::left`` of ``csrc/tree_score.cu`` in scalar numpy
+    float32, on a packed decision node's two words."""
+    v = np.float32(v)
+    d = (int(word0) & 0xFFFFFFFF) >> 16
+    if d & 1:
+        t = np.trunc(v)
+        if not (t >= 0 and t < np.float32(bit_words * 32)):
+            return False
+        c = int(t)
+        return bool((int(bits[int(word1) + (c >> 5)]) >> (c & 31)) & 1)
+    nan = np.isnan(v)
+    x = np.float32(0.0) if nan else v
+    mt = (d >> 2) & 3
+    missing = nan if mt == 2 else (mt == 1 and x == 0.0)
+    thr = np.array([word1], np.int32).view(np.float32)[0]
+    return bool(d & 2) if missing else bool(x <= thr)
 
 
 REPLAYS = {
@@ -640,6 +681,12 @@ REPLAYS = {
     "rows_global_deep": (3, 14, 1, False, 21, "rows"),
     "rows_int32_ids_past_65535": (30, 6, 2, False, 33, "rows"),
     "cluster_int32_ids_past_65535": (30, 6, 1, False, 33, "cluster"),
+    "cluster_decision": (60, 5, 1, "decision", 45, "score"),
+    "cluster_decision_k3": (50, 4, 3, "decision", 64, "cluster"),
+    "rows_decision_chunks": (300, 6, 1, "decision", 37, "rows"),
+    "rows_decision_k2_tiles_of_1024": (20, 5, 2, "decision", 1100,
+                                       "rows_one_sm"),
+    "rows_decision_global_deep": (3, 14, 1, "decision", 9, "rows"),
 }
 
 
@@ -653,8 +700,19 @@ def test_the_kernels_loops_under_each_plan_give_the_plain_bits(case):
     if "nan" in case:
         tv = arrays["threshold_value"]
         tv[np.random.default_rng(61).random(tv.shape) < 0.3] = np.nan
+    decision = raw == "decision"
+    if decision:
+        # every decision byte, categorical nodes over 40 categories
+        rng = np.random.default_rng(62)
+        internal = arrays["split_feature"] >= 0
+        arrays["decision_type"] = np.where(internal, rng.choice(
+            [0, 1, 2, 4, 6, 8, 10, 12, 14, 1, 3], internal.shape),
+            0).astype(np.int8)
+        arrays["cat_bitset"] = rng.integers(
+            0, 2 ** 32, internal.shape + (2,), dtype=np.uint64).astype(
+                np.uint32)
     pb = BoosterArrays(**arrays)
-    tables = pb._scorer(raw, "off", "cpu").tables
+    tables = pb._scorer(bool(raw), "off", "cpu", decision=decision).tables
     rng = np.random.default_rng(60)
     x = torch.as_tensor(_raw_rows(rng, n, pb).astype(np.float32)) if raw \
         else torch.as_tensor(_bins(rng, n, np.int32, 70_000)
@@ -672,5 +730,16 @@ def test_the_kernels_loops_under_each_plan_give_the_plain_bits(case):
         assert len(_chunks(plan, trees)) > 1
     if case == "rows_global_deep":
         assert plan.tables == "global"
+    if decision:
+        # categories, negative and fractional values and zeros too
+        x[:, ::3] = torch.as_tensor(rng.choice(
+            [0.0, -0.0, 3.0, 17.5, 39.0, 64.0, -2.0, np.nan],
+            size=x[:, ::3].shape).astype(np.float32))
+        want, want_slots = score_cuda.tree_score_reference(x, tables,
+                                                           leaves=True)
+        got, got_slots = _replay(x, tables, plan)
+        np.testing.assert_array_equal(got, want.numpy())
+        np.testing.assert_array_equal(got_slots, want_slots.numpy())
+        return
     want = score_cuda.tree_score_reference(x, tables).numpy()
     np.testing.assert_array_equal(_replay(x, tables, plan), want)
