@@ -11,8 +11,10 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      kernel and host-library build times and the ptxas report;
   2. kernel vs plain: the level-histogram kernel (float32 stats summed
      in fixed point) against its plain PyTorch version at the HIGGS
-     bench shape (N=2,000,000, F=28, B=255) for every level width of a
-     depth-6 tree — bitwise on integer-valued and on float stats, and
+     bench shape (N=2,000,000, F=28, B=255), and at the ranking and
+     multiclass paths' widths (MSLR's 260,000 x 136; Covertype's
+     581,012 x 54, whose rows the kernels stage byte by byte), for every
+     level width of a depth-6 tree — bitwise on integer-valued and on float stats, and
      bitwise between two launches — with CUDA-event timings of the
      kernel (an event pair per call, and ``device_ms``), the plain
      version and one float32 ``index_add_`` call, one call's device time
@@ -34,8 +36,8 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
   5. card vs CPU: the same fit at 100k rows and 5 trees on ``cuda`` and
      on ``cpu`` through the port;
   6. quantized kernel vs plain: the int16 (q16) and int8 (q8)
-     level-histogram kernel against its plain version at the bench
-     shape for every level width — bitwise, and bitwise between two
+     level-histogram kernel against its plain version at the three
+     shapes of phase 2 for every level width — bitwise, and bitwise between two
      launches — with CUDA-event timings of the kernel, the plain
      version and one int64 ``index_add_`` call, one call's device time
      by kernel (partition, histogram, dequantization), and the byte
@@ -156,7 +158,35 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      the zero-as-missing one binned through the zero premap, replies
      bitwise ``transform`` (the binned one's where each float32 bin is
      its bin);
- 15. tree scorer vs plain (after phase 14a): ``csrc/tree_score.cu``
+ 14b. ranking path (``tools/bench_ranker.py``'s configuration,
+     BASELINE.json's LightGBMRanker lambdarank): 2,000 MSLR-shaped
+     queries of 80-180 documents (about 260,000 rows x 136 features,
+     graded 0-4, ``make_mslr_shaped``) fitted by ``LightGBMRanker``
+     (lambdarank, 100 trees, 63 leaves, depth 6, ``maxBin=255``,
+     ``evalAt=[10]``, ``maxPosition=30``): 600 ``level_hist`` launches,
+     NDCG@10 at or above the bench's floor of 0.6 and above the first
+     tree's, two fits bitwise, a direct ``train`` captured and
+     uncaptured bitwise the estimator's trees, the lambdarank grads'
+     device time per call and share of a step's device time
+     (torch.profiler), peak device memory; the skewed variant (8-1,200
+     documents, 20 trees); early stopping on a tenth of the queries
+     against the replayed rule; card vs CPU at 200 queries and 5 trees
+     (roots equal, NDCG within 1e-4 relative); the ranker served with
+     the binned plane ``on``, replies bitwise the ``binnedScoring``
+     transform and ``transform`` where the float32 bins agree;
+ 14c. multiclass path: 581,012 Covertype-shaped rows x 54 columns
+     (``covertype_data``: 10 continuous, one-hot groups of 4 and 40; 7
+     classes at Covertype's shares) fitted by ``LightGBMClassifier``
+     (multiclass for 7 labels, 20 iterations of 7 trees, 63 leaves,
+     depth 6, ``maxBin=255``): 840 ``level_hist`` launches,
+     ``multi_logloss`` falling, two fits bitwise, captured and
+     uncaptured bitwise, the step's idle share (torch.profiler), the
+     transform's ``tree_score`` launches and probability rows summing to
+     1 within 1e-6; the fit under bagging 0.5 and under GOSS; card vs
+     CPU at 100,000 rows and 5 iterations (every class's roots equal,
+     ``multi_logloss`` within 1e-4 relative); served with the binned
+     plane ``on`` as 14b;
+ 15. tree scorer vs plain (after phase 14c): ``csrc/tree_score.cu``
      against ``score_cuda.tree_score_reference``, bit for bit and between
      two launches: the served model at every rung 1..64 (autocast off
      and bf16; uint8, uint16 and int32 bin ids; the staged batch too) and
@@ -253,6 +283,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 N, F, B = 2_000_000, 28, 255
 WIDTHS = (1, 2, 4, 8, 16, 32)        # the six levels of a depth-6 tree
+# the histogram kernels' shapes: the bench's, and the widths the ranking
+# and multiclass paths give them (MSLR's 136 features: four 32-feature
+# slices and one of 8; Covertype's 54, whose rows are not whole 32-bit
+# words, so the kernels stage them byte by byte)
+HIST_SHAPES = {"bench": (N, F), "mslr": (260_000, 136),
+               "covertype": (581_012, 54)}
 TREES = 20
 REPS = 20
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and
@@ -329,6 +365,25 @@ def count_syncs(torch, fn):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def first_sync_site(torch, fn):
+    """Where ``fn()`` first synchronizes with the host (CUDA sync debug
+    mode ``error`` raises at the syncing call): the innermost frame of
+    the port's code, or None where it makes no sync."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return None
+    except RuntimeError as e:
+        frames = [f for f in traceback.extract_tb(e.__traceback__)
+                  if "mmlspark_tpu_torch" in f.filename]
+        if not frames:
+            return repr(e)[:300]
+        f = frames[-1]
+        return f"{os.path.basename(f.filename)}:{f.lineno} {f.line}"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def device_ms_by_kernel(torch, fn):
@@ -460,11 +515,25 @@ def phase_device(ctx):
 
 
 def phase_kernel(ctx):
-    """Level-histogram kernel vs its plain version at the bench shape:
-    the fixed-point sums are the same bits in any order, so bitwise on
-    every stat, and between two launches."""
+    """Level-histogram kernel vs its plain version at each of
+    ``HIST_SHAPES``: the fixed-point sums are the same bits in any order,
+    so bitwise on every stat, and between two launches."""
     import torch
 
+    ctx["hist_rows_by_shape"] = {}
+    for name, (n, f) in HIST_SHAPES.items():
+        rows = kernel_rows(torch, n, f, name)
+        ctx["hist_rows_by_shape"][name] = rows
+        if name == "bench":
+            ctx["hist_rows"] = rows
+        torch.cuda.empty_cache()
+    return {"widths": list(WIDTHS), "shapes": HIST_SHAPES,
+            "all_bitwise": True}
+
+
+def kernel_rows(torch, N, F, shape):
+    """One row per level width of ``level_hist`` against its plain
+    version at N rows of F features (``phase_kernel``)."""
     from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -525,7 +594,8 @@ def phase_kernel(ctx):
         ops = 3 * F * int(live.sum().item())
         bytes_ms = (in_bytes + out_bytes) / MEM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
-        row = {"width": width, "bitwise_int": bitwise,
+        row = {"shape": shape, "n": N, "f": F, "width": width,
+               "bitwise_int": bitwise,
                "bitwise_float": bitwise_float, "repeat_bitwise": repeat,
                "float_within_bound": within, "counts_exact": counts_exact,
                "max_abs_err": float(err.max().item()),
@@ -542,18 +612,24 @@ def phase_kernel(ctx):
                 and counts_exact):
             raise AssertionError(f"level_hist disagrees with its plain "
                                  f"version at width {width}: {row}")
-    ctx["hist_rows"] = rows
-    return {"widths": list(WIDTHS), "all_bitwise": True}
+    return rows
+
+
+_made = {}
 
 
 def make_data(n, seed=0):
-    """The bench's HIGGS-shaped synthetic problem (bench.py)."""
-    rng = np.random.default_rng(seed)
-    x = rng.normal(size=(n, F)).astype(np.float32)
-    logit = (x[:, 0] * 1.2 - x[:, 1] + 0.5 * x[:, 2] * x[:, 3]
-             + 0.3 * np.sin(x[:, 4] * 3))
-    y = (logit + rng.normal(size=n) * 0.5 > 0).astype(np.float64)
-    return x, y
+    """The bench's HIGGS-shaped synthetic problem (bench.py): made once
+    per (n, seed), a copy for each caller."""
+    if (n, seed) not in _made:
+        rng = np.random.default_rng(seed)
+        x = rng.normal(size=(n, F)).astype(np.float32)
+        logit = (x[:, 0] * 1.2 - x[:, 1] + 0.5 * x[:, 2] * x[:, 3]
+                 + 0.3 * np.sin(x[:, 4] * 3))
+        y = (logit + rng.normal(size=n) * 0.5 > 0).astype(np.float64)
+        _made[(n, seed)] = (x, y)
+    x, y = _made[(n, seed)]
+    return x.copy(), y.copy()
 
 
 def phase_main(ctx):
@@ -768,11 +844,28 @@ def phase_card_vs_cpu(ctx):
 
 
 def phase_kernel_quant(ctx):
-    """Quantized level-histogram kernel vs its plain version at the bench
-    shape, q16 and q8, every level width: bitwise, and bitwise between
-    two launches on the same inputs."""
+    """Quantized level-histogram kernel vs its plain version at each of
+    ``HIST_SHAPES``, q16 and q8, every level width: bitwise, and bitwise
+    between two launches on the same inputs."""
     import torch
 
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    ctx["quant_rows_by_shape"] = {}
+    for name, (n, f) in HIST_SHAPES.items():
+        rows = kernel_quant_rows(torch, n, f, name)
+        ctx["quant_rows_by_shape"][name] = rows
+        if name == "bench":
+            ctx["quant_rows"] = rows
+        torch.cuda.empty_cache()
+    return {"quants": list(QUANTS), "widths": list(WIDTHS),
+            "shapes": HIST_SHAPES, "all_bitwise": True,
+            "window": quant_window_case(torch, H),
+            "sass_atomics": quant_sass_atomics()}
+
+
+def kernel_quant_rows(torch, N, F, shape):
+    """Rows by plane of ``level_hist_quant`` against its plain version at
+    N rows of F features, every level width (``phase_kernel_quant``)."""
     from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -824,7 +917,8 @@ def phase_kernel_quant(ctx):
             ops = 3 * F * int(gate.sum().item())
             bytes_ms = (in_bytes + out_bytes) / MEM_BYTES_PER_S * 1e3
             ops_ms = ops / F32_OPS_PER_S * 1e3
-            row = {"quant": quant, "width": width, "bitwise": bitwise,
+            row = {"shape": shape, "n": N, "f": F, "quant": quant,
+                   "width": width, "bitwise": bitwise,
                    "repeat_bitwise": repeat, "max_abs_err": err,
                    "kernel_ms": kernel_ms,
                    "kernel_device_ms": kernel_device_ms, "plain_ms": plain_ms,
@@ -838,11 +932,8 @@ def phase_kernel_quant(ctx):
             rows[quant].append(row)
             if not (bitwise and repeat):
                 raise AssertionError(f"level_hist_quant[{quant}] disagrees "
-                                     f"at width {width}: {row}")
-    ctx["quant_rows"] = rows
-    return {"quants": list(QUANTS), "widths": list(WIDTHS),
-            "all_bitwise": True, "window": quant_window_case(torch, H),
-            "sass_atomics": quant_sass_atomics()}
+                                     f"at {shape}, width {width}: {row}")
+    return rows
 
 
 def quant_window_case(torch, H):
@@ -2747,6 +2838,531 @@ def phase_categorical(ctx):
     return out
 
 
+def make_mslr_shaped(n_queries, f=136, seed=0, skewed=False):
+    """``tools/bench_ranker.py``'s MSLR-WEB30K-shaped data (that tool
+    imports the JAX package, so the generator is copied here): queries
+    of 80-180 documents (``skewed``: log-uniform 8-1,200, as real MSLR's
+    long tail), graded 0-4 by per-query quantiles of a hidden sparse
+    linear utility plus noise."""
+    rng = np.random.default_rng(seed)
+    if skewed:
+        sizes = np.exp(rng.uniform(np.log(8), np.log(1200),
+                                   size=n_queries)).astype(np.int64)
+    else:
+        sizes = rng.integers(80, 181, size=n_queries)
+    n = int(sizes.sum())
+    x = rng.normal(size=(n, f)).astype(np.float64)
+    w_true = rng.normal(size=f) * (rng.random(f) < 0.15)  # sparse signal
+    util = x @ w_true + 0.5 * rng.normal(size=n)
+    group_ids = np.repeat(np.arange(n_queries), sizes)
+    labels = np.zeros(n)
+    start = 0
+    for qs in sizes:
+        u = util[start:start + qs]
+        qt = np.quantile(u, [0.5, 0.75, 0.9, 0.97])
+        labels[start:start + qs] = np.searchsorted(qt, u)
+        start += qs
+    return x, labels, group_ids
+
+
+# UCI Covertype (581,012 rows; the usual LightGBM multiclass benchmark):
+# 10 continuous columns, then 4 and 40 one-hot groups (wilderness area,
+# soil type); the seven cover types' shares in per cent
+COVER_ROWS = 581_012
+COVER_SHARES = (36.5, 48.8, 6.2, 0.5, 1.6, 3.0, 3.5)
+
+
+def covertype_data(n, seed=0):
+    """Covertype-shaped rows made from ``seed`` (no download): labels at
+    Covertype's class shares; per class, shifted Gaussian continuous
+    columns and its own draws of the two one-hot groups."""
+    rng = np.random.default_rng(seed)
+    p = np.asarray(COVER_SHARES) / sum(COVER_SHARES)
+    y = rng.choice(len(p), size=n, p=p)
+    centers = rng.normal(size=(len(p), 10)) * 0.6
+    x = np.zeros((n, 54), np.float32)
+    x[:, :10] = centers[y] + rng.normal(size=(n, 10))
+    for first, width, conc in ((10, 4, 1.0), (14, 40, 0.3)):
+        probs = rng.dirichlet(np.full(width, conc), size=len(p))
+        pick = (rng.random(n)[:, None]
+                > np.cumsum(probs, axis=1)[y]).sum(axis=1)
+        x[np.arange(n), first + np.minimum(pick, width - 1)] = 1.0
+    return x, y.astype(np.float64)
+
+
+def rows_binned_alike(mapper, x):
+    """Rows whose every value bins alike in float64 (training and binned
+    scoring) and in float32 (raw scoring; ROADMAP C8)."""
+    x = np.asarray(x, np.float64)
+    bins = mapper.transform(x)
+    bins32 = np.stack([np.where(np.isnan(x[:, f]), 0, np.searchsorted(
+        e.astype(np.float32), x[:, f].astype(np.float32), side="left") + 1)
+        for f, e in enumerate(mapper.upper_edges)], axis=1)
+    return ~(bins32 != bins).any(axis=1)
+
+
+def served_binned_on(model, rows):
+    """(replies, the binned plane's health) of ``rows`` posted to a
+    ``ServingServer`` with ``MMLSPARK_TORCH_SERVE_BINNED=on``."""
+    from mmlspark_tpu_torch.core.env import SERVE_BINNED, env_override
+    from mmlspark_tpu_torch.io.serving import ServingServer
+
+    bodies = [json.dumps({"features": row.tolist(), "__id__": i}).encode()
+              for i, row in enumerate(rows)]
+    with env_override(SERVE_BINNED, "on"):
+        server = ServingServer(model, **SERVER_ARGS).start()
+        try:
+            replies = post_rows(server, bodies)
+            health = server._health()
+        finally:
+            server.stop()
+    return replies, health["binned"]
+
+
+def serving_record(model, rows):
+    """Served replies (binned plane ``on``) against the ``binnedScoring``
+    transform on every row and the raw ``transform`` on rows that bin
+    alike; the record and whether it holds."""
+    from mmlspark_tpu_torch import DataFrame
+
+    replies, health = served_binned_on(model, rows)
+    frame = DataFrame({"features": rows})
+    binned = replies_against(
+        replies, model.copy(binnedScoring=True).transform(frame))
+    alike = rows_binned_alike(model.bin_mapper, rows)
+    raw = replies_against(replies, model.transform(frame), alike)
+    rec = {"rows": len(rows), "binned": health,
+           "rows_differing_from_binned_transform": len(binned),
+           "rows_with_a_float32_bin_change": int((~alike).sum()),
+           "rows_differing_from_transform_where_bins_agree": len(raw)}
+    return rec, not binned and not raw and health["active"]
+
+
+def fit_counted(torch, est, frame):
+    """(model, wall s, level_hist launches, level_hist_quant launches,
+    peak device bytes) of one estimator fit."""
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    H.hist_kernel_launches = H.hist_quant_kernel_launches = 0
+    t0 = time.perf_counter()
+    model = est.fit(frame)
+    torch.cuda.synchronize()
+    return (model, time.perf_counter() - t0, H.hist_kernel_launches,
+            H.hist_quant_kernel_launches, torch.cuda.max_memory_allocated())
+
+
+def scorer_held(torch, S, label, tables, xd):
+    """``tree_score`` on a phase's own model and rows ``xd`` held against
+    its plain version on the card, bit for bit, and two launches against
+    each other, with the plan it takes (printed). (record, scores,
+    ok)."""
+    plan = S._plan_for(xd.shape[0], xd.shape[1], xd.dtype, tables,
+                       xd.device)
+    got, again = S.tree_score(xd, tables), S.tree_score(xd, tables)
+    want = S.tree_score_reference(xd, tables)
+    rec = {"case": label, "rows": xd.shape[0], "features": xd.shape[1],
+           "dtype": str(xd.dtype).replace("torch.", ""),
+           "trees": tables.num_trees, "classes": tables.num_class,
+           "route": tables.route, "plan": dataclasses.astuple(plan),
+           "bitwise_plain": bool(torch.equal(got, want)),
+           "two_launches_bitwise": bool(torch.equal(got, again))}
+    emit({"phase": "tree_score_case", **rec})
+    return rec, got, rec["bitwise_plain"] and rec["two_launches_bitwise"]
+
+
+def scorers_held(torch, S, model, x, binned, transform_raw):
+    """The transform's scorer (raw rows as float32, routed as
+    ``predict`` routes them) and the served binned plane's (uint8 bin
+    ids) held by :func:`scorer_held` at the phase's rows; the raw
+    route's scores against the transform's raw scores, bit for bit.
+    (records, ok)."""
+    b = model.scoring_booster
+    raw_tables = b._scorer(True, "off", "cuda",
+                           decision=b.decision_type is not None).tables
+    bin_tables = b.predict_binned_scorer("off", "cuda").tables
+    xd = torch.as_tensor(x).to(torch.float32).to("cuda").contiguous()
+    raw_rec, got, raw_ok = scorer_held(torch, S, "transform", raw_tables,
+                                       xd)
+    raw_rec["transform_bitwise"] = bool(np.array_equal(
+        got.cpu().numpy(), transform_raw))
+    del xd, got
+    bin_rec, _, bin_ok = scorer_held(
+        torch, S, "binned", bin_tables,
+        torch.as_tensor(binned, device="cuda"))
+    return ([raw_rec, bin_rec],
+            raw_ok and bin_ok and raw_rec["transform_bitwise"])
+
+
+def fit_record(model, wall_s, rows):
+    phases = model.get_all_instrumentation()
+    train_s = sum(phases.get(k, 0.0) for k in (
+        "dataPreparation", "training", "validation"))
+    return {"fit_s": wall_s, "extract_s": phases.get("extract"),
+            "binning_s": phases.get("binning"), "train_s": train_s,
+            "trees": model.booster.num_trees,
+            "fit_mrow_trees_per_s": rows * model.booster.num_trees
+            / train_s / 1e6}
+
+
+def step_profile(torch, fn, iterations):
+    """A fit's device busy time and idle share under torch.profiler, and
+    its busy ms per iteration."""
+    wall_ms, by_name = device_ms_by_kernel(torch, fn)
+    busy = sum(by_name.values())
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": busy if busy else "not measured",
+            "device_idle_share": 1 - busy / wall_ms if busy
+            else "not measured",
+            "busy_ms_per_iteration": busy / iterations if busy
+            else "not measured",
+            "level_hist_ms": hist_device_ms(by_name),
+            "top_ms": top(by_name, 8)}
+
+
+RANK_QUERIES = 2000
+RANK_TREES = 100
+RANK_PARAMS = dict(numIterations=RANK_TREES, numLeaves=63, maxDepth=6,
+                   minDataInLeaf=20, maxBin=255, evalAt=[10], maxPosition=30,
+                   groupCol="query")
+
+
+def phase_ranking(ctx):
+    """Learning to rank on the card at ``tools/bench_ranker.py``'s
+    configuration (BASELINE.json's LightGBMRanker lambdarank, MSLR-shaped:
+    2,000 queries of 80-180 documents, 136 features, graded 0-4;
+    lambdarank, 100 trees, 63 leaves, depth 6, ``maxBin=255``,
+    ``evalAt=[10]``, ``maxPosition=30``): a ``LightGBMRanker`` fit (600
+    ``level_hist`` launches), NDCG@10 of the model at or above the
+    bench's floor of 0.6 and above the first tree's, two fits bitwise,
+    the same trees from a direct ``train`` captured and uncaptured, the
+    lambdarank grads' device time per call and share of a step's
+    (torch.profiler), peak device memory; the skewed variant (8-1,200
+    documents, 20 trees); early stopping on a validation tenth of the
+    queries against the replayed rule; card vs CPU at 200 queries and 5
+    trees; the ranker served with the binned plane ``on``."""
+    import torch
+
+    from mmlspark_tpu_torch import (BinMapper, DataFrame, LightGBMRanker,
+                                    train)
+    from mmlspark_tpu_torch.models.gbdt import metrics, objectives
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+
+    out = {"card": ctx["smi"]}
+    failures = []
+    x, y, gid = make_mslr_shaped(RANK_QUERIES)
+    n = len(y)
+    frame = DataFrame({"features": x, "label": y, "query": gid})
+    est = LightGBMRanker(**RANK_PARAMS)
+    model, wall, launches, qlaunches, peak = fit_counted(torch, est, frame)
+    again, wall2, _, _, _ = fit_counted(torch, est, frame)
+    ctx["launches"]["ranking_path"] = launches
+    ctx["launches"]["ranking_path_quant"] = qlaunches
+    b = model.booster
+    rec = {"rows": n, "queries": RANK_QUERIES,
+           "first_fit": fit_record(model, wall, n),
+           **fit_record(again, wall2, n), "launches": launches,
+           "quant_launches": qlaunches, "expected_launches": RANK_TREES * 6,
+           "peak_device_bytes": peak,
+           "two_fits_bitwise": boosters_equal(b, again.booster)}
+    evals = [e["train_ndcg@10"] for e in model.evals_result]
+    torch.cuda.synchronize()
+    S.tree_score_launches = 0
+    scores = model.transform(DataFrame({"features": x}))["prediction"]
+    ctx["launches"]["ranking_path_tree_score"] = S.tree_score_launches
+    ndcg = float(metrics.ndcg_at(10)(
+        torch.as_tensor(scores, dtype=torch.float32, device="cuda"),
+        torch.as_tensor(y, dtype=torch.float32, device="cuda"),
+        group_ids=gid))
+    rec.update({"ndcg@10": ndcg, "ndcg@10_floor": 0.6,
+                "train_ndcg@10_first_tree": evals[0],
+                "train_ndcg@10_last_tree": evals[-1],
+                "tree_score_launches": S.tree_score_launches})
+    if launches != RANK_TREES * 6 or qlaunches:
+        failures.append(f"launches {launches}, quantized {qlaunches}")
+    if not ndcg >= 0.6 or not evals[-1] > evals[0]:
+        failures.append(f"NDCG@10 {ndcg}, by tree {evals[0]} -> {evals[-1]}")
+    if not rec["two_fits_bitwise"]:
+        failures.append("two ranker fits differ")
+    if (not np.isfinite(scores).all() or scores.shape != (n,)
+            or S.tree_score_launches != 1):
+        failures.append(f"transform: {S.tree_score_launches} tree_score "
+                        f"launches, scores of shape {scores.shape}")
+
+    # the same trees from a direct train, captured and uncaptured
+    cfg = est._train_config("lambdarank", eval_at=(10,),
+                            lambdarank_truncation_level=30)
+    binned = model.bin_mapper.transform(x, np.uint8)
+    bin_upper = model.bin_mapper.bin_upper_values(255)
+    direct = train(binned, y, cfg, bin_upper=bin_upper, group_ids=gid)
+    uncaptured = train(binned, y, cfg, bin_upper=bin_upper, group_ids=gid,
+                       capture=False)
+    rec["direct_captured"] = direct.step_stats["captured"]
+    rec["arrays_differing_from_direct_train"] = arrays_differing(
+        b, direct.booster)
+    rec["captured_bitwise_uncaptured"] = boosters_equal(direct.booster,
+                                                        uncaptured.booster)
+    if (rec["arrays_differing_from_direct_train"]
+            or not rec["captured_bitwise_uncaptured"]
+            or not rec["direct_captured"]
+            or uncaptured.step_stats["captured"]):
+        failures.append(f"direct / uncaptured train: {rec}")
+
+    # tree_score at the ranker's rows (K = 1, F = 136): the transform's
+    # raw route and the served binned plane, each against its plain version
+    rec["tree_score_held"], ok = scorers_held(torch, S, model, x, binned,
+                                              scores)
+    if not ok:
+        failures.append(f"tree_score: {rec['tree_score_held']}")
+
+    # the lambdarank grads alone, and their share of a step's device time
+    binned_d = torch.as_tensor(binned, device="cuda")
+    raw_d = torch.as_tensor(scores, dtype=torch.float32, device="cuda")
+    y_d = torch.as_tensor(y, dtype=torch.float32, device="cuda")
+    lay = objectives.layout_to(objectives.make_group_layout(gid), "cuda")
+
+    def grads():
+        return objectives.lambdarank(raw_d, y_d, None, group_layout=lay,
+                                     truncation_level=30)
+
+    # device time of the grads' kernels over 5 calls (torch.profiler),
+    # beside the event-pair time of one call
+    grads()
+    _, by_name = device_ms_by_kernel(torch, lambda: [grads()
+                                                     for _ in range(5)])
+    grad_ms = sum(by_name.values()) / 5 if by_name else "not measured"
+    rec["lambdarank_grad_event_ms"] = time_ms(torch, grads, reps=10)
+    rec["lambdarank_grad_host_syncs"] = count_syncs(torch, grads)
+    rec["lambdarank_grad_sync_site"] = first_sync_site(torch, grads)
+    rec["lambdarank_grad_top_ms"] = {k: v / 5 for k, v in
+                                     top(by_name, 6).items()}
+    cfg5 = dataclasses.replace(cfg, num_iterations=5)
+    prof = step_profile(torch, lambda: train(
+        binned_d, y, cfg5, bin_upper=bin_upper, group_ids=gid), 5)
+    per_it = prof["busy_ms_per_iteration"]
+    rec["lambdarank_grad_ms_per_call"] = grad_ms
+    rec["profile_5_trees"] = prof
+    rec["lambdarank_share_of_step_device_ms"] = (
+        grad_ms / per_it if isinstance(per_it, float)
+        and isinstance(grad_ms, float) else "not measured")
+    rec["layout_buckets"] = [list(r.shape) for r, _ in lay]
+    out["fit"] = rec
+    del binned_d, direct, uncaptured
+
+    # the skewed variant: log-uniform 8-1,200 documents, 20 trees
+    xs, ys, gs = make_mslr_shaped(RANK_QUERIES, skewed=True, seed=1)
+    sfr = DataFrame({"features": xs, "label": ys, "query": gs})
+    sest = LightGBMRanker(**dict(RANK_PARAMS, numIterations=20))
+    smodel, swall, slaunch, _, speak = fit_counted(torch, sest, sfr)
+    sev = [e["train_ndcg@10"] for e in smodel.evals_result]
+    slay = objectives.make_group_layout(gs)
+    out["skewed"] = {"rows": len(ys), **fit_record(smodel, swall, len(ys)),
+                     "launches": slaunch, "peak_device_bytes": speak,
+                     "largest_group": int(np.bincount(gs).max()),
+                     "layout_buckets": [list(r.shape) for r, _ in slay],
+                     "train_ndcg@10_first_tree": sev[0],
+                     "train_ndcg@10_last_tree": sev[-1]}
+    if slaunch != 20 * 6 or not sev[-1] > sev[0]:
+        failures.append(f"skewed: {out['skewed']}")
+    del xs, ys, gs, sfr, smodel
+
+    # early stopping on the validation queries' ndcg@10
+    val = np.isin(gid, np.arange(0, RANK_QUERIES, 10))
+    vest = LightGBMRanker(**dict(RANK_PARAMS, learningRate=0.3,
+                                 earlyStoppingRound=5,
+                                 validationIndicatorCol="val"))
+    vmodel = vest.fit(DataFrame({"features": x, "label": y, "query": gid,
+                                 "val": val}))
+    vals = [e["valid0_ndcg@10"] for e in vmodel.evals_result]
+    best, stopped = replay_stop_rule(vals, 5, higher_better=True)
+    # trees are cut after the best iteration whether or not the rule fired
+    vrec = {"iterations_run": len(vals), "best_iteration":
+            vmodel.best_iteration, "replayed": [best, stopped],
+            "metric_turned": stopped is not None,
+            "trees": vmodel.booster.num_trees,
+            "valid_ndcg@10_first": vals[0], "valid_ndcg@10_best": vals[best]}
+    if (vmodel.best_iteration != best or (stopped or RANK_TREES) != len(vals)
+            or vmodel.booster.num_trees != best + 1):
+        failures.append(f"early stopping: {vrec}")
+    out["early_stopping"] = vrec
+
+    # card vs CPU: 200 queries, 5 trees
+    xc, yc, gc = make_mslr_shaped(200, seed=2)
+    cmap = BinMapper.fit(xc, max_bin=255)
+    bc = cmap.transform(xc)
+    c5 = dataclasses.replace(cfg, num_iterations=5)
+    res = {dev: train(bc, yc, c5, group_ids=gc, device=dev)
+           for dev in ("cuda", "cpu")}
+    a, c = res["cuda"].booster, res["cpu"].booster
+    roots_equal = (np.array_equal(a.split_feature[:, 0], c.split_feature[:, 0])
+                   and np.array_equal(a.threshold_bin[:, 0],
+                                      c.threshold_bin[:, 0]))
+    nd = {dev: r.evals[-1]["train_ndcg@10"] for dev, r in res.items()}
+    rel = abs(nd["cuda"] - nd["cpu"]) / abs(nd["cpu"])
+    out["card_vs_cpu"] = {"rows": len(yc), "roots_equal": roots_equal,
+                          "ndcg_cuda": nd["cuda"], "ndcg_cpu": nd["cpu"],
+                          "rel_diff": rel, "tol": 1e-4}
+    if not roots_equal or rel > 1e-4:
+        failures.append(f"card vs CPU: {out['card_vs_cpu']}")
+
+    # served with the binned plane on
+    out["serving"], ok = serving_record(model, x[:256])
+    if not ok:
+        failures.append(f"serving: {out['serving']}")
+    if failures:
+        raise AssertionError(json.dumps({"failures": failures, **out},
+                                        default=str))
+    return out
+
+
+COVER_ITERATIONS = 20
+COVER_PARAMS = dict(numIterations=COVER_ITERATIONS, numLeaves=63,
+                    maxDepth=6, maxBin=255)
+
+
+def phase_multiclass(ctx):
+    """Multiclass on the card at Covertype's shape (581,012 rows x 54
+    columns, 7 classes at its shares; ``covertype_data``):
+    ``LightGBMClassifier`` with its default objective (multiclass for 7
+    labels), 20 iterations of 7 trees, 63 leaves, depth 6, ``maxBin=255``
+    — 840 ``level_hist`` launches, ``multi_logloss`` falling, two fits
+    bitwise, the same trees from a direct ``train`` captured and
+    uncaptured, the step's idle share (torch.profiler), the transform's
+    ``tree_score`` launches and probability rows summing to 1 within
+    1e-6; the same fit under bagging 0.5 and under GOSS; card vs CPU at
+    100,000 rows and 5 iterations; the model served with the binned
+    plane ``on``."""
+    import torch
+
+    from mmlspark_tpu_torch import DataFrame, LightGBMClassifier, train
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+
+    out = {"card": ctx["smi"]}
+    failures = []
+    k = len(COVER_SHARES)
+    expected = COVER_ITERATIONS * k * 6
+    x, y = covertype_data(COVER_ROWS)
+    n = len(y)
+    frame = DataFrame({"features": x, "label": y})
+
+    def falls(vals):
+        return (all(b <= a + 1e-7 for a, b in zip(vals, vals[1:]))
+                and vals[-1] < vals[0])
+
+    est = LightGBMClassifier(**COVER_PARAMS)
+    model, wall, launches, qlaunches, peak = fit_counted(torch, est, frame)
+    again, wall2, _, _, _ = fit_counted(torch, est, frame)
+    ctx["launches"]["multiclass_path"] = launches
+    ctx["launches"]["multiclass_path_quant"] = qlaunches
+    b = model.booster
+    lls = [e["train_multi_logloss"] for e in model.evals_result]
+    rec = {"rows": n, "classes": k, "class_counts":
+           np.bincount(y.astype(int)).tolist(),
+           "first_fit": fit_record(model, wall, n),
+           **fit_record(again, wall2, n), "launches": launches,
+           "quant_launches": qlaunches, "expected_launches": expected,
+           "peak_device_bytes": peak, "num_class": b.num_class,
+           "multi_logloss_first": lls[0], "multi_logloss_last": lls[-1],
+           "two_fits_bitwise": boosters_equal(b, again.booster)}
+    if launches != expected or qlaunches:
+        failures.append(f"launches {launches}, quantized {qlaunches}")
+    if b.num_class != k or b.num_trees != COVER_ITERATIONS * k:
+        failures.append(f"booster: {b.num_class} classes, {b.num_trees} "
+                        "trees")
+    if not falls(lls):
+        failures.append(f"multi_logloss does not fall: {lls}")
+    if not rec["two_fits_bitwise"]:
+        failures.append("two multiclass fits differ")
+
+    cfg = est._train_config("multiclass", num_class=k)
+    binned = model.bin_mapper.transform(x.astype(np.float64), np.uint8)
+    bin_upper = model.bin_mapper.bin_upper_values(255)
+    direct = train(binned, y, cfg, bin_upper=bin_upper)
+    uncaptured = train(binned, y, cfg, bin_upper=bin_upper, capture=False)
+    rec["direct_captured"] = direct.step_stats["captured"]
+    rec["arrays_differing_from_direct_train"] = arrays_differing(
+        b, direct.booster)
+    rec["captured_bitwise_uncaptured"] = boosters_equal(direct.booster,
+                                                        uncaptured.booster)
+    if (rec["arrays_differing_from_direct_train"]
+            or not rec["captured_bitwise_uncaptured"]
+            or not rec["direct_captured"]
+            or uncaptured.step_stats["captured"]):
+        failures.append(f"direct / uncaptured train: {rec}")
+    binned_d = torch.as_tensor(binned, device="cuda")
+    rec["profile_5_iterations"] = step_profile(torch, lambda: train(
+        binned_d, y, dataclasses.replace(cfg, num_iterations=5),
+        bin_upper=bin_upper), 5)
+    del binned_d, direct, uncaptured
+
+    # transform: probabilities, one tree_score launch per batch
+    torch.cuda.synchronize()
+    S.tree_score_launches = 0
+    t0 = time.perf_counter()
+    scored = model.transform(DataFrame({"features": x}))
+    rec["transform_s"] = time.perf_counter() - t0
+    ctx["launches"]["multiclass_path_tree_score"] = S.tree_score_launches
+    probs = scored["probability"]
+    rec["tree_score_launches"] = S.tree_score_launches
+    rec["probability_row_sum_max_err"] = float(np.abs(probs.sum(axis=1)
+                                                      - 1.0).max())
+    rec["accuracy"] = float(np.mean(scored["prediction"] == y))
+    if (probs.shape != (n, k) or rec["probability_row_sum_max_err"] > 1e-6
+            or not np.isfinite(scored["rawPrediction"]).all()
+            or S.tree_score_launches != 1):
+        failures.append(f"transform: {rec}")
+    # tree_score at the 7-class model's rows (K = 7, F = 54): the
+    # transform's raw route and the served binned plane, each against its
+    # plain version
+    rec["tree_score_held"], ok = scorers_held(
+        torch, S, model, x, binned, scored["rawPrediction"])
+    if not ok:
+        failures.append(f"tree_score: {rec['tree_score_held']}")
+    out["fit"] = rec
+    del scored, probs
+
+    # the same fit under bagging 0.5 and under GOSS
+    for name, extra in (("bagging", dict(baggingFraction=0.5,
+                                         baggingFreq=1)),
+                        ("goss", dict(boostingType="goss"))):
+        m, w, la, _, _ = fit_counted(
+            torch, LightGBMClassifier(**COVER_PARAMS, **extra), frame)
+        ll = [e["train_multi_logloss"] for e in m.evals_result]
+        out[name] = {**fit_record(m, w, n), "launches": la,
+                     "multi_logloss_first": ll[0],
+                     "multi_logloss_last": ll[-1]}
+        if la != expected or not ll[-1] < ll[0]:
+            failures.append(f"{name}: {out[name]}")
+
+    # card vs CPU: 100,000 rows, 5 iterations
+    small = DataFrame({"features": x[:100_000], "label": y[:100_000]})
+    res = {dev: LightGBMClassifier(**dict(COVER_PARAMS, numIterations=5))
+           .set_device(dev).fit(small) for dev in ("cuda", "cpu")}
+    a, c = res["cuda"].booster, res["cpu"].booster
+    roots_equal = (np.array_equal(a.split_feature[:, 0], c.split_feature[:, 0])
+                   and np.array_equal(a.threshold_bin[:, 0],
+                                      c.threshold_bin[:, 0]))
+    ll = {dev: m.evals_result[-1]["train_multi_logloss"]
+          for dev, m in res.items()}
+    rel = abs(ll["cuda"] - ll["cpu"]) / abs(ll["cpu"])
+    out["card_vs_cpu"] = {"rows": 100_000, "trees": a.num_trees,
+                          "roots_equal": roots_equal,
+                          "multi_logloss_cuda": ll["cuda"],
+                          "multi_logloss_cpu": ll["cpu"], "rel_diff": rel,
+                          "tol": 1e-4}
+    if not roots_equal or rel > 1e-4 or a.num_trees != 5 * k:
+        failures.append(f"card vs CPU: {out['card_vs_cpu']}")
+
+    out["serving"], ok = serving_record(model, x[:256].astype(np.float64))
+    if not ok:
+        failures.append(f"serving: {out['serving']}")
+    if failures:
+        raise AssertionError(json.dumps({"failures": failures, **out},
+                                        default=str))
+    return out
+
+
 def random_booster(seed, trees, depth, k, max_bin):
     """A random full-layout ensemble (the root splits, a node below an
     internal node with probability 0.8), tree weights 0.3..1.7: the
@@ -4129,9 +4745,23 @@ def kernel_table(ctx):
                    " a spin kernel",
         }
 
+    def at_shapes(rows_by_shape):
+        # per tree at the ranking and multiclass paths' widths
+        out = {}
+        for shape, rows in rows_by_shape.items():
+            if shape != "bench":
+                e = entry("", "", "", 0, rows)
+                out[shape] = {"n": rows[0]["n"], "f": rows[0]["f"],
+                              **{k: e[k] for k in (
+                                  "max_abs_err", "ms", "device_ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}}
+        return out
+
     kernels = [entry("level_hist", "mmlspark_tpu_torch/csrc/level_hist.cu",
                      "mmlspark_tpu/models/gbdt/hist_pallas.py:60",
                      ctx["launches"]["level_hist"], ctx["hist_rows"])]
+    kernels[0]["at_shapes"] = at_shapes(ctx["hist_rows_by_shape"])
     for quant in QUANTS:
         kernels.append(entry(
             f"level_hist_quant[{quant}]",
@@ -4139,6 +4769,17 @@ def kernel_table(ctx):
             "mmlspark_tpu/models/gbdt/hist_pallas.py:204",
             ctx["launches"]["level_hist_quant"][quant],
             ctx["quant_rows"][quant]))
+        kernels[-1]["at_shapes"] = at_shapes(
+            {k: v[quant] for k, v in ctx["quant_rows_by_shape"].items()})
+    # launches over the ranking path's 100-tree ranker fit (600) and the
+    # multiclass path's 20-iteration, 7-class fit (840); those fits run
+    # the float32 plane, and the quantized kernels' one counter (both
+    # planes) is checked to stay at 0 there
+    for kernel in kernels:
+        quantized = kernel["name"] != "level_hist"
+        for path in ("ranking_path", "multiclass_path"):
+            kernel[f"launches_{path}"] = ctx["launches"][
+                f"{path}_quant" if quantized else path]
     # launches over the estimator path's 20-tree fits (phase
     # estimator_path; its q16 fit for the quantized kernel)
     kernels[0]["launches_estimator_path"] = ctx["launches"]["estimator_path"]
@@ -4200,6 +4841,11 @@ def kernel_table(ctx):
         "replaces_leaf_index": "mmlspark_tpu/models/gbdt/booster.py:452",
         "launches_categorical_path":
             ctx["launches"]["categorical_path_tree_score"],
+        # one transform each: the ranker's 260,000 rows (K = 1, F = 136)
+        # and the 7-class model's 581,012 rows (K = 7)
+        "launches_ranking_path": ctx["launches"]["ranking_path_tree_score"],
+        "launches_multiclass_path":
+            ctx["launches"]["multiclass_path_tree_score"],
         **{key: {k: score[key][k] for k in (
             "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms",
             "bound_by", "plan", "launches_per_call", "copies_per_call")}
@@ -4264,6 +4910,8 @@ def main() -> int:
                      ("checkpoint_path", phase_checkpoint),
                      ("serving_path", phase_serving),
                      ("categorical_path", phase_categorical),
+                     ("ranking_path", phase_ranking),
+                     ("multiclass_path", phase_multiclass),
                      ("kernel_score", phase_kernel_score),
                      ("refresh_path", phase_refresh),
                      ("fleet_path", phase_fleet),

@@ -9,7 +9,8 @@ package so each counterpart is easy to find:
   - ``ops.binning``               BinMapper (numeric quantile binning)
   - ``models.gbdt.trainer``       TrainConfig / train (depthwise GBDT)
   - ``models.gbdt.booster``       BoosterArrays scoring
-  - ``models.gbdt.estimators``    LightGBMClassifier / LightGBMRegressor
+  - ``models.gbdt.estimators``    LightGBMClassifier (binary, multiclass) /
+                                  LightGBMRegressor / LightGBMRanker
                                   (fit / transform over ``DataFrame``)
   - ``models.gbdt.hist_cuda``     the level-histogram kernels' wrappers
   - ``io.serving``                ServingServer / ContinuousServingServer
@@ -49,6 +50,8 @@ from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays  # noqa: F401
 from mmlspark_tpu_torch.models.gbdt.estimators import (  # noqa: F401
     LightGBMClassificationModel,
     LightGBMClassifier,
+    LightGBMRanker,
+    LightGBMRankerModel,
     LightGBMRegressionModel,
     LightGBMRegressor,
 )

@@ -25,11 +25,13 @@ def booster_from_jax_state(state: Dict[str, Any]) -> BoosterArrays:
 def model_from_jax(class_name: str, state: Dict[str, Any],
                    params: Dict[str, Any]):
     """A fitted JAX estimator model as the port's model of the same class
-    (``"LightGBMClassificationModel"`` or ``"LightGBMRegressionModel"``):
+    (``"LightGBMClassificationModel"``, binary or multiclass,
+    ``"LightGBMRegressionModel"`` or ``"LightGBMRankerModel"``):
     ``state`` is its ``_get_state()`` with arrays as numpy (booster,
-    training ``BinMapper``, best iteration, classes), ``params`` its
-    simple param map (``simple_param_values()``). The model runs on the
-    card unless ``set_device("cpu")`` is called."""
+    training ``BinMapper``, best iteration, and a classifier's
+    ``num_classes`` and ``classes_``), ``params`` its simple param map
+    (``simple_param_values()``). The model runs on the card unless
+    ``set_device("cpu")`` is called."""
     cls = getattr(estimators, class_name)
     model = cls(**{k: v for k, v in params.items() if cls.has_param(k)})
     model._set_state(state)

@@ -1,10 +1,15 @@
 """LightGBM-parity estimators on PyTorch — the port of the JAX package's
-``models/gbdt/estimators.py`` for binary classification and the
-regression objectives (L2, L1, huber, fair, poisson, quantile, mape,
-gamma, tweedie).
+``models/gbdt/estimators.py``: binary and multiclass classification
+(``LightGBMClassifier``: multiclass, K trees per iteration, whenever the
+label has more than two values), the regression objectives (L2, L1,
+huber, fair, poisson, quantile, mape, gamma, tweedie) and lambdarank
+ranking (``LightGBMRanker``: query groups from ``groupCol``, NDCG at
+``evalAt``, ``labelGain``, ``maxPosition``).
 
     LightGBMClassifier(numIterations=..., ...).fit(DataFrame(
         {"features": X, "label": y})).transform(frame)
+    LightGBMRanker(groupCol="query").fit(DataFrame(
+        {"features": X, "label": relevance, "query": qid}))
 
 ``fit`` bins on the host (``BinMapper`` on a row sample), moves the
 binned rows to the card once and trains there (``trainer.train``: the
@@ -48,9 +53,9 @@ uninterrupted one drew.
 
 The param surface is the JAX package's (the same names, defaults and
 validation); settings outside the port raise ``NotImplementedError``
-naming the ROADMAP item that adds them: multiclass, ranking, dart,
-``featureFractionByNode``, ``extraTrees`` and monotone constraints (A7),
-meshes and the voting / feature-parallel learners (A8).
+naming the ROADMAP item that adds them: dart, ``featureFractionByNode``,
+``extraTrees`` and monotone constraints (A7), meshes and the voting /
+feature-parallel learners (A8).
 """
 
 from __future__ import annotations
@@ -489,15 +494,19 @@ class _LightGBMBase(Estimator, _LightGBMParams):
         return sorted(out)
 
     def _fit_booster(self, df: DataFrame, objective: str,
-                     extra_cfg: Optional[Dict[str, Any]] = None):
+                     extra_cfg: Optional[Dict[str, Any]] = None,
+                     num_class: int = 1, group_col: Optional[str] = None):
         """Bin, then train on the stage's device: returns (TrainResult,
         BinMapper, InstrumentationMeasures with the phases extract,
-        binning, and train's dataPreparation / training / validation)."""
+        binning, and train's dataPreparation / training / validation).
+        ``num_class``: K of a multiclass objective; ``group_col``: the
+        query-id column, encoded per set after the validation split
+        (dense ids in sorted order), as the JAX package encodes it."""
         device = resolve_device(self._device)
         measures = InstrumentationMeasures()
         cat = self._categorical_indexes(df)
         cfg = self._train_config(objective, categorical_features=cat,
-                                 **(extra_cfg or {}))
+                                 num_class=num_class, **(extra_cfg or {}))
         # pass-through overrides land BEFORE binning, so binning-coupled
         # keys (max_bin, min_data_in_bin) take effect everywhere
         cfg = _apply_pass_through(cfg, self.get("passThroughArgs")
@@ -506,6 +515,13 @@ class _LightGBMBase(Estimator, _LightGBMParams):
         with measures.phase("extract"):
             train_df, valid_df = self._split_validation(df)
             x, y, w = self._extract(train_df)
+            group_ids = vgroup_ids = None
+            if group_col is not None:
+                # encoded on the rows after the split, so they stay
+                # aligned with each set's bins and labels
+                group_ids = _encode_groups(train_df, group_col)
+                if valid_df is not None and valid_df.num_rows:
+                    vgroup_ids = _encode_groups(valid_df, group_col)
             if cfg.zero_as_missing:
                 # LightGBM zero_as_missing: zeros enter the missing bin;
                 # the trees' decision bits (6) route them at scoring
@@ -530,7 +546,8 @@ class _LightGBMBase(Estimator, _LightGBMParams):
                 if cfg.zero_as_missing:
                     vx_raw = np.where(vx_raw == 0.0, np.nan, vx_raw)
             with measures.phase("binning"):
-                valid_sets = [(mapper.transform(vx_raw, ids), vy, vw)]
+                valid_sets = [(mapper.transform(vx_raw, ids), vy, vw,
+                               vgroup_ids)]
         init_model = None
         if self.is_set("modelString"):
             init_model = BoosterArrays.load_model_string(self.get("modelString"))
@@ -542,6 +559,12 @@ class _LightGBMBase(Estimator, _LightGBMParams):
             # the post-validation-split training rows
             init0 = np.asarray(train_df.col(self.get("initScoreCol")),
                                dtype=np.float64)
+            k_out = cfg.num_trees_per_iteration
+            if k_out > 1 and (init0.ndim != 2 or init0.shape[1] != k_out):
+                raise ValueError(
+                    f"initScoreCol {self.get('initScoreCol')!r} must hold "
+                    f"(N, {k_out}) per-class scores for a {k_out}-class "
+                    f"objective; got shape {init0.shape}")
             if valid_sets is not None:
                 vinit0 = np.asarray(valid_df.col(self.get("initScoreCol")),
                                     dtype=np.float64)
@@ -571,6 +594,7 @@ class _LightGBMBase(Estimator, _LightGBMParams):
                 result = train(
                     binned[part], y[part], cfg,
                     weights=None if w is None else w[part],
+                    group_ids=None if group_ids is None else group_ids[part],
                     bin_upper=bin_upper, valid_sets=valid_sets,
                     init_model=init_model,
                     init_raw=init_scores(
@@ -584,15 +608,18 @@ class _LightGBMBase(Estimator, _LightGBMParams):
             result = self._fit_checkpointed(
                 cfg, binned, y, w, bin_upper, init0, init_model,
                 lambda model, done, seg_cfg: train(
-                    binned, y, seg_cfg, weights=w, bin_upper=bin_upper,
+                    binned, y, seg_cfg, weights=w, group_ids=group_ids,
+                    bin_upper=bin_upper,
                     valid_sets=valid_sets, init_model=model,
                     init_raw=init_scores(model, x, init0),
                     valid_init_raws=valid_init_raws(model),
                     measures=measures, device=device,
-                    custom_objective=fobj, iteration_offset=done))
+                    custom_objective=fobj, iteration_offset=done),
+                group_ids)
         else:
             result = train(
-                binned, y, cfg, weights=w, bin_upper=bin_upper,
+                binned, y, cfg, weights=w, group_ids=group_ids,
+                bin_upper=bin_upper,
                 valid_sets=valid_sets, init_model=init_model,
                 init_raw=init_scores(init_model, x, init0),
                 valid_init_raws=valid_init_raws(init_model),
@@ -600,7 +627,7 @@ class _LightGBMBase(Estimator, _LightGBMParams):
         return result, mapper, measures
 
     def _fit_checkpointed(self, cfg, binned, y, w, bin_upper, init0,
-                          init_model, train_segment):
+                          init_model, train_segment, group_ids=None):
         """Mid-training checkpoints and elastic restart (the JAX
         estimator's checkpointed fit): train in warm-started segments of
         ``checkpointInterval`` trees, ``train_segment(model, done,
@@ -610,7 +637,9 @@ class _LightGBMBase(Estimator, _LightGBMParams):
         checkpointed fit can differ from a monolithic one on rows whose
         value is a float32-rounded bin edge (ROADMAP C3); a killed and
         resumed fit equals the uninterrupted one with the same interval
-        bitwise."""
+        bitwise. A ranker's fingerprint also covers its group ids (the
+        JAX package's leaves them out, so a ranker's directory does not
+        cross between the packages; every other fit's does)."""
         import json
         import os
         import zlib
@@ -638,7 +667,7 @@ class _LightGBMBase(Estimator, _LightGBMParams):
         fprint = self._checkpoint_fingerprint(
             replace(cfg, tree_learner=_JAX_TREE_LEARNER[
                 self.get("parallelism")]),
-            binned, y, w, bin_upper, init0, init_model)
+            binned, y, w, bin_upper, init0, init_model, group_ids)
         meta_path = os.path.join(ckpt_dir, "checkpoint_meta.json")
         if latest is not None and os.path.exists(meta_path):
             with open(meta_path) as fh:
@@ -701,7 +730,7 @@ class _LightGBMBase(Estimator, _LightGBMParams):
 
     @staticmethod
     def _checkpoint_fingerprint(cfg, binned, y, w, bin_upper, init0=None,
-                                init_model=None):
+                                init_model=None, group_ids=None):
         """Digest of everything a warm start must agree on — the JAX
         estimator's, byte for byte, so either package resumes the other's
         checkpoint directory.
@@ -732,6 +761,8 @@ class _LightGBMBase(Estimator, _LightGBMParams):
             [float(np.sum(y)), float(len(y)),
              0.0 if w is None else float(np.sum(w)),
              0.0 if init0 is None else float(np.sum(init0))]).tobytes())
+        if group_ids is not None:
+            h.update(np.ascontiguousarray(group_ids, np.int32).tobytes())
         return h.hexdigest()[:16]
 
     @staticmethod
@@ -1060,8 +1091,10 @@ class _LightGBMModelBase(Model, _LightGBMParams):
 # ---------------------------------------------------------------------------
 
 class LightGBMClassifier(_LightGBMBase):
-    """Binary GBDT classifier (LightGBMClassifier.scala:32 parity);
-    multiclass raises (ROADMAP A7)."""
+    """GBDT classifier (LightGBMClassifier.scala:32 parity): binary, or
+    multiclass (softmax, K trees per iteration) where the label has more
+    than two values; labels are re-encoded to 0..K-1 and decoded back in
+    ``transform``."""
 
     rawPredictionCol = Param("rawPredictionCol", "raw margin column", to_str,
                              default="rawPrediction")
@@ -1091,9 +1124,6 @@ class LightGBMClassifier(_LightGBMBase):
             "binary" if num_class <= 2 else "multiclass")
         if objective == "binary" and num_class > 2:
             raise ValueError(f"binary objective with {num_class} classes")
-        if num_class > 2:
-            raise _later(f"multiclass classification ({num_class} classes)",
-                         "A7 (GBDT breadth: multiclass)")
         # re-encode labels to 0..K-1 (objectives one-hot by index)
         encoded = np.searchsorted(classes, y_raw).astype(np.float64)
         df = df.with_column(self.get("labelCol"), encoded)
@@ -1118,7 +1148,9 @@ class LightGBMClassifier(_LightGBMBase):
             else:
                 df = df.with_column("_unbalance_weight", w)
                 self = self.copy(weightCol="_unbalance_weight")
-        result, mapper, measures = self._fit_booster(df, objective)
+        result, mapper, measures = self._fit_booster(
+            df, objective,
+            num_class=num_class if objective != "binary" else 1)
         model = self._finish_model(LightGBMClassificationModel, result,
                                    mapper, measures)
         model.num_classes = num_class
@@ -1204,12 +1236,53 @@ class LightGBMRegressionModel(_LightGBMModelBase):
         return {self.get("predictionCol"): raw.astype(np.float64)}
 
 
-class LightGBMRanker:
-    """Lambdarank ranking comes with GBDT breadth (ROADMAP A7)."""
+# ---------------------------------------------------------------------------
+# Ranker
+# ---------------------------------------------------------------------------
 
-    def __init__(self, *args: Any, **kwargs: Any):
-        raise _later("LightGBMRanker (lambdarank)",
-                     "A7 (GBDT breadth: lambdarank)")
+def _encode_groups(frame: DataFrame, group_col: str) -> np.ndarray:
+    """A frame's query ids as dense int32 indices in sorted-id order."""
+    _, inv = np.unique(np.asarray(frame.col(group_col)),
+                       return_inverse=True)
+    return inv.reshape(-1).astype(np.int32)
+
+
+class LightGBMRanker(_LightGBMBase):
+    """Lambdarank ranker (LightGBMRanker.scala:1 parity). ``groupCol``
+    holds the query ids; pairs are taken within a query, NDCG is
+    evaluated at each ``evalAt`` position under ``labelGain`` (default
+    2^label - 1), and only pairs touching the top ``maxPosition``
+    predicted positions carry gradient."""
+
+    groupCol = Param("groupCol", "query/group id column", to_str,
+                     default="group")
+    evalAt = Param("evalAt", "NDCG@k eval positions", to_list(to_int),
+                   default=[1, 3, 5])
+    labelGain = Param("labelGain", "per-relevance-level NDCG gains "
+                      "(default 2^label - 1)", to_list(to_float))
+    maxPosition = Param("maxPosition", "NDCG truncation level "
+                        "(lambdarank_truncation_level)", to_int, gt(0),
+                        default=30)
+
+    def _fit(self, df: DataFrame) -> "LightGBMRankerModel":
+        eval_at = self.get("evalAt") or [5]
+        extra = {"eval_at": tuple(int(p) for p in eval_at),
+                 "lambdarank_truncation_level": self.get("maxPosition")}
+        if self.is_set("labelGain"):
+            extra["label_gain"] = tuple(self.get("labelGain"))
+        result, mapper, measures = self._fit_booster(
+            df, "lambdarank", extra_cfg=extra,
+            group_col=self.get("groupCol"))
+        return self._finish_model(LightGBMRankerModel, result, mapper,
+                                  measures)
+
+
+class LightGBMRankerModel(_LightGBMModelBase):
+    """A fitted ranker: ``transform`` appends the raw scores (float64)
+    as ``predictionCol``; rank within a query by them."""
+
+    def _reply_columns_from_raw(self, raw: np.ndarray) -> Dict[str, Any]:
+        return {self.get("predictionCol"): raw.astype(np.float64)}
 
 
 def _sample_rows(x: np.ndarray, seed: int, max_sample: int = 200_000) -> np.ndarray:

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 import torch
@@ -146,6 +147,37 @@ def flat_index(binned, local, f: int, b: int) -> torch.Tensor:
             + binned.long()).reshape(-1)
 
 
+def _cell_sums(binned, local, data, width: int, f: int,
+               b: int) -> torch.Tensor:
+    """(width*F*B, 3) int64: the sums of the (N, 3) int64 rows ``data``
+    over every (row, feature)'s cell of :func:`flat_index`, a channel at
+    a time. Integer sums are the same in any order, so on the CPU slices
+    of the features, whose cells are their own, are summed on a thread
+    each (``torch.get_num_threads()`` slices)."""
+    n, dev = binned.shape[0], binned.device
+    acc = torch.zeros((3, width * f * b), dtype=torch.int64, device=dev)
+    base = local.long()[:, None] * f
+
+    def add(span):
+        lo, hi = span
+        cells = ((base + torch.arange(lo, hi, device=dev)) * b
+                 + binned[:, lo:hi].long()).reshape(-1)
+        for c in range(3):
+            acc[c].index_add_(0, cells, data[:, c, None].expand(
+                n, hi - lo).reshape(-1))
+
+    parts = torch.get_num_threads() if dev.type == "cpu" else 1
+    step = max(1, -(-f // parts))
+    spans = [(lo, min(lo + step, f)) for lo in range(0, f, step)]
+    if len(spans) > 1:
+        with ThreadPoolExecutor(len(spans)) as pool:
+            list(pool.map(add, spans))
+    else:
+        for span in spans:
+            add(span)
+    return acc.t()
+
+
 def _bit_length(v: torch.Tensor) -> torch.Tensor:
     """Bits of each non-negative int64 (0 for 0), by halving shifts."""
     length = torch.zeros_like(v)
@@ -178,20 +210,18 @@ def pow2(e: torch.Tensor) -> torch.Tensor:
 
 def level_histogram_reference(binned, grad, hess, live, local, width: int,
                               f: int, b: int) -> torch.Tensor:
-    """Plain version: the fixed-point sums with one int64 ``index_add_``
-    over ``flat_index``. Per channel c of ``(grad*live, hess*live,
-    live)``: ``e_c = fixed_point_exponents(max|x_c|, N)``, terms
-    ``round_half_even(float64(x) * 2^e_c)`` as int64 (the product is
-    exact), exact sums, and ``float32(float64(sum) * 2^-e_c)``."""
+    """Plain version: the fixed-point sums with int64 ``index_add_``
+    over ``flat_index``'s cells (:func:`_cell_sums`). Per channel c of
+    ``(grad*live, hess*live, live)``: ``e_c = fixed_point_exponents(
+    max|x_c|, N)``, terms ``round_half_even(float64(x) * 2^e_c)`` as
+    int64 (the product is exact), exact sums, and
+    ``float32(float64(sum) * 2^-e_c)``."""
     n = binned.shape[0]
     data = torch.stack([grad * live, hess * live, live], dim=-1)   # (n, 3)
     e = fixed_point_exponents(data.abs().amax(dim=0) if n else
                               torch.zeros(3, device=binned.device), n)
     terms = torch.round(data.double() * pow2(e)).long()
-    src = terms[:, None, :].expand(n, f, 3).reshape(-1, 3)
-    acc = torch.zeros((width * f * b, 3), dtype=torch.int64,
-                      device=binned.device).index_add_(
-        0, flat_index(binned, local, f, b), src)
+    acc = _cell_sums(binned, local, terms, width, f, b)
     return (acc.double() * pow2(-e)).float().reshape(width, f, b, 3)
 
 
@@ -323,17 +353,14 @@ def level_histogram_quant(binned, grad_q, hess_q, live, local, width: int,
 def level_histogram_quant_reference(binned, grad_q, hess_q, live, local,
                                     width: int, f: int, b: int, gscale_inv,
                                     hscale_inv) -> torch.Tensor:
-    """Plain version: one int64 ``index_add_`` over ``flat_index``, then
-    ``float32(int64_sum * float64(scale_inv))``, one rounding (scale 1
-    for the count channel)."""
-    n = binned.shape[0]
+    """Plain version: int64 ``index_add_`` over ``flat_index``'s cells
+    (:func:`_cell_sums`), then ``float32(int64_sum *
+    float64(scale_inv))``, one rounding (scale 1 for the count
+    channel)."""
     gate = (live > 0).long()
     data = torch.stack([grad_q.long() * gate, hess_q.long() * gate, gate],
                        dim=-1)                                   # (n, 3)
-    src = data[:, None, :].expand(n, f, 3).reshape(-1, 3)
-    acc = torch.zeros((width * f * b, 3), dtype=torch.int64,
-                      device=binned.device).index_add_(
-        0, flat_index(binned, local, f, b), src)
+    acc = _cell_sums(binned, local, data, width, f, b)
     one = torch.ones((), dtype=torch.float64, device=binned.device)
     scales = torch.stack([one * gscale_inv, one * hscale_inv, one])
     return (acc.double() * scales).float().reshape(width, f, b, 3)

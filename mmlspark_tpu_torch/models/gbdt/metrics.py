@@ -3,8 +3,10 @@ port of the JAX package's ``models/gbdt/metrics.py``.
 
 Each metric maps raw scores (and labels, optional row weights) to a 0-d
 tensor on the scores' device; ``higher_better`` drives the early-stop
-direction, as LightGBM's per-metric flag does. ``ndcg`` comes with
-lambdarank (ROADMAP A7).
+direction, as LightGBM's per-metric flag does. ``ndcg_at(k)`` takes
+query groups: the trainer passes each set's padded group layout
+(``objectives.make_group_layout``, built once per fit), so the metric
+runs in the captured step without a host sync.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 import torch
+
+from mmlspark_tpu_torch.models.gbdt import objectives as obj_mod
 
 
 def _w(weights, like):
@@ -100,6 +104,55 @@ def quantile_loss(raw, labels, weights=None, alpha: float = 0.5):
     return torch.sum(loss * w) / torch.sum(w)
 
 
+def ndcg_at(k: int, label_gain=None):
+    """NDCG@k averaged over query groups (the JAX package's ``ndcg_at``):
+    each group counted once, groups whose rows all have zero weight left
+    out, ties ranked in row order; ``label_gain`` as in
+    ``objectives.label_gains``. ``ndcg(raw, labels, weights=None,
+    group_ids=None, group_layout=None)``: the groups as ``group_layout``
+    (``objectives.layout_to`` of ``make_group_layout``'s buckets), or as
+    ``group_ids``, whose layout is then built on the host. A group's
+    sums are reductions over its row of the padded layout (the
+    reference's segment sums over dense group ids), so the value is the
+    same bits on every run."""
+    def ndcg(raw, labels, weights=None, group_ids=None, group_layout=None):
+        if group_layout is None:
+            if group_ids is None:
+                raise ValueError("ndcg requires group_ids")
+            ids = (group_ids.cpu().numpy() if isinstance(group_ids,
+                                                         torch.Tensor)
+                   else group_ids)
+            group_layout = obj_mod.layout_to(
+                obj_mod.make_group_layout(ids), raw.device)
+        zero = torch.zeros(1, dtype=raw.dtype, device=raw.device)
+        raw_p = torch.cat([raw, zero])
+        lab_p = torch.cat([labels, zero.to(labels.dtype)])
+        w_p = torch.cat([_w(weights, raw), zero])
+        total = torch.zeros((), dtype=raw.dtype, device=raw.device)
+        count = torch.zeros((), dtype=raw.dtype, device=raw.device)
+        for rows, mask in group_layout:
+            rows = rows.long()
+            ll = lab_p[rows]
+            real = mask > 0
+            gain = obj_mod.label_gains(ll, label_gain)
+
+            def dcg(rank):
+                return torch.sum(torch.where(
+                    real & (rank < k), gain / torch.log2(2.0 + rank), 0.0),
+                    dim=1)
+
+            ndcg_g = dcg(obj_mod._ranks_within(raw_p[rows], mask)) \
+                / torch.clamp_min(dcg(obj_mod._ranks_within(ll, mask)),
+                                  1e-12)
+            valid = torch.any(real & (w_p[rows] > 0), dim=1)
+            total = total + torch.sum(torch.where(valid, ndcg_g, 0.0))
+            count = count + torch.sum(valid.to(raw.dtype))
+        return total / torch.clamp_min(count, 1e-12)
+
+    ndcg.__name__ = f"ndcg@{k}"
+    return ndcg
+
+
 # name -> (fn, higher_better)
 METRICS: Dict[str, Tuple[Callable, bool]] = {
     "binary_logloss": (binary_logloss, False),
@@ -115,6 +168,7 @@ METRICS: Dict[str, Tuple[Callable, bool]] = {
     "mape": (mape_metric, False),
     "poisson": (poisson_deviance, False),
     "quantile": (quantile_loss, False),
+    "ndcg": (ndcg_at(5), True),
 }
 
 

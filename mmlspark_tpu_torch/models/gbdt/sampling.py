@@ -172,8 +172,15 @@ def goss_mult(g: torch.Tensor, draw_: torch.Tensor,
     """(N,) float32 GOSS multipliers (``trainer.py:2182-2195``): 1 for
     rows whose |g| reaches the ``1 - top_rate`` quantile of the valid
     rows' |g|, ``(1 - top_rate) / other_rate`` for a draw of the rest
-    at rate ``other_rate / (1 - top_rate)``, else 0."""
+    at rate ``other_rate / (1 - top_rate)``, else 0. For (N, K) grads
+    (multiclass) a row's |g| is the sum over its classes, added in class
+    order as XLA's reduction adds them; the caller scales every class."""
     absg = torch.abs(g)
+    if absg.ndim == 2:
+        total = absg[:, 0]
+        for c in range(1, absg.shape[1]):
+            total = total + absg[:, c]
+        absg = total
     vals = absg if row_valid is None else torch.where(
         row_valid > 0, absg, torch.nan)
     thr = nanquantile(vals, 1.0 - cfg.top_rate)

@@ -4,20 +4,25 @@ on static buffers, replayed on the card as one captured CUDA graph.
 It is the port of the JAX package's fused step (``_make_step_fn``,
 ``mmlspark_tpu/models/gbdt/trainer.py:2081``), in the same order:
 
-  1. the sampling masks (``sampling``): the bag, the tree's features;
-  2. grad/hess from the objective (rf's from the base score alone);
-  3. GOSS's multipliers, folded into grad/hess and the row mask;
-  4. ``trainer.build_tree`` under the row and feature masks;
-  5. shrinkage (``node_value * learning_rate``; rf keeps its values);
-  6. the training and validation raw scores, updated in place;
-  7. the metric row.
+  1. the sampling masks (``sampling``): the bag, the tree's features,
+     drawn once per iteration;
+  2. grad/hess from the objective (rf's from the base score alone), (N,)
+     or (N, K) for K classes; lambdarank over the fit's group layout;
+  3. GOSS's multipliers (rows ranked by the sum over classes of |g|),
+     folded into grad/hess and the row mask;
+  4. per class c: ``trainer.build_tree`` on the column ``g[:, c]`` under
+     the row and feature masks, shrinkage (``node_value *
+     learning_rate``; rf keeps its values), and the training and
+     validation raw scores' column c updated in place;
+  5. the metric row.
 
-The step writes its tree and metric row into one packed float32 row
-(:func:`unpack`): ``split_feature`` and ``threshold_bin`` as the bits of
-their int32 values, then ``node_value``, ``count``, for a fit with
-categorical features each split's decision bits and its (slots, B)
-left-bin mask (:func:`unpack_masks`; the reference keeps them only for
-such fits too), and the metrics.
+The step writes its K trees and metric row into one packed float32 row
+(:func:`unpack`): per tree ``split_feature`` and ``threshold_bin`` as
+the bits of their int32 values, then ``node_value``, ``count``, for a
+fit with categorical features each split's decision bits and its
+(slots, B) left-bin mask (:func:`unpack_masks`; the reference keeps them
+only for such fits too); then the metrics. Unpacked, the trees come in
+the booster's order, interleaved by class.
 
 On the CPU, and for a custom objective, the step runs directly, once per
 iteration (:class:`Step`). On the card a named objective's step is
@@ -28,9 +33,10 @@ as the warm-up: it builds the kernels and runs their first-use set-up
 (``cudaFuncSetAttribute``, occupancy queries, the quantization
 threshold table) before capture, and advances the fit once, as a
 replay would. Captures are cached by what the graph bakes in (the
-shapes, the loop-relevant config, the histogram plane, subtraction, the
-draw function and the device) like the reference's ``_get_step_fn``;
-each fit copies its data into the cached buffers. Capture is
+shapes, the group layouts' shapes, the loop-relevant config, the
+histogram plane, subtraction, the draw function and the device) like the
+reference's ``_get_step_fn``; each fit copies its data, its group
+layouts included, into the cached buffers. Capture is
 thread-local, so serving threads of the same process keep launching.
 A capture or replay that fails raises; nothing falls back to the
 uncaptured step. A cached step holds its buffers and graph, never a
@@ -85,25 +91,36 @@ def tree_cols(slots: int, bins: int = 0) -> int:
     return 4 * slots + (slots * (1 + bins) if bins else 0)
 
 
-def unpack(rows: np.ndarray, slots: int, bins: int = 0):
+def _trees(rows: np.ndarray, slots: int, bins: int, k: int) -> np.ndarray:
+    """The (T * K, tree_cols) tree blocks of (T, K * tree_cols + m)
+    packed rows, interleaved by class (row t's block c is tree
+    t * K + c)."""
+    cols = tree_cols(slots, bins)
+    return rows[:, :k * cols].reshape(len(rows) * k, cols)
+
+
+def unpack(rows: np.ndarray, slots: int, bins: int = 0, k: int = 1):
     """(split_feature int32, threshold_bin int32, node_value float32,
-    count float32, metrics float32) from (T, tree_cols + m) packed
-    rows."""
+    count float32), each (T * K, slots), and the metrics float32 (T, m)
+    of (T, K * tree_cols + m) packed rows."""
     rows = np.ascontiguousarray(rows, dtype=np.float32)
-    return (rows[:, :slots].copy().view(np.int32),
-            rows[:, slots:2 * slots].copy().view(np.int32),
-            rows[:, 2 * slots:3 * slots], rows[:, 3 * slots:4 * slots],
-            rows[:, tree_cols(slots, bins):])
+    trees = _trees(rows, slots, bins, k)
+    return (trees[:, :slots].copy().view(np.int32),
+            trees[:, slots:2 * slots].copy().view(np.int32),
+            trees[:, 2 * slots:3 * slots], trees[:, 3 * slots:4 * slots],
+            rows[:, k * tree_cols(slots, bins):])
 
 
-def unpack_masks(rows: np.ndarray, slots: int, bins: int):
-    """(decision_type int8 (T, slots), bin_go_left bool (T, slots, bins))
-    of the packed rows of a fit with categorical features."""
-    rows = np.asarray(rows, dtype=np.float32)
+def unpack_masks(rows: np.ndarray, slots: int, bins: int, k: int = 1):
+    """(decision_type int8 (T * K, slots), bin_go_left bool (T * K,
+    slots, bins)) of the packed rows of a fit with categorical
+    features."""
+    trees = _trees(np.ascontiguousarray(rows, dtype=np.float32), slots,
+                   bins, k)
     at = 4 * slots
-    return (rows[:, at:at + slots].astype(np.int8),
-            rows[:, at + slots:at + slots * (1 + bins)]
-            .reshape(len(rows), slots, bins) > 0)
+    return (trees[:, at:at + slots].astype(np.int8),
+            trees[:, at + slots:at + slots * (1 + bins)]
+            .reshape(len(trees), slots, bins) > 0)
 
 
 def _loop_only(cfg):
@@ -116,23 +133,28 @@ def _loop_only(cfg):
 
 class Step:
     """One fit's boosting step over its buffers: the binned rows,
-    labels, weights and raw scores, each validation set's, and three
-    device scalars (the iteration, the learning rate, the base score).
+    labels, weights and raw scores, each validation set's, the group
+    layouts (``layout``, and each validation set's ``"layout"``: tuples
+    of (rows, mask) buckets, or None), and three device scalars (the
+    iteration, the learning rate, the base score).
 
     ``grad_fn(score_in) -> (grad, hess)`` is the objective (the named
     one by default). :meth:`run` runs one iteration: uncaptured, or the
     replay of its graph once :meth:`capture` made one."""
 
-    def __init__(self, cfg, binned, labels, weights, raw, valids,
+    def __init__(self, cfg, binned, labels, weights, raw, valids, layout,
                  hist_quant: str, subtract: bool,
                  grad_fn: Optional[Callable] = None):
         from mmlspark_tpu_torch.models.gbdt import trainer as T
 
         self.cfg = cfg
+        self.k = cfg.num_trees_per_iteration
         self.dev = binned.device
         self.binned, self.labels, self.weights, self.raw = (
             binned, labels, weights, raw)
-        # [{"binned", "labels", "weights", "raw"}] per validation set
+        self.layout = layout
+        # [{"binned", "labels", "weights", "raw", "layout"}] per
+        # validation set
         self.valids = valids
         self.hist_quant, self.subtract = hist_quant, subtract
         self.n, self.num_f = binned.shape
@@ -145,8 +167,26 @@ class Step:
         # fall inside another step's capture
         self.objective_fn = obj_mod.get_objective(cfg.objective)
         self.obj_kwargs = T._objective_kwargs(cfg)
+        # the gain table goes to the device here, never inside a capture,
+        # for the lambdas and ndcg alike
+        gains = (torch.tensor(cfg.label_gain, dtype=torch.float32,
+                              device=self.dev) if cfg.label_gain else None)
+        if cfg.objective == "lambdarank":
+            self.obj_kwargs["group_layout"] = layout
+            if gains is not None:
+                self.obj_kwargs["label_gain"] = gains
         self.grad_fn = grad_fn
-        _, self.metric_list, _, self.metric_kwargs = T._resolve_metrics(cfg)
+        metric_name, self.metric_list, _, metric_kwargs = \
+            T._resolve_metrics(cfg, label_gain=gains)
+        # (raw, labels, weights) and the metric's settings of the training
+        # set and each validation set; ndcg's with the set's layout
+        ndcg = metric_name == "ndcg"
+        self.metric_sets = [
+            ((vs["raw"], vs["labels"], vs["weights"]),
+             {**metric_kwargs, "group_layout": vs.get("layout")} if ndcg
+             else metric_kwargs)
+            for vs in [{"raw": raw, "labels": labels, "weights": weights,
+                        "layout": layout}, *valids]]
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
         self.tally: Dict[str, int] = {}
@@ -174,40 +214,48 @@ class Step:
                 sampling.draw(sampling.feature_keys(cfg, self.it),
                               self.num_f, dev), self.num_f,
                 sampling.feature_keep(self.num_f, cfg.feature_fraction))
-        score_in = self.base.expand(n).clone() if is_rf else self.raw
-        g, h = (self.grad_fn(score_in) if self.grad_fn is not None else
-                self.objective_fn(score_in, self.labels, self.weights,
-                                  **self.obj_kwargs))
+        k = self.k
+        score_in = (self.base.expand(self.raw.shape).clone() if is_rf
+                    else self.raw)
+        if self.grad_fn is not None:
+            g, h = self.grad_fn(score_in)
+        else:
+            g, h = self.objective_fn(score_in, self.labels, self.weights,
+                                     **self.obj_kwargs)
         if cfg.boosting_type == "goss":
             mult = sampling.goss_mult(
                 g, sampling.draw(sampling.goss_keys(cfg, self.it), n, dev),
                 None, cfg)
             keep = (mult > 0).to(torch.float32)
             mask = keep if mask is None else mask * keep
-            g, h = g * mult, h * mult
+            gm = mult if k == 1 else mult[:, None]
+            g, h = g * gm, h * gm
         depth = cfg.effective_depth
         nl = cfg.num_leaves if cfg.num_leaves > 0 else 2 ** depth
-        tree = T.build_tree(
-            self.binned, g, h, nl, cfg, cfg.max_bin, self.hist_quant,
-            self.subtract, valid=mask, feat_mask=feat_mask)
-        sf, tb, nv, cnt = tree[:4]
-        bgl = tree[5] if cfg.has_categorical else None
-        if not is_rf:
-            nv = nv * self.lr
-        self.raw.add_(T._predict_tree(sf, tb, nv, self.binned, depth, bgl))
-        for vs in self.valids:
-            vs["raw"].add_(T._predict_tree(sf, tb, nv, vs["binned"], depth,
-                                           bgl))
-        row = []
-        for _, fn in self.metric_list:
-            row.append(fn(self.raw, self.labels, self.weights,
-                          **self.metric_kwargs))
-            row += [fn(vs["raw"], vs["labels"], vs["weights"],
-                       **self.metric_kwargs) for vs in self.valids]
-        masks = [] if bgl is None else [tree[4].float(),
-                                        bgl.float().reshape(-1)]
-        return torch.cat([sf.view(torch.float32), tb.view(torch.float32),
-                          nv, cnt, *masks, torch.stack(row).float()])
+        blocks = []
+        for c in range(k):
+            # each class from its own contiguous grad/hess column, under
+            # the iteration's shared masks
+            gc, hc = ((g, h) if k == 1 else
+                      (g[:, c].contiguous(), h[:, c].contiguous()))
+            tree = T.build_tree(
+                self.binned, gc, hc, nl, cfg, cfg.max_bin, self.hist_quant,
+                self.subtract, valid=mask, feat_mask=feat_mask)
+            sf, tb, nv, cnt = tree[:4]
+            bgl = tree[5] if cfg.has_categorical else None
+            if not is_rf:
+                nv = nv * self.lr
+            for vs in [{"raw": self.raw, "binned": self.binned},
+                       *self.valids]:
+                pred = T._predict_tree(sf, tb, nv, vs["binned"], depth, bgl)
+                (vs["raw"] if k == 1 else vs["raw"][:, c]).add_(pred)
+            masks = [] if bgl is None else [tree[4].float(),
+                                            bgl.float().reshape(-1)]
+            blocks += [sf.view(torch.float32), tb.view(torch.float32), nv,
+                       cnt, *masks]
+        row = [fn(*args, **kw) for _, fn in self.metric_list
+               for args, kw in self.metric_sets]
+        return torch.cat([*blocks, torch.stack(row).float()])
 
     def run(self, it: int) -> torch.Tensor:
         """Iteration ``it`` (global, ``iteration_offset`` included): the
@@ -243,40 +291,62 @@ class Step:
 
     # -- the buffers of a cached step ---------------------------------------
     @classmethod
-    def owning(cls, cfg, binned, labels, weights, raw, valids, hist_quant,
-               subtract) -> "Step":
+    def owning(cls, cfg, binned, labels, weights, raw, valids, layout,
+               hist_quant, subtract) -> "Step":
         """A step over buffers of its own, shaped as the given tensors,
         for capture and reuse by later fits (:meth:`load`)."""
-        own = [{k: (None if v is None else torch.empty_like(v))
-                for k, v in vs.items()} for vs in valids]
+        own = [{k: _like(v) for k, v in vs.items()} for vs in valids]
         return cls(cfg, torch.empty_like(binned), torch.empty_like(labels),
-                   None if weights is None else torch.empty_like(weights),
-                   torch.empty_like(raw), own, hist_quant, subtract)
+                   _like(weights), torch.empty_like(raw), own,
+                   _like(layout), hist_quant, subtract)
 
-    def load(self, binned, labels, weights, raw, valids) -> None:
-        """Copy one fit's tensors into the buffers."""
+    def load(self, binned, labels, weights, raw, valids, layout) -> None:
+        """Copy one fit's tensors, its group layouts included, into the
+        buffers."""
         pairs = [(self.binned, binned), (self.labels, labels),
-                 (self.weights, weights), (self.raw, raw)]
+                 (self.weights, weights), (self.raw, raw),
+                 (self.layout, layout)]
         for mine, theirs in zip(self.valids, valids):
             pairs += [(mine[k], theirs[k]) for k in mine]
         for dst, src in pairs:
-            if dst is not None:
+            if isinstance(dst, tuple):
+                pairs += list(zip(dst, src))
+            elif dst is not None:
                 dst.copy_(src)
 
 
-def _cache_key(cfg, binned, weights, valids, hist_quant, subtract):
+def _like(v):
+    """Empty buffers shaped as ``v``: a tensor, None, or a group layout
+    (a tuple of (rows, mask) pairs)."""
+    if isinstance(v, tuple):
+        return tuple(_like(x) for x in v)
+    return None if v is None else torch.empty_like(v)
+
+
+def _shapes(v):
+    """The shapes of a group layout (None where there is none)."""
+    if isinstance(v, tuple):
+        return tuple(_shapes(x) for x in v)
+    return None if v is None else tuple(v.shape)
+
+
+def _cache_key(cfg, binned, weights, valids, hist_quant, subtract,
+               layout=None):
     return (binned.device, tuple(binned.shape), weights is None,
-            tuple((vs["binned"].shape[0], vs["weights"] is None)
-                  for vs in valids),
-            _loop_only(cfg), hist_quant, subtract, sampling.draw)
+            tuple((vs["binned"].shape[0], vs["weights"] is None,
+                   _shapes(vs.get("layout"))) for vs in valids),
+            _loop_only(cfg), hist_quant, subtract, sampling.draw,
+            _shapes(layout))
 
 
-def open_step(cfg, binned, labels, weights, raw, valids, *, lr: float,
+def open_step(cfg, binned, labels, weights, raw, valids, *,
+              layout=None, lr: float,
               base: float, hist_quant: str, subtract: bool,
               custom_objective: Optional[Callable] = None,
               capture: bool = True) -> Step:
     """The step of one fit over the given device tensors (``raw`` and
-    each validation set's ``"raw"`` are its starting scores).
+    each validation set's ``"raw"`` are its starting scores; ``layout``
+    and each set's ``"layout"`` its group layouts, or None).
 
     On the card, a named objective with ``capture`` on gets a captured
     step: the cached one for this shape and config (its buffers loaded
@@ -291,16 +361,16 @@ def open_step(cfg, binned, labels, weights, raw, valids, *, lr: float,
     if not captured:
         grad_fn = None
         if custom_objective is not None:
-            n = binned.shape[0]
             grad_fn = (lambda score: T._custom_grad_hess(
-                custom_objective, score, labels, weights, n))
+                custom_objective, score, labels, weights))
         # the raw scores are updated in place: copies, never the
         # caller's arrays (a tensor from numpy shares its memory)
         st = Step(cfg, binned, labels, weights, raw.clone(),
                   [{**vs, "raw": vs["raw"].clone()} for vs in valids],
-                  hist_quant, subtract, grad_fn)
+                  layout, hist_quant, subtract, grad_fn)
     else:
-        key = _cache_key(cfg, binned, weights, valids, hist_quant, subtract)
+        key = _cache_key(cfg, binned, weights, valids, hist_quant, subtract,
+                         layout)
         with _cache_lock:
             st = _cache.get(key)
             if st is not None and st.lock.acquire(blocking=False):
@@ -309,13 +379,13 @@ def open_step(cfg, binned, labels, weights, raw, valids, *, lr: float,
                 st = None   # none, or in use by a fit on another thread
         if st is None:
             st = Step.owning(cfg, binned, labels, weights, raw, valids,
-                             hist_quant, subtract)
+                             layout, hist_quant, subtract)
             st.key = key
             st.lock.acquire()
         st.captured = True
     try:
         if captured:
-            st.load(binned, labels, weights, raw, valids)
+            st.load(binned, labels, weights, raw, valids, layout)
         st.lr.fill_(lr)
         st.base.fill_(base)
     except BaseException:

@@ -34,10 +34,16 @@ What this slice runs (and the JAX trainer it mirrors, file
   - the boosting step of gbdt, goss and rf (``step.py``): the sampling
     masks (``sampling.py``: bagging, pos/neg bagging,
     ``feature_fraction``, GOSS, rf's bag), objective grad/hess, one tree
-    under the masks, shrinkage, raw-score updates through
+    per class under the masks (K = ``num_class`` for the multiclass
+    objectives, else 1), shrinkage, raw-score updates through
     ``_predict_tree`` (training rows and each validation set), the
-    metrics (``_resolve_metrics``); on the card one captured CUDA graph
-    replayed per iteration;
+    metrics (``_resolve_metrics``, one ``ndcg@p`` per ``eval_at``
+    position); on the card one captured CUDA graph replayed per
+    iteration;
+  - lambdarank over query groups (``group_ids``): the groups' padded
+    layout built once per fit on the host
+    (``objectives.make_group_layout``), for the lambdas and for each
+    set's ``ndcg``;
   - ``train``: serial, in-core, with validation sets, early stopping
     (``_train_scan``'s stop rule, metrics synced in blocks), warm starts
     (``init_model`` / ``init_raw``, ``warm_start_scores``), custom
@@ -163,6 +169,22 @@ class TrainConfig:
                                tuple(int(i) for i in cat))
         elif isinstance(cat, tuple):
             object.__setattr__(self, "categorical_features", cat)
+        # as the JAX package's: eval_at stays scalar-or-tuple, label_gain
+        # becomes a tuple of floats
+        if isinstance(self.eval_at, list):
+            object.__setattr__(self, "eval_at", tuple(self.eval_at))
+        if isinstance(self.label_gain, (int, float)):
+            object.__setattr__(self, "label_gain",
+                               (float(self.label_gain),))
+        elif isinstance(self.label_gain, (list, np.ndarray)):
+            object.__setattr__(self, "label_gain",
+                               tuple(float(g) for g in self.label_gain))
+
+    @property
+    def num_trees_per_iteration(self) -> int:
+        """K: ``num_class`` for the multiclass objectives, else 1."""
+        return (self.num_class if self.objective in obj_mod.MULTICLASS_NAMES
+                else 1)
 
     @property
     def has_categorical(self) -> bool:
@@ -184,7 +206,6 @@ _LATER = {
     "boosting_type": "A7 (GBDT breadth: dart)",
     "feature_fraction_by_node":
         "A7 (GBDT breadth: feature_fraction_by_node)",
-    "num_class": "A7 (GBDT breadth: multiclass)",
     "monotone_constraints": "A7 (GBDT breadth: monotone constraints)",
     "extra_trees": "A7 (GBDT breadth: extra_trees)",
     "tree_learner": "A8 (multi-device GBDT)",
@@ -217,14 +238,25 @@ def check_supported(cfg: TrainConfig) -> None:
     _resolve_metrics(cfg)                 # raises for other metrics
 
 
-def _resolve_metrics(cfg: TrainConfig):
+def _resolve_metrics(cfg: TrainConfig, label_gain=None):
     """(metric_name, [(label, fn)], higher_better, metric_kwargs), as the
-    JAX package's ``_resolve_metrics``; ``ndcg`` raises (ROADMAP A7)."""
+    JAX package's ``_resolve_metrics``: ``ndcg`` is one ``ndcg@p`` per
+    ``eval_at`` position under ``label_gain`` (the step's device tensor
+    of the gains), else ``cfg.label_gain``; an unknown name raises
+    ``NotImplementedError`` (as the reference's ``KeyError``, naming
+    ROADMAP A7)."""
     metric_name = cfg.metric or metrics_mod.default_metric(cfg.objective)
+    if metric_name == "ndcg":
+        positions = (cfg.eval_at if isinstance(cfg.eval_at, (list, tuple))
+                     else [cfg.eval_at])
+        lg = (label_gain if label_gain is not None
+              else tuple(cfg.label_gain or ()) or None)
+        return metric_name, [(f"ndcg@{p}", metrics_mod.ndcg_at(
+            int(p), label_gain=lg)) for p in positions], True, {}
     if metric_name not in metrics_mod.METRICS:
         raise NotImplementedError(
-            f"metric {metric_name!r} is not in the port yet (ROADMAP A7, "
-            f"GBDT breadth: lambdarank); have {sorted(metrics_mod.METRICS)}")
+            f"metric {metric_name!r} is not in the port (ROADMAP A7, GBDT "
+            f"breadth); have {sorted(metrics_mod.METRICS)}")
     metric_fn, higher_better = metrics_mod.METRICS[metric_name]
     # quantile's pinball alpha is the training alpha
     metric_kwargs = {"alpha": cfg.alpha} if metric_name == "quantile" else {}
@@ -238,6 +270,15 @@ def _objective_kwargs(cfg: TrainConfig) -> Dict[str, Any]:
     name = cfg.objective
     if name == "binary":
         return {"sigmoid": cfg.sigmoid}
+    if name in obj_mod.MULTICLASS_NAMES:
+        return {"num_class": cfg.num_class}
+    if name == "lambdarank":
+        kw: Dict[str, Any] = {
+            "sigmoid": cfg.sigmoid,
+            "truncation_level": cfg.lambdarank_truncation_level}
+        if cfg.label_gain:
+            kw["label_gain"] = tuple(cfg.label_gain)
+        return kw
     if name in ("huber", "quantile"):
         return {"alpha": cfg.alpha}
     if name == "fair":
@@ -249,11 +290,13 @@ def _objective_kwargs(cfg: TrainConfig) -> Dict[str, Any]:
     return {}
 
 
-def _custom_grad_hess(fn, raw, labels, weights, n: int):
+def _custom_grad_hess(fn, raw, labels, weights):
     """Call a custom objective with the fit's device tensors (float32
     ``raw`` and ``labels``, ``weights`` or None) and bring its (grad,
-    hess) back to that device as float32 (N,) tensors; tensors and
-    array-likes are both taken, other shapes raise."""
+    hess) back to that device as float32 tensors of ``raw``'s shape,
+    (N,) or (N, K) for a multiclass fit, as the reference's
+    ``_train_loop`` passes them; tensors and array-likes are both taken,
+    other shapes raise."""
     out = fn(raw, labels, weights)
     if not isinstance(out, (tuple, list)) or len(out) != 2:
         raise ValueError("a custom objective must return (grad, hess); "
@@ -264,9 +307,10 @@ def _custom_grad_hess(fn, raw, labels, weights, n: int):
              if isinstance(v, torch.Tensor) else
              torch.as_tensor(np.asarray(v, dtype=np.float32),
                              device=raw.device))
-        if tuple(v.shape) != (n,):
+        if tuple(v.shape) != tuple(raw.shape):
             raise ValueError(f"custom objective {what} has shape "
-                             f"{tuple(v.shape)}; expected ({n},)")
+                             f"{tuple(v.shape)}; expected "
+                             f"{tuple(raw.shape)}")
         res.append(v)
     return res[0], res[1]
 
@@ -816,9 +860,10 @@ def _binned_to_device(binned, total_bins: int, dev: torch.device):
     return torch.as_tensor(binned, device=dev).to(torch.uint8).contiguous()
 
 
-def _f32(a, dev, n=None):
+def _f32(a, dev, shape=None):
     a = np.asarray(a, dtype=np.float32)
-    return torch.as_tensor(a if n is None else a.reshape(n), device=dev)
+    return torch.as_tensor(a if shape is None else a.reshape(shape),
+                           device=dev)
 
 
 def stop_iteration(values, esr: int, tol: float, higher_better: bool):
@@ -851,27 +896,37 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
           measures: Optional[InstrumentationMeasures] = None,
           device: DeviceLike = None,
           custom_objective: Optional[Callable] = None,
-          iteration_offset: int = 0, capture: bool = True) -> TrainResult:
+          iteration_offset: int = 0, capture: bool = True,
+          group_ids: Optional[np.ndarray] = None) -> TrainResult:
     """Boosting loop. ``binned``: (N, F) bin ids (``BinMapper.transform``
     output, or a uint8 tensor already on the device); ``weights``:
     optional (N,) row weights; ``bin_upper``: (F, B) raw-value bin upper
     edges (``BinMapper.bin_upper_values``), which become the booster's
-    raw-value thresholds.
+    raw-value thresholds; ``group_ids``: (N,) query ids of the rows, which
+    lambdarank and the ``ndcg`` metric need (the groups' padded layout
+    is built from them once, on the host).
 
-    ``valid_sets``: (binned, labels, weights) per validation set. Each
-    set's raw scores update on the device every tree and its metric is
-    recorded as ``valid<i>_<metric>``, after ``train_<metric>``. With
-    ``cfg.early_stopping_round > 0`` the first set's metric drives
-    ``stop_iteration``: the metrics are synced in blocks of
-    ``max(early_stopping_round, 8)`` iterations, the loop stops at the
-    first block where the rule fires, ``best_iteration`` is returned and
-    the trees after it are cut.
+    A multiclass objective grows K = ``num_class`` trees per iteration,
+    one per class from that class's grad/hess column, all under the
+    iteration's masks; the raw scores are (N, K) and the booster's trees
+    are interleaved by class (tree i is class i % K).
+
+    ``valid_sets``: (binned, labels, weights) per validation set, or
+    (binned, labels, weights, group_ids) where the metric is ``ndcg``.
+    Each set's raw scores update on the device every tree and its
+    metrics are recorded as ``valid<i>_<label>``, after
+    ``train_<label>``. With ``cfg.early_stopping_round > 0`` the first
+    set's first metric drives ``stop_iteration``: the metrics are synced
+    in blocks of ``max(early_stopping_round, 8)`` iterations, the loop
+    stops at the first block where the rule fires, ``best_iteration`` is
+    returned and the trees after it are cut (``(best + 1) * K`` kept).
 
     ``init_model`` + ``init_raw``: warm start — the new trees continue
     ``init_model`` (whose ``init_score`` is kept) from its raw scores on
     the training rows (``warm_start_scores``); ``init_raw`` alone is a
     per-row offset that the model does not keep. ``valid_init_raws``:
-    the same per validation set. ``measures``: an
+    the same per validation set; both reshape to (n, K) for a multiclass
+    fit. ``measures``: an
     ``InstrumentationMeasures`` timing the phases dataPreparation,
     training (host dispatch) and validation (metric syncs and the final
     transfer, which waits for the device).
@@ -879,11 +934,11 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     ``custom_objective``: ``fn(preds, labels, weights) -> (grad, hess)``
     in place of the named objective, which still picks the metric and
     the base score. It is called once per iteration with the fit's
-    device tensors: float32 ``preds`` (raw scores) and ``labels``, and
-    the float32 ``weights`` or None; it gets none of the named
-    objective's settings. It may return tensors or array-likes, which go
-    to the device as float32 (N,) vectors; other shapes raise
-    ``ValueError``. A numpy objective converts its inputs with
+    device tensors: float32 ``preds`` (raw scores, (N, K) for a
+    multiclass fit) and ``labels``, and the float32 ``weights`` or None;
+    it gets none of the named objective's settings. It may return
+    tensors or array-likes of ``preds``' shape, which go to the device
+    as float32; other shapes raise ``ValueError``. A numpy objective converts its inputs with
     ``preds.cpu().numpy()`` (``np.asarray`` raises on a CUDA tensor),
     which syncs with the card every iteration.
 
@@ -929,6 +984,28 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
             f"max_bin={total_bins} needs wider bin ids than uint8; the "
             "level-histogram kernel takes <= 256 bins (ROADMAP A7)")
     n, num_f = binned.shape
+    k = cfg.num_trees_per_iteration
+    if cfg.objective == "lambdarank" and group_ids is None:
+        raise ValueError("lambdarank requires group_ids")
+    metric_name, metric_list, higher_better, _ = _resolve_metrics(cfg)
+    if metric_name == "ndcg":
+        if group_ids is None:
+            raise ValueError("ndcg requires group_ids")
+        for vi, vset in enumerate(valid_sets or []):
+            if len(vset) < 4 or vset[3] is None:
+                raise ValueError(
+                    f"valid set {vi}: ndcg eval requires its own group ids "
+                    "(pass 4-tuples in valid_sets)")
+
+    def shape_of(rows):
+        return (rows,) if k == 1 else (rows, k)
+
+    def layout_of(ids):
+        # the padded (rows, mask) buckets of the groups, built once on
+        # the host; the lambdas and ndcg take them on the device
+        return (None if ids is None or (cfg.objective != "lambdarank"
+                                        and metric_name != "ndcg")
+                else obj_mod.layout_to(obj_mod.make_group_layout(ids), dev))
 
     with measures.phase("dataPreparation"):
         # the binned matrix goes to the device once, at the narrowest dtype
@@ -944,25 +1021,30 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
             # a per-row offset (LightGBM init_score), not kept in the model
             base_score = 0.0
         else:
+            # lambdarank never boosts from the average (as the reference)
             base_score = (obj_mod.init_score(cfg.objective, labels, weights)
-                          if cfg.boost_from_average else 0.0)
+                          if cfg.boost_from_average
+                          and cfg.objective != "lambdarank" else 0.0)
         labels_d = _f32(labels, dev)
         weights_d = None if weights is None else _f32(weights, dev)
-        raw = (_f32(init_raw, dev, n) if init_raw is not None else
-               torch.full((n,), base_score, dtype=torch.float32, device=dev))
+        raw = (_f32(init_raw, dev, shape_of(n)) if init_raw is not None else
+               torch.full(shape_of(n), base_score, dtype=torch.float32,
+                          device=dev))
+        layout = layout_of(group_ids)
         valids = []
-        for vi, (vb, vy, vw) in enumerate(valid_sets or []):
+        for vi, vset in enumerate(valid_sets or []):
+            vb, vy, vw = vset[:3]
             vn = vb.shape[0]
             valids.append({
                 "binned": _binned_to_device(vb, total_bins, dev),
                 "labels": _f32(vy, dev),
                 "weights": None if vw is None else _f32(vw, dev),
-                "raw": (_f32(valid_init_raws[vi], dev, vn)
+                "raw": (_f32(valid_init_raws[vi], dev, shape_of(vn))
                         if valid_init_raws is not None else
-                        torch.full((vn,), base_score, dtype=torch.float32,
-                                   device=dev))})
+                        torch.full(shape_of(vn), base_score,
+                                   dtype=torch.float32, device=dev)),
+                "layout": layout_of(vset[3] if len(vset) > 3 else None)})
 
-    metric_name, metric_list, higher_better, _ = _resolve_metrics(cfg)
     # the metric row's layout: train_<m>, valid0_<m>, ... per metric
     labels_order = []
     for m_label, _ in metric_list:
@@ -975,8 +1057,10 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     block = max(esr, 8) if has_es else total
     slots = step_mod.num_slots(cfg)
     bins = step_mod.mask_bins(cfg)
-    cols = step_mod.tree_cols(slots, bins)
-    vidx = labels_order.index(f"valid0_{metric_name}") if has_es else -1
+    cols = k * step_mod.tree_cols(slots, bins)
+    # the first metric's label, as the reference's _train_scan keys it
+    vidx = (labels_order.index(f"valid0_{metric_list[0][0]}") if has_es
+            else -1)
     rows, met_host = [], []
     best_iter, stop_after = -1, None
 
@@ -987,7 +1071,7 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
                             [:, cols:].cpu().numpy())
 
     st = step_mod.open_step(
-        cfg, binned_d, labels_d, weights_d, raw, valids,
+        cfg, binned_d, labels_d, weights_d, raw, valids, layout=layout,
         lr=cfg.learning_rate, base=base_score, hist_quant=hist_quant,
         subtract=subtract, custom_objective=custom_objective,
         capture=capture)
@@ -1023,15 +1107,15 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
         # one transfer of every kept tree and metric
         packed = (torch.stack(rows[:kept]).cpu().numpy() if kept else
                   np.zeros((0, cols + len(labels_order)), np.float32))
-    sf_h, tb_h, nv_h, cnt_h, met = step_mod.unpack(packed, slots, bins)
-    masks = step_mod.unpack_masks(packed, slots, bins) if bins else None
+    sf_h, tb_h, nv_h, cnt_h, met = step_mod.unpack(packed, slots, bins, k)
+    masks = step_mod.unpack_masks(packed, slots, bins, k) if bins else None
     evals = [{"iteration": j,
               **{name: float(met[j, mi])
                  for mi, name in enumerate(labels_order)}}
              for j in range(kept)]
     booster = _assemble_booster(sf_h, tb_h, nv_h, cnt_h, cfg, num_f,
                                 total_bins, depth, bin_upper, base_score,
-                                best_iter, init_model, masks)
+                                best_iter, init_model, masks, k)
     return TrainResult(booster=booster, evals=evals, best_iteration=best_iter,
                        hist_stats={"hist_quant": hist_quant,
                                    "subtract": subtract},
@@ -1042,12 +1126,14 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
 
 def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,
                       total_bins, depth, bin_upper, base_score, best_iter=-1,
-                      init_model=None, masks=None):
-    """Pack the (T, M) host arrays into a ``BoosterArrays`` with
-    raw-value thresholds from ``bin_upper``; rf's trees weighted
-    ``1 / T`` (they average), others 1; with early stopping, only the
-    trees through ``best_iter``; after a warm start, ``init_model``'s
-    trees first (``BoosterArrays.concat``). ``masks``: a categorical
+                      init_model=None, masks=None, k=1):
+    """Pack the (T, M) host arrays, interleaved by class for K = ``k``
+    trees per iteration (tree i is class i % K), into a
+    ``BoosterArrays`` with raw-value thresholds from ``bin_upper``; rf's
+    trees weighted ``K / T`` (each class's trees average), others 1;
+    with early stopping, only the ``(best_iter + 1) * K`` trees through
+    ``best_iter``; after a warm start, ``init_model``'s trees first
+    (``BoosterArrays.concat``). ``masks``: a categorical
     fit's (decision_type, bin_go_left) per tree; each categorical
     split's left bins become a bitset over the raw category values
     (``bin_upper`` holds each categorical bin's category id), LightGBM's
@@ -1058,10 +1144,10 @@ def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,
     num_trees = sf_all.shape[0]
     weights = np.ones(num_trees, dtype=np.float32)
     if cfg.boosting_type == "rf" and num_trees:
-        weights = weights / float(num_trees)   # num_trees / k, k = 1
+        weights = weights / (num_trees / max(k, 1))
     if (cfg.early_stopping_round > 0 and best_iter >= 0
-            and best_iter + 1 < sf_all.shape[0]):
-        keep = best_iter + 1
+            and best_iter + 1 < num_trees // max(k, 1)):
+        keep = (best_iter + 1) * k
         sf_all, tb_all = sf_all[:keep], tb_all[:keep]
         nv_all, cnt_all = nv_all[:keep], cnt_all[:keep]
         weights = weights[:keep]
@@ -1107,7 +1193,7 @@ def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,
         tree_weights=weights,
         max_depth=depth,
         num_features=num_f,
-        num_class=1,
+        num_class=k,
         objective=cfg.objective,
         init_score=base_score,
         decision_type=dt_all,

@@ -576,10 +576,8 @@ def test_diabetes_l2_matches_sklearn_hgb():
     ("LightGBMClassifier", {"extraTrees": True}, "A7"),
     ("LightGBMClassifier", {"monotoneConstraints": [1, 0, 0, 0, 0, 0]},
      "A7"),
-    ("LightGBMClassifier", {"objective": "multiclass"}, "A7"),
     ("LightGBMClassifier", {"parallelism": "voting_parallel"}, "A8"),
     ("LightGBMClassifier", {"parallelism": "feature_parallel"}, "A8"),
-    ("LightGBMRegressor", {"objective": "lambdarank"}, "A7"),
     ("LightGBMRegressor", {"passThroughArgs": "bagging_fraction=0.5 "
                                               "bagging_freq=1 "
                                               "boosting_type=dart"}, "A7"),
@@ -592,12 +590,18 @@ def test_settings_outside_the_slice_raise(kind, params, item):
 
 
 def test_multiclass_ranker_mesh_and_serving_raise():
+    """Multiclass labels and the ranker fit (their parity tests are
+    ``tests/test_torch_multiclass.py`` and ``tests/test_torch_ranking.py``);
+    a mesh raises (ROADMAP A8), and so does the binned plane for the
+    leaf column."""
     x, _, y_int = _data(n=300)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        estimators.LightGBMClassifier().set_device("cpu").fit(
-            DataFrame({"features": x, "label": y_int}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        estimators.LightGBMRanker()
+    model = estimators.LightGBMClassifier(numIterations=2).set_device(
+        "cpu").fit(DataFrame({"features": x, "label": y_int}))
+    k = len(np.unique(y_int))
+    assert k > 2 and model.booster.num_class == k
+    assert model.booster.num_trees == 2 * k
+    assert isinstance(estimators.LightGBMRanker(),
+                      estimators.LightGBMRanker)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         estimators.LightGBMClassifier().set_mesh(object())
     model = estimators.LightGBMRegressor(numIterations=1).set_device(
@@ -610,6 +614,18 @@ def test_multiclass_ranker_mesh_and_serving_raise():
         DataFrame({"features": x}))["l"]
     np.testing.assert_array_equal(
         leaves, model.booster.leaf_index(x, device="cpu").numpy())
+
+
+def test_regressor_lambdarank_needs_group_ids():
+    """Lambdarank without query groups raises the JAX package's
+    ``ValueError``, in both packages."""
+    x, _, y_int = _data(n=300)
+    with pytest.raises(ValueError, match="lambdarank requires group_ids"):
+        jax_est.LightGBMRegressor(objective="lambdarank").fit(
+            JaxFrame({"features": x, "label": y_int}))
+    with pytest.raises(ValueError, match="lambdarank requires group_ids"):
+        estimators.LightGBMRegressor(objective="lambdarank").set_device(
+            "cpu").fit(DataFrame({"features": x, "label": y_int}))
 
 
 # --- custom objectives, checkpoints and the other objectives -------------------

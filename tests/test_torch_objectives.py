@@ -2,6 +2,9 @@
 regression family, every alias) against the JAX package's on the same
 seeded inputs, and fits under each objective, through ``train`` and
 through ``LightGBMRegressor``, against the JAX package's fits.
+Multiclass and lambdarank, whose grads take (N, K) scores or query
+groups, are held in ``tests/test_torch_multiclass.py`` and
+``tests/test_torch_ranking.py``.
 
 Tolerances, by case:
 
@@ -57,7 +60,9 @@ LABELS = {"regression_l1": "continuous", "huber": "continuous",
           "fair": "continuous", "poisson": "counts",
           "quantile": "continuous", "mape": "continuous",
           "gamma": "positive", "tweedie": "counts"}
-ALIASES = sorted(objectives.OBJECTIVES)
+# the objectives of (N,) scores and no groups
+ALIASES = sorted(set(objectives.OBJECTIVES) - {
+    "multiclass", "softmax", "multiclassova", "lambdarank"})
 # the settings each named objective reads, at non-default values
 SETTINGS = dict(alpha=0.7, fair_c=0.5, tweedie_variance_power=1.3,
                 poisson_max_delta_step=0.4, sigmoid=2.0)
@@ -189,16 +194,15 @@ def test_l1_and_quantile_init_is_the_unweighted_median():
 
 
 def test_objective_table_matches_jax():
-    """Every name of the JAX table is the same objective here, except
-    multiclass and lambdarank, which raise (ROADMAP A7)."""
-    breadth = {"multiclass", "softmax", "multiclassova", "lambdarank"}
-    assert set(objectives.OBJECTIVES) == \
-        set(jax_objectives.OBJECTIVES) - breadth
+    """Every name of the JAX table is the same objective here, multiclass
+    (softmax, multiclassova: the same softmax in both) and lambdarank
+    included."""
+    assert set(objectives.OBJECTIVES) == set(jax_objectives.OBJECTIVES)
     for name, fn in objectives.OBJECTIVES.items():
         assert fn.__name__ == jax_objectives.OBJECTIVES[name].__name__
-    for name in breadth:
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            objectives.get_objective(name)
+        assert objectives.get_objective(name) is fn
+    for name in ("softmax", "multiclassova"):
+        assert objectives.get_objective(name) is objectives.multiclass
     with pytest.raises(ValueError, match="unknown objective"):
         objectives.get_objective("no_such_objective")
 
@@ -211,12 +215,13 @@ def test_objective_table_matches_jax():
 @pytest.mark.parametrize("name", ALIASES + ["multiclass", "lambdarank"])
 def test_objective_kwargs_match_jax(name):
     kw = dict(objective=name, **SETTINGS)
+    if name == "multiclass":
+        kw["num_class"] = 5
+    if name == "lambdarank":
+        kw.update(lambdarank_truncation_level=12, label_gain=[0, 1, 3, 9])
     want = jax_trainer._objective_kwargs(jax_trainer.TrainConfig(**kw))
     got = trainer._objective_kwargs(trainer.TrainConfig(**kw))
-    if name in ("multiclass", "lambdarank"):
-        assert got == {}          # never reached: these raise A7
-    else:
-        assert got == want
+    assert got == want
 
 
 # --- fits under each objective -------------------------------------------------
