@@ -19,7 +19,13 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      kernel (an event pair per call, and ``device_ms``), the plain
      version and one float32 ``index_add_`` call, one call's device time
      by kernel (partition, histogram, dequantization), and the bound from
-     bytes and operations;
+     bytes and operations; then the kernel's uint16-id instance (max_bin
+     above 256: tiles of bins on a grid axis of their own) at the bench's
+     2M rows with B = 511, 1,023 and 4,095, and at F = 27 (54-byte rows,
+     staged id by id) with B = 1,023, every level width, bitwise against
+     its plain version on integer and float stats and between two
+     launches, with event-pair, device and plain times, the byte bound and
+     at B = 1,023 the ``index_add_`` call;
   3. main path: ``BinMapper.fit`` / ``transform``, ``train`` (binary,
      num_leaves=63, max_depth=6, 20 trees) and ``predict_binned`` on the
      2M rows, with the histogram kernel's launch count over the fit
@@ -41,11 +47,12 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      launches — with CUDA-event timings of the kernel, the plain
      version and one int64 ``index_add_`` call, one call's device time
      by kernel (partition, histogram, dequantization), and the byte
-     bound; the int32 window (q16, 40,000,000 rows of +32000 in bin 0,
-     so a CTA's run in one node passes what an int32 cell holds:
-     bitwise against the plain version and between two launches); and
-     the atomic opcodes in the built kernel's SASS (native ``ATOMS.ADD``,
-     no CAS loop);
+     bound; the uint16-id instance at phase 2's uint16 cases (q16; q8 at
+     the bench's B = 1,023), bitwise and timed as there; the int32
+     window (q16, 40,000,000 rows of +32000 in bin 0, so a CTA's run in
+     one node passes what an int32 cell holds: bitwise against the plain
+     version and between two launches); and the atomic opcodes in the
+     built kernel's SASS (native ``ATOMS.ADD``, no CAS loop);
   7. quantized main path: the 20-tree bench fit under
      ``MMLSPARK_TORCH_HIST_QUANT=q16`` (then q8), with the kernels'
      launch counts over each fit, the training logloss per tree, host
@@ -185,7 +192,31 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      1 within 1e-6; the fit under bagging 0.5 and under GOSS; card vs
      CPU at 100,000 rows and 5 iterations (every class's roots equal,
      ``multi_logloss`` within 1e-4 relative); served with the binned
-     plane ``on`` as 14b;
+     plane ``on`` as 14b. Every fit runs with ``MMLSPARK_TORCH_EFB=off``:
+     the histograms scan all 54 columns, rows staged byte by byte, as in
+     the phase's earlier runs (EFB is 14d's); beside them the plan that
+     ``auto`` would make of these rows, on the card, and its time;
+ 14d. breadth path (ROADMAP A7's in-step settings, at the bench's shape,
+     20 trees): ``max_bin=1023`` on uint16 ids (the f32, q16 and q8 fits:
+     two fits bitwise, captured bitwise uncaptured, 6 launches of the
+     uint16 kernel per replay, thresholds past bin 255; ``predict_binned``
+     on the 2M uint16 rows bitwise ``tree_score``'s plain version; a
+     ``LightGBMClassifier(maxBin=1023)`` fit and transform, served binned
+     with replies bitwise the transforms); monotone constraints (+1 on
+     features 0-1, -1 on 2-3), ``extra_trees``,
+     ``feature_fraction_by_node=0.7`` and all three, each captured bitwise
+     uncaptured with 120 launches, 4,096 rows swept over every bin of each
+     constrained feature with no raw score stepping against it, every
+     split of a by-node fit inside its node's subset drawn again from the
+     tree's stream, card vs CPU at 100,000 rows and 5 trees; EFB on
+     1,000,000 rows of 28 dense and 256 one-hot columns (fields of 16, 32,
+     64 and 144 values): the plan and its time, the unbundled histogram
+     against the direct one at every level width (counts and every cell
+     but the members' default bins bitwise, those within float32
+     rounding; the bundled kernel's device ms per tree, bound, plain
+     version's and ``index_add_`` time beside the direct one's), the histogram
+     kernels' device ms per tree and ``train`` s with ``MMLSPARK_TORCH_EFB``
+     auto and off, final loglosses within 1e-4;
  15. tree scorer vs plain (after phase 14c): ``csrc/tree_score.cu``
      against ``score_cuda.tree_score_reference``, bit for bit and between
      two launches: the served model at every rung 1..64 (autocast off
@@ -527,8 +558,141 @@ def phase_kernel(ctx):
         if name == "bench":
             ctx["hist_rows"] = rows
         torch.cuda.empty_cache()
+    ctx["hist_u16"] = u16_cases(torch, "f32")
+    torch.cuda.empty_cache()
     return {"widths": list(WIDTHS), "shapes": HIST_SHAPES,
-            "all_bitwise": True}
+            "all_bitwise": True,
+            "u16_per_tree": u16_summary(ctx["hist_u16"])}
+
+
+# uint16 bin ids (max_bin above 256): the bench's rows at three bin counts,
+# and an odd feature count, whose 54-byte rows the kernels stage id by id
+HIST_U16 = (("bench", N, F, 511), ("bench", N, F, 1023),
+            ("bench", N, F, 4095), ("odd_f", N, 27, 1023))
+U16_LIBRARY_B = 1023      # the bin count whose index_add_ is timed
+U16_REPS = 5
+
+
+def u16_ids(torch, gen, n, f, b, dev):
+    """(n, f) uniform uint16 bin ids in [0, b), made as int32 (randint
+    takes no uint16) and narrowed through int16's bits."""
+    return torch.randint(0, b, (n, f), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.int16).view(torch.uint16)
+
+
+def u16_cases(torch, plane, cases=HIST_U16, widths=WIDTHS):
+    """Each uint16 case of ``HIST_U16`` on ``plane`` ("f32", "q16" or
+    "q8"): {case: rows per width}, each kernel bitwise its plain version
+    and between two launches (``u16_row``)."""
+    out = {}
+    for shape, n, f, b in cases:
+        out[f"{shape}_b{b}"] = [u16_row(torch, plane, n, f, b, width, shape)
+                                for width in widths]
+        torch.cuda.empty_cache()
+    return out
+
+
+def u16_row(torch, plane, N, F, B, width, shape):
+    """One level width of a histogram kernel on uint16 ids against its
+    plain version: integer-valued and float stats on the f32 plane
+    (fixed point: bitwise on both), the trainer's quantized stats on
+    q16 / q8; bitwise between two launches; event-pair, device and plain
+    times, the bound from bytes and operations, and at ``U16_LIBRARY_B``
+    the ``index_add_`` call."""
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(B + F + width)
+    binned = u16_ids(torch, gen, N, F, B, dev)
+    live = (torch.rand(N, generator=gen, device=dev) < 0.9).float()
+    local = torch.randint(0, width, (N,), generator=gen, device=dev)
+    if plane == "f32":
+        gi = torch.randint(-4, 5, (N,), generator=gen, device=dev).float()
+        hi = torch.randint(0, 5, (N,), generator=gen, device=dev).float()
+        g = torch.randn(N, generator=gen, device=dev)
+        h = torch.rand(N, generator=gen, device=dev) * 0.9 + 0.1
+        stats = (g, h)
+        call = H.level_histogram
+        plain = H.level_histogram_reference
+        extra = ()
+        exact = bool(torch.equal(
+            H.level_histogram(binned, gi, hi, live, local, width, F, B),
+            plain(binned, gi, hi, live, local, width, F, B)))
+        kept = live != 0
+    else:
+        dtype_name, qmax = QUANTS[plane]
+        dtype = getattr(torch, dtype_name)
+        g = torch.round(torch.randn(N, generator=gen, device=dev)
+                        .clamp(-4, 4) * (qmax / 4)).to(dtype)
+        h = torch.round(torch.rand(N, generator=gen, device=dev)
+                        * qmax).to(dtype)
+        stats = (g, h)
+        call = H.level_histogram_quant
+        plain = H.level_histogram_quant_reference
+        extra = (torch.full((), 2.0 ** -12, device=dev),
+                 torch.full((), 2.0 ** -14, device=dev))
+        exact = True
+        kept = live > 0
+    args = (binned, *stats, live, local, width, F, B, *extra)
+    k1 = call(*args)
+    k2 = call(*args)
+    p = plain(*args)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(k1, p))
+    repeat = bool(torch.equal(k1, k2))
+    err = float((k1 - p).abs().max().item())
+    del k1, k2, p
+    kernel_ms = time_ms(torch, lambda: call(*args), reps=U16_REPS)
+    kernel_device_ms = device_ms(torch, lambda: call(*args), reps=U16_REPS)
+    plain_ms = time_ms(torch, lambda: plain(*args), reps=3, warmup=1)
+    library_ms = None
+    if B == U16_LIBRARY_B and shape == "bench":
+        idx = H.flat_index(binned, local, F, B)
+        if plane == "f32":
+            src = torch.stack([g * live, h * live, live], -1)
+            acc_dtype = torch.float32
+        else:
+            gate = kept.long()
+            src = torch.stack([g.long() * gate, h.long() * gate, gate], -1)
+            acc_dtype = torch.int64
+        src = src[:, None, :].expand(N, F, 3).reshape(-1, 3)
+        library_ms = time_ms(torch, lambda: torch.zeros(
+            (width * F * B, 3), dtype=acc_dtype, device=dev).index_add_(
+                0, idx, src), reps=U16_REPS)
+        del idx, src
+    in_bytes = sum(t.numel() * t.element_size()
+                   for t in (binned, *stats, live, local))
+    out_bytes = width * F * B * 3 * 4
+    ops = 3 * F * int(kept.sum().item())
+    bytes_ms = (in_bytes + out_bytes) / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    plan = (H.f32_plan if plane == "f32" else H.quant_plan)(F, B, 2)
+    row = {"plane": plane, "shape": shape, "n": N, "f": F, "b": B,
+           "width": width, "bitwise": bitwise, "bitwise_int": exact,
+           "repeat_bitwise": repeat, "max_abs_err": err,
+           "plan": dict(zip(("f_slice", "slices", "tile_bins", "tiles"),
+                            plan)),
+           "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": in_bytes + out_bytes, "ops": ops}
+    emit({"phase": "kernel_u16_vs_plain", **row})
+    if not (bitwise and exact and repeat):
+        raise AssertionError(f"{plane} histogram on uint16 ids disagrees "
+                             f"with its plain version: {row}")
+    return row
+
+
+def u16_summary(cases):
+    """Per case the sums over the level widths (one depth-6 tree)."""
+    out = {}
+    for name, rows in cases.items():
+        out[name] = {k: sum(r[k] for r in rows) for k in (
+            "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms")}
+        lib = [r["library_ms"] for r in rows]
+        out[name]["library_ms"] = None if None in lib else sum(lib)
+        out[name]["plan"] = rows[0]["plan"]
+    return out
 
 
 def kernel_rows(torch, N, F, shape):
@@ -857,8 +1021,16 @@ def phase_kernel_quant(ctx):
         if name == "bench":
             ctx["quant_rows"] = rows
         torch.cuda.empty_cache()
+    # uint16 ids: q16 at every case, q8 at the bench's 1,023 bins
+    ctx["quant_u16"] = {"q16": u16_cases(torch, "q16"),
+                        "q8": u16_cases(torch, "q8", cases=[
+                            c for c in HIST_U16 if c[0] == "bench"
+                            and c[3] == U16_LIBRARY_B])}
+    torch.cuda.empty_cache()
     return {"quants": list(QUANTS), "widths": list(WIDTHS),
             "shapes": HIST_SHAPES, "all_bitwise": True,
+            "u16_per_tree": {q: u16_summary(c)
+                             for q, c in ctx["quant_u16"].items()},
             "window": quant_window_case(torch, H),
             "sass_atomics": quant_sass_atomics()}
 
@@ -1016,7 +1188,9 @@ def phase_main_quant(ctx):
                 or not lls[-1] < lls[0]:
             raise AssertionError(f"{quant}/sub={sub}: training logloss does "
                                  f"not fall: {lls}")
-        want = {"hist_quant": quant, "subtract": sub == "1"}
+        # the plane and subtraction asked for, and no bundles (dense rows)
+        want = {"hist_quant": quant, "subtract": sub == "1",
+                "efb_bundles": 0, "efb_bundled_features": 0}
         if res.hist_stats != want:
             raise AssertionError(f"ran {res.hist_stats}, asked for {want}")
         return res, fit_s, (H.hist_kernel_launches,
@@ -3222,6 +3396,35 @@ COVER_PARAMS = dict(numIterations=COVER_ITERATIONS, numLeaves=63,
 
 
 def phase_multiclass(ctx):
+    """``multiclass_fits`` with bundling off, so that its histograms scan
+    Covertype's 54 columns (the byte-staged rows of an odd width), and
+    the EFB plan ``auto`` would make of its rows: bundles, width and the
+    plan's time on the card."""
+    import torch
+
+    from mmlspark_tpu_torch import BinMapper
+    from mmlspark_tpu_torch.core.env import EFB, env_override
+    from mmlspark_tpu_torch.ops import efb
+
+    with env_override(EFB, "off"):
+        out = multiclass_fits(ctx)
+    x, _ = covertype_data(COVER_ROWS)
+    mapper = BinMapper.fit(x[:200_000], max_bin=255)
+    binned_d = torch.as_tensor(mapper.transform(x, np.uint8), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = efb.plan_bundles(binned_d, 255, mode="auto")
+    torch.cuda.synchronize()
+    out["efb_auto_plan"] = {
+        "plan_on_card_s": time.perf_counter() - t0,
+        "efb_bundles": 0 if plan is None else len(plan.bundles),
+        "efb_bundled_features": 0 if plan is None
+        else plan.n_bundled_features,
+        "bundled_width": 54 if plan is None else plan.n_cols}
+    return out
+
+
+def multiclass_fits(ctx):
     """Multiclass on the card at Covertype's shape (581,012 rows x 54
     columns, 7 classes at its shares; ``covertype_data``):
     ``LightGBMClassifier`` with its default objective (multiclass for 7
@@ -3357,6 +3560,404 @@ def phase_multiclass(ctx):
     out["serving"], ok = serving_record(model, x[:256].astype(np.float64))
     if not ok:
         failures.append(f"serving: {out['serving']}")
+    if failures:
+        raise AssertionError(json.dumps({"failures": failures, **out},
+                                        default=str))
+    return out
+
+
+# breadth_path: the bench fit under each in-step setting (ROADMAP A7),
+# then all three; max_bin=1023 on uint16 ids; EFB on one-hot data
+BREADTH_WIDE = 1023
+BREADTH_SETTINGS = {
+    "monotone": dict(monotone_constraints=(1, 1, -1, -1)),
+    "extra_trees": dict(extra_trees=True),
+    "by_node": dict(feature_fraction_by_node=0.7),
+    "all_three": dict(monotone_constraints=(1, 1, -1, -1), extra_trees=True,
+                      feature_fraction_by_node=0.7),
+}
+SWEEP_ROWS = 4096
+ONEHOT_ROWS = 1_000_000
+ONEHOT_FIELDS = (16, 32, 64, 144)
+
+
+def onehot_data(n, seed=0):
+    """The bench's 28 HIGGS-shaped float32 columns, then one-hot fields of
+    16, 32, 64 and 144 values (one 1.0 per row per field), as a
+    OneHotEncoder -> VectorAssembler pipeline hands them to LightGBM; the
+    label from the dense columns' logit plus an effect per category."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, F)).astype(np.float32)
+    logit = (x[:, 0] * 1.2 - x[:, 1] + 0.5 * x[:, 2] * x[:, 3]
+             + 0.3 * np.sin(x[:, 4] * 3))
+    blocks = [x]
+    for k in ONEHOT_FIELDS:
+        cat = rng.integers(0, k, size=n)
+        logit = logit + rng.normal(size=k)[cat] * 0.5
+        block = np.zeros((n, k), np.float32)
+        block[np.arange(n), cat] = 1.0
+        blocks.append(block)
+    y = (logit + rng.normal(size=n) * 0.5 > 0).astype(np.float64)
+    return np.hstack(blocks), y
+
+
+def u16_to_card(torch, a):
+    """A uint16 numpy matrix on the card (through int16's bits: torch
+    converts little to or from uint16)."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).to(
+        "cuda").view(torch.uint16)
+
+
+def counted_fit(torch, fn):
+    """(result, wall s, {counter: launches}) of ``fn()``, the histogram
+    counters set to 0 just before it."""
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+
+    names = ("hist_kernel_launches", "hist_u16_kernel_launches",
+             "hist_quant_kernel_launches", "hist_quant_u16_kernel_launches")
+    torch.cuda.synchronize()
+    for name in names:
+        setattr(H, name, 0)
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, {n: getattr(H, n) for n in names}
+
+
+def sweep_violation(torch, booster, binned_d, rows, feature, direction):
+    """The largest step against ``direction`` of the raw score (exact:
+    0.0 where there is none) when ``feature``'s bin sweeps every bin of
+    the fit with the other bins of each of ``rows`` fixed; one
+    ``predict_binned`` call on the card."""
+    top = int(binned_d[:, feature].max().item()) + 1
+    probe = binned_d[rows].repeat_interleave(top, dim=0)
+    probe[:, feature] = torch.arange(top, device="cuda").repeat(
+        len(rows)).to(probe.dtype)
+    raw = booster.predict_binned(probe).reshape(len(rows), top)
+    return float((-(raw[:, 1:] - raw[:, :-1]) * direction).max().item())
+
+
+def node_masks_hold(torch, booster, cfg):
+    """Every split of a ``feature_fraction_by_node`` fit lies in its
+    node's feature subset, drawn again here from the tree's stream
+    (``sampling.tree_keys``) exactly as the fit drew it: (splits checked,
+    splits outside)."""
+    from mmlspark_tpu_torch.models.gbdt import sampling
+
+    depth = cfg.effective_depth
+    f = booster.num_features
+    checked = outside = 0
+    for t in range(booster.num_trees):
+        sf = booster.split_feature[t]
+        for d in range(depth):
+            width = 2 ** d
+            mask = sampling.node_feature_mask(sampling.draw(
+                sampling.tree_keys(cfg, 0, t) + (sampling.NODE_FEATURES, d),
+                width * f, torch.device("cuda")).reshape(width, f), None,
+                cfg.feature_fraction_by_node).cpu().numpy()
+            for i in range(width):
+                feat = sf[width - 1 + i]
+                if feat >= 0:
+                    checked += 1
+                    outside += int(not mask[i, feat])
+    return checked, outside
+
+
+def phase_breadth(ctx):
+    """A7's in-step breadth at the bench's shape (2,000,000 x 28 float32,
+    binary, 63 leaves, depth 6, 20 trees): (a) ``max_bin=1023`` on uint16
+    ids — the f32 and q16 fits (two fits bitwise, bitwise the uncaptured
+    step, 6 launches of the uint16 kernel per replay), ``predict_binned``
+    on the uint16 rows bitwise ``tree_score``'s plain version, and a
+    ``LightGBMClassifier(maxBin=1023)`` fit, transform and binned serving
+    plane; (b) monotone constraints (+1 on features 0-1, -1 on 2-3),
+    ``extra_trees``, ``feature_fraction_by_node=0.7`` and all three: each
+    fit captured bitwise uncaptured, 120 launches, every constrained
+    feature swept over its bins for 4,096 rows with no raw score moving
+    against its direction, every split of a by-node fit inside its
+    node's drawn subset, card vs CPU at 100,000 rows and 5 trees; (c) EFB
+    on 1,000,000 rows of 28 dense and 256 one-hot columns (fields of 16,
+    32, 64 and 144): the plan, its time and width, the unbundled level
+    histogram against the direct one (counts and every other cell
+    bitwise, default bins within float32 rounding) at every level width,
+    with the bundled and the direct histogram's device ms per tree, the
+    bundled one's bound and ``index_add_`` time, the fit's histogram
+    kernels' device ms per tree and ``train`` s with
+    ``MMLSPARK_TORCH_EFB`` at auto and off, and their final loglosses
+    within 1e-4."""
+    import torch
+
+    from mmlspark_tpu_torch import (BinMapper, DataFrame, LightGBMClassifier,
+                                    TrainConfig, train)
+    from mmlspark_tpu_torch.core.env import EFB, env_override
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+    from mmlspark_tpu_torch.models.gbdt import trainer as T
+    from mmlspark_tpu_torch.ops import efb
+    from mmlspark_tpu_torch.ops.ingest import binned_ingest_dtype
+
+    out = {"card": ctx["smi"]}
+    failures = []
+    expected = TREES * 6
+
+    # (a) max_bin=1023 on uint16 ids
+    x, y = make_data(N)
+    mapper = BinMapper.fit(x[:100_000], max_bin=BREADTH_WIDE)
+    binned = mapper.transform(x, np.uint16)
+    bin_upper = mapper.bin_upper_values(BREADTH_WIDE)
+    _, _, _, main_cfg = ctx["main_inputs"]
+    cfg = dataclasses.replace(main_cfg, max_bin=BREADTH_WIDE)
+    wide = {"max_bin": BREADTH_WIDE, "largest_bin": int(binned.max()),
+            "bytes": int(binned.nbytes)}
+    for plane, counter in (("off", "hist_u16_kernel_launches"),
+                           ("q16", "hist_quant_u16_kernel_launches"),
+                           ("q8", "hist_quant_u16_kernel_launches")):
+        with knobs(quant=plane):
+            # the first fit captures the step; the second replays it
+            r2 = train(binned, y, cfg, bin_upper=bin_upper)
+            r1, wall, launches = counted_fit(torch, lambda: train(
+                binned, y, cfg, bin_upper=bin_upper))
+            r3 = train(binned, y, cfg, bin_upper=bin_upper, capture=False)
+        lls = [e["train_binary_logloss"] for e in r1.evals]
+        rec = {"fit_s": wall, "capture_s": r2.step_stats["capture_s"],
+               "launches": launches,
+               "launches_per_replay": launches[counter] / TREES,
+               "captured": r1.step_stats["captured"],
+               "two_fits_bitwise": boosters_equal(r1.booster, r2.booster),
+               "captured_bitwise_uncaptured": boosters_equal(r1.booster,
+                                                             r3.booster),
+               "logloss_first": lls[0], "logloss_last": lls[-1],
+               "thresholds_past_255": int((r1.booster.threshold_bin
+                                           > 255).sum())}
+        wide[plane] = rec
+        ctx["launches"][f"breadth_path_u16_{plane}"] = launches[counter]
+        if (launches[counter] != expected
+                or sum(launches.values()) != expected
+                or not (rec["two_fits_bitwise"] and rec["captured"]
+                        and rec["captured_bitwise_uncaptured"])
+                or not lls[-1] < lls[0] or not rec["thresholds_past_255"]):
+            failures.append(f"max_bin=1023 {plane}: {rec}")
+        if plane == "off":
+            booster = r1.booster
+    binned_d = u16_to_card(torch, binned)
+    tables = booster.predict_binned_scorer("off", "cuda").tables
+    wide["tree_score"], got, ok = scorer_held(torch, S, "uint16", tables,
+                                              binned_d)
+    wide["predict_binned_bitwise"] = bool(torch.equal(
+        booster.predict_binned(binned_d), got))
+    if not ok or not wide["predict_binned_bitwise"]:
+        failures.append(f"uint16 scoring: {wide['tree_score']}")
+    del got
+    frame = DataFrame({"features": x, "label": y})
+    est = LightGBMClassifier(numIterations=TREES, numLeaves=63, maxDepth=6,
+                             maxBin=BREADTH_WIDE)
+    model, wall, launches = counted_fit(torch, lambda: est.fit(frame))
+    t0 = time.perf_counter()
+    scored = model.transform(DataFrame({"features": x}))
+    wide["estimator"] = {**fit_record(model, wall, N), "launches": launches,
+                         "transform_s": time.perf_counter() - t0,
+                         "binned_ids": str(np.dtype(binned_ingest_dtype(
+                             model.bin_mapper.max_num_bins)))}
+    wide["serving"], ok = serving_record(model, x[:256].astype(np.float64))
+    if (not ok or launches["hist_u16_kernel_launches"] != expected
+            or not np.isfinite(scored["rawPrediction"]).all()):
+        failures.append(f"maxBin=1023 estimator: {wide['estimator']}, "
+                        f"{wide['serving']}")
+    out["max_bin_1023"] = wide
+    del binned_d, scored, model, binned
+
+    # (b) the settings on the bench fit, max_bin=255
+    binned, y, bin_upper, main_cfg = ctx["main_inputs"]
+    binned_d = torch.as_tensor(binned, device="cuda")
+    rows = torch.as_tensor(np.random.default_rng(7).choice(
+        N, SWEEP_ROWS, replace=False), device="cuda")
+    x1, y1 = make_data(100_000, seed=1)
+    m1 = BinMapper.fit(x1, max_bin=255)
+    b1 = m1.transform(x1)
+    settings = {}
+    for name, extra in BREADTH_SETTINGS.items():
+        c = dataclasses.replace(main_cfg, **extra)
+        first = train(binned, y, c, bin_upper=bin_upper)     # captures
+        res, wall, launches = counted_fit(torch, lambda: train(
+            binned, y, c, bin_upper=bin_upper))
+        unc = train(binned, y, c, bin_upper=bin_upper, capture=False)
+        lls = [e["train_binary_logloss"] for e in res.evals]
+        rec = {"fit_s": wall, "capture_s": first.step_stats["capture_s"],
+               "two_fits_bitwise": boosters_equal(first.booster,
+                                                  res.booster),
+               "launches": launches["hist_kernel_launches"],
+               "captured": res.step_stats["captured"],
+               "captured_bitwise_uncaptured": boosters_equal(res.booster,
+                                                             unc.booster),
+               "logloss_first": lls[0], "logloss_last": lls[-1],
+               "features_split_on": sorted({int(f) for f in np.unique(
+                   res.booster.split_feature) if f >= 0})}
+        ok = (rec["launches"] == expected and rec["captured"]
+              and rec["two_fits_bitwise"]
+              and rec["captured_bitwise_uncaptured"] and lls[-1] < lls[0])
+        if c.has_monotone:
+            rec["sweep_rows"] = SWEEP_ROWS
+            rec["worst_step_against"] = {
+                str(f): sweep_violation(torch, res.booster, binned_d, rows, f,
+                                        d)
+                for f, d in enumerate(c.monotone_constraints) if d}
+            ok = ok and all(v <= 0.0 for v in
+                            rec["worst_step_against"].values())
+        if c.feature_fraction_by_node < 1.0:
+            rec["splits_checked"], rec["splits_outside_node_subset"] = \
+                node_masks_hold(torch, res.booster, c)
+            ok = ok and not rec["splits_outside_node_subset"]
+        c5 = dataclasses.replace(c, num_iterations=5)
+        pair = {dev: train(b1, y1, c5, device=dev) for dev in ("cuda", "cpu")}
+        a, b = pair["cuda"].booster, pair["cpu"].booster
+        ll = {dev: r.evals[-1]["train_binary_logloss"]
+              for dev, r in pair.items()}
+        rec["card_vs_cpu"] = {
+            "rows": 100_000, "trees": 5,
+            "roots_equal": bool(np.array_equal(a.split_feature[:, 0],
+                                               b.split_feature[:, 0])
+                                and np.array_equal(a.threshold_bin[:, 0],
+                                                   b.threshold_bin[:, 0])),
+            "logloss_cuda": ll["cuda"], "logloss_cpu": ll["cpu"],
+            "rel_diff": abs(ll["cuda"] - ll["cpu"]) / abs(ll["cpu"]),
+            "tol": 1e-4}
+        ok = (ok and rec["card_vs_cpu"]["roots_equal"]
+              and rec["card_vs_cpu"]["rel_diff"] <= 1e-4)
+        settings[name] = rec
+        emit({"phase": "breadth_setting", "setting": name, **rec})
+        if not ok:
+            failures.append(f"{name}: {rec}")
+    ctx["launches"]["breadth_path_settings"] = sum(
+        r["launches"] for r in settings.values())
+    out["settings"] = settings
+    del binned_d
+
+    # (c) EFB on one-hot data
+    xo, yo = onehot_data(ONEHOT_ROWS)
+    mo = BinMapper.fit(xo[:100_000], max_bin=255)
+    bo = mo.transform(xo, np.uint8)
+    del xo
+    # the plan and the bundling, each on the card as ``train`` makes them
+    # (``trainer.plan_efb``); the unbundled histograms below hold both
+    bo_d = torch.as_tensor(bo, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = efb.plan_bundles(bo_d, 255, mode="auto")
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bu_d = efb.apply_plan(bo_d, plan)
+    torch.cuda.synchronize()
+    bundle_s = time.perf_counter() - t0
+    rec = {"rows": ONEHOT_ROWS, "columns": bo.shape[1],
+           "bytes": int(bo.nbytes), "plan_on_card_s": plan_s,
+           "bundle_on_card_s": bundle_s,
+           "efb_bundles": len(plan.bundles),
+           "efb_bundled_features": plan.n_bundled_features,
+           "bundled_width": plan.n_cols}
+    if (len(plan.bundles) != len(ONEHOT_FIELDS)
+            or plan.n_bundled_features != sum(ONEHOT_FIELDS)):
+        failures.append(f"EFB plan: {rec}")
+    # the unbundled level histogram against the direct one, widths 1 and 8
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    g = torch.randn(ONEHOT_ROWS, generator=gen, device="cuda")
+    h = torch.rand(ONEHOT_ROWS, generator=gen, device="cuda") + 0.1
+    live = torch.ones(ONEHOT_ROWS, device="cuda")
+    maps = efb.device_maps(plan, "cuda")
+    md = np.zeros((bo.shape[1], 255), bool)
+    md[[m.feature for bd in plan.bundles for m in bd],
+       [m.default_bin for bd in plan.bundles for m in bd]] = True
+    md_d = torch.as_tensor(md, device="cuda")
+    hist_rec, per_tree = {}, {}
+    for width in WIDTHS:
+        local = torch.randint(0, width, (ONEHOT_ROWS,), generator=gen,
+                              device="cuda")
+        args = (g, h, live, local, width)
+        direct = H.level_histogram(bo_d, *args, bo.shape[1], 255)
+        unb = T._unbundle_hist(H.level_histogram(
+            bu_d, *args, plan.n_cols, 255), maps, bo.shape[1], 255)
+        absum = H.level_histogram(bu_d[:, :1].contiguous(), g.abs(), h.abs(),
+                                  live, local, width, 1, 255)[:, 0].sum(1)
+        err = (unb - direct).abs()
+        bound = 4.0 * F32_EPS * absum[:, None, None, :]
+        # the bundled matrix's histogram: the kernel, its bound (bytes:
+        # the bundled ids, stats and node ids read once, the histogram
+        # written once; 3 adds per live pair) and one f32 index_add_
+        idx = H.flat_index(bu_d, local, plan.n_cols, 255)
+        src = torch.stack([g * live, h * live, live], -1)[:, None, :] \
+            .expand(ONEHOT_ROWS, plan.n_cols, 3).reshape(-1, 3)
+        nbytes = (sum(t.numel() * t.element_size()
+                      for t in (bu_d, g, h, live, local))
+                  + width * plan.n_cols * 255 * 3 * 4)
+        ops = 3 * plan.n_cols * ONEHOT_ROWS
+        r = {
+            "counts_bitwise": bool(torch.equal(unb[..., 2], direct[..., 2])),
+            "other_cells_bitwise": bool(torch.equal(
+                unb[:, ~md_d], direct[:, ~md_d])),
+            "default_bins_max_abs_err": float(err[:, md_d].max().item()),
+            "default_bins_within_bound": bool(
+                (err[..., :2] <= bound[..., :2]).all().item()),
+            "direct_device_ms": device_ms(torch, lambda: H.level_histogram(
+                bo_d, *args, bo.shape[1], 255)),
+            "bundled_device_ms": device_ms(torch, lambda: H.level_histogram(
+                bu_d, *args, plan.n_cols, 255)),
+            "bundled_bound_ms": max(nbytes / MEM_BYTES_PER_S,
+                                    ops / F32_OPS_PER_S) * 1e3,
+            "bundled_plain_ms": time_ms(
+                torch, lambda: H.level_histogram_reference(
+                    bu_d, *args, plan.n_cols, 255), reps=3, warmup=1),
+            "bundled_library_ms": time_ms(torch, lambda: torch.zeros(
+                (width * plan.n_cols * 255, 3), device="cuda").index_add_(
+                    0, idx, src), reps=5)}
+        del idx, src
+        hist_rec[f"width_{width}"] = r
+        for k in ("direct_device_ms", "bundled_device_ms",
+                  "bundled_bound_ms", "bundled_plain_ms",
+                  "bundled_library_ms"):
+            per_tree[k] = per_tree.get(k, 0.0) + r[k]
+        if not (r["counts_bitwise"] and r["other_cells_bitwise"]
+                and r["default_bins_within_bound"]):
+            failures.append(f"unbundled histogram at width {width}: {r}")
+    hist_rec["per_tree"] = per_tree
+    ctx["efb_hist_per_tree"] = per_tree
+    rec["histogram"] = hist_rec
+    del bo_d, bu_d, direct, unb
+    cfg_o = dataclasses.replace(main_cfg, max_bin=255)
+    fits = {}
+    for mode in ("auto", "off"):
+        with env_override(EFB, mode):
+            first = train(bo, yo, cfg_o)                     # captures
+            res, wall, launches = counted_fit(torch, lambda: train(
+                bo, yo, cfg_o))
+            _, by_name = device_ms_by_kernel(torch, lambda: train(
+                bo, yo, dataclasses.replace(cfg_o, num_iterations=5)))
+        copies = sum(v for k, v in by_name.items() if "Memcpy" in k)
+        fits[mode] = {"train_s": wall,
+                      "capture_s": first.step_stats["capture_s"],
+                      "two_fits_bitwise": boosters_equal(first.booster,
+                                                         res.booster),
+                      "launches": launches["hist_kernel_launches"],
+                      "hist_stats": res.hist_stats,
+                      "hist_device_ms_per_tree": hist_device_ms(by_name) / 5,
+                      # kernels only: the 5-tree fit's copies (the rows'
+                      # upload) apart
+                      "device_busy_ms_per_tree":
+                          (sum(by_name.values()) - copies) / 5,
+                      "copies_ms_5_trees": copies,
+                      "top_device_ms_5_trees": top(by_name, 8),
+                      "logloss_last":
+                          res.evals[-1]["train_binary_logloss"]}
+    rec["fits"] = fits
+    rec["logloss_abs_diff"] = abs(fits["auto"]["logloss_last"]
+                                  - fits["off"]["logloss_last"])
+    ctx["launches"]["breadth_path_efb"] = fits["auto"]["launches"]
+    if (rec["logloss_abs_diff"] > 1e-4
+            or fits["auto"]["hist_stats"]["efb_bundles"] != len(ONEHOT_FIELDS)
+            or fits["off"]["hist_stats"]["efb_bundles"] != 0
+            or fits["auto"]["launches"] != expected
+            or not all(f["two_fits_bitwise"] for f in fits.values())):
+        failures.append(f"EFB: {rec}")
+    out["efb"] = rec
     if failures:
         raise AssertionError(json.dumps({"failures": failures, **out},
                                         default=str))
@@ -4771,11 +5372,37 @@ def kernel_table(ctx):
             ctx["quant_rows"][quant]))
         kernels[-1]["at_shapes"] = at_shapes(
             {k: v[quant] for k, v in ctx["quant_rows_by_shape"].items()})
+    # the uint16-id instances (max_bin above 256), counted apart: times at
+    # the bench's 2M x 28 and B = 1,023 (per tree, as above), launches
+    # over phase breadth_path's max_bin=1023 fits; the other bin counts
+    # and the odd feature count beside them
+    def u16_kernel(name, source, replaces, launches, cases):
+        e = entry(name, source, replaces, launches, cases["bench_b1023"])
+        e["per"] = ("sum over widths " + ",".join(map(str, WIDTHS))
+                    + " at N=2M, F=28, B=1023, uint16 ids; ms: an event "
+                    "pair per call, device_ms: calls queued behind a spin "
+                    "kernel")
+        e["at_bins"] = {k: {m: sum(r[m] for r in rows) for m in (
+            "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms")}
+            for k, rows in cases.items() if k != "bench_b1023"}
+        return e
+
+    kernels.append(u16_kernel(
+        "level_hist[u16]", "mmlspark_tpu_torch/csrc/level_hist.cu",
+        "mmlspark_tpu/models/gbdt/hist_pallas.py:60",
+        ctx["launches"]["breadth_path_u16_off"], ctx["hist_u16"]))
+    for quant in QUANTS:
+        kernels.append(u16_kernel(
+            f"level_hist_quant[{quant},u16]",
+            "mmlspark_tpu_torch/csrc/level_hist_quant.cu",
+            "mmlspark_tpu/models/gbdt/hist_pallas.py:204",
+            ctx["launches"][f"breadth_path_u16_{quant}"],
+            ctx["quant_u16"][quant]))
     # launches over the ranking path's 100-tree ranker fit (600) and the
     # multiclass path's 20-iteration, 7-class fit (840); those fits run
     # the float32 plane, and the quantized kernels' one counter (both
     # planes) is checked to stay at 0 there
-    for kernel in kernels:
+    for kernel in kernels[:3]:
         quantized = kernel["name"] != "level_hist"
         for path in ("ranking_path", "multiclass_path"):
             kernel[f"launches_{path}"] = ctx["launches"][
@@ -4802,6 +5429,15 @@ def kernel_table(ctx):
         ctx["launches"]["sampling_path"]["level_hist"]
     kernels[2]["launches_sampling_path"] = \
         ctx["launches"]["sampling_path"]["level_hist_quant"]
+    # launches over breadth_path's setting fits (uint8 ids) and its
+    # one-hot EFB fit, whose histograms scan the bundled matrix
+    kernels[0]["launches_breadth_path"] = \
+        ctx["launches"]["breadth_path_settings"]
+    kernels[0]["launches_breadth_path_efb"] = \
+        ctx["launches"]["breadth_path_efb"]
+    # the same kernel on the one-hot rows' bundled matrix (1M x 32 of 284
+    # columns), per tree (widths 1..32), beside the direct matrix's time
+    kernels[0]["efb_bundled_per_tree"] = ctx["efb_hist_per_tree"]
     # tree_score replaces an XLA scan, not a Pallas kernel: the row of
     # the main path's 2M-row call, beside the served model's rung 64
     score = ctx["score_rows"]
@@ -4912,6 +5548,7 @@ def main() -> int:
                      ("categorical_path", phase_categorical),
                      ("ranking_path", phase_ranking),
                      ("multiclass_path", phase_multiclass),
+                     ("breadth_path", phase_breadth),
                      ("kernel_score", phase_kernel_score),
                      ("refresh_path", phase_refresh),
                      ("fleet_path", phase_fleet),

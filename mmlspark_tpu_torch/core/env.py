@@ -8,6 +8,10 @@ one; the defaults are the JAX package's:
 
   - ``MMLSPARK_TORCH_HIST_QUANT``  off|q16|q8 (``trainer.resolve_hist_quant``)
   - ``MMLSPARK_TORCH_HIST_SUB``    0|1 (``trainer.resolve_subtract``)
+  - ``MMLSPARK_TORCH_EFB``  auto|off|on: exclusive feature bundling
+    (``ops.efb.resolve_efb``); auto plans bundles where a sampled
+    sparsity estimate finds at least two sparse columns, on scans every
+    column, off never bundles
   - ``MMLSPARK_TORCH_SERVE_BINNED``  auto|off|on: the serving binned data
     plane (``io/serving.py``); auto activates it where the served model
     supports it, on warns once (reason in ``/healthz``) where it cannot,
@@ -84,6 +88,7 @@ SERVE_TENANT_RATE = "MMLSPARK_TORCH_SERVE_TENANT_RATE"
 SERVE_TENANT_BURST = "MMLSPARK_TORCH_SERVE_TENANT_BURST"
 INFER_AUTOCAST = "MMLSPARK_TORCH_INFER_AUTOCAST"
 SPILL_VERIFY = "MMLSPARK_TORCH_SPILL_VERIFY"
+EFB = "MMLSPARK_TORCH_EFB"
 FAULTS = "MMLSPARK_TORCH_FAULTS"
 PREFETCH_DEPTH = "MMLSPARK_TORCH_PREFETCH_DEPTH"
 STREAM_BUFFER = "MMLSPARK_TORCH_STREAM_BUFFER"

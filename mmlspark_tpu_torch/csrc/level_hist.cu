@@ -60,6 +60,21 @@
 //      4,096-row tile made n / 4,096 + width;
 //   5. the elementwise dequantization (level_hist_common.cuh).
 //
+// Bin ids. The kernel is a template on the id type: uint8_t ids (B <= 256)
+// and uint16_t ids (B <= 65,536, the reference's ids past 256 bins,
+// mmlspark_tpu/ops/ingest.py:binned_ingest_dtype). The cells of 32 lanes
+// take 768 B per bin, so past about 290 bins no feature slice fits one
+// CTA; uint16 ids therefore split the bins into tiles of at most
+// `tile_bins` (hist_cuda.f32_plan: as many as fit beside the staging), a
+// grid axis of its own (blockIdx.y): every CTA of tile t keeps the cell
+// layout above for bins [t * tile_bins, ...) and skips the (row, feature)
+// pairs whose bin lies outside them, and its flush adds its tile's cells
+// into the same int64 sums. The sums stay exact and order-free; the rows
+// are read once per tile. A uint16 row stages twice the bytes; rows whose
+// slice is a whole number of 32-bit words (F even) stage by cp.async
+// words, others id by id. The uint8 instance has one tile of every bin
+// (tile_bins = B, blockIdx.y = 0) and is the code it was before.
+//
 // What bounds it. Per level the function must read the N x F bin bytes,
 // the three (N,) float32 vectors and the (N,) node ids (int64 on the
 // training path), and write the float32 histogram: at N = 2M, F = 28 about
@@ -185,26 +200,32 @@ __device__ __forceinline__ Chunk next_chunk(Chunk c, int64_t p_end,
   return n;
 }
 
-// 4. The histogram.
+// 4. The histogram, on ids of type T, for this CTA's tile of bins.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-level_hist_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-major
+level_hist_kernel(const T* __restrict__ binned,           // (n, f) row-major
                   const float4* __restrict__ stats,       // (n,) from plan_count
                   const int64_t* __restrict__ order,      // kept rows by node
                   const int64_t* __restrict__ offsets,    // (width + 1,)
                   const long long* __restrict__ exps,     // (3,) e_c
                   unsigned long long* __restrict__ acc,   // (width, f, b, 3)
                   int f, int b, int width, int f_slice, int num_slices,
-                  int word_bins) {
+                  int word_bins, int tile_bins) {
+  constexpr bool kOneTile = sizeof(T) == 1;          // uint8: every bin at once
   extern __shared__ __align__(16) unsigned char smem[];
+  // this CTA's tile of bins [t0, t0 + bt)
+  const int t0 = kOneTile ? 0 : (int)blockIdx.y * tile_bins;
+  const int bt = kOneTile ? b : (b - t0 < tile_bins ? b - t0 : tile_bins);
   // cell (feature fl, bin, channel c) of the slice: low word at
   // cells[2c * plane + bin * 32 + fl], high word one plane further; a
   // warp's lanes (its features) always hit 32 different banks
-  const int plane = b * kLanes;
-  const int ws = (f_slice + 3) & ~3;                 // staged bytes per row
+  const int plane = (kOneTile ? b : tile_bins) * kLanes;
+  // staged ids per row: the slice's ids padded to whole 32-bit words
+  const int ws = ((f_slice * (int)sizeof(T) + 3) & ~3) / (int)sizeof(T);
   unsigned* cells = reinterpret_cast<unsigned*>(smem);
   float4* sstats = reinterpret_cast<float4*>(cells + 6 * plane);   // [2][kChunk]
   long long* sterm = reinterpret_cast<long long*>(sstats + 2 * kChunk);  // [kChunk][4]
-  uint8_t* sbin = reinterpret_cast<uint8_t*>(sterm + 4 * kChunk);  // [2][kChunk][ws]
+  T* sbin = reinterpret_cast<T*>(sterm + 4 * kChunk);  // [2][kChunk][ws]
   int64_t* srow = reinterpret_cast<int64_t*>(sbin + 2 * kChunk * ws);  // [2][kChunk]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
@@ -236,18 +257,19 @@ level_hist_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-major
     cur.rows = (int)min64(kChunk, min64(p_end, offsets[w0 + 1]) - p);
   Chunk nxt = next_chunk(cur, p_end, offsets);
 
-  // a chunk's (grad*live, hess*live, live) and the slice's bin bytes into
+  // a chunk's (grad*live, hess*live, live) and the slice's bin ids into
   // shared memory by cp.async: the rows' ids are in srow[buf]; a row's bin
   // words go to consecutive threads, so a warp's copies touch few sectors
   auto stage = [&](int buf, int rows) {
     const int64_t* rid = srow + buf * kChunk;
     if (tid < rows) cp_async16(sstats + buf * kChunk + tid, stats + rid[tid]);
-    uint8_t* dst = sbin + buf * kChunk * ws;
+    T* dst = sbin + buf * kChunk * ws;
     if (word_bins) {
-      const int wpr = fs >> 2;
+      const int wpr = (fs * (int)sizeof(T)) >> 2;
       for (int i = tid; i < rows * wpr; i += kThreads) {
         const int j = i / wpr, k = (i - j * wpr) * 4;
-        cp_async4(dst + j * ws + k, binned + rid[j] * f + f0 + k);
+        cp_async4(reinterpret_cast<uint8_t*>(dst + j * ws) + k,
+                  reinterpret_cast<const uint8_t*>(binned + rid[j] * f + f0) + k);
       }
     } else {
       for (int i = tid; i < rows * fs; i += kThreads) {
@@ -277,10 +299,12 @@ level_hist_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-major
     }
     __syncthreads();
     if (lane < fs) {
-      const uint8_t* bins = sbin + buf * kChunk * ws + lane;
+      const T* bins = sbin + buf * kChunk * ws + lane;
       for (int j = warp; j < cur.rows; j += kThreads / kLanes) {
-        const int bin = bins[j * ws];
-        if (bin < b) {  // out-of-range ids are the caller's bug; never write past the slice
+        const int bin = (int)bins[j * ws] - t0;
+        // a bin of another tile; out-of-range ids are the caller's bug:
+        // never write past the slice
+        if ((unsigned)bin < (unsigned)bt) {
           const longlong2 gh = reinterpret_cast<const longlong2*>(sterm)[j * 2];
           const long long tl = sterm[j * 4 + 2];
           unsigned* cell = cells + bin * kLanes + lane;
@@ -291,17 +315,18 @@ level_hist_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-major
       }
     }
     if (nxt.rows == 0 || nxt.w != cur.w) {
-      // the run leaves node cur.w: add its cells into the int64 sums, where
-      // the slice's (fs, b, 3) cells are contiguous, and clear them
+      // the run leaves node cur.w: add its cells into the int64 sums and
+      // clear them; the slice's (fs, b, 3) sums are contiguous, and a
+      // tile's (bt, 3) run of each feature's
       __syncthreads();
-      unsigned long long* dst = acc + ((int64_t)cur.w * f + f0) * b * 3;
-      for (int i = tid; i < 3 * fs * b; i += kThreads) {
-        const int c = i % 3, fl = i / 3 / b, bin = i / 3 - fl * b;
+      unsigned long long* dst = acc + (((int64_t)cur.w * f + f0) * b + t0) * 3;
+      for (int i = tid; i < 3 * fs * bt; i += kThreads) {
+        const int c = i % 3, fl = i / 3 / bt, bin = i / 3 - fl * bt;
         unsigned* lo = cells + 2 * c * plane + bin * kLanes + fl;
         const unsigned long long v =
             (unsigned long long)lo[plane] << 32 | lo[0];
         if (v != 0) {
-          atomicAdd(dst + i, v);
+          atomicAdd(dst + (kOneTile ? i : ((int64_t)fl * b + bin) * 3 + c), v);
           lo[0] = lo[plane] = 0u;
         }
       }
@@ -319,30 +344,68 @@ struct InversePow2 {
   __device__ double operator()(int c) const { return pow2(-exps[c]); }
 };
 
+// The histogram launch on ids of type T: a persistent grid of gx CTAs
+// per tile over the feature slices (at least one CTA per slice), and
+// num_tiles tiles of tile_bins bins (one of B bins for uint8 ids).
+template <typename T>
+cudaError_t launch_hist(const void* binned, const void* stats,
+                        const void* order, const void* offsets,
+                        const long long* exps, unsigned long long* sums,
+                        int f, int b, int width, int f_slice, int num_slices,
+                        int tile_bins, int num_tiles, int smem, int device,
+                        cudaStream_t s) {
+  if (sizeof(T) == 1 ? (num_tiles != 1 || tile_bins != b)
+                     : ((int64_t)tile_bins * num_tiles < b || num_tiles > 65535))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      level_hist_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, level_hist_kernel<T>, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int want = (sms * per_sm + num_tiles - 1) / num_tiles;
+  const int gx = want > num_slices ? want : num_slices;
+  const int word_bins = (f * (int)sizeof(T)) % 4 == 0 &&
+                        (f_slice * (int)sizeof(T)) % 4 == 0 &&
+                        (uintptr_t)binned % 4 == 0;
+  level_hist_kernel<T><<<dim3(gx, num_tiles), kThreads, smem, s>>>(
+      (const T*)binned, (const float4*)stats, (const int64_t*)order,
+      (const int64_t*)offsets, exps, sums, f, b, width, f_slice, num_slices,
+      word_bins, tile_bins);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches the partition (three kernels), the histogram and the
-// dequantization on `stream` (a cudaStream_t) of device `device`. `local`
-// holds int32 (local_bytes 4) or int64 (8) node ids. Scratch, written
-// here: `stats` (n, 4) float32; `counts` (width + 1) * (ns + nb) int32
-// for ns = ceil(n / 512) warp segments and nb = ceil(ns / 8) CTAs (the
-// per-warp counts, then the per-CTA places); `offsets` width + 1 int64;
-// `order` n int64. `acc` holds width * f * b * 3 int64 sums and then 6
-// int64 (the channels' amax bits, then e_c), all zero on entry; `out` is
-// the (width, f, b, 3) float32 histogram; `smem` a histogram CTA's dynamic
-// shared memory (hist_cuda.f32_smem_bytes). width must be below 12288 (the
-// partition's per-warp key counters). Returns the first CUDA error: 0 on
-// success.
+// dequantization on `stream` (a cudaStream_t) of device `device`. `binned`
+// holds uint8 (bin_bytes 1) or uint16 (2) ids; `local` int32 (local_bytes
+// 4) or int64 (8) node ids. Scratch, written here: `stats` (n, 4) float32;
+// `counts` (width + 1) * (ns + nb) int32 for ns = ceil(n / 512) warp
+// segments and nb = ceil(ns / 8) CTAs (the per-warp counts, then the
+// per-CTA places); `offsets` width + 1 int64; `order` n int64. `acc` holds
+// width * f * b * 3 int64 sums and then 6 int64 (the channels' amax bits,
+// then e_c), all zero on entry; `out` is the (width, f, b, 3) float32
+// histogram; the bins go in num_tiles tiles of tile_bins (uint8 ids: one
+// tile, tile_bins = b); `smem` a histogram CTA's dynamic shared memory
+// (hist_cuda.f32_smem_bytes). width must be below 12288 (the partition's
+// per-warp key counters). Returns the first CUDA error: 0 on success.
 int mmls_level_hist(const void* binned, const void* grad, const void* hess,
                     const void* live, const void* local, int local_bytes,
                     void* stats, void* counts, void* offsets, void* order,
                     void* acc, void* out, long long n, int f, int b,
-                    int width, int f_slice, int num_slices, int smem,
-                    int device, void* stream) {
+                    int width, int f_slice, int num_slices, int bin_bytes,
+                    int tile_bins, int num_tiles, int smem, int device,
+                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (bin_bytes != 1 && bin_bytes != 2) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int64_t cells = (int64_t)width * f * b * 3;
   unsigned long long* sums = (unsigned long long*)acc;
@@ -363,24 +426,13 @@ int mmls_level_hist(const void* binned, const void* grad, const void* hess,
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
 
-  err = cudaFuncSetAttribute(level_hist_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, level_hist_kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = sms * per_sm > num_slices ? sms * per_sm : num_slices;
-  const int word_bins = f % 4 == 0 && f_slice % 4 == 0 &&
-                        (uintptr_t)binned % 4 == 0;
-  level_hist_kernel<<<grid, kThreads, smem, s>>>(
-      (const uint8_t*)binned, (const float4*)stats, (const int64_t*)order,
-      (const int64_t*)offsets, exps, sums, f, b, width, f_slice, num_slices,
-      word_bins);
-  err = cudaGetLastError();
+  err = bin_bytes == 1
+      ? launch_hist<uint8_t>(binned, stats, order, offsets, exps, sums, f, b,
+                             width, f_slice, num_slices, tile_bins, num_tiles,
+                             smem, device, s)
+      : launch_hist<uint16_t>(binned, stats, order, offsets, exps, sums, f, b,
+                              width, f_slice, num_slices, tile_bins,
+                              num_tiles, smem, device, s);
   if (err != cudaSuccess) return (int)err;
   return (int)level_hist::dequantize((const long long*)sums, (float*)out,
                                      InversePow2{exps}, cells, s);

@@ -37,6 +37,14 @@
 //   5. the elementwise dequantization (level_hist_common.cuh); in the JAX
 //      package too it lies outside the Pallas body (hist_pallas.py:218-219).
 //
+// Bin ids: uint8_t (B <= 256) or uint16_t (B <= 65,536), a template of the
+// kernel. At 384 B per bin the int32 cells of 32 lanes leave no room for a
+// slice's staging past about 500 bins, so uint16 ids split the bins into
+// tiles (hist_cuda.quant_plan), a grid axis of its own: each CTA of tile t
+// keeps the cell layout above for its bins and skips the (row, feature)
+// pairs of other tiles, as level_hist.cu does; the int64 sums stay exact.
+// The uint8 instance has one tile of every bin and is the code it was.
+//
 // The int32 window. A cell grows by at most 2^(bits-1) per row, so it holds
 // W = floor((2^31 - 1) / 2^(bits-1)) rows (q16: 65,535; q8: 16,777,215)
 // without wrapping. A CTA's run in one node is not bounded by a tile (at
@@ -101,22 +109,28 @@ struct QuantRows {
 __device__ __forceinline__ int low_half(unsigned x) { return (int)(x << 16) >> 16; }
 __device__ __forceinline__ int high_half(unsigned x) { return (int)x >> 16; }
 
-// 4. The histogram.
+// 4. The histogram, on ids of type T, for this CTA's tile of bins.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
-level_hist_quant_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-major
+level_hist_quant_kernel(const T* __restrict__ binned,           // (n, f) row-major
                         const unsigned* __restrict__ stats,     // (n,) packed
                         const int64_t* __restrict__ order,      // kept rows by node
                         const int64_t* __restrict__ offsets,    // (width + 1,)
                         unsigned long long* __restrict__ acc,   // (width, f, b, 3)
                         int f, int b, int width, int f_slice, int num_slices,
-                        int word_bins, int window) {
+                        int word_bins, int window, int tile_bins) {
+  constexpr bool kOneTile = sizeof(T) == 1;          // uint8: every bin at once
   extern __shared__ __align__(16) unsigned char smem[];
-  const int plane = b * kLanes;
-  const int ws = (f_slice + 3) & ~3;                 // staged bytes per row
-  int* cells = reinterpret_cast<int*>(smem);         // [3][b][32]
+  // this CTA's tile of bins [t0, t0 + bt)
+  const int t0 = kOneTile ? 0 : (int)blockIdx.y * tile_bins;
+  const int bt = kOneTile ? b : (b - t0 < tile_bins ? b - t0 : tile_bins);
+  const int plane = (kOneTile ? b : tile_bins) * kLanes;
+  // staged ids per row: the slice's ids padded to whole 32-bit words
+  const int ws = ((f_slice * (int)sizeof(T) + 3) & ~3) / (int)sizeof(T);
+  int* cells = reinterpret_cast<int*>(smem);         // [3][bt][32]
   unsigned* sstats = reinterpret_cast<unsigned*>(cells + 3 * plane);  // [kStages][kChunk]
   int* srow = reinterpret_cast<int*>(sstats + kStages * kChunk);      // [kStages][kChunk]
-  uint8_t* sbin = reinterpret_cast<uint8_t*>(srow + kStages * kChunk);  // [kStages][kChunk][ws]
+  T* sbin = reinterpret_cast<T*>(srow + kStages * kChunk);  // [kStages][kChunk][ws]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   // this CTA's feature slice: slice s owns CTAs [T*s*f_slice/f, ...), a
@@ -141,19 +155,21 @@ level_hist_quant_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-ma
 
   for (int i = tid; i < 3 * plane; i += kThreads) cells[i] = 0;
 
-  // a chunk's packed words and the slice's bin bytes into ring slot `slot`
+  // a chunk's packed words and the slice's bin ids into ring slot `slot`
   // by cp.async; the rows' ids are in srow[slot]; a row's bin words go to
   // consecutive threads, so a warp's copies touch few sectors
   auto stage = [&](int slot, int rows) {
     const int* rid = srow + slot * kChunk;
     for (int j = tid; j < rows; j += kThreads)
       cp_async4(sstats + slot * kChunk + j, stats + rid[j]);
-    uint8_t* dst = sbin + slot * kChunk * ws;
+    T* dst = sbin + slot * kChunk * ws;
     if (word_bins) {
-      const int wpr = fs >> 2;
+      const int wpr = (fs * (int)sizeof(T)) >> 2;
       for (int i = tid; i < rows * wpr; i += kThreads) {
         const int j = i / wpr, k = (i - j * wpr) * 4;
-        cp_async4(dst + j * ws + k, binned + (int64_t)rid[j] * f + f0 + k);
+        cp_async4(reinterpret_cast<uint8_t*>(dst + j * ws) + k,
+                  reinterpret_cast<const uint8_t*>(
+                      binned + (int64_t)rid[j] * f + f0) + k);
       }
     } else {
       for (int i = tid; i < rows * fs; i += kThreads) {
@@ -163,17 +179,19 @@ level_hist_quant_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-ma
     }
   };
 
-  // add the int32 cells into node w's int64 sums, where the slice's
-  // (fs, b, 3) cells are contiguous, and clear them
+  // add the int32 cells into node w's int64 sums and clear them; the
+  // slice's (fs, b, 3) sums are contiguous, and a tile's (bt, 3) run of
+  // each feature's
   auto flush = [&](int w) {
     __syncthreads();                                 // every add has landed
-    unsigned long long* dst = acc + ((int64_t)w * f + f0) * b * 3;
-    for (int i = tid; i < 3 * fs * b; i += kThreads) {
-      const int c = i % 3, fl = i / 3 / b, bin = i / 3 - fl * b;
+    unsigned long long* dst = acc + (((int64_t)w * f + f0) * b + t0) * 3;
+    for (int i = tid; i < 3 * fs * bt; i += kThreads) {
+      const int c = i % 3, fl = i / 3 / bt, bin = i / 3 - fl * bt;
       int* cell = cells + c * plane + bin * kLanes + fl;
       const int v = *cell;
       if (v != 0) {
-        atomicAdd(dst + i, (unsigned long long)(long long)v);
+        atomicAdd(dst + (kOneTile ? i : ((int64_t)fl * b + bin) * 3 + c),
+                  (unsigned long long)(long long)v);
         *cell = 0;
       }
     }
@@ -213,7 +231,7 @@ level_hist_quant_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-ma
     cp_async_wait<kStages - 1>();                    // this chunk has landed
     __syncthreads();
 
-    const uint8_t* bins = sbin + slot * kChunk * ws + lane;
+    const T* bins = sbin + slot * kChunk * ws + lane;
     const unsigned* words = sstats + slot * kChunk;
     const int64_t c0 = p + i * kChunk, c1 = c0 + rows;
     for (int64_t pos = c0; pos < c1;) {              // the chunk node by node
@@ -223,8 +241,10 @@ level_hist_quant_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-ma
       const int j1 = (int)(seg_end - c0);
       if (lane < fs) {
         for (int j = (int)(pos - c0) + warp; j < j1; j += kWarps) {
-          const int bin = bins[j * ws];
-          if (bin < b) {  // out-of-range ids are the caller's bug; never write past the slice
+          const int bin = (int)bins[j * ws] - t0;
+          // a bin of another tile; out-of-range ids are the caller's bug:
+          // never write past the slice
+          if ((unsigned)bin < (unsigned)bt) {
             const unsigned x = words[j];
             int* cell = cells + bin * kLanes + lane;
             atomicAdd(cell, low_half(x));
@@ -276,23 +296,59 @@ cudaError_t plan_quant(const void* local, int local_bytes, const void* live,
   return cudaErrorInvalidValue;
 }
 
+// The histogram launch on ids of type T: a persistent grid of gx CTAs
+// per tile over the feature slices (at least one CTA per slice), and
+// num_tiles tiles of tile_bins bins (one of B bins for uint8 ids).
+template <typename T>
+cudaError_t launch_quant(const void* binned, const void* stats,
+                         const void* order, const void* offsets, void* acc,
+                         int f, int b, int width, int f_slice, int num_slices,
+                         int window, int tile_bins, int num_tiles, int smem,
+                         int device, cudaStream_t s) {
+  if (sizeof(T) == 1 ? (num_tiles != 1 || tile_bins != b)
+                     : ((int64_t)tile_bins * num_tiles < b || num_tiles > 65535))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      level_hist_quant_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, level_hist_quant_kernel<T>, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int want = (sms * per_sm + num_tiles - 1) / num_tiles;
+  const int gx = want > num_slices ? want : num_slices;
+  const int word_bins = (f * (int)sizeof(T)) % 4 == 0 &&
+                        (f_slice * (int)sizeof(T)) % 4 == 0 &&
+                        (uintptr_t)binned % 4 == 0;
+  level_hist_quant_kernel<T><<<dim3(gx, num_tiles), kThreads, smem, s>>>(
+      (const T*)binned, (const unsigned*)stats, (const int64_t*)order,
+      (const int64_t*)offsets, (unsigned long long*)acc, f, b, width, f_slice,
+      num_slices, word_bins, window, tile_bins);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches the partition (three kernels), the histogram and the
 // dequantization on `stream` (a cudaStream_t) of device `device`; `qbits` is
-// 16 (int16 grad/hess) or 8 (int8); `local` holds int32 (local_bytes 4) or
-// int64 (8) node ids. Scratch, written here: `stats` n packed uint32;
-// `counts` (width + 1) * (ns + nb) int32 for ns = ceil(n / 512) warp
-// segments and nb = ceil(ns / 8) CTAs; `offsets` width + 1 int64; `order`
-// n int64. `acc` holds the width * f * b * 3 int64 sums, zero on entry;
-// `out` is the (width, f, b, 3) float32 histogram; `smem` a histogram CTA's
-// dynamic shared memory (hist_cuda.quant_smem_bytes); `window` the rows of
-// one node a CTA's int32 cells take between flushes
-// (hist_cuda.quant_window). width must not pass 12287 (the partition's
-// per-warp key counters), n must be below 2^31. Returns the first CUDA
-// error: 0 on success.
+// 16 (int16 grad/hess) or 8 (int8); `binned` holds uint8 (bin_bytes 1) or
+// uint16 (2) ids; `local` int32 (local_bytes 4) or int64 (8) node ids.
+// Scratch, written here: `stats` n packed uint32; `counts` (width + 1) *
+// (ns + nb) int32 for ns = ceil(n / 512) warp segments and nb = ceil(ns /
+// 8) CTAs; `offsets` width + 1 int64; `order` n int64. `acc` holds the
+// width * f * b * 3 int64 sums, zero on entry; `out` is the (width, f, b,
+// 3) float32 histogram; the bins go in num_tiles tiles of tile_bins (uint8
+// ids: one tile, tile_bins = b); `smem` a histogram CTA's dynamic shared
+// memory (hist_cuda.quant_smem_bytes); `window` the rows of one node a
+// CTA's int32 cells take between flushes (hist_cuda.quant_window). width
+// must not pass 12287 (the partition's per-warp key counters), n must be
+// below 2^31. Returns the first CUDA error: 0 on success.
 int mmls_level_hist_quant(const void* binned, const void* grad,
                           const void* hess, const void* live,
                           const void* local, int local_bytes, void* stats,
@@ -300,11 +356,13 @@ int mmls_level_hist_quant(const void* binned, const void* grad,
                           void* out, const void* gscale_inv,
                           const void* hscale_inv, int qbits, long long n,
                           int f, int b, int width, int f_slice,
-                          int num_slices, int smem, int window, int device,
+                          int num_slices, int bin_bytes, int tile_bins,
+                          int num_tiles, int smem, int window, int device,
                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (width > kMaxWidth || window < kChunk) return (int)cudaErrorInvalidValue;
+  if (width > kMaxWidth || window < kChunk || (bin_bytes != 1 && bin_bytes != 2))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   int* wcounts = (int*)counts;
   int* btot = wcounts + plan_wcounts(n, width);
@@ -320,24 +378,13 @@ int mmls_level_hist_quant(const void* binned, const void* grad,
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
 
-  err = cudaFuncSetAttribute(level_hist_quant_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, level_hist_quant_kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = sms * per_sm > num_slices ? sms * per_sm : num_slices;
-  const int word_bins = f % 4 == 0 && f_slice % 4 == 0 &&
-                        (uintptr_t)binned % 4 == 0;
-  level_hist_quant_kernel<<<grid, kThreads, smem, s>>>(
-      (const uint8_t*)binned, (const unsigned*)stats, (const int64_t*)order,
-      (const int64_t*)offsets, (unsigned long long*)acc, f, b, width, f_slice,
-      num_slices, word_bins, window);
-  err = cudaGetLastError();
+  err = bin_bytes == 1
+      ? launch_quant<uint8_t>(binned, stats, order, offsets, acc, f, b, width,
+                              f_slice, num_slices, window, tile_bins,
+                              num_tiles, smem, device, s)
+      : launch_quant<uint16_t>(binned, stats, order, offsets, acc, f, b,
+                               width, f_slice, num_slices, window, tile_bins,
+                               num_tiles, smem, device, s);
   if (err != cudaSuccess) return (int)err;
   return (int)dequantize(
       (const long long*)acc, (float*)out,

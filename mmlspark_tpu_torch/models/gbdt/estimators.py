@@ -51,11 +51,16 @@ and ``"rf"``; ``trainer.train``), keyed by the global iteration, so a
 checkpointed or incremental fit resumed at iteration k draws what the
 uninterrupted one drew.
 
+``maxBin`` above 256 bins into uint16 ids (``binned_ingest_dtype``),
+which train, transform and serve on the card; ``monotoneConstraints``,
+``extraTrees`` and ``featureFractionByNode`` train as the reference's
+general split branch does, and fits without categorical slots bundle
+sparse columns (``MMLSPARK_TORCH_EFB``, ``ops/efb.py``).
+
 The param surface is the JAX package's (the same names, defaults and
 validation); settings outside the port raise ``NotImplementedError``
-naming the ROADMAP item that adds them: dart, ``featureFractionByNode``,
-``extraTrees`` and monotone constraints (A7), meshes and the voting /
-feature-parallel learners (A8).
+naming the ROADMAP item that adds them: dart and ``maxBin`` above 65,536
+(A7), meshes and the voting / feature-parallel learners (A8).
 """
 
 from __future__ import annotations
@@ -866,11 +871,11 @@ class _LightGBMModelBase(Model, _LightGBMParams):
 
     binnedScoring = Param(
         "binnedScoring", "route transform through the binned-compare "
-        "scorer (bin with the training BinMapper, then compare uint8 bin "
-        "ids instead of float thresholds). Binned scoring routes by the "
-        "float64 bin edge, raw scoring by its float32 rounding (ROADMAP "
-        "C8), so the two can differ on rows holding such a value", to_bool,
-        default=False)
+        "scorer (bin with the training BinMapper, then compare uint8 or "
+        "uint16 bin ids instead of float thresholds). Binned scoring "
+        "routes by the float64 bin edge, raw scoring by its float32 "
+        "rounding (ROADMAP C8), so the two can differ on rows holding such "
+        "a value", to_bool, default=False)
 
     booster: Optional[BoosterArrays] = None
     bin_mapper: Optional[BinMapper] = None   # training BinMapper, persisted

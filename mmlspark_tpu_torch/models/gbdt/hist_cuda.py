@@ -4,12 +4,14 @@
 
 ``level_histogram`` is the port of ``trainer._level_histogram`` (and of
 the TPU kernel ``hist_pallas._hist_kernel`` behind it): (N, F) uint8 bin
-ids plus per-row grad, hess, live and node-local id -> a (width, F, B, 3)
-float32 histogram of (grad*live, hess*live, live) sums. The sums are
-taken in fixed point (``fixed_point_exponents``): each term is scaled by
-a per-channel power of two, rounded to an int64 and summed exactly, and
-each sum is rounded to float32 once. The result is the same bits in any
-row order and on any device, so the float32 fit is reproducible run to
+ids (B <= 256), or uint16 ids (B <= 65,536: the reference's ids past 256
+bins, ``binned_ingest_dtype``), plus per-row grad, hess, live and
+node-local id -> a (width, F, B, 3) float32 histogram of (grad*live,
+hess*live, live) sums. The sums are taken in fixed point
+(``fixed_point_exponents``): each term is scaled by a per-channel power
+of two, rounded to an int64 and summed exactly, and each sum is rounded
+to float32 once. The result is the same bits in any row order and on
+any device, so the float32 fit is reproducible run to
 run on the card, as the reference's is.
 
 ``level_histogram_quant`` is the port of
@@ -48,6 +50,9 @@ from mmlspark_tpu_torch.native import bindings
 # here (``count_replay``).
 hist_kernel_launches = 0
 hist_quant_kernel_launches = 0
+# the kernels' uint16-id instances, counted apart
+hist_u16_kernel_launches = 0
+hist_quant_u16_kernel_launches = 0
 _capture = threading.local()
 
 
@@ -80,7 +85,9 @@ def count_replay(tally: Dict[str, int]) -> None:
     for counter, launches in tally.items():
         globals()[counter] += launches
 
-MAX_BINS = 256            # bin ids are uint8
+# the bin-id dtypes the kernels take, and the most bins of each
+BIN_DTYPES = {torch.uint8: 256, torch.uint16: 65_536}
+MAX_BINS = 65_536
 CHUNK_ROWS = 256          # level_hist.cu: rows a CTA stages at once
 WARP_LANES = 32           # a lane per feature of a row
 PLAN_SEG_ROWS = 512       # rows per warp of the partition
@@ -93,15 +100,16 @@ QUANT_DTYPES = (torch.int16, torch.int8)
 
 def _check_inputs(binned, grad, hess, live, local, width, f, b,
                   stat_dtypes=(torch.float32,)):
-    if binned.dtype != torch.uint8 or binned.dim() != 2:
-        raise ValueError(f"binned must be a 2-d uint8 tensor, got "
+    if binned.dtype not in BIN_DTYPES or binned.dim() != 2:
+        raise ValueError(f"binned must be a 2-d uint8 or uint16 tensor, got "
                          f"{binned.dtype} with shape {tuple(binned.shape)}")
     n = binned.shape[0]
     if binned.shape[1] != f:
         raise ValueError(f"binned has {binned.shape[1]} features, expected {f}")
-    if not 1 <= b <= MAX_BINS:
-        raise ValueError(f"the level histogram supports 1..{MAX_BINS} bins, "
-                         f"got {b}")
+    most = BIN_DTYPES[binned.dtype]
+    if not 1 <= b <= most:
+        raise ValueError(f"the level histogram supports 1..{most} bins on "
+                         f"{binned.dtype} ids, got {b}")
     if width < 1:
         raise ValueError(f"width must be >= 1, got {width}")
     if grad.dtype not in stat_dtypes or hess.dtype != grad.dtype:
@@ -139,12 +147,21 @@ def level_histogram(binned, grad, hess, live, local, width: int, f: int,
     return fault_point("gbdt.level_hist", out)
 
 
+def bin_ids(binned) -> torch.Tensor:
+    """The bin ids of a uint8 or uint16 tensor as int64. uint16 goes
+    through its int16 view (``& 0xFFFF``): torch implements few ops on
+    uint16 tensors."""
+    if binned.dtype == torch.uint16:
+        return binned.view(torch.int16).long() & 0xFFFF
+    return binned.long()
+
+
 def flat_index(binned, local, f: int, b: int) -> torch.Tensor:
     """(N*F,) int64 histogram cell of every (row, feature):
     ``(local*F + f)*B + bin``."""
     feats = torch.arange(f, dtype=torch.int64, device=binned.device)
     return ((local.long()[:, None] * f + feats[None, :]) * b
-            + binned.long()).reshape(-1)
+            + bin_ids(binned)).reshape(-1)
 
 
 def _cell_sums(binned, local, data, width: int, f: int,
@@ -161,7 +178,7 @@ def _cell_sums(binned, local, data, width: int, f: int,
     def add(span):
         lo, hi = span
         cells = ((base + torch.arange(lo, hi, device=dev)) * b
-                 + binned[:, lo:hi].long()).reshape(-1)
+                 + bin_ids(binned[:, lo:hi])).reshape(-1)
         for c in range(3):
             acc[c].index_add_(0, cells, data[:, c, None].expand(
                 n, hi - lo).reshape(-1))
@@ -225,6 +242,12 @@ def level_histogram_reference(binned, grad, hess, live, local, width: int,
     return (acc.double() * pow2(-e)).float().reshape(width, f, b, 3)
 
 
+def _staged_bytes(f_slice: int, bin_bytes: int) -> int:
+    """A row's staged bin ids: the slice's ids padded to whole 32-bit
+    words."""
+    return -(-f_slice * bin_bytes // 4) * 4
+
+
 def _lane_slices(f: int, fits):
     """(features per CTA, number of slices) for a kernel that adds a
     row's features with one warp, a lane per feature: the fewest slices of
@@ -241,20 +264,53 @@ def _lane_slices(f: int, fits):
     return f_slice, -(-f // f_slice)
 
 
+def _plan(f: int, b: int, bin_bytes: int, smem_bytes):
+    """(features per CTA, number of slices, bins per tile, number of
+    tiles) of a kernel whose CTA needs ``smem_bytes(f_slice, tile_bins,
+    bin_bytes)`` of shared memory. uint8 ids: the fewest slices whose
+    cells of all B bins fit, one tile (the kernels' uint8 instances).
+    uint16 ids: slices of at most 32 features, then the fewest tiles of
+    bins whose cells fit beside the slice's staging, as even as
+    possible."""
+    if bin_bytes == 1:
+        f_slice, num_slices = _lane_slices(
+            f, lambda fs: smem_bytes(fs, b, 1) <= SMEM_BYTES)
+        return f_slice, num_slices, b, 1
+    f_slice, num_slices = _lane_slices(
+        f, lambda fs: smem_bytes(fs, 1, bin_bytes) <= SMEM_BYTES)
+    staging = smem_bytes(f_slice, 0, bin_bytes)
+    cap = (SMEM_BYTES - staging) // (smem_bytes(f_slice, 1, bin_bytes)
+                                     - staging)
+    num_tiles = -(-b // min(cap, b))
+    return f_slice, num_slices, -(-b // num_tiles), num_tiles
+
+
+def f32_plan(f: int, b: int, bin_bytes: int = 1):
+    """(features per CTA, slices, bins per tile, tiles) of
+    ``csrc/level_hist.cu`` (:func:`_plan`, :func:`f32_smem_bytes`): 28
+    features and one tile at B = 256 on uint8 ids; 28 features and tiles
+    of at most 238 bins on uint16 ids."""
+    return _plan(f, b, bin_bytes, f32_smem_bytes)
+
+
 def f32_feature_slices(f: int, b: int):
-    """(features per CTA, number of slices) of ``csrc/level_hist.cu``:
-    its cells (over 32 lanes) and staged chunks fit one CTA's shared
-    memory (:func:`f32_smem_bytes`; 28 features at B = 256)."""
-    return _lane_slices(f, lambda fs: f32_smem_bytes(fs, b) <= SMEM_BYTES)
+    """(features per CTA, number of slices) of ``csrc/level_hist.cu``
+    on uint8 ids: its cells (over 32 lanes) and staged chunks fit one
+    CTA's shared memory (:func:`f32_smem_bytes`; 28 features at B =
+    256)."""
+    return f32_plan(f, b)[:2]
 
 
-def f32_smem_bytes(f_slice: int, b: int) -> int:
-    """Dynamic shared memory of one ``level_hist.cu`` CTA: int64 cells
-    as two 32-bit planes per channel over (B, 32 lanes); two stages of
-    ``CHUNK_ROWS`` rows' stats (16 bytes), bin bytes (padded to a word)
-    and row ids (8 bytes); the chunk's int64 terms (32 bytes a row)."""
+def f32_smem_bytes(f_slice: int, b: int, bin_bytes: int = 1) -> int:
+    """Dynamic shared memory of one ``level_hist.cu`` CTA holding the
+    cells of ``b`` bins: int64 cells as two 32-bit planes per channel
+    over (b, 32 lanes); two stages of ``CHUNK_ROWS`` rows' stats (16
+    bytes), bin ids (``bin_bytes`` each, padded to a word) and row ids
+    (8 bytes); the chunk's int64 terms (32 bytes a row)."""
     return (6 * b * WARP_LANES * 4
-            + CHUNK_ROWS * (2 * 16 + 32 + 2 * (-(-f_slice // 4) * 4) + 2 * 8))
+            + CHUNK_ROWS * (2 * 16 + 32 + 2 * _staged_bytes(f_slice,
+                                                            bin_bytes)
+                            + 2 * 8))
 
 
 def _check_card_limits(width, n):
@@ -289,16 +345,19 @@ def _launch(binned, grad, hess, live, local, width, f, b):
     # per row (grad*live, hess*live, live, 0)
     stats = torch.empty((n, 4), dtype=torch.float32, device=dev)
     counts, offsets, order = _partition_scratch(n, width, dev)
-    f_slice, num_slices = f32_feature_slices(f, b)
+    bin_bytes = binned.element_size()
+    f_slice, num_slices, tile_bins, num_tiles = f32_plan(f, b, bin_bytes)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.mmls_level_hist(
         binned.data_ptr(), grad.data_ptr(), hess.data_ptr(), live.data_ptr(),
         local.data_ptr(), local.element_size(), stats.data_ptr(),
         counts.data_ptr(), offsets.data_ptr(), order.data_ptr(),
         acc.data_ptr(), out.data_ptr(), n, f, b, width, f_slice, num_slices,
-        f32_smem_bytes(f_slice, b), dev.index, stream)
+        bin_bytes, tile_bins, num_tiles,
+        f32_smem_bytes(f_slice, tile_bins, bin_bytes), dev.index, stream)
     bindings.check(lib, code, "level_hist kernel launch")
-    _count_launch("hist_kernel_launches")
+    _count_launch("hist_kernel_launches" if bin_bytes == 1
+                  else "hist_u16_kernel_launches")
     return out
 
 
@@ -312,20 +371,31 @@ def quant_window(bits: int) -> int:
     return (2 ** 31 - 1) // 2 ** (bits - 1)
 
 
+def quant_plan(f: int, b: int, bin_bytes: int = 1):
+    """(features per CTA, slices, bins per tile, tiles) of
+    ``csrc/level_hist_quant.cu`` (:func:`_plan`,
+    :func:`quant_smem_bytes`): on uint8 ids every slice of 32 features
+    fits with one tile; on uint16 ids 28 features take tiles of at most
+    264 bins."""
+    return _plan(f, b, bin_bytes, quant_smem_bytes)
+
+
 def quant_feature_slices(f: int, b: int):
     """(features per CTA, number of slices) of ``csrc/level_hist_quant.cu``
-    (:func:`quant_smem_bytes`): at B <= 256 every slice of 32 features
-    fits."""
-    return _lane_slices(f, lambda fs: quant_smem_bytes(fs, b) <= SMEM_BYTES)
+    on uint8 ids (:func:`quant_smem_bytes`): at B <= 256 every slice of
+    32 features fits."""
+    return quant_plan(f, b)[:2]
 
 
-def quant_smem_bytes(f_slice: int, b: int) -> int:
-    """Dynamic shared memory of one ``level_hist_quant.cu`` CTA: int32
-    cells in three channel planes over (B, 32 lanes); ``QUANT_STAGES``
-    chunks of ``QUANT_CHUNK_ROWS`` rows' packed stat words (4 bytes), row
-    ids (4 bytes) and bin bytes (padded to a word)."""
+def quant_smem_bytes(f_slice: int, b: int, bin_bytes: int = 1) -> int:
+    """Dynamic shared memory of one ``level_hist_quant.cu`` CTA holding
+    the cells of ``b`` bins: int32 cells in three channel planes over (b,
+    32 lanes); ``QUANT_STAGES`` chunks of ``QUANT_CHUNK_ROWS`` rows'
+    packed stat words (4 bytes), row ids (4 bytes) and bin ids
+    (``bin_bytes`` each, padded to a word)."""
     return (3 * b * WARP_LANES * 4
-            + QUANT_STAGES * QUANT_CHUNK_ROWS * (4 + 4 + -(-f_slice // 4) * 4))
+            + QUANT_STAGES * QUANT_CHUNK_ROWS
+            * (4 + 4 + _staged_bytes(f_slice, bin_bytes)))
 
 
 def level_histogram_quant(binned, grad_q, hess_q, live, local, width: int,
@@ -379,7 +449,8 @@ def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
     # per row the packed (grad_q, hess_q) word
     stats = torch.empty(n, dtype=torch.int32, device=dev)
     counts, offsets, order = _partition_scratch(n, width, dev)
-    f_slice, num_slices = quant_feature_slices(f, b)
+    bin_bytes = binned.element_size()
+    f_slice, num_slices, tile_bins, num_tiles = quant_plan(f, b, bin_bytes)
     bits = grad_q.element_size() * 8
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.mmls_level_hist_quant(
@@ -388,7 +459,10 @@ def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
         stats.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
         order.data_ptr(), acc.data_ptr(), out.data_ptr(), gsi.data_ptr(),
         hsi.data_ptr(), bits, n, f, b, width, f_slice, num_slices,
-        quant_smem_bytes(f_slice, b), quant_window(bits), dev.index, stream)
+        bin_bytes, tile_bins, num_tiles,
+        quant_smem_bytes(f_slice, tile_bins, bin_bytes), quant_window(bits),
+        dev.index, stream)
     bindings.check(lib, code, "level_hist_quant kernel launch")
-    _count_launch("hist_quant_kernel_launches")
+    _count_launch("hist_quant_kernel_launches" if bin_bytes == 1
+                  else "hist_quant_u16_kernel_launches")
     return out

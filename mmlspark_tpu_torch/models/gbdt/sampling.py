@@ -1,5 +1,7 @@
 """Row and feature sampling of the boosting step: bagging, pos/neg
-bagging, ``feature_fraction``, GOSS and rf's bag.
+bagging, ``feature_fraction``, GOSS and rf's bag; and the tree builder's
+draws per level: ``extra_trees``' candidate bins and
+``feature_fraction_by_node``'s node features.
 
 The JAX package draws these inline in its fused step
 (``mmlspark_tpu/models/gbdt/trainer.py`` ``_make_step_fn``) from
@@ -9,6 +11,10 @@ The JAX package draws these inline in its fused step
     without ``bagging_freq``: iteration 0, one fixed bag);
   - feature fraction: ``(seed, 2, feature_fraction_seed, it)``;
   - GOSS: ``(seed, 3, it)``;
+  - class c's tree (``extra_trees``, ``feature_fraction_by_node``):
+    ``(seed, 4 + c, extra_seed, it)``, then per level ``d`` the
+    candidate bins ``(..., d)`` and the node features ``(..., 101, d)``
+    (``trainer.py:2208-2211``, ``:1643``, ``:1660``);
 
 ``it`` being the global iteration (``iteration_offset`` included), so a
 resumed segment draws what the uninterrupted fit drew. The port keys its
@@ -32,7 +38,8 @@ from typing import Optional, Sequence
 import torch
 
 M32 = 0xFFFFFFFF
-BAG, FEATURES, GOSS = 1, 2, 3   # the reference's stream ids
+BAG, FEATURES, GOSS, TREE = 1, 2, 3, 4   # the reference's stream ids
+NODE_FEATURES = 101     # a tree's per-node feature stream, before the level
 
 
 def _mul32(x, c: int):
@@ -188,3 +195,36 @@ def goss_mult(g: torch.Tensor, draw_: torch.Tensor,
     small_keep = draw_ < (cfg.other_rate / max(1.0 - cfg.top_rate, 1e-12))
     amplify = (1.0 - cfg.top_rate) / max(cfg.other_rate, 1e-12)
     return torch.where(big, 1.0, torch.where(small_keep, amplify, 0.0))
+
+
+def tree_keys(cfg, cls: int, it):
+    """The keys of class ``cls``'s tree at iteration ``it``, which its
+    per-level draws extend."""
+    return (cfg.seed, TREE + cls, cfg.extra_seed, it)
+
+
+def extra_bins(draw_: torch.Tensor, b: int) -> torch.Tensor:
+    """(width, F) int64 candidate bins in [0, b - 1), one per node and
+    feature (``extra_trees``; the reference's ``randint(0, b - 1)``,
+    ``trainer.py:1658-1662``): ``floor(draw * (b - 1))``, the product
+    taken in float64, so exact and below b - 1."""
+    return (draw_.double() * (b - 1)).long()
+
+
+def node_feature_mask(draw_: torch.Tensor, feat_mask: Optional[torch.Tensor],
+                      fraction: float) -> torch.Tensor:
+    """(width, F) bool: each node's features under
+    ``feature_fraction_by_node`` (``trainer.py:1636-1653``). A node keeps
+    the ``keep_n`` features of the tree's (``feat_mask > 0``, every one
+    where None) whose (width, F) draws are largest, ``keep_n = max(1,
+    round_half_even(avail * fraction))`` with ``avail`` the tree's
+    feature count, a device sum: no host sync."""
+    width, f = draw_.shape
+    fm = (torch.ones(f, dtype=torch.bool, device=draw_.device)
+          if feat_mask is None else feat_mask > 0)
+    avail = fm.sum().to(torch.float32)
+    keep_n = torch.clamp_min(torch.round(avail * fraction), 1).long()
+    masked = torch.where(fm[None, :], draw_, -1.0)
+    ranked = torch.sort(masked, dim=1, descending=True).values
+    kth = torch.gather(ranked, 1, (keep_n - 1).reshape(1, 1).expand(width, 1))
+    return fm[None, :] & (masked >= kth)

@@ -11,7 +11,9 @@ It is the port of the JAX package's fused step (``_make_step_fn``,
   3. GOSS's multipliers (rows ranked by the sum over classes of |g|),
      folded into grad/hess and the row mask;
   4. per class c: ``trainer.build_tree`` on the column ``g[:, c]`` under
-     the row and feature masks, shrinkage (``node_value *
+     the row and feature masks (its per-level draws keyed by class c's
+     tree stream, ``sampling.tree_keys``; its histograms on the EFB
+     plan's bundled matrix where the fit has one), shrinkage (``node_value *
      learning_rate``; rf keeps its values), and the training and
      validation raw scores' column c updated in place;
   5. the metric row.
@@ -33,10 +35,13 @@ as the warm-up: it builds the kernels and runs their first-use set-up
 (``cudaFuncSetAttribute``, occupancy queries, the quantization
 threshold table) before capture, and advances the fit once, as a
 replay would. Captures are cached by what the graph bakes in (the
-shapes, the group layouts' shapes, the loop-relevant config, the
-histogram plane, subtraction, the draw function and the device) like the
-reference's ``_get_step_fn``; each fit copies its data, its group
-layouts included, into the cached buffers. Capture is
+shapes, the group layouts' shapes, the loop-relevant config (monotone
+constraints, ``extra_trees`` and ``feature_fraction_by_node``
+included), the histogram plane, subtraction, the EFB plan's
+``cache_key``, the draw function and the device) like the reference's
+``_get_step_fn``; each fit copies its data, its group layouts and its
+bundled matrix and unbundling maps included, into the cached
+buffers. Capture is
 thread-local, so serving threads of the same process keep launching.
 A capture or replay that fails raises; nothing falls back to the
 uncaptured step. A cached step holds its buffers and graph, never a
@@ -144,7 +149,7 @@ class Step:
 
     def __init__(self, cfg, binned, labels, weights, raw, valids, layout,
                  hist_quant: str, subtract: bool,
-                 grad_fn: Optional[Callable] = None):
+                 grad_fn: Optional[Callable] = None, efb=None):
         from mmlspark_tpu_torch.models.gbdt import trainer as T
 
         self.cfg = cfg
@@ -153,6 +158,9 @@ class Step:
         self.binned, self.labels, self.weights, self.raw = (
             binned, labels, weights, raw)
         self.layout = layout
+        # the EFB plan's bundled matrix and index maps
+        # (``trainer.plan_efb``), or None
+        self.efb = efb
         # [{"binned", "labels", "weights", "raw", "layout"}] per
         # validation set
         self.valids = valids
@@ -240,7 +248,9 @@ class Step:
                       (g[:, c].contiguous(), h[:, c].contiguous()))
             tree = T.build_tree(
                 self.binned, gc, hc, nl, cfg, cfg.max_bin, self.hist_quant,
-                self.subtract, valid=mask, feat_mask=feat_mask)
+                self.subtract, valid=mask, feat_mask=feat_mask,
+                key=(sampling.tree_keys(cfg, c, self.it)
+                     if cfg.draws_per_node else None), efb=self.efb)
             sf, tb, nv, cnt = tree[:4]
             bgl = tree[5] if cfg.has_categorical else None
             if not is_rf:
@@ -292,27 +302,40 @@ class Step:
     # -- the buffers of a cached step ---------------------------------------
     @classmethod
     def owning(cls, cfg, binned, labels, weights, raw, valids, layout,
-               hist_quant, subtract) -> "Step":
+               hist_quant, subtract, efb=None) -> "Step":
         """A step over buffers of its own, shaped as the given tensors,
         for capture and reuse by later fits (:meth:`load`)."""
         own = [{k: _like(v) for k, v in vs.items()} for vs in valids]
         return cls(cfg, torch.empty_like(binned), torch.empty_like(labels),
                    _like(weights), torch.empty_like(raw), own,
-                   _like(layout), hist_quant, subtract)
+                   _like(layout), hist_quant, subtract,
+                   efb=None if efb is None else
+                   {k: torch.empty_like(v) for k, v in efb.items()})
 
-    def load(self, binned, labels, weights, raw, valids, layout) -> None:
-        """Copy one fit's tensors, its group layouts included, into the
-        buffers."""
+    def load(self, binned, labels, weights, raw, valids, layout,
+             efb=None) -> None:
+        """Copy one fit's tensors, its group layouts and its EFB
+        matrix and maps included, into the buffers."""
         pairs = [(self.binned, binned), (self.labels, labels),
                  (self.weights, weights), (self.raw, raw),
                  (self.layout, layout)]
         for mine, theirs in zip(self.valids, valids):
             pairs += [(mine[k], theirs[k]) for k in mine]
+        if self.efb is not None:
+            pairs += [(self.efb[k], efb[k]) for k in self.efb]
         for dst, src in pairs:
             if isinstance(dst, tuple):
                 pairs += list(zip(dst, src))
             elif dst is not None:
-                dst.copy_(src)
+                _copy(dst, src)
+
+
+def _copy(dst, src) -> None:
+    """``dst.copy_(src)``; uint16 bin ids through int16's bits (torch
+    implements few ops on uint16)."""
+    if dst.dtype == torch.uint16:
+        dst, src = dst.view(torch.int16), src.view(torch.int16)
+    dst.copy_(src)
 
 
 def _like(v):
@@ -331,22 +354,26 @@ def _shapes(v):
 
 
 def _cache_key(cfg, binned, weights, valids, hist_quant, subtract,
-               layout=None):
-    return (binned.device, tuple(binned.shape), weights is None,
+               layout=None, efb_key=None):
+    return (binned.device, tuple(binned.shape), binned.dtype,
+            weights is None,
             tuple((vs["binned"].shape[0], vs["weights"] is None,
                    _shapes(vs.get("layout"))) for vs in valids),
             _loop_only(cfg), hist_quant, subtract, sampling.draw,
-            _shapes(layout))
+            _shapes(layout), efb_key)
 
 
 def open_step(cfg, binned, labels, weights, raw, valids, *,
               layout=None, lr: float,
               base: float, hist_quant: str, subtract: bool,
               custom_objective: Optional[Callable] = None,
-              capture: bool = True) -> Step:
+              capture: bool = True, efb=None,
+              efb_key: Optional[str] = None) -> Step:
     """The step of one fit over the given device tensors (``raw`` and
     each validation set's ``"raw"`` are its starting scores; ``layout``
-    and each set's ``"layout"`` its group layouts, or None).
+    and each set's ``"layout"`` its group layouts, or None; ``efb`` the
+    EFB plan's bundled matrix and maps, ``efb_key`` the plan's
+    ``cache_key``).
 
     On the card, a named objective with ``capture`` on gets a captured
     step: the cached one for this shape and config (its buffers loaded
@@ -367,10 +394,10 @@ def open_step(cfg, binned, labels, weights, raw, valids, *,
         # caller's arrays (a tensor from numpy shares its memory)
         st = Step(cfg, binned, labels, weights, raw.clone(),
                   [{**vs, "raw": vs["raw"].clone()} for vs in valids],
-                  layout, hist_quant, subtract, grad_fn)
+                  layout, hist_quant, subtract, grad_fn, efb=efb)
     else:
         key = _cache_key(cfg, binned, weights, valids, hist_quant, subtract,
-                         layout)
+                         layout, efb_key)
         with _cache_lock:
             st = _cache.get(key)
             if st is not None and st.lock.acquire(blocking=False):
@@ -379,13 +406,13 @@ def open_step(cfg, binned, labels, weights, raw, valids, *,
                 st = None   # none, or in use by a fit on another thread
         if st is None:
             st = Step.owning(cfg, binned, labels, weights, raw, valids,
-                             layout, hist_quant, subtract)
+                             layout, hist_quant, subtract, efb)
             st.key = key
             st.lock.acquire()
         st.captured = True
     try:
         if captured:
-            st.load(binned, labels, weights, raw, valids, layout)
+            st.load(binned, labels, weights, raw, valids, layout, efb)
         st.lr.fill_(lr)
         st.base.fill_(base)
     except BaseException:

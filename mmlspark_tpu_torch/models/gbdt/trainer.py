@@ -10,8 +10,25 @@ What this slice runs (and the JAX trainer it mirrors, file
     on the card, their plain versions on the CPU), numeric split
     finding (``_find_numeric_splits``) and row routing — the
     ``simple_numeric`` branch of ``make_build_tree``;
+  - bin ids: uint8 up to 256 bins, uint16 up to 65,536 (``max_bin``;
+    ``binned_ingest_dtype``), through both histogram kernels, the
+    routing and the trees' scoring; past 65,536 ``max_bin`` raises
+    (ROADMAP A7);
+  - exclusive feature bundling (``ops/efb.py``, ``MMLSPARK_TORCH_EFB``):
+    planned where the reference plans it (no categorical features), the
+    bundled matrix beside the original; histograms read the bundled one
+    and are unbundled (``_unbundle_hist``) before split finding, so the
+    trees name original features;
+  - the general branch of ``make_build_tree`` (``_find_general_splits``)
+    for categorical features, monotone constraints (the "basic" method:
+    splits whose child values go against a constrained feature's
+    direction are refused, child values are clamped into their parent's
+    bounds and a constrained split's children meet at the midpoint),
+    ``extra_trees`` (one random candidate bin per node and feature) and
+    ``feature_fraction_by_node`` (a feature subset per node, drawn from
+    the tree's);
   - categorical features (``categorical_features``): the categorical
-    branch of ``make_build_tree`` (``_find_categorical_splits``: the
+    branch of ``make_build_tree`` (``_find_general_splits``: the
     bins sorted by grad / (hess + cat_smooth), a prefix scan under
     ``lambda_l2 + cat_l2`` and ``max_cat_threshold``, one-vs-rest where a
     node uses at most ``max_cat_to_onehot`` categories), each split's
@@ -87,11 +104,16 @@ from mmlspark_tpu_torch.core.faults import fault_point
 from mmlspark_tpu_torch.core.timer import InstrumentationMeasures
 from mmlspark_tpu_torch.models.gbdt import metrics as metrics_mod
 from mmlspark_tpu_torch.models.gbdt import objectives as obj_mod
+from mmlspark_tpu_torch.models.gbdt import sampling
 from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays
 from mmlspark_tpu_torch.models.gbdt.hist_cuda import (
+    BIN_DTYPES,
+    MAX_BINS,
+    bin_ids,
     level_histogram,
     level_histogram_quant,
 )
+from mmlspark_tpu_torch.ops import efb as efb_mod
 from mmlspark_tpu_torch.ops.ingest import binned_ingest_dtype
 from mmlspark_tpu_torch.parallel import resilience
 
@@ -169,6 +191,12 @@ class TrainConfig:
                                tuple(int(i) for i in cat))
         elif isinstance(cat, tuple):
             object.__setattr__(self, "categorical_features", cat)
+        mono = self.monotone_constraints
+        if isinstance(mono, (int, np.integer)):
+            object.__setattr__(self, "monotone_constraints", (int(mono),))
+        elif isinstance(mono, (list, np.ndarray)):
+            object.__setattr__(self, "monotone_constraints",
+                               tuple(int(i) for i in mono))
         # as the JAX package's: eval_at stays scalar-or-tuple, label_gain
         # becomes a tuple of floats
         if isinstance(self.eval_at, list):
@@ -191,6 +219,23 @@ class TrainConfig:
         return bool(self.categorical_features)
 
     @property
+    def has_monotone(self) -> bool:
+        return bool(np.any(self.monotone_constraints))
+
+    @property
+    def draws_per_node(self) -> bool:
+        """Whether trees draw per level: ``extra_trees``' candidate bins
+        or ``feature_fraction_by_node``'s node features."""
+        return self.extra_trees or self.feature_fraction_by_node < 1.0
+
+    @property
+    def general_split(self) -> bool:
+        """Whether split finding takes the reference's general branch
+        (``make_build_tree``'s ``simple_numeric`` is its negation)."""
+        return (self.has_categorical or self.has_monotone
+                or self.draws_per_node)
+
+    @property
     def effective_depth(self) -> int:
         # enough depth for num_leaves leaves, capped by max_depth if set
         need = max(1, math.ceil(math.log2(max(self.num_leaves, 2))))
@@ -204,10 +249,6 @@ class TrainConfig:
 # (boosting_type: dart only; gbdt, goss and rf run).
 _LATER = {
     "boosting_type": "A7 (GBDT breadth: dart)",
-    "feature_fraction_by_node":
-        "A7 (GBDT breadth: feature_fraction_by_node)",
-    "monotone_constraints": "A7 (GBDT breadth: monotone constraints)",
-    "extra_trees": "A7 (GBDT breadth: extra_trees)",
     "tree_learner": "A8 (multi-device GBDT)",
 }
 _DEFAULTS = {fl.name: fl.default for fl in fields(TrainConfig)}
@@ -217,17 +258,19 @@ def check_supported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for any setting outside this slice."""
     for name, later in _LATER.items():
         value = getattr(cfg, name)
-        default = _DEFAULTS[name]
-        if name == "monotone_constraints":
-            off = not np.any(value)
-        elif name == "boosting_type":
+        if name == "boosting_type":
             off = value in ("gbdt", "goss", "rf")
         else:
-            off = value == default
+            off = value == _DEFAULTS[name]
         if not off:
             raise NotImplementedError(
                 f"TrainConfig.{name}={value!r} is not in the port yet "
                 f"(ROADMAP {later})")
+    if cfg.max_bin > MAX_BINS:
+        # the reference's int32 bin ids
+        raise NotImplementedError(
+            f"max_bin={cfg.max_bin} needs int32 bin ids; the level-histogram "
+            f"kernels take uint16 ids, at most {MAX_BINS} bins (ROADMAP A7)")
     if (cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0) \
             and cfg.objective != "binary":
         raise ValueError(
@@ -320,7 +363,9 @@ class TrainResult:
     booster: BoosterArrays
     evals: List[Dict[str, float]] = field(default_factory=list)
     best_iteration: int = -1
-    # what ran: {"hist_quant": "off"|"q16"|"q8", "subtract": bool}
+    # what ran: {"hist_quant": "off"|"q16"|"q8", "subtract": bool,
+    # "efb_bundles": bundles of the EFB plan (0: none),
+    # "efb_bundled_features": the features in them}
     hist_stats: Dict[str, object] = field(default_factory=dict)
     # the step: {"captured": bool (replayed as a CUDA graph), "capture_s":
     # the seconds this fit spent capturing, None where it made none}
@@ -461,27 +506,30 @@ def _derive_sibling_hist(hist_small, prev_hist, prev_split, prev_ss):
 
 def _smooth(value, w, parent):
     """Path smoothing, ``value * w + parent * (1 - w)``, rounded as the
-    fused multiply-add ``fma(parent, 1 - w, value * w)`` that XLA makes
-    of the JAX package's expression. The float64 product is exact and
-    the float64 sum rounds far below a float32 ulp, so the one float32
-    rounding is the fused op's (barring a sum exactly on a midpoint)."""
+    fused multiply-add XLA's CPU backend makes of the JAX package's
+    expression, ``fma(parent, 1 - w, value * w)``. The float64 product is
+    exact and the float64 sum rounds far below a float32 ulp, so the one
+    float32 rounding is the fused op's (barring a sum exactly on a
+    midpoint). Where monotone bounds follow it, XLA fuses the other
+    product at some nodes (ROADMAP C19): those values lie within two
+    float32 ulps of the reference's."""
     return (parent.double() * (1.0 - w).double()
             + (value * w).double()).float()
 
 
-def _find_numeric_splits(hist, feat_mask, remaining, parent_value, *, b,
+def _find_numeric_splits(hist, fmask, remaining, parent_value, *, b,
                          lam1, lam2, min_child, min_hess, min_gain,
                          path_smooth, max_delta_step):
     """Numeric split finding for one level from the (width, F, B, 3)
     histogram: ordered cumulative scan, first-max best split per node
-    over the features with ``feat_mask > 0`` (all where None; the others
-    get gain -inf, as the reference's ``node_fmask``), leaf-budget
-    ranking and child values.
+    over the features ``fmask`` allows (a (1, F) bool, all where None;
+    the others get gain -inf, as the reference's ``node_fmask``),
+    leaf-budget ranking and child values.
 
     Returns (do_split, best_feat, best_bin, lval, rval, left_stats,
     right_stats, remaining, smaller_side); ``smaller_side`` is 0 where
     the left child holds no more rows than the right, else 1."""
-    gain, _ = _numeric_gains(hist, feat_mask, b=b, lam1=lam1, lam2=lam2,
+    gain, _ = _numeric_gains(hist, fmask, b=b, lam1=lam1, lam2=lam2,
                              min_child=min_child, min_hess=min_hess,
                              min_gain=min_gain)
     do_split, best_feat, best_bin, remaining = _best_splits(gain, remaining,
@@ -495,28 +543,38 @@ def _find_numeric_splits(hist, feat_mask, remaining, parent_value, *, b,
             right_stats, remaining, smaller_side)
 
 
-def _numeric_gains(hist, feat_mask, *, b, lam1, lam2, min_child, min_hess,
-                   min_gain):
-    """(width, F, B) gain of every ordered split ``bin <= t`` (-inf where
-    a guard fails, the feature is masked, or t is the last bin), and the
-    (width, F, 1, 3) totals."""
+def _numeric_gains(hist, fmask, *, b, lam1, lam2, min_child, min_hess,
+                   min_gain, mono=None, rand_bin=None):
+    """(width, F, B) gain of every ordered split ``bin <= t``, and the
+    (width, F, 1, 3) totals. The gain is -inf where a guard fails, where
+    ``fmask`` ((1 or width, F) bool, or None) keeps the node off the
+    feature, where t is the last bin, where the children's values go
+    against the feature's direction in ``mono`` ((F,) float32 of -1, 0,
+    +1: the monotone rejection, ``mono * (val_r - val_l) >= 0``), and
+    where t is not the node's candidate bin ``rand_bin`` ((width, F),
+    ``extra_trees``)."""
     dev = hist.device
     cum = torch.cumsum(hist, dim=2)              # left stats per bin
     tot = cum[:, :, -1:, :]
     gl, hl, cl = cum[..., 0], cum[..., 1], cum[..., 2]
     gt, ht, ct = tot[..., 0], tot[..., 1], tot[..., 2]
     gr, hr, cr = gt - gl, ht - hl, ct - cl
-    _, score_l = _leaf_objective_impl(gl, hl, lam1, lam2)
-    _, score_r = _leaf_objective_impl(gr, hr, lam1, lam2)
+    val_l, score_l = _leaf_objective_impl(gl, hl, lam1, lam2)
+    val_r, score_r = _leaf_objective_impl(gr, hr, lam1, lam2)
     _, score_p = _leaf_objective_impl(gt, ht, lam1, lam2)
     gain = 0.5 * (score_l + score_r - score_p)
     ok = ((cl >= min_child) & (cr >= min_child)
           & (hl >= min_hess) & (hr >= min_hess)
           & (gain > min_gain))
-    if feat_mask is not None:
-        ok &= (feat_mask > 0)[None, :, None]
+    if fmask is not None:
+        ok &= fmask[:, :, None]
     # last bin can't split (right side empty by construction)
-    ok &= torch.arange(b, device=dev)[None, None, :] < b - 1
+    bins = torch.arange(b, device=dev)[None, None, :]
+    ok &= bins < b - 1
+    if mono is not None:
+        ok &= mono[None, :, None] * (val_r - val_l) >= 0
+    if rand_bin is not None:
+        ok &= bins == rand_bin[..., None]
     return torch.where(ok, gain, -torch.inf), tot
 
 
@@ -570,14 +628,16 @@ def _children(hist, best_feat, left_mask, parent_value, *, lam1, lam2,
     return lval, rval, left_stats, right_stats, smaller_side
 
 
-def _find_categorical_splits(hist, feat_mask, remaining, parent_value,
-                             is_cat, cfg, *, b, lam1, lam2, min_child,
-                             min_hess, min_gain, path_smooth,
-                             max_delta_step):
-    """Split finding for one level of a fit with categorical features
-    (``is_cat``, (F,) bool): the categorical branch of the reference's
-    ``make_build_tree``. Numeric features gain as in
-    ``_find_numeric_splits``; a categorical feature's used bins (rows
+def _find_general_splits(hist, fmask, remaining, parent_value, is_cat,
+                         cfg, *, b, lam1, lam2, min_child, min_hess,
+                         min_gain, path_smooth, max_delta_step, mono=None,
+                         rand_bin=None):
+    """Split finding for one level on the general branch of the
+    reference's ``make_build_tree``: fits with categorical features
+    (``is_cat``, (F,) bool, or None), monotone constraints (``mono``),
+    ``extra_trees`` (``rand_bin``) or a feature subset per node
+    (``fmask``, (1 or width, F) bool). Numeric features gain as in
+    ``_numeric_gains``. A categorical feature's used bins (rows
     present, never the missing bin 0) are sorted by grad / (hess +
     cat_smooth) (stable: ties and the unused bins, at +inf, keep bin
     order), those of at least ``min_data_per_group`` rows scanned as
@@ -589,16 +649,28 @@ def _find_categorical_splits(hist, feat_mask, remaining, parent_value,
     rval, left_stats, right_stats, remaining, smaller_side):
     ``left_mask`` (width, B) the bins each chosen split sends left,
     ``best_bin`` a categorical split's prefix length - 1 (sorted scan) or
-    its category's bin (one-vs-rest)."""
+    its category's bin (one-vs-rest). The children's values are before
+    the monotone clamp (``build_tree`` applies it)."""
     dev = hist.device
-    gain, tot = _numeric_gains(hist, feat_mask, b=b, lam1=lam1, lam2=lam2,
+    gain, tot = _numeric_gains(hist, fmask, b=b, lam1=lam1, lam2=lam2,
                                min_child=min_child, min_hess=min_hess,
-                               min_gain=min_gain)
-    gt, ht, ct = tot[..., 0], tot[..., 1], tot[..., 2]
-    fmask = (torch.ones_like(is_cat) if feat_mask is None
-             else feat_mask > 0)[None, :, None]
-    g_b, h_b, c_b = hist[..., 0], hist[..., 1], hist[..., 2]
+                               min_gain=min_gain, mono=mono,
+                               rand_bin=rand_bin)
     bins = torch.arange(b, device=dev)
+    if is_cat is None:
+        do_split, best_feat, best_bin, remaining = _best_splits(
+            gain, remaining, b)
+        chosen_cat = torch.zeros_like(do_split)
+        left_mask = bins[None, :] <= best_bin[:, None]
+        lval, rval, left_stats, right_stats, smaller_side = _children(
+            hist, best_feat, left_mask, parent_value, lam1=lam1, lam2=lam2,
+            path_smooth=path_smooth, max_delta_step=max_delta_step)
+        return (do_split, best_feat, best_bin, left_mask, chosen_cat, lval,
+                rval, left_stats, right_stats, remaining, smaller_side)
+    gt, ht, ct = tot[..., 0], tot[..., 1], tot[..., 2]
+    fmask = (torch.ones_like(is_cat)[None, :] if fmask is None
+             else fmask)[:, :, None]
+    g_b, h_b, c_b = hist[..., 0], hist[..., 1], hist[..., 2]
     used = (c_b > 0) & (bins > 0)[None, None, :]
     used_sorted = used & (c_b >= float(max(cfg.min_data_per_group, 1)))
     ratio = torch.where(used_sorted, g_b / (h_b + cfg.cat_smooth), torch.inf)
@@ -658,21 +730,67 @@ def _find_categorical_splits(hist, feat_mask, remaining, parent_value,
             left_stats, right_stats, remaining, smaller_side)
 
 
+def _unbundle_hist(hb, maps, f: int, b: int):
+    """The (width, F, B, 3) histogram of the original features from the
+    (width, F_bundled, B, 3) histogram of an EFB-bundled matrix
+    (``ops/efb.py``; the reference's ``_unbundle_hist``): pass-through
+    columns copy over, bundled slots scatter to their (feature, bin), and
+    each bundled member's default bin is the node total (from bundled
+    column 0: every live row lies in one of its bins) minus the member's
+    present bins (its scattered slots: a run of the scatter entries,
+    summed as differences of one running sum). Both are taken in float64
+    and the difference rounded once, so counts are exact and grad/hess
+    lie within float32 rounding of the direct histogram's.
+    ``maps``: ``efb.device_maps``."""
+    width = hb.shape[0]
+    hist = torch.zeros((width, f, b, 3), dtype=hb.dtype, device=hb.device)
+    if maps["pt_col"].numel():
+        hist[:, maps["pt_feat"]] = hb[:, maps["pt_col"]]
+    slots = hb[:, maps["sc_col"], maps["sc_bin"]]            # (width, S, 3)
+    if maps["sc_col"].numel():
+        hist[:, maps["sc_feat"], maps["sc_obin"]] = slots
+    if maps["md_feat"].numel():
+        total = hb[:, 0].double().sum(dim=1)                 # (width, 3)
+        run = torch.nn.functional.pad(slots.double().cumsum(dim=1),
+                                      (0, 0, 1, 0))
+        present = run[:, maps["md_end"]] - run[:, maps["md_start"]]
+        hist[:, maps["md_feat"], maps["md_bin"]] = \
+            (total[:, None, :] - present).float()
+    return hist
+
+
+def _bins_at(binned, feat):
+    """(N,) bin ids of each row's feature ``feat`` (N,) int64: uint8 as
+    gathered, uint16 as int64 through its int16 view (torch gathers no
+    uint16)."""
+    if binned.dtype == torch.uint16:
+        return torch.gather(binned.view(torch.int16), 1,
+                            feat[:, None])[:, 0].long() & 0xFFFF
+    return torch.gather(binned, 1, feat[:, None])[:, 0]
+
+
 def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
                total_bins: int, hist_quant: str = "off",
-               subtract: bool = False, valid=None, feat_mask=None):
-    """One depthwise tree over the (N, F) uint8 ``binned`` matrix with
-    (N,) float32 ``grad`` / ``hess``. ``hist_quant`` (off|q16|q8) picks
-    the histogram plane and ``subtract`` the sibling trick (see the
-    module note). ``valid``: an (N,) float32 0/1 row mask (bagging and
-    GOSS; every row where None), ``feat_mask``: an (F,) float32 0/1 mask
-    of the features the tree may split on (all where None), as the
-    reference builder's (``make_build_tree``). Returns the full-layout
-    (split_feature int32, threshold_bin int32, node_value float32,
-    node_count float32) device tensors, each (2^(D+1)-1,); for a fit with
-    categorical features also (decision_type int8 (slots,), bin_go_left
-    bool (slots, B): the bins each split sends left, by which its rows
-    are routed; ``_find_categorical_splits``), as the reference's
+               subtract: bool = False, valid=None, feat_mask=None, key=None,
+               efb=None):
+    """One depthwise tree over the (N, F) uint8 or uint16 ``binned``
+    matrix with (N,) float32 ``grad`` / ``hess``. ``hist_quant``
+    (off|q16|q8) picks the histogram plane and ``subtract`` the sibling
+    trick (see the module note). ``valid``: an (N,) float32 0/1 row mask
+    (bagging and GOSS; every row where None), ``feat_mask``: an (F,)
+    float32 0/1 mask of the features the tree may split on (all where
+    None), as the reference builder's (``make_build_tree``). ``key``:
+    the tree's stream keys (``sampling.tree_keys``), which
+    ``extra_trees`` and ``feature_fraction_by_node`` draw from per level.
+    ``efb``: an EFB plan's bundled matrix (``"binned"``, (N, F_bundled)
+    of ``binned``'s dtype) and index maps (``efb.device_maps``): the
+    histograms read the bundled matrix and are unbundled
+    (``_unbundle_hist``), rows route on ``binned``. Returns the
+    full-layout (split_feature int32, threshold_bin int32, node_value
+    float32, node_count float32) device tensors, each (2^(D+1)-1,); for a
+    fit with categorical features also (decision_type int8 (slots,),
+    bin_go_left bool (slots, B): the bins each split sends left, by which
+    its rows are routed; ``_find_general_splits``), as the reference's
     ``make_build_tree`` returns them."""
     dev = binned.device
     n, f = binned.shape
@@ -686,6 +804,9 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
                     min_gain=cfg.min_gain_to_split,
                     path_smooth=cfg.path_smooth,
                     max_delta_step=cfg.max_delta_step)
+    if cfg.draws_per_node and key is None:
+        raise ValueError("extra_trees / feature_fraction_by_node need the "
+                         "tree's stream keys (key)")
 
     node = torch.zeros(n, dtype=torch.int64, device=dev)   # full-layout slot
     done = torch.zeros(n, dtype=torch.bool, device=dev)    # settled in a leaf
@@ -694,6 +815,7 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
     node_value = torch.zeros(num_slots, dtype=torch.float32, device=dev)
     node_count = torch.zeros(num_slots, dtype=torch.float32, device=dev)
     has_cat = cfg.has_categorical
+    is_cat = None
     if has_cat:
         # filled slot by slot with a scalar fill: no host-to-device copy
         # inside a capture
@@ -704,6 +826,22 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
         bin_go_left = torch.zeros((num_slots, b), dtype=torch.bool,
                                   device=dev)
         num_bits = 6 if cfg.zero_as_missing else 10
+    mono = None
+    if cfg.has_monotone:
+        if len(cfg.monotone_constraints) > f:
+            raise ValueError(
+                f"monotone_constraints has {len(cfg.monotone_constraints)} "
+                f"entries but there are only {f} features")
+        # the features' directions by scalar fills, as is_cat; each
+        # slot's output bounds (the "basic" method: the children of a
+        # constrained split may not cross its midpoint)
+        mono = torch.zeros(f, dtype=torch.float32, device=dev)
+        for slot, v in enumerate(cfg.monotone_constraints):
+            if v:
+                mono[slot:slot + 1].fill_(float(v))
+        node_lower = torch.full((num_slots,), -torch.inf, device=dev)
+        node_upper = torch.full((num_slots,), torch.inf, device=dev)
+    fmask = None if feat_mask is None else (feat_mask > 0)[None, :]
 
     # every row valid: grad * 1 and hess * 1 are the same bits
     grad_v, hess_v = ((grad, hess) if valid is None else
@@ -729,12 +867,18 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
     # filled on the device: a host->device copy would sync every tree
     remaining = torch.full((), num_leaves - 1, dtype=torch.int64, device=dev)
     prev_hist = prev_split = prev_ss = None
+    hist_mat = binned if efb is None else efb["binned"]
+    f_hist = hist_mat.shape[1]
 
     def hist_of(live, local, width):
         if hist_quant != "off":
-            return level_histogram_quant(binned, grad_q, hess_q, live, local,
-                                         width, f, b, gscale_inv, hscale_inv)
-        return level_histogram(binned, grad, hess, live, local, width, f, b)
+            hist = level_histogram_quant(hist_mat, grad_q, hess_q, live,
+                                         local, width, f_hist, b, gscale_inv,
+                                         hscale_inv)
+        else:
+            hist = level_histogram(hist_mat, grad, hess, live, local, width,
+                                   f_hist, b)
+        return hist if efb is None else _unbundle_hist(hist, efb, f, b)
 
     for d in range(depth):
         level_start = 2 ** d - 1
@@ -766,21 +910,59 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
                                   cfg.max_delta_step)
             node_value[0] = rv0
             node_count[0] = tot0[2]
-        if has_cat:
+        parent_value = node_value[level_start:kids]
+        if cfg.general_split:
+            node_mask = fmask
+            if cfg.feature_fraction_by_node < 1.0:
+                node_mask = sampling.node_feature_mask(
+                    sampling.draw(key + (sampling.NODE_FEATURES, d),
+                                  width * f, dev).reshape(width, f),
+                    feat_mask, cfg.feature_fraction_by_node)
+            rand_bin = None
+            if cfg.extra_trees:
+                rand_bin = sampling.extra_bins(
+                    sampling.draw(key + (d,), width * f, dev).reshape(
+                        width, f), b)
             (do_split, best_feat, best_bin, left_mask, chosen_cat, lval, rval,
              left_stats, right_stats, remaining, small_side) = \
-                _find_categorical_splits(
-                    hist, feat_mask, remaining, node_value[level_start:kids],
-                    is_cat, cfg, **split_kw)
-            decision_type[level_start:kids] = torch.where(
-                chosen_cat, 1, torch.where(do_split, num_bits, 0)).to(
-                    torch.int8)
-            bin_go_left[level_start:kids] = left_mask & do_split[:, None]
+                _find_general_splits(
+                    hist, node_mask, remaining, parent_value, is_cat, cfg,
+                    mono=mono, rand_bin=rand_bin, **split_kw)
+            if has_cat:
+                decision_type[level_start:kids] = torch.where(
+                    chosen_cat, 1, torch.where(do_split, num_bits, 0)).to(
+                        torch.int8)
+                bin_go_left[level_start:kids] = left_mask & do_split[:, None]
+            else:
+                left_mask = None         # numeric splits route by threshold
+            if mono is not None:
+                # child values into the parent's bounds; a constrained
+                # split's children meet at the midpoint (numeric splits
+                # only: a categorical one constrains nothing)
+                p_lo = node_lower[level_start:kids]
+                p_hi = node_upper[level_start:kids]
+                lval = torch.minimum(torch.maximum(lval, p_lo), p_hi)
+                rval = torch.minimum(torch.maximum(rval, p_lo), p_hi)
+                c_mono = mono[best_feat] * (~chosen_cat)
+                mid = (lval + rval) / 2.0
+                up, down = c_mono > 0, c_mono < 0
+                bounds = (
+                    (node_lower, torch.where(down, torch.maximum(p_lo, mid),
+                                             p_lo),
+                     torch.where(up, torch.maximum(p_lo, mid), p_lo), p_lo),
+                    (node_upper, torch.where(up, torch.minimum(p_hi, mid),
+                                             p_hi),
+                     torch.where(down, torch.minimum(p_hi, mid), p_hi),
+                     p_hi))
+                for slots, left, right, parent in bounds:
+                    slots[kids:kids + 2 * width] = torch.stack(
+                        [torch.where(do_split, left, parent),
+                         torch.where(do_split, right, parent)],
+                        dim=1).reshape(-1)
         else:
             (do_split, best_feat, best_bin, lval, rval, left_stats,
              right_stats, remaining, small_side) = _find_numeric_splits(
-                hist, feat_mask, remaining, node_value[level_start:kids],
-                **split_kw)
+                hist, fmask, remaining, parent_value, **split_kw)
             left_mask = None
         if subtract:
             prev_hist, prev_split, prev_ss = hist, do_split, small_side
@@ -798,7 +980,7 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
             0.0).reshape(-1)
         # --- route rows; rows already done stay where they are ---------
         nfeat = best_feat[local]
-        nbin = torch.gather(binned, 1, nfeat[:, None])[:, 0]
+        nbin = _bins_at(binned, nfeat)
         nsplit = do_split[local]
         go_left = (left_mask[local, nbin.long()] if left_mask is not None
                    else nbin.to(torch.int64) <= best_bin[local])
@@ -822,7 +1004,7 @@ def _predict_tree(sf, tb, nv, binned, depth: int, bin_go_left=None):
     for _ in range(depth):
         feat = sf[nodev]
         is_leaf = feat < 0
-        fb = torch.gather(binned, 1, torch.clamp_min(feat, 0)[:, None])[:, 0]
+        fb = _bins_at(binned, torch.clamp_min(feat, 0))
         left = (bin_go_left[nodev, fb.long()] if bin_go_left is not None
                 else fb.long() <= tb[nodev])
         child = torch.where(left, 2 * nodev + 1, 2 * nodev + 2)
@@ -850,14 +1032,49 @@ def warm_start_scores(init_model: Optional[BoosterArrays], x: np.ndarray,
 
 
 def _binned_to_device(binned, total_bins: int, dev: torch.device):
-    """(N, F) bin ids -> uint8 on ``dev`` (one copy at the narrowest
-    dtype); ids outside [0, max_bin) raise."""
-    if binned.shape[0] and (int(binned.min()) < 0
-                            or int(binned.max()) >= total_bins):
+    """(N, F) bin ids (numpy, or a tensor on any device) -> uint8 (at most
+    256 bins) or uint16 (at most 65,536) on ``dev``, one copy at the
+    narrowest dtype (``binned_ingest_dtype``); ids outside [0, max_bin)
+    raise. uint16 crosses as int16's bits: torch converts little to or
+    from uint16."""
+    wide = binned_ingest_dtype(total_bins) == np.uint16
+    if isinstance(binned, torch.Tensor):
+        ids = bin_ids(binned) if binned.dtype in BIN_DTYPES else binned.long()
+        lo = int(ids.min()) if binned.shape[0] else 0
+        hi = int(ids.max()) if binned.shape[0] else -1
+    else:
+        lo = int(binned.min()) if binned.shape[0] else 0
+        hi = int(binned.max()) if binned.shape[0] else -1
+    if lo < 0 or hi >= total_bins:
         raise ValueError(f"bin ids must lie in [0, max_bin={total_bins})")
-    if isinstance(binned, np.ndarray):
-        binned = binned.astype(np.uint8, copy=False)
-    return torch.as_tensor(binned, device=dev).to(torch.uint8).contiguous()
+    if isinstance(binned, torch.Tensor):
+        if wide:
+            bits = (binned.view(torch.int16) if binned.dtype == torch.uint16
+                    else ids.to(torch.int16))
+            return bits.to(dev).contiguous().view(torch.uint16)
+        return (binned if binned.dtype == torch.uint8
+                else ids.to(torch.uint8)).to(dev).contiguous()
+    if wide:
+        return torch.from_numpy(np.ascontiguousarray(
+            binned.astype(np.uint16, copy=False)).view(np.int16)).to(
+                dev).view(torch.uint16)
+    return torch.as_tensor(binned.astype(np.uint8, copy=False),
+                           device=dev).contiguous()
+
+
+def plan_efb(binned_d, cfg: TrainConfig):
+    """The fit's EFB plan where the reference makes one (a serial
+    depthwise fit without categorical features, ``trainer.py:2621-2630``;
+    the port has no other learner), under ``MMLSPARK_TORCH_EFB``, planned
+    and applied on the fit's device copy ``binned_d``: (plan or None,
+    {"binned": the bundled matrix beside ``binned_d``, and the plan's
+    index maps} or None)."""
+    plan = (None if cfg.has_categorical else efb_mod.plan_bundles(
+        binned_d, cfg.max_bin, mode=efb_mod.resolve_efb()))
+    if plan is None:
+        return None, None
+    return plan, {"binned": efb_mod.apply_plan(binned_d, plan),
+                  **efb_mod.device_maps(plan, binned_d.device)}
 
 
 def _f32(a, dev, shape=None):
@@ -968,8 +1185,11 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     ``device=None`` runs on the CUDA card (and raises without one);
     ``device="cpu"`` runs the plain PyTorch path. The histogram plane
     and subtraction follow ``MMLSPARK_TORCH_HIST_QUANT`` /
-    ``MMLSPARK_TORCH_HIST_SUB``, read once here; ``hist_stats`` records
-    what ran."""
+    ``MMLSPARK_TORCH_HIST_SUB``, and bundling ``MMLSPARK_TORCH_EFB``
+    (``plan_efb``), read once here; ``hist_stats`` records what ran.
+    Bin ids go to the device as uint8 up to ``max_bin=256``, else as
+    uint16; ``max_bin`` past 65,536 raises ``NotImplementedError``
+    (ROADMAP A7)."""
     from mmlspark_tpu_torch.models.gbdt import step as step_mod
 
     dev = resolve_device(device)
@@ -979,10 +1199,6 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     subtract = resolve_subtract()
     total_bins = cfg.max_bin
     depth = cfg.effective_depth
-    if binned_ingest_dtype(total_bins) != np.uint8:
-        raise NotImplementedError(
-            f"max_bin={total_bins} needs wider bin ids than uint8; the "
-            "level-histogram kernel takes <= 256 bins (ROADMAP A7)")
     n, num_f = binned.shape
     k = cfg.num_trees_per_iteration
     if cfg.objective == "lambdarank" and group_ids is None:
@@ -1008,8 +1224,10 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
                 else obj_mod.layout_to(obj_mod.make_group_layout(ids), dev))
 
     with measures.phase("dataPreparation"):
-        # the binned matrix goes to the device once, at the narrowest dtype
+        # the binned matrix goes to the device once, at the narrowest
+        # dtype; an EFB plan's bundled matrix beside it
         binned_d = _binned_to_device(binned, total_bins, dev)
+        efb_plan, efb_maps = plan_efb(binned_d, cfg)
         if init_model is not None:
             # continued training: keep the old model's base score and fit
             # on top of its raw scores
@@ -1074,7 +1292,8 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
         cfg, binned_d, labels_d, weights_d, raw, valids, layout=layout,
         lr=cfg.learning_rate, base=base_score, hist_quant=hist_quant,
         subtract=subtract, custom_objective=custom_objective,
-        capture=capture)
+        capture=capture, efb=efb_maps,
+        efb_key=None if efb_plan is None else efb_plan.cache_key)
     cached_graph = st.graph is not None
     try:
         it = 0
@@ -1117,8 +1336,13 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
                                 total_bins, depth, bin_upper, base_score,
                                 best_iter, init_model, masks, k)
     return TrainResult(booster=booster, evals=evals, best_iteration=best_iter,
-                       hist_stats={"hist_quant": hist_quant,
-                                   "subtract": subtract},
+                       hist_stats={
+                           "hist_quant": hist_quant, "subtract": subtract,
+                           "efb_bundles": (0 if efb_plan is None
+                                           else len(efb_plan.bundles)),
+                           "efb_bundled_features": (
+                               0 if efb_plan is None
+                               else efb_plan.n_bundled_features)},
                        step_stats={"captured": st.graph is not None,
                                    "capture_s": None if cached_graph
                                    else st.capture_s})

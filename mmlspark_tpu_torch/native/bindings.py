@@ -52,17 +52,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "level_hist": {
         # binned, grad, hess, live, local, local bytes, stats, counts,
         # offsets, order, acc, out, n, f, b, width, f_slice, num_slices,
-        # smem bytes, device, stream
+        # bin bytes, tile bins, tiles, smem bytes, device, stream
         "mmls_level_hist": ([_VP] * 5 + [_I] + [_VP] * 6 + [_LL]
-                            + [_I] * 7 + [_VP], _I),
+                            + [_I] * 10 + [_VP], _I),
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "level_hist_quant": {
         # binned, grad_q, hess_q, live, local, local bytes, stats, counts,
         # offsets, order, acc, out, gscale_inv, hscale_inv, qbits, n, f, b,
-        # width, f_slice, num_slices, smem bytes, window, device, stream
+        # width, f_slice, num_slices, bin bytes, tile bins, tiles, smem
+        # bytes, window, device, stream
         "mmls_level_hist_quant": ([_VP] * 5 + [_I] + [_VP] * 8 + [_I, _LL]
-                                  + [_I] * 8 + [_VP], _I),
+                                  + [_I] * 11 + [_VP], _I),
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attn": {

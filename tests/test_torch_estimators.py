@@ -561,21 +561,25 @@ def test_diabetes_l2_matches_sklearn_hgb():
 # --- what the slice does not take ----------------------------------------------
 
 @pytest.mark.parametrize("kind,params,item", [
-    # goss, rf, bagging and feature_fraction fit (tests/test_torch_step.py);
-    # beside a setting still outside the port they raise for that one
-    ("LightGBMClassifier", {"boostingType": "goss", "extraTrees": True},
-     "A7"),
+    # goss, rf, bagging and feature_fraction fit (tests/test_torch_step.py),
+    # and so do extraTrees, featureFractionByNode, monotoneConstraints and
+    # maxBin up to 65,536 (tests/test_torch_breadth.py); beside a setting
+    # still outside the port they raise for that one
+    ("LightGBMClassifier", {"boostingType": "goss", "extraTrees": True,
+                            "parallelism": "voting_parallel"}, "A8"),
     ("LightGBMClassifier", {"boostingType": "dart"}, "A7"),
     ("LightGBMClassifier", {"featureFraction": 0.5,
-                            "featureFractionByNode": 0.5}, "A7"),
-    ("LightGBMClassifier", {"featureFractionByNode": 0.5}, "A7"),
+                            "featureFractionByNode": 0.5,
+                            "boostingType": "dart"}, "A7"),
+    ("LightGBMClassifier", {"featureFractionByNode": 0.5,
+                            "boostingType": "dart"}, "A7"),
     ("LightGBMClassifier", {"baggingFraction": 0.5, "baggingFreq": 1,
                             "boostingType": "dart"}, "A7"),
     ("LightGBMClassifier", {"posBaggingFraction": 0.5,
                             "boostingType": "dart"}, "A7"),
-    ("LightGBMClassifier", {"extraTrees": True}, "A7"),
-    ("LightGBMClassifier", {"monotoneConstraints": [1, 0, 0, 0, 0, 0]},
-     "A7"),
+    ("LightGBMClassifier", {"extraTrees": True, "maxBin": 70_000}, "A7"),
+    ("LightGBMClassifier", {"monotoneConstraints": [1, 0, 0, 0, 0, 0],
+                            "parallelism": "feature_parallel"}, "A8"),
     ("LightGBMClassifier", {"parallelism": "voting_parallel"}, "A8"),
     ("LightGBMClassifier", {"parallelism": "feature_parallel"}, "A8"),
     ("LightGBMRegressor", {"passThroughArgs": "bagging_fraction=0.5 "

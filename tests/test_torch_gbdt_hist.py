@@ -185,7 +185,7 @@ def _cta_slice(cta, grid, f, f_slice):
 
 
 def _replay_kernel(binned, grad, hess, live, local, width, f, b, chunk,
-                   grid, f_slice):
+                   grid, f_slice, tile_bins=None):
     """numpy replay of level_hist.cu: the channels' exponents from their
     amax; the rows sorted by node (the partition, ``_replay_partition``,
     in 64-row segments); a persistent grid of
@@ -195,8 +195,11 @@ def _replay_kernel(binned, grad, hess, live, local, width, f, b, chunk,
     chunk in the kernel's warp and lane order), adding the rows' fixed-point
     terms into private int64 cells and flushing them into the int64 sums
     where the run leaves a node; then the dequantization ``float32(
-    float64(sum) * 2^-e)``. Returns the histogram, each row's visits per
-    slice, and the number of flushes."""
+    float64(sum) * 2^-e)``. With ``tile_bins`` (the uint16 instance) the
+    grid repeats once per tile of that many bins, each CTA's cells those
+    of its tile and its flush into the tile's sums; pairs of other tiles
+    are skipped. Returns the histogram, each row's visits per slice (and
+    tile), and the number of flushes."""
     order, offsets = _replay_partition(local, live, width, seg_rows=64)
     num_slices = -(-f // f_slice)
     x = np.stack([grad * live, hess * live, live], axis=-1)    # float32
@@ -206,12 +209,14 @@ def _replay_kernel(binned, grad, hess, live, local, width, f, b, chunk,
     acc = np.zeros((width, f, b, 3), np.int64)
     seen = np.zeros((num_slices, len(local)), np.int64)
     kept, flushes = int(offsets[width]), 0
-    for cta in range(grid):
+    tile = b if tile_bins is None else tile_bins
+    for (cta, t0) in ((c, t) for t in range(0, b, tile) for c in range(grid)):
+        bt = min(tile, b - t0)
         s, g0, g1, f0, fs = _cta_slice(cta, grid, f, f_slice)
         p = kept * (cta - g0) // (g1 - g0)
         p_end = kept * (cta - g0 + 1) // (g1 - g0)
         w = int(np.searchsorted(offsets[:width], p, side="right")) - 1
-        cells = np.zeros((fs, b, 3), np.int64)            # shared memory
+        cells = np.zeros((fs, bt, 3), np.int64)           # shared memory
         while p < p_end:
             seg_end = min(p_end, int(offsets[w + 1]))
             if seg_end > p:
@@ -220,8 +225,10 @@ def _replay_kernel(binned, grad, hess, live, local, width, f, b, chunk,
                     seen[s, rows] += 1
                     for j, fl in _chunk_pairs(len(rows), fs):
                         r = rows[j]
-                        cells[fl, binned[r, f0 + fl]] += terms[r]
-                acc[w, f0:f0 + fs] += cells                # the flush
+                        bin_ = int(binned[r, f0 + fl]) - t0
+                        if 0 <= bin_ < bt:                 # this tile's bin
+                            cells[fl, bin_] += terms[r]
+                acc[w, f0:f0 + fs, t0:t0 + bt] += cells    # the flush
                 cells[:] = 0
                 flushes += 1
                 p = seg_end
@@ -246,7 +253,7 @@ def _unpack(words):
 
 
 def _replay_quant_kernel(binned, gq, hq, live, local, width, f, b, gsi,
-                         hsi, chunk, grid, f_slice, window):
+                         hsi, chunk, grid, f_slice, window, tile_bins=None):
     """numpy replay of level_hist_quant.cu: the rows with live > 0 sorted
     by node (``_replay_partition`` in 64-row segments) and their packed
     words; a persistent grid of ``grid`` CTAs shared among the feature
@@ -255,9 +262,11 @@ def _replay_quant_kernel(binned, gq, hq, live, local, width, f, b, gsi,
     int32 cells (wrapping as the card's do) in three channel planes over
     (bin, lane), and flushing them, sign-extended, into the int64 sums
     where the run leaves a node or once one more chunk could pass
-    ``window`` rows; then ``float32(sum * float64(scale_inv))``. Returns
-    the histogram, each row's visits per slice, the number of flushes and
-    the largest magnitude a cell held between flushes."""
+    ``window`` rows; then ``float32(sum * float64(scale_inv))``. With
+    ``tile_bins`` the grid repeats per tile of bins, as in
+    ``_replay_kernel``. Returns the histogram, each row's visits per
+    slice (and tile), the number of flushes and the largest magnitude a
+    cell held between flushes."""
     order, offsets = _replay_partition(local, live, width, seg_rows=64,
                                        plane="quant")
     gw, hw = _unpack(_pack(gq, hq))
@@ -265,13 +274,15 @@ def _replay_quant_kernel(binned, gq, hq, live, local, width, f, b, gsi,
     acc = np.zeros((width, f, b, 3), np.int64)
     seen = np.zeros((num_slices, len(local)), np.int64)
     kept, flushes, most = int(offsets[width]), 0, 0
-    for cta in range(grid):
+    tile = b if tile_bins is None else tile_bins
+    for (cta, t0) in ((c, t) for t in range(0, b, tile) for c in range(grid)):
+        bt = min(tile, b - t0)
         s, g0, g1, f0, fs = _cta_slice(cta, grid, f, f_slice)
         p = kept * (cta - g0) // (g1 - g0)
         p_end = kept * (cta - g0 + 1) // (g1 - g0)
         w = int(np.searchsorted(offsets[:width], p, side="right")) - 1
-        cells = np.zeros((3, b, 32), np.int32)             # shared memory
-        exact = np.zeros((3, b, 32), np.int64)             # the same, unwrapped
+        cells = np.zeros((3, bt, 32), np.int32)            # shared memory
+        exact = np.zeros((3, bt, 32), np.int64)            # unwrapped
         since = 0
         for c0 in range(p, p_end, chunk):
             c1 = min(c0 + chunk, p_end)
@@ -285,15 +296,17 @@ def _replay_quant_kernel(binned, gq, hq, live, local, width, f, b, gsi,
                 seen[s, rows] += 1
                 ones = np.ones(len(rows), np.int32)
                 for lane in range(fs):
-                    bins = binned[rows, f0 + lane]
+                    bins = binned[rows, f0 + lane].astype(np.int64) - t0
+                    mine = (bins >= 0) & (bins < bt)       # this tile's bins
                     for c, v in enumerate((gw[rows], hw[rows], ones)):
-                        np.add.at(cells[c, :, lane], bins, v)
-                        np.add.at(exact[c, :, lane], bins, v)
+                        np.add.at(cells[c, :, lane], bins[mine], v[mine])
+                        np.add.at(exact[c, :, lane], bins[mine], v[mine])
                 since += seg_end - pos
                 pos = seg_end
                 if pos == node_end or pos == p_end or since > window - chunk:
                     most = max(most, int(np.abs(exact).max()))
-                    acc[w, f0:f0 + fs] += cells[:, :, :fs].transpose(2, 1, 0)
+                    acc[w, f0:f0 + fs, t0:t0 + bt] += \
+                        cells[:, :, :fs].transpose(2, 1, 0)
                     cells[:] = 0
                     exact[:] = 0
                     flushes += 1
@@ -758,3 +771,96 @@ def test_quant_feature_slices_fit_shared_memory(f, b):
         assert f_slice % 4 == 0
     if (f, b) == (28, 255):      # the bench shape: one slice
         assert (f_slice, num_slices) == (28, 1)
+
+
+# --- uint16 bin ids: tiles of bins -------------------------------------------
+
+def _u16_case(n, f, b, width, seed, integer_stats=True):
+    binned, grad, hess, live, local = _case(n, f, 255, width, seed=seed,
+                                            integer_stats=integer_stats)
+    rng = np.random.default_rng(seed + 1)
+    binned = rng.integers(0, b, size=(n, f)).astype(np.uint16)
+    binned[:3] = b - 1
+    return binned, grad, hess, live, local
+
+
+@pytest.mark.parametrize("n,f,b,width,chunk,grid,f_slice,tile_bins", [
+    (600, 5, 1023, 4, 32, 3, 4, 205),      # five tiles, two slices
+    (300, 27, 511, 2, 64, 2, 27, 171),     # odd F (byte-staged), three tiles
+    (257, 3, 700, 8, 16, 5, 1, 256),       # a short last tile
+    (100, 2, 65_536, 1, 64, 1, 2, 32_768),  # the widest ids
+])
+def test_tiled_walks_are_bitwise(n, f, b, width, chunk, grid, f_slice,
+                                 tile_bins):
+    """The uint16 instances' walks: every tile's CTAs visit every kept row
+    once per slice and add only their tile's bins, and the replayed tiles
+    give the plain version's bits, int64 cells on integer and on float
+    stats, int32 cells on quantized stats."""
+    tiles = -(-b // tile_bins)
+    for integer_stats in (True, False):
+        arrays = _u16_case(n, f, b, width, seed=n + f,
+                           integer_stats=integer_stats)
+        binned, grad, hess, live, local = arrays
+        got, seen, _ = _replay_kernel(*arrays, width, f, b, chunk, grid,
+                                      f_slice, tile_bins=tile_bins)
+        for per_slice in seen:
+            np.testing.assert_array_equal(
+                per_slice, tiles * (live != 0).astype(np.int64))
+        np.testing.assert_array_equal(got, _port(arrays, width, f, b))
+    gq, hq = grad.astype(np.int16) * 1000, hess.astype(np.int16) * 1000
+    got, seen, _, most = _replay_quant_kernel(
+        binned, gq, hq, live, local, width, f, b, 2.0 ** -3, 2.0 ** -5,
+        chunk, grid, f_slice, H.quant_window(16), tile_bins=tile_bins)
+    assert most < 2 ** 31
+    np.testing.assert_array_equal(got, H.level_histogram_quant(
+        *(torch.from_numpy(x) for x in (binned, gq, hq, live, local)),
+        width, f, b, 2.0 ** -3, 2.0 ** -5).numpy())
+
+
+@pytest.mark.parametrize("plan,smem", [(H.f32_plan, H.f32_smem_bytes),
+                                       (H.quant_plan, H.quant_smem_bytes)])
+@pytest.mark.parametrize("f,b", [(28, 257), (28, 511), (28, 1023),
+                                 (28, 4095), (27, 1023), (54, 1023),
+                                 (136, 1023), (1, 65_536), (28, 65_536),
+                                 (33, 300)])
+def test_uint16_plans_fit_and_cover_every_bin(plan, smem, f, b):
+    """On uint16 ids both kernels take slices of at most 32 features and
+    the fewest tiles of bins whose cells fit one CTA's shared memory
+    beside the slice's staging (two bytes an id, padded to a word), as
+    even as possible, covering B; the grid axis of tiles stays within
+    CUDA's 65,535."""
+    f_slice, num_slices, tile_bins, num_tiles = plan(f, b, 2)
+    assert f_slice <= 32 and f_slice * num_slices >= f
+    assert smem(f_slice, tile_bins, 2) <= H.SMEM_BYTES
+    assert tile_bins * num_tiles >= b > tile_bins * (num_tiles - 1)
+    assert num_tiles <= 65_535
+    if num_tiles > 1:                    # the fewest tiles that fit
+        wider = -(-b // (num_tiles - 1))
+        assert smem(f_slice, wider, 2) > H.SMEM_BYTES
+    if (f, b) == (28, 1023):             # the cases chip_smoke measures
+        assert (f_slice, num_tiles) == ((28, 5) if plan is H.f32_plan
+                                        else (28, 4))
+
+
+@pytest.mark.parametrize("f,b", [(28, 255), (54, 255), (136, 256), (7, 2)])
+def test_uint8_plans_are_one_tile_of_every_bin(f, b):
+    """uint8 ids keep the plans they had: the slices of
+    ``*_feature_slices`` and one tile of B bins."""
+    assert H.f32_plan(f, b) == (*H.f32_feature_slices(f, b), b, 1)
+    assert H.quant_plan(f, b) == (*H.quant_feature_slices(f, b), b, 1)
+
+
+def test_uint16_ids_reach_the_plain_versions_only_on_the_cpu():
+    """A uint16 histogram on the CPU is the plain version's; launch
+    counters move only where a kernel runs (never here)."""
+    binned, grad, hess, live, local = (torch.from_numpy(x) for x in
+                                       _u16_case(200, 3, 1023, 2, seed=4))
+    before = (H.hist_kernel_launches, H.hist_u16_kernel_launches,
+              H.hist_quant_kernel_launches, H.hist_quant_u16_kernel_launches)
+    got = H.level_histogram(binned, grad, hess, live, local, 2, 3, 1023)
+    want = H.level_histogram_reference(binned, grad, hess, live, local, 2,
+                                       3, 1023)
+    assert torch.equal(got, want)
+    assert before == (H.hist_kernel_launches, H.hist_u16_kernel_launches,
+                      H.hist_quant_kernel_launches,
+                      H.hist_quant_u16_kernel_launches)

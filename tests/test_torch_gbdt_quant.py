@@ -51,6 +51,8 @@ torch.set_num_threads(1)
 ARRAYS = ("split_feature", "threshold_bin", "threshold_value", "node_value",
           "count", "tree_weights")
 MAX_BIN = 63
+# hist_stats' EFB record of a fit that bundled nothing (dense data)
+NO_EFB = {"efb_bundles": 0, "efb_bundled_features": 0}
 QMAX = {"q16": 32000.0, "q8": 120.0}
 QDT = {"q16": np.int16, "q8": np.int8}
 
@@ -318,7 +320,8 @@ def test_quantized_l2_fit_is_bitwise(monkeypatch, quant, sub, trees, extra):
     jr, pr = _fit_both(x, y, objective="regression", num_iterations=trees,
                        **extra)
     assert jr.hist_stats["hist_quant"] == quant
-    assert pr.hist_stats == {"hist_quant": quant, "subtract": sub == "1"}
+    assert pr.hist_stats == {"hist_quant": quant, "subtract": sub == "1",
+                             **NO_EFB}
     assert (jr.booster.split_feature >= 0).sum() >= 5 * trees  # real trees
     for name in ARRAYS:
         want, got = getattr(jr.booster, name), getattr(pr.booster, name)
@@ -366,7 +369,8 @@ def test_f32_fit_with_subtraction_matches(monkeypatch, objective):
     x, y, y_bin = _fit_data(seed=2)
     jr, pr = _fit_both(x, y if objective == "regression" else y_bin,
                        objective=objective, num_iterations=5)
-    assert pr.hist_stats == {"hist_quant": "off", "subtract": True}
+    assert pr.hist_stats == {"hist_quant": "off", "subtract": True,
+                             **NO_EFB}
     for name in ("split_feature", "threshold_bin", "count"):
         np.testing.assert_array_equal(getattr(pr.booster, name),
                                       getattr(jr.booster, name))
@@ -407,7 +411,8 @@ def test_bad_knob_values_warn_once_and_run_off(monkeypatch, knob, bad):
     named = [w for w in caught if knob in str(w.message)]
     assert len(named) == 1, [str(w.message) for w in caught]
     for fit in fits:
-        assert fit.hist_stats == {"hist_quant": "off", "subtract": False}
+        assert fit.hist_stats == {"hist_quant": "off", "subtract": False,
+                                  **NO_EFB}
         for name in ARRAYS:
             np.testing.assert_array_equal(getattr(fit.booster, name),
                                           getattr(plain.booster, name))
@@ -425,3 +430,54 @@ def test_resolve_hist_quant(monkeypatch, value, want):
 def test_resolve_subtract(monkeypatch, value, want):
     monkeypatch.setenv(trainer.HIST_SUB_ENV, value)
     assert trainer.resolve_subtract() is want
+
+
+# --- uint16 bin ids (max_bin above 256) --------------------------------------
+
+@pytest.mark.parametrize("quant", ["q16", "q8"])
+@pytest.mark.parametrize("n,f,b,width", [(3000, 7, 1023, 4), (999, 3, 4095, 8),
+                                         (500, 27, 511, 2)])
+def test_quant_histogram_on_uint16_ids_matches_jax_bitwise(quant, n, f, b,
+                                                           width):
+    """The trainer's quantized stats over uint16 ids: the plain version
+    is the JAX ``_level_histogram_quant`` and the numpy int64 sums bit
+    for bit."""
+    case = list(_quant_case(n, f, 255, width, quant, seed=b))
+    case[0] = np.random.default_rng(b).integers(0, b, size=(n, f)).astype(
+        np.uint16)
+    binned, gq, hq, live, local, gsi, hsi = case
+    got = _port_quant(case, width, f, b)
+    xla = np.asarray(jax_trainer._level_histogram_quant(
+        jnp.asarray(binned), jnp.asarray(gq), jnp.asarray(hq),
+        jnp.asarray(live), jnp.asarray(local), width, f, b,
+        jnp.float32(gsi), jnp.float32(hsi), formulation="per_feature"))
+    np.testing.assert_array_equal(got, xla)
+    np.testing.assert_array_equal(
+        got, _int64_reference(binned, gq, hq, live, local, width, b, gsi,
+                              hsi))
+
+
+@pytest.mark.parametrize("sub", ["0", "1"])
+@pytest.mark.parametrize("quant", ["q16", "q8"])
+def test_quantized_fit_on_uint16_ids_is_bitwise(monkeypatch, quant, sub):
+    """``max_bin=1023``: bins as uint16 on the port's side, the same ids
+    as int32 on the JAX side; every array of the booster bit for bit."""
+    _set_knobs(monkeypatch, quant, sub)
+    x, y, _ = _fit_data()
+    cfg = dict(objective="regression", num_iterations=3, max_bin=1023,
+               max_depth=4, num_leaves=15, min_data_in_leaf=20)
+    mapper = BinMapper.fit(x, max_bin=1023)
+    binned = mapper.transform(x, np.uint16)
+    bin_upper = mapper.bin_upper_values(1023)
+    jr = jax_trainer.train(binned.astype(np.int32), y,
+                           jax_trainer.TrainConfig(**cfg),
+                           bin_upper=bin_upper)
+    pr = trainer.train(binned, y, trainer.TrainConfig(**cfg),
+                       bin_upper=bin_upper, device="cpu")
+    assert pr.hist_stats == {"hist_quant": quant, "subtract": sub == "1",
+                             **NO_EFB}
+    for name in ARRAYS:
+        np.testing.assert_array_equal(getattr(pr.booster, name),
+                                      getattr(jr.booster, name),
+                                      err_msg=name)
+    assert (pr.booster.threshold_bin > 255).any()
