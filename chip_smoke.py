@@ -565,19 +565,31 @@ def phase_kernel(ctx):
             "u16_per_tree": u16_summary(ctx["hist_u16"])}
 
 
-# uint16 bin ids (max_bin above 256): the bench's rows at three bin counts,
-# and an odd feature count, whose 54-byte rows the kernels stage id by id
+# uint16 bin ids (max_bin above 256): the bench's rows at three bin counts;
+# an odd feature count, whose 54-byte rows start at either half of a
+# 4-byte word; and the bench's shape with 90% of each feature's rows in one
+# bin (its own), as a sparse column puts them in its default bin: rows of
+# one warp instruction then add into the same cell
 HIST_U16 = (("bench", N, F, 511), ("bench", N, F, 1023),
-            ("bench", N, F, 4095), ("odd_f", N, 27, 1023))
+            ("bench", N, F, 4095), ("odd_f", N, 27, 1023),
+            ("skewed", N, F, 1023))
 U16_LIBRARY_B = 1023      # the bin count whose index_add_ is timed
 U16_REPS = 5
+U16_SKEW = 0.9            # the skewed case's share of rows in one bin
 
 
-def u16_ids(torch, gen, n, f, b, dev):
-    """(n, f) uniform uint16 bin ids in [0, b), made as int32 (randint
-    takes no uint16) and narrowed through int16's bits."""
-    return torch.randint(0, b, (n, f), generator=gen, device=dev,
-                         dtype=torch.int32).to(torch.int16).view(torch.uint16)
+def u16_ids(torch, gen, n, f, b, dev, skew=0.0):
+    """(n, f) uint16 bin ids in [0, b), made as int32 (randint takes no
+    uint16) and narrowed through int16's bits: uniform, or with a share
+    ``skew`` of each feature's rows in one bin of its own."""
+    ids = torch.randint(0, b, (n, f), generator=gen, device=dev,
+                        dtype=torch.int32)
+    if skew:
+        default = torch.randint(0, b, (1, f), generator=gen, device=dev,
+                                dtype=torch.int32)
+        ids = torch.where(torch.rand((n, f), generator=gen, device=dev)
+                          < skew, default, ids)
+    return ids.to(torch.int16).view(torch.uint16)
 
 
 def u16_cases(torch, plane, cases=HIST_U16, widths=WIDTHS):
@@ -602,7 +614,8 @@ def u16_row(torch, plane, N, F, B, width, shape):
     from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(B + F + width)
-    binned = u16_ids(torch, gen, N, F, B, dev)
+    binned = u16_ids(torch, gen, N, F, B, dev,
+                     skew=U16_SKEW if shape == "skewed" else 0.0)
     live = (torch.rand(N, generator=gen, device=dev) < 0.9).float()
     local = torch.randint(0, width, (N,), generator=gen, device=dev)
     if plane == "f32":
@@ -665,12 +678,14 @@ def u16_row(torch, plane, N, F, B, width, shape):
     ops = 3 * F * int(kept.sum().item())
     bytes_ms = (in_bytes + out_bytes) / MEM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
-    plan = (H.f32_plan if plane == "f32" else H.quant_plan)(F, B, 2)
+    # the launch's geometry, from the kernel's library: CTAs, SMs, CTAs
+    # per SM, slices, tiles, features per slice
+    geometry = H.launch_geometry("f32" if plane == "f32" else "quant", F, B,
+                                 2)
     row = {"plane": plane, "shape": shape, "n": N, "f": F, "b": B,
            "width": width, "bitwise": bitwise, "bitwise_int": exact,
            "repeat_bitwise": repeat, "max_abs_err": err,
-           "plan": dict(zip(("f_slice", "slices", "tile_bins", "tiles"),
-                            plan)),
+           "geometry": geometry,
            "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": max(bytes_ms, ops_ms),
@@ -680,6 +695,9 @@ def u16_row(torch, plane, N, F, B, width, shape):
     if not (bitwise and exact and repeat):
         raise AssertionError(f"{plane} histogram on uint16 ids disagrees "
                              f"with its plain version: {row}")
+    if geometry["ctas"] > geometry["sms"] * geometry["per_sm"]:
+        raise AssertionError(f"{plane} histogram on uint16 ids launches "
+                             f"past one wave: {geometry}")
     return row
 
 
@@ -691,7 +709,7 @@ def u16_summary(cases):
             "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms")}
         lib = [r["library_ms"] for r in rows]
         out[name]["library_ms"] = None if None in lib else sum(lib)
-        out[name]["plan"] = rows[0]["plan"]
+        out[name]["geometry"] = rows[0]["geometry"]
     return out
 
 

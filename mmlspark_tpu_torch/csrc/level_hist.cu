@@ -60,20 +60,30 @@
 //      4,096-row tile made n / 4,096 + width;
 //   5. the elementwise dequantization (level_hist_common.cuh).
 //
-// Bin ids. The kernel is a template on the id type: uint8_t ids (B <= 256)
-// and uint16_t ids (B <= 65,536, the reference's ids past 256 bins,
-// mmlspark_tpu/ops/ingest.py:binned_ingest_dtype). The cells of 32 lanes
-// take 768 B per bin, so past about 290 bins no feature slice fits one
-// CTA; uint16 ids therefore split the bins into tiles of at most
-// `tile_bins` (hist_cuda.f32_plan: as many as fit beside the staging), a
-// grid axis of its own (blockIdx.y): every CTA of tile t keeps the cell
-// layout above for bins [t * tile_bins, ...) and skips the (row, feature)
-// pairs whose bin lies outside them, and its flush adds its tile's cells
-// into the same int64 sums. The sums stay exact and order-free; the rows
-// are read once per tile. A uint16 row stages twice the bytes; rows whose
-// slice is a whole number of 32-bit words (F even) stage by cp.async
-// words, others id by id. The uint8 instance has one tile of every bin
-// (tile_bins = B, blockIdx.y = 0) and is the code it was before.
+// Bin ids past 256 bins. uint8 ids (B <= 256) take the kernel above.
+// uint16 ids (B <= 65,536, the reference's ids past 256 bins,
+// mmlspark_tpu/ops/ingest.py:binned_ingest_dtype) take a kernel of their
+// own, level_hist_u16_kernel, in which each (row, feature) pair is added
+// by exactly one CTA. Lane-private cells of 32 lanes would take 768 B per
+// bin, so past about 290 bins no feature slice of them fits a CTA; cutting
+// the bins into tiles instead would make every tile's CTAs stage and walk
+// every row again (five tiles at B = 1,023). Here the slices are narrower
+// instead (hist_cuda.f32_plan: the widest whose cells of every bin fit
+// beside the staging: 8 features at B = 1,023, 15 at 511, 2 at 4,095,
+// each slice a share of the grid), and the cells hold only the slice's
+// features: cell (feature fl, bin) of word q (2c the low and 2c + 1 the
+// high word of channel c) at cells[q * plane + U16Cells.at(fl, bin)]
+// (level_hist_common.cuh: feature fl owns g = floor(32 / fs) banks). A
+// warp adds g rows at once, a lane per (row, feature), so each feature's
+// g lanes fall on its g banks and no two features meet in one; the adds
+// are the same add64 into the same int64 cells, the flushes as above. A row's stats and row id are staged once per slice, its ids
+// once in all: by cp.async of the 4-byte words that cover the slice's ids
+// (hist_cuda.u16_words; rows of odd F start at either half of a word, and
+// the row's parity, kept beside its terms, picks the half). Only where one
+// feature's bins pass a CTA (about 8,700) do tiles remain: one feature per
+// slice, each tile's CTAs its own run of the rows. The grid is one wave at
+// most (level_hist_common.cuh: hist_grid); where the tiles' CTAs pass it,
+// the launched CTAs take them in turn. The sums stay exact and order-free.
 //
 // What bounds it. Per level the function must read the N x F bin bytes,
 // the three (N,) float32 vectors and the (N,) node ids (int64 on the
@@ -200,32 +210,26 @@ __device__ __forceinline__ Chunk next_chunk(Chunk c, int64_t p_end,
   return n;
 }
 
-// 4. The histogram, on ids of type T, for this CTA's tile of bins.
-template <typename T>
+// 4. The histogram.
 __global__ void __launch_bounds__(kThreads, 1)
-level_hist_kernel(const T* __restrict__ binned,           // (n, f) row-major
+level_hist_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-major
                   const float4* __restrict__ stats,       // (n,) from plan_count
                   const int64_t* __restrict__ order,      // kept rows by node
                   const int64_t* __restrict__ offsets,    // (width + 1,)
                   const long long* __restrict__ exps,     // (3,) e_c
                   unsigned long long* __restrict__ acc,   // (width, f, b, 3)
                   int f, int b, int width, int f_slice, int num_slices,
-                  int word_bins, int tile_bins) {
-  constexpr bool kOneTile = sizeof(T) == 1;          // uint8: every bin at once
+                  int word_bins) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // this CTA's tile of bins [t0, t0 + bt)
-  const int t0 = kOneTile ? 0 : (int)blockIdx.y * tile_bins;
-  const int bt = kOneTile ? b : (b - t0 < tile_bins ? b - t0 : tile_bins);
   // cell (feature fl, bin, channel c) of the slice: low word at
   // cells[2c * plane + bin * 32 + fl], high word one plane further; a
   // warp's lanes (its features) always hit 32 different banks
-  const int plane = (kOneTile ? b : tile_bins) * kLanes;
-  // staged ids per row: the slice's ids padded to whole 32-bit words
-  const int ws = ((f_slice * (int)sizeof(T) + 3) & ~3) / (int)sizeof(T);
+  const int plane = b * kLanes;
+  const int ws = (f_slice + 3) & ~3;                 // staged bytes per row
   unsigned* cells = reinterpret_cast<unsigned*>(smem);
   float4* sstats = reinterpret_cast<float4*>(cells + 6 * plane);   // [2][kChunk]
   long long* sterm = reinterpret_cast<long long*>(sstats + 2 * kChunk);  // [kChunk][4]
-  T* sbin = reinterpret_cast<T*>(sterm + 4 * kChunk);  // [2][kChunk][ws]
+  uint8_t* sbin = reinterpret_cast<uint8_t*>(sterm + 4 * kChunk);  // [2][kChunk][ws]
   int64_t* srow = reinterpret_cast<int64_t*>(sbin + 2 * kChunk * ws);  // [2][kChunk]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
@@ -257,19 +261,18 @@ level_hist_kernel(const T* __restrict__ binned,           // (n, f) row-major
     cur.rows = (int)min64(kChunk, min64(p_end, offsets[w0 + 1]) - p);
   Chunk nxt = next_chunk(cur, p_end, offsets);
 
-  // a chunk's (grad*live, hess*live, live) and the slice's bin ids into
+  // a chunk's (grad*live, hess*live, live) and the slice's bin bytes into
   // shared memory by cp.async: the rows' ids are in srow[buf]; a row's bin
   // words go to consecutive threads, so a warp's copies touch few sectors
   auto stage = [&](int buf, int rows) {
     const int64_t* rid = srow + buf * kChunk;
     if (tid < rows) cp_async16(sstats + buf * kChunk + tid, stats + rid[tid]);
-    T* dst = sbin + buf * kChunk * ws;
+    uint8_t* dst = sbin + buf * kChunk * ws;
     if (word_bins) {
-      const int wpr = (fs * (int)sizeof(T)) >> 2;
+      const int wpr = fs >> 2;
       for (int i = tid; i < rows * wpr; i += kThreads) {
         const int j = i / wpr, k = (i - j * wpr) * 4;
-        cp_async4(reinterpret_cast<uint8_t*>(dst + j * ws) + k,
-                  reinterpret_cast<const uint8_t*>(binned + rid[j] * f + f0) + k);
+        cp_async4(dst + j * ws + k, binned + rid[j] * f + f0 + k);
       }
     } else {
       for (int i = tid; i < rows * fs; i += kThreads) {
@@ -299,12 +302,10 @@ level_hist_kernel(const T* __restrict__ binned,           // (n, f) row-major
     }
     __syncthreads();
     if (lane < fs) {
-      const T* bins = sbin + buf * kChunk * ws + lane;
+      const uint8_t* bins = sbin + buf * kChunk * ws + lane;
       for (int j = warp; j < cur.rows; j += kThreads / kLanes) {
-        const int bin = (int)bins[j * ws] - t0;
-        // a bin of another tile; out-of-range ids are the caller's bug:
-        // never write past the slice
-        if ((unsigned)bin < (unsigned)bt) {
+        const int bin = bins[j * ws];
+        if (bin < b) {  // out-of-range ids are the caller's bug; never write past the slice
           const longlong2 gh = reinterpret_cast<const longlong2*>(sterm)[j * 2];
           const long long tl = sterm[j * 4 + 2];
           unsigned* cell = cells + bin * kLanes + lane;
@@ -315,18 +316,17 @@ level_hist_kernel(const T* __restrict__ binned,           // (n, f) row-major
       }
     }
     if (nxt.rows == 0 || nxt.w != cur.w) {
-      // the run leaves node cur.w: add its cells into the int64 sums and
-      // clear them; the slice's (fs, b, 3) sums are contiguous, and a
-      // tile's (bt, 3) run of each feature's
+      // the run leaves node cur.w: add its cells into the int64 sums, where
+      // the slice's (fs, b, 3) cells are contiguous, and clear them
       __syncthreads();
-      unsigned long long* dst = acc + (((int64_t)cur.w * f + f0) * b + t0) * 3;
-      for (int i = tid; i < 3 * fs * bt; i += kThreads) {
-        const int c = i % 3, fl = i / 3 / bt, bin = i / 3 - fl * bt;
+      unsigned long long* dst = acc + ((int64_t)cur.w * f + f0) * b * 3;
+      for (int i = tid; i < 3 * fs * b; i += kThreads) {
+        const int c = i % 3, fl = i / 3 / b, bin = i / 3 - fl * b;
         unsigned* lo = cells + 2 * c * plane + bin * kLanes + fl;
         const unsigned long long v =
             (unsigned long long)lo[plane] << 32 | lo[0];
         if (v != 0) {
-          atomicAdd(dst + (kOneTile ? i : ((int64_t)fl * b + bin) * 3 + c), v);
+          atomicAdd(dst + i, v);
           lo[0] = lo[plane] = 0u;
         }
       }
@@ -338,44 +338,183 @@ level_hist_kernel(const T* __restrict__ binned,           // (n, f) row-major
   }
 }
 
+// 4u. The histogram on uint16 ids (see "Bin ids past 256 bins" above):
+// `ids` is the (n, f) uint16 matrix read as 4-byte words; per_tile CTAs
+// take each of num_tiles tiles of tile_bins bins, and the grid's CTAs take
+// those per_tile * num_tiles "virtual" CTAs in turn.
+__global__ void __launch_bounds__(kThreads, 1)
+level_hist_u16_kernel(const unsigned* __restrict__ ids,     // (n, f) uint16
+                      const float4* __restrict__ stats,     // (n,) from plan_count
+                      const int64_t* __restrict__ order,    // kept rows by node
+                      const int64_t* __restrict__ offsets,  // (width + 1,)
+                      const long long* __restrict__ exps,   // (3,) e_c
+                      unsigned long long* __restrict__ acc, // (width, f, b, 3)
+                      int f, int b, int width, int f_slice, int num_slices,
+                      int tile_bins, int num_tiles, int per_tile) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // cell (feature fl, bin) of word q at cells[q * plane + U16Cells.at(fl, bin)]
+  const int plane = u16_plane_words(f_slice, tile_bins);
+  const int words = u16_words(f, f_slice);           // staged words per row
+  unsigned* cells = reinterpret_cast<unsigned*>(smem);
+  float4* sstats = reinterpret_cast<float4*>(cells + 6 * plane);   // [2][kChunk]
+  // the rows' terms, then the parity of the row's first id
+  long long* sterm = reinterpret_cast<long long*>(sstats + 2 * kChunk);  // [kChunk][4]
+  unsigned* sbin = reinterpret_cast<unsigned*>(sterm + 4 * kChunk);  // [2][kChunk][words]
+  int64_t* srow = reinterpret_cast<int64_t*>(sbin + 2 * kChunk * words);  // [2][kChunk]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t kept = offsets[width];
+  const double up0 = pow2(exps[0]), up1 = pow2(exps[1]), up2 = pow2(exps[2]);
+
+  for (int i = tid; i < 6 * plane; i += kThreads) cells[i] = 0u;
+  for (int v = blockIdx.x; v < per_tile * num_tiles; v += gridDim.x) {
+    // virtual CTA v: CTA x of tile t, whose bins are [t0, t0 + bt)
+    const int t = v / per_tile, x = v - t * per_tile;
+    const int t0 = t * tile_bins;
+    const int bt = b - t0 < tile_bins ? b - t0 : tile_bins;
+    // its feature slice: slice s owns the tile's CTAs [per_tile*s*f_slice/f,
+    // ...), a share in proportion to its features
+    int s = 0;
+    while (s + 1 < num_slices && (int64_t)per_tile * (s + 1) * f_slice / f <= x) ++s;
+    const int64_t g0 = (int64_t)per_tile * s * f_slice / f;
+    const int64_t g1 = s + 1 < num_slices ? (int64_t)per_tile * (s + 1) * f_slice / f
+                                          : per_tile;
+    const int f0 = s * f_slice;
+    const int fs = f - f0 < f_slice ? f - f0 : f_slice;
+    // a warp adds rpw rows at once: lane = k * fs + fl adds feature fl of
+    // the group's row k; lanes past rpw * fs idle
+    const int rpw = kLanes / fs;
+    const int k = lane / fs, fl = lane - k * fs;
+    const U16Cells where(fs, tile_bins);
+
+    // its equal run [p, p_end) of the kept rows, sorted by node
+    const int64_t p = kept * (x - g0) / (g1 - g0);
+    const int64_t p_end = kept * (x - g0 + 1) / (g1 - g0);
+    int w0 = 0;                                      // the node of row p
+    for (int hi = width; hi - w0 > 1;) {
+      const int mid = (w0 + hi) >> 1;
+      if (offsets[mid] <= p) w0 = mid; else hi = mid;
+    }
+    Chunk cur{p, 0, w0};
+    if (p < p_end)
+      cur.rows = (int)min64(kChunk, min64(p_end, offsets[w0 + 1]) - p);
+    Chunk nxt = next_chunk(cur, p_end, offsets);
+
+    // a chunk's stats and the words covering the slice's ids of each row
+    // into shared memory by cp.async; the rows' ids are in srow[buf]
+    auto stage = [&](int buf, int rows) {
+      const int64_t* rid = srow + buf * kChunk;
+      if (tid < rows) cp_async16(sstats + buf * kChunk + tid, stats + rid[tid]);
+      unsigned* dst = sbin + buf * kChunk * words;
+      for (int i = tid; i < rows * words; i += kThreads) {
+        const int j = i / words, q = i - j * words;
+        stage_u16_word(dst + j * words, ids, rid[j] * f + f0, fs, q);
+      }
+    };
+    if (tid < cur.rows) srow[tid] = order[cur.c0 + tid];
+    if (tid < nxt.rows) srow[kChunk + tid] = order[nxt.c0 + tid];
+    __syncthreads();                                 // cells are zero, ids staged
+    stage(0, cur.rows);
+    cp_async_commit();
+
+    for (int buf = 0; cur.rows > 0; buf ^= 1) {
+      const Chunk after = next_chunk(nxt, p_end, offsets);
+      stage(buf ^ 1, nxt.rows);                      // in flight during this chunk
+      cp_async_commit();
+      const int64_t r_after = tid < after.rows ? order[after.c0 + tid] : 0;
+      cp_async_wait<1>();                            // this chunk has landed
+      __syncthreads();
+      if (tid < cur.rows) {                          // the rows' terms, once per slice
+        const float4 st = sstats[buf * kChunk + tid];
+        sterm[tid * 4] = term(st.x, up0);
+        sterm[tid * 4 + 1] = term(st.y, up1);
+        sterm[tid * 4 + 2] = term(st.z, up2);
+        // the parity of the row's first id: which half of its first word
+        sterm[tid * 4 + 3] = (((int)srow[buf * kChunk + tid] & f) ^ f0) & 1;
+      }
+      __syncthreads();
+      if (k < rpw) {
+        const uint16_t* bins = reinterpret_cast<const uint16_t*>(
+            sbin + buf * kChunk * words);
+        for (int j = warp * rpw + k; j < cur.rows; j += kThreads / kLanes * rpw) {
+          const longlong2 gh = reinterpret_cast<const longlong2*>(sterm)[j * 2];
+          const longlong2 lh = reinterpret_cast<const longlong2*>(sterm)[j * 2 + 1];
+          const int bin = (int)bins[j * 2 * words + (int)lh.y + fl] - t0;
+          // a bin of another tile; out-of-range ids are the caller's bug:
+          // never write past the slice
+          if ((unsigned)bin < (unsigned)bt) {
+            unsigned* cell = cells + where.at(fl, bin);
+            add64(cell, cell + plane, gh.x);
+            add64(cell + 2 * plane, cell + 3 * plane, gh.y);
+            add64(cell + 4 * plane, cell + 5 * plane, lh.x);
+          }
+        }
+      }
+      if (nxt.rows == 0 || nxt.w != cur.w) {
+        // the run leaves node cur.w: add its cells into the int64 sums and
+        // clear them; the slice's (fs, b, 3) sums are contiguous, and a
+        // tile's (bt, 3) run of each feature's
+        __syncthreads();
+        unsigned long long* dst = acc + (((int64_t)cur.w * f + f0) * b + t0) * 3;
+        for (int i = tid; i < 3 * fs * bt; i += kThreads) {
+          const int c = i % 3, cf = i / 3 / bt, bin = i / 3 - cf * bt;
+          unsigned* lo = cells + 2 * c * plane + where.at(cf, bin);
+          const unsigned long long sum =
+              (unsigned long long)lo[plane] << 32 | lo[0];
+          if (sum != 0) {
+            atomicAdd(dst + ((int64_t)cf * b + bin) * 3 + c, sum);
+            lo[0] = lo[plane] = 0u;
+          }
+        }
+      }
+      if (tid < after.rows) srow[buf * kChunk + tid] = r_after;  // this chunk's ids are spent
+      __syncthreads();
+      cur = nxt;
+      nxt = after;
+    }
+  }
+}
+
 // The dequantization's scales: 2^-e_c.
 struct InversePow2 {
   const long long* exps;
   __device__ double operator()(int c) const { return pow2(-exps[c]); }
 };
 
-// The histogram launch on ids of type T: a persistent grid of gx CTAs
-// per tile over the feature slices (at least one CTA per slice), and
-// num_tiles tiles of tile_bins bins (one of B bins for uint8 ids).
-template <typename T>
+// The histogram launch: uint8 ids over one tile of every bin (tile_bins =
+// b), uint16 ids over num_tiles tiles of tile_bins bins, which must start
+// on a 4-byte boundary (their rows are staged as the words that cover
+// them). The grid is hist_grid's.
 cudaError_t launch_hist(const void* binned, const void* stats,
                         const void* order, const void* offsets,
                         const long long* exps, unsigned long long* sums,
                         int f, int b, int width, int f_slice, int num_slices,
-                        int tile_bins, int num_tiles, int smem, int device,
-                        cudaStream_t s) {
-  if (sizeof(T) == 1 ? (num_tiles != 1 || tile_bins != b)
-                     : ((int64_t)tile_bins * num_tiles < b || num_tiles > 65535))
+                        int bin_bytes, int tile_bins, int num_tiles, int smem,
+                        int device, cudaStream_t s) {
+  HistGrid g;
+  cudaError_t err;
+  if (bin_bytes == 1) {
+    if (num_tiles != 1 || tile_bins != b) return cudaErrorInvalidValue;
+    err = hist_grid(level_hist_kernel, kThreads, smem, 1, num_slices, 1,
+                    device, &g);
+    if (err != cudaSuccess) return err;
+    const int word_bins = f % 4 == 0 && f_slice % 4 == 0 &&
+                          (uintptr_t)binned % 4 == 0;
+    level_hist_kernel<<<g.ctas, kThreads, smem, s>>>(
+        (const uint8_t*)binned, (const float4*)stats, (const int64_t*)order,
+        (const int64_t*)offsets, exps, sums, f, b, width, f_slice, num_slices,
+        word_bins);
+    return cudaGetLastError();
+  }
+  if (bin_bytes != 2 || (uintptr_t)binned % 4 != 0 || f_slice < 1 ||
+      f_slice > kLanes || tile_bins < 1 || (int64_t)tile_bins * num_tiles < b)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      level_hist_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = hist_grid(level_hist_u16_kernel, kThreads, smem, 2, num_slices,
+                  num_tiles, device, &g);
   if (err != cudaSuccess) return err;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, level_hist_kernel<T>, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int want = (sms * per_sm + num_tiles - 1) / num_tiles;
-  const int gx = want > num_slices ? want : num_slices;
-  const int word_bins = (f * (int)sizeof(T)) % 4 == 0 &&
-                        (f_slice * (int)sizeof(T)) % 4 == 0 &&
-                        (uintptr_t)binned % 4 == 0;
-  level_hist_kernel<T><<<dim3(gx, num_tiles), kThreads, smem, s>>>(
-      (const T*)binned, (const float4*)stats, (const int64_t*)order,
+  level_hist_u16_kernel<<<g.ctas, kThreads, smem, s>>>(
+      (const unsigned*)binned, (const float4*)stats, (const int64_t*)order,
       (const int64_t*)offsets, exps, sums, f, b, width, f_slice, num_slices,
-      word_bins, tile_bins);
+      tile_bins, num_tiles, g.per_tile);
   return cudaGetLastError();
 }
 
@@ -385,16 +524,17 @@ extern "C" {
 
 // Launches the partition (three kernels), the histogram and the
 // dequantization on `stream` (a cudaStream_t) of device `device`. `binned`
-// holds uint8 (bin_bytes 1) or uint16 (2) ids; `local` int32 (local_bytes
-// 4) or int64 (8) node ids. Scratch, written here: `stats` (n, 4) float32;
-// `counts` (width + 1) * (ns + nb) int32 for ns = ceil(n / 512) warp
-// segments and nb = ceil(ns / 8) CTAs (the per-warp counts, then the
-// per-CTA places); `offsets` width + 1 int64; `order` n int64. `acc` holds
-// width * f * b * 3 int64 sums and then 6 int64 (the channels' amax bits,
-// then e_c), all zero on entry; `out` is the (width, f, b, 3) float32
-// histogram; the bins go in num_tiles tiles of tile_bins (uint8 ids: one
-// tile, tile_bins = b); `smem` a histogram CTA's dynamic shared memory
-// (hist_cuda.f32_smem_bytes). width must be below 12288 (the partition's
+// holds uint8 (bin_bytes 1) or uint16 (2, from a 4-byte boundary) ids;
+// `local` int32 (local_bytes 4) or int64 (8) node ids. Scratch, written
+// here: `stats` (n, 4) float32; `counts` (width + 1) * (ns + nb) int32 for
+// ns = ceil(n / 512) warp segments and nb = ceil(ns / 8) CTAs (the
+// per-warp counts, then the per-CTA places); `offsets` width + 1 int64;
+// `order` n int64. `acc` holds width * f * b * 3 int64 sums and then 6
+// int64 (the channels' amax bits, then e_c), all zero on entry; `out` is
+// the (width, f, b, 3) float32 histogram; the bins go in num_tiles tiles
+// of tile_bins (uint8 ids: one tile, tile_bins = b); `smem` a histogram
+// CTA's dynamic shared memory (hist_cuda.f32_smem_bytes /
+// f32_u16_smem_bytes). width must be below 12288 (the partition's
 // per-warp key counters). Returns the first CUDA error: 0 on success.
 int mmls_level_hist(const void* binned, const void* grad, const void* hess,
                     const void* live, const void* local, int local_bytes,
@@ -426,16 +566,33 @@ int mmls_level_hist(const void* binned, const void* grad, const void* hess,
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
 
-  err = bin_bytes == 1
-      ? launch_hist<uint8_t>(binned, stats, order, offsets, exps, sums, f, b,
-                             width, f_slice, num_slices, tile_bins, num_tiles,
-                             smem, device, s)
-      : launch_hist<uint16_t>(binned, stats, order, offsets, exps, sums, f, b,
-                              width, f_slice, num_slices, tile_bins,
-                              num_tiles, smem, device, s);
+  err = launch_hist(binned, stats, order, offsets, exps, sums, f, b, width,
+                    f_slice, num_slices, bin_bytes, tile_bins, num_tiles, smem,
+                    device, s);
   if (err != cudaSuccess) return (int)err;
   return (int)level_hist::dequantize((const long long*)sums, (float*)out,
                                      InversePow2{exps}, cells, s);
+}
+
+// The histogram launch's grid on `device` at these arguments of
+// mmls_level_hist: out[0..3] = SMs, CTAs per SM, CTAs launched, CTAs per
+// tile of bins (hist_cuda.launch_geometry). Returns the first CUDA error.
+int mmls_level_hist_grid(int bin_bytes, int smem, int num_slices,
+                         int num_tiles, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  HistGrid g;
+  err = bin_bytes == 1
+      ? hist_grid(level_hist_kernel, kThreads, smem, 1, num_slices, num_tiles,
+                  device, &g)
+      : hist_grid(level_hist_u16_kernel, kThreads, smem, 2, num_slices,
+                  num_tiles, device, &g);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = g.sms;
+  out[1] = g.per_sm;
+  out[2] = g.ctas;
+  out[3] = g.per_tile;
+  return 0;
 }
 
 const char* mmls_cuda_error_string(int code) {

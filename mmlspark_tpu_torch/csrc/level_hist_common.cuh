@@ -1,8 +1,9 @@
 // What the two level-histogram kernels (level_hist.cu, float32 stats in
 // fixed point; level_hist_quant.cu, int16/int8 stats) share: the stable
 // counting partition of the rows by node that both histograms walk, the
-// cp.async helpers that stage their chunks, and the elementwise
-// dequantization of their int64 sums.
+// cp.async helpers that stage their chunks (uint16 rows as the words that
+// cover them), the launch grid, and the elementwise dequantization of
+// their int64 sums.
 //
 // The partition, in place of a sort, three launches that wait on no host:
 //   plan_count: each warp counts its segment of kSegRows rows per key (the
@@ -243,6 +244,93 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int pending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(pending));
+}
+
+// The 4-byte words a uint16 row's slice of ids spans once staged: the words
+// covering ids [e, e + fs) of the row-major (n, f) ids, e = r * f + f0
+// counted from the tensor's start (on a 4-byte boundary), so a row's ids
+// start at the low (e even) or high (e odd) half of its first word. That
+// is ceil(f_slice / 2) words, and one more where f_slice is even and the
+// rows' starts alternate (f odd); the narrower last slice fits the same
+// (hist_cuda.u16_words).
+__host__ __device__ inline int u16_words(int f, int f_slice) {
+  return (f_slice + 1) / 2 + (f_slice % 2 == 0 && f % 2 == 1 ? 1 : 0);
+}
+
+// Where a uint16 kernel keeps the cells of its slice of fs features
+// (hist_cuda.u16_cell): in planes of u16_plane_words(f_slice, tile_bins)
+// words, rows of 32 words in which feature fl owns the g = floor(32 / fs)
+// banks [g * fl, g * fl + g), bin at word (bin / g) * 32 + g * fl + bin %
+// g. The g rows a warp instruction adds per feature then fall on g banks,
+// and two features never share a bank. bin / g by a multiply-high with m =
+// ceil(2^32 / g) (m = 2^32 where g = 1), exact for bin < 2^16.
+struct U16Cells {
+  int g;
+  unsigned m_lo, m_hi;
+  __device__ U16Cells(int fs, int /*tile_bins*/) : g(32 / fs) {
+    const unsigned long long m = ((1ull << 32) + g - 1) / g;
+    m_lo = (unsigned)m;
+    m_hi = (unsigned)(m >> 32);
+  }
+  __device__ __forceinline__ int at(int fl, int bin) const {
+    const int q = (int)(__umulhi((unsigned)bin, m_lo) + (m_hi ? (unsigned)bin : 0u));
+    return q * 32 + g * fl + (bin - q * g);
+  }
+};
+
+// The words of one plane of a uint16 kernel's cells: rows of 32 words for
+// ceil(tile_bins / floor(32 / f_slice)) groups of bins (an even number,
+// as the float32 kernel's staging after them needs).
+__host__ __device__ inline int u16_plane_words(int f_slice, int tile_bins) {
+  const int g = 32 / f_slice;
+  return (tile_bins + g - 1) / g * 32;
+}
+
+// cp.async of word q of the words covering ids [e, e + fs) of `ids`, a
+// uint16 (n, f) matrix read as 4-byte words, to dst[q]; nothing for a q
+// past the row's last word.
+__device__ __forceinline__ void stage_u16_word(unsigned* dst,
+                                               const unsigned* __restrict__ ids,
+                                               int64_t e, int fs, int q) {
+  if (q <= (int)(((e + fs - 1) >> 1) - (e >> 1)))
+    cp_async4(dst + q, ids + (e >> 1) + q);
+}
+
+// A histogram launch's grid (hist_cuda.launch_grid): the SMs, the CTAs an
+// SM holds at `smem` bytes (the occupancy API), the CTAs launched, and the
+// CTAs each tile of bins takes. uint8 ids, one tile: a CTA per SM slot,
+// and at least one per feature slice. uint16 ids: one wave at most.
+// per_tile = max(num_slices, floor(wave / num_tiles)) CTAs per tile, so
+// every slice of every tile has one, and where the tiles' CTAs pass a
+// wave the launched CTAs take them in turn (a CTA loops over the
+// "virtual" CTAs v = blockIdx.x, blockIdx.x + gridDim.x, ...).
+struct HistGrid {
+  int sms, per_sm, ctas, per_tile;
+};
+
+template <class Kernel>
+cudaError_t hist_grid(Kernel kernel, int threads, int smem, int bin_bytes,
+                      int num_slices, int num_tiles, int device, HistGrid* g) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&g->sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&g->per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  if (g->per_sm < 1 || num_slices < 1 || num_tiles < 1)
+    return cudaErrorInvalidConfiguration;
+  const int wave = g->sms * g->per_sm;
+  if (bin_bytes == 1) {
+    g->ctas = g->per_tile = wave > num_slices ? wave : num_slices;
+    return cudaSuccess;
+  }
+  const int even = wave / num_tiles;
+  g->per_tile = even > num_slices ? even : num_slices;
+  const int64_t all = (int64_t)g->per_tile * num_tiles;
+  g->ctas = all < wave ? (int)all : wave;
+  return cudaSuccess;
 }
 
 // out[i] = float(double(acc[i]) * scale(i % 3)): int64 -> double rounds to

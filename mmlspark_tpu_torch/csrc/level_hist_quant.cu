@@ -37,13 +37,20 @@
 //   5. the elementwise dequantization (level_hist_common.cuh); in the JAX
 //      package too it lies outside the Pallas body (hist_pallas.py:218-219).
 //
-// Bin ids: uint8_t (B <= 256) or uint16_t (B <= 65,536), a template of the
-// kernel. At 384 B per bin the int32 cells of 32 lanes leave no room for a
-// slice's staging past about 500 bins, so uint16 ids split the bins into
-// tiles (hist_cuda.quant_plan), a grid axis of its own: each CTA of tile t
-// keeps the cell layout above for its bins and skips the (row, feature)
-// pairs of other tiles, as level_hist.cu does; the int64 sums stay exact.
-// The uint8 instance has one tile of every bin and is the code it was.
+// Bin ids past 256 bins: uint16 ids (B <= 65,536) take a kernel of their
+// own, level_hist_quant_u16_kernel, on level_hist.cu's plan for them (see
+// "Bin ids past 256 bins" there): each (row, feature) pair is added by
+// exactly one CTA. The slices are as narrow as the cells of every bin need
+// (hist_cuda.quant_plan: 12 features at B = 1,023, 20 at 511, 4 at 4,095),
+// the int32 cells hold only the slice's features, channel c of (feature
+// fl, bin) at cells[c * plane + U16Cells.at(fl, bin)] (feature fl owns
+// g = floor(32 / fs) banks); a warp adds g rows at once, a lane per (row,
+// feature), each feature's g lanes on its own g banks; a
+// row's packed word and row id are staged once per slice and its ids once
+// in all, as the 4-byte words that cover them, with the row's parity (the
+// half its first id starts at) in a byte beside them. Tiles of bins remain
+// only past one feature's limit (about 17,000 bins). The window, the
+// flushes and the one wave are as above.
 //
 // The int32 window. A cell grows by at most 2^(bits-1) per row, so it holds
 // W = floor((2^31 - 1) / 2^(bits-1)) rows (q16: 65,535; q8: 16,777,215)
@@ -109,28 +116,22 @@ struct QuantRows {
 __device__ __forceinline__ int low_half(unsigned x) { return (int)(x << 16) >> 16; }
 __device__ __forceinline__ int high_half(unsigned x) { return (int)x >> 16; }
 
-// 4. The histogram, on ids of type T, for this CTA's tile of bins.
-template <typename T>
+// 4. The histogram.
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
-level_hist_quant_kernel(const T* __restrict__ binned,           // (n, f) row-major
+level_hist_quant_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-major
                         const unsigned* __restrict__ stats,     // (n,) packed
                         const int64_t* __restrict__ order,      // kept rows by node
                         const int64_t* __restrict__ offsets,    // (width + 1,)
                         unsigned long long* __restrict__ acc,   // (width, f, b, 3)
                         int f, int b, int width, int f_slice, int num_slices,
-                        int word_bins, int window, int tile_bins) {
-  constexpr bool kOneTile = sizeof(T) == 1;          // uint8: every bin at once
+                        int word_bins, int window) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // this CTA's tile of bins [t0, t0 + bt)
-  const int t0 = kOneTile ? 0 : (int)blockIdx.y * tile_bins;
-  const int bt = kOneTile ? b : (b - t0 < tile_bins ? b - t0 : tile_bins);
-  const int plane = (kOneTile ? b : tile_bins) * kLanes;
-  // staged ids per row: the slice's ids padded to whole 32-bit words
-  const int ws = ((f_slice * (int)sizeof(T) + 3) & ~3) / (int)sizeof(T);
-  int* cells = reinterpret_cast<int*>(smem);         // [3][bt][32]
+  const int plane = b * kLanes;
+  const int ws = (f_slice + 3) & ~3;                 // staged bytes per row
+  int* cells = reinterpret_cast<int*>(smem);         // [3][b][32]
   unsigned* sstats = reinterpret_cast<unsigned*>(cells + 3 * plane);  // [kStages][kChunk]
   int* srow = reinterpret_cast<int*>(sstats + kStages * kChunk);      // [kStages][kChunk]
-  T* sbin = reinterpret_cast<T*>(srow + kStages * kChunk);  // [kStages][kChunk][ws]
+  uint8_t* sbin = reinterpret_cast<uint8_t*>(srow + kStages * kChunk);  // [kStages][kChunk][ws]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   // this CTA's feature slice: slice s owns CTAs [T*s*f_slice/f, ...), a
@@ -155,21 +156,19 @@ level_hist_quant_kernel(const T* __restrict__ binned,           // (n, f) row-ma
 
   for (int i = tid; i < 3 * plane; i += kThreads) cells[i] = 0;
 
-  // a chunk's packed words and the slice's bin ids into ring slot `slot`
+  // a chunk's packed words and the slice's bin bytes into ring slot `slot`
   // by cp.async; the rows' ids are in srow[slot]; a row's bin words go to
   // consecutive threads, so a warp's copies touch few sectors
   auto stage = [&](int slot, int rows) {
     const int* rid = srow + slot * kChunk;
     for (int j = tid; j < rows; j += kThreads)
       cp_async4(sstats + slot * kChunk + j, stats + rid[j]);
-    T* dst = sbin + slot * kChunk * ws;
+    uint8_t* dst = sbin + slot * kChunk * ws;
     if (word_bins) {
-      const int wpr = (fs * (int)sizeof(T)) >> 2;
+      const int wpr = fs >> 2;
       for (int i = tid; i < rows * wpr; i += kThreads) {
         const int j = i / wpr, k = (i - j * wpr) * 4;
-        cp_async4(reinterpret_cast<uint8_t*>(dst + j * ws) + k,
-                  reinterpret_cast<const uint8_t*>(
-                      binned + (int64_t)rid[j] * f + f0) + k);
+        cp_async4(dst + j * ws + k, binned + (int64_t)rid[j] * f + f0 + k);
       }
     } else {
       for (int i = tid; i < rows * fs; i += kThreads) {
@@ -179,19 +178,17 @@ level_hist_quant_kernel(const T* __restrict__ binned,           // (n, f) row-ma
     }
   };
 
-  // add the int32 cells into node w's int64 sums and clear them; the
-  // slice's (fs, b, 3) sums are contiguous, and a tile's (bt, 3) run of
-  // each feature's
+  // add the int32 cells into node w's int64 sums, where the slice's
+  // (fs, b, 3) cells are contiguous, and clear them
   auto flush = [&](int w) {
     __syncthreads();                                 // every add has landed
-    unsigned long long* dst = acc + (((int64_t)w * f + f0) * b + t0) * 3;
-    for (int i = tid; i < 3 * fs * bt; i += kThreads) {
-      const int c = i % 3, fl = i / 3 / bt, bin = i / 3 - fl * bt;
+    unsigned long long* dst = acc + ((int64_t)w * f + f0) * b * 3;
+    for (int i = tid; i < 3 * fs * b; i += kThreads) {
+      const int c = i % 3, fl = i / 3 / b, bin = i / 3 - fl * b;
       int* cell = cells + c * plane + bin * kLanes + fl;
       const int v = *cell;
       if (v != 0) {
-        atomicAdd(dst + (kOneTile ? i : ((int64_t)fl * b + bin) * 3 + c),
-                  (unsigned long long)(long long)v);
+        atomicAdd(dst + i, (unsigned long long)(long long)v);
         *cell = 0;
       }
     }
@@ -231,7 +228,7 @@ level_hist_quant_kernel(const T* __restrict__ binned,           // (n, f) row-ma
     cp_async_wait<kStages - 1>();                    // this chunk has landed
     __syncthreads();
 
-    const T* bins = sbin + slot * kChunk * ws + lane;
+    const uint8_t* bins = sbin + slot * kChunk * ws + lane;
     const unsigned* words = sstats + slot * kChunk;
     const int64_t c0 = p + i * kChunk, c1 = c0 + rows;
     for (int64_t pos = c0; pos < c1;) {              // the chunk node by node
@@ -241,10 +238,8 @@ level_hist_quant_kernel(const T* __restrict__ binned,           // (n, f) row-ma
       const int j1 = (int)(seg_end - c0);
       if (lane < fs) {
         for (int j = (int)(pos - c0) + warp; j < j1; j += kWarps) {
-          const int bin = (int)bins[j * ws] - t0;
-          // a bin of another tile; out-of-range ids are the caller's bug:
-          // never write past the slice
-          if ((unsigned)bin < (unsigned)bt) {
+          const int bin = bins[j * ws];
+          if (bin < b) {  // out-of-range ids are the caller's bug; never write past the slice
             const unsigned x = words[j];
             int* cell = cells + bin * kLanes + lane;
             atomicAdd(cell, low_half(x));
@@ -296,38 +291,207 @@ cudaError_t plan_quant(const void* local, int local_bytes, const void* live,
   return cudaErrorInvalidValue;
 }
 
-// The histogram launch on ids of type T: a persistent grid of gx CTAs
-// per tile over the feature slices (at least one CTA per slice), and
-// num_tiles tiles of tile_bins bins (one of B bins for uint8 ids).
-template <typename T>
+// 4u. The histogram on uint16 ids (see "Bin ids past 256 bins" above):
+// `ids` is the (n, f) uint16 matrix read as 4-byte words; per_tile CTAs
+// take each of num_tiles tiles of tile_bins bins, and the grid's CTAs take
+// those per_tile * num_tiles "virtual" CTAs in turn.
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+level_hist_quant_u16_kernel(const unsigned* __restrict__ ids,     // (n, f) uint16
+                            const unsigned* __restrict__ stats,   // (n,) packed
+                            const int64_t* __restrict__ order,    // kept rows by node
+                            const int64_t* __restrict__ offsets,  // (width + 1,)
+                            unsigned long long* __restrict__ acc, // (width, f, b, 3)
+                            int f, int b, int width, int f_slice, int num_slices,
+                            int window, int tile_bins, int num_tiles,
+                            int per_tile) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // channel c of (feature fl, bin) at cells[c * plane + U16Cells.at(fl, bin)]
+  const int plane = u16_plane_words(f_slice, tile_bins);
+  const int words = u16_words(f, f_slice);           // staged words per row
+  int* cells = reinterpret_cast<int*>(smem);         // [3][plane]
+  unsigned* sstats = reinterpret_cast<unsigned*>(cells + 3 * plane);  // [kStages][kChunk]
+  int* srow = reinterpret_cast<int*>(sstats + kStages * kChunk);      // [kStages][kChunk]
+  unsigned* sbin = reinterpret_cast<unsigned*>(srow + kStages * kChunk);  // [kStages][kChunk][words]
+  // the parity of each row's first id: which half of its first word
+  uint8_t* sodd = reinterpret_cast<uint8_t*>(sbin + kStages * kChunk * words);  // [kStages][kChunk]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t kept = offsets[width];
+
+  for (int i = tid; i < 3 * plane; i += kThreads) cells[i] = 0;
+  for (int v = blockIdx.x; v < per_tile * num_tiles; v += gridDim.x) {
+    // virtual CTA v: CTA x of tile t, whose bins are [t0, t0 + bt)
+    const int t = v / per_tile, x = v - t * per_tile;
+    const int t0 = t * tile_bins;
+    const int bt = b - t0 < tile_bins ? b - t0 : tile_bins;
+    // its feature slice, a share of the tile's CTAs in proportion to its
+    // features
+    int s = 0;
+    while (s + 1 < num_slices && (int64_t)per_tile * (s + 1) * f_slice / f <= x) ++s;
+    const int64_t g0 = (int64_t)per_tile * s * f_slice / f;
+    const int64_t g1 = s + 1 < num_slices ? (int64_t)per_tile * (s + 1) * f_slice / f
+                                          : per_tile;
+    const int f0 = s * f_slice;
+    const int fs = f - f0 < f_slice ? f - f0 : f_slice;
+    // a warp adds rpw rows at once: lane = k * fs + fl adds feature fl of
+    // the group's row k; lanes past rpw * fs idle
+    const int rpw = kLanes / fs;
+    const int k = lane / fs, fl = lane - k * fs;
+    const U16Cells where(fs, tile_bins);
+
+    // its equal run [p, p_end) of the kept rows, sorted by node; chunk i
+    // holds the sorted positions [p + i * kChunk, ...)
+    const int64_t p = kept * (x - g0) / (g1 - g0);
+    const int64_t p_end = kept * (x - g0 + 1) / (g1 - g0);
+    auto rows_of = [&](int64_t i) -> int {
+      const int64_t left = p_end - (p + i * kChunk);
+      return left <= 0 ? 0 : (int)min64(kChunk, left);
+    };
+
+    // a chunk's packed words, the rows' parities and the words covering
+    // the slice's ids of each row into ring slot `slot` by cp.async; the
+    // rows' ids are in srow[slot]
+    auto stage = [&](int slot, int rows) {
+      const int* rid = srow + slot * kChunk;
+      for (int j = tid; j < rows; j += kThreads) {
+        cp_async4(sstats + slot * kChunk + j, stats + rid[j]);
+        sodd[slot * kChunk + j] = (uint8_t)(((rid[j] & f) ^ f0) & 1);
+      }
+      unsigned* dst = sbin + slot * kChunk * words;
+      for (int i = tid; i < rows * words; i += kThreads) {
+        const int j = i / words, q = i - j * words;
+        stage_u16_word(dst + j * words, ids, (int64_t)rid[j] * f + f0, fs, q);
+      }
+    };
+
+    // add the int32 cells into node w's int64 sums and clear them; the
+    // slice's (fs, b, 3) sums are contiguous, and a tile's (bt, 3) run of
+    // each feature's
+    auto flush = [&](int w) {
+      __syncthreads();                               // every add has landed
+      unsigned long long* dst = acc + (((int64_t)w * f + f0) * b + t0) * 3;
+      for (int i = tid; i < 3 * fs * bt; i += kThreads) {
+        const int c = i % 3, cf = i / 3 / bt, bin = i / 3 - cf * bt;
+        int* cell = cells + c * plane + where.at(cf, bin);
+        const int sum = *cell;
+        if (sum != 0) {
+          atomicAdd(dst + ((int64_t)cf * b + bin) * 3 + c,
+                    (unsigned long long)(long long)sum);
+          *cell = 0;
+        }
+      }
+      __syncthreads();                               // cleared before the next adds
+    };
+
+    for (int q = 0; q < kStages; ++q)                // the first chunks' ids
+      for (int j = tid; j < rows_of(q); j += kThreads)
+        srow[q * kChunk + j] = (int)order[p + q * kChunk + j];
+    __syncthreads();                                 // cells are zero, ids staged
+    for (int q = 0; q + 1 < kStages; ++q) {
+      stage(q, rows_of(q));
+      cp_async_commit();
+    }
+
+    // the node of row p: the last w with offsets[w] <= p
+    int w = 0;
+    for (int hi = width; hi - w > 1;) {
+      const int mid = (w + hi) >> 1;
+      if (offsets[mid] <= p) w = mid; else hi = mid;
+    }
+    int since = 0;                                   // rows of node w in the cells
+    int slot = 0;                                    // chunk i's ring slot
+    for (int64_t i = 0;; ++i) {
+      const int rows = rows_of(i);
+      if (rows == 0) break;
+      stage(slot == 0 ? kStages - 1 : slot - 1, rows_of(i + kStages - 1));
+      cp_async_commit();                             // in flight during this chunk
+      const int rows_ahead = rows_of(i + kStages);   // its ids, into registers
+      const int64_t ahead = p + (i + kStages) * kChunk;
+      int id_ahead[kIds];
+#pragma unroll
+      for (int q = 0; q < kIds; ++q) {
+        const int j = tid + q * kThreads;
+        id_ahead[q] = j < rows_ahead ? (int)order[ahead + j] : 0;
+      }
+      cp_async_wait<kStages - 1>();                  // this chunk has landed
+      __syncthreads();
+
+      const uint16_t* bins = reinterpret_cast<const uint16_t*>(
+          sbin + slot * kChunk * words);
+      const unsigned* packed = sstats + slot * kChunk;
+      const uint8_t* odd = sodd + slot * kChunk;
+      const int64_t c0 = p + i * kChunk, c1 = c0 + rows;
+      for (int64_t pos = c0; pos < c1;) {            // the chunk node by node
+        while (offsets[w + 1] <= pos) ++w;
+        const int64_t node_end = offsets[w + 1];
+        const int64_t seg_end = min64(c1, node_end);
+        const int j1 = (int)(seg_end - c0);
+        if (k < rpw) {
+          for (int j = (int)(pos - c0) + warp * rpw + k; j < j1; j += kWarps * rpw) {
+            const int bin = (int)bins[j * 2 * words + odd[j] + fl] - t0;
+            // a bin of another tile; out-of-range ids are the caller's bug:
+            // never write past the slice
+            if ((unsigned)bin < (unsigned)bt) {
+              const unsigned st = packed[j];
+              int* cell = cells + where.at(fl, bin);
+              atomicAdd(cell, low_half(st));
+              atomicAdd(cell + plane, high_half(st));
+              atomicAdd(cell + 2 * plane, 1);
+            }
+          }
+        }
+        since += (int)(seg_end - pos);
+        pos = seg_end;
+        // the run leaves node w, or one more chunk could pass the window
+        if (pos == node_end || pos == p_end || since > window - kChunk) {
+          flush(w);
+          since = 0;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kIds; ++q) {               // this slot is spent
+        const int j = tid + q * kThreads;
+        if (j < rows_ahead) srow[slot * kChunk + j] = id_ahead[q];
+      }
+      __syncthreads();
+      slot = slot + 1 == kStages ? 0 : slot + 1;
+    }
+  }
+}
+
+// The histogram launch: uint8 ids over one tile of every bin (tile_bins =
+// b), uint16 ids over num_tiles tiles of tile_bins bins, which must start
+// on a 4-byte boundary (their rows are staged as the words that cover
+// them). The grid is hist_grid's.
 cudaError_t launch_quant(const void* binned, const void* stats,
                          const void* order, const void* offsets, void* acc,
                          int f, int b, int width, int f_slice, int num_slices,
-                         int window, int tile_bins, int num_tiles, int smem,
-                         int device, cudaStream_t s) {
-  if (sizeof(T) == 1 ? (num_tiles != 1 || tile_bins != b)
-                     : ((int64_t)tile_bins * num_tiles < b || num_tiles > 65535))
+                         int window, int bin_bytes, int tile_bins,
+                         int num_tiles, int smem, int device, cudaStream_t s) {
+  HistGrid g;
+  cudaError_t err;
+  if (bin_bytes == 1) {
+    if (num_tiles != 1 || tile_bins != b) return cudaErrorInvalidValue;
+    err = hist_grid(level_hist_quant_kernel, kThreads, smem, 1, num_slices, 1,
+                    device, &g);
+    if (err != cudaSuccess) return err;
+    const int word_bins = f % 4 == 0 && f_slice % 4 == 0 &&
+                          (uintptr_t)binned % 4 == 0;
+    level_hist_quant_kernel<<<g.ctas, kThreads, smem, s>>>(
+        (const uint8_t*)binned, (const unsigned*)stats, (const int64_t*)order,
+        (const int64_t*)offsets, (unsigned long long*)acc, f, b, width,
+        f_slice, num_slices, word_bins, window);
+    return cudaGetLastError();
+  }
+  if (bin_bytes != 2 || (uintptr_t)binned % 4 != 0 || f_slice < 1 ||
+      f_slice > kLanes || tile_bins < 1 || (int64_t)tile_bins * num_tiles < b)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      level_hist_quant_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  err = hist_grid(level_hist_quant_u16_kernel, kThreads, smem, 2, num_slices,
+                  num_tiles, device, &g);
   if (err != cudaSuccess) return err;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, level_hist_quant_kernel<T>, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int want = (sms * per_sm + num_tiles - 1) / num_tiles;
-  const int gx = want > num_slices ? want : num_slices;
-  const int word_bins = (f * (int)sizeof(T)) % 4 == 0 &&
-                        (f_slice * (int)sizeof(T)) % 4 == 0 &&
-                        (uintptr_t)binned % 4 == 0;
-  level_hist_quant_kernel<T><<<dim3(gx, num_tiles), kThreads, smem, s>>>(
-      (const T*)binned, (const unsigned*)stats, (const int64_t*)order,
+  level_hist_quant_u16_kernel<<<g.ctas, kThreads, smem, s>>>(
+      (const unsigned*)binned, (const unsigned*)stats, (const int64_t*)order,
       (const int64_t*)offsets, (unsigned long long*)acc, f, b, width, f_slice,
-      num_slices, word_bins, window, tile_bins);
+      num_slices, window, tile_bins, num_tiles, g.per_tile);
   return cudaGetLastError();
 }
 
@@ -338,15 +502,16 @@ extern "C" {
 // Launches the partition (three kernels), the histogram and the
 // dequantization on `stream` (a cudaStream_t) of device `device`; `qbits` is
 // 16 (int16 grad/hess) or 8 (int8); `binned` holds uint8 (bin_bytes 1) or
-// uint16 (2) ids; `local` int32 (local_bytes 4) or int64 (8) node ids.
-// Scratch, written here: `stats` n packed uint32; `counts` (width + 1) *
-// (ns + nb) int32 for ns = ceil(n / 512) warp segments and nb = ceil(ns /
-// 8) CTAs; `offsets` width + 1 int64; `order` n int64. `acc` holds the
-// width * f * b * 3 int64 sums, zero on entry; `out` is the (width, f, b,
-// 3) float32 histogram; the bins go in num_tiles tiles of tile_bins (uint8
-// ids: one tile, tile_bins = b); `smem` a histogram CTA's dynamic shared
-// memory (hist_cuda.quant_smem_bytes); `window` the rows of one node a
-// CTA's int32 cells take between flushes (hist_cuda.quant_window). width
+// uint16 (2, from a 4-byte boundary) ids; `local` int32 (local_bytes 4) or
+// int64 (8) node ids. Scratch, written here: `stats` n packed uint32;
+// `counts` (width + 1) * (ns + nb) int32 for ns = ceil(n / 512) warp
+// segments and nb = ceil(ns / 8) CTAs; `offsets` width + 1 int64; `order`
+// n int64. `acc` holds the width * f * b * 3 int64 sums, zero on entry;
+// `out` is the (width, f, b, 3) float32 histogram; the bins go in
+// num_tiles tiles of tile_bins (uint8 ids: one tile, tile_bins = b);
+// `smem` a histogram CTA's dynamic shared memory (hist_cuda.
+// quant_smem_bytes / quant_u16_smem_bytes); `window` the rows of one node
+// a CTA's int32 cells take between flushes (hist_cuda.quant_window). width
 // must not pass 12287 (the partition's per-warp key counters), n must be
 // below 2^31. Returns the first CUDA error: 0 on success.
 int mmls_level_hist_quant(const void* binned, const void* grad,
@@ -378,18 +543,36 @@ int mmls_level_hist_quant(const void* binned, const void* grad,
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
 
-  err = bin_bytes == 1
-      ? launch_quant<uint8_t>(binned, stats, order, offsets, acc, f, b, width,
-                              f_slice, num_slices, window, tile_bins,
-                              num_tiles, smem, device, s)
-      : launch_quant<uint16_t>(binned, stats, order, offsets, acc, f, b,
-                               width, f_slice, num_slices, window, tile_bins,
-                               num_tiles, smem, device, s);
+  err = launch_quant(binned, stats, order, offsets, acc, f, b, width, f_slice,
+                     num_slices, window, bin_bytes, tile_bins, num_tiles, smem,
+                     device, s);
   if (err != cudaSuccess) return (int)err;
   return (int)dequantize(
       (const long long*)acc, (float*)out,
       InverseScales{(const float*)gscale_inv, (const float*)hscale_inv},
       (int64_t)width * f * b * 3, s);
+}
+
+// The histogram launch's grid on `device` at these arguments of
+// mmls_level_hist_quant: out[0..3] = SMs, CTAs per SM, CTAs launched, CTAs
+// per tile of bins (hist_cuda.launch_geometry). Returns the first CUDA
+// error.
+int mmls_level_hist_quant_grid(int bin_bytes, int smem, int num_slices,
+                               int num_tiles, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  HistGrid g;
+  err = bin_bytes == 1
+      ? hist_grid(level_hist_quant_kernel, kThreads, smem, 1, num_slices,
+                  num_tiles, device, &g)
+      : hist_grid(level_hist_quant_u16_kernel, kThreads, smem, 2, num_slices,
+                  num_tiles, device, &g);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = g.sms;
+  out[1] = g.per_sm;
+  out[2] = g.ctas;
+  out[3] = g.per_tile;
+  return 0;
 }
 
 const char* mmls_cuda_error_string(int code) {

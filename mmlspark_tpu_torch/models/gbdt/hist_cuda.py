@@ -34,6 +34,7 @@ sources.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
@@ -242,18 +243,12 @@ def level_histogram_reference(binned, grad, hess, live, local, width: int,
     return (acc.double() * pow2(-e)).float().reshape(width, f, b, 3)
 
 
-def _staged_bytes(f_slice: int, bin_bytes: int) -> int:
-    """A row's staged bin ids: the slice's ids padded to whole 32-bit
-    words."""
-    return -(-f_slice * bin_bytes // 4) * 4
-
-
 def _lane_slices(f: int, fits):
-    """(features per CTA, number of slices) for a kernel that adds a
-    row's features with one warp, a lane per feature: the fewest slices of
-    at most 32 features for which ``fits(f_slice)`` holds, as even as
-    possible, and multiples of 4 where F is (a row's bin bytes are then
-    whole words)."""
+    """(features per CTA, number of slices) for a kernel on uint8 ids that
+    adds a row's features with one warp, a lane per feature: the fewest
+    slices of at most 32 features for which ``fits(f_slice)`` holds, as
+    even as possible, and multiples of 4 where F is (a row's bin bytes are
+    then whole words)."""
     most = WARP_LANES
     while most > 4 and not fits(most):
         most -= 4
@@ -264,33 +259,68 @@ def _lane_slices(f: int, fits):
     return f_slice, -(-f // f_slice)
 
 
-def _plan(f: int, b: int, bin_bytes: int, smem_bytes):
-    """(features per CTA, number of slices, bins per tile, number of
-    tiles) of a kernel whose CTA needs ``smem_bytes(f_slice, tile_bins,
-    bin_bytes)`` of shared memory. uint8 ids: the fewest slices whose
-    cells of all B bins fit, one tile (the kernels' uint8 instances).
-    uint16 ids: slices of at most 32 features, then the fewest tiles of
-    bins whose cells fit beside the slice's staging, as even as
-    possible."""
-    if bin_bytes == 1:
-        f_slice, num_slices = _lane_slices(
-            f, lambda fs: smem_bytes(fs, b, 1) <= SMEM_BYTES)
-        return f_slice, num_slices, b, 1
-    f_slice, num_slices = _lane_slices(
-        f, lambda fs: smem_bytes(fs, 1, bin_bytes) <= SMEM_BYTES)
-    staging = smem_bytes(f_slice, 0, bin_bytes)
-    cap = (SMEM_BYTES - staging) // (smem_bytes(f_slice, 1, bin_bytes)
-                                     - staging)
-    num_tiles = -(-b // min(cap, b))
-    return f_slice, num_slices, -(-b // num_tiles), num_tiles
+def u16_words(f: int, f_slice: int) -> int:
+    """The 4-byte words a uint16 row's slice of ``f_slice`` ids spans once
+    staged (``level_hist_common.cuh``: the words covering ids [r*F + f0,
+    ... + fs) from the tensor's start): ceil(f_slice / 2), and one more
+    where f_slice is even and F odd (rows then start at either half of a
+    word)."""
+    return (f_slice + 1) // 2 + (1 if f_slice % 2 == 0 and f % 2 else 0)
+
+
+def u16_cell(fs: int, fl: int, bin_: int) -> int:
+    """The word of cell (feature fl, bin) in a plane of a uint16 CTA's
+    cells over a slice of ``fs`` features (``level_hist_common.cuh``:
+    ``U16Cells``): rows of 32 words, feature fl owning the g = 32 // fs
+    banks [g * fl, g * fl + g), bin at (bin // g) * 32 + g * fl + bin % g.
+    A warp adds g rows at once, so each feature's lanes fall on its own g
+    banks."""
+    g = WARP_LANES // fs
+    return bin_ // g * WARP_LANES + g * fl + bin_ % g
+
+
+def u16_plane_words(f_slice: int, tile_bins: int) -> int:
+    """The words of one plane of a uint16 CTA's cells (:func:`u16_cell`):
+    32 for each group of 32 // f_slice bins of the tile."""
+    g = WARP_LANES // f_slice
+    return -(-tile_bins // g) * WARP_LANES
+
+
+def _u16_plan(f: int, b: int, smem_bytes):
+    """(features per CTA, slices, bins per tile, tiles) of a kernel's
+    uint16 instance, whose CTA needs ``smem_bytes(f, f_slice, tile_bins)``
+    of shared memory: the widest slice (at most 32 features) whose cells
+    of every bin fit, then the fewest slices of it, as even as possible,
+    and one tile. Only where one feature's bins do not fit does a slice
+    hold one feature and the bins go in the fewest tiles that fit, as even
+    as possible."""
+    def fits(fs, bins):
+        return smem_bytes(f, fs, bins) <= SMEM_BYTES
+
+    most = min(f, WARP_LANES)
+    while most > 1 and not fits(most, b):
+        most -= 1
+    if fits(most, b):
+        num_slices = -(-f // most)
+        return -(-f // num_slices), num_slices, b, 1
+    cap, above = 1, b                  # the most bins one feature's cells fit
+    while above - cap > 1:
+        mid = (cap + above) // 2
+        cap, above = (mid, above) if fits(1, mid) else (cap, mid)
+    num_tiles = -(-b // cap)
+    return 1, f, -(-b // num_tiles), num_tiles
 
 
 def f32_plan(f: int, b: int, bin_bytes: int = 1):
     """(features per CTA, slices, bins per tile, tiles) of
-    ``csrc/level_hist.cu`` (:func:`_plan`, :func:`f32_smem_bytes`): 28
-    features and one tile at B = 256 on uint8 ids; 28 features and tiles
-    of at most 238 bins on uint16 ids."""
-    return _plan(f, b, bin_bytes, f32_smem_bytes)
+    ``csrc/level_hist.cu``: on uint8 ids the slices of
+    :func:`f32_feature_slices` and one tile of B bins; on uint16 ids
+    :func:`_u16_plan` over :func:`f32_u16_smem_bytes` (at F = 28: 2
+    slices of 14 at B = 511, 4 of 7 at 1,023, 14 of 2 at 4,095; tiles of
+    bins past about 8,700)."""
+    if bin_bytes == 1:
+        return (*f32_feature_slices(f, b), b, 1)
+    return _u16_plan(f, b, f32_u16_smem_bytes)
 
 
 def f32_feature_slices(f: int, b: int):
@@ -298,19 +328,89 @@ def f32_feature_slices(f: int, b: int):
     on uint8 ids: its cells (over 32 lanes) and staged chunks fit one
     CTA's shared memory (:func:`f32_smem_bytes`; 28 features at B =
     256)."""
-    return f32_plan(f, b)[:2]
+    return _lane_slices(f, lambda fs: f32_smem_bytes(fs, b) <= SMEM_BYTES)
 
 
-def f32_smem_bytes(f_slice: int, b: int, bin_bytes: int = 1) -> int:
-    """Dynamic shared memory of one ``level_hist.cu`` CTA holding the
-    cells of ``b`` bins: int64 cells as two 32-bit planes per channel
-    over (b, 32 lanes); two stages of ``CHUNK_ROWS`` rows' stats (16
-    bytes), bin ids (``bin_bytes`` each, padded to a word) and row ids
-    (8 bytes); the chunk's int64 terms (32 bytes a row)."""
+def f32_smem_bytes(f_slice: int, b: int) -> int:
+    """Dynamic shared memory of one ``level_hist.cu`` CTA on uint8 ids:
+    int64 cells as two 32-bit planes per channel over (B, 32 lanes); two
+    stages of ``CHUNK_ROWS`` rows' stats (16 bytes), bin bytes (padded to
+    a word) and row ids (8 bytes); the chunk's int64 terms (32 bytes a
+    row)."""
     return (6 * b * WARP_LANES * 4
-            + CHUNK_ROWS * (2 * 16 + 32 + 2 * _staged_bytes(f_slice,
-                                                            bin_bytes)
+            + CHUNK_ROWS * (2 * 16 + 32 + 2 * (-(-f_slice // 4) * 4) + 2 * 8))
+
+
+def f32_u16_smem_bytes(f: int, f_slice: int, tile_bins: int) -> int:
+    """Dynamic shared memory of one ``level_hist.cu`` CTA on uint16 ids:
+    int64 cells as two 32-bit planes (:func:`u16_plane_words`) per
+    channel over the slice's features and the tile's bins; the staging of
+    :func:`f32_smem_bytes` with each row's ids as :func:`u16_words`
+    words."""
+    return (6 * u16_plane_words(f_slice, tile_bins) * 4
+            + CHUNK_ROWS * (2 * 16 + 32 + 2 * 4 * u16_words(f, f_slice)
                             + 2 * 8))
+
+
+def launch_grid(sms: int, per_sm: int, num_slices: int, num_tiles: int,
+                bin_bytes: int):
+    """(CTAs launched, CTAs per tile of bins) of a histogram launch on
+    ``sms`` SMs that hold ``per_sm`` CTAs each (``level_hist_common.cuh``:
+    ``hist_grid``). uint8 ids, one tile: a CTA per SM slot, at least one
+    per slice. uint16 ids: at most one wave; each tile takes
+    max(slices, floor(wave / tiles)) CTAs, and where those pass a wave
+    the launched CTAs take them in turn."""
+    wave = sms * per_sm
+    if bin_bytes == 1:
+        ctas = max(wave, num_slices)
+        return ctas, ctas
+    per_tile = max(num_slices, wave // num_tiles)
+    return min(per_tile * num_tiles, wave), per_tile
+
+
+def _kernel_plan(plane: str, f: int, b: int, bin_bytes: int):
+    """(features per CTA, slices, bins per tile, tiles, shared memory
+    bytes of a CTA) of a histogram launch on ``plane`` ("f32" or
+    "quant")."""
+    if plane == "f32":
+        f_slice, num_slices, tile_bins, num_tiles = f32_plan(f, b, bin_bytes)
+        smem = (f32_smem_bytes(f_slice, b) if bin_bytes == 1
+                else f32_u16_smem_bytes(f, f_slice, tile_bins))
+    else:
+        f_slice, num_slices, tile_bins, num_tiles = quant_plan(f, b,
+                                                               bin_bytes)
+        smem = (quant_smem_bytes(f_slice, b) if bin_bytes == 1
+                else quant_u16_smem_bytes(f, f_slice, tile_bins))
+    return f_slice, num_slices, tile_bins, num_tiles, smem
+
+
+def launch_geometry(plane: str, f: int, b: int,
+                    bin_bytes: int) -> Dict[str, int]:
+    """The grid a histogram launch takes on the current card (``plane``
+    "f32" or "quant"): the plan's features per slice, slices, bins per
+    tile and tiles, the shared memory of a CTA, and from the kernel's
+    library the SMs, CTAs per SM (the occupancy API), CTAs launched and
+    CTAs per tile."""
+    plan = _kernel_plan(plane, f, b, bin_bytes)
+    name = "level_hist" if plane == "f32" else "level_hist_quant"
+    lib = bindings.load(name)
+    out = (ctypes.c_int * 4)()
+    code = getattr(lib, f"mmls_{name}_grid")(bin_bytes, plan[4], plan[1],
+                                             plan[3],
+                                             torch.cuda.current_device(), out)
+    bindings.check(lib, code, f"{name} grid")
+    return dict(zip(("f_slice", "slices", "tile_bins", "tiles",
+                     "smem_bytes", "sms", "per_sm", "ctas", "per_tile"),
+                    (*plan, *out)))
+
+
+def _word_aligned(binned):
+    """The ids as the kernels take them: a uint16 view that starts off a
+    4-byte boundary is copied (a kernel stages a row as the 4-byte words
+    covering its ids)."""
+    if binned.element_size() == 2 and binned.data_ptr() % 4:
+        return binned.clone()
+    return binned
 
 
 def _check_card_limits(width, n):
@@ -346,15 +446,16 @@ def _launch(binned, grad, hess, live, local, width, f, b):
     stats = torch.empty((n, 4), dtype=torch.float32, device=dev)
     counts, offsets, order = _partition_scratch(n, width, dev)
     bin_bytes = binned.element_size()
-    f_slice, num_slices, tile_bins, num_tiles = f32_plan(f, b, bin_bytes)
+    f_slice, num_slices, tile_bins, num_tiles, smem = _kernel_plan(
+        "f32", f, b, bin_bytes)
+    binned = _word_aligned(binned)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.mmls_level_hist(
         binned.data_ptr(), grad.data_ptr(), hess.data_ptr(), live.data_ptr(),
         local.data_ptr(), local.element_size(), stats.data_ptr(),
         counts.data_ptr(), offsets.data_ptr(), order.data_ptr(),
         acc.data_ptr(), out.data_ptr(), n, f, b, width, f_slice, num_slices,
-        bin_bytes, tile_bins, num_tiles,
-        f32_smem_bytes(f_slice, tile_bins, bin_bytes), dev.index, stream)
+        bin_bytes, tile_bins, num_tiles, smem, dev.index, stream)
     bindings.check(lib, code, "level_hist kernel launch")
     _count_launch("hist_kernel_launches" if bin_bytes == 1
                   else "hist_u16_kernel_launches")
@@ -373,29 +474,41 @@ def quant_window(bits: int) -> int:
 
 def quant_plan(f: int, b: int, bin_bytes: int = 1):
     """(features per CTA, slices, bins per tile, tiles) of
-    ``csrc/level_hist_quant.cu`` (:func:`_plan`,
-    :func:`quant_smem_bytes`): on uint8 ids every slice of 32 features
-    fits with one tile; on uint16 ids 28 features take tiles of at most
-    264 bins."""
-    return _plan(f, b, bin_bytes, quant_smem_bytes)
+    ``csrc/level_hist_quant.cu``: on uint8 ids the slices of
+    :func:`quant_feature_slices` and one tile of B bins; on uint16 ids
+    :func:`_u16_plan` over :func:`quant_u16_smem_bytes` (at F = 28: 2
+    slices of 14 at B = 511, 3 of 10 at 1,023, 7 of 4 at 4,095; tiles of
+    bins past about 17,000)."""
+    if bin_bytes == 1:
+        return (*quant_feature_slices(f, b), b, 1)
+    return _u16_plan(f, b, quant_u16_smem_bytes)
 
 
 def quant_feature_slices(f: int, b: int):
     """(features per CTA, number of slices) of ``csrc/level_hist_quant.cu``
     on uint8 ids (:func:`quant_smem_bytes`): at B <= 256 every slice of
     32 features fits."""
-    return quant_plan(f, b)[:2]
+    return _lane_slices(f, lambda fs: quant_smem_bytes(fs, b) <= SMEM_BYTES)
 
 
-def quant_smem_bytes(f_slice: int, b: int, bin_bytes: int = 1) -> int:
-    """Dynamic shared memory of one ``level_hist_quant.cu`` CTA holding
-    the cells of ``b`` bins: int32 cells in three channel planes over (b,
-    32 lanes); ``QUANT_STAGES`` chunks of ``QUANT_CHUNK_ROWS`` rows'
-    packed stat words (4 bytes), row ids (4 bytes) and bin ids
-    (``bin_bytes`` each, padded to a word)."""
+def quant_smem_bytes(f_slice: int, b: int) -> int:
+    """Dynamic shared memory of one ``level_hist_quant.cu`` CTA on uint8
+    ids: int32 cells in three channel planes over (B, 32 lanes);
+    ``QUANT_STAGES`` chunks of ``QUANT_CHUNK_ROWS`` rows' packed stat
+    words (4 bytes), row ids (4 bytes) and bin bytes (padded to a word)."""
     return (3 * b * WARP_LANES * 4
+            + QUANT_STAGES * QUANT_CHUNK_ROWS * (4 + 4 + -(-f_slice // 4) * 4))
+
+
+def quant_u16_smem_bytes(f: int, f_slice: int, tile_bins: int) -> int:
+    """Dynamic shared memory of one ``level_hist_quant.cu`` CTA on uint16
+    ids: int32 cells in three channel planes (:func:`u16_plane_words`)
+    over the slice's features and the tile's bins; the staging ring of
+    :func:`quant_smem_bytes` with each row's ids as :func:`u16_words`
+    words and a byte of the row's parity."""
+    return (3 * u16_plane_words(f_slice, tile_bins) * 4
             + QUANT_STAGES * QUANT_CHUNK_ROWS
-            * (4 + 4 + _staged_bytes(f_slice, bin_bytes)))
+            * (4 + 4 + 4 * u16_words(f, f_slice) + 1))
 
 
 def level_histogram_quant(binned, grad_q, hess_q, live, local, width: int,
@@ -450,7 +563,9 @@ def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
     stats = torch.empty(n, dtype=torch.int32, device=dev)
     counts, offsets, order = _partition_scratch(n, width, dev)
     bin_bytes = binned.element_size()
-    f_slice, num_slices, tile_bins, num_tiles = quant_plan(f, b, bin_bytes)
+    f_slice, num_slices, tile_bins, num_tiles, smem = _kernel_plan(
+        "quant", f, b, bin_bytes)
+    binned = _word_aligned(binned)
     bits = grad_q.element_size() * 8
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.mmls_level_hist_quant(
@@ -459,8 +574,7 @@ def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
         stats.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
         order.data_ptr(), acc.data_ptr(), out.data_ptr(), gsi.data_ptr(),
         hsi.data_ptr(), bits, n, f, b, width, f_slice, num_slices,
-        bin_bytes, tile_bins, num_tiles,
-        quant_smem_bytes(f_slice, tile_bins, bin_bytes), quant_window(bits),
+        bin_bytes, tile_bins, num_tiles, smem, quant_window(bits),
         dev.index, stream)
     bindings.check(lib, code, "level_hist_quant kernel launch")
     _count_launch("hist_quant_kernel_launches" if bin_bytes == 1

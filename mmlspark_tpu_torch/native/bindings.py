@@ -55,6 +55,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # bin bytes, tile bins, tiles, smem bytes, device, stream
         "mmls_level_hist": ([_VP] * 5 + [_I] + [_VP] * 6 + [_LL]
                             + [_I] * 10 + [_VP], _I),
+        # bin bytes, smem bytes, slices, tiles, device, out: 4 int32 (SMs,
+        # CTAs per SM, CTAs, CTAs per tile)
+        "mmls_level_hist_grid": ([_I] * 5 + [ctypes.POINTER(_I)], _I),
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "level_hist_quant": {
@@ -64,6 +67,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # bytes, window, device, stream
         "mmls_level_hist_quant": ([_VP] * 5 + [_I] + [_VP] * 8 + [_I, _LL]
                                   + [_I] * 11 + [_VP], _I),
+        # as mmls_level_hist_grid
+        "mmls_level_hist_quant_grid": ([_I] * 5 + [ctypes.POINTER(_I)], _I),
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attn": {

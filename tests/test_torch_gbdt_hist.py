@@ -195,11 +195,10 @@ def _replay_kernel(binned, grad, hess, live, local, width, f, b, chunk,
     chunk in the kernel's warp and lane order), adding the rows' fixed-point
     terms into private int64 cells and flushing them into the int64 sums
     where the run leaves a node; then the dequantization ``float32(
-    float64(sum) * 2^-e)``. With ``tile_bins`` (the uint16 instance) the
-    grid repeats once per tile of that many bins, each CTA's cells those
-    of its tile and its flush into the tile's sums; pairs of other tiles
-    are skipped. Returns the histogram, each row's visits per slice (and
-    tile), and the number of flushes."""
+    float64(sum) * 2^-e)``. uint16 ids take the uint16 kernel's walk
+    (``_replay_u16``), ``grid`` then the SMs' CTA slots and ``tile_bins``
+    the bins per tile (default B). Returns the histogram, each row's
+    visits per slice (and tile), and the number of flushes."""
     order, offsets = _replay_partition(local, live, width, seg_rows=64)
     num_slices = -(-f // f_slice)
     x = np.stack([grad * live, hess * live, live], axis=-1)    # float32
@@ -208,15 +207,18 @@ def _replay_kernel(binned, grad, hess, live, local, width, f, b, chunk,
     terms = np.rint(np.ldexp(x.astype(np.float64), e)).astype(np.int64)
     acc = np.zeros((width, f, b, 3), np.int64)
     seen = np.zeros((num_slices, len(local)), np.int64)
+    if binned.dtype == np.uint16:
+        flushes = _replay_u16(binned, terms, order, offsets, acc, seen, f, b,
+                              chunk, grid, f_slice, tile_bins)
+        out = np.ldexp(acc.astype(np.float64), -e).astype(np.float32)
+        return out, seen, flushes
     kept, flushes = int(offsets[width]), 0
-    tile = b if tile_bins is None else tile_bins
-    for (cta, t0) in ((c, t) for t in range(0, b, tile) for c in range(grid)):
-        bt = min(tile, b - t0)
+    for cta in range(grid):
         s, g0, g1, f0, fs = _cta_slice(cta, grid, f, f_slice)
         p = kept * (cta - g0) // (g1 - g0)
         p_end = kept * (cta - g0 + 1) // (g1 - g0)
         w = int(np.searchsorted(offsets[:width], p, side="right")) - 1
-        cells = np.zeros((fs, bt, 3), np.int64)           # shared memory
+        cells = np.zeros((fs, b, 3), np.int64)            # shared memory
         while p < p_end:
             seg_end = min(p_end, int(offsets[w + 1]))
             if seg_end > p:
@@ -225,16 +227,138 @@ def _replay_kernel(binned, grad, hess, live, local, width, f, b, chunk,
                     seen[s, rows] += 1
                     for j, fl in _chunk_pairs(len(rows), fs):
                         r = rows[j]
-                        bin_ = int(binned[r, f0 + fl]) - t0
-                        if 0 <= bin_ < bt:                 # this tile's bin
-                            cells[fl, bin_] += terms[r]
-                acc[w, f0:f0 + fs, t0:t0 + bt] += cells    # the flush
+                        cells[fl, binned[r, f0 + fl]] += terms[r]
+                acc[w, f0:f0 + fs] += cells                # the flush
                 cells[:] = 0
                 flushes += 1
                 p = seg_end
             w += 1
     out = np.ldexp(acc.astype(np.float64), -e).astype(np.float32)
     return out, seen, flushes
+
+
+# --- the uint16 kernels' walk ------------------------------------------------
+
+def _u16_chunk_pairs(rows, fs, warps=KERNEL_WARPS):
+    """The (row, feature) pairs of ``rows`` staged rows as the uint16
+    kernels add them: a warp adds rpw = 32 // fs rows at once, lane
+    ``k * fs + fl`` feature fl of the group's row k (lanes past rpw * fs
+    idle); warp w takes the groups w, w + warps, ..."""
+    rpw = 32 // fs
+    for warp in range(warps):
+        for j0 in range(warp * rpw, rows, warps * rpw):
+            for lane in range(32):
+                k, fl = divmod(lane, fs)
+                if k < rpw and j0 + k < rows:
+                    yield j0 + k, fl
+
+
+def _stage_u16(binned, rows, f, f0, fs, f_slice):
+    """The uint16 kernels' staging of a chunk's rows: per row the
+    ``H.u16_words(F, f_slice)`` 4-byte words covering its ids [r*F + f0,
+    ... + fs) of the flat ids, each copied only where it lies in that span
+    (``level_hist_common.cuh``: ``stage_u16_word``; the rest keep a value
+    no bin has), and the row's parity as the kernels compute it, ``((r &
+    F) ^ f0) & 1``. Returns the staged rows as uint16 halves, (rows, 2 *
+    words), and the parities."""
+    flat = binned.reshape(-1)
+    if flat.size % 2:                 # the last word past the tensor's end
+        flat = np.append(flat, np.uint16(0))
+    ids = flat.view(np.uint32)
+    words = H.u16_words(f, f_slice)
+    staged = np.full((len(rows), words), 0xFFFFFFFF, np.uint32)
+    for j, r in enumerate(rows):
+        e = int(r) * f + f0
+        last = (e + fs - 1) // 2 - e // 2
+        assert last < words                        # the words cover the row
+        staged[j, :last + 1] = ids[e // 2:e // 2 + last + 1]
+    return staged.view(np.uint16), ((rows & f) ^ f0) & 1
+
+
+def _u16_cells(staged, odd, rows, fs, t0, bt):
+    """The pairs of ``rows`` staged rows in the uint16 kernels' order
+    (``_u16_chunk_pairs``) whose bin lies in the tile [t0, t0 + bt): the
+    row of each and its cell, ``H.u16_cell(fs, fl, bin - t0)``, reading
+    the bin from the staged halves at the row's parity plus fl."""
+    pairs = np.array(list(_u16_chunk_pairs(rows, fs)), np.int64)
+    j, fl = pairs[:, 0], pairs[:, 1]
+    bins = staged[j, odd[j] + fl].astype(np.int64) - t0
+    mine = (bins >= 0) & (bins < bt)
+    return j[mine], H.u16_cell(fs, fl[mine], bins[mine])
+
+
+def _u16_ctas(f, b, grid, f_slice, tile_bins):
+    """The uint16 kernels' virtual CTAs in the order the launched CTAs
+    take them (``H.launch_grid`` on ``grid`` SM slots): (launched CTA,
+    first virtual CTA it takes, slice, first feature, features, first bin
+    of the tile, bins of the tile, CTA of the slice among the tile's, the
+    slice's CTAs [g0, g1))."""
+    tile_bins = b if tile_bins is None else tile_bins
+    num_tiles = -(-b // tile_bins)
+    ctas, per_tile = H.launch_grid(grid, 1, -(-f // f_slice), num_tiles, 2)
+    assert ctas <= grid
+    for cta in range(ctas):
+        for v in range(cta, per_tile * num_tiles, ctas):
+            t, x = divmod(v, per_tile)
+            s, g0, g1, f0, fs = _cta_slice(x, per_tile, f, f_slice)
+            t0 = t * tile_bins
+            yield (cta, v == cta, s, f0, fs, t0, min(tile_bins, b - t0), x,
+                   g0, g1)
+
+
+def _u16_flush(cells, acc, w, f, b, f0, fs, t0, bt):
+    """A uint16 kernel's flush of ``cells`` ((3, plane), the channels of
+    (feature fl, bin) at ``H.u16_cell(fs, fl, bin)``) into node w's int64
+    sums, in
+    the kernel's indexing: entry i of the (fs, bt, 3) run is channel i %
+    3 of feature i // 3 // bt and bin i // 3 % bt, added at ((w*F + f0 +
+    fl)*B + t0 + bin)*3 + c of the flat sums. Clears the cells."""
+    i = np.arange(3 * fs * bt)
+    c, cf = i % 3, i // 3 // bt
+    bin_ = i // 3 - cf * bt
+    dst = (((w * f + f0 + cf) * b + t0 + bin_) * 3 + c)
+    np.add.at(acc.reshape(-1), dst, cells[c, H.u16_cell(fs, cf, bin_)])
+    cells[:] = 0
+
+
+def _replay_u16(binned, terms, order, offsets, acc, seen, f, b, chunk, grid,
+                f_slice, tile_bins):
+    """numpy replay of level_hist.cu's uint16 kernel (``_replay_kernel``
+    on uint16 ids): the virtual CTAs of ``_u16_ctas``, each walking its
+    equal run of the sorted kept rows node by node in chunks of ``chunk``
+    rows, staging each chunk's ids as the kernel does (``_stage_u16``),
+    adding every (row, feature) pair of its tile's bins in the kernel's
+    order (``_u16_chunk_pairs``) into int64 cells at ``H.u16_cell``,
+    and flushing where its run leaves a node (``_u16_flush``). Cells a
+    launched CTA carries from one virtual CTA to the next are zero. Adds
+    into ``acc`` and ``seen``; returns the flushes."""
+    width = len(offsets) - 1
+    kept, flushes = int(offsets[width]), 0
+    plane = H.u16_plane_words(f_slice, b if tile_bins is None else tile_bins)
+    cells = {}
+    for (cta, first, s, f0, fs, t0, bt, x, g0, g1) in _u16_ctas(
+            f, b, grid, f_slice, tile_bins):
+        mine = cells.setdefault(cta, np.zeros((3, plane), np.int64))
+        assert not mine.any()
+        p = kept * (x - g0) // (g1 - g0)
+        p_end = kept * (x - g0 + 1) // (g1 - g0)
+        w = int(np.searchsorted(offsets[:width], p, side="right")) - 1
+        while p < p_end:
+            seg_end = min(p_end, int(offsets[w + 1]))
+            if seg_end > p:
+                for c0 in range(p, seg_end, chunk):
+                    rows = order[c0:min(c0 + chunk, seg_end)]
+                    seen[s, rows] += 1
+                    staged, odd = _stage_u16(binned, rows, f, f0, fs,
+                                             f_slice)
+                    j, idx = _u16_cells(staged, odd, len(rows), fs, t0, bt)
+                    for c in range(3):
+                        np.add.at(mine[c], idx, terms[rows[j], c])
+                _u16_flush(mine, acc, w, f, b, f0, fs, t0, bt)
+                flushes += 1
+                p = seg_end
+            w += 1
+    return flushes
 
 
 def _pack(gq, hq):
@@ -262,11 +386,13 @@ def _replay_quant_kernel(binned, gq, hq, live, local, width, f, b, gsi,
     int32 cells (wrapping as the card's do) in three channel planes over
     (bin, lane), and flushing them, sign-extended, into the int64 sums
     where the run leaves a node or once one more chunk could pass
-    ``window`` rows; then ``float32(sum * float64(scale_inv))``. With
-    ``tile_bins`` the grid repeats per tile of bins, as in
-    ``_replay_kernel``. Returns the histogram, each row's visits per
-    slice (and tile), the number of flushes and the largest magnitude a
-    cell held between flushes."""
+    ``window`` rows; then ``float32(sum * float64(scale_inv))``. uint16
+    ids take the uint16 kernel's walk, as in ``_replay_kernel``: virtual
+    CTAs (``_u16_ctas``), several rows per warp instruction, cells of
+    the slice's features at ``H.u16_cell``, tiles of ``tile_bins``.
+    Returns the histogram, each row's visits per slice (and tile), the
+    number of flushes and the largest magnitude a cell held between
+    flushes."""
     order, offsets = _replay_partition(local, live, width, seg_rows=64,
                                        plane="quant")
     gw, hw = _unpack(_pack(gq, hq))
@@ -274,18 +400,32 @@ def _replay_quant_kernel(binned, gq, hq, live, local, width, f, b, gsi,
     acc = np.zeros((width, f, b, 3), np.int64)
     seen = np.zeros((num_slices, len(local)), np.int64)
     kept, flushes, most = int(offsets[width]), 0, 0
-    tile = b if tile_bins is None else tile_bins
-    for (cta, t0) in ((c, t) for t in range(0, b, tile) for c in range(grid)):
-        bt = min(tile, b - t0)
-        s, g0, g1, f0, fs = _cta_slice(cta, grid, f, f_slice)
-        p = kept * (cta - g0) // (g1 - g0)
-        p_end = kept * (cta - g0 + 1) // (g1 - g0)
+    u16 = binned.dtype == np.uint16
+    if u16:
+        plane = H.u16_plane_words(f_slice,
+                                  b if tile_bins is None else tile_bins)
+        ctas = _u16_ctas(f, b, grid, f_slice, tile_bins)
+    else:
+        plane = None
+        ctas = [(c, True, s, f0, fs, 0, b, c, g0, g1) for c in range(grid)
+                for s, g0, g1, f0, fs in [_cta_slice(c, grid, f, f_slice)]]
+    carried = {}
+    for (cta, first, s, f0, fs, t0, bt, x, g0, g1) in ctas:
+        p = kept * (x - g0) // (g1 - g0)
+        p_end = kept * (x - g0 + 1) // (g1 - g0)
         w = int(np.searchsorted(offsets[:width], p, side="right")) - 1
-        cells = np.zeros((3, bt, 32), np.int32)            # shared memory
-        exact = np.zeros((3, bt, 32), np.int64)            # unwrapped
+        if u16:                                            # shared memory
+            cells = carried.setdefault(cta, np.zeros((3, plane), np.int32))
+            assert not cells.any()
+        else:
+            cells = np.zeros((3, b, 32), np.int32)
+        exact = np.zeros(cells.shape, np.int64)            # unwrapped
         since = 0
         for c0 in range(p, p_end, chunk):
             c1 = min(c0 + chunk, p_end)
+            if u16:
+                staged, odd = _stage_u16(binned, order[c0:c1], f, f0, fs,
+                                         f_slice)
             pos = c0
             while pos < c1:                                # node by node
                 while offsets[w + 1] <= pos:
@@ -295,19 +435,28 @@ def _replay_quant_kernel(binned, gq, hq, live, local, width, f, b, gsi,
                 rows = order[pos:seg_end]
                 seen[s, rows] += 1
                 ones = np.ones(len(rows), np.int32)
-                for lane in range(fs):
-                    bins = binned[rows, f0 + lane].astype(np.int64) - t0
-                    mine = (bins >= 0) & (bins < bt)       # this tile's bins
+                if u16:
+                    j, idx = _u16_cells(staged[pos - c0:], odd[pos - c0:],
+                                        len(rows), fs, t0, bt)
                     for c, v in enumerate((gw[rows], hw[rows], ones)):
-                        np.add.at(cells[c, :, lane], bins[mine], v[mine])
-                        np.add.at(exact[c, :, lane], bins[mine], v[mine])
+                        np.add.at(cells[c], idx, v[j])
+                        np.add.at(exact[c], idx, v[j])
+                else:
+                    for lane in range(fs):
+                        bins = binned[rows, f0 + lane].astype(np.int64)
+                        for c, v in enumerate((gw[rows], hw[rows], ones)):
+                            np.add.at(cells[c, :, lane], bins, v)
+                            np.add.at(exact[c, :, lane], bins, v)
                 since += seg_end - pos
                 pos = seg_end
                 if pos == node_end or pos == p_end or since > window - chunk:
                     most = max(most, int(np.abs(exact).max()))
-                    acc[w, f0:f0 + fs, t0:t0 + bt] += \
-                        cells[:, :, :fs].transpose(2, 1, 0)
-                    cells[:] = 0
+                    if u16:
+                        _u16_flush(cells, acc, w, f, b, f0, fs, t0, bt)
+                    else:
+                        acc[w, f0:f0 + fs] += \
+                            cells[:, :, :fs].transpose(2, 1, 0)
+                        cells[:] = 0
                     exact[:] = 0
                     flushes += 1
                     since = 0
@@ -786,60 +935,162 @@ def _u16_case(n, f, b, width, seed, integer_stats=True):
 
 @pytest.mark.parametrize("n,f,b,width,chunk,grid,f_slice,tile_bins", [
     (600, 5, 1023, 4, 32, 3, 4, 205),      # five tiles, two slices
-    (300, 27, 511, 2, 64, 2, 27, 171),     # odd F (byte-staged), three tiles
+    (300, 27, 511, 2, 64, 2, 27, 171),     # odd F, three tiles
     (257, 3, 700, 8, 16, 5, 1, 256),       # a short last tile
     (100, 2, 65_536, 1, 64, 1, 2, 32_768),  # the widest ids
+    (300, 28, 4095, 4, 64, 9, None, None),  # the card's plans at 4,095 bins
+    (400, 27, 1023, 4, 32, 6, None, None),  # odd F at the card's plans
+    (300, 27, 511, 2, 64, 4, None, None),   # even slices of odd F
 ])
 def test_tiled_walks_are_bitwise(n, f, b, width, chunk, grid, f_slice,
                                  tile_bins):
-    """The uint16 instances' walks: every tile's CTAs visit every kept row
-    once per slice and add only their tile's bins, and the replayed tiles
-    give the plain version's bits, int64 cells on integer and on float
-    stats, int32 cells on quantized stats."""
-    tiles = -(-b // tile_bins)
+    """The uint16 instances' walks: narrow slices, several rows per warp
+    instruction, each row's ids staged as the words covering them, tiles
+    as virtual CTAs taken in turn by at most ``grid`` launched CTAs.
+    Every tile's CTAs visit every kept row once per slice and add only
+    their tile's bins, and the replayed walks give the plain version's
+    bits: int64 cells on integer and on float stats, int32 cells on
+    quantized stats. ``f_slice`` None: each plane's own plan
+    (``H.f32_plan`` / ``H.quant_plan``)."""
+    plans = {name: (f_slice, tile_bins) if f_slice else plan(f, b, 2)[::2]
+             for name, plan in (("f32", H.f32_plan), ("quant", H.quant_plan))}
     for integer_stats in (True, False):
         arrays = _u16_case(n, f, b, width, seed=n + f,
                            integer_stats=integer_stats)
         binned, grad, hess, live, local = arrays
-        got, seen, _ = _replay_kernel(*arrays, width, f, b, chunk, grid,
-                                      f_slice, tile_bins=tile_bins)
+        fs, tb = plans["f32"]
+        got, seen, _ = _replay_kernel(*arrays, width, f, b, chunk, grid, fs,
+                                      tile_bins=tb)
         for per_slice in seen:
             np.testing.assert_array_equal(
-                per_slice, tiles * (live != 0).astype(np.int64))
+                per_slice, -(-b // (tb or b)) * (live != 0).astype(np.int64))
         np.testing.assert_array_equal(got, _port(arrays, width, f, b))
     gq, hq = grad.astype(np.int16) * 1000, hess.astype(np.int16) * 1000
+    fs, tb = plans["quant"]
     got, seen, _, most = _replay_quant_kernel(
         binned, gq, hq, live, local, width, f, b, 2.0 ** -3, 2.0 ** -5,
-        chunk, grid, f_slice, H.quant_window(16), tile_bins=tile_bins)
+        chunk, grid, fs, H.quant_window(16), tile_bins=tb)
+    for per_slice in seen:
+        np.testing.assert_array_equal(
+            per_slice, -(-b // (tb or b)) * (live > 0).astype(np.int64))
     assert most < 2 ** 31
     np.testing.assert_array_equal(got, H.level_histogram_quant(
         *(torch.from_numpy(x) for x in (binned, gq, hq, live, local)),
         width, f, b, 2.0 ** -3, 2.0 ** -5).numpy())
 
 
-@pytest.mark.parametrize("plan,smem", [(H.f32_plan, H.f32_smem_bytes),
-                                       (H.quant_plan, H.quant_smem_bytes)])
+@pytest.mark.parametrize("plan,smem", [(H.f32_plan, H.f32_u16_smem_bytes),
+                                       (H.quant_plan, H.quant_u16_smem_bytes)])
 @pytest.mark.parametrize("f,b", [(28, 257), (28, 511), (28, 1023),
                                  (28, 4095), (27, 1023), (54, 1023),
                                  (136, 1023), (1, 65_536), (28, 65_536),
                                  (33, 300)])
 def test_uint16_plans_fit_and_cover_every_bin(plan, smem, f, b):
-    """On uint16 ids both kernels take slices of at most 32 features and
-    the fewest tiles of bins whose cells fit one CTA's shared memory
-    beside the slice's staging (two bytes an id, padded to a word), as
-    even as possible, covering B; the grid axis of tiles stays within
-    CUDA's 65,535."""
+    """On uint16 ids both kernels take the widest slice (at most 32
+    features) whose cells of every bin fit one CTA's shared memory beside
+    the staging, then the fewest slices of it, as even as possible, and
+    one tile; only where one feature's bins do not fit, slices of one
+    feature and the fewest tiles of bins that fit, as even as possible,
+    covering B."""
     f_slice, num_slices, tile_bins, num_tiles = plan(f, b, 2)
-    assert f_slice <= 32 and f_slice * num_slices >= f
-    assert smem(f_slice, tile_bins, 2) <= H.SMEM_BYTES
+    assert 1 <= f_slice <= 32
+    assert f_slice * num_slices >= f > f_slice * (num_slices - 1)
+    assert smem(f, f_slice, tile_bins) <= H.SMEM_BYTES
     assert tile_bins * num_tiles >= b > tile_bins * (num_tiles - 1)
-    assert num_tiles <= 65_535
-    if num_tiles > 1:                    # the fewest tiles that fit
+    if num_tiles > 1:                    # tiles only past one feature's bins
+        assert f_slice == 1 and smem(f, 1, b) > H.SMEM_BYTES
         wider = -(-b // (num_tiles - 1))
-        assert smem(f_slice, wider, 2) > H.SMEM_BYTES
-    if (f, b) == (28, 1023):             # the cases chip_smoke measures
-        assert (f_slice, num_tiles) == ((28, 5) if plan is H.f32_plan
-                                        else (28, 4))
+        assert smem(f, 1, wider) > H.SMEM_BYTES
+    elif num_slices > 1:                 # the fewest slices that fit
+        wider = -(-f // (num_slices - 1))
+        assert wider > 32 or smem(f, wider, b) > H.SMEM_BYTES
+    if f == 28:                          # the cases chip_smoke measures
+        want = {(H.f32_plan, 511): (14, 2), (H.f32_plan, 1023): (7, 4),
+                (H.f32_plan, 4095): (2, 14), (H.quant_plan, 511): (14, 2),
+                (H.quant_plan, 1023): (10, 3), (H.quant_plan, 4095): (4, 7)}
+        if (plan, b) in want:
+            assert (f_slice, num_slices) == want[plan, b]
+            assert num_tiles == 1
+
+
+@pytest.mark.parametrize("rows,fs", [(256, 7), (256, 8), (1024, 10),
+                                     (7, 28), (33, 2), (100, 1), (5, 32)])
+def test_u16_chunk_pairs_cover_each_row_and_feature_once(rows, fs):
+    pairs = list(_u16_chunk_pairs(rows, fs))
+    assert sorted(pairs) == [(j, fl) for j in range(rows) for fl in range(fs)]
+
+
+@pytest.mark.parametrize("f_slice", [1, 2, 3, 4, 7, 8, 10, 14, 16, 17, 32])
+def test_u16_cells_are_distinct_and_keep_features_apart(f_slice):
+    """``H.u16_cell``: every (feature, bin) of a slice, and of any
+    narrower last slice, has its own word inside the plane; feature fl's
+    words lie in its own g = 32 // fs banks, and g consecutive bins of one
+    feature (the rows one warp instruction adds) fall on g banks."""
+    for tile_bins in (1, 2, 31, 255, 1023, 4095):
+        plane = H.u16_plane_words(f_slice, tile_bins)
+        for fs in {f_slice, max(1, f_slice - 3), 1}:
+            g = 32 // fs
+            fl, bins = np.meshgrid(np.arange(fs), np.arange(tile_bins),
+                                   indexing="ij")
+            words = H.u16_cell(fs, fl, bins)
+            assert len(np.unique(words)) == words.size
+            assert words.min() >= 0 and words.max() < plane
+            np.testing.assert_array_equal(words % 32 // g, fl)
+            if tile_bins >= g:
+                assert len(set(words[0, :g] % 32)) == g
+
+
+@pytest.mark.parametrize("f", [1, 2, 3, 7, 27, 28, 54, 136])
+def test_u16_words_cover_every_slice_of_every_row(f):
+    """``H.u16_words(F, f_slice)`` words hold the words covering any row's
+    ids of any slice, whichever half of a word the row's first id takes
+    (the kernels' staging copies no more)."""
+    for f_slice in range(1, min(f, 32) + 1):
+        words = H.u16_words(f, f_slice)
+        assert words <= f_slice // 2 + 1
+        for f0 in range(0, f, f_slice):
+            fs = min(f_slice, f - f0)
+            for r in range(4):
+                e = r * f + f0
+                assert (e + fs - 1) // 2 - e // 2 + 1 <= words
+
+
+@pytest.mark.parametrize("per_sm", [1, 2])
+@pytest.mark.parametrize("bin_bytes,f,b", [
+    (1, 28, 255), (1, 54, 255), (1, 136, 256), (2, 28, 511), (2, 28, 1023),
+    (2, 28, 4095), (2, 27, 1023), (2, 136, 1023), (2, 1, 65_536),
+    (2, 28, 65_536), (2, 136, 65_536)])
+@pytest.mark.parametrize("plan", [H.f32_plan, H.quant_plan])
+def test_every_plan_launches_at_most_one_wave(plan, bin_bytes, f, b, per_sm):
+    """On 132 SMs of ``per_sm`` CTAs each, every plan's grid fits one
+    wave, and every slice of every tile has a CTA: uint8 ids a CTA per SM
+    slot; uint16 ids every virtual CTA taken by a launched one."""
+    f_slice, num_slices, tile_bins, num_tiles = plan(f, b, bin_bytes)
+    wave = 132 * per_sm
+    ctas, per_tile = H.launch_grid(132, per_sm, num_slices, num_tiles,
+                                   bin_bytes)
+    assert ctas <= wave and per_tile >= num_slices
+    if bin_bytes == 1:
+        assert ctas == per_tile == wave and num_tiles == 1
+    else:
+        assert ctas == min(wave, per_tile * num_tiles)
+        assert per_tile * num_tiles <= wave or per_tile == num_slices
+
+
+def test_uint16_views_off_a_word_are_copied_for_the_kernels():
+    """The kernels stage a uint16 row as the 4-byte words that cover it,
+    so a view starting off a word boundary is copied; others and uint8
+    ids are passed as they are."""
+    base = torch.arange(64, dtype=torch.int16).view(torch.uint16)
+    odd = base[1:].view(63, 1)
+    assert odd.data_ptr() % 4 == 2
+    moved = H._word_aligned(odd)
+    assert moved.data_ptr() % 4 == 0
+    assert torch.equal(moved.view(torch.int16), odd.view(torch.int16))
+    even = base[2:].view(31, 2)
+    assert H._word_aligned(even) is even
+    ids8 = torch.zeros((5, 3), dtype=torch.uint8)[1:]
+    assert H._word_aligned(ids8) is ids8
 
 
 @pytest.mark.parametrize("f,b", [(28, 255), (54, 255), (136, 256), (7, 2)])

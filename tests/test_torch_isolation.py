@@ -28,6 +28,7 @@ PORT_FILES = sorted((ROOT / "mmlspark_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_hist_ab.py",
        ROOT / "tools" / "torch_flash_ab.py",
        ROOT / "tools" / "torch_hist_quant_configs.py",
+       ROOT / "tools" / "torch_hist_u16_layouts.py",
        ROOT / "tools" / "torch_serving_ab.py",
        ROOT / "tools" / "torch_score_ab.py",
        ROOT / "tools" / "torch_train_ab.py"]

@@ -2,14 +2,17 @@
 """The level-histogram kernel of two checkouts, timed in turns on one
 CUDA card.
 
-    python3 tools/torch_hist_ab.py [--plane f32|q16|q8] ROOT_A ROOT_B
+    python3 tools/torch_hist_ab.py [--plane f32|q16|q8] [--bins B]
+        [--features F] ROOT_A ROOT_B
 
 Each ROOT is a checkout of this repository. Every measurement runs in a
 process of its own that imports ``mmlspark_tpu_torch`` from its root
 (building that root's kernels), in the order A, B, B, A, so that two
 versions of the kernel are compared on one card within one call. Each
 process times the plane's histogram at the HIGGS bench shape
-(N=2,000,000, F=28, B=255, 90% live rows) for every level width of a
+(N=2,000,000, F=28, B=255, 90% live rows; ``--bins`` and ``--features``
+set B and F, and past 256 bins the ids are uint16, the kernels' uint16
+instances) for every level width of a
 depth-6 tree: ``hist_cuda.level_histogram`` on float32 stats (``f32``,
 the default; the inputs of ``chip_smoke.py``'s phase ``kernel``) or
 ``hist_cuda.level_histogram_quant`` on int16 (``q16``) or int8 (``q8``)
@@ -32,13 +35,24 @@ import re
 import subprocess
 import sys
 
-N, F, B = 2_000_000, 28, 255
+N = 2_000_000
 WIDTHS = (1, 2, 4, 8, 16, 32)
 REPS = 20
 PLANES = {"f32": None, "q16": ("int16", 32000), "q8": ("int8", 120)}
 
 
-def measure(root, plane):
+def bin_ids(torch, gen, n, f, b, dev):
+    """(n, f) uniform bin ids in [0, b): uint8 up to 256 bins, else uint16
+    (made as int32, which randint takes, narrowed through int16's
+    bits)."""
+    if b <= 256:
+        return torch.randint(0, b, (n, f), generator=gen, device=dev,
+                             dtype=torch.uint8)
+    return torch.randint(0, b, (n, f), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.int16).view(torch.uint16)
+
+
+def measure(root, plane, F, B):
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -50,8 +64,7 @@ def measure(root, plane):
     dev = torch.device("cuda")
     if plane == "f32":
         gen = torch.Generator(device=dev).manual_seed(0)
-        binned = torch.randint(0, B, (N, F), generator=gen, device=dev,
-                               dtype=torch.uint8)
+        binned = bin_ids(torch, gen, N, F, B, dev)
         live = (torch.rand(N, generator=gen, device=dev) < 0.9).float()
         g = torch.randn(N, generator=gen, device=dev)
         h = torch.rand(N, generator=gen, device=dev) * 0.9 + 0.1
@@ -63,8 +76,7 @@ def measure(root, plane):
         dtype_name, qmax = PLANES[plane]
         dtype = getattr(torch, dtype_name)
         gen = torch.Generator(device=dev).manual_seed(1)
-        binned = torch.randint(0, B, (N, F), generator=gen, device=dev,
-                               dtype=torch.uint8)
+        binned = bin_ids(torch, gen, N, F, B, dev)
         live = (torch.rand(N, generator=gen, device=dev) < 0.9).float()
         g = torch.round(torch.randn(N, generator=gen, device=dev)
                         .clamp(-4, 4) * (qmax / 4)).to(dtype)
@@ -105,7 +117,8 @@ def measure(root, plane):
     atomics = {}
     for op in re.findall(r"\b((?:ATOMS|ATOM|RED)\.[A-Z0-9.]+)", sass):
         atomics[op] = atomics.get(op, 0) + 1
-    print(json.dumps({"root": root, "plane": plane, "card": smi,
+    print(json.dumps({"root": root, "plane": plane, "f": F, "b": B,
+                      "bin_dtype": str(binned.dtype), "card": smi,
                       "ms_per_width": per_width,
                       "ms_per_tree": sum(per_width.values()),
                       "sha256": digest.hexdigest(),
@@ -116,12 +129,14 @@ def main(argv):
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     parser.add_argument("--plane", choices=tuple(PLANES), default="f32")
+    parser.add_argument("--bins", type=int, default=255)
+    parser.add_argument("--features", type=int, default=28)
     parser.add_argument("--measure", action="store_true",
                         help=argparse.SUPPRESS)
     parser.add_argument("roots", nargs="+")
     args = parser.parse_args(argv[1:])
     if args.measure:
-        measure(args.roots[0], args.plane)
+        measure(args.roots[0], args.plane, args.features, args.bins)
         return 0
     if len(args.roots) != 2:
         parser.error("give two roots")
@@ -130,14 +145,17 @@ def main(argv):
     digests = set()
     for root in (a, b, b, a):
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--measure", "--plane", args.plane, root],
+                              "--measure", "--plane", args.plane,
+                              "--bins", str(args.bins),
+                              "--features", str(args.features), root],
                              capture_output=True, text=True, check=True,
                              timeout=900)
         line = json.loads(out.stdout.strip().splitlines()[-1])
         print(json.dumps(line), flush=True)
         times[root].append(line["ms_per_tree"])
         digests.add(line["sha256"])
-    print(json.dumps({"plane": args.plane,
+    print(json.dumps({"plane": args.plane, "f": args.features,
+                      "b": args.bins,
                       "ms_per_tree": {r: sorted(t) for r, t in times.items()},
                       "same_bits": len(digests) == 1}), flush=True)
     return 0

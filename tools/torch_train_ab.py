@@ -3,16 +3,21 @@
 ``main_path`` and ``profile`` of each checkout's ``chip_smoke.py``, each
 run in its own process, in the order A, B, B, A.
 
-    python3 tools/torch_train_ab.py ROOT_A ROOT_B
+    python3 tools/torch_train_ab.py [--max-bin B] ROOT_A ROOT_B
 
 Each run builds its checkout's kernels, fits the 2M-row, 20-tree binary
 bench model as phase ``main_path`` does (its gates hold: 120
 ``level_hist`` launches, two fits bitwise equal) and profiles a 5-tree
-fit as phase ``profile`` does. Prints one JSON line per run — the fit's
-wall and rate, host syncs per fit, and the profiled fit's wall and the
-device's idle share (of the fit as it runs: the replayed captured step
-where the checkout has one) — then the card's name and power limit.
-Needs a CUDA card; run it from either root.
+fit as phase ``profile`` does. With ``--max-bin B`` (past 256: uint16
+ids, the histogram kernels' uint16 instances) it also bins the same rows
+at B bins and fits them on the float32, q16 and q8 planes as phase
+``breadth_path`` does: each ``train`` once to capture its step, then
+once timed (host clock to a synchronize), with its launches per kernel.
+Prints one JSON line per run — the fit's wall and rate, host syncs per
+fit, the profiled fit's wall and the device's idle share (of the fit as
+it runs: the replayed captured step where the checkout has one), and the
+wide fits' ``train`` s — then the card's name and power limit. Needs a
+CUDA card; run it from either root.
 """
 
 import json
@@ -35,12 +40,31 @@ row.update({"profile_wall_ms": fit_prof["wall_ms"],
             "device_busy_ms": fit_prof["device_busy_ms"],
             "device_idle_share": fit_prof["device_idle_share"],
             "step": main.get("step"), "capture": main.get("capture")})
+WIDE = int(sys.argv[1])
+if WIDE:
+    import dataclasses
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import BinMapper, train
+    x, y = C.make_data(C.N)
+    mapper = BinMapper.fit(x[:100_000], max_bin=WIDE)
+    binned = mapper.transform(x, np.uint16 if WIDE > 256 else np.uint8)
+    bin_upper = mapper.bin_upper_values(WIDE)
+    cfg = dataclasses.replace(ctx["main_inputs"][3], max_bin=WIDE)
+    for plane in ("off", "q16", "q8"):
+        with C.knobs(quant=plane):
+            train(binned, y, cfg, bin_upper=bin_upper)
+            _, wall, launches = C.counted_fit(torch, lambda: train(
+                binned, y, cfg, bin_upper=bin_upper))
+        row[f"max_bin_{WIDE}_{plane}"] = {"train_s": wall,
+                                          "launches": launches}
 print("RESULT " + json.dumps(row), flush=True)
 """
 
 
-def run(root):
-    proc = subprocess.run([sys.executable, "-c", RUN], cwd=root,
+def run(root, max_bin):
+    proc = subprocess.run([sys.executable, "-c", RUN, str(max_bin)],
+                          cwd=root,
                           capture_output=True, text=True, timeout=900)
     for line in proc.stdout.splitlines():
         if line.startswith("RESULT "):
@@ -50,13 +74,17 @@ def run(root):
 
 
 def main():
-    if len(sys.argv) != 3:
+    args = sys.argv[1:]
+    max_bin = 0
+    if args[:1] == ["--max-bin"] and len(args) > 1:
+        max_bin, args = int(args[1]), args[2:]
+    if len(args) != 2:
         print(__doc__, file=sys.stderr)
         return 2
-    a, b = sys.argv[1:]
+    a, b = args
     for label, root in (("A", a), ("B", b), ("B", b), ("A", a)):
-        print(json.dumps({"run": label, "root": root, **run(root)}),
-              flush=True)
+        print(json.dumps({"run": label, "root": root,
+                          **run(root, max_bin)}), flush=True)
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
