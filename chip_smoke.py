@@ -25,7 +25,11 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      staged id by id) with B = 1,023, every level width, bitwise against
      its plain version on integer and float stats and between two
      launches, with event-pair, device and plain times, the byte bound and
-     at B = 1,023 the ``index_add_`` call;
+     at B = 1,023 the ``index_add_`` call; and the width-1 call of the
+     leaf-wise builder, a node's membership as ``live`` (every row, half
+     of them, 2%), at B = 63 on uint8 ids and B = 1,023 on uint16 ids,
+     bitwise against its plain version and between two launches, timed
+     the same way;
   3. main path: ``BinMapper.fit`` / ``transform``, ``train`` (binary,
      num_leaves=63, max_depth=6, 20 trees) and ``predict_binned`` on the
      2M rows, with the histogram kernel's launch count over the fit
@@ -217,6 +221,27 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      version's and ``index_add_`` time beside the direct one's), the histogram
      kernels' device ms per tree and ``train`` s with ``MMLSPARK_TORCH_EFB``
      auto and off, final loglosses within 1e-4;
+ 14e. leaf-wise path (``MMLSPARK_TORCH_GROW_POLICY=leafwise``, the host
+     loop; LightGBM's GPU-performance HIGGS settings,
+     ``docs/GPU-Performance.rst``: the bench's 2M x 28 rows at
+     ``max_bin=63``, binary, 255 leaves, ``max_depth`` unset (depth cap
+     8), learning rate 0.1, ``min_sum_hessian_in_leaf=100``, 20 trees):
+     the fit's wall, its width-1 ``level_hist`` launches against the
+     builder's count, per tree the histogram kernel's device ms
+     (torch.profiler over 3 trees), the split search's and the host
+     reads' host ms, the logloss falling, two fits bitwise, the same fit
+     depthwise (wall, logloss), ``tree_score`` on the depth-8 booster
+     bitwise its plain version, card vs CPU at 100,000 rows and 5 trees
+     (L2: every tree equal; binary: roots equal);
+ 14f. DART path (the host loop): the bench fit with
+     ``boosting_type="dart"`` and LightGBM's default drops on the
+     float32 and q8 planes (120 launches each, two fits bitwise, drops
+     drawn, the wall against the captured gbdt fit's), a
+     ``LightGBMClassifier(boostingType="dart")`` on the 2M rows with 10%
+     validating and ``earlyStoppingRound=3`` (the stop; its transform
+     through ``tree_score.cu`` bitwise the plain version), card vs CPU at
+     100,000 rows and 5 trees (tree weights and roots equal, logloss
+     within 1e-4);
  15. tree scorer vs plain (after phase 14c): ``csrc/tree_score.cu``
      against ``score_cuda.tree_score_reference``, bit for bit and between
      two launches: the served model at every rung 1..64 (autocast off
@@ -560,9 +585,13 @@ def phase_kernel(ctx):
         torch.cuda.empty_cache()
     ctx["hist_u16"] = u16_cases(torch, "f32")
     torch.cuda.empty_cache()
+    ctx["hist_width1"] = width1_rows(torch)
     return {"widths": list(WIDTHS), "shapes": HIST_SHAPES,
             "all_bitwise": True,
-            "u16_per_tree": u16_summary(ctx["hist_u16"])}
+            "u16_per_tree": u16_summary(ctx["hist_u16"]),
+            "width1_member_ms": {
+                f"{r['ids']}_b{r['b']}_share{r['member_share']}":
+                r["kernel_device_ms"] for r in ctx["hist_width1"]}}
 
 
 # uint16 bin ids (max_bin above 256): the bench's rows at three bin counts;
@@ -1207,8 +1236,9 @@ def phase_main_quant(ctx):
             raise AssertionError(f"{quant}/sub={sub}: training logloss does "
                                  f"not fall: {lls}")
         # the plane and subtraction asked for, and no bundles (dense rows)
-        want = {"hist_quant": quant, "subtract": sub == "1",
-                "efb_bundles": 0, "efb_bundled_features": 0}
+        want = {"grow_policy": "depthwise", "hist_quant": quant,
+                "subtract": sub == "1", "efb_bundles": 0,
+                "efb_bundled_features": 0}
         if res.hist_stats != want:
             raise AssertionError(f"ran {res.hist_stats}, asked for {want}")
         return res, fit_s, (H.hist_kernel_launches,
@@ -3982,6 +4012,450 @@ def phase_breadth(ctx):
     return out
 
 
+# the leaf-wise and DART paths: LightGBM's GPU-performance HIGGS settings
+# (docs/GPU-Performance.rst: max_bin 63, num_leaves 255, learning_rate
+# 0.1, min_data_in_leaf 1, min_sum_hessian_in_leaf 100; max_depth unset,
+# so the port's depth cap is 8) on the bench's 2M x 28 rows, cut to 20
+# trees
+LEAF_BINS = 63
+LEAF_PARAMS = dict(objective="binary", num_iterations=TREES, num_leaves=255,
+                   max_depth=-1, max_bin=LEAF_BINS, learning_rate=0.1,
+                   min_sum_hessian_in_leaf=100.0, min_data_in_leaf=1)
+LEAF_PROFILE_TREES = 3
+# width-1 calls on a node's membership (the leaf-wise builder's): the
+# root (every row), a node of half the rows and one of 2% of them
+MEMBER_SHARES = (1.0, 0.5, 0.02)
+WIDTH1_BINS = ((LEAF_BINS, "uint8"), (1023, "uint16"))
+
+
+@contextlib.contextmanager
+def grow_policy(policy):
+    """``MMLSPARK_TORCH_GROW_POLICY`` for the fits inside the block."""
+    name = "MMLSPARK_TORCH_GROW_POLICY"
+    saved = os.environ.get(name)
+    os.environ[name] = policy
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+def width1_rows(torch):
+    """``level_hist`` at width 1 with a node's membership as ``live`` (the
+    leaf-wise builder's call) on the bench's 2M x 28 rows, at B = 63
+    (uint8 ids) and B = 1,023 (uint16), for each share of
+    ``MEMBER_SHARES``: bitwise against its plain version on float stats,
+    bitwise between two launches, with event-pair, device, plain and
+    ``index_add_`` times and the bound (the bytes the kernel must move:
+    ``live`` of every row, the member rows' ids, grad, hess and node
+    index, the output; the adds of the member rows)."""
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    dev = torch.device("cuda")
+    rows = []
+    for b, ids in WIDTH1_BINS:
+        gen = torch.Generator(device=dev).manual_seed(b)
+        binned = (torch.randint(0, b, (N, F), generator=gen, device=dev,
+                                dtype=torch.uint8) if ids == "uint8"
+                  else u16_ids(torch, gen, N, F, b, dev))
+        g = torch.randn(N, generator=gen, device=dev)
+        h = torch.rand(N, generator=gen, device=dev) * 0.9 + 0.1
+        local = torch.zeros(N, dtype=torch.int32, device=dev)
+        # each row's node at depth 6 of a random routing: a share of the
+        # rows is one node's membership
+        u = torch.rand(N, generator=gen, device=dev)
+        for share in MEMBER_SHARES:
+            live = (u < share).float()
+            args = (binned, g, h, live, local, 1, F, b)
+            k1, k2 = H.level_histogram(*args), H.level_histogram(*args)
+            p = H.level_histogram_reference(*args)
+            torch.cuda.synchronize()
+            bitwise, repeat = bool(torch.equal(k1, p)), bool(
+                torch.equal(k1, k2))
+            err = float((k1 - p).abs().max().item())
+            del k1, k2, p
+            kernel_ms = time_ms(torch, lambda: H.level_histogram(*args))
+            kernel_device_ms = device_ms(torch,
+                                         lambda: H.level_histogram(*args))
+            plain_ms = time_ms(torch, lambda: H.level_histogram_reference(
+                *args), reps=3, warmup=1)
+            idx = H.flat_index(binned, local, F, b)
+            src = torch.stack([g * live, h * live, live], -1)[:, None, :] \
+                .expand(N, F, 3).reshape(-1, 3)
+            library_ms = time_ms(torch, lambda: torch.zeros(
+                (F * b, 3), device=dev).index_add_(0, idx, src))
+            del idx, src
+            # the kernel reads a row past its live flag only where the
+            # row is a member: count this run's members
+            members = int(live.sum().item())
+            row_bytes = F * binned.element_size() + sum(
+                t.element_size() for t in (g, h, local))
+            in_bytes = live.numel() * live.element_size() + \
+                members * row_bytes
+            out_bytes = F * b * 3 * 4
+            ops = 3 * F * members
+            bytes_ms = (in_bytes + out_bytes) / MEM_BYTES_PER_S * 1e3
+            ops_ms = ops / F32_OPS_PER_S * 1e3
+            row = {"n": N, "f": F, "b": b, "ids": ids, "width": 1,
+                   "member_share": share, "bitwise": bitwise,
+                   "repeat_bitwise": repeat, "max_abs_err": err,
+                   "kernel_ms": kernel_ms,
+                   "kernel_device_ms": kernel_device_ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations"}
+            emit({"phase": "kernel_width1_vs_plain", **row})
+            rows.append(row)
+            if not (bitwise and repeat):
+                raise AssertionError(f"level_hist at width 1 on a node's "
+                                     f"membership disagrees: {row}")
+        del binned
+        torch.cuda.empty_cache()
+    return rows
+
+
+def leafwise_inputs():
+    x, y = make_data(N)
+    from mmlspark_tpu_torch import BinMapper
+    mapper = BinMapper.fit(x[:100_000], max_bin=LEAF_BINS)
+    return mapper.transform(x), y, mapper.bin_upper_values(LEAF_BINS)
+
+
+def phase_leafwise(ctx):
+    """Leaf-wise growth (``MMLSPARK_TORCH_GROW_POLICY=leafwise``) at
+    LightGBM's GPU-performance HIGGS settings on the bench's 2M x 28
+    rows (``LEAF_PARAMS``, 20 trees): the fit's wall, its histogram
+    launches (one width-1 ``level_hist`` call per histogrammed node, the
+    counter against the builder's own count), the per-tree split of the
+    time into the histogram kernel's device ms (torch.profiler over a
+    3-tree fit), the split search and the host reads (the builder's host
+    clocks), the logloss falling, two fits bitwise equal, the same fit
+    depthwise (wall, logloss), ``tree_score`` on the depth-8 booster
+    bitwise its plain version, and card vs CPU at 100,000 rows and 5
+    trees: L2 trees equal in every array (the objective, the histograms,
+    the host's split search and the routing are the same bits on both),
+    binary roots equal."""
+    import torch
+
+    from mmlspark_tpu_torch import TrainConfig, train
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+
+    binned, y, bin_upper = leafwise_inputs()
+    cfg = TrainConfig(**LEAF_PARAMS)
+    binned_d = torch.as_tensor(binned, device="cuda")
+    out = {"params": LEAF_PARAMS, "effective_depth": cfg.effective_depth,
+           "card": ctx["smi"]}
+    failures = []
+    with grow_policy("leafwise"):
+        train(binned, y, TrainConfig(**dict(LEAF_PARAMS, num_iterations=1)),
+              bin_upper=bin_upper)                         # warm-up
+        torch.cuda.synchronize()
+        H.hist_kernel_launches = H.hist_quant_kernel_launches = 0
+        H.hist_u16_kernel_launches = 0
+        t0 = time.perf_counter()
+        res = train(binned, y, cfg, bin_upper=bin_upper)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = H.hist_kernel_launches
+        quant_launches = H.hist_quant_kernel_launches + \
+            H.hist_u16_kernel_launches
+        again = train(binned, y, cfg, bin_upper=bin_upper)
+        prof_cfg = dataclasses.replace(cfg, num_iterations=LEAF_PROFILE_TREES)
+        prof = {}
+
+        def profiled():
+            prof["res"] = train(binned, y, prof_cfg, bin_upper=bin_upper)
+
+        wall_ms, by_name = device_ms_by_kernel(torch, profiled)
+    ctx["launches"]["leafwise_path"] = launches
+    loop = res.step_stats["host_loop"]
+    ploop = prof["res"].step_stats["host_loop"]
+    busy = sum(by_name.values())
+    lls = [e["train_binary_logloss"] for e in res.evals]
+    booster = res.booster
+    leaves = (booster.split_feature >= 0).sum(axis=1) + 1
+    out.update({
+        "fit_s": fit_s, "trees": booster.num_trees,
+        "hist_stats": res.hist_stats, "host_loop": loop,
+        "launches": launches, "launches_per_tree": launches / TREES,
+        "other_hist_launches": quant_launches,
+        "leaves_per_tree": [int(v) for v in leaves],
+        "two_fits_bitwise": boosters_equal(booster, again.booster),
+        "logloss_first": lls[0], "logloss_last": lls[-1],
+        "per_tree": {
+            "wall_ms": wall_ms / LEAF_PROFILE_TREES,
+            "hist_kernel_device_ms": hist_device_ms(by_name)
+            / LEAF_PROFILE_TREES,
+            "device_busy_ms": busy / LEAF_PROFILE_TREES if busy
+            else "not measured",
+            "device_idle_share": 1 - busy / wall_ms if busy
+            else "not measured",
+            "hist_calls": ploop["hist_calls"] / LEAF_PROFILE_TREES,
+            "host_reads": ploop["host_reads"] / LEAF_PROFILE_TREES,
+            "split_search_ms": ploop["search_s"] * 1e3 / LEAF_PROFILE_TREES,
+            "hist_enqueue_ms": ploop["hist_s"] * 1e3 / LEAF_PROFILE_TREES,
+            "host_read_wait_ms": ploop["read_s"] * 1e3 / LEAF_PROFILE_TREES,
+            "top_ms": {k: v / LEAF_PROFILE_TREES
+                       for k, v in top(by_name, 8).items()}},
+        "unprofiled_per_tree_ms": fit_s * 1e3 / TREES,
+        "unprofiled_split_search_ms_per_tree": loop["search_s"] * 1e3 / TREES,
+        "unprofiled_host_read_wait_ms_per_tree": loop["read_s"] * 1e3 / TREES,
+    })
+    if (launches != loop["hist_calls"] or quant_launches
+            or res.hist_stats["grow_policy"] != "leafwise"):
+        failures.append(f"launches {launches} (builder {loop['hist_calls']}),"
+                        f" other kernels {quant_launches}, "
+                        f"{res.hist_stats}")
+    if leaves.max() > 255 or leaves.max() < 100:
+        failures.append(f"leaves per tree {leaves.tolist()}")
+    if not out["two_fits_bitwise"]:
+        failures.append("two leaf-wise fits differ")
+    if not (all(b <= a + 1e-7 for a, b in zip(lls, lls[1:]))
+            and lls[-1] < lls[0]):
+        failures.append(f"logloss does not fall: {lls}")
+
+    # the same fit depthwise (the captured step: 8 levels, widths to 128)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    depth = train(binned, y, cfg, bin_upper=bin_upper)
+    torch.cuda.synchronize()
+    out["depthwise"] = {
+        "fit_s": time.perf_counter() - t0,
+        "grow_policy": depth.hist_stats["grow_policy"],
+        "logloss_last": depth.evals[-1]["train_binary_logloss"],
+        "leaves_per_tree_max": int(((depth.booster.split_feature >= 0)
+                                    .sum(axis=1) + 1).max())}
+
+    # tree_score on the depth-8 booster (511 slots, leaves at uneven
+    # depths): bitwise its plain version at the 2M binned rows, and its
+    # logloss the fit's last
+    tables = booster.predict_binned_scorer("off", "cuda").tables
+    rec, scores, ok = scorer_held(torch, S, "leafwise_2M", tables, binned_d)
+    out["tree_score"] = rec
+    scored_ll = logloss(scores.cpu().numpy(), y)
+    out["scored_logloss"] = scored_ll
+    if not ok or abs(scored_ll - lls[-1]) > 1e-5 * abs(lls[-1]):
+        failures.append(f"tree_score on the leaf-wise booster: {rec}, "
+                        f"logloss {scored_ll} against {lls[-1]}")
+    del scores, binned_d
+
+    # card vs CPU at 100,000 rows and 5 trees
+    small = binned[:100_000]
+    cvc = {}
+    with grow_policy("leafwise"):
+        for objective, label in (("regression", y[:100_000] * 2.0 - 1.0),
+                                 ("binary", y[:100_000])):
+            c = TrainConfig(**dict(LEAF_PARAMS, objective=objective,
+                                   num_iterations=5))
+            res2 = {dev: train(small, label, c, bin_upper=bin_upper,
+                               device=dev) for dev in ("cuda", "cpu")}
+            a, b = res2["cuda"].booster, res2["cpu"].booster
+            equal = int(sum(all(np.array_equal(getattr(a, k)[t],
+                                               getattr(b, k)[t])
+                                for k in BOOSTER_ARRAYS)
+                            for t in range(a.num_trees)))
+            cvc[objective] = {"trees": a.num_trees,
+                              "trees_equal_in_every_array": equal,
+                              "roots_equal": bool(np.array_equal(
+                                  a.split_feature[:, 0],
+                                  b.split_feature[:, 0]))}
+    out["card_vs_cpu"] = cvc
+    if (cvc["regression"]["trees_equal_in_every_array"] != 5
+            or not cvc["binary"]["roots_equal"]):
+        failures.append(f"card and CPU leaf-wise fits differ: {cvc}")
+    if failures:
+        emit({"phase": "leafwise_path_detail", **out})
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+DART_ES = dict(numIterations=60, learningRate=1.0, earlyStoppingRound=3,
+               numLeaves=63, maxDepth=6, maxBin=255, boostingType="dart")
+
+
+def phase_dart(ctx):
+    """DART (``boosting_type="dart"``, LightGBM's default drop settings:
+    drop_rate 0.1, skip_drop 0.5, max_drop 50) on the bench fit (2M x
+    28, 63 leaves, depth 6, 20 trees) through the host loop, on the
+    float32 and q8 planes: each fit's wall against the captured gbdt
+    fit's, 120 launches of the plane's kernel, two fits bitwise, the
+    tree weights (drops drawn), the logloss of the DART ensemble at the
+    end below the base score's; a ``LightGBMClassifier(boostingType=
+    "dart")`` fit on the 2M rows with 10% validating and
+    ``earlyStoppingRound`` 3 (60 iterations at learning rate 1.0): the
+    stop, its ``transform`` through ``tree_score.cu`` bitwise its plain
+    version; card vs CPU at 100,000 rows and 5 trees (L2 leaf-wise:
+    every array of all 5 trees equal; L2 depthwise: splits and counts
+    equal, node values within 1e-5 of the largest; binary: weights and roots
+    equal, logloss within 1e-4 relative). The kept per-tree
+    predictions: 20 x 8 MB on the card."""
+    import torch
+
+    from mmlspark_tpu_torch import (BinMapper, DataFrame, LightGBMClassifier,
+                                    TrainConfig, train)
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+
+    binned, y, bin_upper, cfg = ctx["main_inputs"]
+    dart = dataclasses.replace(cfg, boosting_type="dart")
+    binned_d = torch.as_tensor(binned.astype(np.uint8), device="cuda")
+    out = {"card": ctx["smi"]}
+    failures = []
+    ctx["launches"]["dart_path"] = {}
+    for quant in ("off", "q8"):
+        with knobs(quant=quant):
+            train(binned, y, cfg, bin_upper=bin_upper)   # gbdt, captured
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gbdt = train(binned, y, cfg, bin_upper=bin_upper)
+            torch.cuda.synchronize()
+            gbdt_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            H.hist_kernel_launches = H.hist_quant_kernel_launches = 0
+            t0 = time.perf_counter()
+            res = train(binned, y, dart, bin_upper=bin_upper)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = (H.hist_kernel_launches, H.hist_quant_kernel_launches)
+            again = train(binned, y, dart, bin_upper=bin_upper)
+        plane = "f32" if quant == "off" else quant
+        mine = launches[0] if quant == "off" else launches[1]
+        ctx["launches"]["dart_path"][plane] = mine
+        w = res.booster.tree_weights
+        ll_end = booster_logloss(res.booster, binned_d, y)
+        ll_base = booster_logloss(res.booster, binned_d, y, trees=0)
+        rec = {"fit_s": fit_s, "gbdt_fit_s": gbdt_s,
+               "dart_over_gbdt": fit_s / gbdt_s, "launches": mine,
+               "other_plane_launches": launches[1] if quant == "off"
+               else launches[0],
+               "captured": res.step_stats["captured"],
+               "hist_stats": res.hist_stats,
+               "two_fits_bitwise": boosters_equal(res.booster,
+                                                  again.booster),
+               "tree_weights": [float(v) for v in w],
+               "iterations_dropping": int(np.sum(w[:-1] < 1.0)),
+               "logloss_base": ll_base, "logloss_end": ll_end,
+               "gbdt_logloss_end": gbdt.evals[-1]["train_binary_logloss"],
+               "peak_device_bytes": peak}
+        out[plane] = rec
+        if (mine != TREES * cfg.effective_depth or rec["other_plane_launches"]
+                or rec["captured"] or not rec["two_fits_bitwise"]
+                or not (w < 1.0).any() or not ll_end < ll_base
+                or res.hist_stats["hist_quant"] != quant):
+            failures.append(f"{plane} dart fit: {rec}")
+
+    # the estimator: a validation set and early stopping
+    x, _ = make_data(N)
+    valid = np.random.default_rng(2).random(N) < 0.1
+    frame = DataFrame({"features": x, "label": y, "valid": valid})
+    H.hist_kernel_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = LightGBMClassifier(**DART_ES,
+                               validationIndicatorCol="valid").fit(frame)
+    torch.cuda.synchronize()
+    est = {"fit_s": time.perf_counter() - t0,
+           "trees": model.booster.num_trees,
+           "best_iteration": model.best_iteration,
+           "iterations_run": len(model.evals_result),
+           "launches": H.hist_kernel_launches}
+    ctx["launches"]["dart_path"]["estimator"] = H.hist_kernel_launches
+    S.tree_score_launches = 0
+    scored = model.transform(DataFrame({"features": x}))
+    est["transform_tree_score_launches"] = S.tree_score_launches
+    b = model.scoring_booster
+    tables = b._scorer(True, "off", "cuda",
+                       decision=b.decision_type is not None).tables
+    xd = torch.as_tensor(x, device="cuda").to(torch.float32).contiguous()
+    rec, got, ok = scorer_held(torch, S, "dart_transform", tables, xd)
+    est["tree_score"] = rec
+    est["transform_bitwise_tree_score"] = bool(np.array_equal(
+        scored["rawPrediction"][:, 1], got.cpu().numpy()))
+    out["estimator"] = est
+    del xd, got, scored
+    if not (ok and est["transform_bitwise_tree_score"]
+            and est["iterations_run"] < 60
+            and est["trees"] == est["best_iteration"] + 1
+            and est["transform_tree_score_launches"] == 1):
+        failures.append(f"dart estimator: {est}")
+
+    # card vs CPU at 100,000 rows and 5 trees, drops drawn (skip_drop 0).
+    # L2 grown leaf-wise: every array of every tree equal (the objective,
+    # the histograms, the drops and rescaling, and the host's float64
+    # split search are the same bits on both). L2 depthwise: the weights
+    # and every tree's splits and counts equal, node values within 1e-5
+    # of the largest |node value| (the card's split finding sums in
+    # another order: ulps of a node's sums, which nearly cancel in some).
+    # Binary depthwise: its sigmoid differs by ulps too (C10): weights and
+    # roots equal, the logloss within 1e-4 relative
+    xs, ys = make_data(100_000, seed=1)
+    mapper = BinMapper.fit(xs, max_bin=255)
+    small = mapper.transform(xs)
+    cvc = {}
+    for case, objective, policy in (
+            ("l2_leafwise", "regression", "leafwise"),
+            ("l2_depthwise", "regression", "depthwise"),
+            ("binary_depthwise", "binary", "depthwise")):
+        c = dataclasses.replace(dart, objective=objective, num_iterations=5,
+                                skip_drop=0.0)
+        label = ys * 2.0 - 1.0 if objective == "regression" else ys
+        with grow_policy(policy):
+            res2 = {dev: train(small, label, c, device=dev)
+                    for dev in ("cuda", "cpu")}
+        a, b2 = res2["cuda"].booster, res2["cpu"].booster
+
+        def same(names, t):
+            return all(np.array_equal(getattr(a, k)[t], getattr(b2, k)[t])
+                       for k in names)
+        nv_a, nv_b = (np.nan_to_num(v.node_value.astype(np.float64))
+                      for v in (a, b2))
+        scale = float(np.abs(nv_b).max())
+        rec = {"grow_policy": res2["cuda"].hist_stats["grow_policy"],
+               "weights_equal": bool(np.array_equal(a.tree_weights,
+                                                    b2.tree_weights)),
+               "tree_weights": [float(v) for v in a.tree_weights],
+               "roots_equal": bool(np.array_equal(a.split_feature[:, 0],
+                                                  b2.split_feature[:, 0])
+                                   and np.array_equal(a.threshold_bin[:, 0],
+                                                      b2.threshold_bin[:, 0])),
+               "trees_equal_in_every_array": int(sum(
+                   same(BOOSTER_ARRAYS, t) for t in range(a.num_trees))),
+               "trees_with_equal_splits_and_counts": int(sum(
+                   same(("split_feature", "threshold_bin", "count"), t)
+                   for t in range(a.num_trees))),
+               "node_value_max_abs_diff": float(np.abs(nv_a - nv_b).max()),
+               "node_value_max_abs": scale}
+        rec["node_value_diff_over_max"] = \
+            rec["node_value_max_abs_diff"] / scale
+        if objective == "binary":
+            ll = {dev: r.evals[-1]["train_binary_logloss"]
+                  for dev, r in res2.items()}
+            rec.update({"logloss_cuda": ll["cuda"], "logloss_cpu": ll["cpu"],
+                        "rel_diff": abs(ll["cuda"] - ll["cpu"])
+                        / abs(ll["cpu"])})
+        cvc[case] = rec
+    out["card_vs_cpu"] = cvc
+    leaf, depth, binary = (cvc["l2_leafwise"], cvc["l2_depthwise"],
+                           cvc["binary_depthwise"])
+    if not (all(r["weights_equal"] for r in cvc.values())
+            and (np.asarray(leaf["tree_weights"]) < 1.0).any()
+            and leaf["grow_policy"] == "leafwise"
+            and leaf["trees_equal_in_every_array"] == 5
+            and depth["trees_with_equal_splits_and_counts"] == 5
+            and depth["node_value_diff_over_max"] <= 1e-5
+            and binary["roots_equal"] and binary["rel_diff"] <= 1e-4):
+        failures.append(f"card and CPU dart fits differ: {cvc}")
+    if failures:
+        emit({"phase": "dart_path_detail", **out})
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def random_booster(seed, trees, depth, k, max_bin):
     """A random full-layout ensemble (the root splits, a node below an
     internal node with probability 0.8), tree weights 0.3..1.7: the
@@ -5456,6 +5930,21 @@ def kernel_table(ctx):
     # the same kernel on the one-hot rows' bundled matrix (1M x 32 of 284
     # columns), per tree (widths 1..32), beside the direct matrix's time
     kernels[0]["efb_bundled_per_tree"] = ctx["efb_hist_per_tree"]
+    # launches over leafwise_path's 20-tree leaf-wise fit (one width-1
+    # call per histogrammed node) and dart_path's 20-tree f32 DART fit (6
+    # per tree) and its early-stopped estimator fit; the q8 DART fit's
+    # quantized launches; the width-1 calls on a node's membership
+    # (phase kernel, uint8 at B = 63 and uint16 at B = 1,023), per call
+    kernels[0]["launches_leafwise_path"] = ctx["launches"]["leafwise_path"]
+    kernels[0]["launches_dart_path"] = ctx["launches"]["dart_path"]["f32"]
+    kernels[0]["launches_dart_path_estimator"] = \
+        ctx["launches"]["dart_path"]["estimator"]
+    kernels[2]["launches_dart_path"] = ctx["launches"]["dart_path"]["q8"]
+    kernels[0]["width1_member_calls"] = {
+        f"{r['ids']}_b{r['b']}_share{r['member_share']}": {k: r[k] for k in (
+            "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err")}
+        for r in ctx["hist_width1"]}
     # tree_score replaces an XLA scan, not a Pallas kernel: the row of
     # the main path's 2M-row call, beside the served model's rung 64
     score = ctx["score_rows"]
@@ -5567,6 +6056,8 @@ def main() -> int:
                      ("ranking_path", phase_ranking),
                      ("multiclass_path", phase_multiclass),
                      ("breadth_path", phase_breadth),
+                     ("leafwise_path", phase_leafwise),
+                     ("dart_path", phase_dart),
                      ("kernel_score", phase_kernel_score),
                      ("refresh_path", phase_refresh),
                      ("fleet_path", phase_fleet),

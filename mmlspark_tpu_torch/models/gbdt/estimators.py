@@ -58,9 +58,12 @@ general split branch does, and fits without categorical slots bundle
 sparse columns (``MMLSPARK_TORCH_EFB``, ``ops/efb.py``).
 
 The param surface is the JAX package's (the same names, defaults and
-validation); settings outside the port raise ``NotImplementedError``
-naming the ROADMAP item that adds them: dart and ``maxBin`` above 65,536
-(A7), meshes and the voting / feature-parallel learners (A8).
+validation); ``boostingType="dart"`` fits through the trainer's host
+loop (a checkpointed dart fit raises the reference's ``ValueError``), and
+``MMLSPARK_TORCH_GROW_POLICY=leafwise`` grows every estimator's trees
+leaf-wise. Settings outside the port raise ``NotImplementedError``
+naming the ROADMAP item that adds them: ``maxBin`` above 65,536 (A7),
+meshes and the voting / feature-parallel learners (A8).
 """
 
 from __future__ import annotations
@@ -659,8 +662,12 @@ class _LightGBMBase(Estimator, _LightGBMParams):
                 "the no-improve counter cannot span warm-started "
                 "segments — drop earlyStoppingRound or "
                 "checkpointInterval")
-        # boostingType='dart' never gets here: check_supported raised
-        # NotImplementedError (ROADMAP A7) before any work on the rows
+        if self.get("boostingType") == "dart":
+            raise ValueError(
+                "checkpointing does not compose with DART: trees "
+                "frozen into a checkpoint can no longer be dropped "
+                "or renormalized — drop boostingType='dart' or "
+                "checkpointInterval")
         ckpt_every = self.get("checkpointInterval")
         ckpt_dir = self.get("checkpointDir")
         os.makedirs(ckpt_dir, exist_ok=True)

@@ -207,10 +207,7 @@ class Step:
     def body(self) -> torch.Tensor:
         """One boosting iteration at ``self.it`` on the buffers: returns
         the packed row. Makes no host sync."""
-        from mmlspark_tpu_torch.models.gbdt import trainer as T
-
         cfg, n, dev = self.cfg, self.n, self.dev
-        is_rf = cfg.boosting_type == "rf"
         mask = None
         if sampling.bag_active(cfg):
             mask = sampling.bag_mask(
@@ -222,9 +219,17 @@ class Step:
                 sampling.draw(sampling.feature_keys(cfg, self.it),
                               self.num_f, dev), self.num_f,
                 sampling.feature_keep(self.num_f, cfg.feature_fraction))
-        k = self.k
-        score_in = (self.base.expand(self.raw.shape).clone() if is_rf
-                    else self.raw)
+        g, h, mask = self.grad_hess(self.raw, mask, self.it)
+        return self.add_trees(self.grow(g, h, mask, feat_mask, self.it))
+
+    # the parts of an iteration the host loop (``host_loop.py``) shares
+    def grad_hess(self, raw, mask, it):
+        """(grad, hess, row mask) at the raw scores ``raw`` (rf's at the
+        base score alone): the objective's, GOSS's multipliers folded into
+        them and into the row mask ``mask`` (None: every row)."""
+        cfg, k = self.cfg, self.k
+        score_in = (self.base.expand(self.raw.shape).clone()
+                    if cfg.boosting_type == "rf" else raw)
         if self.grad_fn is not None:
             g, h = self.grad_fn(score_in)
         else:
@@ -232,40 +237,73 @@ class Step:
                                      **self.obj_kwargs)
         if cfg.boosting_type == "goss":
             mult = sampling.goss_mult(
-                g, sampling.draw(sampling.goss_keys(cfg, self.it), n, dev),
-                None, cfg)
+                g, sampling.draw(sampling.goss_keys(cfg, it), self.n,
+                                 self.dev), None, cfg)
             keep = (mult > 0).to(torch.float32)
             mask = keep if mask is None else mask * keep
             gm = mult if k == 1 else mult[:, None]
             g, h = g * gm, h * gm
-        depth = cfg.effective_depth
-        nl = cfg.num_leaves if cfg.num_leaves > 0 else 2 ** depth
-        blocks = []
+        return g, h, mask
+
+    def grow(self, g, h, mask, feat_mask, it,
+             build: Optional[Callable] = None) -> list:
+        """The iteration's K trees, one per class from its own contiguous
+        grad/hess column under the shared masks, each with its shrunk
+        node values: [(tree, node_value)]. ``build(g, h)`` grows a tree in
+        place of ``trainer.build_tree`` (the leaf-wise builder)."""
+        from mmlspark_tpu_torch.models.gbdt import trainer as T
+
+        cfg, k = self.cfg, self.k
+        nl = cfg.num_leaves if cfg.num_leaves > 0 else 2 ** cfg.effective_depth
+        trees = []
         for c in range(k):
-            # each class from its own contiguous grad/hess column, under
-            # the iteration's shared masks
             gc, hc = ((g, h) if k == 1 else
                       (g[:, c].contiguous(), h[:, c].contiguous()))
-            tree = T.build_tree(
-                self.binned, gc, hc, nl, cfg, cfg.max_bin, self.hist_quant,
-                self.subtract, valid=mask, feat_mask=feat_mask,
-                key=(sampling.tree_keys(cfg, c, self.it)
-                     if cfg.draws_per_node else None), efb=self.efb)
-            sf, tb, nv, cnt = tree[:4]
+            if build is not None:
+                tree = build(gc, hc)
+            else:
+                tree = T.build_tree(
+                    self.binned, gc, hc, nl, cfg, cfg.max_bin,
+                    self.hist_quant, self.subtract, valid=mask,
+                    feat_mask=feat_mask,
+                    key=(sampling.tree_keys(cfg, c, it)
+                         if cfg.draws_per_node else None), efb=self.efb)
+            nv = tree[2] if cfg.boosting_type == "rf" else tree[2] * self.lr
+            trees.append((tree, nv))
+        return trees
+
+    def add_trees(self, trees, weight: Optional[float] = None,
+                  kept: Optional[list] = None) -> torch.Tensor:
+        """Each class's tree into the training and validation raw scores'
+        column (its prediction times ``weight`` where one is given; the
+        training prediction appended to ``kept`` where that is given),
+        then the packed row: the trees' blocks and the metric row."""
+        from mmlspark_tpu_torch.models.gbdt import trainer as T
+
+        cfg, k, depth = self.cfg, self.k, self.cfg.effective_depth
+        blocks = []
+        for c, (tree, nv) in enumerate(trees):
+            sf, tb, _, cnt = tree[:4]
             bgl = tree[5] if cfg.has_categorical else None
-            if not is_rf:
-                nv = nv * self.lr
-            for vs in [{"raw": self.raw, "binned": self.binned},
-                       *self.valids]:
+            for j, vs in enumerate([{"raw": self.raw, "binned": self.binned},
+                                    *self.valids]):
                 pred = T._predict_tree(sf, tb, nv, vs["binned"], depth, bgl)
+                if kept is not None and j == 0:
+                    kept.append(pred)
+                if weight is not None:
+                    pred = pred * weight
                 (vs["raw"] if k == 1 else vs["raw"][:, c]).add_(pred)
             masks = [] if bgl is None else [tree[4].float(),
                                             bgl.float().reshape(-1)]
             blocks += [sf.view(torch.float32), tb.view(torch.float32), nv,
                        cnt, *masks]
-        row = [fn(*args, **kw) for _, fn in self.metric_list
-               for args, kw in self.metric_sets]
-        return torch.cat([*blocks, torch.stack(row).float()])
+        return torch.cat([*blocks, self.metric_row()])
+
+    def metric_row(self) -> torch.Tensor:
+        """The metrics of the current raw scores: per metric, the
+        training set's, then each validation set's (float32)."""
+        return torch.stack([fn(*args, **kw) for _, fn in self.metric_list
+                            for args, kw in self.metric_sets]).float()
 
     def run(self, it: int) -> torch.Tensor:
         """Iteration ``it`` (global, ``iteration_offset`` included): the

@@ -66,15 +66,19 @@ What this slice runs (and the JAX trainer it mirrors, file
     (``init_model`` / ``init_raw``, ``warm_start_scores``), custom
     objectives (``custom_objective``), resumed segments
     (``iteration_offset``), the ``gbdt.train_step`` fault point once per
-    iteration, and ``_assemble_booster`` (rf's tree weights, the trees
-    cut after the best iteration, the warm-start ``concat``).
+    iteration, and ``_assemble_booster`` (rf's and DART's tree weights,
+    the trees cut after the best iteration, the warm-start ``concat``);
+  - DART (``boosting_type="dart"``) and leaf-wise growth
+    (``MMLSPARK_TORCH_GROW_POLICY=leafwise``, ``resolve_grow_policy``;
+    ``leafwise.py``) through the eager host loop (``host_loop.py``).
 
 The reference has two loops: ``_train_scan`` (one fused step per
-iteration) and the eager ``_train_loop`` that custom objectives and
-DART take. The port has one loop over one step: a named objective's
-step is captured on the card, a custom objective's runs uncaptured (its
-``fobj`` may sync with the host) with the same masks. DART raises
-(ROADMAP A7).
+iteration) and the eager ``_train_loop`` that custom objectives, DART
+and leaf-wise fits take. The port's ``train`` runs DART and leaf-wise
+fits through its host loop, the counterpart of ``_train_loop``, and
+every other fit through one step: a named objective's step is captured
+on the card, a custom objective's runs uncaptured (its ``fobj`` may sync
+with the host) with the same masks.
 
 Trees grow level-wise over ``effective_depth`` levels in the full-tree
 layout (node i's children are 2i+1 / 2i+2), with the ``num_leaves``
@@ -245,24 +249,23 @@ class TrainConfig:
 
 
 # Settings the port does not implement yet: field -> the ROADMAP item
-# that adds it. A non-default value raises instead of being ignored
-# (boosting_type: dart only; gbdt, goss and rf run).
+# that adds it. A non-default value raises instead of being ignored.
 _LATER = {
-    "boosting_type": "A7 (GBDT breadth: dart)",
     "tree_learner": "A8 (multi-device GBDT)",
 }
 _DEFAULTS = {fl.name: fl.default for fl in fields(TrainConfig)}
+BOOSTING_TYPES = ("gbdt", "rf", "dart", "goss")
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for any setting outside this slice."""
+    """Raise ``NotImplementedError`` for any setting outside this slice,
+    ``ValueError`` for a boosting type LightGBM does not have."""
+    if cfg.boosting_type not in BOOSTING_TYPES:
+        raise ValueError(f"boosting_type={cfg.boosting_type!r} is not one "
+                         f"of {BOOSTING_TYPES}")
     for name, later in _LATER.items():
         value = getattr(cfg, name)
-        if name == "boosting_type":
-            off = value in ("gbdt", "goss", "rf")
-        else:
-            off = value == _DEFAULTS[name]
-        if not off:
+        if value != _DEFAULTS[name]:
             raise NotImplementedError(
                 f"TrainConfig.{name}={value!r} is not in the port yet "
                 f"(ROADMAP {later})")
@@ -363,12 +366,13 @@ class TrainResult:
     booster: BoosterArrays
     evals: List[Dict[str, float]] = field(default_factory=list)
     best_iteration: int = -1
-    # what ran: {"hist_quant": "off"|"q16"|"q8", "subtract": bool,
-    # "efb_bundles": bundles of the EFB plan (0: none),
-    # "efb_bundled_features": the features in them}
+    # what ran: {"grow_policy": "depthwise"|"leafwise", "hist_quant":
+    # "off"|"q16"|"q8", "subtract": bool, "efb_bundles": bundles of the
+    # EFB plan (0: none), "efb_bundled_features": the features in them}
     hist_stats: Dict[str, object] = field(default_factory=dict)
     # the step: {"captured": bool (replayed as a CUDA graph), "capture_s":
-    # the seconds this fit spent capturing, None where it made none}
+    # the seconds this fit spent capturing, None where it made none; for
+    # a host-loop fit "host_loop": ``host_loop.HostLoop.stats``}
     step_stats: Dict[str, object] = field(default_factory=dict)
 
 
@@ -403,6 +407,61 @@ def resolve_subtract() -> bool:
     off, as the JAX package's default is off on its TPU path). A
     malformed value warns once and leaves it off."""
     return env.env_flag(HIST_SUB_ENV, False)
+
+
+GROW_POLICY_ENV = "MMLSPARK_TORCH_GROW_POLICY"
+_VALID_GROW = ("depthwise", "leafwise")
+
+
+def resolve_grow_policy() -> str:
+    """Tree growth policy (``MMLSPARK_TORCH_GROW_POLICY``, default
+    depthwise): ``leafwise`` grows each tree by a max-gain priority queue
+    capped by ``num_leaves`` (LightGBM's native policy, ``leafwise.py``)
+    over width-1 calls of the level-histogram kernel with sibling
+    subtraction; ``depthwise`` is the level-wise builder with the
+    within-level leaf budget. A bad value warns once and grows depthwise,
+    as the JAX package's ``resolve_grow_policy``."""
+    raw = (env.env_str(GROW_POLICY_ENV, "") or "").strip().lower()
+    if not raw:
+        return "depthwise"
+    if raw not in _VALID_GROW:
+        env.warn_once(GROW_POLICY_ENV, f"{GROW_POLICY_ENV}={raw!r} is not "
+                                       "one of depthwise|leafwise; growing "
+                                       "depthwise")
+        return "depthwise"
+    return raw
+
+
+def _leafwise_supported(cfg: TrainConfig) -> Optional[str]:
+    """None when leaf-wise growth can honor this config, else the reason
+    for the depthwise fallback (the JAX package's
+    ``_leafwise_supported``; its mesh and voting / feature learners raise
+    in the port before this, ROADMAP A8)."""
+    if cfg.categorical_features:
+        return "categorical_features"
+    if any(cfg.monotone_constraints or ()):
+        return "monotone_constraints"
+    if cfg.extra_trees:
+        return "extra_trees"
+    if cfg.feature_fraction_by_node < 1.0:
+        return "feature_fraction_by_node"
+    return None
+
+
+def grow_policy_of(cfg: TrainConfig) -> str:
+    """The fit's growth policy: ``resolve_grow_policy``, downgraded to
+    depthwise where leaf-wise cannot honor the config, with one warning
+    per process in the reference's words."""
+    policy = resolve_grow_policy()
+    if policy == "leafwise":
+        reason = _leafwise_supported(cfg)
+        if reason is not None:
+            env.warn_once(
+                f"{GROW_POLICY_ENV}:downgrade",
+                f"{GROW_POLICY_ENV}=leafwise does not support {reason}; "
+                "growing depthwise — label A/B measurements accordingly")
+            policy = "depthwise"
+    return policy
 
 
 # ---------------------------------------------------------------------------
@@ -1168,7 +1227,18 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     sampling masks, grad/hess, GOSS, the tree, shrinkage (none for rf),
     the raw-score updates and the metric row. ``boosting_type`` gbdt,
     goss and rf run; rf fits every tree on the base score and weighs
-    each ``1 / num_trees``. On the card a named objective's step is one
+    each ``1 / num_trees``. DART fits, and fits that grow leaf-wise
+    (``grow_policy_of``: ``MMLSPARK_TORCH_GROW_POLICY=leafwise``, where
+    the config allows it), run the eager host loop instead
+    (``host_loop.HostLoop``, the reference's ``_train_loop``): its
+    sampling masks are the reference's numpy draws, DART's tree weights
+    change every iteration, early stopping reads the metrics every
+    iteration, and nothing is captured; ``step_stats["host_loop"]``
+    records the leaf-wise builder's histogram calls, host reads and host
+    seconds. Leaf-wise fits run the float32 histogram plane with
+    sibling subtraction and no EFB plan (``hist_stats`` records
+    ``"off"``, ``True`` and 0), as the reference's leaf-wise fits. On
+    the card a named objective's step is one
     captured CUDA graph, replayed every iteration (cached across fits of
     the same shape and config; ``step.clear_step_cache`` frees them);
     ``capture=False`` runs the same step uncaptured, as the CPU and a
@@ -1186,17 +1256,24 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     ``device="cpu"`` runs the plain PyTorch path. The histogram plane
     and subtraction follow ``MMLSPARK_TORCH_HIST_QUANT`` /
     ``MMLSPARK_TORCH_HIST_SUB``, and bundling ``MMLSPARK_TORCH_EFB``
-    (``plan_efb``), read once here; ``hist_stats`` records what ran.
+    (``plan_efb``), read once here; ``hist_stats`` records what ran,
+    and the growth policy (``"grow_policy"``).
     Bin ids go to the device as uint8 up to ``max_bin=256``, else as
     uint16; ``max_bin`` past 65,536 raises ``NotImplementedError``
     (ROADMAP A7)."""
+    from mmlspark_tpu_torch.models.gbdt import host_loop
     from mmlspark_tpu_torch.models.gbdt import step as step_mod
 
     dev = resolve_device(device)
     check_supported(cfg)
     measures = measures if measures is not None else InstrumentationMeasures()
-    hist_quant = resolve_hist_quant()
-    subtract = resolve_subtract()
+    grow_policy = grow_policy_of(cfg)
+    leafwise = grow_policy == "leafwise"
+    host = leafwise or cfg.boosting_type == "dart"
+    # leaf-wise histograms run the float32 plane on the rows' own matrix
+    # and always derive the larger child by subtraction
+    hist_quant = "off" if leafwise else resolve_hist_quant()
+    subtract = leafwise or resolve_subtract()
     total_bins = cfg.max_bin
     depth = cfg.effective_depth
     n, num_f = binned.shape
@@ -1227,7 +1304,8 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
         # the binned matrix goes to the device once, at the narrowest
         # dtype; an EFB plan's bundled matrix beside it
         binned_d = _binned_to_device(binned, total_bins, dev)
-        efb_plan, efb_maps = plan_efb(binned_d, cfg)
+        efb_plan, efb_maps = ((None, None) if leafwise
+                              else plan_efb(binned_d, cfg))
         if init_model is not None:
             # continued training: keep the old model's base score and fit
             # on top of its raw scores
@@ -1272,7 +1350,9 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     esr = cfg.early_stopping_round
     has_es = esr > 0 and bool(valids)
     total = cfg.num_iterations
-    block = max(esr, 8) if has_es else total
+    # the host loop reads the metrics every iteration: DART's later
+    # drops would rescale the kept trees' weights
+    block = (1 if host else max(esr, 8)) if has_es else total
     slots = step_mod.num_slots(cfg)
     bins = step_mod.mask_bins(cfg)
     cols = k * step_mod.tree_cols(slots, bins)
@@ -1292,9 +1372,12 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
         cfg, binned_d, labels_d, weights_d, raw, valids, layout=layout,
         lr=cfg.learning_rate, base=base_score, hist_quant=hist_quant,
         subtract=subtract, custom_objective=custom_objective,
-        capture=capture, efb=efb_maps,
+        capture=capture and not host, efb=efb_maps,
         efb_key=None if efb_plan is None else efb_plan.cache_key)
     cached_graph = st.graph is not None
+    runner = (host_loop.HostLoop(st, labels, leafwise=leafwise,
+                                 iteration_offset=iteration_offset)
+              if host else None)
     try:
         it = 0
         while it < total:
@@ -1304,7 +1387,8 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
             resilience.step_start(it + iteration_offset)
             fault_point("gbdt.train_step")
             with measures.phase("training"):
-                rows.append(step_mod.run_step(st, it + iteration_offset))
+                rows.append(runner.run(it) if runner is not None else
+                            step_mod.run_step(st, it + iteration_offset))
                 it += 1
             if has_es and (it % block == 0 or it == total):
                 # trees do not depend on the metrics, so syncing a block
@@ -1332,11 +1416,14 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
               **{name: float(met[j, mi])
                  for mi, name in enumerate(labels_order)}}
              for j in range(kept)]
-    booster = _assemble_booster(sf_h, tb_h, nv_h, cnt_h, cfg, num_f,
-                                total_bins, depth, bin_upper, base_score,
-                                best_iter, init_model, masks, k)
+    booster = _assemble_booster(
+        sf_h, tb_h, nv_h, cnt_h, cfg, num_f, total_bins, depth, bin_upper,
+        base_score, best_iter, init_model, masks, k,
+        tree_weights=(None if runner is None
+                      else runner.tree_weights[:kept * k]))
     return TrainResult(booster=booster, evals=evals, best_iteration=best_iter,
                        hist_stats={
+                           "grow_policy": grow_policy,
                            "hist_quant": hist_quant, "subtract": subtract,
                            "efb_bundles": (0 if efb_plan is None
                                            else len(efb_plan.bundles)),
@@ -1345,16 +1432,19 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
                                else efb_plan.n_bundled_features)},
                        step_stats={"captured": st.graph is not None,
                                    "capture_s": None if cached_graph
-                                   else st.capture_s})
+                                   else st.capture_s,
+                                   **({} if runner is None else
+                                      {"host_loop": runner.stats()})})
 
 
 def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,
                       total_bins, depth, bin_upper, base_score, best_iter=-1,
-                      init_model=None, masks=None, k=1):
+                      init_model=None, masks=None, k=1, tree_weights=None):
     """Pack the (T, M) host arrays, interleaved by class for K = ``k``
     trees per iteration (tree i is class i % K), into a
-    ``BoosterArrays`` with raw-value thresholds from ``bin_upper``; rf's
-    trees weighted ``K / T`` (each class's trees average), others 1;
+    ``BoosterArrays`` with raw-value thresholds from ``bin_upper``;
+    ``tree_weights`` (the host loop's, DART's Python floats) as float32,
+    else 1; rf's weights times ``K / T`` (each class's trees average);
     with early stopping, only the ``(best_iter + 1) * K`` trees through
     ``best_iter``; after a warm start, ``init_model``'s trees first
     (``BoosterArrays.concat``). ``masks``: a categorical
@@ -1366,7 +1456,8 @@ def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,
     A zero-as-missing fit without categorical features stamps 6
     (default-left, zero and NaN missing) on every split."""
     num_trees = sf_all.shape[0]
-    weights = np.ones(num_trees, dtype=np.float32)
+    weights = (np.ones(num_trees, dtype=np.float32) if tree_weights is None
+               else np.asarray(tree_weights, dtype=np.float32))
     if cfg.boosting_type == "rf" and num_trees:
         weights = weights / (num_trees / max(k, 1))
     if (cfg.early_stopping_round > 0 and best_iter >= 0

@@ -173,10 +173,9 @@ def test_checkpoint_beyond_num_iterations_raises(tmp_path):
      "early stopping"),
     ({"checkpointInterval": 2, "checkpointDir": "ck", "numBatches": 2},
      ValueError, "numBatches"),
-    # the reference refuses dart + checkpoints with a ValueError; the port
-    # refuses dart itself first (GBDT breadth, ROADMAP A7)
+    # dart + checkpoints: the reference's ValueError
     ({"checkpointInterval": 2, "checkpointDir": "ck",
-      "boostingType": "dart"}, NotImplementedError, "ROADMAP A7"),
+      "boostingType": "dart"}, ValueError, "does not compose with DART"),
 ])
 def test_settings_that_do_not_compose_with_checkpoints(tmp_path, monkeypatch,
                                                        params, error, match):

@@ -563,20 +563,23 @@ def test_diabetes_l2_matches_sklearn_hgb():
 @pytest.mark.parametrize("kind,params,item", [
     # goss, rf, bagging and feature_fraction fit (tests/test_torch_step.py),
     # and so do extraTrees, featureFractionByNode, monotoneConstraints and
-    # maxBin up to 65,536 (tests/test_torch_breadth.py); beside a setting
-    # still outside the port they raise for that one
+    # maxBin up to 65,536 (tests/test_torch_breadth.py) and dart
+    # (tests/test_torch_dart.py); beside a setting still outside the port
+    # they raise for that one
     ("LightGBMClassifier", {"boostingType": "goss", "extraTrees": True,
                             "parallelism": "voting_parallel"}, "A8"),
-    ("LightGBMClassifier", {"boostingType": "dart"}, "A7"),
+    ("LightGBMClassifier", {"boostingType": "dart", "maxBin": 70_000}, "A7"),
     ("LightGBMClassifier", {"featureFraction": 0.5,
                             "featureFractionByNode": 0.5,
-                            "boostingType": "dart"}, "A7"),
+                            "boostingType": "dart", "maxBin": 70_000}, "A7"),
     ("LightGBMClassifier", {"featureFractionByNode": 0.5,
-                            "boostingType": "dart"}, "A7"),
+                            "boostingType": "dart",
+                            "parallelism": "voting_parallel"}, "A8"),
     ("LightGBMClassifier", {"baggingFraction": 0.5, "baggingFreq": 1,
-                            "boostingType": "dart"}, "A7"),
+                            "boostingType": "dart", "maxBin": 70_000}, "A7"),
     ("LightGBMClassifier", {"posBaggingFraction": 0.5,
-                            "boostingType": "dart"}, "A7"),
+                            "boostingType": "dart",
+                            "parallelism": "feature_parallel"}, "A8"),
     ("LightGBMClassifier", {"extraTrees": True, "maxBin": 70_000}, "A7"),
     ("LightGBMClassifier", {"monotoneConstraints": [1, 0, 0, 0, 0, 0],
                             "parallelism": "feature_parallel"}, "A8"),
@@ -584,7 +587,8 @@ def test_diabetes_l2_matches_sklearn_hgb():
     ("LightGBMClassifier", {"parallelism": "feature_parallel"}, "A8"),
     ("LightGBMRegressor", {"passThroughArgs": "bagging_fraction=0.5 "
                                               "bagging_freq=1 "
-                                              "boosting_type=dart"}, "A7"),
+                                              "boosting_type=dart "
+                                              "max_bin=70000"}, "A7"),
 ])
 def test_settings_outside_the_slice_raise(kind, params, item):
     x, y_bin, _ = _data(n=300)

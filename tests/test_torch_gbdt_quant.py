@@ -320,8 +320,8 @@ def test_quantized_l2_fit_is_bitwise(monkeypatch, quant, sub, trees, extra):
     jr, pr = _fit_both(x, y, objective="regression", num_iterations=trees,
                        **extra)
     assert jr.hist_stats["hist_quant"] == quant
-    assert pr.hist_stats == {"hist_quant": quant, "subtract": sub == "1",
-                             **NO_EFB}
+    assert pr.hist_stats == {"grow_policy": "depthwise", "hist_quant": quant,
+                             "subtract": sub == "1", **NO_EFB}
     assert (jr.booster.split_feature >= 0).sum() >= 5 * trees  # real trees
     for name in ARRAYS:
         want, got = getattr(jr.booster, name), getattr(pr.booster, name)
@@ -369,8 +369,8 @@ def test_f32_fit_with_subtraction_matches(monkeypatch, objective):
     x, y, y_bin = _fit_data(seed=2)
     jr, pr = _fit_both(x, y if objective == "regression" else y_bin,
                        objective=objective, num_iterations=5)
-    assert pr.hist_stats == {"hist_quant": "off", "subtract": True,
-                             **NO_EFB}
+    assert pr.hist_stats == {"grow_policy": "depthwise", "hist_quant": "off",
+                             "subtract": True, **NO_EFB}
     for name in ("split_feature", "threshold_bin", "count"):
         np.testing.assert_array_equal(getattr(pr.booster, name),
                                       getattr(jr.booster, name))
@@ -411,7 +411,8 @@ def test_bad_knob_values_warn_once_and_run_off(monkeypatch, knob, bad):
     named = [w for w in caught if knob in str(w.message)]
     assert len(named) == 1, [str(w.message) for w in caught]
     for fit in fits:
-        assert fit.hist_stats == {"hist_quant": "off", "subtract": False,
+        assert fit.hist_stats == {"grow_policy": "depthwise",
+                                  "hist_quant": "off", "subtract": False,
                                   **NO_EFB}
         for name in ARRAYS:
             np.testing.assert_array_equal(getattr(fit.booster, name),
@@ -474,8 +475,8 @@ def test_quantized_fit_on_uint16_ids_is_bitwise(monkeypatch, quant, sub):
                            bin_upper=bin_upper)
     pr = trainer.train(binned, y, trainer.TrainConfig(**cfg),
                        bin_upper=bin_upper, device="cpu")
-    assert pr.hist_stats == {"hist_quant": quant, "subtract": sub == "1",
-                             **NO_EFB}
+    assert pr.hist_stats == {"grow_policy": "depthwise", "hist_quant": quant,
+                             "subtract": sub == "1", **NO_EFB}
     for name in ARRAYS:
         np.testing.assert_array_equal(getattr(pr.booster, name),
                                       getattr(jr.booster, name),

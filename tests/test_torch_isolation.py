@@ -63,7 +63,8 @@ def test_port_files_were_found():
             "score_cuda.py", "faults.py", "serialize.py", "ingest.py",
             "objectives.py", "estimators.py", "logging_utils.py",
             "torch_train_ab.py", "retries.py", "drift.py", "prefetch.py",
-            "resilience.py", "fleet.py", "refresh.py"} <= names
+            "resilience.py", "fleet.py", "refresh.py", "leafwise.py",
+            "host_loop.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -80,6 +81,8 @@ def test_importing_the_port_loads_no_jax():
             "import mmlspark_tpu_torch.exploratory.drift\n"
             "import mmlspark_tpu_torch.parallel.prefetch\n"
             "import mmlspark_tpu_torch.parallel.resilience\n"
+            "import mmlspark_tpu_torch.models.gbdt.leafwise\n"
+            "import mmlspark_tpu_torch.models.gbdt.host_loop\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mmlspark_tpu')]\n"
             "print(bad)\n")

@@ -334,14 +334,16 @@ def test_estimators_fit_every_sampled_setting():
     ({"extra_trees": True}, "extra_trees"),
 ])
 def test_dart_and_per_node_sampling_still_raise(setting, item):
-    """dart raises (ROADMAP A7); per-node sampling (``item``) trains
-    (tests/test_torch_breadth.py), and beside dart raises for dart."""
+    """dart (tests/test_torch_dart.py) and per-node sampling (``item``,
+    tests/test_torch_breadth.py) train; beside ``max_bin`` past 65,536,
+    still outside the port, dart raises for that (ROADMAP A7)."""
     x, y, _ = _data(n=200)
     binned, _ = _binned(x)
     assert item == "dart" or item in setting
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A7 .*dart"):
+    with pytest.raises(NotImplementedError,
+                       match=r"max_bin=70000 .*ROADMAP A7"):
         trainer.train(binned, y, trainer.TrainConfig(
-            objective="regression", num_iterations=1,
+            objective="regression", num_iterations=1, max_bin=70_000,
             **{**setting, "boosting_type": "dart"}), device="cpu")
 
 
