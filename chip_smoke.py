@@ -242,6 +242,22 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      through ``tree_score.cu`` bitwise the plain version), card vs CPU at
      100,000 rows and 5 trees (tree weights and roots equal, logloss
      within 1e-4);
+ 14g. out-of-core path (``models/gbdt/ooc.py``): 4,000,000 × 28 rows of
+     the bench's generator (the reference's auto threshold at HIGGS's
+     width), binary, 63 leaves, depth 6, 20 trees, default knobs:
+     ``train`` streams by itself (16 chunks, q16), its trees bitwise the
+     in-core q16 fit, and with subtraction on bitwise that in-core fit
+     with one binned chunk corrupted (``spill.read``) and repaired from
+     the rows; the chunk-merge entry's launches against the builder's
+     count (20 × 6 × 16); a ``train_ooc`` fit over a spill written chunk
+     by chunk with ``fit_streaming`` edges, no array of all the rows;
+     each fit's wall, device peak and host RSS growth, and the host
+     seconds of reads, pinning, waits and store writes; the entry bitwise
+     its plain version chunk by chunk and in one pass (uint8 at B = 255,
+     uint16 at 1,023) with its time per 262,144-row chunk call, bound and
+     ``index_add_``; a 3-tree uint16 streamed fit bitwise its in-core
+     fit; a 5-iteration ``LightGBMRegressor`` streamed through ``train``;
+     a 2-tree streamed fit profiled (device ms by kernel, uploads);
  15. tree scorer vs plain (after phase 14c): ``csrc/tree_score.cu``
      against ``score_cuda.tree_score_reference``, bit for bit and between
      two launches: the served model at every rung 1..64 (autocast off
@@ -1235,10 +1251,12 @@ def phase_main_quant(ctx):
                 or not lls[-1] < lls[0]:
             raise AssertionError(f"{quant}/sub={sub}: training logloss does "
                                  f"not fall: {lls}")
-        # the plane and subtraction asked for, and no bundles (dense rows)
+        # the plane and subtraction asked for, no bundles (dense rows), in
+        # core (the card has room for the in-core fit)
         want = {"grow_policy": "depthwise", "hist_quant": quant,
                 "subtract": sub == "1", "efb_bundles": 0,
-                "efb_bundled_features": 0}
+                "efb_bundled_features": 0, "ooc": False,
+                "ooc_reason": "auto: the in-core fit fits in device memory"}
         if res.hist_stats != want:
             raise AssertionError(f"ran {res.hist_stats}, asked for {want}")
         return res, fit_s, (H.hist_kernel_launches,
@@ -4456,6 +4474,475 @@ def phase_dart(ctx):
     return out
 
 
+# out-of-core training (phase ooc_path): the reference's auto threshold
+# (MMLSPARK_TPU_OOC_ROWS) at HIGGS's width, in the trainer's default
+# chunks (trainer.OOC_CHUNK_ROWS): 15 of 262,144 rows and one of 67,840
+OOC_ROWS = 4_000_000
+OOC_CHUNK = 262_144
+OOC_CHUNKS = -(-OOC_ROWS // OOC_CHUNK)
+OOC_SUMS_CHUNKS = 4                 # the sums entry's check: 4 chunks
+OOC_U16_TREES = 3
+OOC_ESTIMATOR_TREES = 5
+OOC_PROFILE_TREES = 2
+OOC_KNOBS = ("MMLSPARK_TORCH_OOC", "MMLSPARK_TORCH_HIST_QUANT",
+             "MMLSPARK_TORCH_HIST_SUB")
+
+
+def rss_bytes():
+    """This process's resident set, from /proc/self/statm."""
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+@contextlib.contextmanager
+def rss_growth(every_s=0.05):
+    """Samples the resident set on a thread while the block runs; yields a
+    dict whose ``"growth"`` is then the largest sample minus the one
+    before the block (bytes)."""
+    out, stop = {"before": rss_bytes(), "peak": 0}, threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out["peak"] = max(out["peak"], rss_bytes())
+            stop.wait(every_s)
+
+    thread = threading.Thread(target=sample, name="chip-smoke-rss",
+                              daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join()
+        out["peak"] = max(out["peak"], rss_bytes())
+        out["growth"] = out["peak"] - out["before"]
+
+
+@contextlib.contextmanager
+def ooc_env(**values):
+    """The out-of-core and histogram knobs for the block: each of
+    ``OOC_KNOBS`` unset (the default) unless given (by its name's last
+    word: ooc, quant, sub)."""
+    from mmlspark_tpu_torch.core.env import env_override
+    short = {"ooc": OOC_KNOBS[0], "quant": OOC_KNOBS[1], "sub": OOC_KNOBS[2]}
+    with contextlib.ExitStack() as stack:
+        for key, name in short.items():
+            stack.enter_context(env_override(name, values.get(key)))
+        yield
+
+
+def ooc_counts(H):
+    return {"sums": H.hist_quant_sums_kernel_launches,
+            "sums_u16": H.hist_quant_sums_u16_kernel_launches,
+            "dequant": H.hist_quant_dequant_launches,
+            "quant": H.hist_quant_kernel_launches,
+            "quant_u16": H.hist_quant_u16_kernel_launches,
+            "f32": H.hist_kernel_launches}
+
+
+def measured(torch, H, fn):
+    """(result, record) of ``fn()``: its wall, the device memory it
+    allocated at its peak above what was allocated before, its host RSS
+    growth and the histogram launches it made (every counter set to 0
+    just before it, read just after)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    H.hist_quant_sums_kernel_launches = 0
+    H.hist_quant_sums_u16_kernel_launches = 0
+    H.hist_quant_dequant_launches = 0
+    H.hist_quant_kernel_launches = H.hist_quant_u16_kernel_launches = 0
+    H.hist_kernel_launches = 0
+    with rss_growth() as rss:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return res, {"wall_s": wall,
+                 "device_peak_bytes": torch.cuda.max_memory_allocated() - base,
+                 "host_rss_growth_bytes": rss["growth"],
+                 "launches": ooc_counts(H)}
+
+
+@contextlib.contextmanager
+def card_filled(torch, leave):
+    """The card with about ``leave`` bytes free for the block: a ballast
+    tensor takes the rest of what ``trainer.device_free_bytes`` reports,
+    so ``MMLSPARK_TORCH_OOC=auto`` sees a card too small for a fit that
+    needs more. Yields the free bytes the trainer then sees."""
+    from mmlspark_tpu_torch.models.gbdt import trainer as T
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    ballast = torch.empty(T.device_free_bytes(dev) - leave,
+                          dtype=torch.uint8, device=dev)
+    try:
+        yield T.device_free_bytes(dev)
+    finally:
+        del ballast
+        torch.cuda.empty_cache()
+
+
+def ooc_time_shares(res, wall):
+    """The streamed fit's host seconds (``step_stats["ooc"]``) and their
+    shares of its wall: chunk reads with their crc32 and the copies into
+    pinned memory on the prefetch thread (overlapped with the rest), the
+    caller's waits for a chunk and its device-to-store writes."""
+    t = res.step_stats["ooc"]
+    return {**t, **{f"{k}_share": t[k] / wall for k in (
+        "read_s", "stage_s", "wait_s", "store_s")}}
+
+
+def sums_rows(torch, H, ids, b):
+    """The chunk-merge entry (``level_histogram_quant_sums``) against its
+    plain version on ``OOC_SUMS_CHUNKS`` chunks of the bench's width, q16,
+    every level width: the chunks added one by one into one accumulator,
+    one call over all the rows and the plain version equal bit for bit;
+    the dequantized merge (``dequantize_sums``) bitwise the one-pass
+    kernel (``level_histogram_quant``) and the plain dequantization. One
+    chunk call timed (event pair, device), its plain version, the
+    ``index_add_`` of the same sums into the accumulator, the bound."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = OOC_SUMS_CHUNKS * OOC_CHUNK
+    if ids == "uint8":
+        binned = torch.randint(0, b, (n, F), generator=gen, device=dev,
+                               dtype=torch.uint8)
+    else:
+        binned = torch.randint(0, b, (n, F), generator=gen, device=dev,
+                               dtype=torch.int16).view(torch.uint16)
+    live = (torch.rand(n, generator=gen, device=dev) < 0.9).float()
+    qmax = QUANTS["q16"][1]
+    gq = torch.round(torch.randn(n, generator=gen, device=dev)
+                     .clamp(-4, 4) * (qmax / 4)).to(torch.int16)
+    hq = torch.round(torch.rand(n, generator=gen, device=dev)
+                     * qmax).to(torch.int16)
+    gsi = torch.full((), 2.0 ** -12, device=dev)
+    hsi = torch.full((), 2.0 ** -14, device=dev)
+    spans = [(s, s + OOC_CHUNK) for s in range(0, n, OOC_CHUNK)]
+    rows = []
+    for width in WIDTHS:
+        local = torch.randint(0, width, (n,), generator=gen, device=dev)
+
+        def part(s, e):
+            return (binned[s:e], gq[s:e], hq[s:e], live[s:e], local[s:e],
+                    width, F, b)
+
+        acc = torch.zeros((width, F, b, 3), dtype=torch.int64, device=dev)
+        for s, e in spans:
+            H.level_histogram_quant_sums(*part(s, e), acc)
+        one = H.level_histogram_quant_sums(
+            *part(0, n), torch.zeros_like(acc))
+        plain = H.level_histogram_quant_sums_reference(*part(0, n))
+        hist = H.dequantize_sums(acc, gsi, hsi)
+        full = H.level_histogram_quant(*part(0, n), gsi, hsi)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(acc, one) and torch.equal(acc, plain)
+                       and torch.equal(hist, full) and torch.equal(
+                           hist, H.dequantize_reference(acc, gsi, hsi)))
+        err = float((hist - full).abs().max().item())
+        del one, plain, full
+
+        chunk = part(*spans[0])
+        run = torch.zeros_like(acc)
+        kernel_ms = time_ms(torch, lambda: H.level_histogram_quant_sums(
+            *chunk, run))
+        kernel_device_ms = device_ms(
+            torch, lambda: H.level_histogram_quant_sums(*chunk, run))
+        plain_ms = time_ms(torch, lambda: run.add_(
+            H.level_histogram_quant_sums_reference(*chunk)))
+        c_bin, c_gq, c_hq, c_live, c_local = chunk[:5]
+        idx = H.flat_index(c_bin, c_local, F, b)
+        gate = (c_live > 0).long()
+        src = torch.stack([c_gq.long() * gate, c_hq.long() * gate, gate],
+                          -1)[:, None, :].expand(OOC_CHUNK, F, 3).reshape(
+                              -1, 3)
+        flat = run.view(-1, 3)
+        library_ms = time_ms(torch, lambda: flat.index_add_(0, idx, src))
+        del idx, src
+        in_bytes = sum(t.numel() * t.element_size() for t in chunk[:5])
+        acc_bytes = 2 * acc.numel() * acc.element_size()   # read + write
+        ops = 3 * F * int(gate.sum().item())
+        bytes_ms = (in_bytes + acc_bytes) / MEM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
+        row = {"ids": ids, "b": b, "width": width, "chunk_rows": OOC_CHUNK,
+               "f": F, "chunks": OOC_SUMS_CHUNKS, "bitwise": bitwise,
+               "max_abs_err": err, "kernel_ms": kernel_ms,
+               "kernel_device_ms": kernel_device_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bytes": in_bytes + acc_bytes, "ops": ops}
+        emit({"phase": "ooc_sums_vs_plain", **row})
+        rows.append(row)
+        if not bitwise:
+            raise AssertionError(f"the sums entry disagrees: {row}")
+    return rows
+
+
+def streamed_chunks(n, seed=1000):
+    """The bench's generator chunk by chunk (seed + i for chunk i): no
+    array of all the rows is made."""
+    for i, s in enumerate(range(0, n, OOC_CHUNK)):
+        rng = np.random.default_rng(seed + i)
+        x = rng.normal(size=(min(OOC_CHUNK, n - s), F)).astype(np.float32)
+        logit = (x[:, 0] * 1.2 - x[:, 1] + 0.5 * x[:, 2] * x[:, 3]
+                 + 0.3 * np.sin(x[:, 4] * 3))
+        y = (logit + rng.normal(size=len(x)) * 0.5 > 0).astype(np.float32)
+        yield x, y
+
+
+def flip_middle(payload):
+    """The ``spill.read`` fault's corruption: one bit of the payload."""
+    b = bytearray(payload)
+    b[len(b) // 2] ^= 0x10
+    return bytes(b)
+
+
+def phase_ooc(ctx):
+    """Out-of-core training (``models/gbdt/ooc.py``) at 4,000,000 x 28
+    rows of the bench's generator (the reference's auto threshold at
+    HIGGS's width), binary, 63 leaves, depth 6, 20 trees, ``max_bin``
+    255, default knobs: (i) on a card left (by a ballast tensor) with
+    half the bytes the in-core fit needs (``trainer.in_core_bytes``),
+    ``train`` streams by itself (16 chunks of up to 262,144 rows, q16),
+    its trees bitwise the same rows' in-core q16 fit; with the card's
+    room the default fit stays in-core (float32), and the estimate
+    holds both in-core fits' measured peaks; under
+    ``MMLSPARK_TORCH_OOC=on`` with ``MMLSPARK_TORCH_HIST_SUB=1`` the
+    streamed fit is bitwise that in-core fit,
+    (iii) with one binned chunk corrupted on its first read (the
+    ``spill.read`` fault) and repaired from the rows; the sums entry's
+    launches against the builder's count (20 x 6 x 16); (ii) a
+    ``train_ooc`` fit over a spill written chunk by chunk from the
+    generator with ``fit_streaming`` edges (no array of all the rows), its
+    logloss falling; each fit's wall, device peak above its start and
+    host RSS growth; (iv) the sums entry bitwise its plain version (uint8
+    ids at B = 255 and uint16 at 1,023, chunk by chunk = one pass) with
+    its times and bound, and a 3-tree uint16 (``max_bin`` 1023) streamed
+    fit at 1,048,576 rows bitwise its in-core fit; (v) a
+    ``LightGBMRegressor`` (5 iterations) on the 4M rows streamed through
+    ``train`` (``on``); and a 2-tree streamed fit under torch.profiler: device
+    time by kernel and uploads per tree."""
+    import tempfile
+
+    import torch
+
+    from mmlspark_tpu_torch import (BinMapper, DataFrame, LightGBMRegressor,
+                                    TrainConfig, train)
+    from mmlspark_tpu_torch.core import faults
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import ooc
+    from mmlspark_tpu_torch.models.gbdt import step as step_mod
+    from mmlspark_tpu_torch.models.gbdt import trainer as T
+    from mmlspark_tpu_torch.ops.ingest import ChunkStore, SpillWriter
+
+    x, y = make_data(OOC_ROWS)
+    mapper = BinMapper.fit(x[:100_000], max_bin=B)
+    binned = mapper.transform(x, np.uint8)
+    bin_upper = mapper.bin_upper_values(B)
+    cfg = TrainConfig(objective="binary", num_iterations=TREES,
+                      num_leaves=63, max_depth=6, min_data_in_leaf=20)
+    depth = cfg.effective_depth
+    expected = TREES * depth * OOC_CHUNKS
+    records, out = {}, {"card": ctx["smi"], "rows": OOC_ROWS, "f": F,
+                        "chunks": OOC_CHUNKS}
+
+    def fit(**knobs):
+        with ooc_env(**knobs):
+            return measured(torch, H, lambda: train(binned, y, cfg,
+                                                     bin_upper=bin_upper))
+
+    # (i) the default path on a card left with half the bytes the in-core
+    # fit needs: train streams by itself; then the in-core q16 fit of the
+    # same rows, and with the card's room the default fit stays in-core
+    # (float32 plane)
+    need = T.in_core_bytes(OOC_ROWS, F, B)
+    # the trainer's free measure counts a freed tensor's cached segment
+    # (the default pool's), as the allocator would reuse it
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    free0 = T.device_free_bytes(dev)
+    held = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    free_held = T.device_free_bytes(dev)
+    del held
+    free_cached = T.device_free_bytes(dev)
+    out["free_bytes_empty_held_cached"] = [free0, free_held, free_cached]
+    if abs(free_cached - free0) > (64 << 20) \
+            or abs(free0 - free_held - (1 << 30)) > (64 << 20):
+        raise AssertionError(f"device_free_bytes: {free0} free, {free_held} "
+                             f"with 1 GiB held, {free_cached} once freed")
+    with card_filled(torch, need // 2) as free:
+        streamed, records["default"] = fit()
+    st = streamed.hist_stats
+    out.update({"in_core_estimate_bytes": need, "filled_card_free_bytes": free})
+    if not (free < need and st["ooc"] and st["n_chunks"] == OOC_CHUNKS
+            and st["chunk_rows"] == OOC_CHUNK and st["hist_quant"] == "q16"
+            and not st["hist_subtract"] and not st["subtract"]):
+        raise AssertionError(f"the default 4M-row fit with {free} bytes "
+                             f"free (in-core need {need}) did not stream: "
+                             f"{st}")
+    launches = records["default"]["launches"]
+    ctx["launches"]["ooc_path"] = launches
+    if launches["sums"] != expected or launches["quant"] \
+            or launches["dequant"] != TREES * depth:
+        raise AssertionError(f"the streamed fit launched {launches}; "
+                             f"expected {expected} sums calls, "
+                             f"{TREES * depth} dequantizations")
+    in_core, records["in_core_q16"] = fit(ooc="off", quant="q16")
+    if in_core.hist_stats["ooc_reason"] != "MMLSPARK_TORCH_OOC=off":
+        raise AssertionError(f"in-core fit: {in_core.hist_stats}")
+    differ = arrays_differing(streamed.booster, in_core.booster)
+    roomy, records["default_in_core_f32"] = fit()
+    if roomy.hist_stats["ooc"] or roomy.hist_stats["hist_quant"] != "off" \
+            or roomy.hist_stats["ooc_reason"] != (
+                "auto: the in-core fit fits in device memory"):
+        raise AssertionError(f"default fit with room: {roomy.hist_stats}")
+    # the estimate auto decides by holds the in-core fits' measured peaks
+    peaks = [records[k]["device_peak_bytes"]
+             for k in ("in_core_q16", "default_in_core_f32")]
+    out["in_core_peak_bytes_per_row"] = [
+        (p - 2 * OOC_ROWS * F) / OOC_ROWS for p in peaks]
+    if max(peaks) > need:
+        raise AssertionError(f"in-core peaks {peaks} above the estimate "
+                             f"{need} (trainer.IN_CORE_ROW_BYTES)")
+    del roomy
+    # subtraction on, one binned chunk corrupted: hit 17 is the first read
+    # of binned chunk 0 (the first tree's amax pass reads the 16 carry
+    # chunks first), verified under MMLSPARK_TORCH_SPILL_VERIFY=auto
+    with faults.injected("spill.read", "corrupt", nth=OOC_CHUNKS + 1,
+                         count=1, corrupt=flip_middle):
+        repaired, records["sub_repaired"] = fit(ooc="on", sub="1")
+        fired = faults.fired("spill.read")
+    in_core_sub, records["in_core_q16_sub"] = fit(ooc="off", quant="q16",
+                                                  sub="1")
+    differ_sub = arrays_differing(repaired.booster, in_core_sub.booster)
+    rs = repaired.hist_stats
+    out.update({
+        "default_hist_stats": st, "default_time": ooc_time_shares(
+            streamed, records["default"]["wall_s"]),
+        "bitwise_in_core": not differ,
+        "sub_bitwise_in_core": not differ_sub,
+        "repairs": rs["spill_repairs"], "corrupt_fired": fired,
+        "sub_time": ooc_time_shares(repaired,
+                                    records["sub_repaired"]["wall_s"]),
+        "expected_sums_launches": expected})
+    if differ or differ_sub or not rs["hist_subtract"] \
+            or rs["spill_repairs"] != 1 or fired != 1:
+        raise AssertionError(f"streamed vs in-core: {differ} / "
+                             f"{differ_sub}; repair {rs}, fired {fired}")
+    if records["sub_repaired"]["launches"]["sums"] != expected:
+        raise AssertionError(f"sub fit: {records['sub_repaired']}")
+    lls = [booster_logloss(streamed.booster,
+                           torch.as_tensor(binned[:500_000], device="cuda"),
+                           y[:500_000], trees=t) for t in (1, TREES)]
+    if not lls[1] < lls[0]:
+        raise AssertionError(f"logloss does not fall: {lls}")
+    out["logloss_first_last_500k"] = lls
+    del streamed, repaired, in_core, in_core_sub
+    step_mod.clear_step_cache()
+
+    # (ii) the streamed path: a spill written chunk by chunk
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ooc-")
+    try:
+        t0 = time.perf_counter()
+        edges = BinMapper.fit_streaming(
+            (xc for xc, _ in streamed_chunks(OOC_ROWS)), max_bin=B)
+        edges_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        writer = SpillWriter(os.path.join(tmp, "binned"), dtype=np.uint8)
+        labels = ChunkStore(os.path.join(tmp, "labels"), "y")
+        for i, (xc, yc) in enumerate(streamed_chunks(OOC_ROWS)):
+            writer.append(edges.transform(xc, np.uint8))
+            labels.put(i, yc)
+        spill = writer.finalize()
+        write_s = time.perf_counter() - t0
+        with ooc_env():
+            res, records["streamed"] = measured(
+                torch, H, lambda: ooc.train_ooc(
+                    spill, labels, cfg,
+                    bin_upper=edges.bin_upper_values(B),
+                    work_dir=os.path.join(tmp, "state")))
+        # the logloss over every chunk, one chunk on the card at a time
+        first = res.booster.slice_iterations(0, 1)
+        raw1, raw, ys = [], [], []
+        for i in range(spill.num_chunks):
+            chunk = torch.as_tensor(np.array(spill.read(i)), device="cuda")
+            raw1.append(first.predict_binned(chunk).cpu().numpy())
+            raw.append(res.booster.predict_binned(chunk).cpu().numpy())
+            ys.append(np.asarray(labels.get(i)))
+        ys = np.concatenate(ys)
+        s_lls = [logloss(np.concatenate(raw1), ys),
+                 logloss(np.concatenate(raw), ys)]
+        if not (res.hist_stats["ooc"] and s_lls[1] < s_lls[0]
+                and records["streamed"]["launches"]["sums"] == expected):
+            raise AssertionError(f"streamed fit: {res.hist_stats}, "
+                                 f"{records['streamed']}, logloss {s_lls}")
+        out["streamed"] = {"fit_streaming_s": edges_s, "spill_write_s": write_s,
+                           "logloss_first_last": s_lls,
+                           "time": ooc_time_shares(
+                               res, records["streamed"]["wall_s"]),
+                           "spill_verify_s": res.hist_stats["spill_verify_s"],
+                           "spill_verify_chunks":
+                               res.hist_stats["spill_verify_chunks"]}
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (iv) the sums entry against its plain version; a uint16 streamed fit
+    ctx["ooc_sums_rows"] = sums_rows(torch, H, "uint8", B)
+    ctx["ooc_sums_u16_rows"] = sums_rows(torch, H, "uint16", BREADTH_WIDE)
+    torch.cuda.empty_cache()
+    n16 = OOC_SUMS_CHUNKS * OOC_CHUNK
+    wide = BinMapper.fit(x[:100_000], max_bin=BREADTH_WIDE)
+    binned16 = wide.transform(x[:n16], np.uint16)
+    cfg16 = dataclasses.replace(cfg, max_bin=BREADTH_WIDE,
+                                num_iterations=OOC_U16_TREES)
+    with ooc_env(ooc="on"):
+        s16, records["u16_streamed"] = measured(
+            torch, H, lambda: train(binned16, y[:n16], cfg16))
+    with ooc_env(ooc="off", quant="q16"):
+        i16, records["u16_in_core"] = measured(
+            torch, H, lambda: train(binned16, y[:n16], cfg16))
+    differ16 = arrays_differing(s16.booster, i16.booster)
+    want16 = OOC_U16_TREES * depth * OOC_SUMS_CHUNKS
+    ctx["launches"]["ooc_path_u16"] = records["u16_streamed"]["launches"]
+    out["u16_bitwise_in_core"] = not differ16
+    if differ16 or records["u16_streamed"]["launches"]["sums_u16"] != want16:
+        raise AssertionError(f"uint16 streamed fit: {differ16}, "
+                             f"{records['u16_streamed']}")
+    del binned16
+
+    # (v) the estimator: LightGBMRegressor on the 4M rows streams
+    frame = DataFrame({"features": x, "label": y})
+    with ooc_env(ooc="on"):
+        model, records["estimator"] = measured(
+            torch, H, lambda: LightGBMRegressor(
+                numIterations=OOC_ESTIMATOR_TREES, numLeaves=63,
+                maxDepth=6).fit(frame))
+    want = OOC_ESTIMATOR_TREES * depth * OOC_CHUNKS
+    if records["estimator"]["launches"]["sums"] != want \
+            or model.booster.num_trees != OOC_ESTIMATOR_TREES \
+            or not np.isfinite(model.booster.node_value).all():
+        raise AssertionError(f"estimator fit: {records['estimator']}")
+    del frame, model
+
+    # where a streamed fit's device time goes: a 2-tree fit profiled
+    short = dataclasses.replace(cfg, num_iterations=OOC_PROFILE_TREES)
+    with ooc_env(ooc="on"):
+        wall_ms, by_name, host = profile_ms(
+            torch, lambda: train(binned, y, short, bin_upper=bin_upper))
+    per_tree = {k: v / OOC_PROFILE_TREES for k, v in by_name.items()}
+    out["profile_per_tree"] = {
+        "wall_ms": wall_ms / OOC_PROFILE_TREES,
+        "hist_kernels_ms": hist_device_ms(per_tree),
+        "uploads_ms": sum(v for k, v in per_tree.items() if "HtoD" in k),
+        "downloads_ms": sum(v for k, v in per_tree.items() if "DtoH" in k),
+        "device_ms": sum(per_tree.values()), "top": top(per_tree, 8)}
+    out["fits"] = records
+    _made.pop((OOC_ROWS, 0), None)
+    return out
+
+
 def random_booster(seed, trees, depth, k, max_bin):
     """A random full-layout ensemble (the root splits, a node below an
     internal node with probability 0.8), tree weights 0.3..1.7: the
@@ -5945,6 +6432,33 @@ def kernel_table(ctx):
             "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "max_abs_err")}
         for r in ctx["hist_width1"]}
+    # the quantized kernel's chunk-merge entry (out of core): its launches
+    # over phase ooc_path's default 4M-row fit (20 trees x 6 levels x 16
+    # chunks) and the uint16 streamed fit; times per 262,144-row chunk
+    # call summed over the six level widths, at F = 28, B = 255 (uint8
+    # ids) and beside them B = 1,023 (uint16)
+    ooc_launches = ctx["launches"]["ooc_path"]
+    kernels[1]["launches_ooc_path_sums"] = ooc_launches["sums"]
+    kernels[4]["launches_ooc_path_sums"] = \
+        ctx["launches"]["ooc_path_u16"]["sums_u16"]
+    sums = entry("level_hist_quant_sums[q16]",
+                 "mmlspark_tpu_torch/csrc/level_hist_quant.cu",
+                 "mmlspark_tpu/models/gbdt/hist_pallas.py:204",
+                 ooc_launches["sums"], ctx["ooc_sums_rows"])
+    sums.update({
+        "replaces_also": "mmlspark_tpu/models/gbdt/ooc.py:210",
+        "dequant_launches": ooc_launches["dequant"],
+        "launches_u16": ctx["launches"]["ooc_path_u16"]["sums_u16"],
+        "u16_b1023": {m: sum(r[m] for r in ctx["ooc_sums_u16_rows"])
+                      for m in ("kernel_ms", "kernel_device_ms", "plain_ms",
+                                "bound_ms", "library_ms", "max_abs_err")},
+        "per": "one 262,144-row chunk call (F=28, B=255, uint8 ids, q16) "
+               "summed over widths " + ",".join(map(str, WIDTHS))
+               + ", adding into a running int64 accumulator (bound: the "
+               "chunk's inputs read once, the accumulator read and "
+               "written); library_ms: one int64 index_add_ of the same "
+               "sums into it; launches from phase ooc_path's default fit"})
+    kernels.append(sums)
     # tree_score replaces an XLA scan, not a Pallas kernel: the row of
     # the main path's 2M-row call, beside the served model's rung 64
     score = ctx["score_rows"]
@@ -6058,6 +6572,7 @@ def main() -> int:
                      ("breadth_path", phase_breadth),
                      ("leafwise_path", phase_leafwise),
                      ("dart_path", phase_dart),
+                     ("ooc_path", phase_ooc),
                      ("kernel_score", phase_kernel_score),
                      ("refresh_path", phase_refresh),
                      ("fleet_path", phase_fleet),

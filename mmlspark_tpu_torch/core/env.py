@@ -30,7 +30,14 @@ one; the defaults are the JAX package's:
     table in bfloat16 (``parallel.shard_rules.resolve_infer_autocast``)
   - ``MMLSPARK_TORCH_SPILL_VERIFY``  auto|off|on: checksum verification
     of persisted payloads (``ops.ingest.resolve_spill_verify``); auto and
-    on verify every checkpoint's crc32 at resume, off trusts the disk
+    on verify every checkpoint's crc32 at resume and a spill chunk's at
+    its first read (auto) or every read (on); off trusts the disk
+  - ``MMLSPARK_TORCH_OOC``  auto|off|on: out-of-core training
+    (``models.gbdt.trainer.resolve_ooc``); auto streams a supported fit
+    from a spill directory (``models/gbdt/ooc.py``) when its in-core fit
+    would not fit in the card's free memory (``trainer.fits_in_core``),
+    on streams every supported fit (and warns once where the fit cannot
+    stream), off never streams
   - ``MMLSPARK_TORCH_FAULTS``  fault-injection specs armed at import
     (``core.faults.arm_from_env``; ``point:action[:nth[:param]]``, comma
     separated)
@@ -88,6 +95,7 @@ SERVE_TENANT_RATE = "MMLSPARK_TORCH_SERVE_TENANT_RATE"
 SERVE_TENANT_BURST = "MMLSPARK_TORCH_SERVE_TENANT_BURST"
 INFER_AUTOCAST = "MMLSPARK_TORCH_INFER_AUTOCAST"
 SPILL_VERIFY = "MMLSPARK_TORCH_SPILL_VERIFY"
+OOC = "MMLSPARK_TORCH_OOC"
 EFB = "MMLSPARK_TORCH_EFB"
 FAULTS = "MMLSPARK_TORCH_FAULTS"
 PREFETCH_DEPTH = "MMLSPARK_TORCH_PREFETCH_DEPTH"

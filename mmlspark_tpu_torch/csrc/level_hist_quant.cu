@@ -37,6 +37,15 @@
 //   5. the elementwise dequantization (level_hist_common.cuh); in the JAX
 //      package too it lies outside the Pallas body (hist_pallas.py:218-219).
 //
+// Chunk merges (out-of-core training, models/gbdt/ooc.py). Launches 1-4 add
+// a chunk of rows into the caller's running int64 sums when `out` is null,
+// and the dequantization runs once per level over the merged sums
+// (mmls_level_hist_quant_dequantize), with the expression of launch 5: the
+// same device code as one pass over all the rows, so the merged histogram
+// is that pass's, bit for bit. The JAX package merges chunks on the host,
+// in float64 (models/gbdt/ooc.py:210-244); here the sums never leave the
+// card.
+//
 // Bin ids past 256 bins: uint16 ids (B <= 65,536) take a kernel of their
 // own, level_hist_quant_u16_kernel, on level_hist.cu's plan for them (see
 // "Bin ids past 256 bins" there): each (row, feature) pair is added by
@@ -506,8 +515,14 @@ extern "C" {
 // int64 (8) node ids. Scratch, written here: `stats` n packed uint32;
 // `counts` (width + 1) * (ns + nb) int32 for ns = ceil(n / 512) warp
 // segments and nb = ceil(ns / 8) CTAs; `offsets` width + 1 int64; `order`
-// n int64. `acc` holds the width * f * b * 3 int64 sums, zero on entry;
-// `out` is the (width, f, b, 3) float32 histogram; the bins go in
+// n int64. `acc` holds the width * f * b * 3 int64 sums, in the layout of
+// `out`: the histogram adds into them, so they are zero on entry for one
+// histogram, or a running sum that each call adds a chunk of rows into
+// (integer adds commute, so the sums of the chunks are the one pass's).
+// `out` is the (width, f, b, 3) float32 histogram, dequantized from `acc`;
+// a null `out` skips the dequantization (the scales are then not read:
+// mmls_level_hist_quant_dequantize runs it once the chunks are in); the
+// bins go in
 // num_tiles tiles of tile_bins (uint8 ids: one tile, tile_bins = b);
 // `smem` a histogram CTA's dynamic shared memory (hist_cuda.
 // quant_smem_bytes / quant_u16_smem_bytes); `window` the rows of one node
@@ -546,11 +561,30 @@ int mmls_level_hist_quant(const void* binned, const void* grad,
   err = launch_quant(binned, stats, order, offsets, acc, f, b, width, f_slice,
                      num_slices, window, bin_bytes, tile_bins, num_tiles, smem,
                      device, s);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || out == nullptr) return (int)err;
   return (int)dequantize(
       (const long long*)acc, (float*)out,
       InverseScales{(const float*)gscale_inv, (const float*)hscale_inv},
       (int64_t)width * f * b * 3, s);
+}
+
+// The dequantization of mmls_level_hist_quant alone, on `stream` of
+// `device`: out[i] = float(double(acc[i]) * scale(i % 3)) over the `count`
+// cells of a (width, f, b, 3) int64 `acc` (count = width * f * b * 3),
+// scale 0 and 1 the float32 inverse scales on the device, 2 the count's 1.
+// Returns the first CUDA error: 0 on success.
+int mmls_level_hist_quant_dequantize(const void* acc, void* out,
+                                     const void* gscale_inv,
+                                     const void* hscale_inv, long long count,
+                                     int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (count < 0 || count % 3 != 0) return (int)cudaErrorInvalidValue;
+  if (count == 0) return 0;
+  return (int)dequantize(
+      (const long long*)acc, (float*)out,
+      InverseScales{(const float*)gscale_inv, (const float*)hscale_inv},
+      (int64_t)count, (cudaStream_t)stream);
 }
 
 // The histogram launch's grid on `device` at these arguments of

@@ -14,6 +14,14 @@ to float32 once. The result is the same bits in any row order and on
 any device, so the float32 fit is reproducible run to
 run on the card, as the reference's is.
 
+``level_histogram_quant_sums`` and ``dequantize_sums`` split the
+quantized histogram in two for out-of-core training (``ooc.py``): each
+chunk of rows adds its integer sums into a running (width, F, B, 3)
+int64 accumulator on the device, and the merged sums are dequantized
+once, with the same expression, so the merged histogram is the one
+pass's bit for bit (the JAX package merges chunks on the host,
+``models/gbdt/ooc.py:210-244``).
+
 ``level_histogram_quant`` is the port of
 ``trainer._level_histogram_quant`` (``hist_pallas.
 pallas_level_histogram_quant`` on the TPU): int16/int8 grad and hess
@@ -54,6 +62,12 @@ hist_quant_kernel_launches = 0
 # the kernels' uint16-id instances, counted apart
 hist_u16_kernel_launches = 0
 hist_quant_u16_kernel_launches = 0
+# the quantized kernel's chunk-merge entry (``level_histogram_quant_sums``:
+# no dequantization) on uint8 and uint16 ids, and the dequantization of
+# merged sums (``dequantize_sums``), counted apart from the above
+hist_quant_sums_kernel_launches = 0
+hist_quant_sums_u16_kernel_launches = 0
+hist_quant_dequant_launches = 0
 _capture = threading.local()
 
 
@@ -520,10 +534,7 @@ def level_histogram_quant(binned, grad_q, hess_q, live, local, width: int,
     floats). ``grad_q`` / ``hess_q`` are int16 or int8."""
     _check_inputs(binned, grad_q, hess_q, live, local, width, f, b,
                   stat_dtypes=QUANT_DTYPES)
-    gsi, hsi = (torch.as_tensor(s, dtype=torch.float32, device=binned.device)
-                for s in (gscale_inv, hscale_inv))
-    if gsi.dim() or hsi.dim():
-        raise ValueError("gscale_inv and hscale_inv must be scalars")
+    gsi, hsi = _scales(gscale_inv, hscale_inv, binned.device)
     if binned.device.type == "cpu":
         out = level_histogram_quant_reference(
             binned, grad_q, hess_q, live, local, width, f, b, gsi, hsi)
@@ -537,28 +548,119 @@ def level_histogram_quant_reference(binned, grad_q, hess_q, live, local,
                                     width: int, f: int, b: int, gscale_inv,
                                     hscale_inv) -> torch.Tensor:
     """Plain version: int64 ``index_add_`` over ``flat_index``'s cells
-    (:func:`_cell_sums`), then ``float32(int64_sum *
-    float64(scale_inv))``, one rounding (scale 1 for the count
-    channel)."""
+    (:func:`level_histogram_quant_sums_reference`), then
+    ``float32(int64_sum * float64(scale_inv))``, one rounding (scale 1
+    for the count channel; :func:`dequantize_reference`)."""
+    return dequantize_reference(level_histogram_quant_sums_reference(
+        binned, grad_q, hess_q, live, local, width, f, b), gscale_inv,
+        hscale_inv)
+
+
+def _scales(gscale_inv, hscale_inv, dev):
+    gsi, hsi = (torch.as_tensor(s, dtype=torch.float32, device=dev)
+                for s in (gscale_inv, hscale_inv))
+    if gsi.dim() or hsi.dim():
+        raise ValueError("gscale_inv and hscale_inv must be scalars")
+    return gsi, hsi
+
+
+def level_histogram_quant_sums(binned, grad_q, hess_q, live, local,
+                               width: int, f: int, b: int,
+                               acc: torch.Tensor) -> torch.Tensor:
+    """Add the integer sums of (grad_q, hess_q, 1) over the rows with
+    ``live > 0``, by (local, feature, bin), into ``acc``, a contiguous
+    (width, F, B, 3) int64 tensor on the device of ``binned`` that the
+    caller keeps across calls (zeros before the first chunk), and return
+    it. No dequantization: :func:`dequantize_sums` takes the merged sums.
+    On a CUDA tensor it launches ``csrc/level_hist_quant.cu``'s partition
+    and histogram (a build or launch failure raises), on a CPU tensor it
+    adds :func:`_cell_sums`, the plain version."""
+    _check_inputs(binned, grad_q, hess_q, live, local, width, f, b,
+                  stat_dtypes=QUANT_DTYPES)
+    if (acc.dtype != torch.int64 or tuple(acc.shape) != (width, f, b, 3)
+            or acc.device != binned.device or not acc.is_contiguous()):
+        raise ValueError(f"acc must be a contiguous int64 ({width}, {f}, "
+                         f"{b}, 3) tensor on {binned.device}, got "
+                         f"{acc.dtype} {tuple(acc.shape)} on {acc.device}")
+    if binned.device.type == "cpu":
+        acc += level_histogram_quant_sums_reference(
+            binned, grad_q, hess_q, live, local, width, f, b)
+    elif binned.shape[0]:
+        _launch_quant(binned, grad_q, hess_q, live, local, width, f, b,
+                      None, None, acc=acc)
+    return acc
+
+
+def level_histogram_quant_sums_reference(binned, grad_q, hess_q, live,
+                                         local, width: int, f: int,
+                                         b: int) -> torch.Tensor:
+    """Plain version: the (width, F, B, 3) int64 sums of one chunk,
+    int64 ``index_add_`` over ``flat_index``'s cells
+    (:func:`_cell_sums`), contiguous as the kernel's sums are (so the
+    histograms of both, and the reductions over them, are laid out
+    alike)."""
     gate = (live > 0).long()
     data = torch.stack([grad_q.long() * gate, hess_q.long() * gate, gate],
                        dim=-1)                                   # (n, 3)
-    acc = _cell_sums(binned, local, data, width, f, b)
-    one = torch.ones((), dtype=torch.float64, device=binned.device)
+    return _cell_sums(binned, local, data, width, f, b).contiguous().reshape(
+        width, f, b, 3)
+
+
+def dequantize_sums(acc: torch.Tensor, gscale_inv,
+                    hscale_inv) -> torch.Tensor:
+    """The (width, F, B, 3) float32 histogram of merged int64 sums,
+    ``float32(int64_sum * float64(scale_inv))`` (scale 1 for the count
+    channel): the dequantization of :func:`level_histogram_quant`, bit
+    for bit. On a CUDA tensor one launch of the kernel's own
+    dequantization (``mmls_level_hist_quant_dequantize``), on a CPU
+    tensor :func:`dequantize_reference`. The histogram passes the
+    ``gbdt.level_hist`` fault point, as the other wrappers' do."""
+    if acc.dtype != torch.int64 or acc.dim() != 4 or acc.shape[3] != 3 \
+            or not acc.is_contiguous():
+        raise ValueError(f"acc must be a contiguous int64 (width, F, B, 3) "
+                         f"tensor, got {acc.dtype} {tuple(acc.shape)}")
+    gsi, hsi = _scales(gscale_inv, hscale_inv, acc.device)
+    if acc.device.type == "cpu":
+        out = dequantize_reference(acc, gsi, hsi)
+    else:
+        global hist_quant_dequant_launches
+        lib = bindings.load("level_hist_quant")
+        out = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
+        code = lib.mmls_level_hist_quant_dequantize(
+            acc.data_ptr(), out.data_ptr(), gsi.data_ptr(), hsi.data_ptr(),
+            acc.numel(), acc.device.index,
+            torch.cuda.current_stream(acc.device).cuda_stream)
+        bindings.check(lib, code, "level_hist_quant dequantize launch")
+        hist_quant_dequant_launches += 1
+    return fault_point("gbdt.level_hist", out)
+
+
+def dequantize_reference(acc, gscale_inv, hscale_inv) -> torch.Tensor:
+    """Plain version of the dequantization:
+    ``float32(float64(acc) * float64(scale_inv))`` per channel."""
+    one = torch.ones((), dtype=torch.float64, device=acc.device)
     scales = torch.stack([one * gscale_inv, one * hscale_inv, one])
-    return (acc.double() * scales).float().reshape(width, f, b, 3)
+    return (acc.double() * scales).float()
 
 
 def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
-                  hsi):
+                  hsi, acc=None):
+    """The kernel's launches: into a fresh accumulator, dequantized into
+    the returned histogram; or, given ``acc``, added into it with no
+    dequantization (the chunk-merge entry: ``out`` null)."""
     n = binned.shape[0]
     _check_card_limits(width, n)
     lib = bindings.load("level_hist_quant")
     dev = binned.device
+    merge = acc is not None
     if n == 0:
         return torch.zeros((width, f, b, 3), dtype=torch.float32, device=dev)
-    out = torch.empty((width, f, b, 3), dtype=torch.float32, device=dev)
-    acc = torch.zeros((width, f, b, 3), dtype=torch.int64, device=dev)
+    if merge:
+        out, dequant = None, (None, None, None)
+    else:
+        out = torch.empty((width, f, b, 3), dtype=torch.float32, device=dev)
+        acc = torch.zeros((width, f, b, 3), dtype=torch.int64, device=dev)
+        dequant = (out.data_ptr(), gsi.data_ptr(), hsi.data_ptr())
     # per row the packed (grad_q, hess_q) word
     stats = torch.empty(n, dtype=torch.int32, device=dev)
     counts, offsets, order = _partition_scratch(n, width, dev)
@@ -572,11 +674,11 @@ def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
         binned.data_ptr(), grad_q.data_ptr(), hess_q.data_ptr(),
         live.data_ptr(), local.data_ptr(), local.element_size(),
         stats.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
-        order.data_ptr(), acc.data_ptr(), out.data_ptr(), gsi.data_ptr(),
-        hsi.data_ptr(), bits, n, f, b, width, f_slice, num_slices,
-        bin_bytes, tile_bins, num_tiles, smem, quant_window(bits),
-        dev.index, stream)
+        order.data_ptr(), acc.data_ptr(), *dequant, bits, n, f, b, width,
+        f_slice, num_slices, bin_bytes, tile_bins, num_tiles, smem,
+        quant_window(bits), dev.index, stream)
     bindings.check(lib, code, "level_hist_quant kernel launch")
-    _count_launch("hist_quant_kernel_launches" if bin_bytes == 1
-                  else "hist_quant_u16_kernel_launches")
+    _count_launch(("hist_quant_sums" if merge else "hist_quant")
+                  + ("_kernel_launches" if bin_bytes == 1
+                     else "_u16_kernel_launches"))
     return out

@@ -347,6 +347,8 @@ _L2_NAMES = ("regression", "regression_l2", "l2", "mean_squared_error", "mse")
 _L1_NAMES = ("regression_l1", "l1", "mae")
 
 MULTICLASS_NAMES = ("multiclass", "softmax", "multiclassova")
+# the objectives that boost from the label median (``init_score``)
+MEDIAN_NAMES = _L1_NAMES + ("quantile",)
 
 OBJECTIVES: Dict[str, ObjectiveFn] = {
     "binary": binary,
@@ -394,6 +396,6 @@ def init_score(objective: str, labels, weights=None) -> float:
         return float(np.log(max(mean, 1e-12)))
     if objective in _L2_NAMES + ("huber", "fair", "mape"):
         return mean
-    if objective in _L1_NAMES + ("quantile",):
+    if objective in MEDIAN_NAMES:
         return float(np.median(labels))
     return 0.0

@@ -61,7 +61,12 @@ What this slice runs (and the JAX trainer it mirrors, file
     layout built once per fit on the host
     (``objectives.make_group_layout``), for the lambdas and for each
     set's ``ndcg``;
-  - ``train``: serial, in-core, with validation sets, early stopping
+  - out-of-core training (``MMLSPARK_TORCH_OOC``, ``resolve_ooc`` /
+    ``_ooc_supported``; ``ooc.py``): a supported fit whose in-core fit
+    would not fit in the card's free memory streams from a spill
+    directory in row chunks, its trees bitwise the in-core quantized
+    fit's;
+  - ``train``: serial, with validation sets, early stopping
     (``_train_scan``'s stop rule, metrics synced in blocks), warm starts
     (``init_model`` / ``init_raw``, ``warm_start_scores``), custom
     objectives (``custom_objective``), resumed segments
@@ -105,6 +110,7 @@ import torch
 from mmlspark_tpu_torch.core import env
 from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.core.faults import fault_point
+from mmlspark_tpu_torch.core.logging_utils import warn_once
 from mmlspark_tpu_torch.core.timer import InstrumentationMeasures
 from mmlspark_tpu_torch.models.gbdt import metrics as metrics_mod
 from mmlspark_tpu_torch.models.gbdt import objectives as obj_mod
@@ -366,9 +372,12 @@ class TrainResult:
     booster: BoosterArrays
     evals: List[Dict[str, float]] = field(default_factory=list)
     best_iteration: int = -1
-    # what ran: {"grow_policy": "depthwise"|"leafwise", "hist_quant":
-    # "off"|"q16"|"q8", "subtract": bool, "efb_bundles": bundles of the
-    # EFB plan (0: none), "efb_bundled_features": the features in them}
+    # what ran: {"ooc": bool (streamed out of core), "ooc_reason": why an
+    # in-core fit did not stream (None where it streamed), "grow_policy":
+    # "depthwise"|"leafwise", "hist_quant": "off"|"q16"|"q8", "subtract":
+    # bool, "efb_bundles": bundles of the EFB plan (0: none),
+    # "efb_bundled_features": the features in them}; a streamed fit's
+    # keys are ``ooc.train_ooc``'s
     hist_stats: Dict[str, object] = field(default_factory=dict)
     # the step: {"captured": bool (replayed as a CUDA graph), "capture_s":
     # the seconds this fit spent capturing, None where it made none; for
@@ -462,6 +471,115 @@ def grow_policy_of(cfg: TrainConfig) -> str:
                 "growing depthwise — label A/B measurements accordingly")
             policy = "depthwise"
     return policy
+
+
+_VALID_OOC = ("auto", "off", "on")
+
+
+def resolve_ooc() -> str:
+    """Out-of-core training policy (``MMLSPARK_TORCH_OOC``, default auto;
+    the JAX package's ``resolve_ooc``): ``auto`` streams a supported fit
+    through the spill plane (``ooc.train_from_binned``) when its in-core
+    fit would not fit in the card's free memory (``fits_in_core``);
+    ``on`` streams every supported fit (an unsupported one warns once
+    and stays in-core); ``off`` never streams. A bad value warns once
+    and runs auto."""
+    raw = (env.env_str(env.OOC, "") or "").strip().lower()
+    if not raw:
+        return "auto"
+    if raw not in _VALID_OOC:
+        env.warn_once(env.OOC, f"{env.OOC}={raw!r} is not one of "
+                               "auto|off|on; using auto")
+        return "auto"
+    return raw
+
+
+# rows per spill chunk of a streamed ``train`` fit (the reference's
+# default; the tests lower it)
+OOC_CHUNK_ROWS = 262_144
+# device bytes an in-core fit holds per row beside its two copies of the
+# bin ids (the upload and the step's own buffer): labels, raw scores,
+# grad/hess and their quanta, node ids, the histogram kernels' row
+# stats and partition order, the step's temporaries. chip_smoke.py's
+# ooc_path holds it above the measured peak of the 4M x 28 in-core fits
+IN_CORE_ROW_BYTES = 160
+
+
+def in_core_bytes(n: int, f: int, total_bins: int) -> int:
+    """The device bytes an in-core fit of ``n`` rows of ``f`` features
+    holds at its peak (an estimate: ``IN_CORE_ROW_BYTES``)."""
+    itemsize = np.dtype(binned_ingest_dtype(total_bins)).itemsize
+    return n * (2 * f * itemsize + IN_CORE_ROW_BYTES)
+
+
+def device_free_bytes(dev: torch.device) -> Optional[int]:
+    """The bytes a fit could still allocate on ``dev``: the card's free
+    memory and the segments PyTorch's caching allocator holds wholly
+    unused in its default pool (it hands those back to the driver before
+    it fails an allocation; a captured graph's private pool serves no
+    other allocation). None on the CPU, where the caller's matrix is
+    already in host memory."""
+    if dev.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(dev)
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    segments = torch.cuda.memory_snapshot()
+    return free + sum(s["total_size"] for s in segments
+                      if s["device"] == index and s["allocated_size"] == 0
+                      and tuple(s["segment_pool_id"]) == (0, 0))
+
+
+def fits_in_core(n: int, f: int, total_bins: int,
+                 dev: torch.device) -> bool:
+    """Whether ``auto`` keeps a fit in-core: its estimated peak
+    (``in_core_bytes``) fits in ``device_free_bytes``. The reference
+    streams from a row count instead (``MMLSPARK_TPU_OOC_ROWS``, 4M),
+    its TPU's memory in rows (ROADMAP C25)."""
+    free = device_free_bytes(dev)
+    return free is None or in_core_bytes(n, f, total_bins) <= free
+
+
+def _ooc_supported(cfg: TrainConfig, k: int = 1, has_valid: bool = False,
+                   has_custom: bool = False,
+                   has_groups: bool = False) -> Optional[str]:
+    """None where the chunked loop (``ooc.py``) reproduces this fit
+    exactly, else the reason it stays in-core, in the JAX package's words
+    (``_ooc_supported``): the serial depthwise numeric plane, whose
+    integer histograms merge exactly across row chunks. Anything that
+    samples rows or features per iteration, needs full-N state
+    (validation scoring, lambdarank groups) or runs another builder stays
+    in-core. The reference's mesh clause has no counterpart (the port
+    has no mesh, ROADMAP A8), nor its clause that the native histogram
+    formulation be available: the port's quantized kernel always sums
+    integers exactly (ROADMAP C24)."""
+    if grow_policy_of(cfg) == "leafwise":
+        return "leafwise growth"
+    if cfg.tree_learner in ("voting", "feature"):
+        return f"tree_learner={cfg.tree_learner!r}"
+    if cfg.boosting_type != "gbdt":
+        return f"boosting_type={cfg.boosting_type!r}"
+    if has_custom:
+        return "a custom objective"
+    if k > 1:
+        return "multiclass objectives"
+    if cfg.objective == "lambdarank" or has_groups:
+        return "lambdarank / grouped fits"
+    if has_valid or cfg.early_stopping_round > 0:
+        return "validation sets / early stopping"
+    if cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0:
+        return "bagging"
+    if cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0:
+        return "pos/neg bagging"
+    if cfg.feature_fraction < 1.0 or cfg.feature_fraction_by_node < 1.0:
+        return "feature sampling"
+    if cfg.extra_trees:
+        return "extra_trees"
+    if cfg.categorical_features:
+        return "categorical_features"
+    if any(cfg.monotone_constraints or ()):
+        return "monotone_constraints"
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -828,6 +946,67 @@ def _bins_at(binned, feat):
     return torch.gather(binned, 1, feat[:, None])[:, 0]
 
 
+def _root_stats(hist, cfg: TrainConfig):
+    """The quantized plane's root (value, count) from the level-0
+    histogram: any one feature's bins partition the live rows."""
+    tot0 = torch.sum(hist[0, 0], dim=0)
+    rv0, _ = _leaf_objective_impl(tot0[0], tot0[1], cfg.lambda_l1,
+                                  cfg.lambda_l2)
+    if cfg.max_delta_step > 0:
+        rv0 = torch.clamp(rv0, -cfg.max_delta_step, cfg.max_delta_step)
+    return rv0, tot0[2]
+
+
+def _record_level(tree, d: int, do_split, best_feat, best_bin, lval, rval,
+                  left_stats, right_stats) -> None:
+    """Write level ``d``'s splits into the full-layout ``tree``
+    (split_feature, threshold_bin, node_value, node_count): the level's
+    slots, and its children's values and counts (the children of slot s
+    are 2s+1 / 2s+2, interleaved left/right)."""
+    split_feature, threshold_bin, node_value, node_count = tree
+    level_start, width = 2 ** d - 1, 2 ** d
+    kids = 2 * level_start + 1
+    split_feature[level_start:kids] = torch.where(
+        do_split, best_feat, -1).to(torch.int32)
+    threshold_bin[level_start:kids] = torch.where(
+        do_split, best_bin, 0).to(torch.int32)
+    node_value[kids:kids + 2 * width] = torch.where(
+        do_split[:, None], torch.stack([lval, rval], dim=1), 0.0).reshape(-1)
+    node_count[kids:kids + 2 * width] = torch.where(
+        do_split[:, None],
+        torch.stack([left_stats[:, 2], right_stats[:, 2]], dim=1),
+        0.0).reshape(-1)
+
+
+def _level_rows(node, d: int):
+    """(local slot ids, bool mask of the rows still at level ``d``) of the
+    full-layout slots ``node``: a row that settled in a leaf above level
+    ``d`` keeps a slot below 2^d - 1."""
+    level_start, width = 2 ** d - 1, 2 ** d
+    return (torch.clamp(node - level_start, 0, width - 1),
+            node >= level_start)
+
+
+def _smaller_child(local, prev_ss):
+    """The rows whose slot is its split's smaller child (``prev_ss``, the
+    previous level's side per split), the one histogrammed under
+    subtraction; its sibling's histogram is derived."""
+    return (local % 2) == prev_ss[local // 2]
+
+
+def _route_rows(node, d: int, local, binned, best_feat, best_bin, do_split,
+                left_mask=None):
+    """Each row's slot after level ``d``'s splits: bins <= the threshold
+    (or, with ``left_mask`` (width, B), the bins a split sends left) go
+    to 2s+1, the others to 2s+2; rows settled above level ``d`` and rows
+    of a slot that did not split stay where they are."""
+    nbin = _bins_at(binned, best_feat[local])
+    go_left = (left_mask[local, nbin.long()] if left_mask is not None
+               else nbin.to(torch.int64) <= best_bin[local])
+    child = torch.where(go_left, 2 * node + 1, 2 * node + 2)
+    return torch.where((node >= 2 ** d - 1) & do_split[local], child, node)
+
+
 def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
                total_bins: int, hist_quant: str = "off",
                subtract: bool = False, valid=None, feat_mask=None, key=None,
@@ -868,7 +1047,6 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
                          "tree's stream keys (key)")
 
     node = torch.zeros(n, dtype=torch.int64, device=dev)   # full-layout slot
-    done = torch.zeros(n, dtype=torch.bool, device=dev)    # settled in a leaf
     split_feature = torch.full((num_slots,), -1, dtype=torch.int32, device=dev)
     threshold_bin = torch.zeros(num_slots, dtype=torch.int32, device=dev)
     node_value = torch.zeros(num_slots, dtype=torch.float32, device=dev)
@@ -943,8 +1121,8 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
         level_start = 2 ** d - 1
         width = 2 ** d
         kids = 2 * level_start + 1      # first slot of the next level
-        local = torch.clamp(node - level_start, 0, width - 1)
-        live = (~done).to(torch.float32)
+        local, at_level = _level_rows(node, d)
+        live = at_level.to(torch.float32)
         if valid is not None:
             live = live * valid
         if subtract and d > 0:
@@ -952,23 +1130,16 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
             # sibling's rows out of live: masked rows fall in no tile of
             # the kernels. live stays binary, so the cover stat that
             # picked the smaller side counts its rows.
-            sel = (live > 0) & ((local % 2) == prev_ss[local // 2])
+            sel = (live > 0) & _smaller_child(local, prev_ss)
             hist = _derive_sibling_hist(
                 hist_of(live * sel.to(live.dtype), local, width), prev_hist,
                 prev_split, prev_ss)
         else:
             hist = hist_of(live, local, width)
         if hist_quant != "off" and d == 0:
-            # quantized-plane root stats from the level-0 histogram (any
-            # one feature's bins partition the live rows), recorded before
-            # split finding so path smoothing sees the root value
-            tot0 = torch.sum(hist[0, 0], dim=0)
-            rv0, _ = _leaf_objective_impl(tot0[0], tot0[1], lam1, lam2)
-            if cfg.max_delta_step > 0:
-                rv0 = torch.clamp(rv0, -cfg.max_delta_step,
-                                  cfg.max_delta_step)
-            node_value[0] = rv0
-            node_count[0] = tot0[2]
+            # quantized-plane root stats, recorded before split finding so
+            # path smoothing sees the root value
+            node_value[0], node_count[0] = _root_stats(hist, cfg)
         parent_value = node_value[level_start:kids]
         if cfg.general_split:
             node_mask = fmask
@@ -1025,28 +1196,11 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
             left_mask = None
         if subtract:
             prev_hist, prev_split, prev_ss = hist, do_split, small_side
-        split_feature[level_start:kids] = torch.where(
-            do_split, best_feat, -1).to(torch.int32)
-        threshold_bin[level_start:kids] = torch.where(
-            do_split, best_bin, 0).to(torch.int32)
-        # children of slot s are 2s+1 / 2s+2: interleaved left/right
-        node_value[kids:kids + 2 * width] = torch.where(
-            do_split[:, None], torch.stack([lval, rval], dim=1),
-            0.0).reshape(-1)
-        node_count[kids:kids + 2 * width] = torch.where(
-            do_split[:, None],
-            torch.stack([left_stats[:, 2], right_stats[:, 2]], dim=1),
-            0.0).reshape(-1)
-        # --- route rows; rows already done stay where they are ---------
-        nfeat = best_feat[local]
-        nbin = _bins_at(binned, nfeat)
-        nsplit = do_split[local]
-        go_left = (left_mask[local, nbin.long()] if left_mask is not None
-                   else nbin.to(torch.int64) <= best_bin[local])
-        child = torch.where(go_left, 2 * node + 1, 2 * node + 2)
-        newly_done = ~nsplit & ~done
-        node = torch.where(done | ~nsplit, node, child)
-        done = done | newly_done
+        _record_level((split_feature, threshold_bin, node_value,
+                       node_count), d, do_split, best_feat, best_bin, lval,
+                      rval, left_stats, right_stats)
+        node = _route_rows(node, d, local, binned, best_feat, best_bin,
+                           do_split, left_mask)
     if has_cat:
         return (split_feature, threshold_bin, node_value, node_count,
                 decision_type, bin_go_left)
@@ -1252,6 +1406,18 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     ``step_end`` bracket each iteration as in the reference (the
     refresh loop's refit throttle runs at ``step_start``).
 
+    Out of core (``resolve_ooc``): with ``MMLSPARK_TORCH_OOC`` auto and
+    too little free device memory for the in-core fit (``fits_in_core``),
+    or ``on``, a fit that ``_ooc_supported`` accepts streams through
+    ``ooc.train_from_binned``: the rows are spilled in
+    ``OOC_CHUNK_ROWS`` chunks and
+    boosted chunk by chunk, on the quantized plane (q16 where
+    ``MMLSPARK_TORCH_HIST_QUANT`` is off, with one warning), the trees
+    bitwise the in-core fit's on that plane. ``on`` with a fit that
+    cannot stream warns once and trains in-core; a full spill disk
+    (``DiskFull``) warns once and trains in-core. ``hist_stats`` records
+    ``ooc`` and ``ooc_reason`` (why the fit stayed in-core, else None).
+
     ``device=None`` runs on the CUDA card (and raises without one);
     ``device="cpu"`` runs the plain PyTorch path. The histogram plane
     and subtraction follow ``MMLSPARK_TORCH_HIST_QUANT`` /
@@ -1289,6 +1455,42 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
                 raise ValueError(
                     f"valid set {vi}: ndcg eval requires its own group ids "
                     "(pass 4-tuples in valid_sets)")
+
+    ooc_mode = resolve_ooc()
+    if ooc_mode == "off":
+        ooc_reason: Optional[str] = f"{env.OOC}=off"
+    else:
+        ooc_reason = _ooc_supported(
+            cfg, k=k, has_valid=bool(valid_sets),
+            has_custom=custom_objective is not None,
+            has_groups=group_ids is not None)
+        want_ooc = (ooc_mode == "on"
+                    or not fits_in_core(n, num_f, total_bins, dev))
+        if want_ooc and ooc_reason is None:
+            from mmlspark_tpu_torch.core.serialize import DiskFull
+            from mmlspark_tpu_torch.models.gbdt import ooc as ooc_mod
+            try:
+                return ooc_mod.train_from_binned(
+                    binned, labels, cfg, weights=weights,
+                    bin_upper=bin_upper, init_model=init_model,
+                    init_raw=init_raw, measures=measures,
+                    iteration_offset=iteration_offset, device=dev)
+            except DiskFull as e:
+                # the caller handed over the whole binned matrix, so the
+                # rows fit in memory: train in-core rather than fail
+                warn_once(
+                    "gbdt.ooc.disk_full",
+                    "out-of-core spill hit a full disk (%s); the rows "
+                    "already fit in memory, so this fit continues IN-CORE "
+                    "— free spill space to restore chunked training", e)
+                ooc_reason = "io.disk_full: spill write failed"
+        elif want_ooc:
+            env.warn_once(f"{env.OOC}:downgrade",
+                          f"{env.OOC}=on cannot stream this fit "
+                          f"({ooc_reason}); training in-core — label A/B "
+                          "measurements accordingly")
+        elif ooc_reason is None:
+            ooc_reason = "auto: the in-core fit fits in device memory"
 
     def shape_of(rows):
         return (rows,) if k == 1 else (rows, k)
@@ -1423,6 +1625,7 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
                       else runner.tree_weights[:kept * k]))
     return TrainResult(booster=booster, evals=evals, best_iteration=best_iter,
                        hist_stats={
+                           "ooc": False, "ooc_reason": ooc_reason,
                            "grow_policy": grow_policy,
                            "hist_quant": hist_quant, "subtract": subtract,
                            "efb_bundles": (0 if efb_plan is None

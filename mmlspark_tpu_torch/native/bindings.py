@@ -67,6 +67,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # bytes, window, device, stream
         "mmls_level_hist_quant": ([_VP] * 5 + [_I] + [_VP] * 8 + [_I, _LL]
                                   + [_I] * 11 + [_VP], _I),
+        # acc, out, gscale_inv, hscale_inv, cells, device, stream
+        "mmls_level_hist_quant_dequantize": ([_VP] * 4 + [_LL, _I, _VP],
+                                             _I),
         # as mmls_level_hist_grid
         "mmls_level_hist_quant_grid": ([_I] * 5 + [ctypes.POINTER(_I)], _I),
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),

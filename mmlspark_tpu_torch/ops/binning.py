@@ -19,17 +19,20 @@ the JAX package's ``transform`` does by default, and categorical columns
 by the JAX package's numpy lookup; ``_transform_python`` is the plain
 numpy version of both, which the tests hold it to bit for bit.
 
-The streaming sketch fit (``fit_streaming``) is later work (ROADMAP A7).
+``fit_streaming`` builds the edges in one pass over row chunks (an exact
+distinct-value tally beside a ``QuantileSketch`` per feature), for fits
+whose rows never exist as one array (``models/gbdt/ooc.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
 from mmlspark_tpu_torch.native import bindings
+from mmlspark_tpu_torch.ops.sketch import DEFAULT_SKETCH_K, QuantileSketch
 
 # Row-block size for BinMapper.transform: bounds the float64 staging copy
 # to block_rows x F instead of N x F.
@@ -150,6 +153,68 @@ class BinMapper:
             edges.append(_numeric_edges(uniq, counts, usable_bins,
                                         min_data_in_bin))
         return BinMapper(edges, max_bin, cat, cats)
+
+    @staticmethod
+    def fit_streaming(chunks: Iterable[np.ndarray], max_bin: int = 255,
+                      categorical_features: Sequence[int] = (),
+                      min_data_in_bin: int = 3,
+                      max_bin_by_feature: Optional[Sequence[int]] = None,
+                      sketch_k: int = DEFAULT_SKETCH_K) -> "BinMapper":
+        """One pass over row chunks (the JAX package's
+        ``fit_streaming``). Per feature an exact distinct-value tally runs
+        beside a mergeable ``QuantileSketch``: while a feature's distinct
+        values stay within ``max(4096, 4 * usable bins)`` the edges are
+        ``fit``'s over the concatenated chunks, bit for bit; past that cap
+        the tally is dropped and the sketch's (value, weight) items feed
+        the same edge computation, within the sketch's rank-error bound.
+        Peak memory is one chunk plus the sketches, never the whole
+        dataset. Categorical features need exact global category counts
+        and are refused: bin them with ``fit`` on a row sample."""
+        if len(list(categorical_features)) > 0:
+            raise ValueError(
+                "fit_streaming supports numeric features only; bin "
+                "categorical features via BinMapper.fit on a row sample")
+        sketches: Optional[List[QuantileSketch]] = None
+        tallies: List[Optional[Dict[float, int]]] = []
+        num_f = 0
+        for chunk in chunks:
+            c = np.asarray(chunk, dtype=np.float64)
+            if c.ndim != 2:
+                raise ValueError(f"chunks must be 2-d, got shape {c.shape}")
+            if sketches is None:
+                num_f = c.shape[1]
+                sketches = [QuantileSketch(sketch_k) for _ in range(num_f)]
+                tallies = [dict() for _ in range(num_f)]
+            elif c.shape[1] != num_f:
+                raise ValueError(
+                    f"chunk has {c.shape[1]} features, expected {num_f}")
+            for f in range(num_f):
+                col = c[:, f]
+                col = col[~np.isnan(col)]
+                sketches[f].update(col)
+                tally = tallies[f]
+                if tally is not None:
+                    uniq, counts = np.unique(col, return_counts=True)
+                    for v, cnt in zip(uniq.tolist(), counts.tolist()):
+                        tally[v] = tally.get(v, 0) + cnt
+                    usable = _feat_max_bin(f, max_bin, max_bin_by_feature) - 2
+                    if len(tally) > max(4096, 4 * usable):
+                        tallies[f] = None  # high cardinality: sketch only
+        if sketches is None:
+            raise ValueError("fit_streaming requires at least one chunk")
+        edges: List[np.ndarray] = []
+        for f in range(num_f):
+            usable = _feat_max_bin(f, max_bin, max_bin_by_feature) - 2
+            tally = tallies[f]
+            if tally is not None:
+                items = sorted(tally.items())
+                uniq = np.asarray([it[0] for it in items], dtype=np.float64)
+                counts = np.asarray([it[1] for it in items], dtype=np.int64)
+            else:
+                uniq, counts = sketches[f].items()
+            edges.append(_numeric_edges(uniq, counts, usable,
+                                        min_data_in_bin))
+        return BinMapper(edges, max_bin)
 
     def transform(self, x: np.ndarray, dtype=np.int32) -> np.ndarray:
         """Map raw features (N, F) to bin ids (N, F); NaN -> bin 0. The

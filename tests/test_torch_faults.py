@@ -1,7 +1,8 @@
 """The port's fault registry (``core/faults.py``) against the JAX
 package's, and the training-path points it places: ``gbdt.train_step``
 once per iteration, ``gbdt.level_hist`` on both histogram planes'
-output, ``checkpoint.write`` / ``io.disk_full`` in the checkpoint store.
+output, ``checkpoint.write`` / ``io.disk_full`` in the checkpoint store,
+``io.disk_full`` / ``spill.read`` in the out-of-core spill plane.
 """
 
 import pathlib
@@ -27,7 +28,7 @@ from mmlspark_tpu_torch.ops.binning import BinMapper
 torch.set_num_threads(1)
 
 TRAINING_POINTS = {"gbdt.train_step", "gbdt.level_hist", "checkpoint.write",
-                   "io.disk_full"}
+                   "io.disk_full", "spill.read"}
 # placed with the serving fleet, the model lifecycle and the refresh loop
 LIFECYCLE_POINTS = {"serving.score", "serving.worker_kill",
                     "serving.observe_log", "registry.swap",
@@ -63,10 +64,13 @@ def test_every_fault_point_site_is_registered():
     sites = _sites()
     assert not set(sites) - set(faults.KNOWN_POINTS), sites
     assert set(sites) == TRAINING_POINTS | LIFECYCLE_POINTS
-    assert sites["gbdt.train_step"] == {"trainer.py"}
+    # the out-of-core loop's tree loop and spill plane: where the
+    # reference's ooc.py and ops/ingest.py have them
+    assert sites["gbdt.train_step"] == {"trainer.py", "ooc.py"}
     assert sites["gbdt.level_hist"] == {"hist_cuda.py"}
-    assert sites["checkpoint.write"] == sites["io.disk_full"] == \
-        {"serialize.py"}
+    assert sites["checkpoint.write"] == {"serialize.py"}
+    assert sites["io.disk_full"] == {"serialize.py", "ingest.py"}
+    assert sites["spill.read"] == {"ingest.py"}
     for name in ("serving.score", "serving.worker_kill", "serving.observe_log",
                  "registry.swap", "fleet.spawn", "net.half_open",
                  "net.slow_reply", "net.latency"):

@@ -57,6 +57,12 @@ QMAX = {"q16": 32000.0, "q8": 120.0}
 QDT = {"q16": np.int16, "q8": np.int8}
 
 
+# hist_stats' out-of-core record of an in-core fit under auto (on the
+# CPU the caller's matrix is already in host memory)
+IN_CORE = {"ooc": False,
+           "ooc_reason": "auto: the in-core fit fits in device memory"}
+
+
 @pytest.fixture(autouse=True)
 def _pin_reference(monkeypatch):
     monkeypatch.setenv("MMLSPARK_TPU_HIST_FORMULATION", "per_feature")
@@ -321,7 +327,8 @@ def test_quantized_l2_fit_is_bitwise(monkeypatch, quant, sub, trees, extra):
                        **extra)
     assert jr.hist_stats["hist_quant"] == quant
     assert pr.hist_stats == {"grow_policy": "depthwise", "hist_quant": quant,
-                             "subtract": sub == "1", **NO_EFB}
+                             "subtract": sub == "1", **NO_EFB,
+                             **IN_CORE}
     assert (jr.booster.split_feature >= 0).sum() >= 5 * trees  # real trees
     for name in ARRAYS:
         want, got = getattr(jr.booster, name), getattr(pr.booster, name)
@@ -370,7 +377,8 @@ def test_f32_fit_with_subtraction_matches(monkeypatch, objective):
     jr, pr = _fit_both(x, y if objective == "regression" else y_bin,
                        objective=objective, num_iterations=5)
     assert pr.hist_stats == {"grow_policy": "depthwise", "hist_quant": "off",
-                             "subtract": True, **NO_EFB}
+                             "subtract": True, **NO_EFB,
+                             **IN_CORE}
     for name in ("split_feature", "threshold_bin", "count"):
         np.testing.assert_array_equal(getattr(pr.booster, name),
                                       getattr(jr.booster, name))
@@ -413,7 +421,7 @@ def test_bad_knob_values_warn_once_and_run_off(monkeypatch, knob, bad):
     for fit in fits:
         assert fit.hist_stats == {"grow_policy": "depthwise",
                                   "hist_quant": "off", "subtract": False,
-                                  **NO_EFB}
+                                  **NO_EFB, **IN_CORE}
         for name in ARRAYS:
             np.testing.assert_array_equal(getattr(fit.booster, name),
                                           getattr(plain.booster, name))
@@ -476,7 +484,8 @@ def test_quantized_fit_on_uint16_ids_is_bitwise(monkeypatch, quant, sub):
     pr = trainer.train(binned, y, trainer.TrainConfig(**cfg),
                        bin_upper=bin_upper, device="cpu")
     assert pr.hist_stats == {"grow_policy": "depthwise", "hist_quant": quant,
-                             "subtract": sub == "1", **NO_EFB}
+                             "subtract": sub == "1", **NO_EFB,
+                             **IN_CORE}
     for name in ARRAYS:
         np.testing.assert_array_equal(getattr(pr.booster, name),
                                       getattr(jr.booster, name),

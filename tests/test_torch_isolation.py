@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from mmlspark_tpu_torch.core.device import resolve_device
-from mmlspark_tpu_torch.models.gbdt import hist_cuda
+from mmlspark_tpu_torch.core.env import env_override
+from mmlspark_tpu_torch.models.gbdt import hist_cuda, ooc
 from mmlspark_tpu_torch.models.gbdt.trainer import TrainConfig, train
 from mmlspark_tpu_torch.ops.binning import BinMapper
 from mmlspark_tpu_torch.parallel import flash
@@ -64,7 +65,7 @@ def test_port_files_were_found():
             "objectives.py", "estimators.py", "logging_utils.py",
             "torch_train_ab.py", "retries.py", "drift.py", "prefetch.py",
             "resilience.py", "fleet.py", "refresh.py", "leafwise.py",
-            "host_loop.py"} <= names
+            "host_loop.py", "ooc.py", "sketch.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -83,6 +84,9 @@ def test_importing_the_port_loads_no_jax():
             "import mmlspark_tpu_torch.parallel.resilience\n"
             "import mmlspark_tpu_torch.models.gbdt.leafwise\n"
             "import mmlspark_tpu_torch.models.gbdt.host_loop\n"
+            "import mmlspark_tpu_torch.models.gbdt.ooc\n"
+            "import mmlspark_tpu_torch.ops.sketch\n"
+            "import mmlspark_tpu_torch.ops.binning\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mmlspark_tpu')]\n"
             "print(bad)\n")
@@ -112,6 +116,15 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
                       num_leaves=4, max_depth=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train(binned, y, cfg)
+    # the out-of-core entry points: the dispatch, and each entry itself
+    with env_override("MMLSPARK_TORCH_OOC", "on"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train(binned, y, cfg)
+        assert train(binned, y, cfg, device="cpu").hist_stats["ooc"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ooc.train_from_binned(binned, y, cfg)
+    assert ooc.train_from_binned(binned, y, cfg,
+                                 device="cpu").hist_stats["ooc"]
     booster = train(binned, y, cfg, device="cpu").booster
     with pytest.raises(RuntimeError, match="no CUDA device"):
         booster.predict_binned(binned.astype(np.uint8))
@@ -128,8 +141,11 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
 
 def test_cpu_tensors_take_the_plain_version():
     """On the CPU the wrappers never launch (or build) their kernels."""
-    before = (hist_cuda.hist_kernel_launches,
-              hist_cuda.hist_quant_kernel_launches,
+    counters = ("hist_kernel_launches", "hist_quant_kernel_launches",
+                "hist_quant_sums_kernel_launches",
+                "hist_quant_sums_u16_kernel_launches",
+                "hist_quant_dequant_launches")
+    before = (*(getattr(hist_cuda, c) for c in counters),
               flash.flash_kernel_launches)
     n, f, b = 64, 2, 8
     binned = torch.zeros((n, f), dtype=torch.uint8)
@@ -140,11 +156,15 @@ def test_cpu_tensors_take_the_plain_version():
     out_q = hist_cuda.level_histogram_quant(binned, ones_q, ones_q,
                                             torch.ones(n), local, 1, f, b,
                                             0.5, 0.25)
+    acc = torch.zeros((1, f, b, 3), dtype=torch.int64)
+    hist_cuda.level_histogram_quant_sums(binned, ones_q, ones_q,
+                                         torch.ones(n), local, 1, f, b, acc)
+    out_s = hist_cuda.dequantize_sums(acc, 0.5, 0.25)
     q = torch.ones((1, 128, 1, 8))
     attn = flash.flash_attention(q, q, q, device="cpu")
-    assert (hist_cuda.hist_kernel_launches,
-            hist_cuda.hist_quant_kernel_launches,
+    assert (*(getattr(hist_cuda, c) for c in counters),
             flash.flash_kernel_launches) == before
+    assert torch.equal(out_s, out_q)
     assert torch.equal(attn, q)
     assert out[0, :, 0, 2].tolist() == [float(n)] * f
     assert out_q[0, :, 0].tolist() == [[n * 0.5, n * 0.25, float(n)]] * f

@@ -246,7 +246,8 @@ def test_leafwise_ignores_quant_and_efb(monkeypatch):
     r = trainer.train(binned, y, cfg, bin_upper=bin_upper, device="cpu")
     assert r.hist_stats == {"grow_policy": "leafwise", "hist_quant": "off",
                             "subtract": True, "efb_bundles": 0,
-                            "efb_bundled_features": 0}
+                            "efb_bundled_features": 0, "ooc": False,
+                            "ooc_reason": "leafwise growth"}
     for name in ARRAYS:
         np.testing.assert_array_equal(getattr(r.booster, name),
                                       getattr(plain.booster, name))
