@@ -258,6 +258,26 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      ``index_add_``; a 3-tree uint16 streamed fit bitwise its in-core
      fit; a 5-iteration ``LightGBMRegressor`` streamed through ``train``;
      a 2-tree streamed fit profiled (device ms by kernel, uploads);
+ 14h. int32 kernels (``max_bin`` past 65,536): both histogram kernels'
+     int32 instances against their plain versions at 2M × 28 with B =
+     70,000, 131,072 and 131,072 skewed (90% of each feature's rows in
+     one bin), every level width, the float32 plane on integer and float
+     stats, q16 at each case and q8 at B = 131,072, bitwise and between
+     two launches, with event-pair, device, plain and ``index_add_``
+     times and the byte bound; the chunk-merge entry on int32 ids (4
+     chunks of 262,144 rows, B = 131,072) held as in 14g;
+ 14i. int32 path: ``LightGBMClassifier(maxBin=131072,
+     binSampleCount=2000000)`` on the bench's 2M rows (every column past
+     65,536 bins, int32 ids) fit and transform, raw and binned, its
+     binned serving plane's replies; ``train`` on its mapper (f32: two
+     fits bitwise, captured bitwise uncaptured, the estimator's booster;
+     q16, q8), 120 launches of the int32 instance per fit, each fit's
+     wall and device peak under ``trainer.in_core_bytes``, the logloss
+     falling, and a profiled 3-tree fit (device ms by kernel);
+     ``predict_binned`` on the 2M int32 rows through the wide bin nodes,
+     bitwise its plain version; a leaf-wise (8 leaves), a
+     DART and a streamed fit at 200,000 rows, B = 70,000, 3 trees, the
+     streamed one bitwise the in-core q16 fit;
  15. tree scorer vs plain (after phase 14c): ``csrc/tree_score.cu``
      against ``score_cuda.tree_score_reference``, bit for bit and between
      two launches: the served model at every rung 1..64 (autocast off
@@ -271,11 +291,14 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      2M rows and at 1..16,384 rows in each plan, and on random boosters
      of every decision byte with category bitsets (K=1 also at 2M rows,
      K=3, depth 16) over rows with NaN, 0.0, -0.0, negative, fractional
-     and unseen categories, each plan forced; each
-     case's plan on a line of its own; at rung 64 and at 2M rows the
-     device time, the event-pair time, the launches of one call
-     (profiler), the bound and the plain version's time; and both plans'
-     device time at 1..16,384 rows (the crossover);
+     and unseen categories, each plan forced; the wide bin nodes (thresholds
+     and int32 ids past 65,535, K = 3; split features past 32,767 on uint8,
+     uint16 and int32 ids) in each plan that fits, their staged batch at every
+     rung, and the int32 path's booster at its 2M int32 rows; each case's plan
+     on a line of its own; at rung 64 and at 2M rows the device time, the
+     event-pair time, the launches of one call (profiler), the bound and the
+     plain version's time; and both plans' device time at 1..16,384 rows (the
+     crossover);
  16. objectives path (after phase 13): ``LightGBMRegressor`` fit and
      transform on the 2M bench rows (20 trees, num_leaves 63, max_depth
      6, max_bin 255) under each of regression_l1, huber, fair, poisson,
@@ -624,9 +647,15 @@ U16_SKEW = 0.9            # the skewed case's share of rows in one bin
 
 
 def u16_ids(torch, gen, n, f, b, dev, skew=0.0):
-    """(n, f) uint16 bin ids in [0, b), made as int32 (randint takes no
-    uint16) and narrowed through int16's bits: uniform, or with a share
-    ``skew`` of each feature's rows in one bin of its own."""
+    """(n, f) uint16 bin ids in [0, b): ``i32_ids`` (randint takes no
+    uint16) narrowed through int16's bits."""
+    return i32_ids(torch, gen, n, f, b, dev, skew).to(torch.int16).view(
+        torch.uint16)
+
+
+def i32_ids(torch, gen, n, f, b, dev, skew=0.0):
+    """(n, f) int32 bin ids in [0, b): uniform, or with a share ``skew``
+    of each feature's rows in one bin of its own."""
     ids = torch.randint(0, b, (n, f), generator=gen, device=dev,
                         dtype=torch.int32)
     if skew:
@@ -634,33 +663,37 @@ def u16_ids(torch, gen, n, f, b, dev, skew=0.0):
                                 dtype=torch.int32)
         ids = torch.where(torch.rand((n, f), generator=gen, device=dev)
                           < skew, default, ids)
-    return ids.to(torch.int16).view(torch.uint16)
+    return ids
 
 
-def u16_cases(torch, plane, cases=HIST_U16, widths=WIDTHS):
-    """Each uint16 case of ``HIST_U16`` on ``plane`` ("f32", "q16" or
-    "q8"): {case: rows per width}, each kernel bitwise its plain version
-    and between two launches (``u16_row``)."""
+def u16_cases(torch, plane, cases=HIST_U16, widths=WIDTHS, bin_bytes=2):
+    """Each case of ``cases`` (uint16 ids, or int32 ids where
+    ``bin_bytes`` is 4) on ``plane`` ("f32", "q16" or "q8"): {case: rows
+    per width}, each kernel bitwise its plain version and between two
+    launches (``u16_row``)."""
     out = {}
     for shape, n, f, b in cases:
-        out[f"{shape}_b{b}"] = [u16_row(torch, plane, n, f, b, width, shape)
+        out[f"{shape}_b{b}"] = [u16_row(torch, plane, n, f, b, width, shape,
+                                        bin_bytes)
                                 for width in widths]
         torch.cuda.empty_cache()
     return out
 
 
-def u16_row(torch, plane, N, F, B, width, shape):
-    """One level width of a histogram kernel on uint16 ids against its
-    plain version: integer-valued and float stats on the f32 plane
-    (fixed point: bitwise on both), the trainer's quantized stats on
-    q16 / q8; bitwise between two launches; event-pair, device and plain
-    times, the bound from bytes and operations, and at ``U16_LIBRARY_B``
-    the ``index_add_`` call."""
+def u16_row(torch, plane, N, F, B, width, shape, bin_bytes=2):
+    """One level width of a histogram kernel on uint16 ids (int32 ids
+    where ``bin_bytes`` is 4) against its plain version: integer-valued
+    and float stats on the f32 plane (fixed point: bitwise on both), the
+    trainer's quantized stats on q16 / q8; bitwise between two launches;
+    event-pair, device and plain times, the bound from bytes and
+    operations, and at ``U16_LIBRARY_B`` (every int32 case) the
+    ``index_add_`` call."""
     from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(B + F + width)
-    binned = u16_ids(torch, gen, N, F, B, dev,
-                     skew=U16_SKEW if shape == "skewed" else 0.0)
+    binned = (u16_ids if bin_bytes == 2 else i32_ids)(
+        torch, gen, N, F, B, dev,
+        skew=U16_SKEW if shape == "skewed" else 0.0)
     live = (torch.rand(N, generator=gen, device=dev) < 0.9).float()
     local = torch.randint(0, width, (N,), generator=gen, device=dev)
     if plane == "f32":
@@ -703,7 +736,7 @@ def u16_row(torch, plane, N, F, B, width, shape):
     kernel_device_ms = device_ms(torch, lambda: call(*args), reps=U16_REPS)
     plain_ms = time_ms(torch, lambda: plain(*args), reps=3, warmup=1)
     library_ms = None
-    if B == U16_LIBRARY_B and shape == "bench":
+    if (B == U16_LIBRARY_B and shape == "bench") or bin_bytes == 4:
         idx = H.flat_index(binned, local, F, B)
         if plane == "f32":
             src = torch.stack([g * live, h * live, live], -1)
@@ -726,8 +759,10 @@ def u16_row(torch, plane, N, F, B, width, shape):
     # the launch's geometry, from the kernel's library: CTAs, SMs, CTAs
     # per SM, slices, tiles, features per slice
     geometry = H.launch_geometry("f32" if plane == "f32" else "quant", F, B,
-                                 2)
-    row = {"plane": plane, "shape": shape, "n": N, "f": F, "b": B,
+                                 bin_bytes)
+    ids = "uint16" if bin_bytes == 2 else "int32"
+    row = {"plane": plane, "ids": ids, "shape": shape, "n": N, "f": F,
+           "b": B,
            "width": width, "bitwise": bitwise, "bitwise_int": exact,
            "repeat_bitwise": repeat, "max_abs_err": err,
            "geometry": geometry,
@@ -736,12 +771,13 @@ def u16_row(torch, plane, N, F, B, width, shape):
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "bytes": in_bytes + out_bytes, "ops": ops}
-    emit({"phase": "kernel_u16_vs_plain", **row})
+    emit({"phase": f"kernel_{'u16' if bin_bytes == 2 else 'i32'}_vs_plain",
+          **row})
     if not (bitwise and exact and repeat):
-        raise AssertionError(f"{plane} histogram on uint16 ids disagrees "
+        raise AssertionError(f"{plane} histogram on {ids} ids disagrees "
                              f"with its plain version: {row}")
     if geometry["ctas"] > geometry["sms"] * geometry["per_sm"]:
-        raise AssertionError(f"{plane} histogram on uint16 ids launches "
+        raise AssertionError(f"{plane} histogram on {ids} ids launches "
                              f"past one wave: {geometry}")
     return row
 
@@ -2965,7 +3001,7 @@ def phase_categorical(ctx):
     torch.cuda.synchronize()
     S.tree_score_launches = 0
     S.tree_score_plan_launches.update(rows=0, cluster=0)
-    S.tree_score_route_launches.update(bin=0, raw=0, decision=0)
+    S.tree_score_route_launches.update(bin=0, wide=0, raw=0, decision=0)
     t0 = time.perf_counter()
     scored = lmodel.transform(frame)
     transform_s = time.perf_counter() - t0
@@ -2986,7 +3022,7 @@ def phase_categorical(ctx):
         "leaf_index_ms": time_ms(torch, lambda: b.leaf_index(x, "cuda"),
                                  reps=5, warmup=1)}
     del plain
-    if (routes != {"bin": 0, "raw": 0, "decision": 2}
+    if (routes != {"bin": 0, "wide": 0, "raw": 0, "decision": 2}
             or not out["transform"]["leaves_bitwise_plain"]
             or not out["transform"]["leaves_score_back_to_raw"]
             or leaves.shape != (N, TREES) or not np.isfinite(raw).all()):
@@ -3680,7 +3716,9 @@ def counted_fit(torch, fn):
     from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
 
     names = ("hist_kernel_launches", "hist_u16_kernel_launches",
-             "hist_quant_kernel_launches", "hist_quant_u16_kernel_launches")
+             "hist_i32_kernel_launches", "hist_quant_kernel_launches",
+             "hist_quant_u16_kernel_launches",
+             "hist_quant_i32_kernel_launches")
     torch.cuda.synchronize()
     for name in names:
         setattr(H, name, 0)
@@ -4534,9 +4572,11 @@ def ooc_env(**values):
 def ooc_counts(H):
     return {"sums": H.hist_quant_sums_kernel_launches,
             "sums_u16": H.hist_quant_sums_u16_kernel_launches,
+            "sums_i32": H.hist_quant_sums_i32_kernel_launches,
             "dequant": H.hist_quant_dequant_launches,
             "quant": H.hist_quant_kernel_launches,
             "quant_u16": H.hist_quant_u16_kernel_launches,
+            "quant_i32": H.hist_quant_i32_kernel_launches,
             "f32": H.hist_kernel_launches}
 
 
@@ -4550,8 +4590,10 @@ def measured(torch, H, fn):
     base = torch.cuda.memory_allocated()
     H.hist_quant_sums_kernel_launches = 0
     H.hist_quant_sums_u16_kernel_launches = 0
+    H.hist_quant_sums_i32_kernel_launches = 0
     H.hist_quant_dequant_launches = 0
     H.hist_quant_kernel_launches = H.hist_quant_u16_kernel_launches = 0
+    H.hist_quant_i32_kernel_launches = 0
     H.hist_kernel_launches = 0
     with rss_growth() as rss:
         t0 = time.perf_counter()
@@ -4607,6 +4649,9 @@ def sums_rows(torch, H, ids, b):
     if ids == "uint8":
         binned = torch.randint(0, b, (n, F), generator=gen, device=dev,
                                dtype=torch.uint8)
+    elif ids == "int32":
+        binned = torch.randint(0, b, (n, F), generator=gen, device=dev,
+                               dtype=torch.int32)
     else:
         binned = torch.randint(0, b, (n, F), generator=gen, device=dev,
                                dtype=torch.int16).view(torch.uint16)
@@ -4660,8 +4705,13 @@ def sums_rows(torch, H, ids, b):
         library_ms = time_ms(torch, lambda: flat.index_add_(0, idx, src))
         del idx, src
         in_bytes = sum(t.numel() * t.element_size() for t in chunk[:5])
-        acc_bytes = 2 * acc.numel() * acc.element_size()   # read + write
-        ops = 3 * F * int(gate.sum().item())
+        # Read and write of the accumulator cells the chunk can touch:
+        # the whole accumulator, or three int64 cells per kept pair
+        # where the chunk's pairs are fewer than its cells.
+        kept_pairs = F * int(gate.sum().item())
+        acc_bytes = 2 * min(acc.numel(), 3 * kept_pairs) \
+            * acc.element_size()
+        ops = 3 * kept_pairs
         bytes_ms = (in_bytes + acc_bytes) / MEM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
         row = {"ids": ids, "b": b, "width": width, "chunk_rows": OOC_CHUNK,
@@ -4756,7 +4806,7 @@ def phase_ooc(ctx):
     # fit needs: train streams by itself; then the in-core q16 fit of the
     # same rows, and with the card's room the default fit stays in-core
     # (float32 plane)
-    need = T.in_core_bytes(OOC_ROWS, F, B)
+    need = T.in_core_bytes(OOC_ROWS, F, B, 2 ** (depth - 1))
     # the trainer's free measure counts a freed tensor's cached segment
     # (the default pool's), as the allocator would reuse it
     dev = torch.device("cuda")
@@ -4943,12 +4993,274 @@ def phase_ooc(ctx):
     return out
 
 
-def random_booster(seed, trees, depth, k, max_bin):
+# int32 bin ids (max_bin past 65,536): the bench's rows at 70,000 and
+# 131,072 bins, and at 131,072 with 90% of each feature's rows in one bin
+# (atomic contention on one cell per feature and node)
+HIST_I32 = (("bench", N, F, 70_000), ("bench", N, F, 131_072),
+            ("skewed", N, F, 131_072))
+INT32_BINS = 131_072                # the int32 path's max_bin
+# the int32 path's leaf-wise, DART and streamed fits: rows, max_bin, trees
+INT32_SMALL = (200_000, 70_000, 3)
+
+
+def phase_kernel_i32(ctx):
+    """The int32-id instances of both histogram kernels (max_bin past
+    65,536; ``level_hist_common.cuh``'s walk) against their plain
+    versions at ``HIST_I32``, every level width, bitwise (the f32 plane on
+    integer and on float stats, q16 at every case and q8 at B =
+    131,072) and between two launches, with event-pair, device, plain
+    and ``index_add_`` times and the byte bound; and the quantized
+    kernel's chunk-merge entry on int32 ids (4 chunks of 262,144 rows, B
+    = 131,072), held as phase ``ooc_path`` holds it."""
+    import torch
+
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+
+    ctx["hist_i32"] = u16_cases(torch, "f32", HIST_I32, bin_bytes=4)
+    ctx["quant_i32"] = {
+        "q16": u16_cases(torch, "q16", HIST_I32, bin_bytes=4),
+        "q8": u16_cases(torch, "q8", HIST_I32[1:2], bin_bytes=4)}
+    torch.cuda.empty_cache()
+    ctx["ooc_sums_i32_rows"] = sums_rows(torch, H, "int32", INT32_BINS)
+    torch.cuda.empty_cache()
+    return {"widths": list(WIDTHS), "cases": HIST_I32, "all_bitwise": True,
+            "f32_per_tree": u16_summary(ctx["hist_i32"]),
+            "quant_per_tree": {q: u16_summary(c)
+                               for q, c in ctx["quant_i32"].items()},
+            "sums_per_chunk_call": {m: sum(r[m] for r in ctx[
+                "ooc_sums_i32_rows"]) for m in (
+                    "kernel_ms", "kernel_device_ms", "plain_ms",
+                    "library_ms", "bound_ms")},
+            "card": ctx["smi"]}
+
+
+def phase_int32(ctx):
+    """int32 bin ids on the main path at the bench's 2,000,000 x 28 rows:
+    a ``LightGBMClassifier(maxBin=131072, binSampleCount=2000000)`` fit
+    (its ``BinMapper`` fitted on every row, so most columns have more
+    than 65,536 bins and the ids are int32) and transform (raw and
+    ``binnedScoring``), and its binned serving plane's replies; ``train``
+    (binary, 63 leaves, depth 6, 20 trees) on the estimator's mapper: the
+    float32 plane (two fits bitwise, bitwise the uncaptured step and the
+    estimator's booster), then q16 and q8, with each fit's launches of the
+    int32 instances, wall, device peak (held under
+    ``trainer.in_core_bytes``) and logloss, and a profiled 3-tree float32
+    fit; ``predict_binned`` on the 2M
+    int32 rows through the scorer's wide nodes, bitwise its plain
+    version; then a leaf-wise (8 leaves), a DART and a streamed
+    (``MMLSPARK_TORCH_OOC=on``) fit at 200,000 rows, B = 70,000 and 3
+    trees, the streamed one bitwise the in-core q16 fit."""
+    import torch
+
+    from mmlspark_tpu_torch import (BinMapper, DataFrame, LightGBMClassifier,
+                                    TrainConfig, train)
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+    from mmlspark_tpu_torch.models.gbdt import step as step_mod
+    from mmlspark_tpu_torch.models.gbdt import trainer as T
+
+    out = {"card": ctx["smi"]}
+    failures = []
+    expected = TREES * 6
+    x, y = make_data(N)
+
+    # the estimator: its binning sample is every row
+    frame = DataFrame({"features": x, "label": y})
+    est = LightGBMClassifier(numIterations=TREES, numLeaves=63, maxDepth=6,
+                             minDataInLeaf=20, maxBin=INT32_BINS,
+                             binSampleCount=N)
+    model, wall, launches = counted_fit(torch, lambda: est.fit(frame))
+    t0 = time.perf_counter()
+    scored = model.transform(DataFrame({"features": x}))
+    est_rec = {**fit_record(model, wall, N), "launches": launches,
+               "transform_s": time.perf_counter() - t0}
+    ctx["launches"]["int32_path_estimator"] = \
+        launches["hist_i32_kernel_launches"]
+    mapper = model.bin_mapper
+    t0 = time.perf_counter()
+    binned = mapper.transform(x)
+    bins = [mapper.num_bins(f) for f in range(F)]
+    out["binning"] = {"transform_s": time.perf_counter() - t0,
+                      "dtype": str(binned.dtype), "bins_per_feature": bins,
+                      "features_past_65536": sum(b > 65_536 for b in bins)}
+    if binned.dtype != np.int32 or out["binning"]["features_past_65536"] \
+            <= F // 2:
+        failures.append(f"binning: {out['binning']}")
+
+    bin_upper = mapper.bin_upper_values(INT32_BINS)
+    cfg = TrainConfig(objective="binary", num_iterations=TREES,
+                      num_leaves=63, max_depth=6, min_data_in_leaf=20,
+                      max_bin=INT32_BINS)
+    need = T.in_core_bytes(N, F, INT32_BINS, 2 ** (cfg.effective_depth - 1))
+    fits = {}
+    for plane, counter in (("off", "hist_i32_kernel_launches"),
+                           ("q16", "hist_quant_i32_kernel_launches"),
+                           ("q8", "hist_quant_i32_kernel_launches")):
+        with knobs(quant=plane):
+            # no captured step held over (the estimator's): the first fit
+            # captures its own (iteration 0 runs uncaptured, every later
+            # one replays the graph), so its peak holds the graph's pool
+            step_mod.clear_step_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            res, wall, launches = counted_fit(torch, lambda: train(
+                binned, y, cfg, bin_upper=bin_upper))
+            peak = torch.cuda.max_memory_allocated() - base
+            # the float32 plane: a second fit replays the cached step, and
+            # the same step runs uncaptured
+            again = (train(binned, y, cfg, bin_upper=bin_upper)
+                     if plane == "off" else None)
+            unc = (train(binned, y, cfg, bin_upper=bin_upper, capture=False)
+                   if plane == "off" else None)
+        lls = [e["train_binary_logloss"] for e in res.evals]
+        rec = {"fit_s": wall, "capture_s": res.step_stats["capture_s"],
+               "fit_mrow_trees_per_s": N * TREES / wall / 1e6,
+               "device_peak_bytes": peak, "in_core_estimate_bytes": need,
+               "launches": launches,
+               "captured": res.step_stats["captured"],
+               "logloss_first": lls[0], "logloss_last": lls[-1],
+               "largest_threshold": int(res.booster.threshold_bin.max())}
+        if plane == "off":
+            rec.update({
+                "two_fits_bitwise": boosters_equal(res.booster,
+                                                   again.booster),
+                "captured_bitwise_uncaptured": boosters_equal(
+                    res.booster, unc.booster)})
+        fits[plane] = rec
+        emit({"phase": "int32_path_fit", "plane": plane, **rec})
+        ctx["launches"][f"int32_path_{plane}"] = launches[counter]
+        if (launches[counter] != expected
+                or sum(launches.values()) != expected
+                or not (rec["captured"] and rec.get("two_fits_bitwise", True)
+                        and rec.get("captured_bitwise_uncaptured", True))
+                or not all(b <= a + 1e-7 for a, b in zip(lls, lls[1:]))
+                or not lls[-1] < lls[0] or peak > need):
+            failures.append(f"int32 {plane} fit: {rec}")
+        if plane == "off":
+            booster = res.booster
+        del res, again, unc
+    out["fits"] = fits
+    # where a float32 tree's time goes: device busy by kernel over a
+    # profiled 3-tree fit (histograms against split finding)
+    out["profile_3_trees"] = step_profile(torch, lambda: train(
+        binned, y, dataclasses.replace(cfg, num_iterations=3),
+        bin_upper=bin_upper), 3)
+
+    # predict_binned on the 2M int32 rows: the wide route (thresholds past
+    # 65,534), bitwise its plain version
+    binned_d = torch.as_tensor(binned, device="cuda")
+    tables = booster.predict_binned_scorer("off", "cuda").tables
+    booster.predict_binned(binned_d[:1000])              # warm-up
+    torch.cuda.synchronize()
+    S.tree_score_route_launches.update(bin=0, wide=0, raw=0, decision=0)
+    t0 = time.perf_counter()
+    scores = booster.predict_binned(binned_d)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    routes = dict(S.tree_score_route_launches)
+    ctx["launches"]["int32_path_tree_score"] = routes["wide"]
+    rec, got, ok = scorer_held(torch, S, "int32 2M", tables, binned_d)
+    rec.update({"wide": tables.wide, "predict_binned_s": score_s,
+                "routes": routes,
+                "predict_binned_bitwise": bool(torch.equal(scores, got)),
+                "finite": bool(torch.isfinite(scores).all())})
+    out["predict_binned"] = rec
+    if not (ok and tables.wide and routes["wide"] == 1
+            and rec["predict_binned_bitwise"] and rec["finite"]):
+        failures.append(f"int32 scoring: {rec}")
+    ctx["int32"] = (booster, binned_d)
+    del got, scores
+
+    # the estimator's booster is the direct fit's; its transform's
+    # probability is predict's raw score and the numpy tail, binnedScoring's
+    # is predict_binned's on the int32 ids (the wide route); the binned
+    # serving plane's replies
+    raw = model.booster.predict(x).cpu().numpy()
+    braw = model.booster.predict_binned(binned_d).cpu().numpy()
+    binned_scored = model.copy(binnedScoring=True).transform(
+        DataFrame({"features": x}))
+    est_rec.update({
+        "arrays_differing_from_direct_train": arrays_differing(
+            model.booster, booster),
+        "transform_bitwise_predict": bool(np.array_equal(
+            scored["probability"][:, 1], 1.0 / (1.0 + np.exp(-raw)))),
+        "binned_transform_bitwise_predict_binned": bool(np.array_equal(
+            binned_scored["probability"][:, 1],
+            1.0 / (1.0 + np.exp(-braw))))})
+    est_rec["serving"], ok = serving_record(model,
+                                            x[:256].astype(np.float64))
+    out["estimator"] = est_rec
+    if (not ok or est_rec["launches"]["hist_i32_kernel_launches"] != expected
+            or sum(est_rec["launches"].values()) != expected
+            or est_rec["arrays_differing_from_direct_train"]
+            or not est_rec["transform_bitwise_predict"]
+            or not est_rec["binned_transform_bitwise_predict_binned"]):
+        failures.append(f"maxBin={INT32_BINS} estimator: {est_rec}")
+    del scored, binned_scored, model, frame
+
+    # leaf-wise, DART and streamed fits at a reduced size
+    rows, small_bins, trees = INT32_SMALL
+    xs, ys = make_data(rows, seed=2)
+    m2 = BinMapper.fit(xs, max_bin=small_bins)
+    b2 = m2.transform(xs)
+    up2 = m2.bin_upper_values(small_bins)
+    c2 = dataclasses.replace(cfg, num_iterations=trees, max_bin=small_bins)
+    small = {}
+    with grow_policy("leafwise"):
+        # 8 leaves: LeafwiseBuilder reads each (F, B, 3) histogram back to
+        # the host and scans it there (the leaf-wise residual)
+        res, wall, launches = counted_fit(torch, lambda: train(
+            b2, ys, dataclasses.replace(c2, num_leaves=8), bin_upper=up2))
+    small["leafwise"] = {"fit_s": wall, "launches": launches,
+                         "grow_policy": res.hist_stats["grow_policy"],
+                         "trees": res.booster.num_trees}
+    if (res.hist_stats["grow_policy"] != "leafwise"
+            or launches["hist_i32_kernel_launches"] < trees
+            or sum(launches.values()) != launches["hist_i32_kernel_launches"]):
+        failures.append(f"int32 leaf-wise fit: {small['leafwise']}")
+    res, wall, launches = counted_fit(torch, lambda: train(
+        b2, ys, dataclasses.replace(c2, boosting_type="dart"),
+        bin_upper=up2))
+    small["dart"] = {"fit_s": wall, "launches": launches,
+                     "tree_weights": res.booster.tree_weights.tolist()}
+    if launches["hist_i32_kernel_launches"] != trees * 6 \
+            or sum(launches.values()) != trees * 6:
+        failures.append(f"int32 DART fit: {small['dart']}")
+    with ooc_env(ooc="on", quant="q16"):
+        streamed, rec = measured(torch, H, lambda: train(
+            b2, ys, c2, bin_upper=up2))
+    with ooc_env(ooc="off", quant="q16"):
+        in_core = train(b2, ys, c2, bin_upper=up2)
+    small["streamed"] = {**rec, "ooc": streamed.hist_stats["ooc"],
+                         "n_chunks": streamed.hist_stats["n_chunks"],
+                         "arrays_differing_from_in_core_q16":
+                             arrays_differing(streamed.booster,
+                                              in_core.booster)}
+    ctx["launches"]["int32_path_ooc_sums"] = rec["launches"]["sums_i32"]
+    if (not streamed.hist_stats["ooc"]
+            or rec["launches"]["sums_i32"] < trees * 6
+            or rec["launches"]["sums"] or rec["launches"]["sums_u16"]
+            or small["streamed"]["arrays_differing_from_in_core_q16"]):
+        failures.append(f"int32 streamed fit: {small['streamed']}")
+    out["reduced"] = {"rows": rows, "max_bin": small_bins, "trees": trees,
+                      **small}
+    if failures:
+        emit({"phase": "int32_path_detail", **out})
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def random_booster(seed, trees, depth, k, max_bin, features=F, wide=False):
     """A random full-layout ensemble (the root splits, a node below an
-    internal node with probability 0.8), tree weights 0.3..1.7: the
-    class fold of ``k`` classes, deep and shallow leaves. Bin thresholds
-    lie below ``max_bin`` and below 65535, the largest a packed bin node
-    takes as a real threshold (``score_cuda.pack_nodes``)."""
+    internal node with probability 0.8) over ``features`` features, tree
+    weights 0.3..1.7: the class fold of ``k`` classes, deep and shallow
+    leaves. Bin thresholds lie below ``max_bin`` and, unless ``wide``,
+    below 65535, the largest a 32-bit packed bin node takes as a real
+    threshold (``score_cuda.pack_nodes``); ``wide``: every root splits on
+    one of the last two features and at a threshold in the top half of
+    ``max_bin``, so features past 32,767 and thresholds past 65,534 are
+    met where ``features`` and ``max_bin`` reach them."""
     from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays
 
     rng = np.random.default_rng(seed)
@@ -4960,15 +5272,20 @@ def random_booster(seed, trees, depth, k, max_bin):
         for node in range(2 ** depth - 1):
             if node == 0 or (sf[t, (node - 1) // 2] >= 0
                              and rng.random() < 0.8):
-                sf[t, node] = rng.integers(F)
-                tb[t, node] = rng.integers(min(max_bin, 65535))
+                sf[t, node] = rng.integers(features)
+                tb[t, node] = rng.integers(max_bin if wide
+                                           else min(max_bin, 65535))
                 tv[t, node] = np.round(rng.normal(), 2)
+        if wide:
+            sf[t, 0] = features - 1 - t % 2
+            tb[t, 0] = rng.integers(max_bin // 2, max_bin)
     return BoosterArrays(
         split_feature=sf, threshold_bin=tb, threshold_value=tv,
         node_value=rng.normal(size=(trees, m)).astype(np.float32),
         count=np.zeros((trees, m), np.float32),
         tree_weights=rng.uniform(0.3, 1.7, trees).astype(np.float32),
-        max_depth=depth, num_features=F, num_class=k, init_score=0.123456789)
+        max_depth=depth, num_features=features, num_class=k,
+        init_score=0.123456789)
 
 
 def random_decision_booster(seed, trees, depth, k, words):
@@ -5024,7 +5341,8 @@ def score_bound(torch, S, x, tables, leaves=False):
     # each walk's steps before its leaf: the last-level slot's depth less
     # the always-left steps of a leaf pushed down its left spine
     thr = S.unpack_nodes(tables)[-2 if tables.decision else 1]
-    always_left = torch.inf if tables.raw else S.ALWAYS_LEFT_BIN
+    always_left = (torch.inf if tables.raw else S.ALWAYS_LEFT_WIDE
+                   if tables.wide else S.ALWAYS_LEFT_BIN)
     offsets = (torch.arange(t, device=x.device) * tables.num_nodes)[None, :]
     steps = 0
     for s in range(0, n, 1 << 18):
@@ -5254,6 +5572,57 @@ def phase_kernel_score(ctx):
     one = random_booster(11, 1, 3, 1, 255)
     none = dataclasses.replace(one, **{k: getattr(one, k)[:0]
                                        for k in BOOSTER_ARRAYS})
+    # the wide route (8-byte bin nodes): thresholds and ids past 65,535 on
+    # int32 ids; split features past 32,767 on uint8, uint16 and int32 ids
+    # (rows of 40,001 features take the global route); the chosen plan,
+    # then the rows and the cluster plan where it fits; the staged batch
+    for label, seed, trees, depth, k, max_bin, feats, names, sizes in (
+            ("wide K=3", 15, 100, 6, 3, INT32_BINS, F, ("int32",),
+             (1, 64, 4096, 100_003)),
+            ("wide feature 40,000", 16, 60, 5, 1, 255, 40_001,
+             ("uint8", "uint16", "int32"), (1, 64, 1024)),
+            ("wide feature 40,000 past 65,535", 17, 40, 4, 2, 70_000,
+             40_001, ("int32",), (1, 64, 1024))):
+        synth = random_booster(seed, trees, depth, k, max_bin, feats, True)
+        for autocast in ("off", "bf16"):
+            tables = synth.predict_binned_scorer(autocast, "cuda").tables
+            if not tables.wide:
+                failures.append(f"{label}: narrow tables")
+            for name in names:
+                for n in sizes:
+                    xd = torch.as_tensor(rng.integers(
+                        0, max_bin + 1, size=(n, feats))).to(
+                            dtypes[name]).cuda()
+                    check(f"{label} {autocast} {n} {name}", tables, xd)
+                    if autocast != "off" or n > 4096:
+                        continue
+                    shape = (n, trees, tables.num_nodes, k, dtypes[name],
+                             feats)
+                    check(f"{label} {n} {name}, rows plan", tables, xd,
+                          S.rows_plan(*shape, wide=True))
+                    cluster = S.cluster_plan(*shape, wide=True)
+                    if cluster is not None:
+                        check(f"{label} {n} {name}, cluster plan", tables,
+                              xd, cluster)
+        del xd
+    wide_scorer = random_booster(15, 100, 6, 3, INT32_BINS, F,
+                                 True).predict_binned_scorer("off", "cuda")
+    for b in bucket_ladder(SERVER_ARGS["max_batch_size"]):
+        batch = wide_scorer.staged_batch(b, F, np.dtype("int32"))
+        batch.x[:] = rng.integers(0, INT32_BINS + 1, size=(b, F))
+        wide_scorer.score_staged(batch)
+        checked += 1
+        if not np.array_equal(batch.out, S.tree_score_reference(
+                torch.as_tensor(batch.x).cuda(),
+                wide_scorer.tables).cpu().numpy()):
+            failures.append(f"wide K=3 rung {b} staged")
+    # the int32 path's booster at its 2M int32 rows (phase int32_path)
+    int32_booster, int32_bins = ctx["int32"]
+    int32_scorer = int32_booster.predict_binned_scorer("off", "cuda")
+    check("int32 path 2M int32 (wide)", int32_scorer.tables, int32_bins)
+    full_wide = timed("int32 path, 2M int32 rows (wide route)",
+                      int32_scorer, int32_bins, int32_bins[:64].cpu().numpy())
+    del int32_bins
     for n in (5, 100_000):
         check(f"no trees {n}",
               none.predict_binned_scorer("off", "cuda").tables,
@@ -5319,10 +5688,12 @@ def phase_kernel_score(ctx):
     torch.cuda.synchronize()
     ctx["score_rows"] = {"rung64": rung64, "2M": full, "2M_raw": full_raw,
                          "decision_2M": cat_2m,
-                         "decision_2M_leaves": cat_2m_leaves}
+                         "decision_2M_leaves": cat_2m_leaves,
+                         "wide_2M": full_wide}
     out = {"cases_bitwise": checked - len(failures), "cases": checked,
            "rung_device_ms": rung_ms, "rung64": rung64, "main_2M": full,
-           "main_2M_raw": full_raw, "decision_2M": cat_2m,
+           "main_2M_raw": full_raw, "wide_2M": full_wide,
+           "decision_2M": cat_2m,
            "decision_2M_leaves": cat_2m_leaves, "crossover": crossover,
            "card": ctx["smi"]}
     if failures:
@@ -6455,10 +6826,54 @@ def kernel_table(ctx):
         "per": "one 262,144-row chunk call (F=28, B=255, uint8 ids, q16) "
                "summed over widths " + ",".join(map(str, WIDTHS))
                + ", adding into a running int64 accumulator (bound: the "
-               "chunk's inputs read once, the accumulator read and "
-               "written); library_ms: one int64 index_add_ of the same "
+               "chunk's inputs read once, the accumulator cells it can "
+               "touch read and written); library_ms: one int64 index_add_ of the same "
                "sums into it; launches from phase ooc_path's default fit"})
     kernels.append(sums)
+    # the int32-id instances (max_bin past 65,536; level_hist_common.cuh's
+    # walk), counted apart: times per tree at the bench's 2M x 28 and B =
+    # 131,072 (the other cases beside them), launches over phase
+    # int32_path's fits at B = 131,072; the chunk-merge entry on int32 ids
+    # per 262,144-row chunk call, launches over its streamed fit
+    def i32_kernel(name, source, replaces, launches, cases):
+        e = entry(name, source, replaces, launches, cases["bench_b131072"])
+        e["per"] = ("sum over widths " + ",".join(map(str, WIDTHS))
+                    + " at N=2M, F=28, B=131072, int32 ids; ms: an event "
+                    "pair per call, device_ms: calls queued behind a spin "
+                    "kernel; library_ms: one index_add_ of the same sums")
+        e["at_bins"] = {k: {m: sum(r[m] for r in rows) for m in (
+            "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms",
+            "library_ms")}
+            for k, rows in cases.items() if k != "bench_b131072"}
+        return e
+
+    kernels.append(i32_kernel(
+        "level_hist[i32]", "mmlspark_tpu_torch/csrc/level_hist.cu",
+        "mmlspark_tpu/models/gbdt/hist_pallas.py:60",
+        ctx["launches"]["int32_path_off"], ctx["hist_i32"]))
+    kernels[-1]["launches_int32_path_estimator"] = \
+        ctx["launches"]["int32_path_estimator"]
+    for quant in QUANTS:
+        kernels.append(i32_kernel(
+            f"level_hist_quant[{quant},i32]",
+            "mmlspark_tpu_torch/csrc/level_hist_quant.cu",
+            "mmlspark_tpu/models/gbdt/hist_pallas.py:204",
+            ctx["launches"][f"int32_path_{quant}"],
+            ctx["quant_i32"][quant]))
+    sums_i32 = entry("level_hist_quant_sums[q16,i32]",
+                     "mmlspark_tpu_torch/csrc/level_hist_quant.cu",
+                     "mmlspark_tpu/models/gbdt/hist_pallas.py:204",
+                     ctx["launches"]["int32_path_ooc_sums"],
+                     ctx["ooc_sums_i32_rows"])
+    sums_i32.update({
+        "replaces_also": "mmlspark_tpu/models/gbdt/ooc.py:210",
+        "per": "one 262,144-row chunk call (F=28, B=131072, int32 ids, "
+               "q16) summed over widths " + ",".join(map(str, WIDTHS))
+               + ", adding into a running int64 accumulator (bound: as "
+               "the uint8 entry's, three cells per kept pair); launches "
+               "from phase int32_path's streamed fit (200,000 rows, "
+               "B=70,000, 3 trees)"})
+    kernels.append(sums_i32)
     # tree_score replaces an XLA scan, not a Pallas kernel: the row of
     # the main path's 2M-row call, beside the served model's rung 64
     score = ctx["score_rows"]
@@ -6507,12 +6922,29 @@ def kernel_table(ctx):
             "kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms",
             "bound_by", "plan", "launches_per_call", "copies_per_call")}
            for key in ("decision_2M", "decision_2M_leaves")},
+
         "per": "one call on the main path's 20-tree booster at its 2M "
                "uint8 rows (rung64: the served 100-tree model at 64 rows); "
                "launches from phase main_path (predict_binned) and the "
                "serving_path sustained runs; no single PyTorch call "
                "computes this function",
     })
+    # the wide bin-node route of the same kernel (8-byte nodes, ids
+    # compared unclamped), its own template instances
+    wide = score["wide_2M"]
+    kernels.append({
+        "name": "tree_score[wide]", "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/tree_score.cu",
+        "replaces": "mmlspark_tpu/models/gbdt/booster.py:269",
+        "launches": ctx["launches"]["int32_path_tree_score"],
+        "max_abs_err": wide["max_abs_err"], "ms": wide["kernel_ms"],
+        "device_ms": wide["kernel_device_ms"], "plain_ms": wide["plain_ms"],
+        "bound_ms": wide["bound_ms"], "bound_by": wide["bound_by"],
+        "library_ms": None, "plan": wide["plan"],
+        "per": "one call on phase int32_path's 20-tree booster (thresholds "
+               "past 65,534) at its 2M int32 rows; launches from that "
+               "phase's predict_binned; no single PyTorch call computes "
+               "this function"})
     flash = ctx["flash_rows"]
     # flash_attn.cu takes float32 only: every bfloat16 call runs
     # flash_attn_sm90.cu, in place or staged
@@ -6573,6 +7005,8 @@ def main() -> int:
                      ("leafwise_path", phase_leafwise),
                      ("dart_path", phase_dart),
                      ("ooc_path", phase_ooc),
+                     ("kernel_i32", phase_kernel_i32),
+                     ("int32_path", phase_int32),
                      ("kernel_score", phase_kernel_score),
                      ("refresh_path", phase_refresh),
                      ("fleet_path", phase_fleet),

@@ -85,6 +85,16 @@
 // most (level_hist_common.cuh: hist_grid); where the tiles' CTAs pass it,
 // the launched CTAs take them in turn. The sums stay exact and order-free.
 //
+// Bin ids past 65,536 bins. int32 ids (the reference's ids past uint16)
+// take the walk of level_hist_common.cuh's hist_i32_kernel: one feature's
+// int64 cells no longer fit a CTA, so each (row, feature) pair's three
+// terms go straight into the zeroed int64 sums by 64-bit global atomics,
+// a run of rows in one cell merged in registers first. The partition runs
+// without its scatter (its count pass still writes the float4 stats and
+// the amax, its scan's tail e_c): the walk takes the rows in their own
+// order, so its reads of the ids are coalesced. Same terms, same sums,
+// same one rounding: the same bits as the plain version in any order.
+//
 // What bounds it. Per level the function must read the N x F bin bytes,
 // the three (N,) float32 vectors and the (N,) node ids (int64 on the
 // training path), and write the float32 histogram: at N = 2M, F = 28 about
@@ -474,6 +484,36 @@ level_hist_u16_kernel(const unsigned* __restrict__ ids,     // (n, f) uint16
   }
 }
 
+// 4i. The histogram on int32 ids (see "Bin ids past 65,536 bins" above):
+// level_hist_common.cuh's hist_i32_kernel over this plane's terms, row
+// r's float4 from the partition's count pass (its live in .z, kept where
+// nonzero, as F32Rows keeps it) scaled and rounded by e_c.
+template <typename L>
+struct F32Terms {
+  const float4* __restrict__ stats;   // (n,) from plan_count
+  const L* __restrict__ local;
+  const long long* __restrict__ exps;  // (3,) e_c
+  int width;
+  double up0, up1, up2;
+  __device__ F32Terms ready() const {
+    F32Terms t = *this;
+    t.up0 = pow2(exps[0]);
+    t.up1 = pow2(exps[1]);
+    t.up2 = pow2(exps[2]);
+    return t;
+  }
+  __device__ I32Row row(int64_t r) const {
+    const float4 x = stats[r];
+    const long long w = local[r];
+    I32Row o;
+    o.w = x.z != 0.f && w >= 0 && w < width ? (int)w : -1;
+    o.t0 = term(x.x, up0);
+    o.t1 = term(x.y, up1);
+    o.t2 = term(x.z, up2);
+    return o;
+  }
+};
+
 // The dequantization's scales: 2^-e_c.
 struct InversePow2 {
   const long long* exps;
@@ -522,20 +562,20 @@ cudaError_t launch_hist(const void* binned, const void* stats,
 
 extern "C" {
 
-// Launches the partition (three kernels), the histogram and the
-// dequantization on `stream` (a cudaStream_t) of device `device`. `binned`
-// holds uint8 (bin_bytes 1) or uint16 (2, from a 4-byte boundary) ids;
-// `local` int32 (local_bytes 4) or int64 (8) node ids. Scratch, written
-// here: `stats` (n, 4) float32; `counts` (width + 1) * (ns + nb) int32 for
-// ns = ceil(n / 512) warp segments and nb = ceil(ns / 8) CTAs (the
-// per-warp counts, then the per-CTA places); `offsets` width + 1 int64;
-// `order` n int64. `acc` holds width * f * b * 3 int64 sums and then 6
-// int64 (the channels' amax bits, then e_c), all zero on entry; `out` is
-// the (width, f, b, 3) float32 histogram; the bins go in num_tiles tiles
-// of tile_bins (uint8 ids: one tile, tile_bins = b); `smem` a histogram
-// CTA's dynamic shared memory (hist_cuda.f32_smem_bytes /
-// f32_u16_smem_bytes). width must be below 12288 (the partition's
-// per-warp key counters). Returns the first CUDA error: 0 on success.
+// Launches the partition (three kernels), the histogram and the dequantization
+// on `stream` (a cudaStream_t) of device `device`. `binned` holds uint8
+// (bin_bytes 1), uint16 (2, from a 4-byte boundary) or int32 (4) ids; `local`
+// int32 (local_bytes 4) or int64 (8) node ids. Scratch, written here: `stats`
+// (n, 4) float32; `counts` (width + 1) * (ns + nb) int32 for ns = ceil(n /
+// 512) warp segments and nb = ceil(ns / 8) CTAs (the per-warp counts, then the
+// per-CTA places); `offsets` width + 1 int64; `order` n int64 (not written for
+// int32 ids). `acc` holds width * f * b * 3 int64 sums and then 6 int64 (the
+// channels' amax bits, then e_c), all zero on entry; `out` is the (width, f,
+// b, 3) float32 histogram; the bins go in num_tiles tiles of tile_bins (uint8
+// and int32 ids: one tile, tile_bins = b); `smem` a histogram CTA's dynamic
+// shared memory (hist_cuda.f32_smem_bytes / f32_u16_smem_bytes; unused for
+// int32 ids). width must be below 12288 (the partition's per-warp key
+// counters). Returns the first CUDA error: 0 on success.
 int mmls_level_hist(const void* binned, const void* grad, const void* hess,
                     const void* live, const void* local, int local_bytes,
                     void* stats, void* counts, void* offsets, void* order,
@@ -545,7 +585,8 @@ int mmls_level_hist(const void* binned, const void* grad, const void* hess,
                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bin_bytes != 1 && bin_bytes != 2) return (int)cudaErrorInvalidValue;
+  if (bin_bytes != 1 && bin_bytes != 2 && bin_bytes != 4)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int64_t cells = (int64_t)width * f * b * 3;
   unsigned long long* sums = (unsigned long long*)acc;
@@ -555,20 +596,33 @@ int mmls_level_hist(const void* binned, const void* grad, const void* hess,
   int* btot = wcounts + plan_wcounts(n, width);
   const F32Rows rows{(const float*)grad, (const float*)hess, (float4*)stats,
                      amax_bits, exps};
+  // int32 ids walk the rows in their own order: no scatter
+  const bool wide = bin_bytes == 4;
 
   if (local_bytes == 8)
     err = plan((const int64_t*)local, (const float*)live, rows, wcounts, btot,
-               (int64_t*)offsets, (int64_t*)order, n, width, s);
+               (int64_t*)offsets, (int64_t*)order, n, width, s, !wide);
   else if (local_bytes == 4)
     err = plan((const int32_t*)local, (const float*)live, rows, wcounts, btot,
-               (int64_t*)offsets, (int64_t*)order, n, width, s);
+               (int64_t*)offsets, (int64_t*)order, n, width, s, !wide);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
 
-  err = launch_hist(binned, stats, order, offsets, exps, sums, f, b, width,
-                    f_slice, num_slices, bin_bytes, tile_bins, num_tiles, smem,
-                    device, s);
+  if (wide && local_bytes == 8)
+    err = launch_i32(binned, F32Terms<int64_t>{(const float4*)stats,
+                                               (const int64_t*)local, exps,
+                                               width},
+                     sums, n, f, b, device, s);
+  else if (wide)
+    err = launch_i32(binned, F32Terms<int32_t>{(const float4*)stats,
+                                               (const int32_t*)local, exps,
+                                               width},
+                     sums, n, f, b, device, s);
+  else
+    err = launch_hist(binned, stats, order, offsets, exps, sums, f, b, width,
+                      f_slice, num_slices, bin_bytes, tile_bins, num_tiles,
+                      smem, device, s);
   if (err != cudaSuccess) return (int)err;
   return (int)level_hist::dequantize((const long long*)sums, (float*)out,
                                      InversePow2{exps}, cells, s);
@@ -585,6 +639,9 @@ int mmls_level_hist_grid(int bin_bytes, int smem, int num_slices,
   err = bin_bytes == 1
       ? hist_grid(level_hist_kernel, kThreads, smem, 1, num_slices, num_tiles,
                   device, &g)
+      : bin_bytes == 4
+      ? hist_grid(hist_i32_kernel<F32Terms<int64_t>>, kI32Threads, 0, 4, 1,
+                  1, device, &g)
       : hist_grid(level_hist_u16_kernel, kThreads, smem, 2, num_slices,
                   num_tiles, device, &g);
   if (err != cudaSuccess) return (int)err;

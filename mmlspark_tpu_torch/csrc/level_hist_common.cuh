@@ -2,8 +2,9 @@
 // fixed point; level_hist_quant.cu, int16/int8 stats) share: the stable
 // counting partition of the rows by node that both histograms walk, the
 // cp.async helpers that stage their chunks (uint16 rows as the words that
-// cover them), the launch grid, and the elementwise dequantization of
-// their int64 sums.
+// cover them), the launch grid, the histogram walk of both planes on
+// int32 ids (below), and the elementwise dequantization of their int64
+// sums.
 //
 // The partition, in place of a sort, three launches that wait on no host:
 //   plan_count: each warp counts its segment of kSegRows rows per key (the
@@ -199,11 +200,13 @@ plan_scatter_kernel(const L* __restrict__ local, const float* __restrict__ live,
 // btot (width + 1) * nb int32 for ns = ceil(n / kSegRows) warp segments
 // and nb = ceil(ns / kPlanWarps) CTAs (at most; fewer warps per CTA where
 // the key counters of 8 warps would not fit kPlanSmem); offsets width + 1
-// and order n int64. width must not pass kMaxWidth.
+// and order n int64. width must not pass kMaxWidth. Without `scatter`
+// only the counts, the rows' stats and the scan's tail are made (order is
+// not written).
 template <typename L, class Rows>
 cudaError_t plan(const L* local, const float* live, Rows rows, int* wcounts,
                  int* btot, int64_t* offsets, int64_t* order, int64_t n,
-                 int width, cudaStream_t s) {
+                 int width, cudaStream_t s, bool scatter = true) {
   const int keys = width + 1;
   int warps = kPlanSmem / (keys * (int)sizeof(int));
   warps = warps < kPlanWarps ? warps : kPlanWarps;
@@ -214,8 +217,9 @@ cudaError_t plan(const L* local, const float* live, Rows rows, int* wcounts,
   plan_count_kernel<L, Rows><<<nb, warps * 32, smem, s>>>(
       local, live, rows, wcounts, btot, n, width, ns, nb);
   plan_scan_kernel<Rows><<<1, 1024, 0, s>>>(btot, offsets, rows, n, width, nb);
-  plan_scatter_kernel<L, Rows><<<nb, warps * 32, smem, s>>>(
-      local, live, wcounts, btot, order, n, width, ns, nb);
+  if (scatter)
+    plan_scatter_kernel<L, Rows><<<nb, warps * 32, smem, s>>>(
+        local, live, wcounts, btot, order, n, width, ns, nb);
   return cudaGetLastError();
 }
 
@@ -322,7 +326,7 @@ cudaError_t hist_grid(Kernel kernel, int threads, int smem, int bin_bytes,
   if (g->per_sm < 1 || num_slices < 1 || num_tiles < 1)
     return cudaErrorInvalidConfiguration;
   const int wave = g->sms * g->per_sm;
-  if (bin_bytes == 1) {
+  if (bin_bytes != 2) {  // uint8 ids; int32 ids (one slice, one tile)
     g->ctas = g->per_tile = wave > num_slices ? wave : num_slices;
     return cudaSuccess;
   }
@@ -331,6 +335,110 @@ cudaError_t hist_grid(Kernel kernel, int threads, int smem, int bin_bytes,
   const int64_t all = (int64_t)g->per_tile * num_tiles;
   g->ctas = all < wave ? (int)all : wave;
   return cudaSuccess;
+}
+
+// The histogram of both planes on int32 bin ids (B past 65,536, the
+// reference's ids past uint16, mmlspark_tpu/ops/ingest.py:
+// binned_ingest_dtype). One feature's int64 cells, B x 3 x 8 bytes, pass
+// a CTA's shared memory from about 9,700 bins and are 1.5 MB at B =
+// 65,537, so no cell lives in shared memory: each (row, feature) pair is
+// read once and its three int64 terms go straight into the zeroed int64
+// sums in global memory by 64-bit atomics (RED.ADD.64 at an L2 slice;
+// two's-complement adds give the exact signed sum in any order), at
+// 64-bit cell offsets (width x F x B x 3 passes 2^31 at B = 131,072).
+// A warp takes an item of kI32Rows consecutive rows and up to 32
+// features, a lane per feature: the lanes read a row's ids as one
+// coalesced run and the row's node and stats once (a broadcast), and
+// each lane adds a run of rows that fall in one cell (the same node and
+// bin, as a skewed column's default bin gives) into registers before one
+// atomic per channel. Rows walk in their own order, so no sorted order is
+// needed: the partition's count pass (Rows) still makes the float32
+// plane's stats and exponents, and the quantized plane reads its stats
+// directly. The grid is one wave of CTAs looping over the items.
+//
+// A plane's Terms is a copy-constructible struct with
+//   Terms ready() const                 read what the walk needs once;
+//   I32Row row(int64_t r) const         row r's node (-1: not kept) and
+//                                       int64 terms.
+constexpr int kI32Threads = 256;
+constexpr int kI32Rows = 128;   // rows of a warp's item
+constexpr int kI32Batch = 8;    // rows whose loads a lane starts at once
+
+struct I32Row {
+  int w;
+  long long t0, t1, t2;
+};
+
+__device__ __forceinline__ void add_cell(unsigned long long* __restrict__ acc,
+                                         int64_t cell, long long t0,
+                                         long long t1, long long t2) {
+  unsigned long long* dst = acc + cell * 3;
+  if (t0) atomicAdd(dst, (unsigned long long)t0);
+  if (t1) atomicAdd(dst + 1, (unsigned long long)t1);
+  if (t2) atomicAdd(dst + 2, (unsigned long long)t2);
+}
+
+template <class Terms>
+__global__ void __launch_bounds__(kI32Threads)
+hist_i32_kernel(const int32_t* __restrict__ ids,   // (n, f) row-major
+                const Terms terms_in,
+                unsigned long long* __restrict__ acc,  // (width, f, b, 3)
+                int64_t n, int f, int b) {
+  const Terms terms = terms_in.ready();
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int ftiles = (f + 31) >> 5;
+  const int64_t items = (n + kI32Rows - 1) / kI32Rows * ftiles;
+  for (int64_t v = (int64_t)blockIdx.x * warps + (threadIdx.x >> 5);
+       v < items; v += (int64_t)gridDim.x * warps) {
+    const int64_t c = v / ftiles;
+    const int fl = (int)(v - c * ftiles) * 32 + lane;
+    if (fl >= f) continue;
+    const int64_t r0 = c * kI32Rows, r1 = min64(n, r0 + kI32Rows);
+    int64_t cur = -1;                                // the run's cell
+    long long s0 = 0, s1 = 0, s2 = 0;
+    for (int64_t base = r0; base < r1; base += kI32Batch) {
+      I32Row rows[kI32Batch];
+      int bins[kI32Batch];
+#pragma unroll
+      for (int i = 0; i < kI32Batch; ++i) {
+        const int64_t r = base + i;
+        if (r < r1) {
+          rows[i] = terms.row(r);
+          bins[i] = ids[r * f + fl];
+        } else {
+          rows[i].w = -1;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kI32Batch; ++i) {
+        // out-of-range ids are the caller's bug: never write past the sums
+        if (rows[i].w < 0 || (unsigned)bins[i] >= (unsigned)b) continue;
+        const int64_t cell = ((int64_t)rows[i].w * f + fl) * b + bins[i];
+        if (cell != cur) {
+          if (cur >= 0) add_cell(acc, cur, s0, s1, s2);
+          cur = cell;
+          s0 = s1 = s2 = 0;
+        }
+        s0 += rows[i].t0;
+        s1 += rows[i].t1;
+        s2 += rows[i].t2;
+      }
+    }
+    if (cur >= 0) add_cell(acc, cur, s0, s1, s2);
+  }
+}
+
+// One launch of hist_i32_kernel on stream s over a one-wave grid.
+template <class Terms>
+cudaError_t launch_i32(const void* ids, const Terms& terms, void* acc,
+                       int64_t n, int f, int b, int device, cudaStream_t s) {
+  HistGrid g;
+  const cudaError_t err = hist_grid(hist_i32_kernel<Terms>, kI32Threads, 0,
+                                    4, 1, 1, device, &g);
+  if (err != cudaSuccess) return err;
+  hist_i32_kernel<Terms><<<g.ctas, kI32Threads, 0, s>>>(
+      (const int32_t*)ids, terms, (unsigned long long*)acc, n, f, b);
+  return cudaGetLastError();
 }
 
 // out[i] = float(double(acc[i]) * scale(i % 3)): int64 -> double rounds to

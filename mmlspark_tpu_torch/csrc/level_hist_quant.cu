@@ -61,6 +61,14 @@
 // only past one feature's limit (about 17,000 bins). The window, the
 // flushes and the one wave are as above.
 //
+// Bin ids past 65,536 bins: int32 ids take level_hist_common.cuh's
+// hist_i32_kernel, each (row, feature) pair's integer quanta added
+// straight into the int64 sums by 64-bit global atomics (a run of rows in
+// one cell merged in registers first); the int32 cells, their window and
+// the partition do not apply, and the walk reads grad_q, hess_q, live and
+// the node ids of each row directly, in row order. With `out` null it
+// adds a chunk into the caller's running sums as the other instances do.
+//
 // The int32 window. A cell grows by at most 2^(bits-1) per row, so it holds
 // W = floor((2^31 - 1) / 2^(bits-1)) rows (q16: 65,535; q8: 16,777,215)
 // without wrapping. A CTA's run in one node is not bounded by a tile (at
@@ -300,6 +308,45 @@ cudaError_t plan_quant(const void* local, int local_bytes, const void* live,
   return cudaErrorInvalidValue;
 }
 
+// 4i. The histogram on int32 ids (see "Bin ids past 65,536 bins" above):
+// row r's terms are its quanta and a count of 1 where live > 0 (the gate
+// of QuantRows).
+template <typename Q, typename L>
+struct QuantTerms {
+  const Q* __restrict__ grad;
+  const Q* __restrict__ hess;
+  const float* __restrict__ live;
+  const L* __restrict__ local;
+  int width;
+  __device__ QuantTerms ready() const { return *this; }
+  __device__ I32Row row(int64_t r) const {
+    const long long w = local[r];
+    I32Row o;
+    o.w = live[r] > 0.f && w >= 0 && w < width ? (int)w : -1;
+    o.t0 = grad[r];
+    o.t1 = hess[r];
+    o.t2 = 1;
+    return o;
+  }
+};
+
+template <typename Q>
+cudaError_t launch_quant_i32(const void* binned, const void* grad,
+                             const void* hess, const void* live,
+                             const void* local, int local_bytes, void* acc,
+                             int64_t n, int f, int b, int width, int device,
+                             cudaStream_t s) {
+  if (local_bytes == 8)
+    return launch_i32(binned, QuantTerms<Q, int64_t>{
+        (const Q*)grad, (const Q*)hess, (const float*)live,
+        (const int64_t*)local, width}, acc, n, f, b, device, s);
+  if (local_bytes == 4)
+    return launch_i32(binned, QuantTerms<Q, int32_t>{
+        (const Q*)grad, (const Q*)hess, (const float*)live,
+        (const int32_t*)local, width}, acc, n, f, b, device, s);
+  return cudaErrorInvalidValue;
+}
+
 // 4u. The histogram on uint16 ids (see "Bin ids past 256 bins" above):
 // `ids` is the (n, f) uint16 matrix read as 4-byte words; per_tile CTAs
 // take each of num_tiles tiles of tile_bins bins, and the grid's CTAs take
@@ -508,26 +555,25 @@ cudaError_t launch_quant(const void* binned, const void* stats,
 
 extern "C" {
 
-// Launches the partition (three kernels), the histogram and the
-// dequantization on `stream` (a cudaStream_t) of device `device`; `qbits` is
-// 16 (int16 grad/hess) or 8 (int8); `binned` holds uint8 (bin_bytes 1) or
-// uint16 (2, from a 4-byte boundary) ids; `local` int32 (local_bytes 4) or
-// int64 (8) node ids. Scratch, written here: `stats` n packed uint32;
-// `counts` (width + 1) * (ns + nb) int32 for ns = ceil(n / 512) warp
-// segments and nb = ceil(ns / 8) CTAs; `offsets` width + 1 int64; `order`
-// n int64. `acc` holds the width * f * b * 3 int64 sums, in the layout of
-// `out`: the histogram adds into them, so they are zero on entry for one
-// histogram, or a running sum that each call adds a chunk of rows into
-// (integer adds commute, so the sums of the chunks are the one pass's).
-// `out` is the (width, f, b, 3) float32 histogram, dequantized from `acc`;
-// a null `out` skips the dequantization (the scales are then not read:
-// mmls_level_hist_quant_dequantize runs it once the chunks are in); the
-// bins go in
-// num_tiles tiles of tile_bins (uint8 ids: one tile, tile_bins = b);
-// `smem` a histogram CTA's dynamic shared memory (hist_cuda.
-// quant_smem_bytes / quant_u16_smem_bytes); `window` the rows of one node
-// a CTA's int32 cells take between flushes (hist_cuda.quant_window). width
-// must not pass 12287 (the partition's per-warp key counters), n must be
+// Launches the partition (three kernels), the histogram and the dequantization
+// on `stream` (a cudaStream_t) of device `device`; `qbits` is 16 (int16
+// grad/hess) or 8 (int8); `binned` holds uint8 (bin_bytes 1), uint16 (2, from
+// a 4-byte boundary) or int32 (4) ids; `local` int32 (local_bytes 4) or int64
+// (8) node ids. Scratch, written here (not read for int32 ids, which skip the
+// partition): `stats` n packed uint32; `counts` (width + 1) * (ns + nb) int32
+// for ns = ceil(n / 512) warp segments and nb = ceil(ns / 8) CTAs; `offsets`
+// width + 1 int64; `order` n int64. `acc` holds the width * f * b * 3 int64
+// sums, in the layout of `out`: the histogram adds into them, so they are zero
+// on entry for one histogram, or a running sum that each call adds a chunk of
+// rows into (integer adds commute, so the sums of the chunks are the one
+// pass's). `out` is the (width, f, b, 3) float32 histogram, dequantized from
+// `acc`; a null `out` skips the dequantization (the scales are then not read:
+// mmls_level_hist_quant_dequantize runs it once the chunks are in); the bins
+// go in num_tiles tiles of tile_bins (uint8 and int32 ids: one tile, tile_bins
+// = b); `smem` a histogram CTA's dynamic shared memory
+// (hist_cuda.quant_smem_bytes / quant_u16_smem_bytes); `window` the rows of
+// one node a CTA's int32 cells take between flushes (hist_cuda.quant_window).
+// width must not pass 12287 (the partition's per-warp key counters), n must be
 // below 2^31. Returns the first CUDA error: 0 on success.
 int mmls_level_hist_quant(const void* binned, const void* grad,
                           const void* hess, const void* live,
@@ -541,12 +587,21 @@ int mmls_level_hist_quant(const void* binned, const void* grad,
                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (width > kMaxWidth || window < kChunk || (bin_bytes != 1 && bin_bytes != 2))
+  if (width > kMaxWidth || window < kChunk ||
+      (bin_bytes != 1 && bin_bytes != 2 && bin_bytes != 4))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   int* wcounts = (int*)counts;
-  int* btot = wcounts + plan_wcounts(n, width);
-  if (qbits == 16)
+  int* btot = bin_bytes == 4 ? nullptr : wcounts + plan_wcounts(n, width);
+  if (bin_bytes == 4)  // int32 ids: no partition, the rows in their order
+    err = qbits == 16 ? launch_quant_i32<int16_t>(binned, grad, hess, live,
+                                                  local, local_bytes, acc, n,
+                                                  f, b, width, device, s)
+        : qbits == 8  ? launch_quant_i32<int8_t>(binned, grad, hess, live,
+                                                 local, local_bytes, acc, n,
+                                                 f, b, width, device, s)
+                      : cudaErrorInvalidValue;
+  else if (qbits == 16)
     err = plan_quant<int16_t>(local, local_bytes, live, grad, hess,
                               (unsigned*)stats, wcounts, btot,
                               (int64_t*)offsets, (int64_t*)order, n, width, s);
@@ -558,9 +613,10 @@ int mmls_level_hist_quant(const void* binned, const void* grad,
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
 
-  err = launch_quant(binned, stats, order, offsets, acc, f, b, width, f_slice,
-                     num_slices, window, bin_bytes, tile_bins, num_tiles, smem,
-                     device, s);
+  if (bin_bytes != 4)
+    err = launch_quant(binned, stats, order, offsets, acc, f, b, width,
+                       f_slice, num_slices, window, bin_bytes, tile_bins,
+                       num_tiles, smem, device, s);
   if (err != cudaSuccess || out == nullptr) return (int)err;
   return (int)dequantize(
       (const long long*)acc, (float*)out,
@@ -599,6 +655,9 @@ int mmls_level_hist_quant_grid(int bin_bytes, int smem, int num_slices,
   err = bin_bytes == 1
       ? hist_grid(level_hist_quant_kernel, kThreads, smem, 1, num_slices,
                   num_tiles, device, &g)
+      : bin_bytes == 4
+      ? hist_grid(hist_i32_kernel<QuantTerms<int16_t, int64_t>>, kI32Threads,
+                  0, 4, 1, 1, device, &g)
       : hist_grid(level_hist_quant_u16_kernel, kThreads, smem, 2, num_slices,
                   num_tiles, device, &g);
   if (err != cudaSuccess) return (int)err;

@@ -21,17 +21,23 @@
 // float64 operations, so the kernel returns the plain version's bits
 // (score_cuda.tree_score_reference).
 //
-// Tables (packed once per scorer, score_cuda.pack_nodes / make_tables). A
-// leaf above the last level is pushed down its left spine: the leaf's slot
-// and the spine's slots above the last level become always-left nodes
-// (feature 0, the largest threshold) and the spine's last slot carries the
-// leaf, so every walk takes exactly `depth` steps and no step tests for a
-// leaf. Bin ids read one 32-bit word per node, [threshold_bin:16]
-// [feature:16], 65535 being the always-left threshold; raw rows read 8
-// bytes per node, the int32 feature and the float32 threshold (+inf always
-// left, NaN too). The kernel reads the float64 product leaf * weight of
-// each slot (bfloat16 leaves promoted to float32 first), made once per
-// scorer: a fold is one load and one rounded add.
+// Tables (packed once per scorer, score_cuda.pack_nodes / make_tables). A leaf
+// above the last level is pushed down its left spine: the leaf's slot and the
+// spine's slots above the last level become always-left nodes (feature 0, the
+// largest threshold) and the spine's last slot carries the leaf, so every walk
+// takes exactly `depth` steps and no step tests for a leaf. Bin ids read one
+// 32-bit word per node, [threshold_bin:16] [feature:16], 65535 being the
+// always-left threshold; raw rows read 8 bytes per node, the int32 feature and
+// the float32 threshold (+inf always left, NaN too). Past what a word holds (a
+// threshold above 65,534, as an imported model's derived binning or a fit past
+// 65,536 bins gives, or a split feature above 32,767) a booster's bin nodes
+// are wide: 8 bytes, {int32 feature, int32 threshold}, as a raw node is,
+// int32's largest the always-left threshold, and an id compares unclamped and
+// signed, as the reference's bd[:, f] <= thr does (x codes 9, 10, 12: uint8,
+// uint16 or int32 ids against wide nodes; each its own template instance, In =
+// Wide<T>, so the narrow routes keep their code). The kernel reads the float64
+// product leaf * weight of each slot (bfloat16 leaves promoted to float32
+// first), made once per scorer: a fold is one load and one rounded add.
 //
 // Design. The fold is a chain of float32 roundings in tree order, so one
 // thread per (row, class) folds every tree's product in order; what is
@@ -132,6 +138,15 @@ struct Bits {
   float limit;
 };
 
+// A bin id scored against wide nodes: a type of its own (the size of T),
+// so the wide route is a template instance of its own.
+template <typename T>
+struct Wide {
+  T v;
+  Wide() = default;
+  __device__ explicit Wide(uint32_t w) : v(static_cast<T>(w)) {}
+};
+
 // A raw float32 feature scored by decision bits: a type of its own, so the
 // decision route is a template instance of its own.
 struct DFloat {
@@ -155,11 +170,15 @@ struct DFloat {
 // float32 threshold bits}; a row goes left where its value is NaN or at
 // most the threshold (a NaN threshold sends only NaN left). A decision
 // node (DFloat rows) routes by its decision byte, as the note at the top
-// says.
+// says. A wide bin node (Wide<T> rows) is {int32 feature, int32
+// threshold}; an id is staged as its int32 value and goes left where it
+// is at most the threshold, signed. kDirect: a row's 32-bit values are
+// staged as they lie in memory (no widening pass).
 template <typename In>
 struct Node {  // bin ids: uint8, uint16, int32
   using Word = uint32_t;
   static constexpr bool kDecision = false;
+  static constexpr bool kDirect = false;
   static __device__ __forceinline__ uint32_t feature(uint32_t w) {
     return __byte_perm(w, 0, 0x4410);  // the low half, zero-extended
   }
@@ -174,10 +193,28 @@ struct Node {  // bin ids: uint8, uint16, int32
   }
 };
 
+template <typename T>
+struct Node<Wide<T>> {  // bin ids against wide nodes
+  using Word = int2;
+  static constexpr bool kDecision = false;
+  static constexpr bool kDirect = sizeof(T) == 4;
+  static __device__ __forceinline__ uint32_t feature(int2 w) {
+    return static_cast<uint32_t>(w.x);
+  }
+  static __device__ __forceinline__ uint32_t stage(Wide<T> v) {
+    return static_cast<uint32_t>(static_cast<int>(v.v));
+  }
+  static __device__ __forceinline__ bool left(uint32_t s, int2 w,
+                                              const Bits&) {
+    return static_cast<int>(s) <= w.y;
+  }
+};
+
 template <>
 struct Node<float> {  // raw features
   using Word = int2;
   static constexpr bool kDecision = false;
+  static constexpr bool kDirect = true;
   static __device__ __forceinline__ uint32_t feature(int2 w) {
     return static_cast<uint32_t>(w.x);
   }
@@ -195,6 +232,7 @@ template <>
 struct Node<DFloat> {  // raw features under decision bits
   using Word = int2;
   static constexpr bool kDecision = true;
+  static constexpr bool kDirect = true;
   static __device__ __forceinline__ uint32_t feature(int2 w) {
     return static_cast<uint32_t>(w.x) & 0xFFFFu;
   }
@@ -337,11 +375,13 @@ __host__ __device__ inline size_t align_up(size_t v, size_t a) {
 // same): the nodes and products of `chunk` trees, [cluster: the walks'
 // float64 products], the staged values of the tile's rows (feature f of
 // row r at [f * R + r], a 32-bit value each: the rows of a warp read
-// distinct banks whatever features they read), and [rows plan, bin ids]
-// the next tile's raw words (word w of row r at [w * R + r]).
+// distinct banks whatever features they read), and [rows plan, rows not
+// staged as they lie] the next tile's raw words (word w of row r at
+// [w * R + r]).
 struct Layout {
   size_t prod, walks, values, next, total;
-  __host__ __device__ Layout(const Args& a, int node_bytes, bool cluster) {
+  __host__ __device__ Layout(const Args& a, int node_bytes, bool direct,
+                             bool cluster) {
     const size_t cells = static_cast<size_t>(a.chunk) * a.m;
     const size_t R = cluster ? kBlockRows : a.rows;
     prod = align_up(cells * node_bytes, 8);
@@ -349,7 +389,7 @@ struct Layout {
     const size_t end = walks + (cluster ? a.chunk * R * 8 : 0);
     values = align_up(end, 16);
     next = values + static_cast<size_t>(a.f) * R * 4;
-    total = cluster || node_bytes == 8 ? next : next + R * 4 * a.words;
+    total = cluster || direct ? next : next + R * 4 * a.words;
   }
 };
 
@@ -595,9 +635,9 @@ template <typename In, bool kShared>
 __global__ void __launch_bounds__(1024, 1)
     score_rows_kernel(const Args a) {
   using Word = typename Node<In>::Word;
-  constexpr bool kRaw = sizeof(Word) == 8;
+  constexpr bool kDirect = Node<In>::kDirect;  // rows staged as they lie
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(a, sizeof(Word), false);
+  const Layout lay(a, sizeof(Word), kDirect, false);
   const uint32_t base = shared_addr(smem);
   const long long tiles = (a.n + a.rows - 1) / a.rows;
   const bool words = word_rows<In>(a);
@@ -618,18 +658,18 @@ __global__ void __launch_bounds__(1024, 1)
       if (mine && !words)
         stage_values<In>(a, values, tid, tile * a.rows + tid);
       else if (mine)
-        copy_words<In>(a, kRaw ? values : next_words, tid,
+        copy_words<In>(a, kDirect ? values : next_words, tid,
                        tile * a.rows + tid);
       cp_async_commit();
       cp_async_wait<0>();
-      if (mine && words && !kRaw) widen<In>(a, next_words, values, tid);
+      if (mine && words && !kDirect) widen<In>(a, next_words, values, tid);
       __syncthreads();  // the tables are staged
     }
     for (; tile < tiles; tile += gridDim.x) {
       const long long r = tile * a.rows + tid;
       const long long next = tile + gridDim.x;
       const bool more = next < tiles && tid < rows_in(a, next, a.rows);
-      if (kShared && words && !kRaw && more) {
+      if (kShared && words && !kDirect && more) {
         // the next row's bin ids land while this one is walked
         copy_words<In>(a, next_words, tid, next * a.rows + tid);
         cp_async_commit();
@@ -648,7 +688,7 @@ __global__ void __launch_bounds__(1024, 1)
         // this thread's walk is done with its values: stage its next row
         if (!words) {
           stage_values<In>(a, values, tid, next * a.rows + tid);
-        } else if (kRaw) {
+        } else if (kDirect) {
           copy_words<In>(a, values, tid, next * a.rows + tid);
           cp_async_commit();
           cp_async_wait<0>();
@@ -673,7 +713,7 @@ __global__ void __launch_bounds__(kThreads)
   cg::cluster_group cluster = cg::this_cluster();
   const int ranks = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const Layout lay(a, kSize, true);
+  const Layout lay(a, kSize, Node<In>::kDirect, true);
   const uint32_t base = shared_addr(smem);
   const long long block = blockIdx.x / ranks;
   const long long row0 = block * kBlockRows;
@@ -793,7 +833,8 @@ cudaError_t launch(const Args& a, const Plan& p, int device, cudaStream_t s) {
       (cluster && !p.shared) || (!cluster && p.cluster != 1) || p.smem < 0)
     return cudaErrorInvalidConfiguration;
   if (p.shared) {
-    const Layout lay(a, sizeof(typename Node<In>::Word), cluster);
+    const Layout lay(a, sizeof(typename Node<In>::Word), Node<In>::kDirect,
+                     cluster);
     if (lay.total > static_cast<size_t>(p.smem) || p.chunk < 0 ||
         (cluster && p.chunk * static_cast<long long>(p.cluster) < a.trees) ||
         (!cluster && a.trees > 0 && p.chunk < 1))
@@ -849,6 +890,12 @@ cudaError_t launch_x(int x_code, const Args& a, const Plan& p, int device,
       return launch_rows<float>(a, p, device, s);
     case 6:
       return launch_rows<DFloat>(a, p, device, s);
+    case 9:
+      return launch_rows<Wide<uint8_t>>(a, p, device, s);
+    case 10:
+      return launch_rows<Wide<uint16_t>>(a, p, device, s);
+    case 12:
+      return launch_rows<Wide<int32_t>>(a, p, device, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -885,7 +932,8 @@ extern "C" {
 // Scores the row-major (n, f) `x` through `trees` trees of `m` slots on
 // `stream` (a cudaStream_t) of device `device`, into the row-major (n, k)
 // float32 `out`. x_code: 1 uint8, 2 uint16, 4 int32 bin ids against packed
-// 32-bit nodes; 5 raw float32 features against packed 8-byte nodes. `prod`
+// 32-bit nodes; 9, 10, 12 the same ids against wide 8-byte bin nodes; 5
+// raw float32 features against packed 8-byte nodes. `prod`
 // holds each slot's float64 leaf * weight; every walk takes `depth` steps.
 // The plan (score_cuda.score_plan): regime 0 rows / 1 cluster, rows per
 // tile or block, CTAs, CTAs per cluster, trees per chunk or rank, dynamic

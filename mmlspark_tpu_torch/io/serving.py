@@ -15,8 +15,9 @@ The port's copy of the JAX package's ``io/serving.py`` for one server
 The binned data plane: where the served model exposes
 ``serving_binned_plan`` (the GBDT models, trained or imported from a
 model string), request threads bin each row to the narrowest ingest
-dtype with numpy (no device work), and the scoring thread pads each
-drained batch up to a rung of a power-of-two ladder capped at
+dtype with numpy (no device work; int32 past 65,536 bins, whose
+thresholds the scorer takes in wide bin nodes), and the scoring thread
+pads each drained batch up to a rung of a power-of-two ladder capped at
 ``max_batch_size``, scores it on the model's device and slices the pad
 rows off: replies are bitwise those of ``transform``. The plane counts
 the shapes it has scored (``shapes_seen``), which stays at the ladder's

@@ -913,13 +913,14 @@ class TreeScorer:
     """A booster's scorer on one device, the counterpart of a jitted JAX
     scorer: the tables packed and copied there once
     (``score_cuda.pack_nodes`` / ``make_tables``: a 32-bit word per node
-    for bin ids, or the feature and the float32 rounding of the raw
-    threshold for ``raw``, every leaf pushed to the last level; the leaf
-    table in float32, or bfloat16 under ``autocast="bf16"`` through
-    ``placement_cast``; each slot's float64 leaf * weight), and per call
-    one ``score_cuda.tree_score``. Packing refuses a booster whose bin
-    nodes do not fit a word. ``decision``: raw rows routed by the
-    booster's decision bits and category bitsets
+    for bin ids, or the wide node {int32 feature, int32 threshold} where
+    a threshold passes 65,534 or a split feature 32,767, or the feature
+    and the float32 rounding of the raw threshold for ``raw``, every leaf
+    pushed to the last level; the leaf table in float32, or bfloat16
+    under ``autocast="bf16"`` through ``placement_cast``; each slot's
+    float64 leaf * weight), and per call one ``score_cuda.tree_score``.
+    Packing refuses a negative bin threshold. ``decision``: raw rows
+    routed by the booster's decision bits and category bitsets
     (``score_cuda.pack_decision_nodes``; 10 at every split of a booster
     without bits), whose walk also gives leaf slots."""
 
@@ -943,9 +944,10 @@ class TreeScorer:
                          bit_words=words,
                          leaf_slot=torch.as_tensor(slots, device=device))
         else:
-            nodes, leaf = pack_nodes(
+            nodes, leaf, wide = pack_nodes(
                 sf, booster.threshold_value if raw else booster.threshold_bin,
                 booster.node_value, booster.max_depth, raw)
+            extra = dict(wide=wide)
         self.device = device
         self.autocast = autocast
         self.tables = make_tables(
@@ -993,7 +995,10 @@ class DerivedBinning:
     features for the binned scorer: ``bin(x) = 1 + #{T_i < x}`` in
     float64, with NaN / zero-as-missing values mapped per the model's
     (uniform) per-feature policy and refused where it mixes
-    directions."""
+    directions. Past 65,536 bins (a model of more than 65,534 distinct
+    thresholds on a feature) the ids are int32 and the booster's
+    thresholds pass what a 32-bit bin node holds: its scorer packs wide
+    nodes (``score_cuda.pack_nodes``)."""
 
     thresholds: List[np.ndarray]    # per feature, sorted unique float64
     nan_bin: np.ndarray             # (F,) where NaN lands; -1 = refuse

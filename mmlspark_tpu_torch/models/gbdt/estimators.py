@@ -51,8 +51,11 @@ and ``"rf"``; ``trainer.train``), keyed by the global iteration, so a
 checkpointed or incremental fit resumed at iteration k draws what the
 uninterrupted one drew.
 
-``maxBin`` above 256 bins into uint16 ids (``binned_ingest_dtype``),
-which train, transform and serve on the card; ``monotoneConstraints``,
+``maxBin`` above 256 bins into uint16 ids and above 65,536 into int32
+ids (``binned_ingest_dtype``), which train, transform and serve on the
+card (a model whose thresholds or split features pass what a 32-bit bin
+node holds scores through the scorer's wide nodes, an imported model's
+derived binning too); ``monotoneConstraints``,
 ``extraTrees`` and ``featureFractionByNode`` train as the reference's
 general split branch does, and fits without categorical slots bundle
 sparse columns (``MMLSPARK_TORCH_EFB``, ``ops/efb.py``).
@@ -62,8 +65,8 @@ validation); ``boostingType="dart"`` fits through the trainer's host
 loop (a checkpointed dart fit raises the reference's ``ValueError``), and
 ``MMLSPARK_TORCH_GROW_POLICY=leafwise`` grows every estimator's trees
 leaf-wise. Settings outside the port raise ``NotImplementedError``
-naming the ROADMAP item that adds them: ``maxBin`` above 65,536 (A7),
-meshes and the voting / feature-parallel learners (A8).
+naming the ROADMAP item that adds them: meshes and the voting /
+feature-parallel learners (A8).
 """
 
 from __future__ import annotations
@@ -878,8 +881,9 @@ class _LightGBMModelBase(Model, _LightGBMParams):
 
     binnedScoring = Param(
         "binnedScoring", "route transform through the binned-compare "
-        "scorer (bin with the training BinMapper, then compare uint8 or "
-        "uint16 bin ids instead of float thresholds). Binned scoring "
+        "scorer (bin with the training BinMapper, then compare uint8, "
+        "uint16 or int32 bin ids instead of float thresholds). Binned "
+        "scoring "
         "routes by the float64 bin edge, raw scoring by its float32 "
         "rounding (ROADMAP C8), so the two can differ on rows holding such "
         "a value", to_bool, default=False)

@@ -4,14 +4,14 @@
 
 ``level_histogram`` is the port of ``trainer._level_histogram`` (and of
 the TPU kernel ``hist_pallas._hist_kernel`` behind it): (N, F) uint8 bin
-ids (B <= 256), or uint16 ids (B <= 65,536: the reference's ids past 256
-bins, ``binned_ingest_dtype``), plus per-row grad, hess, live and
-node-local id -> a (width, F, B, 3) float32 histogram of (grad*live,
-hess*live, live) sums. The sums are taken in fixed point
-(``fixed_point_exponents``): each term is scaled by a per-channel power
-of two, rounded to an int64 and summed exactly, and each sum is rounded
-to float32 once. The result is the same bits in any row order and on
-any device, so the float32 fit is reproducible run to
+ids (B <= 256), uint16 ids (B <= 65,536: the reference's ids past 256
+bins, ``binned_ingest_dtype``) or int32 ids (past 65,536 bins), plus
+per-row grad, hess, live and node-local id -> a (width, F, B, 3) float32
+histogram of (grad*live, hess*live, live) sums. The sums are taken in
+fixed point (``fixed_point_exponents``): each term is scaled by a
+per-channel power of two, rounded to an int64 and summed exactly, and
+each sum is rounded to float32 once. The result is the same bits in any
+row order and on any device, so the float32 fit is reproducible run to
 run on the card, as the reference's is.
 
 ``level_histogram_quant_sums`` and ``dequantize_sums`` split the
@@ -31,12 +31,13 @@ native merge of the JAX package's C++ data plane. Integer sums commute,
 so the result is the same bits whatever order rows are added in.
 
 On a CUDA tensor each wrapper launches its kernel (a build or launch
-failure raises); on a CPU tensor it runs its plain version. There is no
-other route. Either way the histogram passes the ``gbdt.level_hist``
-fault point (``core/faults.py``), where the reference's native
-histogram entries have it; disarmed, that is one flag check. The
-kernels' designs and bounds are in the notes at the top of their
-sources.
+failure raises): the instance of the ids' dtype (uint8, uint16, int32;
+nothing narrows or clamps ids onto another instance). On a CPU tensor
+it runs its plain version. There is no other route. Either way the
+histogram passes the ``gbdt.level_hist`` fault point
+(``core/faults.py``), where the reference's native histogram entries
+have it; disarmed, that is one flag check. The kernels' designs and
+bounds are in the notes at the top of their sources.
 """
 
 from __future__ import annotations
@@ -59,14 +60,18 @@ from mmlspark_tpu_torch.native import bindings
 # here (``count_replay``).
 hist_kernel_launches = 0
 hist_quant_kernel_launches = 0
-# the kernels' uint16-id instances, counted apart
+# the kernels' uint16-id and int32-id instances, counted apart
 hist_u16_kernel_launches = 0
 hist_quant_u16_kernel_launches = 0
+hist_i32_kernel_launches = 0
+hist_quant_i32_kernel_launches = 0
 # the quantized kernel's chunk-merge entry (``level_histogram_quant_sums``:
-# no dequantization) on uint8 and uint16 ids, and the dequantization of
-# merged sums (``dequantize_sums``), counted apart from the above
+# no dequantization) on uint8, uint16 and int32 ids, and the
+# dequantization of merged sums (``dequantize_sums``), counted apart from
+# the above
 hist_quant_sums_kernel_launches = 0
 hist_quant_sums_u16_kernel_launches = 0
+hist_quant_sums_i32_kernel_launches = 0
 hist_quant_dequant_launches = 0
 _capture = threading.local()
 
@@ -100,9 +105,12 @@ def count_replay(tally: Dict[str, int]) -> None:
     for counter, launches in tally.items():
         globals()[counter] += launches
 
-# the bin-id dtypes the kernels take, and the most bins of each
-BIN_DTYPES = {torch.uint8: 256, torch.uint16: 65_536}
-MAX_BINS = 65_536
+# the bin-id dtypes the kernels take, and the most bins of each (int32
+# ids: every non-negative id)
+BIN_DTYPES = {torch.uint8: 256, torch.uint16: 65_536, torch.int32: 2 ** 31}
+# the launch counters' suffix of each id width (bytes)
+_INSTANCE = {1: "_kernel_launches", 2: "_u16_kernel_launches",
+             4: "_i32_kernel_launches"}
 CHUNK_ROWS = 256          # level_hist.cu: rows a CTA stages at once
 WARP_LANES = 32           # a lane per feature of a row
 PLAN_SEG_ROWS = 512       # rows per warp of the partition
@@ -116,8 +124,9 @@ QUANT_DTYPES = (torch.int16, torch.int8)
 def _check_inputs(binned, grad, hess, live, local, width, f, b,
                   stat_dtypes=(torch.float32,)):
     if binned.dtype not in BIN_DTYPES or binned.dim() != 2:
-        raise ValueError(f"binned must be a 2-d uint8 or uint16 tensor, got "
-                         f"{binned.dtype} with shape {tuple(binned.shape)}")
+        raise ValueError(f"binned must be a 2-d uint8, uint16 or int32 "
+                         f"tensor, got {binned.dtype} with shape "
+                         f"{tuple(binned.shape)}")
     n = binned.shape[0]
     if binned.shape[1] != f:
         raise ValueError(f"binned has {binned.shape[1]} features, expected {f}")
@@ -163,9 +172,9 @@ def level_histogram(binned, grad, hess, live, local, width: int, f: int,
 
 
 def bin_ids(binned) -> torch.Tensor:
-    """The bin ids of a uint8 or uint16 tensor as int64. uint16 goes
-    through its int16 view (``& 0xFFFF``): torch implements few ops on
-    uint16 tensors."""
+    """The bin ids of a uint8, uint16 or int32 tensor as int64. uint16
+    goes through its int16 view (``& 0xFFFF``): torch implements few ops
+    on uint16 tensors."""
     if binned.dtype == torch.uint16:
         return binned.view(torch.int16).long() & 0xFFFF
     return binned.long()
@@ -371,11 +380,11 @@ def launch_grid(sms: int, per_sm: int, num_slices: int, num_tiles: int,
     """(CTAs launched, CTAs per tile of bins) of a histogram launch on
     ``sms`` SMs that hold ``per_sm`` CTAs each (``level_hist_common.cuh``:
     ``hist_grid``). uint8 ids, one tile: a CTA per SM slot, at least one
-    per slice. uint16 ids: at most one wave; each tile takes
-    max(slices, floor(wave / tiles)) CTAs, and where those pass a wave
-    the launched CTAs take them in turn."""
+    per slice; int32 ids (one slice, one tile) the same. uint16 ids: at
+    most one wave; each tile takes max(slices, floor(wave / tiles)) CTAs,
+    and where those pass a wave the launched CTAs take them in turn."""
     wave = sms * per_sm
-    if bin_bytes == 1:
+    if bin_bytes != 2:
         ctas = max(wave, num_slices)
         return ctas, ctas
     per_tile = max(num_slices, wave // num_tiles)
@@ -385,7 +394,12 @@ def launch_grid(sms: int, per_sm: int, num_slices: int, num_tiles: int,
 def _kernel_plan(plane: str, f: int, b: int, bin_bytes: int):
     """(features per CTA, slices, bins per tile, tiles, shared memory
     bytes of a CTA) of a histogram launch on ``plane`` ("f32" or
-    "quant")."""
+    "quant"). On int32 ids both planes take ``level_hist_common.cuh``'s
+    walk, whose kernel takes none of the plan: warps of a lane per
+    feature over items of 128 rows, the sums in global memory; so one
+    slice of every feature, one tile of every bin, no shared memory."""
+    if bin_bytes == 4:
+        return f, 1, b, 1, 0
     if plane == "f32":
         f_slice, num_slices, tile_bins, num_tiles = f32_plan(f, b, bin_bytes)
         smem = (f32_smem_bytes(f_slice, b) if bin_bytes == 1
@@ -421,7 +435,7 @@ def launch_geometry(plane: str, f: int, b: int,
 def _word_aligned(binned):
     """The ids as the kernels take them: a uint16 view that starts off a
     4-byte boundary is copied (a kernel stages a row as the 4-byte words
-    covering its ids)."""
+    covering its ids); int32 ids always start on one."""
     if binned.element_size() == 2 and binned.data_ptr() % 4:
         return binned.clone()
     return binned
@@ -436,14 +450,15 @@ def _check_card_limits(width, n):
                          f"n {n}")
 
 
-def _partition_scratch(n, width, dev):
+def _partition_scratch(n, width, dev, order=True):
     """The partition's scratch (``csrc/level_hist_common.cuh``): its
     counts (per warp segment, then per CTA: at most one CTA per segment),
-    the nodes' offsets and the kept rows in node order."""
+    the nodes' offsets and (``order``, else None) the kept rows in node
+    order."""
     return (torch.empty(2 * (width + 1) * -(-n // PLAN_SEG_ROWS),
                         dtype=torch.int32, device=dev),
             torch.empty(width + 1, dtype=torch.int64, device=dev),
-            torch.empty(n, dtype=torch.int64, device=dev))
+            torch.empty(n, dtype=torch.int64, device=dev) if order else None)
 
 
 def _launch(binned, grad, hess, live, local, width, f, b):
@@ -458,8 +473,10 @@ def _launch(binned, grad, hess, live, local, width, f, b):
     acc = torch.zeros(width * f * b * 3 + 6, dtype=torch.int64, device=dev)
     # per row (grad*live, hess*live, live, 0)
     stats = torch.empty((n, 4), dtype=torch.float32, device=dev)
-    counts, offsets, order = _partition_scratch(n, width, dev)
     bin_bytes = binned.element_size()
+    # int32 ids run the partition's count and scan only (no order)
+    counts, offsets, order = _partition_scratch(n, width, dev,
+                                                order=bin_bytes != 4)
     f_slice, num_slices, tile_bins, num_tiles, smem = _kernel_plan(
         "f32", f, b, bin_bytes)
     binned = _word_aligned(binned)
@@ -467,12 +484,12 @@ def _launch(binned, grad, hess, live, local, width, f, b):
     code = lib.mmls_level_hist(
         binned.data_ptr(), grad.data_ptr(), hess.data_ptr(), live.data_ptr(),
         local.data_ptr(), local.element_size(), stats.data_ptr(),
-        counts.data_ptr(), offsets.data_ptr(), order.data_ptr(),
+        counts.data_ptr(), offsets.data_ptr(),
+        None if order is None else order.data_ptr(),
         acc.data_ptr(), out.data_ptr(), n, f, b, width, f_slice, num_slices,
         bin_bytes, tile_bins, num_tiles, smem, dev.index, stream)
     bindings.check(lib, code, "level_hist kernel launch")
-    _count_launch("hist_kernel_launches" if bin_bytes == 1
-                  else "hist_u16_kernel_launches")
+    _count_launch("hist" + _INSTANCE[bin_bytes])
     return out
 
 
@@ -661,10 +678,14 @@ def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
         out = torch.empty((width, f, b, 3), dtype=torch.float32, device=dev)
         acc = torch.zeros((width, f, b, 3), dtype=torch.int64, device=dev)
         dequant = (out.data_ptr(), gsi.data_ptr(), hsi.data_ptr())
-    # per row the packed (grad_q, hess_q) word
-    stats = torch.empty(n, dtype=torch.int32, device=dev)
-    counts, offsets, order = _partition_scratch(n, width, dev)
     bin_bytes = binned.element_size()
+    if bin_bytes == 4:
+        # int32 ids read each row's stats directly: no partition
+        stats = counts = offsets = order = None
+    else:
+        # per row the packed (grad_q, hess_q) word
+        stats = torch.empty(n, dtype=torch.int32, device=dev)
+        counts, offsets, order = _partition_scratch(n, width, dev)
     f_slice, num_slices, tile_bins, num_tiles, smem = _kernel_plan(
         "quant", f, b, bin_bytes)
     binned = _word_aligned(binned)
@@ -673,12 +694,12 @@ def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
     code = lib.mmls_level_hist_quant(
         binned.data_ptr(), grad_q.data_ptr(), hess_q.data_ptr(),
         live.data_ptr(), local.data_ptr(), local.element_size(),
-        stats.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
-        order.data_ptr(), acc.data_ptr(), *dequant, bits, n, f, b, width,
+        *(None if t is None else t.data_ptr()
+          for t in (stats, counts, offsets, order)),
+        acc.data_ptr(), *dequant, bits, n, f, b, width,
         f_slice, num_slices, bin_bytes, tile_bins, num_tiles, smem,
         quant_window(bits), dev.index, stream)
     bindings.check(lib, code, "level_hist_quant kernel launch")
     _count_launch(("hist_quant_sums" if merge else "hist_quant")
-                  + ("_kernel_launches" if bin_bytes == 1
-                     else "_u16_kernel_launches"))
+                  + _INSTANCE[bin_bytes])
     return out

@@ -11,8 +11,8 @@ changes every split, which no fixed-shape step holds.
 
 Per histogrammed node, one ``hist_cuda.level_histogram`` call with
 ``width=1`` and the node's membership as ``live``: ``csrc/level_hist.cu``
-on the card (its uint8 or uint16 instance, by the ids' dtype), its plain
-version on the CPU. The kernel skips rows whose ``live`` is 0, so the
+on the card (its uint8, uint16 or int32 instance, by the ids' dtype), its
+plain version on the CPU. The kernel skips rows whose ``live`` is 0, so the
 mask is the compaction. Only the smaller child of a split is
 histogrammed; its sibling is ``parent - smaller`` in float64, with hess
 and count clamped at 0.
@@ -90,12 +90,12 @@ class LeafwiseBuilder:
     count float32, decision_type int8, bin_go_left bool (slots, B)) numpy
     arrays in the full heap layout of ``effective_depth`` levels.
 
-    ``binned``: (N, F) uint8 or uint16 ids on the fit's device; ``grad``,
-    ``hess``: (N,) float32 there; ``valid``: (N,) float32 0/1 row mask or
-    None (every row); ``feat_mask``: (F,) 0/1 array-like or None (every
-    feature). ``timing`` accumulates over calls: histogram calls, the
-    host's seconds enqueueing them, reading them back (which waits for
-    the card) and scanning them, and host reads."""
+    ``binned``: (N, F) uint8, uint16 or int32 ids on the fit's device;
+    ``grad``, ``hess``: (N,) float32 there; ``valid``: (N,) float32 0/1
+    row mask or None (every row); ``feat_mask``: (F,) 0/1 array-like or
+    None (every feature). ``timing`` accumulates over calls: histogram
+    calls, the host's seconds enqueueing them, reading them back (which
+    waits for the card) and scanning them, and host reads."""
 
     def __init__(self, num_features: int, total_bins: int, cfg):
         self.cfg = cfg

@@ -88,7 +88,7 @@ __all__ = ["train_from_binned", "train_ooc"]
 def _numpy(rows) -> np.ndarray:
     """Rows of bin ids as numpy: a tensor (on any device) comes to the
     host; uint16 through int16's bits (torch converts little to or from
-    uint16)."""
+    uint16), uint8 and int32 as they are."""
     if not isinstance(rows, torch.Tensor):
         return np.asarray(rows)
     if rows.dtype == torch.uint16:

@@ -13,9 +13,11 @@ the adds a fixed sequence, so the kernel and the plain version return the
 same bits.
 
 The tables are packed once per scorer (``pack_nodes``, ``make_tables``):
-a 32-bit word per node for bin ids, 8 bytes per node for raw rows, every
-leaf above the last level pushed down its left spine so that each walk
-takes ``max_depth`` steps, and each slot's float64 product leaf * weight.
+a 32-bit word per node for bin ids (8 bytes, the wide node, where a
+threshold passes 65,534 or a feature 32,767), 8 bytes per node for raw
+rows, every leaf above the last level pushed down its left spine so
+that each walk takes ``max_depth`` steps, and each slot's float64
+product leaf * weight.
 ``score_plan`` picks the kernel's launch plan from the shapes: ``"rows"``
 (persistent CTAs, a thread per row) for large batches, ``"cluster"`` (a
 thread-block cluster that splits the trees) for small ones.
@@ -49,20 +51,26 @@ from mmlspark_tpu_torch.native import bindings
 # path went through it; and the same launches by plan.
 tree_score_launches = 0
 tree_score_plan_launches = {"rows": 0, "cluster": 0}
-# ... and by route: bin ids, raw rows, raw rows under decision bits
-tree_score_route_launches = {"bin": 0, "raw": 0, "decision": 0}
+# ... and by route: bin ids, bin ids against wide nodes, raw rows, raw
+# rows under decision bits
+tree_score_route_launches = {"bin": 0, "wide": 0, "raw": 0, "decision": 0}
 
 BIN_CODES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
 RAW_CODE = 5                 # raw float32 features
 DECISION_CODE = 6            # raw float32 features under decision bits
+WIDE_CODE = 8                # added to a bin code: ids against wide nodes
 LEAF_DTYPES = (torch.float32, torch.bfloat16)  # the plain version's leaves
 PLAIN_ROWS = 1 << 16         # rows the plain version routes at once
 
 # What a packed bin node holds: the split feature as int16 and
-# threshold_bin as uint16, 65535 being the always-left threshold.
+# threshold_bin as uint16, 65535 being the always-left threshold. Past
+# either, a booster's bin nodes are wide: {int32 feature, int32
+# threshold}, the always-left threshold int32's largest (every int32 id
+# is at most it).
 MAX_BIN_FEATURE = 32767
 MAX_BIN_THRESHOLD = 65534
 ALWAYS_LEFT_BIN = 65535
+ALWAYS_LEFT_WIDE = 2 ** 31 - 1
 # A packed decision node holds the feature in 16 bits.
 MAX_DECISION_FEATURE = 65535
 
@@ -94,7 +102,8 @@ class TreeTables:
     full binary layout (node i's children 2i+1 / 2i+2), ``M`` slots per
     tree, every leaf on the last level (``pack_nodes``)."""
 
-    nodes: torch.Tensor           # bin ids: (T * M,) int32 words; raw
+    nodes: torch.Tensor           # bin ids: (T * M,) int32 words, or
+                                  # (T * M, 2) int32 wide nodes; raw
                                   # rows: (T * M, 2) int32 (pack_nodes)
     leaf: torch.Tensor            # (T * M,) float32 or bfloat16
     tree_weight: torch.Tensor     # (T,) float32
@@ -110,11 +119,14 @@ class TreeTables:
     bits: Optional[torch.Tensor] = None
     bit_words: int = 0
     leaf_slot: Optional[torch.Tensor] = None
+    # bin nodes of two int32 words (feature, threshold), compared with
+    # the ids unclamped
+    wide: bool = False
 
     @property
     def raw(self) -> bool:
         """Raw float32 features (``predict``) rather than bin ids."""
-        return self.nodes.dim() == 2
+        return self.nodes.dim() == 2 and not self.wide
 
     @property
     def decision(self) -> bool:
@@ -123,7 +135,8 @@ class TreeTables:
 
     @property
     def route(self) -> str:
-        return "decision" if self.decision else "raw" if self.raw else "bin"
+        return ("decision" if self.decision else "raw" if self.raw
+                else "wide" if self.wide else "bin")
 
     @property
     def num_trees(self) -> int:
@@ -136,43 +149,45 @@ def pack_nodes(split_feature: np.ndarray, threshold: np.ndarray,
     (< 0 at a leaf), thresholds and node values. A leaf above level
     ``max_depth`` is pushed down its left spine: its slot and the spine's
     slots above the last level become always-left nodes (feature 0,
-    threshold 65535 for bin ids, +inf for raw rows, where NaN goes left
-    too) and the spine's slot on the last level takes its value, so a
-    walk of ``max_depth`` steps ends on the leaf's value wherever the
-    leaf was. Bin ids (``raw`` False, int thresholds) pack into one int32
-    word per node, the feature as int16 in the low half and
-    ``threshold_bin`` as uint16 in the high half; raw rows (float
-    thresholds, rounded to float32) into a (T * M, 2) int32 array of the
-    feature and the float32 threshold's bits. Returns (nodes, float32
-    leaf values (T * M,)). Raises ``ValueError`` where a bin node does not
-    fit its word: a split feature above 32767 or a threshold outside
-    0..65534 (binned scoring refuses negative thresholds before,
+    threshold 65535 for bin ids, int32's largest for wide bin nodes, +inf
+    for raw rows, where NaN goes left too) and the spine's slot on the
+    last level takes its value, so a walk of ``max_depth`` steps ends on
+    the leaf's value wherever the leaf was. Bin ids (``raw`` False, int
+    thresholds) pack into one int32 word per node, the feature as int16
+    in the low half and ``threshold_bin`` as uint16 in the high half,
+    while every split feature is at most 32767 and every threshold at
+    most 65534; past either, into wide nodes, a (T * M, 2) int32 array of
+    the feature and the threshold. Raw rows (float thresholds, rounded to
+    float32) pack into a (T * M, 2) int32 array of the feature and the
+    float32 threshold's bits. Returns (nodes, float32 leaf values
+    (T * M,), whether the nodes are wide bin nodes). Raises ``ValueError`` for a negative bin threshold, which
+    no bin node holds (binned scoring refuses such boosters before,
     ``BoosterArrays.supports_binned``)."""
     sf = np.array(split_feature, np.int64)
     nv = np.array(node_value, np.float32)
     thr = np.array(threshold, np.float32 if raw else np.int64)
     internal = sf >= 0
+    wide = False
     if not raw and internal.any():
-        if int(sf[internal].max()) > MAX_BIN_FEATURE:
-            raise ValueError(f"a split feature ({int(sf[internal].max())}) "
-                             f"is above {MAX_BIN_FEATURE}: a packed bin node "
-                             f"holds the feature as int16")
         lo, hi = int(thr[internal].min()), int(thr[internal].max())
-        if lo < 0 or hi > MAX_BIN_THRESHOLD:
+        if lo < 0 or hi >= ALWAYS_LEFT_WIDE:
             raise ValueError(f"bin thresholds {lo}..{hi} leave "
-                             f"0..{MAX_BIN_THRESHOLD}: a packed bin node "
-                             f"holds the threshold as uint16, "
-                             f"{ALWAYS_LEFT_BIN} always left")
+                             f"0..{ALWAYS_LEFT_WIDE - 1}: no packed bin "
+                             f"node holds them")
+        wide = (int(sf[internal].max()) > MAX_BIN_FEATURE
+                or hi > MAX_BIN_THRESHOLD)
     pushed, _ = _push_leaves_down(sf, nv, max_depth)
-    thr[pushed] = np.inf if raw else ALWAYS_LEFT_BIN
+    thr[pushed] = np.inf if raw else (ALWAYS_LEFT_WIDE if wide
+                                      else ALWAYS_LEFT_BIN)
     sf, thr, nv = sf.reshape(-1), thr.reshape(-1), nv.reshape(-1)
-    if raw:
+    if raw or wide:
         nodes = np.empty((sf.size, 2), np.int32)
         nodes[:, 0] = sf
-        nodes[:, 1] = thr.view(np.int32)
-        return nodes, nv
+        nodes[:, 1] = thr.view(np.int32) if raw else np.where(sf >= 0, thr,
+                                                              0)
+        return nodes, nv, wide
     word = (np.where(sf >= 0, thr, 0) << 16) | (sf & 0xFFFF)
-    return word.astype(np.uint32).view(np.int32), nv
+    return word.astype(np.uint32).view(np.int32), nv, False
 
 
 def _push_leaves_down(sf: np.ndarray, nv: np.ndarray, max_depth: int):
@@ -245,18 +260,20 @@ def pack_decision_nodes(split_feature: np.ndarray,
 def make_tables(nodes: torch.Tensor, leaf: torch.Tensor,
                 tree_weight: torch.Tensor, num_nodes: int, max_depth: int,
                 num_class: int, num_features: int,
-                init_score: float, **decision) -> TreeTables:
+                init_score: float, wide: bool = False,
+                **decision) -> TreeTables:
     """``TreeTables`` of packed nodes, leaf values and tree weights on one
     device, with each slot's product leaf * weight (a bfloat16 leaf
-    promoted to float32 first; exact in float64). ``decision``: the
-    decision route's ``bits``, ``bit_words`` and ``leaf_slot``."""
+    promoted to float32 first; exact in float64). ``wide``: ``nodes``
+    are wide bin nodes (``pack_nodes``). ``decision``: the decision
+    route's ``bits``, ``bit_words`` and ``leaf_slot``."""
     products = leaf.float().double() * tree_weight.double() \
         .repeat_interleave(num_nodes)
     return TreeTables(nodes=nodes, leaf=leaf, tree_weight=tree_weight,
                       products=products, num_nodes=num_nodes,
                       max_depth=max_depth, num_class=num_class,
                       num_features=num_features, init_score=init_score,
-                      **decision)
+                      wide=wide, **decision)
 
 
 @dataclass(frozen=True)
@@ -296,29 +313,36 @@ def _row_words(features: int, in_bytes: int) -> int:
 
 
 def _smem_bytes(chunk: int, m: int, raw: bool, features: int, words: int,
-                cluster: bool, rows: int = CLUSTER_BLOCK_ROWS) -> int:
+                cluster: bool, rows: int = CLUSTER_BLOCK_ROWS,
+                wide_ids: int = 0) -> int:
     """The kernel's shared-memory layout (``Layout`` in the source): the
-    nodes (8 bytes each for raw rows, else 4) and the float64 products of
-    ``chunk`` trees, the cluster's float64 products of its walks, a 32-bit
-    value per feature of each of the ``rows`` rows of a tile (a cluster's
-    block), and for the rows plan's bin ids the next rows' ``words`` raw
-    words."""
+    nodes (8 bytes each for raw rows and wide bin nodes, else 4) and the
+    float64 products of ``chunk`` trees, the cluster's float64 products
+    of its walks, a 32-bit value per feature of each of the ``rows`` rows
+    of a tile (a cluster's block), and for the rows plan's rows that are
+    not staged as they lie the next rows' ``words`` raw words: bin ids,
+    but for int32 ids against wide nodes. ``wide_ids``: the bytes of an
+    id scored against wide nodes (0: narrow nodes or raw rows)."""
     cells = chunk * m
-    end = _align(cells * (8 if raw else 4), 8) + cells * 8
+    end = _align(cells * (8 if raw or wide_ids else 4), 8) + cells * 8
     if cluster:
         end += chunk * rows * 8
     values = _align(end, 16) + features * rows * 4
-    return values if cluster or raw else values + rows * 4 * words
+    direct = raw or wide_ids == 4
+    return values if cluster or direct else values + rows * 4 * words
 
 
-def _shape(in_dtype: torch.dtype):
-    """(bytes of an input element, raw rows?)."""
-    return torch.empty((), dtype=in_dtype).element_size(), \
-        in_dtype == torch.float32
+def _shape(in_dtype: torch.dtype, wide: bool = False):
+    """(bytes of an input element, raw rows?, bytes of an id against wide
+    nodes or 0)."""
+    in_bytes = torch.empty((), dtype=in_dtype).element_size()
+    raw = in_dtype == torch.float32
+    return in_bytes, raw, in_bytes if wide and not raw else 0
 
 
 def rows_plan(n: int, trees: int, nodes: int, k: int, in_dtype: torch.dtype,
-              features: int, sms: int = SMS) -> ScorePlan:
+              features: int, sms: int = SMS,
+              wide: bool = False) -> ScorePlan:
     """The rows plan. Where the batch fills every SM with tiles of 1,024
     rows and one CTA of them holds every tree, one such CTA per SM (one
     copy of the tables per SM). Else tiles of 256 rows: every tree in one
@@ -326,11 +350,12 @@ def rows_plan(n: int, trees: int, nodes: int, k: int, in_dtype: torch.dtype,
     chunks of as many trees as do; else as fit one CTA per SM; else (a
     tree or a tile larger than a CTA's shared memory) the global route,
     one pass reading the tables and rows where they lie."""
-    in_bytes, raw = _shape(in_dtype)
+    in_bytes, raw, wide_ids = _shape(in_dtype, wide)
     words = _row_words(features, in_bytes)
 
     def smem(chunk, rows=ROW_THREADS):
-        return _smem_bytes(chunk, nodes, raw, features, words, False, rows)
+        return _smem_bytes(chunk, nodes, raw, features, words, False, rows,
+                           wide_ids)
 
     if n >= sms * SM_THREADS and smem(max(trees, 1), SM_THREADS) \
             <= SMEM_BLOCK:
@@ -361,17 +386,18 @@ def rows_plan(n: int, trees: int, nodes: int, k: int, in_dtype: torch.dtype,
 
 
 def cluster_plan(n: int, trees: int, nodes: int, k: int,
-                 in_dtype: torch.dtype,
-                 features: int) -> Optional[ScorePlan]:
+                 in_dtype: torch.dtype, features: int,
+                 wide: bool = False) -> Optional[ScorePlan]:
     """The cluster plan: ``min(8, T)`` CTAs per cluster, rank r the trees
     ``[r*T/C, (r+1)*T/C)``, a cluster per block of 64 rows; None where a
     rank's tables, products and rows do not fit a CTA's shared
     memory."""
-    in_bytes, raw = _shape(in_dtype)
+    in_bytes, raw, wide_ids = _shape(in_dtype, wide)
     ranks = max(1, min(CLUSTER_MAX, trees))
     chunk = -(-trees // ranks)
     size = _smem_bytes(chunk, nodes, raw, features,
-                       _row_words(features, in_bytes), True)
+                       _row_words(features, in_bytes), True,
+                       wide_ids=wide_ids)
     if size > SMEM_BLOCK:
         return None
     blocks = max(1, -(-n // CLUSTER_BLOCK_ROWS))
@@ -387,17 +413,18 @@ def cluster_rows(trees: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def score_plan(n: int, trees: int, nodes: int, k: int, in_dtype: torch.dtype,
-               features: int, sms: int = SMS) -> ScorePlan:
+               features: int, sms: int = SMS,
+               wide: bool = False) -> ScorePlan:
     """The kernel's plan for ``n`` rows of ``features`` ``in_dtype``
     values (float32: raw rows) through ``trees`` trees of ``nodes`` slots
-    and ``k`` classes on a card of ``sms`` SMs: the cluster plan where it
-    fits and the batch is at most ``cluster_rows(trees)`` rows; else the
-    rows plan."""
+    (``wide`` bin nodes or not) and ``k`` classes on a card of ``sms``
+    SMs: the cluster plan where it fits and the batch is at most
+    ``cluster_rows(trees)`` rows; else the rows plan."""
     if n <= cluster_rows(trees):
-        plan = cluster_plan(n, trees, nodes, k, in_dtype, features)
+        plan = cluster_plan(n, trees, nodes, k, in_dtype, features, wide)
         if plan is not None:
             return plan
-    return rows_plan(n, trees, nodes, k, in_dtype, features, sms)
+    return rows_plan(n, trees, nodes, k, in_dtype, features, sms, wide)
 
 
 @functools.cache
@@ -409,12 +436,12 @@ def _plan_for(n: int, features: int, dtype: torch.dtype, tables: TreeTables,
               device: torch.device) -> ScorePlan:
     sms = _sm_count(device.index) if device.type == "cuda" else SMS
     return score_plan(n, tables.num_trees, tables.num_nodes,
-                      tables.num_class, dtype, features, sms)
+                      tables.num_class, dtype, features, sms, tables.wide)
 
 
 def _check(x: torch.Tensor, tables: TreeTables) -> None:
     t, m = tables.num_trees, tables.num_nodes
-    node_shape = (t * m, 2) if tables.raw else (t * m,)
+    node_shape = (t * m, 2) if tables.raw or tables.wide else (t * m,)
     if tables.leaf.dtype not in LEAF_DTYPES:
         raise ValueError(f"tables: leaves {tables.leaf.dtype}")
     for name, v, dtype, shape in (
@@ -450,12 +477,12 @@ def _check(x: torch.Tensor, tables: TreeTables) -> None:
 
 
 def tree_score(x: torch.Tensor, tables: TreeTables, leaves: bool = False):
-    """(N, F) bin ids (uint8 / uint16 / int32, for packed bin nodes) or
-    raw float32 features (for packed raw or decision nodes), contiguous,
-    on the tables' device -> (N,) or (N, K) float32 raw scores; with
-    ``leaves`` (decision tables only) also the (N, T) int32 leaf slot of
-    every row in every tree, from the same walk (on the card the
-    transpose of the kernel's tree-major (T, N) output, a view)."""
+    """(N, F) bin ids (uint8 / uint16 / int32, for packed bin nodes, wide
+    or not) or raw float32 features (for packed raw or decision nodes),
+    contiguous, on the tables' device -> (N,) or (N, K) float32 raw
+    scores; with ``leaves`` (decision tables only) also the (N, T) int32
+    leaf slot of every row in every tree, from the same walk (on the card
+    the transpose of the kernel's tree-major (T, N) output, a view)."""
     _check(x, tables)
     if leaves and not tables.decision:
         raise ValueError("leaf slots come from decision tables "
@@ -493,6 +520,8 @@ def unpack_nodes(tables: TreeTables):
     if tables.raw:
         return tables.nodes[:, 0].long(), \
             tables.nodes.view(torch.float32)[:, 1]
+    if tables.wide:
+        return tables.nodes[:, 0].long(), tables.nodes[:, 1].long()
     word = tables.nodes.long() & 0xFFFFFFFF
     return ((word & 0xFFFF) ^ 0x8000) - 0x8000, word >> 16
 
@@ -533,15 +562,17 @@ def decision_left(fx: torch.Tensor, dt: torch.Tensor, thr: torch.Tensor,
 def leaf_nodes(x: torch.Tensor, tables: TreeTables) -> torch.Tensor:
     """(rows, T) int64 last-level slot of every row in every tree: all
     trees routed at once, level by level, on a (rows, trees) node tensor
-    indexed at ``t * M + node``. Bin ids compare clamped to 65535, as the
-    kernel compares them (left of the always-left threshold only)."""
+    indexed at ``t * M + node``. Bin ids compare clamped to 65535 against
+    narrow nodes, as the kernel compares them (left of the always-left
+    threshold only), and as they are against wide nodes."""
     offsets = (torch.arange(tables.num_trees, device=x.device)
                * tables.num_nodes)[None, :]
     if tables.decision:
         return _decision_leaf_nodes(x, tables, offsets)
     sf, thr = unpack_nodes(tables)
     # gather takes no uint16, and bin ids compare as integers
-    xs = x if tables.raw else x.long().clamp_max(ALWAYS_LEFT_BIN)
+    xs = x if tables.raw else x.long() if tables.wide \
+        else x.long().clamp_max(ALWAYS_LEFT_BIN)
     node = torch.zeros((x.shape[0], tables.num_trees), dtype=torch.int64,
                        device=x.device)
     for _ in range(_depth(x, tables)):
@@ -605,6 +636,14 @@ def tree_score_reference(x: torch.Tensor, tables: TreeTables,
     return (scores, slots) if leaves else scores
 
 
+def _x_code(dtype: torch.dtype, tables: TreeTables) -> int:
+    """The kernel's code for rows of ``dtype`` against ``tables``: raw
+    rows, or bin ids against bin nodes (wide ones past ``WIDE_CODE``)."""
+    if tables.raw:
+        return RAW_CODE
+    return BIN_CODES[dtype] + (WIDE_CODE if tables.wide else 0)
+
+
 class StagedBatch:
     """The buffers of one padded batch shape of a served model: ``x``, a
     numpy view of the (rows, F) bin ids to score, and ``out``, one of
@@ -636,7 +675,7 @@ class StagedBatch:
         # the library's arguments that never change, read once: a torch
         # call on the serving thread can give up the interpreter lock
         self.args = (self.host_in.data_ptr(), self.dev_in.data_ptr(),
-                     BIN_CODES[dtype], self.x.nbytes)
+                     _x_code(dtype, tables), self.x.nbytes)
 
 
 def tree_score_staged(batch: StagedBatch, tables: TreeTables) -> None:
@@ -664,7 +703,7 @@ def tree_score_staged(batch: StagedBatch, tables: TreeTables) -> None:
     bindings.check(lib, code, "tree_score staged batch")
     tree_score_launches += 1
     tree_score_plan_launches[batch.plan.regime] += 1
-    tree_score_route_launches["bin"] += 1
+    tree_score_route_launches[tables.route] += 1
 
 
 def _launch(x: torch.Tensor, tables: TreeTables,
@@ -697,7 +736,7 @@ def _launch(x: torch.Tensor, tables: TreeTables,
                 dev.index, stream)
         else:
             code = lib.mmls_tree_score(
-                x.data_ptr(), RAW_CODE if tables.raw else BIN_CODES[x.dtype],
+                x.data_ptr(), _x_code(x.dtype, tables),
                 tables.nodes.data_ptr(), tables.products.data_ptr(),
                 out.data_ptr(), ctypes.c_float(tables.init_score), n,
                 x.shape[1], tables.num_trees, tables.num_nodes,

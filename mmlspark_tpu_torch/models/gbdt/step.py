@@ -370,7 +370,7 @@ class Step:
 
 def _copy(dst, src) -> None:
     """``dst.copy_(src)``; uint16 bin ids through int16's bits (torch
-    implements few ops on uint16)."""
+    implements few ops on uint16), uint8 and int32 ids as they are."""
     if dst.dtype == torch.uint16:
         dst, src = dst.view(torch.int16), src.view(torch.int16)
     dst.copy_(src)

@@ -10,10 +10,10 @@ What this slice runs (and the JAX trainer it mirrors, file
     on the card, their plain versions on the CPU), numeric split
     finding (``_find_numeric_splits``) and row routing — the
     ``simple_numeric`` branch of ``make_build_tree``;
-  - bin ids: uint8 up to 256 bins, uint16 up to 65,536 (``max_bin``;
-    ``binned_ingest_dtype``), through both histogram kernels, the
-    routing and the trees' scoring; past 65,536 ``max_bin`` raises
-    (ROADMAP A7);
+  - bin ids: uint8 up to 256 bins, uint16 up to 65,536, int32 past
+    that (``max_bin``; ``binned_ingest_dtype``), each through its own
+    instance of both histogram kernels, the routing and the trees'
+    scoring;
   - exclusive feature bundling (``ops/efb.py``, ``MMLSPARK_TORCH_EFB``):
     planned where the reference plans it (no categorical features), the
     bundled matrix beside the original; histograms read the bundled one
@@ -117,8 +117,6 @@ from mmlspark_tpu_torch.models.gbdt import objectives as obj_mod
 from mmlspark_tpu_torch.models.gbdt import sampling
 from mmlspark_tpu_torch.models.gbdt.booster import BoosterArrays
 from mmlspark_tpu_torch.models.gbdt.hist_cuda import (
-    BIN_DTYPES,
-    MAX_BINS,
     bin_ids,
     level_histogram,
     level_histogram_quant,
@@ -275,11 +273,6 @@ def check_supported(cfg: TrainConfig) -> None:
             raise NotImplementedError(
                 f"TrainConfig.{name}={value!r} is not in the port yet "
                 f"(ROADMAP {later})")
-    if cfg.max_bin > MAX_BINS:
-        # the reference's int32 bin ids
-        raise NotImplementedError(
-            f"max_bin={cfg.max_bin} needs int32 bin ids; the level-histogram "
-            f"kernels take uint16 ids, at most {MAX_BINS} bins (ROADMAP A7)")
     if (cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0) \
             and cfg.objective != "binary":
         raise ValueError(
@@ -295,8 +288,8 @@ def _resolve_metrics(cfg: TrainConfig, label_gain=None):
     JAX package's ``_resolve_metrics``: ``ndcg`` is one ``ndcg@p`` per
     ``eval_at`` position under ``label_gain`` (the step's device tensor
     of the gains), else ``cfg.label_gain``; an unknown name raises
-    ``NotImplementedError`` (as the reference's ``KeyError``, naming
-    ROADMAP A7)."""
+    ``NotImplementedError`` (where the reference raises ``KeyError``: the
+    port has every name the reference has)."""
     metric_name = cfg.metric or metrics_mod.default_metric(cfg.objective)
     if metric_name == "ndcg":
         positions = (cfg.eval_at if isinstance(cfg.eval_at, (list, tuple))
@@ -307,8 +300,8 @@ def _resolve_metrics(cfg: TrainConfig, label_gain=None):
             int(p), label_gain=lg)) for p in positions], True, {}
     if metric_name not in metrics_mod.METRICS:
         raise NotImplementedError(
-            f"metric {metric_name!r} is not in the port (ROADMAP A7, GBDT "
-            f"breadth); have {sorted(metrics_mod.METRICS)}")
+            f"metric {metric_name!r} is not a metric of the port or of the "
+            f"reference; have {sorted(metrics_mod.METRICS)}")
     metric_fn, higher_better = metrics_mod.METRICS[metric_name]
     # quantile's pinball alpha is the training alpha
     metric_kwargs = {"alpha": cfg.alpha} if metric_name == "quantile" else {}
@@ -503,13 +496,24 @@ OOC_CHUNK_ROWS = 262_144
 # stats and partition order, the step's temporaries. chip_smoke.py's
 # ooc_path holds it above the measured peak of the 4M x 28 in-core fits
 IN_CORE_ROW_BYTES = 160
+# device bytes an in-core fit holds per (node, feature, bin) cell of its
+# widest level beside the rows: the float32 histogram (12) and the
+# kernel's int64 sums (24), the parent's histogram kept for subtraction,
+# the split scan's float32 temporaries over (width, F, B). Negligible at
+# 255 bins, gigabytes past 65,536; chip_smoke.py's int32_path holds it
+# above the measured peak of the 2M x 28 fits at B = 131,072 (about 62
+# bytes a cell on the H100)
+HIST_CELL_BYTES = 80
 
 
-def in_core_bytes(n: int, f: int, total_bins: int) -> int:
+def in_core_bytes(n: int, f: int, total_bins: int, width: int = 1) -> int:
     """The device bytes an in-core fit of ``n`` rows of ``f`` features
-    holds at its peak (an estimate: ``IN_CORE_ROW_BYTES``)."""
+    holds at its peak, its widest level ``width`` nodes wide (an
+    estimate: ``IN_CORE_ROW_BYTES`` per row, ``HIST_CELL_BYTES`` per
+    histogram cell)."""
     itemsize = np.dtype(binned_ingest_dtype(total_bins)).itemsize
-    return n * (2 * f * itemsize + IN_CORE_ROW_BYTES)
+    return (n * (2 * f * itemsize + IN_CORE_ROW_BYTES)
+            + width * f * total_bins * HIST_CELL_BYTES)
 
 
 def device_free_bytes(dev: torch.device) -> Optional[int]:
@@ -530,14 +534,14 @@ def device_free_bytes(dev: torch.device) -> Optional[int]:
                       and tuple(s["segment_pool_id"]) == (0, 0))
 
 
-def fits_in_core(n: int, f: int, total_bins: int,
-                 dev: torch.device) -> bool:
+def fits_in_core(n: int, f: int, total_bins: int, dev: torch.device,
+                 width: int = 1) -> bool:
     """Whether ``auto`` keeps a fit in-core: its estimated peak
     (``in_core_bytes``) fits in ``device_free_bytes``. The reference
     streams from a row count instead (``MMLSPARK_TPU_OOC_ROWS``, 4M),
     its TPU's memory in rows (ROADMAP C25)."""
     free = device_free_bytes(dev)
-    return free is None or in_core_bytes(n, f, total_bins) <= free
+    return free is None or in_core_bytes(n, f, total_bins, width) <= free
 
 
 def _ooc_supported(cfg: TrainConfig, k: int = 1, has_valid: bool = False,
@@ -937,9 +941,9 @@ def _unbundle_hist(hb, maps, f: int, b: int):
 
 
 def _bins_at(binned, feat):
-    """(N,) bin ids of each row's feature ``feat`` (N,) int64: uint8 as
-    gathered, uint16 as int64 through its int16 view (torch gathers no
-    uint16)."""
+    """(N,) bin ids of each row's feature ``feat`` (N,) int64: uint8 and
+    int32 as gathered, uint16 as int64 through its int16 view (torch
+    gathers no uint16)."""
     if binned.dtype == torch.uint16:
         return torch.gather(binned.view(torch.int16), 1,
                             feat[:, None])[:, 0].long() & 0xFFFF
@@ -1011,7 +1015,7 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
                total_bins: int, hist_quant: str = "off",
                subtract: bool = False, valid=None, feat_mask=None, key=None,
                efb=None):
-    """One depthwise tree over the (N, F) uint8 or uint16 ``binned``
+    """One depthwise tree over the (N, F) uint8, uint16 or int32 ``binned``
     matrix with (N,) float32 ``grad`` / ``hess``. ``hist_quant``
     (off|q16|q8) picks the histogram plane and ``subtract`` the sibling
     trick (see the module note). ``valid``: an (N,) float32 0/1 row mask
@@ -1246,28 +1250,32 @@ def warm_start_scores(init_model: Optional[BoosterArrays], x: np.ndarray,
 
 def _binned_to_device(binned, total_bins: int, dev: torch.device):
     """(N, F) bin ids (numpy, or a tensor on any device) -> uint8 (at most
-    256 bins) or uint16 (at most 65,536) on ``dev``, one copy at the
-    narrowest dtype (``binned_ingest_dtype``); ids outside [0, max_bin)
-    raise. uint16 crosses as int16's bits: torch converts little to or
-    from uint16."""
-    wide = binned_ingest_dtype(total_bins) == np.uint16
-    if isinstance(binned, torch.Tensor):
-        ids = bin_ids(binned) if binned.dtype in BIN_DTYPES else binned.long()
-        lo = int(ids.min()) if binned.shape[0] else 0
-        hi = int(ids.max()) if binned.shape[0] else -1
-    else:
-        lo = int(binned.min()) if binned.shape[0] else 0
-        hi = int(binned.max()) if binned.shape[0] else -1
-    if lo < 0 or hi >= total_bins:
+    256 bins), uint16 (at most 65,536) or int32 (past that) on ``dev``,
+    one copy at the narrowest dtype (``binned_ingest_dtype``); ids
+    outside [0, max_bin) raise. uint16 crosses as int16's bits: torch
+    converts little to or from uint16."""
+    want = binned_ingest_dtype(total_bins)
+    tensor = isinstance(binned, torch.Tensor)
+    # The range is checked on the ids as given, before any narrowing.
+    ids = (bin_ids(binned) if tensor and (binned.dtype == torch.uint16
+                                          or binned.is_floating_point())
+           else binned)
+    if binned.shape[0] and (int(ids.min()) < 0
+                            or int(ids.max()) >= total_bins):
         raise ValueError(f"bin ids must lie in [0, max_bin={total_bins})")
-    if isinstance(binned, torch.Tensor):
-        if wide:
+    if want == np.int32:
+        if not tensor:
+            ids = torch.from_numpy(np.ascontiguousarray(
+                binned.astype(np.int32, copy=False)))
+        return ids.to(device=dev, dtype=torch.int32).contiguous()
+    if tensor:
+        if want == np.uint16:
             bits = (binned.view(torch.int16) if binned.dtype == torch.uint16
                     else ids.to(torch.int16))
             return bits.to(dev).contiguous().view(torch.uint16)
         return (binned if binned.dtype == torch.uint8
                 else ids.to(torch.uint8)).to(dev).contiguous()
-    if wide:
+    if want == np.uint16:
         return torch.from_numpy(np.ascontiguousarray(
             binned.astype(np.uint16, copy=False)).view(np.int16)).to(
                 dev).view(torch.uint16)
@@ -1424,9 +1432,8 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     ``MMLSPARK_TORCH_HIST_SUB``, and bundling ``MMLSPARK_TORCH_EFB``
     (``plan_efb``), read once here; ``hist_stats`` records what ran,
     and the growth policy (``"grow_policy"``).
-    Bin ids go to the device as uint8 up to ``max_bin=256``, else as
-    uint16; ``max_bin`` past 65,536 raises ``NotImplementedError``
-    (ROADMAP A7)."""
+    Bin ids go to the device as uint8 up to ``max_bin=256``, as uint16
+    up to 65,536, else as int32."""
     from mmlspark_tpu_torch.models.gbdt import host_loop
     from mmlspark_tpu_torch.models.gbdt import step as step_mod
 
@@ -1465,7 +1472,9 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
             has_custom=custom_objective is not None,
             has_groups=group_ids is not None)
         want_ooc = (ooc_mode == "on"
-                    or not fits_in_core(n, num_f, total_bins, dev))
+                    or not fits_in_core(n, num_f, total_bins, dev,
+                                        2 ** max(cfg.effective_depth - 1,
+                                                 0)))
         if want_ooc and ooc_reason is None:
             from mmlspark_tpu_torch.core.serialize import DiskFull
             from mmlspark_tpu_torch.models.gbdt import ooc as ooc_mod

@@ -52,7 +52,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "level_hist": {
         # binned, grad, hess, live, local, local bytes, stats, counts,
         # offsets, order, acc, out, n, f, b, width, f_slice, num_slices,
-        # bin bytes, tile bins, tiles, smem bytes, device, stream
+        # bin bytes (1 uint8, 2 uint16, 4 int32 ids), tile bins, tiles,
+        # smem bytes, device, stream
         "mmls_level_hist": ([_VP] * 5 + [_I] + [_VP] * 6 + [_LL]
                             + [_I] * 10 + [_VP], _I),
         # bin bytes, smem bytes, slices, tiles, device, out: 4 int32 (SMs,
@@ -63,8 +64,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "level_hist_quant": {
         # binned, grad_q, hess_q, live, local, local bytes, stats, counts,
         # offsets, order, acc, out, gscale_inv, hscale_inv, qbits, n, f, b,
-        # width, f_slice, num_slices, bin bytes, tile bins, tiles, smem
-        # bytes, window, device, stream
+        # width, f_slice, num_slices, bin bytes (1, 2, 4 as above), tile
+        # bins, tiles, smem bytes, window, device, stream
         "mmls_level_hist_quant": ([_VP] * 5 + [_I] + [_VP] * 8 + [_I, _LL]
                                   + [_I] * 11 + [_VP], _I),
         # acc, out, gscale_inv, hscale_inv, cells, device, stream
@@ -82,7 +83,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "tree_score": {
-        # x, x code, packed nodes, products, out, init_score, n, f, trees,
+        # x, x code (1, 2, 4: uint8, uint16, int32 ids against 32-bit bin
+        # nodes; 9, 10, 12 the same against wide bin nodes; 5 raw float32
+        # rows), packed nodes, products, out, init_score, n, f, trees,
         # nodes per tree, depth, classes, the plan (regime, rows, CTAs,
         # cluster, chunk, smem bytes, shared), device, stream
         "mmls_tree_score": ([_VP, _I] + [_VP] * 3 + [ctypes.c_float, _LL]

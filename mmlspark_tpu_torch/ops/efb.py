@@ -155,8 +155,8 @@ def _sample_rows(n: int, size: int, seed: int) -> np.ndarray:
 
 def _ids(binned: torch.Tensor, rows=slice(None),
          cols=slice(None)) -> torch.Tensor:
-    """int64 bin ids of ``binned[rows][:, cols]``: uint8 as they are,
-    uint16 through its int16 view (torch indexes no uint16)."""
+    """int64 bin ids of ``binned[rows][:, cols]``: uint8 and int32 as
+    they are, uint16 through its int16 view (torch indexes no uint16)."""
     wide = binned.dtype == torch.uint16
     part = (binned.view(torch.int16) if wide else binned)[rows][:, cols]
     return part.long() & 0xFFFF if wide else part.long()
@@ -288,9 +288,9 @@ def plan_bundles(binned: torch.Tensor, n_bins: int, mode: str = "auto",
 
 
 def apply_plan(binned: torch.Tensor, plan: EFBPlan) -> torch.Tensor:
-    """(N, F) original bins -> (N, n_cols) bundled matrix, a uint8 or
-    uint16 tensor on its own device in the same dtype (bundled codes
-    stay < n_bins): the reference's ``apply_plan``, one pass of torch
+    """(N, F) original bins -> (N, n_cols) bundled matrix, a uint8,
+    uint16 or int32 tensor on its own device in the same dtype (bundled
+    codes stay < n_bins): the reference's ``apply_plan``, one pass of torch
     ops per bundle member. Zero conflicts make member codes disjoint, so
     they add. Ids must lie below ``plan.n_bins``. Makes small
     host-to-device copies (the members' code tables): never call it

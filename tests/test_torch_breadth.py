@@ -199,13 +199,14 @@ def test_plain_quant_histogram_on_uint16_ids_is_jax_bitwise(quant):
 
 
 def test_bin_id_limits_by_dtype():
-    """uint8 ids take at most 256 bins, uint16 at most 65,536; other id
-    types raise before anything runs."""
+    """uint8 ids take at most 256 bins, uint16 at most 65,536 (int32 ids
+    any count: ``tests/test_torch_int32.py``); other id types raise
+    before anything runs."""
     binned, grad, hess, live, local = (torch.from_numpy(a) for a in
                                        _u16_case(64, 2, 300, 2, seed=1))
     hist_cuda.level_histogram(binned, grad, hess, live, local, 2, 2, 65_536)
     for bad, b in ((binned, 65_537), (binned.view(torch.int16), 300),
-                   (binned.to(torch.int32), 300),
+                   (binned.to(torch.int64), 300),
                    (torch.zeros((64, 2), dtype=torch.uint8), 257)):
         with pytest.raises(ValueError):
             hist_cuda.level_histogram(bad, grad, hess, live, local, 2, 2, b)
@@ -534,13 +535,20 @@ def test_wide_bin_fit_on_float_stats_matches(monkeypatch):
                                rtol=1e-5, atol=1e-7)
 
 
-def test_bin_ids_past_uint16_raise():
+def test_bin_ids_past_uint16_raise(monkeypatch):
+    """``max_bin`` past 65,536, which raised before int32 bin ids were
+    ported, trains on int32 ids: the JAX package's fit bit for bit on q8
+    (tests/test_torch_int32.py holds the int32 path at more sizes)."""
     x, y, _ = _data(n=200)
     binned, _ = _binned(x, 63)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        trainer.train(binned, y, trainer.TrainConfig(max_bin=65_537,
-                                                     num_iterations=1),
-                      device="cpu")
+    _knobs(monkeypatch, "q8")
+    got = trainer.train(binned, y, trainer.TrainConfig(max_bin=65_537,
+                                                       num_iterations=1),
+                        device="cpu")
+    want = jax_trainer.train(binned.astype(np.int32), y,
+                             jax_trainer.TrainConfig(max_bin=65_537,
+                                                     num_iterations=1))
+    _assert_boosters_equal(got.booster, want.booster)
     # 65,536 bins is the most uint16 ids hold: it trains
     res = trainer.train(binned, y, trainer.TrainConfig(
         max_bin=65_536, num_iterations=1, max_depth=2, num_leaves=4),

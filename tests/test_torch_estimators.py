@@ -562,33 +562,45 @@ def test_diabetes_l2_matches_sklearn_hgb():
 
 @pytest.mark.parametrize("kind,params,item", [
     # goss, rf, bagging and feature_fraction fit (tests/test_torch_step.py),
-    # and so do extraTrees, featureFractionByNode, monotoneConstraints and
-    # maxBin up to 65,536 (tests/test_torch_breadth.py) and dart
-    # (tests/test_torch_dart.py); beside a setting still outside the port
-    # they raise for that one
+    # and so do extraTrees, featureFractionByNode, monotoneConstraints,
+    # maxBin up to 65,536 (tests/test_torch_breadth.py) and past it
+    # (tests/test_torch_int32.py) and dart (tests/test_torch_dart.py);
+    # beside a setting still outside the port they raise for that one (the
+    # cases that raised for maxBin past 65,536 keep their ids)
     ("LightGBMClassifier", {"boostingType": "goss", "extraTrees": True,
                             "parallelism": "voting_parallel"}, "A8"),
-    ("LightGBMClassifier", {"boostingType": "dart", "maxBin": 70_000}, "A7"),
-    ("LightGBMClassifier", {"featureFraction": 0.5,
-                            "featureFractionByNode": 0.5,
-                            "boostingType": "dart", "maxBin": 70_000}, "A7"),
+    pytest.param("LightGBMClassifier", {
+        "boostingType": "dart", "maxBin": 70_000,
+        "parallelism": "feature_parallel"}, "A8",
+        id="LightGBMClassifier-params1-A7"),
+    pytest.param("LightGBMClassifier", {
+        "featureFraction": 0.5, "featureFractionByNode": 0.5,
+        "boostingType": "dart", "maxBin": 70_000,
+        "parallelism": "voting_parallel"}, "A8",
+        id="LightGBMClassifier-params2-A7"),
     ("LightGBMClassifier", {"featureFractionByNode": 0.5,
                             "boostingType": "dart",
                             "parallelism": "voting_parallel"}, "A8"),
-    ("LightGBMClassifier", {"baggingFraction": 0.5, "baggingFreq": 1,
-                            "boostingType": "dart", "maxBin": 70_000}, "A7"),
+    pytest.param("LightGBMClassifier", {
+        "baggingFraction": 0.5, "baggingFreq": 1, "boostingType": "dart",
+        "maxBin": 70_000, "parallelism": "voting_parallel"}, "A8",
+        id="LightGBMClassifier-params4-A7"),
     ("LightGBMClassifier", {"posBaggingFraction": 0.5,
                             "boostingType": "dart",
                             "parallelism": "feature_parallel"}, "A8"),
-    ("LightGBMClassifier", {"extraTrees": True, "maxBin": 70_000}, "A7"),
+    pytest.param("LightGBMClassifier", {
+        "extraTrees": True, "maxBin": 70_000,
+        "parallelism": "feature_parallel"}, "A8",
+        id="LightGBMClassifier-params6-A7"),
     ("LightGBMClassifier", {"monotoneConstraints": [1, 0, 0, 0, 0, 0],
                             "parallelism": "feature_parallel"}, "A8"),
     ("LightGBMClassifier", {"parallelism": "voting_parallel"}, "A8"),
     ("LightGBMClassifier", {"parallelism": "feature_parallel"}, "A8"),
-    ("LightGBMRegressor", {"passThroughArgs": "bagging_fraction=0.5 "
-                                              "bagging_freq=1 "
-                                              "boosting_type=dart "
-                                              "max_bin=70000"}, "A7"),
+    pytest.param("LightGBMRegressor", {
+        "passThroughArgs": "bagging_fraction=0.5 bagging_freq=1 "
+                           "boosting_type=dart max_bin=70000 "
+                           "tree_learner=voting"}, "A8",
+        id="LightGBMRegressor-params10-A7"),
 ])
 def test_settings_outside_the_slice_raise(kind, params, item):
     x, y_bin, _ = _data(n=300)

@@ -596,7 +596,7 @@ def test_rejects_inputs_the_kernel_does_not_take():
     ok = (binned, grad, hess, live, local, 2, 3, 16)
     H.level_histogram(*ok)
     bad = [
-        (binned.to(torch.int32),) + ok[1:],           # bins not uint8
+        (binned.to(torch.int64),) + ok[1:],           # int64 bins
         ok[:7] + (257,),                               # more than 256 bins
         ok[:6] + (4,) + ok[7:],                        # wrong feature count
         (binned, grad[:-1]) + ok[2:],                  # wrong length

@@ -227,27 +227,31 @@ def test_bin_ids_outside_max_bin_raise(bad):
 @pytest.mark.parametrize("setting", [
     # goss, bagging and feature_fraction train (tests/test_torch_step.py),
     # and so do extra_trees, feature_fraction_by_node, monotone
-    # constraints and max_bin up to 65,536 (tests/test_torch_breadth.py)
-    # and dart (tests/test_torch_dart.py); beside a setting still outside
-    # the port they raise for that one
+    # constraints, max_bin up to 65,536 (tests/test_torch_breadth.py) and
+    # past it (tests/test_torch_int32.py) and dart
+    # (tests/test_torch_dart.py); beside a setting still outside the port
+    # they raise for that one
     {"boosting_type": "goss", "extra_trees": True, "tree_learner": "voting"},
     {"feature_fraction": 0.5, "feature_fraction_by_node": 0.5,
      "boosting_type": "dart", "tree_learner": "voting"},
     {"bagging_fraction": 0.8, "bagging_freq": 1, "boosting_type": "dart",
-     "max_bin": 70_000},
+     "max_bin": 70_000, "tree_learner": "feature"},
     {"monotone_constraints": (1, 0), "boosting_type": "dart",
      "tree_learner": "voting"},
     {"extra_trees": True, "tree_learner": "feature"},
-    {"tree_learner": "voting"}, {"boosting_type": "dart", "max_bin": 70_000},
+    {"tree_learner": "voting"},
+    {"boosting_type": "dart", "max_bin": 70_000, "tree_learner": "voting"},
     {"feature_fraction_by_node": 0.5, "tree_learner": "voting"},
-    # bin ids past 65,536: the reference's int32 ids
-    {"max_bin": 70_000},
+    # bin ids past 65,536 (the reference's int32 ids) train; beside the
+    # feature-parallel learner the fit raises for it
+    {"max_bin": 70_000, "tree_learner": "feature"},
     # multiclass and ndcg train (tests/test_torch_multiclass.py,
     # tests/test_torch_ranking.py); beside a setting still outside the
     # port they raise for that one
     {"objective": "multiclass", "num_class": 3, "extra_trees": True,
      "boosting_type": "dart", "tree_learner": "voting"},
-    {"metric": "ndcg", "boosting_type": "dart", "max_bin": 70_000},
+    {"metric": "ndcg", "boosting_type": "dart", "max_bin": 70_000,
+     "tree_learner": "voting"},
 ])
 def test_settings_outside_the_slice_raise(setting):
     x, y_bin, _ = _data(n=200)

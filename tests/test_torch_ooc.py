@@ -330,8 +330,9 @@ def test_bin_ids_out_of_range_raise(monkeypatch):
 
 def test_auto_threshold_on_and_off(monkeypatch):
     """auto streams exactly when the in-core fit's estimated bytes
-    (``in_core_bytes``) exceed the device's free bytes; on the CPU
-    (no bound) it stays in-core."""
+    (``in_core_bytes``: the rows and the widest level's histogram
+    planes) exceed the device's free bytes; on the CPU (no bound) it
+    stays in-core."""
     _knobs(monkeypatch, "q16")
     x, y = _data(n=2000, f=4)
     binned = BinMapper.fit(x, max_bin=32).transform(x)
@@ -342,10 +343,15 @@ def test_auto_threshold_on_and_off(monkeypatch):
     assert small.hist_stats["ooc"] is False
     assert small.hist_stats["ooc_reason"] == (
         "auto: the in-core fit fits in device memory")
-    need = T.in_core_bytes(2000, 4, 32)
-    assert need == 2000 * (2 * 4 + T.IN_CORE_ROW_BYTES)
-    assert T.in_core_bytes(2000, 4, 1023) == 2000 * (4 * 4
-                                                     + T.IN_CORE_ROW_BYTES)
+    # the rows' bytes and the widest level's histogram planes (max_depth
+    # 3: 4 nodes)
+    need = T.in_core_bytes(2000, 4, 32, 4)
+    assert need == 2000 * (2 * 4 + T.IN_CORE_ROW_BYTES) \
+        + 4 * 4 * 32 * T.HIST_CELL_BYTES
+    assert T.in_core_bytes(2000, 4, 1023) == 2000 * (
+        4 * 4 + T.IN_CORE_ROW_BYTES) + 4 * 1023 * T.HIST_CELL_BYTES
+    assert T.in_core_bytes(2000, 4, 70_000, 4) == 2000 * (
+        8 * 4 + T.IN_CORE_ROW_BYTES) + 4 * 4 * 70_000 * T.HIST_CELL_BYTES
     # a device with exactly the bytes the fit needs keeps it in-core
     monkeypatch.setattr(T, "device_free_bytes", lambda dev: need)
     fits = T.train(binned, y, cfg, device="cpu")

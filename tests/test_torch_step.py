@@ -333,18 +333,27 @@ def test_estimators_fit_every_sampled_setting():
     ({"feature_fraction_by_node": 0.5}, "feature_fraction_by_node"),
     ({"extra_trees": True}, "extra_trees"),
 ])
-def test_dart_and_per_node_sampling_still_raise(setting, item):
-    """dart (tests/test_torch_dart.py) and per-node sampling (``item``,
-    tests/test_torch_breadth.py) train; beside ``max_bin`` past 65,536,
-    still outside the port, dart raises for that (ROADMAP A7)."""
+def test_dart_and_per_node_sampling_still_raise(setting, item, monkeypatch):
+    """dart (tests/test_torch_dart.py) with per-node sampling (``item``,
+    tests/test_torch_breadth.py) at ``max_bin`` past 65,536, which raised
+    before int32 bin ids were ported: it trains, and on q8 with the
+    reference's draws the booster is the JAX package's bit for bit."""
+    from tests.test_torch_breadth import jax_tree_draw
+
     x, y, _ = _data(n=200)
-    binned, _ = _binned(x)
+    mapper = BinMapper.fit(x, max_bin=70_000)
+    binned, upper = mapper.transform(x), mapper.bin_upper_values(70_000)
     assert item == "dart" or item in setting
-    with pytest.raises(NotImplementedError,
-                       match=r"max_bin=70000 .*ROADMAP A7"):
-        trainer.train(binned, y, trainer.TrainConfig(
-            objective="regression", num_iterations=1, max_bin=70_000,
-            **{**setting, "boosting_type": "dart"}), device="cpu")
+    _q8(monkeypatch)
+    monkeypatch.setattr(sampling, "draw", jax_tree_draw(70_000))
+    kw = dict(objective="regression", num_iterations=2, num_leaves=8,
+              max_depth=3, max_bin=70_000,
+              **{**setting, "boosting_type": "dart"})
+    got = trainer.train(binned, y, trainer.TrainConfig(**kw),
+                        bin_upper=upper, device="cpu")
+    want = jax_trainer.train(binned.astype(np.int32), y,
+                             jax_trainer.TrainConfig(**kw), bin_upper=upper)
+    _assert_boosters_equal(got.booster, want.booster)
 
 
 def test_pos_neg_bagging_needs_the_binary_objective():

@@ -8,14 +8,14 @@ Held bit for bit: ``predict_binned_scorer`` (autocast off and bf16),
 ``predict_jit`` at every serving rung, with uint8, uint16 and int32 bin
 ids, tree weights other than 1 (each per-tree add rounded as XLA's fused
 multiply-add, ROADMAP C9) and a three-class booster built from random
-arrays, all through the packed node tables the kernel reads. The packing
-refuses what a word cannot hold, and the wrapper what the kernel does not
-take, before any launch. ``score_plan``'s launch plans are checked for
-their invariants, and a replay of the kernel's loops under each plan (the
-trees of a chunk or a cluster rank, the class passes, the fold order)
-gives the plain version's bits. The kernel itself runs on the card only:
-``chip_smoke.py``'s phase ``kernel_score`` holds it to the plain version
-there.
+arrays, all through the packed node tables the kernel reads. What a
+32-bit node cannot hold packs into wide nodes, and the wrapper refuses
+what the kernel does not take before any launch. ``score_plan``'s launch
+plans are checked for their invariants, and a replay of the kernel's
+loops under each plan (the trees of a chunk or a cluster rank, the class
+passes, the fold order) gives the plain version's bits. The kernel
+itself runs on the card only: ``chip_smoke.py``'s phase ``kernel_score``
+holds it to the plain version there.
 """
 
 import ctypes
@@ -349,8 +349,8 @@ def test_packed_nodes_push_every_leaf_to_the_last_level():
     tb = np.zeros((1, 15), np.int32)
     tb[0, [0, 1, 2, 4]] = [65534, 0, 7, 255]
     nv = np.arange(15, dtype=np.float32)[None] * 0.5
-    nodes, leaf = score_cuda.pack_nodes(sf, tb, nv, 3, raw=False)
-    assert nodes.dtype == np.int32 and nodes.shape == (15,)
+    nodes, leaf, wide = score_cuda.pack_nodes(sf, tb, nv, 3, raw=False)
+    assert nodes.dtype == np.int32 and nodes.shape == (15,) and not wide
     tables = score_cuda.make_tables(
         torch.as_tensor(nodes), torch.as_tensor(leaf), torch.ones(1), 15, 3,
         1, 32768, 0.0)
@@ -381,7 +381,12 @@ def test_packed_raw_nodes_keep_the_float32_threshold():
 
 @pytest.mark.parametrize("case", ["feature_32768", "threshold_65535",
                                   "threshold_65536"])
-def test_packing_refuses_what_a_word_cannot_hold(case, no_launch):
+def test_packing_refuses_what_a_word_cannot_hold(case):
+    """A split feature above 32767 or a threshold above 65534 does not
+    fit a 32-bit bin node: the booster packs wide nodes (int32 feature,
+    int32 threshold) instead and scores bit for bit as the JAX package's
+    binned scorer, ids past 65535 unclamped; a negative threshold, which
+    no bin node holds, is still refused."""
     arrays = _arrays(41, trees=3, depth=3, k=1, max_bin=255)
     if case == "feature_32768":
         arrays["split_feature"][1, 0] = 32768
@@ -389,11 +394,14 @@ def test_packing_refuses_what_a_word_cannot_hold(case, no_launch):
     else:
         arrays["threshold_bin"][2, 0] = int(case.split("_")[1])
     pb = BoosterArrays(**arrays)
-    with pytest.raises(ValueError, match="packed bin node"):
-        pb.predict_binned(np.zeros((2, arrays["num_features"]), np.int32),
-                          device="cpu")
-    with pytest.raises(ValueError, match="packed bin node"):
-        pb.predict_binned_scorer("off", "cpu")
+    tables = pb.predict_binned_scorer("off", "cpu").tables
+    assert tables.wide and tables.route == "wide"
+    assert tuple(tables.nodes.shape) == (3 * 15, 2)
+    x = np.random.default_rng(44).integers(
+        0, 70_000, size=(40, arrays["num_features"])).astype(np.int32)
+    np.testing.assert_array_equal(
+        pb.predict_binned(x, device="cpu").numpy(),
+        np.asarray(JaxBooster(**arrays).predict_binned_jit()(x)))
     with pytest.raises(ValueError, match="packed bin node"):
         score_cuda.pack_nodes(np.array([[0]]), np.array([[-1]]),
                               np.zeros((1, 1), np.float32), 0, raw=False)
@@ -538,14 +546,14 @@ def _rotate(acc, gs):
 
 
 def _replay(x, tables, plan):
-    """The kernel's loops under ``plan`` in scalar Python: which trees a
-    pass or a rank walks (``max_depth`` steps each, bin ids clamped to
-    65535), the order the products are folded in (the rows plan's
-    accumulators rotated as the classes come round), and which rows
-    each CTA writes (once per pass and class; none past N). Decision
-    tables route by the kernel's decision rule, and every walk writes its
-    leaf slot: each (row, tree) once. Returns the scores, and for
-    decision tables the leaf slots."""
+    """The kernel's loops under ``plan`` in scalar Python: which trees a pass
+    or a rank walks (``max_depth`` steps each, bin ids clamped to 65535 against
+    32-bit nodes, unclamped against wide ones), the order the products are
+    folded in (the rows plan's accumulators rotated as the classes come round),
+    and which rows each CTA writes (once per pass and class; none past N).
+    Decision tables route by the kernel's decision rule, and every walk writes
+    its leaf slot: each (row, tree) once. Returns the scores, and for decision
+    tables the leaf slots."""
     unpacked = [v.numpy() for v in score_cuda.unpack_nodes(tables)]
     feat, thr = unpacked[0], unpacked[-2 if tables.decision else 1]
     prod = tables.products.numpy()
@@ -572,6 +580,7 @@ def _replay(x, tables, plan):
                                       tables.bit_words)
             else:
                 left = (np.isnan(v) or v <= th) if tables.raw \
+                    else int(v) <= th if tables.wide \
                     else min(int(v), 65535) <= th
             node = 2 * node + (1 if left else 2)
         if tables.decision:
