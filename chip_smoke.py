@@ -4099,30 +4099,34 @@ def grow_policy(policy):
             os.environ[name] = saved
 
 
-def width1_rows(torch):
+def width1_rows(torch, bins=WIDTH1_BINS, shares=MEMBER_SHARES):
     """``level_hist`` at width 1 with a node's membership as ``live`` (the
-    leaf-wise builder's call) on the bench's 2M x 28 rows, at B = 63
-    (uint8 ids) and B = 1,023 (uint16), for each share of
-    ``MEMBER_SHARES``: bitwise against its plain version on float stats,
-    bitwise between two launches, with event-pair, device, plain and
-    ``index_add_`` times and the bound (the bytes the kernel must move:
-    ``live`` of every row, the member rows' ids, grad, hess and node
-    index, the output; the adds of the member rows)."""
+    leaf-wise builder's call) on the bench's 2M x 28 rows, at each (B, id
+    dtype) of ``bins`` (B = 63 uint8 and B = 1,023 uint16 ids unless
+    given), for each share of ``shares``: bitwise against its plain
+    version on float stats, bitwise between two launches, with
+    event-pair, device, plain and ``index_add_`` times, the bound (the
+    bytes the kernel must move: ``live`` of every row, the member rows'
+    ids, grad, hess and node index, the output; the adds of the member
+    rows) and the launch's grid."""
     from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
     dev = torch.device("cuda")
     rows = []
-    for b, ids in WIDTH1_BINS:
+    make = {"uint8": lambda gen, b: torch.randint(
+                0, b, (N, F), generator=gen, device=dev, dtype=torch.uint8),
+            "uint16": lambda gen, b: u16_ids(torch, gen, N, F, b, dev),
+            "int32": lambda gen, b: i32_ids(torch, gen, N, F, b, dev)}
+    for b, ids in bins:
         gen = torch.Generator(device=dev).manual_seed(b)
-        binned = (torch.randint(0, b, (N, F), generator=gen, device=dev,
-                                dtype=torch.uint8) if ids == "uint8"
-                  else u16_ids(torch, gen, N, F, b, dev))
+        binned = make[ids](gen, b)
         g = torch.randn(N, generator=gen, device=dev)
         h = torch.rand(N, generator=gen, device=dev) * 0.9 + 0.1
         local = torch.zeros(N, dtype=torch.int32, device=dev)
         # each row's node at depth 6 of a random routing: a share of the
         # rows is one node's membership
         u = torch.rand(N, generator=gen, device=dev)
-        for share in MEMBER_SHARES:
+        geometry = H.launch_geometry("f32", F, b, binned.element_size())
+        for share in shares:
             live = (u < share).float()
             args = (binned, g, h, live, local, 1, F, b)
             k1, k2 = H.level_histogram(*args), H.level_histogram(*args)
@@ -4155,7 +4159,8 @@ def width1_rows(torch):
             bytes_ms = (in_bytes + out_bytes) / MEM_BYTES_PER_S * 1e3
             ops_ms = ops / F32_OPS_PER_S * 1e3
             row = {"n": N, "f": F, "b": b, "ids": ids, "width": 1,
-                   "member_share": share, "bitwise": bitwise,
+                   "member_share": share, "geometry": geometry,
+                   "bitwise": bitwise,
                    "repeat_bitwise": repeat, "max_abs_err": err,
                    "kernel_ms": kernel_ms,
                    "kernel_device_ms": kernel_device_ms,
@@ -4993,11 +4998,17 @@ def phase_ooc(ctx):
     return out
 
 
-# int32 bin ids (max_bin past 65,536): the bench's rows at 70,000 and
-# 131,072 bins, and at 131,072 with 90% of each feature's rows in one bin
-# (atomic contention on one cell per feature and node)
-HIST_I32 = (("bench", N, F, 70_000), ("bench", N, F, 131_072),
-            ("skewed", N, F, 131_072))
+# int32 bin ids (max_bin past 65,536): the bench's rows at 65,537 (the
+# fewest bins that take int32 ids), 70,000 and 131,072 bins, and at
+# 131,072 with 90% of each feature's rows in one bin (one cell per feature
+# and node takes most adds); one level at width 128 and B = 70,000 (a
+# deeper tree's); the leaf-wise builder's width-1 call on 2% of the rows
+HIST_I32 = (("bench", N, F, 65_537), ("bench", N, F, 70_000),
+            ("bench", N, F, 131_072), ("skewed", N, F, 131_072))
+I32_WIDE_LEVEL = (("bench", N, F, 70_000),)
+I32_WIDE_WIDTH = 128
+I32_WIDTH1 = ((131_072, "int32"),)
+I32_WIDTH1_SHARES = (0.02,)
 INT32_BINS = 131_072                # the int32 path's max_bin
 # the int32 path's leaf-wise, DART and streamed fits: rows, max_bin, trees
 INT32_SMALL = (200_000, 70_000, 3)
@@ -5005,13 +5016,16 @@ INT32_SMALL = (200_000, 70_000, 3)
 
 def phase_kernel_i32(ctx):
     """The int32-id instances of both histogram kernels (max_bin past
-    65,536; ``level_hist_common.cuh``'s walk) against their plain
-    versions at ``HIST_I32``, every level width, bitwise (the f32 plane on
-    integer and on float stats, q16 at every case and q8 at B =
-    131,072) and between two launches, with event-pair, device, plain
-    and ``index_add_`` times and the byte bound; and the quantized
-    kernel's chunk-merge entry on int32 ids (4 chunks of 262,144 rows, B
-    = 131,072), held as phase ``ooc_path`` holds it."""
+    65,536; ``level_hist_common.cuh``'s tiles of bins over node-ordered
+    columns) against their plain versions at ``HIST_I32``, every level
+    width, bitwise (the f32 plane on integer and on float stats, q16 at
+    every case and q8 at B = 131,072) and between two launches, with
+    event-pair, device, plain and ``index_add_`` times, the byte bound
+    and each launch's grid; one level at width ``I32_WIDE_WIDTH`` (f32
+    and q16) and the width-1 call on 2% of the rows (f32), held alike;
+    and the quantized kernel's chunk-merge entry on int32 ids (4 chunks
+    of 262,144 rows, B = 131,072), held as phase ``ooc_path`` holds
+    it."""
     import torch
 
     from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
@@ -5019,18 +5033,32 @@ def phase_kernel_i32(ctx):
     ctx["hist_i32"] = u16_cases(torch, "f32", HIST_I32, bin_bytes=4)
     ctx["quant_i32"] = {
         "q16": u16_cases(torch, "q16", HIST_I32, bin_bytes=4),
-        "q8": u16_cases(torch, "q8", HIST_I32[1:2], bin_bytes=4)}
+        "q8": u16_cases(torch, "q8", HIST_I32[2:3], bin_bytes=4)}
+    torch.cuda.empty_cache()
+    ctx["i32_wide_level"] = {
+        plane: u16_cases(torch, plane, I32_WIDE_LEVEL,
+                         widths=(I32_WIDE_WIDTH,), bin_bytes=4)
+        for plane in ("f32", "q16")}
+    torch.cuda.empty_cache()
+    ctx["i32_width1"] = width1_rows(torch, I32_WIDTH1, I32_WIDTH1_SHARES)
     torch.cuda.empty_cache()
     ctx["ooc_sums_i32_rows"] = sums_rows(torch, H, "int32", INT32_BINS)
     torch.cuda.empty_cache()
+    times = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
+             "bound_ms")
     return {"widths": list(WIDTHS), "cases": HIST_I32, "all_bitwise": True,
             "f32_per_tree": u16_summary(ctx["hist_i32"]),
             "quant_per_tree": {q: u16_summary(c)
                                for q, c in ctx["quant_i32"].items()},
+            f"level_width_{I32_WIDE_WIDTH}": {
+                plane: u16_summary(c)
+                for plane, c in ctx["i32_wide_level"].items()},
+            "width1_member": [{k: r[k] for k in (
+                "b", "member_share", "geometry", *times)}
+                for r in ctx["i32_width1"]],
             "sums_per_chunk_call": {m: sum(r[m] for r in ctx[
-                "ooc_sums_i32_rows"]) for m in (
-                    "kernel_ms", "kernel_device_ms", "plain_ms",
-                    "library_ms", "bound_ms")},
+                "ooc_sums_i32_rows"]) for m in times},
+            "sums_geometry": H.launch_geometry("quant", F, INT32_BINS, 4),
             "card": ctx["smi"]}
 
 
@@ -6853,6 +6881,14 @@ def kernel_table(ctx):
         ctx["launches"]["int32_path_off"], ctx["hist_i32"]))
     kernels[-1]["launches_int32_path_estimator"] = \
         ctx["launches"]["int32_path_estimator"]
+    # one level of a deeper tree, and the leaf-wise width-1 call on 2% of
+    # the rows, per call
+    kernels[-1][f"at_width_{I32_WIDE_WIDTH}"] = {
+        k: v for k, v in u16_summary(ctx["i32_wide_level"]["f32"])[
+            f"bench_b{I32_WIDE_LEVEL[0][3]}"].items() if k != "geometry"}
+    kernels[-1]["width1_member"] = [{k: r[k] for k in (
+        "b", "member_share", "kernel_ms", "kernel_device_ms", "plain_ms",
+        "library_ms", "bound_ms")} for r in ctx["i32_width1"]]
     for quant in QUANTS:
         kernels.append(i32_kernel(
             f"level_hist_quant[{quant},i32]",

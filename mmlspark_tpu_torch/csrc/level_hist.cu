@@ -86,14 +86,17 @@
 // the launched CTAs take them in turn. The sums stay exact and order-free.
 //
 // Bin ids past 65,536 bins. int32 ids (the reference's ids past uint16)
-// take the walk of level_hist_common.cuh's hist_i32_kernel: one feature's
-// int64 cells no longer fit a CTA, so each (row, feature) pair's three
-// terms go straight into the zeroed int64 sums by 64-bit global atomics,
-// a run of rows in one cell merged in registers first. The partition runs
-// without its scatter (its count pass still writes the float4 stats and
-// the amax, its scan's tail e_c): the walk takes the rows in their own
-// order, so its reads of the ids are coalesced. Same terms, same sums,
-// same one rounding: the same bits as the plain version in any order.
+// take level_hist_common.cuh's int32 histogram: one feature's int64 cells
+// no longer fit a CTA, so after the partition (its scatter too) a gather
+// copies the kept rows' ids into node-ordered columns, with their tile
+// keys and float4 stats beside them, and each CTA item owns one (node,
+// feature, tile of about 9,400 bins), whose int64 cells sit in shared
+// memory as above (split 32-bit words), streams its node's run of its
+// feature's tile keys and adds the pairs in its tile, a run of one cell
+// merged in registers first. Its
+// epilogue dequantizes the tile into `out` once: no int64 plane, no
+// separate dequantization. Same terms, same sums, same one rounding: the
+// same bits as the plain version in any order.
 //
 // What bounds it. Per level the function must read the N x F bin bytes,
 // the three (N,) float32 vectors and the (N,) node ids (int64 on the
@@ -104,7 +107,11 @@
 // below the root a node's rows sit at scattered addresses, so a row costs
 // a 32-byte sector of stats and one or two of bin bytes; and six 32-bit
 // shared atomics per (row, feature), one wavefront each, set the
-// histogram's pace.
+// histogram's pace. On int32 ids the output dominates the bound (at B =
+// 131,072 and width 32 the float32 histogram is 1.41 GB); over it, the
+// gather writes and reads the columns once more, and each of a (node,
+// feature)'s tiles (14 at B = 131,072) reads its run of the column again,
+// from L2 where the tiles' CTAs keep pace.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -485,16 +492,14 @@ level_hist_u16_kernel(const unsigned* __restrict__ ids,     // (n, f) uint16
 }
 
 // 4i. The histogram on int32 ids (see "Bin ids past 65,536 bins" above):
-// level_hist_common.cuh's hist_i32_kernel over this plane's terms, row
-// r's float4 from the partition's count pass (its live in .z, kept where
-// nonzero, as F32Rows keeps it) scaled and rounded by e_c.
-template <typename L>
+// level_hist_common.cuh's hist_i32_kernel over this plane's terms, the
+// float4 of the row at place p of the node order (gathered from the
+// partition's count pass) scaled and rounded by e_c.
 struct F32Terms {
-  const float4* __restrict__ stats;   // (n,) from plan_count
-  const L* __restrict__ local;
+  const float4* __restrict__ stats;    // (kept,) in node order
   const long long* __restrict__ exps;  // (3,) e_c
-  int width;
   double up0, up1, up2;
+  using Stat = float4;
   __device__ F32Terms ready() const {
     F32Terms t = *this;
     t.up0 = pow2(exps[0]);
@@ -502,15 +507,12 @@ struct F32Terms {
     t.up2 = pow2(exps[2]);
     return t;
   }
-  __device__ I32Row row(int64_t r) const {
-    const float4 x = stats[r];
-    const long long w = local[r];
-    I32Row o;
-    o.w = x.z != 0.f && w >= 0 && w < width ? (int)w : -1;
-    o.t0 = term(x.x, up0);
-    o.t1 = term(x.y, up1);
-    o.t2 = term(x.z, up2);
-    return o;
+  __device__ float4 load(int64_t p) const { return __ldg(stats + p); }
+  __device__ void add(const float4& x, long long& s0, long long& s1,
+                      long long& s2) const {
+    s0 += term(x.x, up0);
+    s1 += term(x.y, up1);
+    s2 += term(x.z, up2);
   }
 };
 
@@ -568,27 +570,33 @@ extern "C" {
 // int32 (local_bytes 4) or int64 (8) node ids. Scratch, written here: `stats`
 // (n, 4) float32; `counts` (width + 1) * (ns + nb) int32 for ns = ceil(n /
 // 512) warp segments and nb = ceil(ns / 8) CTAs (the per-warp counts, then the
-// per-CTA places); `offsets` width + 1 int64; `order` n int64 (not written for
-// int32 ids). `acc` holds width * f * b * 3 int64 sums and then 6 int64 (the
+// per-CTA places); `offsets` width + 1 int64; `order` n int64; `wide`, for
+// int32 ids only (else null), hist_cuda.i32_scratch_bytes(n, f, 16) bytes from
+// a 16-byte boundary (I32Scratch: the items' counter, the node-ordered float4
+// stats, the (f, n) int32 columns, their tile keys). `acc` holds width * f * b * 3 int64 sums
+// (none for int32 ids, whose sums stay in shared memory) and then 6 int64 (the
 // channels' amax bits, then e_c), all zero on entry; `out` is the (width, f,
 // b, 3) float32 histogram; the bins go in num_tiles tiles of tile_bins (uint8
-// and int32 ids: one tile, tile_bins = b); `smem` a histogram CTA's dynamic
-// shared memory (hist_cuda.f32_smem_bytes / f32_u16_smem_bytes; unused for
-// int32 ids). width must be below 12288 (the partition's per-warp key
-// counters). Returns the first CUDA error: 0 on success.
+// ids: one tile, tile_bins = b); `smem` a histogram CTA's dynamic shared
+// memory (hist_cuda.f32_smem_bytes / f32_u16_smem_bytes / i32_smem_bytes).
+// width must be below 12288 (the partition's per-warp key counters). Returns
+// the first CUDA error: 0 on success.
 int mmls_level_hist(const void* binned, const void* grad, const void* hess,
                     const void* live, const void* local, int local_bytes,
                     void* stats, void* counts, void* offsets, void* order,
-                    void* acc, void* out, long long n, int f, int b,
-                    int width, int f_slice, int num_slices, int bin_bytes,
-                    int tile_bins, int num_tiles, int smem, int device,
-                    void* stream) {
+                    void* wide, void* acc, void* out, long long n, int f,
+                    int b, int width, int f_slice, int num_slices,
+                    int bin_bytes, int tile_bins, int num_tiles, int smem,
+                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bin_bytes != 1 && bin_bytes != 2 && bin_bytes != 4)
+  const bool i32 = bin_bytes == 4;
+  if ((bin_bytes != 1 && bin_bytes != 2 && !i32) || i32 != (wide != nullptr) ||
+      (i32 && (smem != i32_smem(tile_bins) ||
+               !i32_tiles_ok(b, tile_bins, num_tiles))))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int64_t cells = (int64_t)width * f * b * 3;
+  const int64_t cells = i32 ? 0 : (int64_t)width * f * b * 3;
   unsigned long long* sums = (unsigned long long*)acc;
   unsigned long long* amax_bits = sums + cells;
   long long* exps = (long long*)(sums + cells + 3);
@@ -596,33 +604,31 @@ int mmls_level_hist(const void* binned, const void* grad, const void* hess,
   int* btot = wcounts + plan_wcounts(n, width);
   const F32Rows rows{(const float*)grad, (const float*)hess, (float4*)stats,
                      amax_bits, exps};
-  // int32 ids walk the rows in their own order: no scatter
-  const bool wide = bin_bytes == 4;
 
   if (local_bytes == 8)
     err = plan((const int64_t*)local, (const float*)live, rows, wcounts, btot,
-               (int64_t*)offsets, (int64_t*)order, n, width, s, !wide);
+               (int64_t*)offsets, (int64_t*)order, n, width, s);
   else if (local_bytes == 4)
     err = plan((const int32_t*)local, (const float*)live, rows, wcounts, btot,
-               (int64_t*)offsets, (int64_t*)order, n, width, s, !wide);
+               (int64_t*)offsets, (int64_t*)order, n, width, s);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
 
-  if (wide && local_bytes == 8)
-    err = launch_i32(binned, F32Terms<int64_t>{(const float4*)stats,
-                                               (const int64_t*)local, exps,
-                                               width},
-                     sums, n, f, b, device, s);
-  else if (wide)
-    err = launch_i32(binned, F32Terms<int32_t>{(const float4*)stats,
-                                               (const int32_t*)local, exps,
-                                               width},
-                     sums, n, f, b, device, s);
-  else
-    err = launch_hist(binned, stats, order, offsets, exps, sums, f, b, width,
-                      f_slice, num_slices, bin_bytes, tile_bins, num_tiles,
-                      smem, device, s);
+  if (i32) {
+    const I32Scratch<float4> w(wide, n, f);
+    err = gather_i32(binned, (const float4*)stats, (const int64_t*)order,
+                     (const int64_t*)offsets, w, n, f, width, tile_bins, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_i32(
+        w, F32Terms{w.nstats, exps},
+        DequantOut<InversePow2>{(float*)out, InversePow2{exps}},
+        (const int64_t*)offsets, n, f, b, width, tile_bins, num_tiles, device,
+        s);
+  }
+  err = launch_hist(binned, stats, order, offsets, exps, sums, f, b, width,
+                    f_slice, num_slices, bin_bytes, tile_bins, num_tiles, smem,
+                    device, s);
   if (err != cudaSuccess) return (int)err;
   return (int)level_hist::dequantize((const long long*)sums, (float*)out,
                                      InversePow2{exps}, cells, s);
@@ -640,8 +646,8 @@ int mmls_level_hist_grid(int bin_bytes, int smem, int num_slices,
       ? hist_grid(level_hist_kernel, kThreads, smem, 1, num_slices, num_tiles,
                   device, &g)
       : bin_bytes == 4
-      ? hist_grid(hist_i32_kernel<F32Terms<int64_t>>, kI32Threads, 0, 4, 1,
-                  1, device, &g)
+      ? hist_grid(hist_i32_kernel<F32Terms, DequantOut<InversePow2>>,
+                  kI32Threads, smem, 4, num_slices, num_tiles, device, &g)
       : hist_grid(level_hist_u16_kernel, kThreads, smem, 2, num_slices,
                   num_tiles, device, &g);
   if (err != cudaSuccess) return (int)err;

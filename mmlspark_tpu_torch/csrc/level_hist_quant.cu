@@ -61,13 +61,16 @@
 // only past one feature's limit (about 17,000 bins). The window, the
 // flushes and the one wave are as above.
 //
-// Bin ids past 65,536 bins: int32 ids take level_hist_common.cuh's
-// hist_i32_kernel, each (row, feature) pair's integer quanta added
-// straight into the int64 sums by 64-bit global atomics (a run of rows in
-// one cell merged in registers first); the int32 cells, their window and
-// the partition do not apply, and the walk reads grad_q, hess_q, live and
-// the node ids of each row directly, in row order. With `out` null it
-// adds a chunk into the caller's running sums as the other instances do.
+// Bin ids past 65,536 bins: int32 ids take level_hist_common.cuh's int32
+// histogram after the partition (its scatter too): the kept rows' ids
+// gathered into node-ordered columns with their packed words beside them,
+// each CTA item one (node, feature, tile of bins) whose int64 cells sit in
+// shared memory, its quanta and counts added there (a run of one cell
+// merged in registers first). The one-pass entry dequantizes each tile
+// into `out` in its epilogue, with launch 5's expression (no int64 plane,
+// no separate pass); the chunk-merge entry (`out` null) adds each tile's
+// nonzero sums into the caller's running int64 sums, which the item owns.
+// The int32 cells and their window (below) do not apply there.
 //
 // The int32 window. A cell grows by at most 2^(bits-1) per row, so it holds
 // W = floor((2^31 - 1) / 2^(bits-1)) rows (q16: 65,535; q8: 16,777,215)
@@ -283,16 +286,6 @@ level_hist_quant_kernel(const uint8_t* __restrict__ binned,     // (n, f) row-ma
   }
 }
 
-// The scales of grad and hess (float32 inverse scales on the device); the
-// count channel's is 1.
-struct InverseScales {
-  const float* g;
-  const float* h;
-  __device__ double operator()(int c) const {
-    return c == 0 ? (double)*g : (c == 1 ? (double)*h : 1.0);
-  }
-};
-
 template <typename Q>
 cudaError_t plan_quant(const void* local, int local_bytes, const void* live,
                        const void* grad, const void* hess, unsigned* packed,
@@ -309,43 +302,21 @@ cudaError_t plan_quant(const void* local, int local_bytes, const void* live,
 }
 
 // 4i. The histogram on int32 ids (see "Bin ids past 65,536 bins" above):
-// row r's terms are its quanta and a count of 1 where live > 0 (the gate
-// of QuantRows).
-template <typename Q, typename L>
+// level_hist_common.cuh's hist_i32_kernel over this plane's terms, the
+// quanta of the row at place p of the node order (its packed word,
+// gathered from the partition's count pass) and a count of 1.
 struct QuantTerms {
-  const Q* __restrict__ grad;
-  const Q* __restrict__ hess;
-  const float* __restrict__ live;
-  const L* __restrict__ local;
-  int width;
+  const unsigned* __restrict__ packed;   // (kept,) in node order
+  using Stat = unsigned;
   __device__ QuantTerms ready() const { return *this; }
-  __device__ I32Row row(int64_t r) const {
-    const long long w = local[r];
-    I32Row o;
-    o.w = live[r] > 0.f && w >= 0 && w < width ? (int)w : -1;
-    o.t0 = grad[r];
-    o.t1 = hess[r];
-    o.t2 = 1;
-    return o;
+  __device__ unsigned load(int64_t p) const { return __ldg(packed + p); }
+  __device__ void add(unsigned x, long long& s0, long long& s1,
+                      long long& s2) const {
+    s0 += low_half(x);
+    s1 += high_half(x);
+    s2 += 1;
   }
 };
-
-template <typename Q>
-cudaError_t launch_quant_i32(const void* binned, const void* grad,
-                             const void* hess, const void* live,
-                             const void* local, int local_bytes, void* acc,
-                             int64_t n, int f, int b, int width, int device,
-                             cudaStream_t s) {
-  if (local_bytes == 8)
-    return launch_i32(binned, QuantTerms<Q, int64_t>{
-        (const Q*)grad, (const Q*)hess, (const float*)live,
-        (const int64_t*)local, width}, acc, n, f, b, device, s);
-  if (local_bytes == 4)
-    return launch_i32(binned, QuantTerms<Q, int32_t>{
-        (const Q*)grad, (const Q*)hess, (const float*)live,
-        (const int32_t*)local, width}, acc, n, f, b, device, s);
-  return cudaErrorInvalidValue;
-}
 
 // 4u. The histogram on uint16 ids (see "Bin ids past 256 bins" above):
 // `ids` is the (n, f) uint16 matrix read as 4-byte words; per_tile CTAs
@@ -551,6 +522,16 @@ cudaError_t launch_quant(const void* binned, const void* stats,
   return cudaGetLastError();
 }
 
+// The scales of grad and hess (float32 inverse scales on the device); the
+// count channel's is 1.
+struct InverseScales {
+  const float* g;
+  const float* h;
+  __device__ double operator()(int c) const {
+    return c == 0 ? (double)*g : (c == 1 ? (double)*h : 1.0);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -559,49 +540,51 @@ extern "C" {
 // on `stream` (a cudaStream_t) of device `device`; `qbits` is 16 (int16
 // grad/hess) or 8 (int8); `binned` holds uint8 (bin_bytes 1), uint16 (2, from
 // a 4-byte boundary) or int32 (4) ids; `local` int32 (local_bytes 4) or int64
-// (8) node ids. Scratch, written here (not read for int32 ids, which skip the
-// partition): `stats` n packed uint32; `counts` (width + 1) * (ns + nb) int32
-// for ns = ceil(n / 512) warp segments and nb = ceil(ns / 8) CTAs; `offsets`
-// width + 1 int64; `order` n int64. `acc` holds the width * f * b * 3 int64
+// (8) node ids. Scratch, written here: `stats` n packed uint32; `counts`
+// (width + 1) * (ns + nb) int32 for ns = ceil(n / 512) warp segments and nb =
+// ceil(ns / 8) CTAs; `offsets` width + 1 int64; `order` n int64; `wide`, for
+// int32 ids only (else null), hist_cuda.i32_scratch_bytes(n, f, 4) bytes from
+// a 16-byte boundary (I32Scratch: the items' counter, the node-ordered packed
+// words, the (f, n) int32 columns, their tile keys). `acc` holds the width * f * b * 3 int64
 // sums, in the layout of `out`: the histogram adds into them, so they are zero
 // on entry for one histogram, or a running sum that each call adds a chunk of
 // rows into (integer adds commute, so the sums of the chunks are the one
 // pass's). `out` is the (width, f, b, 3) float32 histogram, dequantized from
 // `acc`; a null `out` skips the dequantization (the scales are then not read:
-// mmls_level_hist_quant_dequantize runs it once the chunks are in); the bins
-// go in num_tiles tiles of tile_bins (uint8 and int32 ids: one tile, tile_bins
-// = b); `smem` a histogram CTA's dynamic shared memory
-// (hist_cuda.quant_smem_bytes / quant_u16_smem_bytes); `window` the rows of
-// one node a CTA's int32 cells take between flushes (hist_cuda.quant_window).
-// width must not pass 12287 (the partition's per-warp key counters), n must be
-// below 2^31. Returns the first CUDA error: 0 on success.
+// mmls_level_hist_quant_dequantize runs it once the chunks are in). On int32
+// ids the sums stay in shared memory: with `out` the histogram writes it
+// directly and `acc` is not read (it may be null), with `out` null it adds
+// its nonzero sums into `acc`. The bins go in num_tiles tiles of tile_bins
+// (uint8 ids: one tile, tile_bins = b); `smem` a histogram CTA's dynamic
+// shared memory (hist_cuda.quant_smem_bytes / quant_u16_smem_bytes /
+// i32_smem_bytes); `window` the rows of one node a CTA's int32 cells take
+// between flushes (hist_cuda.quant_window). width must not pass 12287 (the
+// partition's per-warp key counters), n must be below 2^31. Returns the first
+// CUDA error: 0 on success.
 int mmls_level_hist_quant(const void* binned, const void* grad,
                           const void* hess, const void* live,
                           const void* local, int local_bytes, void* stats,
-                          void* counts, void* offsets, void* order, void* acc,
-                          void* out, const void* gscale_inv,
-                          const void* hscale_inv, int qbits, long long n,
-                          int f, int b, int width, int f_slice,
-                          int num_slices, int bin_bytes, int tile_bins,
-                          int num_tiles, int smem, int window, int device,
-                          void* stream) {
+                          void* counts, void* offsets, void* order,
+                          void* wide, void* acc, void* out,
+                          const void* gscale_inv, const void* hscale_inv,
+                          int qbits, long long n, int f, int b, int width,
+                          int f_slice, int num_slices, int bin_bytes,
+                          int tile_bins, int num_tiles, int smem, int window,
+                          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const bool i32 = bin_bytes == 4;
   if (width > kMaxWidth || window < kChunk ||
-      (bin_bytes != 1 && bin_bytes != 2 && bin_bytes != 4))
+      (bin_bytes != 1 && bin_bytes != 2 && !i32) ||
+      i32 != (wide != nullptr) ||
+      (i32 && (smem != i32_smem(tile_bins) ||
+               !i32_tiles_ok(b, tile_bins, num_tiles))) ||
+      (out == nullptr && acc == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   int* wcounts = (int*)counts;
-  int* btot = bin_bytes == 4 ? nullptr : wcounts + plan_wcounts(n, width);
-  if (bin_bytes == 4)  // int32 ids: no partition, the rows in their order
-    err = qbits == 16 ? launch_quant_i32<int16_t>(binned, grad, hess, live,
-                                                  local, local_bytes, acc, n,
-                                                  f, b, width, device, s)
-        : qbits == 8  ? launch_quant_i32<int8_t>(binned, grad, hess, live,
-                                                 local, local_bytes, acc, n,
-                                                 f, b, width, device, s)
-                      : cudaErrorInvalidValue;
-  else if (qbits == 16)
+  int* btot = wcounts + plan_wcounts(n, width);
+  if (qbits == 16)
     err = plan_quant<int16_t>(local, local_bytes, live, grad, hess,
                               (unsigned*)stats, wcounts, btot,
                               (int64_t*)offsets, (int64_t*)order, n, width, s);
@@ -613,15 +596,28 @@ int mmls_level_hist_quant(const void* binned, const void* grad,
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
 
-  if (bin_bytes != 4)
-    err = launch_quant(binned, stats, order, offsets, acc, f, b, width,
-                       f_slice, num_slices, window, bin_bytes, tile_bins,
-                       num_tiles, smem, device, s);
+  const InverseScales scales{(const float*)gscale_inv,
+                             (const float*)hscale_inv};
+  if (i32) {
+    const I32Scratch<unsigned> w(wide, n, f);
+    err = gather_i32(binned, (const unsigned*)stats, (const int64_t*)order,
+                     (const int64_t*)offsets, w, n, f, width, tile_bins, s);
+    if (err != cudaSuccess) return (int)err;
+    const QuantTerms terms{w.nstats};
+    return (int)(out == nullptr
+        ? launch_i32(w, terms, MergeOut{(long long*)acc},
+                     (const int64_t*)offsets, n, f, b, width, tile_bins,
+                     num_tiles, device, s)
+        : launch_i32(w, terms, DequantOut<InverseScales>{(float*)out, scales},
+                     (const int64_t*)offsets, n, f, b, width, tile_bins,
+                     num_tiles, device, s));
+  }
+  err = launch_quant(binned, stats, order, offsets, acc, f, b, width,
+                     f_slice, num_slices, window, bin_bytes, tile_bins,
+                     num_tiles, smem, device, s);
   if (err != cudaSuccess || out == nullptr) return (int)err;
-  return (int)dequantize(
-      (const long long*)acc, (float*)out,
-      InverseScales{(const float*)gscale_inv, (const float*)hscale_inv},
-      (int64_t)width * f * b * 3, s);
+  return (int)dequantize((const long long*)acc, (float*)out, scales,
+                         (int64_t)width * f * b * 3, s);
 }
 
 // The dequantization of mmls_level_hist_quant alone, on `stream` of
@@ -656,8 +652,8 @@ int mmls_level_hist_quant_grid(int bin_bytes, int smem, int num_slices,
       ? hist_grid(level_hist_quant_kernel, kThreads, smem, 1, num_slices,
                   num_tiles, device, &g)
       : bin_bytes == 4
-      ? hist_grid(hist_i32_kernel<QuantTerms<int16_t, int64_t>>, kI32Threads,
-                  0, 4, 1, 1, device, &g)
+      ? hist_grid(hist_i32_kernel<QuantTerms, DequantOut<InverseScales>>,
+                  kI32Threads, smem, 4, num_slices, num_tiles, device, &g)
       : hist_grid(level_hist_quant_u16_kernel, kThreads, smem, 2, num_slices,
                   num_tiles, device, &g);
   if (err != cudaSuccess) return (int)err;

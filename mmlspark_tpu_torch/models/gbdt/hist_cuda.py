@@ -375,15 +375,65 @@ def f32_u16_smem_bytes(f: int, f_slice: int, tile_bins: int) -> int:
                             + 2 * 8))
 
 
+# int32 ids (``level_hist_common.cuh``: ``hist_i32_kernel``): a cell's
+# three int64 sums as six 32-bit words of shared memory, and a CTA's
+# static shared memory (the warps' staging words, the item index), with
+# room to spare
+I32_CELL_BYTES = 24
+I32_STATIC_SMEM = 4160
+I32_THREADS = 1024        # threads of a CTA (kI32Threads)
+I32_WORDS = 8             # key words (4 places each) a lane loads at once
+
+
+def i32_plan(f: int, b: int):
+    """(features per CTA, slices, bins per tile, tiles) of both kernels'
+    int32 instance (both planes keep int64 cells, so they share it; the
+    uint8 / uint16 plans are :func:`f32_plan` and :func:`quant_plan`):
+    an item is one (node, feature, tile), so a slice is
+    one feature; the bins go in the fewest tiles whose int64 cells
+    (:func:`i32_smem_bytes`) fit one CTA's shared memory, as even as
+    possible (14 tiles of 9,363 bins at B = 131,072; 8 of 8,750 at
+    70,000)."""
+    cap = (SMEM_BYTES - I32_STATIC_SMEM) // I32_CELL_BYTES
+    num_tiles = -(-b // cap)
+    return 1, f, -(-b // num_tiles), num_tiles
+
+
+def i32_smem_bytes(tile_bins: int) -> int:
+    """Dynamic shared memory of one int32-instance CTA: the tile's int64
+    cells, three channels as low and high 32-bit planes."""
+    return I32_CELL_BYTES * tile_bins
+
+
+def i32_key_stride(n: int) -> int:
+    """The stride of the int32 instance's tile-key columns: N rounded up
+    to 16 bytes, so every column starts on a word."""
+    return -(-n // 16) * 16
+
+
+def i32_scratch_bytes(n: int, f: int, stat_bytes: int) -> int:
+    """Bytes of an int32-instance launch's scratch (``level_hist_common.
+    cuh``: ``I32Scratch``): the items' counter (16 bytes), each kept row's
+    stats in node order (``stat_bytes``: a float4 on the float32 plane, a
+    packed word on the quantized one), its ids as (F, N) int32 columns in
+    that order, and each id's tile key as (F, :func:`i32_key_stride`)
+    bytes."""
+    return 16 + n * stat_bytes + f * n * 4 + f * i32_key_stride(n)
+
+
 def launch_grid(sms: int, per_sm: int, num_slices: int, num_tiles: int,
                 bin_bytes: int):
     """(CTAs launched, CTAs per tile of bins) of a histogram launch on
     ``sms`` SMs that hold ``per_sm`` CTAs each (``level_hist_common.cuh``:
     ``hist_grid``). uint8 ids, one tile: a CTA per SM slot, at least one
-    per slice; int32 ids (one slice, one tile) the same. uint16 ids: at
-    most one wave; each tile takes max(slices, floor(wave / tiles)) CTAs,
-    and where those pass a wave the launched CTAs take them in turn."""
+    per slice. uint16 ids: at most one wave; each tile takes max(slices,
+    floor(wave / tiles)) CTAs, and where those pass a wave the launched
+    CTAs take them in turn. int32 ids: at most one wave, whose CTAs take
+    the (node, feature, tile) items in turn (at least slices x tiles of
+    them, at width 1): a CTA per slice (feature) of a tile and node."""
     wave = sms * per_sm
+    if bin_bytes == 4:
+        return min(num_slices * num_tiles, wave), num_slices
     if bin_bytes != 2:
         ctas = max(wave, num_slices)
         return ctas, ctas
@@ -395,11 +445,10 @@ def _kernel_plan(plane: str, f: int, b: int, bin_bytes: int):
     """(features per CTA, slices, bins per tile, tiles, shared memory
     bytes of a CTA) of a histogram launch on ``plane`` ("f32" or
     "quant"). On int32 ids both planes take ``level_hist_common.cuh``'s
-    walk, whose kernel takes none of the plan: warps of a lane per
-    feature over items of 128 rows, the sums in global memory; so one
-    slice of every feature, one tile of every bin, no shared memory."""
+    tiles of bins (:func:`i32_plan`)."""
     if bin_bytes == 4:
-        return f, 1, b, 1, 0
+        plan = i32_plan(f, b)
+        return (*plan, i32_smem_bytes(plan[2]))
     if plane == "f32":
         f_slice, num_slices, tile_bins, num_tiles = f32_plan(f, b, bin_bytes)
         smem = (f32_smem_bytes(f_slice, b) if bin_bytes == 1
@@ -450,15 +499,25 @@ def _check_card_limits(width, n):
                          f"n {n}")
 
 
-def _partition_scratch(n, width, dev, order=True):
+def _partition_scratch(n, width, dev):
     """The partition's scratch (``csrc/level_hist_common.cuh``): its
     counts (per warp segment, then per CTA: at most one CTA per segment),
-    the nodes' offsets and (``order``, else None) the kept rows in node
-    order."""
+    the nodes' offsets and the kept rows in node order."""
     return (torch.empty(2 * (width + 1) * -(-n // PLAN_SEG_ROWS),
                         dtype=torch.int32, device=dev),
             torch.empty(width + 1, dtype=torch.int64, device=dev),
-            torch.empty(n, dtype=torch.int64, device=dev) if order else None)
+            torch.empty(n, dtype=torch.int64, device=dev))
+
+
+def _i32_scratch(binned, stat_bytes):
+    """The int32 instance's scratch (:func:`i32_scratch_bytes`; on a
+    16-byte boundary, as every allocation of the card's caching
+    allocator is), or None for narrower ids."""
+    if binned.element_size() != 4:
+        return None
+    n, f = binned.shape
+    return torch.empty(i32_scratch_bytes(n, f, stat_bytes),
+                       dtype=torch.uint8, device=binned.device)
 
 
 def _launch(binned, grad, hess, live, local, width, f, b):
@@ -469,14 +528,15 @@ def _launch(binned, grad, hess, live, local, width, f, b):
     if n == 0:
         return torch.zeros((width, f, b, 3), dtype=torch.float32, device=dev)
     out = torch.empty((width, f, b, 3), dtype=torch.float32, device=dev)
-    # the int64 sums, then 6 int64 of scratch: the amax bits and e_c
-    acc = torch.zeros(width * f * b * 3 + 6, dtype=torch.int64, device=dev)
+    bin_bytes = binned.element_size()
+    # the int64 sums (none on int32 ids: their tiles' sums stay in shared
+    # memory), then 6 int64 of scratch: the amax bits and e_c
+    cells = 0 if bin_bytes == 4 else width * f * b * 3
+    acc = torch.zeros(cells + 6, dtype=torch.int64, device=dev)
     # per row (grad*live, hess*live, live, 0)
     stats = torch.empty((n, 4), dtype=torch.float32, device=dev)
-    bin_bytes = binned.element_size()
-    # int32 ids run the partition's count and scan only (no order)
-    counts, offsets, order = _partition_scratch(n, width, dev,
-                                                order=bin_bytes != 4)
+    counts, offsets, order = _partition_scratch(n, width, dev)
+    wide = _i32_scratch(binned, 16)
     f_slice, num_slices, tile_bins, num_tiles, smem = _kernel_plan(
         "f32", f, b, bin_bytes)
     binned = _word_aligned(binned)
@@ -484,8 +544,8 @@ def _launch(binned, grad, hess, live, local, width, f, b):
     code = lib.mmls_level_hist(
         binned.data_ptr(), grad.data_ptr(), hess.data_ptr(), live.data_ptr(),
         local.data_ptr(), local.element_size(), stats.data_ptr(),
-        counts.data_ptr(), offsets.data_ptr(),
-        None if order is None else order.data_ptr(),
+        counts.data_ptr(), offsets.data_ptr(), order.data_ptr(),
+        None if wide is None else wide.data_ptr(),
         acc.data_ptr(), out.data_ptr(), n, f, b, width, f_slice, num_slices,
         bin_bytes, tile_bins, num_tiles, smem, dev.index, stream)
     bindings.check(lib, code, "level_hist kernel launch")
@@ -672,20 +732,21 @@ def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
     merge = acc is not None
     if n == 0:
         return torch.zeros((width, f, b, 3), dtype=torch.float32, device=dev)
+    bin_bytes = binned.element_size()
     if merge:
         out, dequant = None, (None, None, None)
     else:
         out = torch.empty((width, f, b, 3), dtype=torch.float32, device=dev)
-        acc = torch.zeros((width, f, b, 3), dtype=torch.int64, device=dev)
+        # int32 ids write the histogram from their tiles' sums in shared
+        # memory: no int64 sums
+        if bin_bytes != 4:
+            acc = torch.zeros((width, f, b, 3), dtype=torch.int64,
+                              device=dev)
         dequant = (out.data_ptr(), gsi.data_ptr(), hsi.data_ptr())
-    bin_bytes = binned.element_size()
-    if bin_bytes == 4:
-        # int32 ids read each row's stats directly: no partition
-        stats = counts = offsets = order = None
-    else:
-        # per row the packed (grad_q, hess_q) word
-        stats = torch.empty(n, dtype=torch.int32, device=dev)
-        counts, offsets, order = _partition_scratch(n, width, dev)
+    # per row the packed (grad_q, hess_q) word
+    stats = torch.empty(n, dtype=torch.int32, device=dev)
+    counts, offsets, order = _partition_scratch(n, width, dev)
+    wide = _i32_scratch(binned, 4)
     f_slice, num_slices, tile_bins, num_tiles, smem = _kernel_plan(
         "quant", f, b, bin_bytes)
     binned = _word_aligned(binned)
@@ -694,10 +755,10 @@ def _launch_quant(binned, grad_q, hess_q, live, local, width, f, b, gsi,
     code = lib.mmls_level_hist_quant(
         binned.data_ptr(), grad_q.data_ptr(), hess_q.data_ptr(),
         live.data_ptr(), local.data_ptr(), local.element_size(),
-        *(None if t is None else t.data_ptr()
-          for t in (stats, counts, offsets, order)),
-        acc.data_ptr(), *dequant, bits, n, f, b, width,
-        f_slice, num_slices, bin_bytes, tile_bins, num_tiles, smem,
+        stats.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+        order.data_ptr(), None if wide is None else wide.data_ptr(),
+        None if acc is None else acc.data_ptr(), *dequant, bits, n, f, b,
+        width, f_slice, num_slices, bin_bytes, tile_bins, num_tiles, smem,
         quant_window(bits), dev.index, stream)
     bindings.check(lib, code, "level_hist_quant kernel launch")
     _count_launch(("hist_quant_sums" if merge else "hist_quant")

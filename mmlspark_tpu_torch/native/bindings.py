@@ -51,10 +51,10 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "level_hist": {
         # binned, grad, hess, live, local, local bytes, stats, counts,
-        # offsets, order, acc, out, n, f, b, width, f_slice, num_slices,
-        # bin bytes (1 uint8, 2 uint16, 4 int32 ids), tile bins, tiles,
-        # smem bytes, device, stream
-        "mmls_level_hist": ([_VP] * 5 + [_I] + [_VP] * 6 + [_LL]
+        # offsets, order, int32 ids' scratch, acc, out, n, f, b, width,
+        # f_slice, num_slices, bin bytes (1 uint8, 2 uint16, 4 int32 ids),
+        # tile bins, tiles, smem bytes, device, stream
+        "mmls_level_hist": ([_VP] * 5 + [_I] + [_VP] * 7 + [_LL]
                             + [_I] * 10 + [_VP], _I),
         # bin bytes, smem bytes, slices, tiles, device, out: 4 int32 (SMs,
         # CTAs per SM, CTAs, CTAs per tile)
@@ -63,10 +63,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "level_hist_quant": {
         # binned, grad_q, hess_q, live, local, local bytes, stats, counts,
-        # offsets, order, acc, out, gscale_inv, hscale_inv, qbits, n, f, b,
-        # width, f_slice, num_slices, bin bytes (1, 2, 4 as above), tile
-        # bins, tiles, smem bytes, window, device, stream
-        "mmls_level_hist_quant": ([_VP] * 5 + [_I] + [_VP] * 8 + [_I, _LL]
+        # offsets, order, int32 ids' scratch, acc, out, gscale_inv,
+        # hscale_inv, qbits, n, f, b, width, f_slice, num_slices, bin bytes
+        # (1, 2, 4 as above), tile bins, tiles, smem bytes, window, device,
+        # stream
+        "mmls_level_hist_quant": ([_VP] * 5 + [_I] + [_VP] * 9 + [_I, _LL]
                                   + [_I] * 11 + [_VP], _I),
         # acc, out, gscale_inv, hscale_inv, cells, device, stream
         "mmls_level_hist_quant_dequantize": ([_VP] * 4 + [_LL, _I, _VP],

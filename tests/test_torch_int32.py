@@ -240,6 +240,317 @@ def test_int32_ids_reach_the_device_as_int32():
             trainer._binned_to_device(bad, B, torch.device("cpu"))
 
 
+# --- the kernels' int32 walk, replayed ----------------------------------------
+#
+# ``csrc/level_hist_common.cuh``'s int32 histogram on numpy: the
+# partition (kept rows in node order), the gather into node-ordered
+# columns with their tile keys, items (node, feature, tile) taken in
+# counter order, each warp's steps of key words, each lane's matched places
+# in bit order with a run of one cell merged in registers, the split-word
+# adds into shared cells, the last runs' warp-wide merge, and the
+# epilogue that writes each cell once (dequantized, or added into the
+# caller's sums where nonzero) and clears it.
+
+def _keep_and_terms(plane, grad, hess, live):
+    """Which rows the plane keeps, and each row's three int64 terms: on
+    the float32 plane ``round(x * 2^e_c)`` of (grad*live, hess*live,
+    live) under the fixed-point exponents of all the rows (the count
+    pass's amax), on the quantized planes (grad_q, hess_q, 1); and the
+    dequantization's scales."""
+    if plane == "f32":
+        data = np.stack([grad * live, hess * live, live], -1)
+        e = hist_cuda.fixed_point_exponents(
+            torch.from_numpy(np.abs(data).max(0) if len(data)
+                             else np.zeros(3, np.float32)), len(data))
+        terms = np.round(data.astype(np.float64)
+                         * hist_cuda.pow2(e).numpy()).astype(np.int64)
+        return live != 0, terms, hist_cuda.pow2(-e).numpy()
+    terms = np.stack([grad.astype(np.int64), hess.astype(np.int64),
+                      np.ones(len(grad), np.int64)], -1)
+    return live > 0, terms, None
+
+
+def _add_cell(lo, hi, bin_, sums):
+    """``add_cell``: per channel the low word's add returns its old value,
+    whose carry joins the high word with the term's high half."""
+    for c, t in enumerate(sums):
+        t = int(t)
+        tl = t & 0xFFFFFFFF
+        old = int(lo[c, bin_])
+        lo[c, bin_] = (old + tl) & 0xFFFFFFFF
+        th = ((t >> 32) + (1 if old + tl > 0xFFFFFFFF else 0)) & 0xFFFFFFFF
+        hi[c, bin_] = (int(hi[c, bin_]) + th) & 0xFFFFFFFF
+
+
+def _take_cells(lo, hi, bt):
+    """The tile's first ``bt`` cells as int64 sums, (bt, 3), cleared."""
+    v = (hi[:, :bt].astype(np.uint64) << np.uint64(32)) | lo[:, :bt]
+    lo[:] = 0
+    hi[:] = 0
+    return v.view(np.int64).T.copy()
+
+
+def _replay_i32(binned, grad, hess, live, local, width, f, b, plane,
+                tile_bins, num_tiles, scales=None, acc=None):
+    """The int32 walk replayed: the (width, F, B, 3) float32 histogram
+    (scales: the quantized planes' (gscale_inv, hscale_inv)), or with
+    ``acc`` the chunk-merge entry adding into it; and per kept (place,
+    feature) pair the times an item added it."""
+    n = len(binned)
+    keep, terms, inv = _keep_and_terms(plane, grad, hess, live)
+    if scales is not None:
+        inv = np.array([np.float32(scales[0]), np.float32(scales[1]), 1.0])
+    # the partition: kept rows stably in node order
+    key = np.where(keep & (local >= 0) & (local < width), local, width)
+    order = np.argsort(key, kind="stable")
+    offsets = np.searchsorted(key[order], np.arange(width + 1))
+    order = order[:offsets[width]]
+    # the gather: node-ordered columns, their tile keys and the stats
+    cols = binned[order].T.astype(np.int64)
+    keys = ((cols & 0xFFFFFFFF) // tile_bins & 255).astype(np.uint8)
+    nterms = terms[order]
+    warps, words = hist_cuda.I32_THREADS // 32, hist_cuda.I32_WORDS
+    step = 32 * words
+    out = None if acc is not None else np.zeros((width, f, b, 3), np.float32)
+    seen = np.zeros((len(order), f), np.int64)
+    lo = np.zeros((3, tile_bins), np.uint32)
+    hi = np.zeros((3, tile_bins), np.uint32)
+    for v in range(width * f * num_tiles):
+        t, wf = v % num_tiles, v // num_tiles
+        w, fl = wf // f, wf % f
+        t0 = t * tile_bins
+        bt = min(tile_bins, b - t0)
+        p0, p1 = int(offsets[w]), int(offsets[w + 1])
+        q0, q1 = p0 >> 2, (p1 + 3) >> 2
+        cur = np.full(warps * 32, -1)
+        run = np.zeros((warps * 32, 3), np.int64)
+        for warp in range(warps):
+            for qb in range(q0 + warp * step, q1, warps * step):
+                for lane in range(32):
+                    i = warp * 32 + lane
+                    places = [4 * q + j
+                              for q in range(qb + lane, qb + step, 32)
+                              if q < q1 for j in range(4)
+                              if p0 <= 4 * q + j < p1
+                              and keys[fl, 4 * q + j] == t & 255]
+                    for p in places:
+                        bin_ = (int(cols[fl, p]) - t0) & 0xFFFFFFFF
+                        if bin_ >= bt:
+                            continue
+                        seen[p, fl] += 1
+                        if bin_ != cur[i]:
+                            if cur[i] >= 0:
+                                _add_cell(lo, hi, cur[i], run[i])
+                            cur[i], run[i] = bin_, 0
+                        run[i] += nterms[p]
+            lanes = slice(warp * 32, warp * 32 + 32)
+            if (cur[lanes] == cur[warp * 32]).all():
+                if cur[warp * 32] >= 0:
+                    _add_cell(lo, hi, cur[warp * 32], run[lanes].sum(0))
+            else:
+                for i in range(warp * 32, warp * 32 + 32):
+                    if cur[i] >= 0:
+                        _add_cell(lo, hi, cur[i], run[i])
+        sums = _take_cells(lo, hi, bt)
+        if acc is None:
+            out[w, fl, t0:t0 + bt] = (sums.astype(np.float64)
+                                      * inv).astype(np.float32)
+        else:
+            touched = (sums != 0).any(1)
+            acc[w, fl, t0:t0 + bt][touched] += sums[touched]
+    # every kept pair once, in its own tile's item
+    np.testing.assert_array_equal(seen, (cols.T >= 0) & (cols.T < b))
+    return out
+
+
+def _i32_case(n, f, b, width, seed, skew=0.0, member=None):
+    rng = np.random.default_rng(seed)
+    binned = rng.integers(0, b, size=(n, f)).astype(np.int32)
+    if skew:
+        default = rng.integers(0, b, size=f)
+        binned = np.where(rng.random((n, f)) < skew, default, binned
+                          ).astype(np.int32)
+    binned[:2] = b - 1                             # the top bin is used
+    grad = rng.integers(-8, 9, size=n).astype(np.float32)
+    hess = rng.integers(1, 9, size=n).astype(np.float32)
+    live = (rng.random(n) < 0.9).astype(np.float32)
+    if member is not None:                         # one node's membership
+        live = (rng.random(n) < member).astype(np.float32)
+    local = rng.integers(0, width, size=n).astype(np.int32)
+    if width > 2:
+        local[local == 1] = 0                      # node 1 is empty
+    return binned, grad, hess, live, local
+
+
+I32_WALKS = {
+    # several tiles per feature, the last short (70,000 = 17 x 4,096 + 368)
+    "tiles": dict(n=1500, f=3, b=70_000, width=4, tile_bins=4096),
+    # the card's plan at 131,072 bins (14 tiles of 9,363), an empty node
+    "card_plan": dict(n=2000, f=2, b=131_072, width=8, tile_bins=None),
+    # the fewest bins that take int32 ids
+    "b65537": dict(n=900, f=2, b=65_537, width=2, tile_bins=None),
+    # the leaf-wise builder's width-1 call on 2% of the rows
+    "width1_member": dict(n=3000, f=4, b=131_072, width=1, tile_bins=9000,
+                          member=0.02),
+    # 90% of each feature's rows in one bin
+    "skewed": dict(n=2500, f=3, b=100_003, width=4, tile_bins=5000,
+                   skew=0.9),
+}
+
+
+def _walk_args(case, seed):
+    c = dict(I32_WALKS[case])
+    tile_bins = c.pop("tile_bins")
+    arrays = _i32_case(c["n"], c["f"], c["b"], c["width"], seed,
+                       skew=c.get("skew", 0.0), member=c.get("member"))
+    if tile_bins is None:
+        _, _, tile_bins, num_tiles = hist_cuda.i32_plan(c["f"], c["b"])
+    else:
+        num_tiles = -(-c["b"] // tile_bins)
+    return arrays, c["width"], c["f"], c["b"], tile_bins, num_tiles
+
+
+@pytest.mark.parametrize("case", sorted(I32_WALKS))
+def test_int32_walk_replay_is_the_plain_and_jax_f32_histogram(case):
+    """The float32 plane's int32 walk, replayed: bitwise the port's plain
+    version on integer and on float stats, and the JAX package's
+    histogram on integer stats (sums exact in float32)."""
+    (binned, grad, hess, live, local), width, f, b, tile_bins, num_tiles = \
+        _walk_args(case, seed=11)
+    got = _replay_i32(binned, grad, hess, live, local, width, f, b, "f32",
+                      tile_bins, num_tiles)
+    t = [torch.from_numpy(a) for a in (binned, grad, hess, live, local)]
+    np.testing.assert_array_equal(got, hist_cuda.level_histogram_reference(
+        *t, width, f, b).numpy())
+    want = jax_trainer._level_histogram(
+        *(jnp.asarray(a) for a in (binned, grad, hess, live, local)), width,
+        f, b)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    rng = np.random.default_rng(12)
+    gf = rng.normal(size=len(grad)).astype(np.float32)
+    hf = rng.uniform(0.1, 1.0, size=len(grad)).astype(np.float32)
+    got = _replay_i32(binned, gf, hf, live, local, width, f, b, "f32",
+                      tile_bins, num_tiles)
+    np.testing.assert_array_equal(got, hist_cuda.level_histogram_reference(
+        t[0], torch.from_numpy(gf), torch.from_numpy(hf), *t[3:], width, f,
+        b).numpy())
+
+
+@pytest.mark.parametrize("plane", ["q16", "q8"])
+@pytest.mark.parametrize("case", sorted(I32_WALKS))
+def test_int32_walk_replay_is_the_plain_and_jax_quant_histogram(case, plane):
+    """The quantized planes' int32 walk, replayed: bitwise the port's
+    plain version and the JAX package's ``per_feature`` histogram, and
+    chunk by chunk through the merge entry's epilogue the one pass's
+    sums."""
+    (binned, _, _, live, local), width, f, b, tile_bins, num_tiles = \
+        _walk_args(case, seed=13)
+    dtype = np.int16 if plane == "q16" else np.int8
+    lim = np.iinfo(dtype)
+    rng = np.random.default_rng(14)
+    gq = rng.integers(lim.min, lim.max + 1, size=len(live)).astype(dtype)
+    hq = rng.integers(0, lim.max + 1, size=len(live)).astype(dtype)
+    scales = (2.0 ** -11, 2.0 ** -7)
+    arrays = (binned, gq, hq, live, local)
+    got = _replay_i32(*arrays, width, f, b, plane, tile_bins, num_tiles,
+                      scales=scales)
+    t = [torch.from_numpy(a) for a in arrays]
+    np.testing.assert_array_equal(got, hist_cuda.level_histogram_quant(
+        *t, width, f, b, *scales).numpy())
+    want = jax_trainer._level_histogram_quant(
+        *(jnp.asarray(a) for a in arrays), width, f, b,
+        jnp.float32(scales[0]), jnp.float32(scales[1]),
+        formulation="per_feature")
+    np.testing.assert_array_equal(got, np.asarray(want))
+    acc = np.zeros((width, f, b, 3), np.int64)
+    step = -(-len(live) // 3)
+    for s in range(0, len(live), step):
+        _replay_i32(*(a[s:s + step] for a in arrays), width, f, b, plane,
+                    tile_bins, num_tiles, acc=acc)
+    np.testing.assert_array_equal(
+        acc, hist_cuda.level_histogram_quant_sums_reference(
+            *t, width, f, b).numpy())
+    np.testing.assert_array_equal(
+        hist_cuda.dequantize_sums(torch.from_numpy(acc), *scales).numpy(),
+        got)
+
+
+@pytest.mark.parametrize("f,b", [(28, 65_537), (28, 70_000), (28, 131_072),
+                                 (28, 2 ** 20), (1, 65_537), (136, 100_003)])
+def test_int32_plans_cover_every_bin_once_and_fit(f, b):
+    """On int32 ids both kernels take one feature per item and the fewest
+    tiles of bins whose int64 cells fit one CTA's shared memory beside
+    its static words (232,448 bytes in all), as even as possible: every
+    bin in exactly one tile, none empty; one tile fewer would not fit;
+    the tiles' keys (their index's low byte) tell the tiles of one
+    feature apart."""
+    f_slice, num_slices, tile_bins, num_tiles = hist_cuda.i32_plan(f, b)
+    assert (f_slice, num_slices) == (1, f)
+    covered = np.zeros(b, np.int64)
+    for t in range(num_tiles):
+        t0 = t * tile_bins
+        assert t0 < b                                  # no tile is empty
+        covered[t0:min(b, t0 + tile_bins)] += 1
+    assert (covered == 1).all()
+    assert tile_bins - (b - (num_tiles - 1) * tile_bins) < num_tiles
+    smem = hist_cuda.i32_smem_bytes(tile_bins)
+    assert smem + hist_cuda.I32_STATIC_SMEM <= hist_cuda.SMEM_BYTES
+    assert hist_cuda.i32_smem_bytes(-(-b // (num_tiles - 1))) \
+        + hist_cuda.I32_STATIC_SMEM > hist_cuda.SMEM_BYTES
+    assert num_tiles <= 256
+    assert hist_cuda._kernel_plan("f32", f, b, 4) == \
+        hist_cuda._kernel_plan("quant", f, b, 4) == \
+        (1, f, tile_bins, num_tiles, smem)
+    want = {65_537: (9363, 7), 70_000: (8750, 8), 131_072: (9363, 14)}
+    if f == 28 and b in want:
+        assert hist_cuda.i32_plan(f, b)[2:] == want[b]
+
+
+@pytest.mark.parametrize("per_sm", [1, 2])
+@pytest.mark.parametrize("f,b", [(28, 65_537), (28, 131_072), (1, 65_537),
+                                 (2, 70_000), (136, 2 ** 20)])
+def test_int32_grid_is_at_most_one_wave_of_items(f, b, per_sm):
+    """The int32 grid (``launch_grid``, ``hist_grid``'s mirror): at most
+    one wave, and no more CTAs than a width-1 level has items, so every
+    launched CTA takes one; a CTA per feature of a tile and node."""
+    _, num_slices, _, num_tiles = hist_cuda.i32_plan(f, b)
+    ctas, per_tile = hist_cuda.launch_grid(132, per_sm, num_slices,
+                                           num_tiles, 4)
+    assert ctas == min(132 * per_sm, f * num_tiles)
+    assert per_tile == num_slices == f
+
+
+@pytest.mark.parametrize("n,f", [(1, 1), (15, 3), (16, 28), (2_000_000, 28),
+                                 (1001, 7)])
+def test_int32_scratch_holds_the_columns_and_their_keys(n, f):
+    """The int32 scratch: the counter, the node-ordered stats, the (F, N)
+    id columns and the (F, stride) key columns, each key column on a
+    word (the walk reads the keys four at a time)."""
+    stride = hist_cuda.i32_key_stride(n)
+    assert stride % 16 == 0 and n <= stride < n + 16
+    for stat_bytes in (16, 4):
+        want = 16 + n * stat_bytes + 4 * f * n + f * stride
+        assert hist_cuda.i32_scratch_bytes(n, f, stat_bytes) == want
+        assert (16 + n * stat_bytes + 4 * f * n) % 4 == 0
+
+
+def test_int32_ids_reach_the_plain_versions_only_on_the_cpu():
+    """An int32 histogram on the CPU is the plain version's; no launch
+    counter moves (the kernels run only on the card)."""
+    t = [torch.from_numpy(a) for a in _i32_case(300, 3, B, 2, seed=15)]
+    names = [k for k in vars(hist_cuda) if k.endswith("_launches")
+             and isinstance(getattr(hist_cuda, k), int)]
+    before = {k: getattr(hist_cuda, k) for k in names}
+    assert torch.equal(hist_cuda.level_histogram(*t, 2, 3, B),
+                       hist_cuda.level_histogram_reference(*t, 2, 3, B))
+    q = (t[1].to(torch.int16), t[2].to(torch.int16))
+    acc = torch.zeros((2, 3, B, 3), dtype=torch.int64)
+    hist_cuda.level_histogram_quant_sums(t[0], *q, *t[3:], 2, 3, B, acc)
+    assert torch.equal(acc, hist_cuda.level_histogram_quant_sums_reference(
+        t[0], *q, *t[3:], 2, 3, B))
+    assert before == {k: getattr(hist_cuda, k) for k in names}
+
+
 # --- train on int32 ids ------------------------------------------------------
 
 @pytest.mark.parametrize("sub", ["0", "1"])

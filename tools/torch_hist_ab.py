@@ -11,8 +11,9 @@ process of its own that imports ``mmlspark_tpu_torch`` from its root
 versions of the kernel are compared on one card within one call. Each
 process times the plane's histogram at the HIGGS bench shape
 (N=2,000,000, F=28, B=255, 90% live rows; ``--bins`` and ``--features``
-set B and F, and past 256 bins the ids are uint16, the kernels' uint16
-instances) for every level width of a
+set B and F: past 256 bins the ids are uint16, the kernels' uint16
+instances, and past 65,536 bins int32, their int32 instances) for every
+level width of a
 depth-6 tree: ``hist_cuda.level_histogram`` on float32 stats (``f32``,
 the default; the inputs of ``chip_smoke.py``'s phase ``kernel``) or
 ``hist_cuda.level_histogram_quant`` on int16 (``q16``) or int8 (``q8``)
@@ -42,14 +43,17 @@ PLANES = {"f32": None, "q16": ("int16", 32000), "q8": ("int8", 120)}
 
 
 def bin_ids(torch, gen, n, f, b, dev):
-    """(n, f) uniform bin ids in [0, b): uint8 up to 256 bins, else uint16
-    (made as int32, which randint takes, narrowed through int16's
-    bits)."""
+    """(n, f) uniform bin ids in [0, b): uint8 up to 256 bins, uint16 up
+    to 65,536 (made as int32, which randint takes, narrowed through
+    int16's bits), int32 past that."""
     if b <= 256:
         return torch.randint(0, b, (n, f), generator=gen, device=dev,
                              dtype=torch.uint8)
-    return torch.randint(0, b, (n, f), generator=gen, device=dev,
-                         dtype=torch.int32).to(torch.int16).view(torch.uint16)
+    ids = torch.randint(0, b, (n, f), generator=gen, device=dev,
+                        dtype=torch.int32)
+    if b > 65_536:
+        return ids
+    return ids.to(torch.int16).view(torch.uint16)
 
 
 def measure(root, plane, F, B):
