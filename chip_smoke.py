@@ -352,7 +352,23 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      ``serving.worker_kill`` death restarted by the supervisor (two
      workers serve); a hedging ``FleetClient`` ejects a worker with
      ``gray_delay_ms`` set, replies bitwise; ``drain`` with 16 accepted
-     requests returns True, each replied bitwise.
+     requests returns True, each replied bitwise;
+ 21. multi-device GBDT (``dist_gbdt_path``, after phase 12): the float32
+     kernel's sums entries (amax, int64 sums into an accumulator, one
+     rounding) against their plain versions at 2M x 28 with B = 255
+     (every width, timed, the int64 ``index_add_`` beside), 1,023 and
+     131,072 — the sums of uneven shards (1M + 1M, 1.5M + 0.5M) bitwise
+     one pass's, the rounded sums bitwise the one-call entry's; on a
+     one-rank NCCL mesh the bench fit under the data, voting (top_k 28)
+     and feature learners, each bitwise the serial uncaptured fit, the
+     sums entries' launches counted over them, and a meshed
+     ``LightGBMClassifier`` fit and ``transform`` bitwise the unmeshed
+     model's; two gloo ranks on this card (``--dist-rank``) fitting the
+     data and data_sharded learners, each rank bitwise the serial fit and
+     its histogram bytes ``hist_reduction_bytes``; each fit's warm wall
+     (the median of 3 after an untimed first run) against the serial
+     uncaptured fit's, timed beside it in the same loop, and a level's
+     all-reduce time over NCCL and over gloo.
 
 Each phase prints one JSON line. Any failure exits non-zero and prints
 no result. Without a CUDA card it exits 2 at once. The last lines are
@@ -364,6 +380,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -6704,6 +6721,415 @@ def phase_attention_dist(ctx):
     return out
 
 
+# --- multi-device GBDT (parallel_modes.py) -----------------------------------
+
+# the float32 kernel's sums entries: the bench shape's every width (timed),
+# B = 1,023 (uint16 ids) and B = 131,072 (int32 ids) at two widths; each
+# case's rows also summed as uneven shards (1M + 1M, 1.5M + 0.5M)
+DIST_SUMS_CASES = (("bench", 255, WIDTHS), ("b1023", 1023, (1, 32)),
+                   ("b131072", 131_072, (1, 4)))
+DIST_SPLITS = (N // 2, 3 * N // 4)
+DIST_TOPK = 28
+DIST_WORLD = 2
+DIST_RANK_TIMEOUT_S = 300
+# timed repeats of each fit after its first (untimed, counted) run; each
+# repeat times the serial uncaptured fit beside the meshed ones
+DIST_REPS = 3
+
+
+def fit_wall(torch, fit):
+    """(result, wall seconds) of ``fit()``, the card synchronized on both
+    sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fit()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def dist_ids(torch, gen, b, dev):
+    if b <= 256:
+        return torch.randint(0, b, (N, F), generator=gen, device=dev,
+                             dtype=torch.uint8)
+    return (u16_ids if b <= 65_536 else i32_ids)(torch, gen, N, F, b, dev)
+
+
+def dist_sums_rows(torch):
+    """One row per (case, width) of the sums entries against their plain
+    versions: the amax entry's maxima, the sums entry's int64 sums (bitwise
+    the plain ``index_add_`` sums, and the sums of the rows as uneven
+    shards bitwise the whole rows'), the rounding entry bitwise the
+    one-call entry's histogram; with the times of the three entries (an
+    event pair per call, and device time), the plain versions and an int64
+    ``index_add_`` of the same sums, and the sums entry's bound."""
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    gf = torch.randn(N, generator=gen, device=dev)
+    hf = torch.rand(N, generator=gen, device=dev) * 0.9 + 0.1
+    live = (torch.rand(N, generator=gen, device=dev) < 0.9).float()
+    rows = []
+    for case, b, widths in DIST_SUMS_CASES:
+        binned = dist_ids(torch, gen, b, dev)
+        for width in widths:
+            local = torch.randint(0, width, (N,), generator=gen, device=dev)
+            args = (width, F, b)
+            amax = H.level_histogram_amax(gf, hf, live)
+            amax_ok = bool(torch.equal(
+                amax, H.level_histogram_amax_reference(gf, hf, live)))
+            exps = H.fixed_point_exponents(amax, N)
+
+            def sums(lo=0, hi=N, acc=None):
+                acc = acc if acc is not None else torch.zeros(
+                    (width, F, b, 3), dtype=torch.int64, device=dev)
+                return H.level_histogram_sums(
+                    binned[lo:hi], gf[lo:hi], hf[lo:hi], live[lo:hi],
+                    local[lo:hi], *args, exps, acc)
+
+            whole = sums()
+            plain = H.level_histogram_sums_reference(binned, gf, hf, live,
+                                                     local, *args, exps)
+            split_ok = True
+            for cut in DIST_SPLITS:
+                acc = sums(0, cut)
+                split_ok &= bool(torch.equal(sums(cut, N, acc), whole))
+                # the shard's own maxima and count: one shard's rows
+                sub = H.level_histogram_amax(gf[:cut], hf[:cut], live[:cut])
+                split_ok &= bool((sub <= amax).all())
+            rounded = H.fixed_point_round(whole, exps)
+            one_call = H.level_histogram(binned, gf, hf, live, local, *args)
+            row = {"case": case, "b": b, "width": width,
+                   "amax_bitwise": amax_ok,
+                   "sums_bitwise_plain": bool(torch.equal(whole, plain)),
+                   "uneven_shards_bitwise": split_ok,
+                   "round_bitwise_one_call": bool(torch.equal(
+                       rounded.view(torch.int32), one_call.view(torch.int32))),
+                   "max_abs_err": float((rounded - one_call).abs().max())}
+            del plain, one_call
+            acc = torch.zeros((width, F, b, 3), dtype=torch.int64, device=dev)
+            row["sums_ms"] = time_ms(torch, lambda: sums(acc=acc), reps=5,
+                                     warmup=1)
+            row["sums_device_ms"] = device_ms(torch, lambda: sums(acc=acc),
+                                              reps=5, warmup=1, batches=2)
+            row["amax_ms"] = time_ms(torch, lambda: H.level_histogram_amax(
+                gf, hf, live), reps=5, warmup=1)
+            row["round_ms"] = time_ms(torch, lambda: H.fixed_point_round(
+                whole, exps), reps=5, warmup=1)
+            row["round_device_ms"] = device_ms(
+                torch, lambda: H.fixed_point_round(whole, exps), reps=5,
+                warmup=1, batches=2)
+            if case == "bench":
+                row["plain_ms"] = time_ms(
+                    torch, lambda: H.level_histogram_sums_reference(
+                        binned, gf, hf, live, local, *args, exps), reps=3,
+                    warmup=1)
+                idx = H.flat_index(binned, local, F, b)
+                terms = torch.round(torch.stack([gf * live, hf * live, live],
+                                                -1).double()
+                                    * H.pow2(exps)).long()
+                src = terms[:, None, :].expand(N, F, 3).reshape(-1, 3)
+                flat = acc.view(-1, 3)
+                row["library_ms"] = time_ms(
+                    torch, lambda: flat.index_add_(0, idx, src), reps=3,
+                    warmup=1)
+                del idx, src, terms
+            # the sums entry's function: the inputs once, the accumulator
+            # read and written; three adds per kept (row, feature)
+            in_bytes = sum(t.numel() * t.element_size()
+                           for t in (binned, gf, hf, live, local))
+            acc_bytes = 2 * width * F * b * 3 * 8
+            ops = 3 * F * int(live.sum().item())
+            bytes_ms = (in_bytes + acc_bytes) / MEM_BYTES_PER_S * 1e3
+            ops_ms = ops / F32_OPS_PER_S * 1e3
+            row.update(bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms
+                       else "operations")
+            del acc, whole, rounded
+            emit({"phase": "dist_sums_vs_plain", **row})
+            rows.append(row)
+            if not (row["amax_bitwise"] and row["sums_bitwise_plain"]
+                    and row["uneven_shards_bitwise"]
+                    and row["round_bitwise_one_call"]):
+                raise AssertionError(f"the sums entries disagree: {row}")
+    return rows
+
+
+def collective_ms(torch, mesh, reps=5):
+    """Per level width, the median wall ms of one all-reduce of the
+    level's int64 sums (28 features, 255 bins) over the mesh's ``dp``
+    axis, synchronized."""
+    from mmlspark_tpu_torch.parallel import mesh as M
+    out = {}
+    for width in WIDTHS:
+        acc = torch.ones((width, F, B, 3), dtype=torch.int64, device="cuda")
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            M.all_reduce(mesh, acc, tag="timing")
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[width] = float(np.median(times[1:]))
+    return out
+
+
+def dist_fit_record(r, first_s, serial):
+    return {"first_wall_s": first_s,
+            "bitwise_serial": boosters_equal(r.booster, serial.booster),
+            "differing": arrays_differing(r.booster, serial.booster),
+            "hist_stats": r.hist_stats, "trees": r.booster.num_trees}
+
+
+def add_walls(rec, walls, serial_walls):
+    """``rec`` with the warm walls of its fit and of the serial
+    uncaptured fit timed beside them: each run and the medians."""
+    wall, serial_s = float(np.median(walls)), float(np.median(serial_walls))
+    rec.update(walls_s=walls, wall_s=wall, serial_uncaptured_walls_s=
+               serial_walls, serial_uncaptured_s=serial_s,
+               wall_over_serial=wall / serial_s)
+    return rec
+
+
+def dist_rank_main(rank, world, store, data_dir):
+    """One gloo rank of phase ``dist_gbdt_path`` on ``cuda:0``: the data
+    and data_sharded fits of the bench rows, their histogram bytes and
+    launches (first fit), their warm walls beside rank 0's serial
+    uncaptured fit, and each level's all-reduce time; each rank writes
+    them."""
+    import dataclasses as dc
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from mmlspark_tpu_torch import train
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.parallel import mesh as M
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=120))
+    try:
+        with open(os.path.join(data_dir, "inputs.pkl"), "rb") as fh:
+            binned, y, bin_upper, cfg = pickle.load(fh)
+        mesh = M.create_mesh()
+        out = {"collective_ms_per_level": collective_ms(torch, mesh)}
+        modes = (("data", "off"), ("data_sharded", "on"))
+
+        def fit(shard):
+            os.environ["MMLSPARK_TORCH_HIST_SHARD"] = shard
+            return train(binned, y, dc.replace(cfg), bin_upper=bin_upper,
+                         mesh=mesh)
+
+        # each mode's first fit: counted, its bytes and trees kept
+        for mode, shard in modes:
+            before = mesh.bytes.get("hist", 0)
+            H.hist_sums_kernel_launches = 0
+            r, first_s = fit_wall(torch, lambda: fit(shard))
+            out[mode] = {"first_wall_s": first_s, "walls_s": [],
+                         "booster": r.booster, "hist_stats": r.hist_stats,
+                         "hist_bytes": mesh.bytes.get("hist", 0) - before,
+                         "sums_launches": H.hist_sums_kernel_launches,
+                         "repeats_bitwise": True}
+        # then warm: rank 0's serial uncaptured fit (the others wait at
+        # the barrier) beside each mode's fit, DIST_REPS times
+        out["serial_uncaptured_walls_s"] = []
+        for _ in range(DIST_REPS):
+            dist.barrier()
+            if rank == 0:
+                _, wall = fit_wall(torch, lambda: train(
+                    binned, y, cfg, bin_upper=bin_upper, capture=False))
+                out["serial_uncaptured_walls_s"].append(wall)
+            dist.barrier()
+            for mode, shard in modes:
+                r, wall = fit_wall(torch, lambda: fit(shard))
+                out[mode]["walls_s"].append(wall)
+                out[mode]["repeats_bitwise"] &= boosters_equal(
+                    r.booster, out[mode]["booster"])
+        out["bytes"] = dict(mesh.bytes)
+        with open(os.path.join(data_dir, f"rank{rank}.pkl"), "wb") as fh:
+            pickle.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist_gbdt(ctx):
+    """Multi-device GBDT at the main path's full width (the 2M x 28 bench
+    fit, 20 trees, 63 leaves, depth 6): the sums entries of the float32
+    kernel against their plain versions (``dist_sums_rows``); on a
+    one-rank NCCL mesh the data, voting (top_k 28) and feature learners
+    and a meshed ``LightGBMClassifier`` fit and transform, each bitwise
+    the serial uncaptured fit (the estimator: the unmeshed model's
+    scores), the sums entry's launches counted over them; two gloo ranks
+    on this card (NCCL refuses two ranks on one device) fitting data and
+    data_sharded, each rank's trees bitwise the serial fit's and its
+    histogram bytes ``hist_reduction_bytes``; each fit's warm wall
+    (median of ``DIST_REPS`` after its first, counted run) against the
+    serial uncaptured fit's, timed beside it in the same loop (on rank 0
+    for the gloo ranks), and each level's all-reduce time."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch import DataFrame, LightGBMClassifier, train
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import parallel_modes as PM
+    from mmlspark_tpu_torch.parallel import mesh as M
+
+    binned, y, bin_upper, cfg = ctx["main_inputs"]
+    out = {"card": ctx["smi"]}
+    rows = dist_sums_rows(torch)
+    ctx["dist_sums_rows"] = rows
+    out["sums_per_tree"] = {
+        m: sum(r[m] for r in rows if r["case"] == "bench")
+        for m in ("sums_ms", "sums_device_ms", "amax_ms", "round_ms",
+                  "round_device_ms", "plain_ms", "library_ms", "bound_ms")}
+
+    def serial_fit():
+        return train(binned, y, cfg, bin_upper=bin_upper, capture=False)
+
+    serial, serial_first_s = fit_wall(torch, serial_fit)
+    out["serial_uncaptured_first_s"] = serial_first_s
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    procs = []
+    try:
+        # --- P = 1 over NCCL, in this process ------------------------------
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                                world_size=1, rank=0,
+                                timeout=timedelta(seconds=120))
+        try:
+            mesh = M.create_mesh()
+            out["nccl_collective_ms_per_level"] = collective_ms(torch, mesh)
+            counters = ("hist_sums_kernel_launches", "hist_amax_launches",
+                        "hist_round_launches")
+            for name in counters:
+                setattr(H, name, 0)
+            modes = {"data": {},
+                     "voting": {"tree_learner": "voting",
+                                "top_k": DIST_TOPK},
+                     "feature": {"tree_learner": "feature"}}
+
+            def mesh_fit(kw):
+                return train(binned, y, dc.replace(cfg, **kw),
+                             bin_upper=bin_upper, mesh=mesh)
+
+            # each learner's first fit: counted and held to the serial bits
+            fits = {}
+            for mode, kw in modes.items():
+                r, first_s = fit_wall(torch, lambda: mesh_fit(kw))
+                fits[mode] = dist_fit_record(r, first_s, serial)
+            launches = {name: getattr(H, name) for name in counters}
+            out["nccl_launches"] = launches
+            ctx["launches"]["dist_gbdt_path"] = launches
+            # then warm, the serial uncaptured fit beside each learner's
+            walls = {mode: [] for mode in ("serial", *modes)}
+            for _ in range(DIST_REPS):
+                walls["serial"].append(fit_wall(torch, serial_fit)[1])
+                for mode, kw in modes.items():
+                    walls[mode].append(fit_wall(torch,
+                                                lambda: mesh_fit(kw))[1])
+            for mode in modes:
+                add_walls(fits[mode], walls[mode], walls["serial"])
+            out["nccl_fits"] = fits
+            # the estimator: meshed fit and transform against unmeshed
+            x, _ = make_data(N)
+            frame = DataFrame({"features": x, "label": y})
+            params = dict(numIterations=TREES, numLeaves=63, maxDepth=6,
+                          minDataInLeaf=20)
+            plain_model = LightGBMClassifier(**params).fit(frame)
+            t0 = time.perf_counter()
+            model = LightGBMClassifier(
+                parallelism="data_parallel", **params).set_mesh(mesh).fit(
+                    frame)
+            est_fit_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = np.asarray(model.transform(frame).col("rawPrediction"))
+            est_transform_s = time.perf_counter() - t0
+            want = np.asarray(plain_model.transform(frame).col(
+                "rawPrediction"))
+            out["estimator"] = {
+                "fit_s": est_fit_s, "transform_s": est_transform_s,
+                "model_bitwise": (model.get_model_string()
+                                  == plain_model.get_model_string()),
+                "scores_bitwise": bool(np.array_equal(got, want)),
+                "shard_metadata": model.shard_metadata()}
+        finally:
+            dist.destroy_process_group()
+
+        # --- P = 2 over gloo, two ranks on this card ----------------------
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as fh:
+            pickle.dump((binned, y, bin_upper, cfg), fh)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank",
+             str(rank), str(DIST_WORLD), os.path.join(tmp, "gloo"), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(DIST_WORLD)]
+        logs = [p.communicate(timeout=DIST_RANK_TIMEOUT_S)[0] for p in procs]
+        out["gloo_ranks_s"] = time.perf_counter() - t0
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"gloo rank {rank} failed:\n"
+                                     f"{log[-4000:]}")
+        ranks = []
+        for rank in range(DIST_WORLD):
+            with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as fh:
+                ranks.append(pickle.load(fh))
+        gloo = {"collective_ms_per_level":
+                ranks[0]["collective_ms_per_level"]}
+        for mode in ("data", "data_sharded"):
+            want_bytes = PM.hist_reduction_bytes(
+                F, cfg.max_bin, cfg.effective_depth, DIST_WORLD,
+                mode == "data_sharded", cell_bytes=8) * TREES
+            recs = [r[mode] for r in ranks]
+            gloo[mode] = add_walls({
+                "first_wall_s": [r["first_wall_s"] for r in recs],
+                "rank_walls_s": [r["walls_s"] for r in recs],
+                "bitwise_serial": [boosters_equal(r["booster"],
+                                                  serial.booster)
+                                   for r in recs],
+                "repeats_bitwise": [r["repeats_bitwise"] for r in recs],
+                "hist_bytes": [r["hist_bytes"] for r in recs],
+                "hist_reduction_bytes": want_bytes,
+                "sums_launches": [r["sums_launches"] for r in recs],
+                "hist_shard": recs[0]["hist_stats"]["hist_shard"]},
+                # a fit ends when its slowest rank does
+                [max(w) for w in zip(*(r["walls_s"] for r in recs))],
+                ranks[0]["serial_uncaptured_walls_s"])
+        out["gloo_p2"] = gloo
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    expected = TREES * cfg.effective_depth
+    bad = [m for m, f in out["nccl_fits"].items() if not f["bitwise_serial"]]
+    bad += [f"gloo_{m}" for m in ("data", "data_sharded")
+            if not all(out["gloo_p2"][m]["bitwise_serial"])
+            or not all(out["gloo_p2"][m]["repeats_bitwise"])
+            or any(b != out["gloo_p2"][m]["hist_reduction_bytes"]
+                   for b in out["gloo_p2"][m]["hist_bytes"])
+            or any(n != expected for n in out["gloo_p2"][m]["sums_launches"])]
+    est = out["estimator"]
+    if not (est["model_bitwise"] and est["scores_bitwise"]):
+        bad.append("estimator")
+    if out["nccl_launches"]["hist_sums_kernel_launches"] != 3 * expected \
+            or not all(out["nccl_launches"].values()):
+        bad.append("launches")
+    if bad:
+        raise AssertionError(f"multi-device GBDT disagrees ({bad}): {out}")
+    return out
+
+
 def kernel_table(ctx):
     def entry(name, source, replaces, launches, rows):
         # times summed over the six level widths of one depth-6 tree
@@ -6910,6 +7336,40 @@ def kernel_table(ctx):
                "from phase int32_path's streamed fit (200,000 rows, "
                "B=70,000, 3 trees)"})
     kernels.append(sums_i32)
+    # the float32 kernel's sums entry (row 1d: rows split over ranks):
+    # its launches over phase dist_gbdt_path's three one-rank NCCL fits
+    # (the gloo ranks' are in that phase's record); times per tree at the
+    # bench shape, the uint16 and int32 cases beside them
+    d_rows = ctx["dist_sums_rows"]
+    bench = [r for r in d_rows if r["case"] == "bench"]
+    d_launches = ctx["launches"]["dist_gbdt_path"]
+    kernels.append({
+        "name": "level_hist_sums", "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/level_hist.cu",
+        "replaces": "mmlspark_tpu/models/gbdt/hist_pallas.py:60",
+        "launches": d_launches["hist_sums_kernel_launches"],
+        "amax_launches": d_launches["hist_amax_launches"],
+        "round_launches": d_launches["hist_round_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in d_rows),
+        "ms": sum(r["sums_ms"] for r in bench),
+        "device_ms": sum(r["sums_device_ms"] for r in bench),
+        "plain_ms": sum(r["plain_ms"] for r in bench),
+        "bound_ms": sum(r["bound_ms"] for r in bench),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bench)
+        else "operations",
+        "library_ms": sum(r["library_ms"] for r in bench),
+        "amax_ms": sum(r["amax_ms"] for r in bench),
+        "round_ms": sum(r["round_ms"] for r in bench),
+        "round_device_ms": sum(r["round_device_ms"] for r in bench),
+        "at_bins": {f"{r['case']}_w{r['width']}": {k: r[k] for k in (
+            "sums_ms", "sums_device_ms", "round_ms", "bound_ms")}
+            for r in d_rows if r["case"] != "bench"},
+        "per": "the sums entry (adding the int64 sums into an accumulator) "
+               "summed over widths " + ",".join(map(str, WIDTHS))
+               + " at N=2M, F=28, B=255, uint8 ids; bound: the inputs once "
+               "and the accumulator read and written; library_ms: one int64 "
+               "index_add_ of the same terms; amax_ms / round_ms: the other "
+               "two entries of a rank's level"})
     # tree_score replaces an XLA scan, not a Pallas kernel: the row of
     # the main path's 2M-row call, beside the served model's rung 64
     score = ctx["score_rows"]
@@ -7049,7 +7509,8 @@ def main() -> int:
                      ("kernel_flash", phase_kernel_flash),
                      ("sdpa_backends", phase_sdpa_backends),
                      ("attention_path", phase_attention_path),
-                     ("attention_dist", phase_attention_dist)):
+                     ("attention_dist", phase_attention_dist),
+                     ("dist_gbdt_path", phase_dist_gbdt)):
         t0 = time.perf_counter()
         try:
             out = fn(ctx)
@@ -7070,4 +7531,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:
+        # one gloo rank of phase dist_gbdt_path (started by that phase)
+        dist_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                       sys.argv[5])
+        sys.exit(0)
     sys.exit(main())

@@ -71,6 +71,11 @@ one; the defaults are the JAX package's:
     in percent (default 5)
   - ``MMLSPARK_TORCH_RETRY_BUDGET_PCT``  failover retries as a share of
     requests, in percent (default 10)
+  - ``MMLSPARK_TORCH_HIST_SHARD``  auto|off|on: a data-parallel fit
+    under a mesh reduce-scatters its histogram sums by feature slices
+    (``data_sharded``) where the config allows it (auto: at dp > 1; on:
+    forced, with one warning where it cannot), else all-reduces them
+    whole (default auto; ``trainer.resolve_hist_shard_mode``)
 
 Parsing contract, as in the JAX package: a malformed value must not
 abort or silently mislabel a run, so it warns once per variable and the
@@ -113,6 +118,7 @@ REQUEST_DEADLINE_MS = "MMLSPARK_TORCH_REQUEST_DEADLINE_MS"
 HEDGE_DELAY_MS = "MMLSPARK_TORCH_HEDGE_DELAY_MS"
 HEDGE_BUDGET_PCT = "MMLSPARK_TORCH_HEDGE_BUDGET_PCT"
 RETRY_BUDGET_PCT = "MMLSPARK_TORCH_RETRY_BUDGET_PCT"
+HIST_SHARD = "MMLSPARK_TORCH_HIST_SHARD"
 
 _WARNED: Set[str] = set()
 

@@ -112,6 +112,23 @@
 // gather writes and reads the columns once more, and each of a (node,
 // feature)'s tiles (14 at B = 131,072) reads its run of the column again,
 // from L2 where the tiles' CTAs keep pace.
+//
+// Rows split over ranks (multi-device fits, models/gbdt/parallel_modes.py).
+// The one-pass entry takes amax_c and e_c from its own rows, so a rank
+// cannot use it: its terms would sit on another grid than the serial fit's.
+// Three more entries split it: mmls_level_hist_amax writes each channel's
+// amax over the rank's rows (one grid-stride pass, float bits merged by
+// atomicMax); the caller reduces them over the ranks (max) and takes e_c
+// from the global amax and the global row count
+// (hist_cuda.fixed_point_exponents); mmls_level_hist_sums runs the same
+// partition and histogram under those e_c, adding the exact int64 sums
+// into the caller's accumulator with no rounding (uint8 and uint16 ids by
+// the kernels' flush atomics, int32 ids by MergeOut, each item adding its
+// tile's nonzero cells); the caller reduces the sums over the ranks (an
+// integer sum, the same in any order) and mmls_level_hist_round rounds
+// them once with the one-pass entry's expression. Same terms, same sums,
+// same rounding: the serial fit's histogram, bit for bit, however the rows
+// are split.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -185,6 +202,53 @@ struct F32Rows {
       exps[tid] = fixed_point_exponent(__uint_as_float((unsigned)amax_bits[tid]), n);
   }
 };
+
+// The float32 plane's rows for the sums entry (mmls_level_hist_sums): the
+// same float4 per row as F32Rows, no maxima and no exponents, which the
+// caller gives (taken over every rank's rows, so each rank's int64 terms
+// are the one pass's).
+struct F32SumRows {
+  const float* __restrict__ grad;
+  const float* __restrict__ hess;
+  float4* __restrict__ stats;
+
+  struct Max {};
+  __device__ static bool keep(float lv) { return lv != 0.f; }
+  __device__ void put(int64_t r, float lv, Max&) const {
+    stats[r] = make_float4(__fmul_rn(grad[r], lv), __fmul_rn(hess[r], lv),
+                           lv, 0.f);
+  }
+  __device__ void merge(Max&) const {}
+  __device__ void finish_scan(int, int64_t) const {}
+};
+
+// The amax entry: each channel's largest |value| over the n rows, as
+// F32Rows's count pass takes it (fmaxf over (grad*live, hess*live, live) of
+// every row), merged by integer atomicMax on the float bits (amax_bits
+// zeroed by the caller).
+constexpr int kAmaxThreads = 256;
+
+__global__ void __launch_bounds__(kAmaxThreads)
+amax_kernel(const float* __restrict__ grad, const float* __restrict__ hess,
+            const float* __restrict__ live,
+            unsigned long long* __restrict__ amax_bits, int64_t n) {
+  float g = 0.f, h = 0.f, l = 0.f;
+  for (int64_t r = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; r < n;
+       r += (int64_t)gridDim.x * blockDim.x) {
+    const float lv = live[r];
+    g = fmaxf(g, fabsf(__fmul_rn(grad[r], lv)));
+    h = fmaxf(h, fabsf(__fmul_rn(hess[r], lv)));
+    l = fmaxf(l, fabsf(lv));
+  }
+  g = warp_max(g);
+  h = warp_max(h);
+  l = warp_max(l);
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(amax_bits, (unsigned long long)__float_as_uint(g));
+    atomicMax(amax_bits + 1, (unsigned long long)__float_as_uint(h));
+    atomicMax(amax_bits + 2, (unsigned long long)__float_as_uint(l));
+  }
+}
 
 // 2^k as a double, built from its bits (|k| <= 1022 here: e_c lies in
 // [-106, 234] for any finite float data).
@@ -632,6 +696,90 @@ int mmls_level_hist(const void* binned, const void* grad, const void* hess,
   if (err != cudaSuccess) return (int)err;
   return (int)level_hist::dequantize((const long long*)sums, (float*)out,
                                      InversePow2{exps}, cells, s);
+}
+
+// The sums entry's first call: the channels' amax over the n rows, as
+// float bits into amax_bits (3 uint64, zero on entry), on `stream` of
+// `device`. Returns the first CUDA error: 0 on success.
+int mmls_level_hist_amax(const void* grad, const void* hess, const void* live,
+                         void* amax_bits, long long n, int device,
+                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return 0;
+  const long long want = (n + kAmaxThreads * 8 - 1) / (kAmaxThreads * 8);
+  const int blocks = (int)(want < 4096 ? want : 4096);
+  amax_kernel<<<blocks, kAmaxThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)grad, (const float*)hess, (const float*)live,
+      (unsigned long long*)amax_bits, n);
+  return (int)cudaGetLastError();
+}
+
+// The sums entry: mmls_level_hist's partition and histogram under the
+// caller's exponents `exps` (3 int64 e_c on the device, from the amax of
+// every rank's rows and their row count), adding the int64 sums into the
+// caller's (width, f, b, 3) `acc` with no rounding: the sums of any split
+// of the rows add up to the one pass's, bit for bit. On int32 ids the
+// items add their tiles' nonzero cells into `acc` (each item owns its
+// cells). The other arguments are mmls_level_hist's (no `out`, no amax or
+// exponent scratch). Returns the first CUDA error: 0 on success.
+int mmls_level_hist_sums(const void* binned, const void* grad,
+                         const void* hess, const void* live,
+                         const void* local, int local_bytes, void* stats,
+                         void* counts, void* offsets, void* order, void* wide,
+                         const void* exps, void* acc, long long n, int f,
+                         int b, int width, int f_slice, int num_slices,
+                         int bin_bytes, int tile_bins, int num_tiles,
+                         int smem, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const bool i32 = bin_bytes == 4;
+  if ((bin_bytes != 1 && bin_bytes != 2 && !i32) || i32 != (wide != nullptr) ||
+      acc == nullptr || exps == nullptr ||
+      (i32 && (smem != i32_smem(tile_bins) ||
+               !i32_tiles_ok(b, tile_bins, num_tiles))))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int* wcounts = (int*)counts;
+  int* btot = wcounts + plan_wcounts(n, width);
+  const F32SumRows rows{(const float*)grad, (const float*)hess,
+                        (float4*)stats};
+  if (local_bytes == 8)
+    err = plan((const int64_t*)local, (const float*)live, rows, wcounts, btot,
+               (int64_t*)offsets, (int64_t*)order, n, width, s);
+  else if (local_bytes == 4)
+    err = plan((const int32_t*)local, (const float*)live, rows, wcounts, btot,
+               (int64_t*)offsets, (int64_t*)order, n, width, s);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  const long long* e = (const long long*)exps;
+  if (i32) {
+    const I32Scratch<float4> w(wide, n, f);
+    err = gather_i32(binned, (const float4*)stats, (const int64_t*)order,
+                     (const int64_t*)offsets, w, n, f, width, tile_bins, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_i32(w, F32Terms{w.nstats, e}, MergeOut{(long long*)acc},
+                           (const int64_t*)offsets, n, f, b, width, tile_bins,
+                           num_tiles, device, s);
+  }
+  return (int)launch_hist(binned, stats, order, offsets, e,
+                          (unsigned long long*)acc, f, b, width, f_slice,
+                          num_slices, bin_bytes, tile_bins, num_tiles, smem,
+                          device, s);
+}
+
+// The rounding entry: out[i] = float(double(acc[i]) * 2^-e_c) over `cells`
+// int64 sums (c = i % 3), the expression mmls_level_hist ends with. Returns
+// the first CUDA error: 0 on success.
+int mmls_level_hist_round(const void* acc, const void* exps, void* out,
+                          long long cells, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (cells <= 0) return 0;
+  return (int)level_hist::dequantize(
+      (const long long*)acc, (float*)out,
+      InversePow2{(const long long*)exps}, cells, (cudaStream_t)stream);
 }
 
 // The histogram launch's grid on `device` at these arguments of

@@ -64,9 +64,16 @@ The param surface is the JAX package's (the same names, defaults and
 validation); ``boostingType="dart"`` fits through the trainer's host
 loop (a checkpointed dart fit raises the reference's ``ValueError``), and
 ``MMLSPARK_TORCH_GROW_POLICY=leafwise`` grows every estimator's trees
-leaf-wise. Settings outside the port raise ``NotImplementedError``
-naming the ROADMAP item that adds them: meshes and the voting /
-feature-parallel learners (A8).
+leaf-wise. ``set_mesh(mesh)`` (``parallel.mesh.create_mesh``) fits
+over ``torch.distributed``: every rank of the mesh makes the same
+``fit`` call on the same frame, ``parallelism`` picks the learner
+(``data_parallel`` / ``serial``: rows over ``dp``; ``voting_parallel``;
+``feature_parallel``: columns over ``fp``; ``trainer.train``'s
+``mesh``), and the fitted model scores through
+``parallel.shard_rules.ShardedScorer`` (rows over ``dp``, every rank
+gets every row's scores). Settings outside the port raise
+``NotImplementedError`` naming the ROADMAP item that adds them: under a
+mesh, ``checkpointInterval`` (A8b).
 """
 
 from __future__ import annotations
@@ -106,12 +113,15 @@ from mmlspark_tpu_torch.ops.ingest import (binned_ingest_dtype,
                                            resolve_spill_verify)
 from mmlspark_tpu_torch.parallel.shard_rules import resolve_infer_autocast
 
-_A8 = "A8 (multi-device GBDT)"
-# the JAX estimator's tree_learner for each parallelism; the port trains
-# data_parallel on one device with the serial learner, as the JAX
-# package does without a mesh, and the checkpoint fingerprint takes the
-# JAX name so a checkpoint directory crosses between the packages
-_JAX_TREE_LEARNER = {"data_parallel": "data", "serial": "serial"}
+# the JAX estimator's tree_learner for each parallelism. The port's
+# config keeps "serial" for data_parallel (the same learner: serial
+# without a mesh, data-parallel under one, ``trainer.resolve_mode``),
+# and the checkpoint fingerprint takes the JAX name so a checkpoint
+# directory crosses between the packages
+_JAX_TREE_LEARNER = {"data_parallel": "data", "serial": "serial",
+                     "voting_parallel": "voting",
+                     "feature_parallel": "feature"}
+_TREE_LEARNER = {**_JAX_TREE_LEARNER, "data_parallel": "serial"}
 # rows scored per call of the booster in transform (rows are
 # independent); bounds the device copy of the features
 _SCORE_BATCH_ROWS = 1 << 21
@@ -120,11 +130,6 @@ _SCORE_BATCH_ROWS = 1 << 21
 def _cust(stage) -> Optional[Any]:
     """The stage's custom objective callable, if set (fobj param)."""
     return stage.get("fobj") if stage.is_set("fobj") else None
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not in the port yet "
-                               f"(ROADMAP {item})")
 
 
 def _apply_pass_through(cfg: TrainConfig, args: Optional[str]) -> TrainConfig:
@@ -352,13 +357,9 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCo
     def _train_config(self, objective: str,
                       categorical_features: List[int] = (),
                       **extra: Any) -> TrainConfig:
-        """The JAX package's param -> ``TrainConfig`` mapping. The port
-        trains on one device, so ``data_parallel`` (the default) is the
-        serial learner, as it is in the JAX package without a mesh;
-        ``voting_parallel`` and ``feature_parallel`` raise (ROADMAP A8)."""
-        parallelism = self.get("parallelism")
-        if parallelism not in ("data_parallel", "serial"):
-            raise _later(f"parallelism={parallelism!r}", _A8)
+        """The JAX package's param -> ``TrainConfig`` mapping;
+        ``parallelism`` picks the tree learner (without a mesh every one
+        trains serially, as in the JAX package)."""
         return TrainConfig(
             objective=objective,
             num_iterations=self.get("numIterations"),
@@ -394,7 +395,7 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCo
             path_smooth=self.get("pathSmooth"),
             max_delta_step=self.get("maxDeltaStep"),
             extra_trees=self.get("extraTrees"),
-            tree_learner="serial",
+            tree_learner=_TREE_LEARNER[self.get("parallelism")],
             top_k=self.get("topK"),
             seed=self.get("seed"),
             max_drop=self.get("maxDrop"),
@@ -430,8 +431,22 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasPredictionCo
         ``DeviceUnavailable`` where that is the card and there is none."""
         return resolve_device(self._device)
 
+    _mesh = None
+    _scorer = None
+
     def set_mesh(self, mesh):
-        raise _later("set_mesh (rows sharded over a device mesh)", _A8)
+        """Fit (or score) over ``mesh`` (``parallel.mesh.create_mesh``):
+        every rank of the mesh makes the same calls. A fitted model
+        inherits the estimator's mesh. Not a param: ``copy`` keeps it,
+        the saved param map does not."""
+        from mmlspark_tpu_torch.parallel.mesh import Mesh
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"set_mesh takes a parallel.mesh.Mesh "
+                            f"(create_mesh) or None, got "
+                            f"{type(mesh).__name__}")
+        self._mesh = mesh
+        self._scorer = None
+        return self
 
 
 class _LightGBMBase(Estimator, _LightGBMParams):
@@ -613,7 +628,7 @@ class _LightGBMBase(Estimator, _LightGBMParams):
                         None if init0 is None else init0[part]),
                     valid_init_raws=valid_init_raws(init_model),
                     measures=measures, device=device,
-                    custom_objective=fobj)
+                    custom_objective=fobj, mesh=self._mesh)
                 init_model = result.booster
         elif ckpt_every:
             result = self._fit_checkpointed(
@@ -625,7 +640,8 @@ class _LightGBMBase(Estimator, _LightGBMParams):
                     init_raw=init_scores(model, x, init0),
                     valid_init_raws=valid_init_raws(model),
                     measures=measures, device=device,
-                    custom_objective=fobj, iteration_offset=done),
+                    custom_objective=fobj, iteration_offset=done,
+                    mesh=self._mesh),
                 group_ids)
         else:
             result = train(
@@ -634,7 +650,8 @@ class _LightGBMBase(Estimator, _LightGBMParams):
                 valid_sets=valid_sets, init_model=init_model,
                 init_raw=init_scores(init_model, x, init0),
                 valid_init_raws=valid_init_raws(init_model),
-                measures=measures, device=device, custom_objective=fobj)
+                measures=measures, device=device, custom_objective=fobj,
+                mesh=self._mesh)
         return result, mapper, measures
 
     def _fit_checkpointed(self, cfg, binned, y, w, bin_upper, init0,
@@ -657,6 +674,14 @@ class _LightGBMBase(Estimator, _LightGBMParams):
 
         from mmlspark_tpu_torch.core.serialize import atomic_write
 
+        if self._mesh is not None:
+            # every rank would write and resume the same directory on its
+            # own: ranks could resume at other iterations and their
+            # collectives would no longer match
+            from mmlspark_tpu_torch.models.gbdt.parallel_modes import A8B
+            raise NotImplementedError(
+                f"checkpointInterval under a mesh is not in the port yet "
+                f"({A8B})")
         if not self.is_set("checkpointDir"):
             raise ValueError("checkpointInterval requires checkpointDir")
         if self.get("earlyStoppingRound"):
@@ -835,6 +860,7 @@ class _LightGBMBase(Estimator, _LightGBMParams):
         model.booster = result.booster
         model.bin_mapper = mapper
         model._device = self._device
+        model._mesh = self._mesh
         model.train_measures = measures
         model.evals_result = result.evals
         model.best_iteration = result.best_iteration
@@ -923,21 +949,34 @@ class _LightGBMModelBase(Model, _LightGBMParams):
         zmode = b.zero_premap_mode
         binned = (self.get("binnedScoring") and self.bin_mapper is not None
                   and b.supports_binned and zmode != "unsupported")
-        out = []
-        for s in range(0, max(len(x), 1), _SCORE_BATCH_ROWS):
-            xs = x[s:s + _SCORE_BATCH_ROWS]
+
+        def score(xs):
             if binned:
                 if zmode == "all_left":
                     # a zero-as-missing fit binned 0.0 as NaN: so does
                     # scoring
                     xs = np.where(xs == 0.0, np.nan, xs)
-                scores = b.predict_binned(
+                return b.predict_binned(
                     self.bin_mapper.transform(xs, binned_ingest_dtype(
                         self.bin_mapper.max_num_bins)), device=device)
-            else:
-                scores = b.predict(xs, device=device)
-            out.append(scores.cpu().numpy())
-        return np.concatenate(out)
+            return b.predict(xs, device=device)
+
+        if self._mesh is None:
+            return np.concatenate([
+                score(x[s:s + _SCORE_BATCH_ROWS]).cpu().numpy()
+                for s in range(0, max(len(x), 1), _SCORE_BATCH_ROWS)])
+        from mmlspark_tpu_torch.parallel.shard_rules import ShardedScorer
+        self._scorer = ShardedScorer(score, self._mesh,
+                                     max_batch=_SCORE_BATCH_ROWS)
+        return self._scorer(x)
+
+    def shard_metadata(self) -> Dict[str, Any]:
+        """How ``transform`` places its rows (the reference's
+        ``shard_metadata``): the last scorer's mode ("rules" under a
+        mesh, else "serial"), reason, family, dp and the rungs used."""
+        from mmlspark_tpu_torch.parallel.shard_rules import ShardedScorer
+        return (self._scorer or ShardedScorer(
+            None, self._mesh, max_batch=_SCORE_BATCH_ROWS)).metadata()
 
     def _init_empty(self):
         self.booster = None

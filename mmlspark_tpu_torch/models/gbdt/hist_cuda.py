@@ -73,6 +73,14 @@ hist_quant_sums_kernel_launches = 0
 hist_quant_sums_u16_kernel_launches = 0
 hist_quant_sums_i32_kernel_launches = 0
 hist_quant_dequant_launches = 0
+# the float32 kernel's entries for rows split over ranks
+# (``level_histogram_amax``, ``level_histogram_sums`` on uint8, uint16 and
+# int32 ids, ``fixed_point_round``), counted apart from the one-pass entry
+hist_amax_launches = 0
+hist_sums_kernel_launches = 0
+hist_sums_u16_kernel_launches = 0
+hist_sums_i32_kernel_launches = 0
+hist_round_launches = 0
 _capture = threading.local()
 
 
@@ -256,13 +264,16 @@ def level_histogram_reference(binned, grad, hess, live, local, width: int,
     ``(grad*live, hess*live, live)``: ``e_c = fixed_point_exponents(
     max|x_c|, N)``, terms ``round_half_even(float64(x) * 2^e_c)`` as
     int64 (the product is exact), exact sums, and
-    ``float32(float64(sum) * 2^-e_c)``."""
+    ``float32(float64(sum) * 2^-e_c)``. Contiguous, as the kernel's
+    histogram is: the split scans' float reductions over it then add in
+    the same order as over the kernel's, and as over the sums reduced
+    from several ranks (:func:`fixed_point_round`)."""
     n = binned.shape[0]
     data = torch.stack([grad * live, hess * live, live], dim=-1)   # (n, 3)
     e = fixed_point_exponents(data.abs().amax(dim=0) if n else
                               torch.zeros(3, device=binned.device), n)
     terms = torch.round(data.double() * pow2(e)).long()
-    acc = _cell_sums(binned, local, terms, width, f, b)
+    acc = _cell_sums(binned, local, terms, width, f, b).contiguous()
     return (acc.double() * pow2(-e)).float().reshape(width, f, b, 3)
 
 
@@ -551,6 +562,154 @@ def _launch(binned, grad, hess, live, local, width, f, b):
     bindings.check(lib, code, "level_hist kernel launch")
     _count_launch("hist" + _INSTANCE[bin_bytes])
     return out
+
+
+# --- rows split over ranks ---------------------------------------------------
+#
+# ``level_histogram`` takes its exponents from its own rows. A rank of a
+# multi-device fit (``parallel_modes.py``) holds a share of the rows, so
+# the function is split in three: each rank's channel maxima
+# (``level_histogram_amax``), reduced over the ranks (max) and turned into
+# exponents with the global row count (``fixed_point_exponents(amax, N)``);
+# each rank's int64 sums under those exponents (``level_histogram_sums``),
+# reduced over the ranks (an integer sum, the same in any order); and one
+# rounding (``fixed_point_round``). The result is ``level_histogram`` on
+# the whole rows, bit for bit. N is the rows of the serial fit: padding
+# rows (``live`` 0) add nothing to the maxima or the sums, but an exponent
+# taken from a padded count would sit on another grid.
+
+def level_histogram_amax(grad, hess, live) -> torch.Tensor:
+    """(3,) float32: the largest magnitude of each channel of (grad*live,
+    hess*live, live) over the rows (0 where there are none). On a CUDA
+    tensor one launch of ``mmls_level_hist_amax``; on a CPU tensor its
+    plain version."""
+    n = live.shape[0]
+    for name, t in (("grad", grad), ("hess", hess), ("live", live)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n,) \
+                or not t.is_contiguous() or t.device != live.device:
+            raise ValueError(f"{name} must be a contiguous float32 ({n},) "
+                             f"tensor on {live.device}")
+    if live.device.type == "cpu":
+        return level_histogram_amax_reference(grad, hess, live)
+    global hist_amax_launches
+    lib = bindings.load("level_hist")
+    bits = torch.zeros(3, dtype=torch.int64, device=live.device)
+    if n:
+        code = lib.mmls_level_hist_amax(
+            grad.data_ptr(), hess.data_ptr(), live.data_ptr(),
+            bits.data_ptr(), n, live.device.index,
+            torch.cuda.current_stream(live.device).cuda_stream)
+        bindings.check(lib, code, "level_hist amax launch")
+        hist_amax_launches += 1
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def level_histogram_amax_reference(grad, hess, live) -> torch.Tensor:
+    """Plain version: ``max |x_c|`` over the rows of (grad*live,
+    hess*live, live), as ``level_histogram_reference`` takes it."""
+    if not live.shape[0]:
+        return torch.zeros(3, dtype=torch.float32, device=live.device)
+    return torch.stack([grad * live, hess * live, live],
+                       dim=-1).abs().amax(dim=0)
+
+
+def _check_sums(acc, exps, width, f, b, dev):
+    if (acc.dtype != torch.int64 or tuple(acc.shape) != (width, f, b, 3)
+            or acc.device != dev or not acc.is_contiguous()):
+        raise ValueError(f"acc must be a contiguous int64 ({width}, {f}, "
+                         f"{b}, 3) tensor on {dev}, got {acc.dtype} "
+                         f"{tuple(acc.shape)} on {acc.device}")
+    if exps.dtype != torch.int64 or tuple(exps.shape) != (3,) \
+            or exps.device != dev or not exps.is_contiguous():
+        raise ValueError(f"exps must be a contiguous int64 (3,) tensor on "
+                         f"{dev}, got {exps.dtype} {tuple(exps.shape)} on "
+                         f"{exps.device}")
+
+
+def level_histogram_sums(binned, grad, hess, live, local, width: int,
+                         f: int, b: int, exps: torch.Tensor,
+                         acc: torch.Tensor) -> torch.Tensor:
+    """Add the fixed-point int64 sums of (grad*live, hess*live, live) by
+    (local, feature, bin) under the exponents ``exps`` ((3,) int64 on the
+    device of ``binned``: ``fixed_point_exponents`` of the maxima over
+    every rank's rows and their count) into ``acc``, a contiguous
+    (width, F, B, 3) int64 tensor there, and return it: no rounding. On a
+    CUDA tensor one call of ``mmls_level_hist_sums`` (partition and
+    histogram), on a CPU tensor its plain version."""
+    _check_inputs(binned, grad, hess, live, local, width, f, b)
+    _check_sums(acc, exps, width, f, b, binned.device)
+    if binned.device.type == "cpu":
+        acc += level_histogram_sums_reference(binned, grad, hess, live,
+                                              local, width, f, b, exps)
+        return acc
+    n = binned.shape[0]
+    if n == 0:
+        return acc
+    _check_card_limits(width, n)
+    lib = bindings.load("level_hist")
+    dev = binned.device
+    stats = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    counts, offsets, order = _partition_scratch(n, width, dev)
+    wide = _i32_scratch(binned, 16)
+    bin_bytes = binned.element_size()
+    f_slice, num_slices, tile_bins, num_tiles, smem = _kernel_plan(
+        "f32", f, b, bin_bytes)
+    binned = _word_aligned(binned)
+    code = lib.mmls_level_hist_sums(
+        binned.data_ptr(), grad.data_ptr(), hess.data_ptr(), live.data_ptr(),
+        local.data_ptr(), local.element_size(), stats.data_ptr(),
+        counts.data_ptr(), offsets.data_ptr(), order.data_ptr(),
+        None if wide is None else wide.data_ptr(), exps.data_ptr(),
+        acc.data_ptr(), n, f, b, width, f_slice, num_slices, bin_bytes,
+        tile_bins, num_tiles, smem, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    bindings.check(lib, code, "level_hist sums launch")
+    _count_launch("hist_sums" + _INSTANCE[bin_bytes])
+    return acc
+
+
+def level_histogram_sums_reference(binned, grad, hess, live, local,
+                                   width: int, f: int, b: int,
+                                   exps) -> torch.Tensor:
+    """Plain version: the (width, F, B, 3) int64 sums of the terms
+    ``round_half_even(float64(x_c) * 2^e_c)``, int64 ``index_add_`` over
+    ``flat_index``'s cells (:func:`_cell_sums`), contiguous."""
+    data = torch.stack([grad * live, hess * live, live], dim=-1)   # (n, 3)
+    terms = torch.round(data.double() * pow2(exps)).long()
+    return _cell_sums(binned, local, terms, width, f, b).contiguous().reshape(
+        width, f, b, 3)
+
+
+def fixed_point_round(acc: torch.Tensor, exps: torch.Tensor) -> torch.Tensor:
+    """The float32 histogram of int64 sums ``acc`` ((width, F, B, 3),
+    contiguous) under ``exps``: ``float32(float64(sum) * 2^-e_c)``, the
+    rounding of :func:`level_histogram`. On a CUDA tensor one launch of
+    ``mmls_level_hist_round``, on a CPU tensor its plain version. The
+    histogram passes the ``gbdt.level_hist`` fault point, as the other
+    wrappers' do."""
+    if acc.dtype != torch.int64 or acc.dim() != 4 or acc.shape[3] != 3 \
+            or not acc.is_contiguous():
+        raise ValueError(f"acc must be a contiguous int64 (width, F, B, 3) "
+                         f"tensor, got {acc.dtype} {tuple(acc.shape)}")
+    _check_sums(acc, exps, *acc.shape[:3], acc.device)
+    if acc.device.type == "cpu":
+        out = fixed_point_round_reference(acc, exps)
+    else:
+        global hist_round_launches
+        lib = bindings.load("level_hist")
+        out = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
+        code = lib.mmls_level_hist_round(
+            acc.data_ptr(), exps.data_ptr(), out.data_ptr(), acc.numel(),
+            acc.device.index, torch.cuda.current_stream(acc.device).cuda_stream)
+        bindings.check(lib, code, "level_hist round launch")
+        hist_round_launches += 1
+    return fault_point("gbdt.level_hist", out)
+
+
+def fixed_point_round_reference(acc, exps) -> torch.Tensor:
+    """Plain version of the rounding: ``float32(float64(acc) *
+    2^-e_c)``."""
+    return (acc.double() * pow2(-exps)).float()
 
 
 # --- quantized stats ---------------------------------------------------------

@@ -55,7 +55,7 @@ Unsupported configs (sampling, validation sets, multiclass, categorical
 or monotone splits, DART, leaf-wise growth) raise here and are screened
 by ``trainer._ooc_supported`` before ``train`` streams. The reference's
 fit watchdog and finite checks around this loop are not ported yet
-(ROADMAP A8, A14).
+(ROADMAP A8b, A14).
 """
 
 from __future__ import annotations

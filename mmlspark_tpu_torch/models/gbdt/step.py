@@ -149,7 +149,7 @@ class Step:
 
     def __init__(self, cfg, binned, labels, weights, raw, valids, layout,
                  hist_quant: str, subtract: bool,
-                 grad_fn: Optional[Callable] = None, efb=None):
+                 grad_fn: Optional[Callable] = None, efb=None, learner=None):
         from mmlspark_tpu_torch.models.gbdt import trainer as T
 
         self.cfg = cfg
@@ -166,6 +166,19 @@ class Step:
         self.valids = valids
         self.hist_quant, self.subtract = hist_quant, subtract
         self.n, self.num_f = binned.shape
+        # a multi-device fit's ``parallel_modes.Learner``. Its step holds
+        # this rank's bin ids (its rows, or its columns) and raw scores,
+        # and every row's labels and weights: the sampling masks, the
+        # objective and the metrics are evaluated on every row, from the
+        # scores gathered once per iteration, as the serial step
+        # evaluates them (so with its bits on the CPU too, where torch's
+        # vectorized elementwise ops round a tensor's tail apart); the
+        # trees' histograms, routing and score updates run on this
+        # rank's share
+        self.learner = learner
+        self.raw_full: Optional[torch.Tensor] = None
+        if learner is not None:
+            self.n, self.num_f = learner.n_total, learner.num_features
         self.it = torch.zeros((), dtype=torch.int64, device=self.dev)
         self.lr = torch.zeros((), dtype=torch.float32, device=self.dev)
         self.base = torch.zeros((), dtype=torch.float32, device=self.dev)
@@ -219,8 +232,18 @@ class Step:
                 sampling.draw(sampling.feature_keys(cfg, self.it),
                               self.num_f, dev), self.num_f,
                 sampling.feature_keep(self.num_f, cfg.feature_fraction))
-        g, h, mask = self.grad_hess(self.raw, mask, self.it)
+        g, h, mask = self.grad_hess(self.scores(), mask, self.it)
         return self.add_trees(self.grow(g, h, mask, feat_mask, self.it))
+
+    def scores(self) -> torch.Tensor:
+        """Every row's raw scores: ``raw``, or a row-sharded learner's,
+        gathered (once per iteration: the metric row gathers the next
+        iteration's)."""
+        if self.learner is None or not self.learner.rows_sharded:
+            return self.raw
+        if self.raw_full is None:
+            self.raw_full = self.learner.gather_rows(self.raw)
+        return self.raw_full
 
     # the parts of an iteration the host loop (``host_loop.py``) shares
     def grad_hess(self, raw, mask, it):
@@ -228,7 +251,7 @@ class Step:
         base score alone): the objective's, GOSS's multipliers folded into
         them and into the row mask ``mask`` (None: every row)."""
         cfg, k = self.cfg, self.k
-        score_in = (self.base.expand(self.raw.shape).clone()
+        score_in = (self.base.expand(raw.shape).clone()
                     if cfg.boosting_type == "rf" else raw)
         if self.grad_fn is not None:
             g, h = self.grad_fn(score_in)
@@ -259,15 +282,23 @@ class Step:
         for c in range(k):
             gc, hc = ((g, h) if k == 1 else
                       (g[:, c].contiguous(), h[:, c].contiguous()))
+            valid, root = mask, None
+            learner = self.learner
+            if learner is not None and learner.rows_sharded:
+                # the root's sums over every row; then this rank's rows
+                root = T._root_sums(gc, hc, mask)
+                gc, hc, valid = (None if t is None else learner.rows(t)
+                                 for t in (gc, hc, mask))
             if build is not None:
                 tree = build(gc, hc)
             else:
                 tree = T.build_tree(
                     self.binned, gc, hc, nl, cfg, cfg.max_bin,
-                    self.hist_quant, self.subtract, valid=mask,
+                    self.hist_quant, self.subtract, valid=valid,
                     feat_mask=feat_mask,
                     key=(sampling.tree_keys(cfg, c, it)
-                         if cfg.draws_per_node else None), efb=self.efb)
+                         if cfg.draws_per_node else None), efb=self.efb,
+                    learner=learner, root=root)
             nv = tree[2] if cfg.boosting_type == "rf" else tree[2] * self.lr
             trees.append((tree, nv))
         return trees
@@ -287,7 +318,14 @@ class Step:
             bgl = tree[5] if cfg.has_categorical else None
             for j, vs in enumerate([{"raw": self.raw, "binned": self.binned},
                                     *self.valids]):
-                pred = T._predict_tree(sf, tb, nv, vs["binned"], depth, bgl)
+                if j == 0 and self.learner is not None \
+                        and self.learner.mode == "feature":
+                    # this rank's columns cannot score its rows: their
+                    # final slots came back with the tree
+                    pred = nv[tree[4]]
+                else:
+                    pred = T._predict_tree(sf, tb, nv, vs["binned"], depth,
+                                           bgl)
                 if kept is not None and j == 0:
                     kept.append(pred)
                 if weight is not None:
@@ -302,8 +340,15 @@ class Step:
     def metric_row(self) -> torch.Tensor:
         """The metrics of the current raw scores: per metric, the
         training set's, then each validation set's (float32)."""
+        sets = self.metric_sets
+        if self.learner is not None and self.learner.rows_sharded:
+            # every row's scores (gathered, and kept for the next
+            # iteration's objective), labels and weights
+            self.raw_full = self.learner.gather_rows(self.raw)
+            train = (self.raw_full, *sets[0][0][1:])
+            sets = [(train, sets[0][1]), *sets[1:]]
         return torch.stack([fn(*args, **kw) for _, fn in self.metric_list
-                            for args, kw in self.metric_sets]).float()
+                            for args, kw in sets]).float()
 
     def run(self, it: int) -> torch.Tensor:
         """Iteration ``it`` (global, ``iteration_offset`` included): the
@@ -406,12 +451,15 @@ def open_step(cfg, binned, labels, weights, raw, valids, *,
               base: float, hist_quant: str, subtract: bool,
               custom_objective: Optional[Callable] = None,
               capture: bool = True, efb=None,
-              efb_key: Optional[str] = None) -> Step:
+              efb_key: Optional[str] = None, learner=None) -> Step:
     """The step of one fit over the given device tensors (``raw`` and
     each validation set's ``"raw"`` are its starting scores; ``layout``
     and each set's ``"layout"`` its group layouts, or None; ``efb`` the
     EFB plan's bundled matrix and maps, ``efb_key`` the plan's
-    ``cache_key``).
+    ``cache_key``; ``learner`` a multi-device fit's
+    ``parallel_modes.Learner``, whose step holds every row's ``labels``
+    and ``weights`` and this rank's ``binned`` and ``raw``: such a step
+    is never captured).
 
     On the card, a named objective with ``capture`` on gets a captured
     step: the cached one for this shape and config (its buffers loaded
@@ -421,7 +469,7 @@ def open_step(cfg, binned, labels, weights, raw, valids, *,
     from mmlspark_tpu_torch.models.gbdt import trainer as T
 
     captured = (capture and binned.device.type == "cuda"
-                and custom_objective is None
+                and custom_objective is None and learner is None
                 and not any(faults.is_armed(p) for p in IN_STEP_POINTS))
     if not captured:
         grad_fn = None
@@ -432,7 +480,8 @@ def open_step(cfg, binned, labels, weights, raw, valids, *,
         # caller's arrays (a tensor from numpy shares its memory)
         st = Step(cfg, binned, labels, weights, raw.clone(),
                   [{**vs, "raw": vs["raw"].clone()} for vs in valids],
-                  layout, hist_quant, subtract, grad_fn, efb=efb)
+                  layout, hist_quant, subtract, grad_fn, efb=efb,
+                  learner=learner)
     else:
         key = _cache_key(cfg, binned, weights, valids, hist_quant, subtract,
                          layout, efb_key)

@@ -75,7 +75,12 @@ What this slice runs (and the JAX trainer it mirrors, file
     the trees cut after the best iteration, the warm-start ``concat``);
   - DART (``boosting_type="dart"``) and leaf-wise growth
     (``MMLSPARK_TORCH_GROW_POLICY=leafwise``, ``resolve_grow_policy``;
-    ``leafwise.py``) through the eager host loop (``host_loop.py``).
+    ``leafwise.py``) through the eager host loop (``host_loop.py``);
+  - multi-device fits over ``torch.distributed`` (``train(...,
+    mesh=...)``; ``resolve_mode``, ``parallel_modes.py``): the data,
+    data_sharded (``MMLSPARK_TORCH_HIST_SHARD``), voting and feature
+    learners, each the serial fit bit for bit; without a mesh voting and
+    feature train serially, as in the reference.
 
 The reference has two loops: ``_train_scan`` (one fused step per
 iteration) and the eager ``_train_loop`` that custom objectives, DART
@@ -101,7 +106,7 @@ Every ``TrainConfig`` setting outside this slice raises
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -252,12 +257,6 @@ class TrainConfig:
         return need
 
 
-# Settings the port does not implement yet: field -> the ROADMAP item
-# that adds it. A non-default value raises instead of being ignored.
-_LATER = {
-    "tree_learner": "A8 (multi-device GBDT)",
-}
-_DEFAULTS = {fl.name: fl.default for fl in fields(TrainConfig)}
 BOOSTING_TYPES = ("gbdt", "rf", "dart", "goss")
 
 
@@ -267,12 +266,6 @@ def check_supported(cfg: TrainConfig) -> None:
     if cfg.boosting_type not in BOOSTING_TYPES:
         raise ValueError(f"boosting_type={cfg.boosting_type!r} is not one "
                          f"of {BOOSTING_TYPES}")
-    for name, later in _LATER.items():
-        value = getattr(cfg, name)
-        if value != _DEFAULTS[name]:
-            raise NotImplementedError(
-                f"TrainConfig.{name}={value!r} is not in the port yet "
-                f"(ROADMAP {later})")
     if (cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0) \
             and cfg.objective != "binary":
         raise ValueError(
@@ -411,6 +404,85 @@ def resolve_subtract() -> bool:
     return env.env_flag(HIST_SUB_ENV, False)
 
 
+_VALID_SHARD = ("auto", "off", "on")
+
+
+def resolve_hist_shard() -> str:
+    """Raw ``MMLSPARK_TORCH_HIST_SHARD`` value (auto|off|on, default auto;
+    the JAX package's ``resolve_hist_shard``): ``auto`` reduce-scatters a
+    data-parallel fit's histogram sums exactly where the fit runs over
+    dp > 1 and :func:`_hist_shard_supported` allows the config; ``on``
+    forces it, with one warning where the config cannot honor it;
+    ``off`` all-reduces them whole. A bad value warns once and runs
+    auto."""
+    raw = (env.env_str(env.HIST_SHARD, "") or "").strip().lower()
+    if not raw:
+        return "auto"
+    if raw not in _VALID_SHARD:
+        env.warn_once(env.HIST_SHARD, f"{env.HIST_SHARD}={raw!r} is not one "
+                                      "of auto|off|on; using auto")
+        return "auto"
+    return raw
+
+
+def _hist_shard_supported(cfg: TrainConfig, mesh) -> Optional[str]:
+    """None where the reduce-scatter learner (``data_sharded``) can honor
+    this config bit for bit as the full all-reduce does, else the reason
+    the fit stays on the full all-reduce (the reference's words)."""
+    if mesh is None:
+        return "no device mesh is attached"
+    if cfg.tree_learner in ("voting", "feature"):
+        return f"tree_learner={cfg.tree_learner!r}"
+    from mmlspark_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
+    if axis_size(mesh, DATA_AXIS) < 2:
+        return "dp axis size is 1"
+    if cfg.categorical_features:
+        return "categorical_features"
+    if any(cfg.monotone_constraints or ()):
+        return "monotone_constraints"
+    if cfg.extra_trees:
+        return "extra_trees"
+    if cfg.feature_fraction_by_node < 1.0:
+        return "feature_fraction_by_node"
+    return None
+
+
+def resolve_hist_shard_mode(cfg: TrainConfig, mesh,
+                            warn: bool = True) -> Tuple[str, Optional[str]]:
+    """(mode, reason): ``("on", None)`` runs the reduce-scatter learner,
+    ``("off", reason or None)`` the full all-reduce. A forced ``on`` that
+    the config cannot honor warns once; ``auto`` resolves to off for
+    such fits silently."""
+    raw = resolve_hist_shard()
+    if raw == "off":
+        return "off", None
+    reason = _hist_shard_supported(cfg, mesh)
+    if reason is None:
+        return "on", None
+    if raw == "on" and warn:
+        env.warn_once(
+            f"{env.HIST_SHARD}:downgrade",
+            f"{env.HIST_SHARD}=on cannot shard the histogram reduction for "
+            f"this fit ({reason}); running the full all-reduce — label A/B "
+            "measurements accordingly")
+    return "off", reason
+
+
+def resolve_mode(cfg: TrainConfig, mesh) -> str:
+    """The fit's tree learner (the reference's ``_resolve_mode``):
+    ``serial`` without a mesh (voting and feature included, as there);
+    under one ``voting`` / ``feature`` as ``tree_learner`` asks, else
+    ``data_sharded`` where :func:`resolve_hist_shard_mode` turns it on,
+    else ``data`` (``parallel_modes.py``)."""
+    if mesh is None:
+        return "serial"
+    if cfg.tree_learner in ("voting", "feature"):
+        return cfg.tree_learner
+    if resolve_hist_shard_mode(cfg, mesh, warn=False)[0] == "on":
+        return "data_sharded"
+    return "data"
+
+
 GROW_POLICY_ENV = "MMLSPARK_TORCH_GROW_POLICY"
 _VALID_GROW = ("depthwise", "leafwise")
 
@@ -434,11 +506,14 @@ def resolve_grow_policy() -> str:
     return raw
 
 
-def _leafwise_supported(cfg: TrainConfig) -> Optional[str]:
+def _leafwise_supported(cfg: TrainConfig, mesh=None) -> Optional[str]:
     """None when leaf-wise growth can honor this config, else the reason
     for the depthwise fallback (the JAX package's
-    ``_leafwise_supported``; its mesh and voting / feature learners raise
-    in the port before this, ROADMAP A8)."""
+    ``_leafwise_supported``)."""
+    if mesh is not None:
+        return "a device mesh is attached (leafwise is single-program)"
+    if cfg.tree_learner in ("voting", "feature"):
+        return f"tree_learner={cfg.tree_learner!r}"
     if cfg.categorical_features:
         return "categorical_features"
     if any(cfg.monotone_constraints or ()):
@@ -450,13 +525,13 @@ def _leafwise_supported(cfg: TrainConfig) -> Optional[str]:
     return None
 
 
-def grow_policy_of(cfg: TrainConfig) -> str:
+def grow_policy_of(cfg: TrainConfig, mesh=None) -> str:
     """The fit's growth policy: ``resolve_grow_policy``, downgraded to
-    depthwise where leaf-wise cannot honor the config, with one warning
-    per process in the reference's words."""
+    depthwise where leaf-wise cannot honor the config (or under a mesh),
+    with one warning per process in the reference's words."""
     policy = resolve_grow_policy()
     if policy == "leafwise":
-        reason = _leafwise_supported(cfg)
+        reason = _leafwise_supported(cfg, mesh)
         if reason is not None:
             env.warn_once(
                 f"{GROW_POLICY_ENV}:downgrade",
@@ -546,17 +621,18 @@ def fits_in_core(n: int, f: int, total_bins: int, dev: torch.device,
 
 def _ooc_supported(cfg: TrainConfig, k: int = 1, has_valid: bool = False,
                    has_custom: bool = False,
-                   has_groups: bool = False) -> Optional[str]:
+                   has_groups: bool = False, mesh=None) -> Optional[str]:
     """None where the chunked loop (``ooc.py``) reproduces this fit
     exactly, else the reason it stays in-core, in the JAX package's words
     (``_ooc_supported``): the serial depthwise numeric plane, whose
     integer histograms merge exactly across row chunks. Anything that
     samples rows or features per iteration, needs full-N state
     (validation scoring, lambdarank groups) or runs another builder stays
-    in-core. The reference's mesh clause has no counterpart (the port
-    has no mesh, ROADMAP A8), nor its clause that the native histogram
-    formulation be available: the port's quantized kernel always sums
-    integers exactly (ROADMAP C24)."""
+    in-core. The reference's clause that the native histogram
+    formulation be available has no counterpart: the port's quantized
+    kernel always sums integers exactly (ROADMAP C24)."""
+    if mesh is not None:
+        return "a device mesh is attached (out-of-core is single-program)"
     if grow_policy_of(cfg) == "leafwise":
         return "leafwise growth"
     if cfg.tree_learner in ("voting", "feature"):
@@ -764,22 +840,27 @@ def _best_splits(gain, remaining, b: int):
     leaf budget (within-level gain ranking): (do_split, best_feat,
     best_bin, remaining)."""
     width = gain.shape[0]
-    dev = gain.device
     flat_gain = gain.reshape(width, -1)
     # torch.argmax returns the first maximum (all -inf rows give 0)
     best_fb = torch.argmax(flat_gain, dim=1)
     best_gain = torch.gather(flat_gain, 1, best_fb[:, None])[:, 0]
     best_feat = best_fb // b
     best_bin = best_fb % b
+    do_split, remaining = _leaf_budget(best_gain, remaining)
+    return do_split, best_feat, best_bin, remaining
 
-    # leaf budget: within-level gain ranking (stable, as jnp.argsort)
+
+def _leaf_budget(best_gain, remaining):
+    """The leaf budget over the nodes' best gains (within-level gain
+    ranking, stable, as jnp.argsort): (do_split, remaining)."""
+    width = best_gain.shape[0]
     can_split = torch.isfinite(best_gain)
     order = torch.argsort(-torch.where(can_split, best_gain, -torch.inf),
                           stable=True)
     rank = torch.empty_like(order).scatter_(
-        0, order, torch.arange(width, device=dev))
+        0, order, torch.arange(width, device=best_gain.device))
     do_split = can_split & (rank < remaining)
-    return do_split, best_feat, best_bin, remaining - do_split.sum()
+    return do_split, remaining - do_split.sum()
 
 
 def _children(hist, best_feat, left_mask, parent_value, *, lam1, lam2,
@@ -792,6 +873,17 @@ def _children(hist, best_feat, left_mask, parent_value, *, lam1, lam2,
     left_stats = torch.sum(hist_best * left_mask[..., None], dim=1)
     tot_best = torch.sum(hist_best, dim=1)
     right_stats = tot_best - left_stats
+    lval, rval, smaller_side = _child_values(
+        left_stats, right_stats, parent_value, lam1=lam1, lam2=lam2,
+        path_smooth=path_smooth, max_delta_step=max_delta_step,
+        extra_l2=extra_l2)
+    return lval, rval, left_stats, right_stats, smaller_side
+
+
+def _child_values(left_stats, right_stats, parent_value, *, lam1, lam2,
+                  path_smooth, max_delta_step, extra_l2=None):
+    """(lval, rval, smaller_side) of the chosen splits from their (width,
+    3) child stats."""
     lval, _ = _leaf_objective_impl(left_stats[:, 0], left_stats[:, 1],
                                    lam1, lam2, extra_l2)
     rval, _ = _leaf_objective_impl(right_stats[:, 0], right_stats[:, 1],
@@ -806,7 +898,7 @@ def _children(hist, best_feat, left_mask, parent_value, *, lam1, lam2,
         lval = torch.clamp(lval, -max_delta_step, max_delta_step)
         rval = torch.clamp(rval, -max_delta_step, max_delta_step)
     smaller_side = torch.where(left_stats[:, 2] <= right_stats[:, 2], 0, 1)
-    return lval, rval, left_stats, right_stats, smaller_side
+    return lval, rval, smaller_side
 
 
 def _find_general_splits(hist, fmask, remaining, parent_value, is_cat,
@@ -1014,7 +1106,7 @@ def _route_rows(node, d: int, local, binned, best_feat, best_bin, do_split,
 def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
                total_bins: int, hist_quant: str = "off",
                subtract: bool = False, valid=None, feat_mask=None, key=None,
-               efb=None):
+               efb=None, learner=None, root=None):
     """One depthwise tree over the (N, F) uint8, uint16 or int32 ``binned``
     matrix with (N,) float32 ``grad`` / ``hess``. ``hist_quant``
     (off|q16|q8) picks the histogram plane and ``subtract`` the sibling
@@ -1033,7 +1125,17 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
     fit with categorical features also (decision_type int8 (slots,),
     bin_go_left bool (slots, B): the bins each split sends left, by which
     its rows are routed; ``_find_general_splits``), as the reference's
-    ``make_build_tree`` returns them."""
+    ``make_build_tree`` returns them.
+
+    ``learner``: this rank's ``parallel_modes.Learner`` in a
+    multi-device fit (float32 plane, no EFB plan): the ``data`` learner
+    reduces each level's histogram, the others find the level's splits
+    by their own protocol (``find_splits``), padding rows are kept out
+    of every histogram (``live_rows``), and the feature learner routes
+    the rows (``route``) and returns each row's final slot as a fifth
+    tensor, as its columns alone cannot score them. ``root``: the root's
+    (sum of grad, sum of hess, count), :func:`_root_sums` of every row
+    where the rows are a rank's share (None: of these rows)."""
     dev = binned.device
     n, f = binned.shape
     b = total_bins
@@ -1084,10 +1186,10 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
         node_upper = torch.full((num_slots,), torch.inf, device=dev)
     fmask = None if feat_mask is None else (feat_mask > 0)[None, :]
 
-    # every row valid: grad * 1 and hess * 1 are the same bits
-    grad_v, hess_v = ((grad, hess) if valid is None else
-                      (grad * valid, hess * valid))
     if hist_quant != "off":
+        # every row valid: grad * 1 and hess * 1 are the same bits
+        grad_v, hess_v = ((grad, hess) if valid is None else
+                          (grad * valid, hess * valid))
         # per-round shared pow2 scales; rows outside `valid` quantize to 0
         qdt = torch.int8 if hist_quant == "q8" else torch.int16
         qmax = 120.0 if hist_quant == "q8" else 32000.0
@@ -1097,14 +1199,13 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
         grad_q = torch.round(grad_v * gscale).to(qdt)
         hess_q = torch.round(hess_v * hscale).to(qdt)
     else:
-        rv, _ = _leaf_objective_impl(torch.sum(grad_v), torch.sum(hess_v),
-                                     lam1, lam2)
+        if root is None:
+            root = _root_sums(grad, hess, valid)
+        rv, _ = _leaf_objective_impl(root[0], root[1], lam1, lam2)
         if cfg.max_delta_step > 0:
             rv = torch.clamp(rv, -cfg.max_delta_step, cfg.max_delta_step)
         node_value[0] = rv
-        node_count[0] = torch.sum(
-            torch.ones(n, dtype=torch.float32, device=dev) if valid is None
-            else valid)
+        node_count[0] = root[2]
     # filled on the device: a host->device copy would sync every tree
     remaining = torch.full((), num_leaves - 1, dtype=torch.int64, device=dev)
     prev_hist = prev_split = prev_ss = None
@@ -1116,10 +1217,16 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
             hist = level_histogram_quant(hist_mat, grad_q, hess_q, live,
                                          local, width, f_hist, b, gscale_inv,
                                          hscale_inv)
+        elif learner is not None:
+            hist = learner.histogram(hist_mat, grad, hess, live, local,
+                                     width, b)
         else:
             hist = level_histogram(hist_mat, grad, hess, live, local, width,
                                    f_hist, b)
         return hist if efb is None else _unbundle_hist(hist, efb, f, b)
+
+    # the learners that find splits by their own protocol
+    selects = learner is not None and learner.mode != "data"
 
     for d in range(depth):
         level_start = 2 ** d - 1
@@ -1129,6 +1236,21 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
         live = at_level.to(torch.float32)
         if valid is not None:
             live = live * valid
+        if learner is not None:
+            live = learner.live_rows(live)
+        if selects:
+            (do_split, best_feat, best_bin, lval, rval, left_stats,
+             right_stats, remaining, small_side) = learner.find_splits(
+                hist_mat, grad, hess, live, local, width, fmask, remaining,
+                node_value[level_start:kids], split_kw)
+            _record_level((split_feature, threshold_bin, node_value,
+                           node_count), d, do_split, best_feat, best_bin,
+                          lval, rval, left_stats, right_stats)
+            node = learner.route(node, d, local, binned, best_feat,
+                                 best_bin, do_split) \
+                if learner.mode == "feature" else _route_rows(
+                    node, d, local, binned, best_feat, best_bin, do_split)
+            continue
         if subtract and d > 0:
             # the smaller child of each split only, by masking its
             # sibling's rows out of live: masked rows fall in no tile of
@@ -1208,7 +1330,19 @@ def build_tree(binned, grad, hess, num_leaves: int, cfg: TrainConfig,
     if has_cat:
         return (split_feature, threshold_bin, node_value, node_count,
                 decision_type, bin_go_left)
+    if learner is not None and learner.mode == "feature":
+        return split_feature, threshold_bin, node_value, node_count, node
     return split_feature, threshold_bin, node_value, node_count
+
+
+def _root_sums(grad, hess, valid=None):
+    """The float32 root's (sum of grad, sum of hess, count) over the rows
+    ``valid`` (a 0/1 float32 mask, every row where None) keeps."""
+    if valid is None:
+        return (torch.sum(grad), torch.sum(hess), torch.sum(torch.ones(
+            grad.shape[0], dtype=torch.float32, device=grad.device)))
+    return (torch.sum(grad * valid), torch.sum(hess * valid),
+            torch.sum(valid))
 
 
 def _predict_tree(sf, tb, nv, binned, depth: int, bin_go_left=None):
@@ -1248,6 +1382,18 @@ def warm_start_scores(init_model: Optional[BoosterArrays], x: np.ndarray,
     return s
 
 
+def _check_bin_range(binned, total_bins: int):
+    """Raise where an id of ``binned`` lies outside [0, max_bin); return
+    the ids as compared (int64 for uint16 and float tensors)."""
+    ids = (bin_ids(binned) if isinstance(binned, torch.Tensor)
+           and (binned.dtype == torch.uint16 or binned.is_floating_point())
+           else binned)
+    if binned.shape[0] and (int(ids.min()) < 0
+                            or int(ids.max()) >= total_bins):
+        raise ValueError(f"bin ids must lie in [0, max_bin={total_bins})")
+    return ids
+
+
 def _binned_to_device(binned, total_bins: int, dev: torch.device):
     """(N, F) bin ids (numpy, or a tensor on any device) -> uint8 (at most
     256 bins), uint16 (at most 65,536) or int32 (past that) on ``dev``,
@@ -1257,12 +1403,7 @@ def _binned_to_device(binned, total_bins: int, dev: torch.device):
     want = binned_ingest_dtype(total_bins)
     tensor = isinstance(binned, torch.Tensor)
     # The range is checked on the ids as given, before any narrowing.
-    ids = (bin_ids(binned) if tensor and (binned.dtype == torch.uint16
-                                          or binned.is_floating_point())
-           else binned)
-    if binned.shape[0] and (int(ids.min()) < 0
-                            or int(ids.max()) >= total_bins):
-        raise ValueError(f"bin ids must lie in [0, max_bin={total_bins})")
+    ids = _check_bin_range(binned, total_bins)
     if want == np.int32:
         if not tensor:
             ids = torch.from_numpy(np.ascontiguousarray(
@@ -1335,7 +1476,8 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
           device: DeviceLike = None,
           custom_objective: Optional[Callable] = None,
           iteration_offset: int = 0, capture: bool = True,
-          group_ids: Optional[np.ndarray] = None) -> TrainResult:
+          group_ids: Optional[np.ndarray] = None,
+          mesh=None) -> TrainResult:
     """Boosting loop. ``binned``: (N, F) bin ids (``BinMapper.transform``
     output, or a uint8 tensor already on the device); ``weights``:
     optional (N,) row weights; ``bin_upper``: (F, B) raw-value bin upper
@@ -1433,20 +1575,64 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     (``plan_efb``), read once here; ``hist_stats`` records what ran,
     and the growth policy (``"grow_policy"``).
     Bin ids go to the device as uint8 up to ``max_bin=256``, as uint16
-    up to 65,536, else as int32."""
+    up to 65,536, else as int32.
+
+    ``mesh`` (``parallel.mesh.create_mesh``): a multi-device fit. Every
+    rank of the mesh calls ``train`` with the same arguments (the full
+    arrays) and gets the same result; the tree learner is
+    ``resolve_mode``'s (``parallel_modes.py``): ``data`` or
+    ``data_sharded`` (rows sharded over ``dp``, padded to a multiple of
+    it with rows that ``row_valid`` keeps out of the histograms, the bag
+    and the metrics), ``voting`` (rows over ``dp``) or ``feature``
+    (columns over ``fp``). Each rank holds its share on its device; the
+    sampling draws are keyed by the global row index, the base score and
+    the bin-range check are taken over every row, validation sets are
+    scored whole on every rank, and the training metrics on the gathered
+    scores, so the trees, scores and metrics are the serial fit's bit
+    for bit (voting at ``top_k >= F``). As in the reference, the
+    quantized plane falls back to float32 with one warning, leaf-wise
+    growth to depthwise and out-of-core training to in-core, with the
+    reference's reasons; EFB is not planned; only ``data`` subtracts.
+    The step runs uncaptured. DART, GOSS, lambdarank, query groups and
+    custom objectives raise ``NotImplementedError`` naming ROADMAP A8b.
+    ``hist_stats`` adds ``hist_shard``, ``hist_shard_reason`` (where the
+    reduce-scatter is off for a reason) and ``grad_shard``."""
     from mmlspark_tpu_torch.models.gbdt import host_loop
     from mmlspark_tpu_torch.models.gbdt import step as step_mod
 
     dev = resolve_device(device)
     check_supported(cfg)
     measures = measures if measures is not None else InstrumentationMeasures()
-    grow_policy = grow_policy_of(cfg)
+    mode = resolve_mode(cfg, mesh)
+    learner = None
+    if mesh is not None:
+        from mmlspark_tpu_torch.models.gbdt import parallel_modes
+        parallel_modes.check_supported(cfg, mode, binned.shape[1], mesh)
+        for what, hit in (("a custom objective", custom_objective),
+                          ("query groups (group_ids)", group_ids)):
+            if hit is not None:
+                raise NotImplementedError(
+                    f"{what} under a mesh is not in the port yet "
+                    f"({parallel_modes.A8B})")
+        learner = parallel_modes.Learner(mode, mesh, cfg, binned.shape[0],
+                                         binned.shape[1])
+    grow_policy = grow_policy_of(cfg, mesh)
     leafwise = grow_policy == "leafwise"
     host = leafwise or cfg.boosting_type == "dart"
     # leaf-wise histograms run the float32 plane on the rows' own matrix
     # and always derive the larger child by subtraction
     hist_quant = "off" if leafwise else resolve_hist_quant()
     subtract = leafwise or resolve_subtract()
+    if learner is not None:
+        if hist_quant != "off":
+            env.warn_once(
+                f"{HIST_QUANT_ENV}:mesh",
+                f"{HIST_QUANT_ENV} is single-program only; sharded "
+                "(data/voting/feature-parallel) fits build f32 histograms "
+                "— label A/B measurements accordingly")
+            hist_quant = "off"
+        # the other learners histogram each level whole
+        subtract = subtract and mode == "data"
     total_bins = cfg.max_bin
     depth = cfg.effective_depth
     n, num_f = binned.shape
@@ -1470,7 +1656,7 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
         ooc_reason = _ooc_supported(
             cfg, k=k, has_valid=bool(valid_sets),
             has_custom=custom_objective is not None,
-            has_groups=group_ids is not None)
+            has_groups=group_ids is not None, mesh=mesh)
         want_ooc = (ooc_mode == "on"
                     or not fits_in_core(n, num_f, total_bins, dev,
                                         2 ** max(cfg.effective_depth - 1,
@@ -1514,8 +1700,15 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     with measures.phase("dataPreparation"):
         # the binned matrix goes to the device once, at the narrowest
         # dtype; an EFB plan's bundled matrix beside it
-        binned_d = _binned_to_device(binned, total_bins, dev)
-        efb_plan, efb_maps = ((None, None) if leafwise
+        if learner is None:
+            binned_d = _binned_to_device(binned, total_bins, dev)
+        else:
+            # the range over every row, then this rank's share
+            _check_bin_range(binned, total_bins)
+            binned_d = _binned_to_device(learner.columns(binned), total_bins,
+                                         dev)
+            learner.set_device(dev)
+        efb_plan, efb_maps = ((None, None) if leafwise or learner is not None
                               else plan_efb(binned_d, cfg))
         if init_model is not None:
             # continued training: keep the old model's base score and fit
@@ -1532,11 +1725,20 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
             base_score = (obj_mod.init_score(cfg.objective, labels, weights)
                           if cfg.boost_from_average
                           and cfg.objective != "lambdarank" else 0.0)
+        # every row's labels and weights (a multi-device step evaluates the
+        # objective and the metrics on every row); the raw scores of this
+        # rank's rows
         labels_d = _f32(labels, dev)
         weights_d = None if weights is None else _f32(weights, dev)
-        raw = (_f32(init_raw, dev, shape_of(n)) if init_raw is not None else
-               torch.full(shape_of(n), base_score, dtype=torch.float32,
-                          device=dev))
+        n_rows = n
+        if learner is not None:
+            n_rows = learner.n_local
+            if init_raw is not None:
+                init_raw = learner.rows(np.asarray(
+                    init_raw, dtype=np.float32).reshape(shape_of(n)))
+        raw = (_f32(init_raw, dev, shape_of(n_rows)) if init_raw is not None
+               else torch.full(shape_of(n_rows), base_score,
+                               dtype=torch.float32, device=dev))
         layout = layout_of(group_ids)
         valids = []
         for vi, vset in enumerate(valid_sets or []):
@@ -1583,8 +1785,9 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
         cfg, binned_d, labels_d, weights_d, raw, valids, layout=layout,
         lr=cfg.learning_rate, base=base_score, hist_quant=hist_quant,
         subtract=subtract, custom_objective=custom_objective,
-        capture=capture and not host, efb=efb_maps,
-        efb_key=None if efb_plan is None else efb_plan.cache_key)
+        capture=capture and not host and learner is None, efb=efb_maps,
+        efb_key=None if efb_plan is None else efb_plan.cache_key,
+        learner=learner)
     cached_graph = st.graph is not None
     runner = (host_loop.HostLoop(st, labels, leafwise=leafwise,
                                  iteration_offset=iteration_offset)
@@ -1632,16 +1835,22 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
         base_score, best_iter, init_model, masks, k,
         tree_weights=(None if runner is None
                       else runner.tree_weights[:kept * k]))
+    hist_stats = {"ooc": False, "ooc_reason": ooc_reason,
+                  "grow_policy": grow_policy,
+                  "hist_quant": hist_quant, "subtract": subtract,
+                  "efb_bundles": (0 if efb_plan is None
+                                  else len(efb_plan.bundles)),
+                  "efb_bundled_features": (
+                      0 if efb_plan is None
+                      else efb_plan.n_bundled_features)}
+    if learner is not None:
+        shard, reason = resolve_hist_shard_mode(cfg, mesh)
+        hist_stats.update(hist_shard=shard,
+                          grad_shard="off" if mode == "feature" else "dp")
+        if reason is not None:
+            hist_stats["hist_shard_reason"] = reason
     return TrainResult(booster=booster, evals=evals, best_iteration=best_iter,
-                       hist_stats={
-                           "ooc": False, "ooc_reason": ooc_reason,
-                           "grow_policy": grow_policy,
-                           "hist_quant": hist_quant, "subtract": subtract,
-                           "efb_bundles": (0 if efb_plan is None
-                                           else len(efb_plan.bundles)),
-                           "efb_bundled_features": (
-                               0 if efb_plan is None
-                               else efb_plan.n_bundled_features)},
+                       hist_stats=hist_stats,
                        step_stats={"captured": st.graph is not None,
                                    "capture_s": None if cached_graph
                                    else st.capture_s,

@@ -59,6 +59,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # bin bytes, smem bytes, slices, tiles, device, out: 4 int32 (SMs,
         # CTAs per SM, CTAs, CTAs per tile)
         "mmls_level_hist_grid": ([_I] * 5 + [ctypes.POINTER(_I)], _I),
+        # grad, hess, live, amax bits (3 uint64), n, device, stream
+        "mmls_level_hist_amax": ([_VP] * 4 + [_LL, _I, _VP], _I),
+        # binned, grad, hess, live, local, local bytes, stats, counts,
+        # offsets, order, int32 ids' scratch, exps (3 int64), acc, n, f,
+        # b, width, f_slice, num_slices, bin bytes, tile bins, tiles, smem
+        # bytes, device, stream
+        "mmls_level_hist_sums": ([_VP] * 5 + [_I] + [_VP] * 7 + [_LL]
+                                 + [_I] * 10 + [_VP], _I),
+        # acc, exps, out, cells, device, stream
+        "mmls_level_hist_round": ([_VP] * 3 + [_LL, _I, _VP], _I),
         "mmls_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "level_hist_quant": {

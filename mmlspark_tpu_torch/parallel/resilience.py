@@ -9,7 +9,7 @@ for a low-priority refit that shares the process (and the card) with a
 server, and it yields while the server's queue sits past its high-water
 mark (``io/refresh.py``). With no throttle installed each hook is a
 single ``is None`` check. The train-step watchdog, stall attribution and
-elastic resume of the reference wait for ROADMAP A8.
+elastic resume of the reference wait for ROADMAP A8b.
 """
 
 from __future__ import annotations
@@ -42,4 +42,4 @@ def step_start(tag: Any = None) -> None:
 
 def step_end() -> None:
     """A train step ended: the watchdog's span closes here in the
-    reference (ROADMAP A8); the port keeps the call site."""
+    reference (ROADMAP A8b); the port keeps the call site."""

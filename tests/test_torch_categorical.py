@@ -542,9 +542,23 @@ def test_assembly_refuses_category_values_a_bitset_cannot_hold():
 
 
 def test_voting_and_feature_learners_still_refuse():
-    with pytest.raises(NotImplementedError, match="A8"):
-        trainer.check_supported(trainer.TrainConfig(
-            categorical_features=(0,), tree_learner="voting"))
+    """Without a mesh the voting learner trains serially, categorical
+    features and all, as the JAX package's; under a mesh the voting and
+    feature learners refuse categorical features with the reference's
+    message (``parallel_modes.check_supported``)."""
+    import torch
+
+    from mmlspark_tpu_torch.models.gbdt import parallel_modes
+    from mmlspark_tpu_torch.parallel.mesh import Mesh
+
+    cfg = trainer.TrainConfig(categorical_features=(0,), tree_learner="voting")
+    trainer.check_supported(cfg)
+    assert trainer.resolve_mode(cfg, None) == "serial"
+    mesh = Mesh(1, 1, {}, 0, "gloo", torch.device("cpu"))
+    for mode in ("voting", "feature"):
+        with pytest.raises(NotImplementedError,
+                           match="categorical splits are implemented"):
+            parallel_modes.check_supported(cfg, mode, 4, mesh)
 
 
 def test_train_config_takes_a_list_of_categorical_slots():

@@ -561,12 +561,11 @@ def test_diabetes_l2_matches_sklearn_hgb():
 # --- what the slice does not take ----------------------------------------------
 
 @pytest.mark.parametrize("kind,params,item", [
-    # goss, rf, bagging and feature_fraction fit (tests/test_torch_step.py),
-    # and so do extraTrees, featureFractionByNode, monotoneConstraints,
-    # maxBin up to 65,536 (tests/test_torch_breadth.py) and past it
-    # (tests/test_torch_int32.py) and dart (tests/test_torch_dart.py);
-    # beside a setting still outside the port they raise for that one (the
-    # cases that raised for maxBin past 65,536 keep their ids)
+    # without a mesh voting_parallel and feature_parallel train serially,
+    # as the JAX estimators do: each setting beside them fits as it does
+    # beside parallelism="serial" (the cases that raised for maxBin past
+    # 65,536 keep their ids; ``item`` names the ROADMAP item that brought
+    # the learners, A8; under a mesh they are tests/test_torch_dist_gbdt.py's)
     ("LightGBMClassifier", {"boostingType": "goss", "extraTrees": True,
                             "parallelism": "voting_parallel"}, "A8"),
     pytest.param("LightGBMClassifier", {
@@ -604,15 +603,24 @@ def test_diabetes_l2_matches_sklearn_hgb():
 ])
 def test_settings_outside_the_slice_raise(kind, params, item):
     x, y_bin, _ = _data(n=300)
-    est = getattr(estimators, kind)(**params).set_device("cpu")
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
-        est.fit(DataFrame({"features": x, "label": y_bin}))
+    frame = DataFrame({"features": x, "label": y_bin})
+
+    def fit(**over):
+        return getattr(estimators, kind)(
+            **{"numIterations": 2, **params, **over}).set_device("cpu").fit(
+                frame).get_model_string()
+
+    serial = ({"passThroughArgs": params["passThroughArgs"].replace(
+        "tree_learner=voting", "tree_learner=serial")}
+        if "passThroughArgs" in params else {"parallelism": "serial"})
+    assert item == "A8" and fit() == fit(**serial)
 
 
 def test_multiclass_ranker_mesh_and_serving_raise():
     """Multiclass labels and the ranker fit (their parity tests are
     ``tests/test_torch_multiclass.py`` and ``tests/test_torch_ranking.py``);
-    a mesh raises (ROADMAP A8), and so does the binned plane for the
+    ``set_mesh`` takes a ``parallel.mesh.Mesh`` (multi-device fits are
+    tests/test_torch_dist_gbdt.py's), and the binned plane refuses the
     leaf column."""
     x, _, y_int = _data(n=300)
     model = estimators.LightGBMClassifier(numIterations=2).set_device(
@@ -622,7 +630,7 @@ def test_multiclass_ranker_mesh_and_serving_raise():
     assert model.booster.num_trees == 2 * k
     assert isinstance(estimators.LightGBMRanker(),
                       estimators.LightGBMRanker)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(TypeError, match="Mesh"):
         estimators.LightGBMClassifier().set_mesh(object())
     model = estimators.LightGBMRegressor(numIterations=1).set_device(
         "cpu").fit(DataFrame({"features": x, "label": y_int}))

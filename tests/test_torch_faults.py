@@ -35,6 +35,8 @@ LIFECYCLE_POINTS = {"serving.score", "serving.worker_kill",
                     "registry.swap_fanout", "fleet.spawn", "fleet.heartbeat",
                     "net.half_open", "net.slow_reply", "net.latency",
                     "stream.ingest", "refresh.fit"}
+# placed with the multi-device rendezvous (parallel/mesh.py)
+DISTRIBUTED_POINTS = {"distributed.init"}
 
 
 @pytest.fixture(autouse=True)
@@ -63,7 +65,9 @@ def test_every_fault_point_site_is_registered():
     points are threaded where the reference has them."""
     sites = _sites()
     assert not set(sites) - set(faults.KNOWN_POINTS), sites
-    assert set(sites) == TRAINING_POINTS | LIFECYCLE_POINTS
+    assert set(sites) == TRAINING_POINTS | LIFECYCLE_POINTS \
+        | DISTRIBUTED_POINTS
+    assert sites["distributed.init"] == {"mesh.py"}
     # the out-of-core loop's tree loop and spill plane: where the
     # reference's ooc.py and ops/ingest.py have them
     assert sites["gbdt.train_step"] == {"trainer.py", "ooc.py"}

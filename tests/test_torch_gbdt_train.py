@@ -225,12 +225,10 @@ def test_bin_ids_outside_max_bin_raise(bad):
 
 
 @pytest.mark.parametrize("setting", [
-    # goss, bagging and feature_fraction train (tests/test_torch_step.py),
-    # and so do extra_trees, feature_fraction_by_node, monotone
-    # constraints, max_bin up to 65,536 (tests/test_torch_breadth.py) and
-    # past it (tests/test_torch_int32.py) and dart
-    # (tests/test_torch_dart.py); beside a setting still outside the port
-    # they raise for that one
+    # without a mesh the voting and feature-parallel learners train
+    # serially, as the JAX package's do (``_resolve_mode``): each setting
+    # beside them fits (or raises) as it does beside the serial learner;
+    # under a mesh they are tests/test_torch_dist_gbdt.py's
     {"boosting_type": "goss", "extra_trees": True, "tree_learner": "voting"},
     {"feature_fraction": 0.5, "feature_fraction_by_node": 0.5,
      "boosting_type": "dart", "tree_learner": "voting"},
@@ -242,24 +240,33 @@ def test_bin_ids_outside_max_bin_raise(bad):
     {"tree_learner": "voting"},
     {"boosting_type": "dart", "max_bin": 70_000, "tree_learner": "voting"},
     {"feature_fraction_by_node": 0.5, "tree_learner": "voting"},
-    # bin ids past 65,536 (the reference's int32 ids) train; beside the
-    # feature-parallel learner the fit raises for it
+    # bin ids past 65,536 (the reference's int32 ids)
     {"max_bin": 70_000, "tree_learner": "feature"},
-    # multiclass and ndcg train (tests/test_torch_multiclass.py,
-    # tests/test_torch_ranking.py); beside a setting still outside the
-    # port they raise for that one
+    # multiclass; ndcg raises without query ids, as beside the serial
+    # learner
     {"objective": "multiclass", "num_class": 3, "extra_trees": True,
      "boosting_type": "dart", "tree_learner": "voting"},
     {"metric": "ndcg", "boosting_type": "dart", "max_bin": 70_000,
      "tree_learner": "voting"},
 ])
 def test_settings_outside_the_slice_raise(setting):
-    x, y_bin, _ = _data(n=200)
+    x, y_bin, y_int = _data(n=200)
     binned = BinMapper.fit(x, max_bin=MAX_BIN).transform(x)
-    cfg = trainer.TrainConfig(**{"objective": "binary", "num_iterations": 1,
-                                 **setting})
-    with pytest.raises(NotImplementedError):
-        trainer.train(binned, y_bin, cfg, device="cpu")
+    y = (np.minimum(y_int, 2) if setting.get("objective") == "multiclass"
+         else y_bin)
+
+    def outcome(tree_learner):
+        cfg = trainer.TrainConfig(**{"objective": "binary",
+                                     "num_iterations": 1, **setting,
+                                     "tree_learner": tree_learner})
+        try:
+            b = trainer.train(binned, y, cfg, device="cpu").booster
+        except (NotImplementedError, ValueError) as e:
+            return type(e), str(e)
+        return tuple(np.asarray(a).tobytes() for a in (
+            b.split_feature, b.threshold_bin, b.node_value, b.count))
+
+    assert outcome(setting["tree_learner"]) == outcome("serial")
 
 
 # --- custom objectives (fobj) ---------------------------------------------------
