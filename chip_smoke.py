@@ -7130,6 +7130,344 @@ def phase_dist_gbdt(ctx):
     return out
 
 
+# phase resilience_path: the bench estimator fit checkpointed every 5
+# trees; the gloo ranks' loss at hit 11 of train.participant_loss (the
+# first iteration of segment 3); the watchdog's budget and hang
+RES_INTERVAL, RES_LOSS_HIT = 5, 11
+RES_HANG_S, RES_MIN_S, RES_REPS = 30.0, 0.3, 3
+
+
+def resilience_params():
+    return dict(numIterations=TREES, numLeaves=63, maxDepth=6,
+                minDataInLeaf=20, checkpointInterval=RES_INTERVAL)
+
+
+def counted_hits(fn, *points):
+    """(``fn()``, {point: hits}): hits counted under a fault armed on each
+    point never to fire."""
+    from mmlspark_tpu_torch.core import faults
+    faults.reset()
+    for point in points:
+        faults.arm(point, "delay", nth=10 ** 9, count=None)
+    try:
+        out = fn()
+        return out, {p: faults.hits(p) for p in points}
+    finally:
+        faults.reset()
+
+
+def resilience_rank_main(rank, world, store, data_dir):
+    """One gloo rank of phase ``resilience_path`` on ``cuda:0``: the bench
+    ``LightGBMClassifier`` checkpointed fit on a ``world``-rank mesh, then
+    ``fit_resilient`` with ``ParticipantLost`` injected at hit
+    ``RES_LOSS_HIT`` of ``train.participant_loss`` on every rank (each
+    rank's checkpoint directory its own); each rank writes its records."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from mmlspark_tpu_torch import DataFrame, LightGBMClassifier
+    from mmlspark_tpu_torch.core import faults
+    from mmlspark_tpu_torch.parallel import mesh as M
+    from mmlspark_tpu_torch.parallel import resilience as R
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=120))
+    out = {}
+    try:
+        x, y = make_data(N)
+        frame = DataFrame({"features": x, "label": y})
+        mesh = M.create_mesh()
+        mine = os.path.join(data_dir, f"rank{rank}")
+        ck = os.path.join(mine, "uninterrupted")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, hits = counted_hits(lambda: LightGBMClassifier(
+            **resilience_params(), checkpointDir=ck).set_mesh(mesh).fit(
+                frame), "checkpoint.write")
+        torch.cuda.synchronize()
+        out["uninterrupted"] = {
+            "wall_s": time.perf_counter() - t0, "hits": hits,
+            "model": model.get_model_string(),
+            "files": sorted(os.listdir(ck)) if os.path.isdir(ck) else None}
+        ck = os.path.join(mine, "resilient")
+        est = LightGBMClassifier(**resilience_params())
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with faults.injected("train.participant_loss", "raise",
+                             nth=RES_LOSS_HIT,
+                             exc=R.ParticipantLost(f"rank {world - 1} lost")):
+            res = R.fit_resilient(est, frame, checkpoint_dir=ck,
+                                  checkpoint_interval=RES_INTERVAL,
+                                  mesh=mesh)
+        torch.cuda.synchronize()
+        out["resilient"] = {
+            "wall_s": time.perf_counter() - t0,
+            "model": None if res.model is None
+            else res.model.get_model_string(),
+            "recoveries": [dataclasses.asdict(r) for r in res.recoveries],
+            "mesh_ranks": None if res.mesh is None else res.mesh.ranks,
+            "files": sorted(os.listdir(ck)) if os.path.isdir(ck) else None}
+        with open(os.path.join(data_dir, f"rank{rank}.pkl"), "wb") as fh:
+            pickle.dump(out, fh)
+    except BaseException:
+        traceback.print_exc()
+    finally:
+        # rank 1 left the fit: no collective teardown
+        sys.stdout.flush()
+        os._exit(0 if "resilient" in out else 1)
+
+
+def phase_resilience(ctx):
+    """Resumable and elastic multi-device GBDT at the main path's full
+    width (the 2M x 28 bench ``LightGBMClassifier`` fit, 20 trees, 63
+    leaves, depth 6, ``checkpointInterval`` 5): (a) on a one-rank NCCL
+    mesh the checkpointed fit uninterrupted, and killed by an armed
+    ``train.participant_loss`` raise at hit 11 and re-fit from its
+    directory (resumes at 10), each bitwise the unmeshed checkpointed
+    fit, with ``checkpoint.write`` hits, each segment's write ms and each
+    fit's wall, and the sums entries' and ``tree_score``'s launches; (b)
+    two gloo ranks on this card (``--dist-rank ... resilience``): the
+    uninterrupted two-rank fit, then ``fit_resilient`` with
+    ``ParticipantLost`` at hit 11 on both ranks: recoveries [(2 -> 1)],
+    rank 1 leaves (``model=None``), rank 0 bitwise the serial
+    checkpointed fit, only rank 0 writing; (c) the watchdog after a warm
+    captured ``train``: MULT 4, MIN_S 0.3 and a 30 s
+    ``mesh.collective_hang`` delay raise ``TrainStalled``
+    (collective-stall, boundary ``collective``) in under 15 s and leave
+    no watchdog thread; off, a 0.2 s delay gives the undelayed bits;
+    (d) three warm runs each of the captured bench ``train`` with the
+    watchdog off and armed (MULT 4, MIN_S 60), medians, bits equal."""
+    import shutil
+    import tempfile
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch import DataFrame, LightGBMClassifier, train
+    from mmlspark_tpu_torch.core import faults, serialize
+    from mmlspark_tpu_torch.core.env import (WATCHDOG_MIN_S, WATCHDOG_MULT,
+                                             env_override)
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+    from mmlspark_tpu_torch.parallel import mesh as M
+    from mmlspark_tpu_torch.parallel import resilience as R
+
+    out = {"card": ctx["smi"]}
+    x, y = make_data(N)
+    frame = DataFrame({"features": x, "label": y})
+    counters = ("hist_sums_kernel_launches", "hist_amax_launches",
+                "hist_round_launches")
+    writes = []
+    real_write = serialize.atomic_write
+
+    def timed_write(path, data, mode="w"):
+        t0 = time.perf_counter()
+        real_write(path, data, mode)
+        writes.append((os.path.basename(path), t0, time.perf_counter()))
+
+    def fit(ck, mesh=None):
+        est = LightGBMClassifier(**resilience_params(), checkpointDir=ck)
+        if mesh is not None:
+            est.set_mesh(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est.fit(frame)
+        torch.cuda.synchronize()
+        return model.get_model_string(), time.perf_counter() - t0
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    procs = []
+    try:
+        # --- (a) a one-rank NCCL mesh --------------------------------------
+        serial, serial_s = fit(os.path.join(tmp, "serial"))
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                                world_size=1, rank=0,
+                                timeout=timedelta(seconds=120))
+        try:
+            mesh = M.create_mesh()
+            for name in counters:
+                setattr(H, name, 0)
+            S.tree_score_launches = 0
+            serialize.atomic_write = timed_write
+            try:
+                (meshed, meshed_s), hits = counted_hits(
+                    lambda: fit(os.path.join(tmp, "meshed"), mesh),
+                    "checkpoint.write")
+            finally:
+                serialize.atomic_write = real_write
+            starts = {n: t for n, t, _ in writes}
+            ends = {n: t for n, _, t in writes}
+            seg_ms = {k: (ends[f"checkpoint_{k}.txt.crc32"]
+                          - starts[f"checkpoint_{k}.txt"]) * 1e3
+                      for k in range(RES_INTERVAL, TREES + 1, RES_INTERVAL)}
+            ck = os.path.join(tmp, "killed")
+            killed = False
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                with faults.injected("train.participant_loss", "raise",
+                                     nth=RES_LOSS_HIT):
+                    fit(ck, mesh)
+            except faults.FaultInjected:
+                killed = True
+            killed_s = time.perf_counter() - t0
+            after_kill = sorted(os.listdir(ck))
+            (resumed, resumed_s), steps = counted_hits(
+                lambda: fit(ck, mesh), "gbdt.train_step")
+            launches = {name: getattr(H, name) for name in counters}
+            launches["tree_score"] = S.tree_score_launches
+        finally:
+            dist.destroy_process_group()
+        ctx["launches"]["resilience_path"] = launches
+        out["nccl_p1"] = {
+            "serial_fit_s": serial_s, "meshed_fit_s": meshed_s,
+            "killed_fit_s": killed_s, "resumed_fit_s": resumed_s,
+            "checkpoint_write_hits": hits["checkpoint.write"],
+            "segment_write_crc_ms": seg_ms, "killed": killed,
+            "after_kill": after_kill,
+            "resumed_iterations": steps["gbdt.train_step"],
+            "meshed_bitwise_serial": meshed == serial,
+            "resumed_bitwise_serial": resumed == serial,
+            "launches": launches}
+
+        # --- (b) two gloo ranks on this card -------------------------------
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank",
+             str(rank), str(DIST_WORLD), os.path.join(tmp, "gloo"), tmp,
+             "resilience"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(DIST_WORLD)]
+        logs = [p.communicate(timeout=DIST_RANK_TIMEOUT_S)[0] for p in procs]
+        ranks_s = time.perf_counter() - t0
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"gloo rank {rank} failed:\n"
+                                     f"{log[-4000:]}")
+        ranks = []
+        for rank in range(DIST_WORLD):
+            with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as fh:
+                ranks.append(pickle.load(fh))
+        unint = max(r["uninterrupted"]["wall_s"] for r in ranks)
+        recovered = ranks[0]["resilient"]["wall_s"]
+        out["gloo_p2"] = {
+            "ranks_s": ranks_s,
+            "uninterrupted_wall_s": [r["uninterrupted"]["wall_s"]
+                                     for r in ranks],
+            "uninterrupted_bitwise_serial": [
+                r["uninterrupted"]["model"] == serial for r in ranks],
+            "uninterrupted_write_hits": [
+                r["uninterrupted"]["hits"]["checkpoint.write"]
+                for r in ranks],
+            "recovered_wall_s": [r["resilient"]["wall_s"] for r in ranks],
+            "recovered_over_uninterrupted": recovered / unint,
+            "recoveries": [r["resilient"]["recoveries"] for r in ranks],
+            "models": ["serial" if r["resilient"]["model"] == serial
+                       else r["resilient"]["model"] and "differs"
+                       for r in ranks],
+            "mesh_ranks": [r["resilient"]["mesh_ranks"] for r in ranks],
+            "files": [r["resilient"]["files"] for r in ranks]}
+    finally:
+        serialize.atomic_write = real_write
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # --- (c) the watchdog on the captured bench train ----------------------
+    binned, yb, bin_upper, cfg = ctx["main_inputs"]
+
+    def bench_fit():
+        return train(binned, yb, cfg, bin_upper=bin_upper)
+
+    ref, warm_s = fit_wall(torch, bench_fit)
+    R.reset()
+    t0 = time.perf_counter()
+    stalled = None
+    with env_override(WATCHDOG_MULT, "4"), \
+            env_override(WATCHDOG_MIN_S, str(RES_MIN_S)), \
+            faults.injected("mesh.collective_hang", "delay",
+                            delay_s=RES_HANG_S):
+        try:
+            bench_fit()
+        except R.TrainStalled as e:
+            stalled = e
+    abort_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+    threads = [t.name for t in threading.enumerate()
+               if t.name.startswith("mmlspark-watchdog-")]
+    with faults.injected("mesh.collective_hang", "delay", delay_s=0.2):
+        delayed, delayed_s = fit_wall(torch, bench_fit)
+    out["watchdog"] = {
+        "warm_fit_s": warm_s, "abort_s": abort_s,
+        "classification": stalled and stalled.classification,
+        "boundary": stalled and stalled.report["boundary"],
+        "budget_s": stalled and stalled.budget_s,
+        "elapsed_s": stalled and stalled.elapsed_s,
+        "span_tag": stalled and stalled.report["span_tag"],
+        "threads_left": threads, "stall_count": R.stall_count(),
+        "off_delayed_fit_s": delayed_s,
+        "off_delayed_bitwise": boosters_equal(delayed.booster, ref.booster)}
+
+    # --- (d) the cost of an armed watchdog ---------------------------------
+    walls = {"off": [], "armed": []}
+    same = True
+    for _ in range(RES_REPS):
+        for arm, mult in (("off", None), ("armed", "4")):
+            with env_override(WATCHDOG_MULT, mult), \
+                    env_override(WATCHDOG_MIN_S, "60"):
+                r, wall = fit_wall(torch, bench_fit)
+            walls[arm].append(wall)
+            same &= boosters_equal(r.booster, ref.booster)
+    off, armed = (float(np.median(walls[k])) for k in ("off", "armed"))
+    out["armed_cost"] = {"walls_s": walls, "off_s": off, "armed_s": armed,
+                         "armed_over_off": armed / off, "bitwise": same}
+
+    # trees grown on the mesh: the uninterrupted fit's, the killed fit's
+    # before hit 11, the resumed fit's after checkpoint 10
+    expected = (TREES + (RES_LOSS_HIT - 1) + (TREES - 2 * RES_INTERVAL)) \
+        * cfg.effective_depth
+    a, b, w = out["nccl_p1"], out["gloo_p2"], out["watchdog"]
+    writes_per_fit = 1 + 2 * (TREES // RES_INTERVAL)
+    kept = [f"checkpoint_{k}.txt{s}" for k in (RES_INTERVAL, 2 * RES_INTERVAL)
+            for s in ("", ".crc32")]
+    record = {"cause": "ParticipantLost", "classification": "ParticipantLost",
+              "dp_before": 2, "dp_after": 1,
+              "error": f"rank {DIST_WORLD - 1} lost"}
+    bad = [k for k, ok in (
+        ("a_bits", a["meshed_bitwise_serial"] and a["resumed_bitwise_serial"]),
+        ("a_kill", a["killed"] and a["after_kill"] == sorted(
+            kept + ["checkpoint_meta.json"])),
+        ("a_resume", a["resumed_iterations"] == TREES - 2 * RES_INTERVAL),
+        ("a_hits", a["checkpoint_write_hits"] == writes_per_fit),
+        ("a_launches", launches["hist_sums_kernel_launches"] == expected
+         and all(launches.values())),
+        ("b_bits", all(b["uninterrupted_bitwise_serial"])
+         and b["models"] == ["serial", None]),
+        ("b_hits", b["uninterrupted_write_hits"] == [writes_per_fit, 0]),
+        ("b_records", b["recoveries"] == [[record], [record]]),
+        ("b_mesh", b["mesh_ranks"] == [[0], None]),
+        ("b_files", b["files"][1] is None and len(b["files"][0]) ==
+         writes_per_fit),
+        ("c_stall", w["classification"] == "collective-stall"
+         and w["boundary"] == "collective" and w["abort_s"] < 15.0
+         and not w["threads_left"]),
+        ("c_off", w["off_delayed_bitwise"]),
+        ("d_bits", out["armed_cost"]["bitwise"])) if not ok]
+    if bad:
+        raise AssertionError(f"resilience disagrees ({bad}): {out}")
+    return out
+
+
 def kernel_table(ctx):
     def entry(name, source, replaces, launches, rows):
         # times summed over the six level widths of one depth-6 tree
@@ -7350,6 +7688,11 @@ def kernel_table(ctx):
         "launches": d_launches["hist_sums_kernel_launches"],
         "amax_launches": d_launches["hist_amax_launches"],
         "round_launches": d_launches["hist_round_launches"],
+        # phase resilience_path's one-rank NCCL checkpointed fits
+        "launches_resilience_path": {
+            k: ctx["launches"]["resilience_path"][k]
+            for k in ("hist_sums_kernel_launches", "hist_amax_launches",
+                      "hist_round_launches")},
         "max_abs_err": max(r["max_abs_err"] for r in d_rows),
         "ms": sum(r["sums_ms"] for r in bench),
         "device_ms": sum(r["sums_device_ms"] for r in bench),
@@ -7386,6 +7729,8 @@ def kernel_table(ctx):
         # the timed refresh (warm starts) and one probe; fleet_path's
         # served batches over its three load stages
         "launches_refresh_path": ctx["launches"]["refresh_path_tree_score"],
+        "launches_resilience_path":
+            ctx["launches"]["resilience_path"]["tree_score"],
         "launches_fleet_path": ctx["launches"]["fleet_path_tree_score"],
         "max_abs_err": max(r["max_abs_err"] for r in score.values()),
         "ms": score["2M"]["kernel_ms"],
@@ -7510,7 +7855,8 @@ def main() -> int:
                      ("sdpa_backends", phase_sdpa_backends),
                      ("attention_path", phase_attention_path),
                      ("attention_dist", phase_attention_dist),
-                     ("dist_gbdt_path", phase_dist_gbdt)):
+                     ("dist_gbdt_path", phase_dist_gbdt),
+                     ("resilience_path", phase_resilience)):
         t0 = time.perf_counter()
         try:
             out = fn(ctx)
@@ -7532,8 +7878,11 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
-        # one gloo rank of phase dist_gbdt_path (started by that phase)
-        dist_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
-                       sys.argv[5])
+        # one gloo rank of phase dist_gbdt_path, or with "resilience" of
+        # phase resilience_path (started by that phase)
+        rank_main = (resilience_rank_main if sys.argv[6:7] == ["resilience"]
+                     else dist_rank_main)
+        rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5])
         sys.exit(0)
     sys.exit(main())

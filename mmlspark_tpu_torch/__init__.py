@@ -22,6 +22,8 @@ package so each counterpart is easy to find:
   - ``io.refresh``                StreamBuffer / RefreshController (the
                                   streaming refresh loop: drift, refit on
                                   the card, hot swap)
+  - ``parallel.mesh``             process meshes, collectives, shrink_mesh
+  - ``parallel.resilience``       train-step watchdog, fit_resilient
   - ``parallel.attention``        dense / blockwise / fused attention, ring
                                   and Ulysses over ``torch.distributed``
   - ``parallel.flash``            the flash-attention kernel's wrapper
@@ -60,3 +62,9 @@ from mmlspark_tpu_torch.models.gbdt.trainer import (  # noqa: F401
     train,
 )
 from mmlspark_tpu_torch.ops.binning import BinMapper  # noqa: F401
+from mmlspark_tpu_torch.parallel import (  # noqa: F401
+    ParticipantLost,
+    TrainStalled,
+    fit_resilient,
+    shrink_mesh,
+)

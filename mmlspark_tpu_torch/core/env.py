@@ -76,6 +76,21 @@ one; the defaults are the JAX package's:
     (``data_sharded``) where the config allows it (auto: at dp > 1; on:
     forced, with one warning where it cannot), else all-reduces them
     whole (default auto; ``trainer.resolve_hist_shard_mode``)
+  - ``MMLSPARK_TORCH_WATCHDOG_MULT``  the train-step watchdog's budget
+    multiplier over the rolling p99 step time (budget ``max(p99 * MULT,
+    WATCHDOG_MIN_S)``; default 0: the watchdog is off and its hooks cost
+    one ``is None`` check; ``parallel/resilience.py``)
+  - ``MMLSPARK_TORCH_WATCHDOG_MIN_S``  the floor of that budget in
+    seconds (default 60; it must cover the longest legitimate span: a
+    first capture, a captured fit's drain)
+  - ``MMLSPARK_TORCH_WATCHDOG_INIT_S``  a fixed budget in seconds for
+    each ``parallel.mesh.distributed_init`` attempt, also passed as the
+    attempt's ``init_process_group`` timeout (default 0: off)
+  - ``MMLSPARK_TORCH_RECOVERY_MAX``  ``fit_resilient``'s dp-shrink
+    recoveries before the original error re-raises (default 2)
+  - ``MMLSPARK_TORCH_RECOVERY_MIN_DP``  the smallest dp slice
+    ``fit_resilient`` re-forms; a failure at this size re-raises
+    (default 1)
 
 Parsing contract, as in the JAX package: a malformed value must not
 abort or silently mislabel a run, so it warns once per variable and the
@@ -119,6 +134,11 @@ HEDGE_DELAY_MS = "MMLSPARK_TORCH_HEDGE_DELAY_MS"
 HEDGE_BUDGET_PCT = "MMLSPARK_TORCH_HEDGE_BUDGET_PCT"
 RETRY_BUDGET_PCT = "MMLSPARK_TORCH_RETRY_BUDGET_PCT"
 HIST_SHARD = "MMLSPARK_TORCH_HIST_SHARD"
+WATCHDOG_MULT = "MMLSPARK_TORCH_WATCHDOG_MULT"
+WATCHDOG_MIN_S = "MMLSPARK_TORCH_WATCHDOG_MIN_S"
+WATCHDOG_INIT_S = "MMLSPARK_TORCH_WATCHDOG_INIT_S"
+RECOVERY_MAX = "MMLSPARK_TORCH_RECOVERY_MAX"
+RECOVERY_MIN_DP = "MMLSPARK_TORCH_RECOVERY_MIN_DP"
 
 _WARNED: Set[str] = set()
 

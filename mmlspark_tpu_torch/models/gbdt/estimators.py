@@ -71,9 +71,10 @@ over ``torch.distributed``: every rank of the mesh makes the same
 ``feature_parallel``: columns over ``fp``; ``trainer.train``'s
 ``mesh``), and the fitted model scores through
 ``parallel.shard_rules.ShardedScorer`` (rows over ``dp``, every rank
-gets every row's scores). Settings outside the port raise
-``NotImplementedError`` naming the ROADMAP item that adds them: under a
-mesh, ``checkpointInterval`` (A8b).
+gets every row's scores). A checkpointed fit under a mesh reads and
+writes its directory on the mesh's first rank only and broadcasts the
+resume point (``_fit_checkpointed``); ``parallel.resilience.
+fit_resilient`` re-forms a mesh that lost a participant and resumes.
 """
 
 from __future__ import annotations
@@ -667,21 +668,21 @@ class _LightGBMBase(Estimator, _LightGBMParams):
         resumed fit equals the uninterrupted one with the same interval
         bitwise. A ranker's fingerprint also covers its group ids (the
         JAX package's leaves them out, so a ranker's directory does not
-        cross between the packages; every other fit's does)."""
-        import json
-        import os
-        import zlib
+        cross between the packages; every other fit's does).
 
-        from mmlspark_tpu_torch.core.serialize import atomic_write
-
-        if self._mesh is not None:
-            # every rank would write and resume the same directory on its
-            # own: ranks could resume at other iterations and their
-            # collectives would no longer match
-            from mmlspark_tpu_torch.models.gbdt.parallel_modes import A8B
-            raise NotImplementedError(
-                f"checkpointInterval under a mesh is not in the port yet "
-                f"({A8B})")
+        Under a mesh (``set_mesh``) every rank makes the same call; only
+        the mesh's first rank reads and writes ``checkpointDir``. It
+        finds the newest verified checkpoint and checks the fingerprint,
+        then broadcasts ``(done, model string or None, error)`` over the
+        mesh's group, so every rank resumes where it does (or raises its
+        error) and the other ranks' ``checkpointDir`` need not be shared
+        storage. After each segment it writes the checkpoint and
+        broadcasts the outcome, so every rank warns alike on a failed
+        write and none starts the next segment before the write. The
+        fingerprint leaves out the mesh and the learners are the serial
+        fit, so a directory resumes bitwise across meshes and the serial
+        fit, either way."""
+        mesh = self._mesh
         if not self.is_set("checkpointDir"):
             raise ValueError("checkpointInterval requires checkpointDir")
         if self.get("earlyStoppingRound"):
@@ -698,16 +699,70 @@ class _LightGBMBase(Estimator, _LightGBMParams):
                 "checkpointInterval")
         ckpt_every = self.get("checkpointInterval")
         ckpt_dir = self.get("checkpointDir")
-        os.makedirs(ckpt_dir, exist_ok=True)
-        done = 0
-        latest = self._latest_checkpoint(ckpt_dir)
         total = cfg.num_iterations
         # A checkpoint is only resumable into the run that produced it:
         # stamp a config/data digest and refuse a mismatched warm start.
+        # The mesh is left out: a directory crosses between meshes.
         fprint = self._checkpoint_fingerprint(
             replace(cfg, tree_learner=_JAX_TREE_LEARNER[
                 self.get("parallelism")]),
             binned, y, w, bin_upper, init0, init_model, group_ids)
+        # under a mesh only its first rank touches the directory; the
+        # others take its resume point, so every rank resumes alike
+        writer = mesh is None or mesh.rank == mesh.first_rank
+        state = None
+        if writer:
+            try:
+                state = (*self._resume_point(ckpt_dir, fprint, total), None)
+            except (ValueError, OSError) as e:
+                if mesh is None:
+                    raise
+                state = (0, None, e)
+        if mesh is not None:
+            from mmlspark_tpu_torch.parallel.mesh import broadcast_object
+            state = broadcast_object(mesh, state, tag="checkpoint")
+        done, model_str, error = state
+        if error is not None:
+            raise error
+        if model_str is not None:
+            init_model = BoosterArrays.load_model_string(model_str)
+        result = None
+        while done < total or result is None:
+            seg = min(ckpt_every, total - done)
+            result = train_segment(init_model,
+                                   done, replace(cfg, num_iterations=seg))
+            init_model = result.booster
+            done += seg
+            failed = (self._write_checkpoint(ckpt_dir, done, result.booster)
+                      if writer else None)
+            if mesh is not None:
+                # every rank learns the write's outcome; no rank starts
+                # the next segment before the writer has written
+                failed = broadcast_object(mesh, failed, tag="checkpoint")
+            if failed is not None:
+                # a failing store (full disk, flaky mount) must not kill
+                # a healthy fit: restart depth just shrinks
+                warn_once(
+                    "gbdt.checkpoint_skip",
+                    "checkpoint write at iteration %s failed "
+                    "(%s); continuing WITHOUT this checkpoint "
+                    "— a crash now restarts from the previous one",
+                    done, failed)
+        return result
+
+    def _resume_point(self, ckpt_dir, fprint, total):
+        """``(iterations done, model string or None)`` of the newest
+        verified checkpoint in ``ckpt_dir`` (made if missing), after the
+        fingerprint check; a fresh directory gets ``checkpoint_meta.json``.
+        Raises ``ValueError`` for another run's directory or one past
+        ``total``."""
+        import json
+        import os
+
+        from mmlspark_tpu_torch.core.serialize import atomic_write
+
+        os.makedirs(ckpt_dir, exist_ok=True)
+        latest = self._latest_checkpoint(ckpt_dir)
         meta_path = os.path.join(ckpt_dir, "checkpoint_meta.json")
         if latest is not None and os.path.exists(meta_path):
             with open(meta_path) as fh:
@@ -730,43 +785,39 @@ class _LightGBMBase(Estimator, _LightGBMParams):
                     "checkpoint fingerprint write failed (%s: %s); "
                     "continuing WITHOUT checkpoints this run",
                     type(e).__name__, e)
-        if latest is not None:
-            done, path = latest
-            if done > total:
-                raise ValueError(
-                    f"checkpoint at iteration {done} in {ckpt_dir} "
-                    f"exceeds numIterations={total}; clear the "
-                    f"directory or raise numIterations")
-            with open(path) as fh:
-                init_model = BoosterArrays.load_model_string(fh.read())
-        result = None
-        while done < total or result is None:
-            seg = min(ckpt_every, total - done)
-            result = train_segment(init_model,
-                                   done, replace(cfg, num_iterations=seg))
-            init_model = result.booster
-            done += seg
-            try:
-                model_str = result.booster.save_model_string()
-                atomic_write(
-                    os.path.join(ckpt_dir, f"checkpoint_{done}.txt"),
-                    model_str)
-                # digest sidecar AFTER the payload: a crash in between
-                # leaves a checkpoint without a digest, which resume
-                # accepts unverified rather than discarding progress
-                atomic_write(
-                    os.path.join(ckpt_dir, f"checkpoint_{done}.txt.crc32"),
-                    f"{zlib.crc32(model_str.encode()) & 0xFFFFFFFF:08x}")
-            except OSError as e:
-                # a failing store (full disk, flaky mount) must not kill
-                # a healthy fit: restart depth just shrinks
-                warn_once(
-                    "gbdt.checkpoint_skip",
-                    "checkpoint write at iteration %s failed "
-                    "(%s: %s); continuing WITHOUT this checkpoint "
-                    "— a crash now restarts from the previous one",
-                    done, type(e).__name__, e)
-        return result
+        if latest is None:
+            return 0, None
+        done, path = latest
+        if done > total:
+            raise ValueError(
+                f"checkpoint at iteration {done} in {ckpt_dir} "
+                f"exceeds numIterations={total}; clear the "
+                f"directory or raise numIterations")
+        with open(path) as fh:
+            return done, fh.read()
+
+    @staticmethod
+    def _write_checkpoint(ckpt_dir, done, booster):
+        """Write ``checkpoint_<done>.txt`` and its crc32 sidecar; returns
+        None, or ``"<error type>: <message>"`` where the write failed."""
+        import os
+        import zlib
+
+        from mmlspark_tpu_torch.core.serialize import atomic_write
+
+        try:
+            model_str = booster.save_model_string()
+            atomic_write(os.path.join(ckpt_dir, f"checkpoint_{done}.txt"),
+                         model_str)
+            # digest sidecar AFTER the payload: a crash in between
+            # leaves a checkpoint without a digest, which resume
+            # accepts unverified rather than discarding progress
+            atomic_write(
+                os.path.join(ckpt_dir, f"checkpoint_{done}.txt.crc32"),
+                f"{zlib.crc32(model_str.encode()) & 0xFFFFFFFF:08x}")
+        except OSError as e:
+            return f"{type(e).__name__}: {e}"
+        return None
 
     @staticmethod
     def _checkpoint_fingerprint(cfg, binned, y, w, bin_upper, init0=None,

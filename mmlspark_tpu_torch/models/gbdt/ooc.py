@@ -53,9 +53,11 @@ with fresh ``init_raw``, and the dispatch streams each segment.
 
 Unsupported configs (sampling, validation sets, multiclass, categorical
 or monotone splits, DART, leaf-wise growth) raise here and are screened
-by ``trainer._ooc_supported`` before ``train`` streams. The reference's
-fit watchdog and finite checks around this loop are not ported yet
-(ROADMAP A8b, A14).
+by ``trainer._ooc_supported`` before ``train`` streams. The tree loop
+runs under ``resilience.fit_watchdog("gbdt.train_ooc")`` (off unless
+``MMLSPARK_TORCH_WATCHDOG_MULT`` > 0); a prefetcher's queue wait is its
+``input_wait`` boundary. The reference's finite checks around this loop
+wait for ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -457,14 +459,15 @@ def train_ooc(spill: SpillReader, labels, cfg: T.TrainConfig, *,
         trees.append((tree[0], tree[1], nv, tree[3]))
 
     try:
-        for t in range(cfg.num_iterations):
-            resilience.step_start(t + iteration_offset)
-            fault_point("gbdt.train_step")
-            with measures.phase("training"):
-                boost_one_tree()
-            for cb in callbacks or ():
-                cb(t, {"iteration": t})
-            resilience.step_end()
+        with resilience.fit_watchdog("gbdt.train_ooc"):
+            for t in range(cfg.num_iterations):
+                resilience.step_start(t + iteration_offset)
+                fault_point("gbdt.train_step")
+                with measures.phase("training"):
+                    boost_one_tree()
+                for cb in callbacks or ():
+                    cb(t, {"iteration": t})
+                resilience.step_end()
     finally:
         if own_work:
             shutil.rmtree(work_dir, ignore_errors=True)

@@ -1550,11 +1550,18 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     the capture's seconds (``capture_s``, None where this fit made
     none).
 
-    ``fault_point("gbdt.train_step")`` is hit once per iteration, before
-    its work, as in the reference: arming it with ``nth=k`` stops the
-    fit at its k-th iteration. ``parallel.resilience.step_start`` /
-    ``step_end`` bracket each iteration as in the reference (the
-    refresh loop's refit throttle runs at ``step_start``).
+    ``fault_point("gbdt.train_step")`` and then
+    ``fault_point("train.participant_loss")`` are hit once per
+    iteration, before its work, as in the reference: arming one with
+    ``nth=k`` stops the fit at its k-th iteration.
+    ``parallel.resilience.step_start`` / ``step_end`` bracket each
+    iteration and the final drain as in the reference (the refresh
+    loop's refit throttle runs at ``step_start``), under
+    ``resilience.fit_watchdog("gbdt.train")``: with
+    ``MMLSPARK_TORCH_WATCHDOG_MULT`` > 0 a span past its budget aborts
+    the fit with ``TrainStalled``. Each host read of the metrics and the
+    drain is a ``collective`` boundary with the fault points
+    ``allreduce`` and ``mesh.collective_hang`` (``_host_sync``).
 
     Out of core (``resolve_ooc``): with ``MMLSPARK_TORCH_OOC`` auto and
     too little free device memory for the in-core fit (``fits_in_core``),
@@ -1778,8 +1785,10 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     def sync_metrics_through(upto):
         """Metric values [len(met_host), upto) to the host in one copy."""
         if upto > len(met_host):
-            met_host.extend(torch.stack(rows[len(met_host):upto])
-                            [:, cols:].cpu().numpy())
+            met_host.extend(_host_sync(
+                dev, lambda: f"gbdt metric sync through iter {upto}",
+                lambda: torch.stack(rows[len(met_host):upto])
+                [:, cols:].cpu().numpy()))
 
     st = step_mod.open_step(
         cfg, binned_d, labels_d, weights_d, raw, valids, layout=layout,
@@ -1793,37 +1802,50 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
                                  iteration_offset=iteration_offset)
               if host else None)
     try:
-        it = 0
-        while it < total:
-            # the step boundary (a refit's throttle yields here), then
-            # once per iteration, before its work: an armed raise is the
-            # deterministic stand-in for a fit killed mid-training
-            resilience.step_start(it + iteration_offset)
-            fault_point("gbdt.train_step")
-            with measures.phase("training"):
-                rows.append(runner.run(it) if runner is not None else
-                            step_mod.run_step(st, it + iteration_offset))
-                it += 1
-            if has_es and (it % block == 0 or it == total):
-                # trees do not depend on the metrics, so syncing a block
-                # and replaying the rule stops where a per-iteration
-                # check would
-                with measures.phase("validation"):
-                    sync_metrics_through(it)
-                best_iter, stop_after = stop_iteration(
-                    [float(r[vidx]) for r in met_host], esr,
-                    cfg.improvement_tolerance, higher_better)
-                if stop_after is not None:
-                    break
+        # the train-step watchdog (off unless MMLSPARK_TORCH_WATCHDOG_MULT
+        # > 0) times each iteration's host span and the final drain
+        with resilience.fit_watchdog("gbdt.train"):
+            it = 0
+            while it < total:
+                # the step boundary (a refit's throttle yields here),
+                # then once per iteration, before its work: an armed
+                # raise is the deterministic stand-in for a fit killed
+                # mid-training, or for a mesh participant lost
+                resilience.step_start(it + iteration_offset)
+                fault_point("gbdt.train_step")
+                fault_point("train.participant_loss")
+                with measures.phase("training"):
+                    rows.append(runner.run(it) if runner is not None else
+                                step_mod.run_step(st, it + iteration_offset))
+                    it += 1
+                if has_es and (it % block == 0 or it == total):
+                    # trees do not depend on the metrics, so syncing a
+                    # block and replaying the rule stops where a
+                    # per-iteration check would
+                    with measures.phase("validation"):
+                        sync_metrics_through(it)
+                    best_iter, stop_after = stop_iteration(
+                        [float(r[vidx]) for r in met_host], esr,
+                        cfg.improvement_tolerance, higher_better)
+                    if stop_after is not None:
+                        break
+                resilience.step_end()
+            kept = len(rows) if stop_after is None else stop_after
+
+            # the queued steps' device work lands in this drain: the
+            # watchdog times it as one span (MIN_S must cover it); not a
+            # step, so a refit's throttle does not yield here
+            resilience.span_start("drain")
+            with measures.phase("validation"):
+                # one transfer of every kept tree and metric
+                packed = (_host_sync(
+                    dev, f"gbdt final drain of {kept} iterations",
+                    lambda: torch.stack(rows[:kept]).cpu().numpy())
+                    if kept else
+                    np.zeros((0, cols + len(labels_order)), np.float32))
             resilience.step_end()
     finally:
         step_mod.close_step(st)
-    kept = len(rows) if stop_after is None else stop_after
-
-    with measures.phase("validation"):
-        # one transfer of every kept tree and metric
-        packed = (torch.stack(rows[:kept]).cpu().numpy() if kept else
-                  np.zeros((0, cols + len(labels_order)), np.float32))
     sf_h, tb_h, nv_h, cnt_h, met = step_mod.unpack(packed, slots, bins, k)
     masks = step_mod.unpack_masks(packed, slots, bins, k) if bins else None
     evals = [{"iteration": j,
@@ -1856,6 +1878,23 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
                                    else st.capture_s,
                                    **({} if runner is None else
                                       {"host_loop": runner.stats()})})
+
+
+def _host_sync(dev, detail, read):
+    """``read()``, a host read of the fit's values on ``dev``: the host
+    boundary of the reference's cross-replica metric sync, where its
+    fault points ``allreduce`` and ``mesh.collective_hang`` sit and which
+    its watchdog classifies as a ``collective`` stall. While a watchdog
+    is armed the card's queued work is awaited by polling
+    (``resilience.wait_for_device``), so the wait can be interrupted."""
+    fault_point("allreduce")
+    prev = resilience.mark_boundary("collective", detail)
+    try:
+        fault_point("mesh.collective_hang")
+        resilience.wait_for_device(dev)
+        return read()
+    finally:
+        resilience.restore_boundary(prev)
 
 
 def _assemble_booster(sf_all, tb_all, nv_all, cnt_all, cfg, num_f,

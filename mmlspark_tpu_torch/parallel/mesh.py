@@ -25,17 +25,36 @@ tensors in place on the card; gloo reduces CPU tensors, so a CUDA tensor
 goes through an explicit copy to the host and back (two ranks sharing
 one card can only use gloo: NCCL refuses two ranks on one device). The
 helpers add the bytes each rank receives to ``Mesh.bytes`` under a tag,
-so a caller can hold its traffic against a model of it.
+so a caller can hold its traffic against a model of it. Each is a
+``collective`` boundary of the train-step watchdog
+(``parallel/resilience.py``): it passes the fault points ``allreduce``
+and ``mesh.collective_hang``, and while a watchdog is armed it issues
+the collective with ``async_op=True`` and polls the work, so that a
+stall can be interrupted; unarmed it waits directly. A collective that
+the backend fails (gloo: a peer's socket closed, a timeout) raises
+:class:`parallel.resilience.ParticipantLost` with the backend's message
+and the group's ranks.
+
+:func:`shrink_mesh` re-forms a mesh on a surviving slice of its ``dp``
+axis with process groups among the survivors only
+(``use_local_synchronization``), so departed and dead ranks need not
+call; a mesh's own group (``Mesh.group``) spans its ranks, and nothing
+of a fit on a shrunk mesh touches the default (world) group.
 """
 
 from __future__ import annotations
 
+import pickle
+import time
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from mmlspark_tpu_torch.core.faults import fault_point
+from mmlspark_tpu_torch.parallel import resilience
 
 DATA_AXIS = "dp"
 FEATURE_AXIS = "fp"
@@ -73,21 +92,36 @@ class MeshConfig:
 
 
 class Mesh:
-    """The ranks of the default process group as a ``dp`` x ``fp`` grid:
-    this rank's coordinates, the process group of each axis through it,
-    and the device its collectives run on (``comm_device``: the CUDA
-    device under NCCL, the CPU under gloo). ``bytes``: {tag: bytes this
-    rank received from the collectives made with that tag}."""
+    """Ranks of the default process group as a ``dp`` x ``fp`` grid:
+    ``ranks`` (their global ranks in grid order: rank ``ranks[i * fp +
+    j]`` sits at ``(i, j)``; every rank of the world for
+    :func:`create_mesh`), this rank's global rank and coordinates, the
+    process group of each axis through it, the group of every rank of
+    the mesh (``group``), and the device its collectives run on
+    (``comm_device``: the CUDA device under NCCL, the CPU under gloo).
+    ``bytes``: {tag: bytes this rank received from the collectives made
+    with that tag}."""
 
     def __init__(self, dp: int, fp: int, groups: Dict[str, object],
-                 rank: int, backend: str, comm_device: torch.device):
+                 rank: int, backend: str, comm_device: torch.device,
+                 ranks: Optional[Sequence[int]] = None, group=None):
         self.shape = {DATA_AXIS: dp, FEATURE_AXIS: fp}
+        self.ranks: List[int] = (list(ranks) if ranks is not None
+                                 else list(range(dp * fp)))
         self.rank = rank
-        self.coords = {DATA_AXIS: rank // fp, FEATURE_AXIS: rank % fp}
+        at = self.ranks.index(rank)
+        self.coords = {DATA_AXIS: at // fp, FEATURE_AXIS: at % fp}
         self.groups = groups
+        self.group = group
         self.backend = backend
         self.comm_device = comm_device
         self.bytes: Dict[str, int] = {}
+
+    @property
+    def first_rank(self) -> int:
+        """The global rank at ``(0, 0)``: the mesh's writer of shared
+        state (checkpoints) and the source of its broadcasts."""
+        return self.ranks[0]
 
     @property
     def size(self) -> int:
@@ -137,7 +171,67 @@ def create_mesh(config: Optional[MeshConfig] = None,
                 else torch.device("cuda", torch.cuda.current_device()))
     else:
         comm = torch.device("cpu")
-    return Mesh(dp, fp, groups, rank, backend, torch.device(comm))
+    return Mesh(dp, fp, groups, rank, backend, torch.device(comm),
+                ranks=range(world), group=dist.group.WORLD)
+
+
+def shrunk_ranks(mesh: Mesh, keep_dp: Optional[int] = None,
+                 lost_ranks: Sequence[int] = ()) -> Optional[List[int]]:
+    """The global ranks, in grid order, of :func:`shrink_mesh`'s mesh
+    (None where nothing shrinks); it makes no group."""
+    dp, fp = mesh.shape[DATA_AXIS], mesh.shape[FEATURE_AXIS]
+    if lost_ranks:
+        lost = set(lost_ranks)
+        surviving = [i for i in range(dp) if i not in lost]
+    else:
+        surviving = list(range(dp if keep_dp is None else keep_dp))
+    if not surviving:
+        raise ValueError("no surviving dp ranks to re-form the mesh on")
+    if len(surviving) == dp:
+        return None
+    if surviving[-1] >= dp:
+        raise ValueError(f"keep_dp={keep_dp} is past the mesh's dp axis "
+                         f"of {dp}")
+    return [mesh.ranks[i * fp + j] for i in surviving for j in range(fp)]
+
+
+def shrink_mesh(mesh: Mesh, keep_dp: Optional[int] = None,
+                lost_ranks: Sequence[int] = ()) -> Mesh:
+    """Re-form ``mesh`` on a surviving slice of its ``dp`` axis: the
+    first ``keep_dp`` dp coordinates, or all but the dp coordinates in
+    ``lost_ranks`` (the reference's ``shrink_mesh`` semantics). Returns
+    ``mesh`` itself when nothing shrinks; raises ``ValueError`` when no
+    dp coordinate survives, or when this rank is not in the surviving
+    slice (a departing rank leaves the fit; it does not call).
+
+    The surviving ranks keep their global ranks and ``fp``; the new
+    mesh's groups (its own, each ``dp`` column's and each ``fp`` row's
+    through this rank) are made among them only
+    (``new_group(..., use_local_synchronization=True)``), so departed
+    and dead ranks need not call. Every surviving rank calls it with the
+    same arguments, in the same order as its other group creations: a
+    group's name derives from its ranks and from how many groups each
+    member already holds. The fit that follows resumes from the last
+    segment checkpoint: the fingerprint leaves out the mesh."""
+    ranks = shrunk_ranks(mesh, keep_dp, lost_ranks)
+    if ranks is None:
+        return mesh
+    fp = mesh.shape[FEATURE_AXIS]
+    if mesh.rank not in ranks:
+        raise ValueError(f"rank {mesh.rank} is not in the surviving slice "
+                         f"{ranks}: it leaves the fit")
+    at = ranks.index(mesh.rank)
+    i, j = at // fp, at % fp
+    new_dp = len(ranks) // fp
+
+    def group(members):
+        return dist.new_group(members, use_local_synchronization=True)
+
+    whole = group(ranks)
+    groups = {DATA_AXIS: group([ranks[r * fp + j] for r in range(new_dp)]),
+              FEATURE_AXIS: group([ranks[i * fp + c] for c in range(fp)])}
+    return Mesh(new_dp, fp, groups, mesh.rank, mesh.backend,
+                mesh.comm_device, ranks=ranks, group=whole)
 
 
 def axis_size(mesh: Mesh, axis: str) -> int:
@@ -179,8 +273,11 @@ def distributed_init(init_method: Optional[str] = None,
     card is visible, else gloo. A rendezvous that fails transiently (a
     coordinator still coming up) is tried ``DIST_INIT_TRIES`` times in
     all through ``core.retries``; misuse (bad arguments, a second init)
-    is not retried."""
-    from mmlspark_tpu_torch.core.faults import fault_point
+    is not retried. ``MMLSPARK_TORCH_WATCHDOG_INIT_S`` > 0 bounds each
+    attempt (``resilience.stall_guard``, and the attempt's
+    ``init_process_group`` timeout where ``timeout_s`` is not given): a
+    rendezvous that never answers raises ``TrainStalled`` (or the
+    store's timeout) and is retried like any transient failure."""
     from mmlspark_tpu_torch.core.retries import RetryPolicy, with_retries
 
     if backend is None:
@@ -192,12 +289,18 @@ def distributed_init(init_method: Optional[str] = None,
         kwargs["world_size"] = world_size
     if rank is not None:
         kwargs["rank"] = rank
+    budget = resilience.init_budget_s()
+    if timeout_s is None and budget > 0:
+        # a store that never answers waits in C++, where no interrupt
+        # lands: its own timeout is what cuts the attempt
+        timeout_s = budget
     if timeout_s is not None:
         kwargs["timeout"] = timedelta(seconds=timeout_s)
 
     def attempt():
-        fault_point("distributed.init")
-        dist.init_process_group(**kwargs)
+        with resilience.stall_guard("distributed.init", budget):
+            fault_point("distributed.init")
+            dist.init_process_group(**kwargs)
 
     def should_retry(e: BaseException) -> bool:
         # misuse (bad arguments, a second init) is not transient
@@ -217,10 +320,60 @@ def distributed_init(init_method: Optional[str] = None,
 # Collectives on a mesh axis
 # ---------------------------------------------------------------------------
 
+_last_collective: Optional[Dict[str, Any]] = None
+
+
+def last_collective() -> Optional[Dict[str, Any]]:
+    """The last collective issued while a watchdog was armed (name, tag,
+    axis, group ranks), for the watchdog's progress report."""
+    return _last_collective
+
+
 def _to_comm(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """``t`` on the device the backend reduces on (a copy where it lies
     elsewhere: a CUDA tensor under gloo), contiguous."""
+    if t.device != mesh.comm_device:
+        resilience.wait_for_device(t.device)
     return t.to(mesh.comm_device).contiguous()
+
+
+def _run(mesh: Mesh, axis: str, what: str, tag: str,
+         issue: Callable[[bool], Any]) -> None:
+    """Run one collective on ``axis``'s group (``"mesh"``: every rank of
+    the mesh): ``issue(async_op)`` makes the call. A ``collective``
+    boundary with the fault points ``allreduce`` and
+    ``mesh.collective_hang``; armed watchdog: the work is polled; a
+    backend failure raises ``ParticipantLost``."""
+    global _last_collective
+    fault_point("allreduce")
+    prev = resilience.mark_boundary(
+        "collective", lambda: f"{what} ({tag}) over {axis}, ranks "
+                              f"{_ranks(mesh, axis)}")
+    try:
+        fault_point("mesh.collective_hang")
+        try:
+            if resilience.armed():
+                _last_collective = {"name": what, "tag": tag, "axis": axis,
+                                    "ranks": _ranks(mesh, axis)}
+                work = issue(True)
+                pause = 5e-5
+                while not work.is_completed():
+                    time.sleep(pause)
+                    pause = min(2 * pause, 1e-3)
+                work.wait()
+            else:
+                issue(False)
+        except RuntimeError as e:
+            raise resilience.ParticipantLost(
+                f"{what} ({tag}) over the {axis} group of ranks "
+                f"{_ranks(mesh, axis)} failed: {e}") from e
+    finally:
+        resilience.restore_boundary(prev)
+
+
+def _ranks(mesh: Mesh, axis: str) -> List[int]:
+    group = mesh.group if axis == "mesh" else mesh.groups[axis]
+    return list(dist.get_process_group_ranks(group))
 
 
 def _count(mesh: Mesh, tag: str, t: torch.Tensor) -> None:
@@ -240,7 +393,8 @@ def all_reduce(mesh: Mesh, t: torch.Tensor, axis: str = DATA_AXIS,
     buf = _to_comm(mesh, t)
     if buf is t:
         buf = t.clone()
-    dist.all_reduce(buf, op=_OPS[op], group=mesh.groups[axis])
+    _run(mesh, axis, "all_reduce", tag, lambda a: dist.all_reduce(
+        buf, op=_OPS[op], group=mesh.groups[axis], async_op=a))
     _count(mesh, tag, buf)
     return buf.to(t.device)
 
@@ -261,10 +415,23 @@ def reduce_scatter(mesh: Mesh, t: torch.Tensor, axis: str = DATA_AXIS,
         raise ValueError(f"reduce_scatter needs dim 0 ({t.shape[0]}) "
                          f"divisible by the {axis} axis ({size})")
     buf = _to_comm(mesh, t)
-    out = torch.empty((t.shape[0] // size, *t.shape[1:]), dtype=t.dtype,
-                      device=buf.device)
-    _collective("reduce_scatter_single", "reduce_scatter_tensor")(
-        out, buf, group=mesh.groups[axis])
+    block = t.shape[0] // size
+    if resilience.armed() and mesh.backend == "gloo":
+        # gloo's reduce-scatter work reports completion only once waited
+        # on, so an armed watchdog could not poll it: all-reduce (exact
+        # for the integer sums the learners reduce) and keep this rank's
+        # block; the bytes are counted as the reduce-scatter's
+        full = buf.clone()
+        _run(mesh, axis, "reduce_scatter", tag, lambda a: dist.all_reduce(
+            full, group=mesh.groups[axis], async_op=a))
+        at = mesh.coords[axis]
+        out = full[at * block:(at + 1) * block]
+    else:
+        out = torch.empty((block, *t.shape[1:]), dtype=t.dtype,
+                          device=buf.device)
+        fn = _collective("reduce_scatter_single", "reduce_scatter_tensor")
+        _run(mesh, axis, "reduce_scatter", tag,
+             lambda a: fn(out, buf, group=mesh.groups[axis], async_op=a))
     _count(mesh, tag, out)
     return out.to(t.device)
 
@@ -277,10 +444,35 @@ def all_gather(mesh: Mesh, t: torch.Tensor, axis: str = DATA_AXIS,
     size = mesh.shape[axis]
     out = torch.empty((size * t.shape[0], *t.shape[1:]), dtype=t.dtype,
                       device=buf.device)
-    _collective("all_gather_single", "all_gather_into_tensor")(
-        out, buf, group=mesh.groups[axis])
+    fn = _collective("all_gather_single", "all_gather_into_tensor")
+    _run(mesh, axis, "all_gather", tag,
+         lambda a: fn(out, buf, group=mesh.groups[axis], async_op=a))
     _count(mesh, tag, out)
     return out.to(t.device)
+
+
+def broadcast_object(mesh: Mesh, obj: Any = None, tag: str = "object"
+                     ) -> Any:
+    """``obj`` of the mesh's first rank, on every rank of the mesh
+    (pickled; the other ranks' ``obj`` is ignored), over the mesh's own
+    group: a length, then the bytes. A ``collective`` boundary like the
+    other helpers; no rank returns before the first rank has sent, so it
+    also orders what the first rank did before it."""
+    src = mesh.first_rank
+    leader = mesh.rank == src
+    payload = pickle.dumps(obj) if leader else b""
+    size = torch.tensor([len(payload)], dtype=torch.int64,
+                        device=mesh.comm_device)
+    _run(mesh, "mesh", "broadcast", tag, lambda a: dist.broadcast(
+        size, src, group=mesh.group, async_op=a))
+    n = int(size.item())
+    data = (torch.frombuffer(bytearray(payload), dtype=torch.uint8).to(
+        mesh.comm_device) if leader else
+        torch.empty(n, dtype=torch.uint8, device=mesh.comm_device))
+    _run(mesh, "mesh", "broadcast", tag, lambda a: dist.broadcast(
+        data, src, group=mesh.group, async_op=a))
+    _count(mesh, tag, data)
+    return obj if leader else pickle.loads(data.cpu().numpy().tobytes())
 
 
 def sequence_group(group: Optional[dist.ProcessGroup] = None

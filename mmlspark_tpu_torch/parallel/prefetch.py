@@ -24,6 +24,7 @@ from typing import Any, Callable, Iterable, Iterator, Optional
 
 from mmlspark_tpu_torch.core.env import PREFETCH_DEPTH, env_int
 from mmlspark_tpu_torch.core.logging_utils import warn_once
+from mmlspark_tpu_torch.parallel import resilience
 
 _SENTINEL_DONE = object()
 
@@ -118,16 +119,23 @@ class BatchPrefetcher:
             except StopIteration:
                 self.close()
                 raise
-        while True:
-            try:
-                item = self._queue.get(timeout=0.1)
-                break
-            except queue.Empty:
-                if self._thread is not None and not self._thread.is_alive():
-                    # producer died without delivering its sentinel
-                    # (should not happen; never hang the consumer on it)
-                    self.close()
-                    raise StopIteration
+        # a train-step watchdog classifies a stall here as input
+        # starvation
+        prev = resilience.mark_boundary("input_wait", self._wait_detail)
+        try:
+            while True:
+                try:
+                    item = self._queue.get(timeout=0.1)
+                    break
+                except queue.Empty:
+                    if (self._thread is not None
+                            and not self._thread.is_alive()):
+                        # producer died without delivering its sentinel
+                        # (should not happen; never hang the consumer)
+                        self.close()
+                        raise StopIteration
+        finally:
+            resilience.restore_boundary(prev)
         if item is _SENTINEL_DONE:
             self.close()
             raise StopIteration
@@ -135,6 +143,11 @@ class BatchPrefetcher:
             self.close()
             raise item
         return item
+
+    def _wait_detail(self) -> str:
+        alive = self._thread is not None and self._thread.is_alive()
+        return (f"{self.label}: queue {self._queue.qsize()}/{self.depth} "
+                f"staged, producer {'alive' if alive else 'dead'}")
 
     def close(self) -> None:
         """Stop and join the producer; idempotent, exception-safe."""

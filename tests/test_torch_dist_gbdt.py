@@ -278,19 +278,32 @@ def _downgrades(mesh, fp_mesh):
         out["custom"] = None
     except NotImplementedError as e:
         out["custom"] = str(e)
-    # a checkpointed estimator fit: refused before it writes anything
+    # a checkpointed estimator fit: only the mesh's first rank writes
+    # (each rank names a directory of its own; hits of checkpoint.write
+    # are counted under a fault armed never to fire)
+    out["checkpoint"] = _checkpointed_fit(mesh, x, y)
+    return out
+
+
+def _checkpointed_fit(mesh, x, y):
+    """{model string, this rank's ``checkpoint.write`` hits, the files of
+    its checkpoint directory (None where it was never made)} of a
+    checkpointed ``LightGBMClassifier`` fit, on ``mesh`` or serially."""
     from mmlspark_tpu_torch import DataFrame, LightGBMClassifier
+    from mmlspark_tpu_torch.core import faults
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ckpt")
-        try:
-            LightGBMClassifier(numIterations=2, numLeaves=7, maxBin=32,
-                               checkpointInterval=1, checkpointDir=ckpt
-                               ).set_device("cpu").set_mesh(mesh).fit(
-                DataFrame({"features": x, "label": y}))
-            out["checkpoint"] = None
-        except NotImplementedError as e:
-            out["checkpoint"] = (str(e), os.path.exists(ckpt))
-    return out
+        est = LightGBMClassifier(numIterations=2, numLeaves=7, maxBin=32,
+                                 checkpointInterval=1, checkpointDir=ckpt
+                                 ).set_device("cpu").set_mesh(mesh)
+        faults.reset()
+        with faults.injected("checkpoint.write", "delay", nth=10 ** 9):
+            model = est.fit(DataFrame({"features": x, "label": y}))
+            hits = faults.hits("checkpoint.write")
+        faults.reset()
+        return {"model": model.get_model_string(), "hits": hits,
+                "files": (sorted(os.listdir(ckpt)) if os.path.isdir(ckpt)
+                          else None)}
 
 
 def _run_cases(world: int, downgrades: bool = True):
@@ -502,9 +515,19 @@ def test_downgrades_and_refusals(worlds):
         assert kind == "NotImplementedError" and "ROADMAP A8b" in msg
     assert "divisible by fp" in d["feature_indivisible"]
     assert "ROADMAP A8b" in d["custom"]
-    msg, written = d["checkpoint"]
-    assert "checkpointInterval" in msg and "ROADMAP A8b" in msg
-    assert not written
+    # a checkpointed fit under a mesh fits, bitwise the serial
+    # checkpointed fit, and writes once: on the mesh's first rank only
+    x, y, _, _ = _binned("b503x8", 32)
+    want = _checkpointed_fit(None, x, y)
+    files = ["checkpoint_1.txt", "checkpoint_1.txt.crc32",
+             "checkpoint_2.txt", "checkpoint_2.txt.crc32",
+             "checkpoint_meta.json"]
+    assert want["files"] == files and want["hits"] == 5
+    for rank, res in enumerate(worlds[2]):
+        got = res["downgrades"]["checkpoint"]
+        assert got["model"] == want["model"], rank
+        assert (got["hits"], got["files"]) == ((5, files) if rank == 0
+                                               else (0, None)), rank
 
 
 # --- the reference's mesh fits (JAX, 8-device CPU mesh) ---------------------

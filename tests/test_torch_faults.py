@@ -1,8 +1,10 @@
 """The port's fault registry (``core/faults.py``) against the JAX
 package's, and the training-path points it places: ``gbdt.train_step``
-once per iteration, ``gbdt.level_hist`` on both histogram planes'
-output, ``checkpoint.write`` / ``io.disk_full`` in the checkpoint store,
-``io.disk_full`` / ``spill.read`` in the out-of-core spill plane.
+and ``train.participant_loss`` once per iteration, ``gbdt.level_hist`` on
+both histogram planes' output, ``checkpoint.write`` / ``io.disk_full`` in
+the checkpoint store, ``io.disk_full`` / ``spill.read`` in the
+out-of-core spill plane, ``allreduce`` / ``mesh.collective_hang`` at the
+trainer's host syncs and the mesh's collectives.
 """
 
 import pathlib
@@ -28,15 +30,17 @@ from mmlspark_tpu_torch.ops.binning import BinMapper
 torch.set_num_threads(1)
 
 TRAINING_POINTS = {"gbdt.train_step", "gbdt.level_hist", "checkpoint.write",
-                   "io.disk_full", "spill.read"}
+                   "io.disk_full", "spill.read", "train.participant_loss"}
 # placed with the serving fleet, the model lifecycle and the refresh loop
 LIFECYCLE_POINTS = {"serving.score", "serving.worker_kill",
                     "serving.observe_log", "registry.swap",
                     "registry.swap_fanout", "fleet.spawn", "fleet.heartbeat",
                     "net.half_open", "net.slow_reply", "net.latency",
                     "stream.ingest", "refresh.fit"}
-# placed with the multi-device rendezvous (parallel/mesh.py)
-DISTRIBUTED_POINTS = {"distributed.init"}
+# placed with the multi-device rendezvous and collectives
+# (parallel/mesh.py) and the trainer's host syncs
+DISTRIBUTED_POINTS = {"distributed.init", "allreduce",
+                      "mesh.collective_hang"}
 
 
 @pytest.fixture(autouse=True)
@@ -71,6 +75,11 @@ def test_every_fault_point_site_is_registered():
     # the out-of-core loop's tree loop and spill plane: where the
     # reference's ooc.py and ops/ingest.py have them
     assert sites["gbdt.train_step"] == {"trainer.py", "ooc.py"}
+    # the reference's two step loops are the port's one
+    assert sites["train.participant_loss"] == {"trainer.py"}
+    # the trainer's metric syncs and drain, and every mesh collective
+    for name in ("allreduce", "mesh.collective_hang"):
+        assert sites[name] == {"trainer.py", "mesh.py"}, name
     assert sites["gbdt.level_hist"] == {"hist_cuda.py"}
     assert sites["checkpoint.write"] == {"serialize.py"}
     assert sites["io.disk_full"] == {"serialize.py", "ingest.py"}
