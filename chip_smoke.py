@@ -2029,6 +2029,12 @@ def phase_objectives(ctx):
     return out
 
 
+def numpy_l2(preds, labels, weights):
+    """A host-side (numpy) L2 ``fobj``, through ``.cpu().numpy()``."""
+    p = preds.cpu().numpy()
+    return p - labels.cpu().numpy(), np.ones_like(p)
+
+
 def phase_custom_objective(ctx):
     """Custom objectives at the bench width: a torch ``fobj`` calling the
     port's own huber against ``objective="huber"``, and a numpy ``fobj``
@@ -2049,10 +2055,6 @@ def phase_custom_objective(ctx):
 
     def torch_huber(preds, labels, weights):
         return O.huber(preds, labels, weights, alpha=0.9)
-
-    def numpy_l2(preds, labels, weights):
-        p = preds.cpu().numpy()
-        return p - labels.cpu().numpy(), np.ones_like(p)
 
     def fit(**kw):
         """(model, wall s, level_hist launches) of one fit."""
@@ -3136,7 +3138,15 @@ def make_mslr_shaped(n_queries, f=136, seed=0, skewed=False):
     imports the JAX package, so the generator is copied here): queries
     of 80-180 documents (``skewed``: log-uniform 8-1,200, as real MSLR's
     long tail), graded 0-4 by per-query quantiles of a hidden sparse
-    linear utility plus noise."""
+    linear utility plus noise. Made once per set of arguments, a copy
+    for each caller."""
+    key = ("mslr", n_queries, f, seed, skewed)
+    if key not in _made:
+        _made[key] = _mslr_shaped(n_queries, f, seed, skewed)
+    return tuple(a.copy() for a in _made[key])
+
+
+def _mslr_shaped(n_queries, f, seed, skewed):
     rng = np.random.default_rng(seed)
     if skewed:
         sizes = np.exp(rng.uniform(np.log(8), np.log(1200),
@@ -6735,6 +6745,42 @@ DIST_RANK_TIMEOUT_S = 300
 # timed repeats of each fit after its first (untimed, counted) run; each
 # repeat times the serial uncaptured fit beside the meshed ones
 DIST_REPS = 3
+# the mesh objectives on the bench rows (DART and GOSS at LightGBM's
+# defaults, phase custom_objective_path's numpy fobj) under the learners
+# named, and the ranker at ranking_path's MSLR shape cut to 20 trees
+DIST_OBJECTIVES = {"dart": dict(boosting_type="dart"),
+                   "goss": dict(boosting_type="goss"), "fobj": {}}
+DIST_LEARNERS = {"data": {}, "voting": {"tree_learner": "voting",
+                                        "top_k": DIST_TOPK},
+                 "feature": {"tree_learner": "feature"}}
+DIST_OBJECTIVE_FITS = (("dart", "data"), ("dart", "voting"),
+                       ("dart", "feature"), ("goss", "data"),
+                       ("goss", "voting"), ("goss", "feature"),
+                       ("fobj", "data"))
+DIST_RANK_TREES = 20
+# the gloo ranks' objective fits, on the data learner
+DIST_GLOO_OBJECTIVES = ("dart", "goss", "rank")
+
+
+def objective_train(name, mesh, learner, bench, ranker):
+    """One uncaptured fit of the mesh objective ``name`` (``dart``,
+    ``goss`` or ``fobj`` on the bench rows ``bench`` = (binned, labels,
+    bin_upper, config); ``rank`` on the MSLR-shaped rows ``ranker`` =
+    (binned, labels, query ids, bin_upper, config)), on ``mesh`` under
+    ``learner``, or serially where ``mesh`` is None."""
+    import dataclasses as dc
+
+    from mmlspark_tpu_torch import train
+    if name == "rank":
+        rb, ry, gid, rupper, rcfg = ranker
+        return train(rb, ry, rcfg, bin_upper=rupper, group_ids=gid,
+                     mesh=mesh, capture=False)
+    binned, y, bin_upper, cfg = bench
+    kw = dict(DIST_OBJECTIVES[name],
+              **(DIST_LEARNERS[learner] if mesh is not None else {}))
+    return train(binned, y, dc.replace(cfg, **kw), bin_upper=bin_upper,
+                 mesh=mesh, capture=False,
+                 custom_objective=numpy_l2 if name == "fobj" else None)
 
 
 def fit_wall(torch, fit):
@@ -6894,8 +6940,9 @@ def dist_rank_main(rank, world, store, data_dir):
     """One gloo rank of phase ``dist_gbdt_path`` on ``cuda:0``: the data
     and data_sharded fits of the bench rows, their histogram bytes and
     launches (first fit), their warm walls beside rank 0's serial
-    uncaptured fit, and each level's all-reduce time; each rank writes
-    them."""
+    uncaptured fit, and each level's all-reduce time; then DART, GOSS and
+    the MSLR-shaped ranker on the data learner, the same way; each rank
+    writes them."""
     import dataclasses as dc
     from datetime import timedelta
 
@@ -6948,11 +6995,132 @@ def dist_rank_main(rank, world, store, data_dir):
                 out[mode]["walls_s"].append(wall)
                 out[mode]["repeats_bitwise"] &= boosters_equal(
                     r.booster, out[mode]["booster"])
+        # the mesh objectives on the data learner: each first fit counted,
+        # then warm beside rank 0's serial uncaptured fit of the objective
+        with open(os.path.join(data_dir, "ranker.pkl"), "rb") as fh:
+            ranker = pickle.load(fh)
+        bench = (binned, y, bin_upper, cfg)
+        os.environ["MMLSPARK_TORCH_HIST_SHARD"] = "off"
+        objectives = {}
+        for name in DIST_GLOO_OBJECTIVES:
+            H.hist_sums_kernel_launches = 0
+            r, first_s = fit_wall(torch, lambda: objective_train(
+                name, mesh, "data", bench, ranker))
+            objectives[name] = {
+                "first_wall_s": first_s, "walls_s": [],
+                "serial_uncaptured_walls_s": [], "booster": r.booster,
+                "sums_launches": H.hist_sums_kernel_launches,
+                "repeats_bitwise": True}
+        for _ in range(DIST_REPS):
+            for name, rec in objectives.items():
+                dist.barrier()
+                if rank == 0:
+                    rec["serial_uncaptured_walls_s"].append(fit_wall(
+                        torch, lambda: objective_train(
+                            name, None, "data", bench, ranker))[1])
+                dist.barrier()
+                r, wall = fit_wall(torch, lambda: objective_train(
+                    name, mesh, "data", bench, ranker))
+                rec["walls_s"].append(wall)
+                rec["repeats_bitwise"] &= boosters_equal(r.booster,
+                                                         rec["booster"])
+        out["objectives"] = objectives
         out["bytes"] = dict(mesh.bytes)
         with open(os.path.join(data_dir, f"rank{rank}.pkl"), "wb") as fh:
             pickle.dump(out, fh)
     finally:
         dist.destroy_process_group()
+
+
+def dist_objectives_nccl(torch, ctx, mesh, bench, tmp):
+    """The mesh objectives on the one-rank NCCL mesh ``mesh``: each
+    objective's serial uncaptured fit (its ``level_hist`` launches
+    counted), then DART and GOSS under the data, voting and feature
+    learners and the numpy ``fobj`` under data, each first fit counted
+    (the sums entry's launches) and held bitwise to its serial fit; the
+    MSLR-shaped ``LightGBMRanker`` (20 trees) fitted under the mesh
+    (its trees against the serial uncaptured ``train`` on its bins) and
+    transformed (against the same model unmeshed), and its ``train``
+    under the mesh against the serial one; then warm walls, each
+    fit's median of ``DIST_REPS`` beside its serial fit's in one loop.
+    Writes the ranker's inputs to ``tmp`` for the gloo ranks and keeps
+    the serial boosters in ``ctx`` for their checks."""
+    from mmlspark_tpu_torch import DataFrame, LightGBMRanker
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+
+    counters = ("hist_sums_kernel_launches", "hist_amax_launches",
+                "hist_round_launches")
+    xr, yr, gid = make_mslr_shaped(RANK_QUERIES)
+    rframe = DataFrame({"features": xr, "label": yr, "query": gid})
+    rparams = dict(RANK_PARAMS, numIterations=DIST_RANK_TREES)
+    for name in counters:
+        setattr(H, name, 0)
+    H.hist_kernel_launches = 0
+    # the meshed ranker estimator first: its binning feeds the direct fits
+    t0 = time.perf_counter()
+    model = LightGBMRanker(**rparams).set_mesh(mesh).fit(rframe)
+    est_fit_s = time.perf_counter() - t0
+    mapper = model.bin_mapper
+    ranker = (mapper.transform(xr, np.uint8), yr, gid,
+              mapper.bin_upper_values(255),
+              LightGBMRanker(**rparams)._train_config(
+                  "lambdarank", eval_at=(10,),
+                  lambdarank_truncation_level=30))
+    with open(os.path.join(tmp, "ranker.pkl"), "wb") as fh:
+        pickle.dump(ranker, fh)
+    # the serial references
+    serial = {name: fit_wall(torch, lambda: objective_train(
+        name, None, "data", bench, ranker))
+        for name in (*DIST_OBJECTIVES, "rank")}
+    serial_launches = H.hist_kernel_launches
+    ctx["dist_objective_serial"] = {k: r.booster
+                                    for k, (r, _) in serial.items()}
+    # the meshed fits' first runs, counted
+    fits = {}
+    for name, learner in DIST_OBJECTIVE_FITS + (("rank", "data"),):
+        r, first_s = fit_wall(torch, lambda: objective_train(
+            name, mesh, learner, bench, ranker))
+        fits[f"{name}_{learner}"] = dist_fit_record(r, first_s,
+                                                    serial[name][0])
+    launches = {name: getattr(H, name) for name in counters}
+    ctx["launches"]["dist_gbdt_path_objectives"] = launches
+    ctx["launches"]["dist_gbdt_path_serial"] = serial_launches
+    # the meshed transform (rows over dp), then the same model unmeshed
+    S.tree_score_launches = 0
+    got = np.asarray(model.transform(rframe).col("prediction"))
+    score_launches = S.tree_score_launches
+    want = np.asarray(model.set_mesh(None).transform(rframe).col(
+        "prediction"))
+    # then warm: the serial uncaptured fit beside each meshed fit
+    walls = {k: [] for k in fits}
+    serial_walls = {k: [] for k in serial}
+    for _ in range(DIST_REPS):
+        for name in serial:
+            serial_walls[name].append(fit_wall(torch, lambda: objective_train(
+                name, None, "data", bench, ranker))[1])
+        for key in fits:
+            name, learner = key.split("_", 1)
+            walls[key].append(fit_wall(torch, lambda: objective_train(
+                name, mesh, learner, bench, ranker))[1])
+    for key, rec in fits.items():
+        name = key.split("_", 1)[0]
+        add_walls(rec, walls[key], serial_walls[name])
+        rec["serial_uncaptured_first_s"] = serial[name][1]
+    return {"fits": fits, "launches": launches,
+            "serial_level_hist_launches": serial_launches,
+            "dart_tree_weights_drawn": bool(
+                (serial["dart"][0].booster.tree_weights < 1).any()),
+            "ranker_estimator": {
+                "fit_s": est_fit_s, "rows": len(yr),
+                # the estimator's trees: the serial uncaptured train's on
+                # its bins (ranking_path holds estimator = train)
+                "model_bitwise": boosters_equal(model.booster,
+                                                serial["rank"][0].booster),
+                "scores_bitwise": bool(np.array_equal(got, want)),
+                "tree_score_launches": score_launches,
+                "train_ndcg@10_last": model.evals_result[-1][
+                    "train_ndcg@10"]}}
 
 
 def phase_dist_gbdt(ctx):
@@ -6962,13 +7130,18 @@ def phase_dist_gbdt(ctx):
     one-rank NCCL mesh the data, voting (top_k 28) and feature learners
     and a meshed ``LightGBMClassifier`` fit and transform, each bitwise
     the serial uncaptured fit (the estimator: the unmeshed model's
-    scores), the sums entry's launches counted over them; two gloo ranks
-    on this card (NCCL refuses two ranks on one device) fitting data and
-    data_sharded, each rank's trees bitwise the serial fit's and its
-    histogram bytes ``hist_reduction_bytes``; each fit's warm wall
-    (median of ``DIST_REPS`` after its first, counted run) against the
-    serial uncaptured fit's, timed beside it in the same loop (on rank 0
-    for the gloo ranks), and each level's all-reduce time."""
+    scores), the sums entry's launches counted over them; the mesh
+    objectives there (``dist_objectives_nccl``: DART and GOSS under the
+    three learners, the numpy ``fobj`` under data, the MSLR-shaped
+    ranker's ``train`` and its estimator fit and transform); two gloo
+    ranks on this card (NCCL refuses two ranks on one device) fitting
+    data and data_sharded, and DART, GOSS and the ranker on the data
+    learner, each rank's trees bitwise the serial fit's (and data's and
+    data_sharded's histogram bytes ``hist_reduction_bytes``); each
+    fit's warm wall (median of ``DIST_REPS`` after its first, counted
+    run) against the serial uncaptured fit's, timed beside it in the
+    same loop (on rank 0 for the gloo ranks), and each level's
+    all-reduce time."""
     import dataclasses as dc
     import shutil
     import tempfile
@@ -6980,9 +7153,11 @@ def phase_dist_gbdt(ctx):
     from mmlspark_tpu_torch import DataFrame, LightGBMClassifier, train
     from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
     from mmlspark_tpu_torch.models.gbdt import parallel_modes as PM
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
     from mmlspark_tpu_torch.parallel import mesh as M
 
     binned, y, bin_upper, cfg = ctx["main_inputs"]
+    bench = (binned, y, bin_upper, cfg)
     out = {"card": ctx["smi"]}
     rows = dist_sums_rows(torch)
     ctx["dist_sums_rows"] = rows
@@ -7049,9 +7224,11 @@ def phase_dist_gbdt(ctx):
                 parallelism="data_parallel", **params).set_mesh(mesh).fit(
                     frame)
             est_fit_s = time.perf_counter() - t0
+            S.tree_score_launches = 0
             t0 = time.perf_counter()
             got = np.asarray(model.transform(frame).col("rawPrediction"))
             est_transform_s = time.perf_counter() - t0
+            score_launches = S.tree_score_launches
             want = np.asarray(plain_model.transform(frame).col(
                 "rawPrediction"))
             out["estimator"] = {
@@ -7060,6 +7237,11 @@ def phase_dist_gbdt(ctx):
                                   == plain_model.get_model_string()),
                 "scores_bitwise": bool(np.array_equal(got, want)),
                 "shard_metadata": model.shard_metadata()}
+            out["objectives"] = dist_objectives_nccl(
+                torch, ctx, mesh, bench, tmp)
+            ctx["launches"]["dist_gbdt_path_tree_score"] = \
+                score_launches + out["objectives"]["ranker_estimator"][
+                    "tree_score_launches"]
         finally:
             dist.destroy_process_group()
 
@@ -7103,6 +7285,19 @@ def phase_dist_gbdt(ctx):
                 # a fit ends when its slowest rank does
                 [max(w) for w in zip(*(r["walls_s"] for r in recs))],
                 ranks[0]["serial_uncaptured_walls_s"])
+        serial_obj = ctx.pop("dist_objective_serial")
+        for name in DIST_GLOO_OBJECTIVES:
+            recs = [r["objectives"][name] for r in ranks]
+            gloo[name] = add_walls({
+                "first_wall_s": [r["first_wall_s"] for r in recs],
+                "rank_walls_s": [r["walls_s"] for r in recs],
+                "bitwise_serial": [boosters_equal(r["booster"],
+                                                  serial_obj[name])
+                                   for r in recs],
+                "repeats_bitwise": [r["repeats_bitwise"] for r in recs],
+                "sums_launches": [r["sums_launches"] for r in recs]},
+                [max(w) for w in zip(*(r["walls_s"] for r in recs))],
+                recs[0]["serial_uncaptured_walls_s"])
         out["gloo_p2"] = gloo
     finally:
         for p in procs:
@@ -7119,6 +7314,23 @@ def phase_dist_gbdt(ctx):
             or any(b != out["gloo_p2"][m]["hist_reduction_bytes"]
                    for b in out["gloo_p2"][m]["hist_bytes"])
             or any(n != expected for n in out["gloo_p2"][m]["sums_launches"])]
+    # the mesh objectives (DIST_RANK_TREES = TREES: 6 sums launches a tree)
+    obj = out["objectives"]
+    bad += [f"objective_{k}" for k, f in obj["fits"].items()
+            if not f["bitwise_serial"]]
+    bad += [f"gloo_{m}" for m in DIST_GLOO_OBJECTIVES
+            if not all(out["gloo_p2"][m]["bitwise_serial"])
+            or not all(out["gloo_p2"][m]["repeats_bitwise"])
+            or any(n != expected for n in out["gloo_p2"][m]["sums_launches"])]
+    rest = obj["ranker_estimator"]
+    if not (rest["model_bitwise"] and rest["scores_bitwise"]
+            and rest["tree_score_launches"] >= 1):
+        bad.append("ranker_estimator")
+    if obj["launches"]["hist_sums_kernel_launches"] != (
+            len(obj["fits"]) + 1) * expected \
+            or obj["serial_level_hist_launches"] != (
+                len(DIST_OBJECTIVES) + 1) * expected:
+        bad.append("objective_launches")
     est = out["estimator"]
     if not (est["model_bitwise"] and est["scores_bitwise"]):
         bad.append("estimator")
@@ -7135,6 +7347,7 @@ def phase_dist_gbdt(ctx):
 # first iteration of segment 3); the watchdog's budget and hang
 RES_INTERVAL, RES_LOSS_HIT = 5, 11
 RES_HANG_S, RES_MIN_S, RES_REPS = 30.0, 0.3, 3
+RES_COST_ORDER = ("plain", "resilient", "resilient", "plain")
 
 
 def resilience_params():
@@ -7194,6 +7407,28 @@ def resilience_rank_main(rank, world, store, data_dir):
             "wall_s": time.perf_counter() - t0, "hits": hits,
             "model": model.get_model_string(),
             "files": sorted(os.listdir(ck)) if os.path.isdir(ck) else None}
+        # what fit_resilient's polled collectives cost: the same fit
+        # outside it and inside it with no fault, plain / resilient /
+        # resilient / plain
+        walls, same = {"plain": [], "resilient": []}, True
+        for i, kind in enumerate(RES_COST_ORDER):
+            ck = os.path.join(mine, f"cost{i}")
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "plain":
+                model = LightGBMClassifier(
+                    **resilience_params(), checkpointDir=ck).set_mesh(
+                        mesh).fit(frame)
+            else:
+                model = R.fit_resilient(
+                    LightGBMClassifier(**resilience_params()), frame,
+                    checkpoint_dir=ck, checkpoint_interval=RES_INTERVAL,
+                    mesh=mesh).model
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+            same &= model.get_model_string() == out["uninterrupted"]["model"]
+        out["polling_cost"] = {"walls_s": walls, "bitwise": same}
         ck = os.path.join(mine, "resilient")
         est = LightGBMClassifier(**resilience_params())
         dist.barrier()
@@ -7233,7 +7468,10 @@ def phase_resilience(ctx):
     fit, with ``checkpoint.write`` hits, each segment's write ms and each
     fit's wall, and the sums entries' and ``tree_score``'s launches; (b)
     two gloo ranks on this card (``--dist-rank ... resilience``): the
-    uninterrupted two-rank fit, then ``fit_resilient`` with
+    uninterrupted two-rank fit; the cost of ``fit_resilient``'s polled
+    collectives, the same fit outside and inside it with no fault, in
+    the order plain / resilient / resilient / plain, each bitwise the
+    first; then ``fit_resilient`` with
     ``ParticipantLost`` at hit 11 on both ranks: recoveries [(2 -> 1)],
     rank 1 leaves (``model=None``), rank 0 bitwise the serial
     checkpointed fit, only rank 0 writing; (c) the watchdog after a warm
@@ -7357,6 +7595,12 @@ def phase_resilience(ctx):
                 ranks.append(pickle.load(fh))
         unint = max(r["uninterrupted"]["wall_s"] for r in ranks)
         recovered = ranks[0]["resilient"]["wall_s"]
+        # a fit's wall is its slower rank's
+        cost = {k: [max(w) for w in zip(*(r["polling_cost"]["walls_s"][k]
+                                         for r in ranks))]
+                for k in ("plain", "resilient")}
+        plain_s, polled_s = (float(np.median(cost[k]))
+                             for k in ("plain", "resilient"))
         out["gloo_p2"] = {
             "ranks_s": ranks_s,
             "uninterrupted_wall_s": [r["uninterrupted"]["wall_s"]
@@ -7373,7 +7617,12 @@ def phase_resilience(ctx):
                        else r["resilient"]["model"] and "differs"
                        for r in ranks],
             "mesh_ranks": [r["resilient"]["mesh_ranks"] for r in ranks],
-            "files": [r["resilient"]["files"] for r in ranks]}
+            "files": [r["resilient"]["files"] for r in ranks],
+            "polling_cost": {
+                "order": RES_COST_ORDER, "walls_s": cost,
+                "plain_s": plain_s, "resilient_s": polled_s,
+                "resilient_over_plain": polled_s / plain_s,
+                "bitwise": [r["polling_cost"]["bitwise"] for r in ranks]}}
     finally:
         serialize.atomic_write = real_write
         for p in procs:
@@ -7456,6 +7705,7 @@ def phase_resilience(ctx):
         ("b_hits", b["uninterrupted_write_hits"] == [writes_per_fit, 0]),
         ("b_records", b["recoveries"] == [[record], [record]]),
         ("b_mesh", b["mesh_ranks"] == [[0], None]),
+        ("b_cost_bits", all(b["polling_cost"]["bitwise"])),
         ("b_files", b["files"][1] is None and len(b["files"][0]) ==
          writes_per_fit),
         ("c_stall", w["classification"] == "collective-stall"
@@ -7505,6 +7755,9 @@ def kernel_table(ctx):
                      "mmlspark_tpu/models/gbdt/hist_pallas.py:60",
                      ctx["launches"]["level_hist"], ctx["hist_rows"])]
     kernels[0]["at_shapes"] = at_shapes(ctx["hist_rows_by_shape"])
+    # phase dist_gbdt_path's serial references of the mesh objectives
+    kernels[0]["launches_dist_gbdt_path_serial"] = \
+        ctx["launches"]["dist_gbdt_path_serial"]
     for quant in QUANTS:
         kernels.append(entry(
             f"level_hist_quant[{quant}]",
@@ -7688,6 +7941,10 @@ def kernel_table(ctx):
         "launches": d_launches["hist_sums_kernel_launches"],
         "amax_launches": d_launches["hist_amax_launches"],
         "round_launches": d_launches["hist_round_launches"],
+        # phase dist_gbdt_path's mesh objectives (DART, GOSS, fobj, the
+        # ranker) on the one-rank NCCL mesh
+        "launches_dist_gbdt_path_objectives":
+            ctx["launches"]["dist_gbdt_path_objectives"],
         # phase resilience_path's one-rank NCCL checkpointed fits
         "launches_resilience_path": {
             k: ctx["launches"]["resilience_path"][k]
@@ -7731,6 +7988,9 @@ def kernel_table(ctx):
         "launches_refresh_path": ctx["launches"]["refresh_path_tree_score"],
         "launches_resilience_path":
             ctx["launches"]["resilience_path"]["tree_score"],
+        # the meshed classifier's and ranker's transforms
+        "launches_dist_gbdt_path":
+            ctx["launches"]["dist_gbdt_path_tree_score"],
         "launches_fleet_path": ctx["launches"]["fleet_path_tree_score"],
         "max_abs_err": max(r["max_abs_err"] for r in score.values()),
         "ms": score["2M"]["kernel_ms"],

@@ -69,7 +69,9 @@ over ``torch.distributed``: every rank of the mesh makes the same
 ``fit`` call on the same frame, ``parallelism`` picks the learner
 (``data_parallel`` / ``serial``: rows over ``dp``; ``voting_parallel``;
 ``feature_parallel``: columns over ``fp``; ``trainer.train``'s
-``mesh``), and the fitted model scores through
+``mesh``; every boosting type and objective, ``LightGBMRanker``'s query
+groups and a ``fobj`` included, each the serial fit bit for bit), and
+the fitted model scores through
 ``parallel.shard_rules.ShardedScorer`` (rows over ``dp``, every rank
 gets every row's scores). A checkpointed fit under a mesh reads and
 writes its directory on the mesh's first rank only and broadcasts the

@@ -38,6 +38,14 @@ One iteration (:meth:`HostLoop.run`), in the reference's order:
      for dropped trees, as in the reference: ROADMAP C21), then the
      metric row (``Step.add_trees``, which packs the row).
 
+Under a mesh (``parallel_modes.Learner``) every rank runs the loop: the
+draws come from the same numpy streams on every rank, so every rank
+drops the same trees; the dropped trees' predictions come out of this
+rank's rows of the raw scores (every row's under the feature learner),
+which are then gathered for the objective, as the step gathers its
+scores; the rescaling and the new trees' predictions update this rank's
+rows.
+
 The iteration returns the packed row of ``step.py``'s layout (trees,
 then metrics), so ``train`` unpacks and assembles both loops' rows the
 same way; the tree weights are :attr:`HostLoop.tree_weights`. Nothing
@@ -80,8 +88,11 @@ class HostLoop:
             + iteration_offset)
         self.bag: Optional[torch.Tensor] = None   # every row until drawn
         self.tree_weights: List[float] = []
-        # DART: each tree's prediction on the training rows, kept on the
-        # device to take it out of the gradients' scores and rescale it
+        # DART: each tree's prediction on the rows the step's ``raw``
+        # holds (a multi-device fit: this rank's rows, or every row under
+        # the feature learner, which takes it from the build's final
+        # slots: ``Step.add_trees``), kept on the device to take it out
+        # of the gradients' scores and rescale it
         self.preds: List[torch.Tensor] = []
 
     # -- the draws ---------------------------------------------------------
@@ -142,12 +153,14 @@ class HostLoop:
             return raw if k == 1 else raw[:, c]
 
         dropped = self._drops()
-        raw_for_grad = st.raw
+        raw_for_grad = st.scores()
         if dropped:
+            # on the rows ``raw`` holds, then every row's
             raw_for_grad = st.raw.clone()
             for i in dropped:
                 col(raw_for_grad, i % k).sub_(self.preds[i]
                                               * self.tree_weights[i])
+            raw_for_grad = st.every_row(raw_for_grad)
         g, h, mask = st.grad_hess(raw_for_grad, mask, it_global)
 
         build = None

@@ -6,7 +6,10 @@ tensor on the scores' device; ``higher_better`` drives the early-stop
 direction, as LightGBM's per-metric flag does. ``ndcg_at(k)`` takes
 query groups: the trainer passes each set's padded group layout
 (``objectives.make_group_layout``, built once per fit), so the metric
-runs in the captured step without a host sync.
+runs in the captured step without a host sync. Under a mesh every rank
+evaluates the training metrics on every row's gathered scores, NDCG
+over the layout of every group, and each validation set whole
+(``step.Step.metric_row``).
 """
 
 from __future__ import annotations

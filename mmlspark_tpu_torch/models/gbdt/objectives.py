@@ -15,6 +15,12 @@ the groups' padded layout once per fit on the host
 their size) and each bucket's (G, S, S) pair tensors are computed in
 chunks of groups under ``LAMBDARANK_CHUNK_BYTES``; the shapes are static
 per dataset, so the lambdas run inside the captured boosting step.
+Under a mesh every rank takes the lambdas over every row's gathered
+scores and the layout of every group (``step.Step.scores``): the
+objective never sees the row-sharded learners' pad rows, so nothing
+mirrors the reference's group of their own for them
+(``mmlspark_tpu/models/gbdt/trainer.py:2518-2525``). Every rank builds
+every group's pair tensors (ROADMAP A8b's scaling limit).
 
 The arithmetic is the reference's, op for op, so grad and hess are the
 JAX package's bits wherever ``exp`` is; torch's ``exp``, ``sigmoid``

@@ -46,10 +46,17 @@ first maximum and leaf budget, ``_child_values``). The per-row parts of
 the step (the sampling masks, the objective, the root's sums, the
 metrics) run on every row, from the raw scores gathered once per
 iteration (``step.Step.scores``), as the serial step runs them. So
-``data`` and
-``data_sharded`` fits, ``feature`` fits, and ``voting`` fits with
-``top_k >= F`` give the serial fit's trees and scores bit for bit (the
-reference holds its modes to reduction-order tolerances).
+every objective runs under every learner as it runs serially: GOSS's
+multipliers from the draws over every row and the quantile of every
+row's |g|, lambdarank and the NDCG metric over the layout of every
+query group, a custom objective called with every row's scores, the
+labels and the weights as passed; the rows' share of each (this rank's
+rows, the padding at weight 0) goes to the histograms. DART's host loop
+keeps each tree's prediction on the rows the step's raw scores hold
+(``host_loop.py``). So ``data`` and ``data_sharded`` fits, ``feature``
+fits, and ``voting`` fits with ``top_k >= F`` give the serial fit's
+trees and scores bit for bit (the reference holds its modes to
+reduction-order tolerances).
 """
 
 from __future__ import annotations
@@ -64,7 +71,6 @@ from mmlspark_tpu_torch.parallel import mesh as mesh_mod
 from mmlspark_tpu_torch.parallel.mesh import DATA_AXIS, FEATURE_AXIS
 
 MODES = ("data", "data_sharded", "voting", "feature")
-A8B = "ROADMAP A8b"
 
 
 def check_supported(cfg, mode: str, num_features: int, mesh) -> None:
@@ -72,8 +78,10 @@ def check_supported(cfg, mode: str, num_features: int, mesh) -> None:
     ``NotImplementedError`` for voting / feature with categorical
     features, monotone constraints or ``extra_trees``, its
     ``ValueError`` for feature-parallel with features that ``fp`` does
-    not divide, and ``NotImplementedError`` naming ROADMAP A8b for the
-    settings the port does not run under a mesh yet."""
+    not divide, and ``NotImplementedError`` for voting / feature with
+    ``feature_fraction_by_node`` (the reference fails there with a
+    ``TypeError``: its voting and feature builders take no per-node
+    draw key)."""
     if mode in ("voting", "feature") and cfg.categorical_features:
         raise NotImplementedError(
             "categorical splits are implemented for the serial/data "
@@ -91,21 +99,12 @@ def check_supported(cfg, mode: str, num_features: int, mesh) -> None:
             "learners — use tree_learner='data'")
     if mode in ("voting", "feature") and cfg.feature_fraction_by_node < 1.0:
         raise NotImplementedError(
-            f"feature_fraction_by_node with tree_learner={mode!r} under a "
-            f"mesh is not in the port yet ({A8B})")
+            "feature_fraction_by_node is implemented for the serial/data "
+            "tree learners — use tree_learner='data'")
     fp = mesh_mod.axis_size(mesh, FEATURE_AXIS)
     if mode == "feature" and num_features % fp:
         raise ValueError(f"feature_parallel needs features ({num_features}) "
                          f"divisible by fp ({fp})")
-    later = {"dart": cfg.boosting_type == "dart",
-             "goss (a quantile over every rank's rows)":
-                 cfg.boosting_type == "goss",
-             "lambdarank (query groups across shards)":
-                 cfg.objective == "lambdarank"}
-    for what, hit in later.items():
-        if hit:
-            raise NotImplementedError(f"{what} under a mesh is not in the "
-                                      f"port yet ({A8B})")
 
 
 def hist_reduction_bytes(num_features: int, total_bins: int, depth: int,

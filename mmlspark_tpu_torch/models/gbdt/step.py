@@ -239,11 +239,16 @@ class Step:
         """Every row's raw scores: ``raw``, or a row-sharded learner's,
         gathered (once per iteration: the metric row gathers the next
         iteration's)."""
-        if self.learner is None or not self.learner.rows_sharded:
-            return self.raw
         if self.raw_full is None:
-            self.raw_full = self.learner.gather_rows(self.raw)
+            self.raw_full = self.every_row(self.raw)
         return self.raw_full
+
+    def every_row(self, t: torch.Tensor) -> torch.Tensor:
+        """Every row of ``t``, which holds the rows ``raw`` holds: ``t``
+        itself, or a row-sharded learner's, gathered."""
+        if self.learner is None or not self.learner.rows_sharded:
+            return t
+        return self.learner.gather_rows(t)
 
     # the parts of an iteration the host loop (``host_loop.py``) shares
     def grad_hess(self, raw, mask, it):

@@ -1600,8 +1600,13 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     quantized plane falls back to float32 with one warning, leaf-wise
     growth to depthwise and out-of-core training to in-core, with the
     reference's reasons; EFB is not planned; only ``data`` subtracts.
-    The step runs uncaptured. DART, GOSS, lambdarank, query groups and
-    custom objectives raise ``NotImplementedError`` naming ROADMAP A8b.
+    The step runs uncaptured. Every objective and boosting type runs
+    as serially: GOSS draws over every row, lambdarank and ``ndcg`` take
+    the layout of every query group (and each validation set's), DART's
+    host loop keeps each tree's prediction on this rank's rows, and a
+    custom objective is called on every rank with the serial call's
+    arguments (every row's scores, the labels, the weights as passed),
+    so a host-side objective must give every rank the same result.
     ``hist_stats`` adds ``hist_shard``, ``hist_shard_reason`` (where the
     reduce-scatter is off for a reason) and ``grad_shard``."""
     from mmlspark_tpu_torch.models.gbdt import host_loop
@@ -1615,12 +1620,6 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     if mesh is not None:
         from mmlspark_tpu_torch.models.gbdt import parallel_modes
         parallel_modes.check_supported(cfg, mode, binned.shape[1], mesh)
-        for what, hit in (("a custom objective", custom_objective),
-                          ("query groups (group_ids)", group_ids)):
-            if hit is not None:
-                raise NotImplementedError(
-                    f"{what} under a mesh is not in the port yet "
-                    f"({parallel_modes.A8B})")
         learner = parallel_modes.Learner(mode, mesh, cfg, binned.shape[0],
                                          binned.shape[1])
     grow_policy = grow_policy_of(cfg, mesh)

@@ -28,12 +28,17 @@ helpers add the bytes each rank receives to ``Mesh.bytes`` under a tag,
 so a caller can hold its traffic against a model of it. Each is a
 ``collective`` boundary of the train-step watchdog
 (``parallel/resilience.py``): it passes the fault points ``allreduce``
-and ``mesh.collective_hang``, and while a watchdog is armed it issues
-the collective with ``async_op=True`` and polls the work, so that a
-stall can be interrupted; unarmed it waits directly. A collective that
-the backend fails (gloo: a peer's socket closed, a timeout) raises
-:class:`parallel.resilience.ParticipantLost` with the backend's message
-and the group's ranks.
+and ``mesh.collective_hang``, and while a watchdog is armed or a
+``fit_resilient`` fit runs on a gloo mesh of more than one rank it
+issues the collective with ``async_op=True`` and waits interruptibly
+(gloo: on a waiter thread; NCCL: polling the work), so that a stall can
+be interrupted and a rank blocked on a peer that went on to recover
+sees that peer's flag in the rendezvous store; otherwise it waits
+directly (NCCL: it only queues the work).
+A collective that the backend fails (gloo: a peer's socket closed, a
+timeout), or whose wait sees the flag, raises
+:class:`parallel.resilience.ParticipantLost` with the reason and the
+group's ranks.
 
 :func:`shrink_mesh` re-forms a mesh on a surviving slice of its ``dp``
 axis with process groups among the survivors only
@@ -45,6 +50,8 @@ of a fit on a shrunk mesh touches the default (world) group.
 from __future__ import annotations
 
 import pickle
+import queue
+import threading
 import time
 from dataclasses import dataclass
 from datetime import timedelta
@@ -59,6 +66,9 @@ from mmlspark_tpu_torch.parallel import resilience
 DATA_AXIS = "dp"
 FEATURE_AXIS = "fp"
 SEQUENCE_AXIS = "sp"
+# how often a gloo collective's interruptible wait looks at
+# fit_resilient's recovery flag (``resilience.recovery_watch``), seconds
+_WATCH_S = 0.01
 # rendezvous attempts of ``distributed_init`` in all (the reference's
 # default for ``MMLSPARK_TPU_DIST_INIT_RETRIES``)
 DIST_INIT_TRIES = 3
@@ -337,13 +347,72 @@ def _to_comm(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     return t.to(mesh.comm_device).contiguous()
 
 
+class _Waiter:
+    """A daemon thread that waits on the gloo works handed to it, one at
+    a time, while the caller's thread stays free to take an interrupt or
+    look at a flag. ``work.wait()`` leaves the interpreter lock, and it
+    is what runs a gloo reduce-scatter at all (its work says done only
+    once waited on). A caller that gives up on a work hands the thread
+    ``None``: it ends after that work does, and the next wait starts a
+    new thread."""
+
+    def __init__(self) -> None:
+        self.jobs: "queue.SimpleQueue" = queue.SimpleQueue()
+        threading.Thread(target=self._loop, name="mmlspark-mesh-wait",
+                         daemon=True).start()
+
+    def _loop(self) -> None:
+        while True:
+            job = self.jobs.get()
+            if job is None:
+                return
+            work, done, failed = job
+            try:
+                work.wait()
+            except BaseException as e:  # handed to the caller
+                failed.append(e)
+            done.set()
+
+
+_waiter: Optional[_Waiter] = None
+
+
+def _wait_gloo(work: Any, watch: Optional[Callable[[], bool]]) -> bool:
+    """Wait for a gloo ``work`` on the waiter thread, looking at
+    ``watch`` every ``_WATCH_S`` seconds: False once the work is done
+    (its error re-raised), True where ``watch`` said a peer began
+    recovering (the work is given up). An interrupt that lands here
+    gives the work up too."""
+    global _waiter
+    if _waiter is None:
+        _waiter = _Waiter()
+    done, failed = threading.Event(), []
+    _waiter.jobs.put((work, done, failed))
+    finished = False
+    try:
+        while not done.wait(_WATCH_S):
+            if watch is not None and watch():
+                return True
+        finished = True
+    finally:
+        if not finished:
+            _waiter.jobs.put(None)
+            _waiter = None
+    if failed:
+        raise failed[0]
+    return False
+
+
 def _run(mesh: Mesh, axis: str, what: str, tag: str,
          issue: Callable[[bool], Any]) -> None:
     """Run one collective on ``axis``'s group (``"mesh"``: every rank of
     the mesh): ``issue(async_op)`` makes the call. A ``collective``
     boundary with the fault points ``allreduce`` and
-    ``mesh.collective_hang``; armed watchdog: the work is polled; a
-    backend failure raises ``ParticipantLost``."""
+    ``mesh.collective_hang``. Under an armed watchdog or a resilient fit
+    on gloo (``resilience.polling``) the wait can be interrupted: gloo's
+    work is waited on by :class:`_Waiter`'s thread while this one looks
+    at the resilient fit's recovery flag, NCCL's is polled. A backend
+    failure, or the flag, raises ``ParticipantLost``."""
     global _last_collective
     fault_point("allreduce")
     prev = resilience.mark_boundary(
@@ -351,22 +420,33 @@ def _run(mesh: Mesh, axis: str, what: str, tag: str,
                               f"{_ranks(mesh, axis)}")
     try:
         fault_point("mesh.collective_hang")
+        failed = None
         try:
-            if resilience.armed():
-                _last_collective = {"name": what, "tag": tag, "axis": axis,
-                                    "ranks": _ranks(mesh, axis)}
+            if resilience.polling():
+                if resilience.armed():
+                    _last_collective = {"name": what, "tag": tag,
+                                        "axis": axis,
+                                        "ranks": _ranks(mesh, axis)}
                 work = issue(True)
-                pause = 5e-5
-                while not work.is_completed():
-                    time.sleep(pause)
-                    pause = min(2 * pause, 1e-3)
-                work.wait()
+                if mesh.backend == "gloo":
+                    if _wait_gloo(work, resilience.recovery_watch()):
+                        failed = "a peer began recovering from a loss"
+                else:
+                    pause = 5e-5
+                    while not work.is_completed():
+                        time.sleep(pause)
+                        pause = min(2 * pause, 1e-3)
+                    work.wait()
             else:
                 issue(False)
         except RuntimeError as e:
             raise resilience.ParticipantLost(
                 f"{what} ({tag}) over the {axis} group of ranks "
                 f"{_ranks(mesh, axis)} failed: {e}") from e
+        if failed is not None:
+            raise resilience.ParticipantLost(
+                f"{what} ({tag}) over the {axis} group of ranks "
+                f"{_ranks(mesh, axis)} failed: {failed}")
     finally:
         resilience.restore_boundary(prev)
 
@@ -416,22 +496,11 @@ def reduce_scatter(mesh: Mesh, t: torch.Tensor, axis: str = DATA_AXIS,
                          f"divisible by the {axis} axis ({size})")
     buf = _to_comm(mesh, t)
     block = t.shape[0] // size
-    if resilience.armed() and mesh.backend == "gloo":
-        # gloo's reduce-scatter work reports completion only once waited
-        # on, so an armed watchdog could not poll it: all-reduce (exact
-        # for the integer sums the learners reduce) and keep this rank's
-        # block; the bytes are counted as the reduce-scatter's
-        full = buf.clone()
-        _run(mesh, axis, "reduce_scatter", tag, lambda a: dist.all_reduce(
-            full, group=mesh.groups[axis], async_op=a))
-        at = mesh.coords[axis]
-        out = full[at * block:(at + 1) * block]
-    else:
-        out = torch.empty((block, *t.shape[1:]), dtype=t.dtype,
-                          device=buf.device)
-        fn = _collective("reduce_scatter_single", "reduce_scatter_tensor")
-        _run(mesh, axis, "reduce_scatter", tag,
-             lambda a: fn(out, buf, group=mesh.groups[axis], async_op=a))
+    out = torch.empty((block, *t.shape[1:]), dtype=t.dtype,
+                      device=buf.device)
+    fn = _collective("reduce_scatter_single", "reduce_scatter_tensor")
+    _run(mesh, axis, "reduce_scatter", tag,
+         lambda a: fn(out, buf, group=mesh.groups[axis], async_op=a))
     _count(mesh, tag, out)
     return out.to(t.device)
 

@@ -9,7 +9,10 @@ and each rank runs the scenarios of :func:`_scenarios` in order on a
 ``dp`` = world mesh (``fp == 1``), writing its records after each. The
 last scenario of the 4-rank world loses rank 3 for real
 (``os._exit(1)`` at a fault point mid-fit); the last of the 2-rank world
-stalls rank 1 for real before a collective under an armed watchdog.
+stalls rank 1 for real before a collective under an armed watchdog. A
+second world of 4 (``... OUT_DIR kept``) loses rank 1, inside the kept
+dp slice: the survivors agree on who survived through the store
+(``resilience.agree_survivors``) and keep ranks 0 and 2.
 
 The contract held here is stronger than the reference's: the port's
 learners are the serial fit at every ``dp``, so a checkpointed fit under
@@ -44,6 +47,9 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SPAWNED = (2, 4)
 SPAWN_TIMEOUT_S = 240
+# the survivors' wait for each other in the store (the spawned ranks'
+# resilience.RECOVERY_WAIT_S): a dead rank never posts
+WAIT_S = 5.0
 ITERS, INTERVAL = 6, 2
 # the 2-rank world's real hang: rank 1 sleeps this long at its Nth
 # ``allreduce`` hit while both ranks run the watchdog at this floor
@@ -170,7 +176,7 @@ def _scenarios(world, rank, out_dir, save):
         save("jax_dir", {"model": model.get_model_string(), "hits": hits})
 
     # an armed watchdog that never fires keeps the bits: every
-    # collective polled, gloo's reduce-scatter run as an all-reduce
+    # collective waited on by the mesh's waiter thread
     os.environ["MMLSPARK_TORCH_WATCHDOG_MULT"] = "4"
     try:
         model = _est().set_mesh(mesh).fit(_frame())
@@ -251,6 +257,40 @@ def _real_loss(rank, mine, mesh, save):
         "wall_s": time.monotonic() - t0})
 
 
+def _kept_slice_loss(rank, out_dir, save):
+    """Rank 1 exits at its 5th ``train.participant_loss`` hit under
+    ``fit_resilient``: it sits inside the kept slice (dp coordinates 0
+    and 1), so the survivors 0, 2 and 3 agree that coordinate 1 is lost
+    and keep the first two survivors, 0 and 2; rank 3 leaves."""
+    from mmlspark_tpu_torch.core import faults
+    from mmlspark_tpu_torch.parallel import mesh as M
+    from mmlspark_tpu_torch.parallel import resilience as R
+
+    mesh = M.create_mesh()
+    mine = pathlib.Path(out_dir) / f"rank{rank}"
+    mine.mkdir()
+    if rank == 1:
+        faults.arm("train.participant_loss", "corrupt", nth=5,
+                   corrupt=lambda v: os._exit(1))
+    t0 = time.monotonic()
+    try:
+        out = R.fit_resilient(_est(), _frame(), checkpoint_dir=str(
+            mine / "kept_loss"), checkpoint_interval=INTERVAL, mesh=mesh)
+        rec = {"model": None if out.model is None
+               else out.model.get_model_string(),
+               "recoveries": [(r.cause, r.dp_before, r.dp_after, r.error)
+                              for r in out.recoveries],
+               "mesh": None if out.mesh is None else (
+                   out.mesh.ranks, out.mesh.coords,
+                   M.axis_size(out.mesh, M.DATA_AXIS)),
+               "raised": None}
+    except R.ParticipantLost as e:
+        rec = {"raised": str(e)}
+    rec["wall_s"] = time.monotonic() - t0
+    rec["files"] = _files(str(mine / "kept_loss"))
+    save("kept_loss", rec)
+
+
 def _real_hang(rank, mesh, save):
     """Both ranks fit under an armed watchdog (MULT 4, MIN_S 1); rank 1
     sleeps ``HANG_S`` at its ``HANG_NTH``-th ``allreduce`` hit, before a
@@ -284,10 +324,12 @@ def _real_hang(rank, mesh, save):
     save("real_hang", rec)
 
 
-def _worker(rank, world, store, out_dir):
+def _worker(rank, world, store, out_dir, what="scenarios"):
     import torch.distributed as dist
 
     sys.path.insert(0, str(ROOT))
+    from mmlspark_tpu_torch.parallel import resilience as R
+    R.RECOVERY_WAIT_S = WAIT_S
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             world_size=world, rank=rank,
                             timeout=timedelta(seconds=90))
@@ -300,7 +342,10 @@ def _worker(rank, world, store, out_dir):
         tmp.write_bytes(pickle.dumps(res))
         os.replace(tmp, path)
 
-    _scenarios(world, rank, out_dir, save)
+    if what == "kept":
+        _kept_slice_loss(rank, out_dir, save)
+    else:
+        _scenarios(world, rank, out_dir, save)
     # peers may be dead or departed: leave without a collective teardown
     sys.stdout.flush()
     os._exit(0)
@@ -353,15 +398,17 @@ def worlds(tmp_path_factory):
     serial_killed = tmp_path_factory.mktemp("serial") / "killed"
     _killed_serial_dir(serial_killed)
     procs, outs = {}, {}
-    for world in SPAWNED:
+    for world in (*SPAWNED, "kept"):
+        size = 4 if world == "kept" else world
         out_dir = tmp_path_factory.mktemp(f"resilience_world{world}")
         shutil.copytree(serial_killed, out_dir / "serial_killed")
         outs[world] = out_dir
         procs[world] = [subprocess.Popen(
-            [sys.executable, __file__, str(rank), str(world),
-             str(out_dir / "store"), str(out_dir)],
+            [sys.executable, __file__, str(rank), str(size),
+             str(out_dir / "store"), str(out_dir),
+             *(["kept"] if world == "kept" else [])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for rank in range(world)]
+            for rank in range(size)]
     results = {"out": outs}
     mp = pytest.MonkeyPatch()
     try:
@@ -382,12 +429,13 @@ def worlds(tmp_path_factory):
                            for p in ps]
         for world, ps in procs.items():
             for rank, p in enumerate(ps):
-                want = 1 if (world, rank) == (4, 3) else 0
+                want = 1 if (world, rank) in ((4, 3), ("kept", 1)) else 0
                 assert p.returncode == want, \
                     f"world {world} rank {rank}:\n{logs[world][rank]}"
-            results[world] = [pickle.loads(
-                (outs[world] / f"rank{r}.pkl").read_bytes())
-                for r in range(world)]
+            results[world] = [
+                pickle.loads((outs[world] / f"rank{r}.pkl").read_bytes())
+                if (outs[world] / f"rank{r}.pkl").exists() else {}
+                for r in range(len(ps))]
     except subprocess.TimeoutExpired:
         pytest.fail(f"a rank ran past {SPAWN_TIMEOUT_S} s")
     finally:
@@ -560,6 +608,33 @@ def test_real_participant_loss_recovers_bitwise(worlds):
         assert got["wall_s"] < 60.0
 
 
+def test_real_loss_inside_the_kept_slice_keeps_the_survivors(worlds):
+    """Rank 1 of 4 exits mid-fit, inside the kept slice. Before the
+    survivors agreed, rank 0 re-formed groups with the dead rank 1 and
+    hung there past the group's timeout (ROADMAP C29). Now ranks 0, 2
+    and 3 post to the store, wait ``WAIT_S`` for rank 1, agree that dp
+    coordinate 1 is lost, and keep the first two survivors: ranks 0 and
+    2 re-form a dp = 2 mesh and finish bitwise the serial uninterrupted
+    checkpointed fit (rank 0's checkpoint 4 resumed), rank 3 leaves;
+    none waits past the deadline."""
+    ranks = worlds["kept"]
+    assert ranks[1] == {}
+    want = worlds["serial"]["ref_reg"]
+    for rank in (0, 2, 3):
+        got = ranks[rank]["kept_loss"]
+        assert got["raised"] is None, got["raised"]
+        [(cause, before, after, error)] = got["recoveries"]
+        assert (cause, before, after) == ("ParticipantLost", 4, 2)
+        assert "failed" in error and "ranks [0, 1, 2, 3]" in error
+        if rank < 3:
+            assert got["model"] == want, rank
+            assert got["mesh"] == ([0, 2], {"dp": rank // 2, "fp": 0}, 2)
+        else:
+            assert got["model"] is None and got["mesh"] is None
+        assert WAIT_S <= got["wall_s"] < WAIT_S + 30.0
+        assert got["files"] == (CKPT_FILES if rank == 0 else None)
+
+
 def test_real_hang_aborts_with_a_collective_stall(worlds):
     """Rank 1 sleeps 20 s before a collective: rank 0, waiting in it,
     raises TrainStalled collective-stall once its 1 s budget passes,
@@ -617,6 +692,105 @@ def test_shrink_mesh_sizes_are_the_reference_sizes(mesh8):
         shrink_mesh(m42, keep_dp=2)
 
 
+def test_survivors_agree_through_the_store():
+    """``agree_survivors`` on a 4 x 1 mesh's ranks as threads over one
+    store: rank 1 never posts, rank 3 posts after the first survivor's
+    wait ended; every survivor gets the same coordinates, [0, 2] (rank 3
+    too, so it leaves). With no rank lost the wait ends at once, and a
+    2 x 2 grid loses the whole row of a lost rank."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.parallel.mesh import Mesh
+    from mmlspark_tpu_torch.parallel.resilience import agree_survivors
+
+    def run(dp, fp, present, key, wait_s, late=()):
+        store = dist.HashStore()
+        got = {}
+
+        def one(rank):
+            if rank in late:
+                time.sleep(wait_s + 0.5)
+            got[rank] = agree_survivors(
+                Mesh(dp, fp, {}, rank, "gloo", torch.device("cpu")), key,
+                wait_s, store)
+
+        threads = [threading.Thread(target=one, args=(r,)) for r in present]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return got, time.monotonic() - t0
+
+    got, wall = run(4, 1, (0, 2, 3), "k1", 0.5, late=(3,))
+    assert got == {0: [0, 2], 2: [0, 2], 3: [0, 2]}
+    assert wall < 0.5 + 0.5 + 2.0
+    got, wall = run(4, 1, range(4), "k2", 30.0)
+    assert got == {r: [0, 1, 2, 3] for r in range(4)} and wall < 5.0
+    got, _ = run(2, 2, (0, 1, 3), "k3", 0.3)
+    assert got == {0: [0], 1: [0], 3: [0]}
+
+
+def test_agreement_keys_and_the_watch():
+    """``fit_resilient``'s store keys name the mesh's ranks and each
+    rank's count of calls on them, held in the store: the ranks of one
+    mesh get the same keys call after call, a new world's store starts
+    again at call 0, and a shrunk mesh has keys of its own. The recovery
+    watch (and so the polled collectives) is on only for a gloo mesh of
+    more than one rank."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.parallel import resilience as R
+    from mmlspark_tpu_torch.parallel.mesh import Mesh
+
+    def mesh(rank, dp=4, backend="gloo", ranks=None):
+        return Mesh(dp, 1, {}, rank, backend, torch.device("cpu"),
+                    ranks=ranks)
+
+    store = dist.HashStore()
+    calls = [[R._call_key(mesh(r), store) for r in range(4)]
+             for _ in range(2)]
+    assert calls == [["mmlspark_tpu_torch/fit_resilient/0,1,2,3/0"] * 4,
+                     ["mmlspark_tpu_torch/fit_resilient/0,1,2,3/1"] * 4]
+    assert R._call_key(mesh(0), dist.HashStore()) == calls[0][0]
+    assert R._call_key(mesh(2, 2, ranks=[0, 2]), store) == \
+        "mmlspark_tpu_torch/fit_resilient/0,2/0"
+
+    seen = {}
+    for name, m in (("gloo4", mesh(0)), ("gloo1", mesh(0, 1, ranks=[0])),
+                    ("nccl4", mesh(0, backend="nccl"))):
+        with R._watching(m, store, "k"):
+            seen[name] = (R.polling(), R.recovery_watch() is not None)
+    assert seen == {"gloo4": (True, True), "gloo1": (False, False),
+                    "nccl4": (False, False)}
+    assert not R.polling() and R.recovery_watch() is None
+
+
+def test_a_lost_store_gives_every_survivor_the_same_reason():
+    """Where the rendezvous store itself is gone (a TCP store on a lost
+    rank: its operations fail), no kept set can be formed and every
+    survivor raises the same ``ParticipantLost``."""
+    from mmlspark_tpu_torch.parallel.mesh import Mesh
+    from mmlspark_tpu_torch.parallel.resilience import (ParticipantLost,
+                                                        agree_survivors)
+
+    class GoneStore:
+        def __getattr__(self, name):
+            def fail(*args):
+                raise RuntimeError(f"{name}: Broken pipe")
+            return fail
+
+    said = set()
+    for rank in (1, 2, 3):
+        with pytest.raises(ParticipantLost) as ei:
+            agree_survivors(Mesh(4, 1, {}, rank, "gloo",
+                                 torch.device("cpu")), "k", 1.0, GoneStore())
+        said.add(str(ei.value))
+    assert said == {"fit_resilient: the survivors cannot agree on a kept "
+                    "set: the rendezvous store is unreachable (was it held "
+                    "by a lost rank?)"}
+
+
 def test_learner_collectives_go_through_the_mesh_helpers():
     """Every collective of the learners is a marked, interruptible
     boundary: ``parallel_modes`` calls ``torch.distributed`` nowhere
@@ -668,4 +842,5 @@ def test_rendezvous_that_never_answers_gives_up(monkeypatch):
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+            *sys.argv[5:])
