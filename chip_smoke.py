@@ -369,6 +369,26 @@ data_plane.cpp`` (the host C++ compiler; binning), then:
      (the median of 3 after an untimed first run) against the serial
      uncaptured fit's, timed beside it in the same loop, and a level's
      all-reduce time over NCCL and over gloo.
+ 22. sanitizer path (``sanitizer_path``, after phases 3 and 21; the
+     runtime sanitizer, ``core/sanitizer.py``): the bench ``train`` with
+     the sanitizer off, still captured, bitwise phase 3's booster with
+     its launches per replay and host syncs; with
+     ``MMLSPARK_TORCH_SAN=1`` the same fit uncaptured, bitwise, its
+     level_hist launches counted, its host syncs per tree, and the q8
+     fit bitwise its unsanitized fit through the quantized kernel; warm
+     walls in the order off / uncaptured / sanitized, then reversed; a
+     NaN written into the histogram on the card by an armed
+     ``gbdt.level_hist`` corrupt raises ``NonFiniteError`` naming
+     ``gbdt.level_hist``, and with the sanitizer off the same injection
+     completes; a small served ``LightGBMClassifier`` holds the
+     recompile budget at its bucket ladder over every batch size 1..32
+     (an off-ladder shape raises), and its NaN-leaf twin's batch raises
+     at ``serving.score``; two gloo ranks on this card
+     (``--dist-rank ... sanitizer``) agree at ``step_boundary`` after a
+     5-tree data-learner fit of the bench rows, and a forced extra event
+     on rank 1 raises ``CollectiveDivergence`` naming rank 1 on both
+     ranks; a one-rank NCCL mesh's data-learner fit records a non-empty
+     collective sequence whose hash two fits share.
 
 Each phase prints one JSON line. Any failure exits non-zero and prints
 no result. Without a CUDA card it exits 2 at once. The last lines are
@@ -954,6 +974,7 @@ def phase_main(ctx):
     quant_launches = H.hist_quant_kernel_launches
     ctx["launches"] = {"level_hist": launches}
     ctx["main_inputs"] = (binned, y, bin_upper, cfg)
+    ctx["main_fit_s"] = fit_s
     ctx["main_fit_rate"] = N * TREES / fit_s / 1e6
     # the fixed-point histogram makes the float32 fit reproducible
     reproducible = boosters_equal(
@@ -969,6 +990,9 @@ def phase_main(ctx):
     uncaptured_launches = H.hist_kernel_launches
     captured_bitwise = boosters_equal(result.booster, uncaptured.booster)
     capture = step_capture_stats(torch, cfg)
+    # the captured fit's host syncs and launches per replay, which phase
+    # sanitizer_path holds its sanitizer-off fit to
+    ctx["main_syncs"], ctx["main_capture"] = syncs[3], capture
 
     booster = result.booster
     lls = [e["train_binary_logloss"] for e in result.evals]
@@ -1037,7 +1061,7 @@ def step_capture_stats(torch, cfg):
     from mmlspark_tpu_torch.models.gbdt import step as S
 
     steps = [st for st in S.cached_steps()
-             if st.key is not None and st.key[4] == S._loop_only(cfg)]
+             if st.key is not None and S._loop_only(cfg) in st.key]
     if not steps:
         return {"cached": False}
     st = steps[-1]
@@ -7718,6 +7742,360 @@ def phase_resilience(ctx):
     return out
 
 
+SAN_TREES = 5                  # the gloo and NCCL sanitizer fits' trees
+SAN_RANK_TIMEOUT_S = 240       # the gloo ranks' deadline (no hang)
+SAN_SERVE_ROWS = 20_000
+SAN_REQUESTS = 1_000
+
+
+def nan_first_cell(h):
+    """An armed ``gbdt.level_hist`` corrupt: the histogram with a NaN in
+    its first cell, written on the histogram's device."""
+    h = h.clone()
+    h.view(-1)[0] = float("nan")
+    return h
+
+
+def san_fit_rank(rank, mesh, binned, y, bin_upper, cfg):
+    """A sanitized data-learner fit of ``SAN_TREES`` trees on ``mesh``:
+    its wall, its recorded collective events and sequence hash."""
+    import dataclasses as dc
+
+    import torch
+
+    from mmlspark_tpu_torch import train
+    from mmlspark_tpu_torch.core import sanitizer as san
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train(binned, y, dc.replace(cfg, num_iterations=SAN_TREES),
+          bin_upper=bin_upper, mesh=mesh)
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0,
+            "events": len(san.recorder()),
+            "hash": san.recorder().sequence_hash()}
+
+
+def sanitizer_rank_main(rank, world, store, data_dir):
+    """One gloo rank of phase ``sanitizer_path`` on ``cuda:0``, the
+    sanitizer on: a clean data-learner fit (its ``gbdt.metrics_sync``
+    cross-check runs inside it), ``step_boundary`` after it, then one
+    extra event recorded on rank 1 only and every rank's
+    ``step_boundary``; each rank writes what it saw."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from mmlspark_tpu_torch.core import sanitizer as san
+    from mmlspark_tpu_torch.parallel import mesh as M
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=120))
+    try:
+        san.enable()
+        with open(os.path.join(data_dir, "inputs.pkl"), "rb") as fh:
+            binned, y, bin_upper, cfg = pickle.load(fh)
+        mesh = M.create_mesh()
+        out = san_fit_rank(rank, mesh, binned, y, bin_upper, cfg)
+        out["agreed_hash"] = san.step_boundary("after the fit", mesh)
+        if rank == 1:
+            san.record_collective("psum", "dp", (1,), "float32")
+        t0 = time.perf_counter()
+        try:
+            san.step_boundary("forced", mesh)
+            out["divergence"] = None
+        except san.CollectiveDivergence as e:
+            out["divergence"] = str(e)
+        out["divergence_s"] = time.perf_counter() - t0
+        with open(os.path.join(data_dir, f"rank{rank}.pkl"), "wb") as fh:
+            pickle.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sanitizer(ctx):
+    """The runtime sanitizer on the card (``core/sanitizer.py``): off it
+    changes nothing (the captured bench fit, its bits, launches per
+    replay and host syncs); on, the bench fit runs uncaptured with every
+    histogram checked and gives the same bits, its cost timed beside the
+    captured and the uncaptured fit; an injected NaN is named; the
+    serving plane's recompile budget and score guard; the cross-rank
+    check over gloo ranks and a one-rank NCCL mesh."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch import DataFrame, LightGBMClassifier, train
+    from mmlspark_tpu_torch.core import faults
+    from mmlspark_tpu_torch.core import sanitizer as san
+    from mmlspark_tpu_torch.core.env import SAN, SERVE_BINNED, env_override
+    from mmlspark_tpu_torch.io.serving import ServingServer, _Pending
+    from mmlspark_tpu_torch.models.gbdt import hist_cuda as H
+    from mmlspark_tpu_torch.models.gbdt import score_cuda as S
+    from mmlspark_tpu_torch.parallel import mesh as M
+
+    binned, y, bin_upper, cfg = ctx["main_inputs"]
+    main = ctx["main_booster"]
+    out = {"card": ctx["smi"]}
+    failures = []
+    expected = TREES * cfg.effective_depth
+
+    @contextlib.contextmanager
+    def sanitized():
+        with env_override(SAN, "1"):
+            san.refresh_from_env()
+            try:
+                yield
+            finally:
+                san.disable()
+        san.refresh_from_env()
+
+    def fit(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = train(binned, y, cfg, bin_upper=bin_upper, **kw)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def syncs_of(trees, **kw):
+        return count_syncs(torch, lambda: train(
+            binned, y, dc.replace(cfg, num_iterations=trees),
+            bin_upper=bin_upper, **kw))
+
+    # --- off: the parent's captured fit ------------------------------------
+    if san.enabled():
+        raise AssertionError("the sanitizer is on before the phase")
+    H.hist_kernel_launches = 0
+    off, _ = fit()
+    off_launches = H.hist_kernel_launches
+    off_syncs = syncs_of(3)
+    capture = step_capture_stats(torch, cfg)
+    out["off"] = {
+        "captured": off.step_stats["captured"],
+        "bitwise_main_path": boosters_equal(off.booster, main),
+        "launches": off_launches, "syncs_per_fit": off_syncs,
+        "main_path_syncs_per_fit": ctx["main_syncs"],
+        "launches_per_replay": capture.get("launches_per_replay"),
+        "main_path_launches_per_replay":
+            ctx["main_capture"].get("launches_per_replay")}
+    if not (out["off"]["captured"] and out["off"]["bitwise_main_path"]
+            and off_launches == expected and off_syncs == ctx["main_syncs"]
+            and capture.get("launches_per_replay") is not None
+            and capture.get("launches_per_replay")
+            == ctx["main_capture"].get("launches_per_replay")):
+        failures.append(f"sanitizer off is not the main path: {out['off']}")
+
+    # --- on, clean: uncaptured, the same bits -------------------------------
+    with sanitized():
+        H.hist_kernel_launches = 0
+        on, _ = fit()
+        on_launches = H.hist_kernel_launches
+        contracts = san.dtype_contracts()
+        on_syncs = {t: syncs_of(t) for t in (1, 3)}
+        with knobs(quant="q8"):
+            H.hist_quant_kernel_launches = 0
+            on_q8, _ = fit()
+            q8_launches = H.hist_quant_kernel_launches
+    ctx["launches"]["sanitizer_path"] = {"level_hist": on_launches,
+                                         "level_hist_quant": q8_launches}
+    with knobs(quant="q8"):
+        off_q8, _ = fit()
+    unc_syncs = {t: syncs_of(t, capture=False) for t in (1, 3)}
+    out["on"] = {
+        "captured": on.step_stats["captured"],
+        "bitwise_main_path": boosters_equal(on.booster, main),
+        "launches": on_launches, "q8_launches": q8_launches,
+        "q8_bitwise_unsanitized": boosters_equal(on_q8.booster,
+                                                 off_q8.booster),
+        "syncs": on_syncs, "uncaptured_syncs": unc_syncs,
+        "checked_syncs_per_tree": ((on_syncs[3] - on_syncs[1])
+                                   - (unc_syncs[3] - unc_syncs[1])) / 2,
+        "contracts": sorted(contracts)}
+    if not (not on.step_stats["captured"] and out["on"]["bitwise_main_path"]
+            and on_launches == expected and q8_launches == expected
+            and out["on"]["q8_bitwise_unsanitized"]
+            and {"gbdt.level_hist", "gbdt.train_scan.entry",
+                 "gbdt.train_scan.exit"} <= set(contracts)):
+        failures.append(f"the sanitized fit is not the main path's: "
+                        f"{out['on']}")
+
+    # --- the cost: off / uncaptured / sanitized, then reversed --------------
+    walls = {"off": [], "uncaptured": [], "sanitized": []}
+    for arm in ("off", "uncaptured", "sanitized", "sanitized", "uncaptured",
+                "off"):
+        if arm == "sanitized":
+            with sanitized():
+                r, s_ = fit()
+        else:
+            r, s_ = fit(capture=arm == "off")
+        walls[arm].append(s_)
+        if not boosters_equal(r.booster, main):
+            failures.append(f"a timed {arm} fit left the main path's bits")
+    out["walls_s"] = walls
+    out["median_s"] = {k: float(np.median(v)) for k, v in walls.items()}
+    out["main_path_fit_s"] = ctx.get("main_fit_s")
+
+    # --- an injected NaN ------------------------------------------------------
+    with sanitized():
+        t0 = time.perf_counter()
+        try:
+            with faults.injected("gbdt.level_hist", "corrupt", count=None,
+                                 corrupt=nan_first_cell):
+                fit()
+            raised = None
+        except san.NonFiniteError as e:
+            raised = str(e)
+        out["nan_raise_s"] = time.perf_counter() - t0
+    out["nan_error"] = raised
+    if raised is None or not all(w in raised for w in (
+            "graftsan", "gbdt.level_hist", "NaN")):
+        failures.append(f"the injected NaN was not named: {raised!r}")
+    with faults.injected("gbdt.level_hist", "corrupt", count=None,
+                         corrupt=nan_first_cell):
+        silent, out["nan_off_fit_s"] = fit()
+    out["nan_off_trees"] = silent.booster.num_trees
+    if silent.booster.num_trees != TREES:
+        failures.append("the injection with the sanitizer off did not "
+                        "complete")
+
+    # --- serving: the recompile budget and the score guard ------------------
+    x, ys = serving_data(SAN_SERVE_ROWS)
+    model = LightGBMClassifier(numIterations=10, numLeaves=15, maxBin=63) \
+        .fit(DataFrame({"features": x, "label": ys}))
+    S.tree_score_launches = 0
+    serve = {}
+    with env_override(SERVE_BINNED, "on"), sanitized():
+        server = ServingServer(model, max_batch_size=32,
+                               max_latency_ms=1.0).start()
+        try:
+            served = server._models["default"]
+            plane = served.plane
+            warm = san.recompile_count()
+            san.set_recompile_budget(len(server._ladder))
+            rng = np.random.default_rng(3)
+            total = size = 0
+            while total < SAN_REQUESTS:
+                b = (size % 32) + 1
+                size += 1
+                batch = []
+                for row in x[rng.integers(0, len(x), size=b)]:
+                    p = _Pending({"features": row.tolist()})
+                    p.binned = plane.bin_row(p.payload)
+                    batch.append(p)
+                server._score(batch, served)
+                if any(q.reply is None for q in batch):
+                    failures.append("a served batch got no reply")
+                    break
+                total += b
+            serve.update(ladder=server._ladder, warm_builds=warm,
+                         builds_after=san.recompile_count(),
+                         binned_batches=served.stats["binned_batches"])
+            try:
+                plane._mark_shape(np.zeros((99, F), np.uint8))
+                serve["off_ladder"] = None
+            except san.RecompileBudgetExceeded as e:
+                serve["off_ladder"] = str(e)[:200]
+        finally:
+            server.stop()
+            san.set_recompile_budget(0)
+        good = model.booster
+        model.booster = good.from_state_dict(
+            {**good.state_dict(),
+             "node_value": np.full_like(good.node_value, np.nan)})
+        server = ServingServer(model, max_batch_size=4,
+                               max_latency_ms=1.0).start()
+        try:
+            served = server._models["default"]
+            batch = []
+            for row in x[:3]:
+                p = _Pending({"features": row.tolist()})
+                p.binned = served.plane.bin_row(p.payload)
+                batch.append(p)
+            try:
+                server._score(batch, served)
+                serve["nan_error"] = None
+            except san.NonFiniteError as e:
+                serve["nan_error"] = str(e)
+        finally:
+            server.stop()
+            model.booster = good
+    serve["tree_score_launches"] = S.tree_score_launches
+    ctx["launches"]["sanitizer_path_tree_score"] = S.tree_score_launches
+    out["serving"] = serve
+    if not (0 < serve.get("warm_builds", 0) <= len(serve.get("ladder", []))
+            and serve.get("builds_after") == serve.get("warm_builds")
+            and serve.get("off_ladder")
+            and serve.get("nan_error")
+            and "'serving.score'" in serve["nan_error"]
+            and serve["tree_score_launches"] > 0):
+        failures.append(f"serving under the sanitizer: {serve}")
+
+    # --- across ranks -----------------------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sanitizer_")
+    procs = []
+    try:
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as fh:
+            pickle.dump((binned, y, bin_upper, cfg), fh)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank",
+             str(rank), str(DIST_WORLD), os.path.join(tmp, "gloo"), tmp,
+             "sanitizer"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(DIST_WORLD)]
+        logs = [p.communicate(timeout=SAN_RANK_TIMEOUT_S)[0] for p in procs]
+        out["gloo_ranks_s"] = time.perf_counter() - t0
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"gloo rank {rank} failed:\n"
+                                     f"{log[-4000:]}")
+        ranks = []
+        for rank in range(DIST_WORLD):
+            with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as fh:
+                ranks.append(pickle.load(fh))
+        out["gloo"] = ranks
+        if not (len({r["agreed_hash"] for r in ranks}) == 1
+                and all(r["events"] > 0 for r in ranks)
+                and all(r["divergence"] and "rank 1" in r["divergence"]
+                        and "'forced'" in r["divergence"] for r in ranks)):
+            failures.append(f"the gloo ranks' cross-check: {ranks}")
+
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                                world_size=1, rank=0,
+                                timeout=timedelta(seconds=120))
+        try:
+            mesh = M.create_mesh()
+            with sanitized():
+                nccl = [san_fit_rank(0, mesh, binned, y, bin_upper, cfg)
+                        for _ in range(2)]
+                nccl_hash = san.step_boundary("nccl", mesh)
+        finally:
+            dist.destroy_process_group()
+        out["nccl"] = nccl
+        if not (nccl[0]["events"] > 0 and nccl[0]["hash"] == nccl[1]["hash"]
+                == nccl_hash):
+            failures.append(f"the one-rank NCCL sequence: {nccl}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if san.enabled():
+        failures.append("the sanitizer was left on")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def kernel_table(ctx):
     def entry(name, source, replaces, launches, rows):
         # times summed over the six level widths of one depth-6 tree
@@ -7839,6 +8217,12 @@ def kernel_table(ctx):
     # quantized launches; the width-1 calls on a node's membership
     # (phase kernel, uint8 at B = 63 and uint16 at B = 1,023), per call
     kernels[0]["launches_leafwise_path"] = ctx["launches"]["leafwise_path"]
+    # the sanitized bench fit (uncaptured, every histogram checked), and
+    # the sanitized q8 fit
+    kernels[0]["launches_sanitizer_path"] = \
+        ctx["launches"]["sanitizer_path"]["level_hist"]
+    kernels[2]["launches_sanitizer_path"] = \
+        ctx["launches"]["sanitizer_path"]["level_hist_quant"]
     kernels[0]["launches_dart_path"] = ctx["launches"]["dart_path"]["f32"]
     kernels[0]["launches_dart_path_estimator"] = \
         ctx["launches"]["dart_path"]["estimator"]
@@ -7992,6 +8376,9 @@ def kernel_table(ctx):
         "launches_dist_gbdt_path":
             ctx["launches"]["dist_gbdt_path_tree_score"],
         "launches_fleet_path": ctx["launches"]["fleet_path_tree_score"],
+        # the sanitized server's batches over the bucket ladder
+        "launches_sanitizer_path":
+            ctx["launches"]["sanitizer_path_tree_score"],
         "max_abs_err": max(r["max_abs_err"] for r in score.values()),
         "ms": score["2M"]["kernel_ms"],
         "device_ms": score["2M"]["kernel_device_ms"],
@@ -8116,7 +8503,8 @@ def main() -> int:
                      ("attention_path", phase_attention_path),
                      ("attention_dist", phase_attention_dist),
                      ("dist_gbdt_path", phase_dist_gbdt),
-                     ("resilience_path", phase_resilience)):
+                     ("resilience_path", phase_resilience),
+                     ("sanitizer_path", phase_sanitizer)):
         t0 = time.perf_counter()
         try:
             out = fn(ctx)
@@ -8138,10 +8526,11 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
-        # one gloo rank of phase dist_gbdt_path, or with "resilience" of
-        # phase resilience_path (started by that phase)
-        rank_main = (resilience_rank_main if sys.argv[6:7] == ["resilience"]
-                     else dist_rank_main)
+        # one gloo rank of phase dist_gbdt_path, or with "resilience" or
+        # "sanitizer" of that phase (started by the phase)
+        rank_main = {"resilience": resilience_rank_main,
+                     "sanitizer": sanitizer_rank_main}.get(
+            sys.argv[6] if len(sys.argv) > 6 else None, dist_rank_main)
         rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                   sys.argv[5])
         sys.exit(0)

@@ -91,6 +91,18 @@ one; the defaults are the JAX package's:
   - ``MMLSPARK_TORCH_RECOVERY_MIN_DP``  the smallest dp slice
     ``fit_resilient`` re-forms; a failure at this size re-raises
     (default 1)
+  - ``MMLSPARK_TORCH_SAN``  0|1: the runtime sanitizer
+    (``core/sanitizer.py``): NaN/Inf boundary guards, dtype contracts,
+    the collective recorder and its cross-rank check, the recompile
+    budget and the lock-order recorder (default off; a sanitized fit
+    runs its step uncaptured)
+  - ``MMLSPARK_TORCH_SAN_RECOMPILE_BUDGET``  with the sanitizer on: the
+    builds per process before ``RecompileBudgetExceeded`` (default 0:
+    count only)
+  - ``MMLSPARK_TORCH_SAN_LOCK_HOLD_MS``  with the sanitizer on: warn
+    when a ``san_lock`` is held longer than this (default 0.0: off)
+  - ``MMLSPARK_TORCH_SAN_DTYPE``  0|1: with the sanitizer on, the dtype
+    contracts (default on; 0 keeps the rest of the sanitizer)
 
 Parsing contract, as in the JAX package: a malformed value must not
 abort or silently mislabel a run, so it warns once per variable and the
@@ -139,6 +151,10 @@ WATCHDOG_MIN_S = "MMLSPARK_TORCH_WATCHDOG_MIN_S"
 WATCHDOG_INIT_S = "MMLSPARK_TORCH_WATCHDOG_INIT_S"
 RECOVERY_MAX = "MMLSPARK_TORCH_RECOVERY_MAX"
 RECOVERY_MIN_DP = "MMLSPARK_TORCH_RECOVERY_MIN_DP"
+SAN = "MMLSPARK_TORCH_SAN"
+SAN_RECOMPILE_BUDGET = "MMLSPARK_TORCH_SAN_RECOMPILE_BUDGET"
+SAN_LOCK_HOLD_MS = "MMLSPARK_TORCH_SAN_LOCK_HOLD_MS"
+SAN_DTYPE = "MMLSPARK_TORCH_SAN_DTYPE"
 
 _WARNED: Set[str] = set()
 

@@ -55,13 +55,13 @@ from __future__ import annotations
 
 import hashlib
 import os
-import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
+from mmlspark_tpu_torch.core import sanitizer
 from mmlspark_tpu_torch.core.dataframe import DataFrame
 from mmlspark_tpu_torch.core.env import (REFRESH_INTERVAL_S,
                                          REFRESH_PRIORITY, REFRESH_YIELD_S,
@@ -99,9 +99,8 @@ class StreamBuffer:
         if capacity <= 0:
             raise ValueError(f"capacity must be positive, got {capacity}")
         self.capacity = int(capacity)
-        # the reference's san_lock("refresh.stream_buffer",
-        # kind="condition")
-        self._lock = threading.Condition()
+        self._lock = sanitizer.san_lock("refresh.stream_buffer",
+                                        kind="condition")
         self._blocks: list = []          # [(x_block, y_block), ...]
         self._rows = 0
         self._closed = False

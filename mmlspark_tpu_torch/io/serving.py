@@ -82,7 +82,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from mmlspark_tpu_torch.core import env
+from mmlspark_tpu_torch.core import env, sanitizer
 from mmlspark_tpu_torch.core.dataframe import DataFrame
 from mmlspark_tpu_torch.core.device import DeviceUnavailable
 from mmlspark_tpu_torch.core.faults import fault_point
@@ -120,9 +120,8 @@ class _CappedThreadingHTTPServer(ThreadingHTTPServer):
         self.rejected_connections = 0
         # live per-connection sockets, so an abrupt kill() can reset
         # every in-flight client: a dead worker looks dead (connection
-        # errors, not polite 5xx replies). The reference's
-        # san_lock("serving.http.active")
-        self._active_lock = threading.Lock()
+        # errors, not polite 5xx replies)
+        self._active_lock = sanitizer.san_lock("serving.http.active")
         self._active: set = set()
 
     def process_request(self, request, client_address):
@@ -267,7 +266,9 @@ class _BinnedPlane:
     one call (on the card: the copy in, the ``tree_score`` kernel, the
     copy out and the wait for the stream), then takes the real rows'
     margins. Rows are independent, so the result is bitwise that of the
-    exact shape. ``shapes_seen`` counts the distinct shapes scored."""
+    exact shape. ``shapes_seen`` counts the distinct shapes scored; each
+    new one is a build for the sanitizer's recompile budget
+    (``sanitizer.count_recompile``)."""
 
     def __init__(self, plan, ladder: List[int]):
         self.plan = plan
@@ -294,9 +295,16 @@ class _BinnedPlane:
                 rows, self.plan.num_features, self.plan.ingest_dtype)
         return batch
 
+    def _mark_shape(self, x) -> None:
+        key = (tuple(x.shape), str(x.dtype))
+        if key not in self._seen:
+            self._seen.add(key)
+            sanitizer.count_recompile(
+                f"serving.binned_scorer shape={key[0]} dtype={key[1]}")
+
     def _score(self, batch, n: int) -> np.ndarray:
         batch.x[n:] = 0
-        self._seen.add((batch.x.shape, str(batch.x.dtype)))
+        self._mark_shape(batch.x)
         self.plan.score.score_staged(batch)
         out = batch.out[:n]
         return (out[:, 0] if out.shape[1] == 1 else out).copy()
@@ -446,8 +454,7 @@ class ServingServer:
         self._warm_capacity = env.env_int(env.SERVE_WARM_MODELS, 4,
                                           minimum=1)
         self._ladder: List[int] = _bucket_ladder(max_batch_size)
-        # the reference's san_lock("serving.server", kind="condition")
-        self._lock = threading.Condition()
+        self._lock = sanitizer.san_lock("serving.server", kind="condition")
         self._stop = False
         self._stats = {"served": 0, "errors": 0, "rejected": 0,
                        "timeouts": 0, "swaps": 0, "swap_rollbacks": 0,
@@ -953,6 +960,8 @@ class ServingServer:
                 " committing the swap without a verification batch",
                 served.name)
             return
+        sanitizer.check_finite("serving.score", cols)
+        sanitizer.check_dtype_contract(f"serving.score.{served.name}", cols)
         for c, values in cols.items():
             arr = np.asarray(values)
             if arr.dtype.kind == "f" and not np.isfinite(arr).all():
@@ -1438,6 +1447,11 @@ class ServingServer:
                 [c for c in out.columns if c not in df.columns] or out.columns
             cols = {c: out.col(c) for c in reply_cols}
             served.stats["generic_batches"] += 1
+        # a NaN prediction would otherwise serialize into a
+        # client-visible JSON "NaN"; the contract pins each served
+        # model's reply widths
+        sanitizer.check_finite("serving.score", cols)
+        sanitizer.check_dtype_contract(f"serving.score.{served.name}", cols)
         t_scored = time.monotonic()
         for i, p in enumerate(batch):
             reply = {}
@@ -1473,7 +1487,7 @@ class ContinuousServingServer(ServingServer):
                  warmup_payload: Optional[dict] = None, **kwargs):
         kwargs.setdefault("max_batch_size", 1)
         super().__init__(model, warmup_payload=warmup_payload, **kwargs)
-        self._score_lock = threading.Lock()
+        self._score_lock = sanitizer.san_lock("serving.continuous.score")
         # no queue here: the backpressure bound caps how many requests
         # may wait on the score lock at once
         self._inflight = threading.BoundedSemaphore(max(self.max_queue, 1))
@@ -1535,8 +1549,7 @@ class ServingFleet:
         self._continuous = continuous
         self._host = host
         self._server_kwargs = dict(server_kwargs)
-        # the reference's san_lock("serving.fleet.servers")
-        self._servers_lock = threading.Lock()
+        self._servers_lock = sanitizer.san_lock("serving.fleet.servers")
         self._started = False
         self.servers = [self._make_server() for _ in range(num_servers)]
         fleet = self
@@ -1768,8 +1781,7 @@ class FleetClient:
                       "slow_ejections": 0}
         self._workers: List[str] = []
         self._next = 0
-        # the reference's san_lock("serving.fleet.client")
-        self._lock = threading.Lock()
+        self._lock = sanitizer.san_lock("serving.fleet.client")
         self._registry_count = 0
         self._last_refresh = 0.0
         self._degraded: Dict[str, float] = {}  # url -> marked time

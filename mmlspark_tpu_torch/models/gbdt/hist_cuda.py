@@ -50,6 +50,7 @@ from typing import Dict
 
 import torch
 
+from mmlspark_tpu_torch.core import sanitizer
 from mmlspark_tpu_torch.core.faults import fault_point
 from mmlspark_tpu_torch.native import bindings
 
@@ -176,7 +177,18 @@ def level_histogram(binned, grad, hess, live, local, width: int, f: int,
                                         width, f, b)
     else:
         out = _launch(binned, grad, hess, live, local, width, f, b)
-    return fault_point("gbdt.level_hist", out)
+    return _guard(out)
+
+
+def _guard(out: torch.Tensor) -> torch.Tensor:
+    """A histogram on its way out of a wrapper: the ``gbdt.level_hist``
+    fault point, then the sanitizer's finite check and dtype contract at
+    the same boundary (one boolean read each while the sanitizer is
+    off; on, one reduction and one host read per launch, so a sanitized
+    fit runs its step uncaptured: ``step.open_step``)."""
+    out = fault_point("gbdt.level_hist", out)
+    return sanitizer.check_dtype_contract(
+        "gbdt.level_hist", sanitizer.check_finite("gbdt.level_hist", out))
 
 
 def bin_ids(binned) -> torch.Tensor:
@@ -703,7 +715,7 @@ def fixed_point_round(acc: torch.Tensor, exps: torch.Tensor) -> torch.Tensor:
             acc.device.index, torch.cuda.current_stream(acc.device).cuda_stream)
         bindings.check(lib, code, "level_hist round launch")
         hist_round_launches += 1
-    return fault_point("gbdt.level_hist", out)
+    return _guard(out)
 
 
 def fixed_point_round_reference(acc, exps) -> torch.Tensor:
@@ -777,7 +789,7 @@ def level_histogram_quant(binned, grad_q, hess_q, live, local, width: int,
     else:
         out = _launch_quant(binned, grad_q, hess_q, live, local, width, f, b,
                             gsi, hsi)
-    return fault_point("gbdt.level_hist", out)
+    return _guard(out)
 
 
 def level_histogram_quant_reference(binned, grad_q, hess_q, live, local,
@@ -868,7 +880,7 @@ def dequantize_sums(acc: torch.Tensor, gscale_inv,
             torch.cuda.current_stream(acc.device).cuda_stream)
         bindings.check(lib, code, "level_hist_quant dequantize launch")
         hist_quant_dequant_launches += 1
-    return fault_point("gbdt.level_hist", out)
+    return _guard(out)
 
 
 def dequantize_reference(acc, gscale_inv, hscale_inv) -> torch.Tensor:

@@ -61,6 +61,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.core import sanitizer
 from mmlspark_tpu_torch.models.gbdt import sampling
 from mmlspark_tpu_torch.models.gbdt.leafwise import make_build_tree_leafwise
 
@@ -69,10 +70,14 @@ class HostLoop:
     """The host loop of one fit over an uncaptured ``step.Step``'s
     buffers (its binned rows, labels, weights, raw scores, validation
     sets, objective and metrics). ``labels``: the training labels on the
-    host (pos/neg bagging compares them there, as the reference does)."""
+    host (pos/neg bagging compares them there, as the reference does).
+    The step's labels, weights and raw scores pass the sanitizer's
+    ``gbdt.train_loop.entry`` guard (``trainer.train`` reset it)."""
 
     def __init__(self, st, labels: np.ndarray, *, leafwise: bool,
                  iteration_offset: int = 0):
+        sanitizer.check_finite("gbdt.train_loop.entry",
+                               (st.labels, st.weights, st.raw))
         cfg = st.cfg
         self.st, self.cfg = st, cfg
         self.offset = iteration_offset

@@ -56,8 +56,12 @@ or monotone splits, DART, leaf-wise growth) raise here and are screened
 by ``trainer._ooc_supported`` before ``train`` streams. The tree loop
 runs under ``resilience.fit_watchdog("gbdt.train_ooc")`` (off unless
 ``MMLSPARK_TORCH_WATCHDOG_MULT`` > 0); a prefetcher's queue wait is its
-``input_wait`` boundary. The reference's finite checks around this loop
-wait for ROADMAP A14.
+``input_wait`` boundary. The sanitizer (``core/sanitizer.py``; no-ops
+while ``MMLSPARK_TORCH_SAN`` is off) guards the reference's three
+boundaries: the base score (``gbdt.ooc.entry``), each level's
+histogram, siblings derived (``gbdt.ooc.level_hist``; the merged sums'
+dequantization already passed ``gbdt.level_hist``), and each tree's
+shrunk leaf values before the carry pass (``gbdt.ooc.carry``).
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.core import sanitizer
 from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.core.faults import fault_point
 from mmlspark_tpu_torch.core.logging_utils import warn_once
@@ -367,6 +372,7 @@ def train_ooc(spill: SpillReader, labels, cfg: T.TrainConfig, *,
     def grad_hess(carry, y, *w):
         return objective_fn(carry, y, w[0] if w else None, **okw)
 
+    sanitizer.check_finite("gbdt.ooc.entry", np.float32(base_score))
     with measures.phase("dataPreparation"):
         for i in range(nc):
             if get_init_raw is not None:
@@ -439,6 +445,7 @@ def train_ooc(spill: SpillReader, labels, cfg: T.TrainConfig, *,
             if subtract and d > 0:
                 hist = T._derive_sibling_hist(hist, prev_hist, prev_split,
                                               prev_ss)
+            sanitizer.check_finite("gbdt.ooc.level_hist", hist)
             if d == 0:
                 node_value[0], tree[3][0] = T._root_stats(hist, cfg)
             (do_split, best_feat, best_bin, lval, rval, left_stats,
@@ -452,7 +459,7 @@ def train_ooc(spill: SpillReader, labels, cfg: T.TrainConfig, *,
             route.append((best_feat, best_bin, do_split))
 
         # -- the carry pass: Step.add_trees's shrink, predict, add ------
-        nv = node_value * lr
+        nv = sanitizer.check_finite("gbdt.ooc.carry", node_value * lr)
         for i, bn, carry in sweep(read_binned, carry_st.get):
             carry.add_(T._predict_tree(tree[0], tree[1], nv, bn, depth))
             store(carry_st, i, carry)

@@ -51,8 +51,10 @@ cached graph and its memory pool.
 
 A graph replays kernels, not Python: a fault armed at a point inside
 the step (``gbdt.level_hist``) would fire once at capture and then be
-baked into every replay, so such fits run the step uncaptured. The
-launch counters of ``hist_cuda`` count the kernels of every replay
+baked into every replay, so such fits run the step uncaptured; so do
+fits while the sanitizer is on (``core/sanitizer.py``), whose
+``gbdt.level_hist`` check reads the host after every histogram launch.
+The launch counters of ``hist_cuda`` count the kernels of every replay
 (``hist_cuda.captured_launches`` / ``count_replay``).
 """
 
@@ -68,7 +70,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from mmlspark_tpu_torch.core import faults
+from mmlspark_tpu_torch.core import faults, sanitizer
 from mmlspark_tpu_torch.models.gbdt import hist_cuda
 from mmlspark_tpu_torch.models.gbdt import objectives as obj_mod
 from mmlspark_tpu_torch.models.gbdt import sampling
@@ -466,15 +468,16 @@ def open_step(cfg, binned, labels, weights, raw, valids, *,
     and ``weights`` and this rank's ``binned`` and ``raw``: such a step
     is never captured).
 
-    On the card, a named objective with ``capture`` on gets a captured
-    step: the cached one for this shape and config (its buffers loaded
-    with these tensors), or a new one, captured after its first
-    iteration. Otherwise the step runs directly on the given tensors.
+    On the card, a named objective with ``capture`` on, no fault armed
+    inside the step and the sanitizer off gets a captured step: the
+    cached one for this shape and config (its buffers loaded with these
+    tensors), or a new one, captured after its first iteration. Otherwise the step runs directly on the given tensors.
     Call :func:`close_step` when the fit is done."""
     from mmlspark_tpu_torch.models.gbdt import trainer as T
 
     captured = (capture and binned.device.type == "cuda"
                 and custom_objective is None and learner is None
+                and not sanitizer.enabled()
                 and not any(faults.is_armed(p) for p in IN_STEP_POINTS))
     if not captured:
         grad_fn = None

@@ -112,7 +112,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mmlspark_tpu_torch.core import env
+from mmlspark_tpu_torch.core import env, sanitizer
 from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.core.faults import fault_point
 from mmlspark_tpu_torch.core.logging_utils import warn_once
@@ -1563,6 +1563,16 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     drain is a ``collective`` boundary with the fault points
     ``allreduce`` and ``mesh.collective_hang`` (``_host_sync``).
 
+    The sanitizer (``core/sanitizer.py``, ``MMLSPARK_TORCH_SAN``; each
+    check a no-op while it is off) is reset at the fit's start, and
+    guards the reference's boundaries: the inputs at
+    ``gbdt.train_scan.entry`` (the step) or ``gbdt.train_loop.entry``
+    (the host loop), every histogram at ``gbdt.level_hist``, the metric
+    rows at ``gbdt.metrics_sync`` (then ``step_boundary``: on a mesh,
+    every rank's collective sequence is held against the others'), and
+    the raw scores at ``gbdt.train_scan.exit``. While it is on, the step
+    runs uncaptured, with the captured step's trees.
+
     Out of core (``resolve_ooc``): with ``MMLSPARK_TORCH_OOC`` auto and
     too little free device memory for the in-core fit (``fits_in_core``),
     or ``on``, a fit that ``_ooc_supported`` accepts streams through
@@ -1614,6 +1624,9 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
 
     dev = resolve_device(device)
     check_supported(cfg)
+    # a fresh collective, recompile and dtype-contract record per fit
+    # (keeps the ranks' cumulative sequence hashes comparable)
+    sanitizer.reset()
     measures = measures if measures is not None else InstrumentationMeasures()
     mode = resolve_mode(cfg, mesh)
     learner = None
@@ -1781,14 +1794,32 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
     rows, met_host = [], []
     best_iter, stop_after = -1, None
 
+    def metrics_synced(met):
+        """The metric rows' first host read: guarded, and the ranks'
+        collective sequences cross-checked."""
+        sanitizer.check_finite("gbdt.metrics_sync", met)
+        sanitizer.step_boundary("gbdt.metrics_sync", mesh)
+
     def sync_metrics_through(upto):
         """Metric values [len(met_host), upto) to the host in one copy."""
         if upto > len(met_host):
-            met_host.extend(_host_sync(
+            met = _host_sync(
                 dev, lambda: f"gbdt metric sync through iter {upto}",
                 lambda: torch.stack(rows[len(met_host):upto])
-                [:, cols:].cpu().numpy()))
+                [:, cols:].cpu().numpy())
+            metrics_synced(met)
+            met_host.extend(met)
 
+    if not host:
+        # the host loop guards its own entry (``HostLoop``)
+        data = {"binned": binned_d, "labels": labels_d,
+                "weights": weights_d, "base": np.float32(base_score),
+                "lr": np.float32(cfg.learning_rate),
+                "valids": tuple({key: vs[key] for key in
+                                 ("binned", "labels", "weights")}
+                                for vs in valids)}
+        sanitizer.check_finite("gbdt.train_scan.entry", data)
+        sanitizer.check_dtype_contract("gbdt.train_scan.entry", data)
     st = step_mod.open_step(
         cfg, binned_d, labels_d, weights_d, raw, valids, layout=layout,
         lr=cfg.learning_rate, base=base_score, hist_quant=hist_quant,
@@ -1843,6 +1874,10 @@ def train(binned: np.ndarray, labels: np.ndarray, cfg: TrainConfig,
                     if kept else
                     np.zeros((0, cols + len(labels_order)), np.float32))
             resilience.step_end()
+            carry = (st.raw, tuple(vs["raw"] for vs in st.valids))
+            sanitizer.check_finite("gbdt.train_scan.exit", carry)
+            sanitizer.check_dtype_contract("gbdt.train_scan.exit", carry)
+            metrics_synced(packed[:, cols:])
     finally:
         step_mod.close_step(st)
     sf_h, tb_h, nv_h, cnt_h, met = step_mod.unpack(packed, slots, bins, k)

@@ -37,6 +37,8 @@ from typing import Dict, Iterable, List
 
 import numpy as np
 
+from mmlspark_tpu_torch.core import sanitizer
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -225,7 +227,7 @@ HOST_SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "mmls_bin_matrix": ([_VP, _I, _LL, _LL, _VP, _I, _VP, _I], _I),
     },
 }
-_host_lock = threading.Lock()
+_host_lock = sanitizer.san_lock("native.build")
 _host_libs: Dict[str, ctypes.CDLL] = {}
 
 

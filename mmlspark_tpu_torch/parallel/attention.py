@@ -31,9 +31,10 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from mmlspark_tpu_torch.core import sanitizer
 from mmlspark_tpu_torch.core.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.parallel import flash as _flash
-from mmlspark_tpu_torch.parallel.mesh import sequence_group
+from mmlspark_tpu_torch.parallel.mesh import SEQUENCE_AXIS, sequence_group
 
 NEG_INF = -1e30
 
@@ -141,12 +142,16 @@ def _sequence_length(chunk: int, group, size: int, dev) -> int:
 
 
 def _rotate(tensors, group, rank: int, size: int):
-    """Send each tensor to rank r+1 of the group, receive from r-1."""
+    """Send each tensor to rank r+1 of the group, receive from r-1 (one
+    ``ppermute`` event per tensor for the sanitizer, as the reference
+    records its ring)."""
     nxt = dist.get_global_rank(group, (rank + 1) % size)
     prv = dist.get_global_rank(group, (rank - 1) % size)
     received = [torch.empty_like(t) for t in tensors]
     ops = []
     for t, r in zip(tensors, received):
+        sanitizer.record_collective("ppermute", SEQUENCE_AXIS, t.shape,
+                                    t.dtype)
         ops += [dist.P2POp(dist.isend, t, nxt, group),
                 dist.P2POp(dist.irecv, r, prv, group)]
     for req in dist.batch_isend_irecv(ops):
@@ -185,6 +190,8 @@ def _all_to_all(x, group):
     came from rank i."""
     x = x.contiguous()
     out = torch.empty_like(x)
+    sanitizer.record_collective("all_to_all", SEQUENCE_AXIS, x.shape,
+                                x.dtype)
     dist.all_to_all_single(out, x, group=group)
     return out
 

@@ -38,7 +38,10 @@ directly (NCCL: it only queues the work).
 A collective that the backend fails (gloo: a peer's socket closed, a
 timeout), or whose wait sees the flag, raises
 :class:`parallel.resilience.ParticipantLost` with the reason and the
-group's ranks.
+group's ranks. Each helper reports its collective (op, axis, shape,
+dtype) to the runtime sanitizer's recorder (``core/sanitizer.py``; a
+no-op while it is off), in the reference's names: ``psum`` / ``pmax`` /
+``pmin``, ``reduce_scatter``, ``all_gather``, ``pbroadcast``.
 
 :func:`shrink_mesh` re-forms a mesh on a surviving slice of its ``dp``
 axis with process groups among the survivors only
@@ -60,6 +63,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from mmlspark_tpu_torch.core import sanitizer
 from mmlspark_tpu_torch.core.faults import fault_point
 from mmlspark_tpu_torch.parallel import resilience
 
@@ -404,16 +408,23 @@ def _wait_gloo(work: Any, watch: Optional[Callable[[], bool]]) -> bool:
 
 
 def _run(mesh: Mesh, axis: str, what: str, tag: str,
-         issue: Callable[[bool], Any]) -> None:
+         issue: Callable[[bool], Any],
+         record: Optional[Tuple[str, torch.Tensor]] = None) -> None:
     """Run one collective on ``axis``'s group (``"mesh"``: every rank of
-    the mesh): ``issue(async_op)`` makes the call. A ``collective``
-    boundary with the fault points ``allreduce`` and
-    ``mesh.collective_hang``. Under an armed watchdog or a resilient fit
+    the mesh): ``issue(async_op)`` makes the call. ``record``: (the
+    sanitizer's name of the op, its input tensor), reported to
+    ``sanitizer.record_collective`` with the axis, shape and dtype before
+    the call (a no-op unless the sanitizer is on); None for the
+    sanitizer's own hash gather. A ``collective`` boundary with the fault
+    points ``allreduce`` and ``mesh.collective_hang``. Under an armed watchdog or a resilient fit
     on gloo (``resilience.polling``) the wait can be interrupted: gloo's
     work is waited on by :class:`_Waiter`'s thread while this one looks
     at the resilient fit's recovery flag, NCCL's is polled. A backend
     failure, or the flag, raises ``ParticipantLost``."""
     global _last_collective
+    if record is not None:
+        op, t = record
+        sanitizer.record_collective(op, axis, t.shape, t.dtype)
     fault_point("allreduce")
     prev = resilience.mark_boundary(
         "collective", lambda: f"{what} ({tag}) over {axis}, ranks "
@@ -451,9 +462,13 @@ def _run(mesh: Mesh, axis: str, what: str, tag: str,
         resilience.restore_boundary(prev)
 
 
+def _group(mesh: Mesh, axis: str):
+    """The process group of ``axis`` (``"mesh"``: every rank of it)."""
+    return mesh.group if axis == "mesh" else mesh.groups[axis]
+
+
 def _ranks(mesh: Mesh, axis: str) -> List[int]:
-    group = mesh.group if axis == "mesh" else mesh.groups[axis]
-    return list(dist.get_process_group_ranks(group))
+    return list(dist.get_process_group_ranks(_group(mesh, axis)))
 
 
 def _count(mesh: Mesh, tag: str, t: torch.Tensor) -> None:
@@ -462,6 +477,8 @@ def _count(mesh: Mesh, tag: str, t: torch.Tensor) -> None:
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
+# the sanitizer's (the reference's) names of the reductions
+_SAN_OPS = {"sum": "psum", "max": "pmax", "min": "pmin"}
 
 
 def all_reduce(mesh: Mesh, t: torch.Tensor, axis: str = DATA_AXIS,
@@ -474,7 +491,8 @@ def all_reduce(mesh: Mesh, t: torch.Tensor, axis: str = DATA_AXIS,
     if buf is t:
         buf = t.clone()
     _run(mesh, axis, "all_reduce", tag, lambda a: dist.all_reduce(
-        buf, op=_OPS[op], group=mesh.groups[axis], async_op=a))
+        buf, op=_OPS[op], group=mesh.groups[axis], async_op=a),
+        record=(_SAN_OPS[op], buf))
     _count(mesh, tag, buf)
     return buf.to(t.device)
 
@@ -500,22 +518,27 @@ def reduce_scatter(mesh: Mesh, t: torch.Tensor, axis: str = DATA_AXIS,
                       device=buf.device)
     fn = _collective("reduce_scatter_single", "reduce_scatter_tensor")
     _run(mesh, axis, "reduce_scatter", tag,
-         lambda a: fn(out, buf, group=mesh.groups[axis], async_op=a))
+         lambda a: fn(out, buf, group=mesh.groups[axis], async_op=a),
+         record=("reduce_scatter", buf))
     _count(mesh, tag, out)
     return out.to(t.device)
 
 
 def all_gather(mesh: Mesh, t: torch.Tensor, axis: str = DATA_AXIS,
-               tag: str = "other") -> torch.Tensor:
+               tag: str = "other", record: bool = True) -> torch.Tensor:
     """Every rank's ``t`` (same shape on each) along a new first block:
-    ``(size * t.shape[0], ...)`` in rank order on ``axis``."""
+    ``(size * t.shape[0], ...)`` in rank order on ``axis`` (``"mesh"``:
+    every rank of the mesh, in its rank order). ``record=False`` keeps
+    it out of the sanitizer's collective sequence (the sanitizer's own
+    hash gather)."""
     buf = _to_comm(mesh, t)
-    size = mesh.shape[axis]
+    size = mesh.size if axis == "mesh" else mesh.shape[axis]
     out = torch.empty((size * t.shape[0], *t.shape[1:]), dtype=t.dtype,
                       device=buf.device)
     fn = _collective("all_gather_single", "all_gather_into_tensor")
     _run(mesh, axis, "all_gather", tag,
-         lambda a: fn(out, buf, group=mesh.groups[axis], async_op=a))
+         lambda a: fn(out, buf, group=_group(mesh, axis), async_op=a),
+         record=("all_gather", buf) if record else None)
     _count(mesh, tag, out)
     return out.to(t.device)
 
@@ -533,13 +556,15 @@ def broadcast_object(mesh: Mesh, obj: Any = None, tag: str = "object"
     size = torch.tensor([len(payload)], dtype=torch.int64,
                         device=mesh.comm_device)
     _run(mesh, "mesh", "broadcast", tag, lambda a: dist.broadcast(
-        size, src, group=mesh.group, async_op=a))
+        size, src, group=mesh.group, async_op=a),
+        record=("pbroadcast", size))
     n = int(size.item())
     data = (torch.frombuffer(bytearray(payload), dtype=torch.uint8).to(
         mesh.comm_device) if leader else
         torch.empty(n, dtype=torch.uint8, device=mesh.comm_device))
     _run(mesh, "mesh", "broadcast", tag, lambda a: dist.broadcast(
-        data, src, group=mesh.group, async_op=a))
+        data, src, group=mesh.group, async_op=a),
+        record=("pbroadcast", data))
     _count(mesh, tag, data)
     return obj if leader else pickle.loads(data.cpu().numpy().tobytes())
 

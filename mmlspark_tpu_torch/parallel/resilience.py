@@ -63,6 +63,7 @@ from mmlspark_tpu_torch.core.env import (RECOVERY_MAX, RECOVERY_MIN_DP,
                                          WATCHDOG_INIT_S, WATCHDOG_MIN_S,
                                          WATCHDOG_MULT, env_float, env_int)
 from mmlspark_tpu_torch.core.logging_utils import logger
+from mmlspark_tpu_torch.core.sanitizer import san_lock
 
 __all__ = [
     "TrainStalled", "ParticipantLost", "TrainWatchdog", "FitRecovery",
@@ -112,8 +113,7 @@ _active: Optional["TrainWatchdog"] = None
 # rank (``recovery_watch``)
 _recovery_watch: Optional[Callable[[], bool]] = None
 _step_throttle: Optional[Callable[[Any], None]] = None
-# the reference's sanitizer lock; a plain lock until ROADMAP A14
-_lock = threading.Lock()
+_lock = san_lock("resilience.state")
 _stall_count = 0
 _recovery_count = 0
 # how often a blocking wait looks again while a watchdog is armed

@@ -11,7 +11,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from mmlspark_tpu_torch.core import env
+from mmlspark_tpu_torch.core import env, sanitizer
 
 
 def resolve_infer_autocast() -> str:
@@ -48,7 +48,10 @@ class ShardedScorer:
     scores are all-gathered over ``dp`` (``parallel.mesh.all_gather``)
     and cut to the call's rows. Every rank of the mesh makes the call
     with the same rows and gets every row's scores. Without a mesh it
-    calls ``fn`` on the rows in ``max_batch`` batches."""
+    calls ``fn`` on the rows in ``max_batch`` batches. A rung's first
+    call is a build for the sanitizer's recompile budget
+    (``sanitizer.count_recompile``), as the reference's first compile of
+    a rung is."""
 
     def __init__(self, fn: Callable, mesh=None, *, max_batch: int = 65536):
         from mmlspark_tpu_torch.parallel.inference import bucket_ladder
@@ -91,7 +94,10 @@ class ShardedScorer:
                                                       axis_index)
         shard = -(-max(n, 1) // self.dp)
         rung = bucket_for(shard, self._ladder)
-        self.rungs_used.add(rung)
+        if rung not in self.rungs_used:
+            self.rungs_used.add(rung)
+            sanitizer.count_recompile(
+                f"shard_rules gbdt rung {rung} (global {self.dp * rung})")
         lo = axis_index(self.mesh, DATA_AXIS) * shard
         scores = self._score(x[lo:lo + shard], rung)[:shard]
         if len(scores) < shard:

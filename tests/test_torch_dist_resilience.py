@@ -719,7 +719,9 @@ def test_survivors_agree_through_the_store():
         for t in threads:
             t.start()
         for t in threads:
-            t.join()
+            # bounded: a survivor that never decides fails the test
+            t.join(timeout=wait_s + 30.0)
+            assert not t.is_alive(), f"a survivor waited past {wait_s} s"
         return got, time.monotonic() - t0
 
     got, wall = run(4, 1, (0, 2, 3), "k1", 0.5, late=(3,))

@@ -14,7 +14,8 @@ at B bins and fits them on the float32, q16 and q8 planes as phase
 ``breadth_path`` does: each ``train`` once to capture its step, then
 once timed (host clock to a synchronize), with its launches per kernel.
 Prints one JSON line per run — the fit's wall and rate, host syncs per
-fit, the profiled fit's wall and the device's idle share (of the fit as
+fit, a digest of the fitted booster's arrays (equal digests: the same
+trees, bit for bit), the profiled fit's wall and the device's idle share (of the fit as
 it runs: the replayed captured step where the checkout has one), and the
 wide fits' ``train`` s — then the card's name and power limit. Needs a
 CUDA card; run it from either root.
@@ -25,7 +26,8 @@ import subprocess
 import sys
 
 RUN = r"""
-import json, sys
+import hashlib, json, sys
+import numpy as np
 sys.path.insert(0, ".")
 import chip_smoke as C
 ctx = {"smi": C.nvidia_smi_line(), "launches": {}}
@@ -33,6 +35,11 @@ main = C.phase_main(ctx)
 prof = C.phase_profile(ctx)
 row = {k: main[k] for k in ("fit_s", "fit_mrow_trees_per_s",
                             "syncs_per_fit", "launches")}
+digest = hashlib.sha256()
+for name in C.BOOSTER_ARRAYS:
+    digest.update(np.ascontiguousarray(
+        getattr(ctx["main_booster"], name)).tobytes())
+row["booster_sha256"] = digest.hexdigest()[:16]
 # the profile as the fit runs: replayed (``captured``) where the
 # checkout captures its boosting step, else the eager fit's
 fit_prof = prof.get("captured", prof)
